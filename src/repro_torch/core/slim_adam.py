@@ -1,0 +1,91 @@
+"""SlimAdam, the paper's low-memory Adam (port of ``repro/core/slim_adam.py``,
+Eq. 2, first moment kept).
+
+For a tensor with compression dims K the second moment follows
+
+    V_{t+1} = b2 * V_t + (1 - b2) * E_K[G_t^2]
+
+with V stored reduced over K (the reduced dims kept as size 1, so the
+preconditioner broadcast is free). K = () recovers Adam for that tensor.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..optim import fused
+from ..optim.base import (
+    GradientTransformation,
+    add_decayed_weights,
+    chain,
+    clip_by_global_norm,
+    matrices_only,
+    resolve_backend,
+    scale_by_learning_rate,
+)
+
+Dims = Tuple[int, ...]
+
+
+class ScaleBySlimAdamState(NamedTuple):
+    count: torch.Tensor   # int32 0-d
+    mu: Any               # {name: f32 first moment, full shape}
+    nu: Any               # {name: f32 second moment, size-1 reduced dims}
+
+
+def _reduced_shape(shape, dims: Dims) -> Tuple[int, ...]:
+    return tuple(1 if i in set(dims) else s for i, s in enumerate(shape))
+
+
+def second_moment_elements(params: Dict[str, torch.Tensor], dims: Dict[str, Dims]) -> int:
+    """Stored second-moment entry count."""
+    return sum(int(torch.Size(_reduced_shape(p.shape, tuple(dims[k]))).numel()) for k, p in params.items())
+
+
+def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, *,
+                       backend: str = "jnp") -> GradientTransformation:
+    """Adam preconditioner with mean-shared second moments along per-leaf
+    dims (``dims``: ``{name: positional dims}``, from
+    ``repro_torch.core.rules.rules_as_tree``). ``backend`` 'fused' routes
+    the tree through the megaplan (K = () leaves in the dense group, the
+    rest in one ``mega_slim_update_batched`` launch per slim group); 'jnp'
+    runs the plain per-leaf math; 'auto' picks 'fused' for CUDA tensors."""
+    resolve_backend(backend)
+
+    def init_fn(params):
+        device = next(iter(params.values())).device
+        return ScaleBySlimAdamState(
+            count=torch.zeros((), dtype=torch.int32, device=device),
+            mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()},
+            nu={k: torch.zeros(_reduced_shape(p.shape, tuple(dims[k])), dtype=torch.float32, device=p.device)
+                for k, p in params.items()})
+
+    def update_fn(updates, state, params=None):
+        names = list(updates)
+        count = state.count + 1
+        g = [updates[k] for k in names]
+        mu = [state.mu[k] for k in names]
+        nu = [state.nu[k] for k in names]
+        d = [tuple(dims[k]) for k in names]
+        kw = dict(b1=b1, b2=b2, eps=eps, count=count)
+        if resolve_backend(backend, g[0].device) == "fused":
+            u, mu, nu = fused.slim_tree_update(g, mu, nu, d, **kw)
+        else:
+            u, mu, nu = zip(*[fused.jnp_slim_leaf(*leaf, **kw) for leaf in zip(g, mu, nu, d)])
+        return dict(zip(names, u)), ScaleBySlimAdamState(count, dict(zip(names, mu)), dict(zip(names, nu)))
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def slim_adam(learning_rate: float, dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
+              eps: float = 1e-8, weight_decay: float = 0.1, grad_clip: Optional[float] = 1.0,
+              backend: str = "jnp") -> GradientTransformation:
+    """AdamW recipe with SlimAdam's compressed preconditioner — the same
+    hyperparameters as Adam, as the paper requires."""
+    parts = [clip_by_global_norm(grad_clip)] if grad_clip is not None else []
+    parts.append(scale_by_slim_adam(dims, b1=b1, b2=b2, eps=eps, backend=backend))
+    if weight_decay:
+        parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
+    parts.append(scale_by_learning_rate(learning_rate))
+    return chain(*parts)

@@ -1,0 +1,22 @@
+"""The port's kernels (CUDA C++ for sm_90a, built on first use by
+``build.py``) with their plain PyTorch twins, and the canonical-layout and
+megaplan logic around them."""
+from __future__ import annotations
+
+from typing import Dict
+
+from .megaplan import mega_adam_update, mega_slim_update_batched
+from .snr_stats import snr_stats_centered_batched
+
+KERNELS = (mega_adam_update, mega_slim_update_batched, snr_stats_centered_batched)
+
+
+def reset_launch_counts() -> None:
+    """Zero every kernel wrapper's launch counter."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset, by wrapper name."""
+    return {fn.__name__: fn.launches for fn in KERNELS}

@@ -1,0 +1,275 @@
+"""Whole-tree megaplan: O(groups) kernel launches per optimizer step (port of
+``repro/kernels/megaplan.py``, the unsharded base outputs).
+
+:func:`plan_megagroups` groups every kernel-eligible leaf by regime key —
+``dense`` (K = (), lane-folded flat, one group for the tree), ``minor`` /
+``major`` (2-D canonical plans keyed by the reduction extent) and
+``batched`` (3-D scan-stacked plans keyed by (batch, extent)). Concatenation
+always runs along the kept axis, so no reduction line crosses a segment
+boundary and each group is one larger instance of the per-leaf problem.
+:func:`gather_group` / :func:`scatter_group` move leaves into and out of a
+group's f32 super-tensor by segment offset; per-leaf bias corrections enter
+as O(kept) lines built by :func:`segment_lines`.
+
+The two optimizer kernels live here beside their plain twins:
+
+* :func:`mega_adam_update` — ``csrc/mega_adam.cu``, replacing
+  ``repro/kernels/megaplan.py:351`` (body ``_mega_adam_kernel`` :337,
+  ``pallas_call`` :375). Bound by bytes: 24 B per element.
+* :func:`mega_slim_update_batched` — ``csrc/mega_slim.cu``, replacing
+  ``repro/kernels/megaplan.py:417`` (body ``_mega_slim_kernel`` :386,
+  ``pallas_call`` :448). Bound by bytes: 16 B per element plus 16 B per line.
+
+The ``.cu`` files' notes say how each design follows from its bound.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from . import build
+from .ops import CanonND, canon_apply, canon_restore, leaf_plan
+
+# Lane width of the dense group's (rows, LANES) fold: the JAX kernels'
+# tile width, kept so that group shapes match the reference plan.
+LANES = 512
+
+Dims = Tuple[int, ...]
+
+
+class MegaSegment(NamedTuple):
+    """One leaf's slot in a group's super-tensor."""
+
+    index: int                  # leaf index in the caller's tree order
+    shape: Tuple[int, ...]      # original leaf shape
+    red_shape: Tuple[int, ...]  # reduced-moment shape (size-1 reduced dims)
+    dims: Dims                  # reduction dims
+    cn: Optional[CanonND]       # canonical plan (None for dense segments)
+    offset: int                 # start along the group's concat axis
+    length: int                 # extent along the concat axis
+
+
+class MegaGroup(NamedTuple):
+    """One concatenation-compatible leaf group = one kernel launch.
+    ``(batch, rows, cols)`` is the canonical view; ``axis`` the per-batch
+    reduction axis (1 minor / 0 major, -1 for the elementwise dense group)."""
+
+    kind: str                   # 'dense' | 'minor' | 'major' | 'batched'
+    batch: int
+    rows: int
+    cols: int
+    axis: int
+    segments: Tuple[MegaSegment, ...]
+
+    @property
+    def concat_axis(self) -> int:
+        return {"dense": 0, "minor": 0, "major": 1, "batched": 2}[self.kind]
+
+
+class MegaPlan(NamedTuple):
+    groups: Tuple[MegaGroup, ...]
+    jnp_idx: Tuple[int, ...]    # leaves left to the plain per-leaf path
+
+
+def _slim_key(cn: CanonND) -> Tuple[str, int, int]:
+    if cn.batch > 1:
+        return ("batched", cn.batch, cn.rows)
+    if cn.axis == 1:
+        return ("minor", 1, cn.cols)
+    return ("major", 1, cn.rows)
+
+
+def _dense_group(items) -> MegaGroup:
+    segs, off = [], 0
+    for i, shape, red_shape, dims, cn in items:
+        length = -(-math.prod(shape) // LANES)   # lane-folded row count
+        segs.append(MegaSegment(i, shape, red_shape, dims, cn, off, length))
+        off += length
+    return MegaGroup("dense", 1, off, LANES, -1, tuple(segs))
+
+
+def _slim_group(key, items) -> MegaGroup:
+    kind, batch, red = key
+    segs, off = [], 0
+    for i, shape, red_shape, dims, cn in items:
+        length = cn.rows if kind == "minor" else cn.cols
+        segs.append(MegaSegment(i, shape, red_shape, dims, cn, off, length))
+        off += length
+    if kind == "minor":
+        return MegaGroup("minor", 1, off, red, 1, tuple(segs))
+    if kind == "major":
+        return MegaGroup("major", 1, red, off, 0, tuple(segs))
+    return MegaGroup("batched", batch, red, off, 0, tuple(segs))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_cached(shapes: Tuple[Tuple[int, ...], ...], dtypes: Tuple[torch.dtype, ...],
+                 dims_leaves: Tuple[Dims, ...]) -> MegaPlan:
+    dense_items: List[tuple] = []
+    slim_items: Dict[Tuple[str, int, int], list] = {}
+    jnp_idx: List[int] = []
+    for i, (shape, dtype, dims) in enumerate(zip(shapes, dtypes, dims_leaves)):
+        plan = leaf_plan(shape, dtype, dims)
+        if plan.route == "jnp":
+            jnp_idx.append(i)
+        elif plan.route == "dense":
+            dense_items.append((i, shape, shape, (), None))
+        else:
+            dset = {d % len(shape) for d in dims}
+            red_shape = tuple(1 if j in dset else s for j, s in enumerate(shape))
+            slim_items.setdefault(_slim_key(plan.cn), []).append((i, shape, red_shape, dims, plan.cn))
+    groups: List[MegaGroup] = [_dense_group(dense_items)] if dense_items else []
+    groups += [_slim_group(key, slim_items[key]) for key in sorted(slim_items)]
+    return MegaPlan(tuple(groups), tuple(jnp_idx))
+
+
+def plan_megagroups(shapes: Sequence[Tuple[int, ...]], dtypes: Sequence[torch.dtype],
+                    dims_leaves: Sequence[Dims]) -> MegaPlan:
+    """Plan the whole-tree grouping (cached: a pure function of the leaf
+    geometry, which is fixed for a run). Leaf order is the caller's tree
+    order, so segment offsets follow it."""
+    return _plan_cached(tuple(tuple(int(d) for d in s) for s in shapes), tuple(dtypes),
+                        tuple(tuple(int(d) for d in ds) for ds in dims_leaves))
+
+
+# ---------------------------------------------------------------------------
+# Gather / scatter
+# ---------------------------------------------------------------------------
+
+
+def gather_group(group: MegaGroup, xs: Sequence[torch.Tensor], *, reduced: bool = False) -> torch.Tensor:
+    """Concatenate the group's leaves into its f32 super-tensor (lane-folded
+    flat for dense, canonical views along the kept axis otherwise;
+    ``reduced=True`` gathers the size-1-reduced moment lines). This copies
+    every operand once per step."""
+    if group.kind == "dense":
+        parts = []
+        for seg in group.segments:
+            flat = xs[seg.index].float().reshape(-1)
+            parts.append(torch.nn.functional.pad(flat, (0, seg.length * LANES - flat.numel())))
+        return torch.cat(parts).reshape(group.rows, LANES)
+    return torch.cat([canon_apply(xs[seg.index].float(), seg.cn, reduced_cols=reduced)
+                      for seg in group.segments], dim=group.concat_axis)
+
+
+def scatter_group(group: MegaGroup, y: torch.Tensor, *, reduced: bool = False) -> List[torch.Tensor]:
+    """Slice a super-tensor output back into per-leaf tensors in their
+    original layouts, aligned with ``group.segments``. Dense and minor
+    segments are views; major and batched ones are copies (their slices
+    along a non-leading axis are not contiguous)."""
+    out: List[torch.Tensor] = []
+    for seg in group.segments:
+        sl = y.narrow(group.concat_axis, seg.offset, seg.length)
+        if group.kind == "dense":
+            out.append(sl.reshape(-1)[:math.prod(seg.shape)].reshape(seg.shape))
+        else:
+            out.append(canon_restore(sl, seg.cn, seg.red_shape if reduced else seg.shape))
+    return out
+
+
+def segment_lines(group: MegaGroup, values: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Expand one per-leaf scalar (e.g. a bias correction, a 0-d device
+    tensor) into the group's contiguous line operand, shaped like the
+    reduced-moment line: (N, 1) dense/minor, (1, N) major, (B, 1, N) batched."""
+    flat = torch.cat([v.float().reshape(1).expand(seg.length)
+                      for v, seg in zip(values, group.segments)])
+    if group.kind in ("dense", "minor"):
+        return flat[:, None]
+    if group.kind == "major":
+        return flat[None, :]
+    return flat[None, None, :].expand(group.batch, 1, flat.numel()).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Kernels and their plain twins
+# ---------------------------------------------------------------------------
+
+_ADAM_ARGTYPES = [build.PTR] * 8 + [build.SIZE] * 2 + [build.F32] * 5 + [build.PTR]
+_SLIM_ARGTYPES = ([build.PTR] * 8 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 6 + [build.PTR])
+_MAX_GRID_Y = 65535
+_MAX_GRID_X = 2**31 - 1
+
+
+def mega_adam_update_plain(g, m, v, bc1, bc2, *, b1, b2, eps):
+    """Plain PyTorch version of :func:`mega_adam_update`, in the kernel's
+    operation order."""
+    m_new = b1 * m + (1 - b1) * g
+    v_new = b2 * v + (1 - b2) * g * g
+    return (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
+
+
+def mega_adam_update(g, m, v, bc1, bc2, *, b1=0.9, b2=0.999, eps=1e-8):
+    """Dense Adam over a (rows, cols) super-tensor with per-row bias lines
+    ``bc1``/``bc2`` (rows, 1); ``cols`` a multiple of 4 (the kernel loads
+    float4s; the dense group has ``LANES`` columns). Returns (u, m', v'),
+    f32. CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
+    if g.ndim != 2 or g.shape[1] % 4 or m.shape != g.shape or v.shape != g.shape \
+            or bc1.shape != (g.shape[0], 1) or bc2.shape != bc1.shape:
+        raise ValueError(f"mega_adam_update: want g, m, v (rows, cols), cols % 4 == 0, and bc lines "
+                         f"(rows, 1); got {[tuple(t.shape) for t in (g, m, v, bc1, bc2)]}")
+    device = build.check_operands("mega_adam_update", g=g, m=m, v=v, bc1=bc1, bc2=bc2)
+    if device.type == "cpu":
+        return mega_adam_update_plain(g, m, v, bc1, bc2, b1=b1, b2=b2, eps=eps)
+    outs = tuple(torch.empty_like(g) for _ in range(3))
+    if g.numel() == 0:
+        return outs
+    if any(t.data_ptr() % 16 for t in (g, m, v, *outs)):
+        raise ValueError("mega_adam_update: g, m and v must start on a 16-byte boundary (float4 loads)")
+    fn = build.entry("repro_mega_adam_update", _ADAM_ARGTYPES)
+    build.launch("mega_adam_update", fn, device, *(t.data_ptr() for t in (g, m, v, bc1, bc2, *outs)),
+                 g.shape[0], g.shape[1], b1, 1.0 - b1, b2, 1.0 - b2, eps)
+    mega_adam_update.launches += 1
+    return outs
+
+
+mega_adam_update.launches = 0
+
+
+def mega_slim_update_batched_plain(g, m, v_line, bc1, bc2, *, axis, b1, b2, eps):
+    """Plain PyTorch version of :func:`mega_slim_update_batched`, in the
+    kernel's operation order (ek = line sum times 1/n, as the TPU kernel)."""
+    red = 2 if axis == 1 else 1
+    ek = torch.sum(g * g, dim=red, keepdim=True) * (1.0 / g.shape[red])
+    v_new = b2 * v_line + (1 - b2) * ek
+    m_new = b1 * m + (1 - b1) * g
+    return (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
+
+
+def mega_slim_update_batched(g, m, v_line, bc1, bc2, *, axis: int, b1=0.9, b2=0.95, eps=1e-8):
+    """Fused SlimAdam precondition over a (B, R, C) super-tensor whose kept
+    axis concatenates same-geometry leaves. ``v_line``, ``bc1``, ``bc2`` are
+    (B, R, 1) for ``axis=1`` and (B, 1, C) for ``axis=0``. Returns
+    (u, m', v_line'), f32. CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
+    if g.ndim != 3 or axis not in (0, 1):
+        raise ValueError(f"mega_slim_update_batched: want (B, R, C) and axis 0|1, got "
+                         f"{tuple(g.shape)}, axis {axis}")
+    b, r, c = g.shape
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    if m.shape != g.shape or any(t.shape != line for t in (v_line, bc1, bc2)):
+        raise ValueError(f"mega_slim_update_batched: want m {tuple(g.shape)} and lines {line}; got "
+                         f"{[tuple(t.shape) for t in (m, v_line, bc1, bc2)]}")
+    device = build.check_operands("mega_slim_update_batched", g=g, m=m, v_line=v_line, bc1=bc1, bc2=bc2)
+    if device.type == "cpu":
+        return mega_slim_update_batched_plain(g, m, v_line, bc1, bc2, axis=axis, b1=b1, b2=b2, eps=eps)
+    if g.numel() == 0:
+        raise ValueError("mega_slim_update_batched: empty lines have no mean")
+    if (axis == 1 and b * r > _MAX_GRID_X) or (axis == 0 and b > _MAX_GRID_Y):
+        raise ValueError(f"mega_slim_update_batched: shape {tuple(g.shape)} exceeds the launch grid")
+    u, m_out = torch.empty_like(g), torch.empty_like(g)
+    v_out = torch.empty_like(v_line)
+    n_red = c if axis == 1 else r
+    fn = build.entry("repro_mega_slim_update", _SLIM_ARGTYPES)
+    build.launch("mega_slim_update_batched", fn, device,
+                 *(t.data_ptr() for t in (g, m, v_line, bc1, bc2, u, m_out, v_out)),
+                 b, r, c, axis, 1.0 / n_red, b1, 1.0 - b1, b2, 1.0 - b2, eps)
+    mega_slim_update_batched.launches += 1
+    return u, m_out, v_out
+
+
+mega_slim_update_batched.launches = 0
+

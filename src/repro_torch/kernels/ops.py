@@ -1,0 +1,131 @@
+"""Canonical layouts and the per-leaf dispatch plan (port of the shape logic
+in ``repro/kernels/ops.py``), plus ``snr_op``.
+
+The slim and SNR kernels work on one batched canonical form ``(B, R, C)``
+with the reduction along C (``axis=1``, minor: rows are lines) or along R
+(``axis=0``, major: columns are lines). :func:`canon_nd` maps any leaf shape
+and reduction-dims subset onto that form by a pure reshape whenever memory
+order allows (trailing K -> minor, leading K -> major, kept/K/kept ->
+batched major); only a genuinely interleaved K transposes.
+
+:func:`leaf_plan` differs from the JAX one in one respect: the TPU's VMEM
+fit gate (``repro/kernels/tiling.py`` ``strip_fits``) has no counterpart,
+because the CUDA kernels never hold a whole line on chip. Every non-empty-K
+float leaf goes to the slim kernel; routes may differ from the reference,
+results may not.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from .ref import snr_from_centered_stats
+from .snr_stats import snr_stats_centered_batched
+
+
+class CanonND(NamedTuple):
+    """Plan for the batched ``(B, R, C)`` view of an n-D reduction."""
+
+    perm: Tuple[int, ...]       # permutation applied before the reshape
+    inv: Tuple[int, ...]        # inverse permutation
+    batch: int                  # kept-prefix batch extent (1 = plain 2-D)
+    rows: int
+    cols: int
+    axis: int                   # per-batch reduction axis: 1 minor | 0 major
+    reshape_only: bool
+
+
+def canon_nd(shape: Tuple[int, ...], dims: Tuple[int, ...]) -> CanonND:
+    """Plan a batched canonical view of ``shape`` for reduction dims ``dims``
+    (any non-empty subset of axes), preferring a transpose-free plan."""
+    ndim = len(shape)
+    if not dims:
+        raise ValueError("canon_nd needs a non-empty reduction dim set")
+    for d in dims:
+        if not -ndim <= d < ndim:
+            raise ValueError(f"reduction dim {d} out of range for shape {shape}")
+    dset = {d % ndim for d in dims}
+    if len(dset) != len(dims):
+        raise ValueError(f"duplicate reduction dims in {dims} for shape {shape}")
+    red = tuple(sorted(dset))
+    kept = tuple(i for i in range(ndim) if i not in dset)
+    red_size = math.prod(shape[i] for i in red)
+    kept_size = math.prod(shape[i] for i in kept)
+
+    # Size-1 axes never change memory order, so only the relative order of
+    # the non-trivial reduced and kept axes decides reachability.
+    nt_red = [i for i in red if shape[i] > 1]
+    nt_kept = [i for i in kept if shape[i] > 1]
+    minor_ok = not nt_red or not nt_kept or max(nt_kept) < min(nt_red)
+    major_ok = not nt_red or not nt_kept or max(nt_red) < min(nt_kept)
+
+    def plan(perm, batch, rows, cols, axis, reshape_only):
+        inv = [0] * ndim
+        for newpos, old in enumerate(perm):
+            inv[old] = newpos
+        return CanonND(tuple(perm), tuple(inv), batch, rows, cols, axis, reshape_only)
+
+    if minor_ok:
+        return plan(kept + red, 1, kept_size, red_size, 1, True)
+    if major_ok:
+        return plan(red + kept, 1, red_size, kept_size, 0, True)
+    lo, hi = min(nt_red), max(nt_red)
+    if all(k < lo or k > hi for k in nt_kept):
+        # kept prefix / reduced block / kept suffix: the prefix becomes the
+        # batch dim and each slice is a transpose-free major problem.
+        return plan(tuple(range(ndim)), math.prod(shape[:lo]), math.prod(shape[lo:hi + 1]),
+                    math.prod(shape[hi + 1:]), 0, True)
+    return plan(kept + red, 1, kept_size, red_size, 1, False)
+
+
+def canon_apply(x: torch.Tensor, cn: CanonND, *, reduced_cols: bool = False) -> torch.Tensor:
+    """Bring a full tensor (or, with ``reduced_cols``, a reduced moment with
+    size-1 reduced dims) into the canonical layout."""
+    if cn.batch > 1:
+        return x.reshape((cn.batch, 1, cn.cols) if reduced_cols else (cn.batch, cn.rows, cn.cols))
+    if reduced_cols:
+        target = (cn.rows, 1) if cn.axis == 1 else (1, cn.cols)
+    else:
+        target = (cn.rows, cn.cols)
+    if cn.reshape_only:
+        return x.reshape(target)
+    return x.permute(cn.perm).reshape(target)
+
+
+def canon_restore(y2: torch.Tensor, cn: CanonND, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of :func:`canon_apply` back to ``shape``. ``reshape`` copies
+    where a slice of a super-tensor is not contiguous (major and batched
+    groups slice a non-leading axis); dense and minor slices stay views."""
+    if cn.reshape_only:
+        return y2.reshape(shape)
+    permuted = tuple(shape[i] for i in cn.perm)
+    return y2.reshape(permuted).permute(cn.inv)
+
+
+class LeafPlan(NamedTuple):
+    """Per-leaf dispatch: 'dense' (K = ()), 'slim' (``cn`` set) or 'jnp'
+    (the plain per-leaf path: scalar, empty or non-float leaves)."""
+
+    route: str
+    cn: Optional[CanonND]
+
+
+def leaf_plan(shape: Tuple[int, ...], dtype: torch.dtype, dims: Tuple[int, ...]) -> LeafPlan:
+    if not (len(shape) >= 1 and math.prod(shape) > 0 and dtype.is_floating_point):
+        return LeafPlan("jnp", None)
+    dims = tuple(dims)
+    if not dims:
+        return LeafPlan("dense", None)
+    return LeafPlan("slim", canon_nd(tuple(shape), dims))
+
+
+def snr_op(v: torch.Tensor, *, axis: int = 1) -> torch.Tensor:
+    """Per-line mean^2 / var over a canonical moment view (2-D, or batched
+    3-D) via the centered-stats kernel, shaped (B, kept); their mean is the
+    scalar SNR. ``axis`` is the per-batch reduction axis."""
+    n = v.shape[-1] if axis == 1 else v.shape[-2]
+    v3 = v if v.ndim == 3 else v[None]
+    s1, s1c, s2c = snr_stats_centered_batched(v3, axis=axis)
+    return snr_from_centered_stats(s1, s1c, s2c, n)

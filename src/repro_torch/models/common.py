@@ -1,0 +1,98 @@
+"""Parameter specs, initializers and norms (port of ``repro/models/common.py``).
+
+Every parameter is declared by a :class:`ParamSpec` carrying its logical axes
+and paper role, which feed ``repro_torch.core`` (rules, SNR). Initializers
+draw from a ``torch.Generator`` on the CPU and are moved to the target
+device afterwards, so a seed gives the same weights on every device. They do
+not reproduce JAX's random bits: tests carry JAX parameters across with
+``repro_torch.convert`` and compare the port's own init by statistics.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..core.labels import ParamMeta, flatten_with_names
+
+Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.dtype], torch.Tensor]
+
+
+def normal_init(std: float = 0.02) -> Initializer:
+    def init(gen, shape, dtype):
+        return (torch.randn(shape, generator=gen) * std).to(dtype)
+
+    return init
+
+
+def mitchell_residual_init(std: float, n_layers: int) -> Initializer:
+    """Mitchell init for residual-stream writers: std / sqrt(2 * n_layers)."""
+    return normal_init(std / math.sqrt(2.0 * max(n_layers, 1)))
+
+
+def ones_init() -> Initializer:
+    return lambda gen, shape, dtype: torch.ones(shape, dtype=dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+    role: str
+    init: Initializer
+    fan_in: Tuple[str, ...] = ()
+    fan_out: Tuple[str, ...] = ()
+    dtype: torch.dtype = torch.float32
+
+    def meta(self) -> ParamMeta:
+        return ParamMeta(axes=self.axes, role=self.role, fan_in=self.fan_in, fan_out=self.fan_out)
+
+
+def init_params(spec_tree: Any, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
+    """Materialize ``{dotted name: tensor}`` in tree order from a (nested)
+    ParamSpec dict, drawing leaves in that order from ``gen``."""
+    return {name: s.init(gen, s.shape, s.dtype).to(device)
+            for name, s in flatten_with_names(spec_tree)}
+
+
+def meta_tree(spec_tree: Any) -> Dict[str, ParamMeta]:
+    return {name: s.meta() for name, s in flatten_with_names(spec_tree)}
+
+
+def stack_specs(spec_tree: Dict[str, Any], n: int) -> Dict[str, Any]:
+    """Prepend a stacked 'layers' axis of size n to every spec."""
+
+    def stack(s):
+        if isinstance(s, dict):
+            return {k: stack(v) for k, v in s.items()}
+
+        def init(gen, shape, dtype, s=s):
+            return torch.stack([s.init(gen, s.shape, dtype) for _ in range(n)])
+
+        return ParamSpec(shape=(n,) + s.shape, axes=("layers",) + s.axes, role=s.role, init=init,
+                         fan_in=s.fan_in, fan_out=s.fan_out, dtype=s.dtype)
+
+    return stack(spec_tree)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(torch.square(x), dim=-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 statistics, cast back to the input dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    x = x * scale.float()
+    if bias is not None:
+        x = x + bias.float()
+    return x.to(dtype)

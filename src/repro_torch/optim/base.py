@@ -1,0 +1,119 @@
+"""Minimal optax-style gradient transformations on flat name -> tensor dicts
+(port of ``repro/optim/base.py``).
+
+    tx = chain(clip_by_global_norm(1.0), slim_adam(...), add_decayed_weights(0.1),
+               scale_by_learning_rate(lr))
+
+``update(grads, state, params) -> (updates, new_state)``; updates are added
+to the parameters by :func:`apply_updates`. States are NamedTuples of device
+tensors; nothing here synchronises with the host.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+Tree = Dict[str, torch.Tensor]
+
+# Optimizer execution backends, named as in the JAX package:
+#   'jnp'   — the per-leaf plain-PyTorch math (the reference path)
+#   'fused' — the megaplan through the hand-written CUDA kernels (for CPU
+#             tensors the kernels' plain twins run in their place)
+#   'auto'  — 'fused' for CUDA tensors, 'jnp' otherwise
+BACKENDS = ("jnp", "fused", "auto")
+
+
+def resolve_backend(backend: str, device: Optional[torch.device] = None) -> str:
+    """Collapse 'auto' to a concrete backend for tensors on ``device``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
+    if backend == "auto":
+        return "fused" if device is not None and torch.device(device).type == "cuda" else "jnp"
+    return backend
+
+
+class GradientTransformation(NamedTuple):
+    init: Callable[[Tree], Any]
+    update: Callable[[Tree, Any, Optional[Tree]], Tuple[Tree, Any]]
+
+
+class EmptyState(NamedTuple):
+    pass
+
+
+class ChainState(NamedTuple):
+    inner_states: Tuple[Any, ...]
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """Compose transformations left to right."""
+
+    def init_fn(params):
+        return ChainState(tuple(t.init(params) for t in transforms))
+
+    def update_fn(updates, state, params=None):
+        new_states = []
+        for t, s in zip(transforms, state.inner_states):
+            updates, s = t.update(updates, s, params)
+            new_states.append(s)
+        return updates, ChainState(tuple(new_states))
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def _stateless(fn: Callable[[Tree, Optional[Tree]], Tree]) -> GradientTransformation:
+    return GradientTransformation(lambda params: EmptyState(),
+                                  lambda updates, state, params=None: (fn(updates, params), state))
+
+
+def scale_by_learning_rate(lr: float) -> GradientTransformation:
+    """Multiply by -lr (a constant; learning-rate schedules are not ported)."""
+    if callable(lr):
+        raise NotImplementedError("learning-rate schedules are not ported yet")
+    return _stateless(lambda updates, params: {k: u * -lr for k, u in updates.items()})
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in f32, on the device."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """Rescale only when the norm exceeds ``max_norm``; never amplify. The
+    decision stays on the device (no host sync)."""
+
+    def clip(updates, params):
+        g_norm = global_norm(updates)
+        factor = torch.where(g_norm <= max_norm, torch.ones_like(g_norm), max_norm / (g_norm + 1e-16))
+        return {k: u * factor.to(u.dtype) for k, u in updates.items()}
+
+    return _stateless(clip)
+
+
+def add_decayed_weights(weight_decay: float,
+                        mask: Optional[Callable[[Tree], Dict[str, bool]]] = None) -> GradientTransformation:
+    """Decoupled weight decay (AdamW): u + wd * p on the leaves ``mask``
+    selects (all leaves without a mask)."""
+
+    def decay(updates, params):
+        if params is None:
+            raise ValueError("add_decayed_weights requires params")
+        use = mask(params) if mask is not None else {k: True for k in params}
+        return {k: (u + weight_decay * params[k].to(u.dtype) if use[k] else u) for k, u in updates.items()}
+
+    return _stateless(decay)
+
+
+def matrices_only(params: Tree) -> Dict[str, bool]:
+    """The standard LM weight-decay mask: decay tensors with ndim >= 2."""
+    return {k: p.ndim >= 2 for k, p in params.items()}
+
+
+@torch.no_grad()
+def apply_updates(params: Tree, updates: Tree) -> Tree:
+    """p <- p + u in place (the port updates parameters in place to save
+    the copy JAX's functional update makes); returns ``params``."""
+    for k, p in params.items():
+        p.add_(updates[k].to(p.dtype))
+    return params

@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain PyTorch twins on the card.
+
+Needs a CUDA GPU (marked ``cuda``; skips elsewhere) and imports no JAX, so
+it runs on a machine without the JAX package:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Tolerances, relative to each output's largest magnitude: 1e-6 for outputs
+computed elementwise in the same operation order (m', and u and m', v' of
+dense Adam), 1e-5 for outputs that depend on a line sum (summation order
+differs).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import snr_along_dims
+from repro_torch.kernels import megaplan, snr_stats
+
+pytestmark = pytest.mark.cuda
+
+ELEMENTWISE = 1e-6
+LINE_SUMS = 1e-5
+KW = dict(b1=0.9, b2=0.95, eps=1e-8)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(a, b, tol):
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    err = float((a.double() - b.double()).abs().max()) if b.numel() else 0.0
+    assert err <= tol * max(scale, 1e-30), (err, scale, tol)
+
+
+def _inputs(dev, shape, line, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(shape, generator=gen, device=dev)
+    m = 0.1 * torch.randn(shape, generator=gen, device=dev)
+    v = 0.01 * torch.rand(line, generator=gen, device=dev)
+    bc1 = 0.05 + torch.rand(line, generator=gen, device=dev)
+    bc2 = 0.05 + torch.rand(line, generator=gen, device=dev)
+    return g, m, v, bc1, bc2
+
+
+@pytest.mark.parametrize("rows,cols", [(300, 512), (17, 12), (1, 4)])
+def test_mega_adam_update(dev, rows, cols):
+    g, m, _, bc1, bc2 = _inputs(dev, (rows, cols), (rows, 1), rows)
+    v = 0.01 * torch.rand((rows, cols), device=dev)
+    before = megaplan.mega_adam_update.launches
+    got = megaplan.mega_adam_update(g, m, v, bc1, bc2, **KW)
+    want = megaplan.mega_adam_update_plain(g, m, v, bc1, bc2, **KW)
+    torch.cuda.synchronize()
+    assert megaplan.mega_adam_update.launches == before + 1
+    for a, b in zip(got, want):
+        _close(a, b, ELEMENTWISE)
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (2, 7, 33, 1), (1, 40, 70, 0), (3, 200, 100, 0)])
+def test_mega_slim_update_batched(dev, b, r, c, axis):
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    inputs = _inputs(dev, (b, r, c), line, b * r * c)
+    got = megaplan.mega_slim_update_batched(*inputs, axis=axis, **KW)
+    want = megaplan.mega_slim_update_batched_plain(*inputs, axis=axis, **KW)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], LINE_SUMS)
+    _close(got[1], want[1], ELEMENTWISE)
+    _close(got[2], want[2], LINE_SUMS)
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (1, 1, 100003, 1), (2, 7, 33, 1), (3, 200, 100, 0)])
+@pytest.mark.parametrize("near_constant", [False, True])
+def test_snr_stats_centered_batched(dev, b, r, c, axis, near_constant):
+    gen = torch.Generator(device=dev).manual_seed(b * r + c)
+    x = torch.randn((b, r, c), generator=gen, device=dev)
+    v = 5.0 + 1e-4 * x if near_constant else x * x
+    got = snr_stats.snr_stats_centered_batched(v, axis=axis)
+    want = snr_stats.snr_stats_centered_batched_plain(v, axis=axis)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        _close(a, w, LINE_SUMS)
+
+
+def test_mega_adam_update_rejects_unaligned_operands(dev):
+    bc = torch.ones(4, 1, device=dev)
+    g = torch.zeros(4 * 8 + 1, device=dev)[1:].view(4, 8)   # contiguous, 4 bytes off
+    with pytest.raises(ValueError):
+        megaplan.mega_adam_update(g, g, g, bc, bc)
+    h = torch.zeros(4, 6, device=dev)
+    with pytest.raises(ValueError):
+        megaplan.mega_adam_update(h, h, h, bc, bc)
+
+
+@pytest.mark.parametrize("dims,per_dim", [((1, 3), None), ((1, 3), 2), ((1,), 0), ((0, 3), None)])
+def test_fused_snr_runs_every_view_in_the_kernel(dev, dims, per_dim):
+    """Transposing views and the per-remaining-dim form launch the kernel
+    and agree with the plain two-pass math on the card."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((4, 96, 6, 32), generator=gen, device=dev)
+    v = 1e-4 * torch.exp(x) * (1.0 + torch.arange(6, device=dev)[:, None])
+    before = snr_stats.snr_stats_centered_batched.launches
+    got = snr_along_dims(v, dims, per_remaining_dim=per_dim, backend="fused")
+    assert snr_stats.snr_stats_centered_batched.launches == before + 1
+    want = snr_along_dims(v, dims, per_remaining_dim=per_dim, backend="jnp")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+def test_wrapper_rejects_mixed_devices(dev):
+    g = torch.zeros(4, 8, device=dev)
+    with pytest.raises(ValueError):
+        megaplan.mega_adam_update(g, g, g.cpu(), torch.ones(4, 1, device=dev), torch.ones(4, 1, device=dev))
+
+
+def test_counts_reset(dev):
+    snr_stats.snr_stats_centered_batched(torch.rand(1, 3, 8, device=dev), axis=1)
+    kernels.reset_launch_counts()
+    assert set(kernels.launch_counts().values()) == {0}
+    np.testing.assert_equal(len(kernels.KERNELS), 3)
