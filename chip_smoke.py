@@ -26,7 +26,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against the plain 'jnp' backend from the same state for each of the
    three optimizers, a small reduced-model run on the card against the
    CPU, and step timings.
-4. One ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+4. ``paged_attention`` (B14) against its plain twin at full-width
+   smollm_135m shapes (9 heads over 3 KV groups, hd 64, pages of 16,
+   128-page table rows), bf16 and f32 pools, f32 queries: a decode batch of
+   16 ragged rows (one empty, one ending mid-page) and 128-token prefill
+   chunks at pos0 = 0 and at pos0 = 1024 with 100 valid tokens. Timed as in
+   phase 2, beside the bound and ``scaled_dot_product_attention`` on K/V
+   gathered dense (gather untimed).
+5. The serving main path through ``repro_torch.serve.Engine`` on the card:
+   full-width smollm_135m (30 layers, random weights from seed 0), 32
+   requests of 64 new tokens (28 greedy, 4 sampled) over 16 slots and a pool
+   small enough to preempt. Every request must finish by length with no
+   page left used, and ``paged_attention`` must launch 30 times per decode
+   step and prefill chunk. Then decode-step and prefill-chunk times and a
+   device profile of decode steps; the logits of a prefill chunk and of 4
+   decode steps through the kernel against the plain twin from the same
+   state; and reduced f32 smollm_135m and gpt_small served on the card
+   against the CPU, token for token.
+6. One ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -56,6 +73,13 @@ TOL_ELEMENTWISE = 1e-6   # same operation order in kernel and plain version
 TOL_LINE = 1e-5          # depends on a line sum; summation order differs
 TOL_STEP = 1e-5          # a whole fused update against the plain 'jnp' backend
 TOL_SMALL_RUN = 1e-3     # reduced-model loss curve, card against CPU, 5 steps
+TOL_SERVE_LOGITS = 5e-2  # full-width logits, kernel against plain attention: bf16 activations through 30 layers
+
+# Serving run geometry (phase 5). 800 pool pages force preemption of the 32
+# requests; the scheduler's counts do not depend on the weights, since no
+# request stops at an eos token.
+SERVE_SC = dict(max_seq=2048, page_size=16, max_slots=16, prefill_chunk=128, pool_pages=800)
+SERVE_REQUESTS, SERVE_GREEDY, SERVE_NEW = 32, 28, 64
 
 
 def log(*a):
@@ -105,6 +129,292 @@ class Timer:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def profile_device(torch, fn, n: int, wall_ms: float, label: str) -> dict:
+    """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
+    and the device's busy share against the unprofiled time ``wall_ms`` of
+    one call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(t for _, t in rows)
+    log(f"  profile ({n} {label}s): device busy {busy:.3f} ms per {label} of {wall_ms:.3f} ms "
+        f"({busy / wall_ms:.1%}); top kernels by device time per {label}:")
+    for key, t in rows[:12]:
+        log(f"    {t:8.4f} ms  {key[:110]}")
+    return dict(busy_ms=busy, wall_ms=wall_ms, kernels=rows[:40])
+
+
+def page_table(torch, positions, page: int, max_pages: int):
+    """A (rows, max_pages) int32 table on the card giving each row distinct
+    pages for its ``positions``, padded with the null page 0, and the pool
+    size (pages, the null page included) it needs."""
+    table = torch.zeros((len(positions), max_pages), dtype=torch.int32)
+    first = 1
+    for i, n in enumerate(-(-int(x) // page) for x in positions):
+        table[i, :n] = torch.arange(first, first + n, dtype=torch.int32)
+        first += n
+    return table.to(torch.device("cuda")), first
+
+
+def paged_case(torch, gen, *, lengths, alloc, c, pool_dtype, heads=9, kv=3, hd=64, page=16, max_pages=128):
+    """B14 operands: f32 queries (B, C, heads, hd), a pool holding exactly
+    the pages that ``alloc`` positions of each row need, the table, and
+    ``lengths``."""
+    dev = torch.device("cuda")
+    table, n_pages = page_table(torch, alloc, page, max_pages)
+    pool = torch.randn((n_pages, page, 2 * kv, hd), generator=gen, device=dev).to(pool_dtype)
+    q = torch.randn((len(alloc), c, heads, hd), generator=gen, device=dev)
+    return q, pool, table, torch.tensor([int(x) for x in lengths], dtype=torch.int32, device=dev)
+
+
+def paged_bound(q, pool, table, lengths, rate: float):
+    """Least time (ms) for one paged-attention call on these inputs, and what
+    sets it: the larger of the bytes it must move (each row's live pages,
+    whole page rows of K and V for every group; q, the output, the table and
+    the lengths) over the memory rate, and its operations (4 * hd per query
+    head and attended key, counted causally for these lengths) over the f32
+    rate."""
+    b, c, h, hd = q.shape
+    page = pool.shape[1]
+    reach = table.shape[1] * page
+    row_bytes = pool.shape[2] * hd * pool.element_size()
+    read, keys = 0, 0
+    for length in lengths.tolist():
+        read += -(-max(0, min(length, reach)) // page) * page * row_bytes
+        keys += sum(max(0, min(length - c + i + 1, reach)) for i in range(c))
+    nbytes = read + 2 * q.numel() * q.element_size() + 4 * (table.numel() + lengths.numel())
+    t_bytes, t_ops = nbytes / rate, 4 * h * hd * keys / F32_RATE
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_call(torch, q, pool, table, lengths):
+    """One ``scaled_dot_product_attention`` call computing the same
+    attention on K/V already gathered dense (the gather is not timed)."""
+    import torch.nn.functional as F
+
+    b, c, h, hd = q.shape
+    kv = pool.shape[2] // 2
+    s = table.shape[1] * pool.shape[1]
+    g = pool[table.long()]
+    k = g[:, :, :, 0::2].reshape(b, s, kv, hd).transpose(1, 2).contiguous()
+    v = g[:, :, :, 1::2].reshape(b, s, kv, hd).transpose(1, 2).contiguous()
+    qd = q.to(pool.dtype).transpose(1, 2).contiguous()
+    q_abs = lengths.long()[:, None] - c + torch.arange(c, device=q.device)[None, :]
+    mask = (torch.arange(s, device=q.device)[None, None, :] <= q_abs[:, :, None])[:, None]
+    return lambda: F.scaled_dot_product_attention(qd, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def serve_phases(torch, timer, rate: float, smi: str):
+    """Phases 4 and 5. Returns (report, the B14 entry of the kernels line)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import Transformer
+    from repro_torch.models.transformer import PagedState, init_paged_pools, paged_decode_step, paged_prefill_chunk
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    report: dict = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    # -- 4. B14 against its plain twin ------------------------------------
+    log("[4] paged_attention (B14) at full-width smollm_135m shapes against its plain twin, bound, SDPA")
+    rng = np.random.default_rng(0)
+    dec = rng.integers(1, 2049, 16)
+    dec[0], dec[1] = 0, 16 * 37 + 5
+    cases = {"decode": dict(lengths=dec, alloc=dec, c=1),
+             "prefill_pos0_0": dict(lengths=[128], alloc=[128], c=128),
+             "prefill_pos0_1024": dict(lengths=[1024 + 128], alloc=[1024 + 100], c=128)}
+    held = {}
+    for case, kw in cases.items():
+        for pool_dtype in (torch.bfloat16, torch.float32):
+            q, pool, table, lengths = paged_case(torch, gen, pool_dtype=pool_dtype, **kw)
+            args = (q, pool, table, lengths)
+            tag = f"{case} {str(pool_dtype).split('.')[-1]} pool"
+            got, want = pa.paged_attention(*args), pa.paged_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = check(tag, got, want, TOL_LINE)
+            if case == "decode" and got[0].any():
+                raise AssertionError("decode: the empty row's output is not exactly 0")
+            ms = timer(lambda: pa.paged_attention(*args), reps=20)
+            plain_ms = timer(lambda: pa.paged_attention_plain(*args), reps=5)
+            lib_ms = timer(sdpa_call(torch, *args), reps=20)
+            bound, by = paged_bound(*args, rate)
+            log(f"  {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
+                f"SDPA {lib_ms:.4f} ms  ({smi})")
+            held[tag] = dict(case=case, pool=str(pool_dtype), err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=lib_ms, lengths=[int(x) for x in kw["lengths"]])
+            del q, pool, table, lengths, args, got, want
+    report["paged_attention"] = held
+    torch.cuda.empty_cache()
+
+    # -- 5. the serving main path -------------------------------------------
+    cfg = get_config("smollm_135m")
+    log(f"[5] serving main path: full-width smollm_135m ({cfg.param_count()} parameters, random weights from "
+        f"seed 0), {SERVE_REQUESTS} requests x {SERVE_NEW} new tokens, {SERVE_SC}")
+    model = Transformer(cfg, device=dev, gen=torch.Generator().manual_seed(0))
+    eng = Engine(cfg, model.params, ServeConfig(**SERVE_SC))
+    del model
+    rng = np.random.default_rng(0)
+    prompt_lens = rng.integers(64, 1537, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in prompt_lens]
+    for i, p in enumerate(prompts):
+        sampled = i >= SERVE_GREEDY
+        eng.submit(Request(prompt=p, max_new_tokens=SERVE_NEW, temperature=0.8 if sampled else 0.0,
+                           seed=i if sampled else None))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    m = eng.metrics()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # bf16 pools: per layer and page, page positions x 2 * KV rows x hd
+    pool_gib = cfg.n_layers * eng.pool.n_pages * SERVE_SC["page_size"] * 2 * cfg.n_kv_heads * cfg.hd * 2 / 2**30
+    log(f"  drained in {wall:.2f} s: {m.tokens_out} tokens ({m.tokens_out / wall:.1f} tokens/s overall), "
+        f"{m.decode_steps} decode steps, {m.prefill_chunks} prefill chunks, {m.preempted} preemptions, "
+        f"page high water {m.page_high_water}/{m.pool_capacity}, launches {counts}")
+    log(f"  mean TTFT {m.ttft_mean_s * 1e3:.1f} ms, mean TPOT {m.tpot_mean_s * 1e3:.2f} ms, peak memory "
+        f"{peak:.3f} GiB above the parameters, pool {pool_gib:.3f} GiB ({smi})")
+    bad = [c for c in done.values() if c.finish_reason != "length" or len(c.tokens) != SERVE_NEW]
+    if len(done) != SERVE_REQUESTS or bad:
+        raise AssertionError(f"{len(done)} completions, unfinished or short: {[(c.id, c.finish_reason) for c in bad]}")
+    if m.used_pages != 0 or m.preempted < 1:
+        raise AssertionError(f"used pages {m.used_pages} after the drain, {m.preempted} preemptions (want >= 1)")
+    want_launches = cfg.n_layers * (m.decode_steps + m.prefill_chunks)
+    if counts["paged_attention"] != want_launches or sum(counts.values()) != want_launches:
+        raise AssertionError(f"launches {counts}, expected paged_attention {want_launches} and no other kernel")
+    run = dict(wall_s=wall, metrics=m.to_dict(), launches=counts, peak_gib=peak, pool_gib=pool_gib,
+               prompt_lens=prompt_lens.tolist())
+
+    # Step times on the synchronised host clock, outside the counted run: 16
+    # rows mid-generation (the first 16 prompts plus 32 tokens) in a pool of
+    # their own; then a device profile of decode steps.
+    params = eng.params
+    page = SERVE_SC["page_size"]
+    max_pages = -(-SERVE_SC["max_seq"] // page)
+    tl = [int(n) + 32 for n in prompt_lens[:16]]
+    table, n_pages = page_table(torch, [n + 1 for n in tl], page, max_pages)
+    pools = init_paged_pools(cfg, n_pages, page, torch.bfloat16, dev)
+    state = PagedState(pools=pools, table=table, lengths=torch.tensor(tl, dtype=torch.int32, device=dev),
+                       active=torch.ones(16, dtype=torch.bool, device=dev))
+    tokens = torch.randint(0, cfg.vocab_size, (16, 1), device=dev)
+    chunk = torch.randint(0, cfg.vocab_size, (1, SERVE_SC["prefill_chunk"]), device=dev)
+
+    def decode():
+        paged_decode_step(cfg, params, state, tokens)
+
+    def prefill():
+        paged_prefill_chunk(cfg, params, pools, table[:1], 512, SERVE_SC["prefill_chunk"], chunk)
+
+    def host_ms(fn, n=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    decode_ms, prefill_ms = host_ms(decode), host_ms(prefill)
+    log(f"  decode step (16 rows of {min(tl)}..{max(tl)} positions) {decode_ms:.3f} ms = "
+        f"{16 / decode_ms * 1e3:.1f} decode tokens/s; prefill chunk (128 tokens at pos0 512) {prefill_ms:.3f} ms")
+    run.update(decode_step_ms=decode_ms, prefill_chunk_ms=prefill_ms, decode_tokens_per_s=16 / decode_ms * 1e3,
+               decode_profile=profile_device(torch, decode, 3, decode_ms, "decode step"),
+               prefill_profile=profile_device(torch, prefill, 2, prefill_ms, "prefill chunk"))
+    del pools, state
+    report["serving"] = run
+
+    # The kernel path against the plain path at full width, from the same
+    # state: the first prefill chunk, then 4 decode steps over 4 prompts.
+    log(f"[5] logits through the kernel against the plain twin, full width, tolerance {TOL_SERVE_LOGITS:.0e} "
+        f"of max|logit|")
+    rng = np.random.default_rng(2)
+    lens4 = [300, 129, 1000, 64]
+    prompts4 = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in lens4]
+    table, n_pages = page_table(torch, [n + 4 for n in lens4], page, max_pages)
+    pools_k = init_paged_pools(cfg, n_pages, page, torch.bfloat16, dev)
+    pools_p = {k: v.clone() for k, v in pools_k.items()}
+    c = SERVE_SC["prefill_chunk"]
+    first_chunk = torch.from_numpy(prompts4[0][:c][None].copy()).to(dev)
+    lk, _, _ = paged_prefill_chunk(cfg, params, pools_k, table[:1], 0, c, first_chunk)
+    lp, _, _ = paged_prefill_chunk(cfg, params, pools_p, table[:1], 0, c, first_chunk, attn_impl="plain")
+    worst = {"prefill": check("first prefill chunk logits", lk.float(), lp.float(), TOL_SERVE_LOGITS)
+             / float(lp.float().abs().max())}
+    last = []
+    for row, p in enumerate(prompts4):
+        for lo in range(0, len(p), c):
+            buf = np.zeros((1, c), np.int32)
+            buf[0, :len(p[lo:lo + c])] = p[lo:lo + c]
+            n_valid = min(c, len(p) - lo)
+            logits, _, _ = paged_prefill_chunk(cfg, params, pools_k, table[row:row + 1], lo, n_valid,
+                                               torch.from_numpy(buf).to(dev))
+        last.append(int(logits[0, n_valid - 1].float().argmax()))
+    pools_p = {k: v.clone() for k, v in pools_k.items()}
+    lengths = torch.tensor(lens4, dtype=torch.int32, device=dev)
+    active = torch.ones(4, dtype=torch.bool, device=dev)
+    tokens = torch.tensor(last, device=dev)[:, None]
+    for step in range(4):
+        sk = PagedState(pools=pools_k, table=table, lengths=lengths, active=active)
+        sp = PagedState(pools=pools_p, table=table, lengths=lengths, active=active)
+        lk, ok_k, sk = paged_decode_step(cfg, params, sk, tokens)
+        lp, ok_p, _ = paged_decode_step(cfg, params, sp, tokens, attn_impl="plain")
+        err = check(f"decode step {step} logits", lk.float(), lp.float(), TOL_SERVE_LOGITS)
+        worst[f"decode_{step}"] = err / float(lp.float().abs().max())
+        if not (bool(ok_k.all()) and bool(ok_p.all())):
+            raise AssertionError(f"decode step {step}: non-finite logits")
+        lengths, tokens = sk.lengths, lk[:, -1].float().argmax(-1)[:, None]
+    report["kernel_vs_plain_logits_rel"] = worst
+    del pools_k, pools_p, eng, params
+    torch.cuda.empty_cache()
+
+    # A small input against a reference: reduced f32 models served on the
+    # card (through the kernel) and on the CPU (plain twin), greedy.
+    log("[5] reduced f32 smollm_135m and gpt_small served on the card against the CPU, greedy tokens")
+    rng = np.random.default_rng(3)
+    small = {}
+    for arch in ("smollm_135m", "gpt_small"):
+        rcfg = get_reduced(arch)
+        rparams = Transformer(rcfg, device="cpu", gen=torch.Generator().manual_seed(0)).params
+        rprompts = [rng.integers(0, rcfg.vocab_size, n, dtype=np.int32) for n in rng.integers(5, 25, 6)]
+        toks = {}
+        for device in ("cuda", "cpu"):
+            before = pa.paged_attention.launches
+            e = Engine(rcfg, rparams, ServeConfig(max_seq=64, page_size=8, max_slots=4, prefill_chunk=8),
+                       device=device)
+            rids = [e.submit(Request(prompt=p, max_new_tokens=16)) for p in rprompts]
+            d = e.run_until_drained()
+            toks[device] = [d[r].tokens.tolist() for r in rids]
+            launched = pa.paged_attention.launches - before
+            if (device == "cuda") != (launched > 0):
+                raise AssertionError(f"{arch} on {device}: {launched} kernel launches")
+        if toks["cuda"] != toks["cpu"]:
+            raise AssertionError(f"{arch}: card and CPU tokens differ: {toks}")
+        log(f"  {arch}: 6 requests x 16 tokens identical on the card and the CPU (first {toks['cuda'][0][:8]})")
+        small[arch] = toks["cuda"]
+    report["reduced_card_vs_cpu_tokens"] = small
+
+    dec_b = held["decode bfloat16 pool"]
+    entry = {"name": "paged_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention.py:143", "launches": counts["paged_attention"],
+             "max_abs_err": max(h["err"] for h in held.values()), "ms": dec_b["ms"], "plain_ms": dec_b["plain_ms"],
+             "bound_ms": dec_b["bound_ms"], "bound_by": dec_b["bound_by"], "library_ms": dec_b["library_ms"]}
+    return report, entry
 
 
 def main() -> int:
@@ -376,23 +686,7 @@ def main() -> int:
         return (time.perf_counter() - t0) / n * 1e3
 
     def profile_steps(tr, wall_ms, n=2):
-        """Device time by kernel over ``n`` steps (torch.profiler), and the
-        device's busy share against the unprofiled step time ``wall_ms``."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            tr.run(tr.step + n)
-            torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
-                if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0]
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(t for _, t in rows)
-        log(f"  profile ({n} steps): device busy {busy:.2f} ms per step of {wall_ms:.2f} ms "
-            f"({busy / wall_ms:.1%}); top kernels by device time per step:")
-        for key, t in rows[:12]:
-            log(f"    {t:8.3f} ms  {key[:110]}")
-        return dict(busy_ms=busy, wall_ms=wall_ms, kernels=rows[:40])
+        return profile_device(torch, lambda: tr.run(tr.step + 1), n, wall_ms, "step")
 
     t0 = time.perf_counter()
     for k in range(3):
@@ -453,8 +747,11 @@ def main() -> int:
     main["reduced_card_vs_cpu"] = dict(curves=curves, worst_rel=err)
     report["main_path"] = main
     report["kernels_detail"] = dict(groups=list(held.values()), snr=snr)
+    del rdata, curves
+    torch.cuda.empty_cache()
+    report["serve"], paged_entry = serve_phases(torch, timer, rate, smi)
 
-    # -- 4. result lines ------------------------------------------------------
+    # -- 6. result lines ------------------------------------------------------
     # Times per step of the main path: B2 on Adam's one dense group, B1 summed
     # over the Table-3 plan's three slim groups, B5 over one SNR measurement.
     # Errors are the worst over every group the main path launched on.
@@ -477,6 +774,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/snr_stats.py:133", "launches": launches["snr_stats_centered_batched"],
          "max_abs_err": snr["err"], "ms": snr["ms"], "plain_ms": snr["plain_ms"], "bound_ms": snr["bound_ms"],
          "bound_by": "bytes", "library_ms": snr["library_ms"]},
+        paged_entry,
     ]}
     report["kernels"] = line
     report["device"] = smi
@@ -484,7 +782,7 @@ def main() -> int:
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
-    log(f"[4] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
+    log(f"[6] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,13 +1,14 @@
-"""PyTorch port of ``repro`` (SlimAdam, layer-wise SNR, the GPT trainer) for
-one NVIDIA H100.
+"""PyTorch port of ``repro`` (SlimAdam, layer-wise SNR, the GPT trainer, the
+paged serving engine) for one NVIDIA H100.
 
 The package mirrors ``repro``'s layout and names so each module's
 counterpart is easy to find; it imports ``torch`` and numpy and nothing of
-JAX or of ``repro``. The optimizer and SNR kernels that ``repro`` writes in
-Pallas for the TPU are hand-written CUDA here (``repro_torch.kernels``), each
-beside a plain PyTorch twin that runs for CPU tensors.
+JAX or of ``repro``. The optimizer, SNR and paged-attention kernels that
+``repro`` writes in Pallas for the TPU are hand-written CUDA here
+(``repro_torch.kernels``), each beside a plain PyTorch twin that runs for
+CPU tensors.
 
-Entry points (``Trainer``, the CLI) run on CUDA unless the caller passes
+Entry points (``Trainer``, ``serve.Engine``, the CLIs) run on CUDA unless the caller passes
 ``device="cpu"``; without a GPU they raise rather than fall back.
 """
 from __future__ import annotations

@@ -6,7 +6,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-ARCH_IDS = ("gpt_small",)
+ARCH_IDS = ("gpt_small", "smollm_135m")
 
 
 def _module(arch: str):

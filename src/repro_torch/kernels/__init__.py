@@ -1,14 +1,17 @@
 """The port's kernels (CUDA C++ for sm_90a, built on first use by
 ``build.py``) with their plain PyTorch twins, and the canonical-layout and
-megaplan logic around them."""
+megaplan logic around them: the optimizer and SNR kernels of training and
+the paged attention of serving."""
 from __future__ import annotations
 
 from typing import Dict
 
 from .megaplan import mega_adam_update, mega_slim_update_batched
+# Bound under another name, so ``kernels.paged_attention`` stays the module.
+from .paged_attention import paged_attention as _paged_attention
 from .snr_stats import snr_stats_centered_batched
 
-KERNELS = (mega_adam_update, mega_slim_update_batched, snr_stats_centered_batched)
+KERNELS = (mega_adam_update, mega_slim_update_batched, snr_stats_centered_batched, _paged_attention)
 
 
 def reset_launch_counts() -> None:

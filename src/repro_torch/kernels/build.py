@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -109,9 +110,11 @@ F32 = ctypes.c_float
 INT = ctypes.c_int
 
 
-def check_operands(kernel: str, **tensors) -> torch.device:
-    """What every wrapper requires of its operands: f32, contiguous, one
-    device (CPU or CUDA). Returns that device."""
+def check_operands(kernel: str, *, dtypes: Optional[Mapping[str, Tuple[torch.dtype, ...]]] = None,
+                   **tensors) -> torch.device:
+    """What every wrapper requires of its operands: contiguous, one device
+    (CPU or CUDA), and a dtype among ``dtypes[name]`` (torch.float32 for an
+    operand ``dtypes`` does not name). Returns that device."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{kernel}: operands on several devices {sorted(map(str, devices))}")
@@ -119,8 +122,9 @@ def check_operands(kernel: str, **tensors) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{kernel}: unsupported device {device}")
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: {name} is {t.dtype}, want torch.float32")
+        allowed = (dtypes or {}).get(name, (torch.float32,))
+        if t.dtype not in allowed:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, want one of {allowed}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
     return device

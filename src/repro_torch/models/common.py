@@ -96,3 +96,22 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor
     if bias is not None:
         x = x + bias.float()
     return x.to(dtype)
+
+
+def rotary_embedding(positions: torch.Tensor, head_dim: int, base: float = 10000.0):
+    """Returns (sin, cos) of shape (..., head_dim/2), f32 angles."""
+    inv_freq = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                            device=positions.device) / head_dim))
+    angles = positions.float()[..., None] * inv_freq
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rotary(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D); sin/cos: (..., S, D/2) broadcast over heads. The
+    split-halves rotation in f32, cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    sin = sin[..., :, None, :]
+    cos = cos[..., :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dtype)

@@ -1,5 +1,6 @@
-"""Decoder backbone (port of ``repro/models/transformer.py``, training forward
-for the ``pattern=(attn, dense)`` family: gpt_small).
+"""Decoder backbone (port of ``repro/models/transformer.py``: the training
+forward and the paged serving steps for the ``pattern=(attn, dense)``
+family, gpt_small and smollm_135m).
 
 The parameter tree is JAX's, leaf for leaf: dotted names
 (``blocks.slot_0.attn.wq``), layers stacked along a leading ``layers`` axis
@@ -13,13 +14,19 @@ parameters cast at use, as the JAX model does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .attention import AttnConfig, attention_forward, attention_specs
+from .attention import (
+    AttnConfig,
+    attention_forward,
+    attention_paged_decode,
+    attention_paged_prefill,
+    attention_specs,
+)
 from .common import (
     ParamSpec,
     init_params,
@@ -53,7 +60,7 @@ class ModelConfig:
     pattern: Tuple[LayerSlot, ...] = (LayerSlot("attn", "dense"),)
     causal: bool = True
     tie_embeddings: bool = True
-    pos: str = "rope"                    # 'learned' is ported; 'rope' is not yet
+    pos: str = "rope"                    # 'rope' | 'learned'
     max_position: int = 8192
     norm: str = "rmsnorm"                # 'rmsnorm' | 'layernorm'
     gated_mlp: bool = True
@@ -188,9 +195,7 @@ def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, 
                 x = checkpoint(_slot_forward, cfg, p, x, use_reentrant=False)
             else:
                 x = _slot_forward(cfg, p, x)
-    x = _norm(cfg, _sub(params, "final_norm."), x)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
-    logits = x @ head.to(cfg.dtype).T
+    logits = _logits(cfg, params, x)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -224,3 +229,120 @@ class Transformer(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor]):
         return forward(self.cfg, self.params, batch)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode (serving fast path)
+#
+# KV lives in per-slot page pools shared by every in-flight request and
+# addressed through a per-slot-row page table (repro_torch.serve.kvpool owns
+# the host-side allocation; repro_torch.kernels.paged_attention does the
+# ragged reduction). Admitting or retiring a request costs no device
+# allocation. The steps write each layer's new K/V into its pool in place.
+# ---------------------------------------------------------------------------
+
+
+class PagedState(NamedTuple):
+    """Device state for the paged decode path.
+
+    pools:   {'slot_i': (n_periods, n_pages, page, 2*KV, hd)} per attn slot
+    table:   (B, max_pages) int32 page ids; entry 0 = reserved null page
+    lengths: (B,) int32 positions already stored per batch row
+    active:  (B,) bool — inactive rows write to the null page and attend
+             over 0 positions (their logits are garbage nobody samples)
+    """
+
+    pools: Dict[str, torch.Tensor]
+    table: torch.Tensor
+    lengths: torch.Tensor
+    active: torch.Tensor
+
+
+def supports_paged(cfg: ModelConfig) -> bool:
+    """The paged fast path covers attention-only stacks (the port has no
+    other mixer yet)."""
+    return (all(s.mixer in ("attn", None) for s in cfg.pattern)
+            and any(s.mixer == "attn" for s in cfg.pattern))
+
+
+def init_paged_pools(cfg: ModelConfig, n_pages: int, page_size: int, dtype=torch.bfloat16,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """One fused-layout page pool per attention slot, stacked over periods.
+    Page 0 of every pool is the reserved null page (target of inactive and
+    padded writes; never read, because those rows report length 0)."""
+    return {f"slot_{i}": torch.zeros((cfg.n_periods, n_pages, page_size, 2 * cfg.n_kv_heads, cfg.hd),
+                                     dtype=dtype, device=device)
+            for i, slot in enumerate(cfg.pattern) if slot.mixer == "attn"}
+
+
+def _paged_stack(cfg: ModelConfig, params: Dict[str, torch.Tensor], pools: Dict[str, torch.Tensor], x,
+                 attn_step):
+    """x through every period and slot of the stack, periods outer as in the
+    JAX scan: ``attn_step(p_attn, x_normed, layer_pool)`` for the mixer, then
+    the slot's MLP."""
+    slots = [(_unstack(_sub(params, f"blocks.slot_{i}."), cfg.n_periods), pools.get(f"slot_{i}"), slot)
+             for i, slot in enumerate(cfg.pattern)]
+    for period in range(cfg.n_periods):
+        for per_layer, pool, slot in slots:
+            p = per_layer[period]
+            if slot.mixer == "attn":
+                x = x + attn_step(p["attn"], _norm(cfg, p["mixer_norm"], x), pool[period])
+            if slot.ffn == "dense":
+                x = x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp)
+    return x
+
+
+def _logits(cfg: ModelConfig, params, x):
+    x = _norm(cfg, _sub(params, "final_norm."), x)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+    return x @ head.to(cfg.dtype).T
+
+
+@torch.no_grad()
+def paged_decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor], state: PagedState,
+                      tokens: torch.Tensor, *, attn_impl: str = "kernel"):
+    """One new token for every active batch row. tokens: (B, 1) int.
+
+    Returns (logits (B, 1, vocab), ok (B,) bool, new PagedState); the pools
+    are written in place and lengths advance on active rows only. ``ok`` is
+    the on-device logit health tap: per-row all-finite flags, so the engine
+    retires a poisoned row without scanning the vocabulary on the host.
+    ``attn_impl="plain"`` runs attention through the kernel's plain twin, an
+    explicit choice for comparisons; the engine never makes it.
+    """
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    if cfg.pos == "learned":
+        posv = torch.clamp(state.lengths.long(), 0, cfg.max_position - 1)
+        x = x + params["pos_embed"][posv][:, None].to(cfg.dtype)
+    attn = cfg.attn_cfg()
+    x = _paged_stack(cfg, params, state.pools, x, lambda p, h, pool: attention_paged_decode(
+        p, h, pool, state.table, state.lengths, state.active, attn, attn_impl=attn_impl))
+    logits = _logits(cfg, params, x)
+    ok = torch.isfinite(logits.float()).flatten(1).all(dim=1)
+    return logits, ok, PagedState(pools=state.pools, table=state.table,
+                                  lengths=state.lengths + state.active.to(torch.int32), active=state.active)
+
+
+@torch.no_grad()
+def paged_prefill_chunk(cfg: ModelConfig, params: Dict[str, torch.Tensor], pools: Dict[str, torch.Tensor],
+                        table_row: torch.Tensor, pos0: int, n_valid: int, tokens: torch.Tensor,
+                        *, attn_impl: str = "kernel"):
+    """Prefill one chunk of one request's prompt through the paged kernel.
+
+    tokens: (1, C) int at absolute positions ``pos0 .. pos0 + C - 1``; chunk
+    indices >= ``n_valid`` are padding (K/V routed to the null page).
+    Returns (logits (1, C, vocab), ok () bool, pools), the pools written in
+    place; the caller samples at chunk index ``n_valid - 1`` of the final
+    chunk, and ``ok`` is the health tap of exactly that row.
+    """
+    c = tokens.shape[1]
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    if cfg.pos == "learned":
+        posv = torch.clamp(pos0 + torch.arange(c, device=x.device), 0, cfg.max_position - 1)
+        x = x + params["pos_embed"][posv][None].to(cfg.dtype)
+    attn = cfg.attn_cfg()
+    x = _paged_stack(cfg, params, pools, x, lambda p, h, pool: attention_paged_prefill(
+        p, h, pool, table_row, pos0, n_valid, attn, attn_impl=attn_impl))
+    logits = _logits(cfg, params, x)
+    ok = torch.isfinite(logits[0, n_valid - 1].float()).all()
+    return logits, ok, pools

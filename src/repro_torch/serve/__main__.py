@@ -1,0 +1,60 @@
+"""Serving CLI, the port's counterpart of ``examples/serve_llm.py``.
+
+    PYTHONPATH=src python -m repro_torch.serve --arch smollm_135m --preset reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.serve --arch smollm_135m --preset full --requests 16
+
+Serves random weights made from seed 0 (no pretrained weights ship with the
+repository) on prompts drawn from seed 1, and prints each completion and the
+engine's metrics. Runs on the GPU unless ``--device`` names another device.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs import ARCH_IDS, get_config, get_reduced
+from ..models import Transformer
+from .engine import Engine, Request, ServeConfig
+
+# (ServeConfig, prompt length) per preset: the reduced one is examples/serve_llm.py's
+# geometry, the full one the chip smoke run's.
+PRESETS = {
+    "reduced": (dict(max_seq=64, page_size=8, max_slots=4, prefill_chunk=8), 8),
+    "full": (dict(max_seq=2048, page_size=16, max_slots=16, prefill_chunk=128), 256),
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.serve")
+    ap.add_argument("--arch", default="smollm_135m", choices=ARCH_IDS)
+    ap.add_argument("--preset", choices=tuple(PRESETS), default="reduced")
+    ap.add_argument("--device", default=None, help="default: the GPU (raises when there is none)")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch) if args.preset == "full" else get_reduced(args.arch)
+    sc_kw, prompt_len = PRESETS[args.preset]
+    model = Transformer(cfg, device=device, gen=torch.Generator().manual_seed(0))
+    eng = Engine(cfg, model.params, ServeConfig(**sc_kw), device=device)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (args.requests, prompt_len), dtype=np.int32)
+    rids = [eng.submit(Request(prompt=p, max_new_tokens=args.new_tokens, temperature=args.temperature, seed=i))
+            for i, p in enumerate(prompts)]
+    done = eng.run_until_drained()
+    print(f"arch={cfg.name} device={device} pool={eng.pool.n_pages}x{eng.pool.page_size} "
+          f"high_water={eng.pool.high_water} prefill_chunks={eng.prefill_chunks} decode_steps={eng.decode_steps}")
+    for i, rid in enumerate(rids):
+        c = done[rid]
+        print(f"  req{i}: prompt={list(map(int, c.prompt[:8]))}... -> generated={list(map(int, c.tokens))} "
+              f"[{c.finish_reason}, ttft={c.ttft_s * 1e3:.0f}ms]")
+    print("metrics:", eng.metrics().to_dict())
+    return done
+
+
+if __name__ == "__main__":
+    main()

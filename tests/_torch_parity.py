@@ -16,12 +16,12 @@ torch.set_num_threads(2)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_params(seed: int = 0):
-    """Reduced gpt_small as the JAX package (and its Trainer) initialises
-    it: (config, params pytree, meta pytree, {dotted name: numpy array}).
-    Cached per seed, as eager JAX init costs seconds; callers must not
-    mutate the arrays."""
-    cfg = jax_reduced("gpt_small")
+def jax_params(seed: int = 0, arch: str = "gpt_small"):
+    """A reduced architecture as the JAX package (and its Trainer)
+    initialises it: (config, params pytree, meta pytree, {dotted name: numpy
+    array}). Cached per seed and arch, as eager JAX init costs seconds;
+    callers must not mutate the arrays."""
+    cfg = jax_reduced(arch)
     params, meta = cfg.init(jax.random.PRNGKey(seed))
     arrays = {name: np.asarray(leaf) for name, leaf in jax_flatten(params)[0]}
     return cfg, params, meta, arrays

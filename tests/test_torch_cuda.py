@@ -8,7 +8,9 @@ it runs on a machine without the JAX package:
 Tolerances, relative to each output's largest magnitude: 1e-6 for outputs
 computed elementwise in the same operation order (m', and u and m', v' of
 dense Adam), 1e-5 for outputs that depend on a line sum (summation order
-differs).
+differs), and so for paged attention with f32 queries; with bf16 queries
+the output is bf16, and the two versions may round one step apart (2^-7
+relative).
 """
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import snr_along_dims
-from repro_torch.kernels import megaplan, snr_stats
+from repro_torch.kernels import megaplan, paged_attention as pa, snr_stats
 
 pytestmark = pytest.mark.cuda
 
@@ -120,4 +122,70 @@ def test_counts_reset(dev):
     snr_stats.snr_stats_centered_batched(torch.rand(1, 3, 8, device=dev), axis=1)
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
-    np.testing.assert_equal(len(kernels.KERNELS), 3)
+    np.testing.assert_equal(len(kernels.KERNELS), 4)
+
+
+def _paged_case(dev, *, c, kv, rep, hd, page, pool_dtype, q_dtype, b=5, max_pages=6, seed=0):
+    """Pool, distinct tables (row 2 padded with the null page), ragged
+    lengths. Decode: a full row, one a position into its second page, an
+    inactive row, one mid-page, one of a single position. Chunk: a full
+    row, a prefill from 0, one at pos0 = 2 pages, one whose padded length
+    passes the row's pages, one past the table's reach."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = torch.randn((b * max_pages + 1, page, 2 * kv, hd), generator=gen, device=dev).to(pool_dtype)
+    table = (1 + torch.arange(b * max_pages, dtype=torch.int32, device=dev)).reshape(b, max_pages)
+    table[2, 3:] = 0
+    reach = max_pages * page
+    lengths = ([reach, page + 1, 0, 3 * page - 2, 1] if c == 1
+               else [reach, c, 2 * page + c, 3 * page + c, reach + c - 1])
+    q = torch.randn((b, c, kv * rep, hd), generator=gen, device=dev).to(q_dtype)
+    return q, pool, table, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("hd,kv,rep", [(64, 3, 3), (16, 1, 3), (32, 3, 1), (128, 2, 4), (64, 1, 32)])
+@pytest.mark.parametrize("c", [1, 11, 128])
+@pytest.mark.parametrize("page", [4, 16, 64])
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention(dev, hd, kv, rep, c, page, pool_dtype):
+    q, pool, table, lengths = _paged_case(dev, c=c, kv=kv, rep=rep, hd=hd, page=page, pool_dtype=pool_dtype,
+                                          q_dtype=torch.float32)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, pool, table, lengths)
+    want = pa.paged_attention_plain(q, pool, table, lengths)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    _close(got, want, LINE_SUMS)
+    if c == 1:
+        assert not got[2].any(), "an inactive row is exactly 0"
+
+
+@pytest.mark.parametrize("c", [1, 128])
+def test_paged_attention_bf16_queries(dev, c):
+    q, pool, table, lengths = _paged_case(dev, c=c, kv=3, rep=3, hd=64, page=16, pool_dtype=torch.bfloat16,
+                                          q_dtype=torch.bfloat16)
+    got = pa.paged_attention(q, pool, table, lengths)
+    want = pa.paged_attention_plain(q, pool, table, lengths)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _close(got, want, 2.0**-7)
+
+
+def test_paged_attention_rejects_unsupported_geometry(dev):
+    """Geometry the kernel does not take raises; it never runs the twin."""
+    before = pa.paged_attention.launches
+    q, pool, table, lengths = _paged_case(dev, c=1, kv=1, rep=3, hd=48, page=4, pool_dtype=torch.float32,
+                                          q_dtype=torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_attention(q, pool, table, lengths)
+    q, pool, table, lengths = _paged_case(dev, c=1, kv=1, rep=33, hd=16, page=4, pool_dtype=torch.float32,
+                                          q_dtype=torch.float32)
+    with pytest.raises(ValueError, match="per KV group"):
+        pa.paged_attention(q, pool, table, lengths)
+    q, pool, table, lengths = _paged_case(dev, c=1, kv=1, rep=3, hd=16, page=4, pool_dtype=torch.float32,
+                                          q_dtype=torch.float32)
+    shifted = torch.empty(pool.numel() + 1, device=dev)[1:].view(pool.shape)   # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_attention(q, shifted, table, lengths)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q, pool, table.long(), lengths)
+    assert pa.paged_attention.launches == before
