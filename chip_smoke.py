@@ -16,6 +16,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    are CUDA-event medians with L2 flushed before each launch, beside the
    least time the card needs for the same bytes and operations and, where
    one PyTorch call computes the same function, that call's time.
+2b. The fault-tolerant slice's kernels against their plain twins on
+   gradients seeded with a known number of NaN and +-Inf entries (counts
+   held exactly): ``mega_adam_update(with_health)`` (B2) on Adam's dense
+   group, ``mega_slim_update_batched`` with ``with_snr``, ``with_health``
+   and both (B1) on the Table-3 slim groups, ``adam_precond`` (B3, with
+   and without health) on the per-leaf route's views of the leaves, its
+   small-leaf bucket and a ragged bf16 leaf, and ``slim_precond_batched``
+   (B4, axis 0 and 1, batch 12, bf16, ``with_snr`` and ``with_health``) on
+   the per-leaf Table-3 views; timed as in phase 2, B3 beside
+   ``Adam(fused=True)`` on the same tensors.
 3. Main path through the port's entry points, full-width gpt_small (depth
    not cut, random weights from a seed), batch 8 x seq 1024, bf16
    activations, ``backend="fused"``: 6 Adam steps measuring SNR at steps 3
@@ -26,6 +36,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against the plain 'jnp' backend from the same state for each of the
    three optimizers, a small reduced-model run on the card against the
    CPU, and step timings.
+3b. Guarded training at full width, batch 8 x 1024 as ``grad_accum=2``:
+   Adam measuring SNR and SlimAdam (Table 3) with from-update SNR, each 8
+   steps under ``FaultPlan(nan_grad_steps=(3,), spike_steps=(6,))`` with
+   checkpoints every 2 steps. The NaN step must leave parameters, moments
+   and count bit-identical with every gradient entry counted non-finite by
+   the kernels; the guard counters must be what the plan implies; the
+   from-update SNR of each compressed leaf must match the plain math on the
+   same g and v' (1e-4); no kernel may degrade; checkpoint bytes on disk.
+3c. Resume: a second Trainer on a guarded run's checkpoint directory
+   resumes at its latest step, and its next two losses match the
+   uninterrupted run's (1e-4).
+3d. The per-leaf route (``megakernel=False``): guarded Adam and SlimAdam
+   runs through B3 and B4, then one update against the megaplan route from
+   the same state (1e-5), with launches and times per update on each.
+3e. Kernel-failure drill: with ``inject_kernel_failure()`` installed, every
+   leaf of the plan's groups degrades (counted) and the run equals
+   ``backend="jnp"`` (1e-5); without the hook the count resets and the
+   kernels launch again. 3f: step times, plain against guarded, and a
+   SlimAdam measure step with from-update SNR against one with B5.
+   Launch counters are zeroed before and read after each counted run of
+   phases 3b-3d; every kernel of the slice must have launched.
 4. ``paged_attention`` (B14) against its plain twin at full-width
    smollm_135m shapes (9 heads over 3 KV groups, hd 64, pages of 16,
    128-page table rows), bf16 and f32 pools, f32 queries: a decode batch of
@@ -58,6 +89,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -74,6 +106,8 @@ TOL_LINE = 1e-5          # depends on a line sum; summation order differs
 TOL_STEP = 1e-5          # a whole fused update against the plain 'jnp' backend
 TOL_SMALL_RUN = 1e-3     # reduced-model loss curve, card against CPU, 5 steps
 TOL_SERVE_LOGITS = 5e-2  # full-width logits, kernel against plain attention: bf16 activations through 30 layers
+TOL_SNR = 1e-4           # from-update SNR against the plain math on the same g and v' (f64 against f32 sums)
+TOL_RESUME = 1e-4        # losses after a resume: the embedding backward sums with atomics on the card
 
 # Serving run geometry (phase 5). 800 pool pages force preemption of the 32
 # requests; the scheduler's counts do not depend on the weights, since no
@@ -417,6 +451,508 @@ def serve_phases(torch, timer, rate: float, smi: str):
     return report, entry
 
 
+# -- the fault-tolerant slice (phases 2b, 3b-3e) ----------------------------------
+
+
+def check_masked(what: str, a, b, tol) -> float:
+    """The same non-finite positions in ``a`` and ``b``; finite entries within
+    ``tol`` of max|b| (``tol=None``: equal)."""
+    import torch
+
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb):
+        raise AssertionError(f"{what}: non-finite entries at different positions")
+    if tol is None:
+        if not torch.equal(a[fa], b[fb]):
+            raise AssertionError(f"{what}: not equal")
+        log(f"  {what}: equal")
+        return 0.0
+    return check(what, torch.where(fa, a, 0.0), torch.where(fb, b, 0.0), tol)
+
+
+def poison(torch, x, n_bad: int, seed: int):
+    """``x`` with ``n_bad`` distinct entries set to NaN, +Inf, -Inf in turn."""
+    x = x.clone()
+    flat = x.view(-1)
+    idx = torch.randperm(flat.numel(), generator=torch.Generator().manual_seed(seed))[:n_bad].to(x.device)
+    vals = torch.tensor([float("nan"), float("inf"), float("-inf")], device=x.device, dtype=x.dtype)
+    flat[idx] = vals[torch.arange(n_bad, device=x.device) % 3]
+    return x
+
+
+def robust_kernels(torch, timer, rate, gen, specs, meta, adam_plan, t3_plan, t3_dims):
+    """Phase 2b: B2's and B1's flags on the main path's megaplan groups, B3
+    and B4 on the per-leaf route's views of the gpt_small leaves, each
+    against its plain twin on gradients seeded with NaN/Inf. Returns
+    {entry name: parity and timing}."""
+    from repro_torch.kernels import fused_adam, megaplan, slim_update
+    from repro_torch.kernels.ops import canon_apply, canon_nd
+    from repro_torch.optim.fused import DEFAULT_BUCKET_MIN, bias_corrections
+
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8)
+    dev = torch.device("cuda")
+    count = torch.tensor(3, dtype=torch.int32, device=dev)
+    bc1, bc2 = bias_corrections(0.9, 0.95, count)
+    out = {}
+
+    def inputs(shape, line, n_bad, seed):
+        g = poison(torch, 1e-3 * torch.randn(shape, generator=gen, device=dev), n_bad, seed)
+        return g, 1e-4 * torch.randn(shape, generator=gen, device=dev), 1e-6 * torch.rand(line, generator=gen, device=dev)
+
+    def add(name, **row):
+        acc = out.setdefault(name, dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, cases=[]))
+        acc["err"] = max(acc["err"], row["err"])
+        for k in ("ms", "plain_ms", "bound_ms"):
+            acc[k] += row[k]
+        acc["cases"].append(row)
+
+    def hold_outputs(tag, got, want, tols):
+        """Hold outputs in order; tolerance None = exact (the nf lines)."""
+        errs = []
+        for (label, tol), a, w in zip(tols, got, want):
+            errs.append(check_masked(f"{tag} {label}", a, w, tol))
+        return max(errs)
+
+    # B2 with_health on Adam's dense group, and B1's flags on the Table-3 slim groups
+    log("[2b] B2 with_health and B1 with_snr/with_health on the main path's groups, plain twin, bound")
+    for group in adam_plan.groups + tuple(g for g in t3_plan.groups if g.kind != "dense"):
+        b, r, c = group.batch, group.rows, group.cols
+        dense = group.kind == "dense"
+        shape = (r, c) if dense else (b, r, c)
+        line = (r, 1) if dense else (b, r, 1) if group.axis == 1 else (b, 1, c)
+        n_bad = 3000
+        g, m, v = inputs(shape, shape if dense else line, n_bad, r)
+        args = (g, m, v, bc1.expand(line).contiguous(), bc2.expand(line).contiguous())
+        n, lines = g.numel(), math.prod(line)
+        flag_sets = [dict(with_health=True)] if dense else [dict(with_snr=True), dict(with_health=True),
+                                                             dict(with_snr=True, with_health=True)]
+        for flags in flag_sets:
+            if dense:
+                name = "mega_adam_update(with_health)"
+                run = lambda: megaplan.mega_adam_update(*args, **flags, **kw)              # noqa: E731
+                plain = lambda: megaplan.mega_adam_update_plain(*args, **flags, **kw)      # noqa: E731
+                tols = [("u", TOL_ELEMENTWISE), ("m'", TOL_ELEMENTWISE), ("v'", TOL_ELEMENTWISE)]
+                nbytes = 24 * n + 16 * lines
+            else:
+                name = "mega_slim_update_batched(" + ",".join(sorted(flags)) + ")"
+                run = lambda: megaplan.mega_slim_update_batched(*args, axis=group.axis, **flags, **kw)      # noqa
+                plain = lambda: megaplan.mega_slim_update_batched_plain(*args, axis=group.axis, **flags, **kw)  # noqa
+                tols = [("u", TOL_LINE), ("m'", TOL_ELEMENTWISE), ("v'", TOL_LINE)]
+                if flags.get("with_snr"):
+                    tols += [("s1c", TOL_LINE), ("s2c", TOL_LINE)]
+                nbytes = 16 * n + 16 * lines + 8 * lines * len(flags)
+            if flags.get("with_health"):
+                tols += [("nf", None), ("ss", TOL_LINE)]
+            got, want = run(), plain()
+            tag = f"{name} {group.kind} {shape}"
+            err = hold_outputs(tag, got, want, tols)
+            if flags.get("with_health") and float(got[-2].double().sum()) != n_bad:
+                raise AssertionError(f"{tag}: {float(got[-2].double().sum())} non-finite counted, {n_bad} seeded")
+            ms, plain_ms = timer(run), timer(plain, reps=3)
+            bound = nbytes / rate * 1e3
+            log(f"  {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms")
+            add(name, kind=group.kind, shape=list(shape), err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+            del got, want
+        del g, m, v, args
+
+    # B3 on the per-leaf Adam route's views: the large leaves one by one, the
+    # small leaves as one bucket, and a ragged bf16 leaf
+    log("[2b] adam_precond (B3) on the per-leaf route's views, with and without health, plain twin, bound, "
+        "Adam(fused=True)")
+    big = [tuple(s.shape) for s in specs.values() if math.prod(s.shape) >= DEFAULT_BUCKET_MIN]
+    small = sum(math.prod(s.shape) for s in specs.values() if math.prod(s.shape) < DEFAULT_BUCKET_MIN)
+    views = [(shape[0] if len(shape) == 2 else math.prod(shape[:-1]), shape[-1]) for shape in big]
+    views += [(1, small)]
+    lib_tensors = []
+    for rows, cols in views + [(1001, 333)]:
+        extra = (rows, cols) == (1001, 333)
+        for dtype in ((torch.bfloat16,) if extra else (torch.float32,)):
+            g, m, v = inputs((rows, cols), (rows, cols), 77, rows + cols)
+            g = g.to(dtype)
+            n = g.numel()
+            for health in (False, True):
+                run = lambda: fused_adam.adam_precond(g, m, v, count=count, with_health=health, **kw)          # noqa
+                plain = lambda: fused_adam.adam_precond_plain(g, m, v, bc1, bc2, with_health=health, **kw)  # noqa
+                got, want = run(), plain()
+                tag = f"adam_precond {(rows, cols)} {str(dtype).split('.')[-1]} health={health}"
+                err = hold_outputs(tag, got[:3], want[:3], [("u", TOL_ELEMENTWISE), ("m'", TOL_ELEMENTWISE),
+                                                            ("v'", TOL_ELEMENTWISE)])
+                if health:
+                    if float(got[3][0]) != 77 or float(want[3][0]) != 77:
+                        raise AssertionError(f"{tag}: nf {float(got[3][0])} (plain {float(want[3][0])}), 77 seeded")
+                    err = max(err, check(f"{tag} ss", got[3][1:], want[3][1:], TOL_LINE))
+                ms, plain_ms = timer(run), timer(plain, reps=3)
+                bound = (n * (g.element_size() + 20) + (8 if health else 0)) / rate * 1e3
+                log(f"  {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms")
+                if not extra:
+                    add("adam_precond(with_health)" if health else "adam_precond", shape=[rows, cols], err=err,
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound)
+                else:
+                    out.setdefault("adam_precond_ragged_bf16", {})[str(health)] = dict(err=err, ms=ms,
+                                                                                       plain_ms=plain_ms, bound_ms=bound)
+                del got, want
+            if not extra:
+                p = torch.zeros(n, device=dev, requires_grad=True)
+                p.grad = g.float().reshape(-1).nan_to_num()
+                lib_tensors.append(p)
+            del g, m, v
+    opt = torch.optim.Adam(lib_tensors, lr=1e-3, betas=(0.9, 0.95), eps=1e-8, fused=True)
+    lib_ms = timer(opt.step)
+    for name in ("adam_precond", "adam_precond(with_health)"):
+        out[name]["library_ms"] = lib_ms
+    log(f"  the route's {len(views)} views: Adam(fused=True) over the same tensors, one call: {lib_ms:.4f} ms")
+    del opt, lib_tensors
+
+    # B4 on the per-leaf SlimAdam route's canonical views
+    log("[2b] slim_precond_batched (B4) on the per-leaf Table-3 route's views, plain twin, bound")
+    for name_leaf, spec in specs.items():
+        dims = t3_dims[name_leaf]
+        if not dims:
+            continue
+        cn = canon_nd(spec.shape, dims)
+        shape3 = (cn.batch, cn.rows, cn.cols)
+        line = (cn.batch, cn.rows, 1) if cn.axis == 1 else (cn.batch, 1, cn.cols)
+        dtypes = (torch.float32, torch.bfloat16) if cn.batch > 1 else (torch.float32,)
+        for dtype in dtypes:
+            g, m, v = inputs(shape3, line, 101, cn.rows)
+            g = g.to(dtype)
+            n, lines = g.numel(), math.prod(line)
+            for flags in (dict(with_health=True), dict(with_snr=True, with_health=True)):
+                run = lambda: slim_update.slim_precond_batched(g, m, v, axis=cn.axis, count=count, **flags, **kw)  # noqa
+                plain = lambda: slim_update.slim_precond_batched_plain(g, m, v, bc1, bc2, axis=cn.axis, **flags,  # noqa
+                                                                       **kw)
+                got, want = run(), plain()
+                tag = (f"slim_precond_batched {name_leaf} {shape3} axis {cn.axis} {str(dtype).split('.')[-1]} "
+                       f"{'+'.join(sorted(flags))}")
+                tols = [("u", TOL_LINE), ("m'", TOL_ELEMENTWISE), ("v'", TOL_LINE)]
+                tols += [("s1c", TOL_LINE), ("s2c", TOL_LINE)] if flags.get("with_snr") else []
+                err = hold_outputs(tag, got[:-1], want[:-1], tols)
+                if float(got[-1][0]) != 101 or float(want[-1][0]) != 101:
+                    raise AssertionError(f"{tag}: nf {float(got[-1][0])} (plain {float(want[-1][0])}), 101 seeded")
+                err = max(err, check(f"{tag} ss", got[-1][1:], want[-1][1:], TOL_LINE))
+                ms, plain_ms = timer(run), timer(plain, reps=3)
+                bound = (n * (g.element_size() + 12) + lines * (16 + 8 * len(flags)) + 8) / rate * 1e3
+                log(f"  {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms")
+                if dtype == torch.float32:
+                    add("slim_precond_batched(" + ",".join(sorted(flags)) + ")", leaf=name_leaf, shape=list(shape3),
+                        axis=cn.axis, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+                else:
+                    out.setdefault("slim_precond_batched_bf16", {})["+".join(sorted(flags))] = dict(
+                        err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+                del got, want
+            del g, m, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dims):
+    """Phases 3b-3f through the port's entry points at full width. Returns
+    the report; each counted run's launches are in it."""
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.core.slim_adam import scale_by_slim_adam
+    from repro_torch.models import forward
+    from repro_torch.optim import fused
+    from repro_torch.optim.adam import scale_by_adam
+    from repro_torch.optim.base import EmptyState, clip_by_global_norm
+    from repro_torch.train import FaultPlan, GuardConfig, Trainer, TrainerConfig, inject_kernel_failure
+    from repro_torch.train.loss import lm_loss
+
+    report: dict = {}
+    numel = sum(math.prod(s.shape) for s in specs.values())
+    ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    guard = GuardConfig(max_bad_steps=2, min_history=4)
+    plan = FaultPlan(nan_grad_steps=(3,), spike_steps=(6,))
+    n_steps = 8
+
+    def trainer(optimizer, *, faults=None, okw=None, **tc_kw):
+        tc = TrainerConfig(**{**dict(total_steps=n_steps, log_every=1, backend="fused", seed=0, guard=guard),
+                              **tc_kw})
+        tr = Trainer(cfg, optimizer, lr, data, tc, grad_accum=2, faults=faults, optimizer_kw=okw)
+        if [(k, tuple(p.shape)) for k, p in tr.params.items()] != [(k, s.shape) for k, s in specs.items()]:
+            raise AssertionError(f"{optimizer}: trainer parameters differ from the specs")
+        return tr
+
+    def counted(fn):
+        """Run ``fn`` with the launch counters zeroed before and read after."""
+        kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return kernels.launch_counts()
+
+    def accumulated_grads(tr, step):
+        """The step's gradients as the trainer forms them: two microbatches
+        of the batch, accumulated in f32, then the chain's global-norm clip."""
+        acc = {k: torch.zeros(p.shape, device=p.device) for k, p in tr.params.items()}
+        batch = tr.batch(step)
+        for micro in zip(*(v.chunk(2) for v in batch.values())):
+            loss, _ = lm_loss(cfg, tr.params, dict(zip(batch, micro)), forward)
+            for k, g in zip(acc, torch.autograd.grad(loss, list(tr.params.values()))):
+                acc[k] = acc[k] + g.float() / 2
+        return clip_by_global_norm(1.0).update(acc, EmptyState())[0]
+
+    def state_of(tr):
+        inner = tr.opt_state.inner_states[1]
+        return [p.detach().clone() for p in tr.params.values()] + [t.clone() for t in inner.mu.values()] \
+            + [t.clone() for t in inner.nu.values()] + [inner.count.clone()]
+
+    # -- 3b. guarded runs with faults, checkpoints, from-update SNR -----------
+    log(f"[3b] guarded training, full-width gpt_small, batch 8 x 1024 as grad_accum=2, {plan}, "
+        f"GuardConfig(max_bad_steps=2, min_history=4), checkpoints every 2 steps")
+    ft = {}
+    for optimizer in ("adam", "slim"):
+        fused.reset_kernel_degradation()
+        tc_kw = dict(measure_snr=True, snr_early_every=2, ckpt_every=2, ckpt_keep=2,
+                     ckpt_dir=str(ckpt_root / optimizer), snr_from_update=optimizer == "slim")
+        tr = trainer(optimizer, faults=plan, **tc_kw)
+        snr_check = {}
+        t0 = time.perf_counter()
+
+        def drive():
+            tr.run(1)
+            if optimizer == "slim":     # step 1 is a measure step: its SNR rides the update
+                inner = tr.opt_state.inner_states[1]
+                gc = accumulated_grads(tr, 1)
+                with torch.no_grad():
+                    for k, d in t3_dims.items():
+                        if d:
+                            v_new = fused.jnp_slim_leaf(gc[k], inner.mu[k], inner.nu[k], d, b1=0.9, b2=0.95,
+                                                        eps=1e-8, count=inner.count + 1)[2]
+                            snr_check[k] = float(fused.jnp_update_snr_leaf(gc[k], v_new, d, b2=0.95))
+                del gc
+            tr.run(3)
+            before = state_of(tr)
+            tr.run(4)                   # step 3: NaN gradients
+            after = state_of(tr)
+            if not all(torch.equal(a, b) for a, b in zip(before, after)):
+                raise AssertionError(f"{optimizer}: the NaN step changed parameters, moments or count")
+            snr_check["nan_step"] = dict(tr.metrics_log[-1])
+            tr.run()
+
+        counts = counted(drive)
+        wall = time.perf_counter() - t0
+        nan_step = snr_check.pop("nan_step")
+        stats = tr.guard.stats()
+        want = dict(guard_skipped=1.0, guard_spikes=1.0, guard_backoffs=1.0, guard_rollbacks=0.0,
+                    guard_nonfinite_total=float(numel))
+        got = {k: stats[k] for k in want}
+        losses = [m["loss"] for m in tr.metrics_log]
+        log(f"  {optimizer}: {n_steps} guarded steps in {wall:.2f} s, losses {[round(x, 4) for x in losses]}, "
+            f"guard {stats}, SNR at steps {tr.snr.steps}, launches {counts}")
+        if got != want or nan_step["step_skipped"] != 1.0 or nan_step["nonfinite_count"] != numel:
+            raise AssertionError(f"{optimizer}: guard counters {got}, NaN step {nan_step}; expected {want} and "
+                                 f"{numel} non-finite entries counted by the kernels")
+        log(f"  {optimizer}: the NaN step was skipped with parameters, moments and count bit-identical; the "
+            f"kernels counted {nan_step['nonfinite_count']:.0f} non-finite entries = every gradient entry")
+        if tr.snr.steps != [2, 6, 8] or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{optimizer}: SNR steps {tr.snr.steps}, losses {losses}")
+        if fused.kernel_degraded_leaves() != 0 or tr.ckpt_failures != 0:
+            raise AssertionError(f"{optimizer}: {fused.kernel_degraded_leaves()} degraded leaves, "
+                                 f"{tr.ckpt_failures} failed saves")
+        step_dirs = sorted((ckpt_root / optimizer).glob("step_*"))
+        if [p.name for p in step_dirs] != ["step_00000006", "step_00000008"]:
+            raise AssertionError(f"{optimizer}: checkpoints {[p.name for p in step_dirs]}")
+        ckpt_bytes = sum(f.stat().st_size for f in step_dirs[-1].iterdir())
+        log(f"  {optimizer}: checkpoint step_00000008 is {ckpt_bytes} bytes on disk ({ckpt_bytes / 2**30:.4f} GiB)")
+        worst_snr = 0.0
+        if optimizer == "slim":
+            for k, want_snr in snr_check.items():
+                d = sorted(t3_dims[k])
+                label = [lab for lab, axes in meta[k].candidate_ks().items() if sorted(meta[k].dims_of(axes)) == d]
+                got_snr = tr.snr.trajectory[k][label[0]][0]
+                rel = abs(got_snr - want_snr) / abs(want_snr)
+                worst_snr = max(worst_snr, rel)
+                log(f"  from-update SNR {k} along {label[0]}: {got_snr:.6e}, plain math on the same g and v' "
+                    f"{want_snr:.6e}, rel {rel:.2e}")
+            if len(snr_check) != 7 or worst_snr > TOL_SNR:
+                raise AssertionError(f"from-update SNR: {len(snr_check)} leaves, worst rel {worst_snr:.2e}")
+            per_measure = sum(1 for k, s in specs.items() for lab, axes in meta[k].candidate_ks().items()
+                              if sorted(meta[k].dims_of(axes)) != sorted(t3_dims[k]))
+            want_counts = {"mega_adam_update": n_steps, "mega_slim_update_batched": 3 * n_steps,
+                           "snr_stats_centered_batched": 3 * per_measure}
+        else:
+            want_counts = {"mega_adam_update": n_steps, "snr_stats_centered_batched": 3 * 21}
+        for k, n in want_counts.items():
+            if counts[k] != n:
+                raise AssertionError(f"{optimizer}: {k} launched {counts[k]} times, expected {n}")
+        ft[optimizer] = dict(wall_s=wall, losses=losses, guard=stats, snr_steps=tr.snr.steps, launches=counts,
+                             ckpt_bytes=ckpt_bytes, from_update_snr_worst_rel=worst_snr, nan_step=nan_step)
+        del tr
+        torch.cuda.empty_cache()
+    report["guarded"] = ft
+
+    # -- 3c. resume from a checkpoint -------------------------------------------
+    log("[3c] resume: a guarded SlimAdam run without faults checkpoints at steps 2 and 4; a second Trainer on "
+        "the same directory resumes at step 4 and its next two losses match the uninterrupted run's")
+    resume_dir = ckpt_root / "resume"
+
+    def drive_resume():
+        first = trainer("slim", total_steps=6, ckpt_every=2, ckpt_dir=str(resume_dir))
+        first.run(4)
+        first.tc.ckpt_every = 0
+        second = trainer("slim", total_steps=6, ckpt_dir=str(resume_dir))
+        if second.step != 4:
+            raise AssertionError(f"resumed at step {second.step}, expected 4")
+        first.run(6)
+        second.run(6)
+        return [m["loss"] for m in first.metrics_log[-2:]], [m["loss"] for m in second.metrics_log]
+
+    holder = {}
+    counts = counted(lambda: holder.update(zip(("want", "got"), drive_resume())))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(holder["got"], holder["want"]))
+    log(f"  uninterrupted losses {holder['want']}, resumed {holder['got']}, worst rel {rel:.2e} tol "
+        f"{TOL_RESUME:.0e}, launches {counts}")
+    if len(holder["got"]) != 2 or rel > TOL_RESUME:
+        raise AssertionError(f"resumed losses {holder['got']} against {holder['want']}")
+    report["resume"] = dict(want=holder["want"], got=holder["got"], worst_rel=rel)
+    torch.cuda.empty_cache()
+
+    # -- 3d. the per-leaf route ---------------------------------------------------
+    log("[3d] the per-leaf route (megakernel=False): guarded Adam and SlimAdam runs with from-update SNR, then "
+        "one update against the megaplan route from the same state")
+    per_leaf = {}
+    for optimizer in ("adam", "slim"):
+        tr = trainer(optimizer, total_steps=2, okw=dict(megakernel=False), measure_snr=True, snr_early_every=2,
+                     snr_from_update=optimizer == "slim")
+        counts = counted(tr.run)
+        log(f"  {optimizer} per-leaf: 2 guarded steps, losses {[round(m['loss'], 4) for m in tr.metrics_log]}, "
+            f"launches {counts}")
+        want_counts = ({"adam_precond": 2 * 9, "mega_adam_update": 0} if optimizer == "adam" else
+                       {"slim_precond_batched": 2 * 7, "adam_precond": 2 * 2, "mega_slim_update_batched": 0})
+        for k, n in want_counts.items():
+            if counts[k] != n:
+                raise AssertionError(f"{optimizer} per-leaf: {k} launched {counts[k]} times, expected {n}")
+        grads = accumulated_grads(tr, 5)
+        state = tr.opt_state.inner_states[1]
+        routes, times = {}, {True: [], False: []}
+        txs = {mk: scale_by_adam(b2=0.95, backend="fused", emit_health=True, megakernel=mk) if optimizer == "adam"
+               else scale_by_slim_adam(t3_dims, backend="fused", emit_snr=True, emit_health=True, megakernel=mk)
+               for mk in (True, False)}
+        with torch.no_grad():
+            for mk, tx in txs.items():
+                kernels.reset_launch_counts()
+                u, s = tx.update(grads, state)
+                routes[mk] = (u, s, {k: n for k, n in kernels.launch_counts().items() if n})
+            for mk in (True, False, False, True, True, False):        # in turns
+                times[mk].append(timer(lambda: txs[mk].update(grads, state), reps=5))
+        (um, sm, lm), (ul, sl, ll) = routes[True], routes[False]
+        msm, msl = statistics.median(times[True]), statistics.median(times[False])
+        worst = {what: max(max_err(b[k], a[k])[1] for k in a) for what, a, b in
+                 (("u", um, ul), ("m", sm.mu, sl.mu), ("v", sm.nu, sl.nu))}
+        if max(worst.values()) > TOL_STEP or not torch.equal(sm.health.nonfinite, sl.health.nonfinite):
+            raise AssertionError(f"{optimizer}: per-leaf against mega {worst}")
+        if optimizer == "slim":
+            snr_rel = max(abs(float(sl.snr[k]) - float(sm.snr[k])) / abs(float(sm.snr[k]))
+                          for k in sm.snr if sm.snr[k] is not None)
+            worst["snr"] = snr_rel
+            if snr_rel > TOL_SNR:
+                raise AssertionError(f"slim: per-leaf from-update SNR off by {snr_rel:.2e}")
+        log(f"  {optimizer}: per-leaf against mega, worst relative error {worst} (tol {TOL_STEP:.0e}); launches "
+            f"per update: mega {lm}, per-leaf {ll}; update time mega {msm:.3f} ms, per-leaf {msl:.3f} ms ({smi})")
+        per_leaf[optimizer] = dict(launches=counts, worst_rel=worst, mega_launches=lm, leaf_launches=ll,
+                                   mega_update_ms=msm, leaf_update_ms=msl)
+        del tr, grads, state, routes, txs, um, sm, ul, sl
+        torch.cuda.empty_cache()
+    report["per_leaf"] = per_leaf
+
+    # -- 3e. the kernel-failure drill -------------------------------------------------
+    log("[3e] kernel-failure drill: SlimAdam steps with every kernel dispatch failing, against backend='jnp'")
+    drill_steps = 2
+    plain_tr = trainer("slim", total_steps=drill_steps, backend="jnp", guard=None)
+    plain_tr.run()
+    drill_tr = trainer("slim", total_steps=drill_steps, guard=None)
+    with inject_kernel_failure(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        counts = counted(drill_tr.run)
+        degraded = fused.kernel_degraded_leaves()
+    in_groups = sum(len(g.segments) for g in t3_plan.groups)
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(drill_tr.metrics_log,
+                                                                               plain_tr.metrics_log))
+    param_rel = max(max_err(drill_tr.params[k].detach(), plain_tr.params[k].detach())[1] for k in specs)
+    log(f"  degraded leaves {degraded} (= {drill_steps} steps x {in_groups} leaves in the plan's groups), "
+        f"launches {counts}, losses against jnp worst rel {loss_rel:.2e}, parameters {param_rel:.2e} "
+        f"(tol {TOL_STEP:.0e})")
+    if degraded != drill_steps * in_groups or any(counts.values()) or loss_rel > TOL_STEP or param_rel > TOL_STEP:
+        raise AssertionError(f"drill: degraded {degraded}, launches {counts}, loss rel {loss_rel:.2e}, "
+                             f"params rel {param_rel:.2e}")
+    fused.reset_kernel_degradation()
+    counts = counted(lambda: drill_tr.run(drill_steps + 1))
+    if fused.kernel_degraded_leaves() != 0 or counts["mega_slim_update_batched"] != 3:
+        raise AssertionError(f"after the drill: {fused.kernel_degraded_leaves()} degraded, launches {counts}")
+    log(f"  hook removed: count reset to 0, the next step launched {counts} and degraded nothing")
+    report["drill"] = dict(degraded=degraded, in_groups=in_groups, loss_rel=loss_rel, param_rel=param_rel)
+    del plain_tr, drill_tr
+    torch.cuda.empty_cache()
+
+    # -- step times of this slice (outside the counted runs) ----------------------------
+    # Host clock around synchronised blocks of steps, the variants of one
+    # comparison in turns (a b b a ...) so drift between them cancels; the
+    # trainers log rarely, as a long run does, so only the guard reads the
+    # device during a step.
+    log(f"[3f] step times, in turns: Adam plain against guarded, and SlimAdam plain, measure step with "
+        f"from-update SNR, plain step plus a B5 measurement ({smi})")
+
+    def host_ms(fn, n=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def in_turns(variants, rounds=3):
+        for fn in variants.values():
+            fn()
+        times = {k: [] for k in variants}
+        for r in range(rounds):
+            order = list(variants) if r % 2 == 0 else list(reversed(variants))
+            for k in order + list(reversed(order)):
+                times[k].append(host_ms(variants[k]))
+        return {k: statistics.median(v) for k, v in times.items()}, times
+
+    timing = {}
+    trainers = {label: trainer("adam", total_steps=10**6, log_every=10**6, guard=g)
+                for label, g in (("plain", None), ("guarded", guard))}
+    med, raw = in_turns({f"adam_{k}_step_ms": (lambda tr=tr: tr.run(tr.step + 1)) for k, tr in trainers.items()})
+    timing.update(med, adam_raw=raw)
+    tr = trainers["guarded"]
+    timing["adam_guarded_profile"] = profile_device(torch, lambda: tr.run(tr.step + 1), 2,
+                                                    med["adam_guarded_step_ms"], "guarded step")
+    del trainers, tr
+    from repro_torch.core import measure_tree_snr
+    from repro_torch.train.guard import find_slim_snr, strip_slim_snr
+
+    tr = trainer("slim", total_steps=10**6, log_every=10**6, guard=None, measure_snr=True, snr_from_update=True)
+    batch = tr.batch(0)
+    dims = {k: t3_dims[k] for k in specs}
+
+    def step(fn):
+        tr.opt_state, _ = fn(tr.opt_state, batch)
+
+    def snr_step():
+        step(tr._train_step_snr)
+        measure_tree_snr(tr.opt_state.inner_states[1].nu, tr.meta, backend="fused",
+                         from_update=find_slim_snr(tr.opt_state), update_dims=dims)
+        tr.opt_state = strip_slim_snr(tr.opt_state)
+
+    def b5_step():
+        step(tr._train_step)
+        measure_tree_snr(tr.opt_state.inner_states[1].nu, tr.meta, backend="fused")
+
+    med, raw = in_turns({"slim_plain_step_ms": lambda: step(tr._train_step),
+                         "slim_from_update_measure_step_ms": snr_step, "slim_b5_measure_step_ms": b5_step})
+    timing.update(med, slim_raw=raw)
+    del tr
+    torch.cuda.empty_cache()
+    log("  medians: " + ", ".join(f"{k} {v:.2f}" for k, v in timing.items() if k.endswith("_ms")))
+    log(f"  every block: Adam {timing['adam_raw']}, SlimAdam {timing['slim_raw']}")
+    report["timing"] = timing
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -575,6 +1111,8 @@ def main() -> int:
     if len(snr["candidates"]) != 21:
         raise AssertionError(f"expected 21 SNR candidates, got {len(snr['candidates'])}")
     torch.cuda.empty_cache()
+    t3_dims = rules_to_dims(table3_rules(meta), meta)
+    robust_held = robust_kernels(torch, timer, rate, gen, specs, meta, adam_plan, t3_plan, t3_dims)
 
     # -- 3. the main path -----------------------------------------------------
     data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8, seed=0))
@@ -653,7 +1191,7 @@ def main() -> int:
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
     del loss
     step_check = {}
-    t3_dims, derived_dims = rules_to_dims(table3_rules(meta), meta), rules_to_dims(rules, meta)
+    derived_dims = rules_to_dims(rules, meta)
     for label, make, state in (("adam", lambda b: scale_by_adam(b2=0.95, backend=b), adam_state.inner_states[1]),
                                ("slim", lambda b: scale_by_slim_adam(t3_dims, backend=b),
                                 slim_state.inner_states[1]),
@@ -746,9 +1284,10 @@ def main() -> int:
         raise AssertionError(f"reduced run: card and CPU loss curves differ by {err:.3e}")
     main["reduced_card_vs_cpu"] = dict(curves=curves, worst_rel=err)
     report["main_path"] = main
-    report["kernels_detail"] = dict(groups=list(held.values()), snr=snr)
+    report["kernels_detail"] = dict(groups=list(held.values()), snr=snr, robust=robust_held)
     del rdata, curves
     torch.cuda.empty_cache()
+    report["robust"] = robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dims)
     report["serve"], paged_entry = serve_phases(torch, timer, rate, smi)
 
     # -- 6. result lines ------------------------------------------------------
@@ -767,9 +1306,37 @@ def main() -> int:
                 "bound_ms": plan_sum(plan, name, "bound_ms"), "bound_by": "bytes",
                 "library_ms": plan_sum(plan, name, "library_ms") if name == "mega_adam_update" else None}
 
+    # This slice's kernels: launches from its counted runs (3b's guarded runs,
+    # where every launch of B1/B2 carries with_health; 3d's per-leaf runs),
+    # times per step of the path that launches them: B2's flag on Adam's dense
+    # group, B1's two flags over the Table-3 plan's three slim groups, B3 over
+    # the per-leaf Adam route's launches, B4 over the per-leaf Table-3 route's
+    # compressed leaves, health on (the guarded step's form).
+    guarded = report["robust"]["guarded"]
+    per_leaf = report["robust"]["per_leaf"]
+
+    def robust_entry(name, held_name, source, replaces, n_launch):
+        h = robust_held[held_name]
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces, "launches": n_launch,
+                "max_abs_err": h["err"], "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+                "bound_by": "bytes", "library_ms": h["library_ms"]}
+
+    b2_flag = robust_entry("mega_adam_update(with_health)", "mega_adam_update(with_health)", "mega_adam.cu",
+                           "src/repro/kernels/megaplan.py:351",
+                           guarded["adam"]["launches"]["mega_adam_update"])
+    b2_flag["library_ms"] = plan_sum(adam_plan, "mega_adam_update", "library_ms")
     line = {"kernels": [
         group_entry("mega_adam_update", adam_plan, "mega_adam.cu", "src/repro/kernels/megaplan.py:351"),
         group_entry("mega_slim_update_batched", t3_plan, "mega_slim.cu", "src/repro/kernels/megaplan.py:417"),
+        b2_flag,
+        robust_entry("mega_slim_update_batched(with_health,with_snr)", "mega_slim_update_batched(with_health,with_snr)",
+                     "mega_slim.cu", "src/repro/kernels/megaplan.py:417",
+                     guarded["slim"]["launches"]["mega_slim_update_batched"]),
+        robust_entry("adam_precond", "adam_precond(with_health)", "adam_precond.cu",
+                     "src/repro/kernels/fused_adam.py:129",
+                     per_leaf["adam"]["launches"]["adam_precond"] + per_leaf["slim"]["launches"]["adam_precond"]),
+        robust_entry("slim_precond_batched", "slim_precond_batched(with_health)", "mega_slim.cu",
+                     "src/repro/kernels/slim_update.py:154", per_leaf["slim"]["launches"]["slim_precond_batched"]),
         {"name": "snr_stats_centered_batched", "route": "cuda", "source": src + "snr_stats.cu",
          "replaces": "src/repro/kernels/snr_stats.py:133", "launches": launches["snr_stats_centered_batched"],
          "max_abs_err": snr["err"], "ms": snr["ms"], "plain_ms": snr["plain_ms"], "bound_ms": snr["bound_ms"],

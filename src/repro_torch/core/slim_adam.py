@@ -1,5 +1,6 @@
 """SlimAdam, the paper's low-memory Adam (port of ``repro/core/slim_adam.py``,
-Eq. 2, first moment kept).
+Eq. 2, first moment kept; the moment-less ``use_first_moment=False``
+variant is not ported yet).
 
 For a tensor with compression dims K the second moment follows
 
@@ -32,6 +33,12 @@ class ScaleBySlimAdamState(NamedTuple):
     count: torch.Tensor   # int32 0-d
     mu: Any               # {name: f32 first moment, full shape}
     nu: Any               # {name: f32 second moment, size-1 reduced dims}
+    # From-update SNR snapshot ({name: 0-d tensor, None for K = () leaves}),
+    # published only by transformations built with ``emit_snr=True``.
+    snr: Any = None
+    # In-pass gradient health (emit_health states only). See
+    # repro_torch.optim.fused.StepHealth.
+    health: Any = None
 
 
 def _reduced_shape(shape, dims: Dims) -> Tuple[int, ...]:
@@ -44,13 +51,24 @@ def second_moment_elements(params: Dict[str, torch.Tensor], dims: Dict[str, Dims
 
 
 def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, *,
-                       backend: str = "jnp") -> GradientTransformation:
+                       backend: str = "jnp", bucket_min_size: int = fused.DEFAULT_BUCKET_MIN,
+                       emit_snr: bool = False, emit_health: bool = False,
+                       megakernel: bool = True) -> GradientTransformation:
     """Adam preconditioner with mean-shared second moments along per-leaf
     dims (``dims``: ``{name: positional dims}``, from
     ``repro_torch.core.rules.rules_as_tree``). ``backend`` 'fused' routes
     the tree through the megaplan (K = () leaves in the dense group, the
-    rest in one ``mega_slim_update_batched`` launch per slim group); 'jnp'
-    runs the plain per-leaf math; 'auto' picks 'fused' for CUDA tensors."""
+    rest in one ``mega_slim_update_batched`` launch per slim group;
+    ``megakernel=False``: the per-leaf route, ``adam_precond`` and
+    ``slim_precond_batched``, small dense leaves bucketed); 'jnp' runs the
+    plain per-leaf math; 'auto' picks 'fused' for CUDA tensors.
+
+    ``emit_snr=True`` makes each update also measure the from-update SNR of
+    every compressed leaf (SNR_K of ``b2*V + (1-b2)*g^2``) and publish it on
+    ``state.snr``; on the fused backend its line sums ride the update
+    kernels' pass over g. Build a second transformation with this flag for
+    measure steps and reuse the same state. ``emit_health=True`` publishes a
+    :class:`repro_torch.optim.fused.StepHealth` on ``state.health``."""
     resolve_backend(backend)
 
     def init_fn(params):
@@ -69,22 +87,35 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
         nu = [state.nu[k] for k in names]
         d = [tuple(dims[k]) for k in names]
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
+        snr = health = None
         if resolve_backend(backend, g[0].device) == "fused":
-            u, mu, nu = fused.slim_tree_update(g, mu, nu, d, **kw)
+            out = fused.slim_tree_update(g, mu, nu, d, bucket_min_size=bucket_min_size, emit_snr=emit_snr,
+                                         with_health=emit_health, megakernel=megakernel, **kw)
+            u, mu, nu = out[:3]
+            snr = out[3] if emit_snr else None
+            health = out[-1] if emit_health else None
         else:
             u, mu, nu = zip(*[fused.jnp_slim_leaf(*leaf, **kw) for leaf in zip(g, mu, nu, d)])
-        return dict(zip(names, u)), ScaleBySlimAdamState(count, dict(zip(names, mu)), dict(zip(names, nu)))
+            if emit_snr:
+                snr = [fused.jnp_update_snr_leaf(x, v, k, b2=b2) if k else None for x, v, k in zip(g, nu, d)]
+            if emit_health:
+                health = fused._health_from_rows([fused.leaf_health(x) for x in g])
+        return dict(zip(names, u)), ScaleBySlimAdamState(count, dict(zip(names, mu)), dict(zip(names, nu)),
+                                                          dict(zip(names, snr)) if emit_snr else None, health)
 
     return GradientTransformation(init_fn, update_fn)
 
 
-def slim_adam(learning_rate: float, dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
+def slim_adam(learning_rate, dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
               eps: float = 1e-8, weight_decay: float = 0.1, grad_clip: Optional[float] = 1.0,
-              backend: str = "jnp") -> GradientTransformation:
+              backend: str = "jnp", emit_snr: bool = False, emit_health: bool = False,
+              megakernel: bool = True) -> GradientTransformation:
     """AdamW recipe with SlimAdam's compressed preconditioner — the same
-    hyperparameters as Adam, as the paper requires."""
+    hyperparameters as Adam, as the paper requires (``learning_rate`` a
+    constant or a schedule of the step count)."""
     parts = [clip_by_global_norm(grad_clip)] if grad_clip is not None else []
-    parts.append(scale_by_slim_adam(dims, b1=b1, b2=b2, eps=eps, backend=backend))
+    parts.append(scale_by_slim_adam(dims, b1=b1, b2=b2, eps=eps, backend=backend, emit_snr=emit_snr,
+                                    emit_health=emit_health, megakernel=megakernel))
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
     parts.append(scale_by_learning_rate(learning_rate))

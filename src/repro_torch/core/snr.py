@@ -1,5 +1,6 @@
 """Layer-wise SNR of Adam's second moments (port of ``repro/core/snr.py``,
-paper Eq. 3-4, single device).
+paper Eq. 3-4, single device; ``measure_tree_snr`` also consumes the
+from-update SNR a SlimAdam measure step publishes).
 
 For a second-moment tensor V and compression dims K:
 
@@ -41,7 +42,7 @@ def snr_along_dims(v: torch.Tensor, dims: Tuple[int, ...], *, per_remaining_dim:
         from ..kernels.ops import canon_apply, canon_nd, snr_op
 
         cn = canon_nd(tuple(v.shape), dims)
-        ratio = snr_op(canon_apply(v.float(), cn), axis=cn.axis).reshape([v.shape[d] for d in kept])
+        ratio = snr_op(canon_apply(v.float(), cn).contiguous(), axis=cn.axis).reshape([v.shape[d] for d in kept])
     else:
         v = v.float()
         mean = torch.mean(v, dim=dims, keepdim=True)
@@ -63,12 +64,38 @@ def measure_leaf_snr(v: torch.Tensor, meta: ParamMeta, *, backend: str = "jnp") 
 
 
 def measure_tree_snr(nu: Mapping[str, torch.Tensor], meta: Mapping[str, ParamMeta], *,
-                     backend: str = "jnp") -> Dict[str, Dict[str, torch.Tensor]]:
+                     backend: str = "jnp", from_update: Optional[Mapping[str, Optional[torch.Tensor]]] = None,
+                     update_dims: Optional[Mapping[str, Tuple[int, ...]]] = None
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
     """{param_name: {K_label: snr}} over a second-moment dict; vector-like
-    leaves give an empty dict (the paper never compresses them)."""
+    leaves give an empty dict (the paper never compresses them).
+
+    ``from_update`` + ``update_dims`` consume SNR scalars that rode the
+    optimizer's update pass (``scale_by_slim_adam(emit_snr=True)`` publishes
+    them on ``state.snr``; ``update_dims`` is the optimizer's per-leaf
+    reduction dims): for each leaf, the candidate K whose dims equal the
+    leaf's update K takes the ridden value with no read of nu, and only the
+    other candidates are measured from nu."""
+    ridden: Dict[str, Tuple[torch.Tensor, Tuple[int, ...]]] = {}
+    if from_update is not None:
+        if update_dims is None:
+            raise ValueError("measure_tree_snr: from_update needs update_dims (the optimizer's per-leaf "
+                             "reduction dims)")
+        ridden = {name: (s, tuple(update_dims[name])) for name, s in from_update.items()
+                  if s is not None and name in update_dims}
     meta_by_name = dict(flatten_with_names(meta))
-    return {name: measure_leaf_snr(v, meta_by_name[name], backend=backend)
-            for name, v in flatten_with_names(nu)}
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, v in flatten_with_names(nu):
+        m = meta_by_name[name]
+        if name not in ridden:
+            out[name] = measure_leaf_snr(v, m, backend=backend)
+            continue
+        s_val, s_dims = ridden[name]
+        key = sorted(d % v.ndim for d in s_dims)
+        out[name] = {label: s_val if sorted(d % v.ndim for d in m.dims_of(axes)) == key
+                     else snr_along_dims(v, m.dims_of(axes), backend=backend)
+                     for label, axes in m.candidate_ks().items()}
+    return out
 
 
 @dataclasses.dataclass

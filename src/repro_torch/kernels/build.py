@@ -130,6 +130,12 @@ def check_operands(kernel: str, *, dtypes: Optional[Mapping[str, Tuple[torch.dty
     return device
 
 
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer, or None (a null pointer through ctypes)
+    for an optional output that is switched off."""
+    return t.data_ptr() if t is not None else None
+
+
 def launch(kernel: str, fn, device: torch.device, *args) -> None:
     """Call a C entry point on ``device``'s current stream; raise on a
     non-zero ``cudaError_t`` (a refused launch never runs, and a later

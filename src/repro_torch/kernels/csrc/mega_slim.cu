@@ -1,24 +1,40 @@
-// Fused SlimAdam precondition over a megaplan super-tensor.
+// Fused SlimAdam precondition over a (B, R, C) canonical view: the megaplan
+// group kernel and the per-leaf kernel.
 //
-// Replaces repro/kernels/megaplan.py:417 mega_slim_update_batched (kernel
-// body _mega_slim_kernel :386, pallas_call :448), base outputs only (the
-// with_snr / with_health flags are not ported yet). On the (B, R, C) view,
-// per reduction line (axis 1: a row of C values; axis 0: a column of R):
+// Replaces
+//   * repro/kernels/megaplan.py:417 mega_slim_update_batched (kernel body
+//     _mega_slim_kernel :386, pallas_call :448): bias corrections given per
+//     line; with_snr and with_health emit per-line outputs;
+//   * repro/kernels/slim_update.py:154 slim_precond_batched (kernel body
+//     _slim_precond_kernel :132, pallas_call :207): scalar bias corrections,
+//     g f32 or bf16; with_snr emits per-line outputs, with_health one (2,)
+//     accumulator.
+// Per reduction line (axis 1: a row of C values; axis 0: a column of R):
 //   ek = mean_line g^2,  v' = b2*v + (1-b2)*ek          (one value per line)
 //   m' = b1*m + (1-b1)*g,  u = (m'/bc1) / (sqrt(v'/bc2) + eps)   (per element)
+// with_snr:    s1c = sum (g^2 - f), s2c = sum (g^2 - f)^2, f = g^2 at the
+//              line's first entry (centered_line_stats of g^2);
+// with_health: nf = count of non-finite g, ss = sum g^2 over finite g.
+// Both ride pass 1, which already reads every g of the line: no extra pass.
 //
-// Bound: bytes. g and m are read, u and m' written (16 B per element); the
-// line operands v, bc1, bc2 and v' add 16 B per line. Each line is walked
-// twice: pass 1 sums g^2, pass 2 writes. A line is at most a few tens of KB
-// on the gpt_small path, so pass 2's read of g mostly hits L1/L2 and device
-// memory sees g about once.
+// Bound: bytes. g and m are read, u and m' written (16 B per f32 element);
+// the line operands v, bc1, bc2 and v' add 16 B per line, each flag's two
+// line outputs 8 B more. Each line is walked twice: pass 1 sums g^2, pass 2
+// writes. A line is at most a few tens of KB on the gpt_small path, so pass
+// 2's read of g mostly hits L1/L2 and device memory sees g about once.
 //   axis 1 (minor, contiguous lines): one block per line, threads stride the
 //     line with float4 loads, a block reduction joins the partial sums.
 //   axis 0 (major, lines strided by C): a block owns kStrip adjacent columns
 //     of one batch slice, so a warp reads 128 contiguous bytes per row;
 //     kRowThreads warps split the rows and combine their sums in shared
 //     memory.
-// Any line length works: nothing holds a whole line on chip.
+// Any line length works: nothing holds a whole line on chip. The flags are
+// template parameters, so the base form's instruction stream is the one it
+// had before they existed. The per-leaf form's (2,) health accumulator
+// reduces the per-line health outputs in a second launch (common.cuh,
+// health_reduce_kernel) instead of the TPU's in-order grid accumulation.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -27,10 +43,12 @@ using repro_torch::block_sum;
 using repro_torch::ema;
 using repro_torch::kRowThreads;
 using repro_torch::kStrip;
+using repro_torch::LineStats;
+using repro_torch::load_g;
 using repro_torch::precond;
 
 struct SlimArgs {
-  const float* g;
+  const void* g;
   const float* m;
   const float* v;
   const float* bc1;
@@ -38,42 +56,97 @@ struct SlimArgs {
   float* u;
   float* m_out;
   float* v_out;
+  float* s1c;  // with_snr line outputs, else null
+  float* s2c;
+  float* nf;   // with_health line outputs, else null
+  float* ss;
   long long batch, rows, cols;
   float inv_n, b1, omb1, b2, omb2, eps;
 };
 
-template <bool VEC>
+// Bias corrections: one per line (megaplan group) or one scalar (per leaf).
+template <bool SCALAR_BC>
+__device__ __forceinline__ float bc_at(const float* bc, long long line) {
+  if constexpr (SCALAR_BC) {
+    return bc[0];
+  } else {
+    return bc[line];
+  }
+}
+
+template <bool SNR, bool HEALTH>
+__device__ __forceinline__ void write_line_stats(const SlimArgs& a, long long line, const LineStats<SNR, HEALTH>& t) {
+  if constexpr (SNR) {
+    a.s1c[line] = (float)t.s1c;
+    a.s2c[line] = (float)t.s2c;
+  }
+  if constexpr (HEALTH) {
+    a.nf[line] = (float)t.nf;
+    a.ss[line] = (float)t.ss;
+  }
+}
+
+template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH>
 __global__ void slim_minor_kernel(SlimArgs a) {
+  static_assert(!VEC || std::is_same<G, float>::value, "float4 loads need f32 g");
+  constexpr bool STATS = SNR || HEALTH;
   __shared__ float smem[32];
   const long long line = blockIdx.x;
   const long long base = line * a.cols;
-  const float* g = a.g + base;
   const float* m = a.m + base;
   float* u = a.u + base;
   float* mo = a.m_out + base;
 
   float s = 0.f;
-  if (VEC) {
-    const float4* g4 = reinterpret_cast<const float4*>(g);
+  LineStats<SNR, HEALTH> st;
+  float f = 0.f;
+  if constexpr (SNR) {
+    const float x0 = load_g<G>(a.g, base);
+    f = __fmul_rn(x0, x0);
+  }
+  if constexpr (VEC) {
+    const float4* g4 = reinterpret_cast<const float4*>(static_cast<const float*>(a.g) + base);
     for (long long j = threadIdx.x; j < a.cols / 4; j += blockDim.x) {
       const float4 x = g4[j];
       s = fmaf(x.x, x.x, s);
       s = fmaf(x.y, x.y, s);
       s = fmaf(x.z, x.z, s);
       s = fmaf(x.w, x.w, s);
+      if constexpr (STATS) {
+        st.add(x.x, __fmul_rn(x.x, x.x), f);
+        st.add(x.y, __fmul_rn(x.y, x.y), f);
+        st.add(x.z, __fmul_rn(x.z, x.z), f);
+        st.add(x.w, __fmul_rn(x.w, x.w), f);
+      }
     }
   } else {
-    for (long long j = threadIdx.x; j < a.cols; j += blockDim.x) s = fmaf(g[j], g[j], s);
+    for (long long j = threadIdx.x; j < a.cols; j += blockDim.x) {
+      const float x = load_g<G>(a.g, base + j);
+      s = fmaf(x, x, s);
+      if constexpr (STATS) st.add(x, __fmul_rn(x, x), f);
+    }
   }
   const float total = block_sum(s, smem);
+  if constexpr (STATS) {
+    __shared__ double dsmem[32];
+    if constexpr (SNR) {
+      st.s1c = block_sum(st.s1c, dsmem);
+      st.s2c = block_sum(st.s2c, dsmem);
+    }
+    if constexpr (HEALTH) {
+      st.nf = block_sum(st.nf, dsmem);
+      st.ss = block_sum(st.ss, dsmem);
+    }
+    if (threadIdx.x == 0) write_line_stats(a, line, st);
+  }
   const float ek = __fmul_rn(total, a.inv_n);
   const float v_new = ema(a.b2, a.v[line], a.omb2, ek);
-  const float c1 = a.bc1[line];
-  const float c2 = a.bc2[line];
+  const float c1 = bc_at<SCALAR_BC>(a.bc1, line);
+  const float c2 = bc_at<SCALAR_BC>(a.bc2, line);
   if (threadIdx.x == 0) a.v_out[line] = v_new;
 
-  if (VEC) {
-    const float4* g4 = reinterpret_cast<const float4*>(g);
+  if constexpr (VEC) {
+    const float4* g4 = reinterpret_cast<const float4*>(static_cast<const float*>(a.g) + base);
     const float4* m4 = reinterpret_cast<const float4*>(m);
     float4* u4 = reinterpret_cast<float4*>(u);
     float4* mo4 = reinterpret_cast<float4*>(mo);
@@ -94,14 +167,16 @@ __global__ void slim_minor_kernel(SlimArgs a) {
     }
   } else {
     for (long long j = threadIdx.x; j < a.cols; j += blockDim.x) {
-      const float mn = ema(a.b1, m[j], a.omb1, g[j]);
+      const float mn = ema(a.b1, m[j], a.omb1, load_g<G>(a.g, base + j));
       mo[j] = mn;
       u[j] = precond(mn, c1, v_new, c2, a.eps);
     }
   }
 }
 
+template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH>
 __global__ void slim_major_kernel(SlimArgs a) {
+  constexpr bool STATS = SNR || HEALTH;
   __shared__ float part[kRowThreads][kStrip + 1];
   __shared__ float line_v[kStrip];
   const int tx = threadIdx.x;
@@ -113,13 +188,38 @@ __global__ void slim_major_kernel(SlimArgs a) {
   const long long li = b * a.cols + c;  // line index in the (B, 1, C) operands
 
   float s = 0.f;
+  LineStats<SNR, HEALTH> st;
   if (live) {
+    float f = 0.f;
+    if constexpr (SNR) {
+      const float x0 = load_g<G>(a.g, slice + c);
+      f = __fmul_rn(x0, x0);
+    }
     for (long long r = ty; r < a.rows; r += kRowThreads) {
-      const float x = a.g[slice + r * a.cols + c];
+      const float x = load_g<G>(a.g, slice + r * a.cols + c);
       s = fmaf(x, x, s);
+      if constexpr (STATS) st.add(x, __fmul_rn(x, x), f);
     }
   }
   part[ty][tx] = s;
+  if constexpr (STATS) {
+    __shared__ double dpart[4][kRowThreads][kStrip + 1];
+    dpart[0][ty][tx] = st.s1c;
+    dpart[1][ty][tx] = st.s2c;
+    dpart[2][ty][tx] = st.nf;
+    dpart[3][ty][tx] = st.ss;
+    __syncthreads();
+    if (ty == 0 && live) {
+      LineStats<SNR, HEALTH> t;
+      for (int k = 0; k < kRowThreads; ++k) {
+        t.s1c += dpart[0][k][tx];
+        t.s2c += dpart[1][k][tx];
+        t.nf += dpart[2][k][tx];
+        t.ss += dpart[3][k][tx];
+      }
+      write_line_stats(a, li, t);
+    }
+  }
   __syncthreads();
   if (ty == 0 && live) {
     float t = 0.f;
@@ -131,46 +231,105 @@ __global__ void slim_major_kernel(SlimArgs a) {
   __syncthreads();
   if (!live) return;
   const float v_new = line_v[tx];
-  const float c1 = a.bc1[li];
-  const float c2 = a.bc2[li];
+  const float c1 = bc_at<SCALAR_BC>(a.bc1, li);
+  const float c2 = bc_at<SCALAR_BC>(a.bc2, li);
   for (long long r = ty; r < a.rows; r += kRowThreads) {
     const long long i = slice + r * a.cols + c;
-    const float mn = ema(a.b1, a.m[i], a.omb1, a.g[i]);
+    const float mn = ema(a.b1, a.m[i], a.omb1, load_g<G>(a.g, i));
     a.m_out[i] = mn;
     a.u[i] = precond(mn, c1, v_new, c2, a.eps);
   }
 }
 
-}  // namespace
-
-// g, m, u, m_out: contiguous f32 (batch, rows, cols). v, bc1, bc2, v_out:
-// contiguous f32 lines, (batch, rows, 1) for axis 1 and (batch, 1, cols) for
-// axis 0. inv_n = 1/line length; omb1/omb2 = 1-b1/1-b2 rounded by the
-// caller. The caller guarantees batch*rows < 2^31 (axis 1) and batch < 65536
-// (axis 0). Returns the cudaError_t of the launch.
-extern "C" int repro_mega_slim_update(const float* g, const float* m, const float* v, const float* bc1,
-                                      const float* bc2, float* u, float* m_out, float* v_out, long long batch,
-                                      long long rows, long long cols, int axis, float inv_n, float b1, float omb1,
-                                      float b2, float omb2, float eps, void* stream) {
-  SlimArgs a{g, m, v, bc1, bc2, u, m_out, v_out, batch, rows, cols, inv_n, b1, omb1, b2, omb2, eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH>
+void launch_flags(const SlimArgs& a, int axis, cudaStream_t s) {
   if (axis == 1) {
-    const bool vec = cols % 4 == 0 && repro_torch::aligned16(g) && repro_torch::aligned16(m) &&
-                     repro_torch::aligned16(u) && repro_torch::aligned16(m_out);
-    long long work = vec ? cols / 4 : cols;
+    bool vec = false;
+    if constexpr (std::is_same<G, float>::value) {
+      vec = a.cols % 4 == 0 && repro_torch::aligned16(a.g) && repro_torch::aligned16(a.m) &&
+            repro_torch::aligned16(a.u) && repro_torch::aligned16(a.m_out);
+    }
+    long long work = vec ? a.cols / 4 : a.cols;
     long long threads = ((work + 31) / 32) * 32;
     if (threads > 1024) threads = 1024;
     if (threads < 32) threads = 32;
-    const unsigned lines = (unsigned)(batch * rows);
-    if (vec) {
-      slim_minor_kernel<true><<<lines, (unsigned)threads, 0, s>>>(a);
-    } else {
-      slim_minor_kernel<false><<<lines, (unsigned)threads, 0, s>>>(a);
+    const unsigned lines = (unsigned)(a.batch * a.rows);
+    if constexpr (std::is_same<G, float>::value) {
+      if (vec) {
+        slim_minor_kernel<G, true, SCALAR_BC, SNR, HEALTH><<<lines, (unsigned)threads, 0, s>>>(a);
+        return;
+      }
     }
+    slim_minor_kernel<G, false, SCALAR_BC, SNR, HEALTH><<<lines, (unsigned)threads, 0, s>>>(a);
   } else {
-    dim3 grid((unsigned)((cols + kStrip - 1) / kStrip), (unsigned)batch);
+    dim3 grid((unsigned)((a.cols + kStrip - 1) / kStrip), (unsigned)a.batch);
     dim3 block(kStrip, kRowThreads);
-    slim_major_kernel<<<grid, block, 0, s>>>(a);
+    slim_major_kernel<G, SCALAR_BC, SNR, HEALTH><<<grid, block, 0, s>>>(a);
+  }
+}
+
+template <typename G, bool SCALAR_BC>
+void launch(const SlimArgs& a, int axis, cudaStream_t s) {
+  const bool snr = a.s1c != nullptr;
+  const bool health = a.nf != nullptr;
+  if (snr && health) {
+    launch_flags<G, SCALAR_BC, true, true>(a, axis, s);
+  } else if (snr) {
+    launch_flags<G, SCALAR_BC, true, false>(a, axis, s);
+  } else if (health) {
+    launch_flags<G, SCALAR_BC, false, true>(a, axis, s);
+  } else {
+    launch_flags<G, SCALAR_BC, false, false>(a, axis, s);
+  }
+}
+
+bool flags_paired(const float* x, const float* y) { return (x == nullptr) == (y == nullptr); }
+
+}  // namespace
+
+// Megaplan group form. g, m, u, m_out: contiguous f32 (batch, rows, cols).
+// v, bc1, bc2, v_out and the optional line outputs s1c, s2c (with_snr) and
+// nf, ss (with_health; null when off): contiguous f32 lines, (batch, rows, 1)
+// for axis 1 and (batch, 1, cols) for axis 0. inv_n = 1/line length;
+// omb1/omb2 = 1-b1/1-b2 rounded by the caller. The caller guarantees
+// batch*rows < 2^31 (axis 1) and batch < 65536 (axis 0). Returns the
+// cudaError_t of the launch.
+extern "C" int repro_mega_slim_update(const float* g, const float* m, const float* v, const float* bc1,
+                                      const float* bc2, float* u, float* m_out, float* v_out, float* s1c,
+                                      float* s2c, float* nf, float* ss, long long batch, long long rows,
+                                      long long cols, int axis, float inv_n, float b1, float omb1, float b2,
+                                      float omb2, float eps, void* stream) {
+  if (!flags_paired(s1c, s2c) || !flags_paired(nf, ss)) return (int)cudaErrorInvalidValue;
+  SlimArgs a{g, m, v, bc1, bc2, u, m_out, v_out, s1c, s2c, nf, ss, batch, rows, cols, inv_n, b1, omb1, b2, omb2,
+             eps};
+  launch<float, false>(a, axis, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// Per-leaf form. As above, except: g is f32 (g_bf16 = 0) or bf16
+// (g_bf16 = 1); bc1 and bc2 are one f32 each; with_health (health a (2,) f32
+// output, else null) writes the per-line nf/ss into the caller's scratch
+// lines nf_lines/ss_lines and then reduces them into health.
+extern "C" int repro_slim_precond(const void* g, int g_bf16, const float* m, const float* v, const float* bc1,
+                                  const float* bc2, float* u, float* m_out, float* v_out, float* s1c, float* s2c,
+                                  float* nf_lines, float* ss_lines, float* health, long long batch,
+                                  long long rows, long long cols, int axis, float inv_n, float b1, float omb1,
+                                  float b2, float omb2, float eps, void* stream) {
+  if (!flags_paired(s1c, s2c) || !flags_paired(nf_lines, ss_lines) || !flags_paired(nf_lines, health)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SlimArgs a{g, m, v, bc1, bc2, u, m_out, v_out, s1c, s2c, nf_lines, ss_lines, batch, rows, cols, inv_n, b1, omb1,
+             b2, omb2, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g_bf16) {
+    launch<__nv_bfloat16, true>(a, axis, s);
+  } else {
+    launch<float, true>(a, axis, s);
+  }
+  if (health != nullptr) {
+    const long long n_lines = axis == 1 ? batch * rows : batch * cols;
+    repro_torch::health_reduce_kernel<float><<<1, repro_torch::kReduceThreads, 0, s>>>(nf_lines, ss_lines, n_lines,
+                                                                                     health);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """Whole-tree megaplan: O(groups) kernel launches per optimizer step (port of
-``repro/kernels/megaplan.py``, the unsharded base outputs).
+``repro/kernels/megaplan.py``, unsharded).
 
 :func:`plan_megagroups` groups every kernel-eligible leaf by regime key —
 ``dense`` (K = (), lane-folded flat, one group for the tree), ``minor`` /
@@ -15,10 +15,12 @@ The two optimizer kernels live here beside their plain twins:
 
 * :func:`mega_adam_update` — ``csrc/mega_adam.cu``, replacing
   ``repro/kernels/megaplan.py:351`` (body ``_mega_adam_kernel`` :337,
-  ``pallas_call`` :375). Bound by bytes: 24 B per element.
+  ``pallas_call`` :375), ``with_health`` included. Bound by bytes: 24 B per
+  element (plus 8 B per row for the health lines).
 * :func:`mega_slim_update_batched` — ``csrc/mega_slim.cu``, replacing
   ``repro/kernels/megaplan.py:417`` (body ``_mega_slim_kernel`` :386,
-  ``pallas_call`` :448). Bound by bytes: 16 B per element plus 16 B per line.
+  ``pallas_call`` :448), ``with_snr`` and ``with_health`` included. Bound by
+  bytes: 16 B per element plus 16 B per line (8 B more per line per flag).
 
 The ``.cu`` files' notes say how each design follows from its bound.
 """
@@ -32,6 +34,7 @@ import torch
 
 from . import build
 from .ops import CanonND, canon_apply, canon_restore, leaf_plan
+from .snr_stats import centered_line_stats
 
 # Lane width of the dense group's (rows, LANES) fold: the JAX kernels'
 # tile width, kept so that group shapes match the reference plan.
@@ -67,6 +70,11 @@ class MegaGroup(NamedTuple):
     @property
     def concat_axis(self) -> int:
         return {"dense": 0, "minor": 0, "major": 1, "batched": 2}[self.kind]
+
+    @property
+    def red(self) -> int:
+        """Reduction extent of every line (the lane width for dense)."""
+        return self.cols if self.axis in (1, -1) else self.rows
 
 
 class MegaPlan(NamedTuple):
@@ -170,6 +178,13 @@ def scatter_group(group: MegaGroup, y: torch.Tensor, *, reduced: bool = False) -
     return out
 
 
+def scatter_lines(group: MegaGroup, y: torch.Tensor) -> List[torch.Tensor]:
+    """Slice an O(kept) line output into raw per-segment line views (no
+    layout restore) — for per-segment stat sums (health) and per-leaf SNR
+    finalisation, which do not depend on the layout."""
+    return [y.narrow(group.concat_axis, seg.offset, seg.length) for seg in group.segments]
+
+
 def segment_lines(group: MegaGroup, values: Sequence[torch.Tensor]) -> torch.Tensor:
     """Expand one per-leaf scalar (e.g. a bias correction, a 0-d device
     tensor) into the group's contiguous line operand, shaped like the
@@ -187,89 +202,124 @@ def segment_lines(group: MegaGroup, values: Sequence[torch.Tensor]) -> torch.Ten
 # Kernels and their plain twins
 # ---------------------------------------------------------------------------
 
-_ADAM_ARGTYPES = [build.PTR] * 8 + [build.SIZE] * 2 + [build.F32] * 5 + [build.PTR]
-_SLIM_ARGTYPES = ([build.PTR] * 8 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 6 + [build.PTR])
+_ADAM_ARGTYPES = [build.PTR] * 10 + [build.SIZE] * 2 + [build.F32] * 5 + [build.PTR]
+_SLIM_ARGTYPES = [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 6 + [build.PTR]
 _MAX_GRID_Y = 65535
 _MAX_GRID_X = 2**31 - 1
 
 
-def mega_adam_update_plain(g, m, v, bc1, bc2, *, b1, b2, eps):
+def line_health(g: torch.Tensor, red: int):
+    """Per-line (nf, ss), keepdims along ``red``: the count of non-finite g
+    and the sum of g*g (rounded in f32) over the finite entries, summed in
+    f64 as the kernels sum them. Plain version of the ``with_health`` line
+    outputs (``repro/kernels/megaplan.py:327`` ``_line_health``)."""
+    fin = torch.isfinite(g)
+    nf = (~fin).sum(dim=red, keepdim=True).float()
+    ss = torch.where(fin, g * g, 0.0).double().sum(dim=red, keepdim=True).float()
+    return nf, ss
+
+
+def mega_adam_update_plain(g, m, v, bc1, bc2, *, b1, b2, eps, with_health: bool = False):
     """Plain PyTorch version of :func:`mega_adam_update`, in the kernel's
     operation order."""
     m_new = b1 * m + (1 - b1) * g
     v_new = b2 * v + (1 - b2) * g * g
-    return (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
+    out = ((m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new)
+    return out + line_health(g, 1) if with_health else out
 
 
-def mega_adam_update(g, m, v, bc1, bc2, *, b1=0.9, b2=0.999, eps=1e-8):
+def mega_adam_update(g, m, v, bc1, bc2, *, b1=0.9, b2=0.999, eps=1e-8, with_health: bool = False):
     """Dense Adam over a (rows, cols) super-tensor with per-row bias lines
     ``bc1``/``bc2`` (rows, 1); ``cols`` a multiple of 4 (the kernel loads
     float4s; the dense group has ``LANES`` columns). Returns (u, m', v'),
-    f32. CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    f32, and with ``with_health`` the per-row lines (nf, ss), (rows, 1):
+    non-finite count and finite sum of squares of g. CUDA tensors launch
+    the kernel; CPU tensors take the plain version."""
     if g.ndim != 2 or g.shape[1] % 4 or m.shape != g.shape or v.shape != g.shape \
             or bc1.shape != (g.shape[0], 1) or bc2.shape != bc1.shape:
         raise ValueError(f"mega_adam_update: want g, m, v (rows, cols), cols % 4 == 0, and bc lines "
                          f"(rows, 1); got {[tuple(t.shape) for t in (g, m, v, bc1, bc2)]}")
     device = build.check_operands("mega_adam_update", g=g, m=m, v=v, bc1=bc1, bc2=bc2)
     if device.type == "cpu":
-        return mega_adam_update_plain(g, m, v, bc1, bc2, b1=b1, b2=b2, eps=eps)
+        return mega_adam_update_plain(g, m, v, bc1, bc2, b1=b1, b2=b2, eps=eps, with_health=with_health)
     outs = tuple(torch.empty_like(g) for _ in range(3))
+    health = tuple(torch.empty_like(bc1) for _ in range(2)) if with_health else (None, None)
     if g.numel() == 0:
-        return outs
+        return outs + (tuple(h.zero_() for h in health) if with_health else ())
     if any(t.data_ptr() % 16 for t in (g, m, v, *outs)):
         raise ValueError("mega_adam_update: g, m and v must start on a 16-byte boundary (float4 loads)")
     fn = build.entry("repro_mega_adam_update", _ADAM_ARGTYPES)
     build.launch("mega_adam_update", fn, device, *(t.data_ptr() for t in (g, m, v, bc1, bc2, *outs)),
-                 g.shape[0], g.shape[1], b1, 1.0 - b1, b2, 1.0 - b2, eps)
+                 *map(build.ptr, health), g.shape[0], g.shape[1], b1, 1.0 - b1, b2, 1.0 - b2, eps)
     mega_adam_update.launches += 1
-    return outs
+    return outs + (health if with_health else ())
 
 
 mega_adam_update.launches = 0
 
 
-def mega_slim_update_batched_plain(g, m, v_line, bc1, bc2, *, axis, b1, b2, eps):
+def mega_slim_update_batched_plain(g, m, v_line, bc1, bc2, *, axis, b1, b2, eps, with_snr: bool = False,
+                                   with_health: bool = False):
     """Plain PyTorch version of :func:`mega_slim_update_batched`, in the
     kernel's operation order (ek = line sum times 1/n, as the TPU kernel)."""
     red = 2 if axis == 1 else 1
     ek = torch.sum(g * g, dim=red, keepdim=True) * (1.0 / g.shape[red])
     v_new = b2 * v_line + (1 - b2) * ek
     m_new = b1 * m + (1 - b1) * g
-    return (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
+    out = ((m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new)
+    if with_snr:
+        out = out + centered_line_stats(g * g, red)[:2]
+    return out + line_health(g, red) if with_health else out
 
 
-def mega_slim_update_batched(g, m, v_line, bc1, bc2, *, axis: int, b1=0.9, b2=0.95, eps=1e-8):
+def slim_line_shape(g: torch.Tensor, axis: int) -> Tuple[int, int, int]:
+    b, r, c = g.shape
+    return (b, r, 1) if axis == 1 else (b, 1, c)
+
+
+def check_slim_grid(kernel: str, g: torch.Tensor, axis: int) -> None:
+    """The launch limits of the slim kernels' grids (``csrc/mega_slim.cu``)."""
+    b, r, _ = g.shape
+    if g.numel() == 0:
+        raise ValueError(f"{kernel}: empty lines have no mean")
+    if (axis == 1 and b * r > _MAX_GRID_X) or (axis == 0 and b > _MAX_GRID_Y):
+        raise ValueError(f"{kernel}: shape {tuple(g.shape)} exceeds the launch grid")
+
+
+def mega_slim_update_batched(g, m, v_line, bc1, bc2, *, axis: int, b1=0.9, b2=0.95, eps=1e-8,
+                             with_snr: bool = False, with_health: bool = False):
     """Fused SlimAdam precondition over a (B, R, C) super-tensor whose kept
     axis concatenates same-geometry leaves. ``v_line``, ``bc1``, ``bc2`` are
     (B, R, 1) for ``axis=1`` and (B, 1, C) for ``axis=0``. Returns
-    (u, m', v_line'), f32. CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
+    (u, m', v_line'), f32, then with ``with_snr`` the line sums (s1c, s2c)
+    of g^2 shifted by each line's first entry, then with ``with_health`` the
+    lines (nf, ss), all shaped like ``v_line`` (the output order of
+    ``repro/kernels/megaplan.py:386-410``). CUDA tensors launch the kernel;
+    CPU tensors take the plain version."""
     if g.ndim != 3 or axis not in (0, 1):
         raise ValueError(f"mega_slim_update_batched: want (B, R, C) and axis 0|1, got "
                          f"{tuple(g.shape)}, axis {axis}")
-    b, r, c = g.shape
-    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    line = slim_line_shape(g, axis)
     if m.shape != g.shape or any(t.shape != line for t in (v_line, bc1, bc2)):
         raise ValueError(f"mega_slim_update_batched: want m {tuple(g.shape)} and lines {line}; got "
                          f"{[tuple(t.shape) for t in (m, v_line, bc1, bc2)]}")
     device = build.check_operands("mega_slim_update_batched", g=g, m=m, v_line=v_line, bc1=bc1, bc2=bc2)
     if device.type == "cpu":
-        return mega_slim_update_batched_plain(g, m, v_line, bc1, bc2, axis=axis, b1=b1, b2=b2, eps=eps)
-    if g.numel() == 0:
-        raise ValueError("mega_slim_update_batched: empty lines have no mean")
-    if (axis == 1 and b * r > _MAX_GRID_X) or (axis == 0 and b > _MAX_GRID_Y):
-        raise ValueError(f"mega_slim_update_batched: shape {tuple(g.shape)} exceeds the launch grid")
+        return mega_slim_update_batched_plain(g, m, v_line, bc1, bc2, axis=axis, b1=b1, b2=b2, eps=eps,
+                                              with_snr=with_snr, with_health=with_health)
+    check_slim_grid("mega_slim_update_batched", g, axis)
+    b, r, c = g.shape
     u, m_out = torch.empty_like(g), torch.empty_like(g)
     v_out = torch.empty_like(v_line)
+    snr = tuple(torch.empty_like(v_line) for _ in range(2)) if with_snr else (None, None)
+    health = tuple(torch.empty_like(v_line) for _ in range(2)) if with_health else (None, None)
     n_red = c if axis == 1 else r
     fn = build.entry("repro_mega_slim_update", _SLIM_ARGTYPES)
     build.launch("mega_slim_update_batched", fn, device,
                  *(t.data_ptr() for t in (g, m, v_line, bc1, bc2, u, m_out, v_out)),
-                 b, r, c, axis, 1.0 / n_red, b1, 1.0 - b1, b2, 1.0 - b2, eps)
+                 *map(build.ptr, snr + health), b, r, c, axis, 1.0 / n_red, b1, 1.0 - b1, b2, 1.0 - b2, eps)
     mega_slim_update_batched.launches += 1
-    return u, m_out, v_out
+    return (u, m_out, v_out) + (snr if with_snr else ()) + (health if with_health else ())
 
 
 mega_slim_update_batched.launches = 0
-

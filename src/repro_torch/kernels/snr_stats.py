@@ -1,5 +1,7 @@
 """One-pass centered line statistics for the SNR analysis (port of
-``repro/kernels/snr_stats.py`` ``snr_stats_centered_batched``).
+``repro/kernels/snr_stats.py``: ``snr_stats_centered_batched``, and the
+plain helpers ``centered_line_stats`` and ``snr_update_stats_finalize`` of
+the from-update SNR).
 
 Kernel: ``csrc/snr_stats.cu`` replaces the Pallas kernel at
 ``repro/kernels/snr_stats.py:133`` (body ``_snr_centered_kernel`` :81,
@@ -18,6 +20,35 @@ from . import build
 _ARGTYPES = [build.PTR] * 4 + [build.SIZE] * 3 + [build.INT, build.PTR]
 _MAX_GRID_Y = 65535
 _MAX_GRID_X = 2**31 - 1
+
+
+def centered_line_stats(x: torch.Tensor, red: int):
+    """Per-line (s1c, s2c, first) of ``x`` shifted by each line's first
+    entry, keepdims along ``red``: differences rounded in f32 as the TPU
+    kernel rounds them, sums in f64 as the CUDA kernels accumulate them.
+    The plain version of the ``with_snr`` line outputs of the slim update
+    kernels (applied to g^2); the centering makes both sums O(spread)
+    rather than O(magnitude)."""
+    first = x.narrow(red, 0, 1)
+    d = (x - first).double()
+    return d.sum(dim=red, keepdim=True).float(), (d * d).sum(dim=red, keepdim=True).float(), first
+
+
+def snr_update_stats_finalize(v_new: torch.Tensor, s1c: torch.Tensor, s2c: torch.Tensor, n: int,
+                              one_minus_b2: float, eps: float = 1e-30) -> torch.Tensor:
+    """The from-update SNR of one leaf (0-d tensor), O(kept) plain torch
+    (``repro/kernels/snr_stats.py:55-72``).
+
+    ``s1c``/``s2c`` are the centered line sums of g^2 along the leaf's
+    compression dims K (the update kernels' ``with_snr`` outputs), ``v_new``
+    the updated reduced moment, all of one layout. The measured quantity is
+    SNR_K of the step's dense reconstruction ``b2 * V_red + (1 - b2) * g^2``:
+    its line mean is ``v_new`` and its line variance ``(1 - b2)^2 *
+    Var_K[g^2]``."""
+    mean_c = s1c / n
+    var = s2c / n - torch.square(mean_c)
+    var = torch.clamp(var, min=0.0) * (one_minus_b2 * one_minus_b2)
+    return torch.mean(torch.square(v_new) / (var + eps))
 
 
 def snr_stats_centered_batched_plain(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, ...]:

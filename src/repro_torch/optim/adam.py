@@ -25,14 +25,25 @@ class ScaleByAdamState(NamedTuple):
     count: torch.Tensor   # int32 0-d, on the parameters' device
     mu: Any               # {name: f32 first moment}
     nu: Any               # {name: f32 second moment}
+    # In-pass gradient health (emit_health states only; None otherwise, and
+    # None contributes no checkpoint leaf). See repro_torch.optim.fused.StepHealth.
+    health: Any = None
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
-                  backend: str = "jnp") -> GradientTransformation:
+                  backend: str = "jnp", bucket_min_size: int = fused.DEFAULT_BUCKET_MIN,
+                  emit_health: bool = False, megakernel: bool = True) -> GradientTransformation:
     """Adam preconditioner. ``backend`` (see ``repro_torch.optim.base
     .BACKENDS``): 'fused' runs the whole tree through one
-    ``mega_adam_update`` launch; 'jnp' runs the plain per-leaf math; 'auto'
-    picks 'fused' for CUDA tensors. State layout is backend-independent."""
+    ``mega_adam_update`` launch (``megakernel=False``: the per-leaf
+    ``adam_precond`` route, leaves below ``bucket_min_size`` elements
+    bucketed); 'jnp' runs the plain per-leaf math; 'auto' picks 'fused' for
+    CUDA tensors. State layout is backend-independent.
+
+    ``emit_health=True`` publishes a :class:`repro_torch.optim.fused
+    .StepHealth` on ``state.health`` each update — per-leaf non-finite
+    counts + the finite-masked grad sumsq, from the kernels' own pass (the
+    guarded train step reads it to skip poisoned steps)."""
     resolve_backend(backend)
 
     def init_fn(params):
@@ -48,21 +59,29 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
         mu = [state.mu[k] for k in names]
         nu = [state.nu[k] for k in names]
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
+        health = None
         if resolve_backend(backend, g[0].device) == "fused":
-            u, mu, nu = fused.adam_tree_update(g, mu, nu, **kw)
+            out = fused.adam_tree_update(g, mu, nu, bucket_min_size=bucket_min_size, with_health=emit_health,
+                                         megakernel=megakernel, **kw)
+            u, mu, nu = out[:3]
+            health = out[3] if emit_health else None
         else:
             u, mu, nu = zip(*[fused.jnp_adam_leaf(*leaf, **kw) for leaf in zip(g, mu, nu)])
-        return dict(zip(names, u)), ScaleByAdamState(count, dict(zip(names, mu)), dict(zip(names, nu)))
+            if emit_health:
+                health = fused._health_from_rows([fused.leaf_health(x) for x in g])
+        return dict(zip(names, u)), ScaleByAdamState(count, dict(zip(names, mu)), dict(zip(names, nu)), health)
 
     return GradientTransformation(init_fn, update_fn)
 
 
-def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+def adamw(learning_rate, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, grad_clip: Optional[float] = 1.0,
-          backend: str = "jnp") -> GradientTransformation:
-    """The paper's recipe: clip(1.0) -> Adam -> decoupled wd -> -lr."""
+          backend: str = "jnp", emit_health: bool = False, megakernel: bool = True) -> GradientTransformation:
+    """The paper's recipe: clip(1.0) -> Adam -> decoupled wd -> -lr
+    (``learning_rate`` a constant or a schedule of the step count)."""
     parts = [clip_by_global_norm(grad_clip)] if grad_clip is not None else []
-    parts.append(scale_by_adam(b1=b1, b2=b2, eps=eps, backend=backend))
+    parts.append(scale_by_adam(b1=b1, b2=b2, eps=eps, backend=backend, emit_health=emit_health,
+                               megakernel=megakernel))
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
     parts.append(scale_by_learning_rate(learning_rate))

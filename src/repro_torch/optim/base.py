@@ -67,10 +67,31 @@ def _stateless(fn: Callable[[Tree, Optional[Tree]], Tree]) -> GradientTransforma
                                   lambda updates, state, params=None: (fn(updates, params), state))
 
 
-def scale_by_learning_rate(lr: float) -> GradientTransformation:
-    """Multiply by -lr (a constant; learning-rate schedules are not ported)."""
+class ScaleByScheduleState(NamedTuple):
+    count: torch.Tensor  # int32 0-d
+
+
+def scale_by_schedule(schedule: Callable[[torch.Tensor], torch.Tensor]) -> GradientTransformation:
+    """Multiply by ``schedule(count)`` and advance the count (a state leaf,
+    so it rides in checkpoints at the same chain index as JAX's)."""
+
+    def init_fn(params):
+        device = next(iter(params.values())).device
+        return ScaleByScheduleState(count=torch.zeros((), dtype=torch.int32, device=device))
+
+    def update_fn(updates, state, params=None):
+        step_size = schedule(state.count)
+        updates = {k: u * step_size.to(u.dtype) for k, u in updates.items()}
+        return updates, ScaleByScheduleState(count=state.count + 1)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def scale_by_learning_rate(lr) -> GradientTransformation:
+    """Multiply by -lr: a constant, or a schedule of the step count
+    (``repro_torch.optim.schedules``)."""
     if callable(lr):
-        raise NotImplementedError("learning-rate schedules are not ported yet")
+        return scale_by_schedule(lambda count: -1.0 * lr(count))
     return _stateless(lambda updates, params: {k: u * -lr for k, u in updates.items()})
 
 

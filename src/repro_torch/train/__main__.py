@@ -1,10 +1,13 @@
 """Training CLI, the port's counterpart of ``examples/train_gpt.py``.
 
     PYTHONPATH=src python -m repro_torch.train --preset full --optimizer slim --backend fused --steps 4
-    PYTHONPATH=src python -m repro_torch.train --preset cpu --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.train --preset cpu --device cpu --steps 20 --ckpt /tmp/ckpt
 
 Runs on the GPU unless ``--device`` names another device. ``--optimizer
-adam`` measures SNR and prints the SlimAdam rules it would derive.
+adam`` measures SNR and prints the SlimAdam rules it would derive. With
+``--ckpt`` the run checkpoints a quarter of the way through, and a rerun
+with the same directory and a higher ``--steps`` resumes from the newest
+valid checkpoint.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--backend", default="jnp", choices=("jnp", "fused", "auto"),
                     help="optimizer execution backend")
+    ap.add_argument("--ckpt", default=None, help="checkpoint directory (resumes from it when it holds one)")
     ap.add_argument("--device", default=None, help="default: the GPU (raises when there is none)")
     args = ap.parse_args(argv)
 
@@ -37,8 +41,11 @@ def main(argv=None):
 
     data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
     tc = TrainerConfig(total_steps=args.steps, log_every=max(args.steps // 10, 1),
+                       ckpt_every=max(args.steps // 4, 1) if args.ckpt else 0, ckpt_dir=args.ckpt,
                        measure_snr=(args.optimizer == "adam"), snr_early_every=20, backend=args.backend)
     tr = Trainer(cfg, args.optimizer, args.lr, data, tc, device=args.device)
+    if tr.step:
+        print(f"resumed from checkpoint at step {tr.step}")
     final = tr.run()
     print("final:", final)
 

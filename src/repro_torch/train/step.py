@@ -1,11 +1,13 @@
-"""Train step factory (port of ``repro/train/step.py``, the plain step with
-``grad_accum=1``).
+"""Train and eval step factories (port of ``repro/train/step.py``).
 
     train_step(opt_state, batch) -> (opt_state, metrics)
+    guarded_train_step(opt_state, batch, controls) -> (opt_state, metrics)
+    eval_step(batch) -> metrics
 
 Gradients come from autograd through the model's forward; the optimizer
 update runs under ``no_grad`` and the parameters are updated in place. The
-metrics stay device tensors: nothing in the step waits for the device.
+plain step's metrics stay device tensors: nothing in it waits for the
+device. The guarded step reads one flag (the step's health) to the host.
 """
 from __future__ import annotations
 
@@ -18,17 +20,98 @@ from ..optim.base import GradientTransformation, apply_updates, global_norm
 from .loss import lm_loss
 
 
-def make_train_step(model: transformer.Transformer, tx: GradientTransformation) -> Callable:
+def make_train_step(model: transformer.Transformer, tx: GradientTransformation, *, grad_accum: int = 1,
+                    guard: bool = False) -> Callable:
+    """One optimizer step over ``model``'s parameters.
+
+    With ``grad_accum > 1`` the batch is split into ``grad_accum``
+    microbatches along its leading dim; their gradients accumulate in f32 as
+    ``acc + g / grad_accum`` in microbatch order (the paper's micro-batch
+    recipe), and each metric is the mean over the microbatches.
+
+    ``guard=True`` returns the fault-tolerant variant
+    ``train_step(opt_state, batch, controls)``, ``controls`` being
+    ``{'lr_scale': float, 'grad_scale': float}``: the gradients are
+    multiplied by ``grad_scale`` and the updates by ``lr_scale``. The step
+    reads the in-pass :class:`repro_torch.optim.fused.StepHealth` the
+    optimizer published (build ``tx`` with ``emit_health=True``; without it
+    the finiteness of the gradient norm decides). A bad step applies no
+    update and keeps the old optimizer state, so parameters, moments and
+    count stay bit-identical: the update is computed into new tensors and
+    committed only when the step is good. Extra metrics:
+    ``nonfinite_count`` (f64, exact), ``step_skipped``, ``health_grad_norm``. The
+    returned state never carries ``health``; a from-update SNR snapshot
+    rides on it for the trainer to consume (dropped on a bad step)."""
     params = model.params
+    names = list(params)
+    leaves = list(params.values())
+
+    def grads_of(batch):
+        loss, metrics = lm_loss(model.cfg, params, batch, transformer.forward)
+        grads = torch.autograd.grad(loss, leaves)
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def compute_grads(batch):
+        if grad_accum == 1:
+            grads, metrics = grads_of(batch)
+            return dict(zip(names, grads)), metrics
+        n = next(iter(batch.values())).shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch of {n} rows does not split into {grad_accum} microbatches")
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        per_micro = []
+        for micro in zip(*(v.chunk(grad_accum) for v in batch.values())):
+            grads, metrics = grads_of(dict(zip(batch, micro)))
+            with torch.no_grad():
+                acc = [a + g.float() / grad_accum for a, g in zip(acc, grads)]
+            per_micro.append(metrics)
+        metrics = {k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]}
+        return dict(zip(names, acc)), metrics
 
     def train_step(opt_state, batch: Dict[str, torch.Tensor]):
-        loss, metrics = lm_loss(model.cfg, params, batch, transformer.forward)
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        grads, metrics = compute_grads(batch)
         with torch.no_grad():
             updates, opt_state = tx.update(grads, opt_state, params)
             apply_updates(params, updates)
-            metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["grad_norm"] = global_norm(grads)
         return opt_state, metrics
 
-    return train_step
+    def guarded_train_step(opt_state, batch: Dict[str, torch.Tensor], controls: Dict[str, float]):
+        from .guard import find_step_health, strip_step_health
+
+        grads, metrics = compute_grads(batch)
+        with torch.no_grad():
+            g_scale = float(controls["grad_scale"])
+            if g_scale != 1.0:
+                grads = {k: g * g_scale for k, g in grads.items()}
+            updates, new_state = tx.update(grads, opt_state, params)
+            gn = global_norm(grads)
+            health = find_step_health(new_state)
+            if health is not None:
+                bad_t, nonfinite, health_gn = health.bad, health.nonfinite.double().sum(), health.grad_norm
+            else:
+                bad_t = ~torch.isfinite(gn)
+                nonfinite, health_gn = bad_t.double(), gn
+            bad = bool(bad_t)
+            if not bad:
+                lr_scale = float(controls["lr_scale"])
+                if lr_scale != 1.0:
+                    updates = {k: u * lr_scale for k, u in updates.items()}
+                apply_updates(params, updates)
+                opt_state = strip_step_health(new_state)
+            metrics.update(grad_norm=gn, nonfinite_count=nonfinite, health_grad_norm=health_gn,
+                           step_skipped=torch.tensor(float(bad)))
+        return opt_state, metrics
+
+    return guarded_train_step if guard else train_step
+
+
+def make_eval_step(model: transformer.Transformer) -> Callable:
+    """Forward-only metrics of ``model`` on a batch (no gradients)."""
+
+    def eval_step(batch: Dict[str, torch.Tensor]):
+        with torch.no_grad():
+            _, metrics = lm_loss(model.cfg, model.params, batch, transformer.forward)
+        return metrics
+
+    return eval_step

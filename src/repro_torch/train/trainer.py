@@ -1,36 +1,46 @@
-"""Trainer: optimizer registry and the SNR measurement cadence (port of
-``repro/train/trainer.py``, single device).
+"""Trainer: optimizer registry, SNR measurement hooks, checkpoint/restart
+and the guarded fault-tolerant loop (port of ``repro/train/trainer.py``,
+single device).
 
 The paper's loop: train Adam while measuring layer-wise SNR of its second
 moments, derive SlimAdam rules from the averages (``derive_slim_rules``),
 then train SlimAdam with those rules ('slim_snr') or with the paper's
-Table-3 rules ('slim').
+Table-3 rules ('slim'). A :class:`repro_torch.train.guard.GuardConfig`
+turns on the guarded step (in-pass health, skip/backoff/rollback);
+``ckpt_every``/``ckpt_dir`` write atomic checkpoints that a new trainer on
+the same directory resumes from; ``snr_from_update`` rides the SNR
+measurement of a SlimAdam run on the update pass.
 
-Not ported yet: checkpoints, the guard and fault injection, from-update SNR,
-gradient accumulation, and the baseline optimizers.
+Not ported yet: the baseline optimizers and the sharded regime.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
 
 from .. import resolve_device
+from ..checkpoint import store
 from ..core import SNRTracker, derive_rules, measure_tree_snr, rules_as_tree, table3_rules
 from ..core.slim_adam import ScaleBySlimAdamState, slim_adam
 from ..data.pipeline import ZipfLM
 from ..models.transformer import Transformer
 from ..optim.adam import ScaleByAdamState, adamw
 from ..optim.base import ChainState
-from .step import make_train_step
+from .guard import ROLLBACK, Guard, GuardConfig, find_slim_snr, strip_slim_snr
+from .step import make_eval_step, make_train_step
 
 OPTIMIZERS = ("adam", "slim", "slim_snr")
+_SLIM_FAMILY = ("slim", "slim_snr")
 
 
 def slim_rule_dims(name: str, params, meta, rules: Optional[Dict[str, Any]] = None):
-    """Per-leaf reduction dims the slim-family optimizer ``name`` uses."""
+    """Per-leaf reduction dims the slim-family optimizer ``name`` uses (one
+    derivation shared by :func:`make_optimizer` and the from-update SNR
+    consumer)."""
     if name == "slim":
         return rules_as_tree(table3_rules(meta), params, meta)
     if name == "slim_snr":
@@ -40,16 +50,26 @@ def slim_rule_dims(name: str, params, meta, rules: Optional[Dict[str, Any]] = No
     raise ValueError(f"{name!r} is not a slim-family optimizer")
 
 
-def make_optimizer(name: str, lr: float, params, meta, *, weight_decay: float = 0.1, b1: float = 0.9,
+def make_optimizer(name: str, lr, params, meta, *, weight_decay: float = 0.1, b1: float = 0.9,
                    b2: float = 0.95, grad_clip: float = 1.0, rules: Optional[Dict[str, Any]] = None,
-                   backend: str = "jnp"):
-    """Build one of the ported optimizers. ``rules`` are the derived rules
-    'slim_snr' needs; ``backend`` is 'jnp' | 'fused' | 'auto'."""
+                   backend: str = "jnp", emit_snr: bool = False, emit_health: bool = False,
+                   megakernel: bool = True):
+    """Build one of the ported optimizers. ``lr`` is a constant or a
+    schedule (``repro_torch.optim.schedules``); ``rules`` are the derived
+    rules 'slim_snr' needs; ``backend`` is 'jnp' | 'fused' | 'auto'.
+    ``emit_snr`` (slim family) builds the measure-step variant that
+    publishes from-update SNR on its state; ``emit_health`` publishes the
+    in-pass StepHealth the guarded step reads; ``megakernel=False`` takes
+    the fused backend's per-leaf route."""
+    if emit_snr and name not in _SLIM_FAMILY:
+        raise ValueError(f"emit_snr is only supported by the slim family {_SLIM_FAMILY}, not {name!r}")
     if name == "adam":
-        return adamw(lr, b1=b1, b2=b2, weight_decay=weight_decay, grad_clip=grad_clip, backend=backend)
-    if name in ("slim", "slim_snr"):
+        return adamw(lr, b1=b1, b2=b2, weight_decay=weight_decay, grad_clip=grad_clip, backend=backend,
+                     emit_health=emit_health, megakernel=megakernel)
+    if name in _SLIM_FAMILY:
         return slim_adam(lr, slim_rule_dims(name, params, meta, rules), b1=b1, b2=b2,
-                         weight_decay=weight_decay, grad_clip=grad_clip, backend=backend)
+                         weight_decay=weight_decay, grad_clip=grad_clip, backend=backend, emit_snr=emit_snr,
+                         emit_health=emit_health, megakernel=megakernel)
     raise ValueError(f"unknown optimizer {name!r}; choose from {OPTIMIZERS}")
 
 
@@ -70,65 +90,189 @@ def find_adam_nu(opt_state) -> Optional[Dict[str, torch.Tensor]]:
 class TrainerConfig:
     total_steps: int = 1000
     log_every: int = 50
+    ckpt_every: int = 0              # 0 = disabled
+    ckpt_dir: Optional[str] = None
+    ckpt_keep: int = 3
     measure_snr: bool = False
     snr_early_every: int = 100
     snr_late_every: int = 1000
+    # Ride the SNR measurement on the update pass: measure steps run a
+    # second train step whose optimizer update also emits per-leaf
+    # from-update SNR (slim family only), and measure_tree_snr consumes it
+    # instead of re-reading nu for the candidate K the optimizer reduces.
+    snr_from_update: bool = False
     seed: int = 0
     # Backend for the Adam/SlimAdam update and the SNR pass: 'jnp' | 'fused' | 'auto'.
     backend: str = "jnp"
+    # A GuardConfig turns on the guarded train step (in-pass health +
+    # skip/backoff/rollback, see repro_torch.train.guard); None keeps the
+    # plain step.
+    guard: Optional[GuardConfig] = None
 
 
 class Trainer:
     """Train ``model_cfg`` with ``optimizer_name`` on ``data``. Runs on CUDA
     unless ``device`` names another device; raises when no GPU is present
-    and none is named."""
+    and none is named. ``grad_accum`` splits each batch into that many
+    microbatches; ``faults`` (a :class:`repro_torch.train.faults.FaultPlan`)
+    injects gradient and loss faults into the guarded step. A trainer whose
+    ``ckpt_dir`` holds a checkpoint resumes from it."""
 
-    def __init__(self, model_cfg, optimizer_name: str, lr: float, data: ZipfLM,
+    def __init__(self, model_cfg, optimizer_name: str, lr, data: ZipfLM,
                  tc: Optional[TrainerConfig] = None, *, optimizer_kw: Optional[dict] = None,
-                 rules: Optional[dict] = None, device=None):
+                 rules: Optional[dict] = None, grad_accum: int = 1, faults=None, device=None):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.tc = tc = tc if tc is not None else TrainerConfig()
         self.data = data
+        self.guard = Guard(tc.guard) if tc.guard is not None else None
+        self.faults = faults
+        self.ckpt_failures = 0
         self.model = Transformer(model_cfg, device=self.device, gen=torch.Generator().manual_seed(tc.seed))
         self.params, self.meta = self.model.params, self.model.meta
         okw = dict(optimizer_kw or {})
         okw.setdefault("backend", tc.backend)
         self.backend = okw["backend"]  # one backend for update + SNR pass
-        self.tx = make_optimizer(optimizer_name, lr, self.params, self.meta, rules=rules, **okw)
+        guarded = self.guard is not None
+        self.tx = make_optimizer(optimizer_name, lr, self.params, self.meta, rules=rules, emit_health=guarded,
+                                 **okw)
         self.opt_state = self.tx.init(self.params)
         self.step = 0
         self.snr = SNRTracker()
         self.metrics_log: list = []
-        self._train_step = make_train_step(self.model, self.tx)
+        self._train_step = make_train_step(self.model, self.tx, grad_accum=grad_accum, guard=guarded)
+        # Measure-step variant: the same optimizer built with emit_snr=True,
+        # so on SNR cadence steps the update pass measures SNR_K along each
+        # compressed leaf's own K (state.snr) and maybe_measure_snr skips
+        # the nu read for that candidate.
+        self._train_step_snr = None
+        self._update_dims = None
+        if tc.measure_snr and tc.snr_from_update and optimizer_name in _SLIM_FAMILY:
+            self._update_dims = slim_rule_dims(optimizer_name, self.params, self.meta, rules)
+            tx_snr = make_optimizer(optimizer_name, lr, self.params, self.meta, rules=rules, emit_snr=True,
+                                    emit_health=guarded, **okw)
+            self._train_step_snr = make_train_step(self.model, tx_snr, grad_accum=grad_accum, guard=guarded)
+        if tc.ckpt_dir and store.latest_step(tc.ckpt_dir) is not None:
+            self.restore()
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The data stream's batch ``step`` on the trainer's device."""
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                 for k, v in self.data.batch(step).items()}
 
+    # -- fault tolerance ---------------------------------------------------
+
+    def _state(self):
+        return {"params": self.params, "opt": self.opt_state}
+
+    def restore(self):
+        """Load the newest valid checkpoint of ``tc.ckpt_dir``: parameters
+        in place, the optimizer state, and the step."""
+        state, extra = store.restore(self.tc.ckpt_dir, self._state())
+        self.model.load_params(state["params"])
+        self.opt_state = state["opt"]
+        self.step = int(extra.get("step", 0))
+
+    def checkpoint(self):
+        if not self.tc.ckpt_dir:
+            return
+        try:
+            store.save(self.tc.ckpt_dir, self.step, self._state(), extra={"step": self.step},
+                       keep=self.tc.ckpt_keep)
+        except OSError as e:
+            # A failed save must not kill the run: the atomic tmp-dir
+            # protocol left no torn step_* dir behind, so count it and train
+            # on to the next checkpoint cadence.
+            self.ckpt_failures += 1
+            warnings.warn(f"checkpoint save failed at step {self.step} ({e}); continuing without it")
+
+    def _rollback(self):
+        """Guard escalation: restore the last valid checkpoint and re-seed
+        the data pipeline so the restored trajectory doesn't replay the
+        exact batch sequence that diverged."""
+        self.guard.note_rollback()
+        restored = False
+        if self.tc.ckpt_dir and store.latest_step(self.tc.ckpt_dir) is not None:
+            try:
+                self.restore()
+                restored = True
+            except FileNotFoundError:
+                pass
+        if not restored:
+            warnings.warn("guard requested rollback but no valid checkpoint is available; continuing with "
+                          "backed-off lr")
+        bump = self.guard.counters["rollbacks"] * self.tc.guard.reseed_bump
+        self.data = ZipfLM(dataclasses.replace(self.data.cfg, seed=self.data.cfg.seed + bump))
+
+    # -- SNR hook ------------------------------------------------------------
+
     def maybe_measure_snr(self):
         if not self.tc.measure_snr or not SNRTracker.should_measure(
                 self.step, self.tc.snr_early_every, self.tc.snr_late_every):
             return
         nu = find_adam_nu(self.opt_state)
-        if nu is not None:
-            self.snr.update(measure_tree_snr(nu, self.meta, backend=self.backend), self.step)
+        if nu is None:
+            return
+        from_upd = find_slim_snr(self.opt_state) if self._train_step_snr is not None else None
+        self.snr.update(measure_tree_snr(nu, self.meta, backend=self.backend, from_update=from_upd,
+                                         update_dims=self._update_dims if from_upd is not None else None),
+                        self.step)
+        if from_upd is not None:
+            # Strip the consumed snapshot so checkpoints keep the snr-less layout.
+            self.opt_state = strip_slim_snr(self.opt_state)
+
+    # -- main loop -----------------------------------------------------------
 
     def run(self, steps: Optional[int] = None) -> Dict[str, float]:
         """Train up to step ``steps`` (default ``tc.total_steps``). Metrics
-        are read to the host only at ``log_every`` and at the last step."""
+        are read to the host only at ``log_every`` and at the last step (the
+        guarded loop reads the loss every step, for its policy)."""
         steps = steps if steps is not None else self.tc.total_steps
         t0 = time.time()
+        if self.step >= steps:
+            # A restored checkpoint can already be at/past the target step:
+            # run a forward-only eval so the no-op still yields the full
+            # metrics dict (grad_norm 0: no update happened).
+            last = {k: float(v) for k, v in make_eval_step(self.model)(self.batch(self.step)).items()}
+            last.update(grad_norm=0.0, step=self.step, wall_s=round(time.time() - t0, 2))
+            self.metrics_log.append(last)
+            return last
         last: Dict[str, float] = {}
         while self.step < steps:
-            self.opt_state, metrics = self._train_step(self.opt_state, self.batch(self.step))
-            self.step += 1
-            self.maybe_measure_snr()
+            batch = self.batch(self.step)
+            # On SNR-cadence steps, run the emit_snr step variant so the
+            # measurement rides the update pass.
+            step_fn = self._train_step
+            if self._train_step_snr is not None and SNRTracker.should_measure(
+                    self.step + 1, self.tc.snr_early_every, self.tc.snr_late_every):
+                step_fn = self._train_step_snr
+            if self.guard is not None:
+                g_scale = self.faults.grad_scale(self.step) if self.faults is not None else 1.0
+                self.opt_state, metrics = step_fn(self.opt_state, batch,
+                                                  {"lr_scale": self.guard.lr_scale, "grad_scale": g_scale})
+                self.step += 1
+                loss = float(metrics["loss"])
+                if self.faults is not None:
+                    loss = self.faults.corrupt_loss(self.step - 1, loss)
+                skipped = bool(metrics["step_skipped"] > 0)
+                action = self.guard.observe(loss, skipped=skipped, nonfinite=float(metrics["nonfinite_count"]))
+                if not skipped:
+                    self.maybe_measure_snr()
+                if action == ROLLBACK:
+                    self._rollback()
+                    continue
+            else:
+                self.opt_state, metrics = step_fn(self.opt_state, batch)
+                self.step += 1
+                self.maybe_measure_snr()
             if self.step % self.tc.log_every == 0 or self.step == steps:
                 last = {k: float(v) for k, v in metrics.items()}
                 last.update(step=self.step, wall_s=round(time.time() - t0, 2))
+                if self.guard is not None:
+                    last.update(self.guard.stats(), ckpt_failures=float(self.ckpt_failures))
                 self.metrics_log.append(last)
+            if self.tc.ckpt_every and self.step % self.tc.ckpt_every == 0:
+                self.checkpoint()
         return last
 
     def derive_slim_rules(self, cutoff: float = 1.0):

@@ -10,7 +10,8 @@ computed elementwise in the same operation order (m', and u and m', v' of
 dense Adam), 1e-5 for outputs that depend on a line sum (summation order
 differs), and so for paged attention with f32 queries; with bf16 queries
 the output is bf16, and the two versions may round one step apart (2^-7
-relative).
+relative). Non-finite counts (the ``with_health`` outputs) must be equal,
+on gradients seeded with a known number of NaN and +-Inf entries.
 """
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import snr_along_dims
-from repro_torch.kernels import megaplan, paged_attention as pa, snr_stats
+from repro_torch.kernels import fused_adam, megaplan, paged_attention as pa, slim_update, snr_stats
 
 pytestmark = pytest.mark.cuda
 
@@ -122,7 +123,111 @@ def test_counts_reset(dev):
     snr_stats.snr_stats_centered_batched(torch.rand(1, 3, 8, device=dev), axis=1)
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
-    np.testing.assert_equal(len(kernels.KERNELS), 4)
+    np.testing.assert_equal(len(kernels.KERNELS), 6)
+
+
+def _poison(g, n_bad, seed):
+    """Set ``n_bad`` distinct entries of g to NaN, +Inf and -Inf in turn (in
+    place); returns g."""
+    flat = g.view(-1)
+    idx = torch.randperm(flat.numel(), generator=torch.Generator().manual_seed(seed))[:n_bad].to(g.device)
+    vals = torch.tensor([float("nan"), float("inf"), float("-inf")], device=g.device, dtype=g.dtype)
+    flat[idx] = vals[torch.arange(n_bad, device=g.device) % 3]
+    return g
+
+
+def _close_finite(a, b, tol):
+    """Equal non-finite positions, and the finite entries within tol."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    assert torch.equal(fa, fb)
+    _close(torch.where(fa, a, 0.0), torch.where(fb, b, 0.0), tol)
+
+
+@pytest.mark.parametrize("rows,cols,n_bad", [(300, 512, 0), (300, 512, 37), (17, 12, 5)])
+def test_mega_adam_update_health(dev, rows, cols, n_bad):
+    g, m, _, bc1, bc2 = _inputs(dev, (rows, cols), (rows, 1), rows + n_bad)
+    _poison(g, n_bad, rows)
+    v = 0.01 * torch.rand((rows, cols), device=dev)
+    got = megaplan.mega_adam_update(g, m, v, bc1, bc2, with_health=True, **KW)
+    want = megaplan.mega_adam_update_plain(g, m, v, bc1, bc2, with_health=True, **KW)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], want[:3]):
+        _close_finite(a, b, ELEMENTWISE)
+    assert torch.equal(got[3], want[3]) and float(got[3].sum()) == n_bad
+    _close(got[4], want[4], LINE_SUMS)
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (2, 7, 33, 1), (1, 40, 70, 0), (12, 64, 100, 0)])
+@pytest.mark.parametrize("with_snr,with_health", [(True, False), (False, True), (True, True)])
+def test_mega_slim_update_batched_flags(dev, b, r, c, axis, with_snr, with_health):
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    inputs = _inputs(dev, (b, r, c), line, b * r * c)
+    n_bad = 11 if with_health else 0
+    _poison(inputs[0], n_bad, c)
+    flags = dict(with_snr=with_snr, with_health=with_health)
+    got = megaplan.mega_slim_update_batched(*inputs, axis=axis, **flags, **KW)
+    want = megaplan.mega_slim_update_batched_plain(*inputs, axis=axis, **flags, **KW)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 3 + 2 * with_snr + 2 * with_health
+    _close_finite(got[1], want[1], ELEMENTWISE)
+    for a, w in zip(got[:3] + got[3:3 + 2 * with_snr], want[:3] + want[3:3 + 2 * with_snr]):
+        _close_finite(a, w, LINE_SUMS)
+    if with_health:
+        assert torch.equal(got[-2], want[-2]) and float(got[-2].sum()) == n_bad
+        _close(got[-1], want[-1], LINE_SUMS)
+
+
+@pytest.mark.parametrize("shape", [(300, 512), (37, 129), (1, 9), (3000, 777)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_health", [False, True])
+def test_adam_precond(dev, shape, dtype, with_health):
+    g, m, _, _, _ = _inputs(dev, shape, shape, shape[0] * shape[1])
+    g = _poison(g, 7 if with_health else 0, 3).to(dtype)
+    v = 0.01 * torch.rand(shape, device=dev)
+    count = torch.tensor(5, dtype=torch.int32, device=dev)
+    before = fused_adam.adam_precond.launches
+    got = fused_adam.adam_precond(g, m, v, count=count, with_health=with_health, **KW)
+    bc1, bc2 = fused_adam.bias_corrections(0.9, 0.95, count)
+    want = fused_adam.adam_precond_plain(g, m, v, bc1, bc2, with_health=with_health, **KW)
+    torch.cuda.synchronize()
+    assert fused_adam.adam_precond.launches == before + 1
+    for a, b in zip(got[:3], want[:3]):
+        _close_finite(a, b, ELEMENTWISE)
+    if with_health:
+        again = fused_adam.adam_precond(g, m, v, count=count, with_health=True, **KW)[3]
+        assert float(got[3][0]) == float(want[3][0]) == 7
+        _close(got[3][1:], want[3][1:], LINE_SUMS)
+        assert torch.equal(got[3], again)      # fixed-order reduction: deterministic
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (12, 768, 64, 0), (1, 50, 33, 0), (3, 7, 130, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_snr,with_health", [(False, False), (True, True)])
+def test_slim_precond_batched(dev, b, r, c, axis, dtype, with_snr, with_health):
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, v, _, _ = _inputs(dev, (b, r, c), line, b + r + c)
+    g = _poison(g, 5 if with_health else 0, 1).to(dtype)
+    count = torch.tensor(2, dtype=torch.int32, device=dev)
+    flags = dict(with_snr=with_snr, with_health=with_health)
+    got = slim_update.slim_precond_batched(g, m, v, axis=axis, count=count, **flags, **KW)
+    bc1, bc2 = fused_adam.bias_corrections(0.9, 0.95, count)
+    want = slim_update.slim_precond_batched_plain(g, m, v, bc1, bc2, axis=axis, **flags, **KW)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    _close_finite(got[1], want[1], ELEMENTWISE)
+    for a, w in zip(got[:3] + got[3:3 + 2 * with_snr], want[:3] + want[3:3 + 2 * with_snr]):
+        _close_finite(a, w, LINE_SUMS)
+    if with_health:
+        assert float(got[-1][0]) == float(want[-1][0]) == 5
+        _close(got[-1][1:], want[-1][1:], LINE_SUMS)
+
+
+def test_slim_precond_2d_wrappers(dev):
+    g, m, _, _, _ = _inputs(dev, (40, 96), (40, 1), 4)
+    for fn, v in ((slim_update.slim_precond, 0.01 * torch.rand(40, 1, device=dev)),
+                  (slim_update.slim_precond_major, 0.01 * torch.rand(1, 96, device=dev))):
+        got = fn(g, m, v, with_snr=True, with_health=True, **KW)
+        assert [tuple(o.shape) for o in got] == [(40, 96), (40, 96)] + [tuple(v.shape)] * 3 + [(2,)]
 
 
 def _paged_case(dev, *, c, kv, rep, hd, page, pool_dtype, q_dtype, b=5, max_pages=6, seed=0):

@@ -105,5 +105,6 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     rng = np.random.default_rng(0)
     snr_stats_centered_batched(torch.from_numpy(rng.random((1, 4, 8), np.float32)), axis=1)
     assert kernels.launch_counts() == {"mega_adam_update": 0, "mega_slim_update_batched": 0,
+                                       "adam_precond": 0, "slim_precond_batched": 0,
                                        "snr_stats_centered_batched": 0, "paged_attention": 0}
 
