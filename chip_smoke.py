@@ -74,7 +74,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    decode steps through the kernel against the plain twin from the same
    state; and reduced f32 smollm_135m and gpt_small served on the card
    against the CPU, token for token.
-6. One ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+6. The sharded slice: 4 processes share the card as the ranks of a
+   (data=2, model=2) mesh (``repro_torch.launch.mesh``; gloo, since NCCL
+   refuses two ranks on one device; all-reduce and all-gather on the device
+   tensors), full-width gpt_small with the
+   global batch 8 x 1024 split 2 rows per rank. 6a: B9-B13 against their
+   twins on each rank's local shards of the Table-3 plan's 7 psum leaves
+   (B10 base, ``with_snr``, ``with_health``; B11 ek and owner; B12 and B13
+   on the psum groups; B9 on the 21 SNR candidates, whose lines the mesh
+   splits), non-finite counts exact, then each kernel timed on rank 0 alone.
+   6b: a sharded Table-3 SlimAdam update and a sharded Adam update against
+   the port's unsharded update of the same whole gradients (local leaves
+   and Adam bit-equal, psum leaves within 2e-6), the per-leaf route against
+   the grouped one. 6c: the sharded trainer, each run's launch counters
+   zeroed before and read after: Adam measuring SNR (B9), derived rules,
+   SlimAdam with them and from-update SNR, Table-3 SlimAdam (B12/B13), its
+   per-leaf route (B10/B11), a guarded step with an injected NaN that must
+   leave every rank's shards bit-identical; losses against the unsharded
+   port on the same batches (1e-4). 6d: a checkpoint saved on the mesh,
+   restored on the mesh (bit-equal shards) and unsharded (equal crc32s).
+   6e: the sharded step's time, 4 ranks on one card (not a multi-GPU
+   number), and the gradient all-reduce's. A rank that fails ends the run.
+7. One ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -85,6 +106,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -953,6 +975,517 @@ def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dim
     return report
 
 
+# -- the sharded slice (phase 6) ---------------------------------------------------
+
+# Phase 6 geometry: the mesh, and full-width gpt_small's global batch split
+# across its 4 ranks (2 rows of 1024 each).
+SHARD_SHAPE, SHARD_AXES = (2, 2), ("data", "model")
+SHARD_RANKS = 4
+SHARD_TIMEOUT_S = 300       # group timeout: a rank that raises ends the others' collectives
+TOL_PSUM_ABS = 2e-6         # psum leaves against the unsharded update (tests/test_psum_kernels.py:353)
+TOL_SHARDED_LOSS = 1e-4     # losses against the unsharded port: the gradient all-reduce sums in another
+                            # order than one whole-batch backward
+
+
+def shard_inputs(torch, shape, seed, scale=1e-3):
+    """A tensor every rank draws alike (seeded on the card)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return scale * torch.randn(shape, generator=gen, device="cuda")
+
+
+def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
+    """6a: B9-B13 against their plain twins on this rank's local shards of
+    every psum leaf of the Table-3 plan (B9 on every SNR candidate whose
+    lines the mesh splits), gradients seeded with NaN/Inf for the health
+    outputs; then, on rank 0 alone while the others wait, each kernel's time
+    over the shards one step (or one SNR measurement) launches it on."""
+    from repro_torch.kernels import megaplan, slim_update, snr_stats
+    from repro_torch.kernels.fused_adam import bias_corrections
+    from repro_torch.kernels.ops import canon_apply, canon_nd
+    from repro_torch.sharding.shardspec import global_shape, owning_axes
+
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8)
+    count = torch.tensor(3, dtype=torch.int32, device="cuda")
+    bc1, bc2 = bias_corrections(0.9, 0.95, count)
+    names = list(params)
+    psum = [i for i, pl in enumerate(plans) if pl.regime == "psum"]
+    out = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, cases=[])
+           for k in ("B9", "B10", "B11", "B12", "B13")}
+    timed = []   # (kernel, tag, run, plain, bound, library) on rank 0
+
+    def hold(kernel, tag, got, want, tols):
+        errs = [check_masked(f"[{mesh.rank}] {kernel} {tag} {label}", a, w, tol)
+                for (label, tol), a, w in zip(tols, got, want)]
+        out[kernel]["err"] = max(out[kernel]["err"], *errs)
+
+    def health_counts(kernel, tag, got, want, n_bad):
+        got_nf = float(got.sum()) if got.ndim else float(got)
+        if got_nf != float(want.sum() if want.ndim else want) or got_nf != n_bad:
+            raise AssertionError(f"{kernel} {tag}: {got_nf} non-finite counted, {n_bad} seeded")
+
+    local_g, local_m = {}, {}
+    for i in psum:
+        pl, name = plans[i], names[i]
+        cn = pl.cn
+        to3 = (lambda x: x) if cn.batch > 1 else (lambda x: x[None])
+        g = shard_inputs(torch, pl.local_shape, 10 + i)
+        m = shard_inputs(torch, pl.local_shape, 50 + i, 1e-4)
+        local_g[i], local_m[i] = g, m
+        g3, m3 = to3(canon_apply(g, cn)).contiguous(), to3(canon_apply(m, cn)).contiguous()
+        tag = f"{name} {tuple(g3.shape)} axis {cn.axis}"
+        n, lines = g3.numel(), (g3.shape[0] * (g3.shape[1] if cn.axis == 1 else g3.shape[2]))
+        for flags in ({}, {"with_snr": True}, {"with_health": True}):
+            gg = poison(torch, g3, 7, i) if flags.get("with_health") else g3
+            got = slim_update.slim_partial_stats_batched(gg, m3, axis=cn.axis, b1=0.9, **flags)
+            want = slim_update.slim_partial_stats_batched_plain(gg, m3, axis=cn.axis, b1=0.9, **flags)
+            tols = [("m'", TOL_ELEMENTWISE), ("part", TOL_LINE)]
+            tols += [("s1c", TOL_LINE), ("s2c", TOL_LINE), ("first", None)] if flags.get("with_snr") else []
+            hold("B10", f"{tag} {flags}", got[:len(tols)], want[:len(tols)], tols)
+            if flags.get("with_health"):
+                health_counts("B10", tag, got[-1][0], want[-1][0], 7)
+                hold("B10", f"{tag} {flags}", [got[-1][1:]], [want[-1][1:]], [("ss", TOL_LINE)])
+        line = got[1].shape
+        v = 1e-6 * torch.rand(line, device="cuda") + 1e-8
+        ek = 1e-6 * torch.rand(line, device="cuda")
+        m_new = slim_update.slim_partial_stats_batched_plain(g3, m3, axis=cn.axis, b1=0.9)[0]
+        for form, e in (("ek", ek), ("owner", None)):
+            got = slim_update.slim_finalize_batched(m_new, v, axis=cn.axis, ek=e, count=count, **kw)
+            want = slim_update.slim_finalize_batched_plain(m_new, v, bc1, bc2, b2=0.95, eps=1e-8, ek=e)
+            pairs = (got, want) if e is not None else ((got,), (want,))
+            hold("B11", f"{tag} {form}", *pairs, [("u", TOL_ELEMENTWISE), ("v'", TOL_ELEMENTWISE)])
+        timed.append(("B10", tag, lambda g3=g3, m3=m3, a=cn.axis: slim_update.slim_partial_stats_batched(
+            g3, m3, axis=a, b1=0.9), lambda g3=g3, m3=m3, a=cn.axis: slim_update.slim_partial_stats_batched_plain(
+            g3, m3, axis=a, b1=0.9), max((12 * n + 4 * lines) / rate, 4 * n / F32_RATE) * 1e3, None))
+        timed.append(("B11", tag, lambda m_new=m_new, v=v, a=cn.axis: slim_update.slim_finalize_batched(
+            m_new, v, axis=a, count=count, **kw), lambda m_new=m_new, v=v: slim_update.slim_finalize_batched_plain(
+            m_new, v, bc1, bc2, b2=0.95, eps=1e-8), max((8 * n + 4 * lines) / rate, 4 * n / F32_RATE) * 1e3, None))
+
+    # B12/B13 on the psum groups the grouped route launches (per form).
+    items = [(i, plans[i].local_shape, tuple(1 if d in dims[names[i]] else s
+                                             for d, s in enumerate(plans[i].local_shape)),
+              dims[names[i]], plans[i].cn) for i in psum]
+    by_form = {f: [it for it in items if bool(plans[it[0]].owner) == (f == "owner")] for f in ("owner", "plain")}
+    groups = [(form, grp) for form in ("owner", "plain") for grp in megaplan.groups_from_plans(by_form[form])]
+    for form, grp in groups:
+        to3 = (lambda x: x) if grp.kind == "batched" else (lambda x: x[None])
+        g3 = to3(megaplan.gather_group(grp, local_g)).contiguous()
+        m3 = to3(megaplan.gather_group(grp, local_m)).contiguous()
+        tag = f"{grp.kind}[{len(grp.segments)}] {tuple(g3.shape)} axis {grp.axis}"
+        n = g3.numel()
+        for flags in ({}, {"with_snr": True}, {"with_health": True}):
+            gg = poison(torch, g3, 5, n) if flags.get("with_health") else g3
+            got = megaplan.mega_slim_partial_stats_batched(gg, m3, axis=grp.axis, b1=0.9, **flags)
+            want = megaplan.mega_slim_partial_stats_batched_plain(gg, m3, axis=grp.axis, b1=0.9, **flags)
+            tols = [("m'", TOL_ELEMENTWISE), ("part", TOL_LINE)]
+            tols += [("s1c", TOL_LINE), ("s2c", TOL_LINE), ("first", None)] if flags.get("with_snr") else []
+            tols += [("nf", None), ("ss", TOL_LINE)] if flags.get("with_health") else []
+            hold("B12", f"{tag} {flags}", got, want, tols)
+            if flags.get("with_health"):
+                health_counts("B12", tag, got[-2], want[-2], 5)
+        line = got[1].shape
+        lines = math.prod(line)
+        v = 1e-6 * torch.rand(line, device="cuda") + 1e-8
+        ek = 1e-6 * torch.rand(line, device="cuda")
+        l1, l2 = bc1.expand(line).contiguous(), bc2.expand(line).contiguous()
+        m_new = megaplan.mega_slim_partial_stats_batched_plain(g3, m3, axis=grp.axis, b1=0.9)[0]
+        for f, e in (("ek", ek), ("owner", None)):
+            got = megaplan.mega_slim_finalize_batched(m_new, v, l1, l2, axis=grp.axis, ek=e, b2=0.95, eps=1e-8)
+            want = slim_update.slim_finalize_batched_plain(m_new, v, l1, l2, b2=0.95, eps=1e-8, ek=e)
+            pairs = (got, want) if e is not None else ((got,), (want,))
+            hold("B13", f"{tag} {f}", *pairs, [("u", TOL_ELEMENTWISE), ("v'", TOL_ELEMENTWISE)])
+        timed.append(("B12", tag, lambda g3=g3, m3=m3, a=grp.axis: megaplan.mega_slim_partial_stats_batched(
+            g3, m3, axis=a, b1=0.9), lambda g3=g3, m3=m3, a=grp.axis: megaplan.mega_slim_partial_stats_batched_plain(
+            g3, m3, axis=a, b1=0.9), max((12 * n + 4 * lines) / rate, 4 * n / F32_RATE) * 1e3, None))
+        timed.append(("B13", tag, lambda m_new=m_new, v=v, l1=l1, l2=l2, a=grp.axis:
+                      megaplan.mega_slim_finalize_batched(m_new, v, l1, l2, axis=a, b2=0.95, eps=1e-8),
+                      lambda m_new=m_new, v=v, l1=l1, l2=l2: slim_update.slim_finalize_batched_plain(
+                          m_new, v, l1, l2, b2=0.95, eps=1e-8),
+                      max((8 * n + 12 * lines) / rate, 4 * n / F32_RATE) * 1e3, None))
+
+    # B9 on the SNR candidates of Adam's second moments whose lines the mesh splits.
+    for i, name in enumerate(names):
+        spec = plans[i].spec
+        for label, axes in meta[name].candidate_ks().items():
+            d = tuple(sorted(meta[name].dims_of(axes)))
+            shape = global_shape(plans[i].local_shape, spec, mesh)
+            if not owning_axes(shape, spec, mesh, d):
+                continue
+            x = shard_inputs(torch, plans[i].local_shape, 90 + i)
+            cn = canon_nd(plans[i].local_shape, d)
+            v3 = canon_apply(x * x, cn).contiguous()
+            v3 = v3 if v3.ndim == 3 else v3[None]
+            tag = f"{name} {label} {tuple(v3.shape)} axis {cn.axis}"
+            got = snr_stats.snr_stats_centered_partial_batched(v3, axis=cn.axis)
+            want = snr_stats.snr_stats_centered_partial_batched_plain(v3, axis=cn.axis)
+            hold("B9", tag, got, want, [("s1", TOL_LINE), ("s1c", TOL_LINE), ("s2c", TOL_LINE), ("v0", None)])
+            n, lines = v3.numel(), got[0].numel()
+            red = 2 if cn.axis == 1 else 1
+            timed.append(("B9", tag, lambda v3=v3, a=cn.axis: snr_stats.snr_stats_centered_partial_batched(v3, axis=a),
+                          lambda v3=v3, a=cn.axis: snr_stats.snr_stats_centered_partial_batched_plain(v3, axis=a),
+                          max((4 * n + 16 * lines) / rate, 5 * n / F64_RATE) * 1e3,
+                          lambda v3=v3, red=red: torch.var_mean(v3, dim=red, correction=0)))
+    torch.cuda.synchronize()
+    # Times on rank 0 alone: the other ranks wait at the barrier.
+    if lead:
+        log(f"[6a] B9-B13 times at the local shapes, rank 0 alone on the card ({mesh.transport_note()})")
+        for kernel, tag, run, plain, bound, lib in timed:
+            ms, plain_ms = timer(run, reps=5), timer(plain, reps=3)
+            lib_ms = timer(lib, reps=5) if lib is not None else None
+            acc = out[kernel]
+            acc["ms"] += ms
+            acc["plain_ms"] += plain_ms
+            acc["bound_ms"] += bound
+            if lib_ms is not None:
+                acc["library_ms"] = (acc["library_ms"] or 0.0) + lib_ms
+            acc["cases"].append(dict(tag=tag, ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=lib_ms))
+            log(f"  {kernel} {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms"
+                + ("" if lib_ms is None else f"  var_mean {lib_ms:.4f} ms"))
+    mesh.barrier()
+    return out
+
+
+def same_tensors(what, a, b):
+    """Bit equality of two dicts of tensors, key for key."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: other leaves")
+    for k in a:
+        if not torch_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def sharded_vs_unsharded(torch, mesh, params, plans, dims, lead):
+    """6b: one sharded Table-3 SlimAdam update (two, so the moments carry
+    history) and one sharded Adam update against the port's unsharded
+    update of the same whole gradients on the same card; the per-leaf route
+    (B10/B11) against the grouped one (B12/B13)."""
+    from repro_torch.core.slim_adam import scale_by_slim_adam
+    from repro_torch.optim.adam import scale_by_adam
+
+    say = log if lead else (lambda *a: None)
+    names = list(params)
+    grads = [{k: shard_inputs(torch, p.shape, 200 * s + i) for i, (k, p) in enumerate(params.items())}
+             for s in range(2)]
+    specs = {k: pl.spec for k, pl in zip(names, plans)}
+    res = {}
+    with torch.no_grad():
+        txs = {"unsharded": scale_by_slim_adam(dims, backend="fused"),
+               "grouped": scale_by_slim_adam(dims, backend="fused", mesh=mesh, param_specs=specs),
+               "per_leaf": scale_by_slim_adam(dims, backend="fused", mesh=mesh, param_specs=specs, megakernel=False)}
+        states = {k: tx.init(params) for k, tx in txs.items()}
+        for g in grads:
+            ups = {}
+            for k, tx in txs.items():
+                ups[k], states[k] = tx.update(g, states[k])
+        worst = dict(u=0.0, mu=0.0, nu=0.0)
+        for i, (k, pl) in enumerate(zip(names, plans)):
+            un, sh = states["unsharded"], states["grouped"]
+            nu_spec = pl.nu_spec if pl.nu_spec is not None else pl.red_spec
+            pairs = {"u": (ups["grouped"][k], ups["unsharded"][k]), "mu": (sh.mu[k], mesh.shard(un.mu[k], pl.spec)),
+                     "nu": (sh.nu[k], mesh.shard(un.nu[k], nu_spec))}
+            for what, (a, b) in pairs.items():
+                if pl.regime == "local":
+                    if not torch_equal(a, b):
+                        raise AssertionError(f"local leaf {k} {what}: sharded differs from unsharded")
+                else:
+                    err = float((a.double() - b.double()).abs().max())
+                    worst[what] = max(worst[what], err)
+                    if err > TOL_PSUM_ABS:
+                        raise AssertionError(f"psum leaf {k} {what}: {err:.3e} above {TOL_PSUM_ABS:.0e}")
+        say(f"[6b] sharded Table-3 SlimAdam against unsharded, 2 updates: local leaves bit-equal; psum leaves "
+            f"max abs err u {worst['u']:.3e}  m' {worst['mu']:.3e}  owner-slice v' {worst['nu']:.3e} "
+            f"(tol {TOL_PSUM_ABS:.0e})")
+        res["slim_psum_abs_err"] = worst
+        route = 0.0
+        for k in names:
+            for a, b in ((ups["per_leaf"][k], ups["grouped"][k]), (states["per_leaf"].mu[k], states["grouped"].mu[k]),
+                         (states["per_leaf"].nu[k], states["grouped"].nu[k])):
+                route = max(route, max_err(a, b)[1])
+        if route > TOL_ELEMENTWISE:
+            raise AssertionError(f"per-leaf route against grouped route: rel err {route:.3e}")
+        say(f"[6b] per-leaf route (B10/B11, B3/B4) against the grouped one (B12/B13, B1/B2): worst rel err "
+            f"{route:.3e}")
+        res["per_leaf_vs_grouped_rel"] = route
+        del txs, states, ups
+        ta_u, ta_s = scale_by_adam(b2=0.95, backend="fused"), scale_by_adam(b2=0.95, backend="fused", mesh=mesh,
+                                                                            param_specs=specs)
+        uu, su = ta_u.update(grads[0], ta_u.init(params))
+        us, ss = ta_s.update(grads[0], ta_s.init(params))
+        for k, pl in zip(names, plans):
+            if not (torch_equal(us[k], uu[k]) and torch_equal(ss.mu[k], mesh.shard(su.mu[k], pl.spec))
+                    and torch_equal(ss.nu[k], mesh.shard(su.nu[k], pl.spec))):
+                raise AssertionError(f"sharded Adam differs from unsharded on {k}")
+        say("[6b] sharded Adam against unsharded: u, m', v' bit-equal on every leaf")
+    torch.cuda.empty_cache()
+    return res
+
+
+def state_copy(torch, tree):
+    from repro_torch.checkpoint.store import named_leaves
+
+    return {n: t.detach().clone() for n, t in named_leaves(tree) if isinstance(t, torch.Tensor)}
+
+
+def crcs(torch, tree):
+    import zlib
+
+    from repro_torch.checkpoint.store import named_leaves
+
+    return {n: zlib.crc32(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+            for n, t in named_leaves(tree)}
+
+
+def sharded_rank(rank, rdv, out, rate, ckpt_dir):
+    """One rank of the (data=2, model=2) mesh on the card: phases 6a-6e.
+    Rank 0 logs; every rank checks. Results go to ``out``; a failure
+    raises, which ends the process with a non-zero code."""
+    import datetime
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import rules_to_dims, table3_rules
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import fused as F
+    from repro_torch.models import Transformer
+    from repro_torch.sharding import ShardingContext, param_specs, use_sharding
+    from repro_torch.sharding.shardspec import regime_counts
+    from repro_torch.train import FaultPlan, GuardConfig, Trainer, TrainerConfig
+
+    t_start = time.perf_counter()
+    if rank:   # rank 0 speaks for the mesh; the others' failures still reach stderr
+        sys.stdout = open(os.devnull, "w")
+    mesh = make_mesh(SHARD_SHAPE, SHARD_AXES, device="cuda", init_method=f"file://{rdv}", rank=rank,
+                     world_size=SHARD_RANKS, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    lead = rank == 0
+    say = log if lead else (lambda *a: None)
+    res = {"transport": mesh.transport_note(), "coords": mesh.coords}
+    say(f"[6] {mesh.transport_note()}")
+    cfg = get_config("gpt_small")
+    timer = Timer(torch) if lead else None
+    with use_sharding(ShardingContext(mesh)):
+        model = Transformer(cfg, device=torch.device("cuda"), gen=torch.Generator().manual_seed(0))
+        params, meta = model.params, model.meta
+        specs = param_specs(meta, params)
+        dims = rules_to_dims(table3_rules(meta), meta)
+        plans = F.sharded_tree_plans(list(params.values()), [dims[k] for k in params], [specs[k] for k in params],
+                                     mesh)
+        counts = regime_counts(plans)
+        say(f"[6] Table-3 plan on the mesh: {counts}; psum leaves' local shapes "
+            f"{[(k, pl.local_shape) for k, pl in zip(params, plans) if pl.regime == 'psum']}")
+        if counts != {"local": 4, "psum": 7, "psum_jnp": 0, "jnp": 0, "degraded": 0}:
+            raise AssertionError(f"unexpected regimes {counts}")
+        res["kernels"] = sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead)
+        res["vs_unsharded"] = sharded_vs_unsharded(torch, mesh, params, plans, dims, lead)
+        del model, params
+        torch.cuda.empty_cache()
+
+        # -- 6c. the sharded trainer: counted runs -----------------------------
+        data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8, seed=0))
+
+        def counted(label, trainer, steps=None):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer.run(steps)
+            torch.cuda.synchronize()
+            c = kernels.launch_counts()
+            say(f"[6c] {label}: {trainer.step} steps in {time.perf_counter() - t0:.1f} s, losses "
+                f"{[round(m['loss'], 5) for m in trainer.metrics_log]}, launches "
+                f"{ {k: v for k, v in c.items() if v} }")
+            return c
+
+        tc = dict(log_every=1, backend="fused", seed=0, measure_snr=True, snr_early_every=2)
+        adam = Trainer(cfg, "adam", 1e-3, data, TrainerConfig(total_steps=2, **tc))
+        res["adam_launches"] = counted("Adam, SNR measured at step 2", adam)
+        res["adam_losses"] = [m["loss"] for m in adam.metrics_log]
+        rules = adam.derive_slim_rules()
+        res["rules"] = {k: list(v) if v else None for k, v in rules.items()}
+        res["adam_snr"] = adam.snr.trajectory
+        say(f"[6c] derived rules: {res['rules']}")
+        del adam
+        torch.cuda.empty_cache()
+        snr_tr = Trainer(cfg, "slim_snr", 1e-3, data, TrainerConfig(total_steps=2, snr_from_update=True, ckpt_every=2,
+                                                                     ckpt_dir=ckpt_dir, **tc), rules=rules)
+        res["slim_snr_launches"] = counted("SlimAdam (derived rules), from-update SNR at step 2, checkpoint", snr_tr)
+        res["slim_snr_losses"] = [m["loss"] for m in snr_tr.metrics_log]
+        res["slim_snr_snr"] = snr_tr.snr.trajectory
+        # -- 6d. checkpoints: restore on the mesh; the whole state's checksums
+        # for the parent's unsharded restore
+        saved = state_copy(torch, snr_tr._state())
+        whole = snr_tr.global_state()      # a collective: every rank gathers
+        res["ckpt_crc"] = crcs(torch, whole) if lead else None
+        del whole
+        del snr_tr
+        torch.cuda.empty_cache()
+        back = Trainer(cfg, "slim_snr", 1e-3, data, TrainerConfig(ckpt_dir=ckpt_dir, **tc), rules=rules)
+        if back.step != 2:
+            raise AssertionError(f"restored at step {back.step}, expected 2")
+        same_tensors("restore on the mesh", saved, state_copy(torch, back._state()))
+        say("[6d] checkpoint saved on the mesh (rank 0 wrote the gathered state) and restored on the mesh: every "
+            "rank's shards bit-equal")
+        del back, saved
+        torch.cuda.empty_cache()
+        t3 = Trainer(cfg, "slim", 1e-3, data, TrainerConfig(total_steps=2, log_every=1, backend="fused", seed=0))
+        res["slim_launches"] = counted("SlimAdam (Table 3)", t3)
+        res["slim_losses"] = [m["loss"] for m in t3.metrics_log]
+        # -- 6e. the sharded step's time, all 4 ranks together -----------------
+        steps = 2
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t3.run(t3.step + steps)
+        torch.cuda.synchronize()
+        mesh.barrier()
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+        n_grad = sum(p.numel() for p in t3.params.values())
+        flat = torch.zeros(n_grad, device="cuda")
+        mesh.barrier()
+        t0 = time.perf_counter()
+        mesh.psum(flat, SHARD_AXES)
+        torch.cuda.synchronize()
+        mesh.barrier()
+        allreduce_ms = (time.perf_counter() - t0) * 1e3
+        del flat
+        res["timing"] = dict(step_ms=step_ms, grad_allreduce_ms=allreduce_ms)
+        say(f"[6e] sharded Table-3 SlimAdam step (4 ranks sharing one card over gloo, not a multi-GPU number): "
+            f"{step_ms:.1f} ms per step; the gradient all-reduce alone ({n_grad:,} f32) {allreduce_ms:.1f} ms")
+        del t3
+        torch.cuda.empty_cache()
+        per_leaf = Trainer(cfg, "slim", 1e-3, data, TrainerConfig(total_steps=1, log_every=1, backend="fused", seed=0),
+                           optimizer_kw=dict(megakernel=False))
+        res["per_leaf_launches"] = counted("SlimAdam (Table 3), per-leaf route", per_leaf)
+        del per_leaf
+        torch.cuda.empty_cache()
+        guard = Trainer(cfg, "slim", 1e-3, data, TrainerConfig(total_steps=2, log_every=1, backend="fused", seed=0,
+                                                                guard=GuardConfig(min_history=1)),
+                        faults=FaultPlan(nan_grad_steps=(1,)))
+        guard.run(1)
+        before = state_copy(torch, guard._state())
+        res["guard_launches"] = counted("guarded SlimAdam (Table 3), NaN injected at step 1", guard, 2)
+        last = guard.metrics_log[-1]
+        if last["step_skipped"] != 1.0 or last["nonfinite_count"] != 124373760:
+            raise AssertionError(f"guarded NaN step: skipped {last['step_skipped']}, "
+                                 f"non-finite {last['nonfinite_count']}")
+        same_tensors("guarded NaN step", before, state_copy(torch, guard._state()))
+        say("[6c] guarded NaN step skipped on every rank, 124,373,760 gradient entries counted non-finite, "
+            "every rank's parameters and optimizer shards bit-identical")
+        res["guard"] = dict(skipped=last["step_skipped"], nonfinite=last["nonfinite_count"])
+        del guard, before
+    res["seconds"] = time.perf_counter() - t_start
+    out.put((rank, res))
+    mesh.barrier()
+
+
+def sharded_phase(torch, smi, rate):
+    """Phase 6: spawn the 4 ranks of a (data=2, model=2) mesh on this one
+    card and check what they report; then the unsharded port on the same
+    batches and the unsharded restore of the mesh's checkpoint. A rank that
+    fails ends the run with a non-zero code."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.train import Trainer, TrainerConfig
+
+    log(f"[6] sharded slice: full-width gpt_small on a (data=2, model=2) mesh, {SHARD_RANKS} ranks sharing this "
+        f"card ({smi}), batch 8 x 1024 split 2 rows per rank")
+    work = ROOT / "build" / "chip_smoke_sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckpt_dir = str(work / "ckpt")
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=sharded_rank, args=(r, str(work / "rdv"), out, rate, ckpt_dir))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + 900
+    try:
+        while len(results) < SHARD_RANKS:
+            try:
+                rank, res = out.get(timeout=2.0)
+                results[rank] = res
+            except queue.Empty:
+                failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                if failed:
+                    raise RuntimeError(f"rank {failed[0]} failed with exit code {procs[failed[0]].exitcode}")
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the sharded ranks did not finish")
+        for p in procs:
+            p.join(timeout=SHARD_TIMEOUT_S)
+        if any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    spawn_s = time.perf_counter() - t0
+    r0 = results[0]
+    for r in range(1, SHARD_RANKS):
+        for key in ("adam_losses", "slim_snr_losses", "rules", "slim_losses"):
+            if results[r][key] != r0[key]:
+                raise AssertionError(f"rank {r} reports other {key} than rank 0")
+
+    # The unsharded port on the same batches and rules, and its restore.
+    cfg = get_config("gpt_small")
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8, seed=0))
+    tc = dict(log_every=1, backend="fused", seed=0, measure_snr=True, snr_early_every=2)
+    rules = {k: tuple(v) if v else None for k, v in r0["rules"].items()}
+    ref = {}
+    for label, optimizer, kw in (("adam", "adam", {}), ("slim_snr", "slim_snr", dict(rules=rules)),
+                                 ("slim", "slim", {})):
+        tr = Trainer(cfg, optimizer, 1e-3, data, TrainerConfig(total_steps=2, **tc), **kw)
+        tr.run()
+        ref[label] = [m["loss"] for m in tr.metrics_log]
+        del tr
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for label, key in (("adam", "adam_losses"), ("slim_snr", "slim_snr_losses"), ("slim", "slim_losses")):
+        got = r0[key][:2]
+        errs = [abs(a - b) / abs(b) for a, b in zip(got, ref[label])]
+        worst = max(worst, *errs)
+        log(f"[6c] {label} losses sharded {got} unsharded {ref[label]}: worst rel diff {max(errs):.3e}")
+    if worst > TOL_SHARDED_LOSS:
+        raise AssertionError(f"sharded losses differ from the unsharded port's by {worst:.3e}")
+    back = Trainer(cfg, "slim_snr", 1e-3, data, TrainerConfig(ckpt_dir=ckpt_dir, **tc), rules=rules)
+    if back.step != 2 or crcs(torch, back._state()) != r0["ckpt_crc"]:
+        raise AssertionError("the mesh's checkpoint restored unsharded differs from the mesh's gathered state")
+    log("[6d] the mesh's checkpoint restored unsharded: every leaf's crc32 equals the gathered state's")
+    del back
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+
+    def need(counts, names, label):
+        for n in names:
+            if counts[n] <= 0:
+                raise AssertionError(f"{label}: {n} never launched")
+
+    # every SNR candidate of gpt_small has its lines split on this mesh: B9 only
+    need(r0["adam_launches"], ["snr_stats_centered_partial_batched", "mega_adam_update"], "sharded Adam run")
+    need(r0["slim_launches"], ["mega_slim_partial_stats_batched", "mega_slim_finalize_batched"], "sharded SlimAdam")
+    need(r0["per_leaf_launches"], ["slim_partial_stats_batched", "slim_finalize_batched"], "sharded per-leaf run")
+    log(f"[6] sharded phase: ranks {spawn_s:.1f} s (rank 0 {r0['seconds']:.1f} s), total "
+        f"{time.perf_counter() - t0:.1f} s")
+    summary = {k: v for k, v in r0.items() if k != "ckpt_crc"}
+    summary.update(reference_losses=ref, loss_rel_err=worst, spawn_s=spawn_s,
+                   kernel_err={k: max(results[r]["kernels"][k]["err"] for r in results) for k in r0["kernels"]})
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1289,8 +1822,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["robust"] = robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dims)
     report["serve"], paged_entry = serve_phases(torch, timer, rate, smi)
+    del timer
+    torch.cuda.empty_cache()
+    report["sharded"] = sharded = sharded_phase(torch, smi, rate)
 
-    # -- 6. result lines ------------------------------------------------------
+    # -- 7. result lines ------------------------------------------------------
     # Times per step of the main path: B2 on Adam's one dense group, B1 summed
     # over the Table-3 plan's three slim groups, B5 over one SNR measurement.
     # Errors are the worst over every group the main path launched on.
@@ -1343,13 +1879,37 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": snr["library_ms"]},
         paged_entry,
     ]}
+    # The sharded slice's kernels: launches from 6c's counted runs on rank 0
+    # (every rank launches the same), errors the worst over every rank, times
+    # on rank 0 alone over what one step (B10-B13) or one SNR measurement
+    # (B9) launches them on.
+    def sharded_entry(name, key, source, replaces, n_launch):
+        h = sharded["kernels"][key]
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces, "launches": n_launch,
+                "max_abs_err": sharded["kernel_err"][key], "ms": h["ms"], "plain_ms": h["plain_ms"],
+                "bound_ms": h["bound_ms"], "bound_by": "bytes", "library_ms": h["library_ms"]}
+
+    grouped_runs = ("slim_launches", "slim_snr_launches", "guard_launches")
+    line["kernels"] += [
+        sharded_entry("snr_stats_centered_partial_batched", "B9", "snr_stats.cu",
+                      "src/repro/kernels/snr_stats.py:152",
+                      sharded["adam_launches"]["snr_stats_centered_partial_batched"]),
+        sharded_entry("slim_partial_stats_batched", "B10", "mega_slim.cu", "src/repro/kernels/slim_update.py:260",
+                      sharded["per_leaf_launches"]["slim_partial_stats_batched"]),
+        sharded_entry("slim_finalize_batched", "B11", "slim_finalize.cu", "src/repro/kernels/slim_update.py:329",
+                      sharded["per_leaf_launches"]["slim_finalize_batched"]),
+        sharded_entry("mega_slim_partial_stats_batched", "B12", "mega_slim.cu", "src/repro/kernels/megaplan.py:486",
+                      sum(sharded[r]["mega_slim_partial_stats_batched"] for r in grouped_runs)),
+        sharded_entry("mega_slim_finalize_batched", "B13", "slim_finalize.cu", "src/repro/kernels/megaplan.py:536",
+                      sum(sharded[r]["mega_slim_finalize_batched"] for r in grouped_runs)),
+    ]
     report["kernels"] = line
     report["device"] = smi
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
-    log(f"[6] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
+    log(f"[7] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """Checkpointing: atomic, checksummed, keep-last-k, with torn-write fallback
-(port of ``repro/checkpoint/store.py``, single device).
+(port of ``repro/checkpoint/store.py``).
 
 Layout (one directory per step), the JAX package's format byte for byte:
 
@@ -26,8 +26,11 @@ the other.
   and, when asked for the newest step, falls back to the newest *valid*
   one instead of crashing on a torn/corrupt write.
 
-Not ported: ``restore(..., shardings=...)`` (the sharded regime is a later
-slice).
+A sharded run checkpoints whole arrays, in the same format: the trainer
+gathers its shards and rank 0 writes (``repro_torch.train.Trainer
+.checkpoint``). ``restore(..., shardings=...)`` cuts each rank's shard of
+every sharded leaf out of the whole array it reads, so a checkpoint of
+either package, from a sharded run or not, restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -84,6 +87,11 @@ def _walk(tree: Any, prefix: str, fn: Callable[[str, Any], Any]):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_walk(v, join(i), fn) for i, v in enumerate(tree))
     return fn(prefix, tree)
+
+
+def map_leaves(tree: Any, fn: Callable[[str, Any], Any]) -> Any:
+    """``tree`` with each leaf replaced by ``fn(dotted name, leaf)``."""
+    return _walk(tree, "", fn)
 
 
 def named_leaves(tree: Any) -> List[Tuple[str, Any]]:
@@ -284,10 +292,17 @@ def _read_verified(path: Path) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
 _STORAGE_ERRORS = (OSError, zipfile.BadZipFile, json.JSONDecodeError, zlib.error, ChecksumError, EOFError)
 
 
-def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None) -> Tuple[Any, Dict[str, Any]]:
+def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None,
+            shardings: Optional[Any] = None) -> Tuple[Any, Dict[str, Any]]:
     """Restore into the structure of ``like`` (a tree of tensors or numpy
     arrays). Each restored leaf takes its prototype's dtype and, for a
     tensor, its device.
+
+    ``shardings``: a tree whose leaves are ``repro_torch.launch.mesh
+    .NamedSharding``s, named like the leaves of ``like`` they lay out (a
+    subtree of it, e.g. ``{"opt": ...}``). Each such leaf of ``like`` is
+    this rank's shard: the stored whole array is cut to it (the elastic
+    path: a checkpoint restores onto whatever mesh the job has).
 
     Every leaf is checksum-verified against the manifest. With
     ``step=None`` a torn/corrupt newest checkpoint is skipped with a
@@ -296,9 +311,10 @@ def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None) -> T
     raise — they mean ``like`` doesn't match this run, not that storage is
     bad."""
     ckpt_dir = Path(ckpt_dir)
+    cut = dict(named_leaves(shardings)) if shardings is not None else {}
     if step is not None:
         arrays, manifest = _read_verified(ckpt_dir / f"step_{step:08d}")
-        return _build_tree(arrays, manifest, like)
+        return _build_tree(arrays, manifest, like, cut)
     candidates = list(reversed(_step_dirs(ckpt_dir)))
     if not candidates:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -310,16 +326,19 @@ def restore(ckpt_dir: str | Path, like: Any, *, step: Optional[int] = None) -> T
             warnings.warn(f"checkpoint {path.name} unreadable ({e}); falling back to the previous step")
             last_err = e
             continue
-        return _build_tree(arrays, manifest, like)
+        return _build_tree(arrays, manifest, like, cut)
     raise FileNotFoundError(f"no valid checkpoint under {ckpt_dir} ({len(candidates)} torn/corrupt candidates; "
                             f"last error: {last_err!r})")
 
 
-def _build_tree(arrays: Dict[str, np.ndarray], manifest: Dict[str, Any], like: Any) -> Tuple[Any, Dict[str, Any]]:
+def _build_tree(arrays: Dict[str, np.ndarray], manifest: Dict[str, Any], like: Any,
+                cut: Dict[str, Any]) -> Tuple[Any, Dict[str, Any]]:
     def leaf(name, proto):
         if name not in arrays:
             raise KeyError(f"checkpoint missing leaf {name}")
         arr = arrays[name]
+        if name in cut:
+            arr = cut[name].shard(torch.from_numpy(np.asarray(arr, order="C"))).numpy()
         if tuple(arr.shape) != tuple(proto.shape):
             raise ValueError(f"{name}: checkpoint shape {arr.shape} != expected {tuple(proto.shape)}")
         if isinstance(proto, torch.Tensor):

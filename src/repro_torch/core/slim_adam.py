@@ -16,6 +16,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..optim import fused
+from ..optim.adam import _sharding
 from ..optim.base import (
     GradientTransformation,
     add_decayed_weights,
@@ -52,7 +53,7 @@ def second_moment_elements(params: Dict[str, torch.Tensor], dims: Dict[str, Dims
 
 def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, *,
                        backend: str = "jnp", bucket_min_size: int = fused.DEFAULT_BUCKET_MIN,
-                       emit_snr: bool = False, emit_health: bool = False,
+                       mesh=None, param_specs=None, emit_snr: bool = False, emit_health: bool = False,
                        megakernel: bool = True) -> GradientTransformation:
     """Adam preconditioner with mean-shared second moments along per-leaf
     dims (``dims``: ``{name: positional dims}``, from
@@ -68,11 +69,28 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
     ``state.snr``; on the fused backend its line sums ride the update
     kernels' pass over g. Build a second transformation with this flag for
     measure steps and reuse the same state. ``emit_health=True`` publishes a
-    :class:`repro_torch.optim.fused.StepHealth` on ``state.health``."""
+    :class:`repro_torch.optim.fused.StepHealth` on ``state.health``.
+
+    ``mesh`` + ``param_specs`` make the fused backend sharded: the state
+    holds this rank's shards (a psum leaf's reduced moment as its owner
+    slice), the update takes the whole gradients and returns whole updates,
+    with SNR and health equal on every rank (``repro_torch.optim.fused``)."""
     resolve_backend(backend)
+    mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_slim_adam")
+
+    def spec_leaves(names):
+        from ..sharding.shardspec import normalize_spec_leaves
+
+        return normalize_spec_leaves(param_specs, names, "scale_by_slim_adam")
 
     def init_fn(params):
         device = next(iter(params.values())).device
+        if mesh is not None and resolve_backend(backend, device) == "fused":
+            names = list(params)
+            mu, nu = fused.init_sharded_moments(list(params.values()), [tuple(dims[k]) for k in names],
+                                                spec_leaves(names), mesh, reduced=True)
+            return ScaleBySlimAdamState(count=torch.zeros((), dtype=torch.int32, device=device),
+                                        mu=dict(zip(names, mu)), nu=dict(zip(names, nu)))
         return ScaleBySlimAdamState(
             count=torch.zeros((), dtype=torch.int32, device=device),
             mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()},
@@ -89,6 +107,8 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
         snr = health = None
         if resolve_backend(backend, g[0].device) == "fused":
+            if mesh is not None:
+                kw.update(mesh=mesh, spec_leaves=spec_leaves(names))
             out = fused.slim_tree_update(g, mu, nu, d, bucket_min_size=bucket_min_size, emit_snr=emit_snr,
                                          with_health=emit_health, megakernel=megakernel, **kw)
             u, mu, nu = out[:3]
@@ -108,14 +128,16 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
 
 def slim_adam(learning_rate, dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
               eps: float = 1e-8, weight_decay: float = 0.1, grad_clip: Optional[float] = 1.0,
-              backend: str = "jnp", emit_snr: bool = False, emit_health: bool = False,
-              megakernel: bool = True) -> GradientTransformation:
+              backend: str = "jnp", mesh=None, param_specs=None, emit_snr: bool = False,
+              emit_health: bool = False, megakernel: bool = True) -> GradientTransformation:
     """AdamW recipe with SlimAdam's compressed preconditioner — the same
     hyperparameters as Adam, as the paper requires (``learning_rate`` a
-    constant or a schedule of the step count)."""
+    constant or a schedule of the step count; ``mesh``/``param_specs``
+    thread to :func:`scale_by_slim_adam`)."""
     parts = [clip_by_global_norm(grad_clip)] if grad_clip is not None else []
-    parts.append(scale_by_slim_adam(dims, b1=b1, b2=b2, eps=eps, backend=backend, emit_snr=emit_snr,
-                                    emit_health=emit_health, megakernel=megakernel))
+    parts.append(scale_by_slim_adam(dims, b1=b1, b2=b2, eps=eps, backend=backend, mesh=mesh,
+                                    param_specs=param_specs, emit_snr=emit_snr, emit_health=emit_health,
+                                    megakernel=megakernel))
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
     parts.append(scale_by_learning_rate(learning_rate))

@@ -33,6 +33,16 @@ __device__ __forceinline__ void adam_elem(float b1, float omb1, float b2, float 
   u = precond(m_new, c1, v_new, c2, eps);
 }
 
+// Bias corrections: one per line (megaplan groups) or one scalar (per leaf).
+template <bool SCALAR_BC>
+__device__ __forceinline__ float bc_at(const float* bc, long long line) {
+  if constexpr (SCALAR_BC) {
+    return bc[0];
+  } else {
+    return bc[line];
+  }
+}
+
 // A gradient element as f32, from an f32 or a bf16 buffer.
 template <typename G>
 __device__ __forceinline__ float load_g(const void* p, long long i);

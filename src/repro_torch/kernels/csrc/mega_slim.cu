@@ -1,5 +1,6 @@
 // Fused SlimAdam precondition over a (B, R, C) canonical view: the megaplan
-// group kernel and the per-leaf kernel.
+// group kernel and the per-leaf kernel, and (the PARTIAL flag) pass 1 of the
+// sharded psum pair, in the same two forms.
 //
 // Replaces
 //   * repro/kernels/megaplan.py:417 mega_slim_update_batched (kernel body
@@ -33,12 +34,29 @@
 // had before they existed. The per-leaf form's (2,) health accumulator
 // reduces the per-line health outputs in a second launch (common.cuh,
 // health_reduce_kernel) instead of the TPU's in-order grid accumulation.
+//
+// PARTIAL replaces
+//   * repro/kernels/megaplan.py:486 mega_slim_partial_stats_batched (body
+//     _mega_slim_partial_kernel :467, pallas_call :510): with_health emits
+//     per-line outputs;
+//   * repro/kernels/slim_update.py:260 slim_partial_stats_batched (body
+//     _slim_partial_kernel :244, pallas_call :304): g f32 or bf16; with_health
+//     one (2,) accumulator.
+// When a leaf's reduction dims are split across ranks, a rank sees only a
+// slice of each line, so the update splits around a cross-rank sum: this
+// pass writes m' = b1*m + (1-b1)*g and the line's partial sum of g^2 (plus,
+// with_snr, the centered sums and their shift f; with_health the health
+// terms), all in pass 1's single walk over the line; the sum completes
+// across ranks, and slim_finalize.cu applies the preconditioner. Bound:
+// bytes, 12 B per f32 element (g, m read, m' written) plus 4 B per line,
+// 12 B more per line with_snr, 8 B with_health.
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
+using repro_torch::bc_at;
 using repro_torch::block_sum;
 using repro_torch::ema;
 using repro_torch::kRowThreads;
@@ -60,19 +78,11 @@ struct SlimArgs {
   float* s2c;
   float* nf;   // with_health line outputs, else null
   float* ss;
+  float* part;   // PARTIAL: the line sums of g^2, and with_snr the shift f
+  float* first;
   long long batch, rows, cols;
   float inv_n, b1, omb1, b2, omb2, eps;
 };
-
-// Bias corrections: one per line (megaplan group) or one scalar (per leaf).
-template <bool SCALAR_BC>
-__device__ __forceinline__ float bc_at(const float* bc, long long line) {
-  if constexpr (SCALAR_BC) {
-    return bc[0];
-  } else {
-    return bc[line];
-  }
-}
 
 template <bool SNR, bool HEALTH>
 __device__ __forceinline__ void write_line_stats(const SlimArgs& a, long long line, const LineStats<SNR, HEALTH>& t) {
@@ -86,7 +96,7 @@ __device__ __forceinline__ void write_line_stats(const SlimArgs& a, long long li
   }
 }
 
-template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH>
+template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
 __global__ void slim_minor_kernel(SlimArgs a) {
   static_assert(!VEC || std::is_same<G, float>::value, "float4 loads need f32 g");
   constexpr bool STATS = SNR || HEALTH;
@@ -118,12 +128,22 @@ __global__ void slim_minor_kernel(SlimArgs a) {
         st.add(x.z, __fmul_rn(x.z, x.z), f);
         st.add(x.w, __fmul_rn(x.w, x.w), f);
       }
+      if constexpr (PARTIAL) {
+        const float4 mm = reinterpret_cast<const float4*>(m)[j];
+        float4 mn;
+        mn.x = ema(a.b1, mm.x, a.omb1, x.x);
+        mn.y = ema(a.b1, mm.y, a.omb1, x.y);
+        mn.z = ema(a.b1, mm.z, a.omb1, x.z);
+        mn.w = ema(a.b1, mm.w, a.omb1, x.w);
+        reinterpret_cast<float4*>(mo)[j] = mn;
+      }
     }
   } else {
     for (long long j = threadIdx.x; j < a.cols; j += blockDim.x) {
       const float x = load_g<G>(a.g, base + j);
       s = fmaf(x, x, s);
       if constexpr (STATS) st.add(x, __fmul_rn(x, x), f);
+      if constexpr (PARTIAL) mo[j] = ema(a.b1, m[j], a.omb1, x);
     }
   }
   const float total = block_sum(s, smem);
@@ -138,6 +158,13 @@ __global__ void slim_minor_kernel(SlimArgs a) {
       st.ss = block_sum(st.ss, dsmem);
     }
     if (threadIdx.x == 0) write_line_stats(a, line, st);
+  }
+  if constexpr (PARTIAL) {
+    if (threadIdx.x == 0) {
+      a.part[line] = total;
+      if constexpr (SNR) a.first[line] = f;
+    }
+    return;
   }
   const float ek = __fmul_rn(total, a.inv_n);
   const float v_new = ema(a.b2, a.v[line], a.omb2, ek);
@@ -174,7 +201,7 @@ __global__ void slim_minor_kernel(SlimArgs a) {
   }
 }
 
-template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH>
+template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
 __global__ void slim_major_kernel(SlimArgs a) {
   constexpr bool STATS = SNR || HEALTH;
   __shared__ float part[kRowThreads][kStrip + 1];
@@ -189,16 +216,18 @@ __global__ void slim_major_kernel(SlimArgs a) {
 
   float s = 0.f;
   LineStats<SNR, HEALTH> st;
+  float f = 0.f;
   if (live) {
-    float f = 0.f;
     if constexpr (SNR) {
       const float x0 = load_g<G>(a.g, slice + c);
       f = __fmul_rn(x0, x0);
     }
     for (long long r = ty; r < a.rows; r += kRowThreads) {
-      const float x = load_g<G>(a.g, slice + r * a.cols + c);
+      const long long i = slice + r * a.cols + c;
+      const float x = load_g<G>(a.g, i);
       s = fmaf(x, x, s);
       if constexpr (STATS) st.add(x, __fmul_rn(x, x), f);
+      if constexpr (PARTIAL) a.m_out[i] = ema(a.b1, a.m[i], a.omb1, x);
     }
   }
   part[ty][tx] = s;
@@ -221,6 +250,15 @@ __global__ void slim_major_kernel(SlimArgs a) {
     }
   }
   __syncthreads();
+  if constexpr (PARTIAL) {
+    if (ty == 0 && live) {
+      float t = 0.f;
+      for (int k = 0; k < kRowThreads; ++k) t += part[k][tx];
+      a.part[li] = t;
+      if constexpr (SNR) a.first[li] = f;
+    }
+    return;
+  }
   if (ty == 0 && live) {
     float t = 0.f;
     for (int k = 0; k < kRowThreads; ++k) t += part[k][tx];
@@ -241,7 +279,7 @@ __global__ void slim_major_kernel(SlimArgs a) {
   }
 }
 
-template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH>
+template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
 void launch_flags(const SlimArgs& a, int axis, cudaStream_t s) {
   if (axis == 1) {
     bool vec = false;
@@ -256,31 +294,37 @@ void launch_flags(const SlimArgs& a, int axis, cudaStream_t s) {
     const unsigned lines = (unsigned)(a.batch * a.rows);
     if constexpr (std::is_same<G, float>::value) {
       if (vec) {
-        slim_minor_kernel<G, true, SCALAR_BC, SNR, HEALTH><<<lines, (unsigned)threads, 0, s>>>(a);
+        slim_minor_kernel<G, true, SCALAR_BC, SNR, HEALTH, PARTIAL><<<lines, (unsigned)threads, 0, s>>>(a);
         return;
       }
     }
-    slim_minor_kernel<G, false, SCALAR_BC, SNR, HEALTH><<<lines, (unsigned)threads, 0, s>>>(a);
+    slim_minor_kernel<G, false, SCALAR_BC, SNR, HEALTH, PARTIAL><<<lines, (unsigned)threads, 0, s>>>(a);
   } else {
     dim3 grid((unsigned)((a.cols + kStrip - 1) / kStrip), (unsigned)a.batch);
     dim3 block(kStrip, kRowThreads);
-    slim_major_kernel<G, SCALAR_BC, SNR, HEALTH><<<grid, block, 0, s>>>(a);
+    slim_major_kernel<G, SCALAR_BC, SNR, HEALTH, PARTIAL><<<grid, block, 0, s>>>(a);
   }
 }
 
-template <typename G, bool SCALAR_BC>
+template <typename G, bool SCALAR_BC, bool PARTIAL = false>
 void launch(const SlimArgs& a, int axis, cudaStream_t s) {
   const bool snr = a.s1c != nullptr;
   const bool health = a.nf != nullptr;
   if (snr && health) {
-    launch_flags<G, SCALAR_BC, true, true>(a, axis, s);
+    launch_flags<G, SCALAR_BC, true, true, PARTIAL>(a, axis, s);
   } else if (snr) {
-    launch_flags<G, SCALAR_BC, true, false>(a, axis, s);
+    launch_flags<G, SCALAR_BC, true, false, PARTIAL>(a, axis, s);
   } else if (health) {
-    launch_flags<G, SCALAR_BC, false, true>(a, axis, s);
+    launch_flags<G, SCALAR_BC, false, true, PARTIAL>(a, axis, s);
   } else {
-    launch_flags<G, SCALAR_BC, false, false>(a, axis, s);
+    launch_flags<G, SCALAR_BC, false, false, PARTIAL>(a, axis, s);
   }
+}
+
+// The per-leaf forms' (2,) health accumulator from their per-line lines.
+void reduce_health(const SlimArgs& a, int axis, float* health, cudaStream_t s) {
+  const long long n_lines = axis == 1 ? a.batch * a.rows : a.batch * a.cols;
+  repro_torch::health_reduce_kernel<float><<<1, repro_torch::kReduceThreads, 0, s>>>(a.nf, a.ss, n_lines, health);
 }
 
 bool flags_paired(const float* x, const float* y) { return (x == nullptr) == (y == nullptr); }
@@ -300,8 +344,8 @@ extern "C" int repro_mega_slim_update(const float* g, const float* m, const floa
                                       long long cols, int axis, float inv_n, float b1, float omb1, float b2,
                                       float omb2, float eps, void* stream) {
   if (!flags_paired(s1c, s2c) || !flags_paired(nf, ss)) return (int)cudaErrorInvalidValue;
-  SlimArgs a{g, m, v, bc1, bc2, u, m_out, v_out, s1c, s2c, nf, ss, batch, rows, cols, inv_n, b1, omb1, b2, omb2,
-             eps};
+  SlimArgs a{g, m, v, bc1, bc2, u, m_out, v_out, s1c, s2c, nf, ss, nullptr, nullptr, batch, rows, cols, inv_n, b1,
+             omb1, b2, omb2, eps};
   launch<float, false>(a, axis, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
@@ -318,18 +362,56 @@ extern "C" int repro_slim_precond(const void* g, int g_bf16, const float* m, con
   if (!flags_paired(s1c, s2c) || !flags_paired(nf_lines, ss_lines) || !flags_paired(nf_lines, health)) {
     return (int)cudaErrorInvalidValue;
   }
-  SlimArgs a{g, m, v, bc1, bc2, u, m_out, v_out, s1c, s2c, nf_lines, ss_lines, batch, rows, cols, inv_n, b1, omb1,
-             b2, omb2, eps};
+  SlimArgs a{g, m, v, bc1, bc2, u, m_out, v_out, s1c, s2c, nf_lines, ss_lines, nullptr, nullptr, batch, rows, cols,
+             inv_n, b1, omb1, b2, omb2, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_bf16) {
     launch<__nv_bfloat16, true>(a, axis, s);
   } else {
     launch<float, true>(a, axis, s);
   }
-  if (health != nullptr) {
-    const long long n_lines = axis == 1 ? batch * rows : batch * cols;
-    repro_torch::health_reduce_kernel<float><<<1, repro_torch::kReduceThreads, 0, s>>>(nf_lines, ss_lines, n_lines,
-                                                                                     health);
+  if (health != nullptr) reduce_health(a, axis, health, s);
+  return (int)cudaGetLastError();
+}
+
+// Pass 1 of the psum pair, megaplan group form. g, m, m_out: contiguous f32
+// (batch, rows, cols). part and the optional line outputs s1c, s2c, first
+// (with_snr) and nf, ss (with_health; null when off): contiguous f32 lines,
+// (batch, rows, 1) for axis 1 and (batch, 1, cols) for axis 0. part is the
+// un-normalised line sum of g^2. Grid limits as above.
+extern "C" int repro_mega_slim_partial_stats(const float* g, const float* m, float* m_out, float* part, float* s1c,
+                                             float* s2c, float* first, float* nf, float* ss, long long batch,
+                                             long long rows, long long cols, int axis, float b1, float omb1,
+                                             void* stream) {
+  if (!flags_paired(s1c, s2c) || !flags_paired(s1c, first) || !flags_paired(nf, ss)) {
+    return (int)cudaErrorInvalidValue;
   }
+  SlimArgs a{g, m, nullptr, nullptr, nullptr, nullptr, m_out, nullptr, s1c, s2c, nf, ss, part, first, batch, rows,
+             cols, 0.f, b1, omb1, 0.f, 0.f, 0.f};
+  launch<float, false, true>(a, axis, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// Pass 1 of the psum pair, per-leaf form. As the group form, except: g is
+// f32 (g_bf16 = 0) or bf16 (g_bf16 = 1); with_health (health a (2,) f32
+// output, else null) writes the per-line nf/ss into the caller's scratch
+// lines nf_lines/ss_lines and then reduces them into health.
+extern "C" int repro_slim_partial_stats(const void* g, int g_bf16, const float* m, float* m_out, float* part,
+                                        float* s1c, float* s2c, float* first, float* nf_lines, float* ss_lines,
+                                        float* health, long long batch, long long rows, long long cols, int axis,
+                                        float b1, float omb1, void* stream) {
+  if (!flags_paired(s1c, s2c) || !flags_paired(s1c, first) || !flags_paired(nf_lines, ss_lines) ||
+      !flags_paired(nf_lines, health)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SlimArgs a{g, m, nullptr, nullptr, nullptr, nullptr, m_out, nullptr, s1c, s2c, nf_lines, ss_lines, part, first,
+             batch, rows, cols, 0.f, b1, omb1, 0.f, 0.f, 0.f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g_bf16) {
+    launch<__nv_bfloat16, false, true>(a, axis, s);
+  } else {
+    launch<float, false, true>(a, axis, s);
+  }
+  if (health != nullptr) reduce_health(a, axis, health, s);
   return (int)cudaGetLastError();
 }

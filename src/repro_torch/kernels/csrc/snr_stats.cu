@@ -1,14 +1,21 @@
 // One-pass centered line statistics for the layer-wise SNR.
 //
 // Replaces repro/kernels/snr_stats.py:133 snr_stats_centered_batched (kernel
-// body _snr_centered_kernel :81, launched by _stats_call :116). Per
-// reduction line of a (B, R, C) second-moment view, with v0 the line's first
-// entry along the reduction axis:
-//   s1 = sum v,  s1c = sum (v - v0),  s2c = sum (v - v0)^2
+// body _snr_centered_kernel :81, launched by _stats_call :116) and, with the
+// FIRST flag, snr_stats.py:152 snr_stats_centered_partial_batched (body
+// _snr_centered_partial_kernel :89, same launcher). Per reduction line of a
+// (B, R, C) second-moment view, with v0 the line's first entry along the
+// reduction axis:
+//   s1 = sum v,  s1c = sum (v - v0),  s2c = sum (v - v0)^2  (+ v0 itself)
 // The shift keeps both centered sums O(spread) rather than O(magnitude), so
 // the variance s2c/n - (s1c/n)^2 does not cancel for near-constant lines.
+// The partial form emits v0 so that shards of one line split across ranks
+// can rebase their sums to a common shift before the cross-rank sum
+// (repro_torch/kernels/ref.py rebase_centered_stats).
 //
-// Bound: bytes, 4 B per element read once (outputs are 12 B per line). The
+// Bound: bytes, 4 B per element read once (outputs are 12 B per line, 16 B
+// with v0: the flag is a template parameter, so it costs the base form
+// nothing). The
 // differences v - v0 are rounded in f32 as the TPU kernel rounds them; the
 // sums accumulate in f64, because lines reach 38.6 M elements (gpt_small's
 // embed, K = both) and an f32 running sum over ~10^4 terms per thread would
@@ -24,8 +31,9 @@ using repro_torch::block_sum;
 using repro_torch::kRowThreads;
 using repro_torch::kStrip;
 
-template <bool VEC>
-__global__ void snr_minor_kernel(const float* __restrict__ v, float* s1, float* s1c, float* s2c, long long cols) {
+template <bool VEC, bool FIRST>
+__global__ void snr_minor_kernel(const float* __restrict__ v, float* s1, float* s1c, float* s2c, float* first,
+                                 long long cols) {
   __shared__ double smem[32];
   const long long line = blockIdx.x;
   const float* x = v + line * cols;
@@ -59,11 +67,13 @@ __global__ void snr_minor_kernel(const float* __restrict__ v, float* s1, float* 
     s1[line] = (float)a1;
     s1c[line] = (float)a1c;
     s2c[line] = (float)a2c;
+    if (FIRST) first[line] = x0;
   }
 }
 
-__global__ void snr_major_kernel(const float* __restrict__ v, float* s1, float* s1c, float* s2c, long long rows,
-                                 long long cols) {
+template <bool FIRST>
+__global__ void snr_major_kernel(const float* __restrict__ v, float* s1, float* s1c, float* s2c, float* first,
+                                 long long rows, long long cols) {
   __shared__ double part[3][kRowThreads][kStrip + 1];
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -97,18 +107,13 @@ __global__ void snr_major_kernel(const float* __restrict__ v, float* s1, float* 
     s1[li] = (float)t1;
     s1c[li] = (float)t1c;
     s2c[li] = (float)t2c;
+    if (FIRST) first[li] = x[c];
   }
 }
 
-}  // namespace
-
-// v: contiguous f32 (batch, rows, cols). s1, s1c, s2c: contiguous f32
-// (batch, kept), kept = rows for axis 1 and cols for axis 0. The caller
-// guarantees batch*rows < 2^31 (axis 1) and batch < 65536 (axis 0).
-// Returns the cudaError_t of the launch.
-extern "C" int repro_snr_stats_centered(const float* v, float* s1, float* s1c, float* s2c, long long batch,
-                                        long long rows, long long cols, int axis, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <bool FIRST>
+void launch(const float* v, float* s1, float* s1c, float* s2c, float* first, long long batch, long long rows,
+            long long cols, int axis, cudaStream_t s) {
   if (axis == 1) {
     const bool vec = cols % 4 == 0 && repro_torch::aligned16(v);
     const long long work = vec ? cols / 4 : cols;
@@ -117,14 +122,31 @@ extern "C" int repro_snr_stats_centered(const float* v, float* s1, float* s1c, f
     if (threads < 32) threads = 32;
     const unsigned lines = (unsigned)(batch * rows);
     if (vec) {
-      snr_minor_kernel<true><<<lines, (unsigned)threads, 0, s>>>(v, s1, s1c, s2c, cols);
+      snr_minor_kernel<true, FIRST><<<lines, (unsigned)threads, 0, s>>>(v, s1, s1c, s2c, first, cols);
     } else {
-      snr_minor_kernel<false><<<lines, (unsigned)threads, 0, s>>>(v, s1, s1c, s2c, cols);
+      snr_minor_kernel<false, FIRST><<<lines, (unsigned)threads, 0, s>>>(v, s1, s1c, s2c, first, cols);
     }
   } else {
     dim3 grid((unsigned)((cols + kStrip - 1) / kStrip), (unsigned)batch);
     dim3 block(kStrip, kRowThreads);
-    snr_major_kernel<<<grid, block, 0, s>>>(v, s1, s1c, s2c, rows, cols);
+    snr_major_kernel<FIRST><<<grid, block, 0, s>>>(v, s1, s1c, s2c, first, rows, cols);
+  }
+}
+
+}  // namespace
+
+// v: contiguous f32 (batch, rows, cols). s1, s1c, s2c and first (null for the
+// base form, else the partial form's v0 output): contiguous f32 (batch,
+// kept), kept = rows for axis 1 and cols for axis 0. The caller guarantees
+// batch*rows < 2^31 (axis 1) and batch < 65536 (axis 0). Returns the
+// cudaError_t of the launch.
+extern "C" int repro_snr_stats_centered(const float* v, float* s1, float* s1c, float* s2c, float* first,
+                                        long long batch, long long rows, long long cols, int axis, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (first != nullptr) {
+    launch<true>(v, s1, s1c, s2c, first, batch, rows, cols, axis, s);
+  } else {
+    launch<false>(v, s1, s1c, s2c, first, batch, rows, cols, axis, s);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """Whole-tree megaplan: O(groups) kernel launches per optimizer step (port of
-``repro/kernels/megaplan.py``, unsharded).
+``repro/kernels/megaplan.py``).
 
 :func:`plan_megagroups` groups every kernel-eligible leaf by regime key —
 ``dense`` (K = (), lane-folded flat, one group for the tree), ``minor`` /
@@ -11,7 +11,10 @@ boundary and each group is one larger instance of the per-leaf problem.
 group's f32 super-tensor by segment offset; per-leaf bias corrections enter
 as O(kept) lines built by :func:`segment_lines`.
 
-The two optimizer kernels live here beside their plain twins:
+:func:`groups_from_plans` groups pre-planned leaves (the sharded psum
+dispatcher's local plans) by the same keys.
+
+The optimizer kernels live here beside their plain twins:
 
 * :func:`mega_adam_update` — ``csrc/mega_adam.cu``, replacing
   ``repro/kernels/megaplan.py:351`` (body ``_mega_adam_kernel`` :337,
@@ -21,6 +24,15 @@ The two optimizer kernels live here beside their plain twins:
   ``repro/kernels/megaplan.py:417`` (body ``_mega_slim_kernel`` :386,
   ``pallas_call`` :448), ``with_snr`` and ``with_health`` included. Bound by
   bytes: 16 B per element plus 16 B per line (8 B more per line per flag).
+* :func:`mega_slim_partial_stats_batched` (B12) — the PARTIAL instantiation
+  in ``csrc/mega_slim.cu``, replacing ``repro/kernels/megaplan.py:486``
+  (body ``_mega_slim_partial_kernel`` :467, ``pallas_call`` :510): pass 1 of
+  the grouped psum pair. Bound by bytes: 12 B per element plus 4 B per line
+  (12 B more with ``with_snr``, 8 B with ``with_health``).
+* :func:`mega_slim_finalize_batched` (B13) — ``csrc/slim_finalize.cu`` with
+  line bias corrections, replacing ``repro/kernels/megaplan.py:536``
+  (``pallas_call`` :559 owner form, :568 ek form). Bound by bytes: 8 B per
+  element plus 16-20 B per line.
 
 The ``.cu`` files' notes say how each design follows from its bound.
 """
@@ -111,6 +123,16 @@ def _slim_group(key, items) -> MegaGroup:
     if kind == "major":
         return MegaGroup("major", 1, red, off, 0, tuple(segs))
     return MegaGroup("batched", batch, red, off, 0, tuple(segs))
+
+
+def groups_from_plans(items: Sequence[tuple]) -> Tuple[MegaGroup, ...]:
+    """Group pre-planned canonical leaves ``(index, shape, red_shape, dims,
+    cn)`` by regime key — the sharded psum dispatcher's entry point, whose
+    local plans come from ``ShardLeafPlan.cn`` rather than :func:`leaf_plan`."""
+    by_key: Dict[Tuple[str, int, int], list] = {}
+    for it in items:
+        by_key.setdefault(_slim_key(it[4]), []).append(it)
+    return tuple(_slim_group(k, by_key[k]) for k in sorted(by_key))
 
 
 @functools.lru_cache(maxsize=64)
@@ -323,3 +345,79 @@ def mega_slim_update_batched(g, m, v_line, bc1, bc2, *, axis: int, b1=0.9, b2=0.
 
 
 mega_slim_update_batched.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The grouped psum pair (B12, B13)
+# ---------------------------------------------------------------------------
+
+_PARTIAL_ARGTYPES = [build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 2 + [build.PTR]
+
+
+def mega_slim_partial_stats_batched_plain(g, m, *, axis, b1, with_snr: bool = False, with_health: bool = False):
+    """Plain PyTorch version of :func:`mega_slim_partial_stats_batched`, in
+    the kernel's operation order."""
+    red = 2 if axis == 1 else 1
+    g2 = g * g
+    out = (b1 * m + (1 - b1) * g, torch.sum(g2, dim=red, keepdim=True))
+    if with_snr:
+        out = out + centered_line_stats(g2, red)
+    return out + line_health(g, red) if with_health else out
+
+
+def mega_slim_partial_stats_batched(g, m, *, axis: int, b1=0.9, with_snr: bool = False,
+                                    with_health: bool = False):
+    """Pass 1 of the grouped psum pair over a (B, R, C) super-tensor of
+    rank-local shards: (g, m) -> (m', part), then with ``with_snr`` the
+    centered line sums and shift (s1c, s2c, first), then with
+    ``with_health`` the lines (nf, ss); every line output shaped like the
+    reduced moment, (B, R, 1) for ``axis=1`` and (B, 1, C) for ``axis=0``.
+    ``part`` is the un-normalised line sum of g^2 the caller completes
+    across ranks per leaf. CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
+    if g.ndim != 3 or axis not in (0, 1) or m.shape != g.shape:
+        raise ValueError(f"mega_slim_partial_stats_batched: want g, m (B, R, C) and axis 0|1, got "
+                         f"{tuple(g.shape)}, {tuple(m.shape)}, axis {axis}")
+    device = build.check_operands("mega_slim_partial_stats_batched", g=g, m=m)
+    if device.type == "cpu":
+        return mega_slim_partial_stats_batched_plain(g, m, axis=axis, b1=b1, with_snr=with_snr,
+                                                     with_health=with_health)
+    check_slim_grid("mega_slim_partial_stats_batched", g, axis)
+    line = slim_line_shape(g, axis)
+    m_out = torch.empty_like(g)
+    part = torch.empty(line, dtype=torch.float32, device=device)
+    snr = tuple(torch.empty_like(part) for _ in range(3)) if with_snr else (None,) * 3
+    health = tuple(torch.empty_like(part) for _ in range(2)) if with_health else (None, None)
+    b, r, c = g.shape
+    fn = build.entry("repro_mega_slim_partial_stats", _PARTIAL_ARGTYPES)
+    build.launch("mega_slim_partial_stats_batched", fn, device, g.data_ptr(), m.data_ptr(), m_out.data_ptr(),
+                 part.data_ptr(), *map(build.ptr, snr + health), b, r, c, axis, b1, 1.0 - b1)
+    mega_slim_partial_stats_batched.launches += 1
+    return (m_out, part) + (snr if with_snr else ()) + (health if with_health else ())
+
+
+mega_slim_partial_stats_batched.launches = 0
+
+
+def mega_slim_finalize_batched(m_new, v_line, bc1, bc2, *, axis: int, ek=None, b2=0.95, eps=1e-8):
+    """Pass 2 of the grouped psum pair: m' (B, R, C) with per-line bias
+    corrections ``bc1``/``bc2`` shaped like ``v_line``. With ``ek`` (the
+    completed line means) returns ``(u, v')``; with ``ek=None`` (owner form,
+    ``v_line`` already the completed moment) returns u. CUDA tensors launch
+    the kernel; CPU tensors take the plain version."""
+    from .slim_update import check_finalize, launch_finalize, slim_finalize_batched_plain
+
+    device = check_finalize("mega_slim_finalize_batched", m_new, v_line, ek, axis)
+    if bc1.shape != v_line.shape or bc2.shape != v_line.shape:
+        raise ValueError(f"mega_slim_finalize_batched: want bias-correction lines {tuple(v_line.shape)}, got "
+                         f"{tuple(bc1.shape)}, {tuple(bc2.shape)}")
+    build.check_operands("mega_slim_finalize_batched", m_new=m_new, bc1=bc1, bc2=bc2)
+    if device.type == "cpu":
+        return slim_finalize_batched_plain(m_new, v_line, bc1, bc2, b2=b2, eps=eps, ek=ek)
+    out = launch_finalize("mega_slim_finalize_batched", m_new, v_line, ek, bc1, bc2, axis=axis, b2=b2, eps=eps,
+                          scalar_bc=False)
+    mega_slim_finalize_batched.launches += 1
+    return out
+
+
+mega_slim_finalize_batched.launches = 0

@@ -1,5 +1,5 @@
 """Canonical layouts and the per-leaf dispatch plan (port of the shape logic
-in ``repro/kernels/ops.py``), plus ``snr_op``.
+in ``repro/kernels/ops.py``), plus ``snr_op`` and ``snr_partial_op``.
 
 The slim and SNR kernels work on one batched canonical form ``(B, R, C)``
 with the reduction along C (``axis=1``, minor: rows are lines) or along R
@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .ref import snr_from_centered_stats
-from .snr_stats import snr_stats_centered_batched
+from .snr_stats import snr_stats_centered_batched, snr_stats_centered_partial_batched
 
 
 class CanonND(NamedTuple):
@@ -112,13 +112,20 @@ class LeafPlan(NamedTuple):
     cn: Optional[CanonND]
 
 
-def leaf_plan(shape: Tuple[int, ...], dtype: torch.dtype, dims: Tuple[int, ...]) -> LeafPlan:
+def leaf_plan(shape: Tuple[int, ...], dtype: torch.dtype, dims: Tuple[int, ...], *,
+              allow_transpose: bool = True) -> LeafPlan:
+    """Plan one leaf's kernel dispatch. ``allow_transpose=False`` routes a
+    genuinely interleaved K (a plan that would transpose) to the plain path,
+    as the sharded planner asks (``repro_torch.sharding.shardspec``)."""
     if not (len(shape) >= 1 and math.prod(shape) > 0 and dtype.is_floating_point):
         return LeafPlan("jnp", None)
     dims = tuple(dims)
     if not dims:
         return LeafPlan("dense", None)
-    return LeafPlan("slim", canon_nd(tuple(shape), dims))
+    cn = canon_nd(tuple(shape), dims)
+    if not cn.reshape_only and not allow_transpose:
+        return LeafPlan("jnp", None)
+    return LeafPlan("slim", cn)
 
 
 def snr_op(v: torch.Tensor, *, axis: int = 1) -> torch.Tensor:
@@ -129,3 +136,13 @@ def snr_op(v: torch.Tensor, *, axis: int = 1) -> torch.Tensor:
     v3 = v if v.ndim == 3 else v[None]
     s1, s1c, s2c = snr_stats_centered_batched(v3, axis=axis)
     return snr_from_centered_stats(s1, s1c, s2c, n)
+
+
+def snr_partial_op(v: torch.Tensor, *, axis: int = 1):
+    """Per-line partial centered stats of a canonical moment view (2-D, or
+    batched 3-D), each flattened to 1-D: (line_sum, shifted_line_sum,
+    shifted_line_sumsq, line_first) via the partial-sums kernel (B9). The
+    sharded SNR building block: each rank runs it on its shard of a line,
+    rebases to a mesh-common shift and sums across the owning ranks."""
+    v3 = v if v.ndim == 3 else v[None]
+    return tuple(o.reshape(-1) for o in snr_stats_centered_partial_batched(v3, axis=axis))

@@ -1,6 +1,8 @@
-"""Per-leaf SlimAdam precondition on the batched canonical form (port of
+"""Per-leaf SlimAdam kernels on the batched canonical form (port of
 ``repro/kernels/slim_update.py``: ``slim_precond_batched`` and its 2-D
-wrappers ``slim_precond`` / ``slim_precond_major``).
+wrappers ``slim_precond`` / ``slim_precond_major``; the sharded psum pair
+``slim_partial_stats_batched`` / ``slim_finalize_batched`` and their 2-D
+wrappers ``slim_partial_stats`` / ``slim_finalize``).
 
 Kernel: ``csrc/mega_slim.cu`` (``repro_slim_precond``, the per-leaf
 instantiation of the megaplan group kernel with scalar bias corrections and
@@ -11,7 +13,20 @@ bf16 g) plus 8 B per line, 8 B more per line with ``with_snr``. Its (2,)
 health accumulator is the per-line health outputs reduced by a second small
 launch, not the TPU kernel's in-order grid accumulation
 (``slim_update.py:118-129``). The parameter-writing ``slim_update_batched``
-(B7) and the sharded pair (B10, B11) are not ported yet.
+(B7) is not ported yet.
+
+The psum pair, for a leaf whose reduction dims are split across ranks:
+
+* B10 ``slim_partial_stats_batched`` — the PARTIAL instantiation of the same
+  line walk in ``csrc/mega_slim.cu`` (``repro_slim_partial_stats``),
+  replacing ``repro/kernels/slim_update.py:260`` (body
+  ``_slim_partial_kernel`` :244, ``pallas_call`` :304): m' and the line's
+  partial sum of g^2, with the flags' outputs. Bound by bytes: 12 B per f32
+  element plus 4 B per line (12 B more with ``with_snr``).
+* B11 ``slim_finalize_batched`` — ``csrc/slim_finalize.cu``
+  (``repro_slim_finalize``, scalar bias corrections), replacing
+  ``repro/kernels/slim_update.py:329`` (``pallas_call`` :365 owner form,
+  :374 ek form). Bound by bytes: 8 B per element plus O(kept).
 """
 from __future__ import annotations
 
@@ -20,6 +35,7 @@ import torch
 from . import build
 from .fused_adam import G_DTYPES, bias_corrections, health_terms
 from .megaplan import check_slim_grid, mega_slim_update_batched_plain, slim_line_shape
+from .snr_stats import centered_line_stats
 
 _ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 6
              + [build.PTR])
@@ -92,3 +108,133 @@ def slim_precond_major(g, m, v_col, **kw):
     (u, m', v_col') (plus the flags' outputs with their batch dim dropped)."""
     outs = slim_precond_batched(g[None], m[None], v_col[None], axis=0, **kw)
     return tuple(o if o.ndim == 1 else o[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# The sharded psum pair (B10, B11)
+# ---------------------------------------------------------------------------
+
+_PARTIAL_ARGTYPES = [build.PTR, build.INT] + [build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 2 \
+    + [build.PTR]
+_FINALIZE_ARGTYPES = [build.PTR] * 7 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 3 + [build.INT, build.PTR]
+
+
+def slim_partial_stats_batched_plain(g, m, *, axis, b1, with_snr: bool = False, with_health: bool = False):
+    """Plain PyTorch version of :func:`slim_partial_stats_batched`, in the
+    kernel's operation order."""
+    red = 2 if axis == 1 else 1
+    g32 = g.float()
+    g2 = g32 * g32
+    out = (b1 * m + (1 - b1) * g32, torch.sum(g2, dim=red, keepdim=True))
+    if with_snr:
+        out = out + centered_line_stats(g2, red)
+    return out + (health_terms(g32),) if with_health else out
+
+
+def slim_partial_stats_batched(g, m, *, axis: int, b1: float = 0.9, with_snr: bool = False,
+                               with_health: bool = False):
+    """Pass 1 of the psum pair on the (B, R, C) canonical form of a rank's
+    shard: (g, m) -> (m', part). g f32 or bf16, m f32; ``part`` is the line
+    sum of g^2 over the shard's slice of each line, (B, R, 1) for ``axis=1``
+    and (B, 1, C) for ``axis=0``, ready for the cross-rank sum. With
+    ``with_snr`` also (s1c, s2c, first): the line sums of g^2 shifted by the
+    slice's first entry, and that shift (what
+    ``repro_torch.kernels.ref.rebase_centered_stats`` needs); with
+    ``with_health`` the shard's (2,) ``[nonfinite_count, finite_sumsq]``,
+    always last. CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
+    if g.ndim != 3 or axis not in (0, 1) or m.shape != g.shape:
+        raise ValueError(f"slim_partial_stats_batched: want g, m (B, R, C) and axis 0|1, got "
+                         f"{tuple(g.shape)}, {tuple(m.shape)}, axis {axis}")
+    device = build.check_operands("slim_partial_stats_batched", dtypes={"g": G_DTYPES}, g=g, m=m)
+    if device.type == "cpu":
+        return slim_partial_stats_batched_plain(g, m, axis=axis, b1=b1, with_snr=with_snr, with_health=with_health)
+    check_slim_grid("slim_partial_stats_batched", g, axis)
+    line = slim_line_shape(g, axis)
+    m_out = torch.empty(g.shape, dtype=torch.float32, device=device)
+    part = torch.empty(line, dtype=torch.float32, device=device)
+    snr = tuple(torch.empty_like(part) for _ in range(3)) if with_snr else (None,) * 3
+    lines = tuple(torch.empty_like(part) for _ in range(2)) if with_health else (None, None)
+    health = torch.empty(2, dtype=torch.float32, device=device) if with_health else None
+    b, r, c = g.shape
+    fn = build.entry("repro_slim_partial_stats", _PARTIAL_ARGTYPES)
+    build.launch("slim_partial_stats_batched", fn, device, g.data_ptr(), int(g.dtype == torch.bfloat16),
+                 m.data_ptr(), m_out.data_ptr(), part.data_ptr(), *map(build.ptr, (*snr, *lines, health)),
+                 b, r, c, axis, b1, 1.0 - b1)
+    slim_partial_stats_batched.launches += 1
+    return (m_out, part) + (snr if with_snr else ()) + ((health,) if with_health else ())
+
+
+slim_partial_stats_batched.launches = 0
+
+
+def slim_finalize_batched_plain(m_new, v_line, bc1, bc2, *, b2, eps, ek=None):
+    """Plain PyTorch version of :func:`slim_finalize_batched` (and of the
+    group form, with line bias corrections), in the kernel's operation
+    order."""
+    v_new = v_line if ek is None else b2 * v_line + (1 - b2) * ek
+    u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    return u if ek is None else (u, v_new)
+
+
+def check_finalize(kernel: str, m_new, v_line, ek, axis: int) -> torch.device:
+    """What the finalize kernels (``csrc/slim_finalize.cu``) take."""
+    if m_new.ndim != 3 or axis not in (0, 1):
+        raise ValueError(f"{kernel}: want m' (B, R, C) and axis 0|1, got {tuple(m_new.shape)}, axis {axis}")
+    line = slim_line_shape(m_new, axis)
+    if v_line.shape != line or (ek is not None and ek.shape != line):
+        raise ValueError(f"{kernel}: want lines {line}, got {tuple(v_line.shape)}"
+                         + (f", {tuple(ek.shape)}" if ek is not None else ""))
+    lines = {"v_line": v_line} if ek is None else {"v_line": v_line, "ek": ek}
+    return build.check_operands(kernel, m_new=m_new, **lines)
+
+
+def launch_finalize(kernel: str, m_new, v_line, ek, bc1, bc2, *, axis: int, b2: float, eps: float,
+                    scalar_bc: bool):
+    """Launch ``repro_slim_finalize``; returns u, and v' with ``ek``."""
+    check_slim_grid(kernel, m_new, axis)
+    u = torch.empty_like(m_new)
+    v_out = torch.empty_like(v_line) if ek is not None else None
+    b, r, c = m_new.shape
+    fn = build.entry("repro_slim_finalize", _FINALIZE_ARGTYPES)
+    build.launch(kernel, fn, m_new.device, m_new.data_ptr(), v_line.data_ptr(), build.ptr(ek), bc1.data_ptr(),
+                 bc2.data_ptr(), u.data_ptr(), build.ptr(v_out), b, r, c, axis, b2, 1.0 - b2, eps, int(scalar_bc))
+    return u if ek is None else (u, v_out)
+
+
+def slim_finalize_batched(m_new, v_line, *, axis: int, ek=None, b1: float = 0.9, b2: float = 0.95,
+                          eps: float = 1e-8, count=1):
+    """Pass 2 of the psum pair: m' (B, R, C) from
+    :func:`slim_partial_stats_batched` -> u. With ``ek`` (the cross-rank
+    completed line mean of g^2, in ``v_line``'s layout) ``v_line`` is the
+    stored moment and this returns ``(u, v')``; with ``ek=None`` ``v_line``
+    is the completed new moment (the owner-slice flow, where the all-reduce
+    delivered it) and this returns u. ``count`` (int, or an int 0-d tensor
+    on m's device) gives the scalar bias corrections. CUDA tensors launch
+    the kernel; CPU tensors take the plain version."""
+    device = check_finalize("slim_finalize_batched", m_new, v_line, ek, axis)
+    bc1, bc2 = bias_corrections(b1, b2, torch.as_tensor(count, device=device))
+    if device.type == "cpu":
+        return slim_finalize_batched_plain(m_new, v_line, bc1, bc2, b2=b2, eps=eps, ek=ek)
+    out = launch_finalize("slim_finalize_batched", m_new, v_line, ek, bc1, bc2, axis=axis, b2=b2, eps=eps,
+                          scalar_bc=True)
+    slim_finalize_batched.launches += 1
+    return out
+
+
+slim_finalize_batched.launches = 0
+
+
+def slim_partial_stats(g, m, *, axis: int = 1, **kw):
+    """2-D wrapper of :func:`slim_partial_stats_batched`: g, m (R, C) ->
+    (m', part, ...) with lines (R, 1) (axis 1) or (1, C) (axis 0); the (2,)
+    health output keeps its shape."""
+    outs = slim_partial_stats_batched(g[None], m[None], axis=axis, **kw)
+    return tuple(o if o.ndim == 1 else o[0] for o in outs)
+
+
+def slim_finalize(m_new, v_line, *, axis: int = 1, ek=None, **kw):
+    """2-D wrapper of :func:`slim_finalize_batched`: u, or (u, v') with
+    ``ek``."""
+    out = slim_finalize_batched(m_new[None], v_line[None], axis=axis, ek=None if ek is None else ek[None], **kw)
+    return out[0] if ek is None else (out[0][0], out[1][0])

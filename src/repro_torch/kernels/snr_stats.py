@@ -1,13 +1,15 @@
 """One-pass centered line statistics for the SNR analysis (port of
-``repro/kernels/snr_stats.py``: ``snr_stats_centered_batched``, and the
-plain helpers ``centered_line_stats`` and ``snr_update_stats_finalize`` of
-the from-update SNR).
+``repro/kernels/snr_stats.py``: ``snr_stats_centered_batched``, its
+partial-sums form ``snr_stats_centered_partial_batched`` for lines split
+across ranks, and the plain helpers ``centered_line_stats`` and
+``snr_update_stats_finalize`` of the from-update SNR).
 
-Kernel: ``csrc/snr_stats.cu`` replaces the Pallas kernel at
-``repro/kernels/snr_stats.py:133`` (body ``_snr_centered_kernel`` :81,
-``pallas_call`` in ``_stats_call`` :116). It is bound by bytes: one 4-byte
-read per element, 12 bytes written per line. The source note there says how
-the design follows from that.
+Kernels: ``csrc/snr_stats.cu`` replaces the Pallas kernels at
+``repro/kernels/snr_stats.py:133`` (B5, body ``_snr_centered_kernel`` :81)
+and ``:152`` (B9, body ``_snr_centered_partial_kernel`` :89), both launched
+by ``_stats_call`` (``pallas_call`` :116). Both are bound by bytes: one
+4-byte read per element, 12 bytes written per line (16 with B9's shift).
+The source note there says how the design follows from that.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from . import build
 
-_ARGTYPES = [build.PTR] * 4 + [build.SIZE] * 3 + [build.INT, build.PTR]
+_ARGTYPES = [build.PTR] * 5 + [build.SIZE] * 3 + [build.INT, build.PTR]
 _MAX_GRID_Y = 65535
 _MAX_GRID_X = 2**31 - 1
 
@@ -61,28 +63,62 @@ def snr_stats_centered_batched_plain(v: torch.Tensor, *, axis: int) -> Tuple[tor
     return (v.double().sum(red).float(), d.sum(red).float(), (d * d).sum(red).float())
 
 
+def snr_stats_centered_partial_batched_plain(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`snr_stats_centered_partial_batched`:
+    the base form's three sums plus each line's shift v0."""
+    red = 2 if axis == 1 else 1
+    return snr_stats_centered_batched_plain(v, axis=axis) + (v.narrow(red, 0, 1).squeeze(red),)
+
+
+def _launch_stats(kernel: str, v: torch.Tensor, axis: int, n_outs: int) -> Tuple[torch.Tensor, ...]:
+    """Check and launch ``csrc/snr_stats.cu``: 3 outputs (B5) or 4 (B9)."""
+    if v.numel() == 0:
+        raise ValueError(f"{kernel}: empty lines have no statistics")
+    b, r, c = v.shape
+    if (axis == 1 and b * r > _MAX_GRID_X) or (axis == 0 and b > _MAX_GRID_Y):
+        raise ValueError(f"{kernel}: shape {tuple(v.shape)} exceeds the launch grid")
+    kept = r if axis == 1 else c
+    outs = tuple(torch.empty((b, kept), dtype=torch.float32, device=v.device) for _ in range(n_outs))
+    fn = build.entry("repro_snr_stats_centered", _ARGTYPES)
+    build.launch(kernel, fn, v.device, v.data_ptr(), *(o.data_ptr() for o in outs[:3]),
+                 build.ptr(outs[3] if n_outs == 4 else None), b, r, c, axis)
+    return outs
+
+
+def _check_view(kernel: str, v: torch.Tensor, axis: int) -> torch.device:
+    if v.ndim != 3 or axis not in (0, 1):
+        raise ValueError(f"{kernel}: want a (B, R, C) tensor and axis 0|1, got shape {tuple(v.shape)}, "
+                         f"axis {axis}")
+    return build.check_operands(kernel, v=v)
+
+
 def snr_stats_centered_batched(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, ...]:
     """v: (B, R, C) f32 -> (line_sum, shifted_line_sum, shifted_line_sumsq),
     each (B, kept), kept = R for ``axis=1`` and C for ``axis=0``. CUDA
     tensors launch the kernel; CPU tensors take the plain version."""
-    if v.ndim != 3 or axis not in (0, 1):
-        raise ValueError(f"snr_stats_centered_batched: want a (B, R, C) tensor and axis 0|1, "
-                         f"got shape {tuple(v.shape)}, axis {axis}")
-    device = build.check_operands("snr_stats_centered_batched", v=v)
-    if device.type == "cpu":
+    if _check_view("snr_stats_centered_batched", v, axis).type == "cpu":
         return snr_stats_centered_batched_plain(v, axis=axis)
-    b, r, c = v.shape
-    kept = r if axis == 1 else c
-    if v.numel() == 0:
-        raise ValueError("snr_stats_centered_batched: empty lines have no statistics")
-    if (axis == 1 and b * r > _MAX_GRID_X) or (axis == 0 and b > _MAX_GRID_Y):
-        raise ValueError(f"snr_stats_centered_batched: shape {tuple(v.shape)} exceeds the launch grid")
-    outs = tuple(torch.empty((b, kept), dtype=torch.float32, device=device) for _ in range(3))
-    fn = build.entry("repro_snr_stats_centered", _ARGTYPES)
-    build.launch("snr_stats_centered_batched", fn, device, v.data_ptr(),
-                 *(o.data_ptr() for o in outs), b, r, c, axis)
+    outs = _launch_stats("snr_stats_centered_batched", v, axis, 3)
     snr_stats_centered_batched.launches += 1
     return outs
 
 
 snr_stats_centered_batched.launches = 0
+
+
+def snr_stats_centered_partial_batched(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, ...]:
+    """v: (B, R, C) f32 -> (line_sum, shifted_line_sum, shifted_line_sumsq,
+    line_first), each (B, kept): the partial-sums form for reduction lines
+    split across ranks. Each shard shifts by its own first entry; emitting
+    that shift lets the caller rebase every shard's sums to a common shift
+    (``repro_torch.kernels.ref.rebase_centered_stats``) before summing them
+    across ranks. CUDA tensors launch the kernel; CPU tensors take the
+    plain version."""
+    if _check_view("snr_stats_centered_partial_batched", v, axis).type == "cpu":
+        return snr_stats_centered_partial_batched_plain(v, axis=axis)
+    outs = _launch_stats("snr_stats_centered_partial_batched", v, axis, 4)
+    snr_stats_centered_partial_batched.launches += 1
+    return outs
+
+
+snr_stats_centered_partial_batched.launches = 0

@@ -30,9 +30,20 @@ class ScaleByAdamState(NamedTuple):
     health: Any = None
 
 
+def _sharding(backend: str, mesh, param_specs, what: str):
+    """(mesh, param_specs) for the fused backend's sharded path, else
+    (None, None): the plain per-leaf math needs no mesh."""
+    if backend == "jnp" or (mesh is None and param_specs is None):
+        return None, None
+    from ..sharding.shardspec import sharded_pair
+
+    return sharded_pair(mesh, param_specs, what)
+
+
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
                   backend: str = "jnp", bucket_min_size: int = fused.DEFAULT_BUCKET_MIN,
-                  emit_health: bool = False, megakernel: bool = True) -> GradientTransformation:
+                  mesh=None, param_specs=None, emit_health: bool = False,
+                  megakernel: bool = True) -> GradientTransformation:
     """Adam preconditioner. ``backend`` (see ``repro_torch.optim.base
     .BACKENDS``): 'fused' runs the whole tree through one
     ``mega_adam_update`` launch (``megakernel=False``: the per-leaf
@@ -43,14 +54,28 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
     ``emit_health=True`` publishes a :class:`repro_torch.optim.fused
     .StepHealth` on ``state.health`` each update — per-leaf non-finite
     counts + the finite-masked grad sumsq, from the kernels' own pass (the
-    guarded train step reads it to skip poisoned steps)."""
+    guarded train step reads it to skip poisoned steps).
+
+    ``mesh`` + ``param_specs`` (a ``repro_torch.launch.mesh.Mesh`` and a
+    ``{name: PartitionSpec}`` dict) make the fused backend sharded: the
+    state holds this rank's shards of mu and nu, the update takes the whole
+    gradients and returns whole updates (``repro_torch.optim.fused``)."""
     resolve_backend(backend)
+    mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_adam")
 
     def init_fn(params):
-        zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
         device = next(iter(params.values())).device
-        return ScaleByAdamState(count=torch.zeros((), dtype=torch.int32, device=device), mu=zeros,
-                                nu={k: torch.zeros_like(z) for k, z in zeros.items()})
+        count = torch.zeros((), dtype=torch.int32, device=device)
+        if mesh is not None and resolve_backend(backend, device) == "fused":
+            from ..sharding.shardspec import normalize_spec_leaves
+
+            names = list(params)
+            mu, nu = fused.init_sharded_moments(list(params.values()), [()] * len(names),
+                                                normalize_spec_leaves(param_specs, names, "scale_by_adam"), mesh,
+                                                reduced=False)
+            return ScaleByAdamState(count=count, mu=dict(zip(names, mu)), nu=dict(zip(names, nu)))
+        zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
+        return ScaleByAdamState(count=count, mu=zeros, nu={k: torch.zeros_like(z) for k, z in zeros.items()})
 
     def update_fn(updates, state, params=None):
         names = list(updates)
@@ -61,6 +86,10 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
         health = None
         if resolve_backend(backend, g[0].device) == "fused":
+            if mesh is not None:
+                from ..sharding.shardspec import normalize_spec_leaves
+
+                kw.update(mesh=mesh, spec_leaves=normalize_spec_leaves(param_specs, names, "scale_by_adam"))
             out = fused.adam_tree_update(g, mu, nu, bucket_min_size=bucket_min_size, with_health=emit_health,
                                          megakernel=megakernel, **kw)
             u, mu, nu = out[:3]
@@ -76,12 +105,14 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
 
 def adamw(learning_rate, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, grad_clip: Optional[float] = 1.0,
-          backend: str = "jnp", emit_health: bool = False, megakernel: bool = True) -> GradientTransformation:
+          backend: str = "jnp", mesh=None, param_specs=None, emit_health: bool = False,
+          megakernel: bool = True) -> GradientTransformation:
     """The paper's recipe: clip(1.0) -> Adam -> decoupled wd -> -lr
-    (``learning_rate`` a constant or a schedule of the step count)."""
+    (``learning_rate`` a constant or a schedule of the step count;
+    ``mesh``/``param_specs`` thread to :func:`scale_by_adam`)."""
     parts = [clip_by_global_norm(grad_clip)] if grad_clip is not None else []
-    parts.append(scale_by_adam(b1=b1, b2=b2, eps=eps, backend=backend, emit_health=emit_health,
-                               megakernel=megakernel))
+    parts.append(scale_by_adam(b1=b1, b2=b2, eps=eps, backend=backend, mesh=mesh, param_specs=param_specs,
+                               emit_health=emit_health, megakernel=megakernel))
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
     parts.append(scale_by_learning_rate(learning_rate))

@@ -1,6 +1,5 @@
 """Fused optimizer backend: Adam/SlimAdam tree updates through the
-hand-written kernels (port of the unsharded paths of
-``repro/optim/fused.py``).
+hand-written kernels (port of ``repro/optim/fused.py``).
 
 Two routes, as in the JAX package:
 
@@ -30,12 +29,27 @@ to the plain path. Only the fault-injection hook at ``"optim.kernel"``
 .inject_kernel_failure``) degrades a group or leaf to the plain math, and
 every degraded leaf is counted (:func:`kernel_degraded_leaves`).
 
-The sharded paths are not ported yet.
+Sharded (``mesh`` + ``spec_leaves``, a ``repro_torch.launch.mesh.Mesh``
+that shards something): every rank runs the same dispatch on its local
+shards, as the JAX package's ``shard_map`` body does. The gradients come
+in whole (each rank holds the averaged gradient), the moments as this
+rank's shards; each leaf's plan (``repro_torch.sharding.shardspec``) cuts g
+to the shard, local-regime leaves run the unsharded routes above on their
+shards, psum-regime leaves run the partial-stats / finalize kernel pair
+around an all-reduce over the ranks owning the reduced dims (the reduced
+moment stored as each rank's owner slice where the plan places one), and
+interleaved-K leaves run the plain math on their shard. The updates are
+gathered back whole, so every rank applies the same step; health rows and
+SNR scalars are completed across ranks, so they are equal on every rank.
+The injection hook must raise identically on every rank (it sees the same
+labels everywhere): a degraded group runs other collectives than a kernel
+group, so a hook that fired on one rank only would desynchronise them.
 """
 from __future__ import annotations
 
+import math
 import warnings
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,8 +57,11 @@ from .. import injection
 from ..kernels import megaplan
 from ..kernels.fused_adam import adam_precond, bias_corrections, health_terms
 from ..kernels.ops import CanonND, canon_apply, canon_restore, leaf_plan
-from ..kernels.slim_update import slim_precond, slim_precond_batched, slim_precond_major
+from ..kernels.ref import rebase_centered_stats, snr_stats_centered_partial_ref
+from ..kernels.slim_update import (slim_finalize_batched, slim_partial_stats_batched, slim_precond,
+                                   slim_precond_batched, slim_precond_major)
 from ..kernels.snr_stats import snr_update_stats_finalize
+from ..sharding.shardspec import dim_shards, mesh_is_trivial, plan_sharded_tree, psum_kernel_eligible, spec_dtype
 
 # 0/0 guard for exactly-constant lines in the from-update SNR (the same
 # limit as repro_torch.core.snr._VAR_EPS).
@@ -374,6 +391,318 @@ def _tree_mega(gs, ms, vs, dims_leaves, *, emit_snr: bool, with_health: bool, **
 
 
 # ---------------------------------------------------------------------------
+# Sharded execution: per-rank dispatch with per-leaf regime plans
+# ---------------------------------------------------------------------------
+
+
+def _use_sharded(mesh, spec_leaves) -> bool:
+    """The sharded path engages only with both a mesh and specs, on a mesh
+    that shards something."""
+    return mesh is not None and spec_leaves is not None and not mesh_is_trivial(mesh)
+
+
+def sharded_tree_plans(g_leaves, dims_leaves, spec_leaves, mesh):
+    """Per-leaf :class:`repro_torch.sharding.shardspec.ShardLeafPlan`s of a
+    tree update (global leaf shapes), for the dispatchers below and for
+    callers that count regimes (``shardspec.regime_counts``)."""
+    return plan_sharded_tree([tuple(g.shape) for g in g_leaves], [spec_dtype(g) for g in g_leaves],
+                             [tuple(d) for d in dims_leaves], list(spec_leaves), mesh)
+
+
+def _owner_scatter(v_slice, owner, mesh):
+    """Embed this rank's owner slice of a reduced moment into a zeros
+    full-line buffer at its owned offset: the additive ``b2 * v`` term of
+    the combined all-reduce payload. Inverse of :func:`_owner_slice`."""
+    out = v_slice
+    for ax, dim in reversed(owner):
+        blk = out.shape[dim]
+        full = list(out.shape)
+        full[dim] = blk * mesh.shape[ax]
+        z = torch.zeros(full, dtype=out.dtype, device=out.device)
+        z.narrow(dim, mesh.axis_index(ax) * blk, blk).copy_(out)
+        out = z
+    return out
+
+
+def _owner_slice(v_full, owner, mesh):
+    """This rank's owner slice of a completed full-line reduced moment."""
+    for ax, dim in owner:
+        blk = v_full.shape[dim] // mesh.shape[ax]
+        v_full = v_full.narrow(dim, mesh.axis_index(ax) * blk, blk)
+    return v_full.contiguous()
+
+
+def _psum_snr(s1c, s2c, first, v_new, pl, mesh, *, n_loc, b2):
+    """Complete a psum leaf's from-update SNR across its ranks: rebase each
+    shard's centered g^2 sums to a common shift (the mean of the shards'
+    shifts), sum them over the psum axes, finalise against the completed
+    moment, and average the ratio over the kept-line shards."""
+    shift = mesh.pmean(first, pl.psum_axes)
+    s1c, s2c = rebase_centered_stats(s1c, s2c, first, shift, n_loc)
+    snr = snr_update_stats_finalize(v_new, mesh.psum(s1c, pl.psum_axes), mesh.psum(s2c, pl.psum_axes),
+                                    pl.red_total, 1.0 - b2, eps=_SNR_EPS)
+    return mesh.pmean(snr, pl.kept_axes) if pl.kept_axes else snr
+
+
+def _red_local(shape, dims):
+    """(reduced-moment shape, reduction extent) of a shard's ``shape``."""
+    dset = {d % len(shape) for d in dims}
+    return tuple(1 if i in dset else s for i, s in enumerate(shape)), math.prod(shape[i] for i in sorted(dset))
+
+
+def _complete(part, v32, pl, mesh, b2):
+    """Complete a psum leaf's partial line sums of g^2 across its ranks:
+    with an owner placement, into v' itself (each rank adds ``b2 * v`` of
+    the lines it owns to the payload), else into the line mean ek. Returns
+    (v' full-line or None, ek or None)."""
+    if pl.owner:
+        payload = ((1.0 - b2) / pl.red_total) * part + b2 * _owner_scatter(v32, pl.owner, mesh)
+        return mesh.psum(payload, pl.psum_axes), None
+    return None, mesh.psum(part, pl.psum_axes) / pl.red_total
+
+
+def _psum_slim_leaf(g, m, v_red, dims: Dims, *, pl, mesh, emit_snr: bool, with_health: bool, b1, b2, eps, count):
+    """One SlimAdam leaf whose reduced dims are split across
+    ``pl.psum_axes``: pass 1 (B10, ``slim_partial_stats_batched``) writes m'
+    and the shard's partial line sums of g^2; an all-reduce over the owning
+    axes completes them; pass 2 (B11, ``slim_finalize_batched``) writes u.
+    With an owner placement each rank folds ``b2 * v`` for the lines it owns
+    into the payload, so the all-reduce delivers the completed v' to every
+    rank while each stores only its owner slice. ``emit_snr`` appends the
+    completed from-update SNR; ``with_health`` the shard's local (2,) row,
+    which the caller completes across ranks. Moments are computed in f32 and
+    cast back to their stored dtypes. Returns (u, m', v', snr, health)."""
+    m_dtype, v_dtype = m.dtype, v_red.dtype
+    v32 = v_red.float()
+    red_shape, n_loc = _red_local(g.shape, dims)
+
+    def kernel_branch():
+        cn = pl.cn
+        to3 = (lambda x: x) if cn.batch > 1 else (lambda x: x[None])
+        un3 = (lambda x: x) if cn.batch > 1 else (lambda x: x[0])
+        view = lambda x, **kw: to3(canon_apply(x, cn, **kw)).contiguous()   # noqa: E731
+        g_in = g if g.dtype in (torch.float32, torch.bfloat16) else g.float()
+        outs = slim_partial_stats_batched(view(g_in), view(m.float()), axis=cn.axis, b1=b1, with_snr=emit_snr,
+                                          with_health=with_health)
+        m_new2 = outs[0]
+        v_new, ek = _complete(canon_restore(un3(outs[1]), cn, red_shape), v32, pl, mesh, b2)
+        kw = dict(axis=cn.axis, b1=b1, b2=b2, eps=eps, count=count)
+        if pl.owner:
+            u2 = slim_finalize_batched(m_new2, view(v_new, reduced_cols=True), **kw)
+            v_out = _owner_slice(v_new, pl.owner, mesh)
+        else:
+            u2, v_new2 = slim_finalize_batched(m_new2, view(v32, reduced_cols=True),
+                                               ek=view(ek, reduced_cols=True), **kw)
+            v_new = v_out = canon_restore(un3(v_new2), cn, red_shape)
+        snr = None
+        if emit_snr:
+            s1c, s2c, first = (canon_restore(un3(o), cn, red_shape) for o in outs[2:5])
+            snr = _psum_snr(s1c, s2c, first, v_new, pl, mesh, n_loc=n_loc, b2=b2)
+        return (canon_restore(un3(u2), cn, g.shape), canon_restore(un3(m_new2), cn, g.shape).to(m_dtype),
+                v_out.to(v_dtype), snr, outs[-1] if with_health else None)
+
+    def jnp_branch():
+        # a local plan the kernel pair cannot serve ('psum_jnp'), or a
+        # degraded leaf: the same cross-rank algebra in plain math.
+        g32 = g.float()
+        red = sorted({d % g.ndim for d in dims})
+        v_new, ek = _complete(torch.sum(g32 * g32, dim=red, keepdim=True), v32, pl, mesh, b2)
+        if pl.owner:
+            v_out = _owner_slice(v_new, pl.owner, mesh)
+        else:
+            v_new = v_out = b2 * v32 + (1 - b2) * ek
+        bc1, bc2 = bias_corrections(b1, b2, count)
+        m_new = b1 * m.float() + (1 - b1) * g32
+        u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        snr = None
+        if emit_snr:
+            _, s1c, s2c, first = snr_stats_centered_partial_ref(g32 * g32, tuple(red))
+            snr = _psum_snr(s1c, s2c, first, v_new, pl, mesh, n_loc=n_loc, b2=b2)
+        return u, m_new.to(m_dtype), v_out.to(v_dtype), snr, leaf_health(g32) if with_health else None
+
+    if psum_kernel_eligible(pl):
+        return _guarded(f"psum:{tuple(g.shape)}", kernel_branch, jnp_branch)
+    return jnp_branch()
+
+
+def _psum_mega_group(group, form: str, plans, gs, ms, vs, *, mesh, emit_snr: bool, with_health: bool, b1, b2, eps,
+                     count) -> Dict[int, tuple]:
+    """One partial-stats launch (B12) and one finalize launch (B13) over a
+    grouped psum super-tensor; each leaf's cross-rank algebra (all-reduce
+    over its own psum axes, owner scatter / slice) runs between the two on
+    its O(kept) lines, exactly as :func:`_psum_slim_leaf` does per leaf.
+    ``form`` is 'owner' or 'plain' (the finalize forms differ, so the caller
+    partitions first). Returns ``{leaf index: (u, m', v', snr, health)}``."""
+    n = len(group.segments)
+    to3 = (lambda x: x) if group.kind == "batched" else (lambda x: x[None])
+    un3 = (lambda x: x) if group.kind == "batched" else (lambda x: x[0])
+    cat = lambda lines: to3(torch.cat(lines, dim=group.concat_axis)).contiguous()   # noqa: E731
+
+    outs = megaplan.mega_slim_partial_stats_batched(
+        to3(megaplan.gather_group(group, gs)), to3(megaplan.gather_group(group, ms)), axis=group.axis, b1=b1,
+        with_snr=emit_snr, with_health=with_health)
+    parts = megaplan.scatter_group(group, un3(outs[1]), reduced=True)
+    v_lines, ek_lines, v_news = [], [], []
+    v_outs: List[Any] = [None] * n
+    for j, seg in enumerate(group.segments):
+        pl = plans[seg.index]
+        v32 = vs[seg.index].float()
+        v_new, ek = _complete(parts[j], v32, pl, mesh, b2)
+        if form == "owner":
+            v_lines.append(canon_apply(v_new, seg.cn, reduced_cols=True))
+            v_outs[j] = _owner_slice(v_new, pl.owner, mesh).to(vs[seg.index].dtype)
+        else:
+            v_lines.append(canon_apply(v32, seg.cn, reduced_cols=True))
+            ek_lines.append(canon_apply(ek, seg.cn, reduced_cols=True))
+            # the finalize kernel's elementwise form, kept full-line for the SNR
+            v_new = b2 * v32 + (1 - b2) * ek
+        v_news.append(v_new)
+
+    bc1, bc2 = bias_corrections(b1, b2, count)
+    l1 = to3(megaplan.segment_lines(group, [bc1] * n)).contiguous()
+    l2 = to3(megaplan.segment_lines(group, [bc2] * n)).contiguous()
+    if form == "owner":
+        u_cat = megaplan.mega_slim_finalize_batched(outs[0], cat(v_lines), l1, l2, axis=group.axis, b2=b2, eps=eps)
+    else:
+        u_cat, v_new_cat = megaplan.mega_slim_finalize_batched(outs[0], cat(v_lines), l1, l2, axis=group.axis,
+                                                               ek=cat(ek_lines), b2=b2, eps=eps)
+        for j, (seg, v_red) in enumerate(zip(group.segments,
+                                             megaplan.scatter_group(group, un3(v_new_cat), reduced=True))):
+            v_outs[j] = v_red.to(vs[seg.index].dtype)
+    us = megaplan.scatter_group(group, un3(u_cat))
+    m_news = megaplan.scatter_group(group, un3(outs[0]))
+
+    snrs: List[Any] = [None] * n
+    if emit_snr:
+        s1s, s2s, firsts = (megaplan.scatter_group(group, un3(o), reduced=True) for o in outs[2:5])
+        for j, seg in enumerate(group.segments):
+            snrs[j] = _psum_snr(s1s[j], s2s[j], firsts[j], v_news[j], plans[seg.index], mesh,
+                                n_loc=_red_local(seg.shape, seg.dims)[1], b2=b2)
+    k = 5 if emit_snr else 2
+    hs = _segment_health(group, un3(outs[k]), un3(outs[k + 1])) if with_health else [None] * n
+    return {seg.index: (us[j], m_news[j].to(ms[seg.index].dtype), v_outs[j], snrs[j], hs[j])
+            for j, seg in enumerate(group.segments)}
+
+
+def _psum_mega_leaves(idx, plans, gs, ms, vs, dims_leaves, *, mesh, **kw) -> Dict[int, tuple]:
+    """Group the kernel-eligible psum leaves ``idx`` and run each group
+    through :func:`_psum_mega_group`. Owner-slice and plain leaves partition
+    first (their finalize forms differ); within a form, differing psum axes
+    do not split a group, since each leaf's all-reduce stays its own. A
+    degraded group runs its leaves through :func:`_psum_slim_leaf`."""
+    items = {"owner": [], "plain": []}
+    for i in idx:
+        shape = tuple(gs[i].shape)
+        items["owner" if plans[i].owner else "plain"].append((i, shape, _red_local(shape, dims_leaves[i])[0],
+                                                              tuple(dims_leaves[i]), plans[i].cn))
+    out: Dict[int, tuple] = {}
+    for form in ("owner", "plain"):
+        for group in megaplan.groups_from_plans(items[form]):
+            def per_leaf(group=group):
+                return {seg.index: _psum_slim_leaf(gs[seg.index], ms[seg.index], vs[seg.index], seg.dims,
+                                                   pl=plans[seg.index], mesh=mesh, **kw)
+                        for seg in group.segments}
+
+            out.update(_guarded(f"mega:psum:{group.kind}[{len(group.segments)}]",
+                                lambda group=group, form=form: _psum_mega_group(group, form, plans, gs, ms, vs,
+                                                                                 mesh=mesh, **kw),
+                                per_leaf, leaves=len(group.segments)))
+    return out
+
+
+def _psum_health(rows, g_leaves, specs, mesh) -> StepHealth:
+    """Complete per-shard health rows across the mesh: divide each leaf's
+    row by the number of ranks that hold a replica of its shard, then one
+    (n, 2) all-reduce over every axis gives the exact global totals."""
+    total = mesh.size
+    repl = torch.tensor([total / math.prod(dim_shards(tuple(g.shape), s, mesh)) for g, s in zip(g_leaves, specs)],
+                        dtype=torch.float32)
+    h = torch.stack(list(rows))
+    h = mesh.psum(h / repl.to(h.device)[:, None], tuple(mesh.shape))
+    return StepHealth(nonfinite=h[:, 0], grad_sumsq=h[:, 1].double().sum().float())
+
+
+def _sharded_adam_tree(g_leaves, mu_leaves, nu_leaves, spec_leaves, mesh, *, with_health: bool, **kw):
+    """Dense Adam on a mesh: elementwise math never crosses ranks, so each
+    rank runs the unsharded route on its shards; the updates are gathered
+    whole and the health rows completed across ranks."""
+    specs = [pl.spec for pl in sharded_tree_plans(g_leaves, [()] * len(g_leaves), spec_leaves, mesh)]
+    local = [mesh.shard(g, s) for g, s in zip(g_leaves, specs)]
+    u, m, v, _, h = _tree(local, mu_leaves, nu_leaves, [()] * len(local), emit_snr=False, with_health=with_health,
+                          **kw)
+    u = [mesh.gather(x, s) for x, s in zip(u, specs)]
+    return (u, m, v) + ((_psum_health(h, g_leaves, specs, mesh),) if with_health else ())
+
+
+def _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves, mesh, *, emit_snr: bool,
+                       with_health: bool, megakernel: bool, bucket_min_size: int, **kw):
+    """SlimAdam on a mesh, three regimes per leaf: 'local' leaves run the
+    unsharded routes on their shards; kernel-eligible 'psum' leaves run the
+    grouped partial-stats / finalize pair (per leaf with
+    ``megakernel=False``) around their all-reduces; the rest run the plain
+    math on their shard. SNR scalars of leaves whose lines are sharded over
+    kept axes average across those ranks."""
+    plans = sharded_tree_plans(g_leaves, dims_leaves, spec_leaves, mesh)
+    n = len(g_leaves)
+    gs = [mesh.shard(g, pl.spec) for g, pl in zip(g_leaves, plans)]
+    ms, vs = list(mu_leaves), list(nu_leaves)
+    dims_leaves = [tuple(d) for d in dims_leaves]
+    leaf_kw = dict(emit_snr=emit_snr, with_health=with_health, **kw)
+    out: List[Any] = [None] * n
+    if megakernel:
+        elig = [i for i, pl in enumerate(plans) if pl.regime == "psum" and psum_kernel_eligible(pl)]
+        if elig:
+            for i, res in _psum_mega_leaves(elig, plans, gs, ms, vs, dims_leaves, mesh=mesh, **leaf_kw).items():
+                out[i] = res
+    local_idx = [i for i, pl in enumerate(plans) if pl.regime == "local"]
+    if local_idx:
+        res = _tree([gs[i] for i in local_idx], [ms[i] for i in local_idx], [vs[i] for i in local_idx],
+                    [dims_leaves[i] for i in local_idx], megakernel=megakernel, bucket_min_size=bucket_min_size,
+                    **leaf_kw)
+        for j, i in enumerate(local_idx):
+            out[i] = tuple(r[j] for r in res)
+    for i, pl in enumerate(plans):
+        if out[i] is not None:
+            continue
+        if pl.regime == "psum":
+            out[i] = _psum_slim_leaf(gs[i], ms[i], vs[i], dims_leaves[i], pl=pl, mesh=mesh, **leaf_kw)
+        else:   # 'jnp': reduced dims whole on the shard, plain math
+            out[i] = _plain_leaf(gs[i], ms[i], vs[i], dims_leaves[i], **leaf_kw)
+    for i, pl in enumerate(plans):
+        if emit_snr and pl.regime != "psum" and out[i][3] is not None and pl.kept_axes:
+            # each rank holds an equal share of the kept lines: the global
+            # ratio mean is the mean of the per-rank means
+            out[i] = out[i][:3] + (mesh.pmean(out[i][3], pl.kept_axes), out[i][4])
+    u = [mesh.gather(o[0], pl.spec) for o, pl in zip(out, plans)]
+    res = (u, [o[1] for o in out], [o[2] for o in out])
+    if emit_snr:
+        res = res + ([o[3] for o in out],)
+    if with_health:
+        res = res + (_psum_health([o[4] for o in out], g_leaves, [pl.spec for pl in plans], mesh),)
+    return res
+
+
+def init_sharded_moments(params, dims_leaves, spec_leaves, mesh, *, reduced: bool):
+    """This rank's zero moments of a sharded tree update: ``(mu, nu)``
+    shards shaped by each leaf's plan — mu by the parameter's spec, nu by
+    the plan's storage spec (the owner slice of a psum leaf, the masked
+    spec otherwise); ``reduced=False`` (Adam) keeps nu full-shape like mu."""
+    from ..sharding.shardspec import local_shape
+
+    plans = sharded_tree_plans(params, dims_leaves, spec_leaves, mesh)
+    mu, nu = [], []
+    for p, d, pl in zip(params, dims_leaves, plans):
+        mu.append(torch.zeros(pl.local_shape, dtype=torch.float32, device=p.device))
+        if not reduced:
+            nu.append(torch.zeros(pl.local_shape, dtype=torch.float32, device=p.device))
+            continue
+        spec = pl.nu_spec if pl.nu_spec is not None else pl.red_spec
+        nu.append(torch.zeros(local_shape(_red_local(tuple(p.shape), d)[0], spec, mesh), dtype=torch.float32,
+                              device=p.device))
+    return mu, nu
+
+
+# ---------------------------------------------------------------------------
 # Tree-level entry points
 # ---------------------------------------------------------------------------
 
@@ -389,13 +718,21 @@ def _tree(gs, ms, vs, dims_leaves, *, megakernel: bool, bucket_min_size: int, **
 
 def adam_tree_update(g_leaves: Sequence[torch.Tensor], mu_leaves: Sequence[torch.Tensor],
                      nu_leaves: Sequence[torch.Tensor], *, b1: float, b2: float, eps: float, count: torch.Tensor,
-                     bucket_min_size: int = DEFAULT_BUCKET_MIN, with_health: bool = False,
-                     megakernel: bool = True):
+                     bucket_min_size: int = DEFAULT_BUCKET_MIN, mesh=None, spec_leaves=None,
+                     with_health: bool = False, megakernel: bool = True):
     """Dense Adam over a leaf list: by default one ``mega_adam_update``
     launch for every kernel-eligible leaf, plain math for the rest;
     ``megakernel=False`` runs the per-leaf route (small leaves bucketed).
     Returns (updates, new_mu, new_nu) as lists aligned with the input, and
-    with ``with_health`` a :class:`StepHealth` last."""
+    with ``with_health`` a :class:`StepHealth` last.
+
+    With ``mesh`` + ``spec_leaves`` (one PartitionSpec per leaf) the update
+    runs sharded (see the module docstring): g whole, the moments and the
+    returned moments this rank's shards, the updates whole."""
+    if _use_sharded(mesh, spec_leaves) and len(g_leaves):
+        return _sharded_adam_tree(g_leaves, mu_leaves, nu_leaves, spec_leaves, mesh, megakernel=megakernel,
+                                  bucket_min_size=bucket_min_size, with_health=with_health, b1=b1, b2=b2, eps=eps,
+                                  count=count)
     u, m, v, _, h = _tree(g_leaves, mu_leaves, nu_leaves, [()] * len(g_leaves), megakernel=megakernel,
                           bucket_min_size=bucket_min_size, emit_snr=False, with_health=with_health,
                           b1=b1, b2=b2, eps=eps, count=count)
@@ -405,14 +742,24 @@ def adam_tree_update(g_leaves: Sequence[torch.Tensor], mu_leaves: Sequence[torch
 def slim_tree_update(g_leaves: Sequence[torch.Tensor], mu_leaves: Sequence[torch.Tensor],
                      nu_leaves: Sequence[torch.Tensor], dims_leaves: Sequence[Dims], *,
                      b1: float, b2: float, eps: float, count: torch.Tensor,
-                     bucket_min_size: int = DEFAULT_BUCKET_MIN, emit_snr: bool = False,
-                     with_health: bool = False, megakernel: bool = True):
+                     bucket_min_size: int = DEFAULT_BUCKET_MIN, mesh=None, spec_leaves=None,
+                     emit_snr: bool = False, with_health: bool = False, megakernel: bool = True):
     """SlimAdam over a leaf list with per-leaf reduction dims: K = () leaves
     take the dense route, K != () leaves the slim kernel their canonical
     plan names (one launch per megaplan group by default; per leaf with
     ``megakernel=False``). Returns (updates, new_mu, new_nu), then with
     ``emit_snr`` a per-leaf list of from-update SNR scalars (None for
-    K = () leaves), then with ``with_health`` a :class:`StepHealth`."""
+    K = () leaves), then with ``with_health`` a :class:`StepHealth`.
+
+    With ``mesh`` + ``spec_leaves`` the update runs sharded with per-leaf
+    regime plans (see the module docstring): g whole, the moments and the
+    returned moments this rank's shards (the reduced moment of a psum leaf
+    its owner slice), the updates whole, SNR and health equal on every
+    rank."""
+    if _use_sharded(mesh, spec_leaves) and len(g_leaves):
+        return _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves, mesh,
+                                  emit_snr=emit_snr, with_health=with_health, megakernel=megakernel,
+                                  bucket_min_size=bucket_min_size, b1=b1, b2=b2, eps=eps, count=count)
     u, m, v, s, h = _tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, megakernel=megakernel,
                           bucket_min_size=bucket_min_size, emit_snr=emit_snr, with_health=with_health,
                           b1=b1, b2=b2, eps=eps, count=count)

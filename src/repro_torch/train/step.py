@@ -8,6 +8,15 @@ Gradients come from autograd through the model's forward; the optimizer
 update runs under ``no_grad`` and the parameters are updated in place. The
 plain step's metrics stay device tensors: nothing in it waits for the
 device. The guarded step reads one flag (the step's health) to the host.
+
+On a mesh (``mesh=``, a ``repro_torch.launch.mesh.Mesh``) each rank runs the
+forward and backward on its slice of the global batch and one all-reduce
+averages the gradients and the metrics, so every rank holds the same
+gradients; a sharded optimizer (built with the same mesh) then updates its
+shards and returns whole updates, and every rank applies the same step.
+The numbers are the JAX package's sharded step's; only the forward's
+layout differs (the JAX package splits the batch over 'data' and the
+weights over 'model' inside one program).
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ from .loss import lm_loss
 
 
 def make_train_step(model: transformer.Transformer, tx: GradientTransformation, *, grad_accum: int = 1,
-                    guard: bool = False) -> Callable:
+                    guard: bool = False, mesh=None) -> Callable:
     """One optimizer step over ``model``'s parameters.
 
     With ``grad_accum > 1`` the batch is split into ``grad_accum``
@@ -41,10 +50,38 @@ def make_train_step(model: transformer.Transformer, tx: GradientTransformation, 
     committed only when the step is good. Extra metrics:
     ``nonfinite_count`` (f64, exact), ``step_skipped``, ``health_grad_norm``. The
     returned state never carries ``health``; a from-update SNR snapshot
-    rides on it for the trainer to consume (dropped on a bad step)."""
+    rides on it for the trainer to consume (dropped on a bad step).
+
+    ``mesh``: data parallelism over every rank of the mesh (see the module
+    docstring); the batch's leading dim must split evenly across them. The
+    guarded step's skip decision then comes from health completed across
+    ranks, so it is the same on every rank."""
     params = model.params
     names = list(params)
     leaves = list(params.values())
+    ranks = mesh.size if mesh is not None else 1
+
+    def local_rows(batch):
+        """This rank's slice of the global batch."""
+        if ranks == 1:
+            return batch
+        n = next(iter(batch.values())).shape[0]
+        if n % ranks:
+            raise ValueError(f"batch of {n} rows does not split across {ranks} ranks")
+        k = n // ranks
+        return {key: v.narrow(0, mesh.rank * k, k) for key, v in batch.items()}
+
+    def average(grads, metrics):
+        """One all-reduce over every mesh axis: the mean of the ranks'
+        gradients and metrics."""
+        if ranks == 1:
+            return grads, metrics
+        keys = list(metrics)
+        flat = torch.cat([g.float().reshape(-1) for g in grads] + [metrics[k].float().reshape(1) for k in keys])
+        flat = mesh.psum(flat, tuple(mesh.shape)) / ranks
+        pieces = flat.split([g.numel() for g in grads] + [1] * len(keys))
+        grads = [x.reshape(g.shape).to(g.dtype) for x, g in zip(pieces, grads)]
+        return grads, {k: x.reshape(()) for k, x in zip(keys, pieces[len(grads):])}
 
     def grads_of(batch):
         loss, metrics = lm_loss(model.cfg, params, batch, transformer.forward)
@@ -52,9 +89,13 @@ def make_train_step(model: transformer.Transformer, tx: GradientTransformation, 
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def compute_grads(batch):
+        grads, metrics = accumulate(local_rows(batch))
+        grads, metrics = average(grads, metrics)
+        return dict(zip(names, grads)), metrics
+
+    def accumulate(batch):
         if grad_accum == 1:
-            grads, metrics = grads_of(batch)
-            return dict(zip(names, grads)), metrics
+            return grads_of(batch)
         n = next(iter(batch.values())).shape[0]
         if n % grad_accum:
             raise ValueError(f"batch of {n} rows does not split into {grad_accum} microbatches")
@@ -66,7 +107,7 @@ def make_train_step(model: transformer.Transformer, tx: GradientTransformation, 
                 acc = [a + g.float() / grad_accum for a, g in zip(acc, grads)]
             per_micro.append(metrics)
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]}
-        return dict(zip(names, acc)), metrics
+        return acc, metrics
 
     def train_step(opt_state, batch: Dict[str, torch.Tensor]):
         grads, metrics = compute_grads(batch)

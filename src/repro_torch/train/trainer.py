@@ -1,6 +1,5 @@
 """Trainer: optimizer registry, SNR measurement hooks, checkpoint/restart
-and the guarded fault-tolerant loop (port of ``repro/train/trainer.py``,
-single device).
+and the guarded fault-tolerant loop (port of ``repro/train/trainer.py``).
 
 The paper's loop: train Adam while measuring layer-wise SNR of its second
 moments, derive SlimAdam rules from the averages (``derive_slim_rules``),
@@ -11,7 +10,14 @@ turns on the guarded step (in-pass health, skip/backoff/rollback);
 the same directory resumes from; ``snr_from_update`` rides the SNR
 measurement of a SlimAdam run on the update pass.
 
-Not ported yet: the baseline optimizers and the sharded regime.
+Under ``repro_torch.sharding.use_sharding(ShardingContext(mesh))`` (every
+rank of a ``repro_torch.launch.mesh.Mesh`` builds its own trainer with the
+same arguments) the trainer runs sharded, as the JAX one does under its
+context: the optimizer and the SNR pass get the mesh and the parameter
+specs, so the fused backend keeps each rank's shards of the optimizer state
+and the train step splits the batch across the ranks; checkpoints hold
+whole arrays (gathered, written by rank 0), and a restore cuts each rank's
+shards. Not ported yet: the baseline optimizers.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from ..core.slim_adam import ScaleBySlimAdamState, slim_adam
 from ..data.pipeline import ZipfLM
 from ..models.transformer import Transformer
 from ..optim.adam import ScaleByAdamState, adamw
-from ..optim.base import ChainState
+from ..optim.base import ChainState, resolve_backend
+from ..sharding import current as current_sharding, opt_state_specs, param_specs, shardings_from_specs
 from .guard import ROLLBACK, Guard, GuardConfig, find_slim_snr, strip_slim_snr
 from .step import make_eval_step, make_train_step
 
@@ -53,23 +60,25 @@ def slim_rule_dims(name: str, params, meta, rules: Optional[Dict[str, Any]] = No
 def make_optimizer(name: str, lr, params, meta, *, weight_decay: float = 0.1, b1: float = 0.9,
                    b2: float = 0.95, grad_clip: float = 1.0, rules: Optional[Dict[str, Any]] = None,
                    backend: str = "jnp", emit_snr: bool = False, emit_health: bool = False,
-                   megakernel: bool = True):
+                   megakernel: bool = True, mesh=None, param_specs=None):
     """Build one of the ported optimizers. ``lr`` is a constant or a
     schedule (``repro_torch.optim.schedules``); ``rules`` are the derived
     rules 'slim_snr' needs; ``backend`` is 'jnp' | 'fused' | 'auto'.
     ``emit_snr`` (slim family) builds the measure-step variant that
     publishes from-update SNR on its state; ``emit_health`` publishes the
     in-pass StepHealth the guarded step reads; ``megakernel=False`` takes
-    the fused backend's per-leaf route."""
+    the fused backend's per-leaf route; ``mesh``/``param_specs`` make the
+    fused backend sharded."""
     if emit_snr and name not in _SLIM_FAMILY:
         raise ValueError(f"emit_snr is only supported by the slim family {_SLIM_FAMILY}, not {name!r}")
     if name == "adam":
         return adamw(lr, b1=b1, b2=b2, weight_decay=weight_decay, grad_clip=grad_clip, backend=backend,
-                     emit_health=emit_health, megakernel=megakernel)
+                     mesh=mesh, param_specs=param_specs, emit_health=emit_health, megakernel=megakernel)
     if name in _SLIM_FAMILY:
         return slim_adam(lr, slim_rule_dims(name, params, meta, rules), b1=b1, b2=b2,
-                         weight_decay=weight_decay, grad_clip=grad_clip, backend=backend, emit_snr=emit_snr,
-                         emit_health=emit_health, megakernel=megakernel)
+                         weight_decay=weight_decay, grad_clip=grad_clip, backend=backend, mesh=mesh,
+                         param_specs=param_specs, emit_snr=emit_snr, emit_health=emit_health,
+                         megakernel=megakernel)
     raise ValueError(f"unknown optimizer {name!r}; choose from {OPTIMIZERS}")
 
 
@@ -122,6 +131,10 @@ class Trainer:
                  tc: Optional[TrainerConfig] = None, *, optimizer_kw: Optional[dict] = None,
                  rules: Optional[dict] = None, grad_accum: int = 1, faults=None, device=None):
         self.device = resolve_device(device)
+        ctx = current_sharding()
+        self.mesh = ctx.mesh if ctx is not None else None
+        if self.mesh is not None and self.mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh runs on {self.mesh.device}, the trainer on {self.device}")
         self.model_cfg = model_cfg
         self.tc = tc = tc if tc is not None else TrainerConfig()
         self.data = data
@@ -134,13 +147,20 @@ class Trainer:
         okw.setdefault("backend", tc.backend)
         self.backend = okw["backend"]  # one backend for update + SNR pass
         guarded = self.guard is not None
+        # Under a sharding context the optimizer gets the mesh and the
+        # parameter specs; only the fused backend shards its state.
+        self.param_specs = param_specs(self.meta, self.params) if self.mesh is not None else None
+        self.sharded = self.mesh is not None and resolve_backend(self.backend, self.device) == "fused"
+        mesh_kw = dict(mesh=self.mesh, param_specs=self.param_specs) if self.sharded else {}
         self.tx = make_optimizer(optimizer_name, lr, self.params, self.meta, rules=rules, emit_health=guarded,
-                                 **okw)
+                                 **okw, **mesh_kw)
         self.opt_state = self.tx.init(self.params)
+        self.state_specs = self._state_specs(optimizer_name, lr, rules, okw) if self.sharded else None
         self.step = 0
         self.snr = SNRTracker()
         self.metrics_log: list = []
-        self._train_step = make_train_step(self.model, self.tx, grad_accum=grad_accum, guard=guarded)
+        self._train_step = make_train_step(self.model, self.tx, grad_accum=grad_accum, guard=guarded,
+                                           mesh=self.mesh)
         # Measure-step variant: the same optimizer built with emit_snr=True,
         # so on SNR cadence steps the update pass measures SNR_K along each
         # compressed leaf's own K (state.snr) and maybe_measure_snr skips
@@ -150,8 +170,9 @@ class Trainer:
         if tc.measure_snr and tc.snr_from_update and optimizer_name in _SLIM_FAMILY:
             self._update_dims = slim_rule_dims(optimizer_name, self.params, self.meta, rules)
             tx_snr = make_optimizer(optimizer_name, lr, self.params, self.meta, rules=rules, emit_snr=True,
-                                    emit_health=guarded, **okw)
-            self._train_step_snr = make_train_step(self.model, tx_snr, grad_accum=grad_accum, guard=guarded)
+                                    emit_health=guarded, **okw, **mesh_kw)
+            self._train_step_snr = make_train_step(self.model, tx_snr, grad_accum=grad_accum, guard=guarded,
+                                                   mesh=self.mesh)
         if tc.ckpt_dir and store.latest_step(tc.ckpt_dir) is not None:
             self.restore()
 
@@ -160,31 +181,61 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                 for k, v in self.data.batch(step).items()}
 
+    def _state_specs(self, optimizer_name, lr, rules, okw):
+        """PartitionSpecs of the sharded optimizer state, from the unsharded
+        optimizer's state on meta tensors (global shapes, no memory)."""
+        abstract = {k: torch.empty(p.shape, dtype=p.dtype, device="meta") for k, p in self.params.items()}
+        tx = make_optimizer(optimizer_name, lr, abstract, self.meta, rules=rules, emit_health=self.guard is not None,
+                            **okw)
+        return opt_state_specs(tx.init(abstract), abstract, self.param_specs, owner_mesh=self.mesh)
+
     # -- fault tolerance ---------------------------------------------------
 
     def _state(self):
         return {"params": self.params, "opt": self.opt_state}
 
+    def _shardings(self):
+        """How each leaf of the checkpointed state lies over the mesh (the
+        parameters are whole on every rank)."""
+        return {"opt": shardings_from_specs(self.state_specs, self.mesh)} if self.sharded else None
+
+    def global_state(self):
+        """The state as whole tensors: the optimizer shards gathered across
+        the mesh (a collective: every rank calls it), as checkpoints hold
+        it."""
+        shardings = self._shardings()
+        if shardings is None:
+            return self._state()
+        by_name = dict(store.named_leaves(shardings))
+        return store.map_leaves(self._state(), lambda name, leaf: by_name[name].gather(leaf)
+                                if name in by_name else leaf)
+
     def restore(self):
         """Load the newest valid checkpoint of ``tc.ckpt_dir``: parameters
-        in place, the optimizer state, and the step."""
-        state, extra = store.restore(self.tc.ckpt_dir, self._state())
+        in place, the optimizer state (this rank's shards on a mesh), and
+        the step."""
+        state, extra = store.restore(self.tc.ckpt_dir, self._state(), shardings=self._shardings())
         self.model.load_params(state["params"])
         self.opt_state = state["opt"]
         self.step = int(extra.get("step", 0))
 
     def checkpoint(self):
+        """Save the whole state (gathered on a mesh, written by rank 0 while
+        the others wait for it)."""
         if not self.tc.ckpt_dir:
             return
+        state = self.global_state()
         try:
-            store.save(self.tc.ckpt_dir, self.step, self._state(), extra={"step": self.step},
-                       keep=self.tc.ckpt_keep)
+            if self.mesh is None or self.mesh.rank == 0:
+                store.save(self.tc.ckpt_dir, self.step, state, extra={"step": self.step}, keep=self.tc.ckpt_keep)
         except OSError as e:
             # A failed save must not kill the run: the atomic tmp-dir
             # protocol left no torn step_* dir behind, so count it and train
             # on to the next checkpoint cadence.
             self.ckpt_failures += 1
             warnings.warn(f"checkpoint save failed at step {self.step} ({e}); continuing without it")
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _rollback(self):
         """Guard escalation: restore the last valid checkpoint and re-seed
@@ -214,8 +265,11 @@ class Trainer:
         if nu is None:
             return
         from_upd = find_slim_snr(self.opt_state) if self._train_step_snr is not None else None
+        # on a mesh each rank measures its shards, laid out by the moments' storage specs
+        shard_kw = dict(mesh=self.mesh, param_specs=find_adam_nu(self.state_specs)) if self.sharded else {}
         self.snr.update(measure_tree_snr(nu, self.meta, backend=self.backend, from_update=from_upd,
-                                         update_dims=self._update_dims if from_upd is not None else None),
+                                         update_dims=self._update_dims if from_upd is not None else None,
+                                         **shard_kw),
                         self.step)
         if from_upd is not None:
             # Strip the consumed snapshot so checkpoints keep the snr-less layout.

@@ -1,0 +1,182 @@
+"""Run a function on every rank of a (data=2, model=2) gloo mesh of CPU
+processes, for the port's sharded parity tests. Imports no JAX, so the rank
+processes start quickly; the rank functions the tests run live here too.
+
+``run_ranks(fn, tmp_path, *args)`` starts 4 spawned processes that
+rendezvous through a file under ``tmp_path``, each calling ``fn(mesh,
+*args)``; it returns the 4 results in rank order, and raises with the
+failing rank's traceback if any rank raises, or when the deadline passes
+(the process groups' own timeout ends ranks blocked in a collective).
+"""
+from __future__ import annotations
+
+import datetime
+import queue
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+MESH_SHAPE = (2, 2)
+MESH_AXES = ("data", "model")
+WORLD = 4
+
+
+def _worker(rank, fn, rdv, args, out, timeout_s):
+    try:
+        torch.set_num_threads(1)
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh(MESH_SHAPE, MESH_AXES, device="cpu", init_method=f"file://{rdv}", rank=rank,
+                         world_size=WORLD, timeout=datetime.timedelta(seconds=timeout_s))
+        out.put((rank, "ok", fn(mesh, *args)))
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    except Exception:   # noqa: BLE001 — a rank reports every failure to the parent
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def run_ranks(fn, tmp_path, *args, timeout_s: float = 120.0):
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    rdv = tmp_path / f"rdv-{time.monotonic_ns()}"
+    procs = [ctx.Process(target=_worker, args=(r, fn, str(rdv), args, out, timeout_s), daemon=True)
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout_s
+    try:
+        while len(results) < WORLD:
+            try:
+                rank, status, value = out.get(timeout=1.0)
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"ranks {sorted(set(range(WORLD)) - set(results))} did not finish in "
+                                       f"{timeout_s} s")
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0) and r not in results]
+                if dead:
+                    raise RuntimeError(f"rank {dead[0]} died with exit code {procs[dead[0]].exitcode}")
+                continue
+            if status == "error":
+                raise RuntimeError(f"rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+    return [results[r] for r in range(WORLD)]
+
+
+# ---------------------------------------------------------------------------
+# Rank functions
+# ---------------------------------------------------------------------------
+
+def _np(t):
+    return None if t is None else t.detach().float().cpu().numpy()
+
+
+def owner_parity(mesh, inputs, specs, dims, poison):
+    """The owner-parity leaf set: 2 sharded SlimAdam updates, a third with
+    from-update SNR and health, by the grouped route and the per-leaf one;
+    one sharded Adam update, then one with health on poisoned gradients."""
+    from repro_torch.core.slim_adam import scale_by_slim_adam
+    from repro_torch.optim import fused as F
+    from repro_torch.optim.adam import scale_by_adam
+    from repro_torch.sharding import P
+    from repro_torch.sharding.shardspec import owner_factor, regime_counts
+
+    specs = {k: P(*v) for k, v in specs.items()}
+    grads = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    params = {k: torch.zeros_like(v) for k, v in grads.items()}
+    out = {"coords": dict(mesh.coords)}
+    plans = F.sharded_tree_plans(list(grads.values()), [dims[k] for k in grads], [specs[k] for k in grads], mesh)
+    out["regimes"] = regime_counts(plans)
+    out["owner"] = {k: owner_factor(pl, mesh) for k, pl in zip(grads, plans) if pl.regime == "psum"}
+    for mk in (True, False):
+        kw = dict(backend="fused", mesh=mesh, param_specs=specs, megakernel=mk)
+        tx, tx_m = scale_by_slim_adam(dims, **kw), scale_by_slim_adam(dims, emit_snr=True, emit_health=True, **kw)
+        state = tx.init(params)
+        for i in range(3):
+            u, state = (tx_m if i == 2 else tx).update(grads, state)
+        out[f"slim_{mk}"] = {"u": {k: _np(x) for k, x in u.items()}, "mu": {k: _np(x) for k, x in state.mu.items()},
+                             "nu": {k: _np(x) for k, x in state.nu.items()},
+                             "snr": {k: None if x is None else float(x) for k, x in state.snr.items()},
+                             "nonfinite": _np(state.health.nonfinite), "sumsq": float(state.health.grad_sumsq)}
+    bad = {k: torch.from_numpy(v) for k, v in poison.items()}
+    tx = scale_by_adam(b1=0.9, b2=0.95, backend="fused", mesh=mesh, param_specs=specs, emit_health=True)
+    u, state = tx.update(grads, tx.init(params))
+    out["adam"] = {"u": {k: _np(x) for k, x in u.items()}, "mu": {k: _np(x) for k, x in state.mu.items()},
+                   "nu": {k: _np(x) for k, x in state.nu.items()}}
+    _, poisoned = tx.update(bad, state)
+    out["adam_health"] = (_np(poisoned.health.nonfinite), float(poisoned.health.grad_sumsq))
+    return out
+
+
+def trainer_run(mesh, arrays, data_kw, lr, ckpt_dir):
+    """Reduced gpt_small through the sharded trainer as the paper runs it:
+    Adam measuring SNR (B9 on the psum lines), derived rules, then
+    'slim_snr' with from-update SNR, checkpointing; then a guarded SlimAdam
+    step with an injected NaN."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.sharding import ShardingContext, use_sharding
+    from repro_torch.train import FaultPlan, GuardConfig, Trainer, TrainerConfig
+
+    cfg = get_reduced("gpt_small")
+    out = {"coords": dict(mesh.coords)}
+    with use_sharding(ShardingContext(mesh)):
+        tc = dict(total_steps=4, log_every=1, seed=0, backend="fused", measure_snr=True, snr_early_every=2)
+        adam = Trainer(cfg, "adam", lr, ZipfLM(DataConfig(**data_kw)), TrainerConfig(**tc), device="cpu")
+        adam.model.load_params(params_from_numpy(arrays, "cpu"))
+        adam.run()
+        rules = adam.derive_slim_rules()
+        slim = Trainer(cfg, "slim_snr", lr, ZipfLM(DataConfig(**data_kw)),
+                       TrainerConfig(**tc, snr_from_update=True, ckpt_every=4, ckpt_dir=ckpt_dir), rules=rules,
+                       device="cpu")
+        slim.model.load_params(params_from_numpy(arrays, "cpu"))
+        slim.run()
+        out.update(adam_loss=[m["loss"] for m in adam.metrics_log], slim_loss=[m["loss"] for m in slim.metrics_log],
+                   adam_snr=adam.snr.trajectory, slim_snr=slim.snr.trajectory, rules=rules,
+                   state=_state_np(slim.global_state()))
+        guard = Trainer(cfg, "slim", lr, ZipfLM(DataConfig(**data_kw)),
+                        TrainerConfig(total_steps=3, log_every=1, seed=0, backend="fused",
+                                      guard=GuardConfig(min_history=1)),
+                        faults=FaultPlan(nan_grad_steps=(1,)), device="cpu")
+        guard.run(1)
+        before = _state_np(guard._state())
+        guard.run(2)
+        after = _state_np(guard._state())
+        out["guard"] = {"skipped": guard.metrics_log[-1]["step_skipped"], "counters": dict(guard.guard.counters),
+                        "same": all(np.array_equal(before[k], after[k], equal_nan=True) for k in before)
+                        and before.keys() == after.keys()}
+    return out
+
+
+def restore_onto_mesh(mesh, ckpt_dir, rules):
+    """Restore a whole-array checkpoint of a slim_snr run onto the mesh:
+    this rank's shards of every optimizer leaf with their specs, and the
+    step."""
+    from repro_torch.checkpoint.store import named_leaves
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.sharding import ShardingContext, use_sharding
+    from repro_torch.train import Trainer, TrainerConfig
+
+    with use_sharding(ShardingContext(mesh)):
+        data = ZipfLM(DataConfig(vocab_size=211, seq_len=32, global_batch=4))
+        tr = Trainer(get_reduced("gpt_small"), "slim_snr", 1e-3, data,
+                     TrainerConfig(backend="fused", ckpt_dir=ckpt_dir, snr_early_every=2), rules=rules,
+                     device="cpu")
+        specs = {name: tuple(sh.spec) for name, sh in named_leaves(tr._shardings())}
+        return {"coords": dict(mesh.coords), "step": tr.step, "state": _state_np(tr._state()), "specs": specs}
+
+
+def _state_np(tree):
+    from repro_torch.checkpoint.store import named_leaves
+
+    return {name: _np(leaf) for name, leaf in named_leaves(tree)}

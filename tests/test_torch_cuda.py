@@ -7,8 +7,9 @@ it runs on a machine without the JAX package:
 
 Tolerances, relative to each output's largest magnitude: 1e-6 for outputs
 computed elementwise in the same operation order (m', and u and m', v' of
-dense Adam), 1e-5 for outputs that depend on a line sum (summation order
-differs), and so for paged attention with f32 queries; with bf16 queries
+dense Adam and of the psum pair's finalize), 1e-5 for outputs that depend on
+a line sum (summation order differs), and so for paged attention with f32
+queries; with bf16 queries
 the output is bf16, and the two versions may round one step apart (2^-7
 relative). Non-finite counts (the ``with_health`` outputs) must be equal,
 on gradients seeded with a known number of NaN and +-Inf entries.
@@ -123,7 +124,7 @@ def test_counts_reset(dev):
     snr_stats.snr_stats_centered_batched(torch.rand(1, 3, 8, device=dev), axis=1)
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
-    np.testing.assert_equal(len(kernels.KERNELS), 6)
+    np.testing.assert_equal(len(kernels.KERNELS), 11)
 
 
 def _poison(g, n_bad, seed):
@@ -228,6 +229,124 @@ def test_slim_precond_2d_wrappers(dev):
                   (slim_update.slim_precond_major, 0.01 * torch.rand(1, 96, device=dev))):
         got = fn(g, m, v, with_snr=True, with_health=True, **KW)
         assert [tuple(o.shape) for o in got] == [(40, 96), (40, 96)] + [tuple(v.shape)] * 3 + [(2,)]
+
+
+# The sharded psum kernels at the local shard shapes of gpt_small on a
+# (data=2, model=2) mesh (batched major wq/wk, minor wo/wv/w_down/embed
+# lines of 384, w_up lines of 1536) and ragged ones.
+PSUM_SHAPES = [(12, 384, 384, 0), (1, 4608, 1536, 1), (1, 300, 33, 1), (3, 50, 130, 0)]
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (1, 1, 100003, 1), (12, 384, 384, 0), (3, 50, 130, 0)])
+def test_snr_stats_centered_partial_batched(dev, b, r, c, axis):
+    v = 1.0 + 1e-3 * torch.rand((b, r, c), generator=torch.Generator(device=dev).manual_seed(c), device=dev)
+    before = snr_stats.snr_stats_centered_partial_batched.launches
+    got = snr_stats.snr_stats_centered_partial_batched(v, axis=axis)
+    want = snr_stats.snr_stats_centered_partial_batched_plain(v, axis=axis)
+    torch.cuda.synchronize()
+    assert snr_stats.snr_stats_centered_partial_batched.launches == before + 1
+    for a, w in zip(got[:3], want[:3]):
+        _close(a, w, LINE_SUMS)
+    assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_snr,with_health", [(False, False), (True, False), (False, True), (True, True)])
+def test_slim_partial_stats_batched(dev, b, r, c, axis, dtype, with_snr, with_health):
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, _, _, _ = _inputs(dev, (b, r, c), line, r + c)
+    g = _poison(g, 5 if with_health else 0, 2).to(dtype)
+    flags = dict(with_snr=with_snr, with_health=with_health)
+    before = slim_update.slim_partial_stats_batched.launches
+    got = slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9, **flags)
+    want = slim_update.slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9, **flags)
+    torch.cuda.synchronize()
+    assert slim_update.slim_partial_stats_batched.launches == before + 1
+    assert len(got) == len(want) == 2 + 3 * with_snr + with_health
+    _close_finite(got[0], want[0], ELEMENTWISE)
+    for a, w in zip(got[1:2] + got[2:4 if with_snr else 2], want[1:2] + want[2:4 if with_snr else 2]):
+        _close_finite(a, w, LINE_SUMS)
+    if with_snr:
+        assert torch.equal(got[4], want[4])
+    if with_health:
+        assert float(got[-1][0]) == float(want[-1][0]) == 5
+        _close(got[-1][1:], want[-1][1:], LINE_SUMS)
+
+
+@pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
+@pytest.mark.parametrize("form", ["ek", "owner"])
+def test_slim_finalize_batched(dev, b, r, c, axis, form):
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    _, m, v, ek, _ = _inputs(dev, (b, r, c), line, 3 * c)
+    ek = ek if form == "ek" else None
+    count = torch.tensor(4, dtype=torch.int32, device=dev)
+    before = slim_update.slim_finalize_batched.launches
+    got = slim_update.slim_finalize_batched(m, v, axis=axis, ek=ek, count=count, **KW)
+    bc1, bc2 = fused_adam.bias_corrections(0.9, 0.95, count)
+    want = slim_update.slim_finalize_batched_plain(m, v, bc1, bc2, b2=0.95, eps=1e-8, ek=ek)
+    torch.cuda.synchronize()
+    assert slim_update.slim_finalize_batched.launches == before + 1
+    for a, w in zip(got if ek is not None else (got,), want if ek is not None else (want,)):
+        _close(a, w, ELEMENTWISE)
+
+
+@pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
+@pytest.mark.parametrize("with_snr,with_health", [(False, False), (True, False), (False, True), (True, True)])
+def test_mega_slim_partial_stats_batched(dev, b, r, c, axis, with_snr, with_health):
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, _, _, _ = _inputs(dev, (b, r, c), line, r * c)
+    _poison(g, 9 if with_health else 0, 5)
+    flags = dict(with_snr=with_snr, with_health=with_health)
+    before = megaplan.mega_slim_partial_stats_batched.launches
+    got = megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9, **flags)
+    want = megaplan.mega_slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9, **flags)
+    torch.cuda.synchronize()
+    assert megaplan.mega_slim_partial_stats_batched.launches == before + 1
+    assert len(got) == len(want) == 2 + 3 * with_snr + 2 * with_health
+    _close_finite(got[0], want[0], ELEMENTWISE)
+    for a, w in zip(got[1:2] + got[2:4 if with_snr else 2], want[1:2] + want[2:4 if with_snr else 2]):
+        _close_finite(a, w, LINE_SUMS)
+    if with_snr:
+        assert torch.equal(got[4], want[4])
+    if with_health:
+        assert torch.equal(got[-2], want[-2]) and float(got[-2].sum()) == 9
+        _close(got[-1], want[-1], LINE_SUMS)
+
+
+@pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
+@pytest.mark.parametrize("form", ["ek", "owner"])
+def test_mega_slim_finalize_batched(dev, b, r, c, axis, form):
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    _, m, v, bc1, bc2 = _inputs(dev, (b, r, c), line, 5 * r)
+    ek = 0.01 * torch.rand(line, device=dev) if form == "ek" else None
+    before = megaplan.mega_slim_finalize_batched.launches
+    got = megaplan.mega_slim_finalize_batched(m, v, bc1, bc2, axis=axis, ek=ek, b2=0.95, eps=1e-8)
+    want = slim_update.slim_finalize_batched_plain(m, v, bc1, bc2, b2=0.95, eps=1e-8, ek=ek)
+    torch.cuda.synchronize()
+    assert megaplan.mega_slim_finalize_batched.launches == before + 1
+    for a, w in zip(got if ek is not None else (got,), want if ek is not None else (want,)):
+        _close(a, w, ELEMENTWISE)
+
+
+@pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
+def test_psum_pair_per_leaf_equals_grouped(dev, b, r, c, axis):
+    """The per-leaf kernels (B10, B11) and the group kernels (B12, B13) run
+    the same line walk: equal bits on the same operands."""
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, v, _, _ = _inputs(dev, (b, r, c), line, b + c)
+    per_leaf = slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9, with_snr=True)
+    grouped = megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9, with_snr=True)
+    for a, w in zip(per_leaf, grouped):
+        assert torch.equal(a, w)
+    count = torch.tensor(3, dtype=torch.int32, device=dev)
+    bc1, bc2 = fused_adam.bias_corrections(0.9, 0.95, count)
+    ek = per_leaf[1] / (c if axis == 1 else r)
+    a = slim_update.slim_finalize_batched(per_leaf[0], v, axis=axis, ek=ek, count=count, **KW)
+    w = megaplan.mega_slim_finalize_batched(grouped[0], v, bc1.expand(line).contiguous(),
+                                            bc2.expand(line).contiguous(), axis=axis, ek=ek, b2=0.95, eps=1e-8)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], w[0]) and torch.equal(a[1], w[1])
 
 
 def _paged_case(dev, *, c, kv, rep, hd, page, pool_dtype, q_dtype, b=5, max_pages=6, seed=0):

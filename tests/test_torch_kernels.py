@@ -19,7 +19,7 @@ from _torch_parity import assert_close
 from repro.kernels import megaplan as jmega
 from repro.kernels.snr_stats import snr_stats_centered_batched as jax_snr_stats
 from repro_torch import kernels
-from repro_torch.kernels import megaplan as tmega
+from repro_torch.kernels import megaplan as tmega, slim_update, snr_stats
 from repro_torch.kernels.snr_stats import snr_stats_centered_batched
 
 ELEMENTWISE = 1e-6
@@ -103,8 +103,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.reset_launch_counts()
     rng = np.random.default_rng(0)
-    snr_stats_centered_batched(torch.from_numpy(rng.random((1, 4, 8), np.float32)), axis=1)
+    v = torch.from_numpy(rng.random((1, 4, 8), np.float32))
+    snr_stats_centered_batched(v, axis=1)
+    snr_stats.snr_stats_centered_partial_batched(v, axis=1)
+    m_new, _ = slim_update.slim_partial_stats_batched(v, v, axis=1)
+    slim_update.slim_finalize_batched(m_new, v[..., :1].contiguous(), axis=1)
+    m_new, _ = tmega.mega_slim_partial_stats_batched(v, v, axis=1)
+    line = v[..., :1].contiguous()
+    tmega.mega_slim_finalize_batched(m_new, line, line + 1, line + 1, axis=1)
     assert kernels.launch_counts() == {"mega_adam_update": 0, "mega_slim_update_batched": 0,
                                        "adam_precond": 0, "slim_precond_batched": 0,
-                                       "snr_stats_centered_batched": 0, "paged_attention": 0}
+                                       "snr_stats_centered_batched": 0, "paged_attention": 0,
+                                       "snr_stats_centered_partial_batched": 0, "slim_partial_stats_batched": 0,
+                                       "slim_finalize_batched": 0, "mega_slim_partial_stats_batched": 0,
+                                       "mega_slim_finalize_batched": 0}
 

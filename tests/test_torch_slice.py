@@ -5,7 +5,8 @@
   accumulates over the steps);
 * an Adam run measuring SNR derives the same SlimAdam rules;
 * no file of the port imports JAX or the JAX package;
-* entry points without a device raise where no GPU is present.
+* entry points without a device raise where no GPU is present (the
+  trainer, the CLIs, the mesh), and run when the CPU is asked for.
 """
 import ast
 from pathlib import Path
@@ -20,6 +21,8 @@ from repro.train import Trainer as JaxTrainer, TrainerConfig as JaxTrainerConfig
 from repro_torch.configs import get_reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.data import DataConfig, ZipfLM
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import main as launch_main
 from repro_torch.train import Trainer, TrainerConfig
 from repro_torch.train.__main__ import main as cli_main
 
@@ -82,3 +85,8 @@ def test_entry_points_need_a_device_without_a_gpu():
         Trainer(get_reduced("gpt_small"), "slim", LR, data)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh((2, 2), ("data", "model"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_main(["--arch", "gpt_small", "--steps", "1"])
+    launch_main(["--arch", "gpt_small", "--steps", "2", "--seq", "16", "--batch", "2"], device="cpu")
