@@ -95,7 +95,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    restored on the mesh (bit-equal shards) and unsharded (equal crc32s).
    6e: the sharded step's time, 4 ranks on one card (not a multi-GPU
    number), and the gradient all-reduce's. A rank that fails ends the run.
-7. One ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+7. The SSM serving path: ``ssm_scan`` (B15) against its plain twin at the
+   eval shape (1 x 2048 x 8192, N 16) and the decode shape (4 rows, S = 1,
+   a random h0), timed as in phase 2 beside its bound (bytes, or its
+   exponentials over the SFU rate); then full-width, full-depth
+   falcon_mamba_7b (64 layers, 7,006,326,784 parameters, 28.0 GB in f32)
+   initialised on the card from a seeded CUDA generator: ``make_eval_step``
+   on a ZipfLM batch of 1 x 2048 (finite loss, 64 B15 launches), and
+   ``Engine.generate``'s legacy loop on 4 ZipfLM prompts of 64 tokens with
+   32 greedy new tokens (64 launches per ``decode_step``, 64 + 31 steps);
+   decode-step time, tokens/s, the device-busy share (torch.profiler) and
+   the SSM cache's bytes. Then a 4-layer cut at full width: logits of the
+   eval batch and of 8 decode steps through B15 against the plain twin;
+   and reduced f32 falcon_mamba_7b served on the card against the CPU,
+   token for token. The model is freed before phase 8.
+8. The parameter-writing API: ``fused_adam_op`` (B6) over every full-width
+   gpt_small leaf, ``slim_update_nd`` (B7) over its Table-3 compressed
+   leaves, ``fused_adam_op`` and ``slim_update_op`` (axis 0 and 1) on
+   benchmarks/opt_speed.py's 4096 x 8192 tensor with wd 0.1 and f32 and
+   bf16 p, ``snr_stats`` (B8) over the Adam v lines, with the launch
+   counters zeroed before and read after; each against its plain twin, p'
+   against ``adam_precond`` / ``slim_precond_batched`` followed by the same
+   step, and timed beside its bound and ``AdamW(fused=True)`` (B6) or
+   ``torch.var_mean`` (B8).
+9. One ``{"kernels": [...]}`` line (all 15 kernels, B1 and B2 with their
+   flags on rows of their own), the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -1486,6 +1510,424 @@ def sharded_phase(torch, smi, rate):
     return summary
 
 
+# -- the SSM serving path (phase 7) and the parameter-writing API (phase 8) -----------
+
+# The SFUs evaluate exponentials: 16 per SM per clock on compute capability
+# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput), 132 SMs
+# at the 1.98 GHz boost clock of the H100 SXM.
+SFU_RATE = 132 * 16 * 1.98e9
+TOL_SSM_LOGITS = 5e-2    # full-width logits, kernel against plain scan: bf16 activations through 4 Mamba layers
+TOL_BF16_PARAM = 2.0**-8  # a bf16 p' may round one bf16 step apart where the f32 value straddles a boundary
+# Phase 7 geometry: the eval batch, and the served prompts.
+SSM_EVAL_SEQ, SSM_ROWS, SSM_PROMPT, SSM_NEW = 2048, 4, 64, 32
+
+
+def scan_case(torch, gen, b, s, d, n, in_dtype):
+    """B15 operands as the model makes them: x, B, C in the activations'
+    dtype, dt a softplus, a = -exp(a_log) around the S4D-real init, a random
+    h0."""
+    dev = torch.device("cuda")
+    x = torch.randn((b, s, d), generator=gen, device=dev).to(in_dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, d), generator=gen, device=dev) - 2.0)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(d, n) \
+        * torch.exp(0.1 * torch.randn((d, n), generator=gen, device=dev))
+    b_t = torch.randn((b, s, n), generator=gen, device=dev).to(in_dtype)
+    c_t = torch.randn((b, s, n), generator=gen, device=dev).to(in_dtype)
+    d_skip = torch.randn((d,), generator=gen, device=dev)
+    h0 = torch.randn((b, d, n), generator=gen, device=dev)
+    return x, dt, a.contiguous(), b_t, c_t, d_skip, h0
+
+
+def scan_bound(args, rate: float):
+    """Least time (ms) for one selective scan, and what sets it: the bytes
+    (x, dt, B, C, a, d_skip, h0 read once; y and h_final written once) over
+    the memory rate; its exponentials (one per timestep, channel and state)
+    over the SFU rate; its other f32 operations (6 per timestep, channel and
+    state: dt*a, decay*h, dx*B, their sum, h*C, the sum of y) over the f32
+    rate."""
+    x, dt, a, b_t, c_t, d_skip, h0 = args
+    b, s, d = x.shape
+    n = a.shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + 4 * (b * s * d + b * d * n)
+    times = {"bytes": nbytes / rate, "operations": b * s * d * n / SFU_RATE}
+    t_f32 = 6 * b * s * d * n / F32_RATE
+    by = max(times, key=times.get)
+    return max(times[by], t_f32) * 1e3, by
+
+
+def ssm_phase(torch, timer, rate: float, smi: str):
+    """Phase 7: B15 against its twin, then full-width falcon_mamba_7b
+    evaluated and served through the legacy loop. Returns (report, the B15
+    entry of the kernels line)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.kernels import ssm_scan as sc
+    from repro_torch.models import Transformer, forward
+    from repro_torch.models.transformer import decode_step, init_decode_cache
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.train.step import make_eval_step
+
+    report: dict = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cfg = get_config("falcon_mamba_7b")
+    scfg = cfg.ssm_cfg()
+
+    # -- 7a. B15 against its plain twin at the eval and decode shapes ------
+    log(f"[7] ssm_scan (B15) at full-width falcon_mamba_7b shapes against its plain twin, bound ({smi})")
+    held = {}
+    for case, (b, s) in (("eval", (1, SSM_EVAL_SEQ)), ("decode", (SSM_ROWS, 1))):
+        args = scan_case(torch, gen, b, s, scfg.d_inner, scfg.d_state, torch.bfloat16)
+        (y, h), (y_w, h_w) = sc.ssm_scan(*args), sc.ssm_scan_plain(*args)
+        torch.cuda.synchronize()
+        errs = [check(f"{case} {what}", got, want, TOL_LINE) for what, got, want in (("y", y, y_w), ("h", h, h_w))]
+        ms = timer(lambda: sc.ssm_scan(*args), reps=20)
+        plain_ms = timer(lambda: sc.ssm_scan_plain(*args), reps=3)
+        bound, by = scan_bound(args, rate)
+        log(f"  {case} (B={b}, S={s}, D={scfg.d_inner}, N={scfg.d_state}): kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  library: none (no PyTorch call computes a "
+            f"selective scan)")
+        held[case] = dict(err_y=errs[0], err_h=errs[1], ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        del args, y, h, y_w, h_w
+    report["ssm_scan"] = held
+    torch.cuda.empty_cache()
+
+    # -- 7b. the model, on the card -----------------------------------------
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev, gen=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.params.values())
+    p_gb = sum(p.numel() * p.element_size() for p in model.params.values()) / 1e9
+    log(f"[7] full-width falcon_mamba_7b ({cfg.n_layers} layers, d_model {cfg.d_model}, d_inner {scfg.d_inner}, "
+        f"{n_params} parameters, {p_gb:.1f} GB in f32) initialised on the card in {time.perf_counter() - t0:.1f} s")
+    if n_params != 7_006_326_784:
+        raise AssertionError(f"falcon_mamba_7b has {n_params} parameters, expected 7006326784")
+    report["params"] = n_params
+
+    # -- 7c. the forward: make_eval_step on one ZipfLM batch ----------------
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SSM_EVAL_SEQ, global_batch=1, seed=0)).batch(0).items()}
+    eval_step = make_eval_step(model)
+    eval_step(batch)     # warm the cuBLAS handles outside the counted run
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = float(eval_step(batch)["loss"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_counts = kernels.launch_counts()
+    log(f"  make_eval_step on 1 x {SSM_EVAL_SEQ}: loss {loss:.4f} in {eval_s * 1e3:.1f} ms, launches "
+        f"{ {k: v for k, v in eval_counts.items() if v} }")
+    if not math.isfinite(loss):
+        raise AssertionError(f"falcon_mamba_7b eval loss is not finite: {loss}")
+    if eval_counts["ssm_scan"] != cfg.n_layers or sum(eval_counts.values()) != cfg.n_layers:
+        raise AssertionError(f"eval launches {eval_counts}, expected ssm_scan {cfg.n_layers} and no other kernel")
+    report["eval"] = dict(loss=loss, ms=eval_s * 1e3, launches=eval_counts)
+
+    # -- 7d. the legacy serving loop -------------------------------------------
+    prompts = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SSM_PROMPT, global_batch=SSM_ROWS,
+                                seed=1)).batch(0)["tokens"]
+    eng = Engine(cfg, model.params, ServeConfig(max_seq=2 * SSM_PROMPT, max_new_tokens=SSM_NEW))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = kernels.launch_counts()
+    steps = SSM_PROMPT + SSM_NEW - 1
+    log(f"  Engine.generate: {SSM_ROWS} prompts x {SSM_PROMPT} tokens + {SSM_NEW} greedy in {gen_s:.2f} s, "
+        f"{eng.decode_steps} decode steps, launches {({k: v for k, v in gen_counts.items() if v})}")
+    if tuple(out.shape) != (SSM_ROWS, SSM_PROMPT + SSM_NEW) or not np.array_equal(out[:, :SSM_PROMPT].numpy(), prompts) \
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"generate returned {tuple(out.shape)} tokens outside the prompt/vocabulary contract")
+    if eng.decode_steps != steps or gen_counts["ssm_scan"] != cfg.n_layers * steps \
+            or sum(gen_counts.values()) != gen_counts["ssm_scan"]:
+        raise AssertionError(f"generate: {eng.decode_steps} steps, launches {gen_counts}; expected {steps} steps "
+                             f"and ssm_scan {cfg.n_layers} per step")
+
+    # decode-step time (host clock, synchronised), device busy share, cache bytes
+    cache = init_decode_cache(cfg, SSM_ROWS, 2 * SSM_PROMPT, torch.bfloat16, device=dev)
+    tok = torch.from_numpy(prompts[:, :1]).to(dev)
+    params = model.params
+
+    def step():
+        nonlocal cache
+        _, cache = decode_step(cfg, params, cache, tok)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.slots["slot_0"])
+    log(f"  decode step ({SSM_ROWS} rows): {step_ms:.3f} ms per token = {SSM_ROWS / step_ms * 1e3:.1f} tokens/s; "
+        f"SSM cache {cache_bytes / cfg.n_layers / 1e6:.3f} MB per layer, {cache_bytes / 1e6:.1f} MB in all ({smi})")
+    report["serve"] = dict(generate_s=gen_s, decode_steps=eng.decode_steps, launches=gen_counts,
+                           tokens=out[:, SSM_PROMPT:].tolist(), decode_step_ms=step_ms,
+                           tokens_per_s=SSM_ROWS / step_ms * 1e3, cache_bytes=cache_bytes,
+                           profile=profile_device(torch, step, 2, step_ms, "decode step"))
+    del eng, cache, model, params, eval_step
+    torch.cuda.empty_cache()
+
+    # -- 7e. kernel against plain scan, full width, a 4-layer cut -----------
+    cut = dataclasses.replace(cfg, n_layers=4)
+    log(f"[7] 4-layer cut of falcon_mamba_7b at full width: logits through B15 against the plain twin, "
+        f"tolerance {TOL_SSM_LOGITS:.0e} of max|logit|")
+    params = Transformer(cut, device=dev, gen=torch.Generator(device=dev).manual_seed(0)).params
+    worst = {}
+    with torch.no_grad():
+        lk, _ = forward(cut, params, batch)
+        lp, _ = forward(cut, params, batch, ssm_impl="plain")
+    worst["eval"] = check("eval batch logits", lk.float(), lp.float(), TOL_SSM_LOGITS) / float(lp.float().abs().max())
+    del lk, lp
+    ck = init_decode_cache(cut, SSM_ROWS, 16, torch.bfloat16, device=dev)
+    cp = init_decode_cache(cut, SSM_ROWS, 16, torch.bfloat16, device=dev)
+    for t in range(8):
+        tok = torch.from_numpy(prompts[:, t:t + 1]).to(dev)
+        lk, ck = decode_step(cut, params, ck, tok)
+        lp, cp = decode_step(cut, params, cp, tok, ssm_impl="plain")
+        err = check(f"decode step {t} logits", lk.float(), lp.float(), TOL_SSM_LOGITS)
+        worst[f"decode_{t}"] = err / float(lp.float().abs().max())
+    report["kernel_vs_plain_logits_rel"] = worst
+    del params, ck, cp, batch
+    torch.cuda.empty_cache()
+
+    # A small input against a reference: reduced f32 falcon_mamba_7b served on
+    # the card (B15) and on the CPU (plain twin), greedy.
+    rcfg = get_reduced("falcon_mamba_7b")
+    rparams = Transformer(rcfg, device="cpu", gen=torch.Generator().manual_seed(0)).params
+    rprompts = np.random.default_rng(3).integers(0, rcfg.vocab_size, (4, 12), dtype=np.int32)
+    toks = {d: Engine(rcfg, rparams, ServeConfig(max_seq=32, max_new_tokens=16), device=d).generate(rprompts)
+            for d in ("cuda", "cpu")}
+    if not torch.equal(toks["cuda"], toks["cpu"]):
+        raise AssertionError(f"reduced falcon_mamba_7b: card and CPU tokens differ: {toks}")
+    log(f"  reduced falcon_mamba_7b: 4 rows x 16 tokens identical on the card and the CPU "
+        f"(first {toks['cuda'][0, 12:20].tolist()})")
+
+    e = held["eval"]
+    entry = {"name": "ssm_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+             "replaces": "src/repro/kernels/ssm_scan.py:58",
+             "launches": eval_counts["ssm_scan"] + gen_counts["ssm_scan"],
+             "max_abs_err": max(max(h["err_y"], h["err_h"]) for h in held.values()), "ms": e["ms"],
+             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": None}
+    return report, entry
+
+
+def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
+    """Phase 8: the parameter-writing API (B6, B7) and the plain line stats
+    (B8) on full-width gpt_small's leaves and opt_speed's 4096 x 8192
+    tensor. Returns (report, the three entries of the kernels line)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import fused_adam as fa, ops, slim_update as su, snr_stats as ss
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8)
+    kw = dict(lr=1e-3, wd=0.1, count=3, **hyper)
+    leaves = {}
+    for name, spec in specs.items():
+        p = 0.02 * torch.randn(spec.shape, generator=gen, device=dev)
+        g = 1e-3 * torch.randn(spec.shape, generator=gen, device=dev)
+        m = 1e-4 * torch.randn(spec.shape, generator=gen, device=dev)
+        v = 1e-6 * torch.rand(spec.shape, generator=gen, device=dev)
+        leaves[name] = (p, g, m, v)
+    slim = {}   # Table-3 leaves that B7 serves: (dims, plan, v_red)
+    for name, dims in t3_dims.items():
+        plan = ops.leaf_plan(tuple(specs[name].shape), torch.float32, dims)
+        if plan.route == "slim":
+            p = leaves[name][0]
+            red = tuple(1 if i in {d % p.ndim for d in dims} else n for i, n in enumerate(p.shape))
+            slim[name] = (tuple(dims), plan, 1e-6 * torch.rand(red, generator=gen, device=dev))
+    r, c = 4096, 8192   # benchmarks/opt_speed.py's "full" tensor
+    full = {dt: (torch.randn((r, c), generator=gen, device=dev).to(dt),
+                 (0.1 * torch.randn((r, c), generator=gen, device=dev)).to(dt)) for dt in (torch.float32, torch.bfloat16)}
+    zeros, zrow, zcol = (torch.zeros(shape, device=dev) for shape in ((r, c), (r, 1), (1, c)))
+    full_kw = dict(lr=1e-3, wd=0.1, count=1, **hyper)
+
+    # -- 8a. the counted run through the entry points ------------------------
+    log(f"[8] the parameter-writing API: fused_adam_op over gpt_small's {len(leaves)} leaves, slim_update_nd over "
+        f"its {len(slim)} Table-3 compressed leaves, slim_update_op (axis 0 and 1) and fused_adam_op on a "
+        f"{r} x {c} tensor (f32 and bf16 p), snr_stats over v's lines")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    adam_out = {k: ops.fused_adam_op(*t, **kw) for k, t in leaves.items()}
+    slim_out = {k: ops.slim_update_nd(*leaves[k][:3], v_red, dims=dims, **kw) for k, (dims, _, v_red) in slim.items()}
+    full_out = {}
+    for dt, (p, g) in full.items():
+        tag = str(dt).split(".")[-1]
+        g32 = g.float().contiguous()
+        full_out[f"fused_adam_op {tag}"] = ops.fused_adam_op(p, g32, zeros, zeros, **full_kw)
+        full_out[f"slim_update_op axis 1 {tag}"] = ops.slim_update_op(p, g32, zeros, zrow, axis=1, **full_kw)
+        full_out[f"slim_update_op axis 0 {tag}"] = ops.slim_update_op(p, g32, zeros, zcol, axis=0, **full_kw)
+    lines = {k: o[2].reshape(-1, o[2].shape[-1]) for k, o in adam_out.items()}
+    snr_out = {k: ss.snr_stats(v2) for k, v2 in lines.items()}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {"fused_adam": len(leaves) + 2, "slim_update_batched": len(slim) + 4, "snr_stats_batched": len(lines)}
+    log(f"  launches { {k: v for k, v in counts.items() if v} }")
+    if {k: counts[k] for k in want} != want or sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"parameter-writing run launched {counts}, expected {want} and no other kernel")
+
+    # -- 8b. each against its plain twin and the preconditioner route ---------
+    bc1, bc2 = fa.host_bias_corrections(0.9, 0.95, 3)
+    errs = {"fused_adam": 0.0, "slim_update_batched": 0.0, "snr_stats_batched": 0.0}
+    for name, (p, g, m, v) in leaves.items():
+        got, twin = adam_out[name], fa.fused_adam_plain(p, g, m, v, lr=1e-3, wd=0.1, bc1=bc1, bc2=bc2, **hyper)
+        errs["fused_adam"] = max(errs["fused_adam"], *(max_err(a, b)[0] for a, b in zip(got, twin)))
+        for what, a, b in zip(("p'", "m'", "v'"), got, twin):
+            if max_err(a, b)[1] > TOL_ELEMENTWISE:
+                raise AssertionError(f"fused_adam {name} {what}: {max_err(a, b)} against its twin")
+        u, m_p, v_p = fa.adam_precond(*(t.reshape(-1, t.shape[-1]) for t in (g, m, v)), count=3, **hyper)
+        u, m_p, v_p = (t.reshape(p.shape) for t in (u, m_p, v_p))
+        if max_err(got[0], fa.param_step(p, u, lr=1e-3, wd=0.1))[1] > TOL_ELEMENTWISE or not (
+                torch.equal(got[1], m_p) and torch.equal(got[2], v_p)):
+            raise AssertionError(f"fused_adam {name}: p' differs from adam_precond followed by the step")
+    log(f"  fused_adam: {len(leaves)} leaves against the twin and adam_precond + step, worst abs err "
+        f"{errs['fused_adam']:.3e} (tol {TOL_ELEMENTWISE:.0e} relative)  ok")
+    for name, (dims, plan, v_red) in slim.items():
+        cn = plan.cn
+        p3, g3, m3 = (ops.canon_apply(t, cn).contiguous() for t in leaves[name][:3])
+        v3 = ops.canon_apply(v_red, cn, reduced_cols=True).contiguous()
+        if p3.ndim == 2:
+            p3, g3, m3, v3 = p3[None], g3[None], m3[None], v3[None]
+        got = su.slim_update_batched(p3, g3, m3, v3, axis=cn.axis, **kw)
+        twin = su.slim_update_batched_plain(p3, g3, m3, v3, axis=cn.axis, lr=1e-3, wd=0.1, bc1=bc1, bc2=bc2, **hyper)
+        for what, a, b, tol in zip(("p'", "m'", "v'"), got, twin, (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE)):
+            errs["slim_update_batched"] = max(errs["slim_update_batched"], max_err(a, b)[0])
+            if max_err(a, b)[1] > tol:
+                raise AssertionError(f"slim_update_batched {name} {what}: {max_err(a, b)} against its twin")
+        u, m_p, v_p = su.slim_precond_batched(g3, m3, v3, axis=cn.axis, count=3, **hyper)
+        if max_err(got[0], fa.param_step(p3, u, lr=1e-3, wd=0.1))[1] > TOL_ELEMENTWISE or not (
+                torch.equal(got[1], m_p) and torch.equal(got[2], v_p)):
+            raise AssertionError(f"slim_update_batched {name}: p' differs from slim_precond_batched + the step")
+        nd = slim_out[name]
+        for a, b in zip(nd, (ops.canon_restore(o[0] if plan.cn.batch == 1 else o, cn, t.shape)
+                             for o, t in zip(got, (leaves[name][0], leaves[name][2], v_red)))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"slim_update_nd {name}: differs from B7 on its canonical view")
+    log(f"  slim_update_batched: {len(slim)} Table-3 leaves against the twin and slim_precond_batched + step, "
+        f"worst abs err {errs['slim_update_batched']:.3e}  ok")
+    f1 = fa.host_bias_corrections(0.9, 0.95, 1)
+    for dt, (p, g) in full.items():
+        tag = str(dt).split(".")[-1]
+        g32 = g.float().contiguous()
+        tol = TOL_ELEMENTWISE if dt == torch.float32 else TOL_BF16_PARAM
+        twins = {f"fused_adam_op {tag}": fa.fused_adam_plain(p, g32, zeros, zeros, lr=1e-3, wd=0.1, bc1=f1[0],
+                                                              bc2=f1[1], **hyper),
+                 f"slim_update_op axis 1 {tag}": [o[0] for o in su.slim_update_batched_plain(
+                     p[None], g32[None], zeros[None], zrow[None], axis=1, lr=1e-3, wd=0.1, bc1=f1[0], bc2=f1[1],
+                     **hyper)],
+                 f"slim_update_op axis 0 {tag}": [o[0] for o in su.slim_update_batched_plain(
+                     p[None], g32[None], zeros[None], zcol[None], axis=0, lr=1e-3, wd=0.1, bc1=f1[0], bc2=f1[1],
+                     **hyper)]}
+        for key, twin in twins.items():
+            for what, a, b, t in zip(("p'", "m'", "v'"), full_out[key], twin, (tol, TOL_ELEMENTWISE, TOL_LINE)):
+                check(f"{key} {what}", a.float(), b.float(), max(t, TOL_LINE) if what == "p'" and "slim" in key
+                      else t)
+    for name, v2 in lines.items():
+        for a, b in zip(snr_out[name], ss.snr_stats_batched_plain(v2[None], axis=1)):
+            errs["snr_stats_batched"] = max(errs["snr_stats_batched"], max_err(a, b[0])[0])
+            if max_err(a, b[0])[1] > TOL_LINE:
+                raise AssertionError(f"snr_stats {name}: {max_err(a, b[0])} against its twin")
+    log(f"  snr_stats: {len(lines)} leaves' v lines against the twin, worst abs err "
+        f"{errs['snr_stats_batched']:.3e}  ok")
+
+    # -- 8c. times against bounds, twins and one PyTorch call ------------------
+    def total(items):
+        return {k: sum(i[k] for i in items) for k in items[0]}
+
+    adam_t = []
+    for name, t in leaves.items():
+        n = t[0].numel()
+        adam_t.append(dict(ms=timer(lambda: fa.fused_adam(*t, **kw), reps=5),
+                           plain_ms=timer(lambda: fa.fused_adam_plain(*t, lr=1e-3, wd=0.1, bc1=bc1, bc2=bc2, **hyper),
+                                          reps=3),
+                           bound_ms=max(28 * n / rate, 16 * n / F32_RATE) * 1e3))
+    ps = [torch.nn.Parameter(t[0].clone()) for t in leaves.values()]
+    for q, t in zip(ps, leaves.values()):
+        q.grad = t[1].clone()
+    opt = torch.optim.AdamW(ps, lr=1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1, fused=True)
+    opt.step()
+    adam_lib = timer(opt.step, reps=5)
+    del ps, opt
+    adam_sum = total(adam_t)
+    slim_t = []
+    for name, (dims, plan, v_red) in slim.items():
+        cn = plan.cn
+        p3, g3, m3 = (ops.canon_apply(t, cn).contiguous() for t in leaves[name][:3])
+        v3 = ops.canon_apply(v_red, cn, reduced_cols=True).contiguous()
+        if p3.ndim == 2:
+            p3, g3, m3, v3 = p3[None], g3[None], m3[None], v3[None]
+        n, n_lines = p3.numel(), v3.numel()
+        slim_t.append(dict(
+            ms=timer(lambda: su.slim_update_batched(p3, g3, m3, v3, axis=cn.axis, **kw), reps=5),
+            plain_ms=timer(lambda: su.slim_update_batched_plain(p3, g3, m3, v3, axis=cn.axis, lr=1e-3, wd=0.1,
+                                                                bc1=bc1, bc2=bc2, **hyper), reps=3),
+            bound_ms=max((20 * n + 8 * n_lines) / rate, 14 * n / F32_RATE) * 1e3))
+    slim_sum = total(slim_t)
+    snr_t = []
+    for name, v2 in lines.items():
+        v3 = v2[None]
+        n = v3.numel()
+        snr_t.append(dict(ms=timer(lambda: ss.snr_stats_batched(v3, axis=1), reps=5),
+                          plain_ms=timer(lambda: ss.snr_stats_batched_plain(v3, axis=1), reps=3),
+                          bound_ms=max((4 * n + 8 * v3.shape[1]) / rate, 3 * n / F64_RATE) * 1e3,
+                          library_ms=timer(lambda: torch.var_mean(v3, dim=2, correction=0), reps=5)))
+    snr_sum = total(snr_t)
+    full_t = {}
+    for dt, (p, g) in full.items():
+        tag = str(dt).split(".")[-1]
+        g32 = g.float().contiguous()
+        n, pb = p.numel(), p.element_size()
+        full_t[f"fused_adam_op {tag}"] = dict(ms=timer(lambda: ops.fused_adam_op(p, g32, zeros, zeros, **full_kw)),
+                                              bound_ms=(2 * pb + 20) * n / rate * 1e3)
+        for axis, v_red in ((1, zrow), (0, zcol)):
+            full_t[f"slim_update_op axis {axis} {tag}"] = dict(
+                ms=timer(lambda: ops.slim_update_op(p, g32, zeros, v_red, axis=axis, **full_kw)),
+                bound_ms=((2 * pb + 12) * n + 8 * v_red.numel()) / rate * 1e3)
+        q = torch.nn.Parameter(p.clone())
+        q.grad = g32.to(dt)
+        opt = torch.optim.AdamW([q], lr=1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1, fused=True)
+        opt.step()
+        full_t[f"fused_adam_op {tag}"]["library_ms"] = timer(opt.step)
+        del q, opt
+    for key, t in full_t.items():
+        log(f"  {key} ({r} x {c}): kernel {t['ms']:.4f} ms  bound {t['bound_ms']:.4f} ms"
+            + (f"  AdamW(fused) {t['library_ms']:.4f} ms" if "library_ms" in t else ""))
+    log(f"  per gpt_small tree: fused_adam kernel {adam_sum['ms']:.4f} ms  plain {adam_sum['plain_ms']:.4f} ms  "
+        f"bound {adam_sum['bound_ms']:.4f} ms  AdamW(fused) {adam_lib:.4f} ms; slim_update_batched "
+        f"{slim_sum['ms']:.4f} / {slim_sum['plain_ms']:.4f} / {slim_sum['bound_ms']:.4f} ms; snr_stats_batched "
+        f"{snr_sum['ms']:.4f} / {snr_sum['plain_ms']:.4f} / {snr_sum['bound_ms']:.4f} ms, var_mean "
+        f"{snr_sum['library_ms']:.4f} ms ({smi})")
+    report = dict(launches=counts, errs=errs, fused_adam=dict(adam_sum, library_ms=adam_lib), slim=slim_sum,
+                  snr=snr_sum, full=full_t)
+    src = "src/repro_torch/kernels/csrc/"
+    entries = [
+        {"name": "fused_adam", "route": "cuda", "source": src + "adam_precond.cu",
+         "replaces": "src/repro/kernels/fused_adam.py:58", "launches": counts["fused_adam"],
+         "max_abs_err": errs["fused_adam"], "ms": adam_sum["ms"], "plain_ms": adam_sum["plain_ms"],
+         "bound_ms": adam_sum["bound_ms"], "bound_by": "bytes", "library_ms": adam_lib},
+        {"name": "slim_update_batched", "route": "cuda", "source": src + "mega_slim.cu",
+         "replaces": "src/repro/kernels/slim_update.py:74", "launches": counts["slim_update_batched"],
+         "max_abs_err": errs["slim_update_batched"], "ms": slim_sum["ms"], "plain_ms": slim_sum["plain_ms"],
+         "bound_ms": slim_sum["bound_ms"], "bound_by": "bytes", "library_ms": None},
+        {"name": "snr_stats_batched", "route": "cuda", "source": src + "snr_stats.cu",
+         "replaces": "src/repro/kernels/snr_stats.py:126", "launches": counts["snr_stats_batched"],
+         "max_abs_err": errs["snr_stats_batched"], "ms": snr_sum["ms"], "plain_ms": snr_sum["plain_ms"],
+         "bound_ms": snr_sum["bound_ms"], "bound_by": "bytes", "library_ms": snr_sum["library_ms"]},
+    ]
+    return report, entries
+
+
+
 def main() -> int:
     import torch
 
@@ -1825,8 +2267,13 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     report["sharded"] = sharded = sharded_phase(torch, smi, rate)
+    timer = Timer(torch)
+    report["ssm"], ssm_entry = ssm_phase(torch, timer, rate, smi)
+    report["param_api"], param_entries = param_phase(torch, timer, rate, smi, specs, t3_dims)
+    del timer
+    torch.cuda.empty_cache()
 
-    # -- 7. result lines ------------------------------------------------------
+    # -- 9. result lines ------------------------------------------------------
     # Times per step of the main path: B2 on Adam's one dense group, B1 summed
     # over the Table-3 plan's three slim groups, B5 over one SNR measurement.
     # Errors are the worst over every group the main path launched on.
@@ -1903,13 +2350,17 @@ def main() -> int:
         sharded_entry("mega_slim_finalize_batched", "B13", "slim_finalize.cu", "src/repro/kernels/megaplan.py:536",
                       sum(sharded[r]["mega_slim_finalize_batched"] for r in grouped_runs)),
     ]
+    line["kernels"] += param_entries + [ssm_entry]
+    if len(line["kernels"]) != len(kernels.KERNELS) + 2 or min(e["launches"] for e in line["kernels"]) < 1:
+        raise AssertionError(f"kernels line: {len(line['kernels'])} entries (B1 and B2 with their flags as "
+                             f"separate rows), launches {[e['launches'] for e in line['kernels']]}")
     report["kernels"] = line
     report["device"] = smi
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
-    log(f"[7] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
+    log(f"[9] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

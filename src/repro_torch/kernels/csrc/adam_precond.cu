@@ -20,6 +20,9 @@
 // of one block sums the partials in a fixed order (common.cuh,
 // health_reduce_kernel): deterministic, no float atomics, and the partial
 // count is the grid size the caller fixed from the leaf's size.
+//
+// The same file holds the parameter-writing form (B6, repro_fused_adam at
+// the end): the same elementwise pass, writing p' where this one writes u.
 #include "common.cuh"
 
 namespace {
@@ -105,7 +108,110 @@ void launch(const PrecondArgs& a, long long blocks, float* health, cudaStream_t 
   }
 }
 
+// The parameter-writing form (B6): per element p' = p - lr*(u + wd*p),
+// rounded to p's dtype, with m', v' as above; no u is written. Bias
+// corrections arrive as host-rounded scalars (the count is static).
+template <typename P>
+__device__ __forceinline__ void store_param(void* out, long long i, float x);
+template <>
+__device__ __forceinline__ void store_param<float>(void* out, long long i, float x) {
+  static_cast<float*>(out)[i] = x;
+}
+template <>
+__device__ __forceinline__ void store_param<__nv_bfloat16>(void* out, long long i, float x) {
+  static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float param_step(float p, float u, float lr, float wd) {
+  const float upd = wd != 0.f ? __fadd_rn(u, __fmul_rn(wd, p)) : u;
+  return __fsub_rn(p, __fmul_rn(lr, upd));
+}
+
+struct AdamWArgs {
+  const void* p;
+  const void* g;
+  const float* m;
+  const float* v;
+  void* p_out;
+  float* m_out;
+  float* v_out;
+  long long n;
+  float lr, wd, c1, c2, b1, omb1, b2, omb2, eps;
+};
+
+template <typename P, typename G, bool VEC>
+__global__ void fused_adam_kernel(AdamWArgs a) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (VEC) {
+    const float4* p4 = reinterpret_cast<const float4*>(a.p);
+    const float4* g4 = reinterpret_cast<const float4*>(a.g);
+    const float4* m4 = reinterpret_cast<const float4*>(a.m);
+    const float4* v4 = reinterpret_cast<const float4*>(a.v);
+    float4* po4 = reinterpret_cast<float4*>(a.p_out);
+    float4* mo4 = reinterpret_cast<float4*>(a.m_out);
+    float4* vo4 = reinterpret_cast<float4*>(a.v_out);
+    for (long long i = start; i < (a.n >> 2); i += stride) {
+      const float4 p = p4[i];
+      const float4 g = g4[i];
+      const float4 m = m4[i];
+      const float4 v = v4[i];
+      float4 u, mo, vo, po;
+      adam_elem(a.b1, a.omb1, a.b2, a.omb2, a.eps, g.x, m.x, v.x, a.c1, a.c2, u.x, mo.x, vo.x);
+      adam_elem(a.b1, a.omb1, a.b2, a.omb2, a.eps, g.y, m.y, v.y, a.c1, a.c2, u.y, mo.y, vo.y);
+      adam_elem(a.b1, a.omb1, a.b2, a.omb2, a.eps, g.z, m.z, v.z, a.c1, a.c2, u.z, mo.z, vo.z);
+      adam_elem(a.b1, a.omb1, a.b2, a.omb2, a.eps, g.w, m.w, v.w, a.c1, a.c2, u.w, mo.w, vo.w);
+      po.x = param_step(p.x, u.x, a.lr, a.wd);
+      po.y = param_step(p.y, u.y, a.lr, a.wd);
+      po.z = param_step(p.z, u.z, a.lr, a.wd);
+      po.w = param_step(p.w, u.w, a.lr, a.wd);
+      po4[i] = po;
+      mo4[i] = mo;
+      vo4[i] = vo;
+    }
+  } else {
+    for (long long i = start; i < a.n; i += stride) {
+      float u;
+      adam_elem(a.b1, a.omb1, a.b2, a.omb2, a.eps, load_g<G>(a.g, i), a.m[i], a.v[i], a.c1, a.c2, u, a.m_out[i],
+                a.v_out[i]);
+      store_param<P>(a.p_out, i, param_step(load_g<P>(a.p, i), u, a.lr, a.wd));
+    }
+  }
+}
+
 }  // namespace
+
+// Parameter-writing dense AdamW (B6). Replaces repro/kernels/fused_adam.py:58
+// fused_adam (kernel body _adam_kernel :42, pallas_call :79): the
+// elementwise pass above with a parameter write. Bound: bytes, p, g, m, v
+// read and p', m', v' written, 28 B per element in f32 (7 passes). p, p_out:
+// n contiguous f32 (p_bf16 = 0) or bf16 (p_bf16 = 1); g f32 or bf16
+// (g_bf16); m, v, m_out, v_out f32. c1/c2 = 1 - b^t rounded in f32 by the
+// caller. blocks: the grid of 256-thread blocks. Returns the cudaError_t.
+extern "C" int repro_fused_adam(const void* p, int p_bf16, const void* g, int g_bf16, const float* m, const float* v,
+                                void* p_out, float* m_out, float* v_out, long long n, long long blocks, float lr,
+                                float wd, float c1, float c2, float b1, float omb1, float b2, float omb2, float eps,
+                                void* stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  AdamWArgs a{p, g, m, v, p_out, m_out, v_out, n, lr, wd, c1, c2, b1, omb1, b2, omb2, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = (unsigned)blocks;
+  const bool vec = !p_bf16 && !g_bf16 && n % 4 == 0 && repro_torch::aligned16(p) && repro_torch::aligned16(g) &&
+                   repro_torch::aligned16(m) && repro_torch::aligned16(v) && repro_torch::aligned16(p_out) &&
+                   repro_torch::aligned16(m_out) && repro_torch::aligned16(v_out);
+  if (vec) {
+    fused_adam_kernel<float, float, true><<<grid, 256, 0, s>>>(a);
+  } else if (p_bf16 && g_bf16) {
+    fused_adam_kernel<__nv_bfloat16, __nv_bfloat16, false><<<grid, 256, 0, s>>>(a);
+  } else if (p_bf16) {
+    fused_adam_kernel<__nv_bfloat16, float, false><<<grid, 256, 0, s>>>(a);
+  } else if (g_bf16) {
+    fused_adam_kernel<float, __nv_bfloat16, false><<<grid, 256, 0, s>>>(a);
+  } else {
+    fused_adam_kernel<float, float, false><<<grid, 256, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
 
 // g: n contiguous values, f32 (g_bf16 = 0) or bf16 (g_bf16 = 1); m, v, u,
 // m_out, v_out: n contiguous f32; bc1, bc2: one f32 each. blocks: the grid

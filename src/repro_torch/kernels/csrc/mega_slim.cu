@@ -50,6 +50,12 @@
 // across ranks, and slim_finalize.cu applies the preconditioner. Bound:
 // bytes, 12 B per f32 element (g, m read, m' written) plus 4 B per line,
 // 12 B more per line with_snr, 8 B with_health.
+//
+// WRITE replaces repro/kernels/slim_update.py:74 slim_update_batched (body
+// _slim_kernel :56, pallas_call :103), the parameter-writing per-leaf form:
+// pass 2 writes p' = p - lr*(u + wd*p) in p's dtype (f32 or bf16) instead
+// of u, with the bias corrections passed as host-rounded scalars (no
+// launch forms them). Entry point repro_slim_update at the end of the file.
 #include <type_traits>
 
 #include "common.cuh"
@@ -82,7 +88,31 @@ struct SlimArgs {
   float* first;
   long long batch, rows, cols;
   float inv_n, b1, omb1, b2, omb2, eps;
+  // WRITE: the parameters in and out (f32 or bf16), the step's scalars,
+  // and the bias corrections as host-rounded values (the step count is
+  // static for the parameter-writing form).
+  const void* p = nullptr;
+  void* p_out = nullptr;
+  float lr = 0.f, wd = 0.f, c1 = 1.f, c2 = 1.f;
 };
+
+// p' = p - lr*(u + wd*p) in f32, the Pallas kernels' order (the wd term only
+// when wd != 0, as they add it only then).
+__device__ __forceinline__ float param_step(float p, float u, float lr, float wd) {
+  const float upd = wd != 0.f ? __fadd_rn(u, __fmul_rn(wd, p)) : u;
+  return __fsub_rn(p, __fmul_rn(lr, upd));
+}
+
+template <typename P>
+__device__ __forceinline__ void store_p(void* out, long long i, float x);
+template <>
+__device__ __forceinline__ void store_p<float>(void* out, long long i, float x) {
+  static_cast<float*>(out)[i] = x;
+}
+template <>
+__device__ __forceinline__ void store_p<__nv_bfloat16>(void* out, long long i, float x) {
+  static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(x);
+}
 
 template <bool SNR, bool HEALTH>
 __device__ __forceinline__ void write_line_stats(const SlimArgs& a, long long line, const LineStats<SNR, HEALTH>& t) {
@@ -96,15 +126,16 @@ __device__ __forceinline__ void write_line_stats(const SlimArgs& a, long long li
   }
 }
 
-template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
+template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL, typename P = float,
+          bool WRITE = false>
 __global__ void slim_minor_kernel(SlimArgs a) {
   static_assert(!VEC || std::is_same<G, float>::value, "float4 loads need f32 g");
+  static_assert(!VEC || !WRITE || std::is_same<P, float>::value, "float4 parameter loads need f32 p");
   constexpr bool STATS = SNR || HEALTH;
   __shared__ float smem[32];
   const long long line = blockIdx.x;
   const long long base = line * a.cols;
   const float* m = a.m + base;
-  float* u = a.u + base;
   float* mo = a.m_out + base;
 
   float s = 0.f;
@@ -168,14 +199,19 @@ __global__ void slim_minor_kernel(SlimArgs a) {
   }
   const float ek = __fmul_rn(total, a.inv_n);
   const float v_new = ema(a.b2, a.v[line], a.omb2, ek);
-  const float c1 = bc_at<SCALAR_BC>(a.bc1, line);
-  const float c2 = bc_at<SCALAR_BC>(a.bc2, line);
+  float c1, c2;
+  if constexpr (WRITE) {
+    c1 = a.c1;
+    c2 = a.c2;
+  } else {
+    c1 = bc_at<SCALAR_BC>(a.bc1, line);
+    c2 = bc_at<SCALAR_BC>(a.bc2, line);
+  }
   if (threadIdx.x == 0) a.v_out[line] = v_new;
 
   if constexpr (VEC) {
     const float4* g4 = reinterpret_cast<const float4*>(static_cast<const float*>(a.g) + base);
     const float4* m4 = reinterpret_cast<const float4*>(m);
-    float4* u4 = reinterpret_cast<float4*>(u);
     float4* mo4 = reinterpret_cast<float4*>(mo);
     for (long long j = threadIdx.x; j < a.cols / 4; j += blockDim.x) {
       const float4 x = g4[j];
@@ -190,18 +226,33 @@ __global__ void slim_minor_kernel(SlimArgs a) {
       uu.z = precond(mn.z, c1, v_new, c2, a.eps);
       uu.w = precond(mn.w, c1, v_new, c2, a.eps);
       mo4[j] = mn;
-      u4[j] = uu;
+      if constexpr (WRITE) {
+        const float4 pp = reinterpret_cast<const float4*>(static_cast<const float*>(a.p) + base)[j];
+        float4 po;
+        po.x = param_step(pp.x, uu.x, a.lr, a.wd);
+        po.y = param_step(pp.y, uu.y, a.lr, a.wd);
+        po.z = param_step(pp.z, uu.z, a.lr, a.wd);
+        po.w = param_step(pp.w, uu.w, a.lr, a.wd);
+        reinterpret_cast<float4*>(static_cast<float*>(a.p_out) + base)[j] = po;
+      } else {
+        reinterpret_cast<float4*>(a.u + base)[j] = uu;
+      }
     }
   } else {
     for (long long j = threadIdx.x; j < a.cols; j += blockDim.x) {
       const float mn = ema(a.b1, m[j], a.omb1, load_g<G>(a.g, base + j));
       mo[j] = mn;
-      u[j] = precond(mn, c1, v_new, c2, a.eps);
+      const float uu = precond(mn, c1, v_new, c2, a.eps);
+      if constexpr (WRITE) {
+        store_p<P>(a.p_out, base + j, param_step(load_g<P>(a.p, base + j), uu, a.lr, a.wd));
+      } else {
+        a.u[base + j] = uu;
+      }
     }
   }
 }
 
-template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
+template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL, typename P = float, bool WRITE = false>
 __global__ void slim_major_kernel(SlimArgs a) {
   constexpr bool STATS = SNR || HEALTH;
   __shared__ float part[kRowThreads][kStrip + 1];
@@ -269,13 +320,24 @@ __global__ void slim_major_kernel(SlimArgs a) {
   __syncthreads();
   if (!live) return;
   const float v_new = line_v[tx];
-  const float c1 = bc_at<SCALAR_BC>(a.bc1, li);
-  const float c2 = bc_at<SCALAR_BC>(a.bc2, li);
+  float c1, c2;
+  if constexpr (WRITE) {
+    c1 = a.c1;
+    c2 = a.c2;
+  } else {
+    c1 = bc_at<SCALAR_BC>(a.bc1, li);
+    c2 = bc_at<SCALAR_BC>(a.bc2, li);
+  }
   for (long long r = ty; r < a.rows; r += kRowThreads) {
     const long long i = slice + r * a.cols + c;
     const float mn = ema(a.b1, a.m[i], a.omb1, load_g<G>(a.g, i));
     a.m_out[i] = mn;
-    a.u[i] = precond(mn, c1, v_new, c2, a.eps);
+    const float uu = precond(mn, c1, v_new, c2, a.eps);
+    if constexpr (WRITE) {
+      store_p<P>(a.p_out, i, param_step(load_g<P>(a.p, i), uu, a.lr, a.wd));
+    } else {
+      a.u[i] = uu;
+    }
   }
 }
 
@@ -318,6 +380,35 @@ void launch(const SlimArgs& a, int axis, cudaStream_t s) {
     launch_flags<G, SCALAR_BC, false, true, PARTIAL>(a, axis, s);
   } else {
     launch_flags<G, SCALAR_BC, false, false, PARTIAL>(a, axis, s);
+  }
+}
+
+// The parameter-writing per-leaf form: no flags, host-rounded bias
+// corrections; float4 loads on contiguous lines when p and g are f32.
+template <typename G, typename P>
+void launch_write(const SlimArgs& a, int axis, cudaStream_t s) {
+  if (axis == 1) {
+    bool vec = false;
+    if constexpr (std::is_same<G, float>::value && std::is_same<P, float>::value) {
+      vec = a.cols % 4 == 0 && repro_torch::aligned16(a.g) && repro_torch::aligned16(a.m) &&
+            repro_torch::aligned16(a.m_out) && repro_torch::aligned16(a.p) && repro_torch::aligned16(a.p_out);
+    }
+    long long work = vec ? a.cols / 4 : a.cols;
+    long long threads = ((work + 31) / 32) * 32;
+    if (threads > 1024) threads = 1024;
+    if (threads < 32) threads = 32;
+    const unsigned lines = (unsigned)(a.batch * a.rows);
+    if constexpr (std::is_same<G, float>::value && std::is_same<P, float>::value) {
+      if (vec) {
+        slim_minor_kernel<G, true, true, false, false, false, P, true><<<lines, (unsigned)threads, 0, s>>>(a);
+        return;
+      }
+    }
+    slim_minor_kernel<G, false, true, false, false, false, P, true><<<lines, (unsigned)threads, 0, s>>>(a);
+  } else {
+    dim3 grid((unsigned)((a.cols + kStrip - 1) / kStrip), (unsigned)a.batch);
+    dim3 block(kStrip, kRowThreads);
+    slim_major_kernel<G, true, false, false, false, P, true><<<grid, block, 0, s>>>(a);
   }
 }
 
@@ -413,5 +504,40 @@ extern "C" int repro_slim_partial_stats(const void* g, int g_bf16, const float* 
     launch<float, false, true>(a, axis, s);
   }
   if (health != nullptr) reduce_health(a, axis, health, s);
+  return (int)cudaGetLastError();
+}
+
+// Parameter-writing per-leaf form (SlimAdam that writes the parameters).
+// Replaces repro/kernels/slim_update.py:74 slim_update_batched (kernel body
+// _slim_kernel :56, pallas_call :103): the same line walk as
+// repro_slim_precond, whose pass 2 writes p' = p - lr*(u + wd*p) (rounded to
+// p's dtype) where the precondition form writes u. Bound: bytes, p, g, m
+// read and p', m' written (20 B per f32 element, 14 B with bf16 p and g),
+// plus 8 B per line. p, p_out: (batch, rows, cols), f32 (p_bf16 = 0) or
+// bf16 (p_bf16 = 1); g f32 or bf16 (g_bf16); m, m_out f32; v, v_out lines
+// as in repro_slim_precond. c1/c2: the bias corrections 1 - b^t, rounded in
+// f32 by the caller (the count is a Python int in the JAX entry points).
+extern "C" int repro_slim_update(const void* p, int p_bf16, const void* g, int g_bf16, const float* m,
+                                 const float* v, void* p_out, float* m_out, float* v_out, long long batch,
+                                 long long rows, long long cols, int axis, float inv_n, float lr, float wd, float c1,
+                                 float c2, float b1, float omb1, float b2, float omb2, float eps, void* stream) {
+  SlimArgs a{g, m, v, nullptr, nullptr, nullptr, m_out, v_out, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             batch, rows, cols, inv_n, b1, omb1, b2, omb2, eps};
+  a.p = p;
+  a.p_out = p_out;
+  a.lr = lr;
+  a.wd = wd;
+  a.c1 = c1;
+  a.c2 = c2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g_bf16 && p_bf16) {
+    launch_write<__nv_bfloat16, __nv_bfloat16>(a, axis, s);
+  } else if (g_bf16) {
+    launch_write<__nv_bfloat16, float>(a, axis, s);
+  } else if (p_bf16) {
+    launch_write<float, __nv_bfloat16>(a, axis, s);
+  } else {
+    launch_write<float, float>(a, axis, s);
+  }
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,11 @@
 // Orientation as in mega_slim.cu: one block per contiguous line (axis 1), a
 // strip of kStrip columns per block for strided lines (axis 0). A line is
 // never split across blocks, so a very long line runs on one SM.
+//
+// The PLAIN flag replaces snr_stats.py:126 snr_stats_batched (body
+// _snr_kernel :75, same launcher): per line s1 = sum v and s2 = sum v*v
+// (v*v rounded in f32, as the TPU kernel squares; sums in f64), with no
+// shift and no first entry. Bound: bytes, 4 B per element, 8 B per line.
 #include "common.cuh"
 
 namespace {
@@ -31,7 +36,8 @@ using repro_torch::block_sum;
 using repro_torch::kRowThreads;
 using repro_torch::kStrip;
 
-template <bool VEC, bool FIRST>
+// PLAIN: s1 and s2 = sum v*v land in s1 and s2c (s1c unused).
+template <bool VEC, bool FIRST, bool PLAIN>
 __global__ void snr_minor_kernel(const float* __restrict__ v, float* s1, float* s1c, float* s2c, float* first,
                                  long long cols) {
   __shared__ double smem[32];
@@ -43,35 +49,44 @@ __global__ void snr_minor_kernel(const float* __restrict__ v, float* s1, float* 
     const float4* x4 = reinterpret_cast<const float4*>(x);
     for (long long j = threadIdx.x; j < cols / 4; j += blockDim.x) {
       const float4 e = x4[j];
-      const float d[4] = {__fsub_rn(e.x, x0), __fsub_rn(e.y, x0), __fsub_rn(e.z, x0), __fsub_rn(e.w, x0)};
       a1 += (double)e.x + (double)e.y + (double)e.z + (double)e.w;
+      if (PLAIN) {
+        a2c += (double)__fmul_rn(e.x, e.x) + (double)__fmul_rn(e.y, e.y) + (double)__fmul_rn(e.z, e.z) +
+               (double)__fmul_rn(e.w, e.w);
+      } else {
+        const float d[4] = {__fsub_rn(e.x, x0), __fsub_rn(e.y, x0), __fsub_rn(e.z, x0), __fsub_rn(e.w, x0)};
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        a1c += (double)d[k];
-        a2c += (double)d[k] * (double)d[k];
+        for (int k = 0; k < 4; ++k) {
+          a1c += (double)d[k];
+          a2c += (double)d[k] * (double)d[k];
+        }
       }
     }
   } else {
     for (long long j = threadIdx.x; j < cols; j += blockDim.x) {
       const float e = x[j];
-      const double d = (double)__fsub_rn(e, x0);
       a1 += (double)e;
-      a1c += d;
-      a2c += d * d;
+      if (PLAIN) {
+        a2c += (double)__fmul_rn(e, e);
+      } else {
+        const double d = (double)__fsub_rn(e, x0);
+        a1c += d;
+        a2c += d * d;
+      }
     }
   }
   a1 = block_sum(a1, smem);
-  a1c = block_sum(a1c, smem);
+  if (!PLAIN) a1c = block_sum(a1c, smem);
   a2c = block_sum(a2c, smem);
   if (threadIdx.x == 0) {
     s1[line] = (float)a1;
-    s1c[line] = (float)a1c;
+    if (!PLAIN) s1c[line] = (float)a1c;
     s2c[line] = (float)a2c;
     if (FIRST) first[line] = x0;
   }
 }
 
-template <bool FIRST>
+template <bool FIRST, bool PLAIN>
 __global__ void snr_major_kernel(const float* __restrict__ v, float* s1, float* s1c, float* s2c, float* first,
                                  long long rows, long long cols) {
   __shared__ double part[3][kRowThreads][kStrip + 1];
@@ -86,10 +101,14 @@ __global__ void snr_major_kernel(const float* __restrict__ v, float* s1, float* 
     const float x0 = x[c];
     for (long long r = ty; r < rows; r += kRowThreads) {
       const float e = x[r * cols + c];
-      const double d = (double)__fsub_rn(e, x0);
       a1 += (double)e;
-      a1c += d;
-      a2c += d * d;
+      if (PLAIN) {
+        a2c += (double)__fmul_rn(e, e);
+      } else {
+        const double d = (double)__fsub_rn(e, x0);
+        a1c += d;
+        a2c += d * d;
+      }
     }
   }
   part[0][ty][tx] = a1;
@@ -105,13 +124,13 @@ __global__ void snr_major_kernel(const float* __restrict__ v, float* s1, float* 
     }
     const long long li = b * cols + c;
     s1[li] = (float)t1;
-    s1c[li] = (float)t1c;
+    if (!PLAIN) s1c[li] = (float)t1c;
     s2c[li] = (float)t2c;
     if (FIRST) first[li] = x[c];
   }
 }
 
-template <bool FIRST>
+template <bool FIRST, bool PLAIN = false>
 void launch(const float* v, float* s1, float* s1c, float* s2c, float* first, long long batch, long long rows,
             long long cols, int axis, cudaStream_t s) {
   if (axis == 1) {
@@ -122,14 +141,14 @@ void launch(const float* v, float* s1, float* s1c, float* s2c, float* first, lon
     if (threads < 32) threads = 32;
     const unsigned lines = (unsigned)(batch * rows);
     if (vec) {
-      snr_minor_kernel<true, FIRST><<<lines, (unsigned)threads, 0, s>>>(v, s1, s1c, s2c, first, cols);
+      snr_minor_kernel<true, FIRST, PLAIN><<<lines, (unsigned)threads, 0, s>>>(v, s1, s1c, s2c, first, cols);
     } else {
-      snr_minor_kernel<false, FIRST><<<lines, (unsigned)threads, 0, s>>>(v, s1, s1c, s2c, first, cols);
+      snr_minor_kernel<false, FIRST, PLAIN><<<lines, (unsigned)threads, 0, s>>>(v, s1, s1c, s2c, first, cols);
     }
   } else {
     dim3 grid((unsigned)((cols + kStrip - 1) / kStrip), (unsigned)batch);
     dim3 block(kStrip, kRowThreads);
-    snr_major_kernel<FIRST><<<grid, block, 0, s>>>(v, s1, s1c, s2c, first, rows, cols);
+    snr_major_kernel<FIRST, PLAIN><<<grid, block, 0, s>>>(v, s1, s1c, s2c, first, rows, cols);
   }
 }
 
@@ -148,5 +167,13 @@ extern "C" int repro_snr_stats_centered(const float* v, float* s1, float* s1c, f
   } else {
     launch<false>(v, s1, s1c, s2c, first, batch, rows, cols, axis, s);
   }
+  return (int)cudaGetLastError();
+}
+
+// The plain line sums (B8): v as above; s1 and s2 (sum v*v): contiguous f32
+// (batch, kept). Returns the cudaError_t of the launch.
+extern "C" int repro_snr_stats(const float* v, float* s1, float* s2, long long batch, long long rows, long long cols,
+                               int axis, void* stream) {
+  launch<false, true>(v, s1, nullptr, s2, nullptr, batch, rows, cols, axis, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,16 @@ Kernel: ``csrc/adam_precond.cu`` replaces the Pallas kernel at
 ``pallas_call`` :166). It is bound by bytes: 24 B per element for f32 g
 (22 B for bf16 g), plus 8 B of health output. The source note says how the
 design follows from that, and how the (2,) health accumulator is reduced
-without the TPU's in-order grid. The parameter-writing ``fused_adam`` (B6)
-is not ported yet.
+without the TPU's in-order grid.
+
+B6 ``fused_adam``, the parameter-writing AdamW, is the same elementwise pass
+(``repro_fused_adam`` in ``csrc/adam_precond.cu``) with a parameter write,
+replacing the Pallas kernel at ``repro/kernels/fused_adam.py:58`` (body
+``_adam_kernel`` :42, ``pallas_call`` :79). Bound by bytes: p, g, m, v read
+and p', m', v' written, 28 B per f32 element (7 passes). Its step count is
+a Python int, as in the JAX entry points, so the bias corrections are host
+floats (rounded in f32 as :func:`bias_corrections` rounds them) and no
+launch forms them.
 """
 from __future__ import annotations
 
@@ -23,6 +31,9 @@ _THREADS = 256
 _MAX_BLOCKS = 132 * 16
 _ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 9 + [build.SIZE] * 2 + [build.F32] * 5 + [build.PTR])
 G_DTYPES = (torch.float32, torch.bfloat16)
+P_DTYPES = (torch.float32, torch.bfloat16)
+_FUSED_ARGTYPES = [build.PTR, build.INT, build.PTR, build.INT] + [build.PTR] * 5 + [build.SIZE] * 2 \
+    + [build.F32] * 9 + [build.PTR]
 
 
 def bias_corrections(b1: float, b2: float, count: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -31,6 +42,22 @@ def bias_corrections(b1: float, b2: float, count: torch.Tensor) -> Tuple[torch.T
     c = count.to(torch.float32)
     one = torch.ones((), dtype=torch.float32, device=c.device)
     return (one - torch.full_like(c, b1) ** c, one - torch.full_like(c, b2) ** c)
+
+
+def host_bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
+    """:func:`bias_corrections` for a step count known on the host (the
+    parameter-writing kernels' static ``count``), as Python floats holding
+    the f32-rounded values."""
+    bc1, bc2 = bias_corrections(b1, b2, torch.tensor(int(count)))
+    return float(bc1), float(bc2)
+
+
+def param_step(p: torch.Tensor, u: torch.Tensor, *, lr: float, wd: float) -> torch.Tensor:
+    """p' = p - lr * (u + wd * p) in f32 (the wd term only when wd != 0, as
+    the JAX kernels add it), cast to p's dtype."""
+    p32 = p.float()
+    upd = u + wd * p32 if wd else u
+    return (p32 - lr * upd).to(p.dtype)
 
 
 def health_terms(g: torch.Tensor) -> torch.Tensor:
@@ -88,3 +115,41 @@ def adam_precond(g, m, v, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e
 
 
 adam_precond.launches = 0
+
+
+def fused_adam_plain(p, g, m, v, *, lr, b1, b2, eps, wd, bc1, bc2):
+    """Plain PyTorch version of :func:`fused_adam`, in the kernel's
+    operation order; ``bc1``/``bc2`` are the bias corrections."""
+    u, m_new, v_new = adam_precond_plain(g, m, v, bc1, bc2, b1=b1, b2=b2, eps=eps)
+    return param_step(p, u, lr=lr, wd=wd), m_new, v_new
+
+
+def fused_adam(p, g, m, v, *, lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: float = 0.0,
+               count: int = 1):
+    """AdamW that writes the parameters: (p, g, m, v) -> (p', m', v') for one
+    leaf of any shape. p and g are f32 or bf16, m and v f32; p' has p's
+    dtype, m' and v' are f32. ``count`` is the step count (an int).
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    if not (p.shape == g.shape == m.shape == v.shape):
+        raise ValueError(f"fused_adam: want p, g, m, v of one shape; got "
+                         f"{[tuple(t.shape) for t in (p, g, m, v)]}")
+    device = build.check_operands("fused_adam", dtypes={"p": P_DTYPES, "g": G_DTYPES}, p=p, g=g, m=m, v=v)
+    bc1, bc2 = host_bias_corrections(b1, b2, count)
+    if device.type == "cpu":
+        return fused_adam_plain(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd, bc1=bc1, bc2=bc2)
+    p_out = torch.empty_like(p)
+    m_out = torch.empty(p.shape, dtype=torch.float32, device=device)
+    v_out = torch.empty_like(m_out)
+    n = p.numel()
+    if n == 0:
+        return p_out, m_out, v_out
+    blocks = max(1, min(-(-n // (4 * _THREADS)), _MAX_BLOCKS))
+    fn = build.entry("repro_fused_adam", _FUSED_ARGTYPES)
+    build.launch("fused_adam", fn, device, p.data_ptr(), int(p.dtype == torch.bfloat16), g.data_ptr(),
+                 int(g.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(), p_out.data_ptr(), m_out.data_ptr(),
+                 v_out.data_ptr(), n, blocks, lr, wd, bc1, bc2, b1, 1.0 - b1, b2, 1.0 - b2, eps)
+    fused_adam.launches += 1
+    return p_out, m_out, v_out
+
+
+fused_adam.launches = 0

@@ -1,5 +1,7 @@
 """Canonical layouts and the per-leaf dispatch plan (port of the shape logic
-in ``repro/kernels/ops.py``), plus ``snr_op`` and ``snr_partial_op``.
+in ``repro/kernels/ops.py``), plus ``snr_op`` and ``snr_partial_op`` and the
+parameter-writing entry points ``fused_adam_op``, ``slim_update_op`` and
+``slim_update_nd`` (``ops.py:272-335``).
 
 The slim and SNR kernels work on one batched canonical form ``(B, R, C)``
 with the reduction along C (``axis=1``, minor: rows are lines) or along R
@@ -146,3 +148,68 @@ def snr_partial_op(v: torch.Tensor, *, axis: int = 1):
     rebases to a mesh-common shift and sums across the owning ranks."""
     v3 = v if v.ndim == 3 else v[None]
     return tuple(o.reshape(-1) for o in snr_stats_centered_partial_batched(v3, axis=axis))
+
+
+# ---------------------------------------------------------------------------
+# Parameter-writing entry points (B6, B7)
+# ---------------------------------------------------------------------------
+# fused_adam and slim_update import megaplan, which imports this module, so
+# they are imported where they are called.
+
+
+def fused_adam_op(p, g, m, v, *, lr, b1=0.9, b2=0.95, eps=1e-8, wd=0.0, count=1):
+    """AdamW that writes the parameters, for a leaf of any shape (viewed 2-D
+    as ``(-1, last)``, as the JAX op does): (p', m', v') through B6."""
+    from .fused_adam import fused_adam
+
+    shape = p.shape
+    p2 = p.reshape(-1, shape[-1]) if p.ndim != 2 else p
+    outs = fused_adam(p2, g.reshape(p2.shape), m.reshape(p2.shape), v.reshape(p2.shape), lr=lr, b1=b1, b2=b2,
+                      eps=eps, wd=wd, count=count)
+    return tuple(o.reshape(shape) for o in outs)
+
+
+def slim_update_op(p, g, m, v_red, *, axis: int, lr, b1=0.9, b2=0.95, eps=1e-8, wd=0.0, count=1):
+    """2-D parameters; ``axis`` is the compressed (reduced) dim, and v_red
+    keeps it as size 1 (the SlimAdam state layout). axis 0 runs the major
+    (column-line) form of B7, axis 1 the minor one; neither transposes."""
+    from .slim_update import slim_update, slim_update_major
+
+    if p.ndim != 2 or axis not in (0, 1):
+        raise ValueError(f"slim_update_op: want a 2-D leaf and axis 0|1, got {tuple(p.shape)}, axis {axis}")
+    fn = slim_update_major if axis == 0 else slim_update
+    return fn(p, g, m, v_red, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd, count=count)
+
+
+def slim_update_nd(p, g, m, v_red, *, dims: Tuple[int, ...], lr, b1=0.9, b2=0.95, eps=1e-8, wd=0.0, count=1):
+    """n-D parameters, any reduction-dims subset (the general SlimAdam
+    spec); ``v_red`` keeps the reduced axes as size 1. :func:`leaf_plan`
+    picks the batched (B, R, C) view (reshape-only where memory order
+    allows, the batched-major form for scan-stacked leaves) and B7 runs on
+    it; the layout is restored after. Leaves the plan declines (scalar,
+    empty or non-float leaves, and K = ()) take the JAX package's own
+    semantics in plain torch, as its ``slim_update_nd`` does: that is the
+    route for those leaves, not a fallback on failure."""
+    from .fused_adam import host_bias_corrections, param_step
+    from .slim_update import slim_update_batched
+
+    dims = tuple(dims)
+    plan = leaf_plan(tuple(p.shape), p.dtype, dims)
+    if plan.route != "slim":
+        g32 = g.float()
+        m_new = b1 * m + (1 - b1) * g32
+        ek = torch.mean(torch.square(g32), dim=dims, keepdim=True) if dims else torch.square(g32)
+        v_new = b2 * v_red + (1 - b2) * ek
+        bc1, bc2 = host_bias_corrections(b1, b2, count)
+        update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        return param_step(p, update, lr=lr, wd=wd), m_new, v_new
+    cn = plan.cn
+    p3, g3, m3 = (canon_apply(t, cn).contiguous() for t in (p, g, m))
+    v3 = canon_apply(v_red, cn, reduced_cols=True).contiguous()
+    if p3.ndim == 2:
+        p3, g3, m3, v3 = p3[None], g3[None], m3[None], v3[None]
+    po, mo, vo = slim_update_batched(p3, g3, m3, v3, axis=cn.axis, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd,
+                                     count=count)
+    if cn.batch == 1:
+        po, mo, vo = po[0], mo[0], vo[0]
+    return (canon_restore(po, cn, p.shape), canon_restore(mo, cn, m.shape), canon_restore(vo, cn, v_red.shape))

@@ -1,12 +1,50 @@
-"""O(kept) finalisation and cross-shard algebra shared by the SNR paths
-(port of the part of ``repro/kernels/ref.py`` the main path uses). The
-kernels' plain twins live beside their wrappers (``megaplan.py``,
-``slim_update.py``, ``snr_stats.py``)."""
+"""Plain oracles of the parameter-writing steps and the plain line stats,
+and the O(kept) finalisation and cross-shard algebra shared by the SNR
+paths (port of ``repro/kernels/ref.py``). The kernels' plain twins, which
+follow each kernel's operation order, live beside their wrappers
+(``fused_adam.py``, ``megaplan.py``, ``slim_update.py``, ``snr_stats.py``,
+``ssm_scan.py``); these follow the optimizer's formulas, as the JAX ones
+do."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+
+def adam_update_ref(p, g, m, v, *, lr: float, b1: float, b2: float, eps: float, wd: float, count: int):
+    """Dense fused AdamW step (``repro/kernels/ref.py:13``): returns
+    (p', m', v'), f32 state, p' in p's dtype. The bias corrections are
+    Python floats, as the JAX oracle computes them."""
+    g32 = g.float()
+    m_new = b1 * m + (1 - b1) * g32
+    v_new = b2 * v + (1 - b2) * torch.square(g32)
+    bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if wd:
+        update = update + wd * p.float()
+    return (p.float() - lr * update).to(p.dtype), m_new, v_new
+
+
+def slim_update_ref(p, g, m, v_row, *, lr: float, b1: float, b2: float, eps: float, wd: float, count: int):
+    """SlimAdam step with the second moment compressed along axis 1
+    (``repro/kernels/ref.py:28``): p, g, m (R, C); v_row (R, 1).
+    V <- b2 V + (1 - b2) mean_C[g^2], broadcast in the preconditioner."""
+    g32 = g.float()
+    m_new = b1 * m + (1 - b1) * g32
+    ek = torch.mean(torch.square(g32), dim=1, keepdim=True)
+    v_new = b2 * v_row + (1 - b2) * ek
+    bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if wd:
+        update = update + wd * p.float()
+    return (p.float() - lr * update).to(p.dtype), m_new, v_new
+
+
+def snr_stats_ref(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (sum, sum of squares) over axis 1 (``repro/kernels/ref.py:48``)."""
+    v32 = v.float()
+    return torch.sum(v32, dim=1), torch.sum(torch.square(v32), dim=1)
 
 
 def snr_from_centered_stats(s1: torch.Tensor, s1c: torch.Tensor, s2c: torch.Tensor,

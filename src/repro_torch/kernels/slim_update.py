@@ -12,8 +12,16 @@ f32 or bf16 g) replaces the Pallas kernel at
 bf16 g) plus 8 B per line, 8 B more per line with ``with_snr``. Its (2,)
 health accumulator is the per-line health outputs reduced by a second small
 launch, not the TPU kernel's in-order grid accumulation
-(``slim_update.py:118-129``). The parameter-writing ``slim_update_batched``
-(B7) is not ported yet.
+(``slim_update.py:118-129``).
+
+B7 ``slim_update_batched`` (and its 2-D wrappers ``slim_update`` /
+``slim_update_major``), the parameter-writing SlimAdam, is the WRITE
+instantiation of the same line walk (``repro_slim_update`` in
+``csrc/mega_slim.cu``), replacing the Pallas kernel at
+``repro/kernels/slim_update.py:74`` (body ``_slim_kernel`` :56,
+``pallas_call`` :103). Bound by bytes: p, g, m read and p', m' written, 20 B
+per f32 element, plus 8 B per line. Its step count is a Python int, so the
+bias corrections are host floats and no launch forms them.
 
 The psum pair, for a leaf whose reduction dims are split across ranks:
 
@@ -33,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .fused_adam import G_DTYPES, bias_corrections, health_terms
+from .fused_adam import G_DTYPES, P_DTYPES, bias_corrections, health_terms, host_bias_corrections, param_step
 from .megaplan import check_slim_grid, mega_slim_update_batched_plain, slim_line_shape
 from .snr_stats import centered_line_stats
 
@@ -108,6 +116,73 @@ def slim_precond_major(g, m, v_col, **kw):
     (u, m', v_col') (plus the flags' outputs with their batch dim dropped)."""
     outs = slim_precond_batched(g[None], m[None], v_col[None], axis=0, **kw)
     return tuple(o if o.ndim == 1 else o[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# The parameter-writing form (B7)
+# ---------------------------------------------------------------------------
+
+_UPDATE_ARGTYPES = ([build.PTR, build.INT, build.PTR, build.INT] + [build.PTR] * 5 + [build.SIZE] * 3
+                    + [build.INT] + [build.F32] * 10 + [build.PTR])
+
+
+def slim_update_batched_plain(p, g, m, v_line, *, axis, lr, b1, b2, eps, wd, bc1, bc2):
+    """Plain PyTorch version of :func:`slim_update_batched`: the precondition
+    form's plain version, then p' = p - lr * (u + wd * p)."""
+    u, m_new, v_new = mega_slim_update_batched_plain(g.float(), m, v_line, bc1, bc2, axis=axis, b1=b1, b2=b2,
+                                                     eps=eps)
+    return param_step(p, u, lr=lr, wd=wd), m_new, v_new
+
+
+def slim_update_batched(p, g, m, v_line, *, axis: int, lr: float, b1: float = 0.9, b2: float = 0.95,
+                        eps: float = 1e-8, wd: float = 0.0, count: int = 1):
+    """Batched SlimAdam step that writes the parameters, on the (B, R, C)
+    canonical form: (p, g, m, v_line) -> (p', m', v').
+
+    p, g, m: (B, R, C), p and g f32 or bf16, m f32; v_line (B, R, 1) f32 for
+    ``axis=1`` (reduce over C) or (B, 1, C) for ``axis=0`` (reduce over R).
+    p' has p's dtype. ``count`` is the step count (an int). CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    if p.ndim != 3 or axis not in (0, 1):
+        raise ValueError(f"slim_update_batched: want (B, R, C) and axis 0|1, got {tuple(p.shape)}, axis {axis}")
+    line = slim_line_shape(p, axis)
+    if not (g.shape == m.shape == p.shape) or v_line.shape != line:
+        raise ValueError(f"slim_update_batched: want g, m {tuple(p.shape)} and v_line {line}; got "
+                         f"{tuple(g.shape)}, {tuple(m.shape)}, {tuple(v_line.shape)}")
+    device = build.check_operands("slim_update_batched", dtypes={"p": P_DTYPES, "g": G_DTYPES}, p=p, g=g, m=m,
+                                  v_line=v_line)
+    bc1, bc2 = host_bias_corrections(b1, b2, count)
+    if device.type == "cpu":
+        return slim_update_batched_plain(p, g, m, v_line, axis=axis, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd,
+                                         bc1=bc1, bc2=bc2)
+    check_slim_grid("slim_update_batched", p, axis)
+    b, r, c = p.shape
+    p_out = torch.empty_like(p)
+    m_out = torch.empty(p.shape, dtype=torch.float32, device=device)
+    v_out = torch.empty_like(v_line)
+    n_red = c if axis == 1 else r
+    fn = build.entry("repro_slim_update", _UPDATE_ARGTYPES)
+    build.launch("slim_update_batched", fn, device, p.data_ptr(), int(p.dtype == torch.bfloat16), g.data_ptr(),
+                 int(g.dtype == torch.bfloat16), m.data_ptr(), v_line.data_ptr(), p_out.data_ptr(),
+                 m_out.data_ptr(), v_out.data_ptr(), b, r, c, axis, 1.0 / n_red, lr, wd, bc1, bc2, b1, 1.0 - b1,
+                 b2, 1.0 - b2, eps)
+    slim_update_batched.launches += 1
+    return p_out, m_out, v_out
+
+
+slim_update_batched.launches = 0
+
+
+def slim_update(p, g, m, v_row, **kw):
+    """2-D minor form: p, g, m (R, C); v_row (R, 1) reduced over C. Returns
+    (p', m', v_row')."""
+    return tuple(o[0] for o in slim_update_batched(p[None], g[None], m[None], v_row[None], axis=1, **kw))
+
+
+def slim_update_major(p, g, m, v_col, **kw):
+    """2-D major form: p, g, m (R, C); v_col (1, C) reduced over R. Returns
+    (p', m', v_col')."""
+    return tuple(o[0] for o in slim_update_batched(p[None], g[None], m[None], v_col[None], axis=0, **kw))
 
 
 # ---------------------------------------------------------------------------

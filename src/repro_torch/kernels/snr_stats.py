@@ -9,7 +9,11 @@ Kernels: ``csrc/snr_stats.cu`` replaces the Pallas kernels at
 and ``:152`` (B9, body ``_snr_centered_partial_kernel`` :89), both launched
 by ``_stats_call`` (``pallas_call`` :116). Both are bound by bytes: one
 4-byte read per element, 12 bytes written per line (16 with B9's shift).
-The source note there says how the design follows from that.
+The source note there says how the design follows from that. B8
+``snr_stats_batched`` (plain per-line sum and sum of squares, and its 2-D
+wrapper ``snr_stats``) is the PLAIN form of the same line walk, replacing
+``repro/kernels/snr_stats.py:126`` (body ``_snr_kernel`` :75, through
+``_stats_call``); bound by bytes, 4 B per element and 8 B per line.
 """
 from __future__ import annotations
 
@@ -122,3 +126,41 @@ def snr_stats_centered_partial_batched(v: torch.Tensor, *, axis: int) -> Tuple[t
 
 
 snr_stats_centered_partial_batched.launches = 0
+
+
+_PLAIN_ARGTYPES = [build.PTR] * 3 + [build.SIZE] * 3 + [build.INT, build.PTR]
+
+
+def snr_stats_batched_plain(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`snr_stats_batched`: v*v rounded in f32
+    as the TPU kernel squares, the sums in f64 as the CUDA kernel's run."""
+    red = 2 if axis == 1 else 1
+    return v.double().sum(red).float(), (v * v).double().sum(red).float()
+
+
+def snr_stats_batched(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v: (B, R, C) f32 -> (line_sum, line_sumsq), each (B, kept), kept = R
+    for ``axis=1`` and C for ``axis=0``. CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    if _check_view("snr_stats_batched", v, axis).type == "cpu":
+        return snr_stats_batched_plain(v, axis=axis)
+    if v.numel() == 0:
+        raise ValueError("snr_stats_batched: empty lines have no statistics")
+    b, r, c = v.shape
+    if (axis == 1 and b * r > _MAX_GRID_X) or (axis == 0 and b > _MAX_GRID_Y):
+        raise ValueError(f"snr_stats_batched: shape {tuple(v.shape)} exceeds the launch grid")
+    kept = r if axis == 1 else c
+    s1, s2 = (torch.empty((b, kept), dtype=torch.float32, device=v.device) for _ in range(2))
+    fn = build.entry("repro_snr_stats", _PLAIN_ARGTYPES)
+    build.launch("snr_stats_batched", fn, v.device, v.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, r, c, axis)
+    snr_stats_batched.launches += 1
+    return s1, s2
+
+
+snr_stats_batched.launches = 0
+
+
+def snr_stats(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v: (R, C) -> (row_sum (R,), row_sumsq (R,))."""
+    s1, s2 = snr_stats_batched(v[None], axis=1)
+    return s1[0], s2[0]

@@ -1,6 +1,6 @@
-"""Attention: the training forward and the paged serving path (port of
-``repro/models/attention.py``: dense path, RoPE, GQA, paged decode and
-chunked prefill).
+"""Attention: the training forward, the legacy decode step and the paged
+serving path (port of ``repro/models/attention.py``: dense path, RoPE, GQA,
+``KVCache`` and ``attention_decode``, paged decode and chunked prefill).
 
 Projections are stored 3-D, ``(embed, heads, head_dim)``, exactly as in the
 JAX model, so SlimAdam's head-stacked dims and the megaplan groups match.
@@ -12,11 +12,17 @@ The paged path keeps each layer's KV cache in a page pool of the fused layout
 through :func:`repro_torch.kernels.paged_attention.paged_attention`. Where
 the JAX functions return a new pool, these write the new rows into the given
 pool in place (``index_put_``), so serving holds one pool set and no copy.
+
+The legacy decode step keeps a dense ``(B, S_max, KV, hd)`` cache per layer
+(:class:`KVCache`) and attends over all of it, masked beyond the fill
+length, as the JAX function does; it writes the new position in place. The
+int8 form (``kv_quant``) is not ported yet and raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -104,6 +110,61 @@ def attention_forward(p, x: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
     n_rep = cfg.n_heads // cfg.n_kv_heads
     out = dense_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), causal=cfg.causal)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Legacy decode path: a dense cache per request row
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    """Per-attention-layer decode cache. k/v: (B, S_max, KV, hd); index: 0-d
+    int32 tensor, the fill length. (The JAX cache's int8 scales belong to
+    ``kv_quant``, which is not ported.)"""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: torch.Tensor
+
+
+def init_kv_cache(batch: int, max_seq: int, n_kv: int, head_dim: int, dtype=torch.bfloat16, *, quant: bool = False,
+                  device=None) -> KVCache:
+    if quant:
+        raise NotImplementedError("the int8 KV cache (kv_quant) is not ported yet")
+    return KVCache(k=torch.zeros((batch, max_seq, n_kv, head_dim), dtype=dtype, device=device),
+                   v=torch.zeros((batch, max_seq, n_kv, head_dim), dtype=dtype, device=device),
+                   index=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def attention_decode(p, x: torch.Tensor, cache: KVCache, cfg: AttnConfig) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode: x (B, 1, D); the cache holds ``index`` previous
+    positions. Writes the new K/V at position ``index`` into the cache's
+    tensors in place, then attends over positions ``<= index`` in f32
+    (grouped queries against the whole cache, masked beyond). Returns
+    (y (B, 1, D), the cache with ``index + 1``)."""
+    b, s1, _ = x.shape
+    if s1 != 1:
+        raise ValueError(f"attention_decode takes one token per row, got {s1}")
+    pos = cache.index.long()
+    rope_sincos = None
+    if cfg.rope:
+        rope_sincos = rotary_embedding(pos[None], cfg.head_dim, cfg.rope_base)
+    q, k_new, v_new = _project_qkv(p, x, rope_sincos)
+    cache.k.index_copy_(1, pos[None], k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, pos[None], v_new.to(cache.v.dtype))
+
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    s_max = cache.k.shape[1]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    qg = q.reshape(b, 1, cfg.n_kv_heads, n_rep, cfg.head_dim).float() * scale
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, cache.k.float())
+    valid = torch.arange(s_max, device=x.device) <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache.v.float())
+    out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(x.dtype)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return y, cache._replace(index=cache.index + 1)
 
 
 # ---------------------------------------------------------------------------

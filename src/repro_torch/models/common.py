@@ -2,10 +2,12 @@
 
 Every parameter is declared by a :class:`ParamSpec` carrying its logical axes
 and paper role, which feed ``repro_torch.core`` (rules, SNR). Initializers
-draw from a ``torch.Generator`` on the CPU and are moved to the target
-device afterwards, so a seed gives the same weights on every device. They do
-not reproduce JAX's random bits: tests carry JAX parameters across with
-``repro_torch.convert`` and compare the port's own init by statistics.
+draw from a ``torch.Generator`` on the generator's device and are moved to
+the target device afterwards: a CPU generator gives the same weights on
+every device, and a CUDA generator initialises a large model on the card
+without a host copy. They do not reproduce JAX's random bits: tests carry
+JAX parameters across with ``repro_torch.convert`` and compare the port's
+own init by statistics.
 """
 from __future__ import annotations
 
@@ -22,7 +24,15 @@ Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.dtype], torch.Te
 
 def normal_init(std: float = 0.02) -> Initializer:
     def init(gen, shape, dtype):
-        return (torch.randn(shape, generator=gen) * std).to(dtype)
+        return (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
+
+    return init
+
+
+def uniform_init(bound: float) -> Initializer:
+    """U(-bound, bound)."""
+    def init(gen, shape, dtype):
+        return ((torch.rand(shape, generator=gen, device=gen.device) * 2.0 - 1.0) * bound).to(dtype)
 
     return init
 
@@ -33,7 +43,15 @@ def mitchell_residual_init(std: float, n_layers: int) -> Initializer:
 
 
 def ones_init() -> Initializer:
-    return lambda gen, shape, dtype: torch.ones(shape, dtype=dtype)
+    return lambda gen, shape, dtype: torch.ones(shape, dtype=dtype, device=gen.device)
+
+
+def zeros_init() -> Initializer:
+    return lambda gen, shape, dtype: torch.zeros(shape, dtype=dtype, device=gen.device)
+
+
+def constant_init(v: float) -> Initializer:
+    return lambda gen, shape, dtype: torch.full(shape, v, dtype=dtype, device=gen.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +87,12 @@ def stack_specs(spec_tree: Dict[str, Any], n: int) -> Dict[str, Any]:
             return {k: stack(v) for k, v in s.items()}
 
         def init(gen, shape, dtype, s=s):
-            return torch.stack([s.init(gen, s.shape, dtype) for _ in range(n)])
+            # Filled layer by layer: the same values as stacking the draws,
+            # without holding them twice (a 7B model's stacked in_proj is 17 GB).
+            out = torch.empty((n,) + tuple(s.shape), dtype=dtype, device=gen.device)
+            for i in range(n):
+                out[i] = s.init(gen, s.shape, dtype)
+            return out
 
         return ParamSpec(shape=(n,) + s.shape, axes=("layers",) + s.axes, role=s.role, init=init,
                          fan_in=s.fan_in, fan_out=s.fan_out, dtype=s.dtype)

@@ -1,0 +1,172 @@
+"""Mamba-1 selective-state-space block, the falcon-mamba mixer (port of
+``repro/models/ssm.py``: the forward, decode and cache; the backward and the
+explicit tensor-parallel form are later slices).
+
+The JAX package computes the recurrence as a chunked associative scan; here
+it is :func:`selective_scan`, whose forward runs the hand-written selective
+scan kernel (``repro_torch.kernels.ssm_scan``) for CUDA tensors: one pass
+over the sequence with the state in registers, summing in sequential
+order, so the two packages agree to f32 rounding. One kernel serves the
+training-shaped forward and the one-token decode step (S = 1, the state
+from the cache).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from .common import ParamSpec, constant_init, normal_init, ones_init, uniform_init, zeros_init
+
+SCAN_IMPLS = ("kernel", "plain")
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_model: int
+    d_inner: int
+    d_state: int = 16
+    d_conv: int = 4
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
+    @property
+    def rank(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
+
+def _a_log_init():
+    def init(gen, shape, dtype):
+        # S4D-real init: A = -(1..d_state) per channel
+        d_inner, d_state = shape
+        a = torch.arange(1, d_state + 1, dtype=torch.float32, device=gen.device).expand(d_inner, d_state)
+        return torch.log(a).to(dtype)
+
+    return init
+
+
+def _dt_proj_init(rank: int):
+    """U(-rank^-1/2, rank^-1/2)."""
+    return uniform_init(rank ** -0.5)
+
+
+def ssm_specs(cfg: SSMConfig, *, w_init, out_init):
+    d, di, n, r = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.rank
+    return {
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "d_inner"), "ssm_in", w_init,
+                             fan_in=("embed",), fan_out=("d_inner",)),
+        "conv_w": ParamSpec((di, cfg.d_conv), ("d_inner", "conv_w"), "ssm_conv", normal_init(0.02)),
+        "conv_b": ParamSpec((di,), ("d_inner",), "bias", zeros_init()),
+        "x_proj": ParamSpec((di, r + 2 * n), ("d_inner", "dt_rank"), "ssm_x", w_init,
+                            fan_in=("d_inner",), fan_out=("dt_rank",)),
+        "dt_proj": ParamSpec((r, di), ("dt_rank", "d_inner"), "ssm_dt", _dt_proj_init(r),
+                             fan_in=("dt_rank",), fan_out=("d_inner",)),
+        "dt_bias": ParamSpec((di,), ("d_inner",), "bias", constant_init(math.log(math.e - 1) * 0.01 + 0.0)),
+        "a_log": ParamSpec((di, n), ("d_inner", "state"), "ssm_a", _a_log_init()),
+        "d_skip": ParamSpec((di,), ("d_inner",), "ssm_d", ones_init()),
+        "out_proj": ParamSpec((di, d), ("d_inner", "embed"), "ssm_out", out_init,
+                              fan_in=("d_inner",), fan_out=("embed",)),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, history: Optional[torch.Tensor] = None):
+    """Depthwise causal conv by shifted adds, its K taps summed in f32 in
+    order (``repro/models/ssm.py:86-89``). x: (B, S, di); w: (di, K);
+    ``history``: (B, K-1, di) previous inputs (decode). Returns (out in x's
+    dtype, the new history)."""
+    bsz, s, di = x.shape
+    k = w.shape[1]
+    if history is None:
+        history = torch.zeros((bsz, k - 1, di), dtype=x.dtype, device=x.device)
+    xp = torch.cat([history.to(x.dtype), x], dim=1)  # (B, S+K-1, di)
+    wf = w.float()
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        out = out + xp[:, i:i + s, :].float() * wf[:, i]
+    out = out + b.float()
+    new_hist = xp[:, -(k - 1):, :] if k > 1 else history
+    return out.to(x.dtype), new_hist
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The JAX package's ``custom_vjp`` around the scan: the forward is
+    kernel B15 (or its plain twin); the backward is the next slice's."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_t, c_t, d_skip, h0, impl):
+        scan = ssm_scan if impl == "kernel" else ssm_scan_plain
+        y, h_final = scan(x, dt, a, b_t, c_t, d_skip, h0)
+        return y.to(x.dtype), h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        raise NotImplementedError("the backward of selective_scan is not ported yet: porting "
+                                  "repro/models/ssm.py _selective_scan_bwd is the next slice, where training "
+                                  "the SSM family starts")
+
+
+def selective_scan(x, dt, a, b_t, c_t, d_skip, h0, *, impl: str = "kernel"):
+    """x, dt: (B, S, di); a: (di, N); b_t, c_t: (B, S, N); h0: (B, di, N).
+    Returns (y (B, S, di) in x's dtype, h_final (B, di, N) f32), as
+    ``repro/models/ssm.py:140`` (whose ``chunk`` argument sizes the JAX
+    scan's chunks; the kernel walks the whole sequence and takes none).
+    CUDA tensors run kernel B15, CPU
+    tensors its plain twin; ``impl="plain"`` picks the twin on any device,
+    an explicit choice for comparisons. The backward raises
+    ``NotImplementedError``."""
+    if impl not in SCAN_IMPLS:
+        raise ValueError(f"impl must be one of {SCAN_IMPLS}, got {impl!r}")
+    dt = dt.float().contiguous()
+    a = a.float().contiguous()
+    d_skip = d_skip.float().contiguous()
+    h0 = h0.float().contiguous()
+    return _SelectiveScan.apply(x.contiguous(), dt, a, b_t.contiguous(), c_t.contiguous(), d_skip, h0, impl)
+
+
+class SSMCache(NamedTuple):
+    conv: torch.Tensor  # (B, d_conv-1, d_inner), activation dtype
+    h: torch.Tensor     # (B, d_inner, d_state), f32
+
+
+def init_ssm_cache(batch: int, cfg: SSMConfig, dtype=torch.float32, device=None) -> SSMCache:
+    return SSMCache(conv=torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+                    h=torch.zeros((batch, cfg.d_inner, cfg.d_state), dtype=torch.float32, device=device))
+
+
+def _ssm_inner(p, x: torch.Tensor, cfg: SSMConfig, conv_hist, h0, impl: str = "kernel"):
+    """Shared forward core. x: (B, S, D). Returns (out, new conv history,
+    final state)."""
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
+    xb, z = xz.chunk(2, dim=-1)
+    xb, new_hist = _causal_conv(xb, p["conv_w"], p["conv_b"], conv_hist)
+    xb = F.silu(xb)
+
+    proj = torch.einsum("bsd,dr->bsr", xb, p["x_proj"].to(xb.dtype))
+    r = cfg.rank
+    dt_lr, b_t, c_t = torch.split(proj, [r, cfg.d_state, cfg.d_state], dim=-1)
+    dt = torch.einsum("bsr,rd->bsd", dt_lr, p["dt_proj"].to(xb.dtype))
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    a = -torch.exp(p["a_log"].float())
+
+    y, h_final = selective_scan(xb, dt, a, b_t, c_t, p["d_skip"], h0, impl=impl)
+    y = y * F.silu(z)
+    out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(x.dtype))
+    return out, new_hist, h_final
+
+
+def ssm_forward(p, x: torch.Tensor, cfg: SSMConfig, *, impl: str = "kernel") -> torch.Tensor:
+    """The mixer over a whole sequence, from a zero state. x: (B, S, D)."""
+    h0 = torch.zeros((x.shape[0], cfg.d_inner, cfg.d_state), dtype=torch.float32, device=x.device)
+    out, _, _ = _ssm_inner(p, x, cfg, None, h0, impl)
+    return out
+
+
+def ssm_decode(p, x: torch.Tensor, cache: SSMCache, cfg: SSMConfig, *,
+               impl: str = "kernel") -> Tuple[torch.Tensor, SSMCache]:
+    """x: (B, 1, D): one O(1) state-space decode step. Returns (out, the new
+    cache); the given cache is not written."""
+    out, new_hist, h_final = _ssm_inner(p, x, cfg, cache.conv, cache.h, impl)
+    return out, SSMCache(conv=new_hist, h=h_final)

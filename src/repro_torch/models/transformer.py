@@ -1,6 +1,7 @@
 """Decoder backbone (port of ``repro/models/transformer.py``: the training
-forward and the paged serving steps for the ``pattern=(attn, dense)``
-family, gpt_small and smollm_135m).
+forward, the legacy decode step with its ``DecodeCache``, and the paged
+serving steps, for layer slots ``(attn, dense)`` (gpt_small, smollm_135m)
+and ``(mamba, None)`` (falcon_mamba_7b)).
 
 The parameter tree is JAX's, leaf for leaf: dotted names
 (``blocks.slot_0.attn.wq``), layers stacked along a leading ``layers`` axis
@@ -22,10 +23,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import (
     AttnConfig,
+    attention_decode,
     attention_forward,
     attention_paged_decode,
     attention_paged_prefill,
     attention_specs,
+    init_kv_cache,
 )
 from .common import (
     ParamSpec,
@@ -39,12 +42,16 @@ from .common import (
     stack_specs,
 )
 from .mlp_moe import mlp_forward, mlp_specs
+from .ssm import SSMConfig, init_ssm_cache, ssm_decode, ssm_forward, ssm_specs
+
+# The layer slots ported so far: (mixer, ffn).
+PORTED_SLOTS = (("attn", "dense"), ("mamba", None))
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSlot:
-    mixer: Optional[str]  # 'attn' (ported) | 'mamba'
-    ffn: Optional[str]    # 'dense' (ported) | 'moe'
+    mixer: Optional[str]  # 'attn' | 'mamba' (ported) | None
+    ffn: Optional[str]    # 'dense' (ported) | 'moe' | None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,16 +67,21 @@ class ModelConfig:
     pattern: Tuple[LayerSlot, ...] = (LayerSlot("attn", "dense"),)
     causal: bool = True
     tie_embeddings: bool = True
-    pos: str = "rope"                    # 'rope' | 'learned'
+    pos: str = "rope"                    # 'rope' | 'learned' | 'none'
     max_position: int = 8192
     norm: str = "rmsnorm"                # 'rmsnorm' | 'layernorm'
     gated_mlp: bool = True
     qkv_bias: bool = False
+    # SSM
+    ssm_state: int = 16
+    ssm_expand: int = 2
+    ssm_conv: int = 4
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
     init_scheme: str = "mitchell"
     attn_dense_threshold: int = 2048
+    kv_quant: bool = False               # int8 KV cache (serving): not ported yet
 
     @property
     def hd(self) -> int:
@@ -86,6 +98,10 @@ class ModelConfig:
                           head_dim=self.hd, causal=self.causal, rope=(self.pos == "rope"),
                           qkv_bias=self.qkv_bias, dense_threshold=self.attn_dense_threshold)
 
+    def ssm_cfg(self) -> SSMConfig:
+        return SSMConfig(d_model=self.d_model, d_inner=self.ssm_expand * self.d_model, d_state=self.ssm_state,
+                         d_conv=self.ssm_conv)
+
     def _inits(self):
         if self.init_scheme != "mitchell":
             raise NotImplementedError(f"init_scheme {self.init_scheme!r} is not ported yet")
@@ -96,17 +112,24 @@ class ModelConfig:
         return {"scale": ParamSpec((self.d_model,), ("embed",), "norm", ones_init(), dtype=self.param_dtype)}
 
     def slot_specs(self, slot: LayerSlot) -> Dict[str, Any]:
-        if slot != LayerSlot("attn", "dense"):
+        if (slot.mixer, slot.ffn) not in PORTED_SLOTS:
             raise NotImplementedError(f"layer slot {slot} is not ported yet")
         w_init, resid_init, _ = self._inits()
-        return {
-            "mixer_norm": self._norm_specs(),
-            "attn": attention_specs(self.d_model, self.n_heads, self.n_kv_heads, self.hd,
-                                    qkv_bias=self.qkv_bias, o_init=resid_init, w_init=w_init),
-            "ffn_norm": self._norm_specs(),
-            "mlp": mlp_specs(self.d_model, self.d_ff, gated=self.gated_mlp, w_init=w_init,
-                             down_init=resid_init),
-        }
+
+        def with_dtype(tree):
+            return {k: dataclasses.replace(s, dtype=self.param_dtype) for k, s in tree.items()}
+
+        specs: Dict[str, Any] = {"mixer_norm": self._norm_specs()}
+        if slot.mixer == "attn":
+            specs["attn"] = with_dtype(attention_specs(self.d_model, self.n_heads, self.n_kv_heads, self.hd,
+                                                       qkv_bias=self.qkv_bias, o_init=resid_init, w_init=w_init))
+        else:
+            specs["ssm"] = with_dtype(ssm_specs(self.ssm_cfg(), w_init=w_init, out_init=resid_init))
+        if slot.ffn == "dense":
+            specs["ffn_norm"] = self._norm_specs()
+            specs["mlp"] = with_dtype(mlp_specs(self.d_model, self.d_ff, gated=self.gated_mlp, w_init=w_init,
+                                                down_init=resid_init))
+        return specs
 
     def specs(self) -> Dict[str, Any]:
         w_init, _, emb_init = self._inits()
@@ -176,25 +199,42 @@ def _unstack(tree, n: int):
     return out
 
 
-def _slot_forward(cfg: ModelConfig, p, x):
-    x = x + attention_forward(p["attn"], _norm(cfg, p["mixer_norm"], x), cfg.attn_cfg())
-    return x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp)
+def _slot_forward(cfg: ModelConfig, slot: LayerSlot, p, x, ssm_impl: str = "kernel"):
+    """One layer slot: the mixer's residual block, then the FFN's."""
+    if slot.mixer == "attn":
+        x = x + attention_forward(p["attn"], _norm(cfg, p["mixer_norm"], x), cfg.attn_cfg())
+    elif slot.mixer == "mamba":
+        x = x + ssm_forward(p["ssm"], _norm(cfg, p["mixer_norm"], x), cfg.ssm_cfg(), impl=ssm_impl)
+    if slot.ffn == "dense":
+        x = x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp)
+    return x
 
 
-def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+def _layers(cfg: ModelConfig, params: Dict[str, torch.Tensor]):
+    """(period, slot index, slot, that layer's parameters) in the JAX scan's
+    order: periods outer, the pattern's slots inner."""
+    slots = [(_unstack(_sub(params, f"blocks.slot_{i}."), cfg.n_periods), slot) for i, slot in enumerate(cfg.pattern)]
+    for period in range(cfg.n_periods):
+        for i, (per_layer, slot) in enumerate(slots):
+            yield period, i, slot, per_layer[period]
+
+
+def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], *,
+            ssm_impl: str = "kernel"):
     """Training forward. batch: {'tokens': (B, S) int}. Returns (logits
-    (B, S, vocab) in cfg.dtype, aux loss 0) like the JAX forward."""
+    (B, S, vocab) in cfg.dtype, aux loss 0) like the JAX forward.
+    ``ssm_impl="plain"`` runs the Mamba layers' scan through the kernel's
+    plain twin, an explicit choice for comparisons."""
     tokens = batch["tokens"].long()
     x = params["embed"][tokens].to(cfg.dtype)
     if cfg.pos == "learned":
         x = x + params["pos_embed"][: tokens.shape[1]][None].to(cfg.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
-    for i, _ in enumerate(cfg.pattern):
-        for p in _unstack(_sub(params, f"blocks.slot_{i}."), cfg.n_periods):
-            if remat:
-                x = checkpoint(_slot_forward, cfg, p, x, use_reentrant=False)
-            else:
-                x = _slot_forward(cfg, p, x)
+    for _, _, slot, p in _layers(cfg, params):
+        if remat:
+            x = checkpoint(_slot_forward, cfg, slot, p, x, ssm_impl, use_reentrant=False)
+        else:
+            x = _slot_forward(cfg, slot, p, x, ssm_impl)
     logits = _logits(cfg, params, x)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
@@ -232,6 +272,66 @@ class Transformer(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# Decode (the legacy serving loop)
+# ---------------------------------------------------------------------------
+
+
+class DecodeCache(NamedTuple):
+    """The legacy loop's per-request caches. ``slots``: per mixer slot, a
+    :class:`KVCache` or :class:`SSMCache` whose tensors are stacked over the
+    periods (leading dim ``n_periods``) and updated in place by
+    :func:`decode_step`; ``step``: tokens consumed so far."""
+
+    slots: Dict[str, Any]
+    step: int
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None) -> DecodeCache:
+    """Zeroed caches for ``batch`` rows of up to ``max_seq`` positions: KV
+    caches in ``dtype`` for attention slots; for Mamba slots the conv
+    history in ``dtype`` and the state in f32, as the JAX cache keeps them."""
+    slots: Dict[str, Any] = {}
+    for i, slot in enumerate(cfg.pattern):
+        if slot.mixer == "attn":
+            c = init_kv_cache(batch, max_seq, cfg.n_kv_heads, cfg.hd, dtype, quant=cfg.kv_quant, device=device)
+        elif slot.mixer == "mamba":
+            c = init_ssm_cache(batch, cfg.ssm_cfg(), dtype, device=device)
+        else:
+            continue
+        slots[f"slot_{i}"] = type(c)(*(t[None].repeat((cfg.n_periods,) + (1,) * t.ndim) for t in c))
+    return DecodeCache(slots=slots, step=0)
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor], cache: DecodeCache, tokens: torch.Tensor, *,
+                ssm_impl: str = "kernel"):
+    """One new token per row. tokens: (B, 1) int. The caches hold
+    ``cache.step`` positions. Returns (logits (B, 1, vocab), the cache with
+    ``step + 1``); each layer's cache tensors are written in place.
+    ``ssm_impl="plain"`` runs the scan's plain twin, for comparisons."""
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][cache.step][None, None].to(cfg.dtype)
+    for period, i, slot, p in _layers(cfg, params):
+        if slot.mixer in ("attn", "mamba"):
+            stacked = cache.slots[f"slot_{i}"]
+            c = type(stacked)(*(t[period] for t in stacked))
+            h = _norm(cfg, p["mixer_norm"], x)
+            if slot.mixer == "attn":
+                y, nc = attention_decode(p["attn"], h, c, cfg.attn_cfg())
+            else:
+                y, nc = ssm_decode(p["ssm"], h, c, cfg.ssm_cfg(), impl=ssm_impl)
+            x = x + y
+            for buf, new in zip(c, nc):
+                if new.data_ptr() != buf.data_ptr():
+                    buf.copy_(new)
+        if slot.ffn == "dense":
+            x = x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp)
+    logits = _logits(cfg, params, x)
+    return logits, DecodeCache(slots=cache.slots, step=cache.step + 1)
+
+
+# ---------------------------------------------------------------------------
 # Paged decode (serving fast path)
 #
 # KV lives in per-slot page pools shared by every in-flight request and
@@ -259,9 +359,10 @@ class PagedState(NamedTuple):
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The paged fast path covers attention-only stacks (the port has no
-    other mixer yet)."""
-    return (all(s.mixer in ("attn", None) for s in cfg.pattern)
+    """The paged fast path covers attention-only stacks. SSM mixers carry
+    recurrent (not positional) state and int8 KV pages are not ported, so
+    those serve through the legacy decode loop."""
+    return (not cfg.kv_quant and all(s.mixer in ("attn", None) for s in cfg.pattern)
             and any(s.mixer == "attn" for s in cfg.pattern))
 
 
@@ -280,15 +381,11 @@ def _paged_stack(cfg: ModelConfig, params: Dict[str, torch.Tensor], pools: Dict[
     """x through every period and slot of the stack, periods outer as in the
     JAX scan: ``attn_step(p_attn, x_normed, layer_pool)`` for the mixer, then
     the slot's MLP."""
-    slots = [(_unstack(_sub(params, f"blocks.slot_{i}."), cfg.n_periods), pools.get(f"slot_{i}"), slot)
-             for i, slot in enumerate(cfg.pattern)]
-    for period in range(cfg.n_periods):
-        for per_layer, pool, slot in slots:
-            p = per_layer[period]
-            if slot.mixer == "attn":
-                x = x + attn_step(p["attn"], _norm(cfg, p["mixer_norm"], x), pool[period])
-            if slot.ffn == "dense":
-                x = x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp)
+    for period, i, slot, p in _layers(cfg, params):
+        if slot.mixer == "attn":
+            x = x + attn_step(p["attn"], _norm(cfg, p["mixer_norm"], x), pools[f"slot_{i}"][period])
+        if slot.ffn == "dense":
+            x = x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp)
     return x
 
 

@@ -2,10 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.serve --arch smollm_135m --preset reduced --device cpu
     PYTHONPATH=src python -m repro_torch.serve --arch smollm_135m --preset full --requests 16
+    PYTHONPATH=src python -m repro_torch.serve --arch falcon_mamba_7b --preset full --requests 4
 
 Serves random weights made from seed 0 (no pretrained weights ship with the
 repository) on prompts drawn from seed 1, and prints each completion and the
-engine's metrics. Runs on the GPU unless ``--device`` names another device.
+engine's metrics. An attention model goes through the paged engine; an
+architecture outside the paged path (falcon_mamba_7b) through
+``Engine.generate``'s legacy loop, one batch of equal-length prompts. Runs
+on the GPU unless ``--device`` names another device; there the weights are
+drawn on the card (a full-size falcon_mamba_7b is 28 GB in f32).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from .. import resolve_device
 from ..configs import ARCH_IDS, get_config, get_reduced
 from ..models import Transformer
+from ..models.transformer import supports_paged
 from .engine import Engine, Request, ServeConfig
 
 # (ServeConfig, prompt length) per preset: the reduced one is examples/serve_llm.py's
@@ -40,9 +46,21 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.preset == "full" else get_reduced(args.arch)
     sc_kw, prompt_len = PRESETS[args.preset]
-    model = Transformer(cfg, device=device, gen=torch.Generator().manual_seed(0))
-    eng = Engine(cfg, model.params, ServeConfig(**sc_kw), device=device)
+    model = Transformer(cfg, device=device, gen=torch.Generator(device=device).manual_seed(0))
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (args.requests, prompt_len), dtype=np.int32)
+    if not supports_paged(cfg):
+        sc = ServeConfig(max_seq=prompt_len + args.new_tokens, max_new_tokens=args.new_tokens,
+                         temperature=args.temperature)
+        eng = Engine(cfg, model.params, sc, device=device)
+        del model
+        out = eng.generate(prompts)
+        print(f"arch={cfg.name} device={device} legacy loop: {args.requests} rows x {prompt_len} prompt tokens, "
+              f"decode_steps={eng.decode_steps} tokens_out={eng.tokens_out}")
+        for i, row in enumerate(out):
+            print(f"  req{i}: prompt={list(map(int, row[:8]))}... -> generated={list(map(int, row[prompt_len:]))}")
+        print("metrics:", eng.metrics().to_dict())
+        return out
+    eng = Engine(cfg, model.params, ServeConfig(**sc_kw), device=device)
     rids = [eng.submit(Request(prompt=p, max_new_tokens=args.new_tokens, temperature=args.temperature, seed=i))
             for i, p in enumerate(prompts)]
     done = eng.run_until_drained()

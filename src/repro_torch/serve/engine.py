@@ -1,5 +1,5 @@
-"""Request-level serving engine over the paged fast path (port of
-``repro/serve/engine.py``, paged path only).
+"""Request-level serving engine: the paged fast path and the legacy
+token-by-token loop (port of ``repro/serve/engine.py``).
 
     eng = Engine(cfg, params, ServeConfig(max_seq=256))      # on the GPU
     rid = eng.submit(Request(prompt=tokens, max_new_tokens=64, eos_id=2))
@@ -16,14 +16,22 @@ backing off deterministically on no progress before raising
 Every prefill chunk and decode step runs attention through the hand-written
 paged-attention kernel for CUDA tensors; a failing launch raises. The JAX
 engine's degradation ladder (rerunning a failed step through the dense
-reference), its fault-injection hooks, and its legacy ``generate`` /
-``decode_step`` loop are not ported, so an architecture outside the paged
-path raises ``NotImplementedError``.
+reference) and its fault-injection hooks are not ported.
+
+Architectures outside the paged path (SSM mixers; int8 KV is not ported)
+serve through :meth:`Engine.generate`'s legacy loop: a batch of equal-length
+prompts, fed token by token through ``transformer.decode_step`` over dense
+per-row caches (the prefill too, as the JAX loop does), whose Mamba layers
+run the hand-written selective-scan kernel. ``ServeConfig(paged=False)``
+forces that loop on an attention model, the parity oracle of the paged
+path. The request API (``submit``) needs the paged path.
 
 Sampling: greedy is ``argmax``, as in JAX. With a temperature, token ``n``
 of a request draws from a ``torch.Generator`` seeded from ``(seed, n)``, so
 resampling the same index after a preemption recompute gives the same
-token. That stream is the port's own; it does not reproduce JAX's bits.
+token; the legacy loop draws every row's tokens from one generator seeded
+with ``ServeConfig.seed``. Those streams are the port's own; they do not
+reproduce JAX's bits.
 """
 from __future__ import annotations
 
@@ -64,6 +72,9 @@ class ServeConfig:
     # everything queued + active + the new request exceeds this fraction of
     # pool capacity.
     admit_watermark: Optional[float] = None
+    # None -> auto (paged when the arch supports it); False forces the
+    # legacy token-by-token loop (the parity oracle in tests)
+    paged: Optional[bool] = None
     # Consecutive no-progress scheduler steps tolerated (with backoff)
     # before run_until_drained raises LivelockError.
     livelock_patience: int = 16
@@ -142,13 +153,13 @@ class Engine:
     :func:`repro_torch.resolve_device`)."""
 
     def __init__(self, model_cfg, params, sc: Optional[ServeConfig] = None, *, device=None):
-        if not transformer.supports_paged(model_cfg):
-            raise NotImplementedError(f"arch '{model_cfg.name}' is outside the paged serving path, the only "
-                                      "serving path ported")
+        self.sc = sc if sc is not None else ServeConfig()
+        self._paged = self.sc.paged if self.sc.paged is not None else transformer.supports_paged(model_cfg)
+        if self._paged and not transformer.supports_paged(model_cfg):
+            raise ValueError(f"arch '{model_cfg.name}' is outside the paged serving path; use paged=False or None")
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.params = {k: v.detach().to(self.device) for k, v in params.items()}
-        self.sc = sc if sc is not None else ServeConfig()
         self._next_rid = 0
         self._reqs: Dict[int, _ReqState] = {}
         self._done: Dict[int, Completion] = {}
@@ -166,6 +177,8 @@ class Engine:
         self.pool = KVPool(n_pages, p)
         self.scheduler = Scheduler(self.sc.max_slots, max_pages, self.pool)
         self._pools = None          # device pools, created on first use
+        # The legacy loop's step, an attribute so a caller can wrap it.
+        self._decode = lambda pr, c, t: transformer.decode_step(model_cfg, pr, c, t)
 
     def _now(self) -> float:
         return time.monotonic()
@@ -182,6 +195,9 @@ class Engine:
         or a :class:`Rejected` verdict. Raises ValueError only for requests
         that could never run: a prompt that cannot fit ``max_seq``, or a
         footprint exceeding the whole page pool even alone."""
+        if not self._paged:
+            raise NotImplementedError(f"the request API needs the paged fast path, which does not cover arch "
+                                      f"'{self.cfg.name}' — use generate()")
         prompt = _prompt_array(request.prompt)
         n_prompt = prompt.shape[0]
         budget = self.sc.max_seq - n_prompt
@@ -494,3 +510,106 @@ class Engine:
                                         preemptions=st.preemptions, tpot_s=tpot)
         del self._reqs[st.rid]
         self._completed_total += 1
+
+    # ------------------------------------------------------------------
+    # Batch wrapper and the legacy loop
+    # ------------------------------------------------------------------
+
+    def generate(self, prompts, *, eos_id: Optional[int] = None) -> torch.Tensor:
+        """prompts: (B, S_prompt) int tokens -> (B, S_prompt + new) int32 on
+        the CPU. On the paged path it submits one :class:`Request` per row
+        and pads the ragged completions back into a rectangle (eos_id, or
+        0, as filler); otherwise it runs the legacy loop."""
+        host = _prompt_array(prompts).reshape(len(prompts), -1)
+        if not self._paged:
+            return self._generate_legacy(torch.from_numpy(host), eos_id=eos_id)
+        rids = []
+        for i, row in enumerate(host):
+            rid = self.submit(Request(prompt=row, eos_id=eos_id))
+            if isinstance(rid, Rejected):
+                raise RuntimeError(f"generate() row {i} rejected by admission control ({rid.reason}) — the "
+                                   f"batch wrapper cannot shed load; use submit() directly under backpressure")
+            rids.append(rid)
+        done = self.run_until_drained()
+        rows = [np.concatenate([host[i], done[rid].tokens]) for i, rid in enumerate(rids)]
+        out = np.full((len(rows), max(len(r) for r in rows)), eos_id if eos_id is not None else 0, np.int32)
+        for i, r in enumerate(rows):
+            out[i, :len(r)] = r
+        return torch.from_numpy(out)
+
+    def _sample(self, logits: torch.Tensor, gen: Optional[torch.Generator]) -> torch.Tensor:
+        """(B, 1) int32 next tokens on the device from (B, 1, vocab) logits."""
+        last = logits[:, -1].float()
+        if self.sc.temperature <= 0.0:
+            return last.argmax(dim=-1, keepdim=True).to(torch.int32)
+        probs = torch.softmax(last / self.sc.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+
+    def _generate_legacy(self, prompts: torch.Tensor, *, eos_id: Optional[int] = None) -> torch.Tensor:
+        """The token-by-token batch loop over dense per-row caches: the
+        prompt is fed one position per :func:`transformer.decode_step`, then
+        each sampled token. The caches hold ``max_seq`` positions; a request
+        that would overrun them is truncated (counted, warned once), and a
+        prompt that fills them raises."""
+        b, s_prompt = prompts.shape
+        budget = self.sc.max_seq - s_prompt
+        if budget <= 0:
+            raise ValueError(f"prompt length {s_prompt} leaves no room to generate within max_seq={self.sc.max_seq}")
+        max_new = self.sc.max_new_tokens
+        if max_new > budget:
+            self.counters.truncated_max_new += 1
+            self.counters.warn_once(
+                "truncate_max_new",
+                f"truncating max_new_tokens {max_new} -> {budget}: prompt length {s_prompt} + requested tokens "
+                f"would overrun the max_seq={self.sc.max_seq} cache (counted in ServeMetrics.truncated_max_new; "
+                f"warning not repeated)")
+            max_new = budget
+        dtype = torch.float32 if self.cfg.dtype == torch.float32 else torch.bfloat16
+        cache = transformer.init_decode_cache(self.cfg, b, self.sc.max_seq, dtype, device=self.device)
+        gen = None
+        if self.sc.temperature > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(self.sc.seed)
+        t0 = self._now()
+
+        def over_budget() -> bool:
+            return self.sc.max_wall_s is not None and self._now() - t0 > self.sc.max_wall_s
+
+        dev_prompts = prompts.to(self.device)
+        logits = None
+        for i in range(s_prompt):                      # prefill, one position a step
+            logits, cache = self._decode(self.params, cache, dev_prompts[:, i:i + 1])
+            self.decode_steps += 1
+            if over_budget():
+                # Nothing sensible can be emitted without the whole prompt:
+                # the degraded response is the prompt unchanged.
+                self.counters.budget_truncated += 1
+                self.counters.warn_once(
+                    "wall_budget",
+                    f"serve batch exceeded wall-clock budget max_wall_s={self.sc.max_wall_s} during prefill "
+                    f"({i + 1}/{s_prompt} tokens); returning prompt only (counted in "
+                    f"ServeMetrics.budget_truncated; warning not repeated)")
+                return prompts.to(torch.int32)
+        out: List[torch.Tensor] = [dev_prompts.to(torch.int32)]
+        done = torch.zeros((b, 1), dtype=torch.bool, device=self.device)
+        for n in range(max_new):                       # decode
+            nxt = self._sample(logits, gen)
+            if eos_id is not None:
+                done = done | (nxt == eos_id)
+                nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+            out.append(nxt)
+            self.tokens_out += b
+            if eos_id is not None and bool(done.all()):
+                break                                  # every row finished
+            if over_budget():
+                self.counters.budget_truncated += 1
+                self.counters.warn_once(
+                    "wall_budget",
+                    f"serve batch exceeded wall-clock budget max_wall_s={self.sc.max_wall_s} after {n + 1}/"
+                    f"{max_new} tokens; returning truncated response (counted in ServeMetrics.budget_truncated; "
+                    f"warning not repeated)")
+                break
+            if n + 1 == max_new:
+                break                                  # the last token needs no step
+            logits, cache = self._decode(self.params, cache, nxt)
+            self.decode_steps += 1
+        return torch.cat(out, dim=1).cpu()

@@ -12,7 +12,11 @@ a line sum (summation order differs), and so for paged attention with f32
 queries; with bf16 queries
 the output is bf16, and the two versions may round one step apart (2^-7
 relative). Non-finite counts (the ``with_health`` outputs) must be equal,
-on gradients seeded with a known number of NaN and +-Inf entries.
+on gradients seeded with a known number of NaN and +-Inf entries. The
+parameter-writing kernels' f32 p' rounds in the twin's order (1e-6); a bf16
+p' may round one bf16 step apart where the f32 values straddle a rounding
+boundary (2^-8 of the largest |p|). The selective scan's y sums its N terms
+in another order than the twin (1e-5); its state is elementwise (1e-6).
 """
 import numpy as np
 import pytest
@@ -20,7 +24,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import snr_along_dims
-from repro_torch.kernels import fused_adam, megaplan, paged_attention as pa, slim_update, snr_stats
+from repro_torch.kernels import fused_adam, megaplan, paged_attention as pa, slim_update, snr_stats, ssm_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -124,7 +128,7 @@ def test_counts_reset(dev):
     snr_stats.snr_stats_centered_batched(torch.rand(1, 3, 8, device=dev), axis=1)
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
-    np.testing.assert_equal(len(kernels.KERNELS), 11)
+    np.testing.assert_equal(len(kernels.KERNELS), 15)
 
 
 def _poison(g, n_bad, seed):
@@ -413,3 +417,133 @@ def test_paged_attention_rejects_unsupported_geometry(dev):
     with pytest.raises(TypeError):
         pa.paged_attention(q, pool, table.long(), lengths)
     assert pa.paged_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The parameter-writing kernels (B6, B7), the plain line stats (B8) and the
+# selective scan (B15)
+# ---------------------------------------------------------------------------
+
+BF16_STEP = 2.0**-8
+
+
+def _param_inputs(dev, shape, seed, p_dtype, g_dtype):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randn(shape, generator=gen, device=dev).to(p_dtype)
+    g = (1e-2 * torch.randn(shape, generator=gen, device=dev)).to(g_dtype)
+    m = 1e-3 * torch.randn(shape, generator=gen, device=dev)
+    return p, g, m, gen
+
+
+def _p_tol(p):
+    return ELEMENTWISE if p.dtype == torch.float32 else BF16_STEP
+
+
+@pytest.mark.parametrize("shape", [(4096, 512), (37, 129), (1, 9), (300, 768)])
+@pytest.mark.parametrize("p_dtype,g_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+def test_fused_adam(dev, shape, p_dtype, g_dtype, wd):
+    p, g, m, gen = _param_inputs(dev, shape, shape[0] + shape[1], p_dtype, g_dtype)
+    v = 1e-4 * torch.rand(shape, generator=gen, device=dev)
+    kw = dict(lr=1e-3, wd=wd, **KW)
+    before = fused_adam.fused_adam.launches
+    got = fused_adam.fused_adam(p, g, m, v, count=7, **kw)
+    bc1, bc2 = fused_adam.host_bias_corrections(0.9, 0.95, 7)
+    want = fused_adam.fused_adam_plain(p, g, m, v, bc1=bc1, bc2=bc2, **kw)
+    torch.cuda.synchronize()
+    assert fused_adam.fused_adam.launches == before + 1
+    assert got[0].dtype == p_dtype
+    _close(got[0].float(), want[0].float(), _p_tol(p))
+    _close(got[1], want[1], ELEMENTWISE)
+    _close(got[2], want[2], ELEMENTWISE)
+
+
+def test_fused_adam_equals_adam_precond_then_the_step(dev):
+    """p' from B6 against B3's u followed by the same parameter step."""
+    p, g, m, gen = _param_inputs(dev, (513, 260), 3, torch.float32, torch.float32)
+    v = 1e-4 * torch.rand(p.shape, generator=gen, device=dev)
+    got = fused_adam.fused_adam(p, g, m, v, lr=1e-3, wd=0.1, count=3, **KW)
+    u, m_new, v_new = fused_adam.adam_precond(g, m, v, count=3, **KW)
+    torch.cuda.synchronize()
+    _close(got[0], fused_adam.param_step(p, u, lr=1e-3, wd=0.1), ELEMENTWISE)
+    assert torch.equal(got[1], m_new) and torch.equal(got[2], v_new)
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (12, 768, 64, 0), (1, 50, 33, 0), (3, 7, 130, 1),
+                                        (1, 4096, 8192, 1)])
+@pytest.mark.parametrize("p_dtype,g_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+def test_slim_update_batched(dev, b, r, c, axis, p_dtype, g_dtype, wd):
+    p, g, m, gen = _param_inputs(dev, (b, r, c), b + r + c, p_dtype, g_dtype)
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    v = 1e-4 * torch.rand(line, generator=gen, device=dev)
+    kw = dict(lr=1e-3, wd=wd, **KW)
+    before = slim_update.slim_update_batched.launches
+    got = slim_update.slim_update_batched(p, g, m, v, axis=axis, count=4, **kw)
+    bc1, bc2 = fused_adam.host_bias_corrections(0.9, 0.95, 4)
+    want = slim_update.slim_update_batched_plain(p, g, m, v, axis=axis, bc1=bc1, bc2=bc2, **kw)
+    torch.cuda.synchronize()
+    assert slim_update.slim_update_batched.launches == before + 1
+    assert got[0].dtype == p_dtype
+    _close(got[0].float(), want[0].float(), max(_p_tol(p), LINE_SUMS))
+    _close(got[1], want[1], ELEMENTWISE)
+    _close(got[2], want[2], LINE_SUMS)
+    # p' against B4's u followed by the same parameter step
+    u, m4, v4 = slim_update.slim_precond_batched(g, m, v, axis=axis, count=4, **KW)
+    _close(got[0].float(), fused_adam.param_step(p, u, lr=1e-3, wd=wd).float(), _p_tol(p))
+    assert torch.equal(got[1], m4) and torch.equal(got[2], v4)
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (1, 1, 100003, 1), (12, 384, 384, 0), (3, 50, 130, 0)])
+def test_snr_stats_batched(dev, b, r, c, axis):
+    v = torch.rand((b, r, c), generator=torch.Generator(device=dev).manual_seed(c), device=dev)
+    before = snr_stats.snr_stats_batched.launches
+    got = snr_stats.snr_stats_batched(v, axis=axis)
+    want = snr_stats.snr_stats_batched_plain(v, axis=axis)
+    torch.cuda.synchronize()
+    assert snr_stats.snr_stats_batched.launches == before + 1
+    for a, w in zip(got, want):
+        _close(a, w, LINE_SUMS)
+    s1, s2 = snr_stats.snr_stats(v[0])         # the 2-D wrapper: row sums of (R, C)
+    assert s1.shape == s2.shape == (v.shape[1],)
+
+
+def _scan_inputs(dev, b, s, d, n, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, d), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, d), generator=gen, device=dev))
+    a = -torch.exp(0.3 * torch.randn((d, n), generator=gen, device=dev))
+    b_t = torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
+    c_t = torch.randn((b, s, n), generator=gen, device=dev).to(dtype)
+    d_skip = torch.randn((d,), generator=gen, device=dev)
+    h0 = torch.randn((b, d, n), generator=gen, device=dev)
+    return x, dt, a, b_t, c_t, d_skip, h0
+
+
+@pytest.mark.parametrize("b,s,d,n", [(2, 24, 8, 4), (1, 64, 16, 16), (2, 32, 10, 3), (4, 1, 8192, 16),
+                                     (1, 300, 200, 16), (3, 17, 65, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan(dev, b, s, d, n, dtype):
+    args = _scan_inputs(dev, b, s, d, n, dtype, b * s + d)
+    before = ssm_scan.ssm_scan.launches
+    y, h = ssm_scan.ssm_scan(*args)
+    y_w, h_w = ssm_scan.ssm_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan.ssm_scan.launches == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    _close(y, y_w, LINE_SUMS)
+    _close(h, h_w, LINE_SUMS)
+
+
+def test_ssm_scan_rejects_what_the_kernel_does_not_take(dev):
+    args = list(_scan_inputs(dev, 1, 4, 8, 17, torch.float32, 0))
+    before = ssm_scan.ssm_scan.launches
+    with pytest.raises(ValueError, match="N in"):
+        ssm_scan.ssm_scan(*args)
+    args = list(_scan_inputs(dev, 1, 4, 8, 4, torch.float32, 0))
+    args[3] = args[3].to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        ssm_scan.ssm_scan(*args)
+    assert ssm_scan.ssm_scan.launches == before

@@ -19,7 +19,7 @@ from _torch_parity import assert_close
 from repro.kernels import megaplan as jmega
 from repro.kernels.snr_stats import snr_stats_centered_batched as jax_snr_stats
 from repro_torch import kernels
-from repro_torch.kernels import megaplan as tmega, slim_update, snr_stats
+from repro_torch.kernels import fused_adam, megaplan as tmega, slim_update, snr_stats, ssm_scan
 from repro_torch.kernels.snr_stats import snr_stats_centered_batched
 
 ELEMENTWISE = 1e-6
@@ -111,10 +111,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     m_new, _ = tmega.mega_slim_partial_stats_batched(v, v, axis=1)
     line = v[..., :1].contiguous()
     tmega.mega_slim_finalize_batched(m_new, line, line + 1, line + 1, axis=1)
+    fused_adam.fused_adam(v, v, v, v, lr=1e-3)
+    slim_update.slim_update_batched(v, v, v, line, axis=1, lr=1e-3)
+    snr_stats.snr_stats_batched(v, axis=1)
+    bc = v[..., :4].contiguous()
+    ssm_scan.ssm_scan(v, v, -torch.ones(8, 4), bc, bc, torch.ones(8), torch.zeros(1, 8, 4))
     assert kernels.launch_counts() == {"mega_adam_update": 0, "mega_slim_update_batched": 0,
                                        "adam_precond": 0, "slim_precond_batched": 0,
                                        "snr_stats_centered_batched": 0, "paged_attention": 0,
                                        "snr_stats_centered_partial_batched": 0, "slim_partial_stats_batched": 0,
                                        "slim_finalize_batched": 0, "mega_slim_partial_stats_batched": 0,
-                                       "mega_slim_finalize_batched": 0}
+                                       "mega_slim_finalize_batched": 0, "fused_adam": 0, "slim_update_batched": 0,
+                                       "snr_stats_batched": 0, "ssm_scan": 0}
 

@@ -340,9 +340,10 @@ def test_engine_and_cli_need_a_device_without_a_gpu(monkeypatch):
         serve_cli(["--requests", "1"])
     done = serve_cli(["--device", "cpu", "--requests", "2", "--new-tokens", "3"])
     assert [len(c.tokens) for c in done.values()] == [3, 3]
+    # an arch outside the paged path serves through generate() only
     non_attn = dataclasses.replace(cfg, pattern=(ttf.LayerSlot(None, "dense"),))
-    with pytest.raises(NotImplementedError):
-        Engine(non_attn, params, ServeConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="generate"):
+        Engine(non_attn, params, ServeConfig(), device="cpu").submit(Request(prompt=np.array([1, 2], np.int32)))
 
 
 # ---------------------------------------------------------------------------
