@@ -15,7 +15,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    rules'), ``snr_stats_centered_batched`` on all 21 SNR candidates. Times
    are CUDA-event medians with L2 flushed before each launch, beside the
    least time the card needs for the same bytes and operations and, where
-   one PyTorch call computes the same function, that call's time.
+   one PyTorch call computes the same function, that call's time. B5's
+   total over the 21 candidates is printed against ``torch.var_mean``'s
+   total and the bound (the share of the bound reached).
 2b. The fault-tolerant slice's kernels against their plain twins on
    gradients seeded with a known number of NaN and +-Inf entries (counts
    held exactly): ``mega_adam_update(with_health)`` (B2) on Adam's dense
@@ -35,7 +37,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    must show every kernel of the path. Then one fused optimizer update
    against the plain 'jnp' backend from the same state for each of the
    three optimizers, a small reduced-model run on the card against the
-   CPU, and step timings.
+   CPU, and step timings, among them one SNR measurement of Adam's moments
+   (``measure_tree_snr``, backend 'fused') in turns with a plain step, and
+   its device profile (busy share, kernels by name).
 3b. Guarded training at full width, batch 8 x 1024 as ``grad_accum=2``:
    Adam measuring SNR and SlimAdam (Table 3) with from-update SNR, each 8
    steps under ``FaultPlan(nan_grad_steps=(3,), spike_steps=(6,))`` with
@@ -82,7 +86,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    twins on each rank's local shards of the Table-3 plan's 7 psum leaves
    (B10 base, ``with_snr``, ``with_health``; B11 ek and owner; B12 and B13
    on the psum groups; B9 on the 21 SNR candidates, whose lines the mesh
-   splits), non-finite counts exact, then each kernel timed on rank 0 alone.
+   splits), non-finite counts exact, then each kernel timed on rank 0 alone
+   (B9's total over its 21 candidates against ``torch.var_mean``'s).
    6b: a sharded Table-3 SlimAdam update and a sharded Adam update against
    the port's unsharded update of the same whole gradients (local leaves
    and Adam bit-equal, psum leaves within 2e-6), the per-leaf route against
@@ -190,10 +195,17 @@ def check(what: str, a, b, tol: float) -> float:
 
 class Timer:
     """Median time of a device function: CUDA events around each call, with
-    L2 (50 MB) flushed by a 256 MB write before it."""
+    L2 (50 MB) flushed by a 256 MB write before it. A ~1 ms device-side wait
+    follows the flush, so the host has enqueued the call before the start
+    event is reached and the time is the device's, not the host's time to
+    run a Python wrapper. ``slack_cycles=0`` drops the wait (the earlier
+    timer), so the span also holds the host's time to enqueue the call."""
 
-    def __init__(self, torch):
+    SLACK_CYCLES = 2_000_000
+
+    def __init__(self, torch, slack_cycles: int = SLACK_CYCLES):
         self.torch = torch
+        self.slack = slack_cycles
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
 
     def __call__(self, fn, reps: int = 10) -> float:
@@ -202,6 +214,8 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            if self.slack:
+                torch.cuda._sleep(self.slack)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
@@ -231,6 +245,39 @@ def profile_device(torch, fn, n: int, wall_ms: float, label: str) -> dict:
     for key, t in rows[:12]:
         log(f"    {t:8.4f} ms  {key[:110]}")
     return dict(busy_ms=busy, wall_ms=wall_ms, kernels=rows[:40])
+
+
+def host_ms(torch, fn, n: int = 3) -> float:
+    """Host-clock ms per call of ``fn`` over ``n`` calls, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def in_turns(torch, variants: dict, rounds: int = 3):
+    """Each variant's median ``host_ms`` over blocks run in turns (a b b a
+    ...), so drift between them cancels; and every block's time."""
+    for fn in variants.values():
+        fn()
+    times = {k: [] for k in variants}
+    for r in range(rounds):
+        order = list(variants) if r % 2 == 0 else list(reversed(variants))
+        for k in order + list(reversed(order)):
+            times[k].append(host_ms(torch, variants[k]))
+    return {k: statistics.median(v) for k, v in times.items()}, times
+
+
+def snr_total(kernel: str, acc: dict, n: int, where: str) -> dict:
+    """Log the total of B5 or B9 over one SNR measurement's ``n``
+    candidates beside torch.var_mean's and the bound; return the two
+    ratios."""
+    ratio, share = acc["ms"] / acc["library_ms"], acc["bound_ms"] / acc["ms"]
+    log(f"  {kernel} total over the {n} candidates: kernel {acc['ms']:.4f} ms  var_mean {acc['library_ms']:.4f} ms  "
+        f"bound {acc['bound_ms']:.4f} ms  kernel / var_mean {ratio:.3f}  bound reached {share:.1%}  ({where})")
+    return dict(vs_var_mean=ratio, bound_share=share)
 
 
 def page_table(torch, positions, page: int, max_pages: int):
@@ -402,16 +449,10 @@ def serve_phases(torch, timer, rate: float, smi: str):
     def prefill():
         paged_prefill_chunk(cfg, params, pools, table[:1], 512, SERVE_SC["prefill_chunk"], chunk)
 
-    def host_ms(fn, n=10):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n * 1e3
-
-    decode_ms, prefill_ms = host_ms(decode), host_ms(prefill)
+    decode()
+    decode_ms = host_ms(torch, decode, 10)
+    prefill()
+    prefill_ms = host_ms(torch, prefill, 10)
     log(f"  decode step (16 rows of {min(tl)}..{max(tl)} positions) {decode_ms:.3f} ms = "
         f"{16 / decode_ms * 1e3:.1f} decode tokens/s; prefill chunk (128 tokens at pos0 512) {prefill_ms:.3f} ms")
     run.update(decode_step_ms=decode_ms, prefill_chunk_ms=prefill_ms, decode_tokens_per_s=16 / decode_ms * 1e3,
@@ -940,28 +981,11 @@ def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dim
     log(f"[3f] step times, in turns: Adam plain against guarded, and SlimAdam plain, measure step with "
         f"from-update SNR, plain step plus a B5 measurement ({smi})")
 
-    def host_ms(fn, n=3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n * 1e3
-
-    def in_turns(variants, rounds=3):
-        for fn in variants.values():
-            fn()
-        times = {k: [] for k in variants}
-        for r in range(rounds):
-            order = list(variants) if r % 2 == 0 else list(reversed(variants))
-            for k in order + list(reversed(order)):
-                times[k].append(host_ms(variants[k]))
-        return {k: statistics.median(v) for k, v in times.items()}, times
-
     timing = {}
     trainers = {label: trainer("adam", total_steps=10**6, log_every=10**6, guard=g)
                 for label, g in (("plain", None), ("guarded", guard))}
-    med, raw = in_turns({f"adam_{k}_step_ms": (lambda tr=tr: tr.run(tr.step + 1)) for k, tr in trainers.items()})
+    med, raw = in_turns(torch, {f"adam_{k}_step_ms": (lambda tr=tr: tr.run(tr.step + 1))
+                                for k, tr in trainers.items()})
     timing.update(med, adam_raw=raw)
     tr = trainers["guarded"]
     timing["adam_guarded_profile"] = profile_device(torch, lambda: tr.run(tr.step + 1), 2,
@@ -987,8 +1011,8 @@ def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dim
         step(tr._train_step)
         measure_tree_snr(tr.opt_state.inner_states[1].nu, tr.meta, backend="fused")
 
-    med, raw = in_turns({"slim_plain_step_ms": lambda: step(tr._train_step),
-                         "slim_from_update_measure_step_ms": snr_step, "slim_b5_measure_step_ms": b5_step})
+    med, raw = in_turns(torch, {"slim_plain_step_ms": lambda: step(tr._train_step),
+                                "slim_from_update_measure_step_ms": snr_step, "slim_b5_measure_step_ms": b5_step})
     timing.update(med, slim_raw=raw)
     del tr
     torch.cuda.empty_cache()
@@ -1164,6 +1188,7 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
             acc["cases"].append(dict(tag=tag, ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=lib_ms))
             log(f"  {kernel} {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms"
                 + ("" if lib_ms is None else f"  var_mean {lib_ms:.4f} ms"))
+        out["B9"].update(snr_total("B9", out["B9"], len(out["B9"]["cases"]), "rank 0 alone on the card"))
     mesh.barrier()
     return out
 
@@ -1943,7 +1968,7 @@ def main() -> int:
 
     from repro_torch import kernels
     from repro_torch.configs import get_config, get_reduced
-    from repro_torch.core import rules_to_dims, second_moment_savings, table3_rules
+    from repro_torch.core import measure_tree_snr, rules_to_dims, second_moment_savings, table3_rules
     from repro_torch.core.labels import flatten_with_names
     from repro_torch.core.slim_adam import scale_by_slim_adam
     from repro_torch.data import DataConfig, ZipfLM
@@ -2085,6 +2110,7 @@ def main() -> int:
             del x, v3, got, want
     if len(snr["candidates"]) != 21:
         raise AssertionError(f"expected 21 SNR candidates, got {len(snr['candidates'])}")
+    snr.update(snr_total("B5", snr, 21, smi))
     torch.cuda.empty_cache()
     t3_dims = rules_to_dims(table3_rules(meta), meta)
     robust_held = robust_kernels(torch, timer, rate, gen, specs, meta, adam_plan, t3_plan, t3_dims)
@@ -2228,6 +2254,20 @@ def main() -> int:
             precond = timer(lambda: fused_tx.update(g, inner), reps=5)
         if optimizer == "adam":
             timing_runs["adam_profile"] = profile_steps(tr, s_ms)
+            # One SNR measurement of Adam's moments (21 B5 launches and the
+            # host work around them), in turns with a plain step.
+            med, raw = in_turns(torch, {
+                "adam_plain_step_ms": lambda: tr.run(tr.step + 1),
+                "adam_snr_measure_ms": lambda: measure_tree_snr(tr.opt_state.inner_states[1].nu, tr.meta,
+                                                                backend="fused")})
+            timing_runs.update(med, adam_snr_raw=raw)
+            log(f"  adam: SNR measurement (measure_tree_snr over nu, backend 'fused') "
+                f"{med['adam_snr_measure_ms']:.3f} ms against a plain step's {med['adam_plain_step_ms']:.2f} ms, "
+                f"in turns; B5 kernels alone {snr['ms']:.4f} ms (phase 2) ({smi})")
+            # Where the measurement's time goes: device busy against its wall time, kernels by name.
+            timing_runs["adam_snr_profile"] = profile_device(
+                torch, lambda: measure_tree_snr(tr.opt_state.inner_states[1].nu, tr.meta, backend="fused"), 3,
+                med["adam_snr_measure_ms"], "SNR measurement")
         timing_runs[f"{optimizer}_step_ms"] = s_ms
         timing_runs[f"{optimizer}_optimizer_ms"] = upd
         timing_runs[f"{optimizer}_precond_ms"] = precond

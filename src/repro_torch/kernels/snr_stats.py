@@ -9,23 +9,104 @@ Kernels: ``csrc/snr_stats.cu`` replaces the Pallas kernels at
 and ``:152`` (B9, body ``_snr_centered_partial_kernel`` :89), both launched
 by ``_stats_call`` (``pallas_call`` :116). Both are bound by bytes: one
 4-byte read per element, 12 bytes written per line (16 with B9's shift).
-The source note there says how the design follows from that. B8
+They share one walk that splits the view by bytes across the SMs:
+:func:`plan_split` (pure integer arithmetic, tested on the CPU) chooses its
+grid, and the source note says how the design meets the bound. B8
 ``snr_stats_batched`` (plain per-line sum and sum of squares, and its 2-D
-wrapper ``snr_stats``) is the PLAIN form of the same line walk, replacing
-``repro/kernels/snr_stats.py:126`` (body ``_snr_kernel`` :75, through
-``_stats_call``); bound by bytes, 4 B per element and 8 B per line.
+wrapper ``snr_stats``) keeps its one-block-per-line kernels there,
+replacing ``repro/kernels/snr_stats.py:126`` (body ``_snr_kernel`` :75,
+through ``_stats_call``); bound by bytes, 4 B per element and 8 B per line.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Tuple
 
 import torch
 
 from . import build
 
-_ARGTYPES = [build.PTR] * 5 + [build.SIZE] * 3 + [build.INT, build.PTR]
+_ARGTYPES = [build.PTR] * 6 + [build.SIZE] * 3 + [build.INT] * 2 + [build.SIZE] * 3 + [build.PTR]
 _MAX_GRID_Y = 65535
 _MAX_GRID_X = 2**31 - 1
+
+# The split walk's geometry; the kernel's constants in csrc/snr_stats.cu match.
+THREADS = 256              # threads of every block (8 warps)
+WARPS = THREADS // 32
+WARP_LINE_MAX = 4096       # axis-1 lines up to this many elements get a warp each
+SEG_MIN = 16384            # elements a block streams once lines are split: 64 KB ...
+SEG_MAX = 65536            # ... to 256 KB
+SEG_QUANTUM = 1024         # axis-1 segments are multiples of one block-wide float4 sweep
+WAVES = 4                  # blocks per SM the split aims for
+TILE_VEC, TILE_SCALAR = 128, 32   # axis-0 columns per block: a float4, or a float, per lane
+FORM_WARP, FORM_SPLIT, FORM_MAJOR = 0, 1, 2
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """The grid of the split walk over one (B, R, C) view. A line is cut
+    into ``nseg`` segments of ``seg`` elements along its reduction axis (the
+    last one shorter): block b sums line b // nseg's segment b % nseg
+    (FORM_SPLIT), or a column tile's chunk of rows (FORM_MAJOR, tiles of
+    TILE_VEC or TILE_SCALAR columns), or WARPS whole lines (FORM_WARP).
+    ``nseg == 1`` writes the outputs directly, else the segments' f64 shares
+    go to a (3, lines * nseg) workspace that a second launch of
+    ``combine_blocks`` blocks sums in a fixed order."""
+    form: int          # FORM_WARP, FORM_SPLIT (axis 1) or FORM_MAJOR (axis 0)
+    vec: bool          # 16-byte loads (aligned view, inner size a multiple of 4)
+    batch: int
+    rows: int
+    cols: int
+    seg: int
+    nseg: int
+    blocks: int
+
+    @property
+    def lines(self) -> int:
+        return self.batch * (self.cols if self.form == FORM_MAJOR else self.rows)
+
+    @property
+    def combine_blocks(self) -> int:
+        return 0 if self.nseg == 1 else _cdiv(self.lines, WARPS)
+
+
+def _cut(length: int, piece: int, quantum: int) -> Tuple[int, int]:
+    """(seg, nseg): lines of ``length`` cut into segments of about ``piece``
+    elements, a multiple of ``quantum``."""
+    nseg = _cdiv(length, piece)
+    seg = min(length, _cdiv(_cdiv(length, nseg), quantum) * quantum)
+    return seg, _cdiv(length, seg)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_split(batch: int, rows: int, cols: int, axis: int, *, sms: int, aligned: bool) -> SplitPlan:
+    """The split walk's grid for a (batch, rows, cols) f32 view reduced
+    along ``axis`` on a card with ``sms`` SMs; ``aligned``: the view starts
+    on a 16-byte boundary. Axis-1 lines up to WARP_LINE_MAX elements take a
+    warp each; longer lines, and the rows of axis-0 column tiles, are cut
+    into pieces of SEG_MIN to SEG_MAX elements, sized for about WAVES blocks
+    per SM. Pure integer arithmetic: no CUDA call (and cached, as the
+    wrapper asks for every launch)."""
+    vec = aligned and cols % 4 == 0
+    piece = min(max(_cdiv(batch * rows * cols, WAVES * sms), SEG_MIN), SEG_MAX)
+    if axis == 1 and cols <= WARP_LINE_MAX:
+        return SplitPlan(FORM_WARP, vec, batch, rows, cols, cols, 1, _cdiv(batch * rows, WARPS))
+    if axis == 1:
+        seg, nseg = _cut(cols, piece, SEG_QUANTUM)
+        return SplitPlan(FORM_SPLIT, vec, batch, rows, cols, seg, nseg, batch * rows * nseg)
+    tile = TILE_VEC if vec else TILE_SCALAR
+    seg, nseg = _cut(rows, max(piece // tile, 1), WARPS)
+    return SplitPlan(FORM_MAJOR, vec, batch, rows, cols, seg, nseg, batch * _cdiv(cols, tile) * nseg)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def centered_line_stats(x: torch.Tensor, red: int):
@@ -75,18 +156,25 @@ def snr_stats_centered_partial_batched_plain(v: torch.Tensor, *, axis: int) -> T
 
 
 def _launch_stats(kernel: str, v: torch.Tensor, axis: int, n_outs: int) -> Tuple[torch.Tensor, ...]:
-    """Check and launch ``csrc/snr_stats.cu``: 3 outputs (B5) or 4 (B9)."""
+    """Plan, check and launch ``csrc/snr_stats.cu``'s split walk: 3 outputs
+    (B5) or 4 (B9)."""
     if v.numel() == 0:
         raise ValueError(f"{kernel}: empty lines have no statistics")
     b, r, c = v.shape
-    if (axis == 1 and b * r > _MAX_GRID_X) or (axis == 0 and b > _MAX_GRID_Y):
+    plan = plan_split(b, r, c, axis, sms=_sm_count(v.device), aligned=v.data_ptr() % 16 == 0)
+    if max(plan.blocks, plan.combine_blocks) > _MAX_GRID_X:
         raise ValueError(f"{kernel}: shape {tuple(v.shape)} exceeds the launch grid")
-    kept = r if axis == 1 else c
-    outs = tuple(torch.empty((b, kept), dtype=torch.float32, device=v.device) for _ in range(n_outs))
-    fn = build.entry("repro_snr_stats_centered", _ARGTYPES)
-    build.launch(kernel, fn, v.device, v.data_ptr(), *(o.data_ptr() for o in outs[:3]),
-                 build.ptr(outs[3] if n_outs == 4 else None), b, r, c, axis)
+    outs = torch.empty((n_outs, b, r if axis == 1 else c), dtype=torch.float32, device=v.device).unbind(0)
+    part = torch.empty((3, plan.lines * plan.nseg), dtype=torch.float64, device=v.device) if plan.nseg > 1 else None
+    build.launch(kernel, _centered_entry(), v.device, v.data_ptr(), *(o.data_ptr() for o in outs[:3]),
+                 build.ptr(outs[3] if n_outs == 4 else None), build.ptr(part), b, r, c, plan.form, int(plan.vec),
+                 plan.seg, plan.nseg, plan.blocks)
     return outs
+
+
+@functools.lru_cache(maxsize=None)
+def _centered_entry():
+    return build.entry("repro_snr_stats_centered", _ARGTYPES)
 
 
 def _check_view(kernel: str, v: torch.Tensor, axis: int) -> torch.device:

@@ -81,17 +81,71 @@ def test_mega_slim_update_batched(dev, b, r, c, axis):
     _close(got[2], want[2], LINE_SUMS)
 
 
-@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (1, 1, 100003, 1), (2, 7, 33, 1), (3, 200, 100, 0)])
+# The centered SNR stats' split walk (B5, B9): the main path's long views
+# (gpt_small's embed K=both line, embed fan_in, the w_up/w_down K=both lines,
+# w_down fan_in), lines at the warp form's limit and at segment boundaries
+# +-1 (SEG_MAX is one segment of a long line), inner sizes not a multiple
+# of 4, and ragged small views.
+SPLIT_SHAPES = [(1, 1, 38633472, 1), (1, 50304, 768, 0), (1, 12, 2359296, 1), (12, 3072, 768, 0),
+                (2, 3, snr_stats.WARP_LINE_MAX + 1, 1), (1, 2, snr_stats.SEG_MAX - 1, 1),
+                (1, 2, 3 * snr_stats.SEG_MAX + 1, 1), (2, 513, 768, 0), (1, 1025, 33, 0), (1, 3, 100003, 1)]
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (1, 1, 100003, 1), (2, 7, 33, 1), (3, 200, 100, 0)]
+                         + SPLIT_SHAPES)
 @pytest.mark.parametrize("near_constant", [False, True])
 def test_snr_stats_centered_batched(dev, b, r, c, axis, near_constant):
     gen = torch.Generator(device=dev).manual_seed(b * r + c)
     x = torch.randn((b, r, c), generator=gen, device=dev)
     v = 5.0 + 1e-4 * x if near_constant else x * x
+    before = snr_stats.snr_stats_centered_batched.launches
     got = snr_stats.snr_stats_centered_batched(v, axis=axis)
     want = snr_stats.snr_stats_centered_batched_plain(v, axis=axis)
     torch.cuda.synchronize()
+    assert snr_stats.snr_stats_centered_batched.launches == before + 1
     for a, w in zip(got, want):
         _close(a, w, LINE_SUMS)
+
+
+def _offset_view(v):
+    """A contiguous copy of v that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(v.numel() + 1, device=v.device)
+    out = buf[1:].view(v.shape)
+    out.copy_(v)
+    return out
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 2, 3 * snr_stats.SEG_MAX + 4, 1), (1, 50, 768, 1), (2, 513, 768, 0),
+                                        (1, 300, 20, 0)])
+@pytest.mark.parametrize("partial", [False, True])
+def test_snr_stats_centered_unaligned(dev, b, r, c, axis, partial):
+    """A view 4 bytes off a 16-byte boundary takes the 4-byte loads."""
+    gen = torch.Generator(device=dev).manual_seed(r + c)
+    v = _offset_view(5.0 + 1e-4 * torch.randn((b, r, c), generator=gen, device=dev))
+    assert v.data_ptr() % 16 == 4
+    fn = snr_stats.snr_stats_centered_partial_batched if partial else snr_stats.snr_stats_centered_batched
+    plain = (snr_stats.snr_stats_centered_partial_batched_plain if partial
+             else snr_stats.snr_stats_centered_batched_plain)
+    got, want = fn(v, axis=axis), plain(v, axis=axis)
+    torch.cuda.synchronize()
+    for a, w in zip(got[:3], want[:3]):
+        _close(a, w, LINE_SUMS)
+    if partial:
+        assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 1, 38633472, 1), (1, 50304, 768, 0), (1, 9216, 768, 1)])
+@pytest.mark.parametrize("partial", [False, True])
+def test_snr_stats_centered_is_deterministic(dev, b, r, c, axis, partial):
+    """Split lines combine their shares in a fixed order: two launches on
+    one input agree bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(c)
+    v = torch.rand((b, r, c), generator=gen, device=dev)
+    fn = snr_stats.snr_stats_centered_partial_batched if partial else snr_stats.snr_stats_centered_batched
+    first, second = fn(v, axis=axis), fn(v, axis=axis)
+    torch.cuda.synchronize()
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
 
 
 def test_mega_adam_update_rejects_unaligned_operands(dev):
@@ -241,7 +295,8 @@ def test_slim_precond_2d_wrappers(dev):
 PSUM_SHAPES = [(12, 384, 384, 0), (1, 4608, 1536, 1), (1, 300, 33, 1), (3, 50, 130, 0)]
 
 
-@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (1, 1, 100003, 1), (12, 384, 384, 0), (3, 50, 130, 0)])
+@pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (1, 1, 100003, 1), (12, 384, 384, 0), (3, 50, 130, 0),
+                                        (1, 1, 9658368, 1), (1, 25152, 384, 0)] + SPLIT_SHAPES)
 def test_snr_stats_centered_partial_batched(dev, b, r, c, axis):
     v = 1.0 + 1e-3 * torch.rand((b, r, c), generator=torch.Generator(device=dev).manual_seed(c), device=dev)
     before = snr_stats.snr_stats_centered_partial_batched.launches
