@@ -63,21 +63,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    phases 3b-3d; every kernel of the slice must have launched.
 4. ``paged_attention`` (B14) against its plain twin at full-width
    smollm_135m shapes (9 heads over 3 KV groups, hd 64, pages of 16,
-   128-page table rows), bf16 and f32 pools, f32 queries: a decode batch of
-   16 ragged rows (one empty, one ending mid-page) and 128-token prefill
-   chunks at pos0 = 0 and at pos0 = 1024 with 100 valid tokens. Timed as in
-   phase 2, beside the bound and ``scaled_dot_product_attention`` on K/V
-   gathered dense (gather untimed).
+   128-page table rows): f32 queries over bf16 and f32 pools, and the
+   serving path's bf16 queries over a bf16 pool (the tensor-core form in
+   prefill); a decode batch of 16 ragged rows (one empty, one ending
+   mid-page) and 128-token prefill chunks at pos0 = 0 and at pos0 = 1024
+   with 100 valid tokens. Each case runs twice and the two outputs must be
+   bit-equal. Timed as in phase 2, beside the bound and
+   ``scaled_dot_product_attention`` on K/V gathered dense (gather untimed).
 5. The serving main path through ``repro_torch.serve.Engine`` on the card:
    full-width smollm_135m (30 layers, random weights from seed 0), 32
    requests of 64 new tokens (28 greedy, 4 sampled) over 16 slots and a pool
    small enough to preempt. Every request must finish by length with no
    page left used, and ``paged_attention`` must launch 30 times per decode
    step and prefill chunk. Then decode-step and prefill-chunk times and a
-   device profile of decode steps; the logits of a prefill chunk and of 4
-   decode steps through the kernel against the plain twin from the same
-   state; and reduced f32 smollm_135m and gpt_small served on the card
-   against the CPU, token for token.
+   device profile of decode steps and prefill chunks, with B14's share;
+   the logits of a prefill chunk and of 4 decode steps through the kernel
+   against the plain twin from the same state; and reduced f32 smollm_135m
+   and gpt_small served on the card against the CPU, token for token.
 6. The sharded slice: 4 processes share the card as the ranks of a
    (data=2, model=2) mesh (``repro_torch.launch.mesh``; gloo, since NCCL
    refuses two ranks on one device; all-reduce and all-gather on the device
@@ -133,6 +135,7 @@ A detailed report goes to ``build/chip_smoke_report.json`` (git-ignored).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -151,12 +154,14 @@ ROOT = Path(__file__).resolve().parent
 MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12, "H100": 3.35e12}
 F32_RATE = 67e12
 F64_RATE = 34e12
+BF16_TC_RATE = 989e12    # dense bf16 on the tensor cores
 
 TOL_ELEMENTWISE = 1e-6   # same operation order in kernel and plain version
 TOL_LINE = 1e-5          # depends on a line sum; summation order differs
 TOL_STEP = 1e-5          # a whole fused update against the plain 'jnp' backend
 TOL_SMALL_RUN = 1e-3     # reduced-model loss curve, card against CPU, 5 steps
 TOL_SERVE_LOGITS = 5e-2  # full-width logits, kernel against plain attention: bf16 activations through 30 layers
+TOL_BF16_OUT = 2.0**-7   # a bf16 attention output: kernel and twin may round one bf16 step apart
 TOL_SNR = 1e-4           # from-update SNR against the plain math on the same g and v' (f64 against f32 sums)
 TOL_RESUME = 1e-4        # losses after a resume: the embedding backward sums with atomics on the card
 
@@ -292,14 +297,15 @@ def page_table(torch, positions, page: int, max_pages: int):
     return table.to(torch.device("cuda")), first
 
 
-def paged_case(torch, gen, *, lengths, alloc, c, pool_dtype, heads=9, kv=3, hd=64, page=16, max_pages=128):
-    """B14 operands: f32 queries (B, C, heads, hd), a pool holding exactly
-    the pages that ``alloc`` positions of each row need, the table, and
-    ``lengths``."""
+def paged_case(torch, gen, *, lengths, alloc, c, pool_dtype, q_dtype=None, heads=9, kv=3, hd=64, page=16,
+               max_pages=128):
+    """B14 operands: queries (B, C, heads, hd) (f32 unless ``q_dtype``), a
+    pool holding exactly the pages that ``alloc`` positions of each row
+    need, the table, and ``lengths``."""
     dev = torch.device("cuda")
     table, n_pages = page_table(torch, alloc, page, max_pages)
     pool = torch.randn((n_pages, page, 2 * kv, hd), generator=gen, device=dev).to(pool_dtype)
-    q = torch.randn((len(alloc), c, heads, hd), generator=gen, device=dev)
+    q = torch.randn((len(alloc), c, heads, hd), generator=gen, device=dev).to(q_dtype or torch.float32)
     return q, pool, table, torch.tensor([int(x) for x in lengths], dtype=torch.int32, device=dev)
 
 
@@ -309,7 +315,8 @@ def paged_bound(q, pool, table, lengths, rate: float):
     whole page rows of K and V for every group; q, the output, the table and
     the lengths) over the memory rate, and its operations (4 * hd per query
     head and attended key, counted causally for these lengths) over the f32
-    rate."""
+    rate, or the bf16 tensor-core rate where q and the pool are both bf16
+    (the kernel may rightly use the tensor cores there)."""
     b, c, h, hd = q.shape
     page = pool.shape[1]
     reach = table.shape[1] * page
@@ -319,7 +326,8 @@ def paged_bound(q, pool, table, lengths, rate: float):
         read += -(-max(0, min(length, reach)) // page) * page * row_bytes
         keys += sum(max(0, min(length - c + i + 1, reach)) for i in range(c))
     nbytes = read + 2 * q.numel() * q.element_size() + 4 * (table.numel() + lengths.numel())
-    t_bytes, t_ops = nbytes / rate, 4 * h * hd * keys / F32_RATE
+    ops_rate = BF16_TC_RATE if str(q.dtype) == str(pool.dtype) == "torch.bfloat16" else F32_RATE
+    t_bytes, t_ops = nbytes / rate, 4 * h * hd * keys / ops_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -356,7 +364,8 @@ def serve_phases(torch, timer, rate: float, smi: str):
     gen = torch.Generator(device=dev).manual_seed(1)
 
     # -- 4. B14 against its plain twin ------------------------------------
-    log("[4] paged_attention (B14) at full-width smollm_135m shapes against its plain twin, bound, SDPA")
+    log("[4] paged_attention (B14) at full-width smollm_135m shapes against its plain twin, bound, SDPA; each case "
+        "run twice, bit for bit")
     rng = np.random.default_rng(0)
     dec = rng.integers(1, 2049, 16)
     dec[0], dec[1] = 0, 16 * 37 + 5
@@ -364,25 +373,32 @@ def serve_phases(torch, timer, rate: float, smi: str):
              "prefill_pos0_0": dict(lengths=[128], alloc=[128], c=128),
              "prefill_pos0_1024": dict(lengths=[1024 + 128], alloc=[1024 + 100], c=128)}
     held = {}
+    types = ((torch.float32, torch.bfloat16), (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16))
     for case, kw in cases.items():
-        for pool_dtype in (torch.bfloat16, torch.float32):
-            q, pool, table, lengths = paged_case(torch, gen, pool_dtype=pool_dtype, **kw)
+        for q_dtype, pool_dtype in types:
+            q, pool, table, lengths = paged_case(torch, gen, pool_dtype=pool_dtype, q_dtype=q_dtype, **kw)
             args = (q, pool, table, lengths)
-            tag = f"{case} {str(pool_dtype).split('.')[-1]} pool"
-            got, want = pa.paged_attention(*args), pa.paged_attention_plain(*args)
+            tag = f"{case} {str(q_dtype).split('.')[-1]} q {str(pool_dtype).split('.')[-1]} pool"
+            got, again, want = pa.paged_attention(*args), pa.paged_attention(*args), pa.paged_attention_plain(*args)
             torch.cuda.synchronize()
-            err = check(tag, got, want, TOL_LINE)
+            err = check(tag, got.float(), want.float(), TOL_LINE if q_dtype == torch.float32 else TOL_BF16_OUT)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: two runs of the kernel differ")
             if case == "decode" and got[0].any():
                 raise AssertionError("decode: the empty row's output is not exactly 0")
+            plan = pa.plan_of(*args)
             ms = timer(lambda: pa.paged_attention(*args), reps=20)
             plain_ms = timer(lambda: pa.paged_attention_plain(*args), reps=5)
             lib_ms = timer(sdpa_call(torch, *args), reps=20)
             bound, by = paged_bound(*args, rate)
             log(f"  {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
-                f"SDPA {lib_ms:.4f} ms  ({smi})")
-            held[tag] = dict(case=case, pool=str(pool_dtype), err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by=by, library_ms=lib_ms, lengths=[int(x) for x in kw["lengths"]])
-            del q, pool, table, lengths, args, got, want
+                f"SDPA {lib_ms:.4f} ms  two runs bit-equal; {plan.blocks} blocks, {plan.pieces} pieces of "
+                f"{plan.pages} pages a tile, {plan.launches} CUDA launch(es) a call  ({smi})")
+            held[tag] = dict(case=case, q=str(q_dtype), pool=str(pool_dtype), err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=lib_ms, runs_bit_equal=True,
+                             cuda_launches=plan.launches, plan=dataclasses.asdict(plan),
+                             lengths=[int(x) for x in kw["lengths"]])
+            del q, pool, table, lengths, args, got, again, want
     report["paged_attention"] = held
     torch.cuda.empty_cache()
 
@@ -458,6 +474,12 @@ def serve_phases(torch, timer, rate: float, smi: str):
     run.update(decode_step_ms=decode_ms, prefill_chunk_ms=prefill_ms, decode_tokens_per_s=16 / decode_ms * 1e3,
                decode_profile=profile_device(torch, decode, 3, decode_ms, "decode step"),
                prefill_profile=profile_device(torch, prefill, 2, prefill_ms, "prefill chunk"))
+    for what in ("decode", "prefill"):
+        prof = run[f"{what}_profile"]
+        b14 = sum(t for key, t in prof["kernels"] if "paged_" in key)
+        run[f"{what}_b14_ms"] = b14
+        log(f"  B14 in a {what} {'step' if what == 'decode' else 'chunk'}: {b14:.4f} ms of {prof['busy_ms']:.3f} ms "
+            f"device busy ({b14 / prof['busy_ms']:.1%})")
     del pools, state
     report["serving"] = run
 
@@ -530,11 +552,12 @@ def serve_phases(torch, timer, rate: float, smi: str):
         small[arch] = toks["cuda"]
     report["reduced_card_vs_cpu_tokens"] = small
 
-    dec_b = held["decode bfloat16 pool"]
+    dec_b, serving = held["decode float32 q bfloat16 pool"], held["decode bfloat16 q bfloat16 pool"]
     entry = {"name": "paged_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
              "replaces": "src/repro/kernels/paged_attention.py:143", "launches": counts["paged_attention"],
              "max_abs_err": max(h["err"] for h in held.values()), "ms": dec_b["ms"], "plain_ms": dec_b["plain_ms"],
-             "bound_ms": dec_b["bound_ms"], "bound_by": dec_b["bound_by"], "library_ms": dec_b["library_ms"]}
+             "bound_ms": dec_b["bound_ms"], "bound_by": dec_b["bound_by"], "library_ms": dec_b["library_ms"],
+             "serving_decode_ms": serving["ms"], "serving_decode_library_ms": serving["library_ms"]}
     return report, entry
 
 

@@ -453,6 +453,75 @@ def test_paged_attention_bf16_queries(dev, c):
     _close(got, want, 2.0**-7)
 
 
+def _main_path_case(dev, *, c, lengths, alloc, q_dtype, max_pages=128, page=16, seed=0):
+    """chip_smoke's phase-4 operands: full-width smollm_135m attention (9
+    query heads over 3 KV groups, hd 64), a bf16 pool holding the pages
+    that ``alloc`` positions of each row need, 128-page table rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.zeros((len(alloc), max_pages), dtype=torch.int32)
+    first = 1
+    for i, n in enumerate(-(-int(x) // page) for x in alloc):
+        table[i, :n] = torch.arange(first, first + n, dtype=torch.int32)
+        first += n
+    pool = torch.randn((first, page, 6, 64), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((len(alloc), c, 9, 64), generator=gen, device=dev).to(q_dtype)
+    return q, pool, table.to(dev), torch.tensor([int(x) for x in lengths], dtype=torch.int32, device=dev)
+
+
+_DECODE = np.random.default_rng(0).integers(1, 2049, 16)
+_DECODE[0], _DECODE[1] = 0, 16 * 37 + 5
+MAIN_PATH = {"decode": dict(c=1, lengths=_DECODE, alloc=_DECODE),
+             "prefill_pos0_1024": dict(c=128, lengths=[1024 + 128], alloc=[1024 + 100])}
+
+
+@pytest.mark.parametrize("case", list(MAIN_PATH))
+def test_paged_attention_bf16_queries_main_path(dev, case):
+    """The serving path's types at the main path's shapes: the prefill
+    chunk takes the tensor-core form (bf16 products, f32 sums)."""
+    args = _main_path_case(dev, q_dtype=torch.bfloat16, **MAIN_PATH[case])
+    plan = pa.plan_of(*args)
+    assert plan.form == (pa.FORM_MMA if case != "decode" else pa.FORM_CORES) and plan.pieces > 1
+    got = pa.paged_attention(*args)
+    want = pa.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _close(got, want, 2.0**-7)
+    if case == "decode":
+        assert not got[0].any(), "the inactive row is exactly 0"
+
+
+@pytest.mark.parametrize("case", list(MAIN_PATH) + ["card"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_is_deterministic(dev, case, q_dtype):
+    """The split walk's combine runs in piece order: two runs are equal bit
+    for bit."""
+    if case == "card":
+        args = _paged_case(dev, c=11, kv=3, rep=3, hd=64, page=64, pool_dtype=torch.bfloat16, q_dtype=q_dtype)
+    else:
+        args = _main_path_case(dev, q_dtype=q_dtype, **MAIN_PATH[case])
+    first = pa.paged_attention(*args)
+    second = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("c", [1, 11, 128])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_long_table(dev, c, q_dtype):
+    """Table rows far longer than any live length: at least half the pieces
+    of every row start past its keys and exit at once."""
+    lengths = [100, c, 0, 37 + c, 16 * 40 + 3] if c == 1 else [100 + c, c, 37 + c, 16 * 40 + 3, 2 * c]
+    args = _main_path_case(dev, c=c, lengths=lengths, alloc=[max(n, 1) for n in lengths], q_dtype=q_dtype)
+    plan = pa.plan_of(*args)
+    assert plan.pieces >= 2 * -(-max(lengths) // (16 * plan.pages))
+    got = pa.paged_attention(*args)
+    want = pa.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, want, LINE_SUMS if q_dtype == torch.float32 else 2.0**-7)
+    if c == 1:
+        assert not got[2].any(), "the inactive row is exactly 0"
+
+
 def test_paged_attention_rejects_unsupported_geometry(dev):
     """Geometry the kernel does not take raises; it never runs the twin."""
     before = pa.paged_attention.launches
@@ -469,6 +538,9 @@ def test_paged_attention_rejects_unsupported_geometry(dev):
     shifted = torch.empty(pool.numel() + 1, device=dev)[1:].view(pool.shape)   # 4 bytes off
     with pytest.raises(ValueError, match="16-byte"):
         pa.paged_attention(q, shifted, table, lengths)
+    shifted_q = torch.empty(q.numel() + 1, device=dev)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_attention(shifted_q, pool, table, lengths)
     with pytest.raises(TypeError):
         pa.paged_attention(q, pool, table.long(), lengths)
     assert pa.paged_attention.launches == before
