@@ -103,12 +103,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    6e: the sharded step's time, 4 ranks on one card (not a multi-GPU
    number), and the gradient all-reduce's. A rank that fails ends the run.
 7. The SSM serving path: ``ssm_scan`` (B15) against its plain twin at the
-   eval shape (1 x 2048 x 8192, N 16) and the decode shape (4 rows, S = 1,
-   a random h0), timed as in phase 2 beside its bound (bytes, or its
-   exponentials over the SFU rate); then full-width, full-depth
+   eval shape (1 x 2048 x 8192, N 16; the planner's sequence form) and the
+   decode shape (4 rows, S = 1, a random h0; the one-token form), each run
+   twice and compared bit for bit, timed as in phase 2 beside its bound
+   (bytes, or its exponentials over the SFU rate, with the sequence form's
+   second pass of them); then full-width, full-depth
    falcon_mamba_7b (64 layers, 7,006,326,784 parameters, 28.0 GB in f32)
    initialised on the card from a seeded CUDA generator: ``make_eval_step``
-   on a ZipfLM batch of 1 x 2048 (finite loss, 64 B15 launches), and
+   on a ZipfLM batch of 1 x 2048 (finite loss, 64 B15 launches, B15's
+   share of its device time by torch.profiler), and
    ``Engine.generate``'s legacy loop on 4 ZipfLM prompts of 64 tokens with
    32 greedy new tokens (64 launches per ``decode_step``, 64 + 31 steps);
    decode-step time, tokens/s, the device-busy share (torch.profiler) and
@@ -124,7 +127,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    counters zeroed before and read after; each against its plain twin, p'
    against ``adam_precond`` / ``slim_precond_batched`` followed by the same
    step, and timed beside its bound and ``AdamW(fused=True)`` (B6) or
-   ``torch.var_mean`` (B8).
+   ``torch.var_mean`` (B8); B8 also per form of its split walk, the
+   embedding's v as one line (SPLIT) and along its rows (MAJOR) beside the
+   main path's WARP views.
 9. One ``{"kernels": [...]}`` line (all 15 kernels, B1 and B2 with their
    flags on rows of their own), the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
@@ -1587,12 +1592,12 @@ def scan_case(torch, gen, b, s, d, n, in_dtype):
 
 
 def scan_bound(args, rate: float):
-    """Least time (ms) for one selective scan, and what sets it: the bytes
-    (x, dt, B, C, a, d_skip, h0 read once; y and h_final written once) over
-    the memory rate; its exponentials (one per timestep, channel and state)
-    over the SFU rate; its other f32 operations (6 per timestep, channel and
-    state: dt*a, decay*h, dx*B, their sum, h*C, the sum of y) over the f32
-    rate."""
+    """Least time (ms) for one selective scan, and what sets it, from the
+    inputs alone: the bytes (x, dt, B, C, a, d_skip, h0 read once; y and
+    h_final written once) over the memory rate; its exponentials (one per
+    timestep, channel and state) over the SFU rate; its other f32
+    operations (6 per timestep, channel and state: dt*a, decay*h, dx*B,
+    their sum, h*C, the sum of y) over the f32 rate."""
     x, dt, a, b_t, c_t, d_skip, h0 = args
     b, s, d = x.shape
     n = a.shape[1]
@@ -1601,6 +1606,33 @@ def scan_bound(args, rate: float):
     t_f32 = 6 * b * s * d * n / F32_RATE
     by = max(times, key=times.get)
     return max(times[by], t_f32) * 1e3, by
+
+
+def scan_design_bound(args, rate: float, sms: int) -> float:
+    """Least time (ms) of B15's design, which does more work than the
+    function needs: :func:`scan_bound` with the carry walk's second pass
+    over chunks 0..K-2 of the sequence form's plan (its exponentials, and 4
+    f32 operations per timestep, channel and state) added. Reported beside
+    the bound, never as it."""
+    from repro_torch.kernels import ssm_scan as sc
+
+    x, a = args[0], args[2]
+    b, s, d = x.shape
+    n = a.shape[1]
+    plan = sc.plan_scan(b, s, d, n, sms=sms)
+    carry = plan.steps(plan.chunks - 1)[0] if plan.form == sc.FORM_SEQ else 0
+    bound, _ = scan_bound(args, rate)
+    return max(bound, b * (s + carry) * d * n / SFU_RATE * 1e3, (6 * s + 4 * carry) * b * d * n / F32_RATE * 1e3)
+
+
+def scan_form(plan) -> str:
+    """A plan of B15 in words."""
+    from repro_torch.kernels import ssm_scan as sc
+
+    if plan.form == sc.FORM_TOKEN:
+        return f"one-token form, {plan.out_grid[0]} x {plan.out_grid[1]} blocks"
+    return (f"sequence form, {plan.chunks} chunks of {plan.chunk} steps, carry walk {plan.walk_grid}, "
+            f"carry {plan.carry_blocks} blocks, output walk {plan.out_grid}")
 
 
 def ssm_phase(torch, timer, rate: float, smi: str):
@@ -1629,19 +1661,26 @@ def ssm_phase(torch, timer, rate: float, smi: str):
     # -- 7a. B15 against its plain twin at the eval and decode shapes ------
     log(f"[7] ssm_scan (B15) at full-width falcon_mamba_7b shapes against its plain twin, bound ({smi})")
     held = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for case, (b, s) in (("eval", (1, SSM_EVAL_SEQ)), ("decode", (SSM_ROWS, 1))):
         args = scan_case(torch, gen, b, s, scfg.d_inner, scfg.d_state, torch.bfloat16)
-        (y, h), (y_w, h_w) = sc.ssm_scan(*args), sc.ssm_scan_plain(*args)
+        plan = sc.plan_scan(b, s, scfg.d_inner, scfg.d_state, sms=sms)
+        (y, h), (y2, h2), (y_w, h_w) = sc.ssm_scan(*args), sc.ssm_scan(*args), sc.ssm_scan_plain(*args)
         torch.cuda.synchronize()
         errs = [check(f"{case} {what}", got, want, TOL_LINE) for what, got, want in (("y", y, y_w), ("h", h, h_w))]
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            raise AssertionError(f"ssm_scan {case}: two runs on one input differ")
         ms = timer(lambda: sc.ssm_scan(*args), reps=20)
         plain_ms = timer(lambda: sc.ssm_scan_plain(*args), reps=3)
         bound, by = scan_bound(args, rate)
-        log(f"  {case} (B={b}, S={s}, D={scfg.d_inner}, N={scfg.d_state}): kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  library: none (no PyTorch call computes a "
-            f"selective scan)")
-        held[case] = dict(err_y=errs[0], err_h=errs[1], ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-        del args, y, h, y_w, h_w
+        design = scan_design_bound(args, rate, sms)
+        log(f"  {case} (B={b}, S={s}, D={scfg.d_inner}, N={scfg.d_state}): {scan_form(plan)}; two runs bit-equal")
+        log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by}, "
+            f"{bound / ms:.1%} reached)  this design's least {design:.4f} ms ({design / ms:.1%} reached)  "
+            f"library: none (no PyTorch call computes a selective scan)")
+        held[case] = dict(err_y=errs[0], err_h=errs[1], ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                          design_bound_ms=design, form=scan_form(plan))
+        del args, y, h, y2, h2, y_w, h_w
     report["ssm_scan"] = held
     torch.cuda.empty_cache()
 
@@ -1675,7 +1714,11 @@ def ssm_phase(torch, timer, rate: float, smi: str):
         raise AssertionError(f"falcon_mamba_7b eval loss is not finite: {loss}")
     if eval_counts["ssm_scan"] != cfg.n_layers or sum(eval_counts.values()) != cfg.n_layers:
         raise AssertionError(f"eval launches {eval_counts}, expected ssm_scan {cfg.n_layers} and no other kernel")
-    report["eval"] = dict(loss=loss, ms=eval_s * 1e3, launches=eval_counts)
+    prof = profile_device(torch, lambda: eval_step(batch), 1, eval_s * 1e3, "eval forward")
+    scan_ms = sum(t for key, t in prof["kernels"] if key.startswith("ssm_") or "::ssm_" in key)
+    log(f"  B15 in the eval forward: {scan_ms:.3f} ms of {prof['busy_ms']:.3f} ms device time "
+        f"({scan_ms / prof['busy_ms']:.1%})")
+    report["eval"] = dict(loss=loss, ms=eval_s * 1e3, launches=eval_counts, profile=prof, scan_ms=scan_ms)
 
     # -- 7d. the legacy serving loop -------------------------------------------
     prompts = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SSM_PROMPT, global_batch=SSM_ROWS,
@@ -1921,15 +1964,39 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
                                                                 bc1=bc1, bc2=bc2, **hyper), reps=3),
             bound_ms=max((20 * n + 8 * n_lines) / rate, 14 * n / F32_RATE) * 1e3))
     slim_sum = total(slim_t)
-    snr_t = []
+    def b8_time(v3, axis):
+        n, red = v3.numel(), 2 if axis == 1 else 1
+        return dict(ms=timer(lambda: ss.snr_stats_batched(v3, axis=axis), reps=5),
+                    plain_ms=timer(lambda: ss.snr_stats_batched_plain(v3, axis=axis), reps=3),
+                    bound_ms=max((4 * n + 8 * n // v3.shape[red]) / rate, 3 * n / F64_RATE) * 1e3,
+                    library_ms=timer(lambda: torch.var_mean(v3, dim=red, correction=0), reps=5))
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    forms = {ss.FORM_WARP: "WARP", ss.FORM_SPLIT: "SPLIT", ss.FORM_MAJOR: "MAJOR"}
+    snr_t, by_form = [], {}
     for name, v2 in lines.items():
         v3 = v2[None]
-        n = v3.numel()
-        snr_t.append(dict(ms=timer(lambda: ss.snr_stats_batched(v3, axis=1), reps=5),
-                          plain_ms=timer(lambda: ss.snr_stats_batched_plain(v3, axis=1), reps=3),
-                          bound_ms=max((4 * n + 8 * v3.shape[1]) / rate, 3 * n / F64_RATE) * 1e3,
-                          library_ms=timer(lambda: torch.var_mean(v3, dim=2, correction=0), reps=5)))
+        snr_t.append(b8_time(v3, 1))
+        form = forms[ss.plan_split(*v3.shape, 1, sms=sms, aligned=v3.data_ptr() % 16 == 0).form]
+        by_form.setdefault(f"{form} (main path)", []).append(snr_t[-1])
     snr_sum = total(snr_t)
+    # B8's other forms, outside the counted run: the embedding's v as one
+    # 38.6 M-element line (SPLIT) and reduced along its rows (MAJOR).
+    emb = lines["embed"]
+    for form, v3, axis in (("SPLIT", emb.reshape(1, 1, -1), 1), ("MAJOR", emb[None], 0)):
+        plan = ss.plan_split(*v3.shape, axis, sms=sms, aligned=v3.data_ptr() % 16 == 0)
+        if forms[plan.form] != form:
+            raise AssertionError(f"snr_stats on {tuple(v3.shape)} axis {axis}: planned {forms[plan.form]}, not {form}")
+        for a, b in zip(ss.snr_stats_batched(v3, axis=axis), ss.snr_stats_batched_plain(v3, axis=axis)):
+            errs["snr_stats_batched"] = max(errs["snr_stats_batched"], max_err(a, b)[0])
+            if max_err(a, b)[1] > TOL_LINE:
+                raise AssertionError(f"snr_stats {form} {tuple(v3.shape)}: {max_err(a, b)} against its twin")
+        by_form[f"{form} {tuple(v3.shape)} axis {axis}"] = [b8_time(v3, axis)]
+    for form, items in by_form.items():
+        t = total(items)
+        log(f"  snr_stats_batched {form}, {len(items)} views: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%} reached)  var_mean {t['library_ms']:.4f} ms")
+    snr_by_form = {form: total(items) for form, items in by_form.items()}
     full_t = {}
     for dt, (p, g) in full.items():
         tag = str(dt).split(".")[-1]
@@ -1956,7 +2023,7 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
         f"{snr_sum['ms']:.4f} / {snr_sum['plain_ms']:.4f} / {snr_sum['bound_ms']:.4f} ms, var_mean "
         f"{snr_sum['library_ms']:.4f} ms ({smi})")
     report = dict(launches=counts, errs=errs, fused_adam=dict(adam_sum, library_ms=adam_lib), slim=slim_sum,
-                  snr=snr_sum, full=full_t)
+                  snr=snr_sum, snr_by_form=snr_by_form, full=full_t)
     src = "src/repro_torch/kernels/csrc/"
     entries = [
         {"name": "fused_adam", "route": "cuda", "source": src + "adam_precond.cu",

@@ -24,8 +24,10 @@
 // 1-D grid of 256-thread blocks, pieces of 64-256 KB sized for about 4
 // blocks per SM where the view has the bytes, each block streaming one piece
 // of the view, in one of three forms:
-//   WARP   (axis 1, lines <= 4096 elements): a warp per line, 8 lines a block,
-//          finished by warp shuffles;
+//   WARP   (axis 1, lines <= 4096 elements): a group of lanes per line, a
+//          warp for lines of 128 float4s or more, fewer for shorter lines
+//          so that each lane issues about kUnroll loads (8 lines a block at
+//          32 lanes, up to 256), finished by shuffles within the group;
 //   SPLIT  (axis 1, longer lines): a line cut into nseg segments, a block each;
 //   MAJOR  (axis 0): a block covers 128 adjacent columns (one float4 per
 //          lane, 512 B per row per warp) over a chunk of nseg rows, its 8
@@ -42,21 +44,17 @@
 // 16-byte aligned or whose inner size is not a multiple of 4 take the same
 // walk with 4-byte loads (32 columns a block in the major form).
 //
-// The PLAIN kernels replace snr_stats.py:126 snr_stats_batched (B8; body
-// _snr_kernel :75, same launcher): per line s1 = sum v and s2 = sum v*v (v*v
-// rounded in f32, as the TPU kernel squares; sums in f64), with no shift and
-// no first entry. Bound: bytes, 4 B per element, 8 B per line. They keep the
-// one-block-per-line walk (a strip of kStrip columns per block for axis 0).
+// The PLAIN instantiation of the same walk replaces snr_stats.py:126
+// snr_stats_batched (B8; body _snr_kernel :75, same launcher): per line
+// s1 = sum v and s2 = sum v*v (v*v rounded in f32, as the TPU kernel
+// squares; sums in f64), with no shift and no first entry. Bound: bytes,
+// 4 B per element, 8 B per line. It takes plan_split's plan and the same
+// fixed-order combine, with two sums in place of three.
 #include "common.cuh"
 
 namespace {
 
-using repro_torch::block_sum;
-using repro_torch::kRowThreads;
-using repro_torch::kStrip;
-using repro_torch::warp_sum;
-
-// ---- B5 and B9: the split walk ----------------------------------------------
+// ---- B5, B9 and B8: the split walk -------------------------------------------
 
 // These match the planner's constants in repro_torch/kernels/snr_stats.py.
 constexpr int kThreads = 256;  // every block of the split walk
@@ -64,17 +62,29 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;     // loads in flight per thread
 constexpr int kFormWarp = 0, kFormSplit = 1, kFormMajor = 2;
 
+// What a walk sums per line: B5's centered sums (CENTERED), the same with
+// the line's first entry (FIRST, B9), or B8's plain sums (PLAIN).
+constexpr int kCentered = 0, kFirst = 1, kPlain = 2;
+
 __device__ __forceinline__ float load(const float* p) { return __ldcs(p); }
 __device__ __forceinline__ float4 load(const float4* p) { return __ldcs(p); }
 
-// One line's three sums, or one piece's shares of them.
+// One line's sums, or one piece's shares of them: CENTERED and FIRST
+// (sum v, sum d, sum d^2) with d = v - v0 rounded in f32; PLAIN (sum v,
+// sum v*v) with v*v rounded in f32. All in f64.
+template <int KIND>
 struct Sums {
-  double s1 = 0.0, s1c = 0.0, s2c = 0.0;
+  static constexpr int kCount = KIND == kPlain ? 2 : 3;
+  double v[3] = {0.0, 0.0, 0.0};
   __device__ __forceinline__ void add(float e, float x0) {
-    s1 += (double)e;
-    const double d = (double)__fsub_rn(e, x0);
-    s1c += d;
-    s2c += d * d;
+    v[0] += (double)e;
+    if constexpr (KIND == kPlain) {
+      v[1] += (double)__fmul_rn(e, e);
+    } else {
+      const double d = (double)__fsub_rn(e, x0);
+      v[1] += d;
+      v[2] += d * d;
+    }
   }
   __device__ __forceinline__ void add(const float4& e, float x0) {
     add(e.x, x0);
@@ -82,17 +92,37 @@ struct Sums {
     add(e.z, x0);
     add(e.w, x0);
   }
-  __device__ __forceinline__ void warp_reduce() {
-    s1 = warp_sum(s1);
-    s1c = warp_sum(s1c);
-    s2c = warp_sum(s2c);
+  // Sums over aligned groups of `group` lanes (a power of two <= 32): the
+  // whole warp's sum at 32.
+  __device__ __forceinline__ void group_reduce(int group = 32) {
+    for (int off = group >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int j = 0; j < kCount; ++j) v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
+    }
   }
 };
 
+// The line outputs (kCount sums of a Sums, and FIRST's v0).
+struct Outs {
+  float* s[3];
+  float* first;
+};
+
+// The shift of a line whose first entry is at p (PLAIN has none).
+template <int KIND, typename T>
+__device__ __forceinline__ T shift_at(const float* p) {
+  if constexpr (KIND == kPlain) {
+    return T{};
+  } else {
+    return *reinterpret_cast<const T*>(p);
+  }
+}
+
 // Adds x[i] for i = t, t + step, ... < n (T: float or float4), kUnroll loads
 // issued before their sums.
-template <typename T>
-__device__ __forceinline__ void walk(const T* __restrict__ x, long long n, int t, int step, float x0, Sums& s) {
+template <typename T, int KIND>
+__device__ __forceinline__ void walk(const T* __restrict__ x, long long n, int t, int step, float x0,
+                                     Sums<KIND>& s) {
   long long i = t;
   for (; i + (long long)(kUnroll - 1) * step < n; i += (long long)kUnroll * step) {
     T e[kUnroll];
@@ -105,56 +135,54 @@ __device__ __forceinline__ void walk(const T* __restrict__ x, long long n, int t
 }
 
 // Where one piece's sums go: the line's outputs when the line is one piece,
-// else share k of the line's nseg in the workspace (three planes of np =
+// else share k of the line's nseg in the workspace (kCount planes of np =
 // lines * nseg doubles). The first piece also writes v0 (FIRST).
-template <bool FIRST>
-__device__ __forceinline__ void emit(const Sums& s, float x0, long long line, long long k, long long nseg,
-                                     long long np, double* part, float* s1, float* s1c, float* s2c, float* first) {
+template <int KIND>
+__device__ __forceinline__ void emit(const Sums<KIND>& s, float x0, long long line, long long k, long long nseg,
+                                     long long np, double* part, const Outs& o) {
   if (nseg == 1) {
-    s1[line] = (float)s.s1;
-    s1c[line] = (float)s.s1c;
-    s2c[line] = (float)s.s2c;
+#pragma unroll
+    for (int j = 0; j < Sums<KIND>::kCount; ++j) o.s[j][line] = (float)s.v[j];
   } else {
-    const long long i = line * nseg + k;
-    part[i] = s.s1;
-    part[np + i] = s.s1c;
-    part[2 * np + i] = s.s2c;
+#pragma unroll
+    for (int j = 0; j < Sums<KIND>::kCount; ++j) part[j * np + line * nseg + k] = s.v[j];
   }
-  if (FIRST && k == 0) first[line] = x0;
+  if (KIND == kFirst && k == 0) o.first[line] = x0;
 }
 
-// WARP: lines of `cols` contiguous elements, a warp per line.
-template <typename T, bool FIRST>
+// WARP: lines of `cols` contiguous elements, `group` lanes per line (32 /
+// group lines a warp; short lines take fewer lanes, so every lane loads).
+template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads)
-    snr_warp_lines(const float* __restrict__ v, float* s1, float* s1c, float* s2c, float* first, long long lines,
-                   long long cols) {
-  const long long line = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (line >= lines) return;  // the whole warp
+    snr_warp_lines(const float* __restrict__ v, Outs o, long long lines, long long cols, int group) {
   const int lane = threadIdx.x & 31;
+  const long long line = ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * (32 / group) + lane / group;
+  const bool live = line < lines;  // no early exit: the whole warp shuffles
   const float* x = v + line * cols;
-  const float x0 = x[0];
-  Sums s;
-  walk(reinterpret_cast<const T*>(x), cols / (long long)(sizeof(T) / sizeof(float)), lane, 32, x0, s);
-  s.warp_reduce();
-  if (lane == 0) emit<FIRST>(s, x0, line, 0, 1, 0, nullptr, s1, s1c, s2c, first);
+  const float x0 = live ? shift_at<KIND, float>(x) : 0.f;
+  Sums<KIND> s;
+  if (live) {
+    walk(reinterpret_cast<const T*>(x), cols / (long long)(sizeof(T) / sizeof(float)), lane % group, group, x0, s);
+  }
+  s.group_reduce(group);
+  if (live && lane % group == 0) emit(s, x0, line, 0, 1, 0, nullptr, o);
 }
 
 // Thread 0 gets the block's total, summed over the warps in a fixed order.
-__device__ __forceinline__ Sums block_total(Sums s, double (*smem)[kWarps]) {
-  s.warp_reduce();
+template <int KIND>
+__device__ __forceinline__ Sums<KIND> block_total(Sums<KIND> s, double (*smem)[kWarps]) {
+  s.group_reduce();
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) {
-    smem[0][warp] = s.s1;
-    smem[1][warp] = s.s1c;
-    smem[2][warp] = s.s2c;
+#pragma unroll
+    for (int j = 0; j < Sums<KIND>::kCount; ++j) smem[j][warp] = s.v[j];
   }
   __syncthreads();
-  Sums t;
+  Sums<KIND> t;
   if (threadIdx.x == 0) {
     for (int w = 0; w < kWarps; ++w) {
-      t.s1 += smem[0][w];
-      t.s1c += smem[1][w];
-      t.s2c += smem[2][w];
+#pragma unroll
+      for (int j = 0; j < Sums<KIND>::kCount; ++j) t.v[j] += smem[j][w];
     }
   }
   return t;
@@ -163,26 +191,30 @@ __device__ __forceinline__ Sums block_total(Sums s, double (*smem)[kWarps]) {
 // SPLIT: block b holds segment b % nseg (elements [k*seg, k*seg + seg) of
 // the line, the last one shorter) of line b / nseg. seg is a multiple of
 // 1024, so the vector form's segments start 16-byte aligned.
-template <typename T, bool FIRST>
+template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads)
-    snr_split_lines(const float* __restrict__ v, float* s1, float* s1c, float* s2c, float* first, long long cols,
-                    long long seg, long long nseg, long long np, double* part) {
-  __shared__ double smem[3][kWarps];
+    snr_split_lines(const float* __restrict__ v, Outs o, long long cols, long long seg, long long nseg, long long np,
+                    double* part) {
+  __shared__ double smem[Sums<KIND>::kCount][kWarps];
   const long long line = (long long)blockIdx.x / nseg;
   const long long k = (long long)blockIdx.x % nseg;
   const float* x = v + line * cols;
-  const float x0 = x[0];
+  const float x0 = shift_at<KIND, float>(x);
   const long long begin = k * seg;
   const long long len = min(seg, cols - begin);
   constexpr long long kPer = sizeof(T) / sizeof(float);
-  Sums s;
+  Sums<KIND> s;
   walk(reinterpret_cast<const T*>(x + begin), len / kPer, threadIdx.x, kThreads, x0, s);
   s = block_total(s, smem);
-  if (threadIdx.x == 0) emit<FIRST>(s, x0, line, k, nseg, np, part, s1, s1c, s2c, first);
+  if (threadIdx.x == 0) emit(s, x0, line, k, nseg, np, part, o);
 }
 
-__device__ __forceinline__ void add_columns(Sums* s, float e, float x0) { s[0].add(e, x0); }
-__device__ __forceinline__ void add_columns(Sums* s, const float4& e, const float4& x0) {
+template <int KIND>
+__device__ __forceinline__ void add_columns(Sums<KIND>* s, float e, float x0) {
+  s[0].add(e, x0);
+}
+template <int KIND>
+__device__ __forceinline__ void add_columns(Sums<KIND>* s, const float4& e, const float4& x0) {
   s[0].add(e.x, x0.x);
   s[1].add(e.y, x0.y);
   s[2].add(e.z, x0.z);
@@ -194,13 +226,14 @@ __device__ __forceinline__ void add_columns(Sums* s, const float4& e, const floa
 // ctiles, columns from (tile % ctiles) * kTile. Lane l of each warp owns the
 // kPer columns from l * kPer; warp w takes rows k*seg + w, + kWarps, ...;
 // the warps' sums meet in shared memory and are added in warp order.
-template <typename T, bool FIRST>
+template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads)
-    snr_major_columns(const float* __restrict__ v, float* s1, float* s1c, float* s2c, float* first, long long rows,
-                      long long cols, long long ctiles, long long seg, long long nseg, long long np, double* part) {
+    snr_major_columns(const float* __restrict__ v, Outs o, long long rows, long long cols, long long ctiles,
+                      long long seg, long long nseg, long long np, double* part) {
   constexpr int kPer = sizeof(T) / sizeof(float);
   constexpr int kTile = 32 * kPer;
-  __shared__ double smem[3][kWarps][kTile];
+  constexpr int kCount = Sums<KIND>::kCount;
+  __shared__ double smem[kCount][kWarps][kTile];
   const long long k = (long long)blockIdx.x % nseg;
   const long long tile = (long long)blockIdx.x / nseg;
   const long long b = tile / ctiles;
@@ -209,9 +242,9 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5;
   const long long c = c0 + (long long)lane * kPer;
   const float* x = v + b * rows * cols;
-  Sums s[kPer];
+  Sums<KIND> s[kPer];
   if (c < cols) {  // the vector form has cols % 4 == 0: a lane's columns are all live or none
-    const T x0 = *reinterpret_cast<const T*>(x + c);
+    const T x0 = shift_at<KIND, T>(x + c);
     const long long r_end = min(rows, (k + 1) * seg);
     long long r = k * seg + warp;
     for (; r + (long long)(kUnroll - 1) * kWarps < r_end; r += (long long)kUnroll * kWarps) {
@@ -225,140 +258,69 @@ __global__ void __launch_bounds__(kThreads)
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    smem[0][warp][lane * kPer + j] = s[j].s1;
-    smem[1][warp][lane * kPer + j] = s[j].s1c;
-    smem[2][warp][lane * kPer + j] = s[j].s2c;
+#pragma unroll
+    for (int q = 0; q < kCount; ++q) smem[q][warp][lane * kPer + j] = s[j].v[q];
   }
   __syncthreads();
   const long long cc = c0 + threadIdx.x;
   if (threadIdx.x < kTile && cc < cols) {
-    Sums t;
+    Sums<KIND> t;
     for (int w = 0; w < kWarps; ++w) {
-      t.s1 += smem[0][w][threadIdx.x];
-      t.s1c += smem[1][w][threadIdx.x];
-      t.s2c += smem[2][w][threadIdx.x];
+#pragma unroll
+      for (int q = 0; q < kCount; ++q) t.v[q] += smem[q][w][threadIdx.x];
     }
-    emit<FIRST>(t, x[cc], b * cols + cc, k, nseg, np, part, s1, s1c, s2c, first);
+    emit(t, shift_at<KIND, float>(x + cc), b * cols + cc, k, nseg, np, part, o);
   }
 }
 
 // Each line's nseg workspace shares, summed in a fixed order: a warp per
 // line, lane l adding shares l, l + 32, ... in turn, then the shuffle tree.
+template <int KIND>
 __global__ void __launch_bounds__(kThreads)
-    snr_combine(const double* __restrict__ part, long long lines, long long nseg, float* s1, float* s1c,
-                float* s2c) {
+    snr_combine(const double* __restrict__ part, long long lines, long long nseg, Outs o) {
   const long long line = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (line >= lines) return;
   const int lane = threadIdx.x & 31;
   const long long np = lines * nseg;
   const double* p = part + line * nseg;
-  Sums s;
+  Sums<KIND> s;
   for (long long k = lane; k < nseg; k += 32) {
-    s.s1 += p[k];
-    s.s1c += p[np + k];
-    s.s2c += p[2 * np + k];
+#pragma unroll
+    for (int j = 0; j < Sums<KIND>::kCount; ++j) s.v[j] += p[j * np + k];
   }
-  s.warp_reduce();
+  s.group_reduce();
   if (lane == 0) {
-    s1[line] = (float)s.s1;
-    s1c[line] = (float)s.s1c;
-    s2c[line] = (float)s.s2c;
+#pragma unroll
+    for (int j = 0; j < Sums<KIND>::kCount; ++j) o.s[j][line] = (float)s.v[j];
   }
 }
 
-template <typename T, bool FIRST>
-int launch_walk(const float* v, float* s1, float* s1c, float* s2c, float* first, double* part, long long batch,
-                 long long rows, long long cols, int form, long long seg, long long nseg, long long blocks,
-                 cudaStream_t s) {
+template <typename T, int KIND>
+int launch_walk(const float* v, const Outs& o, double* part, long long batch, long long rows, long long cols,
+                int form, int group, long long seg, long long nseg, long long blocks, cudaStream_t s) {
   constexpr long long kTile = 32 * (sizeof(T) / sizeof(float));
   const long long lines = form == kFormMajor ? batch * cols : batch * rows;
   const long long np = lines * nseg;
   const unsigned grid = (unsigned)blocks;
   if (form == kFormWarp) {
-    snr_warp_lines<T, FIRST><<<grid, kThreads, 0, s>>>(v, s1, s1c, s2c, first, lines, cols);
+    snr_warp_lines<T, KIND><<<grid, kThreads, 0, s>>>(v, o, lines, cols, group);
   } else if (form == kFormSplit) {
-    snr_split_lines<T, FIRST><<<grid, kThreads, 0, s>>>(v, s1, s1c, s2c, first, cols, seg, nseg, np, part);
+    snr_split_lines<T, KIND><<<grid, kThreads, 0, s>>>(v, o, cols, seg, nseg, np, part);
   } else {
-    snr_major_columns<T, FIRST><<<grid, kThreads, 0, s>>>(v, s1, s1c, s2c, first, rows, cols,
-                                                          (cols + kTile - 1) / kTile, seg, nseg, np, part);
+    snr_major_columns<T, KIND><<<grid, kThreads, 0, s>>>(v, o, rows, cols, (cols + kTile - 1) / kTile, seg, nseg,
+                                                         np, part);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nseg == 1) return (int)err;
-  snr_combine<<<(unsigned)((lines + kWarps - 1) / kWarps), kThreads, 0, s>>>(part, lines, nseg, s1, s1c, s2c);
+  snr_combine<KIND><<<(unsigned)((lines + kWarps - 1) / kWarps), kThreads, 0, s>>>(part, lines, nseg, o);
   return (int)cudaGetLastError();
 }
 
-template <bool FIRST>
-int launch_split(bool vec, const float* v, float* s1, float* s1c, float* s2c, float* first, double* part,
-                 long long batch, long long rows, long long cols, int form, long long seg, long long nseg,
-                 long long blocks, cudaStream_t s) {
-  if (vec) {
-    return launch_walk<float4, FIRST>(v, s1, s1c, s2c, first, part, batch, rows, cols, form, seg, nseg, blocks, s);
-  }
-  return launch_walk<float, FIRST>(v, s1, s1c, s2c, first, part, batch, rows, cols, form, seg, nseg, blocks, s);
-}
-
-// ---- B8: the plain line sums ------------------------------------------------
-
-template <bool VEC>
-__global__ void snr_plain_minor_kernel(const float* __restrict__ v, float* s1, float* s2, long long cols) {
-  __shared__ double smem[32];
-  const long long line = blockIdx.x;
-  const float* x = v + line * cols;
-  double a1 = 0.0, a2 = 0.0;
-  if (VEC) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (long long j = threadIdx.x; j < cols / 4; j += blockDim.x) {
-      const float4 e = x4[j];
-      a1 += (double)e.x + (double)e.y + (double)e.z + (double)e.w;
-      a2 += (double)__fmul_rn(e.x, e.x) + (double)__fmul_rn(e.y, e.y) + (double)__fmul_rn(e.z, e.z) +
-            (double)__fmul_rn(e.w, e.w);
-    }
-  } else {
-    for (long long j = threadIdx.x; j < cols; j += blockDim.x) {
-      const float e = x[j];
-      a1 += (double)e;
-      a2 += (double)__fmul_rn(e, e);
-    }
-  }
-  a1 = block_sum(a1, smem);
-  a2 = block_sum(a2, smem);
-  if (threadIdx.x == 0) {
-    s1[line] = (float)a1;
-    s2[line] = (float)a2;
-  }
-}
-
-__global__ void snr_plain_major_kernel(const float* __restrict__ v, float* s1, float* s2, long long rows,
-                                       long long cols) {
-  __shared__ double part[2][kRowThreads][kStrip + 1];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const long long c = (long long)blockIdx.x * kStrip + tx;
-  const long long b = blockIdx.y;
-  const bool live = c < cols;
-  const float* x = v + b * rows * cols;
-  double a1 = 0.0, a2 = 0.0;
-  if (live) {
-    for (long long r = ty; r < rows; r += kRowThreads) {
-      const float e = x[r * cols + c];
-      a1 += (double)e;
-      a2 += (double)__fmul_rn(e, e);
-    }
-  }
-  part[0][ty][tx] = a1;
-  part[1][ty][tx] = a2;
-  __syncthreads();
-  if (ty == 0 && live) {
-    double t1 = 0.0, t2 = 0.0;
-    for (int k = 0; k < kRowThreads; ++k) {
-      t1 += part[0][k][tx];
-      t2 += part[1][k][tx];
-    }
-    const long long li = b * cols + c;
-    s1[li] = (float)t1;
-    s2[li] = (float)t2;
-  }
+template <int KIND>
+int launch_split(bool vec, const float* v, const Outs& o, double* part, long long batch, long long rows,
+                 long long cols, int form, int group, long long seg, long long nseg, long long blocks, cudaStream_t s) {
+  if (vec) return launch_walk<float4, KIND>(v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, s);
+  return launch_walk<float, KIND>(v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, s);
 }
 
 }  // namespace
@@ -366,41 +328,28 @@ __global__ void snr_plain_major_kernel(const float* __restrict__ v, float* s1, f
 // B5 (first == null) and B9 (first: the v0 output). v: contiguous f32
 // (batch, rows, cols); s1, s1c, s2c and first: contiguous f32 (batch, kept),
 // kept = rows for the WARP and SPLIT forms (axis 1) and cols for MAJOR
-// (axis 0). form, vec, seg, nseg and blocks are plan_split's plan for this
-// view; part holds 3 * lines * nseg doubles when nseg > 1 (else null).
+// (axis 0). form, vec, group, seg, nseg and blocks are plan_split's plan for
+// this view; part holds 3 * lines * nseg doubles when nseg > 1 (else null).
 // Returns the cudaError_t of the launches.
 extern "C" int repro_snr_stats_centered(const float* v, float* s1, float* s1c, float* s2c, float* first,
                                         double* part, long long batch, long long rows, long long cols, int form,
-                                        int vec, long long seg, long long nseg, long long blocks, void* stream) {
+                                        int vec, int group, long long seg, long long nseg, long long blocks,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Outs o{{s1, s1c, s2c}, first};
   if (first != nullptr) {
-    return launch_split<true>(vec != 0, v, s1, s1c, s2c, first, part, batch, rows, cols, form, seg, nseg, blocks, s);
+    return launch_split<kFirst>(vec != 0, v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, s);
   }
-  return launch_split<false>(vec != 0, v, s1, s1c, s2c, first, part, batch, rows, cols, form, seg, nseg, blocks, s);
+  return launch_split<kCentered>(vec != 0, v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, s);
 }
 
-// The plain line sums (B8): v as above; s1 and s2 (sum v*v): contiguous f32
-// (batch, kept). The caller guarantees batch*rows < 2^31 (axis 1) and batch
-// < 65536 (axis 0). Returns the cudaError_t of the launch.
-extern "C" int repro_snr_stats(const float* v, float* s1, float* s2, long long batch, long long rows, long long cols,
-                               int axis, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (axis == 1) {
-    const bool vec = cols % 4 == 0 && repro_torch::aligned16(v);
-    const long long work = vec ? cols / 4 : cols;
-    long long threads = ((work + 31) / 32) * 32;
-    if (threads > 1024) threads = 1024;
-    if (threads < 32) threads = 32;
-    const unsigned lines = (unsigned)(batch * rows);
-    if (vec) {
-      snr_plain_minor_kernel<true><<<lines, (unsigned)threads, 0, s>>>(v, s1, s2, cols);
-    } else {
-      snr_plain_minor_kernel<false><<<lines, (unsigned)threads, 0, s>>>(v, s1, s2, cols);
-    }
-  } else {
-    dim3 grid((unsigned)((cols + kStrip - 1) / kStrip), (unsigned)batch);
-    dim3 block(kStrip, kRowThreads);
-    snr_plain_major_kernel<<<grid, block, 0, s>>>(v, s1, s2, rows, cols);
-  }
-  return (int)cudaGetLastError();
+// The plain line sums (B8): v and the plan as above; s1 and s2 (sum v*v):
+// contiguous f32 (batch, kept); part holds 2 * lines * nseg doubles when
+// nseg > 1 (else null). Returns the cudaError_t of the launches.
+extern "C" int repro_snr_stats(const float* v, float* s1, float* s2, double* part, long long batch, long long rows,
+                               long long cols, int form, int vec, int group, long long seg, long long nseg,
+                               long long blocks, void* stream) {
+  const Outs o{{s1, s2, nullptr}, nullptr};
+  return launch_split<kPlain>(vec != 0, v, o, part, batch, rows, cols, form, group, seg, nseg, blocks,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -9,13 +9,13 @@ Kernels: ``csrc/snr_stats.cu`` replaces the Pallas kernels at
 and ``:152`` (B9, body ``_snr_centered_partial_kernel`` :89), both launched
 by ``_stats_call`` (``pallas_call`` :116). Both are bound by bytes: one
 4-byte read per element, 12 bytes written per line (16 with B9's shift).
-They share one walk that splits the view by bytes across the SMs:
-:func:`plan_split` (pure integer arithmetic, tested on the CPU) chooses its
-grid, and the source note says how the design meets the bound. B8
-``snr_stats_batched`` (plain per-line sum and sum of squares, and its 2-D
-wrapper ``snr_stats``) keeps its one-block-per-line kernels there,
-replacing ``repro/kernels/snr_stats.py:126`` (body ``_snr_kernel`` :75,
-through ``_stats_call``); bound by bytes, 4 B per element and 8 B per line.
+B8 ``snr_stats_batched`` (plain per-line sum and sum of squares, and its
+2-D wrapper ``snr_stats``) replaces ``repro/kernels/snr_stats.py:126``
+(body ``_snr_kernel`` :75, through ``_stats_call``); bound by bytes, 4 B
+per element and 8 B per line. All three share one walk that splits the
+view by bytes across the SMs: :func:`plan_split` (pure integer arithmetic,
+tested on the CPU) chooses its grid, and the source note says how the
+design meets the bound.
 """
 from __future__ import annotations
 
@@ -27,14 +27,15 @@ import torch
 
 from . import build
 
-_ARGTYPES = [build.PTR] * 6 + [build.SIZE] * 3 + [build.INT] * 2 + [build.SIZE] * 3 + [build.PTR]
-_MAX_GRID_Y = 65535
+_ARGTYPES = (build.PTR,) * 6 + (build.SIZE,) * 3 + (build.INT,) * 3 + (build.SIZE,) * 3 + (build.PTR,)
+_PLAIN_ARGTYPES = (build.PTR,) * 4 + (build.SIZE,) * 3 + (build.INT,) * 3 + (build.SIZE,) * 3 + (build.PTR,)
 _MAX_GRID_X = 2**31 - 1
 
 # The split walk's geometry; the kernel's constants in csrc/snr_stats.cu match.
 THREADS = 256              # threads of every block (8 warps)
 WARPS = THREADS // 32
-WARP_LINE_MAX = 4096       # axis-1 lines up to this many elements get a warp each
+WARP_LINE_MAX = 4096       # axis-1 lines up to this many elements get a group of lanes each
+GROUP_LOADS = 4            # WARP: lanes per line are cut until each lane has about this many loads
 SEG_MIN = 16384            # elements a block streams once lines are split: 64 KB ...
 SEG_MAX = 65536            # ... to 256 KB
 SEG_QUANTUM = 1024         # axis-1 segments are multiples of one block-wide float4 sweep
@@ -53,12 +54,14 @@ class SplitPlan:
     into ``nseg`` segments of ``seg`` elements along its reduction axis (the
     last one shorter): block b sums line b // nseg's segment b % nseg
     (FORM_SPLIT), or a column tile's chunk of rows (FORM_MAJOR, tiles of
-    TILE_VEC or TILE_SCALAR columns), or WARPS whole lines (FORM_WARP).
+    TILE_VEC or TILE_SCALAR columns), or WARPS * 32 // group whole lines,
+    ``group`` lanes each (FORM_WARP).
     ``nseg == 1`` writes the outputs directly, else the segments' f64 shares
     go to a (3, lines * nseg) workspace that a second launch of
     ``combine_blocks`` blocks sums in a fixed order."""
     form: int          # FORM_WARP, FORM_SPLIT (axis 1) or FORM_MAJOR (axis 0)
     vec: bool          # 16-byte loads (aligned view, inner size a multiple of 4)
+    group: int         # FORM_WARP: lanes per line (a power of two <= 32); 32 otherwise
     batch: int
     rows: int
     cols: int
@@ -88,20 +91,23 @@ def plan_split(batch: int, rows: int, cols: int, axis: int, *, sms: int, aligned
     """The split walk's grid for a (batch, rows, cols) f32 view reduced
     along ``axis`` on a card with ``sms`` SMs; ``aligned``: the view starts
     on a 16-byte boundary. Axis-1 lines up to WARP_LINE_MAX elements take a
-    warp each; longer lines, and the rows of axis-0 column tiles, are cut
+    group of lanes each: a warp, or for short lines the power of two that
+    leaves each lane about GROUP_LOADS loads; longer lines, and the rows of axis-0 column tiles, are cut
     into pieces of SEG_MIN to SEG_MAX elements, sized for about WAVES blocks
     per SM. Pure integer arithmetic: no CUDA call (and cached, as the
     wrapper asks for every launch)."""
     vec = aligned and cols % 4 == 0
     piece = min(max(_cdiv(batch * rows * cols, WAVES * sms), SEG_MIN), SEG_MAX)
     if axis == 1 and cols <= WARP_LINE_MAX:
-        return SplitPlan(FORM_WARP, vec, batch, rows, cols, cols, 1, _cdiv(batch * rows, WARPS))
+        loads = _cdiv(cols // 4 if vec else cols, GROUP_LOADS)
+        group = min(32, 1 << max(loads - 1, 0).bit_length())
+        return SplitPlan(FORM_WARP, vec, group, batch, rows, cols, cols, 1, _cdiv(batch * rows, WARPS * 32 // group))
     if axis == 1:
         seg, nseg = _cut(cols, piece, SEG_QUANTUM)
-        return SplitPlan(FORM_SPLIT, vec, batch, rows, cols, seg, nseg, batch * rows * nseg)
+        return SplitPlan(FORM_SPLIT, vec, 32, batch, rows, cols, seg, nseg, batch * rows * nseg)
     tile = TILE_VEC if vec else TILE_SCALAR
     seg, nseg = _cut(rows, max(piece // tile, 1), WARPS)
-    return SplitPlan(FORM_MAJOR, vec, batch, rows, cols, seg, nseg, batch * _cdiv(cols, tile) * nseg)
+    return SplitPlan(FORM_MAJOR, vec, 32, batch, rows, cols, seg, nseg, batch * _cdiv(cols, tile) * nseg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,9 +161,9 @@ def snr_stats_centered_partial_batched_plain(v: torch.Tensor, *, axis: int) -> T
     return snr_stats_centered_batched_plain(v, axis=axis) + (v.narrow(red, 0, 1).squeeze(red),)
 
 
-def _launch_stats(kernel: str, v: torch.Tensor, axis: int, n_outs: int) -> Tuple[torch.Tensor, ...]:
-    """Plan, check and launch ``csrc/snr_stats.cu``'s split walk: 3 outputs
-    (B5) or 4 (B9)."""
+def _plan_outputs(kernel: str, v: torch.Tensor, axis: int, n_outs: int, n_sums: int):
+    """The split walk's plan for ``v``, its ``n_outs`` line outputs and,
+    for split lines, the (n_sums, lines * nseg) f64 workspace."""
     if v.numel() == 0:
         raise ValueError(f"{kernel}: empty lines have no statistics")
     b, r, c = v.shape
@@ -165,16 +171,25 @@ def _launch_stats(kernel: str, v: torch.Tensor, axis: int, n_outs: int) -> Tuple
     if max(plan.blocks, plan.combine_blocks) > _MAX_GRID_X:
         raise ValueError(f"{kernel}: shape {tuple(v.shape)} exceeds the launch grid")
     outs = torch.empty((n_outs, b, r if axis == 1 else c), dtype=torch.float32, device=v.device).unbind(0)
-    part = torch.empty((3, plan.lines * plan.nseg), dtype=torch.float64, device=v.device) if plan.nseg > 1 else None
-    build.launch(kernel, _centered_entry(), v.device, v.data_ptr(), *(o.data_ptr() for o in outs[:3]),
-                 build.ptr(outs[3] if n_outs == 4 else None), build.ptr(part), b, r, c, plan.form, int(plan.vec),
-                 plan.seg, plan.nseg, plan.blocks)
+    part = (torch.empty((n_sums, plan.lines * plan.nseg), dtype=torch.float64, device=v.device)
+            if plan.nseg > 1 else None)
+    return plan, outs, part
+
+
+def _launch_stats(kernel: str, v: torch.Tensor, axis: int, n_outs: int) -> Tuple[torch.Tensor, ...]:
+    """Plan, check and launch ``csrc/snr_stats.cu``'s split walk: 3 outputs
+    (B5) or 4 (B9)."""
+    b, r, c = v.shape
+    plan, outs, part = _plan_outputs(kernel, v, axis, n_outs, 3)
+    build.launch(kernel, _entry("repro_snr_stats_centered", _ARGTYPES), v.device, v.data_ptr(),
+                 *(o.data_ptr() for o in outs[:3]), build.ptr(outs[3] if n_outs == 4 else None), build.ptr(part),
+                 b, r, c, plan.form, int(plan.vec), plan.group, plan.seg, plan.nseg, plan.blocks)
     return outs
 
 
 @functools.lru_cache(maxsize=None)
-def _centered_entry():
-    return build.entry("repro_snr_stats_centered", _ARGTYPES)
+def _entry(name: str, argtypes: tuple):
+    return build.entry(name, argtypes)
 
 
 def _check_view(kernel: str, v: torch.Tensor, axis: int) -> torch.device:
@@ -216,9 +231,6 @@ def snr_stats_centered_partial_batched(v: torch.Tensor, *, axis: int) -> Tuple[t
 snr_stats_centered_partial_batched.launches = 0
 
 
-_PLAIN_ARGTYPES = [build.PTR] * 3 + [build.SIZE] * 3 + [build.INT, build.PTR]
-
-
 def snr_stats_batched_plain(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`snr_stats_batched`: v*v rounded in f32
     as the TPU kernel squares, the sums in f64 as the CUDA kernel's run."""
@@ -228,19 +240,16 @@ def snr_stats_batched_plain(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor
 
 def snr_stats_batched(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """v: (B, R, C) f32 -> (line_sum, line_sumsq), each (B, kept), kept = R
-    for ``axis=1`` and C for ``axis=0``. CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    for ``axis=1`` and C for ``axis=0``. CUDA tensors launch the split walk's
+    PLAIN form on :func:`plan_split`'s grid; CPU tensors take the plain
+    version."""
     if _check_view("snr_stats_batched", v, axis).type == "cpu":
         return snr_stats_batched_plain(v, axis=axis)
-    if v.numel() == 0:
-        raise ValueError("snr_stats_batched: empty lines have no statistics")
     b, r, c = v.shape
-    if (axis == 1 and b * r > _MAX_GRID_X) or (axis == 0 and b > _MAX_GRID_Y):
-        raise ValueError(f"snr_stats_batched: shape {tuple(v.shape)} exceeds the launch grid")
-    kept = r if axis == 1 else c
-    s1, s2 = (torch.empty((b, kept), dtype=torch.float32, device=v.device) for _ in range(2))
-    fn = build.entry("repro_snr_stats", _PLAIN_ARGTYPES)
-    build.launch("snr_stats_batched", fn, v.device, v.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, r, c, axis)
+    plan, (s1, s2), part = _plan_outputs("snr_stats_batched", v, axis, 2, 2)
+    build.launch("snr_stats_batched", _entry("repro_snr_stats", _PLAIN_ARGTYPES), v.device, v.data_ptr(),
+                 s1.data_ptr(), s2.data_ptr(), build.ptr(part), b, r, c, plan.form, int(plan.vec), plan.group,
+                 plan.seg, plan.nseg, plan.blocks)
     snr_stats_batched.launches += 1
     return s1, s2
 

@@ -4,25 +4,116 @@
 Kernel: ``csrc/ssm_scan.cu`` replaces the Pallas kernel at
 ``repro/kernels/ssm_scan.py:58`` (body ``_ssm_kernel`` :27, ``pallas_call``
 :77). At the model's shapes it is bound by its exponentials (one per
-timestep, channel and state) more than by its bytes; the source note says
-how one thread per (row, channel) carries the state in registers across the
-whole sequence, where the TPU kernel carried it across a sequential grid
-axis.
+timestep, channel and state) more than by its bytes. Where the TPU kernel
+carried the state across a sequential grid axis, :func:`plan_scan` (pure
+integer arithmetic on the shapes and the SM count, tested on the CPU) picks
+one of two forms and its grid: a lean one-token form for S = 1 (every
+decode step), and for longer sequences a chunked form that walks chunks of
+the sequence in parallel, composes their carries in order and replays each
+chunk from its true carry-in; the source note says why.
 
 In the model (``repro_torch.models.ssm.selective_scan``) it takes the place
-of the JAX package's chunked associative scan: it sums in sequential order,
-so the two agree to f32 rounding, not bit for bit.
+of the JAX package's chunked associative scan: both compose chunks, but the
+kernel's chunks and exponentials differ, so the two agree to f32 rounding,
+not bit for bit.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from . import build
 
 _IN_DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [build.PTR, build.INT] + [build.PTR] * 8 + [build.SIZE] * 3 + [build.INT, build.PTR]
+_ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 10 + [build.SIZE] * 3 + [build.INT] * 2 + [build.SIZE]
+             + [build.INT] * 2 + [build.PTR])
+
+# The planner's geometry; the kernel's constants in csrc/ssm_scan.cu match.
+FORM_TOKEN, FORM_SEQ = 0, 1
+SEQ_THREADS = 128          # sequence form: channels per block, one a thread
+SEQ_BLOCKS_PER_SM = 4      # what the walk's __launch_bounds__ guarantees
+TILE = 16                  # steps a tile: chunks are multiples of it
+TOKEN_THREADS, LANES = 256, 4   # one-token form: threads per block, lanes per channel
+CARRY_THREADS = 256
+MIN_CHUNKS = 3             # fewer chunks than this gain nothing (see plan_scan)
+MAX_CHUNKS = 64            # the carry launch walks the chunks in series
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """The grid of one B15 call. FORM_TOKEN: a (``tiles``, batch) grid of
+    TOKEN_THREADS threads, LANES per (row, channel). FORM_SEQ: the sequence
+    cut into ``chunks`` chunks of ``chunk`` steps (the last one shorter),
+    ``tiles`` tiles of SEQ_THREADS channels; with more than one chunk, the
+    carry walk runs chunks 0..chunks-2 and the carry launch composes their
+    end states before the output walk runs every chunk."""
+    form: int
+    batch: int
+    seq: int
+    dim: int
+    n: int
+    states: int     # N padded to 4, 8 or 16
+    chunk: int      # steps per chunk (FORM_SEQ); 1 for FORM_TOKEN
+    chunks: int     # 1 for FORM_TOKEN
+    tiles: int
+
+    @property
+    def walk_grid(self) -> Optional[Tuple[int, int, int]]:
+        """Launch 1's (x, y, z) grid, or None when it does not run."""
+        return (self.tiles, self.chunks - 1, self.batch) if self.form == FORM_SEQ and self.chunks > 1 else None
+
+    @property
+    def carry_blocks(self) -> int:
+        """Launch 2's blocks (0: no launch; slot 0 is already true)."""
+        return _cdiv(self.batch * self.dim * self.n, CARRY_THREADS) if self.chunks > 2 else 0
+
+    @property
+    def out_grid(self) -> Tuple[int, int, int]:
+        """The grid of the launch that writes y: the output walk's, or the
+        one-token form's (x, y, 1)."""
+        if self.form == FORM_TOKEN:
+            return (self.tiles, self.batch, 1)
+        return (self.tiles, self.chunks, self.batch)
+
+    def steps(self, k: int) -> Tuple[int, int]:
+        """[start, stop) of chunk ``k``."""
+        return k * self.chunk, min(self.seq, (k + 1) * self.chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_scan(b: int, s: int, d: int, n: int, *, sms: int) -> ScanPlan:
+    """The form and grid of a (B=b, S=s, D=d, N=n) scan on a card with
+    ``sms`` SMs. S = 1 takes the one-token form. Longer sequences take the
+    sequence form with the most chunks K (at most MAX_CHUNKS, each a
+    multiple of TILE steps) whose output walk, B x tiles x K blocks, still
+    fits SEQ_BLOCKS_PER_SM blocks on every SM. A block's walk is a chain of
+    dependent steps, so an SM with fewer blocks runs no faster; the carry
+    walk and the output walk each take about a chunk's time, so K below
+    MIN_CHUNKS gains nothing over one chunk, and K = 1 is taken then. Pure
+    integer arithmetic: it reads no tensor and makes no CUDA call (and is
+    cached, as the wrapper asks for every launch)."""
+    if not (1 <= n <= 16 and 1 <= b <= 65535 and s >= 1 and d >= 1):
+        raise ValueError(f"plan_scan: the kernel takes N in 1..16 and 1..65535 rows, got B={b}, S={s}, D={d}, "
+                         f"N={n}")
+    states = 4 if n <= 4 else 8 if n <= 8 else 16
+    if s == 1:
+        return ScanPlan(FORM_TOKEN, b, s, d, n, states, 1, 1, _cdiv(d, TOKEN_THREADS // LANES))
+    tiles = _cdiv(d, SEQ_THREADS)
+    k = min(SEQ_BLOCKS_PER_SM * sms // (b * tiles), MAX_CHUNKS, _cdiv(s, TILE))
+    chunk = _cdiv(_cdiv(s, k), TILE) * TILE if k >= MIN_CHUNKS else _cdiv(s, TILE) * TILE
+    return ScanPlan(FORM_SEQ, b, s, d, n, states, chunk, _cdiv(s, chunk), tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(x, dt, a, b_t, c_t, d_skip, h0) -> torch.device:
@@ -63,7 +154,9 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0) -> Tuple[torch.Tensor, torch.Tensor
     d_skip: (D,) f32; h0: (B, D, N) f32. x, b_t and c_t are f32 or bf16, one
     dtype for the three. Returns (y (B, S, D) f32, h_final (B, D, N) f32),
     as ``repro/kernels/ssm_scan.py:58-67`` does. CUDA tensors launch the
-    kernel (1 <= N <= 16); CPU tensors take the plain version."""
+    kernel (1 <= N <= 16) in the form :func:`plan_scan` picks, one count
+    per call however many CUDA launches it makes; CPU tensors take the
+    plain version."""
     device = _check(x, dt, a, b_t, c_t, d_skip, h0)
     if device.type == "cpu":
         return ssm_scan_plain(x, dt, a, b_t, c_t, d_skip, h0)
@@ -75,12 +168,23 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0) -> Tuple[torch.Tensor, torch.Tensor
     h_out = torch.empty((bsz, d, n), dtype=torch.float32, device=device)
     if y.numel() == 0:
         return y, h0.clone()
-    fn = build.entry("repro_ssm_scan", _ARGTYPES)
-    build.launch("ssm_scan", fn, device, x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(), a.data_ptr(),
-                 b_t.data_ptr(), c_t.data_ptr(), d_skip.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-                 bsz, s, d, n)
+    plan = plan_scan(bsz, s, d, n, sms=_sm_count(device))
+    carry = dt_sum = None
+    if plan.chunks > 1:
+        carry = torch.empty((bsz, plan.chunks - 1, d, n), dtype=torch.float32, device=device)
+        dt_sum = torch.empty((bsz, plan.chunks - 1, d), dtype=torch.float32, device=device)
+    vec = all(t.data_ptr() % 16 == 0 for t in (x, dt, a, h0, h_out))
+    build.launch("ssm_scan", _entry(), device, x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(),
+                 a.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), d_skip.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                 h_out.data_ptr(), build.ptr(carry), build.ptr(dt_sum), bsz, s, d, n, plan.form, plan.chunk,
+                 plan.chunks, int(vec))
     ssm_scan.launches += 1
     return y, h_out
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    return build.entry("repro_ssm_scan", _ARGTYPES)
 
 
 ssm_scan.launches = 0

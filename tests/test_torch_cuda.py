@@ -15,9 +15,13 @@ relative). Non-finite counts (the ``with_health`` outputs) must be equal,
 on gradients seeded with a known number of NaN and +-Inf entries. The
 parameter-writing kernels' f32 p' rounds in the twin's order (1e-6); a bf16
 p' may round one bf16 step apart where the f32 values straddle a rounding
-boundary (2^-8 of the largest |p|). The selective scan's y sums its N terms
-in another order than the twin (1e-5); its state is elementwise (1e-6).
+boundary (2^-8 of the largest |p|). The selective scan's y and final state
+compose chunks of the sequence and take exp2 of dt*a*log2(e), where the
+twin steps in order with exp (1e-5); both forms rerun bit for bit, as do
+the split walks of the line sums.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -637,6 +641,40 @@ def test_snr_stats_batched(dev, b, r, c, axis):
     assert s1.shape == s2.shape == (v.shape[1],)
 
 
+# B8 on views that take each form of the split walk: gpt_small's embedding
+# as one 38.6 M-element line (SPLIT), a thin strip of 4 columns (MAJOR, its
+# rows split across blocks), 64-element lines (WARP, 4 lanes a line), inner
+# sizes that force 4-byte loads, and B > 1.
+B8_SPLIT_VIEWS = [(1, 1, 38633472, 1, True), (1, 50304, 4, 0, True), (1, 50304, 768, 0, True), (1, 110592, 64, 1, True),
+                  (3, 5, 70001, 1, True), (4, 300, 37, 0, True), (2, 9, 1027, 1, True), (1, 2, 3 * 65536 + 4, 1, False),
+                  (2, 513, 768, 0, False), (3, 7, 33, 1, False)]
+
+
+@pytest.mark.parametrize("b,r,c,axis,aligned", B8_SPLIT_VIEWS)
+def test_snr_stats_batched_split_forms(dev, b, r, c, axis, aligned):
+    """Every form of B8's walk within LINE_SUMS of the twin, and two
+    launches on one input bit-identical (fixed-order combine)."""
+    gen = torch.Generator(device=dev).manual_seed(c)
+    flat = torch.rand(b * r * c + 1, generator=gen, device=dev)
+    v = (flat[:-1] if aligned else flat[1:]).view(b, r, c)      # contiguous; 4 bytes off when unaligned
+    assert (v.data_ptr() % 16 == 0) == aligned
+    plan = snr_stats.plan_split(b, r, c, axis, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+                                aligned=aligned)
+    assert plan.vec == (aligned and c % 4 == 0)
+    first, second = snr_stats.snr_stats_batched(v, axis=axis), snr_stats.snr_stats_batched(v, axis=axis)
+    want = snr_stats.snr_stats_batched_plain(v, axis=axis)
+    torch.cuda.synchronize()
+    for a, a2, w in zip(first, second, want):
+        assert torch.equal(a, a2)
+        _close(a, w, LINE_SUMS)
+
+
+def test_snr_stats_batched_views_cover_every_form(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    forms = {snr_stats.plan_split(b, r, c, axis, sms=sms, aligned=al).form for b, r, c, axis, al in B8_SPLIT_VIEWS}
+    assert forms == {snr_stats.FORM_WARP, snr_stats.FORM_SPLIT, snr_stats.FORM_MAJOR}
+
+
 def _scan_inputs(dev, b, s, d, n, dtype, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, s, d), generator=gen, device=dev).to(dtype)
@@ -650,7 +688,8 @@ def _scan_inputs(dev, b, s, d, n, dtype, seed):
 
 
 @pytest.mark.parametrize("b,s,d,n", [(2, 24, 8, 4), (1, 64, 16, 16), (2, 32, 10, 3), (4, 1, 8192, 16),
-                                     (1, 300, 200, 16), (3, 17, 65, 8)])
+                                     (1, 300, 200, 16), (3, 17, 65, 8), (1, 2048, 512, 16), (2, 1000, 96, 16),
+                                     (3, 1, 37, 9), (2, 1, 300, 13), (4, 1, 8192, 15)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssm_scan(dev, b, s, d, n, dtype):
     args = _scan_inputs(dev, b, s, d, n, dtype, b * s + d)
@@ -660,6 +699,40 @@ def test_ssm_scan(dev, b, s, d, n, dtype):
     torch.cuda.synchronize()
     assert ssm_scan.ssm_scan.launches == before + 1
     assert y.dtype == h.dtype == torch.float32
+    _close(y, y_w, LINE_SUMS)
+    _close(h, h_w, LINE_SUMS)
+
+
+# Both forms at phase 7's full-width shapes (eval 1 x 2048, decode 4 rows),
+# sequences of several chunks at narrow widths, and one-token steps whose
+# rows of N states are not 16-byte aligned (N = 9, 13, 15), f32 and bf16.
+@pytest.mark.parametrize("b,s,d,n", [(1, 2048, 8192, 16), (4, 1, 8192, 16), (1, 2048, 512, 16), (2, 1000, 96, 16),
+                                     (4, 1, 13, 3), (4, 1, 64, 9), (2, 1, 300, 13), (3, 1, 37, 15)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_is_deterministic(dev, b, s, d, n, dtype):
+    """The chunks' carries compose in a fixed order: two calls on one input
+    agree bit for bit."""
+    args = _scan_inputs(dev, b, s, d, n, dtype, 7)
+    (y1, h1), (y2, h2) = ssm_scan.ssm_scan(*args), ssm_scan.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    plan = ssm_scan.plan_scan(b, s, d, n, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.form == (ssm_scan.FORM_TOKEN if s == 1 else ssm_scan.FORM_SEQ)
+    if s >= 1000:
+        assert plan.chunks > 1
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 128, 2048])
+def test_ssm_scan_chunk_lengths(dev, chunk, monkeypatch):
+    """The sequence form at forced chunk lengths (one chunk, two, many),
+    each within LINE_SUMS of the twin."""
+    plan = ssm_scan.plan_scan
+    monkeypatch.setattr(ssm_scan, "plan_scan", lambda b, s, *a, **kw: dataclasses.replace(
+        plan(b, s, *a, **kw), chunk=chunk, chunks=-(-s // chunk)))
+    args = _scan_inputs(dev, 2, 300, 200, 16, torch.bfloat16, chunk)
+    y, h = ssm_scan.ssm_scan(*args)
+    y_w, h_w = ssm_scan.ssm_scan_plain(*args)
+    torch.cuda.synchronize()
     _close(y, y_w, LINE_SUMS)
     _close(h, h_w, LINE_SUMS)
 

@@ -1,6 +1,6 @@
 """The split walk's planner (``repro_torch.kernels.snr_stats.plan_split``),
-which chooses the grid of the centered SNR-stats kernels B5 and B9 on the
-card, checked here without one.
+which chooses the grid of the centered SNR-stats kernels B5 and B9 and of
+the plain line sums B8 on the card, checked here without one.
 
 The plan is pure integer arithmetic, and ``_work`` below repeats the
 kernel's index arithmetic block by block, so on the main path's views (the
@@ -13,6 +13,11 @@ plain math, combines them in the plan's order, and holds the result to the
 plain twin's f64 sums (1e-12 relative: only the f64 summation order
 differs) and to the JAX package's Pallas kernel in interpret mode (1e-5
 relative, as the other line-sum parity tests: f32 outputs, another order).
+B8's PLAIN walk (per piece sum v and sum v*v, v*v rounded in f32, no shift)
+is held the same way, on the views ``snr_stats`` gets on the main path
+(chip_smoke's phase 8: gpt_small's 11 leaves as lines of their last axis)
+and on views that take each of the WARP, SPLIT and MAJOR forms, to its plain
+twin and to the Pallas ``snr_stats_batched`` in interpret mode.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +25,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_close
+from repro.kernels.snr_stats import snr_stats_batched as jax_snr_plain
 from repro.kernels.snr_stats import snr_stats_centered_batched as jax_snr_stats
 from repro_torch.configs import get_config
 from repro_torch.core.labels import flatten_with_names
@@ -70,7 +76,14 @@ def _b9_views():
     return views
 
 
-B5_VIEWS, B9_VIEWS = _b5_views(), _b9_views()
+def _b8_views():
+    """The views ``snr_stats`` (B8) reduces in chip_smoke's phase 8: each
+    gpt_small leaf's second moment as lines of its last axis."""
+    specs, _ = _gpt_small()
+    return [(1, int(np.prod(s.shape[:-1])), s.shape[-1], 1) for s in specs.values()]
+
+
+B5_VIEWS, B9_VIEWS, B8_VIEWS = _b5_views(), _b9_views(), _b8_views()
 EMBED_BOTH = (1, 1, 50304 * 768, 1)
 
 # Lines of 1 and 3 elements, warp-form lines at and past their limit,
@@ -92,7 +105,8 @@ def _work(plan, block):
     """(line, start, stop) of every piece that ``block`` sums, with the
     kernel's index arithmetic; lines are numbered as the outputs are."""
     if plan.form == snr_stats.FORM_WARP:
-        return [(line, 0, plan.cols) for line in range(block * WARPS, min(plan.lines, (block + 1) * WARPS))]
+        per = WARPS * 32 // plan.group
+        return [(line, 0, plan.cols) for line in range(block * per, min(plan.lines, (block + 1) * per))]
     k = block % plan.nseg
     start, stop = k * plan.seg, min(_length(plan), (k + 1) * plan.seg)
     if plan.form == snr_stats.FORM_SPLIT:
@@ -114,6 +128,7 @@ def _cover(plan):
 
 def _check_plan(plan):
     assert 0 < plan.blocks <= MAX_GRID_X and plan.combine_blocks <= MAX_GRID_X
+    assert plan.group in (1, 2, 4, 8, 16, 32) and (plan.form == snr_stats.FORM_WARP or plan.group == 32)
     assert (plan.combine_blocks == 0) == (plan.nseg == 1)
     pieces = _cover(plan)
     assert sorted(pieces) == list(range(plan.lines))
@@ -125,11 +140,12 @@ def _check_plan(plan):
 
 
 def test_main_path_views():
-    assert len(B5_VIEWS) == 21 and len(B9_VIEWS) == 21
+    assert len(B5_VIEWS) == 21 and len(B9_VIEWS) == 21 and len(B8_VIEWS) == 11
     assert EMBED_BOTH in B5_VIEWS and (1, 1, 50304 * 768 // 4, 1) in B9_VIEWS
 
 
-@pytest.mark.parametrize("view", sorted(set(B5_VIEWS)) + sorted(set(B9_VIEWS)) + RAGGED)
+@pytest.mark.parametrize("view", sorted(set(B5_VIEWS)) + sorted(set(B9_VIEWS)) + RAGGED
+                         + sorted(set(B8_VIEWS) - set(B5_VIEWS) - set(B9_VIEWS)))
 @pytest.mark.parametrize("aligned", [True, False])
 def test_plan_covers_every_line_once_in_order(view, aligned):
     b, r, c, axis = view
@@ -162,11 +178,12 @@ def test_major_b1_views_split_rows():
     assert plan.blocks >= 4 * H100_SMS and plan.nseg > 1
 
 
-def _split_sums(v, plan):
+def _split_sums(v, plan, plain=False):
     """The kernel's arithmetic with the plain math: each piece's shares
     (sum v, sum d, sum d^2) with d = v - v0 rounded in f32 and v0 the line's
     first entry, summed in f64, then each line's shares added in the plan's
-    order. Returns three f64 arrays of shape (B, kept)."""
+    order. Returns three f64 arrays of shape (B, kept). ``plain``: B8's
+    shares (sum v, sum v*v) with v*v rounded in f32, two arrays."""
     lines = np.moveaxis(v, 1, 2) if plan.form == snr_stats.FORM_MAJOR else v
     lines = lines.reshape(plan.lines, _length(plan))
     shares = np.zeros((plan.lines, plan.nseg, 3))
@@ -175,13 +192,16 @@ def _split_sums(v, plan):
         for line, start, stop in _work(plan, block):
             k = k_of[line] = k_of.get(line, -1) + 1
             x = lines[line, start:stop]
+            if plain:
+                shares[line, k, :2] = (x.astype(np.float64).sum(), (x * x).astype(np.float64).sum())
+                continue
             d = (x - lines[line, 0]).astype(np.float32).astype(np.float64)
             shares[line, k] = (x.astype(np.float64).sum(), d.sum(), (d * d).sum())
     out = np.zeros((plan.lines, 3))
     for k in range(plan.nseg):
         out += shares[:, k]
     kept = v.shape[2] if plan.form == snr_stats.FORM_MAJOR else v.shape[1]
-    return tuple(out[:, i].reshape(v.shape[0], kept) for i in range(3))
+    return tuple(out[:, i].reshape(v.shape[0], kept) for i in range(2 if plain else 3))
 
 
 def _twin_f64(v, axis):
@@ -220,3 +240,56 @@ def test_split_shares_match_the_tpu_kernel(view):
     want = jax_snr_stats(jnp.asarray(v), axis=view[3], interpret=True)
     for name, got, w in zip(("s1", "s1c", "s2c"), _split_sums(v, plan), want):
         assert_close(torch.from_numpy(got.astype(np.float32)), w, LINE_SUMS, name)
+
+
+def _plain_twin_f64(v, axis):
+    """B8's plain twin's sums before its final cast to f32."""
+    t = torch.from_numpy(v)
+    red = 2 if axis == 1 else 1
+    return t.double().sum(red).numpy(), (t * t).double().sum(red).numpy()
+
+
+# Views that take each form of B8's walk: warp lines, long split lines (a
+# line of 3 segments, one of gpt_small's embedding rows' kind), axis-0
+# column tiles split along their rows, and an inner size that forces
+# 4-byte loads.
+B8_FORMS = [(2, 7, 33, 1), (1, 3, 3 * SEG_MIN + 5, 1), (1, 2, 2 * SEG_MAX + 1, 1), (2, 300, 40, 0),
+            (1, 1025, 33, 0), (1, 4097, 8, 0)]
+
+
+@pytest.mark.parametrize("view", B8_FORMS + [v for v in RAGGED if v[0] * v[1] * v[2] <= 2 * 10**5])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_plain_split_sums_add_up_to_the_plain_twin(view, aligned):
+    v = _data(view, near_constant=False)
+    plan = plan_split(*view, sms=H100_SMS, aligned=aligned)
+    for got, want in zip(_split_sums(v, plan, plain=True), _plain_twin_f64(v, view[3])):
+        scale = max(float(np.abs(want).max()), 1e-300)
+        assert float(np.abs(got - want).max()) <= F64_ORDER * scale
+
+
+def test_plain_views_take_every_form():
+    forms = {plan_split(*view, sms=H100_SMS, aligned=True).form for view in B8_FORMS}
+    assert forms == {snr_stats.FORM_WARP, snr_stats.FORM_SPLIT, snr_stats.FORM_MAJOR}
+    assert any(plan_split(*view, sms=H100_SMS, aligned=True).nseg > 1 for view in B8_FORMS if view[3] == 0)
+    assert {plan_split(*view, sms=H100_SMS, aligned=True).form for view in B8_VIEWS} == {snr_stats.FORM_WARP}
+
+
+@pytest.mark.parametrize("view", B8_FORMS)
+def test_plain_split_sums_match_the_tpu_kernel(view):
+    """B8's pieces combined in the plan's order, cast to f32, against the
+    Pallas ``snr_stats_batched`` in interpret mode on the same input."""
+    v = _data(view, near_constant=False)
+    plan = plan_split(*view, sms=H100_SMS, aligned=True)
+    want = jax_snr_plain(jnp.asarray(v), axis=view[3], interpret=True)
+    for name, got, w in zip(("s1", "s2"), _split_sums(v, plan, plain=True), want):
+        assert_close(torch.from_numpy(got.astype(np.float32)), w, LINE_SUMS, name)
+
+
+@pytest.mark.parametrize("cols,vec,group", [(64, True, 4), (768, True, 32), (512, True, 32), (256, True, 16),
+                                            (33, False, 16), (4, True, 1), (3, False, 1), (4096, True, 32)])
+def test_warp_form_gives_short_lines_fewer_lanes(cols, vec, group):
+    """A WARP line of c float4s (or floats) takes the power of two of lanes
+    that leaves each about GROUP_LOADS loads, at most a warp."""
+    plan = plan_split(1, 1000, cols, 1, sms=H100_SMS, aligned=vec)
+    assert plan.form == snr_stats.FORM_WARP and plan.vec == vec and plan.group == group
+    assert plan.blocks == -(-1000 // (WARPS * 32 // group))
