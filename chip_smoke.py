@@ -86,10 +86,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tensors), full-width gpt_small with the
    global batch 8 x 1024 split 2 rows per rank. 6a: B9-B13 against their
    twins on each rank's local shards of the Table-3 plan's 7 psum leaves
-   (B10 base, ``with_snr``, ``with_health``; B11 ek and owner; B12 and B13
-   on the psum groups; B9 on the 21 SNR candidates, whose lines the mesh
-   splits), non-finite counts exact, then each kernel timed on rank 0 alone
-   (B9's total over its 21 candidates against ``torch.var_mean``'s).
+   (B10 base, ``with_snr``, ``with_health``; B11 ek and owner, two runs
+   bit-equal; B12 and B13 on the psum groups; B9 on the 21 SNR candidates,
+   whose lines the mesh splits), non-finite counts exact, then each kernel
+   timed on rank 0 alone (B9's total over its 21 candidates against
+   ``torch.var_mean``'s; B11's twin forms its bias corrections from the
+   same count on the card), and one B11 call under torch.profiler, which
+   must run exactly one device kernel.
    6b: a sharded Table-3 SlimAdam update and a sharded Adam update against
    the port's unsharded update of the same whole gradients (local leaves
    and Adam bit-equal, psum leaves within 2e-6), the per-leaf route against
@@ -255,6 +258,20 @@ def profile_device(torch, fn, n: int, wall_ms: float, label: str) -> dict:
     for key, t in rows[:12]:
         log(f"    {t:8.4f} ms  {key[:110]}")
     return dict(busy_ms=busy, wall_ms=wall_ms, kernels=rows[:40])
+
+
+def device_kernels(torch, fn) -> list:
+    """The names of the device kernels that one call of ``fn`` (after a
+    warm-up call) runs, from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def host_ms(torch, fn, n: int = 3) -> float:
@@ -1088,6 +1105,7 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
     out = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, cases=[])
            for k in ("B9", "B10", "B11", "B12", "B13")}
     timed = []   # (kernel, tag, run, plain, bound, library) on rank 0
+    profiled = None   # (tag, B11 in the ek form on the first leaf), profiled on rank 0
 
     def hold(kernel, tag, got, want, tols):
         errs = [check_masked(f"[{mesh.rank}] {kernel} {tag} {label}", a, w, tol)
@@ -1126,15 +1144,22 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
         m_new = slim_update.slim_partial_stats_batched_plain(g3, m3, axis=cn.axis, b1=0.9)[0]
         for form, e in (("ek", ek), ("owner", None)):
             got = slim_update.slim_finalize_batched(m_new, v, axis=cn.axis, ek=e, count=count, **kw)
+            again = slim_update.slim_finalize_batched(m_new, v, axis=cn.axis, ek=e, count=count, **kw)
             want = slim_update.slim_finalize_batched_plain(m_new, v, bc1, bc2, b2=0.95, eps=1e-8, ek=e)
             pairs = (got, want) if e is not None else ((got,), (want,))
             hold("B11", f"{tag} {form}", *pairs, [("u", TOL_ELEMENTWISE), ("v'", TOL_ELEMENTWISE)])
+            if not all(torch_equal(a, b) for a, b in zip(pairs[0], (again,) if e is None else again)):
+                raise AssertionError(f"B11 {tag} {form}: two runs differ")
         timed.append(("B10", tag, lambda g3=g3, m3=m3, a=cn.axis: slim_update.slim_partial_stats_batched(
             g3, m3, axis=a, b1=0.9), lambda g3=g3, m3=m3, a=cn.axis: slim_update.slim_partial_stats_batched_plain(
             g3, m3, axis=a, b1=0.9), max((12 * n + 4 * lines) / rate, 4 * n / F32_RATE) * 1e3, None))
+        # The twin forms its bias corrections from the same count on the card, as the kernel does.
         timed.append(("B11", tag, lambda m_new=m_new, v=v, a=cn.axis: slim_update.slim_finalize_batched(
             m_new, v, axis=a, count=count, **kw), lambda m_new=m_new, v=v: slim_update.slim_finalize_batched_plain(
-            m_new, v, bc1, bc2, b2=0.95, eps=1e-8), max((8 * n + 4 * lines) / rate, 4 * n / F32_RATE) * 1e3, None))
+            m_new, v, *bias_corrections(0.9, 0.95, count), b2=0.95, eps=1e-8),
+            max((8 * n + 4 * lines) / rate, 4 * n / F32_RATE) * 1e3, None))
+        profiled = profiled or (tag, lambda m_new=m_new, v=v, ek=ek, a=cn.axis: slim_update.slim_finalize_batched(
+            m_new, v, axis=a, ek=ek, count=count, **kw))
 
     # B12/B13 on the psum groups the grouped route launches (per form).
     items = [(i, plans[i].local_shape, tuple(1 if d in dims[names[i]] else s
@@ -1217,6 +1242,13 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
             log(f"  {kernel} {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms"
                 + ("" if lib_ms is None else f"  var_mean {lib_ms:.4f} ms"))
         out["B9"].update(snr_total("B9", out["B9"], len(out["B9"]["cases"]), "rank 0 alone on the card"))
+        # One B11 call is one device kernel: no torch operation forms its bias corrections.
+        tag, call = profiled
+        names = device_kernels(torch, call)
+        log(f"  B11 {tag} ek form, one call under torch.profiler: {len(names)} device kernel(s) {names}")
+        if len(names) != 1:
+            raise AssertionError(f"B11 {tag}: one call ran {len(names)} device kernels, want 1: {names}")
+        out["B11"]["profiled_kernels"] = names
     mesh.barrier()
     return out
 

@@ -130,6 +130,12 @@ def check_operands(kernel: str, *, dtypes: Optional[Mapping[str, Tuple[torch.dty
     return device
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (what the planners size their grids to)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """A tensor's device pointer, or None (a null pointer through ctypes)
     for an optional output that is switched off."""

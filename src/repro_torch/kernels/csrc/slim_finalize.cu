@@ -4,11 +4,13 @@
 // Replaces
 //   * repro/kernels/slim_update.py:329 slim_finalize_batched (kernel bodies
 //     _slim_finalize_kernel :314, launched :374, and _slim_apply_line_kernel
-//     :323, launched :365): scalar bias corrections;
+//     :323, launched :365): scalar bias corrections from the step count
+//     (the per-leaf form, repro_slim_finalize_flat);
 //   * repro/kernels/megaplan.py:536 mega_slim_finalize_batched (bodies
 //     _mega_finalize_ek_kernel :522, launched :568, and
 //     _mega_finalize_owner_kernel :530, launched :559): bias corrections per
-//     line, one megaplan group in one launch.
+//     line, one megaplan group in one launch (the group form,
+//     repro_slim_finalize).
 // Per element of a reduction line (axis 1: a row; axis 0: a column), with
 // the line's value read once:
 //   ek form:    v' = b2*v + (1-b2)*ek   (ek the cross-rank completed line
@@ -18,18 +20,40 @@
 //
 // Bound: bytes, 8 B per element (m' read, u written) plus 12-20 B per line.
 // The work is elementwise, so the kernel only has to stream m' and u at the
-// memory rate and read each line value once: the layouts of mega_slim.cu,
+// memory rate and read each line value once. Operation order and the _rn
+// intrinsics as in common.cuh, so u and v' match the plain twin bit for bit.
+//
+// The group form (repro_slim_finalize) keeps the layouts of mega_slim.cu:
 // one block per contiguous line (axis 1, float4 loads and stores where
 // aligned) or a strip of kStrip columns per block with kRowThreads row
-// threads (axis 0). In the ek form the block's first thread alone writes v'
-// (every thread of the line computes the same value from the same operands).
-// Operation order and the _rn intrinsics as in common.cuh, so u matches the
-// plain twin bit for bit.
+// threads (axis 0); the block's first thread alone writes v'.
+//
+// The per-leaf form (repro_slim_finalize_flat) serves views of a few million
+// elements, where a block per line or per column strip left the card part
+// idle (144 blocks of 24 dependent row loads on a (12, 384, 384) leaf;
+// 96-thread blocks with one 16-byte load in flight on 384-column lines) and
+// where forming the bias corrections with torch took ~8 small launches a
+// call. So:
+//   * one flat walk over the view for both axes: a grid-stride loop over
+//     tiles of kFlatThreads x kFlatUnroll vectors (float4 where cols % 4 == 0
+//     and the buffers are 16-byte aligned), every thread with kFlatUnroll
+//     loads in flight, on a grid that plan_finalize (slim_update.py) sizes
+//     to the work and to kFlatBlocksPerSm blocks an SM. Vector j of the view lies
+//     in row q = j / (cols/VEC) of the (B*R, C) matrix; its line is q on
+//     axis 1 (one line value for the vector) and b*C + c on axis 0, where a
+//     float4 spans 4 adjacent lines whose values come as one float4 through
+//     the read-only path. In the ek form the thread holding a line's first
+//     element (c == 0 on axis 1, r == 0 on axis 0) alone writes v';
+//   * the bias corrections from the step count in the kernel: a 0-d int32
+//     or int64 count on the device, read once a block by its first thread,
+//     as 1 - b^t in f32 in the JAX package's order (t = (float)count, powf,
+//     one rounded subtraction; no --use_fast_math, so powf is the one torch
+//     calls on the card), or host-rounded f32 values when the count is a
+//     Python int. No torch operation runs around the launch.
 #include "common.cuh"
 
 namespace {
 
-using repro_torch::bc_at;
 using repro_torch::ema;
 using repro_torch::kRowThreads;
 using repro_torch::kStrip;
@@ -39,7 +63,7 @@ struct FinalizeArgs {
   const float* m;    // m' (batch, rows, cols)
   const float* v;    // stored (ek form) or completed (owner form) moment lines
   const float* ek;   // ek form: completed line means of g^2, else null
-  const float* bc1;  // one scalar or one per line
+  const float* bc1;  // one per line
   const float* bc2;
   float* u;
   float* v_out;      // ek form: v' lines, else null
@@ -56,14 +80,14 @@ __device__ __forceinline__ float line_moment(const FinalizeArgs& a, long long li
   }
 }
 
-template <bool VEC, bool EK, bool SCALAR_BC>
+template <bool VEC, bool EK>
 __global__ void finalize_minor_kernel(FinalizeArgs a) {
   const long long line = blockIdx.x;
   const long long base = line * a.cols;
   const float v_new = line_moment<EK>(a, line);
   if (EK && threadIdx.x == 0) a.v_out[line] = v_new;
-  const float c1 = bc_at<SCALAR_BC>(a.bc1, line);
-  const float c2 = bc_at<SCALAR_BC>(a.bc2, line);
+  const float c1 = a.bc1[line];
+  const float c2 = a.bc2[line];
   if constexpr (VEC) {
     const float4* m4 = reinterpret_cast<const float4*>(a.m + base);
     float4* u4 = reinterpret_cast<float4*>(a.u + base);
@@ -83,7 +107,7 @@ __global__ void finalize_minor_kernel(FinalizeArgs a) {
   }
 }
 
-template <bool EK, bool SCALAR_BC>
+template <bool EK>
 __global__ void finalize_major_kernel(FinalizeArgs a) {
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -93,8 +117,8 @@ __global__ void finalize_major_kernel(FinalizeArgs a) {
   const long long li = b * a.cols + c;
   const float v_new = line_moment<EK>(a, li);
   if (EK && ty == 0) a.v_out[li] = v_new;
-  const float c1 = bc_at<SCALAR_BC>(a.bc1, li);
-  const float c2 = bc_at<SCALAR_BC>(a.bc2, li);
+  const float c1 = a.bc1[li];
+  const float c2 = a.bc2[li];
   const long long slice = b * a.rows * a.cols;
   for (long long r = ty; r < a.rows; r += kRowThreads) {
     const long long i = slice + r * a.cols + c;
@@ -102,7 +126,7 @@ __global__ void finalize_major_kernel(FinalizeArgs a) {
   }
 }
 
-template <bool EK, bool SCALAR_BC>
+template <bool EK>
 void launch(const FinalizeArgs& a, int axis, cudaStream_t s) {
   if (axis == 1) {
     const bool vec = a.cols % 4 == 0 && repro_torch::aligned16(a.m) && repro_torch::aligned16(a.u);
@@ -111,14 +135,14 @@ void launch(const FinalizeArgs& a, int axis, cudaStream_t s) {
     if (threads < 32) threads = 32;
     const unsigned lines = (unsigned)(a.batch * a.rows);
     if (vec) {
-      finalize_minor_kernel<true, EK, SCALAR_BC><<<lines, (unsigned)threads, 0, s>>>(a);
+      finalize_minor_kernel<true, EK><<<lines, (unsigned)threads, 0, s>>>(a);
     } else {
-      finalize_minor_kernel<false, EK, SCALAR_BC><<<lines, (unsigned)threads, 0, s>>>(a);
+      finalize_minor_kernel<false, EK><<<lines, (unsigned)threads, 0, s>>>(a);
     }
   } else {
     dim3 grid((unsigned)((a.cols + kStrip - 1) / kStrip), (unsigned)a.batch);
     dim3 block(kStrip, kRowThreads);
-    finalize_major_kernel<EK, SCALAR_BC><<<grid, block, 0, s>>>(a);
+    finalize_major_kernel<EK><<<grid, block, 0, s>>>(a);
   }
 }
 
@@ -126,28 +150,206 @@ void launch(const FinalizeArgs& a, int axis, cudaStream_t s) {
 
 // m, u: contiguous f32 (batch, rows, cols). v, ek, v_out: contiguous f32
 // lines, (batch, rows, 1) for axis 1 and (batch, 1, cols) for axis 0; ek and
-// v_out both set (ek form) or both null (owner form). bc1, bc2: one f32 each
-// (scalar_bc = 1, the per-leaf form) or lines like v (scalar_bc = 0, the
-// group form). omb2 = 1-b2 rounded by the caller. The caller guarantees
+// v_out both set (ek form) or both null (owner form). bc1, bc2: f32 lines
+// like v. omb2 = 1-b2 rounded by the caller. The caller guarantees
 // batch*rows < 2^31 (axis 1) and batch < 65536 (axis 0). Returns the
 // cudaError_t of the launch.
 extern "C" int repro_slim_finalize(const float* m, const float* v, const float* ek, const float* bc1,
                                    const float* bc2, float* u, float* v_out, long long batch, long long rows,
-                                   long long cols, int axis, float b2, float omb2, float eps, int scalar_bc,
-                                   void* stream) {
+                                   long long cols, int axis, float b2, float omb2, float eps, void* stream) {
   if ((ek == nullptr) != (v_out == nullptr)) return (int)cudaErrorInvalidValue;
   FinalizeArgs a{m, v, ek, bc1, bc2, u, v_out, batch, rows, cols, b2, omb2, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ek != nullptr) {
-    if (scalar_bc) {
-      launch<true, true>(a, axis, s);
-    } else {
-      launch<true, false>(a, axis, s);
-    }
-  } else if (scalar_bc) {
-    launch<false, true>(a, axis, s);
+    launch<true>(a, axis, s);
   } else {
-    launch<false, false>(a, axis, s);
+    launch<false>(a, axis, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The per-leaf form: one flat walk, bias corrections from the count.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// plan_finalize's FLAT_THREADS, FLAT_UNROLL and FLAT_BLOCKS_PER_SM
+// (slim_update.py). Two vectors a thread in flight: four spilled on axis 0
+// in the ek form and were no faster on axis 1.
+constexpr int kFlatThreads = 256;
+constexpr int kFlatUnroll = 2;
+constexpr int kFlatBlocksPerSm = 4;
+
+struct FlatArgs {
+  const float* m;      // m' (batch, rows, cols)
+  const float* v;      // stored (ek form) or completed (owner form) moment lines
+  const float* ek;     // ek form: completed line means of g^2, else null
+  float* u;
+  float* v_out;        // ek form: v' lines, else null
+  const void* count;   // 0-d int32 (or int64) step count on the device, or null: bc1, bc2 given
+  int count_is64;
+  float bc1, bc2, b1, b2, omb2, eps;
+  long long rows, cols, n;
+};
+
+// (1 - b1^t, 1 - b2^t) rounded as repro/kernels/fused_adam.py:29 rounds
+// them: t = (float)count, b^t in f32, one subtraction.
+__device__ __forceinline__ void bias_corrections(const FlatArgs& a, float* bc) {
+  if (a.count == nullptr) {
+    bc[0] = a.bc1;
+    bc[1] = a.bc2;
+    return;
+  }
+  const float t = a.count_is64 ? (float)*static_cast<const long long*>(a.count)
+                               : (float)*static_cast<const int*>(a.count);
+  bc[0] = __fsub_rn(1.0f, powf(a.b1, t));
+  bc[1] = __fsub_rn(1.0f, powf(a.b2, t));
+}
+
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// Line values, through the read-only path.
+template <int N>
+__device__ __forceinline__ void load_line(const float* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *p = x[0];
+  }
+}
+
+// VEC elements a vector (4: float4), kFlatUnroll vectors a thread per tile,
+// I the index type (32-bit below 2^31 elements). The tile loop's bound is
+// uniform over the block (every block of plan_finalize's grid has a first
+// tile), so the one barrier, which publishes the bias corrections, sits
+// after the first tile's loads are issued.
+template <int VEC, bool EK, int AXIS, typename I>
+__global__ void __launch_bounds__(kFlatThreads, kFlatBlocksPerSm) finalize_flat_kernel(FlatArgs a) {
+  constexpr int LV = AXIS == 1 ? 1 : VEC;  // line values a vector spans
+  __shared__ float bc[2];
+  if (threadIdx.x == 0) bias_corrections(a, bc);
+  const I nv = (I)(a.n / VEC);
+  const I row_v = (I)(a.cols / VEC);
+  const I rows = (I)a.rows;
+  const I tile = (I)kFlatThreads * kFlatUnroll;
+  float c1 = 0.0f, c2 = 0.0f;
+  bool have_bc = false;
+  for (I t0 = (I)blockIdx.x * tile; t0 < nv; t0 += (I)gridDim.x * tile) {
+    float mm[kFlatUnroll][VEC], vl[kFlatUnroll][LV], el[kFlatUnroll][LV];
+    I line[kFlatUnroll];
+    bool first[kFlatUnroll];
+#pragma unroll
+    for (int k = 0; k < kFlatUnroll; ++k) {
+      const I j = t0 + (I)(k * kFlatThreads + threadIdx.x);
+      if (j < nv) {
+        const I q = j / row_v;  // b*R + r
+        const I cv = j - q * row_v;
+        if constexpr (AXIS == 1) {
+          line[k] = q;
+          first[k] = cv == 0;
+        } else {
+          const I b = q / rows;
+          line[k] = b * (I)a.cols + cv * VEC;
+          first[k] = q == b * rows;
+        }
+        load_vec(a.m + (size_t)j * VEC, mm[k]);
+        load_line(a.v + line[k], vl[k]);
+        if constexpr (EK) load_line(a.ek + line[k], el[k]);
+      }
+    }
+    if (!have_bc) {
+      __syncthreads();
+      c1 = bc[0];
+      c2 = bc[1];
+      have_bc = true;
+    }
+#pragma unroll
+    for (int k = 0; k < kFlatUnroll; ++k) {
+      const I j = t0 + (I)(k * kFlatThreads + threadIdx.x);
+      if (j < nv) {
+        float vn[LV], uu[VEC];
+#pragma unroll
+        for (int i = 0; i < LV; ++i) vn[i] = EK ? ema(a.b2, vl[k][i], a.omb2, el[k][i]) : vl[k][i];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) uu[i] = precond(mm[k][i], c1, vn[LV == 1 ? 0 : i], c2, a.eps);
+        store_vec(a.u + (size_t)j * VEC, uu);
+        if (EK && first[k]) store_vec(a.v_out + line[k], vn);
+      }
+    }
+  }
+}
+
+template <int VEC, bool EK, int AXIS>
+void flat_index(const FlatArgs& a, bool wide, unsigned blocks, cudaStream_t s) {
+  if (wide) {
+    finalize_flat_kernel<VEC, EK, AXIS, unsigned long long><<<blocks, kFlatThreads, 0, s>>>(a);
+  } else {
+    finalize_flat_kernel<VEC, EK, AXIS, unsigned><<<blocks, kFlatThreads, 0, s>>>(a);
+  }
+}
+
+template <int VEC, bool EK>
+void flat_axis(const FlatArgs& a, int axis, bool wide, unsigned blocks, cudaStream_t s) {
+  if (axis == 1) {
+    flat_index<VEC, EK, 1>(a, wide, blocks, s);
+  } else {
+    flat_index<VEC, EK, 0>(a, wide, blocks, s);
+  }
+}
+
+template <int VEC>
+void flat_form(const FlatArgs& a, int axis, bool wide, unsigned blocks, cudaStream_t s) {
+  if (a.ek != nullptr) {
+    flat_axis<VEC, true>(a, axis, wide, blocks, s);
+  } else {
+    flat_axis<VEC, false>(a, axis, wide, blocks, s);
+  }
+}
+
+}  // namespace
+
+// m, u: contiguous f32 (batch, rows, cols). v, ek, v_out: contiguous f32
+// lines, (batch, rows, 1) for axis 1 and (batch, 1, cols) for axis 0; ek and
+// v_out both set (ek form) or both null (owner form). count: a 0-d int32
+// (count_is64 = 0) or int64 (1) step count on the device, or null, and then
+// bc1, bc2 are the bias corrections. omb2 = 1-b2 rounded by the caller. The
+// plan is plan_finalize's: vec 4 needs cols % 4 == 0 and m, u (axis 0: also
+// v, ek, v_out) 16-byte aligned; wide for views of 2^31
+// elements or more; 1 <= blocks <= the vectors' tiles. Returns the
+// cudaError_t of the launch.
+extern "C" int repro_slim_finalize_flat(const float* m, const float* v, const float* ek, float* u, float* v_out,
+                                        const void* count, int count_is64, float bc1, float bc2, float b1, float b2,
+                                        float omb2, float eps, long long batch, long long rows, long long cols,
+                                        int axis, int vec, int wide, long long blocks, void* stream) {
+  if ((ek == nullptr) != (v_out == nullptr) || (vec != 1 && vec != 4) || (axis != 0 && axis != 1) ||
+      cols % vec != 0 || blocks < 1 || blocks > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  FlatArgs a{m, v, ek, u, v_out, count, count_is64, bc1, bc2, b1, b2, omb2, eps, rows, cols, batch * rows * cols};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    flat_form<4>(a, axis, wide != 0, (unsigned)blocks, s);
+  } else {
+    flat_form<1>(a, axis, wide != 0, (unsigned)blocks, s);
   }
   return (int)cudaGetLastError();
 }

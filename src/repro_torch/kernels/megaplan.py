@@ -414,8 +414,7 @@ def mega_slim_finalize_batched(m_new, v_line, bc1, bc2, *, axis: int, ek=None, b
     build.check_operands("mega_slim_finalize_batched", m_new=m_new, bc1=bc1, bc2=bc2)
     if device.type == "cpu":
         return slim_finalize_batched_plain(m_new, v_line, bc1, bc2, b2=b2, eps=eps, ek=ek)
-    out = launch_finalize("mega_slim_finalize_batched", m_new, v_line, ek, bc1, bc2, axis=axis, b2=b2, eps=eps,
-                          scalar_bc=False)
+    out = launch_finalize("mega_slim_finalize_batched", m_new, v_line, ek, bc1, bc2, axis=axis, b2=b2, eps=eps)
     mega_slim_finalize_batched.launches += 1
     return out
 

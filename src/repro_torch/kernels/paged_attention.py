@@ -107,16 +107,12 @@ def plan_paged(b: int, c: int, kv: int, rep: int, hd: int, page: int, max_pages:
     return PagedPlan(form, rows, tokens, qtiles, pages, pieces, tiles * pieces, combine)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def plan_of(q: torch.Tensor, pool: torch.Tensor, table: torch.Tensor, lengths: torch.Tensor) -> PagedPlan:
     """The plan of a call on these CUDA operands (shapes, dtypes and the
     card's SM count; no value is read)."""
     b, c, h, hd, page, kv = _geometry(q, pool, table, lengths)
-    return plan_paged(b, c, kv, h // kv, hd, page, table.shape[1], q.dtype, pool.dtype, sms=_sm_count(q.device))
+    return plan_paged(b, c, kv, h // kv, hd, page, table.shape[1], q.dtype, pool.dtype,
+                      sms=build.sm_count(q.device))
 
 
 def _geometry(q: torch.Tensor, pool: torch.Tensor, table: torch.Tensor, lengths: torch.Tensor):

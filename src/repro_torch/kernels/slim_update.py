@@ -32,11 +32,21 @@ The psum pair, for a leaf whose reduction dims are split across ranks:
   partial sum of g^2, with the flags' outputs. Bound by bytes: 12 B per f32
   element plus 4 B per line (12 B more with ``with_snr``).
 * B11 ``slim_finalize_batched`` — ``csrc/slim_finalize.cu``
-  (``repro_slim_finalize``, scalar bias corrections), replacing
+  (``repro_slim_finalize_flat``), replacing
   ``repro/kernels/slim_update.py:329`` (``pallas_call`` :365 owner form,
-  :374 ek form). Bound by bytes: 8 B per element plus O(kept).
+  :374 ek form). Bound by bytes: 8 B per element plus O(kept). One flat
+  walk over the view for both axes, on the grid :func:`plan_finalize`
+  sizes from the shapes and the SM count (pure integer arithmetic, tested
+  on the CPU); the bias corrections come from the step count inside the
+  kernel (a 0-d int32 or int64 count on the card, read by pointer) or as
+  host-rounded floats (a Python int), so a call is one launch and no other
+  device work.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
+import operator
 
 import torch
 
@@ -191,7 +201,7 @@ def slim_update_major(p, g, m, v_col, **kw):
 
 _PARTIAL_ARGTYPES = [build.PTR, build.INT] + [build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 2 \
     + [build.PTR]
-_FINALIZE_ARGTYPES = [build.PTR] * 7 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 3 + [build.INT, build.PTR]
+_FINALIZE_ARGTYPES = [build.PTR] * 7 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 3 + [build.PTR]
 
 
 def slim_partial_stats_batched_plain(g, m, *, axis, b1, with_snr: bool = False, with_health: bool = False):
@@ -264,16 +274,96 @@ def check_finalize(kernel: str, m_new, v_line, ek, axis: int) -> torch.device:
     return build.check_operands(kernel, m_new=m_new, **lines)
 
 
-def launch_finalize(kernel: str, m_new, v_line, ek, bc1, bc2, *, axis: int, b2: float, eps: float,
-                    scalar_bc: bool):
-    """Launch ``repro_slim_finalize``; returns u, and v' with ``ek``."""
+def launch_finalize(kernel: str, m_new, v_line, ek, bc1, bc2, *, axis: int, b2: float, eps: float):
+    """Launch ``repro_slim_finalize`` (bias corrections ``bc1``, ``bc2``
+    one a line); returns u, and v' with ``ek``."""
     check_slim_grid(kernel, m_new, axis)
     u = torch.empty_like(m_new)
     v_out = torch.empty_like(v_line) if ek is not None else None
     b, r, c = m_new.shape
     fn = build.entry("repro_slim_finalize", _FINALIZE_ARGTYPES)
     build.launch(kernel, fn, m_new.device, m_new.data_ptr(), v_line.data_ptr(), build.ptr(ek), bc1.data_ptr(),
-                 bc2.data_ptr(), u.data_ptr(), build.ptr(v_out), b, r, c, axis, b2, 1.0 - b2, eps, int(scalar_bc))
+                 bc2.data_ptr(), u.data_ptr(), build.ptr(v_out), b, r, c, axis, b2, 1.0 - b2, eps)
+    return u if ek is None else (u, v_out)
+
+
+# The flat walk's geometry; kFlatThreads, kFlatUnroll and kFlatBlocksPerSm
+# in csrc/slim_finalize.cu match.
+FLAT_THREADS = 256
+FLAT_UNROLL = 2            # vectors a thread keeps in flight
+FLAT_BLOCKS_PER_SM = 4     # what the walk's __launch_bounds__ guarantees
+WIDE = 2**31               # views of this many elements or more index in 64 bits
+COUNT_DTYPES = (torch.int32, torch.int64)
+_FLAT_ARGTYPES = ([build.PTR] * 6 + [build.INT] + [build.F32] * 6 + [build.SIZE] * 3 + [build.INT] * 3
+                  + [build.SIZE, build.PTR])
+
+
+@dataclasses.dataclass(frozen=True)
+class FinalizePlan:
+    """The grid of one B11 call on a (B, R, C) view: ``blocks`` blocks of
+    FLAT_THREADS threads walk tiles of FLAT_THREADS x FLAT_UNROLL vectors of
+    ``vec`` elements, block i taking tiles i, i + blocks, ...; vector j of
+    a tile is thread j % FLAT_THREADS's (j // FLAT_THREADS)-th load."""
+    batch: int
+    rows: int
+    cols: int
+    axis: int
+    vec: int        # 4 (float4) or 1
+    blocks: int
+    wide: bool      # 64-bit indices
+
+    @property
+    def vectors(self) -> int:
+        return self.batch * self.rows * self.cols // self.vec
+
+    @property
+    def tile(self) -> int:
+        return FLAT_THREADS * FLAT_UNROLL
+
+
+@functools.lru_cache(maxsize=None)
+def plan_finalize(b: int, r: int, c: int, axis: int, sms: int, *, aligned: bool = True) -> FinalizePlan:
+    """The flat walk's grid for a (B=b, R=r, C=c) view on a card with
+    ``sms`` SMs. float4 vectors where c % 4 == 0 and the buffers are
+    16-byte aligned (a float4 then never spans two rows, so on axis 1 it
+    lies in one line and on axis 0 in 4 adjacent lines). A grid of one
+    block a tile up to FLAT_BLOCKS_PER_SM blocks an SM, beyond which the
+    blocks walk further tiles. Pure integer arithmetic: it reads no
+    tensor and makes no CUDA call (and is cached, as the wrapper asks for
+    every launch)."""
+    if min(b, r, c) < 1 or axis not in (0, 1) or sms < 1:
+        raise ValueError(f"plan_finalize: want a non-empty (B, R, C), axis 0|1 and sms >= 1, got "
+                         f"{(b, r, c)}, axis {axis}, sms {sms}")
+    vec = 4 if c % 4 == 0 and aligned else 1
+    vectors = b * r * c // vec
+    blocks = min(-(-vectors // (FLAT_THREADS * FLAT_UNROLL)), FLAT_BLOCKS_PER_SM * sms)
+    return FinalizePlan(b, r, c, axis, vec, blocks, b * r * c >= WIDE)
+
+
+def check_count(kernel: str, count, device: torch.device):
+    """The step count as B11 takes it: a Python int, or a 0-d int32 or
+    int64 tensor on the operands' device (the optimizer state's count)."""
+    if not isinstance(count, torch.Tensor):
+        return operator.index(count)
+    if count.ndim != 0 or count.dtype not in COUNT_DTYPES or count.device != device:
+        raise TypeError(f"{kernel}: want an int or a 0-d int32/int64 count on {device}, got {count.dtype} "
+                        f"{tuple(count.shape)} on {count.device}")
+    return count
+
+
+def launch_finalize_flat(plan: FinalizePlan, m_new, v_line, ek, count, *, b1: float, b2: float, eps: float):
+    """Launch ``repro_slim_finalize_flat`` on ``plan``; returns u, and v'
+    with ``ek``. ``count``: an int (host bias corrections) or a 0-d int32
+    or int64 tensor on the card (read by the kernel)."""
+    u = torch.empty_like(m_new)
+    v_out = torch.empty_like(v_line) if ek is not None else None
+    host = not isinstance(count, torch.Tensor)
+    bc1, bc2 = host_bias_corrections(b1, b2, count) if host else (1.0, 1.0)
+    fn = build.entry("repro_slim_finalize_flat", _FLAT_ARGTYPES)
+    build.launch("slim_finalize_batched", fn, m_new.device, m_new.data_ptr(), v_line.data_ptr(), build.ptr(ek),
+                 u.data_ptr(), build.ptr(v_out), None if host else count.data_ptr(),
+                 int(not host and count.dtype == torch.int64), bc1, bc2, b1, b2, 1.0 - b2, eps, plan.batch,
+                 plan.rows, plan.cols, plan.axis, plan.vec, int(plan.wide), plan.blocks)
     return u if ek is None else (u, v_out)
 
 
@@ -284,15 +374,22 @@ def slim_finalize_batched(m_new, v_line, *, axis: int, ek=None, b1: float = 0.9,
     completed line mean of g^2, in ``v_line``'s layout) ``v_line`` is the
     stored moment and this returns ``(u, v')``; with ``ek=None`` ``v_line``
     is the completed new moment (the owner-slice flow, where the all-reduce
-    delivered it) and this returns u. ``count`` (int, or an int 0-d tensor
-    on m's device) gives the scalar bias corrections. CUDA tensors launch
-    the kernel; CPU tensors take the plain version."""
+    delivered it) and this returns u. ``count`` (an int, or a 0-d int32 or
+    int64 tensor on m's device) gives the scalar bias corrections. CUDA
+    tensors launch the kernel (one launch, nothing else on the device);
+    CPU tensors take the plain version."""
     device = check_finalize("slim_finalize_batched", m_new, v_line, ek, axis)
-    bc1, bc2 = bias_corrections(b1, b2, torch.as_tensor(count, device=device))
+    count = check_count("slim_finalize_batched", count, device)
     if device.type == "cpu":
+        bc1, bc2 = (bias_corrections(b1, b2, count) if isinstance(count, torch.Tensor)
+                    else host_bias_corrections(b1, b2, count))
         return slim_finalize_batched_plain(m_new, v_line, bc1, bc2, b2=b2, eps=eps, ek=ek)
-    out = launch_finalize("slim_finalize_batched", m_new, v_line, ek, bc1, bc2, axis=axis, b2=b2, eps=eps,
-                          scalar_bc=True)
+    b, r, c = m_new.shape
+    # float4 line values on axis 0; u and v' are fresh, so aligned.
+    read = (m_new, v_line, ek) if axis == 0 else (m_new,)
+    aligned = all(t.data_ptr() % 16 == 0 for t in read if t is not None)
+    plan = plan_finalize(b, r, c, axis, build.sm_count(device), aligned=aligned)
+    out = launch_finalize_flat(plan, m_new, v_line, ek, count, b1=b1, b2=b2, eps=eps)
     slim_finalize_batched.launches += 1
     return out
 

@@ -110,11 +110,6 @@ def plan_split(batch: int, rows: int, cols: int, axis: int, *, sms: int, aligned
     return SplitPlan(FORM_MAJOR, vec, 32, batch, rows, cols, seg, nseg, batch * _cdiv(cols, tile) * nseg)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def centered_line_stats(x: torch.Tensor, red: int):
     """Per-line (s1c, s2c, first) of ``x`` shifted by each line's first
     entry, keepdims along ``red``: differences rounded in f32 as the TPU
@@ -167,7 +162,7 @@ def _plan_outputs(kernel: str, v: torch.Tensor, axis: int, n_outs: int, n_sums: 
     if v.numel() == 0:
         raise ValueError(f"{kernel}: empty lines have no statistics")
     b, r, c = v.shape
-    plan = plan_split(b, r, c, axis, sms=_sm_count(v.device), aligned=v.data_ptr() % 16 == 0)
+    plan = plan_split(b, r, c, axis, sms=build.sm_count(v.device), aligned=v.data_ptr() % 16 == 0)
     if max(plan.blocks, plan.combine_blocks) > _MAX_GRID_X:
         raise ValueError(f"{kernel}: shape {tuple(v.shape)} exceeds the launch grid")
     outs = torch.empty((n_outs, b, r if axis == 1 else c), dtype=torch.float32, device=v.device).unbind(0)

@@ -111,11 +111,6 @@ def plan_scan(b: int, s: int, d: int, n: int, *, sms: int) -> ScanPlan:
     return ScanPlan(FORM_SEQ, b, s, d, n, states, chunk, _cdiv(s, chunk), tiles)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check(x, dt, a, b_t, c_t, d_skip, h0) -> torch.device:
     if x.ndim != 3 or a.ndim != 2:
         raise ValueError(f"ssm_scan: want x (B, S, D) and a (D, N); got {tuple(x.shape)}, {tuple(a.shape)}")
@@ -168,7 +163,7 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0) -> Tuple[torch.Tensor, torch.Tensor
     h_out = torch.empty((bsz, d, n), dtype=torch.float32, device=device)
     if y.numel() == 0:
         return y, h0.clone()
-    plan = plan_scan(bsz, s, d, n, sms=_sm_count(device))
+    plan = plan_scan(bsz, s, d, n, sms=build.sm_count(device))
     carry = dt_sum = None
     if plan.chunks > 1:
         carry = torch.empty((bsz, plan.chunks - 1, d, n), dtype=torch.float32, device=device)

@@ -355,6 +355,78 @@ def test_slim_finalize_batched(dev, b, r, c, axis, form):
 
 
 @pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
+@pytest.mark.parametrize("form", ["ek", "owner"])
+@pytest.mark.parametrize("count", [1, 3, 10**4, 10**6])
+def test_slim_finalize_count_forms(dev, b, r, c, axis, form, count):
+    """B11 with the count as a 0-d int32 and int64 tensor on the card (the
+    kernel forms 1 - b^t with powf) equals the twin given torch's bias
+    corrections of the same tensor on the card bit for bit; with the count
+    as a Python int (host-rounded corrections) it equals the twin given
+    those as 0-d tensors on the card (torch on the card divides by a Python
+    float as a product with its reciprocal); a second run equals the
+    first."""
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    _, m, v, ek, _ = _inputs(dev, (b, r, c), line, count % 101 + c)
+    ek = ek if form == "ek" else None
+    cases = [(torch.tensor(count, dtype=dt, device=dev), fused_adam.bias_corrections(0.9, 0.95, torch.tensor(
+        count, dtype=dt, device=dev))) for dt in (torch.int32, torch.int64)]
+    cases.append((count, tuple(torch.tensor(x, device=dev) for x in fused_adam.host_bias_corrections(0.9, 0.95,
+                                                                                                       count))))
+    for cnt, (bc1, bc2) in cases:
+        before = slim_update.slim_finalize_batched.launches
+        got = slim_update.slim_finalize_batched(m, v, axis=axis, ek=ek, count=cnt, **KW)
+        again = slim_update.slim_finalize_batched(m, v, axis=axis, ek=ek, count=cnt, **KW)
+        want = slim_update.slim_finalize_batched_plain(m, v, bc1, bc2, b2=0.95, eps=1e-8, ek=ek)
+        torch.cuda.synchronize()
+        assert slim_update.slim_finalize_batched.launches == before + 2
+        for a, a2, w in zip(*((x,) if ek is None else x for x in (got, again, want))):
+            assert torch.equal(a, w), (type(cnt), float((a - w).abs().max()))
+            assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
+@pytest.mark.parametrize("form", ["ek", "owner"])
+def test_slim_finalize_other_plans(dev, b, r, c, axis, form):
+    """Every instantiation of the flat walk on one view: scalar loads where
+    the planner takes float4, 64-bit indices, and a grid of a single block
+    walking every tile, each bit-equal to the twin."""
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    _, m, v, ek, _ = _inputs(dev, (b, r, c), line, 7 * r)
+    ek = ek if form == "ek" else None
+    count = torch.tensor(5, dtype=torch.int32, device=dev)
+    want = slim_update.slim_finalize_batched_plain(m, v, *fused_adam.bias_corrections(0.9, 0.95, count), b2=0.95,
+                                                   eps=1e-8, ek=ek)
+    base = slim_update.plan_finalize(b, r, c, axis, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plans = [base, dataclasses.replace(base, vec=1), dataclasses.replace(base, wide=True),
+             dataclasses.replace(base, blocks=1)]
+    for plan in plans:
+        got = slim_update.launch_finalize_flat(plan, m, v, ek, count, **KW)
+        torch.cuda.synchronize()
+        for a, w in zip(*((x,) if ek is None else x for x in (got, want))):
+            assert torch.equal(a, w), plan
+
+
+@pytest.mark.parametrize("form", ["ek", "owner"])
+def test_slim_finalize_is_one_device_kernel(dev, form):
+    """One B11 call is one CUDA kernel in a torch.profiler trace: the bias
+    corrections are formed inside it, not by torch operations around it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    line = (12, 1, 384)
+    _, m, v, ek, _ = _inputs(dev, (12, 384, 384), line, 11)
+    ek = ek if form == "ek" else None
+    count = torch.tensor(3, dtype=torch.int32, device=dev)
+    slim_update.slim_finalize_batched(m, v, axis=0, ek=ek, count=count, **KW)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        slim_update.slim_finalize_batched(m, v, axis=0, ek=ek, count=count, **KW)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "finalize_flat_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
 @pytest.mark.parametrize("with_snr,with_health", [(False, False), (True, False), (False, True), (True, True)])
 def test_mega_slim_partial_stats_batched(dev, b, r, c, axis, with_snr, with_health):
     line = (b, r, 1) if axis == 1 else (b, 1, c)
