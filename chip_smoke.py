@@ -133,9 +133,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``torch.var_mean`` (B8); B8 also per form of its split walk, the
    embedding's v as one line (SPLIT) and along its rows (MAJOR) beside the
    main path's WARP views.
-9. One ``{"kernels": [...]}`` line (all 15 kernels, B1 and B2 with their
-   flags on rows of their own), the ``nvidia-smi`` line, and last the
-   ``{"ok": true, "device": ...}`` line.
+9. The paper's baselines and figure probes. 9a: ``mega_slim_update_batched``
+   (B1; B2 on their dense groups) against its twin on every group of the
+   AdaLayer, AdaLayer-LN-TL and Adam-mini v1/v2 plans of full-width
+   gpt_small, timed as in phase 2, with the time of AdaLayer's
+   38,633,472-element embedding line. 9b: the 12 optimizers of
+   ``repro_torch.train.trainer.OPTIMIZERS`` through the Trainer on
+   full-width gpt_small (batch 8 x 1024, bf16 activations, 3 steps each,
+   launch counters zeroed before and read after each run: B1 and B2 per
+   the plan's groups each step for the SlimAdam family, B2 for Adam, no
+   kernel for Adafactor, SM3, Lion and SGD-M), finite losses, optimizer
+   state bytes, second-moment entries and savings, peak memory, one fused
+   update against the plain 'jnp' backend for each SlimAdam rule set, and
+   every optimizer's step time in turns. 9c: ResNet-18 (11,218,240
+   parameters) at full width on ``synthetic_cifar`` batches of 32 x 32 x
+   32: its Table-3 plan's groups (9 axis-0) held, 4 Adam steps and one SNR
+   measurement (B5 on its 63 candidates), 4 Table-3 SlimAdam steps and one
+   update against 'jnp', a reduced ResNet's logits on the card against the
+   CPU. 9d: the linear LM (vocab 49152, d 32), 4 Adam steps and one SNR
+   measurement; full-width gpt_medium (354,599,936 parameters), 2 Table-3
+   SlimAdam steps.
+10. One ``{"kernels": [...]}`` line (all 15 kernels, B1 and B2 with their
+   flags on rows of their own; B1, B2 and B5 count phase 9's launches
+   too), the ``nvidia-smi`` line, and last the ``{"ok": true, "device":
+   ...}`` line.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so f32 matrix products are full f32.
@@ -172,6 +193,7 @@ TOL_SERVE_LOGITS = 5e-2  # full-width logits, kernel against plain attention: bf
 TOL_BF16_OUT = 2.0**-7   # a bf16 attention output: kernel and twin may round one bf16 step apart
 TOL_SNR = 1e-4           # from-update SNR against the plain math on the same g and v' (f64 against f32 sums)
 TOL_RESUME = 1e-4        # losses after a resume: the embedding backward sums with atomics on the card
+TOL_CARD_FORWARD = 1e-4  # a reduced f32 ResNet's logits, card against CPU: convolutions sum in another order
 
 # Serving run geometry (phase 5). 800 pool pages force preemption of the 32
 # requests; the scheduler's counts do not depend on the weights, since no
@@ -2075,6 +2097,287 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
 
 
 
+# -- the paper's baselines and probes (phase 9) ------------------------------------
+
+# benchmarks/resnet_snr.py's batch at CIFAR size; benchmarks/vocab_tail.py's full
+# preset at its largest vocabulary.
+RESNET_BATCH, RESNET_SIZE = 32, 32
+LINEAR_VOCAB, LINEAR_D = 49152, 32
+
+
+def second_moment_entries(opt_state) -> int:
+    """Stored second-moment entries of any of the paper's optimizers, by
+    state leaf name: Adam's and SlimAdam's nu, Adafactor's row and column
+    statistics, SM3's accumulators (Lion and SGD-M keep none)."""
+    from repro_torch.checkpoint import named_leaves
+
+    return sum(t.numel() for n, t in named_leaves(opt_state)
+               if any(f".{field}." in f".{n}." for field in ("nu", "vr", "vc", "accs")))
+
+
+def state_bytes(opt_state) -> int:
+    from repro_torch.checkpoint import named_leaves
+
+    return sum(t.numel() * t.element_size() for _, t in named_leaves(opt_state))
+
+
+def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_plan, held, group_key):
+    """Phase 9: B1 held on the baseline rule sets' plans, the 12 optimizers
+    through the Trainer on full-width gpt_small, ResNet-18, the linear LM and
+    gpt_medium. Returns (report, launches of B1, B2 and B5 in the counted
+    runs)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import baselines, measure_tree_snr, rules_to_dims, second_moment_savings, table3_rules
+    from repro_torch.core.labels import flatten_with_names
+    from repro_torch.core.slim_adam import scale_by_slim_adam, slim_adam
+    from repro_torch.data import linear_model_batches
+    from repro_torch.kernels import megaplan
+    from repro_torch.models import LinearLM, LinearLMConfig, ResNet, ResNetConfig, forward, linear_lm, resnet
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer, TrainerConfig, find_adam_nu, make_train_step
+    from repro_torch.train.loss import lm_loss
+    from repro_torch.train.trainer import OPTIMIZERS, _SLIM_FAMILY, slim_rule_dims
+
+    dev = torch.device("cuda")
+    report: dict = {}
+    launched = {"mega_slim_update_batched": 0, "mega_adam_update": 0, "snr_stats_centered_batched": 0}
+    rules = {"slim": table3_rules(meta), "slim_snr": derived,
+             **{n: getattr(baselines, f"{n}_rules")(meta) for n in ("adalayer", "adalayer_ln_tl", "adam_mini_v1",
+                                                                     "adam_mini_v2")}}
+
+    def counted(what, fn, expect):
+        """Run ``fn`` with the launch counters zeroed before and read after;
+        ``expect`` names the launches each kernel must show (None: none at all)."""
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {k: 0 for k in counts} if expect is None else expect
+        for k, n in want.items():
+            if counts[k] != n:
+                raise AssertionError(f"{what}: {k} launched {counts[k]} times, expected {n}")
+        for k in launched:
+            launched[k] += counts[k]
+        return out, {k: n for k, n in counts.items() if n}
+
+    def finite(what, losses):
+        if not losses or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{what}: losses not finite: {losses}")
+
+    def fused_vs_jnp(what, make, grads, state):
+        """One update on each backend from the same state and gradients."""
+        with torch.no_grad():
+            uf, sf = make("fused").update(grads, state)
+            uj, sj = make("jnp").update(grads, state)
+        worst = {}
+        for field, a, b in (("u", uf, uj), ("m", sf.mu, sj.mu), ("v", sf.nu, sj.nu)):
+            worst[field] = max(max_err(a[k], b[k])[1] for k in a)
+            if worst[field] > TOL_STEP:
+                raise AssertionError(f"{what} fused vs jnp {field}: rel err {worst[field]:.3e} > {TOL_STEP:.0e}")
+        log(f"  {what}: fused vs jnp, worst relative error u {worst['u']:.3e}  m {worst['m']:.3e}  "
+            f"v {worst['v']:.3e}  tol {TOL_STEP:.0e}  ok")
+        return worst
+
+    def grads_of(model_cfg, params, batch, fwd):
+        loss, _ = lm_loss(model_cfg, params, batch, fwd)
+        return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    # -- 9a. B1 on the baseline rule sets' plans --------------------------------------
+    log("[9a] B1 on every group of the baseline rule sets' full-width gpt_small plans (B2 on their dense "
+        "groups), each against its plain twin")
+    plans = {}
+    for name in ("adalayer", "adalayer_ln_tl", "adam_mini_v1", "adam_mini_v2"):
+        plans[name] = plan = plan_for(rules[name])
+        if plan.jnp_idx:
+            raise AssertionError(f"{name}: leaves {plan.jnp_idx} left to the plain path")
+        hold_plan(name, plan)
+    line = held[("minor", 1, 1, 38633472, 1)]
+    log(f"  B1 on AdaLayer's embedding as one 38,633,472-element line: {line['ms']:.4f} ms, bound "
+        f"{line['bound_ms']:.4f} ms ({line['bound_ms'] / line['ms']:.1%} of it), plain {line['plain_ms']:.4f} ms ({smi})")
+    report["plans"] = {n: [held[group_key(g)] for g in p.groups] for n, p in plans.items()}
+
+    # -- 9b. the 12 optimizers through the Trainer -------------------------------------
+    log("[9b] the 12 optimizers on full-width gpt_small, batch 8 x 1024, bf16 activations, backend='fused', "
+        "3 steps each")
+    n_params = cfg.param_count()
+    trainers, runs = {}, {}
+    for name in OPTIMIZERS:
+        if name in _SLIM_FAMILY:
+            plan = plan_for(rules[name])
+            dense = sum(g.kind == "dense" for g in plan.groups)
+            expect = {"mega_adam_update": 3 * dense, "mega_slim_update_batched": 3 * (len(plan.groups) - dense),
+                      "snr_stats_centered_batched": 0}
+        elif name == "adam":
+            expect = {"mega_adam_update": 3, "mega_slim_update_batched": 0, "snr_stats_centered_batched": 0}
+        else:
+            expect = None      # plain torch: no kernel at all
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, name, lr, data, TrainerConfig(total_steps=3, log_every=1, backend="fused", seed=0),
+                     rules=derived if name == "slim_snr" else None)
+        t0 = time.perf_counter()
+        _, counts = counted(name, tr.run, expect)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        losses = [m["loss"] for m in tr.metrics_log]
+        finite(name, losses)
+        entries = second_moment_entries(tr.opt_state)
+        run = dict(losses=losses, wall_s=wall, launches=counts, peak_gib=peak,
+                   state_gib=state_bytes(tr.opt_state) / 2**30, second_moments=entries,
+                   second_moment_savings=1.0 - entries / n_params)
+        if name in _SLIM_FAMILY:
+            saved = second_moment_savings(tr.params, tr.meta, rules[name])["saved_fraction"]
+            if abs(saved - run["second_moment_savings"]) > 1e-12:
+                raise AssertionError(f"{name}: state holds {entries} second moments, the rules save {saved}")
+        log(f"  {name}: losses {[round(x, 4) for x in losses]}, launches {counts}, optimizer state "
+            f"{run['state_gib']:.4f} GiB, second moments {entries} ({run['second_moment_savings']:.5%} saved), "
+            f"peak memory {peak:.2f} GiB ({smi})")
+        if name in _SLIM_FAMILY:
+            dims = slim_rule_dims(name, tr.params, tr.meta, derived if name == "slim_snr" else None)
+            run["fused_vs_jnp"] = fused_vs_jnp(name, lambda b, dims=dims: scale_by_slim_adam(dims, backend=b),
+                                               grads_of(cfg, tr.params, tr.batch(100), forward),
+                                               tr.opt_state.inner_states[1])
+        runs[name] = run
+        trainers[name] = tr
+    # Step times on the synchronised host clock, every optimizer in turns.
+    med, raw = in_turns(torch, {n: (lambda tr=tr: tr.run(tr.step + 1)) for n, tr in trainers.items()}, rounds=2)
+    for name in OPTIMIZERS:
+        runs[name]["step_ms"], runs[name]["step_ms_blocks"] = med[name], raw[name]
+    log(f"  step ms in turns ({smi}): " + ", ".join(f"{n} {med[n]:.2f}" for n in OPTIMIZERS))
+    report["optimizers"] = runs
+    del trainers
+    torch.cuda.empty_cache()
+
+    # -- 9c. ResNet-18 ----------------------------------------------------------------
+    rcfg = ResNetConfig(classes=100)
+    log(f"[9c] ResNet-18 (classes 100, width 64) at full width, synthetic_cifar batch {RESNET_BATCH} at "
+        f"{RESNET_SIZE} x {RESNET_SIZE}")
+    rspecs = dict(flatten_with_names(rcfg.specs()))
+    rmeta = {k: s.meta() for k, s in rspecs.items()}
+    n_res = sum(math.prod(s.shape) for s in rspecs.values())
+    if n_res != 11_218_240:
+        raise AssertionError(f"ResNet-18 has {n_res} parameters")
+    t3 = rules_to_dims(table3_rules(rmeta), rmeta)
+    rplan = megaplan.plan_megagroups([s.shape for s in rspecs.values()], [torch.float32] * len(rspecs),
+                                     [t3[k] for k in rspecs])
+    if rplan.jnp_idx or [g.kind for g in rplan.groups] != ["dense"] + ["major"] * 9:
+        raise AssertionError(f"unexpected ResNet-18 Table-3 plan: {rplan.groups}")
+    hold_plan("ResNet-18 Table-3", rplan)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = [resnet.synthetic_cifar(gen, RESNET_BATCH, rcfg.classes, size=RESNET_SIZE) for _ in range(5)]
+    n_cand = sum(len(m.candidate_ks()) for m in rmeta.values())
+    res = {"params": n_res, "plan": [held[group_key(g)] for g in rplan.groups]}
+
+    def resnet_run(label, tx, expect):
+        model = ResNet(rcfg, device=dev, gen=torch.Generator().manual_seed(0))
+        step = make_train_step(model, tx, forward_fn=resnet.forward)
+        state = tx.init(model.params)
+        metrics = []
+
+        def run():
+            nonlocal state
+            for b in batches[:4]:
+                state, m = step(state, b)
+                metrics.append(m)
+            return measure_tree_snr(find_adam_nu(state), rmeta, backend="fused") if label == "adam" else None
+
+        snr, counts = counted(f"ResNet-18 {label}", run, expect)
+        losses = [float(m["loss"]) for m in metrics]
+        finite(f"ResNet-18 {label}", losses)
+        ms = host_ms(torch, lambda: step(state, batches[4]))
+        log(f"  {label}: losses {[round(x, 4) for x in losses]}, launches {counts}, step {ms:.2f} ms ({smi})")
+        return model, state, dict(losses=losses, launches=counts, step_ms=ms), snr
+
+    _, _, res["adam"], snr = resnet_run("adam", adamw(1e-3, b2=0.999, weight_decay=0.01, backend="fused"),
+                                        {"mega_adam_update": 4, "mega_slim_update_batched": 0,
+                                         "snr_stats_centered_batched": n_cand})
+    values = {f"{n}.{k}": float(v) for n, ks in snr.items() for k, v in ks.items()}
+    if len(values) != n_cand or not all(map(math.isfinite, values.values())):
+        raise AssertionError(f"ResNet-18 SNR: {len(values)} of {n_cand} candidates, {values}")
+    res["snr"] = values
+    log(f"  SNR of Adam's moments ({n_cand} candidates, B5): stem fan_out {values['stem.conv.fan_out']:.3f}, "
+        f"head fan_in {values['head.fan_in']:.3f}, stage3_block1.conv2 fan_in "
+        f"{values['stage3_block1.conv2.fan_in']:.3f}")
+    model, state, res["slim"], _ = resnet_run(
+        "slim", slim_adam(1e-3, t3, b2=0.999, weight_decay=0.01, backend="fused"),
+        {"mega_adam_update": 4, "mega_slim_update_batched": 4 * 9, "snr_stats_centered_batched": 0})
+    res["fused_vs_jnp"] = fused_vs_jnp("ResNet-18 Table-3 SlimAdam",
+                                       lambda b: scale_by_slim_adam(t3, b2=0.999, backend=b),
+                                       grads_of(rcfg, model.params, batches[4], resnet.forward),
+                                       state.inner_states[1])
+    del model, state, batches
+    # A small input against a reference: a reduced ResNet on the card and on the CPU.
+    scfg = ResNetConfig(stages=(1, 1), width=8, classes=10)
+    small = {d: ResNet(scfg, device=d, gen=torch.Generator().manual_seed(1)) for d in ("cpu", "cuda")}
+    batch = resnet.synthetic_cifar(torch.Generator().manual_seed(2), 8, scfg.classes, size=RESNET_SIZE)
+    with torch.no_grad():
+        got = small["cuda"]({k: v.to(dev) for k, v in batch.items()})[0].cpu()
+        want = small["cpu"](batch)[0]
+    res["reduced_card_vs_cpu"] = check("reduced ResNet (stages (1, 1), width 8) logits, card against CPU", got, want,
+                                       TOL_CARD_FORWARD)
+    report["resnet18"] = res
+    torch.cuda.empty_cache()
+
+    # -- 9d. the linear LM and gpt_medium ------------------------------------------------
+    log(f"[9d] linear LM (vocab {LINEAR_VOCAB}, d {LINEAR_D}), 4 Adam steps and one SNR measurement")
+    lm = LinearLM(LinearLMConfig(vocab_size=LINEAR_VOCAB, d_model=LINEAR_D), device=dev,
+                  gen=torch.Generator().manual_seed(0))
+    ldata = linear_model_batches(LINEAR_VOCAB, seq_len=32, batch=8, seed=0)
+    tx = adamw(3e-3, b2=0.999, weight_decay=1e-4, backend="fused")
+    step = make_train_step(lm, tx, forward_fn=linear_lm.forward)
+    lstate = tx.init(lm.params)
+    lmetrics = []
+
+    def linear_run():
+        nonlocal lstate
+        for s in range(4):
+            lstate, m = step(lstate, {k: torch.from_numpy(v).to(dev) for k, v in ldata.batch(s).items()})
+            lmetrics.append(m)
+        return measure_tree_snr(find_adam_nu(lstate), lm.meta, backend="fused")
+
+    lsnr, counts = counted("linear LM", linear_run, {"mega_adam_update": 4, "mega_slim_update_batched": 0,
+                                                     "snr_stats_centered_batched": 6})
+    losses = [float(m["loss"]) for m in lmetrics]
+    finite("linear LM", losses)
+    lvalues = {f"{n}.{k}": float(v) for n, ks in lsnr.items() for k, v in ks.items()}
+    if len(lvalues) != 6 or not all(map(math.isfinite, lvalues.values())):
+        raise AssertionError(f"linear LM SNR: {lvalues}")
+    log(f"  losses {[round(x, 4) for x in losses]}, launches {counts}; SNR head token dim (fan_out) "
+        f"{lvalues['head.fan_out']:.3f}, embedding dim (fan_in) {lvalues['head.fan_in']:.3f}")
+    report["linear_lm"] = dict(losses=losses, launches=counts, snr=lvalues)
+    del lm, lstate, step
+    torch.cuda.empty_cache()
+
+    mcfg = get_config("gpt_medium")
+    log(f"[9d] gpt_medium at full width ({mcfg.param_count():,} parameters), 2 Table-3 SlimAdam steps, "
+        "batch 8 x 1024")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(mcfg, "slim", lr, data, TrainerConfig(total_steps=2, log_every=1, backend="fused", seed=0))
+    mdims = slim_rule_dims("slim", tr.params, tr.meta)
+    mplan = megaplan.plan_megagroups([p.shape for p in tr.params.values()], [torch.float32] * len(mdims),
+                                     list(mdims.values()))
+    dense = sum(g.kind == "dense" for g in mplan.groups)
+    t0 = time.perf_counter()
+    _, counts = counted("gpt_medium", tr.run, {"mega_adam_update": 2 * dense,
+                                               "mega_slim_update_batched": 2 * (len(mplan.groups) - dense),
+                                               "snr_stats_centered_batched": 0})
+    wall = time.perf_counter() - t0
+    losses = [m["loss"] for m in tr.metrics_log]
+    finite("gpt_medium", losses)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"  losses {[round(x, 4) for x in losses]}, launches {counts}, groups "
+        f"{[(g.kind, g.batch, g.rows, g.cols) for g in mplan.groups]}, 2 steps in {wall:.2f} s, peak memory "
+        f"{peak:.2f} GiB ({smi})")
+    report["gpt_medium"] = dict(params=mcfg.param_count(), losses=losses, launches=counts, wall_s=wall, peak_gib=peak)
+    del tr
+    torch.cuda.empty_cache()
+    return report, launched
+
+
 def main() -> int:
     import torch
 
@@ -2432,15 +2735,19 @@ def main() -> int:
     timer = Timer(torch)
     report["ssm"], ssm_entry = ssm_phase(torch, timer, rate, smi)
     report["param_api"], param_entries = param_phase(torch, timer, rate, smi, specs, t3_dims)
+    torch.cuda.empty_cache()
+    report["baselines"], baseline_launches = baselines_phase(torch, smi, cfg, meta, data, lr, rules, plan_for,
+                                                              hold_plan, held, group_key)
     del timer
     torch.cuda.empty_cache()
 
-    # -- 9. result lines ------------------------------------------------------
+    # -- 10. result lines -----------------------------------------------------
     # Times per step of the main path: B2 on Adam's one dense group, B1 summed
     # over the Table-3 plan's three slim groups, B5 over one SNR measurement.
-    # Errors are the worst over every group the main path launched on.
+    # Errors are the worst over every group phases 3 and 9 launched on, and
+    # launches count both phases' runs.
     launches = {k: main["adam"]["launches"][k] + main["slim"]["launches"][k] + main["slim_snr"]["launches"][k]
-                for k in main["adam"]["launches"]}
+                + baseline_launches.get(k, 0) for k in main["adam"]["launches"]}
     src = "src/repro_torch/kernels/csrc/"
 
     def group_entry(name, plan, source, replaces):
@@ -2522,7 +2829,7 @@ def main() -> int:
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
-    log(f"[9] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
+    log(f"[10] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,7 +6,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-ARCH_IDS = ("gpt_small", "smollm_135m", "falcon_mamba_7b")
+ARCH_IDS = ("gpt_small", "gpt_medium", "smollm_135m", "falcon_mamba_7b")
 
 
 def _module(arch: str):

@@ -70,6 +70,21 @@ class ParamMeta:
         return out
 
 
+def path_str(path) -> str:
+    """Dotted rendering of a key path: each part a dict key (``.key``), a
+    sequence index (``.idx``), an attribute name (``.name``) or a plain
+    key, as the JAX package renders its key paths."""
+    parts = []
+    for k in path:
+        for attr in ("key", "idx", "name"):
+            if hasattr(k, attr):
+                parts.append(str(getattr(k, attr)))
+                break
+        else:
+            parts.append(str(k))
+    return ".".join(parts)
+
+
 def _walk(tree: Any, prefix: Tuple[str, ...]):
     if isinstance(tree, Mapping):
         for k, v in tree.items():
@@ -85,3 +100,18 @@ def flatten_with_names(tree: Any) -> List[Tuple[str, Any]]:
     returns no treedef: the port's trees are flat dicts in this order."""
     leaves = sorted(_walk(tree, ()), key=lambda kv: kv[0])
     return [(".".join(path), leaf) for path, leaf in leaves]
+
+
+def validate_meta(params: Any, meta: Any) -> None:
+    """Check the metadata tree matches the parameter tree leaf for leaf
+    (nested dicts or flat dotted-name dicts): the same names, a ParamMeta
+    per leaf, one axis per dimension."""
+    p_named, m_named = flatten_with_names(params), flatten_with_names(meta)
+    p_names, m_names = [n for n, _ in p_named], [n for n, _ in m_named]
+    if p_names != m_names:
+        raise ValueError(f"param/meta tree mismatch; differing leaves: {sorted(set(p_names) ^ set(m_names))[:10]}")
+    for (name, p), (_, m) in zip(p_named, m_named):
+        if not isinstance(m, ParamMeta):
+            raise TypeError(f"{name}: meta leaf is {type(m)}, want ParamMeta")
+        if len(m.axes) != len(p.shape):
+            raise ValueError(f"{name}: meta axes {m.axes} vs param ndim {len(p.shape)} (shape {tuple(p.shape)})")

@@ -1,6 +1,5 @@
 """SlimAdam, the paper's low-memory Adam (port of ``repro/core/slim_adam.py``,
-Eq. 2, first moment kept; the moment-less ``use_first_moment=False``
-variant is not ported yet).
+Eq. 2).
 
 For a tensor with compression dims K the second moment follows
 
@@ -32,7 +31,7 @@ Dims = Tuple[int, ...]
 
 class ScaleBySlimAdamState(NamedTuple):
     count: torch.Tensor   # int32 0-d
-    mu: Any               # {name: f32 first moment, full shape}
+    mu: Any               # {name: f32 first moment, full shape}; None without the first moment
     nu: Any               # {name: f32 second moment, size-1 reduced dims}
     # From-update SNR snapshot ({name: 0-d tensor, None for K = () leaves}),
     # published only by transformations built with ``emit_snr=True``.
@@ -52,6 +51,7 @@ def second_moment_elements(params: Dict[str, torch.Tensor], dims: Dict[str, Dims
 
 
 def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, *,
+                       use_first_moment: bool = True,
                        backend: str = "jnp", bucket_min_size: int = fused.DEFAULT_BUCKET_MIN,
                        mesh=None, param_specs=None, emit_snr: bool = False, emit_health: bool = False,
                        megakernel: bool = True) -> GradientTransformation:
@@ -71,12 +71,20 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
     measure steps and reuse the same state. ``emit_health=True`` publishes a
     :class:`repro_torch.optim.fused.StepHealth` on ``state.health``.
 
+    ``use_first_moment=False`` keeps no first moment (``state.mu`` is None;
+    the numerator is g). Every backend runs it through the per-leaf plain
+    math, as the JAX package's fused backend does: the kernels read and
+    write a first moment, so serving this variant through them would stream
+    a discarded full-size m. It is not supported on a mesh.
+
     ``mesh`` + ``param_specs`` make the fused backend sharded: the state
     holds this rank's shards (a psum leaf's reduced moment as its owner
     slice), the update takes the whole gradients and returns whole updates,
     with SNR and health equal on every rank (``repro_torch.optim.fused``)."""
     resolve_backend(backend)
     mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_slim_adam")
+    if mesh is not None and not use_first_moment:
+        raise NotImplementedError("scale_by_slim_adam: use_first_moment=False is not supported on a mesh")
 
     def spec_leaves(names):
         from ..sharding.shardspec import normalize_spec_leaves
@@ -93,7 +101,8 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
                                         mu=dict(zip(names, mu)), nu=dict(zip(names, nu)))
         return ScaleBySlimAdamState(
             count=torch.zeros((), dtype=torch.int32, device=device),
-            mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()},
+            mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
+            if use_first_moment else None,
             nu={k: torch.zeros(_reduced_shape(p.shape, tuple(dims[k])), dtype=torch.float32, device=p.device)
                 for k, p in params.items()})
 
@@ -101,12 +110,12 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
         names = list(updates)
         count = state.count + 1
         g = [updates[k] for k in names]
-        mu = [state.mu[k] for k in names]
+        mu = [state.mu[k] for k in names] if use_first_moment else [None] * len(names)
         nu = [state.nu[k] for k in names]
         d = [tuple(dims[k]) for k in names]
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
         snr = health = None
-        if resolve_backend(backend, g[0].device) == "fused":
+        if use_first_moment and resolve_backend(backend, g[0].device) == "fused":
             if mesh is not None:
                 kw.update(mesh=mesh, spec_leaves=spec_leaves(names))
             out = fused.slim_tree_update(g, mu, nu, d, bucket_min_size=bucket_min_size, emit_snr=emit_snr,
@@ -115,12 +124,14 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
             snr = out[3] if emit_snr else None
             health = out[-1] if emit_health else None
         else:
-            u, mu, nu = zip(*[fused.jnp_slim_leaf(*leaf, **kw) for leaf in zip(g, mu, nu, d)])
+            u, mu, nu = zip(*[fused.jnp_slim_leaf(*leaf, use_first_moment=use_first_moment, **kw)
+                              for leaf in zip(g, mu, nu, d)])
             if emit_snr:
                 snr = [fused.jnp_update_snr_leaf(x, v, k, b2=b2) if k else None for x, v, k in zip(g, nu, d)]
             if emit_health:
                 health = fused._health_from_rows([fused.leaf_health(x) for x in g])
-        return dict(zip(names, u)), ScaleBySlimAdamState(count, dict(zip(names, mu)), dict(zip(names, nu)),
+        return dict(zip(names, u)), ScaleBySlimAdamState(count, dict(zip(names, mu)) if use_first_moment else None,
+                                                          dict(zip(names, nu)),
                                                           dict(zip(names, snr)) if emit_snr else None, health)
 
     return GradientTransformation(init_fn, update_fn)

@@ -133,6 +133,16 @@ def measure_leaf_snr(v: torch.Tensor, meta: ParamMeta, *, backend: str = "jnp", 
             for label, axes in meta.candidate_ks().items()}
 
 
+def measure_leaf_snr_per_layer(v: torch.Tensor, meta: ParamMeta) -> Dict[str, torch.Tensor]:
+    """Per-depth SNR vectors for stacked tensors (axis 'layers'): one value
+    per layer for each candidate K; other tensors as :func:`measure_leaf_snr`."""
+    if "layers" not in meta.axes:
+        return measure_leaf_snr(v, meta)
+    layer_dim = meta.axes.index("layers")
+    return {label: snr_along_dims(v, meta.dims_of(axes), per_remaining_dim=layer_dim)
+            for label, axes in meta.candidate_ks().items()}
+
+
 def measure_tree_snr(nu: Mapping[str, torch.Tensor], meta: Mapping[str, ParamMeta], *,
                      backend: str = "jnp", mesh=None, param_specs: Optional[Mapping[str, Any]] = None,
                      from_update: Optional[Mapping[str, Optional[torch.Tensor]]] = None,

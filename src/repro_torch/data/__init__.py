@@ -1,3 +1,3 @@
-from .pipeline import DataConfig, ZipfLM
+from .pipeline import DataConfig, ZipfLM, byte_corpus, linear_model_batches
 
-__all__ = ["DataConfig", "ZipfLM"]
+__all__ = ["DataConfig", "ZipfLM", "byte_corpus", "linear_model_batches"]

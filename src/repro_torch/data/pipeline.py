@@ -9,7 +9,7 @@ model has something learnable. Batch content is a pure function of
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -62,3 +62,40 @@ class ZipfLM:
         rng = np.random.default_rng((cfg.seed, step, 0))
         toks = self._tokens(rng, cfg.global_batch * (cfg.seq_len + 1)).reshape(cfg.global_batch, cfg.seq_len + 1)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:].astype(np.int32)}
+
+
+# ---------------------------------------------------------------------------
+# Tiny real-text corpus for the two-layer linear-model experiment (§4.1):
+# word tokenization over an embedded sample so the token distribution has a
+# natural heavy tail.
+# ---------------------------------------------------------------------------
+
+_SAMPLE = (
+    "the quick brown fox jumps over the lazy dog . the dog sleeps . "
+    "a model of language must learn the long tail of rare words . "
+    "optimization of deep networks with adaptive methods is the standard . "
+    "the second moments of the gradients concentrate along certain dimensions . "
+    "rare tokens receive rare gradient updates and so their moments evolve slowly . "
+    "frequent tokens receive frequent updates and their moments grow quickly . "
+    "this difference in time scale is why the token dimension resists compression . "
+    "signal to noise ratios quantify when a mean can stand in for the many . "
+) * 64
+
+
+def byte_corpus(vocab_size: int, seq_len: int, *, seed: int = 0) -> Tuple[np.ndarray, int]:
+    """Frequency-truncated word tokenizer: maps the sample text onto
+    ``vocab_size`` ids, every word outside the ``vocab_size - 1`` most
+    frequent going to the last id. Returns (token stream, effective vocab)."""
+    words = _SAMPLE.split()
+    uniq, counts = np.unique(words, return_counts=True)
+    order = np.argsort(-counts)
+    vocab = {w: i for i, w in enumerate(uniq[order][: vocab_size - 1])}
+    ids = np.array([vocab.get(w, vocab_size - 1) for w in words], dtype=np.int32)
+    return ids, vocab_size
+
+
+def linear_model_batches(vocab_size: int, seq_len: int, batch: int, *, seed: int = 0) -> ZipfLM:
+    """Batches for the §4.1 two-layer model: the Zipf stream (alpha 1.1) at
+    the requested vocabulary size, progressively truncating the tail like
+    the paper's BPE vocabulary sweep."""
+    return ZipfLM(DataConfig(vocab_size=vocab_size, seq_len=seq_len, global_batch=batch, alpha=1.1, seed=seed))

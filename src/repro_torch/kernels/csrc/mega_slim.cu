@@ -17,6 +17,12 @@
 //              line's first entry (centered_line_stats of g^2);
 // with_health: nf = count of non-finite g, ss = sum g^2 over finite g.
 // Both ride pass 1, which already reads every g of the line: no extra pass.
+// The line sum of g^2 accumulates in f64 and rounds to f32 once: a thread's
+// f32 running sum over a long line (the 38.6 M-element embedding line of a
+// one-moment-per-block rule walks ~150 K elements a thread) drops every term
+// below half an ulp of it, and with heavy-tailed gradients a few large
+// entries make most terms that small (8e-5 relative error on u, measured).
+// A DFMA per element costs nothing at this kernel's byte bound.
 //
 // Bound: bytes. g and m are read, u and m' written (16 B per f32 element);
 // the line operands v, bc1, bc2 and v' add 16 B per line, each flag's two
@@ -132,13 +138,13 @@ __global__ void slim_minor_kernel(SlimArgs a) {
   static_assert(!VEC || std::is_same<G, float>::value, "float4 loads need f32 g");
   static_assert(!VEC || !WRITE || std::is_same<P, float>::value, "float4 parameter loads need f32 p");
   constexpr bool STATS = SNR || HEALTH;
-  __shared__ float smem[32];
+  __shared__ double smem[32];
   const long long line = blockIdx.x;
   const long long base = line * a.cols;
   const float* m = a.m + base;
   float* mo = a.m_out + base;
 
-  float s = 0.f;
+  double s = 0.0;
   LineStats<SNR, HEALTH> st;
   float f = 0.f;
   if constexpr (SNR) {
@@ -149,10 +155,10 @@ __global__ void slim_minor_kernel(SlimArgs a) {
     const float4* g4 = reinterpret_cast<const float4*>(static_cast<const float*>(a.g) + base);
     for (long long j = threadIdx.x; j < a.cols / 4; j += blockDim.x) {
       const float4 x = g4[j];
-      s = fmaf(x.x, x.x, s);
-      s = fmaf(x.y, x.y, s);
-      s = fmaf(x.z, x.z, s);
-      s = fmaf(x.w, x.w, s);
+      s = fma((double)x.x, (double)x.x, s);
+      s = fma((double)x.y, (double)x.y, s);
+      s = fma((double)x.z, (double)x.z, s);
+      s = fma((double)x.w, (double)x.w, s);
       if constexpr (STATS) {
         st.add(x.x, __fmul_rn(x.x, x.x), f);
         st.add(x.y, __fmul_rn(x.y, x.y), f);
@@ -172,21 +178,20 @@ __global__ void slim_minor_kernel(SlimArgs a) {
   } else {
     for (long long j = threadIdx.x; j < a.cols; j += blockDim.x) {
       const float x = load_g<G>(a.g, base + j);
-      s = fmaf(x, x, s);
+      s = fma((double)x, (double)x, s);
       if constexpr (STATS) st.add(x, __fmul_rn(x, x), f);
       if constexpr (PARTIAL) mo[j] = ema(a.b1, m[j], a.omb1, x);
     }
   }
-  const float total = block_sum(s, smem);
+  const float total = (float)block_sum(s, smem);
   if constexpr (STATS) {
-    __shared__ double dsmem[32];
     if constexpr (SNR) {
-      st.s1c = block_sum(st.s1c, dsmem);
-      st.s2c = block_sum(st.s2c, dsmem);
+      st.s1c = block_sum(st.s1c, smem);
+      st.s2c = block_sum(st.s2c, smem);
     }
     if constexpr (HEALTH) {
-      st.nf = block_sum(st.nf, dsmem);
-      st.ss = block_sum(st.ss, dsmem);
+      st.nf = block_sum(st.nf, smem);
+      st.ss = block_sum(st.ss, smem);
     }
     if (threadIdx.x == 0) write_line_stats(a, line, st);
   }
@@ -255,7 +260,7 @@ __global__ void slim_minor_kernel(SlimArgs a) {
 template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL, typename P = float, bool WRITE = false>
 __global__ void slim_major_kernel(SlimArgs a) {
   constexpr bool STATS = SNR || HEALTH;
-  __shared__ float part[kRowThreads][kStrip + 1];
+  __shared__ double part[kRowThreads][kStrip + 1];
   __shared__ float line_v[kStrip];
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -265,7 +270,7 @@ __global__ void slim_major_kernel(SlimArgs a) {
   const long long slice = b * a.rows * a.cols;
   const long long li = b * a.cols + c;  // line index in the (B, 1, C) operands
 
-  float s = 0.f;
+  double s = 0.0;
   LineStats<SNR, HEALTH> st;
   float f = 0.f;
   if (live) {
@@ -276,7 +281,7 @@ __global__ void slim_major_kernel(SlimArgs a) {
     for (long long r = ty; r < a.rows; r += kRowThreads) {
       const long long i = slice + r * a.cols + c;
       const float x = load_g<G>(a.g, i);
-      s = fmaf(x, x, s);
+      s = fma((double)x, (double)x, s);
       if constexpr (STATS) st.add(x, __fmul_rn(x, x), f);
       if constexpr (PARTIAL) a.m_out[i] = ema(a.b1, a.m[i], a.omb1, x);
     }
@@ -303,17 +308,17 @@ __global__ void slim_major_kernel(SlimArgs a) {
   __syncthreads();
   if constexpr (PARTIAL) {
     if (ty == 0 && live) {
-      float t = 0.f;
+      double t = 0.0;
       for (int k = 0; k < kRowThreads; ++k) t += part[k][tx];
-      a.part[li] = t;
+      a.part[li] = (float)t;
       if constexpr (SNR) a.first[li] = f;
     }
     return;
   }
   if (ty == 0 && live) {
-    float t = 0.f;
+    double t = 0.0;
     for (int k = 0; k < kRowThreads; ++k) t += part[k][tx];
-    const float v_new = ema(a.b2, a.v[li], a.omb2, __fmul_rn(t, a.inv_n));
+    const float v_new = ema(a.b2, a.v[li], a.omb2, __fmul_rn((float)t, a.inv_n));
     line_v[tx] = v_new;
     a.v_out[li] = v_new;
   }

@@ -16,6 +16,7 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
 from ..core.labels import ParamMeta, flatten_with_names
 
@@ -40,6 +41,17 @@ def uniform_init(bound: float) -> Initializer:
 def mitchell_residual_init(std: float, n_layers: int) -> Initializer:
     """Mitchell init for residual-stream writers: std / sqrt(2 * n_layers)."""
     return normal_init(std / math.sqrt(2.0 * max(n_layers, 1)))
+
+
+def torch_default_init() -> Initializer:
+    """PyTorch's nn.Linear default: U(-1/sqrt(fan_in), 1/sqrt(fan_in)), with
+    fan_in the product of all dims but the last (matrices are stored
+    (in..., out))."""
+    def init(gen, shape, dtype):
+        fan_in = max(1, math.prod(shape[:-1])) if len(shape) > 1 else shape[0]
+        return uniform_init(1.0 / math.sqrt(fan_in))(gen, shape, dtype)
+
+    return init
 
 
 def ones_init() -> Initializer:
@@ -77,6 +89,36 @@ def init_params(spec_tree: Any, gen: torch.Generator, device) -> Dict[str, torch
 
 def meta_tree(spec_tree: Any) -> Dict[str, ParamMeta]:
     return {name: s.meta() for name, s in flatten_with_names(spec_tree)}
+
+
+class ParamModel(nn.Module):
+    """A model config's parameters as an ``nn.Module``: one parameter per
+    JAX leaf of ``cfg.init``, in tree order (``names``), plus the ``meta``
+    dict the optimizer rules read. Subclasses add the forward."""
+
+    def __init__(self, cfg, *, device, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        gen = gen if gen is not None else torch.Generator().manual_seed(0)
+        tensors, self.meta = cfg.init(gen, device)
+        self.names = tuple(tensors)
+        self.leaves = nn.ParameterList([nn.Parameter(t) for t in tensors.values()])
+
+    @property
+    def params(self) -> Dict[str, nn.Parameter]:
+        """``{dotted name: parameter}`` in tree order."""
+        return dict(zip(self.names, self.leaves))
+
+    @torch.no_grad()
+    def load_params(self, tensors: Dict[str, torch.Tensor]) -> None:
+        """Overwrite every parameter in place (e.g. with JAX-initialised
+        values from :func:`repro_torch.convert.params_from_numpy`)."""
+        if set(tensors) != set(self.names):
+            raise ValueError(f"parameter names differ: {sorted(set(tensors) ^ set(self.names))[:5]}")
+        for name, p in self.params.items():
+            if tuple(tensors[name].shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(tensors[name].shape)} != {tuple(p.shape)}")
+            p.copy_(tensors[name])
 
 
 def stack_specs(spec_tree: Dict[str, Any], n: int) -> Dict[str, Any]:

@@ -18,7 +18,6 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (
@@ -31,6 +30,7 @@ from .attention import (
     init_kv_cache,
 )
 from .common import (
+    ParamModel,
     ParamSpec,
     init_params,
     layer_norm,
@@ -40,6 +40,7 @@ from .common import (
     ones_init,
     rms_norm,
     stack_specs,
+    torch_default_init,
 )
 from .mlp_moe import mlp_forward, mlp_specs
 from .ssm import SSMConfig, init_ssm_cache, ssm_decode, ssm_forward, ssm_specs
@@ -79,7 +80,7 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
-    init_scheme: str = "mitchell"
+    init_scheme: str = "mitchell"        # 'mitchell' | 'normal' | 'torch_default'
     attn_dense_threshold: int = 2048
     kv_quant: bool = False               # int8 KV cache (serving): not ported yet
 
@@ -103,9 +104,17 @@ class ModelConfig:
                          d_conv=self.ssm_conv)
 
     def _inits(self):
-        if self.init_scheme != "mitchell":
-            raise NotImplementedError(f"init_scheme {self.init_scheme!r} is not ported yet")
+        """(weights, residual-stream writers, embeddings) initializers of
+        ``init_scheme``: 'mitchell', 'normal' (mitchell without the 1/depth
+        residual scaling) or 'torch_default' (paper §4.3)."""
+        if self.init_scheme == "torch_default":
+            w = torch_default_init()
+            return w, w, w
         w = normal_init(0.02)
+        if self.init_scheme == "normal":
+            return w, w, normal_init(0.02)
+        if self.init_scheme != "mitchell":
+            raise ValueError(f"unknown init_scheme {self.init_scheme!r}")
         return w, mitchell_residual_init(0.02, self.n_layers), normal_init(0.02)
 
     def _norm_specs(self):
@@ -239,33 +248,9 @@ def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, 
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-class Transformer(nn.Module):
-    """The model as an ``nn.Module``: one parameter per JAX leaf, in tree
+class Transformer(ParamModel):
+    """The decoder as an ``nn.Module``: one parameter per JAX leaf, in tree
     order (``names``), plus the ``meta`` dict the optimizer rules read."""
-
-    def __init__(self, cfg: ModelConfig, *, device, gen: Optional[torch.Generator] = None):
-        super().__init__()
-        self.cfg = cfg
-        gen = gen if gen is not None else torch.Generator().manual_seed(0)
-        tensors, self.meta = cfg.init(gen, device)
-        self.names = tuple(tensors)
-        self.leaves = nn.ParameterList([nn.Parameter(t) for t in tensors.values()])
-
-    @property
-    def params(self) -> Dict[str, nn.Parameter]:
-        """``{dotted name: parameter}`` in tree order."""
-        return dict(zip(self.names, self.leaves))
-
-    @torch.no_grad()
-    def load_params(self, tensors: Dict[str, torch.Tensor]) -> None:
-        """Overwrite every parameter in place (e.g. with JAX-initialised
-        values from :func:`repro_torch.convert.params_from_numpy`)."""
-        if set(tensors) != set(self.names):
-            raise ValueError(f"parameter names differ: {sorted(set(tensors) ^ set(self.names))[:5]}")
-        for name, p in self.params.items():
-            if tuple(tensors[name].shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(tensors[name].shape)} != {tuple(p.shape)}")
-            p.copy_(tensors[name])
 
     def forward(self, batch: Dict[str, torch.Tensor]):
         return forward(self.cfg, self.params, batch)

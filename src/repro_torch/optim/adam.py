@@ -1,4 +1,4 @@
-"""Adam / AdamW on the transformation API (port of ``repro/optim/adam.py``).
+"""Adam / AdamW / SGD-M on the transformation API (port of ``repro/optim/adam.py``).
 
 The uncompressed baseline the paper measures against; SlimAdam coincides
 with it when every leaf's K is empty.
@@ -18,6 +18,7 @@ from .base import (
     matrices_only,
     resolve_backend,
     scale_by_learning_rate,
+    trace,
 )
 
 
@@ -115,5 +116,16 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                                emit_health=emit_health, megakernel=megakernel))
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
+    parts.append(scale_by_learning_rate(learning_rate))
+    return chain(*parts)
+
+
+def sgdm(learning_rate, momentum: float = 0.9, nesterov: bool = False, weight_decay: float = 0.0,
+         grad_clip: Optional[float] = 1.0) -> GradientTransformation:
+    """SGD with momentum: clip -> (coupled wd) -> momentum buffer -> -lr."""
+    parts = [clip_by_global_norm(grad_clip)] if grad_clip is not None else []
+    if weight_decay:
+        parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
+    parts.append(trace(momentum, nesterov=nesterov))
     parts.append(scale_by_learning_rate(learning_rate))
     return chain(*parts)

@@ -6,7 +6,8 @@
 
 ``update(grads, state, params) -> (updates, new_state)``; updates are added
 to the parameters by :func:`apply_updates`. States are NamedTuples of device
-tensors; nothing here synchronises with the host.
+tensors; nothing here synchronises with the host, except :func:`multi_steps`
+(one read of its micro-step counter per update).
 """
 from __future__ import annotations
 
@@ -42,6 +43,11 @@ class EmptyState(NamedTuple):
     pass
 
 
+def identity() -> GradientTransformation:
+    """Pass the updates through unchanged."""
+    return GradientTransformation(lambda params: EmptyState(), lambda updates, state, params=None: (updates, state))
+
+
 class ChainState(NamedTuple):
     inner_states: Tuple[Any, ...]
 
@@ -67,6 +73,17 @@ def _stateless(fn: Callable[[Tree, Optional[Tree]], Tree]) -> GradientTransforma
                                   lambda updates, state, params=None: (fn(updates, params), state))
 
 
+class ScaleState(NamedTuple):
+    pass
+
+
+def scale(factor: float) -> GradientTransformation:
+    """Multiply every update by a constant."""
+    return GradientTransformation(lambda params: ScaleState(),
+                                  lambda updates, state, params=None: ({k: u * factor for k, u in updates.items()},
+                                                                       state))
+
+
 class ScaleByScheduleState(NamedTuple):
     count: torch.Tensor  # int32 0-d
 
@@ -87,12 +104,13 @@ def scale_by_schedule(schedule: Callable[[torch.Tensor], torch.Tensor]) -> Gradi
     return GradientTransformation(init_fn, update_fn)
 
 
-def scale_by_learning_rate(lr) -> GradientTransformation:
-    """Multiply by -lr: a constant, or a schedule of the step count
-    (``repro_torch.optim.schedules``)."""
+def scale_by_learning_rate(lr, *, flip_sign: bool = True) -> GradientTransformation:
+    """Multiply by -lr (+lr with ``flip_sign=False``): a constant, or a
+    schedule of the step count (``repro_torch.optim.schedules``)."""
+    m = -1.0 if flip_sign else 1.0
     if callable(lr):
-        return scale_by_schedule(lambda count: -1.0 * lr(count))
-    return _stateless(lambda updates, params: {k: u * -lr for k, u in updates.items()})
+        return scale_by_schedule(lambda count: m * lr(count))
+    return scale(m * lr)
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
@@ -131,6 +149,28 @@ def matrices_only(params: Tree) -> Dict[str, bool]:
     return {k: p.ndim >= 2 for k, p in params.items()}
 
 
+class TraceState(NamedTuple):
+    trace: Any            # {name: momentum buffer}, shaped and typed like the parameters
+
+
+def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
+    """SGD momentum buffer: t' = decay * t + u; the update is t' (Nesterov:
+    decay * t' + u)."""
+
+    def init_fn(params):
+        return TraceState(trace={k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update_fn(updates, state, params=None):
+        new = {k: decay * state.trace[k] + u for k, u in updates.items()}
+        if nesterov:
+            updates = {k: decay * new[k] + u for k, u in updates.items()}
+        else:
+            updates = new
+        return updates, TraceState(trace=new)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
 @torch.no_grad()
 def apply_updates(params: Tree, updates: Tree) -> Tree:
     """p <- p + u in place (the port updates parameters in place to save
@@ -138,3 +178,45 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
     for k, p in params.items():
         p.add_(updates[k].to(p.dtype))
     return params
+
+
+# ---------------------------------------------------------------------------
+# Gradient accumulation (multi-step) wrapper
+# ---------------------------------------------------------------------------
+
+
+class MultiStepsState(NamedTuple):
+    mini_step: torch.Tensor   # int32 0-d
+    inner_state: Any
+    acc_grads: Any            # {name: f32 running mean of the micro-step gradients}
+
+
+def multi_steps(inner: GradientTransformation, every_k: int) -> GradientTransformation:
+    """Accumulate gradients for ``every_k`` micro-steps, then apply ``inner``
+    to their mean. Between applications the updates are zeros, so the caller
+    can apply them every micro-step.
+
+    Unlike the rest of this module the update reads the device counter
+    ``mini_step`` to the host once per call, to choose between the two
+    branches (the JAX package's ``lax.cond``). The port's entry points do
+    not use it: the train step accumulates microbatches itself
+    (``make_train_step(grad_accum=)``)."""
+
+    def init_fn(params):
+        device = next(iter(params.values())).device
+        return MultiStepsState(mini_step=torch.zeros((), dtype=torch.int32, device=device),
+                               inner_state=inner.init(params),
+                               acc_grads={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                                          for k, p in params.items()})
+
+    def update_fn(updates, state, params=None):
+        acc = {k: state.acc_grads[k] + u.float() / every_k for k, u in updates.items()}
+        if int(state.mini_step) == every_k - 1:
+            out, inner_state = inner.update(acc, state.inner_state, params)
+            acc = {k: torch.zeros_like(a) for k, a in acc.items()}
+        else:
+            out, inner_state = {k: torch.zeros_like(a) for k, a in acc.items()}, state.inner_state
+        return out, MultiStepsState(mini_step=(state.mini_step + 1) % every_k, inner_state=inner_state,
+                                    acc_grads=acc)
+
+    return GradientTransformation(init_fn, update_fn)

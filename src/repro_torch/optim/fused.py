@@ -179,16 +179,21 @@ def jnp_adam_leaf(g, m, v, *, b1, b2, eps, count):
     return (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
 
 
-def jnp_slim_leaf(g, m, v, dims: Dims, *, b1, b2, eps, count):
-    """Reference SlimAdam leaf update (first moment kept): the second moment
-    is the mean of g^2 over ``dims``, stored with size-1 reduced dims."""
+def jnp_slim_leaf(g, m, v, dims: Dims, *, b1, b2, eps, count, use_first_moment: bool = True):
+    """Reference SlimAdam leaf update: the second moment is the mean of g^2
+    over ``dims``, stored with size-1 reduced dims. Without the first moment
+    (``m`` None) the numerator is g itself and m' is None."""
     g32 = g.float()
     g2 = torch.square(g32)
     ek = torch.mean(g2, dim=dims, keepdim=True) if dims else g2
     v_new = b2 * v + (1 - b2) * ek
     bc1, bc2 = bias_corrections(b1, b2, count)
-    m_new = b1 * m + (1 - b1) * g32
-    return (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
+    if use_first_moment:
+        m_new = b1 * m + (1 - b1) * g32
+        num = m_new / bc1
+    else:
+        m_new, num = None, g32
+    return num / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
 
 
 def jnp_update_snr_leaf(g, v_new, dims: Dims, *, b2) -> torch.Tensor:

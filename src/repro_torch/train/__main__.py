@@ -2,9 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.train --preset full --optimizer slim --backend fused --steps 4
     PYTHONPATH=src python -m repro_torch.train --preset cpu --device cpu --steps 20 --ckpt /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.train --optimizer adafactor --device cpu
 
-Runs on the GPU unless ``--device`` names another device. ``--optimizer
-adam`` measures SNR and prints the SlimAdam rules it would derive. With
+Runs on the GPU unless ``--device`` names another device. ``--optimizer``
+takes every name of ``OPTIMIZERS`` (the paper's baselines included;
+'slim_snr' needs derived rules, so here it raises); ``adam`` measures SNR
+and prints the SlimAdam rules it would derive. With
 ``--ckpt`` the run checkpoints a quarter of the way through, and a rerun
 with the same directory and a higher ``--steps`` resumes from the newest
 valid checkpoint.
@@ -16,18 +19,18 @@ import argparse
 from ..configs import get_config, get_reduced
 from ..core import second_moment_savings
 from ..data import DataConfig, ZipfLM
-from .trainer import Trainer, TrainerConfig
+from .trainer import OPTIMIZERS, Trainer, TrainerConfig
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.train")
     ap.add_argument("--preset", choices=("cpu", "full"), default="cpu")
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--optimizer", default="adam", choices=("adam", "slim"),
-                    help="adam (measures SNR) | slim (Table-3 rules)")
+    ap.add_argument("--optimizer", default="adam", choices=OPTIMIZERS,
+                    help="adam (measures SNR) | slim (Table-3 rules) | a baseline (adalayer, adafactor, lion, ...)")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--backend", default="jnp", choices=("jnp", "fused", "auto"),
-                    help="optimizer execution backend")
+                    help="optimizer execution backend (Adam/SlimAdam family)")
     ap.add_argument("--ckpt", default=None, help="checkpoint directory (resumes from it when it holds one)")
     ap.add_argument("--device", default=None, help="default: the GPU (raises when there is none)")
     args = ap.parse_args(argv)

@@ -139,60 +139,66 @@ class Guard:
 def _opt_types():
     from ..core.slim_adam import ScaleBySlimAdamState
     from ..optim.adam import ScaleByAdamState
-    from ..optim.base import ChainState
+    from ..optim.base import ChainState, MultiStepsState
 
-    return ScaleByAdamState, ScaleBySlimAdamState, ChainState
+    return ScaleByAdamState, ScaleBySlimAdamState, ChainState, MultiStepsState
+
+
+def find_state_field(opt_state, types, field: str) -> Optional[Any]:
+    """The first non-None ``field`` of a state of ``types`` in a (possibly
+    chained or multi-step) optimizer state."""
+    *_, chain_t, multi_t = _opt_types()
+    if isinstance(opt_state, types):
+        return getattr(opt_state, field)
+    if isinstance(opt_state, chain_t):
+        for s in opt_state.inner_states:
+            out = find_state_field(s, types, field)
+            if out is not None:
+                return out
+    if isinstance(opt_state, multi_t):
+        return find_state_field(opt_state.inner_state, types, field)
+    return None
+
+
+def _rebuild(opt_state, fn):
+    """``opt_state`` with ``fn`` applied to every Adam/SlimAdam state in it
+    (through chains and multi-step wrappers), in tree order."""
+    adam_t, slim_t, chain_t, multi_t = _opt_types()
+    if isinstance(opt_state, (adam_t, slim_t)):
+        return fn(opt_state)
+    if isinstance(opt_state, chain_t):
+        return chain_t(tuple(_rebuild(s, fn) for s in opt_state.inner_states))
+    if isinstance(opt_state, multi_t):
+        return opt_state._replace(inner_state=_rebuild(opt_state.inner_state, fn))
+    return opt_state
 
 
 def find_step_health(opt_state) -> Optional[Any]:
     """First non-None ``StepHealth`` published on a (possibly chained)
     optimizer state by an ``emit_health`` transformation, else None."""
-    adam_t, slim_t, chain_t = _opt_types()
-    if isinstance(opt_state, (adam_t, slim_t)):
-        return opt_state.health
-    if isinstance(opt_state, chain_t):
-        for s in opt_state.inner_states:
-            out = find_step_health(s)
-            if out is not None:
-                return out
-    return None
+    adam_t, slim_t, *_ = _opt_types()
+    return find_state_field(opt_state, (adam_t, slim_t), "health")
 
 
 def strip_step_health(opt_state):
     """``opt_state`` with any published StepHealth cleared, restoring the
     health-less layout checkpoints expect."""
-    adam_t, slim_t, chain_t = _opt_types()
-    if isinstance(opt_state, (adam_t, slim_t)):
-        return opt_state._replace(health=None) if opt_state.health is not None else opt_state
-    if isinstance(opt_state, chain_t):
-        return chain_t(tuple(strip_step_health(s) for s in opt_state.inner_states))
-    return opt_state
+    return _rebuild(opt_state, lambda s: s._replace(health=None) if s.health is not None else s)
 
 
 def find_slim_snr(opt_state) -> Optional[Any]:
     """The from-update SNR dict a measure-step ``emit_snr`` update published
     on the (possibly chained) SlimAdam state, if any."""
-    _, slim_t, chain_t = _opt_types()
-    if isinstance(opt_state, slim_t):
-        return opt_state.snr
-    if isinstance(opt_state, chain_t):
-        for s in opt_state.inner_states:
-            out = find_slim_snr(s)
-            if out is not None:
-                return out
-    return None
+    _, slim_t, *_ = _opt_types()
+    return find_state_field(opt_state, slim_t, "snr")
 
 
 def strip_slim_snr(opt_state):
     """``opt_state`` with any published from-update SNR snapshot cleared —
     the trainer strips it once consumed, so checkpoints keep the snr-less
     layout."""
-    _, slim_t, chain_t = _opt_types()
-    if isinstance(opt_state, slim_t):
-        return opt_state._replace(snr=None) if opt_state.snr is not None else opt_state
-    if isinstance(opt_state, chain_t):
-        return chain_t(tuple(strip_slim_snr(s) for s in opt_state.inner_states))
-    return opt_state
+    _, slim_t, *_ = _opt_types()
+    return _rebuild(opt_state, lambda s: s._replace(snr=None) if isinstance(s, slim_t) and s.snr is not None else s)
 
 
 def attach_slim_snr(opt_state, snr):
@@ -201,15 +207,13 @@ def attach_slim_snr(opt_state, snr):
     keeps, then puts the measurement back for the trainer to consume)."""
     if snr is None:
         return opt_state
-    _, slim_t, chain_t = _opt_types()
+    _, slim_t, *_ = _opt_types()
     done = [False]
 
-    def walk(node):
-        if isinstance(node, slim_t) and not done[0]:
+    def attach(s):
+        if isinstance(s, slim_t) and not done[0]:
             done[0] = True
-            return node._replace(snr=snr)
-        if isinstance(node, chain_t):
-            return chain_t(tuple(walk(s) for s in node.inner_states))
-        return node
+            return s._replace(snr=snr)
+        return s
 
-    return walk(opt_state)
+    return _rebuild(opt_state, attach)

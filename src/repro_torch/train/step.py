@@ -25,13 +25,17 @@ from typing import Callable, Dict
 import torch
 
 from ..models import transformer
+from ..models.common import ParamModel
 from ..optim.base import GradientTransformation, apply_updates, global_norm
 from .loss import lm_loss
 
 
-def make_train_step(model: transformer.Transformer, tx: GradientTransformation, *, grad_accum: int = 1,
+def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn=None, grad_accum: int = 1,
                     guard: bool = False, mesh=None) -> Callable:
-    """One optimizer step over ``model``'s parameters.
+    """One optimizer step over ``model``'s parameters. ``forward_fn(cfg,
+    params, batch) -> (logits, aux)`` defaults to the decoder's
+    (``repro_torch.models.linear_lm.forward`` and
+    ``repro_torch.models.resnet.forward`` train the paper's probes).
 
     With ``grad_accum > 1`` the batch is split into ``grad_accum``
     microbatches along its leading dim; their gradients accumulate in f32 as
@@ -56,6 +60,7 @@ def make_train_step(model: transformer.Transformer, tx: GradientTransformation, 
     docstring); the batch's leading dim must split evenly across them. The
     guarded step's skip decision then comes from health completed across
     ranks, so it is the same on every rank."""
+    fwd = forward_fn or transformer.forward
     params = model.params
     names = list(params)
     leaves = list(params.values())
@@ -84,7 +89,7 @@ def make_train_step(model: transformer.Transformer, tx: GradientTransformation, 
         return grads, {k: x.reshape(()) for k, x in zip(keys, pieces[len(grads):])}
 
     def grads_of(batch):
-        loss, metrics = lm_loss(model.cfg, params, batch, transformer.forward)
+        loss, metrics = lm_loss(model.cfg, params, batch, fwd)
         grads = torch.autograd.grad(loss, leaves)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
@@ -147,12 +152,13 @@ def make_train_step(model: transformer.Transformer, tx: GradientTransformation, 
     return guarded_train_step if guard else train_step
 
 
-def make_eval_step(model: transformer.Transformer) -> Callable:
+def make_eval_step(model: ParamModel, forward_fn=None) -> Callable:
     """Forward-only metrics of ``model`` on a batch (no gradients)."""
+    fwd = forward_fn or transformer.forward
 
     def eval_step(batch: Dict[str, torch.Tensor]):
         with torch.no_grad():
-            _, metrics = lm_loss(model.cfg, model.params, batch, transformer.forward)
+            _, metrics = lm_loss(model.cfg, model.params, batch, fwd)
         return metrics
 
     return eval_step

@@ -17,7 +17,8 @@ context: the optimizer and the SNR pass get the mesh and the parameter
 specs, so the fused backend keeps each rank's shards of the optimizer state
 and the train step splits the batch across the ranks; checkpoints hold
 whole arrays (gathered, written by rank 0), and a restore cuts each rank's
-shards. Not ported yet: the baseline optimizers.
+shards. The baselines other than the Adam/SlimAdam family (adafactor,
+sm3, lion, sgdm) keep their whole state on every rank there.
 """
 from __future__ import annotations
 
@@ -31,46 +32,61 @@ import torch
 from .. import resolve_device
 from ..checkpoint import store
 from ..core import SNRTracker, derive_rules, measure_tree_snr, rules_as_tree, table3_rules
+from ..core.baselines import (adafactor, adalayer_ln_tl_rules, adalayer_rules, adam_mini_v1_rules,
+                              adam_mini_v2_rules, lion, sm3)
 from ..core.slim_adam import ScaleBySlimAdamState, slim_adam
 from ..data.pipeline import ZipfLM
 from ..models.transformer import Transformer
-from ..optim.adam import ScaleByAdamState, adamw
-from ..optim.base import ChainState, resolve_backend
+from ..optim.adam import ScaleByAdamState, adamw, sgdm
+from ..optim.base import resolve_backend
 from ..sharding import current as current_sharding, opt_state_specs, param_specs, shardings_from_specs
-from .guard import ROLLBACK, Guard, GuardConfig, find_slim_snr, strip_slim_snr
+from .guard import ROLLBACK, Guard, GuardConfig, find_slim_snr, find_state_field, strip_slim_snr
 from .step import make_eval_step, make_train_step
 
-OPTIMIZERS = ("adam", "slim", "slim_snr")
-_SLIM_FAMILY = ("slim", "slim_snr")
+OPTIMIZERS = ("adam", "slim", "slim_snr", "adalayer", "adalayer_ln_tl",
+              "adam_mini_v1", "adam_mini_v2", "adafactor", "adafactor_v2",
+              "sm3", "lion", "sgdm")
+_SLIM_FAMILY = ("slim", "slim_snr", "adalayer", "adalayer_ln_tl",
+                "adam_mini_v1", "adam_mini_v2")
+_BASELINE_RULES = {"adalayer": adalayer_rules, "adalayer_ln_tl": adalayer_ln_tl_rules,
+                   "adam_mini_v1": adam_mini_v1_rules, "adam_mini_v2": adam_mini_v2_rules}
 
 
 def slim_rule_dims(name: str, params, meta, rules: Optional[Dict[str, Any]] = None):
     """Per-leaf reduction dims the slim-family optimizer ``name`` uses (one
     derivation shared by :func:`make_optimizer` and the from-update SNR
-    consumer)."""
+    consumer); None for an optimizer without compressed moments."""
+    if name not in _SLIM_FAMILY:
+        return None
     if name == "slim":
-        return rules_as_tree(table3_rules(meta), params, meta)
-    if name == "slim_snr":
+        r = table3_rules(meta)
+    elif name == "slim_snr":
         if rules is None:
             raise ValueError("slim_snr requires derived rules")
-        return rules_as_tree(rules, params, meta)
-    raise ValueError(f"{name!r} is not a slim-family optimizer")
+        r = rules
+    else:
+        r = _BASELINE_RULES[name](meta)
+    return rules_as_tree(r, params, meta)
 
 
 def make_optimizer(name: str, lr, params, meta, *, weight_decay: float = 0.1, b1: float = 0.9,
                    b2: float = 0.95, grad_clip: float = 1.0, rules: Optional[Dict[str, Any]] = None,
                    backend: str = "jnp", emit_snr: bool = False, emit_health: bool = False,
                    megakernel: bool = True, mesh=None, param_specs=None):
-    """Build one of the ported optimizers. ``lr`` is a constant or a
-    schedule (``repro_torch.optim.schedules``); ``rules`` are the derived
-    rules 'slim_snr' needs; ``backend`` is 'jnp' | 'fused' | 'auto'.
-    ``emit_snr`` (slim family) builds the measure-step variant that
-    publishes from-update SNR on its state; ``emit_health`` publishes the
-    in-pass StepHealth the guarded step reads; ``megakernel=False`` takes
-    the fused backend's per-leaf route; ``mesh``/``param_specs`` make the
-    fused backend sharded."""
+    """Build any of the paper's optimizers (``OPTIMIZERS``). ``lr`` is a
+    constant or a schedule (``repro_torch.optim.schedules``); ``rules`` are
+    the derived rules 'slim_snr' needs. ``backend`` ('jnp' | 'fused' |
+    'auto'), ``megakernel=False`` (the fused backend's per-leaf route) and
+    ``mesh``/``param_specs`` (the sharded fused backend) apply to the
+    Adam/SlimAdam family; the other baselines ignore them. ``emit_snr``
+    (slim family) builds the measure-step variant that publishes
+    from-update SNR on its state; ``emit_health`` (Adam/slim family)
+    publishes the in-pass StepHealth the guarded step reads."""
     if emit_snr and name not in _SLIM_FAMILY:
         raise ValueError(f"emit_snr is only supported by the slim family {_SLIM_FAMILY}, not {name!r}")
+    if emit_health and name not in ("adam",) + _SLIM_FAMILY:
+        raise ValueError(f"emit_health is only supported by the Adam/slim family {('adam',) + _SLIM_FAMILY}, "
+                         f"not {name!r}")
     if name == "adam":
         return adamw(lr, b1=b1, b2=b2, weight_decay=weight_decay, grad_clip=grad_clip, backend=backend,
                      mesh=mesh, param_specs=param_specs, emit_health=emit_health, megakernel=megakernel)
@@ -79,20 +95,24 @@ def make_optimizer(name: str, lr, params, meta, *, weight_decay: float = 0.1, b1
                          weight_decay=weight_decay, grad_clip=grad_clip, backend=backend, mesh=mesh,
                          param_specs=param_specs, emit_snr=emit_snr, emit_health=emit_health,
                          megakernel=megakernel)
+    if name == "adafactor":
+        return adafactor(lr, weight_decay=weight_decay, grad_clip=grad_clip)
+    if name == "adafactor_v2":
+        return adafactor(lr, momentum=0.9, weight_decay=weight_decay, grad_clip=grad_clip)
+    if name == "sm3":
+        return sm3(lr, beta=0.95, weight_decay=weight_decay, grad_clip=grad_clip)
+    if name == "lion":
+        return lion(lr, weight_decay=weight_decay, grad_clip=grad_clip)
+    if name == "sgdm":
+        return sgdm(lr, weight_decay=weight_decay, grad_clip=grad_clip)
     raise ValueError(f"unknown optimizer {name!r}; choose from {OPTIMIZERS}")
 
 
 def find_adam_nu(opt_state) -> Optional[Dict[str, torch.Tensor]]:
-    """The second-moment dict inside a (chained) optimizer state — what the
-    paper's SNR analysis reads."""
-    if isinstance(opt_state, (ScaleByAdamState, ScaleBySlimAdamState)):
-        return opt_state.nu
-    if isinstance(opt_state, ChainState):
-        for s in opt_state.inner_states:
-            nu = find_adam_nu(s)
-            if nu is not None:
-                return nu
-    return None
+    """The second-moment dict inside a (chained, multi-step) Adam or
+    SlimAdam state — what the paper's SNR analysis reads; None for the
+    other baselines."""
+    return find_state_field(opt_state, (ScaleByAdamState, ScaleBySlimAdamState), "nu")
 
 
 @dataclasses.dataclass
@@ -147,12 +167,16 @@ class Trainer:
         okw.setdefault("backend", tc.backend)
         self.backend = okw["backend"]  # one backend for update + SNR pass
         guarded = self.guard is not None
-        # Under a sharding context the optimizer gets the mesh and the
-        # parameter specs; only the fused backend shards its state.
+        # In-pass kernel health exists on the Adam/slim family only; the
+        # others run guarded through the step's grad-norm check.
+        emit_health = guarded and optimizer_name in ("adam",) + _SLIM_FAMILY
+        # Under a sharding context the Adam/slim family gets the mesh and
+        # the parameter specs; only its fused backend shards the state.
         self.param_specs = param_specs(self.meta, self.params) if self.mesh is not None else None
-        self.sharded = self.mesh is not None and resolve_backend(self.backend, self.device) == "fused"
+        self.sharded = (self.mesh is not None and optimizer_name in ("adam",) + _SLIM_FAMILY
+                        and resolve_backend(self.backend, self.device) == "fused")
         mesh_kw = dict(mesh=self.mesh, param_specs=self.param_specs) if self.sharded else {}
-        self.tx = make_optimizer(optimizer_name, lr, self.params, self.meta, rules=rules, emit_health=guarded,
+        self.tx = make_optimizer(optimizer_name, lr, self.params, self.meta, rules=rules, emit_health=emit_health,
                                  **okw, **mesh_kw)
         self.opt_state = self.tx.init(self.params)
         self.state_specs = self._state_specs(optimizer_name, lr, rules, okw) if self.sharded else None
@@ -170,7 +194,7 @@ class Trainer:
         if tc.measure_snr and tc.snr_from_update and optimizer_name in _SLIM_FAMILY:
             self._update_dims = slim_rule_dims(optimizer_name, self.params, self.meta, rules)
             tx_snr = make_optimizer(optimizer_name, lr, self.params, self.meta, rules=rules, emit_snr=True,
-                                    emit_health=guarded, **okw, **mesh_kw)
+                                    emit_health=emit_health, **okw, **mesh_kw)
             self._train_step_snr = make_train_step(self.model, tx_snr, grad_accum=grad_accum, guard=guarded,
                                                    mesh=self.mesh)
         if tc.ckpt_dir and store.latest_step(tc.ckpt_dir) is not None:

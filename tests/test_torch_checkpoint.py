@@ -141,13 +141,32 @@ def _states(name):
     return {"params": jparams, "opt": jstate}, {"params": model.params, "opt": tstate}
 
 
-@pytest.mark.parametrize("name", ["adam", "slim"])
+# The leaves that pin each optimizer's chain layout: the schedule's count at
+# index 3 (clip, core, wd, lr; sgdm: clip, wd, momentum, lr), and each core
+# state's own fields (Adafactor's mu only with momentum, SM3's per-axis
+# accumulators as tuple entries).
+LAYOUT = {
+    "adam": ("opt.inner_states.1.count",),
+    "slim": ("opt.inner_states.1.count",),
+    "adalayer": ("opt.inner_states.1.count", "opt.inner_states.1.nu.embed"),
+    "adafactor": ("opt.inner_states.1.count", "opt.inner_states.1.vc.final_norm.scale"),
+    "adafactor_v2": ("opt.inner_states.1.count", "opt.inner_states.1.mu.embed"),
+    "sm3": ("opt.inner_states.1.accs.embed.0", "opt.inner_states.1.accs.embed.1", "opt.inner_states.1.mom.embed"),
+    "lion": ("opt.inner_states.1.mu.embed",),
+    "sgdm": ("opt.inner_states.2.trace.embed",),
+}
+
+
+@pytest.mark.parametrize("name", list(LAYOUT))
 def test_cross_package_restore_both_ways(tmp_path, name):
     jtree, ttree = _states(name)
     jnamed = [(n, np.asarray(x)) for n, x in jax_flatten(jtree)[0]]
     tnamed = named_leaves(ttree)
     assert [n for n, _ in jnamed] == [n for n, _ in tnamed]
-    assert "opt.inner_states.1.count" in dict(jnamed) and "opt.inner_states.3.count" in dict(jnamed)
+    for leaf in LAYOUT[name] + ("opt.inner_states.3.count",):
+        assert leaf in dict(jnamed), leaf
+    if name == "adafactor":
+        assert not any(".mu." in n for n, _ in jnamed)
 
     jax_store.save(tmp_path / "from_jax", 1, jtree, extra={"step": 1})
     got, extra = restore(tmp_path / "from_jax", ttree)

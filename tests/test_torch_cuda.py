@@ -18,7 +18,8 @@ p' may round one bf16 step apart where the f32 values straddle a rounding
 boundary (2^-8 of the largest |p|). The selective scan's y and final state
 compose chunks of the sequence and take exp2 of dt*a*log2(e), where the
 twin steps in order with exp (1e-5); both forms rerun bit for bit, as do
-the split walks of the line sums.
+the split walks of the line sums. B1's line sums of g^2 on long
+heavy-tailed lines hold to an f64 reference at 1e-6.
 """
 import dataclasses
 
@@ -71,6 +72,26 @@ def test_mega_adam_update(dev, rows, cols):
     assert megaplan.mega_adam_update.launches == before + 1
     for a, b in zip(got, want):
         _close(a, b, ELEMENTWISE)
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 1, 1 << 24, 1), (1, 1 << 20, 32, 0)])
+def test_mega_slim_long_heavy_tailed_lines(dev, b, r, c, axis):
+    """Lines of 16 M (minor) and 1 M (major) elements whose first 1 % are
+    1.0 and the rest 1e-3: each thread's running sum reaches ~650 before the
+    small squares come, each below half an f32 ulp of it. The line sums of
+    g^2 (B1's v', B12's partial sums) keep them, as an f64 reference does."""
+    red = 2 if axis == 1 else 1
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g = torch.full((b, r, c), 1e-3, device=dev)
+    g.narrow(red, 0, g.shape[red] // 100).fill_(1.0)
+    m = torch.zeros_like(g)
+    ones = torch.ones(line, device=dev)
+    want = (g.double() ** 2).sum(dim=red, keepdim=True)
+    got = megaplan.mega_slim_update_batched(g, m, torch.zeros(line, device=dev), ones, ones, axis=axis, **KW)
+    part = megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9)[1]
+    torch.cuda.synchronize()
+    _close(got[2], (1 - KW["b2"]) * want / g.shape[red], ELEMENTWISE)
+    _close(part.reshape(line), want, ELEMENTWISE)
 
 
 @pytest.mark.parametrize("b,r,c,axis", [(1, 300, 768, 1), (2, 7, 33, 1), (1, 40, 70, 0), (3, 200, 100, 0)])
