@@ -15,7 +15,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    rules'), ``snr_stats_centered_batched`` on all 21 SNR candidates. Times
    are CUDA-event medians with L2 flushed before each launch, beside the
    least time the card needs for the same bytes and operations and, where
-   one PyTorch call computes the same function, that call's time. B5's
+   one PyTorch call computes the same function, that call's time. On every
+   slim group (here and wherever phases 3 and 9 hold a plan) B1 reruns bit
+   for bit, its walk's form (``plan_slim``) and design floor (g read twice
+   where a split view's g outgrows the L2) are logged, and
+   ``slim_precond_batched`` (B4, same walk) is held against its twin, rerun
+   bit for bit and timed on the same inputs. B5's
    total over the 21 candidates is printed against ``torch.var_mean``'s
    total and the bound (the share of the bound reached).
 2b. The fault-tolerant slice's kernels against their plain twins on
@@ -53,7 +58,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    uninterrupted run's (1e-4).
 3d. The per-leaf route (``megakernel=False``): guarded Adam and SlimAdam
    runs through B3 and B4, then one update against the megaplan route from
-   the same state (1e-5), with launches and times per update on each.
+   the same state (1e-5), the per-leaf update again (bit for bit), with
+   launches and times per update on each.
 3e. Kernel-failure drill: with ``inject_kernel_failure()`` installed, every
    leaf of the plan's groups degrades (counted) and the run equals
    ``backend="jnp"`` (1e-5); without the hook the count resets and the
@@ -136,8 +142,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 9. The paper's baselines and figure probes. 9a: ``mega_slim_update_batched``
    (B1; B2 on their dense groups) against its twin on every group of the
    AdaLayer, AdaLayer-LN-TL and Adam-mini v1/v2 plans of full-width
-   gpt_small, timed as in phase 2, with the time of AdaLayer's
-   38,633,472-element embedding line. 9b: the 12 optimizers of
+   gpt_small, timed as in phase 2 (B4 beside it), with the time of
+   AdaLayer's 38,633,472-element embedding line and each plan's total;
+   then ``slim_update_batched`` (B7), ``slim_partial_stats_batched`` (B10)
+   and ``mega_slim_partial_stats_batched`` (B12), which keep one block a
+   line, held and timed on that line. 9b: the 12 optimizers of
    ``repro_torch.train.trainer.OPTIMIZERS`` through the Trainer on
    full-width gpt_small (batch 8 x 1024, bf16 activations, 3 steps each,
    launch counters zeroed before and read after each run: B1 and B2 per
@@ -147,7 +156,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    update against the plain 'jnp' backend for each SlimAdam rule set, and
    every optimizer's step time in turns. 9c: ResNet-18 (11,218,240
    parameters) at full width on ``synthetic_cifar`` batches of 32 x 32 x
-   32: its Table-3 plan's groups (9 axis-0) held, 4 Adam steps and one SNR
+   32: its Table-3 plan's groups (9 axis-0) held as in 9a, 4 Adam steps and one SNR
    measurement (B5 on its 63 candidates), 4 Table-3 SlimAdam steps and one
    update against 'jnp', a reduced ResNet's logits on the card against the
    CPU. 9d: the linear LM (vocab 49152, d 32), 4 Adam steps and one SNR
@@ -605,6 +614,53 @@ def serve_phases(torch, timer, rate: float, smi: str):
     return report, entry
 
 
+# -- B1 and B4 on their split walk (phases 2, 3, 9a, 9c) ------------------------------
+
+L2_BYTES = 50 * 2**20    # the H100's L2
+
+
+def slim_floor_ms(plan, n: int, per_line: int, rate: float) -> float:
+    """The least time the walk's design can take: each byte once (the 16 B
+    an f32 element moves plus the line bytes), and g a second time where a
+    split view's g is larger than the L2, so pass 2 reads it again from
+    device memory (20 B an element)."""
+    per_elem = 20 if plan.nseg > 1 and 4 * n > L2_BYTES else 16
+    return (per_elem * n + per_line) / rate * 1e3
+
+
+def slim_walk_row(torch, timer, rate, group, g, m, v) -> dict:
+    """The walk's plan for one slim group, B1's design floor, and B4 (the
+    per-leaf kernel on the same walk, scalar bias corrections from a count
+    on the card) against its twin on the group's inputs, rerun bit for bit
+    and timed beside its bound."""
+    from repro_torch.kernels import build, megaplan, slim_update
+    from repro_torch.optim.fused import bias_corrections
+
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8)
+    b, r, c = g.shape
+    plan = megaplan.plan_slim(b, r, c, group.axis, sms=build.sm_count(g.device), aligned=True)
+    n, lines = g.numel(), v.numel()
+    count = torch.tensor(3, dtype=torch.int32, device=g.device)
+    c1, c2 = bias_corrections(0.9, 0.95, count)
+    run = lambda: slim_update.slim_precond_batched(g, m, v, axis=group.axis, count=count, **kw)          # noqa: E731
+    plain = lambda: slim_update.slim_precond_batched_plain(g, m, v, c1, c2, axis=group.axis, **kw)   # noqa: E731
+    tag = f"slim_precond_batched {(b, r, c)} axis {group.axis}"
+    got = run()
+    err = max(check(f"{tag} {o}", a, w, tol) for o, a, w, tol in
+              zip(("u", "m'", "v'"), got, plain(), (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE)))
+    same_tensors(f"{tag}: two runs", dict(enumerate(got)), dict(enumerate(run())))
+    ms, plain_ms = timer(run), timer(plain)
+    bound = (16 * n + 8 * lines + 8) / rate * 1e3
+    form = f"{('ROWS', 'SPLIT', 'MAJOR')[plan.form]}, nseg {plan.nseg}, {plan.blocks} blocks"
+    row = dict(form=form, floor_ms=slim_floor_ms(plan, n, 16 * lines, rate),
+               b4=dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       floor_ms=slim_floor_ms(plan, n, 8 * lines + 8, rate)))
+    log(f"  {tag} [{form}]: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms  floor "
+        f"{row['b4']['floor_ms']:.4f} ms; B1's floor {row['floor_ms']:.4f} ms; both rerun bit for bit")
+    del got
+    return row
+
+
 # -- the fault-tolerant slice (phases 2b, 3b-3e) ----------------------------------
 
 
@@ -989,6 +1045,11 @@ def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dim
                 kernels.reset_launch_counts()
                 u, s = tx.update(grads, state)
                 routes[mk] = (u, s, {k: n for k, n in kernels.launch_counts().items() if n})
+            u2, s2 = txs[False].update(grads, state)        # the per-leaf route again: bit for bit
+            for what, a, b in (("u", routes[False][0], u2), ("m", routes[False][1].mu, s2.mu),
+                               ("v", routes[False][1].nu, s2.nu)):
+                same_tensors(f"{optimizer} per-leaf update, two runs, {what}", a, b)
+            del u2, s2
             for mk in (True, False, False, True, True, False):        # in turns
                 times[mk].append(timer(lambda: txs[mk].update(grads, state), reps=5))
         (um, sm, lm), (ul, sl, ll) = routes[True], routes[False]
@@ -1003,8 +1064,9 @@ def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dim
             worst["snr"] = snr_rel
             if snr_rel > TOL_SNR:
                 raise AssertionError(f"slim: per-leaf from-update SNR off by {snr_rel:.2e}")
-        log(f"  {optimizer}: per-leaf against mega, worst relative error {worst} (tol {TOL_STEP:.0e}); launches "
-            f"per update: mega {lm}, per-leaf {ll}; update time mega {msm:.3f} ms, per-leaf {msl:.3f} ms ({smi})")
+        log(f"  {optimizer}: per-leaf against mega, worst relative error {worst} (tol {TOL_STEP:.0e}); the per-leaf "
+            f"update reruns bit for bit; launches per update: mega {lm}, per-leaf {ll}; update time mega {msm:.3f} "
+            f"ms, per-leaf {msl:.3f} ms ({smi})")
         per_leaf[optimizer] = dict(launches=counts, worst_rel=worst, mega_launches=lm, leaf_launches=ll,
                                    mega_update_ms=msm, leaf_update_ms=msl)
         del tr, grads, state, routes, txs, um, sm, ul, sl
@@ -2121,6 +2183,53 @@ def state_bytes(opt_state) -> int:
     return sum(t.numel() * t.element_size() for _, t in named_leaves(opt_state))
 
 
+def long_line_baseline(torch, smi) -> dict:
+    """B7, B10 and B12, which keep the ROWS walk (one block a line), on
+    AdaLayer's 38,633,472-element embedding line: each against its twin,
+    and timed beside its bound."""
+    from repro_torch.kernels import megaplan, slim_update
+    from repro_torch.kernels.fused_adam import host_bias_corrections
+
+    timer = Timer(torch)
+    rate = mem_rate(torch.cuda.get_device_name(0))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    shape, line = (1, 1, 50304 * 768), (1, 1, 1)
+    n = math.prod(shape)
+    g = 1e-3 * torch.randn(shape, generator=gen, device=dev)
+    m = 1e-4 * torch.randn(shape, generator=gen, device=dev)
+    p = torch.randn(shape, generator=gen, device=dev)
+    v = 1e-6 * torch.rand(line, generator=gen, device=dev)
+    c1, c2 = host_bias_corrections(0.9, 0.95, 3)
+    step = dict(lr=1e-3, wd=0.1, b1=0.9, b2=0.95, eps=1e-8)
+    cases = {
+        "slim_update_batched": (
+            lambda: slim_update.slim_update_batched(p, g, m, v, axis=1, count=3, **step),
+            lambda: slim_update.slim_update_batched_plain(p, g, m, v, axis=1, bc1=c1, bc2=c2, **step),
+            (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE), 20 * n + 8),
+        "slim_partial_stats_batched": (
+            lambda: slim_update.slim_partial_stats_batched(g, m, axis=1, b1=0.9),
+            lambda: slim_update.slim_partial_stats_batched_plain(g, m, axis=1, b1=0.9),
+            (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4),
+        "mega_slim_partial_stats_batched": (
+            lambda: megaplan.mega_slim_partial_stats_batched(g, m, axis=1, b1=0.9),
+            lambda: megaplan.mega_slim_partial_stats_batched_plain(g, m, axis=1, b1=0.9),
+            (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4),
+    }
+    out = {}
+    for name, (run, plain, tols, nbytes) in cases.items():
+        err = max(check(f"{name} {shape} axis 1 out {i}", a, w, tol)
+                  for i, (a, w, tol) in enumerate(zip(run(), plain(), tols)))
+        ms, plain_ms = timer(run, reps=5), timer(plain, reps=5)
+        bound = nbytes / rate * 1e3
+        log(f"  {name} on the embedding line (one block, the walk it keeps): kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({smi})")
+        out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
+    del g, m, p, v, timer
+    torch.cuda.empty_cache()
+    return out
+
+
 def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_plan, held, group_key):
     """Phase 9: B1 held on the baseline rule sets' plans, the 12 optimizers
     through the Trainer on full-width gpt_small, ResNet-18, the linear LM and
@@ -2193,9 +2302,21 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
             raise AssertionError(f"{name}: leaves {plan.jnp_idx} left to the plain path")
         hold_plan(name, plan)
     line = held[("minor", 1, 1, 38633472, 1)]
-    log(f"  B1 on AdaLayer's embedding as one 38,633,472-element line: {line['ms']:.4f} ms, bound "
-        f"{line['bound_ms']:.4f} ms ({line['bound_ms'] / line['ms']:.1%} of it), plain {line['plain_ms']:.4f} ms ({smi})")
+    log(f"  B1 on AdaLayer's embedding as one 38,633,472-element line [{line['form']}]: {line['ms']:.4f} ms, bound "
+        f"{line['bound_ms']:.4f} ms ({line['bound_ms'] / line['ms']:.1%} of it), floor with g read twice "
+        f"{line['floor_ms']:.4f} ms ({line['floor_ms'] / line['ms']:.1%}), plain {line['plain_ms']:.4f} ms; B4 "
+        f"{line['b4']['ms']:.4f} ms ({smi})")
     report["plans"] = {n: [held[group_key(g)] for g in p.groups] for n, p in plans.items()}
+    totals = {}
+    for name, plan in plans.items():
+        slim = [held[group_key(g)] for g in plan.groups if g.kind != "dense"]
+        totals[name] = {k: sum(h[k] for h in slim) for k in ("ms", "plain_ms", "bound_ms", "floor_ms")}
+        t = totals[name]
+        t["b4_ms"] = sum(h["b4"]["ms"] for h in slim)
+        log(f"  {name}: B1 over its {len(slim)} slim groups {t['ms']:.4f} ms a step (bound {t['bound_ms']:.4f}, "
+            f"floor {t['floor_ms']:.4f}, plain {t['plain_ms']:.4f}), B4 on the same views {t['b4_ms']:.4f} ms ({smi})")
+    report["plan_totals"] = totals
+    report["long_line"] = long_line_baseline(torch, smi)
 
     # -- 9b. the 12 optimizers through the Trainer -------------------------------------
     log("[9b] the 12 optimizers on full-width gpt_small, batch 8 x 1024, bf16 activations, backend='fused', "
@@ -2265,10 +2386,15 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
     if rplan.jnp_idx or [g.kind for g in rplan.groups] != ["dense"] + ["major"] * 9:
         raise AssertionError(f"unexpected ResNet-18 Table-3 plan: {rplan.groups}")
     hold_plan("ResNet-18 Table-3", rplan)
+    rslim = [held[group_key(g)] for g in rplan.groups if g.kind != "dense"]
+    rtot = {k: sum(h[k] for h in rslim) for k in ("ms", "plain_ms", "bound_ms", "floor_ms")}
+    rtot["b4_ms"] = sum(h["b4"]["ms"] for h in rslim)
+    log(f"  ResNet-18: B1 over its 9 axis-0 groups {rtot['ms']:.4f} ms a step (bound {rtot['bound_ms']:.4f}, plain "
+        f"{rtot['plain_ms']:.4f}), B4 on the same views {rtot['b4_ms']:.4f} ms ({smi})")
     gen = torch.Generator(device=dev).manual_seed(0)
     batches = [resnet.synthetic_cifar(gen, RESNET_BATCH, rcfg.classes, size=RESNET_SIZE) for _ in range(5)]
     n_cand = sum(len(m.candidate_ks()) for m in rmeta.values())
-    res = {"params": n_res, "plan": [held[group_key(g)] for g in rplan.groups]}
+    res = {"params": n_res, "plan": [held[group_key(g)] for g in rplan.groups], "plan_total": rtot}
 
     def resnet_run(label, tx, expect):
         model = ResNet(rcfg, device=dev, gen=torch.Generator().manual_seed(0))
@@ -2451,7 +2577,9 @@ def main() -> int:
 
     def hold_group(group):
         """One megaplan group's kernel against its plain twin on inputs of
-        the group's shape, then kernel, twin, bound and library times."""
+        the group's shape, then kernel, twin, bound and library times. A
+        slim group's B1 also reruns bit for bit, and B4 (the per-leaf
+        kernel on the same walk) is held, rerun and timed on it too."""
         key = group_key(group)
         if key in held:
             return
@@ -2476,7 +2604,8 @@ def main() -> int:
             plain = lambda: megaplan.mega_slim_update_batched_plain(*args, axis=group.axis, **kw)  # noqa: E731
             bound = max((16 * n + 16 * lines) / rate, 9 * n / F32_RATE) * 1e3
         tag = f"{name} {group.kind} {shape}" + ("" if dense else f" axis {group.axis}")
-        errs = [check(f"{tag} {o}", a, w, tol) for o, a, w, tol in zip(("u", "m'", "v'"), run(), plain(), tols)]
+        got = run()
+        errs = [check(f"{tag} {o}", a, w, tol) for o, a, w, tol in zip(("u", "m'", "v'"), got, plain(), tols)]
         ms, plain_ms = timer(run), timer(plain)
         if dense:   # the nearest one-call yardstick: fused AdamW, which also writes the parameters
             p = torch.zeros(n, device=dev, requires_grad=True)
@@ -2488,7 +2617,10 @@ def main() -> int:
             + ("" if lib_ms is None else f"  Adam(fused) {lib_ms:.4f} ms"))
         held[key] = dict(kernel=name, kind=group.kind, shape=list(shape), axis=group.axis, err=max(errs), ms=ms,
                          plain_ms=plain_ms, bound_ms=bound, library_ms=lib_ms)
-        del g, m, v, args
+        if not dense:
+            same_tensors(f"{tag}: two runs", dict(enumerate(got)), dict(enumerate(run())))
+            held[key].update(slim_walk_row(torch, timer, rate, group, g, m, v), bit_equal=True)
+        del g, m, v, args, got
 
     def hold_plan(label, plan):
         log(f"  {label} plan: {len(plan.groups)} groups ({', '.join(g.kind for g in plan.groups)})")

@@ -16,10 +16,13 @@ change / parent on every slim group of chip_smoke.py's plans: full-width
 gpt_small under Table 3 and the four baseline rule sets (AdaLayer,
 AdaLayer-LN-TL, Adam-mini v1 and v2; phases 2 and 9a) and ResNet-18 under
 Table 3 (phase 9c), on inputs drawn as chip_smoke's ``hold_group`` draws
-them. Each time is ``chip_smoke.Timer``'s (median of ``--reps``, L2
-flushed, a device-side wait first); both versions are held to the plain
-twin first. It prints the card's ``nvidia-smi`` line, a line per group and
-one JSON object.
+them, without the flags and with both (``with_snr`` and ``with_health``).
+Each time is ``chip_smoke.Timer``'s (median of ``--reps``, L2 flushed, a
+device-side wait first); both versions are held to the plain twin first.
+The earlier entry point is called with the signature it had before the
+plan's arguments (``_parent_argtypes``). It prints the card's
+``nvidia-smi`` line, a line per group and flag set (with this tree's form
+from ``plan_slim``) and one JSON object.
 """
 from __future__ import annotations
 
@@ -36,6 +39,14 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = "src/repro_torch/kernels/csrc"
 FILES = ("mega_slim.cu", "common.cuh")
 KW = dict(b1=0.9, b2=0.95, eps=1e-8)
+FLAG_SETS = {"base": dict(), "flags": dict(with_snr=True, with_health=True)}
+
+
+def _parent_argtypes():
+    """``repro_mega_slim_update``'s signature before the plan's arguments."""
+    from repro_torch.kernels import build
+
+    return [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 6 + [build.PTR]
 
 
 def fetch(rev: str, out: Path) -> None:
@@ -104,54 +115,64 @@ def main() -> int:
     subprocess.run([build._nvcc(), *build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared", "-o",
                     str(lib_path), str(old_dir / "mega_slim.cu")], check=True)
     old = ctypes.CDLL(str(lib_path))
+    parent_argtypes = _parent_argtypes()
     sig = re.search(r'extern "C" int repro_mega_slim_update\((.*?)\)\s*{', (old_dir / "mega_slim.cu").read_text(),
                     re.S).group(1)
-    if sig.count(",") + 1 != len(megaplan._SLIM_ARGTYPES):
+    if sig.count(",") + 1 != len(parent_argtypes):
         raise SystemExit("slim_ab: the earlier repro_mega_slim_update has another signature; compare with git instead")
     old_fn = old.repro_mega_slim_update
-    old_fn.argtypes, old_fn.restype = megaplan._SLIM_ARGTYPES, ctypes.c_int
+    old_fn.argtypes, old_fn.restype = parent_argtypes, ctypes.c_int
     dev = torch.device("cuda")
 
-    def parent(g, m, v, bc1, bc2, axis):
-        """The earlier kernel through the same entry point (base outputs)."""
+    def parent(g, m, v, bc1, bc2, axis, with_snr=False, with_health=False):
+        """The earlier kernel through its entry point, outputs as the wrapper's."""
         b, r, c = g.shape
         u, m_out, v_out = torch.empty_like(g), torch.empty_like(g), torch.empty_like(v)
+        snr = tuple(torch.empty_like(v) for _ in range(2)) if with_snr else (None, None)
+        health = tuple(torch.empty_like(v) for _ in range(2)) if with_health else (None, None)
         build.launch("mega_slim_update_batched (earlier)", old_fn, dev,
-                     *(t.data_ptr() for t in (g, m, v, bc1, bc2, u, m_out, v_out)), None, None, None, None,
+                     *(t.data_ptr() for t in (g, m, v, bc1, bc2, u, m_out, v_out)), *map(build.ptr, snr + health),
                      b, r, c, axis, 1.0 / (c if axis == 1 else r), KW["b1"], 1.0 - KW["b1"], KW["b2"],
                      1.0 - KW["b2"], KW["eps"])
-        return u, m_out, v_out
+        return (u, m_out, v_out) + (snr if with_snr else ()) + (health if with_health else ())
 
-    def change(g, m, v, bc1, bc2, axis):
-        return megaplan.mega_slim_update_batched(g, m, v, bc1, bc2, axis=axis, **KW)
+    def change(g, m, v, bc1, bc2, axis, **flags):
+        return megaplan.mega_slim_update_batched(g, m, v, bc1, bc2, axis=axis, **flags, **KW)
 
     timer = chip_smoke.Timer(torch)
     gen = torch.Generator(device=dev).manual_seed(0)
     bc1, bc2 = bias_corrections(0.9, 0.95, torch.tensor(3, dtype=torch.int32, device=dev))
     versions = {"parent": parent, "change": change}
     rows = []
+    sms = build.sm_count(dev)
     for (b, r, c, axis), plans in sorted(slim_groups(torch).items()):
         line = (b, r, 1) if axis == 1 else (b, 1, c)
         g = 1e-3 * torch.randn((b, r, c), generator=gen, device=dev)
         m = 1e-4 * torch.randn((b, r, c), generator=gen, device=dev)
         v = 1e-6 * torch.rand(line, generator=gen, device=dev)
         ops = (g, m, v, bc1.expand(line).contiguous(), bc2.expand(line).contiguous(), axis)
-        want = megaplan.mega_slim_update_batched_plain(*ops[:5], axis=axis, **KW)
-        errs = {}
-        for name, fn in versions.items():
-            errs[name] = max(chip_smoke.max_err(a, w)[1] for a, w in zip(fn(*ops), want))
-            if errs[name] > chip_smoke.TOL_LINE:
-                raise AssertionError(f"slim_ab: {name} on {(b, r, c)} axis {axis} is {errs[name]:.3e} from the twin")
-        times = {name: [] for name in versions}
-        for name in ("parent", "change", "change", "parent"):
-            times[name].append(timer(lambda: versions[name](*ops), reps=cli.reps))
-        med = {name: statistics.median(t) for name, t in times.items()}
-        row = dict(shape=[b, r, c], axis=axis, plans=plans, parent_ms=med["parent"], change_ms=med["change"],
-                   ratio=med["change"] / med["parent"], max_rel_err=errs, blocks=times)
-        rows.append(row)
-        print(f"  ({b}, {r}, {c}) axis {axis}: parent {med['parent']:.4f} ms  change {med['change']:.4f} ms  "
-              f"({row['ratio']:.3f}x)  {', '.join(plans)}", flush=True)
-        del g, m, v, ops, want
+        plan = megaplan.plan_slim(b, r, c, axis, sms=sms, aligned=True)
+        form = f"{('ROWS', 'SPLIT', 'MAJOR')[plan.form]} nseg {plan.nseg} blocks {plan.blocks}"
+        for label, flags in FLAG_SETS.items():
+            want = megaplan.mega_slim_update_batched_plain(*ops[:5], axis=axis, **flags, **KW)
+            errs = {}
+            for name, fn in versions.items():
+                got = fn(*ops, **flags)
+                errs[name] = max(chip_smoke.max_err(a.nan_to_num(), w.nan_to_num())[1] for a, w in zip(got, want))
+                if errs[name] > chip_smoke.TOL_LINE:
+                    raise AssertionError(f"slim_ab: {name} on {(b, r, c)} axis {axis} {label} is {errs[name]:.3e} "
+                                         "from the twin")
+            times = {name: [] for name in versions}
+            for name in ("parent", "change", "change", "parent"):
+                times[name].append(timer(lambda: versions[name](*ops, **flags), reps=cli.reps))
+            med = {name: statistics.median(t) for name, t in times.items()}
+            row = dict(shape=[b, r, c], axis=axis, flags=label, form=form, plans=plans, parent_ms=med["parent"],
+                       change_ms=med["change"], ratio=med["change"] / med["parent"], max_rel_err=errs, blocks=times)
+            rows.append(row)
+            print(f"  ({b}, {r}, {c}) axis {axis} {label}: parent {med['parent']:.4f} ms  change "
+                  f"{med['change']:.4f} ms  ({row['ratio']:.3f}x)  [{form}]  {', '.join(plans)}", flush=True)
+            del want
+        del g, m, v, ops
     print(json.dumps(dict(device=smi, rev=cli.rev, reps=cli.reps, groups=rows)), flush=True)
     return 0
 

@@ -24,17 +24,54 @@
 // entries make most terms that small (8e-5 relative error on u, measured).
 // A DFMA per element costs nothing at this kernel's byte bound.
 //
-// Bound: bytes. g and m are read, u and m' written (16 B per f32 element);
-// the line operands v, bc1, bc2 and v' add 16 B per line, each flag's two
-// line outputs 8 B more. Each line is walked twice: pass 1 sums g^2, pass 2
-// writes. A line is at most a few tens of KB on the gpt_small path, so pass
-// 2's read of g mostly hits L1/L2 and device memory sees g about once.
-//   axis 1 (minor, contiguous lines): one block per line, threads stride the
-//     line with float4 loads, a block reduction joins the partial sums.
-//   axis 0 (major, lines strided by C): a block owns kStrip adjacent columns
-//     of one batch slice, so a warp reads 128 contiguous bytes per row;
-//     kRowThreads warps split the rows and combine their sums in shared
-//     memory.
+// Bound: bytes. g and m are read, u and m' written (16 B per f32 element,
+// 14 B with bf16 g); the line operands v, bc1, bc2 and v' add 16 B per line,
+// each flag's two line outputs 8 B more. Each line is walked twice: pass 1
+// sums g^2 (and the flags' sums), pass 2 writes m' and u once the line's v'
+// is known. Where g fits in the 50 MB L2, pass 2's read of g hits it and
+// device memory sees g once. A view whose g is larger cannot keep it on chip
+// between the passes, and its floor is 20 B per f32 element, g read twice:
+// AdaLayer's 38.6 M-element embedding line (154.5 MB of g) has a 16 B bound
+// of 0.1845 ms and a 20 B floor of 0.2306 ms (3.35 TB/s).
+//
+// The walk cuts the work by bytes, not by line, on a 1-D grid that a
+// host-side planner sizes (repro_torch/kernels/megaplan.py plan_slim: pure
+// integer arithmetic, pieces of 64-256 KB of the 16 B an element moves,
+// about 4 blocks per SM where the view has the bytes). Three forms:
+//   ROWS   today's one-launch walk, kept where it already fills the card:
+//          axis 1 (contiguous lines) one block per line when the line is
+//          one piece, threads striding it with float4 loads and a block
+//          reduction joining the sums; axis 0 (lines strided by C) one block
+//          per kStrip adjacent columns of a batch slice, kRowThreads warps
+//          splitting the rows, when those strips number 4 a SM or when
+//          splitting rows would give no more blocks. Table 3's groups on
+//          gpt_small (lines of 768 and 3072; (12, 768, 1536) on axis 0)
+//          take it, with the instruction stream they had before.
+//   SPLIT  axis 1, a line longer than a piece: cut into nseg segments of
+//          seg elements (a multiple of 1024), a block of 256 threads each.
+//   MAJOR  axis 0, strips too few: a block owns 128 adjacent columns (a
+//          float4 per lane; 32 columns with 4-byte loads) over a chunk of
+//          seg rows, its 8 warps interleaving the rows; the chunks split the
+//          rows across blocks, so a B = 1 view with few columns fills the
+//          card (ResNet-18's (1, 4608, 1536) group: 540 blocks, not 48).
+// SPLIT and MAJOR are two CUDA launches. Pass 1 sums each piece's g^2 in f64
+// (and, with the flags, the centered sums of g^2 shifted by g^2 at the
+// line's first entry, which every piece loads, and the health terms) and
+// writes those shares to an f64 workspace that the wrapper allocates. Pass 2
+// combines each line's nseg g^2 shares in a fixed order, so every block of a
+// line derives the bit-identical v'; the block holding the line's first
+// piece also combines the flags' shares and writes v' and the line outputs;
+// every block then writes m' and u over its own piece. No float atomics: a
+// given input gives bit-identical outputs on every run. Pass 2 takes the
+// pieces in reverse order, so its first blocks read the end of g that pass
+// 1 left in L2. Two launches rather than one cooperative launch with a
+// grid-wide barrier: a cooperative grid may not exceed the blocks the card
+// holds at once, so it would cap the grid and walk pieces in a loop, while
+// the second launch costs a few microseconds and keeps each pass a plain
+// grid. The wrapper counts one launch per call; the per-leaf form's health
+// reduction (below) adds one CUDA launch to any form.
+// Loads are 16 B a thread for f32 g (8 B for bf16 g, four values) where the
+// view is aligned and its inner size a multiple of 4, else 4-byte loads.
 // Any line length works: nothing holds a whole line on chip. The flags are
 // template parameters, so the base form's instruction stream is the one it
 // had before they existed. The per-leaf form's (2,) health accumulator
@@ -55,13 +92,16 @@
 // terms), all in pass 1's single walk over the line; the sum completes
 // across ranks, and slim_finalize.cu applies the preconditioner. Bound:
 // bytes, 12 B per f32 element (g, m read, m' written) plus 4 B per line,
-// 12 B more per line with_snr, 8 B with_health.
+// 12 B more per line with_snr, 8 B with_health. PARTIAL keeps the ROWS
+// form's walk on every view (one block per line or strip; the split walk
+// is not yet its own).
 //
 // WRITE replaces repro/kernels/slim_update.py:74 slim_update_batched (body
 // _slim_kernel :56, pallas_call :103), the parameter-writing per-leaf form:
 // pass 2 writes p' = p - lr*(u + wd*p) in p's dtype (f32 or bf16) instead
 // of u, with the bias corrections passed as host-rounded scalars (no
 // launch forms them). Entry point repro_slim_update at the end of the file.
+// WRITE, too, keeps the ROWS form's walk on every view.
 #include <type_traits>
 
 #include "common.cuh"
@@ -346,14 +386,17 @@ __global__ void slim_major_kernel(SlimArgs a) {
   }
 }
 
+// Whether the ROWS form's axis-1 walk may take float4 loads (f32 g only).
+bool vec_ok(const SlimArgs& a) {
+  return a.cols % 4 == 0 && repro_torch::aligned16(a.g) && repro_torch::aligned16(a.m) &&
+         repro_torch::aligned16(a.u) && repro_torch::aligned16(a.m_out);
+}
+
+// The ROWS form: one block per axis-1 line, or per kStrip columns of an
+// axis-0 batch slice (every PARTIAL call, and B1/B4 where the plan says so).
 template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
-void launch_flags(const SlimArgs& a, int axis, cudaStream_t s) {
+void launch_rows(const SlimArgs& a, int axis, bool vec, cudaStream_t s) {
   if (axis == 1) {
-    bool vec = false;
-    if constexpr (std::is_same<G, float>::value) {
-      vec = a.cols % 4 == 0 && repro_torch::aligned16(a.g) && repro_torch::aligned16(a.m) &&
-            repro_torch::aligned16(a.u) && repro_torch::aligned16(a.m_out);
-    }
     long long work = vec ? a.cols / 4 : a.cols;
     long long threads = ((work + 31) / 32) * 32;
     if (threads > 1024) threads = 1024;
@@ -373,19 +416,473 @@ void launch_flags(const SlimArgs& a, int axis, cudaStream_t s) {
   }
 }
 
-template <typename G, bool SCALAR_BC, bool PARTIAL = false>
-void launch(const SlimArgs& a, int axis, cudaStream_t s) {
+// PARTIAL's launch: always the ROWS form.
+template <typename G, bool SCALAR_BC>
+void launch_partial(const SlimArgs& a, int axis, cudaStream_t s) {
+  bool vec = false;
+  if constexpr (std::is_same<G, float>::value) vec = axis == 1 && vec_ok(a);
   const bool snr = a.s1c != nullptr;
   const bool health = a.nf != nullptr;
   if (snr && health) {
-    launch_flags<G, SCALAR_BC, true, true, PARTIAL>(a, axis, s);
+    launch_rows<G, SCALAR_BC, true, true, true>(a, axis, vec, s);
   } else if (snr) {
-    launch_flags<G, SCALAR_BC, true, false, PARTIAL>(a, axis, s);
+    launch_rows<G, SCALAR_BC, true, false, true>(a, axis, vec, s);
   } else if (health) {
-    launch_flags<G, SCALAR_BC, false, true, PARTIAL>(a, axis, s);
+    launch_rows<G, SCALAR_BC, false, true, true>(a, axis, vec, s);
   } else {
-    launch_flags<G, SCALAR_BC, false, false, PARTIAL>(a, axis, s);
+    launch_rows<G, SCALAR_BC, false, false, true>(a, axis, vec, s);
   }
+}
+
+// ---- B1 and B4: the SPLIT and MAJOR forms ----------------------------------------
+
+// These match the planner's constants in repro_torch/kernels/megaplan.py
+// (and the split walk's in snr_stats.cu).
+constexpr int kThreads = 256;  // every block of the SPLIT and MAJOR passes
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;     // loads in flight per thread
+constexpr int kFormRows = 0, kFormSplit = 1, kFormMajor = 2;
+
+// The plan of one call (plan_slim) and the f64 workspace of its shares:
+// kCount planes of lines * nseg doubles, share k of line l at l * nseg + k
+// (SPLIT) or at k * lines + l (MAJOR, so that a block's adjacent columns
+// read adjacent doubles).
+struct Walk {
+  int form;
+  bool vec;
+  long long seg, nseg, blocks;
+  double* part;
+};
+
+// One piece's f64 shares of a line's sums: g^2 (as the ROWS form sums it,
+// an FMA of the exact square), then with SNR s1c and s2c of g^2 shifted by
+// f (differences rounded in f32), then with HEALTH the non-finite count and
+// the finite sum of g^2 rounded in f32: LineStats's terms, in planes.
+template <bool SNR, bool HEALTH>
+struct Shares {
+  static constexpr int kCount = 1 + (SNR ? 2 : 0) + (HEALTH ? 2 : 0);
+  static constexpr int kNf = SNR ? 3 : 1;
+  double v[kCount];
+  __device__ __forceinline__ Shares() {
+#pragma unroll
+    for (int j = 0; j < kCount; ++j) v[j] = 0.0;
+  }
+  __device__ __forceinline__ void add(float x, float f) {
+    v[0] = fma((double)x, (double)x, v[0]);
+    if constexpr (SNR || HEALTH) {
+      const float x2 = __fmul_rn(x, x);
+      if constexpr (SNR) {
+        const double d = (double)__fsub_rn(x2, f);
+        v[1] += d;
+        v[2] += d * d;
+      }
+      if constexpr (HEALTH) {
+        if (isfinite(x)) {
+          v[kNf + 1] += (double)x2;
+        } else {
+          v[kNf] += 1.0;
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void add(const float4& x, float f) {
+    add(x.x, f);
+    add(x.y, f);
+    add(x.z, f);
+    add(x.w, f);
+  }
+};
+
+// The first n values of v summed over the block in a fixed order (a
+// shuffle tree in each warp, then the warps in turn); thread 0 gets the
+// totals. The leading barrier lets a caller reuse smem.
+__device__ __forceinline__ void block_total(double* v, int n, double (*smem)[kWarps]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int j = 0; j < n; ++j) {
+    for (int off = 16; off > 0; off >>= 1) v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
+  }
+  __syncthreads();
+  if (lane == 0) {
+    for (int j = 0; j < n; ++j) smem[j][warp] = v[j];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < n; ++j) {
+      double t = 0.0;
+      for (int w = 0; w < kWarps; ++w) t += smem[j][w];
+      v[j] = t;
+    }
+  }
+}
+
+// Four consecutive g at element i (a multiple of 4) as f32, from one 16-byte
+// (f32) or 8-byte (bf16: the upper half of an f32's bits) load. LAST: the
+// data's last read (streaming, evict-first); otherwise a cached read, which
+// pass 2 may find in L2.
+template <typename G, bool LAST>
+__device__ __forceinline__ float4 load_g4(const void* p, long long i) {
+  if constexpr (std::is_same<G, float>::value) {
+    const float4* q = reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+    if constexpr (LAST) {
+      return __ldcs(q);
+    } else {
+      return *q;
+    }
+  } else {
+    const uint2* q = reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) + i);
+    uint2 r;
+    if constexpr (LAST) {
+      r = __ldcs(q);
+    } else {
+      r = *q;
+    }
+    return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u), __uint_as_float(r.y << 16),
+                       __uint_as_float(r.y & 0xffff0000u));
+  }
+}
+
+// The VEC form's four elements (a float4), or one, of g as f32 and of m.
+template <typename G, bool VEC, bool LAST>
+__device__ __forceinline__ typename std::conditional<VEC, float4, float>::type load_gv(const void* p, long long i) {
+  if constexpr (VEC) {
+    return load_g4<G, LAST>(p, i);
+  } else {
+    return load_g<G>(p, i);
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ typename std::conditional<VEC, float4, float>::type load_mv(const float* p, long long i) {
+  using T = typename std::conditional<VEC, float4, float>::type;
+  return __ldcs(reinterpret_cast<const T*>(p + i));
+}
+
+// m' and u of one element, or of four (each with its own line values),
+// stored streaming: no pass reads them again.
+__device__ __forceinline__ void update(const SlimArgs& a, long long i, float x, float m, const float* v_new,
+                                       const float* c1, const float* c2) {
+  const float mn = ema(a.b1, m, a.omb1, x);
+  __stcs(a.m_out + i, mn);
+  __stcs(a.u + i, precond(mn, c1[0], v_new[0], c2[0], a.eps));
+}
+
+__device__ __forceinline__ void update(const SlimArgs& a, long long i, const float4& x, const float4& m,
+                                       const float* v_new, const float* c1, const float* c2) {
+  float4 mn, uu;
+  mn.x = ema(a.b1, m.x, a.omb1, x.x);
+  mn.y = ema(a.b1, m.y, a.omb1, x.y);
+  mn.z = ema(a.b1, m.z, a.omb1, x.z);
+  mn.w = ema(a.b1, m.w, a.omb1, x.w);
+  uu.x = precond(mn.x, c1[0], v_new[0], c2[0], a.eps);
+  uu.y = precond(mn.y, c1[1], v_new[1], c2[1], a.eps);
+  uu.z = precond(mn.z, c1[2], v_new[2], c2[2], a.eps);
+  uu.w = precond(mn.w, c1[3], v_new[3], c2[3], a.eps);
+  __stcs(reinterpret_cast<float4*>(a.m_out + i), mn);
+  __stcs(reinterpret_cast<float4*>(a.u + i), uu);
+}
+
+// v' of line l from its g^2 total (the ROWS form's arithmetic).
+__device__ __forceinline__ float line_v(const SlimArgs& a, long long l, double total) {
+  return ema(a.b2, a.v[l], a.omb2, __fmul_rn((float)total, a.inv_n));
+}
+
+template <bool SNR, bool HEALTH>
+__device__ __forceinline__ void write_line_shares(const SlimArgs& a, long long l, const double* t) {
+  if constexpr (SNR) {
+    a.s1c[l] = (float)t[1];
+    a.s2c[l] = (float)t[2];
+  }
+  if constexpr (HEALTH) {
+    a.nf[l] = (float)t[Shares<SNR, HEALTH>::kNf];
+    a.ss[l] = (float)t[Shares<SNR, HEALTH>::kNf + 1];
+  }
+}
+
+// SPLIT pass 1: block b sums segment k = b % nseg (elements [k*seg,
+// k*seg + seg) of the line, the last one shorter) of line b / nseg and
+// writes its shares. seg is a multiple of 1024, so every segment of a
+// vector-form line starts on a 4-element boundary.
+template <typename G, bool VEC, bool SNR, bool HEALTH>
+__global__ void __launch_bounds__(kThreads) slim_split_sum(SlimArgs a, Walk w) {
+  using S = Shares<SNR, HEALTH>;
+  __shared__ double smem[S::kCount][kWarps];
+  constexpr long long kPer = VEC ? 4 : 1;
+  const long long line = (long long)blockIdx.x / w.nseg;
+  const long long k = (long long)blockIdx.x % w.nseg;
+  const long long begin = line * a.cols + k * w.seg;
+  const long long n = min(w.seg, a.cols - k * w.seg) / kPer;
+  float f = 0.f;
+  if constexpr (SNR) {
+    const float x0 = load_g<G>(a.g, line * a.cols);
+    f = __fmul_rn(x0, x0);
+  }
+  S s;
+  long long j = threadIdx.x;
+  for (; j + (kUnroll - 1) * kThreads < n; j += kUnroll * kThreads) {
+    typename std::conditional<VEC, float4, float>::type x[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) x[q] = load_gv<G, VEC, false>(a.g, begin + (j + q * kThreads) * kPer);
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) s.add(x[q], f);
+  }
+  for (; j < n; j += kThreads) s.add(load_gv<G, VEC, false>(a.g, begin + j * kPer), f);
+  block_total(s.v, S::kCount, smem);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int p = 0; p < S::kCount; ++p) w.part[p * w.blocks + line * w.nseg + k] = s.v[p];
+  }
+}
+
+// SPLIT pass 2: the same pieces in reverse block order. Every block sums
+// its line's nseg g^2 shares in order (thread t takes shares t, t + 256,
+// ..., then block_total), so all derive one v'; the block of segment 0
+// also combines the flags' shares and writes v' and the line outputs.
+template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH>
+__global__ void __launch_bounds__(kThreads) slim_split_apply(SlimArgs a, Walk w) {
+  using S = Shares<SNR, HEALTH>;
+  __shared__ double smem[S::kCount][kWarps];
+  __shared__ float shared_v;
+  constexpr long long kPer = VEC ? 4 : 1;
+  const long long b = w.blocks - 1 - (long long)blockIdx.x;
+  const long long line = b / w.nseg;
+  const long long k = b % w.nseg;
+  const double* __restrict__ part = w.part + line * w.nseg;
+  double t[S::kCount];
+  t[0] = 0.0;
+  for (long long q = threadIdx.x; q < w.nseg; q += kThreads) t[0] += part[q];
+  block_total(t, 1, smem);
+  if constexpr (S::kCount > 1) {
+    if (k == 0) {
+#pragma unroll
+      for (int p = 1; p < S::kCount; ++p) {
+        t[p] = 0.0;
+        for (long long q = threadIdx.x; q < w.nseg; q += kThreads) t[p] += part[p * w.blocks + q];
+      }
+      block_total(t + 1, S::kCount - 1, smem);
+    }
+  }
+  if (threadIdx.x == 0) {
+    const float v_new = line_v(a, line, t[0]);
+    shared_v = v_new;
+    if (k == 0) {
+      a.v_out[line] = v_new;
+      write_line_shares<SNR, HEALTH>(a, line, t);
+    }
+  }
+  __syncthreads();
+  const float v1 = shared_v;
+  const float c11 = bc_at<SCALAR_BC>(a.bc1, line);
+  const float c21 = bc_at<SCALAR_BC>(a.bc2, line);
+  const float vv[4] = {v1, v1, v1, v1};
+  const float c1[4] = {c11, c11, c11, c11};
+  const float c2[4] = {c21, c21, c21, c21};
+  const long long begin = line * a.cols + k * w.seg;
+  const long long n = min(w.seg, a.cols - k * w.seg) / kPer;
+  long long j = threadIdx.x;
+  for (; j + (kUnroll - 1) * kThreads < n; j += kUnroll * kThreads) {
+    typename std::conditional<VEC, float4, float>::type x[kUnroll], m[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      x[q] = load_gv<G, VEC, true>(a.g, begin + (j + q * kThreads) * kPer);
+      m[q] = load_mv<VEC>(a.m, begin + (j + q * kThreads) * kPer);
+    }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) update(a, begin + (j + q * kThreads) * kPer, x[q], m[q], vv, c1, c2);
+  }
+  for (; j < n; j += kThreads) {
+    update(a, begin + j * kPer, load_gv<G, VEC, true>(a.g, begin + j * kPer), load_mv<VEC>(a.m, begin + j * kPer),
+           vv, c1, c2);
+  }
+}
+
+// MAJOR's pieces: block b holds row chunk k = b % nseg (rows [k*seg,
+// k*seg + seg), seg a multiple of kWarps) of column tile b / nseg: batch
+// entry tile / ctiles, columns from (tile % ctiles) * kTile. Lane l of each
+// warp owns the kPer columns from l * kPer; warp w takes rows k*seg + w,
+// + kWarps, ...
+struct MajorPiece {
+  long long k, b, c0;
+  __device__ __forceinline__ MajorPiece(long long block, long long ctiles, long long nseg, int tile)
+      : k(block % nseg), b(block / nseg / ctiles), c0((block / nseg) % ctiles * tile) {}
+};
+
+// A lane's row of its columns into their shares.
+template <bool SNR, bool HEALTH>
+__device__ __forceinline__ void add_columns(Shares<SNR, HEALTH>* s, const float4& x, const float* f) {
+  s[0].add(x.x, f[0]);
+  s[1].add(x.y, f[1]);
+  s[2].add(x.z, f[2]);
+  s[3].add(x.w, f[3]);
+}
+template <bool SNR, bool HEALTH>
+__device__ __forceinline__ void add_columns(Shares<SNR, HEALTH>* s, float x, const float* f) {
+  s[0].add(x, f[0]);
+}
+
+// MAJOR pass 1: each column's shares over the chunk, the warps' sums added
+// in warp order in shared memory.
+template <typename G, bool VEC, bool SNR, bool HEALTH>
+__global__ void __launch_bounds__(kThreads) slim_major_sum(SlimArgs a, Walk w, long long ctiles) {
+  using S = Shares<SNR, HEALTH>;
+  constexpr int kPer = VEC ? 4 : 1;
+  constexpr int kTile = 32 * kPer;
+  __shared__ double smem[S::kCount][kWarps][kTile];
+  const MajorPiece pc(blockIdx.x, ctiles, w.nseg, kTile);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long c = pc.c0 + (long long)lane * kPer;
+  const long long slice = pc.b * a.rows * a.cols;
+  S s[kPer];
+  if (c < a.cols) {  // the vector form has cols % 4 == 0: a lane's columns are all live or none
+    float f[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      f[q] = 0.f;
+      if constexpr (SNR) {
+        const float x0 = load_g<G>(a.g, slice + c + q);
+        f[q] = __fmul_rn(x0, x0);
+      }
+    }
+    const long long r_end = min(a.rows, (pc.k + 1) * w.seg);
+    long long r = pc.k * w.seg + warp;
+    for (; r + (kUnroll - 1) * kWarps < r_end; r += kUnroll * kWarps) {
+      typename std::conditional<VEC, float4, float>::type x[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) x[u] = load_gv<G, VEC, false>(a.g, slice + (r + u * kWarps) * a.cols + c);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) add_columns(s, x[u], f);
+    }
+    for (; r < r_end; r += kWarps) add_columns(s, load_gv<G, VEC, false>(a.g, slice + r * a.cols + c), f);
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+#pragma unroll
+    for (int p = 0; p < S::kCount; ++p) smem[p][warp][lane * kPer + q] = s[q].v[p];
+  }
+  __syncthreads();
+  const long long cc = pc.c0 + threadIdx.x;
+  if (threadIdx.x < kTile && cc < a.cols) {
+    const long long lines = a.batch * a.cols;
+    const long long slot = pc.k * lines + pc.b * a.cols + cc;
+#pragma unroll
+    for (int p = 0; p < S::kCount; ++p) {
+      double t = 0.0;
+      for (int v = 0; v < kWarps; ++v) t += smem[p][v][threadIdx.x];
+      w.part[p * lines * w.nseg + slot] = t;
+    }
+  }
+}
+
+// MAJOR pass 2: the same pieces in reverse block order. Thread t < kTile
+// sums column t's nseg g^2 shares in order, so every chunk of a column
+// derives one v'; chunk 0's block also combines the flags' shares and
+// writes v' and the line outputs. Then each lane updates its columns over
+// the chunk's rows.
+template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH>
+__global__ void __launch_bounds__(kThreads) slim_major_apply(SlimArgs a, Walk w, long long ctiles) {
+  using S = Shares<SNR, HEALTH>;
+  constexpr int kPer = VEC ? 4 : 1;
+  constexpr int kTile = 32 * kPer;
+  __shared__ float shared_v[kTile];
+  const MajorPiece pc(w.blocks - 1 - (long long)blockIdx.x, ctiles, w.nseg, kTile);
+  const long long lines = a.batch * a.cols;
+  const long long cc = pc.c0 + threadIdx.x;
+  if (threadIdx.x < kTile && cc < a.cols) {
+    const long long l = pc.b * a.cols + cc;
+    double t[S::kCount];
+    const int planes = pc.k == 0 ? S::kCount : 1;
+    for (int p = 0; p < planes; ++p) {
+      const double* __restrict__ share = w.part + p * lines * w.nseg + l;
+      t[p] = 0.0;
+      for (long long q = 0; q < w.nseg; ++q) t[p] += share[q * lines];
+    }
+    const float v_new = line_v(a, l, t[0]);
+    shared_v[threadIdx.x] = v_new;
+    if (pc.k == 0) {
+      a.v_out[l] = v_new;
+      write_line_shares<SNR, HEALTH>(a, l, t);
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long c = pc.c0 + (long long)lane * kPer;
+  if (c >= a.cols) return;
+  float vv[kPer], c1[kPer], c2[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    vv[q] = shared_v[lane * kPer + q];
+    c1[q] = bc_at<SCALAR_BC>(a.bc1, pc.b * a.cols + c + q);
+    c2[q] = bc_at<SCALAR_BC>(a.bc2, pc.b * a.cols + c + q);
+  }
+  const long long slice = pc.b * a.rows * a.cols;
+  const long long r_end = min(a.rows, (pc.k + 1) * w.seg);
+  long long r = pc.k * w.seg + warp;
+  for (; r + (kUnroll - 1) * kWarps < r_end; r += kUnroll * kWarps) {
+    typename std::conditional<VEC, float4, float>::type x[kUnroll], m[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = slice + (r + u * kWarps) * a.cols + c;
+      x[u] = load_gv<G, VEC, true>(a.g, i);
+      m[u] = load_mv<VEC>(a.m, i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) update(a, slice + (r + u * kWarps) * a.cols + c, x[u], m[u], vv, c1, c2);
+  }
+  for (; r < r_end; r += kWarps) {
+    const long long i = slice + r * a.cols + c;
+    update(a, i, load_gv<G, VEC, true>(a.g, i), load_mv<VEC>(a.m, i), vv, c1, c2);
+  }
+}
+
+template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH>
+void launch_pieces(const SlimArgs& a, const Walk& w, cudaStream_t s) {
+  const unsigned grid = (unsigned)w.blocks;
+  if (w.form == kFormSplit) {
+    slim_split_sum<G, VEC, SNR, HEALTH><<<grid, kThreads, 0, s>>>(a, w);
+    slim_split_apply<G, VEC, SCALAR_BC, SNR, HEALTH><<<grid, kThreads, 0, s>>>(a, w);
+  } else {
+    constexpr long long kTile = VEC ? 128 : 32;
+    const long long ctiles = (a.cols + kTile - 1) / kTile;
+    slim_major_sum<G, VEC, SNR, HEALTH><<<grid, kThreads, 0, s>>>(a, w, ctiles);
+    slim_major_apply<G, VEC, SCALAR_BC, SNR, HEALTH><<<grid, kThreads, 0, s>>>(a, w, ctiles);
+  }
+}
+
+// B1 and B4 on the plan's form: ROWS (one launch) or the two passes of
+// SPLIT / MAJOR.
+template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH>
+void launch_plan_flags(const SlimArgs& a, int axis, const Walk& w, cudaStream_t s) {
+  if (w.form == kFormRows) {
+    launch_rows<G, SCALAR_BC, SNR, HEALTH, false>(a, axis, w.vec && std::is_same<G, float>::value, s);
+  } else if (w.vec) {
+    launch_pieces<G, true, SCALAR_BC, SNR, HEALTH>(a, w, s);
+  } else {
+    launch_pieces<G, false, SCALAR_BC, SNR, HEALTH>(a, w, s);
+  }
+}
+
+template <typename G, bool SCALAR_BC>
+void launch_plan(const SlimArgs& a, int axis, const Walk& w, cudaStream_t s) {
+  const bool snr = a.s1c != nullptr;
+  const bool health = a.nf != nullptr;
+  if (snr && health) {
+    launch_plan_flags<G, SCALAR_BC, true, true>(a, axis, w, s);
+  } else if (snr) {
+    launch_plan_flags<G, SCALAR_BC, true, false>(a, axis, w, s);
+  } else if (health) {
+    launch_plan_flags<G, SCALAR_BC, false, true>(a, axis, w, s);
+  } else {
+    launch_plan_flags<G, SCALAR_BC, false, false>(a, axis, w, s);
+  }
+}
+
+// Whether a plan's arguments describe a form this file has for the axis.
+bool walk_ok(const Walk& w, int axis) {
+  if (w.form == kFormRows) return w.nseg == 1;
+  return w.form == (axis == 1 ? kFormSplit : kFormMajor) && w.nseg > 1 && w.seg > 0 && w.blocks > 0 &&
+         w.part != nullptr;
 }
 
 // The parameter-writing per-leaf form: no flags, host-rounded bias
@@ -430,41 +927,49 @@ bool flags_paired(const float* x, const float* y) { return (x == nullptr) == (y 
 // Megaplan group form. g, m, u, m_out: contiguous f32 (batch, rows, cols).
 // v, bc1, bc2, v_out and the optional line outputs s1c, s2c (with_snr) and
 // nf, ss (with_health; null when off): contiguous f32 lines, (batch, rows, 1)
-// for axis 1 and (batch, 1, cols) for axis 0. inv_n = 1/line length;
-// omb1/omb2 = 1-b1/1-b2 rounded by the caller. The caller guarantees
-// batch*rows < 2^31 (axis 1) and batch < 65536 (axis 0). Returns the
-// cudaError_t of the launch.
+// for axis 1 and (batch, 1, cols) for axis 0. form, vec, seg, nseg and
+// blocks are plan_slim's plan for this view; work holds (1 + 2 with_snr +
+// 2 with_health) * lines * nseg doubles when nseg > 1 (else null). inv_n =
+// 1/line length; omb1/omb2 = 1-b1/1-b2 rounded by the caller. The caller
+// guarantees batch*rows < 2^31 (axis 1), batch < 65536 (axis 0) and
+// blocks < 2^31. Returns the cudaError_t of the launches.
 extern "C" int repro_mega_slim_update(const float* g, const float* m, const float* v, const float* bc1,
                                       const float* bc2, float* u, float* m_out, float* v_out, float* s1c,
                                       float* s2c, float* nf, float* ss, long long batch, long long rows,
-                                      long long cols, int axis, float inv_n, float b1, float omb1, float b2,
+                                      long long cols, int axis, int form, int vec, long long seg, long long nseg,
+                                      long long blocks, double* work, float inv_n, float b1, float omb1, float b2,
                                       float omb2, float eps, void* stream) {
-  if (!flags_paired(s1c, s2c) || !flags_paired(nf, ss)) return (int)cudaErrorInvalidValue;
+  const Walk w{form, vec != 0, seg, nseg, blocks, work};
+  if (!flags_paired(s1c, s2c) || !flags_paired(nf, ss) || !walk_ok(w, axis)) return (int)cudaErrorInvalidValue;
   SlimArgs a{g, m, v, bc1, bc2, u, m_out, v_out, s1c, s2c, nf, ss, nullptr, nullptr, batch, rows, cols, inv_n, b1,
              omb1, b2, omb2, eps};
-  launch<float, false>(a, axis, static_cast<cudaStream_t>(stream));
+  launch_plan<float, false>(a, axis, w, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
 // Per-leaf form. As above, except: g is f32 (g_bf16 = 0) or bf16
 // (g_bf16 = 1); bc1 and bc2 are one f32 each; with_health (health a (2,) f32
 // output, else null) writes the per-line nf/ss into the caller's scratch
-// lines nf_lines/ss_lines and then reduces them into health.
+// lines nf_lines/ss_lines and then reduces them into health. vec: 16-byte
+// loads of f32 g, 8-byte loads of four bf16 g.
 extern "C" int repro_slim_precond(const void* g, int g_bf16, const float* m, const float* v, const float* bc1,
                                   const float* bc2, float* u, float* m_out, float* v_out, float* s1c, float* s2c,
                                   float* nf_lines, float* ss_lines, float* health, long long batch,
-                                  long long rows, long long cols, int axis, float inv_n, float b1, float omb1,
+                                  long long rows, long long cols, int axis, int form, int vec, long long seg,
+                                  long long nseg, long long blocks, double* work, float inv_n, float b1, float omb1,
                                   float b2, float omb2, float eps, void* stream) {
-  if (!flags_paired(s1c, s2c) || !flags_paired(nf_lines, ss_lines) || !flags_paired(nf_lines, health)) {
+  const Walk w{form, vec != 0, seg, nseg, blocks, work};
+  if (!flags_paired(s1c, s2c) || !flags_paired(nf_lines, ss_lines) || !flags_paired(nf_lines, health) ||
+      !walk_ok(w, axis)) {
     return (int)cudaErrorInvalidValue;
   }
   SlimArgs a{g, m, v, bc1, bc2, u, m_out, v_out, s1c, s2c, nf_lines, ss_lines, nullptr, nullptr, batch, rows, cols,
              inv_n, b1, omb1, b2, omb2, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_bf16) {
-    launch<__nv_bfloat16, true>(a, axis, s);
+    launch_plan<__nv_bfloat16, true>(a, axis, w, s);
   } else {
-    launch<float, true>(a, axis, s);
+    launch_plan<float, true>(a, axis, w, s);
   }
   if (health != nullptr) reduce_health(a, axis, health, s);
   return (int)cudaGetLastError();
@@ -484,7 +989,7 @@ extern "C" int repro_mega_slim_partial_stats(const float* g, const float* m, flo
   }
   SlimArgs a{g, m, nullptr, nullptr, nullptr, nullptr, m_out, nullptr, s1c, s2c, nf, ss, part, first, batch, rows,
              cols, 0.f, b1, omb1, 0.f, 0.f, 0.f};
-  launch<float, false, true>(a, axis, static_cast<cudaStream_t>(stream));
+  launch_partial<float, false>(a, axis, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
@@ -504,9 +1009,9 @@ extern "C" int repro_slim_partial_stats(const void* g, int g_bf16, const float* 
              batch, rows, cols, 0.f, b1, omb1, 0.f, 0.f, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_bf16) {
-    launch<__nv_bfloat16, false, true>(a, axis, s);
+    launch_partial<__nv_bfloat16, false>(a, axis, s);
   } else {
-    launch<float, false, true>(a, axis, s);
+    launch_partial<float, false>(a, axis, s);
   }
   if (health != nullptr) reduce_health(a, axis, health, s);
   return (int)cudaGetLastError();

@@ -23,7 +23,11 @@ The optimizer kernels live here beside their plain twins:
 * :func:`mega_slim_update_batched` — ``csrc/mega_slim.cu``, replacing
   ``repro/kernels/megaplan.py:417`` (body ``_mega_slim_kernel`` :386,
   ``pallas_call`` :448), ``with_snr`` and ``with_health`` included. Bound by
-  bytes: 16 B per element plus 16 B per line (8 B more per line per flag).
+  bytes: 16 B per element plus 16 B per line (8 B more per line per flag);
+  20 B per element where g outgrows the L2 and pass 2 reads it again. Its
+  grid (and B4's) comes from :func:`plan_slim`, which splits long lines and
+  thin column strips across the SMs (pure integer arithmetic, tested on the
+  CPU).
 * :func:`mega_slim_partial_stats_batched` (B12) — the PARTIAL instantiation
   in ``csrc/mega_slim.cu``, replacing ``repro/kernels/megaplan.py:486``
   (body ``_mega_slim_partial_kernel`` :467, ``pallas_call`` :510): pass 1 of
@@ -38,6 +42,7 @@ The ``.cu`` files' notes say how each design follows from its bound.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -46,7 +51,7 @@ import torch
 
 from . import build
 from .ops import CanonND, canon_apply, canon_restore, leaf_plan
-from .snr_stats import centered_line_stats
+from .snr_stats import SEG_QUANTUM, TILE_SCALAR, TILE_VEC, WARPS, WAVES, _cdiv, _cut, centered_line_stats
 
 # Lane width of the dense group's (rows, LANES) fold: the JAX kernels'
 # tile width, kept so that group shapes match the reference plan.
@@ -225,9 +230,97 @@ def segment_lines(group: MegaGroup, values: Sequence[torch.Tensor]) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 _ADAM_ARGTYPES = [build.PTR] * 10 + [build.SIZE] * 2 + [build.F32] * 5 + [build.PTR]
-_SLIM_ARGTYPES = [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 6 + [build.PTR]
+# The plan's arguments (form, vec, seg, nseg, blocks, the workspace) follow
+# the view's (batch, rows, cols, axis).
+PLAN_ARGTYPES = [build.INT] * 2 + [build.SIZE] * 3 + [build.PTR]
+_SLIM_ARGTYPES = [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYPES + [build.F32] * 6 + [build.PTR]
 _MAX_GRID_Y = 65535
 _MAX_GRID_X = 2**31 - 1
+
+# The split walk of B1 and B4 (csrc/mega_slim.cu, which matches): 256-thread
+# blocks; pieces of 64 KB to 256 KB of the 16 B an element moves (g, m read,
+# u, m' written); the axis-0 ROWS form's 32-column strips (kStrip).
+SLIM_SEG_MIN = 4096
+SLIM_SEG_MAX = 16384
+STRIP = 32
+FORM_ROWS, FORM_SPLIT, FORM_MAJOR = 0, 1, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SlimPlan:
+    """The grid of one B1 or B4 call on a (B, R, C) view (``SplitPlan``'s
+    shape, with the axis, since the ROWS form serves both). FORM_ROWS: one
+    block per axis-1 line, or per STRIP columns of an axis-0 batch slice
+    (``nseg == 1``, one launch). FORM_SPLIT: block b takes segment b % nseg
+    (``seg`` elements, the last one shorter) of axis-1 line b // nseg.
+    FORM_MAJOR: block b takes row chunk b % nseg (``seg`` rows) of column
+    tile b // nseg (TILE_VEC or TILE_SCALAR columns). SPLIT and MAJOR run
+    two launches over the same ``blocks`` pieces (pass 2 in reverse block
+    order) and need a (planes, lines * nseg) f64 workspace."""
+    form: int
+    vec: bool        # four elements a load (aligned view, inner size a multiple of 4)
+    axis: int
+    batch: int
+    rows: int
+    cols: int
+    seg: int
+    nseg: int
+    blocks: int
+
+    @property
+    def lines(self) -> int:
+        return self.batch * (self.rows if self.axis == 1 else self.cols)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_slim(batch: int, rows: int, cols: int, axis: int, *, sms: int, aligned: bool) -> SlimPlan:
+    """The grid of B1 and B4 on a (batch, rows, cols) view reduced along
+    ``axis`` on a card with ``sms`` SMs; ``aligned``: g, m and the outputs
+    start where four-element loads may. Pieces are SLIM_SEG_MIN to
+    SLIM_SEG_MAX elements, sized for about WAVES blocks per SM. An axis-1
+    line that fits in one piece keeps the ROWS form; a longer one is cut
+    into 1024-aligned segments (SPLIT). On axis 0 the ROWS form's strips
+    stay where they number WAVES a SM or where cutting the rows into chunks
+    of a piece's bytes would give no more blocks; otherwise 128-column
+    (32 without four-element loads) tiles take row chunks (MAJOR). Pure
+    integer arithmetic: no CUDA call (and cached, as the wrappers ask for
+    every launch)."""
+    if min(batch, rows, cols) < 1 or axis not in (0, 1) or sms < 1:
+        raise ValueError(f"plan_slim: want a non-empty (B, R, C), axis 0|1 and sms >= 1, got "
+                         f"{(batch, rows, cols)}, axis {axis}, sms {sms}")
+    vec = aligned and cols % 4 == 0
+    piece = min(max(_cdiv(batch * rows * cols, WAVES * sms), SLIM_SEG_MIN), SLIM_SEG_MAX)
+    if axis == 1:
+        seg, nseg = _cut(cols, piece, SEG_QUANTUM)
+        if nseg == 1:
+            return SlimPlan(FORM_ROWS, vec, 1, batch, rows, cols, cols, 1, batch * rows)
+        return SlimPlan(FORM_SPLIT, vec, 1, batch, rows, cols, seg, nseg, batch * rows * nseg)
+    strips = batch * _cdiv(cols, STRIP)
+    tile = TILE_VEC if vec else TILE_SCALAR
+    seg, nseg = _cut(rows, max(piece // tile, 1), WARPS)
+    blocks = batch * _cdiv(cols, tile) * nseg
+    if strips >= WAVES * sms or blocks <= strips:
+        return SlimPlan(FORM_ROWS, vec, 0, batch, rows, cols, rows, 1, strips)
+    return SlimPlan(FORM_MAJOR, vec, 0, batch, rows, cols, seg, nseg, blocks)
+
+
+def slim_walk(kernel: str, g: torch.Tensor, m: torch.Tensor, axis: int, *, with_snr: bool, with_health: bool):
+    """The plan's arguments for a B1/B4 launch on the card, after the
+    view's: (form, vec, seg, nseg, blocks, workspace pointer), and the f64
+    workspace of split views' shares (g^2, then s1c and s2c, then nf and ss
+    a piece; None for ROWS), which the caller holds until it has launched.
+    u and m' are fresh, so only g and m decide the alignment (16 B; 8 B for
+    bf16 g)."""
+    check_slim_grid(kernel, g, axis)
+    b, r, c = g.shape
+    aligned = g.data_ptr() % (4 * g.element_size()) == 0 and m.data_ptr() % 16 == 0
+    plan = plan_slim(b, r, c, axis, sms=build.sm_count(g.device), aligned=aligned)
+    if plan.blocks > _MAX_GRID_X:
+        raise ValueError(f"{kernel}: shape {tuple(g.shape)} exceeds the launch grid")
+    planes = 1 + 2 * with_snr + 2 * with_health
+    work = (torch.empty((planes, plan.lines * plan.nseg), dtype=torch.float64, device=g.device)
+            if plan.nseg > 1 else None)
+    return (plan.form, int(plan.vec), plan.seg, plan.nseg, plan.blocks, build.ptr(work)), work
 
 
 def line_health(g: torch.Tensor, red: int):
@@ -329,7 +422,7 @@ def mega_slim_update_batched(g, m, v_line, bc1, bc2, *, axis: int, b1=0.9, b2=0.
     if device.type == "cpu":
         return mega_slim_update_batched_plain(g, m, v_line, bc1, bc2, axis=axis, b1=b1, b2=b2, eps=eps,
                                               with_snr=with_snr, with_health=with_health)
-    check_slim_grid("mega_slim_update_batched", g, axis)
+    walk, work = slim_walk("mega_slim_update_batched", g, m, axis, with_snr=with_snr, with_health=with_health)
     b, r, c = g.shape
     u, m_out = torch.empty_like(g), torch.empty_like(g)
     v_out = torch.empty_like(v_line)
@@ -339,7 +432,7 @@ def mega_slim_update_batched(g, m, v_line, bc1, bc2, *, axis: int, b1=0.9, b2=0.
     fn = build.entry("repro_mega_slim_update", _SLIM_ARGTYPES)
     build.launch("mega_slim_update_batched", fn, device,
                  *(t.data_ptr() for t in (g, m, v_line, bc1, bc2, u, m_out, v_out)),
-                 *map(build.ptr, snr + health), b, r, c, axis, 1.0 / n_red, b1, 1.0 - b1, b2, 1.0 - b2, eps)
+                 *map(build.ptr, snr + health), b, r, c, axis, *walk, 1.0 / n_red, b1, 1.0 - b1, b2, 1.0 - b2, eps)
     mega_slim_update_batched.launches += 1
     return (u, m_out, v_out) + (snr if with_snr else ()) + (health if with_health else ())
 

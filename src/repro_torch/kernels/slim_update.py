@@ -8,9 +8,11 @@ Kernel: ``csrc/mega_slim.cu`` (``repro_slim_precond``, the per-leaf
 instantiation of the megaplan group kernel with scalar bias corrections and
 f32 or bf16 g) replaces the Pallas kernel at
 ``repro/kernels/slim_update.py:154`` (body ``_slim_precond_kernel`` :132,
-``pallas_call`` :207). It is bound by bytes: 16 B per f32 element (12 B for
-bf16 g) plus 8 B per line, 8 B more per line with ``with_snr``. Its (2,)
-health accumulator is the per-line health outputs reduced by a second small
+``pallas_call`` :207). It is bound by bytes: 16 B per f32 element (14 B for
+bf16 g) plus 8 B per line, 8 B more per line with ``with_snr``. It takes B1's
+walk on the grid of :func:`repro_torch.kernels.megaplan.plan_slim` (long
+lines and thin column strips split across the SMs). Its (2,) health
+accumulator is the per-line health outputs reduced by one more small
 launch, not the TPU kernel's in-order grid accumulation
 (``slim_update.py:118-129``).
 
@@ -52,11 +54,11 @@ import torch
 
 from . import build
 from .fused_adam import G_DTYPES, P_DTYPES, bias_corrections, health_terms, host_bias_corrections, param_step
-from .megaplan import check_slim_grid, mega_slim_update_batched_plain, slim_line_shape
+from .megaplan import PLAN_ARGTYPES, check_slim_grid, mega_slim_update_batched_plain, slim_line_shape, slim_walk
 from .snr_stats import centered_line_stats
 
-_ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 6
-             + [build.PTR])
+_ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYPES
+             + [build.F32] * 6 + [build.PTR])
 
 
 def slim_precond_batched_plain(g, m, v_line, bc1, bc2, *, axis, b1, b2, eps, with_snr: bool = False,
@@ -93,7 +95,7 @@ def slim_precond_batched(g, m, v_line, *, axis: int, b1: float = 0.9, b2: float 
     if device.type == "cpu":
         return slim_precond_batched_plain(g, m, v_line, bc1, bc2, axis=axis, b1=b1, b2=b2, eps=eps,
                                           with_snr=with_snr, with_health=with_health)
-    check_slim_grid("slim_precond_batched", g, axis)
+    walk, work = slim_walk("slim_precond_batched", g, m, axis, with_snr=with_snr, with_health=with_health)
     b, r, c = g.shape
     u = torch.empty(g.shape, dtype=torch.float32, device=device)
     m_out = torch.empty_like(u)
@@ -106,7 +108,7 @@ def slim_precond_batched(g, m, v_line, *, axis: int, b1: float = 0.9, b2: float 
     build.launch("slim_precond_batched", fn, device, g.data_ptr(), int(g.dtype == torch.bfloat16),
                  *(t.data_ptr() for t in (m, v_line, bc1, bc2, u, m_out, v_out)),
                  *map(build.ptr, (*snr, *lines, health)),
-                 b, r, c, axis, 1.0 / n_red, b1, 1.0 - b1, b2, 1.0 - b2, eps)
+                 b, r, c, axis, *walk, 1.0 / n_red, b1, 1.0 - b1, b2, 1.0 - b2, eps)
     slim_precond_batched.launches += 1
     return (u, m_out, v_out) + (snr if with_snr else ()) + ((health,) if with_health else ())
 

@@ -18,8 +18,8 @@ p' may round one bf16 step apart where the f32 values straddle a rounding
 boundary (2^-8 of the largest |p|). The selective scan's y and final state
 compose chunks of the sequence and take exp2 of dt*a*log2(e), where the
 twin steps in order with exp (1e-5); both forms rerun bit for bit, as do
-the split walks of the line sums. B1's line sums of g^2 on long
-heavy-tailed lines hold to an f64 reference at 1e-6.
+the split walks of the line sums and of B1 and B4. B1's and B4's line sums
+of g^2 on long heavy-tailed lines hold to an f64 reference at 1e-6.
 """
 import dataclasses
 
@@ -74,23 +74,32 @@ def test_mega_adam_update(dev, rows, cols):
         _close(a, b, ELEMENTWISE)
 
 
-@pytest.mark.parametrize("b,r,c,axis", [(1, 1, 1 << 24, 1), (1, 1 << 20, 32, 0)])
+@pytest.mark.parametrize("b,r,c,axis", [(1, 1, 1 << 24, 1), (1, 1 << 20, 32, 0), (1, 3, 1 << 22, 1),
+                                        (2, 1 << 18, 128, 0)])
 def test_mega_slim_long_heavy_tailed_lines(dev, b, r, c, axis):
-    """Lines of 16 M (minor) and 1 M (major) elements whose first 1 % are
-    1.0 and the rest 1e-3: each thread's running sum reaches ~650 before the
-    small squares come, each below half an f32 ulp of it. The line sums of
-    g^2 (B1's v', B12's partial sums) keep them, as an f64 reference does."""
+    """Lines of 16 M and 4 M (minor) and 1 M and 256 K (major) elements
+    whose first 1 % are 1.0 and the rest 1e-3: each thread's running sum
+    reaches ~650 before the small squares come, each below half an f32 ulp
+    of it. The line sums of g^2 (B1's and B4's v' on their split walk, B12's
+    partial sums) keep them, as an f64 reference does."""
     red = 2 if axis == 1 else 1
     line = (b, r, 1) if axis == 1 else (b, 1, c)
+    plan = megaplan.plan_slim(b, r, c, axis, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+                              aligned=True)
+    assert plan.form == (megaplan.FORM_SPLIT if axis == 1 else megaplan.FORM_MAJOR) and plan.nseg > 1
     g = torch.full((b, r, c), 1e-3, device=dev)
     g.narrow(red, 0, g.shape[red] // 100).fill_(1.0)
     m = torch.zeros_like(g)
     ones = torch.ones(line, device=dev)
     want = (g.double() ** 2).sum(dim=red, keepdim=True)
     got = megaplan.mega_slim_update_batched(g, m, torch.zeros(line, device=dev), ones, ones, axis=axis, **KW)
+    per_leaf = slim_update.slim_precond_batched(g, m, torch.zeros(line, device=dev), axis=axis, with_health=True,
+                                                **KW)
     part = megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9)[1]
     torch.cuda.synchronize()
     _close(got[2], (1 - KW["b2"]) * want / g.shape[red], ELEMENTWISE)
+    _close(per_leaf[2], (1 - KW["b2"]) * want / g.shape[red], ELEMENTWISE)
+    _close(per_leaf[3][1:], want.sum().reshape(1), ELEMENTWISE)
     _close(part.reshape(line), want, ELEMENTWISE)
 
 
@@ -312,6 +321,147 @@ def test_slim_precond_2d_wrappers(dev):
                   (slim_update.slim_precond_major, 0.01 * torch.rand(1, 96, device=dev))):
         got = fn(g, m, v, with_snr=True, with_health=True, **KW)
         assert [tuple(o.shape) for o in got] == [(40, 96), (40, 96)] + [tuple(v.shape)] * 3 + [(2,)]
+
+
+# B1 and B4 on their split walk (megaplan.plan_slim on the H100's 132 SMs):
+# SPLIT lines with float4 and 4-byte loads, MAJOR column tiles of 128 and 32
+# columns, B > 1, and AdaLayer's and ResNet-18's shapes at full size.
+SLIM_SPLIT_SHAPES = [(1, 2, 40000, 1), (2, 3, 30001, 1), (1, 1, 786432, 1), (1, 2000, 256, 0), (1, 1000, 130, 0),
+                     (3, 600, 100, 0), (1, 4608, 1536, 0), (12, 3072, 768, 0)]
+
+
+def _split_plan(dev, b, r, c, axis):
+    plan = megaplan.plan_slim(b, r, c, axis, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+                              aligned=True)
+    assert plan.form == (megaplan.FORM_SPLIT if axis == 1 else megaplan.FORM_MAJOR) and plan.nseg > 1, plan
+    return plan
+
+
+def _hold_slim(got, want, n_bad, with_snr, with_health, per_leaf=False):
+    """B1's or B4's outputs against the twin's: m' elementwise, the line
+    values and u at LINE_SUMS, non-finite counts equal."""
+    assert len(got) == len(want)
+    _close_finite(got[1], want[1], ELEMENTWISE)
+    for a, w in zip(got[:3] + got[3:3 + 2 * with_snr], want[:3] + want[3:3 + 2 * with_snr]):
+        _close_finite(a, w, LINE_SUMS)
+    if with_health and per_leaf:
+        assert float(got[-1][0]) == float(want[-1][0]) == n_bad
+        _close(got[-1][1:], want[-1][1:], LINE_SUMS)
+    elif with_health:
+        assert torch.equal(got[-2], want[-2]) and float(got[-2].sum()) == n_bad
+        _close(got[-1], want[-1], LINE_SUMS)
+
+
+@pytest.mark.parametrize("b,r,c,axis", SLIM_SPLIT_SHAPES)
+@pytest.mark.parametrize("with_snr,with_health", [(False, False), (True, False), (False, True), (True, True)])
+def test_mega_slim_split_forms(dev, b, r, c, axis, with_snr, with_health):
+    """B1's SPLIT and MAJOR forms against the twin, with each flag, and two
+    launches on one input bit-identical (fixed-order combine)."""
+    _split_plan(dev, b, r, c, axis)
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    inputs = _inputs(dev, (b, r, c), line, b * r * c)
+    n_bad = 13 if with_health else 0
+    _poison(inputs[0], n_bad, c)
+    flags = dict(with_snr=with_snr, with_health=with_health)
+    before = megaplan.mega_slim_update_batched.launches
+    got = megaplan.mega_slim_update_batched(*inputs, axis=axis, **flags, **KW)
+    again = megaplan.mega_slim_update_batched(*inputs, axis=axis, **flags, **KW)
+    want = megaplan.mega_slim_update_batched_plain(*inputs, axis=axis, **flags, **KW)
+    torch.cuda.synchronize()
+    assert megaplan.mega_slim_update_batched.launches == before + 2
+    _hold_slim(got, want, n_bad, with_snr, with_health)
+    for a, a2 in zip(got, again):
+        assert torch.equal(a.nan_to_num(), a2.nan_to_num()) and torch.equal(a.isnan(), a2.isnan())
+
+
+@pytest.mark.parametrize("b,r,c,axis", SLIM_SPLIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_snr,with_health", [(False, False), (True, True)])
+def test_slim_precond_split_forms(dev, b, r, c, axis, dtype, with_snr, with_health):
+    """B4 on the same walk, f32 and bf16 g (four bf16 a load), its (2,)
+    health reduced from the split lines; two launches bit-identical."""
+    _split_plan(dev, b, r, c, axis)
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, v, _, _ = _inputs(dev, (b, r, c), line, b + r + c)
+    n_bad = 9 if with_health else 0
+    g = _poison(g, n_bad, 2).to(dtype)
+    count = torch.tensor(3, dtype=torch.int32, device=dev)
+    flags = dict(with_snr=with_snr, with_health=with_health)
+    before = slim_update.slim_precond_batched.launches
+    got = slim_update.slim_precond_batched(g, m, v, axis=axis, count=count, **flags, **KW)
+    again = slim_update.slim_precond_batched(g, m, v, axis=axis, count=count, **flags, **KW)
+    bc1, bc2 = fused_adam.bias_corrections(0.9, 0.95, count)
+    want = slim_update.slim_precond_batched_plain(g, m, v, bc1, bc2, axis=axis, **flags, **KW)
+    torch.cuda.synchronize()
+    assert slim_update.slim_precond_batched.launches == before + 2
+    _hold_slim(got, want, n_bad, with_snr, with_health, per_leaf=True)
+    for a, a2 in zip(got, again):
+        assert torch.equal(a.nan_to_num(), a2.nan_to_num()) and torch.equal(a.isnan(), a2.isnan())
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 2, 40000, 1), (1, 2000, 256, 0)])
+@pytest.mark.parametrize("per_leaf", [False, True])
+def test_slim_split_unaligned(dev, b, r, c, axis, per_leaf):
+    """g 4 bytes off a 16-byte boundary takes the split walk's 4-byte loads."""
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, v, bc1, bc2 = _inputs(dev, (b, r, c), line, r)
+    g = _offset_view(g)
+    plan = megaplan.plan_slim(b, r, c, axis, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+                              aligned=False)
+    assert plan.nseg > 1 and not plan.vec
+    if per_leaf:
+        got = slim_update.slim_precond_batched(g, m, v, axis=axis, count=2, **KW)
+        c1, c2 = fused_adam.host_bias_corrections(0.9, 0.95, 2)
+        want = megaplan.mega_slim_update_batched_plain(g, m, v, c1, c2, axis=axis, **KW)
+    else:
+        got = megaplan.mega_slim_update_batched(g, m, v, bc1, bc2, axis=axis, **KW)
+        want = megaplan.mega_slim_update_batched_plain(g, m, v, bc1, bc2, axis=axis, **KW)
+    torch.cuda.synchronize()
+    _hold_slim(got, want, 0, False, False)
+
+
+@pytest.mark.parametrize("per_leaf", [False, True])
+def test_slim_embedding_line(dev, per_leaf):
+    """AdaLayer's embedding as one 38,633,472-element line (SPLIT, 2358
+    segments on an H100): B1 and B4 against the twin, and bit-equal reruns."""
+    b, r, c, axis = 1, 1, 50304 * 768, 1
+    assert _split_plan(dev, b, r, c, axis).nseg >= 4 * 132
+    g, m, v, bc1, bc2 = _inputs(dev, (b, r, c), (b, r, 1), 7)
+    g = 1e-3 * g
+    if per_leaf:
+        run = lambda: slim_update.slim_precond_batched(g, m, v, axis=axis, count=5, **KW)   # noqa: E731
+        c1, c2 = fused_adam.host_bias_corrections(0.9, 0.95, 5)
+        want = megaplan.mega_slim_update_batched_plain(g, m, v, c1, c2, axis=axis, **KW)
+    else:
+        run = lambda: megaplan.mega_slim_update_batched(g, m, v, bc1, bc2, axis=axis, **KW)  # noqa: E731
+        want = megaplan.mega_slim_update_batched_plain(g, m, v, bc1, bc2, axis=axis, **KW)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    _hold_slim(got, want, 0, False, False)
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+
+
+@pytest.mark.parametrize("b,r,c,axis,names", [
+    (1, 2, 40000, 1, ("slim_split_sum", "slim_split_apply")),
+    (1, 2000, 256, 0, ("slim_major_sum", "slim_major_apply")),
+    (1, 300, 768, 1, ("slim_minor_kernel",)),
+    (12, 768, 1536, 0, ("slim_major_kernel",)),
+])
+def test_slim_forms_run_their_device_kernels(dev, b, r, c, axis, names):
+    """A split view runs pass 1 then pass 2 (two device kernels); Table 3's
+    views keep the ROWS form's one kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    inputs = _inputs(dev, (b, r, c), line, 3)
+    megaplan.mega_slim_update_batched(*inputs, axis=axis, **KW)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        megaplan.mega_slim_update_batched(*inputs, axis=axis, **KW)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == len(names) and all(n in k for n, k in zip(names, kernels)), kernels
 
 
 # The sharded psum kernels at the local shard shapes of gpt_small on a
