@@ -93,7 +93,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    global batch 8 x 1024 split 2 rows per rank. 6a: B9-B13 against their
    twins on each rank's local shards of the Table-3 plan's 7 psum leaves
    (B10 base, ``with_snr``, ``with_health``; B11 ek and owner, two runs
-   bit-equal; B12 and B13 on the psum groups; B9 on the 21 SNR candidates,
+   bit-equal; B12 and B13 on the psum groups, B12 rerun bit for bit with
+   each flag set and its ``plan_slim`` form logged; B9 on the 21 SNR candidates,
    whose lines the mesh splits), non-finite counts exact, then each kernel
    timed on rank 0 alone (B9's total over its 21 candidates against
    ``torch.var_mean``'s; B11's twin forms its bias corrections from the
@@ -135,7 +136,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 p, ``snr_stats`` (B8) over the Adam v lines, with the launch
    counters zeroed before and read after; each against its plain twin, p'
    against ``adam_precond`` / ``slim_precond_batched`` followed by the same
-   step, and timed beside its bound and ``AdamW(fused=True)`` (B6) or
+   step (B7 on each leaf rerun bit for bit, its ``plan_slim`` form logged),
+   and timed beside its bound and ``AdamW(fused=True)`` (B6) or
    ``torch.var_mean`` (B8); B8 also per form of its split walk, the
    embedding's v as one line (SPLIT) and along its rows (MAJOR) beside the
    main path's WARP views.
@@ -144,9 +146,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    AdaLayer, AdaLayer-LN-TL and Adam-mini v1/v2 plans of full-width
    gpt_small, timed as in phase 2 (B4 beside it), with the time of
    AdaLayer's 38,633,472-element embedding line and each plan's total;
-   then ``slim_update_batched`` (B7), ``slim_partial_stats_batched`` (B10)
-   and ``mega_slim_partial_stats_batched`` (B12), which keep one block a
-   line, held and timed on that line. 9b: the 12 optimizers of
+   then ``slim_update_batched`` (B7) and ``mega_slim_partial_stats_batched``
+   (B12) on their split walk, held against their twins, rerun bit for bit
+   and timed beside bound, floor and twin on that line (SPLIT), on a rank's
+   9,658,368-element embedding shard line (SPLIT) and on ResNet-18's (1,
+   4608, 1536) axis-0 group (MAJOR), and ``slim_partial_stats_batched``
+   (B10), which keeps one block a line, on the embedding line. 9b: the 12 optimizers of
    ``repro_torch.train.trainer.OPTIMIZERS`` through the Trainer on
    full-width gpt_small (batch 8 x 1024, bf16 activations, 3 steps each,
    launch counters zeroed before and read after each run: B1 and B2 per
@@ -1176,7 +1181,7 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
     lines the mesh splits), gradients seeded with NaN/Inf for the health
     outputs; then, on rank 0 alone while the others wait, each kernel's time
     over the shards one step (or one SNR measurement) launches it on."""
-    from repro_torch.kernels import megaplan, slim_update, snr_stats
+    from repro_torch.kernels import build, megaplan, slim_update, snr_stats
     from repro_torch.kernels.fused_adam import bias_corrections
     from repro_torch.kernels.ops import canon_apply, canon_nd
     from repro_torch.sharding.shardspec import global_shape, owning_axes
@@ -1267,6 +1272,14 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
             hold("B12", f"{tag} {flags}", got, want, tols)
             if flags.get("with_health"):
                 health_counts("B12", tag, got[-2], want[-2], 5)
+            again = megaplan.mega_slim_partial_stats_batched(gg, m3, axis=grp.axis, b1=0.9, **flags)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, again)):
+                raise AssertionError(f"B12 {tag} {flags}: two runs differ")
+        walk = megaplan.plan_slim(*g3.shape, grp.axis, sms=build.sm_count(g3.device), aligned=True)
+        walk_form = f"{('ROWS', 'SPLIT', 'MAJOR')[walk.form]}" + (f", nseg {walk.nseg}, {walk.blocks} blocks"
+                                                                   if walk.nseg > 1 else "")
+        out["B12"].setdefault("forms", {})[tag] = walk_form
+        log(f"  [{mesh.rank}] B12 {tag} [{walk_form}]: three flag sets rerun bit for bit")
         line = got[1].shape
         lines = math.prod(line)
         v = 1e-6 * torch.rand(line, device="cuda") + 1e-8
@@ -1933,7 +1946,7 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
     (B8) on full-width gpt_small's leaves and opt_speed's 4096 x 8192
     tensor. Returns (report, the three entries of the kernels line)."""
     from repro_torch import kernels
-    from repro_torch.kernels import fused_adam as fa, ops, slim_update as su, snr_stats as ss
+    from repro_torch.kernels import build, fused_adam as fa, megaplan, ops, slim_update as su, snr_stats as ss
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -1999,6 +2012,7 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
             raise AssertionError(f"fused_adam {name}: p' differs from adam_precond followed by the step")
     log(f"  fused_adam: {len(leaves)} leaves against the twin and adam_precond + step, worst abs err "
         f"{errs['fused_adam']:.3e} (tol {TOL_ELEMENTWISE:.0e} relative)  ok")
+    b7_forms = {}
     for name, (dims, plan, v_red) in slim.items():
         cn = plan.cn
         p3, g3, m3 = (ops.canon_apply(t, cn).contiguous() for t in leaves[name][:3])
@@ -2006,6 +2020,11 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
         if p3.ndim == 2:
             p3, g3, m3, v3 = p3[None], g3[None], m3[None], v3[None]
         got = su.slim_update_batched(p3, g3, m3, v3, axis=cn.axis, **kw)
+        same_tensors(f"slim_update_batched {name}: two runs", dict(enumerate(got)),
+                     dict(enumerate(su.slim_update_batched(p3, g3, m3, v3, axis=cn.axis, **kw))))
+        walk = megaplan.plan_slim(*p3.shape, cn.axis, sms=build.sm_count(dev), aligned=True)
+        b7_forms[name] = f"{tuple(p3.shape)} axis {cn.axis}: {('ROWS', 'SPLIT', 'MAJOR')[walk.form]}" + (
+            f", nseg {walk.nseg}, {walk.blocks} blocks" if walk.nseg > 1 else "")
         twin = su.slim_update_batched_plain(p3, g3, m3, v3, axis=cn.axis, lr=1e-3, wd=0.1, bc1=bc1, bc2=bc2, **hyper)
         for what, a, b, tol in zip(("p'", "m'", "v'"), got, twin, (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE)):
             errs["slim_update_batched"] = max(errs["slim_update_batched"], max_err(a, b)[0])
@@ -2021,7 +2040,8 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
             if not torch.equal(a, b):
                 raise AssertionError(f"slim_update_nd {name}: differs from B7 on its canonical view")
     log(f"  slim_update_batched: {len(slim)} Table-3 leaves against the twin and slim_precond_batched + step, "
-        f"worst abs err {errs['slim_update_batched']:.3e}  ok")
+        f"worst abs err {errs['slim_update_batched']:.3e}, each rerun bit for bit  ok; forms "
+        + "; ".join(f"{k} {v}" for k, v in b7_forms.items()))
     f1 = fa.host_bias_corrections(0.9, 0.95, 1)
     for dt, (p, g) in full.items():
         tag = str(dt).split(".")[-1]
@@ -2139,7 +2159,8 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
         f"{snr_sum['ms']:.4f} / {snr_sum['plain_ms']:.4f} / {snr_sum['bound_ms']:.4f} ms, var_mean "
         f"{snr_sum['library_ms']:.4f} ms ({smi})")
     report = dict(launches=counts, errs=errs, fused_adam=dict(adam_sum, library_ms=adam_lib), slim=slim_sum,
-                  snr=snr_sum, snr_by_form=snr_by_form, full=full_t)
+                  slim_forms=b7_forms, slim_leaves=dict(zip(slim, slim_t)), snr=snr_sum, snr_by_form=snr_by_form,
+                  full=full_t)
     src = "src/repro_torch/kernels/csrc/"
     entries = [
         {"name": "fused_adam", "route": "cuda", "source": src + "adam_precond.cu",
@@ -2183,49 +2204,72 @@ def state_bytes(opt_state) -> int:
     return sum(t.numel() * t.element_size() for _, t in named_leaves(opt_state))
 
 
-def long_line_baseline(torch, smi) -> dict:
-    """B7, B10 and B12, which keep the ROWS walk (one block a line), on
-    AdaLayer's 38,633,472-element embedding line: each against its twin,
-    and timed beside its bound."""
-    from repro_torch.kernels import megaplan, slim_update
+def long_lines(torch, smi) -> dict:
+    """B7 and B12 on their split walk, and B10 on the ROWS walk it keeps
+    (one block a line), on AdaLayer's 38,633,472-element embedding line; B7
+    and B12 also on a rank's 9,658,368-element embedding shard line of the
+    (data=2, model=2) mesh (25,152 x 384) and on ResNet-18's (1, 4608, 1536)
+    axis-0 group (MAJOR). Each against its twin, B7 and B12 rerun bit for
+    bit, each form logged and timed beside its bound (each byte once), its
+    design floor (B7 reads g twice where a split view's g outgrows the L2)
+    and its twin."""
+    from repro_torch.kernels import build, megaplan, slim_update
     from repro_torch.kernels.fused_adam import host_bias_corrections
 
     timer = Timer(torch)
     rate = mem_rate(torch.cuda.get_device_name(0))
     dev = torch.device("cuda")
+    sms = build.sm_count(dev)
     gen = torch.Generator(device=dev).manual_seed(21)
-    shape, line = (1, 1, 50304 * 768), (1, 1, 1)
-    n = math.prod(shape)
-    g = 1e-3 * torch.randn(shape, generator=gen, device=dev)
-    m = 1e-4 * torch.randn(shape, generator=gen, device=dev)
-    p = torch.randn(shape, generator=gen, device=dev)
-    v = 1e-6 * torch.rand(line, generator=gen, device=dev)
     c1, c2 = host_bias_corrections(0.9, 0.95, 3)
     step = dict(lr=1e-3, wd=0.1, b1=0.9, b2=0.95, eps=1e-8)
-    cases = {
-        "slim_update_batched": (
-            lambda: slim_update.slim_update_batched(p, g, m, v, axis=1, count=3, **step),
-            lambda: slim_update.slim_update_batched_plain(p, g, m, v, axis=1, bc1=c1, bc2=c2, **step),
-            (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE), 20 * n + 8),
-        "slim_partial_stats_batched": (
-            lambda: slim_update.slim_partial_stats_batched(g, m, axis=1, b1=0.9),
-            lambda: slim_update.slim_partial_stats_batched_plain(g, m, axis=1, b1=0.9),
-            (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4),
-        "mega_slim_partial_stats_batched": (
-            lambda: megaplan.mega_slim_partial_stats_batched(g, m, axis=1, b1=0.9),
-            lambda: megaplan.mega_slim_partial_stats_batched_plain(g, m, axis=1, b1=0.9),
-            (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4),
-    }
+    views = {"embedding line": ((1, 1, 50304 * 768), 1, megaplan.FORM_SPLIT),
+             "shard line": ((1, 1, 25152 * 384), 1, megaplan.FORM_SPLIT),
+             "resnet18 (1, 4608, 1536)": ((1, 4608, 1536), 0, megaplan.FORM_MAJOR)}
     out = {}
-    for name, (run, plain, tols, nbytes) in cases.items():
-        err = max(check(f"{name} {shape} axis 1 out {i}", a, w, tol)
-                  for i, (a, w, tol) in enumerate(zip(run(), plain(), tols)))
-        ms, plain_ms = timer(run, reps=5), timer(plain, reps=5)
-        bound = nbytes / rate * 1e3
-        log(f"  {name} on the embedding line (one block, the walk it keeps): kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({smi})")
-        out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound)
-    del g, m, p, v, timer
+    for label, (shape, axis, want_form) in views.items():
+        line = (shape[0], shape[1], 1) if axis == 1 else (shape[0], 1, shape[2])
+        n, lines = math.prod(shape), math.prod(line)
+        g = 1e-3 * torch.randn(shape, generator=gen, device=dev)
+        m = 1e-4 * torch.randn(shape, generator=gen, device=dev)
+        p = torch.randn(shape, generator=gen, device=dev)
+        v = 1e-6 * torch.rand(line, generator=gen, device=dev)
+        plan = megaplan.plan_slim(*shape, axis, sms=sms, aligned=True)
+        if plan.form != want_form:
+            raise AssertionError(f"{label} {shape} axis {axis}: planned form {plan.form}, want {want_form}")
+        form = f"{('ROWS', 'SPLIT', 'MAJOR')[plan.form]}, nseg {plan.nseg}, {plan.blocks} blocks"
+        reread = 4 * n if plan.nseg > 1 and 4 * n > L2_BYTES else 0   # B7's pass 2 reads g again
+        cases = {   # name: (run, plain, tolerances, bound bytes, floor bytes, form)
+            "slim_update_batched": (
+                lambda: slim_update.slim_update_batched(p, g, m, v, axis=axis, count=3, **step),
+                lambda: slim_update.slim_update_batched_plain(p, g, m, v, axis=axis, bc1=c1, bc2=c2, **step),
+                (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE), 20 * n + 8 * lines, 20 * n + 8 * lines + reread, form),
+            "mega_slim_partial_stats_batched": (
+                lambda: megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9),
+                lambda: megaplan.mega_slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9),
+                (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4 * lines, 12 * n + 4 * lines, form),
+        }
+        if label == "embedding line":   # B10, the next redesign's baseline
+            cases["slim_partial_stats_batched"] = (
+                lambda: slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9),
+                lambda: slim_update.slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9),
+                (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4 * lines, 12 * n + 4 * lines, "ROWS, one block a line")
+        for name, (run, plain, tols, nbytes, floor_bytes, walk) in cases.items():
+            got = run()
+            err = max(check(f"{name} {label} {shape} axis {axis} out {i}", a, w, tol)
+                      for i, (a, w, tol) in enumerate(zip(got, plain(), tols)))
+            if name != "slim_partial_stats_batched":
+                same_tensors(f"{name} {label}: two runs", dict(enumerate(got)), dict(enumerate(run())))
+            del got
+            ms, plain_ms = timer(run, reps=5), timer(plain, reps=5)
+            bound, floor = nbytes / rate * 1e3, floor_bytes / rate * 1e3
+            log(f"  {name} on the {label} {shape} axis {axis} [{walk}]: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"bound {bound:.4f} ms ({bound / ms:.1%})  floor {floor:.4f} ms ({floor / ms:.1%})"
+                + ("" if name == "slim_partial_stats_batched" else "; reruns bit for bit") + f" ({smi})")
+            out[f"{name} {label}"] = dict(form=walk, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                          floor_ms=floor)
+        del g, m, p, v
+    del timer
     torch.cuda.empty_cache()
     return out
 
@@ -2316,7 +2360,7 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
         log(f"  {name}: B1 over its {len(slim)} slim groups {t['ms']:.4f} ms a step (bound {t['bound_ms']:.4f}, "
             f"floor {t['floor_ms']:.4f}, plain {t['plain_ms']:.4f}), B4 on the same views {t['b4_ms']:.4f} ms ({smi})")
     report["plan_totals"] = totals
-    report["long_line"] = long_line_baseline(torch, smi)
+    report["long_line"] = long_lines(torch, smi)
 
     # -- 9b. the 12 optimizers through the Trainer -------------------------------------
     log("[9b] the 12 optimizers on full-width gpt_small, batch 8 x 1024, bf16 activations, backend='fused', "

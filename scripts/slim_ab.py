@@ -1,4 +1,5 @@
-"""Time B1 (``mega_slim_update_batched``) of this tree beside an earlier
+"""Time B1 (``mega_slim_update_batched``), B7 (``slim_update_batched``) and
+B12 (``mega_slim_partial_stats_batched``) of this tree beside an earlier
 commit's, in turns on one card.
 
 The earlier commit's ``mega_slim.cu`` and ``common.cuh`` are taken from git,
@@ -12,17 +13,27 @@ which writes them under ``build/slim_ab/<rev>/``. On the card,
 
 builds them with nvcc into a library of their own and times the earlier
 kernel ("parent") and this tree's wrapper ("change") as parent / change /
-change / parent on every slim group of chip_smoke.py's plans: full-width
-gpt_small under Table 3 and the four baseline rule sets (AdaLayer,
-AdaLayer-LN-TL, Adam-mini v1 and v2; phases 2 and 9a) and ResNet-18 under
-Table 3 (phase 9c), on inputs drawn as chip_smoke's ``hold_group`` draws
-them, without the flags and with both (``with_snr`` and ``with_health``).
-Each time is ``chip_smoke.Timer``'s (median of ``--reps``, L2 flushed, a
-device-side wait first); both versions are held to the plain twin first.
-The earlier entry point is called with the signature it had before the
-plan's arguments (``_parent_argtypes``). It prints the card's
-``nvidia-smi`` line, a line per group and flag set (with this tree's form
-from ``plan_slim``) and one JSON object.
+change / parent:
+- B1 on every slim group of chip_smoke.py's plans: full-width gpt_small
+  under Table 3 and the four baseline rule sets (AdaLayer, AdaLayer-LN-TL,
+  Adam-mini v1 and v2; phases 2 and 9a) and ResNet-18 under Table 3 (phase
+  9c), without the flags and with both (``with_snr`` and ``with_health``);
+- B7 on gpt_small's 7 Table-3 compressed leaves (phase 8's
+  ``slim_update_nd`` views), opt_speed's 4096 x 8192 tensor on both axes,
+  AdaLayer's 38,633,472-element embedding line, a (data=2, model=2) rank's
+  9,658,368-element embedding shard line and ResNet-18's (1, 4608, 1536)
+  axis-0 group (phase 9a), f32 p and g, wd 0.1;
+- B12 on the 3 psum groups of phase 6a (rank-local shapes of gpt_small's
+  Table-3 plan on the (data=2, model=2) mesh) and the same three long views,
+  without the flags and with both.
+Inputs are drawn as chip_smoke's ``hold_group`` draws them. Each time is
+``chip_smoke.Timer``'s (median of ``--reps``, L2 flushed, a device-side wait
+first); both versions are held to the plain twin first. An earlier entry
+point is called with the signature it has: with the plan's arguments
+(from this tree's ``plan_slim``) where its source takes them, else with the
+signature it had before them (``_parent_argtypes``). It prints the card's
+``nvidia-smi`` line, a line per case (with this tree's form from
+``plan_slim``) and one JSON object.
 """
 from __future__ import annotations
 
@@ -39,14 +50,27 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = "src/repro_torch/kernels/csrc"
 FILES = ("mega_slim.cu", "common.cuh")
 KW = dict(b1=0.9, b2=0.95, eps=1e-8)
+STEP = dict(lr=1e-3, wd=0.1, count=3)
 FLAG_SETS = {"base": dict(), "flags": dict(with_snr=True, with_health=True)}
+ENTRIES = {"B1": "repro_mega_slim_update", "B7": "repro_slim_update", "B12": "repro_mega_slim_partial_stats"}
+LONG_VIEWS = {"embedding line": (1, 1, 50304 * 768, 1), "shard line": (1, 1, 25152 * 384, 1),
+              "resnet18 widest": (1, 4608, 1536, 0)}
 
 
-def _parent_argtypes():
-    """``repro_mega_slim_update``'s signature before the plan's arguments."""
-    from repro_torch.kernels import build
+def _argtypes():
+    """This tree's signature of each entry point, and where in it the plan's
+    six arguments start (right after the view's axis)."""
+    from repro_torch.kernels import megaplan, slim_update
 
-    return [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 6 + [build.PTR]
+    return {"B1": (megaplan._SLIM_ARGTYPES, 16), "B7": (slim_update._UPDATE_ARGTYPES, 13),
+            "B12": (megaplan._PARTIAL_ARGTYPES, 13)}
+
+
+def _parent_argtypes(kernel: str, planned: bool):
+    """The earlier entry point's signature: this tree's where it takes the
+    plan's arguments, else this tree's without them."""
+    types, at = _argtypes()[kernel]
+    return types if planned else types[:at] + types[at + 6:]
 
 
 def fetch(rev: str, out: Path) -> None:
@@ -84,11 +108,69 @@ def slim_groups(torch):
     return out
 
 
+def write_views(torch):
+    """{(batch, rows, cols, axis): [labels]}: B7's canonical views of
+    gpt_small's Table-3 compressed leaves, opt_speed's tensor and the long
+    views."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import rules_to_dims, table3_rules
+    from repro_torch.core.labels import flatten_with_names
+    from repro_torch.kernels import ops
+
+    specs = dict(flatten_with_names(get_config("gpt_small").specs()))
+    meta = {k: s.meta() for k, s in specs.items()}
+    dims = rules_to_dims(table3_rules(meta), meta)
+    out = {}
+    for name, s in specs.items():
+        plan = ops.leaf_plan(tuple(s.shape), torch.float32, dims[name])
+        if plan.route == "slim":
+            cn = plan.cn
+            out.setdefault((cn.batch, cn.rows, cn.cols, cn.axis), []).append(f"gpt_small:{name}")
+    for axis in (1, 0):
+        out.setdefault((1, 4096, 8192, axis), []).append("opt_speed")
+    for label, view in LONG_VIEWS.items():
+        out.setdefault(view, []).append(label)
+    return out
+
+
+def psum_views(torch):
+    """{(batch, rows, cols, axis): [labels]}: the psum groups of gpt_small's
+    Table-3 plan on a (data=2, model=2) mesh at a rank's local shapes (phase
+    6a's B12 groups, owner and plain forms apart), and the long views."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import rules_to_dims, table3_rules
+    from repro_torch.core.labels import flatten_with_names
+    from repro_torch.kernels import megaplan
+    from repro_torch.sharding import ShardingContext, param_specs, use_sharding
+    from repro_torch.sharding.shardspec import SpecMesh, plan_sharded_tree
+
+    specs = dict(flatten_with_names(get_config("gpt_small").specs()))
+    meta = {k: s.meta() for k, s in specs.items()}
+    mesh = SpecMesh({"data": 2, "model": 2})
+    with use_sharding(ShardingContext(mesh)):
+        pspecs = param_specs(meta, {k: torch.empty(s.shape, device="meta") for k, s in specs.items()})
+    dims = rules_to_dims(table3_rules(meta), meta)
+    names = list(specs)
+    plans = plan_sharded_tree([tuple(specs[k].shape) for k in names], [torch.float32] * len(names),
+                              [tuple(dims[k]) for k in names], [pspecs[k] for k in names], mesh)
+    items = [(i, pl.local_shape, tuple(1 if d in dims[names[i]] else s for d, s in enumerate(pl.local_shape)),
+              dims[names[i]], pl.cn) for i, pl in enumerate(plans) if pl.regime == "psum"]
+    out = {}
+    for form in ("owner", "plain"):
+        for grp in megaplan.groups_from_plans([it for it in items if bool(plans[it[0]].owner) == (form == "owner")]):
+            out.setdefault((grp.batch, grp.rows, grp.cols, grp.axis), []).append(
+                f"6a {form} {grp.kind}[{len(grp.segments)}]")
+    for label, view in LONG_VIEWS.items():
+        out.setdefault(view, []).append(label)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rev", default="HEAD~", help="the earlier commit (a git revision)")
     ap.add_argument("--fetch", action="store_true", help="only write the earlier commit's sources (needs git)")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--kernels", default="B1,B7,B12", help="which of B1, B7, B12 to time")
     cli = ap.parse_args()
     old_dir = ROOT / "build" / "slim_ab" / re.sub(r"[^\w.-]", "_", cli.rev)
     if cli.fetch:
@@ -98,7 +180,8 @@ def main() -> int:
     import torch
 
     import chip_smoke
-    from repro_torch.kernels import build, megaplan
+    from repro_torch.kernels import build, megaplan, slim_update
+    from repro_torch.kernels.fused_adam import host_bias_corrections
     from repro_torch.optim.fused import bias_corrections
 
     if not torch.cuda.is_available():
@@ -115,65 +198,138 @@ def main() -> int:
     subprocess.run([build._nvcc(), *build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared", "-o",
                     str(lib_path), str(old_dir / "mega_slim.cu")], check=True)
     old = ctypes.CDLL(str(lib_path))
-    parent_argtypes = _parent_argtypes()
-    sig = re.search(r'extern "C" int repro_mega_slim_update\((.*?)\)\s*{', (old_dir / "mega_slim.cu").read_text(),
-                    re.S).group(1)
-    if sig.count(",") + 1 != len(parent_argtypes):
-        raise SystemExit("slim_ab: the earlier repro_mega_slim_update has another signature; compare with git instead")
-    old_fn = old.repro_mega_slim_update
-    old_fn.argtypes, old_fn.restype = parent_argtypes, ctypes.c_int
+    source = (old_dir / "mega_slim.cu").read_text()
+    fns, planned = {}, {}
+    for kernel, entry in ENTRIES.items():
+        sig = re.search(rf'extern "C" int {entry}\((.*?)\)\s*{{', source, re.S).group(1)
+        planned[kernel] = "int form" in sig
+        argtypes = _parent_argtypes(kernel, planned[kernel])
+        if sig.count(",") + 1 != len(argtypes):
+            raise SystemExit(f"slim_ab: the earlier {entry} has another signature; compare with git instead")
+        fns[kernel] = getattr(old, entry)
+        fns[kernel].argtypes, fns[kernel].restype = argtypes, ctypes.c_int
+    print(f"earlier entry points take the plan's arguments: {planned}", flush=True)
     dev = torch.device("cuda")
+    sms = build.sm_count(dev)
 
-    def parent(g, m, v, bc1, bc2, axis, with_snr=False, with_health=False):
-        """The earlier kernel through its entry point, outputs as the wrapper's."""
+    def walk(kernel, g, m, axis, flags, p=None):
+        """The plan's arguments where the earlier entry point takes them."""
+        if not planned[kernel]:
+            return (), None
+        return megaplan.slim_walk(kernel, g, m, axis, p=p, **{k: flags.get(k, False)
+                                                              for k in ("with_snr", "with_health")})
+
+    def b1_parent(g, m, v, bc1, bc2, axis, with_snr=False, with_health=False):
         b, r, c = g.shape
         u, m_out, v_out = torch.empty_like(g), torch.empty_like(g), torch.empty_like(v)
         snr = tuple(torch.empty_like(v) for _ in range(2)) if with_snr else (None, None)
         health = tuple(torch.empty_like(v) for _ in range(2)) if with_health else (None, None)
-        build.launch("mega_slim_update_batched (earlier)", old_fn, dev,
+        plan, work = walk("B1", g, m, axis, dict(with_snr=with_snr, with_health=with_health))
+        build.launch("mega_slim_update_batched (earlier)", fns["B1"], dev,
                      *(t.data_ptr() for t in (g, m, v, bc1, bc2, u, m_out, v_out)), *map(build.ptr, snr + health),
-                     b, r, c, axis, 1.0 / (c if axis == 1 else r), KW["b1"], 1.0 - KW["b1"], KW["b2"],
+                     b, r, c, axis, *plan, 1.0 / (c if axis == 1 else r), KW["b1"], 1.0 - KW["b1"], KW["b2"],
                      1.0 - KW["b2"], KW["eps"])
         return (u, m_out, v_out) + (snr if with_snr else ()) + (health if with_health else ())
 
-    def change(g, m, v, bc1, bc2, axis, **flags):
+    def b1_change(g, m, v, bc1, bc2, axis, **flags):
         return megaplan.mega_slim_update_batched(g, m, v, bc1, bc2, axis=axis, **flags, **KW)
+
+    c1, c2 = host_bias_corrections(KW["b1"], KW["b2"], STEP["count"])
+
+    def b7_parent(p, g, m, v, axis):
+        b, r, c = p.shape
+        p_out, m_out, v_out = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
+        plan, work = walk("B7", g, m, axis, {}, p=p)
+        build.launch("slim_update_batched (earlier)", fns["B7"], dev, p.data_ptr(), 0, g.data_ptr(), 0,
+                     m.data_ptr(), v.data_ptr(), p_out.data_ptr(), m_out.data_ptr(), v_out.data_ptr(), b, r, c, axis,
+                     *plan, 1.0 / (c if axis == 1 else r), STEP["lr"], STEP["wd"], c1, c2, KW["b1"], 1.0 - KW["b1"],
+                     KW["b2"], 1.0 - KW["b2"], KW["eps"])
+        return p_out, m_out, v_out
+
+    def b7_change(p, g, m, v, axis):
+        return slim_update.slim_update_batched(p, g, m, v, axis=axis, **STEP, **KW)
+
+    def b12_parent(g, m, axis, with_snr=False, with_health=False):
+        b, r, c = g.shape
+        line = (b, r, 1) if axis == 1 else (b, 1, c)
+        m_out = torch.empty_like(g)
+        part = torch.empty(line, dtype=torch.float32, device=dev)
+        snr = tuple(torch.empty_like(part) for _ in range(3)) if with_snr else (None,) * 3
+        health = tuple(torch.empty_like(part) for _ in range(2)) if with_health else (None, None)
+        plan, work = walk("B12", g, m, axis, dict(with_snr=with_snr, with_health=with_health))
+        build.launch("mega_slim_partial_stats_batched (earlier)", fns["B12"], dev, g.data_ptr(), m.data_ptr(),
+                     m_out.data_ptr(), part.data_ptr(), *map(build.ptr, snr + health), b, r, c, axis, *plan,
+                     KW["b1"], 1.0 - KW["b1"])
+        return (m_out, part) + (snr if with_snr else ()) + (health if with_health else ())
+
+    def b12_change(g, m, axis, **flags):
+        return megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=KW["b1"], **flags)
 
     timer = chip_smoke.Timer(torch)
     gen = torch.Generator(device=dev).manual_seed(0)
     bc1, bc2 = bias_corrections(0.9, 0.95, torch.tensor(3, dtype=torch.int32, device=dev))
-    versions = {"parent": parent, "change": change}
+
+    def cases():
+        """(kernel, view, labels, flag label, versions, operands, twin) for each case."""
+        wanted = set(cli.kernels.split(","))
+        if "B1" in wanted:
+            for (b, r, c, axis), labels in sorted(slim_groups(torch).items()):
+                line = (b, r, 1) if axis == 1 else (b, 1, c)
+                g = 1e-3 * torch.randn((b, r, c), generator=gen, device=dev)
+                m = 1e-4 * torch.randn((b, r, c), generator=gen, device=dev)
+                v = 1e-6 * torch.rand(line, generator=gen, device=dev)
+                ops = (g, m, v, bc1.expand(line).contiguous(), bc2.expand(line).contiguous(), axis)
+                for label, flags in FLAG_SETS.items():
+                    yield ("B1", (b, r, c, axis), labels, label, (b1_parent, b1_change), ops, flags,
+                           lambda flags=flags, ops=ops: megaplan.mega_slim_update_batched_plain(
+                               *ops[:5], axis=ops[5], **flags, **KW))
+        if "B7" in wanted:
+            for (b, r, c, axis), labels in sorted(write_views(torch).items()):
+                line = (b, r, 1) if axis == 1 else (b, 1, c)
+                p = 0.02 * torch.randn((b, r, c), generator=gen, device=dev)
+                g = 1e-3 * torch.randn((b, r, c), generator=gen, device=dev)
+                m = 1e-4 * torch.randn((b, r, c), generator=gen, device=dev)
+                v = 1e-6 * torch.rand(line, generator=gen, device=dev)
+                ops = (p, g, m, v, axis)
+                yield ("B7", (b, r, c, axis), labels, "base", (b7_parent, b7_change), ops, {},
+                       lambda ops=ops: slim_update.slim_update_batched_plain(
+                           *ops[:4], axis=ops[4], lr=STEP["lr"], wd=STEP["wd"], bc1=c1, bc2=c2, **KW))
+        if "B12" in wanted:
+            for (b, r, c, axis), labels in sorted(psum_views(torch).items()):
+                g = 1e-3 * torch.randn((b, r, c), generator=gen, device=dev)
+                m = 1e-4 * torch.randn((b, r, c), generator=gen, device=dev)
+                ops = (g, m, axis)
+                for label, flags in FLAG_SETS.items():
+                    yield ("B12", (b, r, c, axis), labels, label, (b12_parent, b12_change), ops, flags,
+                           lambda flags=flags, ops=ops: megaplan.mega_slim_partial_stats_batched_plain(
+                               *ops[:2], axis=ops[2], b1=KW["b1"], **flags))
+
     rows = []
-    sms = build.sm_count(dev)
-    for (b, r, c, axis), plans in sorted(slim_groups(torch).items()):
-        line = (b, r, 1) if axis == 1 else (b, 1, c)
-        g = 1e-3 * torch.randn((b, r, c), generator=gen, device=dev)
-        m = 1e-4 * torch.randn((b, r, c), generator=gen, device=dev)
-        v = 1e-6 * torch.rand(line, generator=gen, device=dev)
-        ops = (g, m, v, bc1.expand(line).contiguous(), bc2.expand(line).contiguous(), axis)
+    for kernel, (b, r, c, axis), labels, label, (parent, change), ops, flags, twin in cases():
         plan = megaplan.plan_slim(b, r, c, axis, sms=sms, aligned=True)
         form = f"{('ROWS', 'SPLIT', 'MAJOR')[plan.form]} nseg {plan.nseg} blocks {plan.blocks}"
-        for label, flags in FLAG_SETS.items():
-            want = megaplan.mega_slim_update_batched_plain(*ops[:5], axis=axis, **flags, **KW)
-            errs = {}
-            for name, fn in versions.items():
-                got = fn(*ops, **flags)
-                errs[name] = max(chip_smoke.max_err(a.nan_to_num(), w.nan_to_num())[1] for a, w in zip(got, want))
-                if errs[name] > chip_smoke.TOL_LINE:
-                    raise AssertionError(f"slim_ab: {name} on {(b, r, c)} axis {axis} {label} is {errs[name]:.3e} "
-                                         "from the twin")
-            times = {name: [] for name in versions}
-            for name in ("parent", "change", "change", "parent"):
-                times[name].append(timer(lambda: versions[name](*ops, **flags), reps=cli.reps))
-            med = {name: statistics.median(t) for name, t in times.items()}
-            row = dict(shape=[b, r, c], axis=axis, flags=label, form=form, plans=plans, parent_ms=med["parent"],
-                       change_ms=med["change"], ratio=med["change"] / med["parent"], max_rel_err=errs, blocks=times)
-            rows.append(row)
-            print(f"  ({b}, {r}, {c}) axis {axis} {label}: parent {med['parent']:.4f} ms  change "
-                  f"{med['change']:.4f} ms  ({row['ratio']:.3f}x)  [{form}]  {', '.join(plans)}", flush=True)
-            del want
-        del g, m, v, ops
-    print(json.dumps(dict(device=smi, rev=cli.rev, reps=cli.reps, groups=rows)), flush=True)
+        versions = {"parent": parent, "change": change}
+        want = twin()
+        errs = {}
+        for name, fn in versions.items():
+            got = fn(*ops, **flags)
+            errs[name] = max(chip_smoke.max_err(a.float().nan_to_num(), w.float().nan_to_num())[1]
+                             for a, w in zip(got, want))
+            if errs[name] > chip_smoke.TOL_LINE:
+                raise AssertionError(f"slim_ab: {kernel} {name} on {(b, r, c)} axis {axis} {label} is "
+                                     f"{errs[name]:.3e} from the twin")
+        del want
+        times = {name: [] for name in versions}
+        for name in ("parent", "change", "change", "parent"):
+            times[name].append(timer(lambda: versions[name](*ops, **flags), reps=cli.reps))
+        med = {name: statistics.median(t) for name, t in times.items()}
+        row = dict(kernel=kernel, shape=[b, r, c], axis=axis, flags=label, form=form, labels=labels,
+                   parent_ms=med["parent"], change_ms=med["change"], ratio=med["change"] / med["parent"],
+                   max_rel_err=errs, blocks=times)
+        rows.append(row)
+        print(f"  {kernel} ({b}, {r}, {c}) axis {axis} {label}: parent {med['parent']:.4f} ms  change "
+              f"{med['change']:.4f} ms  ({row['ratio']:.3f}x)  [{form}]  {', '.join(labels)}", flush=True)
+    print(json.dumps(dict(device=smi, rev=cli.rev, reps=cli.reps, planned=planned, cases=rows)), flush=True)
     return 0
 
 

@@ -89,19 +89,29 @@
 // slice of each line, so the update splits around a cross-rank sum: this
 // pass writes m' = b1*m + (1-b1)*g and the line's partial sum of g^2 (plus,
 // with_snr, the centered sums and their shift f; with_health the health
-// terms), all in pass 1's single walk over the line; the sum completes
-// across ranks, and slim_finalize.cu applies the preconditioner. Bound:
-// bytes, 12 B per f32 element (g, m read, m' written) plus 4 B per line,
-// 12 B more per line with_snr, 8 B with_health. PARTIAL keeps the ROWS
-// form's walk on every view (one block per line or strip; the split walk
-// is not yet its own).
+// terms), all in one walk over the line; the sum completes across ranks,
+// and slim_finalize.cu applies the preconditioner. Bound: bytes, 12 B per
+// f32 element (g, m read, m' written) plus 4 B per line, 12 B more per line
+// with_snr, 8 B with_health; g is read once, so no floor stands above it.
+// The group form (B12) takes plan_slim's grid: ROWS as above, or on SPLIT
+// and MAJOR a first launch over the pieces that writes m' and each piece's
+// f64 shares (pass 1 of B1 with an m' write, g and m read streaming), then
+// a small combine launch that adds each line's shares in a fixed order
+// (a warp a SPLIT line, a thread a MAJOR column, as snr_stats.cu's combine)
+// and writes the f32 line outputs, the shift f included. The per-leaf form
+// (B10) keeps the ROWS walk on every view.
 //
 // WRITE replaces repro/kernels/slim_update.py:74 slim_update_batched (body
 // _slim_kernel :56, pallas_call :103), the parameter-writing per-leaf form:
 // pass 2 writes p' = p - lr*(u + wd*p) in p's dtype (f32 or bf16) instead
 // of u, with the bias corrections passed as host-rounded scalars (no
-// launch forms them). Entry point repro_slim_update at the end of the file.
-// WRITE, too, keeps the ROWS form's walk on every view.
+// launch forms them). It takes B4's walk on plan_slim's grid: ROWS, or
+// SPLIT / MAJOR with B4's pass 1 (no flags) and a pass 2 that reads p as
+// well. Bound: 20 B per f32 element (p, g, m read, p', m' written); a split
+// view whose g outgrows the L2 reads g twice, a 24 B floor. The vector
+// form loads four p as 16 bytes (f32) or 8 bytes (bf16) and stores p' the
+// same way; the 4-byte form moves one p a thread (4 or 2 bytes). Entry
+// point repro_slim_update at the end of the file.
 #include <type_traits>
 
 #include "common.cuh"
@@ -393,7 +403,8 @@ bool vec_ok(const SlimArgs& a) {
 }
 
 // The ROWS form: one block per axis-1 line, or per kStrip columns of an
-// axis-0 batch slice (every PARTIAL call, and B1/B4 where the plan says so).
+// axis-0 batch slice (every B10 call, and B1, B4, B7 and B12 where the plan
+// says so).
 template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
 void launch_rows(const SlimArgs& a, int axis, bool vec, cudaStream_t s) {
   if (axis == 1) {
@@ -416,7 +427,7 @@ void launch_rows(const SlimArgs& a, int axis, bool vec, cudaStream_t s) {
   }
 }
 
-// PARTIAL's launch: always the ROWS form.
+// B10's launch: always the ROWS form.
 template <typename G, bool SCALAR_BC>
 void launch_partial(const SlimArgs& a, int axis, cudaStream_t s) {
   bool vec = false;
@@ -434,7 +445,7 @@ void launch_partial(const SlimArgs& a, int axis, cudaStream_t s) {
   }
 }
 
-// ---- B1 and B4: the SPLIT and MAJOR forms ----------------------------------------
+// ---- B1, B4, B7 and B12: the SPLIT and MAJOR forms ------------------------------
 
 // These match the planner's constants in repro_torch/kernels/megaplan.py
 // (and the split walk's in snr_stats.cu).
@@ -558,28 +569,87 @@ __device__ __forceinline__ typename std::conditional<VEC, float4, float>::type l
   return __ldcs(reinterpret_cast<const T*>(p + i));
 }
 
-// m' and u of one element, or of four (each with its own line values),
-// stored streaming: no pass reads them again.
-__device__ __forceinline__ void update(const SlimArgs& a, long long i, float x, float m, const float* v_new,
-                                       const float* c1, const float* c2) {
-  const float mn = ema(a.b1, m, a.omb1, x);
-  __stcs(a.m_out + i, mn);
-  __stcs(a.u + i, precond(mn, c1[0], v_new[0], c2[0], a.eps));
-}
-
-__device__ __forceinline__ void update(const SlimArgs& a, long long i, const float4& x, const float4& m,
-                                       const float* v_new, const float* c1, const float* c2) {
-  float4 mn, uu;
+// m' of one element, or of four, stored streaming (B12's pass 1).
+__device__ __forceinline__ float4 ema4(const SlimArgs& a, const float4& x, const float4& m) {
+  float4 mn;
   mn.x = ema(a.b1, m.x, a.omb1, x.x);
   mn.y = ema(a.b1, m.y, a.omb1, x.y);
   mn.z = ema(a.b1, m.z, a.omb1, x.z);
   mn.w = ema(a.b1, m.w, a.omb1, x.w);
+  return mn;
+}
+
+__device__ __forceinline__ void store_m(const SlimArgs& a, long long i, float x, float m) {
+  __stcs(a.m_out + i, ema(a.b1, m, a.omb1, x));
+}
+
+__device__ __forceinline__ void store_m(const SlimArgs& a, long long i, const float4& x, const float4& m) {
+  __stcs(reinterpret_cast<float4*>(a.m_out + i), ema4(a, x, m));
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float x) { return __bfloat16_as_ushort(__float2bfloat16_rn(x)); }
+
+// Four p' at element i (a multiple of 4) in p's dtype, stored streaming:
+// one 16-byte (f32) or 8-byte (bf16, the first value in the low half) store.
+template <typename P>
+__device__ __forceinline__ void stream_p4(void* out, long long i, const float4& x) {
+  if constexpr (std::is_same<P, float>::value) {
+    __stcs(reinterpret_cast<float4*>(static_cast<float*>(out) + i), x);
+  } else {
+    __stcs(reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + i),
+           make_uint2(bf16_bits(x.x) | (bf16_bits(x.y) << 16), bf16_bits(x.z) | (bf16_bits(x.w) << 16)));
+  }
+}
+
+// m' and u (or, WRITE, p' from p) of one element, or of four (each with its
+// own line values), stored streaming: no pass reads them again. p is unused
+// unless WRITE.
+template <typename P, bool WRITE>
+__device__ __forceinline__ void update(const SlimArgs& a, long long i, float x, float m, float p,
+                                       const float* v_new, const float* c1, const float* c2) {
+  const float mn = ema(a.b1, m, a.omb1, x);
+  __stcs(a.m_out + i, mn);
+  const float uu = precond(mn, c1[0], v_new[0], c2[0], a.eps);
+  if constexpr (WRITE) {
+    store_p<P>(a.p_out, i, param_step(p, uu, a.lr, a.wd));
+  } else {
+    __stcs(a.u + i, uu);
+  }
+}
+
+template <typename P, bool WRITE>
+__device__ __forceinline__ void update(const SlimArgs& a, long long i, const float4& x, const float4& m,
+                                       const float4& p, const float* v_new, const float* c1, const float* c2) {
+  const float4 mn = ema4(a, x, m);
+  float4 uu;
   uu.x = precond(mn.x, c1[0], v_new[0], c2[0], a.eps);
   uu.y = precond(mn.y, c1[1], v_new[1], c2[1], a.eps);
   uu.z = precond(mn.z, c1[2], v_new[2], c2[2], a.eps);
   uu.w = precond(mn.w, c1[3], v_new[3], c2[3], a.eps);
   __stcs(reinterpret_cast<float4*>(a.m_out + i), mn);
-  __stcs(reinterpret_cast<float4*>(a.u + i), uu);
+  if constexpr (WRITE) {
+    float4 po;
+    po.x = param_step(p.x, uu.x, a.lr, a.wd);
+    po.y = param_step(p.y, uu.y, a.lr, a.wd);
+    po.z = param_step(p.z, uu.z, a.lr, a.wd);
+    po.w = param_step(p.w, uu.w, a.lr, a.wd);
+    stream_p4<P>(a.p_out, i, po);
+  } else {
+    __stcs(reinterpret_cast<float4*>(a.u + i), uu);
+  }
+}
+
+// The bias corrections of a line: WRITE's host-rounded scalars, else the
+// line's (or, SCALAR_BC, the leaf's) values.
+template <bool SCALAR_BC, bool WRITE>
+__device__ __forceinline__ void line_bc(const SlimArgs& a, long long l, float& c1, float& c2) {
+  if constexpr (WRITE) {
+    c1 = a.c1;
+    c2 = a.c2;
+  } else {
+    c1 = bc_at<SCALAR_BC>(a.bc1, l);
+    c2 = bc_at<SCALAR_BC>(a.bc2, l);
+  }
 }
 
 // v' of line l from its g^2 total (the ROWS form's arithmetic).
@@ -602,10 +672,13 @@ __device__ __forceinline__ void write_line_shares(const SlimArgs& a, long long l
 // SPLIT pass 1: block b sums segment k = b % nseg (elements [k*seg,
 // k*seg + seg) of the line, the last one shorter) of line b / nseg and
 // writes its shares. seg is a multiple of 1024, so every segment of a
-// vector-form line starts on a 4-element boundary.
-template <typename G, bool VEC, bool SNR, bool HEALTH>
+// vector-form line starts on a 4-element boundary. PARTIAL (B12's first
+// launch) also writes m' over the segment, and reads g streaming, as no
+// second pass reads it.
+template <typename G, bool VEC, bool SNR, bool HEALTH, bool PARTIAL = false>
 __global__ void __launch_bounds__(kThreads) slim_split_sum(SlimArgs a, Walk w) {
   using S = Shares<SNR, HEALTH>;
+  using V = typename std::conditional<VEC, float4, float>::type;
   __shared__ double smem[S::kCount][kWarps];
   constexpr long long kPer = VEC ? 4 : 1;
   const long long line = (long long)blockIdx.x / w.nseg;
@@ -620,13 +693,23 @@ __global__ void __launch_bounds__(kThreads) slim_split_sum(SlimArgs a, Walk w) {
   S s;
   long long j = threadIdx.x;
   for (; j + (kUnroll - 1) * kThreads < n; j += kUnroll * kThreads) {
-    typename std::conditional<VEC, float4, float>::type x[kUnroll];
+    V x[kUnroll], m[kUnroll];
 #pragma unroll
-    for (int q = 0; q < kUnroll; ++q) x[q] = load_gv<G, VEC, false>(a.g, begin + (j + q * kThreads) * kPer);
+    for (int q = 0; q < kUnroll; ++q) {
+      x[q] = load_gv<G, VEC, PARTIAL>(a.g, begin + (j + q * kThreads) * kPer);
+      if constexpr (PARTIAL) m[q] = load_mv<VEC>(a.m, begin + (j + q * kThreads) * kPer);
+    }
 #pragma unroll
-    for (int q = 0; q < kUnroll; ++q) s.add(x[q], f);
+    for (int q = 0; q < kUnroll; ++q) {
+      s.add(x[q], f);
+      if constexpr (PARTIAL) store_m(a, begin + (j + q * kThreads) * kPer, x[q], m[q]);
+    }
   }
-  for (; j < n; j += kThreads) s.add(load_gv<G, VEC, false>(a.g, begin + j * kPer), f);
+  for (; j < n; j += kThreads) {
+    const V x = load_gv<G, VEC, PARTIAL>(a.g, begin + j * kPer);
+    s.add(x, f);
+    if constexpr (PARTIAL) store_m(a, begin + j * kPer, x, load_mv<VEC>(a.m, begin + j * kPer));
+  }
   block_total(s.v, S::kCount, smem);
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -638,9 +721,11 @@ __global__ void __launch_bounds__(kThreads) slim_split_sum(SlimArgs a, Walk w) {
 // its line's nseg g^2 shares in order (thread t takes shares t, t + 256,
 // ..., then block_total), so all derive one v'; the block of segment 0
 // also combines the flags' shares and writes v' and the line outputs.
-template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH>
+// WRITE (B7) reads p as well and writes p' where B1 and B4 write u.
+template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH, typename P = float, bool WRITE = false>
 __global__ void __launch_bounds__(kThreads) slim_split_apply(SlimArgs a, Walk w) {
   using S = Shares<SNR, HEALTH>;
+  using V = typename std::conditional<VEC, float4, float>::type;
   __shared__ double smem[S::kCount][kWarps];
   __shared__ float shared_v;
   constexpr long long kPer = VEC ? 4 : 1;
@@ -672,8 +757,8 @@ __global__ void __launch_bounds__(kThreads) slim_split_apply(SlimArgs a, Walk w)
   }
   __syncthreads();
   const float v1 = shared_v;
-  const float c11 = bc_at<SCALAR_BC>(a.bc1, line);
-  const float c21 = bc_at<SCALAR_BC>(a.bc2, line);
+  float c11, c21;
+  line_bc<SCALAR_BC, WRITE>(a, line, c11, c21);
   const float vv[4] = {v1, v1, v1, v1};
   const float c1[4] = {c11, c11, c11, c11};
   const float c2[4] = {c21, c21, c21, c21};
@@ -681,18 +766,23 @@ __global__ void __launch_bounds__(kThreads) slim_split_apply(SlimArgs a, Walk w)
   const long long n = min(w.seg, a.cols - k * w.seg) / kPer;
   long long j = threadIdx.x;
   for (; j + (kUnroll - 1) * kThreads < n; j += kUnroll * kThreads) {
-    typename std::conditional<VEC, float4, float>::type x[kUnroll], m[kUnroll];
+    V x[kUnroll], m[kUnroll], p[kUnroll] = {};
 #pragma unroll
     for (int q = 0; q < kUnroll; ++q) {
       x[q] = load_gv<G, VEC, true>(a.g, begin + (j + q * kThreads) * kPer);
       m[q] = load_mv<VEC>(a.m, begin + (j + q * kThreads) * kPer);
+      if constexpr (WRITE) p[q] = load_gv<P, VEC, true>(a.p, begin + (j + q * kThreads) * kPer);
     }
 #pragma unroll
-    for (int q = 0; q < kUnroll; ++q) update(a, begin + (j + q * kThreads) * kPer, x[q], m[q], vv, c1, c2);
+    for (int q = 0; q < kUnroll; ++q) {
+      update<P, WRITE>(a, begin + (j + q * kThreads) * kPer, x[q], m[q], p[q], vv, c1, c2);
+    }
   }
   for (; j < n; j += kThreads) {
-    update(a, begin + j * kPer, load_gv<G, VEC, true>(a.g, begin + j * kPer), load_mv<VEC>(a.m, begin + j * kPer),
-           vv, c1, c2);
+    const long long i = begin + j * kPer;
+    V p = {};
+    if constexpr (WRITE) p = load_gv<P, VEC, true>(a.p, i);
+    update<P, WRITE>(a, i, load_gv<G, VEC, true>(a.g, i), load_mv<VEC>(a.m, i), p, vv, c1, c2);
   }
 }
 
@@ -721,10 +811,12 @@ __device__ __forceinline__ void add_columns(Shares<SNR, HEALTH>* s, float x, con
 }
 
 // MAJOR pass 1: each column's shares over the chunk, the warps' sums added
-// in warp order in shared memory.
-template <typename G, bool VEC, bool SNR, bool HEALTH>
+// in warp order in shared memory. PARTIAL (B12's first launch) also writes
+// m' over the chunk and reads g streaming.
+template <typename G, bool VEC, bool SNR, bool HEALTH, bool PARTIAL = false>
 __global__ void __launch_bounds__(kThreads) slim_major_sum(SlimArgs a, Walk w, long long ctiles) {
   using S = Shares<SNR, HEALTH>;
+  using V = typename std::conditional<VEC, float4, float>::type;
   constexpr int kPer = VEC ? 4 : 1;
   constexpr int kTile = 32 * kPer;
   __shared__ double smem[S::kCount][kWarps][kTile];
@@ -747,13 +839,24 @@ __global__ void __launch_bounds__(kThreads) slim_major_sum(SlimArgs a, Walk w, l
     const long long r_end = min(a.rows, (pc.k + 1) * w.seg);
     long long r = pc.k * w.seg + warp;
     for (; r + (kUnroll - 1) * kWarps < r_end; r += kUnroll * kWarps) {
-      typename std::conditional<VEC, float4, float>::type x[kUnroll];
+      V x[kUnroll], m[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) x[u] = load_gv<G, VEC, false>(a.g, slice + (r + u * kWarps) * a.cols + c);
+      for (int u = 0; u < kUnroll; ++u) {
+        x[u] = load_gv<G, VEC, PARTIAL>(a.g, slice + (r + u * kWarps) * a.cols + c);
+        if constexpr (PARTIAL) m[u] = load_mv<VEC>(a.m, slice + (r + u * kWarps) * a.cols + c);
+      }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) add_columns(s, x[u], f);
+      for (int u = 0; u < kUnroll; ++u) {
+        add_columns(s, x[u], f);
+        if constexpr (PARTIAL) store_m(a, slice + (r + u * kWarps) * a.cols + c, x[u], m[u]);
+      }
     }
-    for (; r < r_end; r += kWarps) add_columns(s, load_gv<G, VEC, false>(a.g, slice + r * a.cols + c), f);
+    for (; r < r_end; r += kWarps) {
+      const long long i = slice + r * a.cols + c;
+      const V x = load_gv<G, VEC, PARTIAL>(a.g, i);
+      add_columns(s, x, f);
+      if constexpr (PARTIAL) store_m(a, i, x, load_mv<VEC>(a.m, i));
+    }
   }
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
@@ -778,10 +881,11 @@ __global__ void __launch_bounds__(kThreads) slim_major_sum(SlimArgs a, Walk w, l
 // sums column t's nseg g^2 shares in order, so every chunk of a column
 // derives one v'; chunk 0's block also combines the flags' shares and
 // writes v' and the line outputs. Then each lane updates its columns over
-// the chunk's rows.
-template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH>
+// the chunk's rows (WRITE: p' from p, as in the SPLIT pass 2).
+template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH, typename P = float, bool WRITE = false>
 __global__ void __launch_bounds__(kThreads) slim_major_apply(SlimArgs a, Walk w, long long ctiles) {
   using S = Shares<SNR, HEALTH>;
+  using V = typename std::conditional<VEC, float4, float>::type;
   constexpr int kPer = VEC ? 4 : 1;
   constexpr int kTile = 32 * kPer;
   __shared__ float shared_v[kTile];
@@ -813,49 +917,123 @@ __global__ void __launch_bounds__(kThreads) slim_major_apply(SlimArgs a, Walk w,
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
     vv[q] = shared_v[lane * kPer + q];
-    c1[q] = bc_at<SCALAR_BC>(a.bc1, pc.b * a.cols + c + q);
-    c2[q] = bc_at<SCALAR_BC>(a.bc2, pc.b * a.cols + c + q);
+    line_bc<SCALAR_BC, WRITE>(a, pc.b * a.cols + c + q, c1[q], c2[q]);
   }
   const long long slice = pc.b * a.rows * a.cols;
   const long long r_end = min(a.rows, (pc.k + 1) * w.seg);
   long long r = pc.k * w.seg + warp;
   for (; r + (kUnroll - 1) * kWarps < r_end; r += kUnroll * kWarps) {
-    typename std::conditional<VEC, float4, float>::type x[kUnroll], m[kUnroll];
+    V x[kUnroll], m[kUnroll], p[kUnroll] = {};
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = slice + (r + u * kWarps) * a.cols + c;
       x[u] = load_gv<G, VEC, true>(a.g, i);
       m[u] = load_mv<VEC>(a.m, i);
+      if constexpr (WRITE) p[u] = load_gv<P, VEC, true>(a.p, i);
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) update(a, slice + (r + u * kWarps) * a.cols + c, x[u], m[u], vv, c1, c2);
+    for (int u = 0; u < kUnroll; ++u) {
+      update<P, WRITE>(a, slice + (r + u * kWarps) * a.cols + c, x[u], m[u], p[u], vv, c1, c2);
+    }
   }
   for (; r < r_end; r += kWarps) {
     const long long i = slice + r * a.cols + c;
-    update(a, i, load_gv<G, VEC, true>(a.g, i), load_mv<VEC>(a.m, i), vv, c1, c2);
+    V p = {};
+    if constexpr (WRITE) p = load_gv<P, VEC, true>(a.p, i);
+    update<P, WRITE>(a, i, load_gv<G, VEC, true>(a.g, i), load_mv<VEC>(a.m, i), p, vv, c1, c2);
   }
 }
 
-template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH>
+// B12's second launch: each line's nseg shares added in a fixed order and
+// rounded to f32 once, for part (the line sum of g^2) and the flags' line
+// outputs; with SNR also the shift f = g^2 at the line's first entry. SPLIT
+// (shares of line l at l * nseg + k): a warp a line, lane i adding shares
+// i, i + 32, ... in turn, then the shuffle tree. MAJOR (at k * lines + l): a
+// thread a column, adding shares 0, 1, ... in turn, so adjacent threads read
+// adjacent doubles. No float atomics: the same input gives the same bits.
+template <typename G, bool SNR, bool HEALTH, bool MAJOR>
+__global__ void __launch_bounds__(kThreads) slim_partial_combine(SlimArgs a, Walk w, long long lines) {
+  using S = Shares<SNR, HEALTH>;
+  const long long np = lines * w.nseg;
+  double t[S::kCount];
+#pragma unroll
+  for (int p = 0; p < S::kCount; ++p) t[p] = 0.0;
+  long long l;
+  if constexpr (MAJOR) {
+    l = (long long)blockIdx.x * kThreads + threadIdx.x;
+    if (l >= lines) return;
+    for (long long k = 0; k < w.nseg; ++k) {
+#pragma unroll
+      for (int p = 0; p < S::kCount; ++p) t[p] += w.part[p * np + k * lines + l];
+    }
+  } else {
+    l = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (l >= lines) return;  // the whole warp: l is the warp's
+    const int lane = threadIdx.x & 31;
+    for (long long k = lane; k < w.nseg; k += 32) {
+#pragma unroll
+      for (int p = 0; p < S::kCount; ++p) t[p] += w.part[p * np + l * w.nseg + k];
+    }
+#pragma unroll
+    for (int p = 0; p < S::kCount; ++p) {
+      for (int off = 16; off > 0; off >>= 1) t[p] += __shfl_xor_sync(0xffffffffu, t[p], off);
+    }
+    if (lane != 0) return;
+  }
+  a.part[l] = (float)t[0];
+  write_line_shares<SNR, HEALTH>(a, l, t);
+  if constexpr (SNR) {
+    const float x0 = load_g<G>(a.g, MAJOR ? l / a.cols * a.rows * a.cols + l % a.cols : l * a.cols);
+    a.first[l] = __fmul_rn(x0, x0);
+  }
+}
+
+constexpr long long tile_of(bool vec) { return vec ? 128 : 32; }
+
+// B1, B4 and (WRITE) B7: pass 1, then pass 2 over the same pieces.
+template <typename G, bool VEC, bool SCALAR_BC, bool SNR, bool HEALTH, typename P = float, bool WRITE = false>
 void launch_pieces(const SlimArgs& a, const Walk& w, cudaStream_t s) {
   const unsigned grid = (unsigned)w.blocks;
   if (w.form == kFormSplit) {
     slim_split_sum<G, VEC, SNR, HEALTH><<<grid, kThreads, 0, s>>>(a, w);
-    slim_split_apply<G, VEC, SCALAR_BC, SNR, HEALTH><<<grid, kThreads, 0, s>>>(a, w);
+    slim_split_apply<G, VEC, SCALAR_BC, SNR, HEALTH, P, WRITE><<<grid, kThreads, 0, s>>>(a, w);
   } else {
-    constexpr long long kTile = VEC ? 128 : 32;
-    const long long ctiles = (a.cols + kTile - 1) / kTile;
+    const long long ctiles = (a.cols + tile_of(VEC) - 1) / tile_of(VEC);
     slim_major_sum<G, VEC, SNR, HEALTH><<<grid, kThreads, 0, s>>>(a, w, ctiles);
-    slim_major_apply<G, VEC, SCALAR_BC, SNR, HEALTH><<<grid, kThreads, 0, s>>>(a, w, ctiles);
+    slim_major_apply<G, VEC, SCALAR_BC, SNR, HEALTH, P, WRITE><<<grid, kThreads, 0, s>>>(a, w, ctiles);
   }
 }
 
-// B1 and B4 on the plan's form: ROWS (one launch) or the two passes of
-// SPLIT / MAJOR.
-template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH>
+// B12: pass 1 with the m' write, then the combine of the line outputs.
+template <typename G, bool VEC, bool SNR, bool HEALTH>
+void launch_partial_pieces(const SlimArgs& a, const Walk& w, cudaStream_t s) {
+  const unsigned grid = (unsigned)w.blocks;
+  if (w.form == kFormSplit) {
+    const long long lines = a.batch * a.rows;
+    slim_split_sum<G, VEC, SNR, HEALTH, true><<<grid, kThreads, 0, s>>>(a, w);
+    slim_partial_combine<G, SNR, HEALTH, false><<<(unsigned)((lines + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+        a, w, lines);
+  } else {
+    const long long lines = a.batch * a.cols;
+    const long long ctiles = (a.cols + tile_of(VEC) - 1) / tile_of(VEC);
+    slim_major_sum<G, VEC, SNR, HEALTH, true><<<grid, kThreads, 0, s>>>(a, w, ctiles);
+    slim_partial_combine<G, SNR, HEALTH, true><<<(unsigned)((lines + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+        a, w, lines);
+  }
+}
+
+// B1, B4 and (PARTIAL) B12 on the plan's form: ROWS (one launch) or the two
+// launches of SPLIT / MAJOR.
+template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
 void launch_plan_flags(const SlimArgs& a, int axis, const Walk& w, cudaStream_t s) {
   if (w.form == kFormRows) {
-    launch_rows<G, SCALAR_BC, SNR, HEALTH, false>(a, axis, w.vec && std::is_same<G, float>::value, s);
+    launch_rows<G, SCALAR_BC, SNR, HEALTH, PARTIAL>(a, axis, w.vec && std::is_same<G, float>::value, s);
+  } else if constexpr (PARTIAL) {
+    if (w.vec) {
+      launch_partial_pieces<G, true, SNR, HEALTH>(a, w, s);
+    } else {
+      launch_partial_pieces<G, false, SNR, HEALTH>(a, w, s);
+    }
   } else if (w.vec) {
     launch_pieces<G, true, SCALAR_BC, SNR, HEALTH>(a, w, s);
   } else {
@@ -863,18 +1041,18 @@ void launch_plan_flags(const SlimArgs& a, int axis, const Walk& w, cudaStream_t 
   }
 }
 
-template <typename G, bool SCALAR_BC>
+template <typename G, bool SCALAR_BC, bool PARTIAL = false>
 void launch_plan(const SlimArgs& a, int axis, const Walk& w, cudaStream_t s) {
   const bool snr = a.s1c != nullptr;
   const bool health = a.nf != nullptr;
   if (snr && health) {
-    launch_plan_flags<G, SCALAR_BC, true, true>(a, axis, w, s);
+    launch_plan_flags<G, SCALAR_BC, true, true, PARTIAL>(a, axis, w, s);
   } else if (snr) {
-    launch_plan_flags<G, SCALAR_BC, true, false>(a, axis, w, s);
+    launch_plan_flags<G, SCALAR_BC, true, false, PARTIAL>(a, axis, w, s);
   } else if (health) {
-    launch_plan_flags<G, SCALAR_BC, false, true>(a, axis, w, s);
+    launch_plan_flags<G, SCALAR_BC, false, true, PARTIAL>(a, axis, w, s);
   } else {
-    launch_plan_flags<G, SCALAR_BC, false, false>(a, axis, w, s);
+    launch_plan_flags<G, SCALAR_BC, false, false, PARTIAL>(a, axis, w, s);
   }
 }
 
@@ -885,16 +1063,22 @@ bool walk_ok(const Walk& w, int axis) {
          w.part != nullptr;
 }
 
-// The parameter-writing per-leaf form: no flags, host-rounded bias
-// corrections; float4 loads on contiguous lines when p and g are f32.
+// B7, the parameter-writing per-leaf form, on the plan's form: no flags,
+// host-rounded bias corrections. ROWS takes float4 loads on contiguous
+// lines when p and g are f32; SPLIT and MAJOR take four-element loads of
+// any of the four dtype pairs where the plan says vec.
 template <typename G, typename P>
-void launch_write(const SlimArgs& a, int axis, cudaStream_t s) {
-  if (axis == 1) {
-    bool vec = false;
-    if constexpr (std::is_same<G, float>::value && std::is_same<P, float>::value) {
-      vec = a.cols % 4 == 0 && repro_torch::aligned16(a.g) && repro_torch::aligned16(a.m) &&
-            repro_torch::aligned16(a.m_out) && repro_torch::aligned16(a.p) && repro_torch::aligned16(a.p_out);
+void launch_write(const SlimArgs& a, int axis, const Walk& w, cudaStream_t s) {
+  if (w.form != kFormRows) {
+    if (w.vec) {
+      launch_pieces<G, true, true, false, false, P, true>(a, w, s);
+    } else {
+      launch_pieces<G, false, true, false, false, P, true>(a, w, s);
     }
+    return;
+  }
+  if (axis == 1) {
+    const bool vec = w.vec && std::is_same<G, float>::value && std::is_same<P, float>::value;
     long long work = vec ? a.cols / 4 : a.cols;
     long long threads = ((work + 31) / 32) * 32;
     if (threads > 1024) threads = 1024;
@@ -975,28 +1159,34 @@ extern "C" int repro_slim_precond(const void* g, int g_bf16, const float* m, con
   return (int)cudaGetLastError();
 }
 
-// Pass 1 of the psum pair, megaplan group form. g, m, m_out: contiguous f32
-// (batch, rows, cols). part and the optional line outputs s1c, s2c, first
-// (with_snr) and nf, ss (with_health; null when off): contiguous f32 lines,
-// (batch, rows, 1) for axis 1 and (batch, 1, cols) for axis 0. part is the
-// un-normalised line sum of g^2. Grid limits as above.
+// Pass 1 of the psum pair, megaplan group form (B12). g, m, m_out:
+// contiguous f32 (batch, rows, cols). part and the optional line outputs
+// s1c, s2c, first (with_snr) and nf, ss (with_health; null when off):
+// contiguous f32 lines, (batch, rows, 1) for axis 1 and (batch, 1, cols)
+// for axis 0. part is the un-normalised line sum of g^2. form, vec, seg,
+// nseg, blocks and work: plan_slim's plan and its workspace, as for
+// repro_mega_slim_update (SPLIT and MAJOR are pass 1 with the m' write and
+// the combine). Grid limits as above.
 extern "C" int repro_mega_slim_partial_stats(const float* g, const float* m, float* m_out, float* part, float* s1c,
                                              float* s2c, float* first, float* nf, float* ss, long long batch,
-                                             long long rows, long long cols, int axis, float b1, float omb1,
-                                             void* stream) {
-  if (!flags_paired(s1c, s2c) || !flags_paired(s1c, first) || !flags_paired(nf, ss)) {
+                                             long long rows, long long cols, int axis, int form, int vec,
+                                             long long seg, long long nseg, long long blocks, double* work, float b1,
+                                             float omb1, void* stream) {
+  const Walk w{form, vec != 0, seg, nseg, blocks, work};
+  if (!flags_paired(s1c, s2c) || !flags_paired(s1c, first) || !flags_paired(nf, ss) || !walk_ok(w, axis)) {
     return (int)cudaErrorInvalidValue;
   }
   SlimArgs a{g, m, nullptr, nullptr, nullptr, nullptr, m_out, nullptr, s1c, s2c, nf, ss, part, first, batch, rows,
              cols, 0.f, b1, omb1, 0.f, 0.f, 0.f};
-  launch_partial<float, false>(a, axis, static_cast<cudaStream_t>(stream));
+  launch_plan<float, false, true>(a, axis, w, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 
-// Pass 1 of the psum pair, per-leaf form. As the group form, except: g is
-// f32 (g_bf16 = 0) or bf16 (g_bf16 = 1); with_health (health a (2,) f32
-// output, else null) writes the per-line nf/ss into the caller's scratch
-// lines nf_lines/ss_lines and then reduces them into health.
+// Pass 1 of the psum pair, per-leaf form (B10). As the group form, except:
+// no plan (the ROWS walk on every view); g is f32 (g_bf16 = 0) or bf16
+// (g_bf16 = 1); with_health (health a (2,) f32 output, else null) writes
+// the per-line nf/ss into the caller's scratch lines nf_lines/ss_lines and
+// then reduces them into health.
 extern "C" int repro_slim_partial_stats(const void* g, int g_bf16, const float* m, float* m_out, float* part,
                                         float* s1c, float* s2c, float* first, float* nf_lines, float* ss_lines,
                                         float* health, long long batch, long long rows, long long cols, int axis,
@@ -1019,18 +1209,24 @@ extern "C" int repro_slim_partial_stats(const void* g, int g_bf16, const float* 
 
 // Parameter-writing per-leaf form (SlimAdam that writes the parameters).
 // Replaces repro/kernels/slim_update.py:74 slim_update_batched (kernel body
-// _slim_kernel :56, pallas_call :103): the same line walk as
-// repro_slim_precond, whose pass 2 writes p' = p - lr*(u + wd*p) (rounded to
-// p's dtype) where the precondition form writes u. Bound: bytes, p, g, m
-// read and p', m' written (20 B per f32 element, 14 B with bf16 p and g),
-// plus 8 B per line. p, p_out: (batch, rows, cols), f32 (p_bf16 = 0) or
-// bf16 (p_bf16 = 1); g f32 or bf16 (g_bf16); m, m_out f32; v, v_out lines
-// as in repro_slim_precond. c1/c2: the bias corrections 1 - b^t, rounded in
-// f32 by the caller (the count is a Python int in the JAX entry points).
+// _slim_kernel :56, pallas_call :103): the same walk as repro_slim_precond,
+// whose pass 2 writes p' = p - lr*(u + wd*p) (rounded to p's dtype) where
+// the precondition form writes u. Bound: bytes, p, g, m read and p', m'
+// written (20 B per f32 element, 14 B with bf16 p and g), plus 8 B per line.
+// p, p_out: (batch, rows, cols), f32 (p_bf16 = 0) or bf16 (p_bf16 = 1); g
+// f32 or bf16 (g_bf16); m, m_out f32; v, v_out lines as in
+// repro_slim_precond; form, vec, seg, nseg, blocks and work its plan (vec
+// also needs p aligned for four-element loads). c1/c2: the bias corrections
+// 1 - b^t, rounded in f32 by the caller (the count is a Python int in the
+// JAX entry points).
 extern "C" int repro_slim_update(const void* p, int p_bf16, const void* g, int g_bf16, const float* m,
                                  const float* v, void* p_out, float* m_out, float* v_out, long long batch,
-                                 long long rows, long long cols, int axis, float inv_n, float lr, float wd, float c1,
-                                 float c2, float b1, float omb1, float b2, float omb2, float eps, void* stream) {
+                                 long long rows, long long cols, int axis, int form, int vec, long long seg,
+                                 long long nseg, long long blocks, double* work, float inv_n, float lr, float wd,
+                                 float c1, float c2, float b1, float omb1, float b2, float omb2, float eps,
+                                 void* stream) {
+  const Walk w{form, vec != 0, seg, nseg, blocks, work};
+  if (!walk_ok(w, axis)) return (int)cudaErrorInvalidValue;
   SlimArgs a{g, m, v, nullptr, nullptr, nullptr, m_out, v_out, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
              batch, rows, cols, inv_n, b1, omb1, b2, omb2, eps};
   a.p = p;
@@ -1041,13 +1237,13 @@ extern "C" int repro_slim_update(const void* p, int p_bf16, const void* g, int g
   a.c2 = c2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_bf16 && p_bf16) {
-    launch_write<__nv_bfloat16, __nv_bfloat16>(a, axis, s);
+    launch_write<__nv_bfloat16, __nv_bfloat16>(a, axis, w, s);
   } else if (g_bf16) {
-    launch_write<__nv_bfloat16, float>(a, axis, s);
+    launch_write<__nv_bfloat16, float>(a, axis, w, s);
   } else if (p_bf16) {
-    launch_write<float, __nv_bfloat16>(a, axis, s);
+    launch_write<float, __nv_bfloat16>(a, axis, w, s);
   } else {
-    launch_write<float, float>(a, axis, s);
+    launch_write<float, float>(a, axis, w, s);
   }
   return (int)cudaGetLastError();
 }

@@ -31,8 +31,10 @@ The optimizer kernels live here beside their plain twins:
 * :func:`mega_slim_partial_stats_batched` (B12) — the PARTIAL instantiation
   in ``csrc/mega_slim.cu``, replacing ``repro/kernels/megaplan.py:486``
   (body ``_mega_slim_partial_kernel`` :467, ``pallas_call`` :510): pass 1 of
-  the grouped psum pair. Bound by bytes: 12 B per element plus 4 B per line
-  (12 B more with ``with_snr``, 8 B with ``with_health``).
+  the grouped psum pair, on :func:`plan_slim`'s grid (a split view: one
+  walk that writes m' and f64 shares, then a fixed-order combine). Bound
+  by bytes: 12 B per element plus 4 B per line (12 B more with
+  ``with_snr``, 8 B with ``with_health``).
 * :func:`mega_slim_finalize_batched` (B13) — ``csrc/slim_finalize.cu`` with
   line bias corrections, replacing ``repro/kernels/megaplan.py:536``
   (``pallas_call`` :559 owner form, :568 ek form). Bound by bytes: 8 B per
@@ -237,9 +239,10 @@ _SLIM_ARGTYPES = [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYP
 _MAX_GRID_Y = 65535
 _MAX_GRID_X = 2**31 - 1
 
-# The split walk of B1 and B4 (csrc/mega_slim.cu, which matches): 256-thread
-# blocks; pieces of 64 KB to 256 KB of the 16 B an element moves (g, m read,
-# u, m' written); the axis-0 ROWS form's 32-column strips (kStrip).
+# The split walk of B1, B4, B7 and B12 (csrc/mega_slim.cu, which matches):
+# 256-thread blocks; pieces of 4096 to 16384 elements (64 KB to 256 KB of
+# B1's 16 B an element; B7 moves 20 B, B12 12 B); the axis-0 ROWS form's
+# 32-column strips (kStrip).
 SLIM_SEG_MIN = 4096
 SLIM_SEG_MAX = 16384
 STRIP = 32
@@ -248,15 +251,16 @@ FORM_ROWS, FORM_SPLIT, FORM_MAJOR = 0, 1, 2
 
 @dataclasses.dataclass(frozen=True)
 class SlimPlan:
-    """The grid of one B1 or B4 call on a (B, R, C) view (``SplitPlan``'s
-    shape, with the axis, since the ROWS form serves both). FORM_ROWS: one
-    block per axis-1 line, or per STRIP columns of an axis-0 batch slice
-    (``nseg == 1``, one launch). FORM_SPLIT: block b takes segment b % nseg
+    """The grid of one B1, B4, B7 or B12 call on a (B, R, C) view
+    (``SplitPlan``'s shape, with the axis, since the ROWS form serves both).
+    FORM_ROWS: one block per axis-1 line, or per STRIP columns of an axis-0
+    batch slice (``nseg == 1``, one launch). FORM_SPLIT: block b takes segment b % nseg
     (``seg`` elements, the last one shorter) of axis-1 line b // nseg.
     FORM_MAJOR: block b takes row chunk b % nseg (``seg`` rows) of column
     tile b // nseg (TILE_VEC or TILE_SCALAR columns). SPLIT and MAJOR run
     two launches over the same ``blocks`` pieces (pass 2 in reverse block
-    order) and need a (planes, lines * nseg) f64 workspace."""
+    order; B12's second launch combines the shares instead) and need a
+    (planes, lines * nseg) f64 workspace."""
     form: int
     vec: bool        # four elements a load (aligned view, inner size a multiple of 4)
     axis: int
@@ -274,10 +278,11 @@ class SlimPlan:
 
 @functools.lru_cache(maxsize=None)
 def plan_slim(batch: int, rows: int, cols: int, axis: int, *, sms: int, aligned: bool) -> SlimPlan:
-    """The grid of B1 and B4 on a (batch, rows, cols) view reduced along
-    ``axis`` on a card with ``sms`` SMs; ``aligned``: g, m and the outputs
-    start where four-element loads may. Pieces are SLIM_SEG_MIN to
-    SLIM_SEG_MAX elements, sized for about WAVES blocks per SM. An axis-1
+    """The grid of B1, B4, B7 and B12 on a (batch, rows, cols) view reduced
+    along ``axis`` on a card with ``sms`` SMs; ``aligned``: g, m (and B7's
+    p) and the outputs start where four-element loads may. Pieces are
+    SLIM_SEG_MIN to SLIM_SEG_MAX elements, sized for about WAVES blocks per
+    SM. An axis-1
     line that fits in one piece keeps the ROWS form; a longer one is cut
     into 1024-aligned segments (SPLIT). On axis 0 the ROWS form's strips
     stay where they number WAVES a SM or where cutting the rows into chunks
@@ -304,16 +309,17 @@ def plan_slim(batch: int, rows: int, cols: int, axis: int, *, sms: int, aligned:
     return SlimPlan(FORM_MAJOR, vec, 0, batch, rows, cols, seg, nseg, blocks)
 
 
-def slim_walk(kernel: str, g: torch.Tensor, m: torch.Tensor, axis: int, *, with_snr: bool, with_health: bool):
-    """The plan's arguments for a B1/B4 launch on the card, after the
-    view's: (form, vec, seg, nseg, blocks, workspace pointer), and the f64
-    workspace of split views' shares (g^2, then s1c and s2c, then nf and ss
-    a piece; None for ROWS), which the caller holds until it has launched.
-    u and m' are fresh, so only g and m decide the alignment (16 B; 8 B for
-    bf16 g)."""
+def slim_walk(kernel: str, g: torch.Tensor, m: torch.Tensor, axis: int, *, with_snr: bool, with_health: bool,
+              p: Optional[torch.Tensor] = None):
+    """The plan's arguments for a B1/B4/B7/B12 launch on the card, after
+    the view's: (form, vec, seg, nseg, blocks, workspace pointer), and the
+    f64 workspace of split views' shares (g^2, then s1c and s2c, then nf
+    and ss a piece; None for ROWS), which the caller holds until it has
+    launched. The outputs are fresh, so only g, m and B7's p decide the
+    alignment (four elements: 16 B, 8 B for bf16)."""
     check_slim_grid(kernel, g, axis)
     b, r, c = g.shape
-    aligned = g.data_ptr() % (4 * g.element_size()) == 0 and m.data_ptr() % 16 == 0
+    aligned = all(t.data_ptr() % (4 * t.element_size()) == 0 for t in (g, m, p) if t is not None)
     plan = plan_slim(b, r, c, axis, sms=build.sm_count(g.device), aligned=aligned)
     if plan.blocks > _MAX_GRID_X:
         raise ValueError(f"{kernel}: shape {tuple(g.shape)} exceeds the launch grid")
@@ -444,7 +450,7 @@ mega_slim_update_batched.launches = 0
 # The grouped psum pair (B12, B13)
 # ---------------------------------------------------------------------------
 
-_PARTIAL_ARGTYPES = [build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 2 + [build.PTR]
+_PARTIAL_ARGTYPES = [build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYPES + [build.F32] * 2 + [build.PTR]
 
 
 def mega_slim_partial_stats_batched_plain(g, m, *, axis, b1, with_snr: bool = False, with_health: bool = False):
@@ -475,7 +481,8 @@ def mega_slim_partial_stats_batched(g, m, *, axis: int, b1=0.9, with_snr: bool =
     if device.type == "cpu":
         return mega_slim_partial_stats_batched_plain(g, m, axis=axis, b1=b1, with_snr=with_snr,
                                                      with_health=with_health)
-    check_slim_grid("mega_slim_partial_stats_batched", g, axis)
+    walk, work = slim_walk("mega_slim_partial_stats_batched", g, m, axis, with_snr=with_snr,
+                           with_health=with_health)
     line = slim_line_shape(g, axis)
     m_out = torch.empty_like(g)
     part = torch.empty(line, dtype=torch.float32, device=device)
@@ -484,7 +491,7 @@ def mega_slim_partial_stats_batched(g, m, *, axis: int, b1=0.9, with_snr: bool =
     b, r, c = g.shape
     fn = build.entry("repro_mega_slim_partial_stats", _PARTIAL_ARGTYPES)
     build.launch("mega_slim_partial_stats_batched", fn, device, g.data_ptr(), m.data_ptr(), m_out.data_ptr(),
-                 part.data_ptr(), *map(build.ptr, snr + health), b, r, c, axis, b1, 1.0 - b1)
+                 part.data_ptr(), *map(build.ptr, snr + health), b, r, c, axis, *walk, b1, 1.0 - b1)
     mega_slim_partial_stats_batched.launches += 1
     return (m_out, part) + (snr if with_snr else ()) + (health if with_health else ())
 

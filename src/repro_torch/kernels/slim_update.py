@@ -18,12 +18,15 @@ launch, not the TPU kernel's in-order grid accumulation
 
 B7 ``slim_update_batched`` (and its 2-D wrappers ``slim_update`` /
 ``slim_update_major``), the parameter-writing SlimAdam, is the WRITE
-instantiation of the same line walk (``repro_slim_update`` in
+instantiation of the same walk (``repro_slim_update`` in
 ``csrc/mega_slim.cu``), replacing the Pallas kernel at
 ``repro/kernels/slim_update.py:74`` (body ``_slim_kernel`` :56,
-``pallas_call`` :103). Bound by bytes: p, g, m read and p', m' written, 20 B
-per f32 element, plus 8 B per line. Its step count is a Python int, so the
-bias corrections are host floats and no launch forms them.
+``pallas_call`` :103). It takes B4's grid from ``plan_slim`` (p counted in
+the alignment), with pass 2 writing p' where B4 writes u. Bound by bytes:
+p, g, m read and p', m' written, 20 B per f32 element, plus 8 B per line
+(24 B where a split view's g outgrows the L2 and pass 2 reads it again).
+Its step count is a Python int, so the bias corrections are host floats
+and no launch forms them.
 
 The psum pair, for a leaf whose reduction dims are split across ranks:
 
@@ -135,7 +138,7 @@ def slim_precond_major(g, m, v_col, **kw):
 # ---------------------------------------------------------------------------
 
 _UPDATE_ARGTYPES = ([build.PTR, build.INT, build.PTR, build.INT] + [build.PTR] * 5 + [build.SIZE] * 3
-                    + [build.INT] + [build.F32] * 10 + [build.PTR])
+                    + [build.INT] + PLAN_ARGTYPES + [build.F32] * 10 + [build.PTR])
 
 
 def slim_update_batched_plain(p, g, m, v_line, *, axis, lr, b1, b2, eps, wd, bc1, bc2):
@@ -167,7 +170,7 @@ def slim_update_batched(p, g, m, v_line, *, axis: int, lr: float, b1: float = 0.
     if device.type == "cpu":
         return slim_update_batched_plain(p, g, m, v_line, axis=axis, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd,
                                          bc1=bc1, bc2=bc2)
-    check_slim_grid("slim_update_batched", p, axis)
+    walk, work = slim_walk("slim_update_batched", g, m, axis, with_snr=False, with_health=False, p=p)
     b, r, c = p.shape
     p_out = torch.empty_like(p)
     m_out = torch.empty(p.shape, dtype=torch.float32, device=device)
@@ -176,8 +179,8 @@ def slim_update_batched(p, g, m, v_line, *, axis: int, lr: float, b1: float = 0.
     fn = build.entry("repro_slim_update", _UPDATE_ARGTYPES)
     build.launch("slim_update_batched", fn, device, p.data_ptr(), int(p.dtype == torch.bfloat16), g.data_ptr(),
                  int(g.dtype == torch.bfloat16), m.data_ptr(), v_line.data_ptr(), p_out.data_ptr(),
-                 m_out.data_ptr(), v_out.data_ptr(), b, r, c, axis, 1.0 / n_red, lr, wd, bc1, bc2, b1, 1.0 - b1,
-                 b2, 1.0 - b2, eps)
+                 m_out.data_ptr(), v_out.data_ptr(), b, r, c, axis, *walk, 1.0 / n_red, lr, wd, bc1, bc2, b1,
+                 1.0 - b1, b2, 1.0 - b2, eps)
     slim_update_batched.launches += 1
     return p_out, m_out, v_out
 

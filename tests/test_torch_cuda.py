@@ -18,8 +18,9 @@ p' may round one bf16 step apart where the f32 values straddle a rounding
 boundary (2^-8 of the largest |p|). The selective scan's y and final state
 compose chunks of the sequence and take exp2 of dt*a*log2(e), where the
 twin steps in order with exp (1e-5); both forms rerun bit for bit, as do
-the split walks of the line sums and of B1 and B4. B1's and B4's line sums
-of g^2 on long heavy-tailed lines hold to an f64 reference at 1e-6.
+the split walks of the line sums and of B1, B4, B7 and B12. The line sums
+of g^2 on long heavy-tailed lines (B1's, B4's and B7's v', B12's partial
+sums) hold to an f64 reference at 1e-6.
 """
 import dataclasses
 
@@ -80,8 +81,8 @@ def test_mega_slim_long_heavy_tailed_lines(dev, b, r, c, axis):
     """Lines of 16 M and 4 M (minor) and 1 M and 256 K (major) elements
     whose first 1 % are 1.0 and the rest 1e-3: each thread's running sum
     reaches ~650 before the small squares come, each below half an f32 ulp
-    of it. The line sums of g^2 (B1's and B4's v' on their split walk, B12's
-    partial sums) keep them, as an f64 reference does."""
+    of it. The line sums of g^2 (B1's, B4's and B7's v' and B12's partial
+    sums, all on their split walk) keep them, as an f64 reference does."""
     red = 2 if axis == 1 else 1
     line = (b, r, 1) if axis == 1 else (b, 1, c)
     plan = megaplan.plan_slim(b, r, c, axis, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
@@ -96,10 +97,13 @@ def test_mega_slim_long_heavy_tailed_lines(dev, b, r, c, axis):
     per_leaf = slim_update.slim_precond_batched(g, m, torch.zeros(line, device=dev), axis=axis, with_health=True,
                                                 **KW)
     part = megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9)[1]
+    written = slim_update.slim_update_batched(torch.zeros_like(g), g, m, torch.zeros(line, device=dev), axis=axis,
+                                              lr=1e-3, count=1, **KW)
     torch.cuda.synchronize()
     _close(got[2], (1 - KW["b2"]) * want / g.shape[red], ELEMENTWISE)
     _close(per_leaf[2], (1 - KW["b2"]) * want / g.shape[red], ELEMENTWISE)
     _close(per_leaf[3][1:], want.sum().reshape(1), ELEMENTWISE)
+    _close(written[2], (1 - KW["b2"]) * want / g.shape[red], ELEMENTWISE)
     _close(part.reshape(line), want, ELEMENTWISE)
 
 
@@ -142,8 +146,9 @@ def test_snr_stats_centered_batched(dev, b, r, c, axis, near_constant):
 
 
 def _offset_view(v):
-    """A contiguous copy of v that starts 4 bytes past a 16-byte boundary."""
-    buf = torch.empty(v.numel() + 1, device=v.device)
+    """A contiguous copy of v that starts one element (4 bytes for f32, 2 for
+    bf16) past a 16-byte boundary."""
+    buf = torch.empty(v.numel() + 1, device=v.device, dtype=v.dtype)
     out = buf[1:].view(v.shape)
     out.copy_(v)
     return out
@@ -234,6 +239,31 @@ def _close_finite(a, b, tol):
     fa, fb = torch.isfinite(a), torch.isfinite(b)
     assert torch.equal(fa, fb)
     _close(torch.where(fa, a, 0.0), torch.where(fb, b, 0.0), tol)
+
+
+def _device_kernels(fn, traces=3):
+    """The names of the device kernels one call of ``fn`` (after a warm-up
+    call) runs, from torch.profiler traces. After a process's first trace,
+    a later trace can lose the first device kernels it sees (seen on the
+    H100 machine with torch 2.11 and CUDA 12.8; pauses around the call did
+    not help), so each trace starts with a short spin kernel, left out of
+    the names, and of ``traces`` traces of the same call the longest list
+    is the answer: a lossy trace can only miss kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    found = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+        found = names if len(names) > len(found) else found
+    return found
 
 
 @pytest.mark.parametrize("rows,cols,n_bad", [(300, 512, 0), (300, 512, 37), (17, 12, 5)])
@@ -450,18 +480,127 @@ def test_slim_embedding_line(dev, per_leaf):
 def test_slim_forms_run_their_device_kernels(dev, b, r, c, axis, names):
     """A split view runs pass 1 then pass 2 (two device kernels); Table 3's
     views keep the ROWS form's one kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     line = (b, r, 1) if axis == 1 else (b, 1, c)
     inputs = _inputs(dev, (b, r, c), line, 3)
-    megaplan.mega_slim_update_batched(*inputs, axis=axis, **KW)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        megaplan.mega_slim_update_batched(*inputs, axis=axis, **KW)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(lambda: megaplan.mega_slim_update_batched(*inputs, axis=axis, **KW))
     assert len(kernels) == len(names) and all(n in k for n, k in zip(names, kernels)), kernels
+
+
+# B7 and B12 on the same walk: the split shapes above, and views that keep
+# ROWS on both axes.
+WRITE_PARTIAL_SHAPES = SLIM_SPLIT_SHAPES + [(1, 300, 768, 1), (12, 768, 1536, 0)]
+P_G_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+              (torch.bfloat16, torch.float32)]
+
+
+def _form(dev, b, r, c, axis, aligned=True):
+    return megaplan.plan_slim(b, r, c, axis, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+                              aligned=aligned)
+
+
+def _bit_equal(got, again):
+    for a, a2 in zip(got, again):
+        assert torch.equal(a.float().nan_to_num(), a2.float().nan_to_num()) and torch.equal(a.isnan(), a2.isnan())
+
+
+@pytest.mark.parametrize("b,r,c,axis", WRITE_PARTIAL_SHAPES)
+@pytest.mark.parametrize("p_dtype,g_dtype", P_G_DTYPES)
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_slim_update_split_forms(dev, b, r, c, axis, p_dtype, g_dtype, unaligned):
+    """B7 on SPLIT, MAJOR and ROWS against its twin, the four (p, g) dtype
+    pairs, aligned and one element off (the 4-byte walk), two launches
+    bit-identical; p' against B4's u and the same step."""
+    p, g, m, gen = _param_inputs(dev, (b, r, c), b + r + c + axis, p_dtype, g_dtype)
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    v = 1e-4 * torch.rand(line, generator=gen, device=dev)
+    if unaligned:
+        p, g = _offset_view(p), _offset_view(g)
+    plan = _form(dev, b, r, c, axis, aligned=not unaligned)
+    assert plan.vec == (not unaligned and c % 4 == 0)
+    kw = dict(lr=1e-3, wd=0.1, **KW)
+    before = slim_update.slim_update_batched.launches
+    got = slim_update.slim_update_batched(p, g, m, v, axis=axis, count=3, **kw)
+    again = slim_update.slim_update_batched(p, g, m, v, axis=axis, count=3, **kw)
+    bc1, bc2 = fused_adam.host_bias_corrections(0.9, 0.95, 3)
+    want = slim_update.slim_update_batched_plain(p, g, m, v, axis=axis, bc1=bc1, bc2=bc2, **kw)
+    u = slim_update.slim_precond_batched(g, m, v, axis=axis, count=3, **KW)[0]
+    torch.cuda.synchronize()
+    assert slim_update.slim_update_batched.launches == before + 2
+    assert got[0].dtype == p_dtype
+    _close(got[0].float(), want[0].float(), max(_p_tol(got[0]), LINE_SUMS))
+    _close(got[1], want[1], ELEMENTWISE)
+    _close(got[2], want[2], LINE_SUMS)
+    _close(got[0].float(), fused_adam.param_step(p, u, lr=1e-3, wd=0.1).float(), _p_tol(got[0]))
+    _bit_equal(got, again)
+
+
+@pytest.mark.parametrize("b,r,c,axis", WRITE_PARTIAL_SHAPES)
+@pytest.mark.parametrize("with_snr,with_health", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_mega_slim_partial_split_forms(dev, b, r, c, axis, with_snr, with_health, unaligned):
+    """B12 on SPLIT, MAJOR and ROWS against its twin, with each flag, aligned
+    and 4 bytes off (the 4-byte walk), two launches bit-identical (the
+    combine adds each line's shares in a fixed order)."""
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, _, _, _ = _inputs(dev, (b, r, c), line, r + c)
+    n_bad = 11 if with_health else 0
+    _poison(g, n_bad, 7)
+    if unaligned:
+        g = _offset_view(g)
+    plan = _form(dev, b, r, c, axis, aligned=not unaligned)
+    assert plan.vec == (not unaligned and c % 4 == 0)
+    flags = dict(with_snr=with_snr, with_health=with_health)
+    before = megaplan.mega_slim_partial_stats_batched.launches
+    got = megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9, **flags)
+    again = megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9, **flags)
+    want = megaplan.mega_slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9, **flags)
+    torch.cuda.synchronize()
+    assert megaplan.mega_slim_partial_stats_batched.launches == before + 2
+    assert len(got) == len(want) == 2 + 3 * with_snr + 2 * with_health
+    _close_finite(got[0], want[0], ELEMENTWISE)
+    for a, w in zip(got[1:2] + got[2:4 if with_snr else 2], want[1:2] + want[2:4 if with_snr else 2]):
+        _close_finite(a, w, LINE_SUMS)
+    if with_snr:
+        assert torch.equal(got[4].nan_to_num(), want[4].nan_to_num())
+    if with_health:
+        assert torch.equal(got[-2], want[-2]) and float(got[-2].sum()) == n_bad
+        _close(got[-1], want[-1], LINE_SUMS)
+    _bit_equal(got, again)
+
+
+@pytest.mark.parametrize("kernel", ["B7", "B12"])
+@pytest.mark.parametrize("b,r,c,axis,names", [
+    (1, 2, 40000, 1, {"B7": ("slim_split_sum", "slim_split_apply"), "B12": ("slim_split_sum",
+                                                                           "slim_partial_combine")}),
+    (1, 2000, 256, 0, {"B7": ("slim_major_sum", "slim_major_apply"), "B12": ("slim_major_sum",
+                                                                            "slim_partial_combine")}),
+    (1, 300, 768, 1, {"B7": ("slim_minor_kernel",), "B12": ("slim_minor_kernel",)}),
+    (12, 768, 1536, 0, {"B7": ("slim_major_kernel",), "B12": ("slim_major_kernel",)}),
+])
+def test_write_partial_forms_run_their_device_kernels(dev, kernel, b, r, c, axis, names):
+    """B7 on a split view runs B4's pass 1 and its pass 2; B12 its pass 1
+    (with the m' write) and the combine; the ROWS views one kernel each."""
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, v, _, _ = _inputs(dev, (b, r, c), line, 5)
+    p = 1e-2 * g
+    if kernel == "B7":
+        fn = lambda: slim_update.slim_update_batched(p, g, m, v, axis=axis, lr=1e-3, **KW)  # noqa: E731
+    else:
+        fn = lambda: megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9)  # noqa: E731
+    found = _device_kernels(fn)
+    want = names[kernel]
+    assert len(found) == len(want) and all(n in k for n, k in zip(want, found)), found
+
+
+@pytest.mark.parametrize("b,r,c,axis", [(1, 1, 786432, 1), (1, 2000, 256, 0), (1, 4608, 1536, 0)])
+def test_slim_partial_stats_keeps_the_rows_walk(dev, b, r, c, axis):
+    """B10 (the per-leaf psum pass 1) keeps the one-block ROWS walk on views
+    that B12 splits: one device kernel, the ROWS form's."""
+    assert _form(dev, b, r, c, axis).form != megaplan.FORM_ROWS
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, _, _, _ = _inputs(dev, (b, r, c), line, 9)
+    found = _device_kernels(lambda: slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9))
+    assert len(found) == 1 and ("slim_minor_kernel" if axis == 1 else "slim_major_kernel") in found[0], found
 
 
 # The sharded psum kernels at the local shard shapes of gpt_small on a
@@ -581,19 +720,11 @@ def test_slim_finalize_other_plans(dev, b, r, c, axis, form):
 def test_slim_finalize_is_one_device_kernel(dev, form):
     """One B11 call is one CUDA kernel in a torch.profiler trace: the bias
     corrections are formed inside it, not by torch operations around it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     line = (12, 1, 384)
     _, m, v, ek, _ = _inputs(dev, (12, 384, 384), line, 11)
     ek = ek if form == "ek" else None
     count = torch.tensor(3, dtype=torch.int32, device=dev)
-    slim_update.slim_finalize_batched(m, v, axis=0, ek=ek, count=count, **KW)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        slim_update.slim_finalize_batched(m, v, axis=0, ek=ek, count=count, **KW)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(lambda: slim_update.slim_finalize_batched(m, v, axis=0, ek=ek, count=count, **KW))
     assert len(kernels) == 1 and "finalize_flat_kernel" in kernels[0], kernels
 
 
@@ -637,14 +768,22 @@ def test_mega_slim_finalize_batched(dev, b, r, c, axis, form):
 
 @pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
 def test_psum_pair_per_leaf_equals_grouped(dev, b, r, c, axis):
-    """The per-leaf kernels (B10, B11) and the group kernels (B12, B13) run
-    the same line walk: equal bits on the same operands."""
+    """The per-leaf kernels (B10, B11) and the group kernels (B12, B13) on
+    the same operands: equal bits where B12's plan keeps B10's ROWS walk.
+    Where it splits the lines ((12, 384, 384) axis 0 takes MAJOR), m' and
+    the shift are equal bits and the line sums, f64 sums of the same terms
+    in another order rounded once, within one f32 rounding step."""
     line = (b, r, 1) if axis == 1 else (b, 1, c)
     g, m, v, _, _ = _inputs(dev, (b, r, c), line, b + c)
     per_leaf = slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9, with_snr=True)
     grouped = megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9, with_snr=True)
-    for a, w in zip(per_leaf, grouped):
-        assert torch.equal(a, w)
+    plan = megaplan.plan_slim(b, r, c, axis, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+                              aligned=True)
+    for i, (a, w) in enumerate(zip(per_leaf, grouped)):
+        if plan.form == megaplan.FORM_ROWS or i in (0, 4):
+            assert torch.equal(a, w), i
+        else:
+            assert bool(((a - w).abs() <= torch.finfo(torch.float32).eps * w.abs()).all()), i
     count = torch.tensor(3, dtype=torch.int32, device=dev)
     bc1, bc2 = fused_adam.bias_corrections(0.9, 0.95, count)
     ek = per_leaf[1] / (c if axis == 1 else r)
