@@ -638,12 +638,11 @@ def slim_walk_row(torch, timer, rate, group, g, m, v) -> dict:
     per-leaf kernel on the same walk, scalar bias corrections from a count
     on the card) against its twin on the group's inputs, rerun bit for bit
     and timed beside its bound."""
-    from repro_torch.kernels import build, megaplan, slim_update
+    from repro_torch.kernels import megaplan, slim_update
     from repro_torch.optim.fused import bias_corrections
 
     kw = dict(b1=0.9, b2=0.95, eps=1e-8)
     b, r, c = g.shape
-    plan = megaplan.plan_slim(b, r, c, group.axis, sms=build.sm_count(g.device), aligned=True)
     n, lines = g.numel(), v.numel()
     count = torch.tensor(3, dtype=torch.int32, device=g.device)
     c1, c2 = bias_corrections(0.9, 0.95, count)
@@ -651,12 +650,13 @@ def slim_walk_row(torch, timer, rate, group, g, m, v) -> dict:
     plain = lambda: slim_update.slim_precond_batched_plain(g, m, v, c1, c2, axis=group.axis, **kw)   # noqa: E731
     tag = f"slim_precond_batched {(b, r, c)} axis {group.axis}"
     got = run()
+    plan = megaplan.last_plans["slim_precond_batched"]   # B1 plans alike on the same views
     err = max(check(f"{tag} {o}", a, w, tol) for o, a, w, tol in
               zip(("u", "m'", "v'"), got, plain(), (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE)))
     same_tensors(f"{tag}: two runs", dict(enumerate(got)), dict(enumerate(run())))
     ms, plain_ms = timer(run), timer(plain)
     bound = (16 * n + 8 * lines + 8) / rate * 1e3
-    form = f"{('ROWS', 'SPLIT', 'MAJOR')[plan.form]}, nseg {plan.nseg}, {plan.blocks} blocks"
+    form = plan.describe()
     row = dict(form=form, floor_ms=slim_floor_ms(plan, n, 16 * lines, rate),
                b4=dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                        floor_ms=slim_floor_ms(plan, n, 8 * lines + 8, rate)))
@@ -1181,7 +1181,7 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
     lines the mesh splits), gradients seeded with NaN/Inf for the health
     outputs; then, on rank 0 alone while the others wait, each kernel's time
     over the shards one step (or one SNR measurement) launches it on."""
-    from repro_torch.kernels import build, megaplan, slim_update, snr_stats
+    from repro_torch.kernels import megaplan, slim_update, snr_stats
     from repro_torch.kernels.fused_adam import bias_corrections
     from repro_torch.kernels.ops import canon_apply, canon_nd
     from repro_torch.sharding.shardspec import global_shape, owning_axes
@@ -1275,9 +1275,7 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
             again = megaplan.mega_slim_partial_stats_batched(gg, m3, axis=grp.axis, b1=0.9, **flags)
             if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, again)):
                 raise AssertionError(f"B12 {tag} {flags}: two runs differ")
-        walk = megaplan.plan_slim(*g3.shape, grp.axis, sms=build.sm_count(g3.device), aligned=True)
-        walk_form = f"{('ROWS', 'SPLIT', 'MAJOR')[walk.form]}" + (f", nseg {walk.nseg}, {walk.blocks} blocks"
-                                                                   if walk.nseg > 1 else "")
+        walk_form = megaplan.last_plans["mega_slim_partial_stats_batched"].describe()
         out["B12"].setdefault("forms", {})[tag] = walk_form
         log(f"  [{mesh.rank}] B12 {tag} [{walk_form}]: three flag sets rerun bit for bit")
         line = got[1].shape
@@ -1946,7 +1944,7 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
     (B8) on full-width gpt_small's leaves and opt_speed's 4096 x 8192
     tensor. Returns (report, the three entries of the kernels line)."""
     from repro_torch import kernels
-    from repro_torch.kernels import build, fused_adam as fa, megaplan, ops, slim_update as su, snr_stats as ss
+    from repro_torch.kernels import fused_adam as fa, megaplan, ops, slim_update as su, snr_stats as ss
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -2022,9 +2020,7 @@ def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
         got = su.slim_update_batched(p3, g3, m3, v3, axis=cn.axis, **kw)
         same_tensors(f"slim_update_batched {name}: two runs", dict(enumerate(got)),
                      dict(enumerate(su.slim_update_batched(p3, g3, m3, v3, axis=cn.axis, **kw))))
-        walk = megaplan.plan_slim(*p3.shape, cn.axis, sms=build.sm_count(dev), aligned=True)
-        b7_forms[name] = f"{tuple(p3.shape)} axis {cn.axis}: {('ROWS', 'SPLIT', 'MAJOR')[walk.form]}" + (
-            f", nseg {walk.nseg}, {walk.blocks} blocks" if walk.nseg > 1 else "")
+        b7_forms[name] = f"{tuple(p3.shape)} axis {cn.axis}: {megaplan.last_plans['slim_update_batched'].describe()}"
         twin = su.slim_update_batched_plain(p3, g3, m3, v3, axis=cn.axis, lr=1e-3, wd=0.1, bc1=bc1, bc2=bc2, **hyper)
         for what, a, b, tol in zip(("p'", "m'", "v'"), got, twin, (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE)):
             errs["slim_update_batched"] = max(errs["slim_update_batched"], max_err(a, b)[0])
@@ -2213,13 +2209,12 @@ def long_lines(torch, smi) -> dict:
     bit, each form logged and timed beside its bound (each byte once), its
     design floor (B7 reads g twice where a split view's g outgrows the L2)
     and its twin."""
-    from repro_torch.kernels import build, megaplan, slim_update
+    from repro_torch.kernels import megaplan, slim_update
     from repro_torch.kernels.fused_adam import host_bias_corrections
 
     timer = Timer(torch)
     rate = mem_rate(torch.cuda.get_device_name(0))
     dev = torch.device("cuda")
-    sms = build.sm_count(dev)
     gen = torch.Generator(device=dev).manual_seed(21)
     c1, c2 = host_bias_corrections(0.9, 0.95, 3)
     step = dict(lr=1e-3, wd=0.1, b1=0.9, b2=0.95, eps=1e-8)
@@ -2234,31 +2229,36 @@ def long_lines(torch, smi) -> dict:
         m = 1e-4 * torch.randn(shape, generator=gen, device=dev)
         p = torch.randn(shape, generator=gen, device=dev)
         v = 1e-6 * torch.rand(line, generator=gen, device=dev)
-        plan = megaplan.plan_slim(*shape, axis, sms=sms, aligned=True)
-        if plan.form != want_form:
-            raise AssertionError(f"{label} {shape} axis {axis}: planned form {plan.form}, want {want_form}")
-        form = f"{('ROWS', 'SPLIT', 'MAJOR')[plan.form]}, nseg {plan.nseg}, {plan.blocks} blocks"
-        reread = 4 * n if plan.nseg > 1 and 4 * n > L2_BYTES else 0   # B7's pass 2 reads g again
-        cases = {   # name: (run, plain, tolerances, bound bytes, floor bytes, form)
+        cases = {   # name: (run, plain, tolerances, bound bytes, whether a split pass 2 reads g again)
             "slim_update_batched": (
                 lambda: slim_update.slim_update_batched(p, g, m, v, axis=axis, count=3, **step),
                 lambda: slim_update.slim_update_batched_plain(p, g, m, v, axis=axis, bc1=c1, bc2=c2, **step),
-                (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE), 20 * n + 8 * lines, 20 * n + 8 * lines + reread, form),
+                (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE), 20 * n + 8 * lines, True),
             "mega_slim_partial_stats_batched": (
                 lambda: megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9),
                 lambda: megaplan.mega_slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9),
-                (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4 * lines, 12 * n + 4 * lines, form),
+                (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4 * lines, False),
         }
         if label == "embedding line":   # B10, the next redesign's baseline
             cases["slim_partial_stats_batched"] = (
                 lambda: slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9),
                 lambda: slim_update.slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9),
-                (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4 * lines, 12 * n + 4 * lines, "ROWS, one block a line")
-        for name, (run, plain, tols, nbytes, floor_bytes, walk) in cases.items():
+                (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4 * lines, False)
+        for name, (run, plain, tols, nbytes, rereads) in cases.items():
             got = run()
             err = max(check(f"{name} {label} {shape} axis {axis} out {i}", a, w, tol)
                       for i, (a, w, tol) in enumerate(zip(got, plain(), tols)))
-            if name != "slim_partial_stats_batched":
+            floor_bytes = nbytes
+            if name == "slim_partial_stats_batched":   # B10 takes no plan: one block a line
+                walk = "ROWS, one block a line"
+            else:
+                plan = megaplan.last_plans[name]
+                if plan.form != want_form:
+                    raise AssertionError(f"{name} {label} {shape} axis {axis}: form {plan.describe()}, want "
+                                         f"{('ROWS', 'SPLIT', 'MAJOR')[want_form]}")
+                walk = plan.describe()
+                if rereads and plan.nseg > 1 and 4 * n > L2_BYTES:   # B7's pass 2 reads g again
+                    floor_bytes += 4 * n
                 same_tensors(f"{name} {label}: two runs", dict(enumerate(got)), dict(enumerate(run())))
             del got
             ms, plain_ms = timer(run, reps=5), timer(plain, reps=5)

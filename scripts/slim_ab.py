@@ -32,8 +32,8 @@ first); both versions are held to the plain twin first. An earlier entry
 point is called with the signature it has: with the plan's arguments
 (from this tree's ``plan_slim``) where its source takes them, else with the
 signature it had before them (``_parent_argtypes``). It prints the card's
-``nvidia-smi`` line, a line per case (with this tree's form from
-``plan_slim``) and one JSON object.
+``nvidia-smi`` line, a line per case (with the form this tree's wrapper
+took, ``megaplan.last_plans``) and one JSON object.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ KW = dict(b1=0.9, b2=0.95, eps=1e-8)
 STEP = dict(lr=1e-3, wd=0.1, count=3)
 FLAG_SETS = {"base": dict(), "flags": dict(with_snr=True, with_health=True)}
 ENTRIES = {"B1": "repro_mega_slim_update", "B7": "repro_slim_update", "B12": "repro_mega_slim_partial_stats"}
+WRAPPERS = {"B1": "mega_slim_update_batched", "B7": "slim_update_batched", "B12": "mega_slim_partial_stats_batched"}
 LONG_VIEWS = {"embedding line": (1, 1, 50304 * 768, 1), "shard line": (1, 1, 25152 * 384, 1),
               "resnet18 widest": (1, 4608, 1536, 0)}
 
@@ -210,7 +211,6 @@ def main() -> int:
         fns[kernel].argtypes, fns[kernel].restype = argtypes, ctypes.c_int
     print(f"earlier entry points take the plan's arguments: {planned}", flush=True)
     dev = torch.device("cuda")
-    sms = build.sm_count(dev)
 
     def walk(kernel, g, m, axis, flags, p=None):
         """The plan's arguments where the earlier entry point takes them."""
@@ -306,8 +306,6 @@ def main() -> int:
 
     rows = []
     for kernel, (b, r, c, axis), labels, label, (parent, change), ops, flags, twin in cases():
-        plan = megaplan.plan_slim(b, r, c, axis, sms=sms, aligned=True)
-        form = f"{('ROWS', 'SPLIT', 'MAJOR')[plan.form]} nseg {plan.nseg} blocks {plan.blocks}"
         versions = {"parent": parent, "change": change}
         want = twin()
         errs = {}
@@ -318,6 +316,7 @@ def main() -> int:
             if errs[name] > chip_smoke.TOL_LINE:
                 raise AssertionError(f"slim_ab: {kernel} {name} on {(b, r, c)} axis {axis} {label} is "
                                      f"{errs[name]:.3e} from the twin")
+        form = megaplan.last_plans[WRAPPERS[kernel]].describe()   # the plan of the change's call just made
         del want
         times = {name: [] for name in versions}
         for name in ("parent", "change", "change", "parent"):

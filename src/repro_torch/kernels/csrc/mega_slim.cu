@@ -404,26 +404,29 @@ bool vec_ok(const SlimArgs& a) {
 
 // The ROWS form: one block per axis-1 line, or per kStrip columns of an
 // axis-0 batch slice (every B10 call, and B1, B4, B7 and B12 where the plan
-// says so).
-template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
+// says so). vec (float4 loads of an axis-1 line) needs f32 g and, with
+// WRITE, f32 p.
+template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL, typename P = float, bool WRITE = false>
 void launch_rows(const SlimArgs& a, int axis, bool vec, cudaStream_t s) {
+  constexpr bool kF32 = std::is_same<G, float>::value && std::is_same<P, float>::value;
+  vec = vec && kF32;
   if (axis == 1) {
     long long work = vec ? a.cols / 4 : a.cols;
     long long threads = ((work + 31) / 32) * 32;
     if (threads > 1024) threads = 1024;
     if (threads < 32) threads = 32;
     const unsigned lines = (unsigned)(a.batch * a.rows);
-    if constexpr (std::is_same<G, float>::value) {
+    if constexpr (kF32) {
       if (vec) {
-        slim_minor_kernel<G, true, SCALAR_BC, SNR, HEALTH, PARTIAL><<<lines, (unsigned)threads, 0, s>>>(a);
+        slim_minor_kernel<G, true, SCALAR_BC, SNR, HEALTH, PARTIAL, P, WRITE><<<lines, (unsigned)threads, 0, s>>>(a);
         return;
       }
     }
-    slim_minor_kernel<G, false, SCALAR_BC, SNR, HEALTH, PARTIAL><<<lines, (unsigned)threads, 0, s>>>(a);
+    slim_minor_kernel<G, false, SCALAR_BC, SNR, HEALTH, PARTIAL, P, WRITE><<<lines, (unsigned)threads, 0, s>>>(a);
   } else {
     dim3 grid((unsigned)((a.cols + kStrip - 1) / kStrip), (unsigned)a.batch);
     dim3 block(kStrip, kRowThreads);
-    slim_major_kernel<G, SCALAR_BC, SNR, HEALTH, PARTIAL><<<grid, block, 0, s>>>(a);
+    slim_major_kernel<G, SCALAR_BC, SNR, HEALTH, PARTIAL, P, WRITE><<<grid, block, 0, s>>>(a);
   }
 }
 
@@ -1022,12 +1025,12 @@ void launch_partial_pieces(const SlimArgs& a, const Walk& w, cudaStream_t s) {
   }
 }
 
-// B1, B4 and (PARTIAL) B12 on the plan's form: ROWS (one launch) or the two
-// launches of SPLIT / MAJOR.
-template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL>
+// B1, B4, (PARTIAL) B12 and (WRITE) B7 on the plan's form: ROWS (one
+// launch) or the two launches of SPLIT / MAJOR.
+template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL, typename P = float, bool WRITE = false>
 void launch_plan_flags(const SlimArgs& a, int axis, const Walk& w, cudaStream_t s) {
   if (w.form == kFormRows) {
-    launch_rows<G, SCALAR_BC, SNR, HEALTH, PARTIAL>(a, axis, w.vec && std::is_same<G, float>::value, s);
+    launch_rows<G, SCALAR_BC, SNR, HEALTH, PARTIAL, P, WRITE>(a, axis, w.vec, s);
   } else if constexpr (PARTIAL) {
     if (w.vec) {
       launch_partial_pieces<G, true, SNR, HEALTH>(a, w, s);
@@ -1035,9 +1038,9 @@ void launch_plan_flags(const SlimArgs& a, int axis, const Walk& w, cudaStream_t 
       launch_partial_pieces<G, false, SNR, HEALTH>(a, w, s);
     }
   } else if (w.vec) {
-    launch_pieces<G, true, SCALAR_BC, SNR, HEALTH>(a, w, s);
+    launch_pieces<G, true, SCALAR_BC, SNR, HEALTH, P, WRITE>(a, w, s);
   } else {
-    launch_pieces<G, false, SCALAR_BC, SNR, HEALTH>(a, w, s);
+    launch_pieces<G, false, SCALAR_BC, SNR, HEALTH, P, WRITE>(a, w, s);
   }
 }
 
@@ -1069,33 +1072,7 @@ bool walk_ok(const Walk& w, int axis) {
 // any of the four dtype pairs where the plan says vec.
 template <typename G, typename P>
 void launch_write(const SlimArgs& a, int axis, const Walk& w, cudaStream_t s) {
-  if (w.form != kFormRows) {
-    if (w.vec) {
-      launch_pieces<G, true, true, false, false, P, true>(a, w, s);
-    } else {
-      launch_pieces<G, false, true, false, false, P, true>(a, w, s);
-    }
-    return;
-  }
-  if (axis == 1) {
-    const bool vec = w.vec && std::is_same<G, float>::value && std::is_same<P, float>::value;
-    long long work = vec ? a.cols / 4 : a.cols;
-    long long threads = ((work + 31) / 32) * 32;
-    if (threads > 1024) threads = 1024;
-    if (threads < 32) threads = 32;
-    const unsigned lines = (unsigned)(a.batch * a.rows);
-    if constexpr (std::is_same<G, float>::value && std::is_same<P, float>::value) {
-      if (vec) {
-        slim_minor_kernel<G, true, true, false, false, false, P, true><<<lines, (unsigned)threads, 0, s>>>(a);
-        return;
-      }
-    }
-    slim_minor_kernel<G, false, true, false, false, false, P, true><<<lines, (unsigned)threads, 0, s>>>(a);
-  } else {
-    dim3 grid((unsigned)((a.cols + kStrip - 1) / kStrip), (unsigned)a.batch);
-    dim3 block(kStrip, kRowThreads);
-    slim_major_kernel<G, true, false, false, false, P, true><<<grid, block, 0, s>>>(a);
-  }
+  launch_plan_flags<G, true, false, false, false, P, true>(a, axis, w, s);
 }
 
 // The per-leaf forms' (2,) health accumulator from their per-line lines.

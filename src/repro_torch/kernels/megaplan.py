@@ -275,6 +275,10 @@ class SlimPlan:
     def lines(self) -> int:
         return self.batch * (self.rows if self.axis == 1 else self.cols)
 
+    def describe(self) -> str:
+        """The form, its pieces a line and its blocks, as the logs print them."""
+        return f"{('ROWS', 'SPLIT', 'MAJOR')[self.form]}, nseg {self.nseg}, {self.blocks} blocks"
+
 
 @functools.lru_cache(maxsize=None)
 def plan_slim(batch: int, rows: int, cols: int, axis: int, *, sms: int, aligned: bool) -> SlimPlan:
@@ -309,6 +313,11 @@ def plan_slim(batch: int, rows: int, cols: int, axis: int, *, sms: int, aligned:
     return SlimPlan(FORM_MAJOR, vec, 0, batch, rows, cols, seg, nseg, blocks)
 
 
+# The plan of each wrapper's latest launch on the card, by the name it
+# passes to slim_walk: what a log or a check reads to see the form it took.
+last_plans: Dict[str, SlimPlan] = {}
+
+
 def slim_walk(kernel: str, g: torch.Tensor, m: torch.Tensor, axis: int, *, with_snr: bool, with_health: bool,
               p: Optional[torch.Tensor] = None):
     """The plan's arguments for a B1/B4/B7/B12 launch on the card, after
@@ -316,13 +325,15 @@ def slim_walk(kernel: str, g: torch.Tensor, m: torch.Tensor, axis: int, *, with_
     f64 workspace of split views' shares (g^2, then s1c and s2c, then nf
     and ss a piece; None for ROWS), which the caller holds until it has
     launched. The outputs are fresh, so only g, m and B7's p decide the
-    alignment (four elements: 16 B, 8 B for bf16)."""
+    alignment (four elements: 16 B, 8 B for bf16). The plan is kept in
+    ``last_plans[kernel]``."""
     check_slim_grid(kernel, g, axis)
     b, r, c = g.shape
     aligned = all(t.data_ptr() % (4 * t.element_size()) == 0 for t in (g, m, p) if t is not None)
     plan = plan_slim(b, r, c, axis, sms=build.sm_count(g.device), aligned=aligned)
     if plan.blocks > _MAX_GRID_X:
         raise ValueError(f"{kernel}: shape {tuple(g.shape)} exceeds the launch grid")
+    last_plans[kernel] = plan
     planes = 1 + 2 * with_snr + 2 * with_health
     work = (torch.empty((planes, plan.lines * plan.nseg), dtype=torch.float64, device=g.device)
             if plan.nseg > 1 else None)

@@ -96,6 +96,29 @@ def test_long_lines_fill_the_card(view):
     assert plan.form == (FORM_SPLIT if view[3] == 1 else FORM_MAJOR) and plan.blocks >= 4 * H100_SMS
 
 
+@pytest.mark.parametrize("view", [SHARD_LINE, RESNET_WIDE, (1, 300, 768, 1)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_slim_walk_keeps_the_plan_it_launches(monkeypatch, view, offset):
+    """``slim_walk`` passes the launch the plan it keeps in ``last_plans``
+    (what chip_smoke and slim_ab log through ``describe``): four-element
+    loads on an aligned view, none on a view one element off, and a
+    workspace of the shares exactly where the plan splits."""
+    monkeypatch.setattr(megaplan.build, "sm_count", lambda device: H100_SMS)
+    b, r, c, axis = view
+    g = torch.zeros(b * r * c + offset)[offset:].view(b, r, c)
+    m = torch.zeros(b, r, c)
+    args, work = megaplan.slim_walk("walk test", g, m, axis, with_snr=True, with_health=False)
+    plan = megaplan.last_plans["walk test"]
+    assert plan == plan_slim(b, r, c, axis, sms=H100_SMS, aligned=offset == 0)
+    assert args[:5] == (plan.form, int(plan.vec), plan.seg, plan.nseg, plan.blocks)
+    if plan.nseg == 1:
+        assert work is None and args[5] is None
+    else:
+        assert work.shape == (3, plan.lines * plan.nseg) and args[5] == work.data_ptr()
+    name = {FORM_ROWS: "ROWS", FORM_SPLIT: "SPLIT", FORM_MAJOR: "MAJOR"}[plan.form]
+    assert plan.describe() == f"{name}, nseg {plan.nseg}, {plan.blocks} blocks"
+
+
 # -- B12: launch 1's shares, launch 2's combine ------------------------------------------
 
 def _partial_shares(g, plan, with_snr, with_health):
