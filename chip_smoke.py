@@ -92,23 +92,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tensors), full-width gpt_small with the
    global batch 8 x 1024 split 2 rows per rank. 6a: B9-B13 against their
    twins on each rank's local shards of the Table-3 plan's 7 psum leaves
-   (B10 base, ``with_snr``, ``with_health``; B11 ek and owner, two runs
-   bit-equal; B12 and B13 on the psum groups, B12 rerun bit for bit with
-   each flag set and its ``plan_slim`` form logged; B9 on the 21 SNR candidates,
+   (B10 base, ``with_snr``, ``with_health``, its ``plan_slim`` form logged;
+   B11 ek and owner, two runs bit-equal; B12 and B13 on the psum groups,
+   B12 rerun bit for bit with each flag set, B12's and B13's plans logged;
+   B9 on the 21 SNR candidates,
    whose lines the mesh splits), non-finite counts exact, then each kernel
    timed on rank 0 alone (B9's total over its 21 candidates against
    ``torch.var_mean``'s; B11's twin forms its bias corrections from the
-   same count on the card), and one B11 call under torch.profiler, which
-   must run exactly one device kernel.
-   6b: a sharded Table-3 SlimAdam update and a sharded Adam update against
-   the port's unsharded update of the same whole gradients (local leaves
-   and Adam bit-equal, psum leaves within 2e-6), the per-leaf route against
-   the grouped one. 6c: the sharded trainer, each run's launch counters
+   same count on the card), and one B11 and one B13 call under
+   torch.profiler, each of which must run exactly one device kernel (the
+   flat walk).
+   6b: sharded Table-3 and AdaLayer SlimAdam updates and a sharded Adam
+   update against the port's unsharded update of the same whole gradients
+   (local leaves and Adam bit-equal, psum leaves within 2e-6), the
+   per-leaf route against the grouped one. 6c: the sharded trainer, each run's launch counters
    zeroed before and read after: Adam measuring SNR (B9), derived rules,
    SlimAdam with them and from-update SNR, Table-3 SlimAdam (B12/B13), its
    per-leaf route (B10/B11), a guarded step with an injected NaN that must
-   leave every rank's shards bit-identical; losses against the unsharded
-   port on the same batches (1e-4). 6d: a checkpoint saved on the mesh,
+   leave every rank's shards bit-identical, then 2 AdaLayer steps on each
+   route (every leaf in the psum regime, the embedding's shard one
+   9,658,368-element line through B12/B13 and B10/B11; regime counts,
+   launches and wall time logged); losses against the unsharded port on
+   the same batches (1e-4; AdaLayer's within twice the unsharded port's
+   own difference when the batch is summed as 2 micro-batches, if that is
+   larger). 6d: a checkpoint saved on the mesh,
    restored on the mesh (bit-equal shards) and unsharded (equal crc32s).
    6e: the sharded step's time, 4 ranks on one card (not a multi-GPU
    number), and the gradient all-reduce's. A rank that fails ends the run.
@@ -146,12 +153,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    AdaLayer, AdaLayer-LN-TL and Adam-mini v1/v2 plans of full-width
    gpt_small, timed as in phase 2 (B4 beside it), with the time of
    AdaLayer's 38,633,472-element embedding line and each plan's total;
-   then ``slim_update_batched`` (B7) and ``mega_slim_partial_stats_batched``
-   (B12) on their split walk, held against their twins, rerun bit for bit
-   and timed beside bound, floor and twin on that line (SPLIT), on a rank's
+   then ``slim_update_batched`` (B7), ``mega_slim_partial_stats_batched``
+   (B12) and ``slim_partial_stats_batched`` (B10; f32 and bf16 g, without
+   and with both flags) on their split walk, and
+   ``mega_slim_finalize_batched`` (B13; ek and owner form) on the flat
+   walk, held against their twins, rerun bit for bit, counted (one launch
+   a call) and timed beside bound, floor and twin (B13 also beside a
+   device copy of its bytes) on that line (SPLIT), on a rank's
    9,658,368-element embedding shard line (SPLIT) and on ResNet-18's (1,
-   4608, 1536) axis-0 group (MAJOR), and ``slim_partial_stats_batched``
-   (B10), which keeps one block a line, on the embedding line. 9b: the 12 optimizers of
+   4608, 1536) axis-0 group (MAJOR). 9b: the 12 optimizers of
    ``repro_torch.train.trainer.OPTIMIZERS`` through the Trainer on
    full-width gpt_small (batch 8 x 1024, bf16 activations, 3 steps each,
    launch counters zeroed before and read after each run: B1 and B2 per
@@ -1195,6 +1205,7 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
            for k in ("B9", "B10", "B11", "B12", "B13")}
     timed = []   # (kernel, tag, run, plain, bound, library) on rank 0
     profiled = None   # (tag, B11 in the ek form on the first leaf), profiled on rank 0
+    profiled_b13 = None   # (tag, B13 in the ek form on the first group), likewise
 
     def hold(kernel, tag, got, want, tols):
         errs = [check_masked(f"[{mesh.rank}] {kernel} {tag} {label}", a, w, tol)
@@ -1227,6 +1238,9 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
             if flags.get("with_health"):
                 health_counts("B10", tag, got[-1][0], want[-1][0], 7)
                 hold("B10", f"{tag} {flags}", [got[-1][1:]], [want[-1][1:]], [("ss", TOL_LINE)])
+        walk_form = megaplan.last_plans["slim_partial_stats_batched"].describe()
+        out["B10"].setdefault("forms", {})[tag] = walk_form
+        log(f"  [{mesh.rank}] B10 {tag} [{walk_form}]")
         line = got[1].shape
         v = 1e-6 * torch.rand(line, device="cuda") + 1e-8
         ek = 1e-6 * torch.rand(line, device="cuda")
@@ -1289,6 +1303,12 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
             want = slim_update.slim_finalize_batched_plain(m_new, v, l1, l2, b2=0.95, eps=1e-8, ek=e)
             pairs = (got, want) if e is not None else ((got,), (want,))
             hold("B13", f"{tag} {f}", *pairs, [("u", TOL_ELEMENTWISE), ("v'", TOL_ELEMENTWISE)])
+        walk_form = slim_update.finalize_plan(m_new, grp.axis, (v, ek, l1, l2)).describe()
+        out["B13"].setdefault("forms", {})[tag] = walk_form
+        log(f"  [{mesh.rank}] B13 {tag} [{walk_form}]")
+        profiled_b13 = profiled_b13 or (tag, lambda m_new=m_new, v=v, ek=ek, l1=l1, l2=l2, a=grp.axis:
+                                        megaplan.mega_slim_finalize_batched(m_new, v, l1, l2, axis=a, ek=ek, b2=0.95,
+                                                                            eps=1e-8))
         timed.append(("B12", tag, lambda g3=g3, m3=m3, a=grp.axis: megaplan.mega_slim_partial_stats_batched(
             g3, m3, axis=a, b1=0.9), lambda g3=g3, m3=m3, a=grp.axis: megaplan.mega_slim_partial_stats_batched_plain(
             g3, m3, axis=a, b1=0.9), max((12 * n + 4 * lines) / rate, 4 * n / F32_RATE) * 1e3, None))
@@ -1337,13 +1357,14 @@ def sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead):
             log(f"  {kernel} {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms"
                 + ("" if lib_ms is None else f"  var_mean {lib_ms:.4f} ms"))
         out["B9"].update(snr_total("B9", out["B9"], len(out["B9"]["cases"]), "rank 0 alone on the card"))
-        # One B11 call is one device kernel: no torch operation forms its bias corrections.
-        tag, call = profiled
-        names = device_kernels(torch, call)
-        log(f"  B11 {tag} ek form, one call under torch.profiler: {len(names)} device kernel(s) {names}")
-        if len(names) != 1:
-            raise AssertionError(f"B11 {tag}: one call ran {len(names)} device kernels, want 1: {names}")
-        out["B11"]["profiled_kernels"] = names
+        # One B11 or B13 call is one device kernel, the flat walk's: no torch
+        # operation forms B11's bias corrections.
+        for kernel, (tag, call) in (("B11", profiled), ("B13", profiled_b13)):
+            names = device_kernels(torch, call)
+            log(f"  {kernel} {tag} ek form, one call under torch.profiler: {len(names)} device kernel(s) {names}")
+            if len(names) != 1 or "finalize_flat_kernel" not in names[0]:
+                raise AssertionError(f"{kernel} {tag}: one call ran {names}, want one finalize_flat_kernel")
+            out[kernel]["profiled_kernels"] = names
     mesh.barrier()
     return out
 
@@ -1363,11 +1384,14 @@ def torch_equal(a, b):
     return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
 
 
-def sharded_vs_unsharded(torch, mesh, params, plans, dims, lead):
-    """6b: one sharded Table-3 SlimAdam update (two, so the moments carry
-    history) and one sharded Adam update against the port's unsharded
-    update of the same whole gradients on the same card; the per-leaf route
-    (B10/B11) against the grouped one (B12/B13)."""
+def sharded_vs_unsharded(torch, mesh, params, rule_sets, lead):
+    """6b: for each rule set (``{label: (dims, plans)}``: Table 3's, and
+    AdaLayer's, whose every leaf takes the psum regime and whose embedding
+    shard is one 9,658,368-element line), two sharded SlimAdam updates (so
+    the moments carry history) against the port's unsharded update of the
+    same whole gradients on the same card, and the per-leaf route (B10/B11)
+    against the grouped one (B12/B13); then one sharded Adam update against
+    the unsharded one."""
     from repro_torch.core.slim_adam import scale_by_slim_adam
     from repro_torch.optim.adam import scale_by_adam
 
@@ -1375,47 +1399,51 @@ def sharded_vs_unsharded(torch, mesh, params, plans, dims, lead):
     names = list(params)
     grads = [{k: shard_inputs(torch, p.shape, 200 * s + i) for i, (k, p) in enumerate(params.items())}
              for s in range(2)]
-    specs = {k: pl.spec for k, pl in zip(names, plans)}
+    specs = {k: pl.spec for k, pl in zip(names, next(iter(rule_sets.values()))[1])}
     res = {}
     with torch.no_grad():
-        txs = {"unsharded": scale_by_slim_adam(dims, backend="fused"),
-               "grouped": scale_by_slim_adam(dims, backend="fused", mesh=mesh, param_specs=specs),
-               "per_leaf": scale_by_slim_adam(dims, backend="fused", mesh=mesh, param_specs=specs, megakernel=False)}
-        states = {k: tx.init(params) for k, tx in txs.items()}
-        for g in grads:
-            ups = {}
-            for k, tx in txs.items():
-                ups[k], states[k] = tx.update(g, states[k])
-        worst = dict(u=0.0, mu=0.0, nu=0.0)
-        for i, (k, pl) in enumerate(zip(names, plans)):
-            un, sh = states["unsharded"], states["grouped"]
-            nu_spec = pl.nu_spec if pl.nu_spec is not None else pl.red_spec
-            pairs = {"u": (ups["grouped"][k], ups["unsharded"][k]), "mu": (sh.mu[k], mesh.shard(un.mu[k], pl.spec)),
-                     "nu": (sh.nu[k], mesh.shard(un.nu[k], nu_spec))}
-            for what, (a, b) in pairs.items():
-                if pl.regime == "local":
-                    if not torch_equal(a, b):
-                        raise AssertionError(f"local leaf {k} {what}: sharded differs from unsharded")
-                else:
-                    err = float((a.double() - b.double()).abs().max())
-                    worst[what] = max(worst[what], err)
-                    if err > TOL_PSUM_ABS:
-                        raise AssertionError(f"psum leaf {k} {what}: {err:.3e} above {TOL_PSUM_ABS:.0e}")
-        say(f"[6b] sharded Table-3 SlimAdam against unsharded, 2 updates: local leaves bit-equal; psum leaves "
-            f"max abs err u {worst['u']:.3e}  m' {worst['mu']:.3e}  owner-slice v' {worst['nu']:.3e} "
-            f"(tol {TOL_PSUM_ABS:.0e})")
-        res["slim_psum_abs_err"] = worst
-        route = 0.0
-        for k in names:
-            for a, b in ((ups["per_leaf"][k], ups["grouped"][k]), (states["per_leaf"].mu[k], states["grouped"].mu[k]),
-                         (states["per_leaf"].nu[k], states["grouped"].nu[k])):
-                route = max(route, max_err(a, b)[1])
-        if route > TOL_ELEMENTWISE:
-            raise AssertionError(f"per-leaf route against grouped route: rel err {route:.3e}")
-        say(f"[6b] per-leaf route (B10/B11, B3/B4) against the grouped one (B12/B13, B1/B2): worst rel err "
-            f"{route:.3e}")
-        res["per_leaf_vs_grouped_rel"] = route
-        del txs, states, ups
+        for label, (dims, plans) in rule_sets.items():
+            txs = {"unsharded": scale_by_slim_adam(dims, backend="fused"),
+                   "grouped": scale_by_slim_adam(dims, backend="fused", mesh=mesh, param_specs=specs),
+                   "per_leaf": scale_by_slim_adam(dims, backend="fused", mesh=mesh, param_specs=specs,
+                                                  megakernel=False)}
+            states = {k: tx.init(params) for k, tx in txs.items()}
+            for g in grads:
+                ups = {}
+                for k, tx in txs.items():
+                    ups[k], states[k] = tx.update(g, states[k])
+            worst = dict(u=0.0, mu=0.0, nu=0.0)
+            for i, (k, pl) in enumerate(zip(names, plans)):
+                un, sh = states["unsharded"], states["grouped"]
+                nu_spec = pl.nu_spec if pl.nu_spec is not None else pl.red_spec
+                pairs = {"u": (ups["grouped"][k], ups["unsharded"][k]),
+                         "mu": (sh.mu[k], mesh.shard(un.mu[k], pl.spec)),
+                         "nu": (sh.nu[k], mesh.shard(un.nu[k], nu_spec))}
+                for what, (a, b) in pairs.items():
+                    if pl.regime == "local":
+                        if not torch_equal(a, b):
+                            raise AssertionError(f"{label} local leaf {k} {what}: sharded differs from unsharded")
+                    else:
+                        err = float((a.double() - b.double()).abs().max())
+                        worst[what] = max(worst[what], err)
+                        if err > TOL_PSUM_ABS:
+                            raise AssertionError(f"{label} psum leaf {k} {what}: {err:.3e} above {TOL_PSUM_ABS:.0e}")
+            say(f"[6b] sharded {label} SlimAdam against unsharded, 2 updates: local leaves bit-equal; psum leaves "
+                f"max abs err u {worst['u']:.3e}  m' {worst['mu']:.3e}  owner-slice v' {worst['nu']:.3e} "
+                f"(tol {TOL_PSUM_ABS:.0e})")
+            res[f"{label}_psum_abs_err"] = worst
+            route = 0.0
+            for k in names:
+                for a, b in ((ups["per_leaf"][k], ups["grouped"][k]),
+                             (states["per_leaf"].mu[k], states["grouped"].mu[k]),
+                             (states["per_leaf"].nu[k], states["grouped"].nu[k])):
+                    route = max(route, max_err(a, b)[1])
+            if route > TOL_ELEMENTWISE:
+                raise AssertionError(f"{label}: per-leaf route against grouped route: rel err {route:.3e}")
+            say(f"[6b] {label}: per-leaf route (B10/B11, B3/B4) against the grouped one (B12/B13, B1/B2): worst "
+                f"rel err {route:.3e}")
+            res[f"{label}_per_leaf_vs_grouped_rel"] = route
+            del txs, states, ups
         ta_u, ta_s = scale_by_adam(b2=0.95, backend="fused"), scale_by_adam(b2=0.95, backend="fused", mesh=mesh,
                                                                             param_specs=specs)
         uu, su = ta_u.update(grads[0], ta_u.init(params))
@@ -1464,6 +1492,7 @@ def sharded_rank(rank, rdv, out, rate, ckpt_dir):
     from repro_torch.sharding import ShardingContext, param_specs, use_sharding
     from repro_torch.sharding.shardspec import regime_counts
     from repro_torch.train import FaultPlan, GuardConfig, Trainer, TrainerConfig
+    from repro_torch.train.trainer import slim_rule_dims
 
     t_start = time.perf_counter()
     if rank:   # rank 0 speaks for the mesh; the others' failures still reach stderr
@@ -1489,7 +1518,19 @@ def sharded_rank(rank, rdv, out, rate, ckpt_dir):
         if counts != {"local": 4, "psum": 7, "psum_jnp": 0, "jnp": 0, "degraded": 0}:
             raise AssertionError(f"unexpected regimes {counts}")
         res["kernels"] = sharded_kernels(torch, mesh, timer, rate, params, plans, dims, meta, lead)
-        res["vs_unsharded"] = sharded_vs_unsharded(torch, mesh, params, plans, dims, lead)
+        # AdaLayer: one second moment a parameter block, so every leaf's lines
+        # are split across ranks; the embedding's shard is one line
+        ada_dims = slim_rule_dims("adalayer", params, meta)
+        ada_plans = F.sharded_tree_plans(list(params.values()), [ada_dims[k] for k in params],
+                                         [specs[k] for k in params], mesh)
+        res["adalayer_regimes"] = regime_counts(ada_plans)
+        embed = ada_plans[list(params).index("embed")]
+        say(f"[6] AdaLayer on the mesh: {res['adalayer_regimes']}; the embedding's shard {embed.local_shape} takes "
+            f"the {embed.regime} regime as one line of {embed.cn.cols:,} (axis {embed.cn.axis})")
+        if embed.regime != "psum" or (embed.cn.rows, embed.cn.cols) != (1, 25152 * 384):
+            raise AssertionError(f"AdaLayer's embedding: {embed.regime}, {embed.cn}")
+        res["vs_unsharded"] = sharded_vs_unsharded(torch, mesh, params, {"Table-3": (dims, plans),
+                                                                         "AdaLayer": (ada_dims, ada_plans)}, lead)
         del model, params
         torch.cuda.empty_cache()
 
@@ -1584,6 +1625,16 @@ def sharded_rank(rank, rdv, out, rate, ckpt_dir):
             "every rank's parameters and optimizer shards bit-identical")
         res["guard"] = dict(skipped=last["step_skipped"], nonfinite=last["nonfinite_count"])
         del guard, before
+        torch.cuda.empty_cache()
+        # -- 6c. AdaLayer: every leaf's lines split across ranks, the embedding's
+        # shard one 9,658,368-element line, through the psum pair on both routes
+        for route, okw in (("grouped", {}), ("per_leaf", dict(megakernel=False))):
+            ada = Trainer(cfg, "adalayer", 1e-3, data, TrainerConfig(total_steps=2, log_every=1, backend="fused",
+                                                                     seed=0), optimizer_kw=okw)
+            res[f"adalayer_{route}_launches"] = counted(f"AdaLayer, {route.replace('_', '-')} route", ada)
+            res[f"adalayer_{route}_losses"] = [m["loss"] for m in ada.metrics_log]
+            del ada
+            torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_start
     out.put((rank, res))
     mesh.barrier()
@@ -1640,7 +1691,8 @@ def sharded_phase(torch, smi, rate):
     spawn_s = time.perf_counter() - t0
     r0 = results[0]
     for r in range(1, SHARD_RANKS):
-        for key in ("adam_losses", "slim_snr_losses", "rules", "slim_losses"):
+        for key in ("adam_losses", "slim_snr_losses", "rules", "slim_losses", "adalayer_grouped_losses",
+                    "adalayer_per_leaf_losses"):
             if results[r][key] != r0[key]:
                 raise AssertionError(f"rank {r} reports other {key} than rank 0")
 
@@ -1665,6 +1717,28 @@ def sharded_phase(torch, smi, rate):
         log(f"[6c] {label} losses sharded {got} unsharded {ref[label]}: worst rel diff {max(errs):.3e}")
     if worst > TOL_SHARDED_LOSS:
         raise AssertionError(f"sharded losses differ from the unsharded port's by {worst:.3e}")
+    # AdaLayer's first step at lr 1e-3 is g / rms(g) over each whole block and
+    # lifts the loss from 10.99 to ~15: the loss after it moves by ~2e-3 with the
+    # order in which the gradient is summed, which the unsharded port shows
+    # against itself when the same batch is summed as 2 micro-batches. Its
+    # preconditioner is held to the unsharded one on equal gradients in 6b.
+    for accum in (1, 2):
+        tr = Trainer(cfg, "adalayer", 1e-3, data, TrainerConfig(total_steps=2, log_every=1, backend="fused", seed=0),
+                     grad_accum=accum)
+        tr.run()
+        ref[f"adalayer x{accum}"] = [m["loss"] for m in tr.metrics_log]
+        del tr
+        torch.cuda.empty_cache()
+    own = max(abs(a - b) / abs(b) for a, b in zip(ref["adalayer x2"], ref["adalayer x1"]))
+    ada_tol = max(TOL_SHARDED_LOSS, 2 * own)
+    log(f"[6c] adalayer losses unsharded {ref['adalayer x1']}, as 2 micro-batches {ref['adalayer x2']}: rel diff "
+        f"{own:.3e}; the sharded runs are held to max({TOL_SHARDED_LOSS:.0e}, twice that) = {ada_tol:.3e}")
+    for key in ("adalayer_grouped_losses", "adalayer_per_leaf_losses"):
+        got = r0[key][:2]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, ref["adalayer x1"]))
+        log(f"[6c] {key[:-7]} losses sharded {got} unsharded {ref['adalayer x1']}: worst rel diff {err:.3e}")
+        if err > ada_tol:
+            raise AssertionError(f"sharded AdaLayer's losses differ from the unsharded port's by {err:.3e}")
     back = Trainer(cfg, "slim_snr", 1e-3, data, TrainerConfig(ckpt_dir=ckpt_dir, **tc), rules=rules)
     if back.step != 2 or crcs(torch, back._state()) != r0["ckpt_crc"]:
         raise AssertionError("the mesh's checkpoint restored unsharded differs from the mesh's gathered state")
@@ -1682,6 +1756,10 @@ def sharded_phase(torch, smi, rate):
     need(r0["adam_launches"], ["snr_stats_centered_partial_batched", "mega_adam_update"], "sharded Adam run")
     need(r0["slim_launches"], ["mega_slim_partial_stats_batched", "mega_slim_finalize_batched"], "sharded SlimAdam")
     need(r0["per_leaf_launches"], ["slim_partial_stats_batched", "slim_finalize_batched"], "sharded per-leaf run")
+    need(r0["adalayer_grouped_launches"], ["mega_slim_partial_stats_batched", "mega_slim_finalize_batched"],
+         "sharded AdaLayer, grouped route")
+    need(r0["adalayer_per_leaf_launches"], ["slim_partial_stats_batched", "slim_finalize_batched"],
+         "sharded AdaLayer, per-leaf route")
     log(f"[6] sharded phase: ranks {spawn_s:.1f} s (rank 0 {r0['seconds']:.1f} s), total "
         f"{time.perf_counter() - t0:.1f} s")
     summary = {k: v for k, v in r0.items() if k != "ckpt_crc"}
@@ -2201,14 +2279,17 @@ def state_bytes(opt_state) -> int:
 
 
 def long_lines(torch, smi) -> dict:
-    """B7 and B12 on their split walk, and B10 on the ROWS walk it keeps
-    (one block a line), on AdaLayer's 38,633,472-element embedding line; B7
-    and B12 also on a rank's 9,658,368-element embedding shard line of the
-    (data=2, model=2) mesh (25,152 x 384) and on ResNet-18's (1, 4608, 1536)
-    axis-0 group (MAJOR). Each against its twin, B7 and B12 rerun bit for
-    bit, each form logged and timed beside its bound (each byte once), its
-    design floor (B7 reads g twice where a split view's g outgrows the L2)
-    and its twin."""
+    """B7, B10 and B12 on their split walk and B13 on the flat walk, on
+    AdaLayer's 38,633,472-element embedding line (SPLIT), a rank's
+    9,658,368-element embedding shard line of the (data=2, model=2) mesh
+    (25,152 x 384; SPLIT) and ResNet-18's (1, 4608, 1536) axis-0 group
+    (MAJOR). B10 with f32 and bf16 g, without the flags and with both; B13
+    in the ek and the owner form, with bias corrections a line. Each against
+    its twin, rerun bit for bit, its plan logged (``describe``) and timed
+    beside its bound (each byte once), its design floor (B7 reads g twice
+    where a split view's g outgrows the L2) and its twin; B13 also beside a
+    device copy of m' into u (the bytes it streams), and counted: one
+    launch a call."""
     from repro_torch.kernels import megaplan, slim_update
     from repro_torch.kernels.fused_adam import host_bias_corrections
 
@@ -2218,9 +2299,12 @@ def long_lines(torch, smi) -> dict:
     gen = torch.Generator(device=dev).manual_seed(21)
     c1, c2 = host_bias_corrections(0.9, 0.95, 3)
     step = dict(lr=1e-3, wd=0.1, b1=0.9, b2=0.95, eps=1e-8)
+    both = dict(with_snr=True, with_health=True)
     views = {"embedding line": ((1, 1, 50304 * 768), 1, megaplan.FORM_SPLIT),
              "shard line": ((1, 1, 25152 * 384), 1, megaplan.FORM_SPLIT),
              "resnet18 (1, 4608, 1536)": ((1, 4608, 1536), 0, megaplan.FORM_MAJOR)}
+    b10_tols = {False: (TOL_ELEMENTWISE, TOL_LINE), True: (TOL_ELEMENTWISE, TOL_LINE, TOL_LINE, TOL_LINE,
+                                                           TOL_ELEMENTWISE, TOL_LINE)}
     out = {}
     for label, (shape, axis, want_form) in views.items():
         line = (shape[0], shape[1], 1) if axis == 1 else (shape[0], 1, shape[2])
@@ -2229,46 +2313,80 @@ def long_lines(torch, smi) -> dict:
         m = 1e-4 * torch.randn(shape, generator=gen, device=dev)
         p = torch.randn(shape, generator=gen, device=dev)
         v = 1e-6 * torch.rand(line, generator=gen, device=dev)
-        cases = {   # name: (run, plain, tolerances, bound bytes, whether a split pass 2 reads g again)
+        ek = 1e-6 * torch.rand(line, generator=gen, device=dev)
+        l1, l2 = (0.05 + torch.rand(line, generator=gen, device=dev) for _ in range(2))
+        gb = g.to(torch.bfloat16)
+        # label: (wrapper, run, plain, tolerances, bound bytes, whether a split pass 2 reads g again)
+        cases = {
             "slim_update_batched": (
+                "slim_update_batched",
                 lambda: slim_update.slim_update_batched(p, g, m, v, axis=axis, count=3, **step),
                 lambda: slim_update.slim_update_batched_plain(p, g, m, v, axis=axis, bc1=c1, bc2=c2, **step),
                 (TOL_LINE, TOL_ELEMENTWISE, TOL_LINE), 20 * n + 8 * lines, True),
             "mega_slim_partial_stats_batched": (
+                "mega_slim_partial_stats_batched",
                 lambda: megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9),
                 lambda: megaplan.mega_slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9),
                 (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4 * lines, False),
         }
-        if label == "embedding line":   # B10, the next redesign's baseline
-            cases["slim_partial_stats_batched"] = (
-                lambda: slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9),
-                lambda: slim_update.slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9),
-                (TOL_ELEMENTWISE, TOL_LINE), 12 * n + 4 * lines, False)
-        for name, (run, plain, tols, nbytes, rereads) in cases.items():
+        for gl, gg in (("f32", g), ("bf16", gb)):
+            for fl, flags in (("base", {}), ("both flags", both)):
+                # g, m read and m' written; part (and s1c, s2c, first) a line, the (2,) health
+                nbytes = (8 + gg.element_size()) * n + (16 * lines + 8 if flags else 4 * lines)
+                cases[f"slim_partial_stats_batched {gl} g, {fl}"] = (
+                    "slim_partial_stats_batched",
+                    lambda gg=gg, flags=flags: slim_update.slim_partial_stats_batched(gg, m, axis=axis, b1=0.9,
+                                                                                      **flags),
+                    lambda gg=gg, flags=flags: slim_update.slim_partial_stats_batched_plain(gg, m, axis=axis, b1=0.9,
+                                                                                            **flags),
+                    b10_tols[bool(flags)], nbytes, False)
+        for form, e in (("ek", ek), ("owner", None)):
+            # m' read and u written; v, bc1, bc2 (and ek read, v' written) a line
+            cases[f"mega_slim_finalize_batched {form} form"] = (
+                "mega_slim_finalize_batched",
+                lambda e=e: megaplan.mega_slim_finalize_batched(m, v, l1, l2, axis=axis, ek=e, b2=0.95, eps=1e-8),
+                lambda e=e: slim_update.slim_finalize_batched_plain(m, v, l1, l2, b2=0.95, eps=1e-8, ek=e),
+                (TOL_ELEMENTWISE, TOL_ELEMENTWISE), 8 * n + (20 if e is not None else 12) * lines, False)
+        for name, (wrapper, run, plain, tols, nbytes, rereads) in cases.items():
+            fn = getattr(megaplan if wrapper.startswith("mega") else slim_update, wrapper)
+            before = fn.launches
             got = run()
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain()
+            want = want if isinstance(want, tuple) else (want,)
             err = max(check(f"{name} {label} {shape} axis {axis} out {i}", a, w, tol)
-                      for i, (a, w, tol) in enumerate(zip(got, plain(), tols)))
+                      for i, (a, w, tol) in enumerate(zip(got, want, tols)))
+            if fn.launches != before + 1:
+                raise AssertionError(f"{name} {label}: {fn.launches - before} launches counted for one call")
             floor_bytes = nbytes
-            if name == "slim_partial_stats_batched":   # B10 takes no plan: one block a line
-                walk = "ROWS, one block a line"
+            if wrapper == "mega_slim_finalize_batched":
+                walk = slim_update.finalize_plan(m, axis, (v, ek, l1, l2)).describe()
             else:
-                plan = megaplan.last_plans[name]
+                plan = megaplan.last_plans[wrapper]
                 if plan.form != want_form:
                     raise AssertionError(f"{name} {label} {shape} axis {axis}: form {plan.describe()}, want "
                                          f"{('ROWS', 'SPLIT', 'MAJOR')[want_form]}")
                 walk = plan.describe()
                 if rereads and plan.nseg > 1 and 4 * n > L2_BYTES:   # B7's pass 2 reads g again
                     floor_bytes += 4 * n
-                same_tensors(f"{name} {label}: two runs", dict(enumerate(got)), dict(enumerate(run())))
-            del got
+            again = run()
+            same_tensors(f"{name} {label}: two runs", dict(enumerate(got)),
+                         dict(enumerate(again if isinstance(again, tuple) else (again,))))
+            del got, want, again
             ms, plain_ms = timer(run, reps=5), timer(plain, reps=5)
             bound, floor = nbytes / rate * 1e3, floor_bytes / rate * 1e3
+            row = dict(form=walk, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, floor_ms=floor)
+            extra = ""
+            if wrapper == "mega_slim_finalize_batched":
+                u = torch.empty_like(m)
+                row["copy_ms"] = timer(lambda: u.copy_(m), reps=5)
+                extra = f"  a device copy of m' into u {row['copy_ms']:.4f} ms"
+                del u
             log(f"  {name} on the {label} {shape} axis {axis} [{walk}]: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                f"bound {bound:.4f} ms ({bound / ms:.1%})  floor {floor:.4f} ms ({floor / ms:.1%})"
-                + ("" if name == "slim_partial_stats_batched" else "; reruns bit for bit") + f" ({smi})")
-            out[f"{name} {label}"] = dict(form=walk, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                          floor_ms=floor)
-        del g, m, p, v
+                f"bound {bound:.4f} ms ({bound / ms:.1%})  floor {floor:.4f} ms ({floor / ms:.1%}){extra}; one "
+                f"launch, reruns bit for bit ({smi})")
+            out[f"{name} {label}"] = row
+        del g, gb, m, p, v, ek, l1, l2
     del timer
     torch.cuda.empty_cache()
     return out
@@ -2981,15 +3099,16 @@ def main() -> int:
                 "max_abs_err": sharded["kernel_err"][key], "ms": h["ms"], "plain_ms": h["plain_ms"],
                 "bound_ms": h["bound_ms"], "bound_by": "bytes", "library_ms": h["library_ms"]}
 
-    grouped_runs = ("slim_launches", "slim_snr_launches", "guard_launches")
+    grouped_runs = ("slim_launches", "slim_snr_launches", "guard_launches", "adalayer_grouped_launches")
+    per_leaf_runs = ("per_leaf_launches", "adalayer_per_leaf_launches")
     line["kernels"] += [
         sharded_entry("snr_stats_centered_partial_batched", "B9", "snr_stats.cu",
                       "src/repro/kernels/snr_stats.py:152",
                       sharded["adam_launches"]["snr_stats_centered_partial_batched"]),
         sharded_entry("slim_partial_stats_batched", "B10", "mega_slim.cu", "src/repro/kernels/slim_update.py:260",
-                      sharded["per_leaf_launches"]["slim_partial_stats_batched"]),
+                      sum(sharded[r]["slim_partial_stats_batched"] for r in per_leaf_runs)),
         sharded_entry("slim_finalize_batched", "B11", "slim_finalize.cu", "src/repro/kernels/slim_update.py:329",
-                      sharded["per_leaf_launches"]["slim_finalize_batched"]),
+                      sum(sharded[r]["slim_finalize_batched"] for r in per_leaf_runs)),
         sharded_entry("mega_slim_partial_stats_batched", "B12", "mega_slim.cu", "src/repro/kernels/megaplan.py:486",
                       sum(sharded[r]["mega_slim_partial_stats_batched"] for r in grouped_runs)),
         sharded_entry("mega_slim_finalize_batched", "B13", "slim_finalize.cu", "src/repro/kernels/megaplan.py:536",

@@ -101,7 +101,7 @@ def main() -> int:
         u = torch.empty_like(m_new)
         v_out = torch.empty_like(v) if ek is not None else None
         build.launch(f"finalize_flat u{unroll}", libs[unroll], dev, m_new.data_ptr(), v.data_ptr(), build.ptr(ek),
-                     u.data_ptr(), build.ptr(v_out), count.data_ptr(), 0, 1.0, 1.0, KW["b1"], KW["b2"],
+                     None, None, u.data_ptr(), build.ptr(v_out), count.data_ptr(), 0, 1.0, 1.0, KW["b1"], KW["b2"],
                      1.0 - KW["b2"], KW["eps"], plan.batch, plan.rows, plan.cols, plan.axis, plan.vec,
                      int(plan.wide), plan.blocks)
         return u if ek is None else (u, v_out)

@@ -1,9 +1,11 @@
-"""Time B1 (``mega_slim_update_batched``), B7 (``slim_update_batched``) and
-B12 (``mega_slim_partial_stats_batched``) of this tree beside an earlier
+"""Time B1 (``mega_slim_update_batched``), B7 (``slim_update_batched``), B10
+(``slim_partial_stats_batched``), B12 (``mega_slim_partial_stats_batched``)
+and B13 (``mega_slim_finalize_batched``) of this tree beside an earlier
 commit's, in turns on one card.
 
-The earlier commit's ``mega_slim.cu`` and ``common.cuh`` are taken from git,
-in a checkout with its history (a copy without ``.git`` cannot):
+The earlier commit's ``mega_slim.cu``, ``slim_finalize.cu`` and
+``common.cuh`` are taken from git, in a checkout with its history (a copy
+without ``.git`` cannot):
 
     python3 scripts/slim_ab.py --fetch --rev HEAD~
 
@@ -25,15 +27,24 @@ change / parent:
   axis-0 group (phase 9a), f32 p and g, wd 0.1;
 - B12 on the 3 psum groups of phase 6a (rank-local shapes of gpt_small's
   Table-3 plan on the (data=2, model=2) mesh) and the same three long views,
-  without the flags and with both.
+  without the flags and with both;
+- B10 on phase 6a's 7 psum leaves (the same plan's rank-local views, 5
+  distinct) and the long views, f32 and bf16 g, without the flags and with
+  both;
+- B13 on phase 6a's 3 psum groups and the long views, in the ek and the
+  owner form, with bias corrections a line; a device copy of m' into u
+  (the bytes it streams) is timed beside it.
 Inputs are drawn as chip_smoke's ``hold_group`` draws them. Each time is
 ``chip_smoke.Timer``'s (median of ``--reps``, L2 flushed, a device-side wait
 first); both versions are held to the plain twin first. An earlier entry
 point is called with the signature it has: with the plan's arguments
 (from this tree's ``plan_slim``) where its source takes them, else with the
-signature it had before them (``_parent_argtypes``). It prints the card's
-``nvidia-smi`` line, a line per case (with the form this tree's wrapper
-took, ``megaplan.last_plans``) and one JSON object.
+signature it had before them (``_parent_argtypes``); an earlier B13 through
+the group entry ``repro_slim_finalize`` where its source has one, else
+through the flat walk's entry with this tree's signature. It prints the
+card's ``nvidia-smi`` line, a line per case (with the form this tree's
+wrapper took: ``megaplan.last_plans``, or B13's ``finalize_plan``) and one
+JSON object.
 """
 from __future__ import annotations
 
@@ -48,12 +59,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = "src/repro_torch/kernels/csrc"
-FILES = ("mega_slim.cu", "common.cuh")
+FILES = ("mega_slim.cu", "slim_finalize.cu", "common.cuh")
 KW = dict(b1=0.9, b2=0.95, eps=1e-8)
 STEP = dict(lr=1e-3, wd=0.1, count=3)
 FLAG_SETS = {"base": dict(), "flags": dict(with_snr=True, with_health=True)}
-ENTRIES = {"B1": "repro_mega_slim_update", "B7": "repro_slim_update", "B12": "repro_mega_slim_partial_stats"}
-WRAPPERS = {"B1": "mega_slim_update_batched", "B7": "slim_update_batched", "B12": "mega_slim_partial_stats_batched"}
+ENTRIES = {"B1": "repro_mega_slim_update", "B7": "repro_slim_update", "B10": "repro_slim_partial_stats",
+           "B12": "repro_mega_slim_partial_stats"}
+WRAPPERS = {"B1": "mega_slim_update_batched", "B7": "slim_update_batched", "B10": "slim_partial_stats_batched",
+            "B12": "mega_slim_partial_stats_batched"}
+DTYPES = ("f32", "bf16")
 LONG_VIEWS = {"embedding line": (1, 1, 50304 * 768, 1), "shard line": (1, 1, 25152 * 384, 1),
               "resnet18 widest": (1, 4608, 1536, 0)}
 
@@ -64,7 +78,14 @@ def _argtypes():
     from repro_torch.kernels import megaplan, slim_update
 
     return {"B1": (megaplan._SLIM_ARGTYPES, 16), "B7": (slim_update._UPDATE_ARGTYPES, 13),
-            "B12": (megaplan._PARTIAL_ARGTYPES, 13)}
+            "B10": (slim_update._PARTIAL_ARGTYPES, 15), "B12": (megaplan._PARTIAL_ARGTYPES, 13)}
+
+
+def _b13_argtypes(build):
+    """The group entry ``repro_slim_finalize`` of the commits before B13
+    took the flat walk: m', v, ek, bc1, bc2, u, v', the view, the axis, b2,
+    1 - b2, eps and the stream."""
+    return [build.PTR] * 7 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 3 + [build.PTR]
 
 
 def _parent_argtypes(kernel: str, planned: bool):
@@ -134,14 +155,13 @@ def write_views(torch):
     return out
 
 
-def psum_views(torch):
-    """{(batch, rows, cols, axis): [labels]}: the psum groups of gpt_small's
-    Table-3 plan on a (data=2, model=2) mesh at a rank's local shapes (phase
-    6a's B12 groups, owner and plain forms apart), and the long views."""
+def _psum_plans(torch):
+    """gpt_small's Table-3 plan on a (data=2, model=2) mesh at a rank's
+    local shapes: (psum leaf items as the grouped route groups them, the
+    leaves' plans)."""
     from repro_torch.configs import get_config
     from repro_torch.core import rules_to_dims, table3_rules
     from repro_torch.core.labels import flatten_with_names
-    from repro_torch.kernels import megaplan
     from repro_torch.sharding import ShardingContext, param_specs, use_sharding
     from repro_torch.sharding.shardspec import SpecMesh, plan_sharded_tree
 
@@ -156,6 +176,17 @@ def psum_views(torch):
                               [tuple(dims[k]) for k in names], [pspecs[k] for k in names], mesh)
     items = [(i, pl.local_shape, tuple(1 if d in dims[names[i]] else s for d, s in enumerate(pl.local_shape)),
               dims[names[i]], pl.cn) for i, pl in enumerate(plans) if pl.regime == "psum"]
+    return items, plans, names
+
+
+def psum_views(torch):
+    """{(batch, rows, cols, axis): [labels]}: the psum groups of gpt_small's
+    Table-3 plan on a (data=2, model=2) mesh at a rank's local shapes (phase
+    6a's B12 and B13 groups, owner and plain forms apart), and the long
+    views."""
+    from repro_torch.kernels import megaplan
+
+    items, plans, _ = _psum_plans(torch)
     out = {}
     for form in ("owner", "plain"):
         for grp in megaplan.groups_from_plans([it for it in items if bool(plans[it[0]].owner) == (form == "owner")]):
@@ -166,12 +197,25 @@ def psum_views(torch):
     return out
 
 
+def psum_leaf_views(torch):
+    """{(batch, rows, cols, axis): [labels]}: the same plan's 7 psum leaves
+    at a rank's local canonical views (phase 6a's B10 views), and the long
+    views."""
+    items, _, names = _psum_plans(torch)
+    out = {}
+    for i, _, _, _, cn in items:
+        out.setdefault((cn.batch, cn.rows, cn.cols, cn.axis), []).append(f"6a {names[i]}")
+    for label, view in LONG_VIEWS.items():
+        out.setdefault(view, []).append(label)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rev", default="HEAD~", help="the earlier commit (a git revision)")
     ap.add_argument("--fetch", action="store_true", help="only write the earlier commit's sources (needs git)")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--kernels", default="B1,B7,B12", help="which of B1, B7, B12 to time")
+    ap.add_argument("--kernels", default="B1,B7,B10,B12,B13", help="which of B1, B7, B10, B12, B13 to time")
     cli = ap.parse_args()
     old_dir = ROOT / "build" / "slim_ab" / re.sub(r"[^\w.-]", "_", cli.rev)
     if cli.fetch:
@@ -197,9 +241,10 @@ def main() -> int:
 
     lib_path = old_dir / "libold.so"
     subprocess.run([build._nvcc(), *build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared", "-o",
-                    str(lib_path), str(old_dir / "mega_slim.cu")], check=True)
+                    str(lib_path), str(old_dir / "mega_slim.cu"), str(old_dir / "slim_finalize.cu")], check=True)
     old = ctypes.CDLL(str(lib_path))
     source = (old_dir / "mega_slim.cu").read_text()
+    finalize_source = (old_dir / "slim_finalize.cu").read_text()
     fns, planned = {}, {}
     for kernel, entry in ENTRIES.items():
         sig = re.search(rf'extern "C" int {entry}\((.*?)\)\s*{{', source, re.S).group(1)
@@ -209,7 +254,19 @@ def main() -> int:
             raise SystemExit(f"slim_ab: the earlier {entry} has another signature; compare with git instead")
         fns[kernel] = getattr(old, entry)
         fns[kernel].argtypes, fns[kernel].restype = argtypes, ctypes.c_int
-    print(f"earlier entry points take the plan's arguments: {planned}", flush=True)
+    group_entry = 'extern "C" int repro_slim_finalize(' in finalize_source
+    if group_entry:
+        fns["B13"] = old.repro_slim_finalize
+        fns["B13"].argtypes = _b13_argtypes(build)
+    else:
+        sig = re.search(r'extern "C" int repro_slim_finalize_flat\((.*?)\)\s*{', finalize_source, re.S).group(1)
+        if sig.count(",") + 1 != len(slim_update._FLAT_ARGTYPES):
+            raise SystemExit("slim_ab: the earlier repro_slim_finalize_flat has another signature")
+        fns["B13"] = old.repro_slim_finalize_flat
+        fns["B13"].argtypes = slim_update._FLAT_ARGTYPES
+    fns["B13"].restype = ctypes.c_int
+    print(f"earlier entry points take the plan's arguments: {planned}; earlier B13 through the group entry: "
+          f"{group_entry}", flush=True)
     dev = torch.device("cuda")
 
     def walk(kernel, g, m, axis, flags, p=None):
@@ -265,6 +322,42 @@ def main() -> int:
     def b12_change(g, m, axis, **flags):
         return megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=KW["b1"], **flags)
 
+    def b10_parent(g, m, axis, with_snr=False, with_health=False):
+        b, r, c = g.shape
+        line = (b, r, 1) if axis == 1 else (b, 1, c)
+        m_out = torch.empty(g.shape, dtype=torch.float32, device=dev)
+        part = torch.empty(line, dtype=torch.float32, device=dev)
+        snr = tuple(torch.empty_like(part) for _ in range(3)) if with_snr else (None,) * 3
+        lines = tuple(torch.empty_like(part) for _ in range(2)) if with_health else (None, None)
+        health = torch.empty(2, dtype=torch.float32, device=dev) if with_health else None
+        plan, work = walk("B10", g, m, axis, dict(with_snr=with_snr, with_health=with_health))
+        build.launch("slim_partial_stats_batched (earlier)", fns["B10"], dev, g.data_ptr(),
+                     int(g.dtype == torch.bfloat16), m.data_ptr(), m_out.data_ptr(), part.data_ptr(),
+                     *map(build.ptr, (*snr, *lines, health)), b, r, c, axis, *plan, KW["b1"], 1.0 - KW["b1"])
+        return (m_out, part) + (snr if with_snr else ()) + ((health,) if with_health else ())
+
+    def b10_change(g, m, axis, **flags):
+        return slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=KW["b1"], **flags)
+
+    def b13_parent(m_new, v, ek, l1, l2, axis):
+        b, r, c = m_new.shape
+        u = torch.empty_like(m_new)
+        v_out = torch.empty_like(v) if ek is not None else None
+        if group_entry:
+            build.launch("mega_slim_finalize_batched (earlier)", fns["B13"], dev, m_new.data_ptr(), v.data_ptr(),
+                         build.ptr(ek), l1.data_ptr(), l2.data_ptr(), u.data_ptr(), build.ptr(v_out), b, r, c,
+                         axis, KW["b2"], 1.0 - KW["b2"], KW["eps"])
+        else:
+            plan = slim_update.finalize_plan(m_new, axis, (v, ek, l1, l2))
+            build.launch("mega_slim_finalize_batched (earlier)", fns["B13"], dev, m_new.data_ptr(), v.data_ptr(),
+                         build.ptr(ek), l1.data_ptr(), l2.data_ptr(), u.data_ptr(), build.ptr(v_out), None, 0, 1.0,
+                         1.0, 0.0, KW["b2"], 1.0 - KW["b2"], KW["eps"], b, r, c, axis, plan.vec, int(plan.wide),
+                         plan.blocks)
+        return u if ek is None else (u, v_out)
+
+    def b13_change(m_new, v, ek, l1, l2, axis):
+        return megaplan.mega_slim_finalize_batched(m_new, v, l1, l2, axis=axis, ek=ek, b2=KW["b2"], eps=KW["eps"])
+
     timer = chip_smoke.Timer(torch)
     gen = torch.Generator(device=dev).manual_seed(0)
     bc1, bc2 = bias_corrections(0.9, 0.95, torch.tensor(3, dtype=torch.int32, device=dev))
@@ -303,20 +396,47 @@ def main() -> int:
                     yield ("B12", (b, r, c, axis), labels, label, (b12_parent, b12_change), ops, flags,
                            lambda flags=flags, ops=ops: megaplan.mega_slim_partial_stats_batched_plain(
                                *ops[:2], axis=ops[2], b1=KW["b1"], **flags))
+        if "B10" in wanted:
+            for (b, r, c, axis), labels in sorted(psum_leaf_views(torch).items()):
+                g = 1e-3 * torch.randn((b, r, c), generator=gen, device=dev)
+                m = 1e-4 * torch.randn((b, r, c), generator=gen, device=dev)
+                for dt in DTYPES:
+                    ops = (g if dt == "f32" else g.to(torch.bfloat16), m, axis)
+                    for label, flags in FLAG_SETS.items():
+                        yield ("B10", (b, r, c, axis), labels, f"{dt} {label}", (b10_parent, b10_change), ops,
+                               flags, lambda flags=flags, ops=ops: slim_update.slim_partial_stats_batched_plain(
+                                   *ops[:2], axis=ops[2], b1=KW["b1"], **flags))
+        if "B13" in wanted:
+            for (b, r, c, axis), labels in sorted(psum_views(torch).items()):
+                line = (b, r, 1) if axis == 1 else (b, 1, c)
+                m_new = 1e-4 * torch.randn((b, r, c), generator=gen, device=dev)
+                v = 1e-6 * torch.rand(line, generator=gen, device=dev) + 1e-8
+                ek = 1e-6 * torch.rand(line, generator=gen, device=dev)
+                l1, l2 = bc1.expand(line).contiguous(), bc2.expand(line).contiguous()
+                for form, e in (("ek", ek), ("owner", None)):
+                    ops = (m_new, v, e, l1, l2, axis)
+                    yield ("B13", (b, r, c, axis), labels, form, (b13_parent, b13_change), ops, {},
+                           lambda ops=ops: slim_update.slim_finalize_batched_plain(
+                               *ops[:2], *ops[3:5], b2=KW["b2"], eps=KW["eps"], ek=ops[2]))
 
     rows = []
     for kernel, (b, r, c, axis), labels, label, (parent, change), ops, flags, twin in cases():
         versions = {"parent": parent, "change": change}
         want = twin()
+        want = want if isinstance(want, tuple) else (want,)
         errs = {}
         for name, fn in versions.items():
             got = fn(*ops, **flags)
+            got = got if isinstance(got, tuple) else (got,)
             errs[name] = max(chip_smoke.max_err(a.float().nan_to_num(), w.float().nan_to_num())[1]
                              for a, w in zip(got, want))
             if errs[name] > chip_smoke.TOL_LINE:
                 raise AssertionError(f"slim_ab: {kernel} {name} on {(b, r, c)} axis {axis} {label} is "
                                      f"{errs[name]:.3e} from the twin")
-        form = megaplan.last_plans[WRAPPERS[kernel]].describe()   # the plan of the change's call just made
+        if kernel == "B13":
+            form = slim_update.finalize_plan(ops[0], ops[5], ops[1:5]).describe()
+        else:
+            form = megaplan.last_plans[WRAPPERS[kernel]].describe()   # the plan of the change's call just made
         del want
         times = {name: [] for name in versions}
         for name in ("parent", "change", "change", "parent"):
@@ -325,9 +445,15 @@ def main() -> int:
         row = dict(kernel=kernel, shape=[b, r, c], axis=axis, flags=label, form=form, labels=labels,
                    parent_ms=med["parent"], change_ms=med["change"], ratio=med["change"] / med["parent"],
                    max_rel_err=errs, blocks=times)
+        copy = ""
+        if kernel == "B13":   # the yardstick: a device copy of m' into u
+            u = torch.empty_like(ops[0])
+            row["copy_ms"] = timer(lambda: u.copy_(ops[0]), reps=cli.reps)
+            copy = f"  copy {row['copy_ms']:.4f} ms"
+            del u
         rows.append(row)
         print(f"  {kernel} ({b}, {r}, {c}) axis {axis} {label}: parent {med['parent']:.4f} ms  change "
-              f"{med['change']:.4f} ms  ({row['ratio']:.3f}x)  [{form}]  {', '.join(labels)}", flush=True)
+              f"{med['change']:.4f} ms  ({row['ratio']:.3f}x){copy}  [{form}]  {', '.join(labels)}", flush=True)
     print(json.dumps(dict(device=smi, rev=cli.rev, reps=cli.reps, planned=planned, cases=rows)), flush=True)
     return 0
 

@@ -93,13 +93,16 @@
 // and slim_finalize.cu applies the preconditioner. Bound: bytes, 12 B per
 // f32 element (g, m read, m' written) plus 4 B per line, 12 B more per line
 // with_snr, 8 B with_health; g is read once, so no floor stands above it.
-// The group form (B12) takes plan_slim's grid: ROWS as above, or on SPLIT
-// and MAJOR a first launch over the pieces that writes m' and each piece's
-// f64 shares (pass 1 of B1 with an m' write, g and m read streaming), then
-// a small combine launch that adds each line's shares in a fixed order
-// (a warp a SPLIT line, a thread a MAJOR column, as snr_stats.cu's combine)
-// and writes the f32 line outputs, the shift f included. The per-leaf form
-// (B10) keeps the ROWS walk on every view.
+// Both forms take plan_slim's grid: ROWS as above, or on SPLIT and MAJOR a
+// first launch over the pieces that writes m' and each piece's f64 shares
+// (pass 1 of B1 with an m' write, g and m read streaming), then a small
+// combine launch that adds each line's shares in a fixed order (a warp a
+// SPLIT line, a thread a MAJOR column, as snr_stats.cu's combine) and
+// writes the f32 line outputs, the shift f included. The per-leaf form
+// (B10) runs the group form's kernels on the same plan, so the two give
+// equal bits on the same operands; its bf16 g moves four values as 8 bytes
+// in the vector form, and its (2,) health reduces the combined per-line
+// nf/ss lines in one more launch, as B4's does.
 //
 // WRITE replaces repro/kernels/slim_update.py:74 slim_update_batched (body
 // _slim_kernel :56, pallas_call :103), the parameter-writing per-leaf form:
@@ -396,16 +399,9 @@ __global__ void slim_major_kernel(SlimArgs a) {
   }
 }
 
-// Whether the ROWS form's axis-1 walk may take float4 loads (f32 g only).
-bool vec_ok(const SlimArgs& a) {
-  return a.cols % 4 == 0 && repro_torch::aligned16(a.g) && repro_torch::aligned16(a.m) &&
-         repro_torch::aligned16(a.u) && repro_torch::aligned16(a.m_out);
-}
-
 // The ROWS form: one block per axis-1 line, or per kStrip columns of an
-// axis-0 batch slice (every B10 call, and B1, B4, B7 and B12 where the plan
-// says so). vec (float4 loads of an axis-1 line) needs f32 g and, with
-// WRITE, f32 p.
+// axis-0 batch slice (B1, B4, B7, B10 and B12 where the plan says so). vec
+// (float4 loads of an axis-1 line) needs f32 g and, with WRITE, f32 p.
 template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL, typename P = float, bool WRITE = false>
 void launch_rows(const SlimArgs& a, int axis, bool vec, cudaStream_t s) {
   constexpr bool kF32 = std::is_same<G, float>::value && std::is_same<P, float>::value;
@@ -430,25 +426,7 @@ void launch_rows(const SlimArgs& a, int axis, bool vec, cudaStream_t s) {
   }
 }
 
-// B10's launch: always the ROWS form.
-template <typename G, bool SCALAR_BC>
-void launch_partial(const SlimArgs& a, int axis, cudaStream_t s) {
-  bool vec = false;
-  if constexpr (std::is_same<G, float>::value) vec = axis == 1 && vec_ok(a);
-  const bool snr = a.s1c != nullptr;
-  const bool health = a.nf != nullptr;
-  if (snr && health) {
-    launch_rows<G, SCALAR_BC, true, true, true>(a, axis, vec, s);
-  } else if (snr) {
-    launch_rows<G, SCALAR_BC, true, false, true>(a, axis, vec, s);
-  } else if (health) {
-    launch_rows<G, SCALAR_BC, false, true, true>(a, axis, vec, s);
-  } else {
-    launch_rows<G, SCALAR_BC, false, false, true>(a, axis, vec, s);
-  }
-}
-
-// ---- B1, B4, B7 and B12: the SPLIT and MAJOR forms ------------------------------
+// ---- B1, B4, B7, B10 and B12: the SPLIT and MAJOR forms ------------------------------
 
 // These match the planner's constants in repro_torch/kernels/megaplan.py
 // (and the split walk's in snr_stats.cu).
@@ -1007,7 +985,8 @@ void launch_pieces(const SlimArgs& a, const Walk& w, cudaStream_t s) {
   }
 }
 
-// B12: pass 1 with the m' write, then the combine of the line outputs.
+// B10 and B12: pass 1 with the m' write, then the combine of the line
+// outputs.
 template <typename G, bool VEC, bool SNR, bool HEALTH>
 void launch_partial_pieces(const SlimArgs& a, const Walk& w, cudaStream_t s) {
   const unsigned grid = (unsigned)w.blocks;
@@ -1025,8 +1004,8 @@ void launch_partial_pieces(const SlimArgs& a, const Walk& w, cudaStream_t s) {
   }
 }
 
-// B1, B4, (PARTIAL) B12 and (WRITE) B7 on the plan's form: ROWS (one
-// launch) or the two launches of SPLIT / MAJOR.
+// B1, B4, (PARTIAL) B10 and B12 and (WRITE) B7 on the plan's form: ROWS
+// (one launch) or the two launches of SPLIT / MAJOR.
 template <typename G, bool SCALAR_BC, bool SNR, bool HEALTH, bool PARTIAL, typename P = float, bool WRITE = false>
 void launch_plan_flags(const SlimArgs& a, int axis, const Walk& w, cudaStream_t s) {
   if (w.form == kFormRows) {
@@ -1159,26 +1138,28 @@ extern "C" int repro_mega_slim_partial_stats(const float* g, const float* m, flo
   return (int)cudaGetLastError();
 }
 
-// Pass 1 of the psum pair, per-leaf form (B10). As the group form, except:
-// no plan (the ROWS walk on every view); g is f32 (g_bf16 = 0) or bf16
-// (g_bf16 = 1); with_health (health a (2,) f32 output, else null) writes
-// the per-line nf/ss into the caller's scratch lines nf_lines/ss_lines and
-// then reduces them into health.
+// Pass 1 of the psum pair, per-leaf form (B10). As the group form, on the
+// same plan and kernels, except: g is f32 (g_bf16 = 0) or bf16 (g_bf16 =
+// 1; vec: 8-byte loads of four bf16 g); with_health (health a (2,) f32
+// output, else null) writes the per-line nf/ss into the caller's scratch
+// lines nf_lines/ss_lines and then reduces them into health.
 extern "C" int repro_slim_partial_stats(const void* g, int g_bf16, const float* m, float* m_out, float* part,
                                         float* s1c, float* s2c, float* first, float* nf_lines, float* ss_lines,
                                         float* health, long long batch, long long rows, long long cols, int axis,
-                                        float b1, float omb1, void* stream) {
+                                        int form, int vec, long long seg, long long nseg, long long blocks,
+                                        double* work, float b1, float omb1, void* stream) {
+  const Walk w{form, vec != 0, seg, nseg, blocks, work};
   if (!flags_paired(s1c, s2c) || !flags_paired(s1c, first) || !flags_paired(nf_lines, ss_lines) ||
-      !flags_paired(nf_lines, health)) {
+      !flags_paired(nf_lines, health) || !walk_ok(w, axis)) {
     return (int)cudaErrorInvalidValue;
   }
   SlimArgs a{g, m, nullptr, nullptr, nullptr, nullptr, m_out, nullptr, s1c, s2c, nf_lines, ss_lines, part, first,
              batch, rows, cols, 0.f, b1, omb1, 0.f, 0.f, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_bf16) {
-    launch_partial<__nv_bfloat16, false>(a, axis, s);
+    launch_plan<__nv_bfloat16, false, true>(a, axis, w, s);
   } else {
-    launch_partial<float, false>(a, axis, s);
+    launch_plan<float, false, true>(a, axis, w, s);
   }
   if (health != nullptr) reduce_health(a, axis, health, s);
   return (int)cudaGetLastError();

@@ -5,14 +5,13 @@
 //   * repro/kernels/slim_update.py:329 slim_finalize_batched (kernel bodies
 //     _slim_finalize_kernel :314, launched :374, and _slim_apply_line_kernel
 //     :323, launched :365): scalar bias corrections from the step count
-//     (the per-leaf form, repro_slim_finalize_flat);
+//     (the per-leaf form, B11);
 //   * repro/kernels/megaplan.py:536 mega_slim_finalize_batched (bodies
 //     _mega_finalize_ek_kernel :522, launched :568, and
 //     _mega_finalize_owner_kernel :530, launched :559): bias corrections per
-//     line, one megaplan group in one launch (the group form,
-//     repro_slim_finalize).
-// Per element of a reduction line (axis 1: a row; axis 0: a column), with
-// the line's value read once:
+//     line, one megaplan group in one launch (the group form, B13).
+// Both are repro_slim_finalize_flat. Per element of a reduction line (axis
+// 1: a row; axis 0: a column), with the line's values read once a vector:
 //   ek form:    v' = b2*v + (1-b2)*ek   (ek the cross-rank completed line
 //               mean of g^2), written once per line;
 //   owner form: v' given (the all-reduce already delivered it);
@@ -21,158 +20,42 @@
 // Bound: bytes, 8 B per element (m' read, u written) plus 12-20 B per line.
 // The work is elementwise, so the kernel only has to stream m' and u at the
 // memory rate and read each line value once. Operation order and the _rn
-// intrinsics as in common.cuh, so u and v' match the plain twin bit for bit.
+// intrinsics as in common.cuh, so u and v' match the plain twin bit for bit,
+// and the group form matches the per-leaf form where its lines' bias
+// corrections equal the count's.
 //
-// The group form (repro_slim_finalize) keeps the layouts of mega_slim.cu:
-// one block per contiguous line (axis 1, float4 loads and stores where
-// aligned) or a strip of kStrip columns per block with kRowThreads row
-// threads (axis 0); the block's first thread alone writes v'.
-//
-// The per-leaf form (repro_slim_finalize_flat) serves views of a few million
-// elements, where a block per line or per column strip left the card part
-// idle (144 blocks of 24 dependent row loads on a (12, 384, 384) leaf;
-// 96-thread blocks with one 16-byte load in flight on 384-column lines) and
-// where forming the bias corrections with torch took ~8 small launches a
-// call. So:
-//   * one flat walk over the view for both axes: a grid-stride loop over
-//     tiles of kFlatThreads x kFlatUnroll vectors (float4 where cols % 4 == 0
-//     and the buffers are 16-byte aligned), every thread with kFlatUnroll
-//     loads in flight, on a grid that plan_finalize (slim_update.py) sizes
-//     to the work and to kFlatBlocksPerSm blocks an SM. Vector j of the view lies
-//     in row q = j / (cols/VEC) of the (B*R, C) matrix; its line is q on
-//     axis 1 (one line value for the vector) and b*C + c on axis 0, where a
-//     float4 spans 4 adjacent lines whose values come as one float4 through
-//     the read-only path. In the ek form the thread holding a line's first
+// A block per line or per column strip leaves the card part idle: 144
+// blocks of 24 dependent row loads on a (12, 384, 384) leaf, 96-thread
+// blocks with one 16-byte load in flight on 384-column lines, one block for
+// a rank's 9.66 M-element embedding shard line. Forming the bias
+// corrections with torch took ~8 small launches a call. So:
+//   * one flat walk over the view for both axes and both forms: a
+//     grid-stride loop over tiles of kFlatThreads x kFlatUnroll vectors
+//     (float4 where cols % 4 == 0 and the buffers are 16-byte aligned),
+//     every thread with kFlatUnroll loads in flight, on a grid that
+//     plan_finalize (slim_update.py) sizes to the work and to
+//     kFlatBlocksPerSm blocks an SM. Vector j of the view lies in row
+//     q = j / (cols/VEC) of the (B*R, C) matrix; its line is q on axis 1
+//     (one line value for the vector) and b*C + c on axis 0, where a float4
+//     spans 4 adjacent lines whose values come as one float4 through the
+//     read-only path. In the ek form the thread holding a line's first
 //     element (c == 0 on axis 1, r == 0 on axis 0) alone writes v';
-//   * the bias corrections from the step count in the kernel: a 0-d int32
-//     or int64 count on the device, read once a block by its first thread,
-//     as 1 - b^t in f32 in the JAX package's order (t = (float)count, powf,
-//     one rounded subtraction; no --use_fast_math, so powf is the one torch
-//     calls on the card), or host-rounded f32 values when the count is a
-//     Python int. No torch operation runs around the launch.
+//   * the per-leaf form's bias corrections from the step count in the
+//     kernel: a 0-d int32 or int64 count on the device, read once a block by
+//     its first thread, as 1 - b^t in f32 in the JAX package's order
+//     (t = (float)count, powf, one rounded subtraction; no --use_fast_math,
+//     so powf is the one torch calls on the card), or host-rounded f32
+//     values when the count is a Python int. No torch operation runs around
+//     the launch;
+//   * the group form's bias corrections per line (the LINE_BC flag): read
+//     beside v and ek, from the same line index, one value a vector on axis
+//     1 and a float4 of 4 adjacent lines on axis 0. No count, no barrier.
 #include "common.cuh"
 
 namespace {
 
 using repro_torch::ema;
-using repro_torch::kRowThreads;
-using repro_torch::kStrip;
 using repro_torch::precond;
-
-struct FinalizeArgs {
-  const float* m;    // m' (batch, rows, cols)
-  const float* v;    // stored (ek form) or completed (owner form) moment lines
-  const float* ek;   // ek form: completed line means of g^2, else null
-  const float* bc1;  // one per line
-  const float* bc2;
-  float* u;
-  float* v_out;      // ek form: v' lines, else null
-  long long batch, rows, cols;
-  float b2, omb2, eps;
-};
-
-template <bool EK>
-__device__ __forceinline__ float line_moment(const FinalizeArgs& a, long long line) {
-  if constexpr (EK) {
-    return ema(a.b2, a.v[line], a.omb2, a.ek[line]);
-  } else {
-    return a.v[line];
-  }
-}
-
-template <bool VEC, bool EK>
-__global__ void finalize_minor_kernel(FinalizeArgs a) {
-  const long long line = blockIdx.x;
-  const long long base = line * a.cols;
-  const float v_new = line_moment<EK>(a, line);
-  if (EK && threadIdx.x == 0) a.v_out[line] = v_new;
-  const float c1 = a.bc1[line];
-  const float c2 = a.bc2[line];
-  if constexpr (VEC) {
-    const float4* m4 = reinterpret_cast<const float4*>(a.m + base);
-    float4* u4 = reinterpret_cast<float4*>(a.u + base);
-    for (long long j = threadIdx.x; j < a.cols / 4; j += blockDim.x) {
-      const float4 mm = m4[j];
-      float4 uu;
-      uu.x = precond(mm.x, c1, v_new, c2, a.eps);
-      uu.y = precond(mm.y, c1, v_new, c2, a.eps);
-      uu.z = precond(mm.z, c1, v_new, c2, a.eps);
-      uu.w = precond(mm.w, c1, v_new, c2, a.eps);
-      u4[j] = uu;
-    }
-  } else {
-    for (long long j = threadIdx.x; j < a.cols; j += blockDim.x) {
-      a.u[base + j] = precond(a.m[base + j], c1, v_new, c2, a.eps);
-    }
-  }
-}
-
-template <bool EK>
-__global__ void finalize_major_kernel(FinalizeArgs a) {
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const long long c = (long long)blockIdx.x * kStrip + tx;
-  const long long b = blockIdx.y;
-  if (c >= a.cols) return;
-  const long long li = b * a.cols + c;
-  const float v_new = line_moment<EK>(a, li);
-  if (EK && ty == 0) a.v_out[li] = v_new;
-  const float c1 = a.bc1[li];
-  const float c2 = a.bc2[li];
-  const long long slice = b * a.rows * a.cols;
-  for (long long r = ty; r < a.rows; r += kRowThreads) {
-    const long long i = slice + r * a.cols + c;
-    a.u[i] = precond(a.m[i], c1, v_new, c2, a.eps);
-  }
-}
-
-template <bool EK>
-void launch(const FinalizeArgs& a, int axis, cudaStream_t s) {
-  if (axis == 1) {
-    const bool vec = a.cols % 4 == 0 && repro_torch::aligned16(a.m) && repro_torch::aligned16(a.u);
-    long long threads = (((vec ? a.cols / 4 : a.cols) + 31) / 32) * 32;
-    if (threads > 1024) threads = 1024;
-    if (threads < 32) threads = 32;
-    const unsigned lines = (unsigned)(a.batch * a.rows);
-    if (vec) {
-      finalize_minor_kernel<true, EK><<<lines, (unsigned)threads, 0, s>>>(a);
-    } else {
-      finalize_minor_kernel<false, EK><<<lines, (unsigned)threads, 0, s>>>(a);
-    }
-  } else {
-    dim3 grid((unsigned)((a.cols + kStrip - 1) / kStrip), (unsigned)a.batch);
-    dim3 block(kStrip, kRowThreads);
-    finalize_major_kernel<EK><<<grid, block, 0, s>>>(a);
-  }
-}
-
-}  // namespace
-
-// m, u: contiguous f32 (batch, rows, cols). v, ek, v_out: contiguous f32
-// lines, (batch, rows, 1) for axis 1 and (batch, 1, cols) for axis 0; ek and
-// v_out both set (ek form) or both null (owner form). bc1, bc2: f32 lines
-// like v. omb2 = 1-b2 rounded by the caller. The caller guarantees
-// batch*rows < 2^31 (axis 1) and batch < 65536 (axis 0). Returns the
-// cudaError_t of the launch.
-extern "C" int repro_slim_finalize(const float* m, const float* v, const float* ek, const float* bc1,
-                                   const float* bc2, float* u, float* v_out, long long batch, long long rows,
-                                   long long cols, int axis, float b2, float omb2, float eps, void* stream) {
-  if ((ek == nullptr) != (v_out == nullptr)) return (int)cudaErrorInvalidValue;
-  FinalizeArgs a{m, v, ek, bc1, bc2, u, v_out, batch, rows, cols, b2, omb2, eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ek != nullptr) {
-    launch<true>(a, axis, s);
-  } else {
-    launch<false>(a, axis, s);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The per-leaf form: one flat walk, bias corrections from the count.
-// ---------------------------------------------------------------------------
-
-namespace {
 
 // plan_finalize's FLAT_THREADS, FLAT_UNROLL and FLAT_BLOCKS_PER_SM
 // (slim_update.py). Two vectors a thread in flight: four spilled on axis 0
@@ -185,6 +68,8 @@ struct FlatArgs {
   const float* m;      // m' (batch, rows, cols)
   const float* v;      // stored (ek form) or completed (owner form) moment lines
   const float* ek;     // ek form: completed line means of g^2, else null
+  const float* bc1l;   // LINE_BC: the bias corrections, one a line like v; else null
+  const float* bc2l;
   float* u;
   float* v_out;        // ek form: v' lines, else null
   const void* count;   // 0-d int32 (or int64) step count on the device, or null: bc1, bc2 given
@@ -238,23 +123,25 @@ __device__ __forceinline__ void store_vec(float* p, const float (&x)[N]) {
 }
 
 // VEC elements a vector (4: float4), kFlatUnroll vectors a thread per tile,
-// I the index type (32-bit below 2^31 elements). The tile loop's bound is
+// I the index type (32-bit below 2^31 elements). LINE_BC: the bias
+// corrections are lines, loaded with v. Otherwise the tile loop's bound is
 // uniform over the block (every block of plan_finalize's grid has a first
-// tile), so the one barrier, which publishes the bias corrections, sits
+// tile), so the one barrier, which publishes the scalar corrections, sits
 // after the first tile's loads are issued.
-template <int VEC, bool EK, int AXIS, typename I>
+template <int VEC, bool EK, int AXIS, typename I, bool LINE_BC>
 __global__ void __launch_bounds__(kFlatThreads, kFlatBlocksPerSm) finalize_flat_kernel(FlatArgs a) {
   constexpr int LV = AXIS == 1 ? 1 : VEC;  // line values a vector spans
   __shared__ float bc[2];
-  if (threadIdx.x == 0) bias_corrections(a, bc);
+  if (!LINE_BC && threadIdx.x == 0) bias_corrections(a, bc);
   const I nv = (I)(a.n / VEC);
   const I row_v = (I)(a.cols / VEC);
   const I rows = (I)a.rows;
   const I tile = (I)kFlatThreads * kFlatUnroll;
   float c1 = 0.0f, c2 = 0.0f;
-  bool have_bc = false;
+  bool have_bc = LINE_BC;
   for (I t0 = (I)blockIdx.x * tile; t0 < nv; t0 += (I)gridDim.x * tile) {
-    float mm[kFlatUnroll][VEC], vl[kFlatUnroll][LV], el[kFlatUnroll][LV];
+    float mm[kFlatUnroll][VEC], vl[kFlatUnroll][LV], el[kFlatUnroll][LV], b1l[kFlatUnroll][LV],
+        b2l[kFlatUnroll][LV];
     I line[kFlatUnroll];
     bool first[kFlatUnroll];
 #pragma unroll
@@ -274,6 +161,10 @@ __global__ void __launch_bounds__(kFlatThreads, kFlatBlocksPerSm) finalize_flat_
         load_vec(a.m + (size_t)j * VEC, mm[k]);
         load_line(a.v + line[k], vl[k]);
         if constexpr (EK) load_line(a.ek + line[k], el[k]);
+        if constexpr (LINE_BC) {
+          load_line(a.bc1l + line[k], b1l[k]);
+          load_line(a.bc2l + line[k], b2l[k]);
+        }
       }
     }
     if (!have_bc) {
@@ -290,7 +181,14 @@ __global__ void __launch_bounds__(kFlatThreads, kFlatBlocksPerSm) finalize_flat_
 #pragma unroll
         for (int i = 0; i < LV; ++i) vn[i] = EK ? ema(a.b2, vl[k][i], a.omb2, el[k][i]) : vl[k][i];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) uu[i] = precond(mm[k][i], c1, vn[LV == 1 ? 0 : i], c2, a.eps);
+        for (int i = 0; i < VEC; ++i) {
+          const int li = LV == 1 ? 0 : i;
+          if constexpr (LINE_BC) {
+            uu[i] = precond(mm[k][i], b1l[k][li], vn[li], b2l[k][li], a.eps);
+          } else {
+            uu[i] = precond(mm[k][i], c1, vn[li], c2, a.eps);
+          }
+        }
         store_vec(a.u + (size_t)j * VEC, uu);
         if (EK && first[k]) store_vec(a.v_out + line[k], vn);
       }
@@ -298,58 +196,70 @@ __global__ void __launch_bounds__(kFlatThreads, kFlatBlocksPerSm) finalize_flat_
   }
 }
 
-template <int VEC, bool EK, int AXIS>
+template <int VEC, bool EK, int AXIS, bool LINE_BC>
 void flat_index(const FlatArgs& a, bool wide, unsigned blocks, cudaStream_t s) {
   if (wide) {
-    finalize_flat_kernel<VEC, EK, AXIS, unsigned long long><<<blocks, kFlatThreads, 0, s>>>(a);
+    finalize_flat_kernel<VEC, EK, AXIS, unsigned long long, LINE_BC><<<blocks, kFlatThreads, 0, s>>>(a);
   } else {
-    finalize_flat_kernel<VEC, EK, AXIS, unsigned><<<blocks, kFlatThreads, 0, s>>>(a);
+    finalize_flat_kernel<VEC, EK, AXIS, unsigned, LINE_BC><<<blocks, kFlatThreads, 0, s>>>(a);
   }
 }
 
-template <int VEC, bool EK>
+template <int VEC, bool EK, bool LINE_BC>
 void flat_axis(const FlatArgs& a, int axis, bool wide, unsigned blocks, cudaStream_t s) {
   if (axis == 1) {
-    flat_index<VEC, EK, 1>(a, wide, blocks, s);
+    flat_index<VEC, EK, 1, LINE_BC>(a, wide, blocks, s);
   } else {
-    flat_index<VEC, EK, 0>(a, wide, blocks, s);
+    flat_index<VEC, EK, 0, LINE_BC>(a, wide, blocks, s);
+  }
+}
+
+template <int VEC, bool LINE_BC>
+void flat_form(const FlatArgs& a, int axis, bool wide, unsigned blocks, cudaStream_t s) {
+  if (a.ek != nullptr) {
+    flat_axis<VEC, true, LINE_BC>(a, axis, wide, blocks, s);
+  } else {
+    flat_axis<VEC, false, LINE_BC>(a, axis, wide, blocks, s);
   }
 }
 
 template <int VEC>
-void flat_form(const FlatArgs& a, int axis, bool wide, unsigned blocks, cudaStream_t s) {
-  if (a.ek != nullptr) {
-    flat_axis<VEC, true>(a, axis, wide, blocks, s);
+void flat_bc(const FlatArgs& a, int axis, bool wide, unsigned blocks, cudaStream_t s) {
+  if (a.bc1l != nullptr) {
+    flat_form<VEC, true>(a, axis, wide, blocks, s);
   } else {
-    flat_axis<VEC, false>(a, axis, wide, blocks, s);
+    flat_form<VEC, false>(a, axis, wide, blocks, s);
   }
 }
 
 }  // namespace
 
-// m, u: contiguous f32 (batch, rows, cols). v, ek, v_out: contiguous f32
-// lines, (batch, rows, 1) for axis 1 and (batch, 1, cols) for axis 0; ek and
-// v_out both set (ek form) or both null (owner form). count: a 0-d int32
-// (count_is64 = 0) or int64 (1) step count on the device, or null, and then
-// bc1, bc2 are the bias corrections. omb2 = 1-b2 rounded by the caller. The
-// plan is plan_finalize's: vec 4 needs cols % 4 == 0 and m, u (axis 0: also
-// v, ek, v_out) 16-byte aligned; wide for views of 2^31
-// elements or more; 1 <= blocks <= the vectors' tiles. Returns the
-// cudaError_t of the launch.
-extern "C" int repro_slim_finalize_flat(const float* m, const float* v, const float* ek, float* u, float* v_out,
-                                        const void* count, int count_is64, float bc1, float bc2, float b1, float b2,
-                                        float omb2, float eps, long long batch, long long rows, long long cols,
-                                        int axis, int vec, int wide, long long blocks, void* stream) {
-  if ((ek == nullptr) != (v_out == nullptr) || (vec != 1 && vec != 4) || (axis != 0 && axis != 1) ||
-      cols % vec != 0 || blocks < 1 || blocks > 0x7fffffffLL) {
+// m, u: contiguous f32 (batch, rows, cols). v, ek, v_out and bc1l, bc2l:
+// contiguous f32 lines, (batch, rows, 1) for axis 1 and (batch, 1, cols) for
+// axis 0; ek and v_out both set (ek form) or both null (owner form). bc1l
+// and bc2l both set (the group form: bias corrections a line; count, bc1 and
+// bc2 unused) or both null. Else count: a 0-d int32 (count_is64 = 0) or
+// int64 (1) step count on the device, or null, and then bc1, bc2 are the
+// bias corrections. omb2 = 1-b2 rounded by the caller. The plan is
+// plan_finalize's: vec 4 needs cols % 4 == 0 and m, u (axis 0: also the
+// lines) 16-byte aligned; wide for views of 2^31 elements or more; 1 <=
+// blocks <= the vectors' tiles. Returns the cudaError_t of the launch.
+extern "C" int repro_slim_finalize_flat(const float* m, const float* v, const float* ek, const float* bc1l,
+                                        const float* bc2l, float* u, float* v_out, const void* count,
+                                        int count_is64, float bc1, float bc2, float b1, float b2, float omb2,
+                                        float eps, long long batch, long long rows, long long cols, int axis,
+                                        int vec, int wide, long long blocks, void* stream) {
+  if ((ek == nullptr) != (v_out == nullptr) || (bc1l == nullptr) != (bc2l == nullptr) || (vec != 1 && vec != 4) ||
+      (axis != 0 && axis != 1) || cols % vec != 0 || blocks < 1 || blocks > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
-  FlatArgs a{m, v, ek, u, v_out, count, count_is64, bc1, bc2, b1, b2, omb2, eps, rows, cols, batch * rows * cols};
+  FlatArgs a{m, v, ek, bc1l, bc2l, u, v_out, count, count_is64, bc1, bc2, b1, b2, omb2, eps, rows, cols,
+             batch * rows * cols};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    flat_form<4>(a, axis, wide != 0, (unsigned)blocks, s);
+    flat_bc<4>(a, axis, wide != 0, (unsigned)blocks, s);
   } else {
-    flat_form<1>(a, axis, wide != 0, (unsigned)blocks, s);
+    flat_bc<1>(a, axis, wide != 0, (unsigned)blocks, s);
   }
   return (int)cudaGetLastError();
 }

@@ -35,10 +35,11 @@ The optimizer kernels live here beside their plain twins:
   walk that writes m' and f64 shares, then a fixed-order combine). Bound
   by bytes: 12 B per element plus 4 B per line (12 B more with
   ``with_snr``, 8 B with ``with_health``).
-* :func:`mega_slim_finalize_batched` (B13) — ``csrc/slim_finalize.cu`` with
-  line bias corrections, replacing ``repro/kernels/megaplan.py:536``
-  (``pallas_call`` :559 owner form, :568 ek form). Bound by bytes: 8 B per
-  element plus 16-20 B per line.
+* :func:`mega_slim_finalize_batched` (B13) — ``csrc/slim_finalize.cu``,
+  B11's flat walk with bias corrections given a line, replacing
+  ``repro/kernels/megaplan.py:536`` (``pallas_call`` :559 owner form, :568
+  ek form), on ``slim_update.plan_finalize``'s grid. Bound by bytes: 8 B
+  per element plus 16-20 B per line.
 
 The ``.cu`` files' notes say how each design follows from its bound.
 """
@@ -239,7 +240,7 @@ _SLIM_ARGTYPES = [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYP
 _MAX_GRID_Y = 65535
 _MAX_GRID_X = 2**31 - 1
 
-# The split walk of B1, B4, B7 and B12 (csrc/mega_slim.cu, which matches):
+# The split walk of B1, B4, B7, B10 and B12 (csrc/mega_slim.cu, which matches):
 # 256-thread blocks; pieces of 4096 to 16384 elements (64 KB to 256 KB of
 # B1's 16 B an element; B7 moves 20 B, B12 12 B); the axis-0 ROWS form's
 # 32-column strips (kStrip).
@@ -251,7 +252,7 @@ FORM_ROWS, FORM_SPLIT, FORM_MAJOR = 0, 1, 2
 
 @dataclasses.dataclass(frozen=True)
 class SlimPlan:
-    """The grid of one B1, B4, B7 or B12 call on a (B, R, C) view
+    """The grid of one B1, B4, B7, B10 or B12 call on a (B, R, C) view
     (``SplitPlan``'s shape, with the axis, since the ROWS form serves both).
     FORM_ROWS: one block per axis-1 line, or per STRIP columns of an axis-0
     batch slice (``nseg == 1``, one launch). FORM_SPLIT: block b takes segment b % nseg
@@ -259,7 +260,7 @@ class SlimPlan:
     FORM_MAJOR: block b takes row chunk b % nseg (``seg`` rows) of column
     tile b // nseg (TILE_VEC or TILE_SCALAR columns). SPLIT and MAJOR run
     two launches over the same ``blocks`` pieces (pass 2 in reverse block
-    order; B12's second launch combines the shares instead) and need a
+    order; B10's and B12's second launch combines the shares instead) and need a
     (planes, lines * nseg) f64 workspace."""
     form: int
     vec: bool        # four elements a load (aligned view, inner size a multiple of 4)
@@ -282,7 +283,7 @@ class SlimPlan:
 
 @functools.lru_cache(maxsize=None)
 def plan_slim(batch: int, rows: int, cols: int, axis: int, *, sms: int, aligned: bool) -> SlimPlan:
-    """The grid of B1, B4, B7 and B12 on a (batch, rows, cols) view reduced
+    """The grid of B1, B4, B7, B10 and B12 on a (batch, rows, cols) view reduced
     along ``axis`` on a card with ``sms`` SMs; ``aligned``: g, m (and B7's
     p) and the outputs start where four-element loads may. Pieces are
     SLIM_SEG_MIN to SLIM_SEG_MAX elements, sized for about WAVES blocks per
@@ -320,7 +321,7 @@ last_plans: Dict[str, SlimPlan] = {}
 
 def slim_walk(kernel: str, g: torch.Tensor, m: torch.Tensor, axis: int, *, with_snr: bool, with_health: bool,
               p: Optional[torch.Tensor] = None):
-    """The plan's arguments for a B1/B4/B7/B12 launch on the card, after
+    """The plan's arguments for a B1/B4/B7/B10/B12 launch on the card, after
     the view's: (form, vec, seg, nseg, blocks, workspace pointer), and the
     f64 workspace of split views' shares (g^2, then s1c and s2c, then nf
     and ss a piece; None for ROWS), which the caller holds until it has
@@ -515,8 +516,9 @@ def mega_slim_finalize_batched(m_new, v_line, bc1, bc2, *, axis: int, ek=None, b
     corrections ``bc1``/``bc2`` shaped like ``v_line``. With ``ek`` (the
     completed line means) returns ``(u, v')``; with ``ek=None`` (owner form,
     ``v_line`` already the completed moment) returns u. CUDA tensors launch
-    the kernel; CPU tensors take the plain version."""
-    from .slim_update import check_finalize, launch_finalize, slim_finalize_batched_plain
+    the kernel (B11's flat walk on ``plan_finalize``'s grid, one launch);
+    CPU tensors take the plain version."""
+    from .slim_update import check_finalize, finalize_plan, launch_finalize_flat, slim_finalize_batched_plain
 
     device = check_finalize("mega_slim_finalize_batched", m_new, v_line, ek, axis)
     if bc1.shape != v_line.shape or bc2.shape != v_line.shape:
@@ -525,7 +527,9 @@ def mega_slim_finalize_batched(m_new, v_line, bc1, bc2, *, axis: int, ek=None, b
     build.check_operands("mega_slim_finalize_batched", m_new=m_new, bc1=bc1, bc2=bc2)
     if device.type == "cpu":
         return slim_finalize_batched_plain(m_new, v_line, bc1, bc2, b2=b2, eps=eps, ek=ek)
-    out = launch_finalize("mega_slim_finalize_batched", m_new, v_line, ek, bc1, bc2, axis=axis, b2=b2, eps=eps)
+    plan = finalize_plan(m_new, axis, (v_line, ek, bc1, bc2))
+    out = launch_finalize_flat(plan, m_new, v_line, ek, None, b1=0.0, b2=b2, eps=eps, bc_lines=(bc1, bc2),
+                               kernel="mega_slim_finalize_batched")
     mega_slim_finalize_batched.launches += 1
     return out
 

@@ -30,12 +30,16 @@ and no launch forms them.
 
 The psum pair, for a leaf whose reduction dims are split across ranks:
 
-* B10 ``slim_partial_stats_batched`` — the PARTIAL instantiation of the same
-  line walk in ``csrc/mega_slim.cu`` (``repro_slim_partial_stats``),
+* B10 ``slim_partial_stats_batched`` — the PARTIAL instantiation of the
+  split walk in ``csrc/mega_slim.cu`` (``repro_slim_partial_stats``),
   replacing ``repro/kernels/slim_update.py:260`` (body
   ``_slim_partial_kernel`` :244, ``pallas_call`` :304): m' and the line's
   partial sum of g^2, with the flags' outputs. Bound by bytes: 12 B per f32
-  element plus 4 B per line (12 B more with ``with_snr``).
+  element (10 B with bf16 g) plus 4 B per line (12 B more with
+  ``with_snr``). It takes B12's plan (``megaplan.slim_walk``) and kernels:
+  ROWS where a line fits a piece, else one walk that writes m' and f64
+  shares and a fixed-order combine, so B10 and B12 give equal bits on the
+  same operands.
 * B11 ``slim_finalize_batched`` — ``csrc/slim_finalize.cu``
   (``repro_slim_finalize_flat``), replacing
   ``repro/kernels/slim_update.py:329`` (``pallas_call`` :365 owner form,
@@ -45,7 +49,8 @@ The psum pair, for a leaf whose reduction dims are split across ranks:
   on the CPU); the bias corrections come from the step count inside the
   kernel (a 0-d int32 or int64 count on the card, read by pointer) or as
   host-rounded floats (a Python int), so a call is one launch and no other
-  device work.
+  device work. B13 (``megaplan.mega_slim_finalize_batched``) runs the same
+  walk with bias corrections given a line.
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ import torch
 
 from . import build
 from .fused_adam import G_DTYPES, P_DTYPES, bias_corrections, health_terms, host_bias_corrections, param_step
-from .megaplan import PLAN_ARGTYPES, check_slim_grid, mega_slim_update_batched_plain, slim_line_shape, slim_walk
+from .megaplan import PLAN_ARGTYPES, mega_slim_update_batched_plain, slim_line_shape, slim_walk
 from .snr_stats import centered_line_stats
 
 _ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYPES
@@ -204,9 +209,8 @@ def slim_update_major(p, g, m, v_col, **kw):
 # The sharded psum pair (B10, B11)
 # ---------------------------------------------------------------------------
 
-_PARTIAL_ARGTYPES = [build.PTR, build.INT] + [build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 2 \
-    + [build.PTR]
-_FINALIZE_ARGTYPES = [build.PTR] * 7 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 3 + [build.PTR]
+_PARTIAL_ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYPES
+                     + [build.F32] * 2 + [build.PTR])
 
 
 def slim_partial_stats_batched_plain(g, m, *, axis, b1, with_snr: bool = False, with_health: bool = False):
@@ -231,15 +235,15 @@ def slim_partial_stats_batched(g, m, *, axis: int, b1: float = 0.9, with_snr: bo
     slice's first entry, and that shift (what
     ``repro_torch.kernels.ref.rebase_centered_stats`` needs); with
     ``with_health`` the shard's (2,) ``[nonfinite_count, finite_sumsq]``,
-    always last. CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    always last. CUDA tensors launch the kernel on ``plan_slim``'s grid
+    (kept in ``megaplan.last_plans``); CPU tensors take the plain version."""
     if g.ndim != 3 or axis not in (0, 1) or m.shape != g.shape:
         raise ValueError(f"slim_partial_stats_batched: want g, m (B, R, C) and axis 0|1, got "
                          f"{tuple(g.shape)}, {tuple(m.shape)}, axis {axis}")
     device = build.check_operands("slim_partial_stats_batched", dtypes={"g": G_DTYPES}, g=g, m=m)
     if device.type == "cpu":
         return slim_partial_stats_batched_plain(g, m, axis=axis, b1=b1, with_snr=with_snr, with_health=with_health)
-    check_slim_grid("slim_partial_stats_batched", g, axis)
+    walk, work = slim_walk("slim_partial_stats_batched", g, m, axis, with_snr=with_snr, with_health=with_health)
     line = slim_line_shape(g, axis)
     m_out = torch.empty(g.shape, dtype=torch.float32, device=device)
     part = torch.empty(line, dtype=torch.float32, device=device)
@@ -250,7 +254,7 @@ def slim_partial_stats_batched(g, m, *, axis: int, b1: float = 0.9, with_snr: bo
     fn = build.entry("repro_slim_partial_stats", _PARTIAL_ARGTYPES)
     build.launch("slim_partial_stats_batched", fn, device, g.data_ptr(), int(g.dtype == torch.bfloat16),
                  m.data_ptr(), m_out.data_ptr(), part.data_ptr(), *map(build.ptr, (*snr, *lines, health)),
-                 b, r, c, axis, b1, 1.0 - b1)
+                 b, r, c, axis, *walk, b1, 1.0 - b1)
     slim_partial_stats_batched.launches += 1
     return (m_out, part) + (snr if with_snr else ()) + ((health,) if with_health else ())
 
@@ -279,19 +283,6 @@ def check_finalize(kernel: str, m_new, v_line, ek, axis: int) -> torch.device:
     return build.check_operands(kernel, m_new=m_new, **lines)
 
 
-def launch_finalize(kernel: str, m_new, v_line, ek, bc1, bc2, *, axis: int, b2: float, eps: float):
-    """Launch ``repro_slim_finalize`` (bias corrections ``bc1``, ``bc2``
-    one a line); returns u, and v' with ``ek``."""
-    check_slim_grid(kernel, m_new, axis)
-    u = torch.empty_like(m_new)
-    v_out = torch.empty_like(v_line) if ek is not None else None
-    b, r, c = m_new.shape
-    fn = build.entry("repro_slim_finalize", _FINALIZE_ARGTYPES)
-    build.launch(kernel, fn, m_new.device, m_new.data_ptr(), v_line.data_ptr(), build.ptr(ek), bc1.data_ptr(),
-                 bc2.data_ptr(), u.data_ptr(), build.ptr(v_out), b, r, c, axis, b2, 1.0 - b2, eps)
-    return u if ek is None else (u, v_out)
-
-
 # The flat walk's geometry; kFlatThreads, kFlatUnroll and kFlatBlocksPerSm
 # in csrc/slim_finalize.cu match.
 FLAT_THREADS = 256
@@ -299,16 +290,17 @@ FLAT_UNROLL = 2            # vectors a thread keeps in flight
 FLAT_BLOCKS_PER_SM = 4     # what the walk's __launch_bounds__ guarantees
 WIDE = 2**31               # views of this many elements or more index in 64 bits
 COUNT_DTYPES = (torch.int32, torch.int64)
-_FLAT_ARGTYPES = ([build.PTR] * 6 + [build.INT] + [build.F32] * 6 + [build.SIZE] * 3 + [build.INT] * 3
+_FLAT_ARGTYPES = ([build.PTR] * 8 + [build.INT] + [build.F32] * 6 + [build.SIZE] * 3 + [build.INT] * 3
                   + [build.SIZE, build.PTR])
 
 
 @dataclasses.dataclass(frozen=True)
 class FinalizePlan:
-    """The grid of one B11 call on a (B, R, C) view: ``blocks`` blocks of
-    FLAT_THREADS threads walk tiles of FLAT_THREADS x FLAT_UNROLL vectors of
-    ``vec`` elements, block i taking tiles i, i + blocks, ...; vector j of
-    a tile is thread j % FLAT_THREADS's (j // FLAT_THREADS)-th load."""
+    """The grid of one B11 or B13 call on a (B, R, C) view: ``blocks``
+    blocks of FLAT_THREADS threads walk tiles of FLAT_THREADS x FLAT_UNROLL
+    vectors of ``vec`` elements, block i taking tiles i, i + blocks, ...;
+    vector j of a tile is thread j % FLAT_THREADS's (j // FLAT_THREADS)-th
+    load."""
     batch: int
     rows: int
     cols: int
@@ -325,6 +317,10 @@ class FinalizePlan:
     def tile(self) -> int:
         return FLAT_THREADS * FLAT_UNROLL
 
+    def describe(self) -> str:
+        """The walk's vectors and blocks, as the logs print them."""
+        return f"flat, {'float4' if self.vec == 4 else 'scalar'}, {self.blocks} blocks"
+
 
 @functools.lru_cache(maxsize=None)
 def plan_finalize(b: int, r: int, c: int, axis: int, sms: int, *, aligned: bool = True) -> FinalizePlan:
@@ -334,7 +330,7 @@ def plan_finalize(b: int, r: int, c: int, axis: int, sms: int, *, aligned: bool 
     lies in one line and on axis 0 in 4 adjacent lines). A grid of one
     block a tile up to FLAT_BLOCKS_PER_SM blocks an SM, beyond which the
     blocks walk further tiles. Pure integer arithmetic: it reads no
-    tensor and makes no CUDA call (and is cached, as the wrapper asks for
+    tensor and makes no CUDA call (and is cached, as the wrappers ask for
     every launch)."""
     if min(b, r, c) < 1 or axis not in (0, 1) or sms < 1:
         raise ValueError(f"plan_finalize: want a non-empty (B, R, C), axis 0|1 and sms >= 1, got "
@@ -356,19 +352,34 @@ def check_count(kernel: str, count, device: torch.device):
     return count
 
 
-def launch_finalize_flat(plan: FinalizePlan, m_new, v_line, ek, count, *, b1: float, b2: float, eps: float):
+def finalize_plan(m_new, axis: int, lines) -> FinalizePlan:
+    """``plan_finalize``'s grid for a call on the card. ``lines``: the line
+    operands (v, ek and B13's bias corrections; None where absent), read as
+    float4 on axis 0, where they count in the alignment; u and v' are
+    fresh, so aligned."""
+    read = (m_new, *lines) if axis == 0 else (m_new,)
+    aligned = all(t.data_ptr() % 16 == 0 for t in read if t is not None)
+    return plan_finalize(*m_new.shape, axis, build.sm_count(m_new.device), aligned=aligned)
+
+
+def launch_finalize_flat(plan: FinalizePlan, m_new, v_line, ek, count, *, b1: float, b2: float, eps: float,
+                         bc_lines=None, kernel: str = "slim_finalize_batched"):
     """Launch ``repro_slim_finalize_flat`` on ``plan``; returns u, and v'
-    with ``ek``. ``count``: an int (host bias corrections) or a 0-d int32
-    or int64 tensor on the card (read by the kernel)."""
+    with ``ek``. The bias corrections: ``bc_lines`` (B13's (bc1, bc2), a
+    value a line, shaped like ``v_line``; ``count`` and ``b1`` unused), or
+    from ``count``: an int (host-rounded) or a 0-d int32 or int64 tensor on
+    the card (read by the kernel)."""
     u = torch.empty_like(m_new)
     v_out = torch.empty_like(v_line) if ek is not None else None
-    host = not isinstance(count, torch.Tensor)
+    on_card = isinstance(count, torch.Tensor)
+    host = bc_lines is None and not on_card
     bc1, bc2 = host_bias_corrections(b1, b2, count) if host else (1.0, 1.0)
     fn = build.entry("repro_slim_finalize_flat", _FLAT_ARGTYPES)
-    build.launch("slim_finalize_batched", fn, m_new.device, m_new.data_ptr(), v_line.data_ptr(), build.ptr(ek),
-                 u.data_ptr(), build.ptr(v_out), None if host else count.data_ptr(),
-                 int(not host and count.dtype == torch.int64), bc1, bc2, b1, b2, 1.0 - b2, eps, plan.batch,
-                 plan.rows, plan.cols, plan.axis, plan.vec, int(plan.wide), plan.blocks)
+    build.launch(kernel, fn, m_new.device, m_new.data_ptr(), v_line.data_ptr(), build.ptr(ek),
+                 *map(build.ptr, bc_lines or (None, None)), u.data_ptr(), build.ptr(v_out),
+                 count.data_ptr() if on_card else None, int(on_card and count.dtype == torch.int64), bc1, bc2, b1,
+                 b2, 1.0 - b2, eps, plan.batch, plan.rows, plan.cols, plan.axis, plan.vec, int(plan.wide),
+                 plan.blocks)
     return u if ek is None else (u, v_out)
 
 
@@ -389,11 +400,7 @@ def slim_finalize_batched(m_new, v_line, *, axis: int, ek=None, b1: float = 0.9,
         bc1, bc2 = (bias_corrections(b1, b2, count) if isinstance(count, torch.Tensor)
                     else host_bias_corrections(b1, b2, count))
         return slim_finalize_batched_plain(m_new, v_line, bc1, bc2, b2=b2, eps=eps, ek=ek)
-    b, r, c = m_new.shape
-    # float4 line values on axis 0; u and v' are fresh, so aligned.
-    read = (m_new, v_line, ek) if axis == 0 else (m_new,)
-    aligned = all(t.data_ptr() % 16 == 0 for t in read if t is not None)
-    plan = plan_finalize(b, r, c, axis, build.sm_count(device), aligned=aligned)
+    plan = finalize_plan(m_new, axis, (v_line, ek))
     out = launch_finalize_flat(plan, m_new, v_line, ek, count, b1=b1, b2=b2, eps=eps)
     slim_finalize_batched.launches += 1
     return out

@@ -180,3 +180,43 @@ def _state_np(tree):
     from repro_torch.checkpoint.store import named_leaves
 
     return {name: _np(leaf) for name, leaf in named_leaves(tree)}
+
+
+def adalayer_updates(mesh, arrays, grads, lr):
+    """Reduced gpt_small's AdaLayer (one second moment a parameter block)
+    through the sharded fused backend, by the grouped route (B12/B13) and
+    the per-leaf one (B10/B11): an update for each of ``grads``' steps,
+    applied. Returns the regime counts, which leaves take the psum regime,
+    each step's whole update and the last state's m' shards by name, and
+    the parameters' specs."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import Transformer
+    from repro_torch.optim import apply_updates
+    from repro_torch.optim import fused as F
+    from repro_torch.sharding import ShardingContext, param_specs, use_sharding
+    from repro_torch.sharding.shardspec import regime_counts
+    from repro_torch.train.trainer import make_optimizer, slim_rule_dims
+
+    meta = Transformer(get_reduced("gpt_small"), device="cpu").meta
+    base = params_from_numpy(arrays, "cpu")
+    with use_sharding(ShardingContext(mesh)):
+        specs = param_specs(meta, base)
+    dims = slim_rule_dims("adalayer", base, meta)
+    plans = F.sharded_tree_plans(list(base.values()), [dims[k] for k in base], [specs[k] for k in base], mesh)
+    out = {"coords": dict(mesh.coords), "regimes": regime_counts(plans),
+           "psum": sorted(k for k, pl in zip(base, plans) if pl.regime == "psum"),
+           "specs": {k: tuple(tuple(e) if isinstance(e, (list, tuple)) else e for e in specs[k]) for k in base}}
+    for route, mk in (("grouped", True), ("per_leaf", False)):
+        params = {k: v.clone() for k, v in base.items()}
+        tx = make_optimizer("adalayer", lr, params, meta, backend="fused", megakernel=mk, mesh=mesh,
+                            param_specs=specs)
+        state = tx.init(params)
+        updates = []
+        with torch.no_grad():
+            for g in grads:
+                upd, state = tx.update({k: torch.from_numpy(v) for k, v in g.items()}, state, params)
+                apply_updates(params, upd)
+                updates.append({k: _np(x) for k, x in upd.items()})
+        out[route] = {"updates": updates, "state": _state_np(state)}
+    return out

@@ -18,7 +18,7 @@ p' may round one bf16 step apart where the f32 values straddle a rounding
 boundary (2^-8 of the largest |p|). The selective scan's y and final state
 compose chunks of the sequence and take exp2 of dt*a*log2(e), where the
 twin steps in order with exp (1e-5); both forms rerun bit for bit, as do
-the split walks of the line sums and of B1, B4, B7 and B12. The line sums
+the split walks of the line sums and of B1, B4, B7, B10 and B12. The line sums
 of g^2 on long heavy-tailed lines (B1's, B4's and B7's v', B12's partial
 sums) hold to an f64 reference at 1e-6.
 """
@@ -287,15 +287,19 @@ def _write_partial_call(kernel, b, r, c, axis):
     return lambda: megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9)
 
 
-def _b10_call(b, r, c, axis):
+def _b10_call(b, r, c, axis, bf16):
     g, m, _, _, _ = _inputs(torch.device("cuda"), (b, r, c), (b, r, 1) if axis == 1 else (b, 1, c), 9)
+    g = g.to(torch.bfloat16) if bf16 else g
     return lambda: slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9)
 
 
-def _finalize_call(form):
+def _finalize_call(kernel, form):
     line = (12, 1, 384)
-    _, m, v, ek, _ = _inputs(torch.device("cuda"), (12, 384, 384), line, 11)
+    _, m, v, ek, bc1 = _inputs(torch.device("cuda"), (12, 384, 384), line, 11)
     ek = ek if form == "ek" else None
+    if kernel == "B13":
+        bc2 = bc1 + 0.5
+        return lambda: megaplan.mega_slim_finalize_batched(m, v, bc1, bc2, axis=0, ek=ek, b2=0.95, eps=1e-8)
     count = torch.tensor(3, dtype=torch.int32, device="cuda")
     return lambda: slim_update.slim_finalize_batched(m, v, axis=0, ek=ek, count=count, **KW)
 
@@ -314,10 +318,10 @@ WRITE_PARTIAL_KERNELS = [
     (1, 300, 768, 1, {"B7": ("slim_minor_kernel",), "B12": ("slim_minor_kernel",)}),
     (12, 768, 1536, 0, {"B7": ("slim_major_kernel",), "B12": ("slim_major_kernel",)}),
 ]
-B10_SPLIT_VIEWS = [(1, 1, 786432, 1), (1, 2000, 256, 0), (1, 4608, 1536, 0)]
 TRACED_CALLS = ([("_b1_call", v[:4]) for v in SLIM_FORM_KERNELS]
                 + [("_write_partial_call", (k,) + v[:4]) for v in WRITE_PARTIAL_KERNELS for k in ("B7", "B12")]
-                + [("_b10_call", v) for v in B10_SPLIT_VIEWS] + [("_finalize_call", (f,)) for f in ("ek", "owner")])
+                + [("_b10_call", v[:4] + (bf16,)) for v in WRITE_PARTIAL_KERNELS for bf16 in (False, True)]
+                + [("_finalize_call", (k, f)) for k in ("B11", "B13") for f in ("ek", "owner")])
 _TRACE_MAIN = """
 import json, sys
 sys.path[:0] = sys.argv[1:3]
@@ -650,13 +654,55 @@ def test_write_partial_forms_run_their_device_kernels(traced, dev, kernel, b, r,
     assert len(found) == len(want) and all(n in k for n, k in zip(want, found)), found
 
 
-@pytest.mark.parametrize("b,r,c,axis", B10_SPLIT_VIEWS)
-def test_slim_partial_stats_keeps_the_rows_walk(traced, dev, b, r, c, axis):
-    """B10 (the per-leaf psum pass 1) keeps the one-block ROWS walk on views
-    that B12 splits: one device kernel, the ROWS form's."""
-    assert _form(dev, b, r, c, axis).form != megaplan.FORM_ROWS
-    found = traced[("_b10_call", (b, r, c, axis))]
-    assert len(found) == 1 and ("slim_minor_kernel" if axis == 1 else "slim_major_kernel") in found[0], found
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b,r,c,axis,names", WRITE_PARTIAL_KERNELS)
+def test_slim_partial_stats_forms_run_their_device_kernels(traced, dev, b, r, c, axis, names, bf16):
+    """B10 (the per-leaf psum pass 1), f32 and bf16 g, runs B12's device
+    kernels on each form: SPLIT and MAJOR their pass 1 and the combine,
+    the ROWS views one kernel."""
+    found = traced[("_b10_call", (b, r, c, axis, bf16))]
+    want = names["B12"]
+    assert len(found) == len(want) and all(n in k for n, k in zip(want, found)), found
+
+
+@pytest.mark.parametrize("b,r,c,axis", WRITE_PARTIAL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_snr,with_health", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_slim_partial_stats_split_forms(dev, b, r, c, axis, dtype, with_snr, with_health, unaligned):
+    """B10 on SPLIT, MAJOR and ROWS against its twin, f32 and bf16 g (four
+    bf16 a load), with each flag, aligned and one element off, its (2,)
+    health reduced from the combined lines; two launches bit-identical, and
+    with f32 g bit-equal to B12 on the same operands (the same plan and
+    kernels)."""
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    g, m, _, _, _ = _inputs(dev, (b, r, c), line, r + c + 1)
+    n_bad = 11 if with_health else 0
+    g = _poison(g, n_bad, 3).to(dtype)
+    if unaligned:
+        g = _offset_view(g)
+    plan = _form(dev, b, r, c, axis, aligned=not unaligned)
+    flags = dict(with_snr=with_snr, with_health=with_health)
+    before = slim_update.slim_partial_stats_batched.launches
+    got = slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9, **flags)
+    assert megaplan.last_plans["slim_partial_stats_batched"] == plan
+    again = slim_update.slim_partial_stats_batched(g, m, axis=axis, b1=0.9, **flags)
+    want = slim_update.slim_partial_stats_batched_plain(g, m, axis=axis, b1=0.9, **flags)
+    torch.cuda.synchronize()
+    assert slim_update.slim_partial_stats_batched.launches == before + 2
+    assert len(got) == len(want) == 2 + 3 * with_snr + with_health
+    _close_finite(got[0], want[0], ELEMENTWISE)
+    for a, w in zip(got[1:2] + got[2:4 if with_snr else 2], want[1:2] + want[2:4 if with_snr else 2]):
+        _close_finite(a, w, LINE_SUMS)
+    if with_snr:
+        assert torch.equal(got[4].nan_to_num(), want[4].nan_to_num())
+    if with_health:
+        assert float(got[-1][0]) == float(want[-1][0]) == n_bad
+        _close(got[-1][1:], want[-1][1:], LINE_SUMS)
+    _bit_equal(got, again)
+    if dtype == torch.float32:
+        grouped = megaplan.mega_slim_partial_stats_batched(g, m, axis=axis, b1=0.9, **flags)
+        _bit_equal(got[:len(got) - with_health], grouped[:len(got) - with_health])
 
 
 # The sharded psum kernels at the local shard shapes of gpt_small on a
@@ -773,10 +819,12 @@ def test_slim_finalize_other_plans(dev, b, r, c, axis, form):
 
 
 @pytest.mark.parametrize("form", ["ek", "owner"])
-def test_slim_finalize_is_one_device_kernel(traced, dev, form):
-    """One B11 call is one CUDA kernel in a torch.profiler trace: the bias
-    corrections are formed inside it, not by torch operations around it."""
-    kernels = traced[("_finalize_call", (form,))]
+@pytest.mark.parametrize("kernel", ["B11", "B13"])
+def test_slim_finalize_is_one_device_kernel(traced, dev, kernel, form):
+    """One B11 or B13 call is one CUDA kernel in a torch.profiler trace, the
+    flat walk's: B11's bias corrections are formed inside it, B13's read a
+    line, not by torch operations around it."""
+    kernels = traced[("_finalize_call", (kernel, form))]
     assert len(kernels) == 1 and "finalize_flat_kernel" in kernels[0], kernels
 
 
@@ -819,6 +867,35 @@ def test_mega_slim_finalize_batched(dev, b, r, c, axis, form):
 
 
 @pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES)
+@pytest.mark.parametrize("form", ["ek", "owner"])
+def test_mega_slim_finalize_other_plans(dev, b, r, c, axis, form):
+    """B13 on every instantiation of the flat walk with bias corrections a
+    line (distinct values): the planner's grid, scalar loads, 64-bit
+    indices, a single block walking every tile, and lines one element off
+    a 16-byte boundary (which the planner walks with scalar loads on axis
+    0); each bit-equal to the twin, two runs bit-equal."""
+    line = (b, r, 1) if axis == 1 else (b, 1, c)
+    _, m, v, bc1, bc2 = _inputs(dev, (b, r, c), line, 9 * r + c)
+    ek = 0.01 * torch.rand(line, device=dev) if form == "ek" else None
+    want = slim_update.slim_finalize_batched_plain(m, v, bc1, bc2, b2=0.95, eps=1e-8, ek=ek)
+    base = slim_update.plan_finalize(b, r, c, axis, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plans = [base, dataclasses.replace(base, vec=1), dataclasses.replace(base, wide=True),
+             dataclasses.replace(base, blocks=1)]
+    for plan in plans:
+        got = slim_update.launch_finalize_flat(plan, m, v, ek, None, b1=0.0, b2=0.95, eps=1e-8, bc_lines=(bc1, bc2))
+        torch.cuda.synchronize()
+        for a, w in zip(*((x,) if ek is None else x for x in (got, want))):
+            assert torch.equal(a, w), plan
+    l1, l2 = _offset_view(bc1), _offset_view(bc2)
+    assert slim_update.finalize_plan(m, axis, (v, ek, l1, l2)).vec == (1 if axis == 0 or c % 4 else 4)
+    got = megaplan.mega_slim_finalize_batched(m, v, l1, l2, axis=axis, ek=ek, b2=0.95, eps=1e-8)
+    again = megaplan.mega_slim_finalize_batched(m, v, l1, l2, axis=axis, ek=ek, b2=0.95, eps=1e-8)
+    torch.cuda.synchronize()
+    for a, a2, w in zip(*((x,) if ek is None else x for x in (got, again, want))):
+        assert torch.equal(a, w) and torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("b,r,c,axis", PSUM_SHAPES + [(1, 1, 25152 * 384, 1)])
 def test_psum_pair_per_leaf_equals_grouped(dev, b, r, c, axis):
     """The per-leaf kernels (B10, B11) and the group kernels (B12, B13) run
     the same line walk: equal bits on the same operands."""

@@ -1,6 +1,6 @@
-"""B11's flat walk (``repro_torch.kernels.slim_update.plan_finalize`` and
-``csrc/slim_finalize.cu``'s ``finalize_flat_kernel``), checked here without
-a card.
+"""B11's and B13's flat walk (``repro_torch.kernels.slim_update.plan_finalize``
+and ``csrc/slim_finalize.cu``'s ``finalize_flat_kernel``), checked here
+without a card.
 
 The plan is pure integer arithmetic on the shapes and the SM count.
 ``_walk`` repeats the kernel's loops over the plan's grid: block i walks
@@ -15,7 +15,11 @@ plain twin bit for bit (the same operations in the same order), and the
 JAX package's Pallas kernel in interpret mode within 1e-5 of each output's
 largest magnitude (the bar of ``tests/test_torch_psum.py``), on the same
 numpy inputs. Also the count forms: a Python int and 0-d int32 and int64
-tensors give the same output; other counts raise.
+tensors give the same output; other counts raise. B13 (the group form)
+walks the same vectors with its bias corrections given a line, read from
+the vector's line index as v is (a float4 of 4 adjacent lines on axis 0):
+with distinct values a line, bit-equal to its twin and within 1e-5 of
+``mega_slim_finalize_batched`` in interpret mode.
 """
 import dataclasses
 
@@ -25,8 +29,9 @@ import pytest
 import torch
 
 from _torch_parity import assert_close
+from repro.kernels import megaplan as jmega
 from repro.kernels import slim_update as jslim
-from repro_torch.kernels import slim_update
+from repro_torch.kernels import megaplan, slim_update
 from repro_torch.kernels.fused_adam import host_bias_corrections
 from repro_torch.kernels.slim_update import FLAT_BLOCKS_PER_SM, FLAT_THREADS, FLAT_UNROLL, WIDE, plan_finalize
 
@@ -100,7 +105,8 @@ def _inputs(b, r, c, axis, seed):
 def _emulate(plan, m, v, ek, bc1, bc2, *, b2, eps):
     """u (NaN where no thread wrote) and, with ``ek``, v' (NaN where no
     thread wrote), as the kernel's threads compute them from the vectors
-    ``_walk`` gives them."""
+    ``_walk`` gives them. ``bc1``/``bc2``: floats (B11), or lines shaped
+    like ``v`` (B13), read at the vector's line index as v is."""
     vec = plan.vec
     j = torch.from_numpy(_walk(plan))
     q = j // (plan.cols // vec)
@@ -115,6 +121,8 @@ def _emulate(plan, m, v, ek, bc1, bc2, *, b2, eps):
     v_flat = v.reshape(-1)
     vn = v_flat[line] if ek is None else b2 * v_flat[line] + (1 - b2) * ek.reshape(-1)[line]
     u = torch.full((m.numel(),), float("nan"))
+    if isinstance(bc1, torch.Tensor):
+        bc1, bc2 = bc1.reshape(-1)[line], bc2.reshape(-1)[line]
     u[elem.reshape(-1)] = ((m.reshape(-1)[elem] / bc1) / (torch.sqrt(vn / bc2) + eps)).reshape(-1)
     u = u.reshape(m.shape)
     if ek is None:
@@ -188,3 +196,83 @@ def test_unsupported_count_raises(count):
     m, v, _ = _inputs(1, 4, 8, 1, seed=0)
     with pytest.raises(TypeError):
         slim_update.slim_finalize_batched(torch.from_numpy(m), torch.from_numpy(v), axis=1, count=count, **KW)
+
+
+# -- B13: the same walk, bias corrections a line --------------------------------------------
+
+
+def _bc_lines(v, seed):
+    """Distinct bias corrections a line, shaped like ``v``."""
+    rng = np.random.default_rng(seed)
+    return tuple((0.05 + rng.random(v.shape)).astype(np.float32) for _ in range(2))
+
+
+@pytest.mark.parametrize("b,r,c,axis", SMALL + PHASE_6A)
+@pytest.mark.parametrize("form", ["ek", "owner"])
+@pytest.mark.parametrize("sms,aligned", [(132, True), (8, True), (132, False)])
+def test_group_walk_equals_twin(b, r, c, axis, form, sms, aligned):
+    """B13 on the walk against ``slim_finalize_batched_plain`` given the
+    lines, bit for bit."""
+    m, v, ek = _inputs(b, r, c, axis, seed=b * r + c + 1)
+    bc1, bc2 = (torch.from_numpy(x) for x in _bc_lines(v, b + r + c))
+    tm, tv = torch.from_numpy(m), torch.from_numpy(v)
+    tek = torch.from_numpy(ek) if form == "ek" else None
+    plan = plan_finalize(b, r, c, axis, sms, aligned=aligned)
+    got = _emulate(plan, tm, tv, tek, bc1, bc2, b2=KW["b2"], eps=KW["eps"])
+    twin = megaplan.mega_slim_finalize_batched(tm, tv, bc1, bc2, axis=axis, ek=tek, b2=KW["b2"], eps=KW["eps"])
+    if form == "owner":
+        got, twin = (got,), (twin,)
+    for label, g, t in zip(("u", "v'"), got, twin):
+        assert torch.equal(g, t), f"{label}: the walk is not the twin"
+
+
+@pytest.mark.parametrize("b,r,c,axis", SMALL + PHASE_6A)
+@pytest.mark.parametrize("form", ["ek", "owner"])
+def test_group_walk_equals_jax(b, r, c, axis, form):
+    """B13 on the walk against the Pallas ``mega_slim_finalize_batched`` in
+    interpret mode, within 1e-5."""
+    m, v, ek = _inputs(b, r, c, axis, seed=b * r + c + 2)
+    bc1, bc2 = _bc_lines(v, b * c + r)
+    tek = torch.from_numpy(ek) if form == "ek" else None
+    plan = plan_finalize(b, r, c, axis, 132)
+    got = _emulate(plan, torch.from_numpy(m), torch.from_numpy(v), tek, torch.from_numpy(bc1), torch.from_numpy(bc2),
+                   b2=KW["b2"], eps=KW["eps"])
+    want = jmega.mega_slim_finalize_batched(jnp.asarray(m), jnp.asarray(v), jnp.asarray(bc1), jnp.asarray(bc2),
+                                            axis=axis, ek=jnp.asarray(ek) if form == "ek" else None, b2=KW["b2"],
+                                            eps=KW["eps"], interpret=True)
+    if form == "owner":
+        got, want = (got,), (want,)
+    for label, g, w in zip(("u", "v'"), got, want):
+        assert_close(g.numpy(), np.asarray(w), TOL, label)
+
+
+def test_group_walk_counts_the_lines_in_the_alignment(monkeypatch):
+    """On axis 0 a float4 of line values is read from each line operand, so
+    B13's bias-correction lines count in the alignment; on axis 1 only m'
+    does."""
+    monkeypatch.setattr(slim_update.build, "sm_count", lambda device: 132)
+    m = torch.zeros(2, 8, 12)
+    line = torch.zeros(2 * 12 + 1)[1:].view(2, 1, 12)
+    assert slim_update.finalize_plan(m, 0, (torch.zeros(2, 1, 12), None)).vec == 4
+    assert slim_update.finalize_plan(m, 0, (torch.zeros(2, 1, 12), None, line, line)).vec == 1
+    assert slim_update.finalize_plan(m, 1, (torch.zeros(2, 8, 1), None, line, line)).vec == 4
+
+
+# The long views of the psum pair on an H100: AdaLayer's 38,633,472-element
+# embedding line, a (data=2, model=2) rank's 9,658,368-element shard of it,
+# and ResNet-18's widest axis-0 group.
+LONG_VIEWS = [(1, 1, 50304 * 768, 1), (1, 1, 25152 * 384, 1), (1, 4608, 1536, 0)]
+
+
+@pytest.mark.parametrize("b,r,c,axis", LONG_VIEWS)
+def test_long_views_fill_the_card_on_both_walks(b, r, c, axis):
+    """B10's plan (SPLIT on the lines, MAJOR on the axis-0 view) and B13's
+    flat walk both give an H100 at least 4 blocks an SM; the flat walk's
+    blocks load every vector of the shard line once."""
+    slim = megaplan.plan_slim(b, r, c, axis, sms=132, aligned=True)
+    assert slim.form == (megaplan.FORM_SPLIT if axis == 1 else megaplan.FORM_MAJOR)
+    assert slim.blocks >= FLAT_BLOCKS_PER_SM * 132
+    flat = plan_finalize(b, r, c, axis, 132)
+    assert (flat.vec, flat.blocks, flat.wide) == (4, FLAT_BLOCKS_PER_SM * 132, False)
+    if c == 25152 * 384:
+        assert (np.bincount(_walk(flat), minlength=flat.vectors) == 1).all()

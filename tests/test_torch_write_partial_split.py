@@ -1,7 +1,7 @@
-"""B7 (``slim_update_batched``, the parameter-writing form) and B12
-(``mega_slim_partial_stats_batched``, the grouped psum pair's pass 1) on the
-split walk of ``repro_torch.kernels.megaplan.plan_slim``, checked here
-without a card.
+"""B7 (``slim_update_batched``, the parameter-writing form), B12
+(``mega_slim_partial_stats_batched``, the grouped psum pair's pass 1) and
+B10 (``slim_partial_stats_batched``, its per-leaf twin) on the split walk of
+``repro_torch.kernels.megaplan.plan_slim``, checked here without a card.
 
 B7 takes B4's grid and pass 1; its pass 2 adds each line's f64 shares in
 the plan's order and writes p' = p - lr*(u + wd*p) in p's dtype. B12 takes
@@ -19,7 +19,17 @@ p' 1e-6, line values 1e-5; a bf16 p' to one bf16 step, as the card tests
 hold it) and to the JAX package's Pallas kernels in interpret mode (B7 at
 ``test_torch_param_kernels.py``'s 1e-5, B12 at ``test_torch_psum.py``'s
 1e-5; non-finite counts exact).
+
+B10 runs B12's kernels on the same plan (f32 or bf16 g; the (2,) health is
+the combined per-line nf/ss lines summed in f64 in line order, as
+``health_reduce_kernel`` sums them): on the ROWS, SPLIT and MAJOR views
+``plan_slim`` picks at 132 and 8 SMs, its m', shift f and non-finite count
+equal the plain twin's bit for bit (the same f32 operations), its line sums
+(f64, rounded once; the twin sums in f32) within 1e-5, and everything within
+1e-5 of the Pallas ``slim_partial_stats_batched`` in interpret mode.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +37,7 @@ import torch
 
 from _torch_parity import assert_close
 from repro.kernels.megaplan import mega_slim_partial_stats_batched as jax_mega_partial
+from repro.kernels.slim_update import slim_partial_stats_batched as jax_slim_partial
 from repro.kernels.slim_update import slim_update_batched as jax_slim_update
 from repro_torch.kernels import megaplan, slim_update
 from repro_torch.kernels.fused_adam import host_bias_corrections
@@ -296,3 +307,102 @@ def test_write_walk_matches_the_tpu_kernel(view, p_dtype, g_dtype):
                            jnp.asarray(v.numpy()), axis=view[3], interpret=True, **STEP, **KW)
     _hold_write(got, [torch.from_numpy(np.asarray(w.astype(jnp.float32))).to(d)
                       for w, d in zip(want, (p_dtype, torch.float32, torch.float32))], (BAR,) * 3, f"{view} pallas")
+
+
+# -- B10: B12's walk and combine, f32 or bf16 g, the (2,) health -------------------------------
+
+B10_SMS = (H100_SMS, 8)
+
+
+def _emulate_b10(g, m, plan, with_snr, with_health):
+    """B10's outputs on ``plan``: B12's, with g read as f32 and the
+    combined nf/ss lines summed in f64 in line order to the (2,) health."""
+    outs = _emulate_partial(g.float().numpy(), m.numpy(), plan, with_snr, with_health)
+    if not with_health:
+        return outs
+    nf, ss = outs[-2], outs[-1]
+    return outs[:-2] + (torch.stack([nf.double().sum(), ss.double().sum()]).float(),)
+
+
+def _b10_inputs(view, dtype, n_bad):
+    g, m = _slim_inputs(view, sum(view) + 9, n_bad)[:2]
+    return torch.from_numpy(g).to(dtype), torch.from_numpy(m)
+
+
+def _hold_b10(got, want, with_snr, with_health, tol, what):
+    """m', f and the non-finite count exact at ``tol=None``, else every
+    output within ``tol`` of its largest magnitude; the line sums and ss
+    within ``tol`` or LINE_SUMS."""
+    assert len(got) == len(want) == 2 + 3 * with_snr + with_health, what
+    exact = tol is None
+    names = ["m'", "part"] + ["s1c", "s2c", "first"] * with_snr
+    tols = {"m'": tol, "part": tol or LINE_SUMS, "s1c": tol or LINE_SUMS, "s2c": tol or LINE_SUMS, "first": tol}
+    _hold(got[:len(names)], want[:len(names)], [(n, tols[n]) for n in names], what)
+    if with_health:
+        h, w = np.asarray(got[-1], np.float64), np.asarray(want[-1], np.float64)
+        assert h[0] == w[0], (what, "nf", h[0], w[0])
+        assert_close(h[1:], w[1:], tol or LINE_SUMS, f"{what} ss")
+    if exact:
+        assert torch.equal(got[0].nan_to_num(), want[0].nan_to_num()), f"{what}: m' is not the twin's bits"
+
+
+@pytest.mark.parametrize("view", WALK_VIEWS)
+@pytest.mark.parametrize("sms", B10_SMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_snr,with_health", FLAGS)
+def test_b10_walk_matches_the_plain_twin(view, sms, dtype, with_snr, with_health):
+    n_bad = 5 if with_health else 0
+    g, m = _b10_inputs(view, dtype, n_bad)
+    plan = plan_slim(*view, sms=sms, aligned=True)
+    got = _emulate_b10(g, m, plan, with_snr, with_health)
+    want = slim_update.slim_partial_stats_batched(g, m, axis=view[3], b1=KW["b1"], with_snr=with_snr,
+                                                  with_health=with_health)
+    _hold_b10(got, want, with_snr, with_health, None, f"{view} at {sms} SMs, {plan.describe()}, twin")
+    if with_health:
+        assert float(got[-1][0]) == n_bad
+
+
+@functools.lru_cache(maxsize=None)
+def _b10_pallas(view, dtype, with_snr, with_health):
+    """The Pallas kernel in interpret mode on ``_b10_inputs``' operands
+    (finite g), once a case for both SM counts."""
+    g, m = _b10_inputs(view, dtype, 0)
+    g_jax = jnp.asarray(g.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    return tuple(np.asarray(o) for o in jax_slim_partial(g_jax, jnp.asarray(m.numpy()), axis=view[3], b1=KW["b1"],
+                                                         with_snr=with_snr, with_health=with_health,
+                                                         interpret=True))
+
+
+@pytest.mark.parametrize("view", WALK_VIEWS)
+@pytest.mark.parametrize("sms", B10_SMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_snr,with_health", [(False, False), (True, True)])
+def test_b10_walk_matches_the_tpu_kernel(view, sms, dtype, with_snr, with_health):
+    g, m = _b10_inputs(view, dtype, 0)
+    plan = plan_slim(*view, sms=sms, aligned=True)
+    got = _emulate_b10(g, m, plan, with_snr, with_health)
+    want = _b10_pallas(view, dtype, with_snr, with_health)
+    _hold_b10(got, want, with_snr, with_health, BAR, f"{view} at {sms} SMs, {plan.describe()}, pallas")
+
+
+def test_b10_views_take_every_form_on_both_cards():
+    """The views above give ROWS, SPLIT and MAJOR at 132 SMs, and at 8."""
+    for sms in B10_SMS:
+        forms = {plan_slim(*v, sms=sms, aligned=True).form for v in WALK_VIEWS}
+        assert forms == {FORM_ROWS, FORM_SPLIT, FORM_MAJOR}, sms
+
+
+@pytest.mark.parametrize("view", [SHARD_LINE, RESNET_WIDE, (1, 300, 768, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b10_walk_keeps_b12s_plan(monkeypatch, view, dtype):
+    """B10 passes its launch ``slim_walk``'s plan under its own name, the
+    one B12 takes on the same operands (four bf16 g are 8 bytes, so an
+    8-byte aligned bf16 view takes the vector form too)."""
+    monkeypatch.setattr(megaplan.build, "sm_count", lambda device: H100_SMS)
+    b, r, c, axis = view
+    g, m = torch.zeros(b, r, c, dtype=dtype), torch.zeros(b, r, c)
+    args, work = megaplan.slim_walk("slim_partial_stats_batched", g, m, axis, with_snr=False, with_health=True)
+    plan = megaplan.last_plans["slim_partial_stats_batched"]
+    assert plan == plan_slim(b, r, c, axis, sms=H100_SMS, aligned=True)
+    assert args[:5] == (plan.form, int(plan.vec), plan.seg, plan.nseg, plan.blocks)
+    assert (work is None) == (plan.nseg == 1) and (work is None or work.shape == (3, plan.lines * plan.nseg))
