@@ -136,6 +136,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    eval batch and of 8 decode steps through B15 against the plain twin;
    and reduced f32 falcon_mamba_7b served on the card against the CPU,
    token for token. The model is freed before phase 8.
+7f. The SSM training path: ``ssm_scan_bwd`` against its plain twin at the
+   training shape (B = 2, S = 2048, D = 8192, N = 16, bf16 x/B/C/dy, random
+   dh_final; the forward's 4 chunks) and a one-chunk shape (4 x 256), each
+   twice and compared bit for bit, its replayed final state equal to B15's
+   h_final, timed beside its bound (bytes, or two exponentials an element
+   over the SFU rate) and the twin; no library call computes it.
+7g. Full-width falcon_mamba_7b cut to 8 layers (1,108,840,448 parameters;
+   depth is the only cut) on ZipfLM batches of 2 x 2048, bf16 activations,
+   remat, through the Trainer (``backend="fused"``): Adam for 4 steps
+   measuring SNR at step 4 (B5 on the 15 candidates), the rules
+   ``derive_slim_rules`` gives the ssm leaves beside Table 3's, then Table-3
+   SlimAdam for 4 steps; launch counters zeroed before and read after each
+   run (B15 twice a layer a step under remat, ``ssm_scan_bwd`` once, B2/B1
+   per the plan's groups); finite losses, the last below the first; peak
+   memory, second-moment bytes and savings, step times in turns and each
+   step's device profile (busy share, the backward kernel's and B15's ms).
+7h. One step's gradients of a 2-layer full-width cut through the kernels
+   against the plain scan (``ssm_impl="plain"``), f32 activations (1e-3 of
+   each leaf's largest |g|) and the path's bf16 (5e-2).
 8. The parameter-writing API: ``fused_adam_op`` (B6) over every full-width
    gpt_small leaf, ``slim_update_nd`` (B7) over its Table-3 compressed
    leaves, ``fused_adam_op`` and ``slim_update_op`` (axis 0 and 1) on
@@ -177,10 +196,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    CPU. 9d: the linear LM (vocab 49152, d 32), 4 Adam steps and one SNR
    measurement; full-width gpt_medium (354,599,936 parameters), 2 Table-3
    SlimAdam steps.
-10. One ``{"kernels": [...]}`` line (all 15 kernels, B1 and B2 with their
-   flags on rows of their own; B1, B2 and B5 count phase 9's launches
-   too), the ``nvidia-smi`` line, and last the ``{"ok": true, "device":
-   ...}`` line.
+10. One ``{"kernels": [...]}`` line (all 16 kernels: the 15 TPU kernels'
+   ports and the selective scan's backward, B1 and B2 with their flags on
+   rows of their own; B1, B2 and B5 count phase 9's launches too), the
+   ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so f32 matrix products are full f32.
@@ -2017,6 +2036,263 @@ def ssm_phase(torch, timer, rate: float, smi: str):
     return report, entry
 
 
+SSM_TRAIN_ROWS, SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS, SSM_GRAD_LAYERS = 2, 8, 4, 2
+TOL_SSM_BWD = 1e-5        # ssm_scan_bwd against its twin: exp2 replay, warp-butterfly and in-order sums differ
+TOL_SSM_BWD_DX_BF16 = TOL_SSM_BWD + 2.0**-8  # dx stored in bf16 (x's dtype): plus the rounding of that store
+TOL_SSM_GRADS_F32 = 1e-3  # 2-layer full-width gradients, kernel against plain scan, f32 activations
+TOL_SSM_GRADS_BF16 = 5e-2  # the same with the path's bf16 activations (bf16 rounding flips, as TOL_SSM_LOGITS)
+
+
+def scan_bwd_bound(args, dy, dh_final, bounds, grads, rate: float):
+    """Least time (ms) for one selective-scan backward, and what sets it:
+    the bytes (every operand read once, every gradient written once, in
+    their dtypes) over the memory rate, or its operations: one exponential
+    per (row, step, channel, state), A_t = exp(dt a), which the replay and
+    the reverse recurrence share, over the SFU rate, and 18 f32 operations
+    per (row, step, channel, state) over the f32 rate, counted as
+    :func:`scan_bound` counts (a multiply-add is two): 4 to replay (dt*a,
+    A*h, u*B, their sum), 14 in the reverse step (dy*C + carry, carry =
+    A*dh, dlogA = carry*h, and the multiply-adds of the sums of dh*B,
+    dlogA*a, dlogA*dt, dh*dt*x and h*dy)."""
+    x, a = args[0], args[2]
+    b, s, d = x.shape
+    n = a.shape[1]
+    ins = list(args) + [dy] + [t for t in (dh_final, bounds) if t is not None]
+    nbytes = sum(t.numel() * t.element_size() for t in ins + list(grads))
+    elems = b * s * d * n
+    times = {"bytes": nbytes / rate, "operations": max(elems / SFU_RATE, 18 * elems / F32_RATE)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def step_memory(torch, tr, forward, lm_loss, base: int) -> dict:
+    """Where a training step's memory goes (GiB): what the trainer holds at
+    rest over ``base``, the bytes allocated before it was built (parameters,
+    and the rest: the optimizer's state), then one plain
+    step by hand as ``train_step`` runs it: the forward and backward's peak
+    over rest and the gradients they leave, then the optimizer update's
+    peak over rest and gradients. The update is computed and discarded:
+    ``tx.update`` writes new tensors, so the trainer's state is unchanged."""
+    gib = 2**30
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated()
+    params = sum(p.numel() * p.element_size() for p in tr.params.values())
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = lm_loss(tr.model.cfg, tr.params, tr.batch(tr.step), forward)
+    grads = torch.autograd.grad(loss, list(tr.params.values()))
+    del loss
+    torch.cuda.synchronize()
+    grad_peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        updates, _ = tr.tx.update(dict(zip(tr.params, grads)), tr.opt_state, tr.params)
+    torch.cuda.synchronize()
+    update_peak = torch.cuda.max_memory_allocated()
+    del updates, grads
+    return dict(rest_gib=(rest - base) / gib, params_gib=params / gib, state_gib=(rest - base - params) / gib,
+                grad_peak_gib=(grad_peak - rest) / gib, grads_gib=(held - rest) / gib,
+                update_peak_gib=(update_peak - held) / gib)
+
+
+def ssm_train_phase(torch, timer, rate: float, smi: str):
+    """Phase 7f-7h: the SSM family's training path. ssm_scan_bwd against
+    its twin at the training shape and a one-chunk shape; full-width
+    falcon_mamba_7b cut to SSM_TRAIN_LAYERS layers trained through the
+    Trainer with Adam (measuring SNR) and Table-3 SlimAdam; one step's
+    gradients of a SSM_GRAD_LAYERS-layer cut through the kernels against
+    the plain scan. Returns (report, the backward's entry of the kernels
+    line)."""
+    import dataclasses
+    import functools
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import rules_to_dims, second_moment_savings, table3_rules
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.kernels import megaplan, ssm_scan as sc
+    from repro_torch.models import Transformer, forward
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.loss import lm_loss
+
+    report: dict = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cfg = get_config("falcon_mamba_7b")
+    scfg = cfg.ssm_cfg()
+
+    # -- 7f. ssm_scan_bwd against its plain twin -------------------------------
+    log(f"[7f] ssm_scan_bwd at the training shape and a one-chunk shape against its plain twin, bound ({smi})")
+    held = {}
+    for case, (b, s) in (("train", (SSM_TRAIN_ROWS, SSM_EVAL_SEQ)), ("one_chunk", (SSM_ROWS, 256))):
+        args = scan_case(torch, gen, b, s, scfg.d_inner, scfg.d_state, torch.bfloat16)
+        dy = torch.randn((b, s, scfg.d_inner), generator=gen, device=dev).to(torch.bfloat16)
+        dhf = torch.randn((b, scfg.d_inner, scfg.d_state), generator=gen, device=dev)
+        _, h, bounds, chunk = sc.ssm_scan(*args, keep_bounds=True)
+        plan = sc.plan_scan_bwd(b, s, scfg.d_inner, scfg.d_state, chunk=chunk)
+        if (plan.chunks > 1) != (case == "train"):
+            raise AssertionError(f"ssm_scan_bwd {case}: {plan.chunks} chunks")
+        run = lambda: sc.ssm_scan_bwd(*args, dy, dhf, bounds=bounds, chunk=chunk)      # noqa: E731
+        got = sc.ssm_scan_bwd(*args, dy, dhf, bounds=bounds, chunk=chunk, with_final=True)
+        again = run()
+        want = sc.ssm_scan_bwd_plain(*args, dy, dhf)
+        torch.cuda.synchronize()
+        if got[0].dtype != args[0].dtype:
+            raise AssertionError(f"ssm_scan_bwd {case}: dx in {got[0].dtype}, x in {args[0].dtype}")
+        errs = [check(f"{case} {name}", g, w, TOL_SSM_BWD_DX_BF16 if g.dtype == torch.bfloat16 else TOL_SSM_BWD)
+                for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dd_skip", "dh0"), got, want)]
+        if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+            raise AssertionError(f"ssm_scan_bwd {case}: two runs on one input differ")
+        if not torch.equal(got[-1], h):
+            raise AssertionError(f"ssm_scan_bwd {case}: the replayed final state differs from B15's h_final")
+        ms = timer(run, reps=10)
+        plain_ms = timer(lambda: sc.ssm_scan_bwd_plain(*args, dy, dhf), reps=1)
+        bound, by = scan_bwd_bound(args, dy, dhf, bounds, got[:-1], rate)
+        log(f"  {case} (B={b}, S={s}, D={scfg.d_inner}, N={scfg.d_state}): {plan.chunks} chunks of {plan.chunk} "
+            f"steps, walk {plan.walk_grid} x {sc.BWD_THREADS} threads, combine "
+            f"{plan.combine_blocks} blocks; two runs bit-equal, replayed final state equal to B15's h_final")
+        log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by}, {bound / ms:.1%} "
+            f"reached)  library: none (no PyTorch call computes a selective scan's backward)")
+        held[case] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, chunks=plan.chunks,
+                          chunk=plan.chunk, walk_grid=list(plan.walk_grid))
+        del args, dy, dhf, h, bounds, got, again, want
+    report["ssm_scan_bwd"] = held
+    torch.cuda.empty_cache()
+
+    # -- 7g. training: Adam with SNR, then Table-3 SlimAdam, through the Trainer --
+    cut = dataclasses.replace(cfg, n_layers=SSM_TRAIN_LAYERS)
+    data = ZipfLM(DataConfig(vocab_size=cut.vocab_size, seq_len=SSM_EVAL_SEQ, global_batch=SSM_TRAIN_ROWS, seed=0))
+    log(f"[7g] full-width falcon_mamba_7b cut to {SSM_TRAIN_LAYERS} layers, batch {SSM_TRAIN_ROWS} x "
+        f"{SSM_EVAL_SEQ}, bf16 activations, remat, backend='fused' ({smi})")
+    runs, trainers = {}, {}
+    for optimizer in ("adam", "slim"):
+        tc = TrainerConfig(total_steps=SSM_TRAIN_STEPS, log_every=1, backend="fused", seed=0,
+                           measure_snr=optimizer == "adam", snr_early_every=SSM_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cut, optimizer, 1e-3, data, tc)
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in tr.params.values())
+        if n_params != 1_108_840_448:
+            raise AssertionError(f"the {SSM_TRAIN_LAYERS}-layer cut has {n_params} parameters, expected 1108840448")
+        rules = {} if optimizer == "adam" else table3_rules(tr.meta)
+        dims = rules_to_dims(rules, tr.meta)
+        leaves = list(tr.params.values())
+        plan = megaplan.plan_megagroups([tuple(p.shape) for p in leaves], [p.dtype for p in leaves],
+                                        [dims[k] for k in tr.params])
+        dense = sum(g.kind == "dense" for g in plan.groups)
+        cands = sum(len(m.candidate_ks()) for m in tr.meta.values())
+        expect = {"ssm_scan": 2 * SSM_TRAIN_LAYERS * SSM_TRAIN_STEPS,
+                  "ssm_scan_bwd": SSM_TRAIN_LAYERS * SSM_TRAIN_STEPS,
+                  "mega_adam_update": dense * SSM_TRAIN_STEPS,
+                  "mega_slim_update_batched": (len(plan.groups) - dense) * SSM_TRAIN_STEPS,
+                  "snr_stats_centered_batched": cands if optimizer == "adam" else 0}
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
+        kernels.reset_launch_counts()
+        step_peaks, wall = [], 0.0
+        for k in range(1, SSM_TRAIN_STEPS + 1):   # a step at a time, for each step's peak
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tr.run(k)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            step_peaks.append(torch.cuda.max_memory_allocated())
+        counts = kernels.launch_counts()
+        losses = [m["loss"] for m in tr.metrics_log]
+        peak = (max(init_peak, *step_peaks) - base) / 2**30
+        for k, want in expect.items():
+            if counts[k] != want:
+                raise AssertionError(f"SSM {optimizer}: {k} launched {counts[k]} times, expected {want} (2 B15 "
+                                     f"launches a layer a step under remat)")
+        others = {k: v for k, v in counts.items() if v and k not in expect}
+        if others:
+            raise AssertionError(f"SSM {optimizer}: unexpected launches {others}")
+        if len(losses) != SSM_TRAIN_STEPS or not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"SSM {optimizer}: losses {losses} not finite or not falling")
+        inner = tr.opt_state.inner_states[1]
+        nu_bytes = sum(t.numel() * t.element_size() for t in inner.nu.values())
+        sav = second_moment_savings(tr.params, tr.meta, rules)
+        log(f"  {optimizer}: {n_params} parameters (init {init_s:.1f} s), {SSM_TRAIN_STEPS} steps in {wall:.2f} s, "
+            f"losses {[round(x, 4) for x in losses]}, launches { {k: v for k, v in counts.items() if v} }, "
+            f"peak memory {peak:.2f} GiB, second moments {nu_bytes / 2**30:.4f} GiB "
+            f"({sav['saved_fraction']:.4%} saved; {len(plan.groups)} megaplan groups)")
+        mem = step_memory(torch, tr, forward, lm_loss, base)
+        mem["step_peaks_gib"] = [(p - base) / 2**30 for p in step_peaks]
+        log(f"  {optimizer} memory (GiB over the start): each step's peak "
+            f"{[round(x, 2) for x in mem['step_peaks_gib']]}; at rest {mem['rest_gib']:.2f} (parameters "
+            f"{mem['params_gib']:.2f}, optimizer state {mem['state_gib']:.2f}); one plain step by hand: forward and "
+            f"backward +{mem['grad_peak_gib']:.2f} over rest, gradients held {mem['grads_gib']:.2f}, the update "
+            f"+{mem['update_peak_gib']:.2f} over rest and gradients ({smi})")
+        runs[optimizer] = dict(losses=losses, wall_s=wall, init_s=init_s, launches=counts, peak_gib=peak,
+                               memory=mem, nu_bytes=nu_bytes, savings=sav,
+                               groups=[(g.kind, g.batch, g.rows, g.cols, g.axis) for g in plan.groups])
+        if optimizer == "adam":
+            if tr.snr.steps != [SSM_TRAIN_STEPS]:
+                raise AssertionError(f"SNR measured at steps {tr.snr.steps}, expected [{SSM_TRAIN_STEPS}]")
+            derived = {k: (list(v) if v else None) for k, v in tr.derive_slim_rules().items()}
+            t3 = {k: (list(v) if v else None) for k, v in table3_rules(tr.meta).items()}
+            for label, r in (("derived from Adam's SNR", derived), ("Table 3", t3)):
+                log(f"  rules {label} for the ssm leaves: { {k: v for k, v in r.items() if '.ssm.' in k} }")
+            runs["derived_rules"] = derived
+            tr.tc.measure_snr = False
+        trainers[optimizer] = tr
+    # step times in turns (a s s a ...), then where one step's device time goes
+    med, raw = in_turns(torch, {f"{o}_step_ms": (lambda t=t: t.run(t.step + 1)) for o, t in trainers.items()},
+                        rounds=2)
+    log(f"  step time, in turns: Adam {med['adam_step_ms']:.2f} ms, SlimAdam {med['slim_step_ms']:.2f} ms = "
+        f"{SSM_TRAIN_ROWS * SSM_EVAL_SEQ / med['slim_step_ms'] * 1e3:.0f} tokens/s ({smi})")
+    runs["timing"] = dict(med, raw=raw)
+    for o, t in trainers.items():
+        prof = profile_device(torch, lambda t=t: t.run(t.step + 1), 1, med[f"{o}_step_ms"], f"{o} step")
+        bwd_ms = sum(v for k, v in prof["kernels"] if "ssm_bwd" in k)
+        fwd_ms = sum(v for k, v in prof["kernels"] if ("ssm_chunk" in k or "ssm_carry" in k or "ssm_token" in k))
+        log(f"  {o}: device busy {prof['busy_ms'] / med[f'{o}_step_ms']:.1%} of the step; ssm_scan_bwd "
+            f"{bwd_ms:.3f} ms, B15 {fwd_ms:.3f} ms of {prof['busy_ms']:.3f} ms device time")
+        runs[f"{o}_profile"] = dict(prof, ssm_bwd_ms=bwd_ms, ssm_fwd_ms=fwd_ms)
+    report["train"] = runs
+    del trainers, tr, inner
+    torch.cuda.empty_cache()
+
+    # -- 7h. one step's gradients, kernels against the plain scan -------------
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(100).items()}
+    report["grads"] = {}
+    for dtype, tol in ((torch.float32, TOL_SSM_GRADS_F32), (torch.bfloat16, TOL_SSM_GRADS_BF16)):
+        small = dataclasses.replace(cfg, n_layers=SSM_GRAD_LAYERS, dtype=dtype)
+        log(f"[7h] {SSM_GRAD_LAYERS}-layer full-width cut, {str(dtype)[6:]} activations: one step's gradients "
+            f"through ssm_scan/ssm_scan_bwd against the plain scan, tolerance {tol:.0e} of each leaf's max |g|")
+        params = Transformer(small, device=dev, gen=torch.Generator(device=dev).manual_seed(1)).params
+        grads = {}
+        for impl in ("kernel", "plain"):
+            counts = sc.ssm_scan.launches, sc.ssm_scan_bwd.launches
+            loss, _ = lm_loss(small, params, batch, functools.partial(forward, ssm_impl=impl))
+            grads[impl] = torch.autograd.grad(loss, list(params.values()))
+            torch.cuda.synchronize()
+            moved = sc.ssm_scan.launches - counts[0], sc.ssm_scan_bwd.launches - counts[1]
+            if moved != ((2 * SSM_GRAD_LAYERS, SSM_GRAD_LAYERS) if impl == "kernel" else (0, 0)):
+                raise AssertionError(f"gradients through impl={impl!r} launched (B15, backward) {moved}")
+        worst = {}
+        for name, g, w in zip(params, grads["kernel"], grads["plain"]):
+            worst[name] = max_err(g, w)[1]
+        name = max(worst, key=worst.get)
+        log(f"  worst leaf {name}: rel {worst[name]:.3e}  tol {tol:.0e}  "
+            f"{'ok' if worst[name] <= tol else 'FAIL'}; all leaves {len(worst)}")
+        if not worst[name] <= tol:
+            raise AssertionError(f"SSM gradients {dtype}: {name} differs by {worst[name]:.3e} > {tol:.0e}")
+        report["grads"][str(dtype)] = worst
+        del params, grads
+        torch.cuda.empty_cache()
+
+    t = held["train"]
+    entry = {"name": "ssm_scan_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+             "replaces": "src/repro/models/ssm.py:170 (plain jnp _selective_scan_bwd; no TPU kernel)",
+             "launches": runs["adam"]["launches"]["ssm_scan_bwd"] + runs["slim"]["launches"]["ssm_scan_bwd"],
+             "max_abs_err": max(h["err"] for h in held.values()), "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None}
+    return report, entry
+
+
 def param_phase(torch, timer, rate: float, smi: str, specs, t3_dims):
     """Phase 8: the parameter-writing API (B6, B7) and the plain line stats
     (B8) on full-width gpt_small's leaves and opt_speed's 4096 x 8192
@@ -3028,6 +3304,7 @@ def main() -> int:
     report["sharded"] = sharded = sharded_phase(torch, smi, rate)
     timer = Timer(torch)
     report["ssm"], ssm_entry = ssm_phase(torch, timer, rate, smi)
+    report["ssm_train"], ssm_bwd_entry = ssm_train_phase(torch, timer, rate, smi)
     report["param_api"], param_entries = param_phase(torch, timer, rate, smi, specs, t3_dims)
     torch.cuda.empty_cache()
     report["baselines"], baseline_launches = baselines_phase(torch, smi, cfg, meta, data, lr, rules, plan_for,
@@ -3114,7 +3391,7 @@ def main() -> int:
         sharded_entry("mega_slim_finalize_batched", "B13", "slim_finalize.cu", "src/repro/kernels/megaplan.py:536",
                       sum(sharded[r]["mega_slim_finalize_batched"] for r in grouped_runs)),
     ]
-    line["kernels"] += param_entries + [ssm_entry]
+    line["kernels"] += param_entries + [ssm_entry, ssm_bwd_entry]
     if len(line["kernels"]) != len(kernels.KERNELS) + 2 or min(e["launches"] for e in line["kernels"]) < 1:
         raise AssertionError(f"kernels line: {len(line['kernels'])} entries (B1 and B2 with their flags as "
                              f"separate rows), launches {[e['launches'] for e in line['kernels']]}")

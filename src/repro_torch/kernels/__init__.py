@@ -4,7 +4,7 @@ megaplan logic around them: the optimizer and SNR kernels of training (the
 megaplan group kernels and their per-leaf forms, the sharded psum pair and
 partial SNR stats of the sharded trainer, and the parameter-writing AdamW
 and SlimAdam steps with the plain line stats), the paged attention of
-serving and the selective scan of the Mamba layers."""
+serving and the selective scan of the Mamba layers, forward and backward."""
 from __future__ import annotations
 
 from typing import Dict
@@ -19,12 +19,12 @@ from .paged_attention import paged_attention as _paged_attention
 from .slim_update import (slim_finalize_batched, slim_partial_stats_batched, slim_precond_batched,
                           slim_update_batched)
 from .snr_stats import snr_stats_batched, snr_stats_centered_batched, snr_stats_centered_partial_batched
-from .ssm_scan import ssm_scan as _ssm_scan
+from .ssm_scan import ssm_scan as _ssm_scan, ssm_scan_bwd
 
 KERNELS = (mega_adam_update, mega_slim_update_batched, adam_precond, slim_precond_batched,
            snr_stats_centered_batched, _paged_attention, snr_stats_centered_partial_batched,
            slim_partial_stats_batched, slim_finalize_batched, mega_slim_partial_stats_batched,
-           mega_slim_finalize_batched, _fused_adam, slim_update_batched, snr_stats_batched, _ssm_scan)
+           mega_slim_finalize_batched, _fused_adam, slim_update_batched, snr_stats_batched, _ssm_scan, ssm_scan_bwd)
 
 
 def reset_launch_counts() -> None:

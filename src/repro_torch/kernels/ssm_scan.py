@@ -1,5 +1,7 @@
 """Mamba-1 selective scan, forward (port of ``repro/kernels/ssm_scan.py``
-``ssm_scan``).
+``ssm_scan``) and backward (``ssm_scan_bwd``, which replaces no TPU kernel:
+the JAX package's backward is the plain-jnp custom VJP
+``repro/models/ssm.py:170 _selective_scan_bwd``).
 
 Kernel: ``csrc/ssm_scan.cu`` replaces the Pallas kernel at
 ``repro/kernels/ssm_scan.py:58`` (body ``_ssm_kernel`` :27, ``pallas_call``
@@ -16,6 +18,16 @@ In the model (``repro_torch.models.ssm.selective_scan``) it takes the place
 of the JAX package's chunked associative scan: both compose chunks, but the
 kernel's chunks and exponentials differ, so the two agree to f32 rounding,
 not bit for bit.
+
+Backward kernel: ``csrc/ssm_scan_bwd.cu``. The JAX package gets its
+backward's speed from ``lax.associative_scan``, which PyTorch lacks; the
+kernel walks each (row, channel) in reverse over the forward's chunks,
+replaying each chunk from the state the forward kept at its start
+(``ssm_scan(..., keep_bounds=True)`` returns those states) in B15's
+operation order, and sums the gradients that reduce over channels, rows
+and steps in a fixed order. :func:`plan_scan_bwd` plans it (pure integer
+arithmetic, tested on the CPU); :func:`ssm_scan_bwd_plain` is its plain
+twin, the reverse recurrence one step at a time.
 """
 from __future__ import annotations
 
@@ -30,6 +42,8 @@ from . import build
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 10 + [build.SIZE] * 3 + [build.INT] * 2 + [build.SIZE]
              + [build.INT] * 2 + [build.PTR])
+_BWD_ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 21 + [build.SIZE] * 3 + [build.INT] + [build.SIZE]
+                 + [build.INT] * 3 + [build.PTR])
 
 # The planner's geometry; the kernel's constants in csrc/ssm_scan.cu match.
 FORM_TOKEN, FORM_SEQ = 0, 1
@@ -40,6 +54,10 @@ TOKEN_THREADS, LANES = 256, 4   # one-token form: threads per block, lanes per c
 CARRY_THREADS = 256
 MIN_CHUNKS = 3             # fewer chunks than this gain nothing (see plan_scan)
 MAX_CHUNKS = 64            # the carry launch walks the chunks in series
+# The backward's geometry (csrc/ssm_scan_bwd.cu).
+BWD_THREADS = 32           # a block of the walk: one warp, N / 4 lanes (4 states each) a channel
+BWD_TILE = 16              # steps replayed into shared memory at a time
+BWD_COMBINE_THREADS = 256
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -144,25 +162,35 @@ def ssm_scan_plain(x, dt, a, b_t, c_t, d_skip, h0) -> Tuple[torch.Tensor, torch.
     return torch.stack(ys, dim=1), h
 
 
-def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, *, keep_bounds: bool = False):
     """x: (B, S, D); dt: (B, S, D) f32; a: (D, N) f32; b_t, c_t: (B, S, N);
     d_skip: (D,) f32; h0: (B, D, N) f32. x, b_t and c_t are f32 or bf16, one
     dtype for the three. Returns (y (B, S, D) f32, h_final (B, D, N) f32),
     as ``repro/kernels/ssm_scan.py:58-67`` does. CUDA tensors launch the
     kernel (1 <= N <= 16) in the form :func:`plan_scan` picks, one count
     per call however many CUDA launches it makes; CPU tensors take the
-    plain version."""
+    plain version.
+
+    ``keep_bounds=True`` returns (y, h_final, bounds, chunk) for the
+    backward, as the JAX forward keeps ``h_bounds``: with K > 1 chunks,
+    ``bounds`` is the carry workspace (B, K-1, D, N) f32, slot j the state
+    at the end of chunk j of ``chunk`` steps, from which the output walk
+    started chunk j+1; with one chunk or the one-token form (and on the
+    CPU) ``bounds`` is None and ``chunk`` is S, the whole sequence one chunk
+    from h0."""
     device = _check(x, dt, a, b_t, c_t, d_skip, h0)
+    s = x.shape[1]
     if device.type == "cpu":
-        return ssm_scan_plain(x, dt, a, b_t, c_t, d_skip, h0)
-    bsz, s, d = x.shape
+        y, h_out = ssm_scan_plain(x, dt, a, b_t, c_t, d_skip, h0)
+        return (y, h_out, None, s) if keep_bounds else (y, h_out)
+    bsz, _, d = x.shape
     n = a.shape[1]
     if not (1 <= n <= 16 and 1 <= bsz <= 65535):
         raise ValueError(f"ssm_scan: the kernel takes N in 1..16 and 1..65535 rows, got N={n}, B={bsz}")
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=device)
     h_out = torch.empty((bsz, d, n), dtype=torch.float32, device=device)
     if y.numel() == 0:
-        return y, h0.clone()
+        return (y, h0.clone(), None, max(s, 1)) if keep_bounds else (y, h0.clone())
     plan = plan_scan(bsz, s, d, n, sms=build.sm_count(device))
     carry = dt_sum = None
     if plan.chunks > 1:
@@ -174,7 +202,155 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0) -> Tuple[torch.Tensor, torch.Tensor
                  h_out.data_ptr(), build.ptr(carry), build.ptr(dt_sum), bsz, s, d, n, plan.form, plan.chunk,
                  plan.chunks, int(vec))
     ssm_scan.launches += 1
+    if keep_bounds:
+        return (y, h_out, carry, plan.chunk) if carry is not None else (y, h_out, None, s)
     return y, h_out
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanBwdPlan:
+    """The grid of one backward call. The walk: a (``warps``, batch) grid of
+    one warp each, ``lanes`` lanes per (row, channel) with 4 states each,
+    ``channels`` channels a warp, over ``chunks`` chunks of ``chunk`` steps
+    (the forward's), each in ``chunk_tiles`` tiles of BWD_TILE steps; the
+    combine: ``combine_blocks`` blocks of BWD_COMBINE_THREADS, a thread per
+    output of db, dc, da and dd."""
+    batch: int
+    seq: int
+    dim: int
+    n: int
+    states: int        # N padded to 4, 8 or 16
+    chunk: int
+    chunks: int
+    chunk_tiles: int   # tiles of the longest chunk: the tile-start workspace's depth
+    warps: int         # channel blocks: the db/dc partials' depth
+
+    @property
+    def lanes(self) -> int:
+        return self.states // 4
+
+    @property
+    def channels(self) -> int:
+        return BWD_THREADS // self.lanes
+
+    @property
+    def walk_grid(self) -> Tuple[int, int]:
+        return (self.warps, self.batch)
+
+    @property
+    def combine_blocks(self) -> int:
+        return _cdiv(self.batch * self.seq * 2 * self.n + self.dim * self.n + self.dim, BWD_COMBINE_THREADS)
+
+    def steps(self, k: int) -> Tuple[int, int]:
+        """[start, stop) of chunk ``k``."""
+        return k * self.chunk, min(self.seq, (k + 1) * self.chunk)
+
+    def workspace_shapes(self):
+        """{name: shape} of the f32 workspaces the wrapper allocates."""
+        b, d = self.batch, self.dim
+        return {"ws_h": (b, self.chunk_tiles, d, self.states), "ws_bc": (b, self.seq, self.warps, 2 * self.states),
+                "ws_a": (b, d, self.n), "ws_d": (b, d)}
+
+
+@functools.lru_cache(maxsize=None)
+def plan_scan_bwd(b: int, s: int, d: int, n: int, *, chunk: int) -> ScanBwdPlan:
+    """The grid of the backward of a (B=b, S=s, D=d, N=n) scan whose forward
+    kept the states at the boundaries of chunks of ``chunk`` steps (S or
+    more: one chunk from h0). The walk takes the forward's chunks as they
+    are, so each replay starts from a state the forward computed. Pure
+    integer arithmetic: it reads no tensor and makes no CUDA call."""
+    if not (1 <= n <= 16 and 1 <= b <= 65535 and s >= 1 and d >= 1 and chunk >= 1):
+        raise ValueError(f"plan_scan_bwd: the kernel takes N in 1..16 and 1..65535 rows, got B={b}, S={s}, D={d}, "
+                         f"N={n}, chunk={chunk}")
+    states = 4 if n <= 4 else 8 if n <= 8 else 16
+    chunk = min(chunk, s)
+    warps = _cdiv(d, BWD_THREADS // (states // 4))
+    return ScanBwdPlan(b, s, d, n, states, chunk, _cdiv(s, chunk), _cdiv(chunk, BWD_TILE), warps)
+
+
+def ssm_scan_bwd_plain(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None):
+    """Plain PyTorch version of :func:`ssm_scan_bwd`: the forward recurrence
+    of :func:`ssm_scan_plain` keeping every state, then the reverse
+    recurrence of ``_selective_scan_bwd`` (``repro/models/ssm.py:196-239``)
+    one timestep at a time, in f32: dh_t = dy_t C_t + exp(dt_t a) dh_{t+1}.
+    Needs no chunk boundaries. Returns (dx, ddt, da, db, dc, dd_skip, dh0),
+    all f32."""
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf, cf, dyf = b_t.float(), c_t.float(), dy.float()
+    h = h0.float()
+    hs = [h]
+    for t in range(x.shape[1]):
+        h = torch.exp(dtf[:, t, :, None] * af) * h + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
+        hs.append(h)
+    carry = torch.zeros_like(h) if dh_final is None else dh_final.float().clone()
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(af)
+    for t in reversed(range(x.shape[1])):
+        decay = torch.exp(dtf[:, t, :, None] * af)                       # A_t (B, D, N)
+        dh = dyf[:, t, :, None] * cf[:, t, None, :] + carry              # dh_t
+        dlog = dh * hs[t] * decay                                        # dlogA_t
+        ddtx = (dh * bf[:, t, None, :]).sum(-1)
+        db[:, t] = (dh * (dtf[:, t] * xf[:, t])[:, :, None]).sum(1)
+        dc[:, t] = (hs[t + 1] * dyf[:, t, :, None]).sum(1)
+        ddt[:, t] = ddtx * xf[:, t] + (dlog * af).sum(-1)
+        dx[:, t] = ddtx * dtf[:, t] + dyf[:, t] * d_skip.float()
+        da = da + (dlog * dtf[:, t, :, None]).sum(0)
+        carry = decay * dh
+    return dx, ddt, da, db, dc, (dyf * xf).sum((0, 1)), carry
+
+
+def ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None, *, bounds=None, chunk: Optional[int] = None,
+                 with_final: bool = False):
+    """The selective scan's gradients. The forward's operands as
+    :func:`ssm_scan` takes them; dy: (B, S, D) in x's dtype; dh_final: (B,
+    D, N) f32 or None (zero); ``bounds`` and ``chunk``: what
+    ``ssm_scan(..., keep_bounds=True)`` returned (None and S for one
+    chunk). Returns (dx, ddt (B, S, D), da (D, N), db, dc (B, S, N),
+    dd_skip (D,), dh0 (B, D, N)) as ``_selective_scan_bwd``
+    (``repro/models/ssm.py:170``): dx in x's dtype (the kernel rounds it
+    once as it stores it, as that function's cast does), the rest f32, as
+    that function has them before its other casts; ``with_final=True``
+    appends the final state the kernel replayed (B, D, N), which equals the
+    forward's h_final bit for bit. CUDA tensors launch the kernel (two CUDA
+    launches, one count); CPU tensors take the plain version, which needs
+    no bounds (and replays nothing: ``with_final`` is for the card)."""
+    device = _check(x, dt, a, b_t, c_t, d_skip, h0)
+    extra = {"dy": dy} if dh_final is None else {"dy": dy, "dh_final": dh_final}
+    if bounds is not None:
+        extra["bounds"] = bounds
+    build.check_operands("ssm_scan_bwd", dtypes={"x": _IN_DTYPES, "dy": (x.dtype,)}, x=x, **extra)
+    bsz, s, d = x.shape
+    n = a.shape[1]
+    if tuple(dy.shape) != (bsz, s, d) or (dh_final is not None and tuple(dh_final.shape) != (bsz, d, n)):
+        raise ValueError(f"ssm_scan_bwd: dy {tuple(dy.shape)} / dh_final "
+                         f"{None if dh_final is None else tuple(dh_final.shape)} do not match x {tuple(x.shape)}")
+    if device.type == "cpu":
+        if with_final:
+            raise ValueError("ssm_scan_bwd: with_final is the card kernel's replayed state")
+        dx, *rest = ssm_scan_bwd_plain(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final)
+        return (dx.to(x.dtype), *rest)
+    plan = plan_scan_bwd(bsz, s, d, n, chunk=chunk or s)
+    want = (bsz, plan.chunks - 1, d, n)
+    if (bounds is None) != (plan.chunks == 1) or (bounds is not None and tuple(bounds.shape) != want):
+        raise ValueError(f"ssm_scan_bwd: {plan.chunks} chunks of {plan.chunk} steps want bounds "
+                         f"{want if plan.chunks > 1 else None}, got {None if bounds is None else tuple(bounds.shape)}")
+    f32 = dict(dtype=torch.float32, device=device)
+    dx, ddt = torch.empty((bsz, s, d), dtype=x.dtype, device=device), torch.empty((bsz, s, d), **f32)
+    db, dc = torch.empty((bsz, s, n), **f32), torch.empty((bsz, s, n), **f32)
+    da, dd = torch.empty((d, n), **f32), torch.empty((d,), **f32)
+    dh0 = torch.empty((bsz, d, n), **f32)
+    h_last = torch.empty((bsz, d, n), **f32) if with_final else None
+    ws = {k: torch.empty(shape, **f32) for k, shape in plan.workspace_shapes().items()}
+    build.launch("ssm_scan_bwd", _entry_bwd(), device, x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(),
+                 a.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), d_skip.data_ptr(), h0.data_ptr(), build.ptr(bounds),
+                 dy.data_ptr(), build.ptr(dh_final), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+                 dc.data_ptr(), dd.data_ptr(), dh0.data_ptr(), build.ptr(h_last), ws["ws_h"].data_ptr(),
+                 ws["ws_bc"].data_ptr(), ws["ws_a"].data_ptr(), ws["ws_d"].data_ptr(), bsz, s, d, n, plan.chunk,
+                 plan.chunks, plan.chunk_tiles, plan.warps)
+    ssm_scan_bwd.launches += 1
+    out = (dx, ddt, da, db, dc, dd, dh0)
+    return out + (h_last,) if with_final else out
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,4 +358,10 @@ def _entry():
     return build.entry("repro_ssm_scan", _ARGTYPES)
 
 
+@functools.lru_cache(maxsize=None)
+def _entry_bwd():
+    return build.entry("repro_ssm_scan_bwd", _BWD_ARGTYPES)
+
+
 ssm_scan.launches = 0
+ssm_scan_bwd.launches = 0

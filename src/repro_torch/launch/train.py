@@ -10,8 +10,10 @@ data=16, model=16), with one process per rank: rank, world size and local
 rank come from the launcher's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, and ``MASTER_ADDR``/``MASTER_PORT`` for the rendezvous).
 Every rank runs the same ``Trainer`` under the mesh's sharding context;
-rank 0 prints and writes the checkpoints. Runs on the GPU; ``main(argv,
-device="cpu")`` runs on the CPU (over gloo on a mesh).
+rank 0 prints and writes the checkpoints. Runs on the GPU; ``--device cpu``
+(or ``main(argv, device="cpu")``) runs on the CPU (over gloo on a mesh):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon_mamba_7b --reduced --device cpu --steps 4
 """
 from __future__ import annotations
 
@@ -43,7 +45,9 @@ def main(argv=None, *, device=None):
     ap.add_argument("--guard", action="store_true",
                     help="fault-tolerant step: in-pass anomaly health, skip poisoned steps, lr backoff on loss "
                          "spikes, rollback to the last checkpoint on repeated faults")
+    ap.add_argument("--device", default=None, help="default: the GPU (raises when there is none)")
     args = ap.parse_args(argv)
+    device = args.device or device
 
     cfg = get_reduced(args.arch) if args.reduced or args.mesh == "none" else get_config(args.arch)
     mesh = None

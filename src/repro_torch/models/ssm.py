@@ -1,14 +1,16 @@
 """Mamba-1 selective-state-space block, the falcon-mamba mixer (port of
-``repro/models/ssm.py``: the forward, decode and cache; the backward and the
-explicit tensor-parallel form are later slices).
+``repro/models/ssm.py``: the forward, its backward, decode and cache; the
+explicit tensor-parallel form is a later slice).
 
-The JAX package computes the recurrence as a chunked associative scan; here
-it is :func:`selective_scan`, whose forward runs the hand-written selective
-scan kernel (``repro_torch.kernels.ssm_scan``) for CUDA tensors: one pass
-over the sequence with the state in registers, summing in sequential
-order, so the two packages agree to f32 rounding. One kernel serves the
-training-shaped forward and the one-token decode step (S = 1, the state
-from the cache).
+The JAX package computes the recurrence as a chunked associative scan with a
+hand-written VJP; here it is :func:`selective_scan`, whose forward runs the
+hand-written selective scan kernel (``repro_torch.kernels.ssm_scan``) for
+CUDA tensors, keeping the states at its chunk boundaries as the JAX forward
+keeps ``h_bounds``, and whose backward runs the hand-written backward kernel
+(``ssm_scan_bwd``), which replays each chunk from its boundary and runs the
+reverse recurrence. The two packages agree to f32 rounding. One forward
+kernel serves the training-shaped forward and the one-token decode step (S
+= 1, the state from the cache).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from ..kernels.ssm_scan import ssm_scan, ssm_scan_bwd, ssm_scan_bwd_plain, ssm_scan_plain
 from .common import ParamSpec, constant_init, normal_init, ones_init, uniform_init, zeros_init
 
 SCAN_IMPLS = ("kernel", "plain")
@@ -92,31 +94,48 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, history: Opt
 
 
 class _SelectiveScan(torch.autograd.Function):
-    """The JAX package's ``custom_vjp`` around the scan: the forward is
-    kernel B15 (or its plain twin); the backward is the next slice's."""
+    """The JAX package's ``custom_vjp`` around the scan
+    (``repro/models/ssm.py:139-242``): the forward is kernel B15 (or its
+    plain twin) and saves its inputs and chunk-boundary states; the backward
+    is the backward kernel ``ssm_scan_bwd`` (or its plain twin), which
+    replays each chunk from its boundary. Gradients come back in the
+    inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b_t, c_t, d_skip, h0, impl):
-        scan = ssm_scan if impl == "kernel" else ssm_scan_plain
-        y, h_final = scan(x, dt, a, b_t, c_t, d_skip, h0)
+        if impl == "kernel":
+            y, h_final, bounds, chunk = ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, keep_bounds=True)
+        else:
+            (y, h_final), bounds, chunk = ssm_scan_plain(x, dt, a, b_t, c_t, d_skip, h0), None, x.shape[1]
+        ctx.save_for_backward(x, dt, a, b_t, c_t, d_skip, h0, bounds)
+        ctx.impl, ctx.chunk = impl, chunk
+        ctx.set_materialize_grads(False)
         return y.to(x.dtype), h_final
 
     @staticmethod
     def backward(ctx, dy, dh_final):
-        raise NotImplementedError("the backward of selective_scan is not ported yet: porting "
-                                  "repro/models/ssm.py _selective_scan_bwd is the next slice, where training "
-                                  "the SSM family starts")
+        x, dt, a, b_t, c_t, d_skip, h0, bounds = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
+        if dh_final is not None:
+            dh_final = dh_final.float().contiguous()
+        if ctx.impl == "kernel":
+            grads = ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final, bounds=bounds, chunk=ctx.chunk)
+        else:
+            grads = ssm_scan_bwd_plain(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final)
+        like = (x, dt, a, b_t, c_t, d_skip, h0)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, like)) + (None,)
 
 
 def selective_scan(x, dt, a, b_t, c_t, d_skip, h0, *, impl: str = "kernel"):
     """x, dt: (B, S, di); a: (di, N); b_t, c_t: (B, S, N); h0: (B, di, N).
     Returns (y (B, S, di) in x's dtype, h_final (B, di, N) f32), as
     ``repro/models/ssm.py:140`` (whose ``chunk`` argument sizes the JAX
-    scan's chunks; the kernel walks the whole sequence and takes none).
-    CUDA tensors run kernel B15, CPU
-    tensors its plain twin; ``impl="plain"`` picks the twin on any device,
-    an explicit choice for comparisons. The backward raises
-    ``NotImplementedError``."""
+    scan's chunks; the kernels plan their own). CUDA tensors run kernel B15
+    forward and ``ssm_scan_bwd`` backward, CPU tensors their plain twins;
+    ``impl="plain"`` picks the twins on any device, an explicit choice for
+    comparisons. Differentiable in every tensor argument: ``a``'s gradient
+    reaches ``a_log`` through ``-exp`` and ``dt``'s reaches ``dt_proj`` and
+    ``dt_bias`` through ``softplus`` by autograd."""
     if impl not in SCAN_IMPLS:
         raise ValueError(f"impl must be one of {SCAN_IMPLS}, got {impl!r}")
     dt = dt.float().contiguous()

@@ -5,7 +5,8 @@ CPU, from the same numpy parameters and gradients:
   v2) equal the JAX package's on full and reduced gpt_small, smollm_135m,
   falcon_mamba_7b and ResNet-18, with equal second-moment savings;
 * 3 steps of each of the 12 ``make_optimizer`` names against the JAX
-  package's 'jnp' backend: updates and every state tensor within 1e-5 of
+  package's 'jnp' backend, on reduced gpt_small, falcon_mamba_7b,
+  smollm_135m and ResNet-18: updates and every state tensor within 1e-5 of
   each tensor's largest magnitude, the same state leaf names and shapes.
   The Adam/SlimAdam family also runs on the port's fused backend (the
   kernels' plain twins on the CPU) and its per-leaf route;
@@ -45,7 +46,7 @@ from repro_torch.core.labels import flatten_with_names
 from repro_torch.core.slim_adam import scale_by_slim_adam
 from repro_torch.data import DataConfig, ZipfLM
 from repro_torch.kernels import megaplan
-from repro_torch.models import ResNetConfig, Transformer
+from repro_torch.models import ResNet, ResNetConfig, Transformer
 from repro_torch.optim import adamw, apply_updates, fused, multi_steps
 from repro_torch.train import GuardConfig, Trainer, TrainerConfig, find_adam_nu, find_step_health
 from repro_torch.train.guard import find_slim_snr, strip_step_health
@@ -115,11 +116,33 @@ def _grads(arrays, step):
             for k, a in arrays.items()}
 
 
+# The models the 3-step comparison runs on, all reduced: gpt_small, and the
+# leaves of the other families (Mamba-1, a GQA decoder, convolutions).
+THREE_STEP_MODELS = ("gpt_small", "falcon_mamba_7b", "smollm_135m", "resnet18")
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_run(name):
-    """The JAX package's 3 steps of ``name`` ('jnp' backend) on reduced
-    gpt_small: per step, {name: update} and [(state leaf name, array)]."""
-    _, jparams, jmeta, arrays = jax_params(seed=1)
+def _jax_model(model):
+    """(JAX params, JAX meta, {dotted name: numpy array}) of a reduced model
+    from seed 1."""
+    if model == "resnet18":
+        jparams, jmeta = jax_resnet.ResNetConfig(**RESNET_REDUCED).init(jax.random.PRNGKey(1))
+        return jparams, jmeta, {n: np.asarray(x) for n, x in jax_flatten(jparams)[0]}
+    _, jparams, jmeta, arrays = jax_params(seed=1, arch=model)
+    return jparams, jmeta, arrays
+
+
+def _port_model(model):
+    if model == "resnet18":
+        return ResNet(ResNetConfig(**RESNET_REDUCED), device="cpu")
+    return Transformer(get_reduced(model), device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(name, model="gpt_small"):
+    """The JAX package's 3 steps of ``name`` ('jnp' backend) on a reduced
+    model: per step, {name: update} and [(state leaf name, array)]."""
+    jparams, jmeta, arrays = _jax_model(model)
     rules = _snr_rules(jax_flatten(jmeta)[0]) if name == "slim_snr" else None
     jtx = jax_trainer.make_optimizer(name, LR, jparams, jmeta, rules=rules, backend="jnp")
     state = jtx.init(jparams)
@@ -142,16 +165,19 @@ def _routes(name):
     return ["jnp"]
 
 
-@pytest.mark.parametrize("name,route", [(n, r) for n in OPTIMIZERS for r in _routes(n)])
-def test_three_steps_match_jax(name, route):
-    _, _, _, arrays = jax_params(seed=1)
-    model = Transformer(get_reduced("gpt_small"), device="cpu")
+@pytest.mark.parametrize("model,name,route", [
+    pytest.param(m, n, r, id=f"{n}-{r}" if m == "gpt_small" else f"{n}-{r}-{m}")
+    for m in THREE_STEP_MODELS for n in OPTIMIZERS for r in _routes(n)])
+def test_three_steps_match_jax(model, name, route):
+    _, _, arrays = _jax_model(model)
+    meta = _port_model(model).meta
     params = params_from_numpy(arrays, "cpu")
-    rules = _snr_rules(model.meta.items()) if name == "slim_snr" else None
-    tx = make_optimizer(name, LR, params, model.meta, rules=rules, backend="jnp" if route == "jnp" else "fused",
+    assert list(params) == list(meta)
+    rules = _snr_rules(meta.items()) if name == "slim_snr" else None
+    tx = make_optimizer(name, LR, params, meta, rules=rules, backend="jnp" if route == "jnp" else "fused",
                         megakernel=route != "per_leaf")
     state = tx.init(params)
-    for step, (want_u, want_state) in enumerate(_jax_run(name)):
+    for step, (want_u, want_state) in enumerate(_jax_run(name, model)):
         with torch.no_grad():
             upd, state = tx.update({k: torch.from_numpy(v) for k, v in _grads(arrays, step).items()}, state, params)
             apply_updates(params, upd)

@@ -17,7 +17,9 @@ parameter-writing kernels' f32 p' rounds in the twin's order (1e-6); a bf16
 p' may round one bf16 step apart where the f32 values straddle a rounding
 boundary (2^-8 of the largest |p|). The selective scan's y and final state
 compose chunks of the sequence and take exp2 of dt*a*log2(e), where the
-twin steps in order with exp (1e-5); both forms rerun bit for bit, as do
+twin steps in order with exp (1e-5), and so do the gradients of its
+backward kernel, whose replayed states equal the forward's bit for bit;
+both forms rerun bit for bit, as do the backward and
 the split walks of the line sums and of B1, B4, B7, B10 and B12. The line sums
 of g^2 on long heavy-tailed lines (B1's, B4's and B7's v', B12's partial
 sums) hold to an f64 reference at 1e-6.
@@ -225,7 +227,7 @@ def test_counts_reset(dev):
     snr_stats.snr_stats_centered_batched(torch.rand(1, 3, 8, device=dev), axis=1)
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
-    np.testing.assert_equal(len(kernels.KERNELS), 15)
+    np.testing.assert_equal(len(kernels.KERNELS), 16)
 
 
 def _poison(g, n_bad, seed):
@@ -1250,3 +1252,128 @@ def test_ssm_scan_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError):
         ssm_scan.ssm_scan(*args)
     assert ssm_scan.ssm_scan.launches == before
+
+
+# The selective scan's backward (ssm_scan_bwd) against its plain twin, which
+# steps the reverse recurrence in order with exp where the kernel replays
+# each chunk with exp2 of dt*a*log2(e) and sums channels by a warp butterfly
+# (BWD_SUMS, relative to each gradient's largest magnitude). dx comes back
+# in x's dtype: in bf16 the store's rounding (2^-8 of a value) adds to it.
+BWD_SUMS = 1e-5
+BWD_DX_BF16 = BWD_SUMS + 2.0**-8
+
+
+def _close_bwd(got, want):
+    """The kernel's gradients against the twin's (all f32): dx in x's dtype
+    (``got[0]``), the rest f32."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == (got[0].dtype if i == 0 else torch.float32) and g.shape == w.shape, i
+        _close(g, w, BWD_DX_BF16 if g.dtype == torch.bfloat16 else BWD_SUMS)
+
+
+def _bwd_case(dev, b, s, d, n, dtype, seed, dh_final=True):
+    args = _scan_inputs(dev, b, s, d, n, dtype, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn((b, s, d), generator=gen, device=dev).to(dtype)
+    dhf = torch.randn((b, d, n), generator=gen, device=dev) if dh_final else None
+    return args, dy, dhf
+
+
+# The training shape of chip_smoke.py's SSM phase (K = 4 chunks), sequences
+# of one chunk (K = 1: the prompt shape, S = 17) and of several at narrow
+# widths, a one-token step, ragged warps (D = 65, 33) and padded states.
+@pytest.mark.parametrize("b,s,d,n", [(2, 2048, 8192, 16), (4, 64, 8192, 16), (1, 300, 200, 16), (3, 17, 65, 8),
+                                     (2, 1000, 96, 16), (4, 1, 37, 9), (2, 40, 33, 3), (1, 2048, 512, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_bwd(dev, b, s, d, n, dtype):
+    """Against the twin, two runs bit-equal, one count a call, and the
+    replayed final state equal to B15's h_final bit for bit."""
+    args, dy, dhf = _bwd_case(dev, b, s, d, n, dtype, b * s + d, dh_final=b != 4)
+    _, h, bounds, chunk = ssm_scan.ssm_scan(*args, keep_bounds=True)
+    plan = ssm_scan.plan_scan(b, s, d, n, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (bounds is None) == (plan.form == ssm_scan.FORM_TOKEN or plan.chunks == 1)
+    before = ssm_scan.ssm_scan_bwd.launches
+    got = ssm_scan.ssm_scan_bwd(*args, dy, dhf, bounds=bounds, chunk=chunk, with_final=True)
+    again = ssm_scan.ssm_scan_bwd(*args, dy, dhf, bounds=bounds, chunk=chunk, with_final=True)
+    want = ssm_scan.ssm_scan_bwd_plain(*args, dy, dhf)
+    torch.cuda.synchronize()
+    assert ssm_scan.ssm_scan_bwd.launches == before + 2
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+    assert torch.equal(got[-1], h)
+    assert got[0].dtype == dtype
+    _close_bwd(got[:-1], want)
+
+
+def test_ssm_scan_bwd_one_chunk_at_the_training_shape(dev):
+    """K = 1 at the training shape: the whole sequence replayed from h0."""
+    args, dy, dhf = _bwd_case(dev, 2, 2048, 8192, 16, torch.bfloat16, 11)
+    got = ssm_scan.ssm_scan_bwd(*args, dy, dhf)
+    again = ssm_scan.ssm_scan_bwd(*args, dy, dhf)
+    want = ssm_scan.ssm_scan_bwd_plain(*args, dy, dhf)
+    torch.cuda.synchronize()
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+    _close_bwd(got, want)
+
+
+@pytest.mark.parametrize("n", [3, 5, 13])
+def test_ssm_scan_bwd_padded_states_add_exact_zeros(dev, n):
+    """N and its explicit zero padding to the kernel's NP (a = B = C = h0 =
+    dh_final = 0 there) give the same bits on the first N states and exact
+    zeros on the padding."""
+    npad = 4 if n <= 4 else 8 if n <= 8 else 16
+    args, dy, dhf = _bwd_case(dev, 2, 300, 70, n, torch.float32, n)
+
+    def z(t):
+        return torch.cat([t, torch.zeros(t.shape[:-1] + (npad - n,), dtype=t.dtype, device=dev)], -1).contiguous()
+
+    x, dt, a, b_t, c_t, d_skip, h0 = args
+    padded = (x, dt, z(a), z(b_t), z(c_t), d_skip, z(h0))
+    outs = []
+    for ops, dh in ((args, dhf), (padded, z(dhf))):
+        _, _, bounds, chunk = ssm_scan.ssm_scan(*ops, keep_bounds=True)
+        outs.append(ssm_scan.ssm_scan_bwd(*ops, dy, dh, bounds=bounds, chunk=chunk))
+    torch.cuda.synchronize()
+    for name, g, gp in zip(("dx", "ddt", "da", "db", "dc", "dd", "dh0"), *outs):
+        if name in ("dx", "ddt", "dd"):
+            assert torch.equal(g, gp), name
+        else:
+            assert torch.equal(g, gp[..., :n]) and not gp[..., n:].any(), name
+
+
+def test_ssm_scan_bwd_rejects_what_the_kernel_does_not_take(dev):
+    args, dy, dhf = _bwd_case(dev, 1, 300, 64, 4, torch.bfloat16, 0)
+    _, _, bounds, chunk = ssm_scan.ssm_scan(*args, keep_bounds=True)
+    assert bounds is not None
+    before = ssm_scan.ssm_scan_bwd.launches
+    with pytest.raises(ValueError, match="bounds"):
+        ssm_scan.ssm_scan_bwd(*args, dy, dhf, bounds=bounds)         # bounds without their chunk length
+    with pytest.raises(TypeError):
+        ssm_scan.ssm_scan_bwd(*args, dy.float(), dhf, bounds=bounds, chunk=chunk)
+    with pytest.raises(ValueError):
+        ssm_scan.ssm_scan_bwd(*args, dy, dhf, bounds=bounds[:, :1].contiguous(), chunk=chunk)
+    assert ssm_scan.ssm_scan_bwd.launches == before
+
+
+def test_selective_scan_backward_runs_the_kernel(dev):
+    """The autograd function on CUDA tensors: B15 forward, ssm_scan_bwd
+    backward (one count each), gradients in the inputs' dtypes, within
+    BWD_SUMS of ``impl="plain"`` (bf16 gradients within one bf16 step)."""
+    from repro_torch.models import ssm as tssm
+
+    args, dy, dhf = _bwd_case(dev, 2, 700, 96, 16, torch.bfloat16, 3)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        counts = ssm_scan.ssm_scan.launches, ssm_scan.ssm_scan_bwd.launches
+        y, h = tssm.selective_scan(*leaves, impl=impl)
+        ((y.float() * dy.float()).sum() + (h * dhf).sum()).backward()
+        torch.cuda.synchronize()
+        moved = ssm_scan.ssm_scan.launches - counts[0], ssm_scan.ssm_scan_bwd.launches - counts[1]
+        assert moved == ((1, 1) if impl == "kernel" else (0, 0))
+        assert [t.grad.dtype for t in leaves] == [t.dtype for t in args]
+        grads[impl] = [t.grad for t in leaves]
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        tol = 2.0**-7 if g.dtype == torch.bfloat16 else BWD_SUMS
+        _close(g.float(), w.float(), tol)

@@ -116,11 +116,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     snr_stats.snr_stats_batched(v, axis=1)
     bc = v[..., :4].contiguous()
     ssm_scan.ssm_scan(v, v, -torch.ones(8, 4), bc, bc, torch.ones(8), torch.zeros(1, 8, 4))
+    ssm_scan.ssm_scan_bwd(v, v, -torch.ones(8, 4), bc, bc, torch.ones(8), torch.zeros(1, 8, 4), v)
     assert kernels.launch_counts() == {"mega_adam_update": 0, "mega_slim_update_batched": 0,
                                        "adam_precond": 0, "slim_precond_batched": 0,
                                        "snr_stats_centered_batched": 0, "paged_attention": 0,
                                        "snr_stats_centered_partial_batched": 0, "slim_partial_stats_batched": 0,
                                        "slim_finalize_batched": 0, "mega_slim_partial_stats_batched": 0,
                                        "mega_slim_finalize_batched": 0, "fused_adam": 0, "slim_update_batched": 0,
-                                       "snr_stats_batched": 0, "ssm_scan": 0}
+                                       "snr_stats_batched": 0, "ssm_scan": 0, "ssm_scan_bwd": 0}
 

@@ -7,8 +7,10 @@ Tolerances, relative to each output's largest magnitude: 2e-6 for the scan
 against the Pallas kernel in interpret mode (the same sequential recurrence;
 the N-term sum of y runs in another order) and 2e-5 against the JAX model's
 chunked associative scan (a differently structured sum); 1e-5 for the Mamba
-block, the model's logits and the decode caches. ``a_log`` must be bit-equal.
-On the CPU the scan's wrapper runs its plain twin.
+block, the model's logits and the decode caches, and for the scan's
+gradients against ``jax.grad`` through the JAX package's custom VJP and
+against autograd through the plain forward. ``a_log`` must be bit-equal.
+On the CPU the scan's wrappers run their plain twins.
 """
 import dataclasses
 import hashlib
@@ -65,15 +67,103 @@ def test_ssm_scan_plain_matches_jax_kernel_and_oracle(shape):
     assert_close(h, h_o, SCAN_ORACLE, "h vs selective_scan")
 
 
-def test_selective_scan_casts_y_and_has_no_backward_yet():
+def test_selective_scan_casts_y():
     args = [torch.from_numpy(a) for a in _scan_inputs(1, 5, 8, 4, 1)]
     y, h = tssm.selective_scan(args[0].to(torch.bfloat16), args[1], args[2], args[3].to(torch.bfloat16),
                                args[4].to(torch.bfloat16), args[5], args[6])
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
-    x = args[0].clone().requires_grad_(True)
-    y, _ = tssm.selective_scan(x, *args[1:])
-    with pytest.raises(NotImplementedError, match="_selective_scan_bwd"):
-        y.sum().backward()
+
+
+# -- the scan's gradients ------------------------------------------------------
+# ``ssm_scan_bwd`` (the plain twin on the CPU) and ``selective_scan``'s
+# backward against jax.grad through the JAX package's custom VJP (its
+# chunked replay at the chunk given) and torch.autograd through the plain
+# forward, each gradient within GRAD of its largest magnitude, in f32; bf16
+# operands reach JAX as the f32 values of their bf16 rounding.
+GRAD = 1e-5
+GRAD_NAMES = ("dx", "ddt", "da", "db", "dc", "dd_skip", "dh0")
+
+
+def _grad_case(b, s, d, n, dtype, dh_random, seed):
+    """Numpy operands (bf16 ones rounded through torch), their torch twins,
+    dy in the operands' dtype and dh_final (zero or random)."""
+    arrays = list(_scan_inputs(b, s, d, n, seed))
+    rng = np.random.default_rng(seed + 1)
+    ts = [torch.from_numpy(v) for v in arrays]
+    dy = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(dtype)
+    for i in (0, 3, 4):
+        ts[i] = ts[i].to(dtype)
+    dhf = rng.standard_normal((b, d, n)).astype(np.float32) if dh_random else np.zeros((b, d, n), np.float32)
+    return [t.float().numpy() for t in ts], ts, dy, torch.from_numpy(dhf)
+
+
+def _jax_grads(arrays, dy, dhf, chunk):
+    def loss(*args):
+        y, h = jssm.selective_scan(*args, chunk)
+        return jnp.sum(y * dy) + jnp.sum(h * dhf)
+
+    return [np.asarray(g) for g in jax.grad(loss, argnums=tuple(range(7)))(*map(jnp.asarray, arrays))]
+
+
+# (b, s, d, n, the JAX scan's chunk): S = 1, 17 and 300; N = 1, 3 and 16;
+# one chunk, chunks that divide S and a chunk of 1 step (S = 17 is prime).
+GRAD_SHAPES = [(2, 1, 8, 3, 8), (1, 17, 5, 16, 8), (2, 17, 6, 1, 32), (1, 300, 4, 3, 64), (2, 300, 3, 16, 8)]
+
+
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("dh_random", [False, True], ids=["dh0", "dh"])
+def test_scan_gradients_match_jax_custom_vjp(shape, dtype, dh_random):
+    b, s, d, n, chunk = shape
+    arrays, ts, dy, dhf = _grad_case(b, s, d, n, dtype, dh_random, b * s + d + n)
+    want = _jax_grads(arrays, dy.float().numpy(), dhf.numpy(), chunk)
+    plain = tscan.ssm_scan_bwd_plain(*ts, dy, dhf if dh_random else None)
+    got = tscan.ssm_scan_bwd(*ts, dy, dhf if dh_random else None)
+    for name, p, g, w in zip(GRAD_NAMES, plain, got, want):
+        assert p.dtype == torch.float32 and tuple(p.shape) == w.shape, name
+        assert_close(p, w, GRAD, f"{name} vs jax.grad")
+        # the wrapper on CPU tensors: the twin's values, dx in x's dtype as the kernel stores it
+        assert g.dtype == (ts[0].dtype if name == "dx" else torch.float32), name
+        assert torch.equal(g, p.to(g.dtype)), name
+    # the model's autograd function: the same gradients, cast to each input's dtype
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    y, h = tssm.selective_scan(*leaves)
+    torch.autograd.backward([y, h] if dh_random else [y], [dy, dhf] if dh_random else [dy])
+    for name, t, g in zip(GRAD_NAMES, leaves, got):
+        assert t.grad.dtype == t.dtype, name
+        assert torch.equal(t.grad, g.to(t.dtype)), name
+
+
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
+def test_scan_gradients_match_autograd_through_the_plain_forward(shape):
+    b, s, d, n, _ = shape
+    _, ts, dy, dhf = _grad_case(b, s, d, n, torch.float32, True, 7 * s + n)
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    y, h = tscan.ssm_scan_plain(*leaves)
+    ((y * dy).sum() + (h * dhf).sum()).backward()
+    got = tscan.ssm_scan_bwd_plain(*ts, dy, dhf)
+    for name, t, g in zip(GRAD_NAMES, leaves, got):
+        assert_close(g, t.grad, GRAD, f"{name} vs autograd")
+
+
+def test_selective_scan_backward_takes_only_the_cotangents_it_gets():
+    """h_final ignored (as ``ssm_forward`` does): dh_final is None and the
+    backward equals one given zeros; y ignored: dy is zero."""
+    _, ts, dy, dhf = _grad_case(2, 9, 4, 3, torch.float32, True, 0)
+    grads = []
+    for use_h in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in ts]
+        y, h = tssm.selective_scan(*leaves)
+        ((y * dy).sum() + (h * 0.0).sum() if use_h else (y * dy).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for g0, g1 in zip(*grads):
+        assert torch.equal(g0, g1)
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    _, h = tssm.selective_scan(*leaves)
+    (h * dhf).sum().backward()
+    want = tscan.ssm_scan_bwd_plain(*ts, torch.zeros_like(dy), dhf)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
 
 
 def _port(arch=ARCH):

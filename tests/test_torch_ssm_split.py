@@ -18,10 +18,24 @@ in interpret mode and its chunked oracle ``repro.models.ssm.selective_scan``
 inputs; bf16 operands reach JAX as the f32 values of their bf16 rounding.
 The shapes put chunk boundaries that do not divide S (S = 17, 300, 2048),
 and cover S = 1, N = 1, 3 and 16, B = 1 and 4, f32 and bf16.
+
+The backward (``plan_scan_bwd``, ``csrc/ssm_scan_bwd.cu``) the same way:
+the planner's walk writes dx and ddt of every (row, timestep, channel) once
+over the forward's chunks, within the grid limits, reading no tensor;
+``_walk_bwd`` repeats the kernel in plain torch (the chunks in reverse,
+each replayed from the forward's boundary state into its tiles' start
+states, the tiles in reverse, the warp's butterfly that leaves each of the
+2*NP channel sums of a step on its own lane, the workspace layouts and the
+combine). It fills every db/dc workspace slot once, replays the forward
+walk's final state bit for bit, keeps padded states at exact 0, and is held
+to the plain twin ``ssm_scan_bwd_plain`` and to ``jax.grad`` through the
+JAX package's custom VJP (1e-5 relative to each gradient's largest
+magnitude: the exponentials' form and the order of the sums differ).
 """
 import dataclasses
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,8 +45,8 @@ from _torch_parity import assert_close
 from repro.kernels.ssm_scan import ssm_scan as jax_ssm_scan
 from repro.models import ssm as jssm
 from repro_torch.kernels import ssm_scan as sc
-from repro_torch.kernels.ssm_scan import (FORM_SEQ, FORM_TOKEN, LANES, SEQ_THREADS, TILE, TOKEN_THREADS,
-                                          plan_scan)
+from repro_torch.kernels.ssm_scan import (BWD_COMBINE_THREADS, BWD_THREADS, BWD_TILE, FORM_SEQ, FORM_TOKEN, LANES,
+                                          SEQ_THREADS, TILE, TOKEN_THREADS, plan_scan, plan_scan_bwd)
 
 H100_SMS = 132
 MAX_GRID_X, MAX_GRID_YZ = 2**31 - 1, 65535
@@ -174,9 +188,11 @@ def _chunk(h, a2, xf, dtf, bf, cf, dsk, t0, t1, y=None):
     return h, sdt
 
 
-def _walk(plan, x, dt, a, b_t, c_t, d_skip, h0):
+def _walk(plan, x, dt, a, b_t, c_t, d_skip, h0, bounds=None):
     """B15's forms in plain torch (f32): the one-token step, or the carry
-    walk, the carry composition and the output walk."""
+    walk, the carry composition and the output walk. ``bounds``, a list,
+    receives the composed carry slots (the states the backward starts its
+    chunks 1..K-1 from)."""
     xf, dtf, bf, cf = x.float(), dt.float(), b_t.float(), c_t.float()
     a2 = a.float() * float(LOG2E)
     y = torch.zeros(xf.shape)
@@ -191,6 +207,8 @@ def _walk(plan, x, dt, a, b_t, c_t, d_skip, h0):
         sums.append(sdt)
     for j in range(1, plan.chunks - 1):                  # launch 2
         slots[j] = torch.exp2(a2 * sums[j][:, :, None]) * slots[j - 1] + slots[j]
+    if bounds is not None:
+        bounds.extend(slots)
     h_final = None
     for k in range(plan.chunks):                         # launch 3
         start = h0.clone() if k == 0 else slots[k - 1]
@@ -241,3 +259,231 @@ def test_padded_states_stay_zero():
     y4, h4 = _walk(_plan(2, 40, 6, 4, TILE), *pad)
     assert torch.equal(h, h4[..., :3]) and not h4[..., 3].any()
     assert_close(y4.numpy(), y.numpy(), 1e-7, "y")
+
+
+# -- the backward ---------------------------------------------------------------
+
+# The training shape of chip_smoke.py's SSM phase (B = 2 rows of 2048 tokens,
+# full-width falcon_mamba_7b) and its K = 1 case.
+TRAIN = (2, 2048, 8192, 16)
+BWD_SHAPES = SHAPES + [(2, 300, 70, 16, 4 * TILE), (1, 33, 65, 5, TILE), (3, 40, 33, 8, None)]
+
+
+def _fwd_chunking(plan):
+    """(chunk, K) the forward kept boundaries for: one chunk of S unless
+    the sequence form walks several."""
+    if plan.form == FORM_SEQ and plan.chunks > 1:
+        return plan.chunk, plan.chunks
+    return plan.seq, 1
+
+
+def _bwd_plan(b, s, d, n, chunk=None):
+    fwd = _plan(b, s, d, n, chunk)
+    return fwd, plan_scan_bwd(b, s, d, n, chunk=_fwd_chunking(fwd)[0])
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES + [TRAIN + (None,), TRAIN[:2] + (96, 16, 2048)], ids=str)
+def test_bwd_plan_covers_every_step_once_within_the_grid(shape):
+    b, s, d, n, chunk = shape
+    fwd, plan = _bwd_plan(b, s, d, n, chunk)
+    assert (plan.chunk, plan.chunks) == _fwd_chunking(fwd)
+    assert plan.states == fwd.states and plan.lanes * plan.channels == BWD_THREADS and plan.lanes == plan.states // 4
+    assert plan.warps * plan.channels >= d > (plan.warps - 1) * plan.channels
+    gx, gy = plan.walk_grid
+    assert 0 < gx <= MAX_GRID_X and 0 < gy <= MAX_GRID_YZ and 0 < plan.combine_blocks <= MAX_GRID_X
+    assert plan.combine_blocks * BWD_COMBINE_THREADS >= b * s * 2 * n + d * n + d
+    steps = [plan.steps(k) for k in range(plan.chunks)]
+    assert steps[0][0] == 0 and steps[-1][1] == s and all(t0 < t1 for t0, t1 in steps)
+    assert all(steps[k][1] == steps[k + 1][0] for k in range(plan.chunks - 1))
+    assert max(-(-(t1 - t0) // BWD_TILE) for t0, t1 in steps) == plan.chunk_tiles
+    ws = plan.workspace_shapes()
+    assert ws["ws_h"] == (b, plan.chunk_tiles, d, plan.states) and ws["ws_bc"] == (b, s, plan.warps, 2 * plan.states)
+    if b * s * d > 5 * 10**6:
+        return
+    # the walk's pieces: block (x, row) over its channels, every chunk's steps
+    c = plan.channels
+    pieces = [(row, range(x * c, min(d, (x + 1) * c)), range(*plan.steps(k)))
+              for x in range(gx) for row in range(gy) for k in range(plan.chunks)]
+    assert (_cover(pieces, b, s, d) == 1).all()
+
+
+def test_bwd_plan_at_the_training_shape():
+    fwd, plan = _bwd_plan(*TRAIN)
+    assert fwd.form == FORM_SEQ and (plan.chunks, plan.chunk) == (fwd.chunks, fwd.chunk) == (4, 512)
+    assert plan.walk_grid == (1024, 2) and plan.chunk_tiles == 32   # 8 channels x 4 lanes
+    one = plan_scan_bwd(*TRAIN, chunk=TRAIN[1])         # K = 1: the whole sequence from h0
+    assert one.chunks == 1 and one.chunk_tiles == 128
+
+
+def test_bwd_planner_reads_no_tensor():
+    params = inspect.signature(plan_scan_bwd).parameters
+    assert list(params) == ["b", "s", "d", "n", "chunk"]
+    code = plan_scan_bwd.__wrapped__.__code__
+    assert "torch" not in code.co_names and "cuda" not in code.co_names
+    assert plan_scan_bwd(*TRAIN, chunk=512) is plan_scan_bwd(*TRAIN, chunk=512)
+    for bad in ((1, 8, 4, 17), (0, 8, 4, 4), (1, 0, 4, 4)):
+        with pytest.raises(ValueError):
+            plan_scan_bwd(*bad, chunk=16)
+
+
+def _channel_sum(vals, lanes):
+    """The walk's warp butterfly on (..., 32 lanes, 8 values), lane = channel
+    * ``lanes`` + q: three reduce-scatter levels over lane bits 4, 3, 2, then
+    xor levels over the channel bits below 2. Returns what each lane holds:
+    the sum over the warp's channels of its value lane >> 2 (of the states
+    4q ..)."""
+    lane = torch.arange(32)
+    v = vals
+    for h in (4, 2, 1):
+        off = 4 * h
+        up = ((lane & off) != 0)[:, None]
+        send = torch.where(up, v[..., :h], v[..., h:2 * h])
+        keep = torch.where(up, v[..., h:2 * h], v[..., :h])
+        v = keep + send[..., lane ^ off, :]
+    r, off = v[..., 0], 2
+    while off >= lanes:
+        r = r + r[..., lane ^ off]
+        off //= 2
+    return r
+
+
+def _slots(lanes, np_):
+    """(writer lanes, their db/dc workspace slots), as the walk stores them."""
+    lane = torch.arange(32)
+    writers = lane[(lane & 3) < lanes]
+    v, q = writers >> 2, writers % lanes
+    return writers, torch.where(v >= 4, np_, 0) + 4 * q + (v & 3)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_channel_sum_leaves_each_sum_on_its_lane(lanes):
+    np_ = 4 * lanes
+    vals = torch.from_numpy(np.random.default_rng(lanes).standard_normal((3, 32 // lanes, lanes, 8)))
+    r = _channel_sum(vals.reshape(3, 32, 8), lanes)
+    per_q = vals.sum(1)                                               # (3, lanes, 8): summed over channels
+    want = torch.cat([per_q[..., :4].reshape(3, -1), per_q[..., 4:].reshape(3, -1)], -1)   # (3, 2 * NP) slots
+    writers, slots = _slots(lanes, np_)
+    assert sorted(slots.tolist()) == list(range(2 * np_))             # every slot written once
+    torch.testing.assert_close(r[:, writers], want[:, slots], rtol=1e-12, atol=1e-12)
+
+
+def _walk_bwd(plan, x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final, bounds):
+    """csrc/ssm_scan_bwd.cu in plain torch (f32): channels padded to whole
+    warps and states to NP, a lane's 4 states in a (channel, lane, 4) view
+    as the kernel's lanes hold them. Returns (dx, ddt, da, db, dc, dd, dh0),
+    the replayed final state, how often each db/dc workspace slot was
+    written, and the padded states' values."""
+    b, s, d, n, np_ = plan.batch, plan.seq, plan.dim, plan.n, plan.states
+    lanes, dp = plan.lanes, plan.warps * plan.channels
+
+    def pad(t, shape):
+        out = torch.zeros(shape)
+        out[tuple(slice(0, k) for k in t.shape)] = t.float()
+        return out
+
+    xf, dtf, dyf = (pad(t, (b, s, dp)) for t in (x, dt, dy))
+    af, bf, cf = pad(a, (dp, np_)), pad(b_t, (b, s, np_)), pad(c_t, (b, s, np_))
+    dsk, a2 = pad(d_skip, (dp,)), pad(a, (dp, np_)) * float(LOG2E)
+    carry = pad(dh_final, (b, dp, np_)) if dh_final is not None else torch.zeros(b, dp, np_)
+    ws_h = torch.full(plan.workspace_shapes()["ws_h"], float("nan"))
+    ws_bc = torch.full(plan.workspace_shapes()["ws_bc"], float("nan"))
+    written = torch.zeros(ws_bc.shape, dtype=torch.int64)
+    dx, ddt = torch.full((b, s, d), float("nan")), torch.full((b, s, d), float("nan"))
+    da_rows, dd_rows = torch.zeros(b, dp, np_), torch.zeros(b, dp)
+    writers, slots = _slots(lanes, np_)
+    a2u = a.float() * float(LOG2E)
+    xu, dtu, bu = x.float(), dt.float(), b_t.float()
+
+    def step(h, t):
+        """B15's step on the live channels and states (the same tensor
+        shapes as ``_chunk``'s, so torch rounds alike); padding stays 0."""
+        out = torch.zeros_like(h)
+        out[:, :d, :n] = (torch.exp2(dtu[:, t, :, None] * a2u) * h[:, :d, :n].contiguous()
+                          + (dtu[:, t] * xu[:, t])[:, :, None] * bu[:, t, None, :])
+        return out
+
+    h_last = None
+    for k in reversed(range(plan.chunks)):
+        t0, t1 = plan.steps(k)
+        h = pad(h0 if k == 0 else bounds[:, k - 1], (b, dp, np_))
+        tiles = -(-(t1 - t0) // BWD_TILE)
+        for i in range(tiles):                                        # pass 1
+            ws_h[:, i] = h[:, :d]
+            for t in range(t0 + i * BWD_TILE, min(t1, t0 + (i + 1) * BWD_TILE)):
+                h = step(h, t)
+        if k == plan.chunks - 1:
+            h_last = h[:, :d, :n]
+        for i in reversed(range(tiles)):                              # pass 2
+            tt = t0 + i * BWD_TILE
+            hs = [pad(ws_h[:, i], (b, dp, np_))]
+            for t in range(tt, min(t1, tt + BWD_TILE)):
+                hs.append(step(hs[-1], t))
+            for t in reversed(range(tt, min(t1, tt + BWD_TILE))):
+                j = t - tt
+                e = torch.exp2(dtf[:, t, :, None] * a2)
+                dh = dyf[:, t, :, None] * cf[:, t, None, :] + carry
+                dl = dh * hs[j] * e
+                gx, ga = (dh * bf[:, t, None, :]).sum(-1), (dl * af).sum(-1)
+                da_rows += dl * dtf[:, t, :, None]
+                db_v = (dh * (dtf[:, t] * xf[:, t])[..., None]).reshape(b, plan.warps, plan.channels, lanes, 4)
+                dc_v = (hs[j + 1] * dyf[:, t, :, None]).reshape(b, plan.warps, plan.channels, lanes, 4)
+                vals = torch.cat([db_v, dc_v], -1).reshape(b, plan.warps, 32, 8)   # lane = channel * lanes + q
+                r = _channel_sum(vals, lanes)
+                ws_bc[:, t, :, slots] = r[..., writers]
+                written[:, t, :, slots] += 1
+                ddt[:, t] = (gx * xf[:, t] + ga)[:, :d]
+                dx[:, t] = (gx * dtf[:, t] + dsk * dyf[:, t])[:, :d]
+                dd_rows += dyf[:, t] * xf[:, t]
+                carry = e * dh
+    db, dc = ws_bc[..., :n].sum(2), ws_bc[..., np_:np_ + n].sum(2)
+    grads = (dx, ddt, da_rows[:, :d, :n].sum(0), db, dc, dd_rows[:, :d].sum(0), carry[:, :d, :n])
+    return grads, h_last, written, (carry[:, :, n:], da_rows[:, :, n:], ws_bc[..., n:np_], ws_bc[..., np_ + n:])
+
+
+def _bwd_inputs(b, s, d, n, dtype, seed, dh_random=True):
+    arrays, ts = _inputs(b, s, d, n, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(dtype)
+    dhf = torch.from_numpy(rng.standard_normal((b, d, n)).astype(np.float32)) if dh_random else None
+    return arrays, ts, dy, dhf
+
+
+def _run_bwd(shape, dtype, dh_random=True):
+    b, s, d, n, chunk = shape
+    arrays, ts, dy, dhf = _bwd_inputs(b, s, d, n, dtype, b * s + d + n, dh_random)
+    fwd, plan = _bwd_plan(b, s, d, n, chunk)
+    slots = []
+    _, h_fwd = _walk(fwd, *ts, bounds=slots)
+    bounds = torch.stack(slots, 1) if plan.chunks > 1 else None
+    return arrays, ts, dy, dhf, plan, h_fwd, _walk_bwd(plan, *ts, dy, dhf, bounds)
+
+
+NAMES = ("dx", "ddt", "da", "db", "dc", "dd_skip", "dh0")
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_bwd_walk_matches_plain_twin_and_replays_the_forward(shape, dtype):
+    _, ts, dy, dhf, plan, h_fwd, (grads, h_last, written, padded) = _run_bwd(shape, dtype, shape[0] != 4)
+    assert torch.equal(h_last, h_fwd)                 # the replay is the forward walk's, bit for bit
+    assert (written == 1).all() and written.shape == (plan.batch, plan.seq, plan.warps, 2 * plan.states)
+    for t in padded:                                  # states past N: exact zeros, never written
+        assert not t.any()
+    want = sc.ssm_scan_bwd_plain(*ts, dy, dhf)
+    for name, got, w in zip(NAMES, grads, want):
+        assert got.shape == w.shape, name
+        assert_close(got.numpy(), w.numpy(), LINE_SUMS, f"{name} {plan}")
+
+
+@pytest.mark.parametrize("shape", [BWD_SHAPES[i] for i in (0, 2, 3, 7, 9, 12, 13)], ids=str)
+def test_bwd_walk_matches_jax_custom_vjp(shape):
+    arrays, ts, dy, dhf, plan, _, (grads, _, _, _) = _run_bwd(shape, torch.float32)
+    b, s, d, n, _ = shape
+
+    def loss(*args):
+        y, h = jssm.selective_scan(*args, 64)
+        return jnp.sum(y * dy.numpy()) + jnp.sum(h * dhf.numpy())
+
+    want = jax.grad(loss, argnums=tuple(range(7)))(*map(jnp.asarray, arrays))
+    for name, got, w in zip(NAMES, grads, want):
+        assert_close(got.numpy(), np.asarray(w), LINE_SUMS, f"{name} vs jax.grad {plan}")
