@@ -134,22 +134,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    decode-step time, tokens/s, the device-busy share (torch.profiler) and
    the SSM cache's bytes. Then a 4-layer cut at full width: logits of the
    eval batch and of 8 decode steps through B15 against the plain twin;
+   the eval forward and the decode steps take B15's forms without the tile
+   store (``ssm_scan.form_launches`` counted);
    and reduced f32 falcon_mamba_7b served on the card against the CPU,
    token for token. The model is freed before phase 8.
 7f. The SSM training path: ``ssm_scan_bwd`` against its plain twin at the
    training shape (B = 2, S = 2048, D = 8192, N = 16, bf16 x/B/C/dy, random
-   dh_final; the forward's 4 chunks) and a one-chunk shape (4 x 256), each
-   twice and compared bit for bit, its replayed final state equal to B15's
-   h_final, timed beside its bound (bytes, or two exponentials an element
-   over the SFU rate) and the twin; no library call computes it.
+   dh_final; the forward's 4 chunks) and a one-chunk shape (4 x 256), from
+   the tile states B15's training form kept, each twice and compared bit
+   for bit, its replayed final state equal to B15's h_final, timed beside
+   its bound (bytes, or one exponential and 18 f32 operations an element)
+   and the twin; no library call computes it. Its geometry (grid, warps a
+   block, shared bytes, workspace bytes) and B15's training form with and
+   without the tile store, in turns.
 7g. Full-width falcon_mamba_7b cut to 8 layers (1,108,840,448 parameters;
    depth is the only cut) on ZipfLM batches of 2 x 2048, bf16 activations,
    remat, through the Trainer (``backend="fused"``): Adam for 4 steps
    measuring SNR at step 4 (B5 on the 15 candidates), the rules
    ``derive_slim_rules`` gives the ssm leaves beside Table 3's, then Table-3
    SlimAdam for 4 steps; launch counters zeroed before and read after each
-   run (B15 twice a layer a step under remat, ``ssm_scan_bwd`` once, B2/B1
-   per the plan's groups); finite losses, the last below the first; peak
+   run (B15 twice a layer a step under remat, both in the form that keeps
+   its tile states, ``ssm_scan_bwd`` once, replaying from them, B2/B1 per
+   the plan's groups); finite losses, the last below the first; peak
    memory, second-moment bytes and savings, step times in turns and each
    step's device profile (busy share, the backward kernel's and B15's ms).
 7h. One step's gradients of a 2-layer full-width cut through the kernels
@@ -1799,6 +1805,14 @@ TOL_BF16_PARAM = 2.0**-8  # a bf16 p' may round one bf16 step apart where the f3
 SSM_EVAL_SEQ, SSM_ROWS, SSM_PROMPT, SSM_NEW = 2048, 4, 64, 32
 
 
+def scan_forms(sc, since=None) -> dict:
+    """B15's calls by form (``ssm_scan.form_launches``: the one-token form,
+    the sequence walk, the sequence walk that keeps its tile states), less
+    ``since``'s."""
+    now = dict(sc.ssm_scan.form_launches)
+    return {k: v - (since or {}).get(k, 0) for k, v in now.items()}
+
+
 def scan_case(torch, gen, b, s, d, n, in_dtype):
     """B15 operands as the model makes them: x, B, C in the activations'
     dtype, dt a softplus, a = -exp(a_log) around the S4D-real init, a random
@@ -1927,17 +1941,21 @@ def ssm_phase(torch, timer, rate: float, smi: str):
     eval_step(batch)     # warm the cuBLAS handles outside the counted run
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    forms = scan_forms(sc)
     t0 = time.perf_counter()
     loss = float(eval_step(batch)["loss"])
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     eval_counts = kernels.launch_counts()
+    forms = scan_forms(sc, since=forms)
     log(f"  make_eval_step on 1 x {SSM_EVAL_SEQ}: loss {loss:.4f} in {eval_s * 1e3:.1f} ms, launches "
-        f"{ {k: v for k, v in eval_counts.items() if v} }")
+        f"{ {k: v for k, v in eval_counts.items() if v} }, B15 forms {forms}")
     if not math.isfinite(loss):
         raise AssertionError(f"falcon_mamba_7b eval loss is not finite: {loss}")
     if eval_counts["ssm_scan"] != cfg.n_layers or sum(eval_counts.values()) != cfg.n_layers:
         raise AssertionError(f"eval launches {eval_counts}, expected ssm_scan {cfg.n_layers} and no other kernel")
+    if forms != {"token": 0, "seq": cfg.n_layers, "seq_keep": 0}:
+        raise AssertionError(f"eval B15 forms {forms}: the forward without a gradient keeps no tile states")
     prof = profile_device(torch, lambda: eval_step(batch), 1, eval_s * 1e3, "eval forward")
     scan_ms = sum(t for key, t in prof["kernels"] if key.startswith("ssm_") or "::ssm_" in key)
     log(f"  B15 in the eval forward: {scan_ms:.3f} ms of {prof['busy_ms']:.3f} ms device time "
@@ -1950,14 +1968,19 @@ def ssm_phase(torch, timer, rate: float, smi: str):
     eng = Engine(cfg, model.params, ServeConfig(max_seq=2 * SSM_PROMPT, max_new_tokens=SSM_NEW))
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    forms = scan_forms(sc)
     t0 = time.perf_counter()
     out = eng.generate(prompts)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     gen_counts = kernels.launch_counts()
+    forms = scan_forms(sc, since=forms)
     steps = SSM_PROMPT + SSM_NEW - 1
     log(f"  Engine.generate: {SSM_ROWS} prompts x {SSM_PROMPT} tokens + {SSM_NEW} greedy in {gen_s:.2f} s, "
-        f"{eng.decode_steps} decode steps, launches {({k: v for k, v in gen_counts.items() if v})}")
+        f"{eng.decode_steps} decode steps, launches {({k: v for k, v in gen_counts.items() if v})}, B15 forms "
+        f"{forms}")
+    if forms != {"token": cfg.n_layers * steps, "seq": 0, "seq_keep": 0}:
+        raise AssertionError(f"generate B15 forms {forms}: decode steps take the one-token form, no tile store")
     if tuple(out.shape) != (SSM_ROWS, SSM_PROMPT + SSM_NEW) or not np.array_equal(out[:, :SSM_PROMPT].numpy(), prompts) \
             or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"generate returned {tuple(out.shape)} tokens outside the prompt/vocabulary contract")
@@ -2043,10 +2066,12 @@ TOL_SSM_GRADS_F32 = 1e-3  # 2-layer full-width gradients, kernel against plain s
 TOL_SSM_GRADS_BF16 = 5e-2  # the same with the path's bf16 activations (bf16 rounding flips, as TOL_SSM_LOGITS)
 
 
-def scan_bwd_bound(args, dy, dh_final, bounds, grads, rate: float):
+def scan_bwd_bound(args, dy, dh_final, grads, rate: float):
     """Least time (ms) for one selective-scan backward, and what sets it:
     the bytes (every operand read once, every gradient written once, in
-    their dtypes) over the memory rate, or its operations: one exponential
+    their dtypes; of the forward's state only h0, which ``args`` holds: the
+    tile states B15 keeps are this design's, not the function's) over the
+    memory rate, or its operations: one exponential
     per (row, step, channel, state), A_t = exp(dt a), which the replay and
     the reverse recurrence share, over the SFU rate, and 18 f32 operations
     per (row, step, channel, state) over the f32 rate, counted as
@@ -2057,7 +2082,7 @@ def scan_bwd_bound(args, dy, dh_final, bounds, grads, rate: float):
     x, a = args[0], args[2]
     b, s, d = x.shape
     n = a.shape[1]
-    ins = list(args) + [dy] + [t for t in (dh_final, bounds) if t is not None]
+    ins = list(args) + [dy] + ([dh_final] if dh_final is not None else [])
     nbytes = sum(t.numel() * t.element_size() for t in ins + list(grads))
     elems = b * s * d * n
     times = {"bytes": nbytes / rate, "operations": max(elems / SFU_RATE, 18 * elems / F32_RATE)}
@@ -2123,16 +2148,18 @@ def ssm_train_phase(torch, timer, rate: float, smi: str):
     # -- 7f. ssm_scan_bwd against its plain twin -------------------------------
     log(f"[7f] ssm_scan_bwd at the training shape and a one-chunk shape against its plain twin, bound ({smi})")
     held = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for case, (b, s) in (("train", (SSM_TRAIN_ROWS, SSM_EVAL_SEQ)), ("one_chunk", (SSM_ROWS, 256))):
         args = scan_case(torch, gen, b, s, scfg.d_inner, scfg.d_state, torch.bfloat16)
         dy = torch.randn((b, s, scfg.d_inner), generator=gen, device=dev).to(torch.bfloat16)
         dhf = torch.randn((b, scfg.d_inner, scfg.d_state), generator=gen, device=dev)
-        _, h, bounds, chunk = sc.ssm_scan(*args, keep_bounds=True)
-        plan = sc.plan_scan_bwd(b, s, scfg.d_inner, scfg.d_state, chunk=chunk)
-        if (plan.chunks > 1) != (case == "train"):
-            raise AssertionError(f"ssm_scan_bwd {case}: {plan.chunks} chunks")
-        run = lambda: sc.ssm_scan_bwd(*args, dy, dhf, bounds=bounds, chunk=chunk)      # noqa: E731
-        got = sc.ssm_scan_bwd(*args, dy, dhf, bounds=bounds, chunk=chunk, with_final=True)
+        _, h, states = sc.ssm_scan(*args, keep_bounds=True)
+        fwd = sc.plan_scan(b, s, scfg.d_inner, scfg.d_state, sms=sms)
+        plan = sc.plan_scan_bwd(b, s, scfg.d_inner, scfg.d_state)
+        if (fwd.chunks > 1) != (case == "train"):
+            raise AssertionError(f"ssm_scan_bwd {case}: the forward walks {fwd.chunks} chunks")
+        run = lambda: sc.ssm_scan_bwd(*args, dy, dhf, states=states)      # noqa: E731
+        got = sc.ssm_scan_bwd(*args, dy, dhf, states=states, with_final=True)
         again = run()
         want = sc.ssm_scan_bwd_plain(*args, dy, dhf)
         torch.cuda.synchronize()
@@ -2146,15 +2173,29 @@ def ssm_train_phase(torch, timer, rate: float, smi: str):
             raise AssertionError(f"ssm_scan_bwd {case}: the replayed final state differs from B15's h_final")
         ms = timer(run, reps=10)
         plain_ms = timer(lambda: sc.ssm_scan_bwd_plain(*args, dy, dhf), reps=1)
-        bound, by = scan_bwd_bound(args, dy, dhf, bounds, got[:-1], rate)
-        log(f"  {case} (B={b}, S={s}, D={scfg.d_inner}, N={scfg.d_state}): {plan.chunks} chunks of {plan.chunk} "
-            f"steps, walk {plan.walk_grid} x {sc.BWD_THREADS} threads, combine "
-            f"{plan.combine_blocks} blocks; two runs bit-equal, replayed final state equal to B15's h_final")
+        bound, by = scan_bwd_bound(args, dy, dhf, got[:-1], rate)
+        # B15's training form with and without the tile store, in turns
+        fwd_ms = {"keep": [], "plain": []}
+        for form in ("keep", "plain", "plain", "keep"):
+            fwd_ms[form].append(timer(lambda k=form == "keep": sc.ssm_scan(*args, keep_bounds=k), reps=10))
+        fwd_ms = {k: statistics.median(v) for k, v in fwd_ms.items()}
+        shared = plan.shared_bytes(args[0].element_size())
+        ws_bytes = {k: 4 * math.prod(shape) for k, shape in plan.workspace_shapes().items()}
+        ws_bytes["states"] = states.numel() * states.element_size()
+        log(f"  {case} (B={b}, S={s}, D={scfg.d_inner}, N={scfg.d_state}): the forward's {fwd.chunks} chunks keep "
+            f"{plan.tiles} tile states a row ({ws_bytes['states']} B); walk {plan.walk_grid} blocks of {plan.warps} "
+            f"warps ({plan.threads} threads, {plan.channels} channels a warp, {plan.blocks_per_sm} blocks an SM: "
+            f"{plan.blocks_per_sm * sms} a wave), {shared} B shared a block, db/dc partials {ws_bytes['ws_bc']} B, "
+            f"combine {plan.combine_blocks} blocks; two runs bit-equal, replayed final state equal to B15's h_final")
         log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by}, {bound / ms:.1%} "
             f"reached)  library: none (no PyTorch call computes a selective scan's backward)")
-        held[case] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, chunks=plan.chunks,
-                          chunk=plan.chunk, walk_grid=list(plan.walk_grid))
-        del args, dy, dhf, h, bounds, got, again, want
+        log(f"    B15's training form: {fwd_ms['keep']:.4f} ms with the tile store, {fwd_ms['plain']:.4f} ms without "
+            f"(in turns; +{fwd_ms['keep'] - fwd_ms['plain']:.4f} ms)")
+        held[case] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, chunks=fwd.chunks,
+                          tiles=plan.tiles, walk_grid=list(plan.walk_grid), warps=plan.warps,
+                          blocks_per_sm=plan.blocks_per_sm, shared_bytes=shared, workspace_bytes=ws_bytes,
+                          fwd_keep_ms=fwd_ms["keep"], fwd_ms=fwd_ms["plain"])
+        del args, dy, dhf, h, states, got, again, want
     report["ssm_scan_bwd"] = held
     torch.cuda.empty_cache()
 
@@ -2191,6 +2232,7 @@ def ssm_train_phase(torch, timer, rate: float, smi: str):
         torch.cuda.synchronize()
         init_peak = torch.cuda.max_memory_allocated()
         kernels.reset_launch_counts()
+        forms = scan_forms(sc)
         step_peaks, wall = [], 0.0
         for k in range(1, SSM_TRAIN_STEPS + 1):   # a step at a time, for each step's peak
             torch.cuda.reset_peak_memory_stats()
@@ -2200,6 +2242,7 @@ def ssm_train_phase(torch, timer, rate: float, smi: str):
             wall += time.perf_counter() - t0
             step_peaks.append(torch.cuda.max_memory_allocated())
         counts = kernels.launch_counts()
+        forms = scan_forms(sc, since=forms)
         losses = [m["loss"] for m in tr.metrics_log]
         peak = (max(init_peak, *step_peaks) - base) / 2**30
         for k, want in expect.items():
@@ -2209,13 +2252,18 @@ def ssm_train_phase(torch, timer, rate: float, smi: str):
         others = {k: v for k, v in counts.items() if v and k not in expect}
         if others:
             raise AssertionError(f"SSM {optimizer}: unexpected launches {others}")
+        # every forward of a training step keeps its tile states (the checkpoint's first pass too, whose
+        # saved states remat drops), and the backward replays only from them: it has no other form
+        if forms != {"token": 0, "seq": 0, "seq_keep": expect["ssm_scan"]}:
+            raise AssertionError(f"SSM {optimizer}: B15 forms {forms}; every training forward keeps its tile states")
         if len(losses) != SSM_TRAIN_STEPS or not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"SSM {optimizer}: losses {losses} not finite or not falling")
         inner = tr.opt_state.inner_states[1]
         nu_bytes = sum(t.numel() * t.element_size() for t in inner.nu.values())
         sav = second_moment_savings(tr.params, tr.meta, rules)
         log(f"  {optimizer}: {n_params} parameters (init {init_s:.1f} s), {SSM_TRAIN_STEPS} steps in {wall:.2f} s, "
-            f"losses {[round(x, 4) for x in losses]}, launches { {k: v for k, v in counts.items() if v} }, "
+            f"losses {[round(x, 4) for x in losses]}, launches { {k: v for k, v in counts.items() if v} }, B15 forms "
+            f"{forms} (each ssm_scan_bwd replays from kept tile states), "
             f"peak memory {peak:.2f} GiB, second moments {nu_bytes / 2**30:.4f} GiB "
             f"({sav['saved_fraction']:.4%} saved; {len(plan.groups)} megaplan groups)")
         mem = step_memory(torch, tr, forward, lm_loss, base)
@@ -2225,7 +2273,7 @@ def ssm_train_phase(torch, timer, rate: float, smi: str):
             f"{mem['params_gib']:.2f}, optimizer state {mem['state_gib']:.2f}); one plain step by hand: forward and "
             f"backward +{mem['grad_peak_gib']:.2f} over rest, gradients held {mem['grads_gib']:.2f}, the update "
             f"+{mem['update_peak_gib']:.2f} over rest and gradients ({smi})")
-        runs[optimizer] = dict(losses=losses, wall_s=wall, init_s=init_s, launches=counts, peak_gib=peak,
+        runs[optimizer] = dict(losses=losses, wall_s=wall, init_s=init_s, launches=counts, forms=forms, peak_gib=peak,
                                memory=mem, nu_bytes=nu_bytes, savings=sav,
                                groups=[(g.kind, g.batch, g.rows, g.cols, g.axis) for g in plan.groups])
         if optimizer == "adam":

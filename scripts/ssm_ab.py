@@ -1,10 +1,12 @@
-"""Time B15 (``ssm_scan``), B8 (``snr_stats_batched``) and the split walk's
-other two forms, B5 and B9, of this tree beside an earlier commit's
-kernels, in turns on one card.
+"""Time the selective scan, B15 (``ssm_scan``), and its backward
+(``ssm_scan_bwd``) of this tree beside an earlier commit's kernels, in
+turns on one card.
 
-The earlier commit's ``ssm_scan.cu``, ``snr_stats.cu`` and ``common.cuh``
-are taken from git, in a checkout with its history (a copy without
-``.git`` cannot):
+The earlier commit's ``ssm_scan.cu``, ``ssm_scan_bwd.cu`` and
+``common.cuh`` are taken from git, in a checkout with its history (a copy
+without ``.git`` cannot); the earlier commit needs the backward kernel and
+B15's 21-parameter entry point (the chunked B15 with the one-warp
+backward):
 
     python3 scripts/ssm_ab.py --fetch --rev HEAD~
 
@@ -16,14 +18,14 @@ builds them with nvcc into a library of their own, and times the
 earlier kernels ("parent") and this tree's wrappers ("change") as parent /
 change / change / parent at chip_smoke.py's shapes: B15 at the eval shape
 (1 x 2048 x 8192, N 16, bf16 x/B/C) and the decode shape (4 rows, S = 1),
-B8 summed over full-width gpt_small's 11 second-moment leaves as lines of
-their last axis (phase 8's views), and B5 and B9 summed over gpt_small's
-21 SNR candidate views (phase 2's; chip_smoke times B9 on a mesh's local
-shards instead). At the decode shape it also times this tree's sequence
-walk with one chunk (``decode_seq_walk``) beside its one-token form. Each
-time is ``chip_smoke.Timer``'s (median of ``--reps``, L2 flushed, a
-device-side wait first); both versions are held to the plain twins first.
-It prints the card's ``nvidia-smi`` line and one JSON object.
+B15's training form (2 x 2048, keeping what the backward needs: the
+parent's chunk-end carries, this tree's tile states) and the backward at
+phase 7f's training shape (2 x 2048) and one-chunk shape (4 x 256), each
+version from its own forward's states. At the decode shape it also times
+this tree's sequence walk with one chunk (``decode_seq_walk``) beside its
+one-token form. Each time is ``chip_smoke.Timer``'s (median of ``--reps``,
+L2 flushed, a device-side wait first); both versions are held to the plain
+twins first. It prints the card's ``nvidia-smi`` line and one JSON object.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = "src/repro_torch/kernels/csrc"
-FILES = ("ssm_scan.cu", "snr_stats.cu", "common.cuh")
+FILES = ("ssm_scan.cu", "ssm_scan_bwd.cu", "common.cuh")
 
 
 def fetch(rev: str, out: Path) -> None:
@@ -70,10 +72,7 @@ def main() -> int:
     import torch
 
     import chip_smoke
-    from repro_torch.configs import get_config
-    from repro_torch.core.labels import flatten_with_names
-    from repro_torch.kernels import build, snr_stats as ss, ssm_scan as sc
-    from repro_torch.kernels.ops import canon_apply, canon_nd
+    from repro_torch.kernels import build, ssm_scan as sc
 
     if not torch.cuda.is_available():
         print("ssm_ab: no CUDA device", file=sys.stderr)
@@ -88,59 +87,64 @@ def main() -> int:
     # The earlier kernels, built on their own.
     lib_path = old_dir / "libold.so"
     subprocess.run([build._nvcc(), *build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared", "-o",
-                    str(lib_path), str(old_dir / "ssm_scan.cu"), str(old_dir / "snr_stats.cu")], check=True)
+                    str(lib_path), *(str(old_dir / name) for name in FILES if name.endswith(".cu"))], check=True)
     old = ctypes.CDLL(str(lib_path))
     old_scan_src = (old_dir / "ssm_scan.cu").read_text()
-    old_snr_src = (old_dir / "snr_stats.cu").read_text()
+    old_bwd_src = (old_dir / "ssm_scan_bwd.cu").read_text()
+    if n_params(old_scan_src, "repro_ssm_scan") != 21 or n_params(old_bwd_src, "repro_ssm_scan_bwd") != 32:
+        raise SystemExit("ssm_ab: the earlier entry points have other signatures; compare with git instead")
     P, S, I = build.PTR, build.SIZE, build.INT
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def old_scan(x, dt, a, b_t, c_t, d_skip, h0):
-        """The earlier B15 through its 15-parameter entry point (one
-        launch walking the whole sequence)."""
-        if n_params(old_scan_src, "repro_ssm_scan") != 15:
-            raise SystemExit("ssm_ab: the earlier repro_ssm_scan has another signature; compare with git instead")
+    def old_scan(x, dt, a, b_t, c_t, d_skip, h0, keep_bounds=False):
+        """The earlier B15 through its 21-parameter entry point (the chunked
+        sequence form) on this tree's ``plan_scan`` (the same planner); with
+        ``keep_bounds`` it also returns its chunk-end carries and chunk
+        length, what that commit's backward replays from."""
         bsz, s, d = x.shape
         n = a.shape[1]
         y = torch.empty((bsz, s, d), device=dev)
         h_out = torch.empty((bsz, d, n), device=dev)
+        plan = sc.plan_scan(bsz, s, d, n, sms=sms)
+        carry = dt_sum = None
+        if plan.chunks > 1:
+            carry = torch.empty((bsz, plan.chunks - 1, d, n), device=dev)
+            dt_sum = torch.empty((bsz, plan.chunks - 1, d), device=dev)
         fn = old.repro_ssm_scan
-        fn.argtypes, fn.restype = [P, I] + [P] * 8 + [S] * 3 + [I, P], ctypes.c_int
+        fn.argtypes, fn.restype = [P, I] + [P] * 10 + [S] * 3 + [I] * 2 + [S] + [I] * 2 + [P], ctypes.c_int
+        vec = all(t.data_ptr() % 16 == 0 for t in (x, dt, a, h0, h_out))
         build.launch("ssm_scan (earlier)", fn, dev, x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(),
                      a.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), d_skip.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                     h_out.data_ptr(), bsz, s, d, n)
+                     h_out.data_ptr(), build.ptr(carry), build.ptr(dt_sum), bsz, s, d, n, plan.form, plan.chunk,
+                     plan.chunks, int(vec))
+        if keep_bounds:
+            return (y, h_out, carry, plan.chunk) if carry is not None else (y, h_out, None, s)
         return y, h_out
 
-    def old_snr(v):
-        """The earlier B8 on an axis-1 (B, R, C) view through its
-        8-parameter entry point (one block a line)."""
-        if n_params(old_snr_src, "repro_snr_stats") != 8:
-            raise SystemExit("ssm_ab: the earlier repro_snr_stats has another signature; compare with git instead")
-        b, r, c = v.shape
-        s1, s2 = (torch.empty((b, r), device=dev) for _ in range(2))
-        fn = old.repro_snr_stats
-        fn.argtypes, fn.restype = [P] * 3 + [S] * 3 + [I, P], ctypes.c_int
-        build.launch("snr_stats (earlier)", fn, dev, v.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, r, c, 1)
-        return s1, s2
-
-    def old_centered(v, axis, partial):
-        """The earlier B5 (B9 with ``partial``) through its 15-parameter
-        entry point, on today's plan with a warp a line in the WARP form
-        (the earlier planner's)."""
-        if n_params(old_snr_src, "repro_snr_stats_centered") != 15:
-            raise SystemExit("ssm_ab: the earlier repro_snr_stats_centered has another signature; compare with git "
-                             "instead")
-        b, r, c = v.shape
-        plan = ss.plan_split(b, r, c, axis, sms=sms, aligned=v.data_ptr() % 16 == 0)
-        blocks = -(-b * r // ss.WARPS) if plan.form == ss.FORM_WARP else plan.blocks
-        outs = torch.empty((4 if partial else 3, b, r if axis == 1 else c), device=dev).unbind(0)
-        part = torch.empty((3, plan.lines * plan.nseg), dtype=torch.float64, device=dev) if plan.nseg > 1 else None
-        fn = old.repro_snr_stats_centered
-        fn.argtypes, fn.restype = [P] * 6 + [S] * 3 + [I] * 2 + [S] * 3 + [P], ctypes.c_int
-        build.launch("snr_stats_centered (earlier)", fn, dev, v.data_ptr(), *(o.data_ptr() for o in outs[:3]),
-                     build.ptr(outs[3] if partial else None), build.ptr(part), b, r, c, plan.form, int(plan.vec),
-                     plan.seg, plan.nseg, blocks)
-        return outs
+    def old_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dhf, bounds, chunk):
+        """The earlier backward through its 32-parameter entry point (a warp
+        per 32 / (N / 4) channels over the forward's chunks, each replayed
+        from its boundary) on its own plan."""
+        bsz, s, d = x.shape
+        n = a.shape[1]
+        np_ = 4 if n <= 4 else 8 if n <= 8 else 16
+        chunk = min(chunk, s)
+        chunks, tiles, warps = -(-s // chunk), -(-chunk // 16), -(-d // (32 // (np_ // 4)))
+        f32 = dict(dtype=torch.float32, device=dev)
+        dx, ddt = torch.empty((bsz, s, d), dtype=x.dtype, device=dev), torch.empty((bsz, s, d), **f32)
+        db, dc = torch.empty((bsz, s, n), **f32), torch.empty((bsz, s, n), **f32)
+        da, dd, dh0 = torch.empty((d, n), **f32), torch.empty((d,), **f32), torch.empty((bsz, d, n), **f32)
+        ws = [torch.empty(shape, **f32) for shape in ((bsz, tiles, d, np_), (bsz, s, warps, 2 * np_), (bsz, d, n),
+                                                      (bsz, d))]
+        fn = old.repro_ssm_scan_bwd
+        fn.argtypes, fn.restype = [P, I] + [P] * 21 + [S] * 3 + [I, S] + [I] * 3 + [P], ctypes.c_int
+        build.launch("ssm_scan_bwd (earlier)", fn, dev, x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(),
+                     a.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), d_skip.data_ptr(), h0.data_ptr(),
+                     build.ptr(bounds), dy.data_ptr(), build.ptr(dhf), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+                     db.data_ptr(), dc.data_ptr(), dd.data_ptr(), dh0.data_ptr(), None, *(t.data_ptr() for t in ws),
+                     bsz, s, d, n, chunk, chunks, tiles, warps)
+        return dx, ddt, da, db, dc, dd, dh0
 
     def seq_walk(x, dt, a, b_t, c_t, d_skip, h0):
         """This tree's sequence walk as one chunk, at any S (the one-token
@@ -153,33 +157,38 @@ def main() -> int:
         vec = all(t.data_ptr() % 16 == 0 for t in (x, dt, a, h0, h_out))
         build.launch("ssm_scan (one chunk)", sc._entry(), dev, x.data_ptr(), int(x.dtype == torch.bfloat16),
                      dt.data_ptr(), a.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), d_skip.data_ptr(), h0.data_ptr(),
-                     y.data_ptr(), h_out.data_ptr(), None, None, bsz, s, d, n, sc.FORM_SEQ, chunk, 1, int(vec))
+                     y.data_ptr(), h_out.data_ptr(), None, None, None, bsz, s, d, n, sc.FORM_SEQ, chunk, 1, int(vec))
         return y, h_out
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     timer = chip_smoke.Timer(torch)
     gen = torch.Generator(device=dev).manual_seed(8)
     scans = {case: chip_smoke.scan_case(torch, gen, b, s, 8192, 16, torch.bfloat16)
              for case, (b, s) in (("eval", (1, 2048)), ("decode", (4, 1)))}
-    specs = dict(flatten_with_names(get_config("gpt_small").specs()))
-    lines = [torch.rand(spec.shape, generator=gen, device=dev).reshape(1, -1, spec.shape[-1])
-             for spec in specs.values()]
-    cands = []
-    for name, spec in specs.items():
-        meta = spec.meta()
-        for axes in meta.candidate_ks().values():
-            cn = canon_nd(spec.shape, meta.dims_of(axes))
-            v3 = canon_apply(torch.randn(spec.shape, generator=gen, device=dev) ** 2, cn).contiguous()
-            cands.append((v3 if v3.ndim == 3 else v3[None], cn.axis))
-    if len(cands) != 21:
-        raise AssertionError(f"ssm_ab: expected 21 SNR candidates, got {len(cands)}")
-    versions = {
-        "parent": dict(scan=old_scan, b8=old_snr, b5=lambda v, ax: old_centered(v, ax, False),
-                       b9=lambda v, ax: old_centered(v, ax, True)),
-        "change": dict(scan=sc.ssm_scan, b8=lambda v: ss.snr_stats_batched(v, axis=1),
-                       b5=lambda v, ax: ss.snr_stats_centered_batched(v, axis=ax),
-                       b9=lambda v, ax: ss.snr_stats_centered_partial_batched(v, axis=ax))}
-    twins = dict(b5=ss.snr_stats_centered_batched_plain, b9=ss.snr_stats_centered_partial_batched_plain)
+    # the backward's cases: its operands, dy and dh_final
+    bwd_cases = {}
+    for case, (b, s) in (("train", (2, 2048)), ("one_chunk", (4, 256))):
+        call = chip_smoke.scan_case(torch, gen, b, s, 8192, 16, torch.bfloat16)
+        dy = torch.randn((b, s, 8192), generator=gen, device=dev).to(torch.bfloat16)
+        dhf = torch.randn((b, 8192, 16), generator=gen, device=dev)
+        bwd_cases[case] = (call, dy, dhf)
+    train_fwd = bwd_cases["train"][0]
+
+    def change_bwd(case):
+        """This tree's backward of ``case``, from this tree's kept tile states."""
+        call, dy, dhf = bwd_cases[case]
+        states = sc.ssm_scan(*call, keep_bounds=True)[2]
+        return lambda: sc.ssm_scan_bwd(*call, dy, dhf, states=states)
+
+    def parent_bwd(case):
+        """The earlier backward of ``case``, from the earlier forward's carries."""
+        call, dy, dhf = bwd_cases[case]
+        _, _, bounds, chunk = old_scan(*call, keep_bounds=True)
+        return lambda: old_bwd(*call, dy, dhf, bounds, chunk)
+
+    versions = {"parent": dict(scan=old_scan, train=lambda: old_scan(*train_fwd, keep_bounds=True), bwd=parent_bwd),
+                "change": dict(scan=sc.ssm_scan, train=lambda: sc.ssm_scan(*train_fwd, keep_bounds=True),
+                               bwd=change_bwd)}
+    bwd_runs = {name: {case: fns["bwd"](case) for case in bwd_cases} for name, fns in versions.items()}
 
     errs = {}
     for name, fns in versions.items():
@@ -189,33 +198,33 @@ def main() -> int:
             for case, call in scans.items():
                 (y, h), (y_w, h_w) = scan(*call), sc.ssm_scan_plain(*call)
                 worst = max(worst, chip_smoke.max_err(y, y_w)[1], chip_smoke.max_err(h, h_w)[1])
-        for v in lines:
-            for got, want in zip(fns["b8"](v), ss.snr_stats_batched_plain(v, axis=1)):
-                worst = max(worst, chip_smoke.max_err(got, want)[1])
-        for key, twin in twins.items():
-            for v, ax in cands:
-                for got, want in list(zip(fns[key](v, ax), twin(v, axis=ax)))[:3]:  # B9's v0 is a copy
-                    worst = max(worst, chip_smoke.max_err(got, want)[1])
-        torch.cuda.synchronize()
         if worst > chip_smoke.TOL_LINE:
-            raise AssertionError(f"ssm_ab: {name} is {worst:.3e} from the twins")
+            raise AssertionError(f"ssm_ab: {name}'s B15 is {worst:.3e} from the twin")
+        for case, (call, dy, dhf) in bwd_cases.items():
+            for got, want in zip(bwd_runs[name][case](), sc.ssm_scan_bwd_plain(*call, dy, dhf)):
+                tol = chip_smoke.TOL_SSM_BWD_DX_BF16 if got.dtype == torch.bfloat16 else chip_smoke.TOL_SSM_BWD
+                err = chip_smoke.max_err(got, want)[1]
+                if err > tol:
+                    raise AssertionError(f"ssm_ab: {name}'s backward ({case}) is {err:.3e} from the twin, tol {tol}")
+                worst = max(worst, err)
+        torch.cuda.synchronize()
         errs[name] = worst
 
-    keys = ("eval", "decode", "b8_11_leaves", "b5_21_candidates", "b9_21_candidates")
+    keys = ("eval", "decode", "train_fwd", "bwd_train", "bwd_one_chunk")
     runs = []
     for name in ("parent", "change", "change", "parent"):
         fns = versions[name]
         row = {case: timer(lambda: fns["scan"](*call), reps=args.reps) for case, call in scans.items()}
-        row["b8_11_leaves"] = sum(timer(lambda: fns["b8"](v), reps=args.reps) for v in lines)
-        for key in ("b5", "b9"):
-            row[f"{key}_21_candidates"] = sum(timer(lambda: fns[key](v, ax), reps=args.reps) for v, ax in cands)
+        row["train_fwd"] = timer(fns["train"], reps=args.reps)
+        for case, run in bwd_runs[name].items():
+            row[f"bwd_{case}"] = timer(run, reps=args.reps)
         if name == "change":
             row["decode_seq_walk"] = timer(lambda: seq_walk(*scans["decode"]), reps=args.reps)
         runs.append(dict(version=name, **row))
         print(f"{name}: B15 eval {row['eval']:.4f} ms  decode {row['decode']:.4f} ms"
               + (f" (one-chunk walk {row['decode_seq_walk']:.4f} ms)" if name == "change" else "")
-              + f"  B8 over {len(lines)} leaves {row['b8_11_leaves']:.4f} ms  B5 / B9 over {len(cands)} "
-              f"candidates {row['b5_21_candidates']:.4f} / {row['b9_21_candidates']:.4f} ms", flush=True)
+              + f"  training form {row['train_fwd']:.4f} ms  backward {row['bwd_train']:.4f} ms (one chunk "
+              f"{row['bwd_one_chunk']:.4f} ms)", flush=True)
     median = {name: {key: statistics.median(r[key] for r in runs if r["version"] == name) for key in keys}
               for name in versions}
     median["change"]["decode_seq_walk"] = statistics.median(r["decode_seq_walk"] for r in runs

@@ -29,7 +29,13 @@
 //      becomes the true state at the end of chunk j (the decay product of a
 //      chunk is the exponential of its summed dt, as the oracle's).
 //   3. OUTPUT WALK over chunks 0..K-1: chunk 0 from h0, chunk k from slot
-//      k-1; it writes y and, in the last chunk, h_final.
+//      k-1; it writes y and, in the last chunk, h_final. When a gradient is
+//      wanted (the KEEP instantiation, a non-null `keep`), it also stores the
+//      state at the start of every kTile-step tile, (B, ceil(S/16), D, NP)
+//      f32, one coalesced row of NP floats a thread a tile: the backward
+//      (ssm_scan_bwd.cu) replays each tile once from it. 134 MB at the
+//      training shape (B 2, S 2048, D 8192, N 16). The eval forward and the
+//      decode step run the instantiation without the store.
 // K = 1 (short sequences, or rows x tiles that fill the card alone) is
 // launch 3 alone. No float atomics and a fixed order: runs are
 // bit-identical. The planner takes the most chunks whose output walk still
@@ -108,6 +114,7 @@ struct ScanArgs {
   float* hout;
   float* carry;   // (batch, chunks - 1, dim, n): chunk end states
   float* dtsum;   // (batch, chunks - 1, dim): each chunk's sum of dt
+  float* keep;    // (batch, ceil(seq / kTile), dim, NP): every tile's start state, or null
   long long batch, seq, dim, chunk;
   int n, chunks, vec;
 };
@@ -159,9 +166,11 @@ __device__ __forceinline__ float state_step(float (&h)[NP], const float (&a2)[NP
 
 // The sequence form's walk of chunk blockIdx.y of row blockIdx.z over
 // channels blockIdx.x * kSeqThreads + threadIdx.x: the carry walk (OUT =
-// false, launch 1) or the output walk (OUT = true, launch 3).
-template <typename T, int NP, bool OUT>
+// false, launch 1) or the output walk (OUT = true, launch 3), which with
+// KEEP also stores each tile's start state.
+template <typename T, int NP, bool OUT, bool KEEP = false>
 __global__ void __launch_bounds__(kSeqThreads, kSeqMinBlocks) ssm_chunk_walk(const ScanArgs p) {
+  static_assert(OUT || !KEEP, "only the output walk keeps tile states");
   constexpr int kStage = kTile * NP;  // B (and C) values of a tile
   constexpr int kPer = (kStage + kSeqThreads - 1) / kSeqThreads;
   __shared__ __align__(16) T sx[kStages][kTile][kSeqThreads];
@@ -286,9 +295,20 @@ __global__ void __launch_bounds__(kSeqThreads, kSeqMinBlocks) ssm_chunk_walk(con
   load_bc(t0, bv, cv);
   stage_bc(0, bv, cv);
   float* yq = p.y + (b * seq + t0) * dim + d;
+  float* kq = nullptr;  // KEEP: this thread's row of the chunk's first tile
+  if constexpr (KEEP) kq = p.keep + ((b * ((seq + kTile - 1) / kTile) + t0 / kTile) * dim + d) * NP;
   float sdt = 0.f;
   int slot = 0, buf = 0;
   for (long long tt = t0; tt < t1; tt += kTile) {
+    if constexpr (KEEP) {
+      if (live) {
+#pragma unroll
+        for (int q = 0; q < NP / 4; ++q) {
+          reinterpret_cast<float4*>(kq)[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+        }
+      }
+      kq += dim * NP;
+    }
     cp_async_wait<kStages - 2>();  // this thread's copies of this tile have landed
     __syncthreads();               // everyone's have; the last tile's slot and B/C buffer are free
     issue();
@@ -437,7 +457,12 @@ int launch(const ScanArgs& p, cudaStream_t s) {
       if (err != cudaSuccess) return (int)err;
     }
   }
-  ssm_chunk_walk<T, NP, true><<<dim3(tiles, (unsigned)p.chunks, (unsigned)p.batch), kSeqThreads, 0, s>>>(p);
+  const dim3 grid(tiles, (unsigned)p.chunks, (unsigned)p.batch);
+  if (p.keep != nullptr) {
+    ssm_chunk_walk<T, NP, true, true><<<grid, kSeqThreads, 0, s>>>(p);
+  } else {
+    ssm_chunk_walk<T, NP, true><<<grid, kSeqThreads, 0, s>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -457,21 +482,26 @@ int launch_np(const ScanArgs& p, cudaStream_t s) {
 // chunks are plan_scan's plan: the one-token form (seq == 1) ignores chunk
 // and chunks; the sequence form walks chunks = ceil(seq / chunk) chunks and,
 // when chunks > 1, needs carry (batch, chunks - 1, dim, n) and dt_sum
-// (batch, chunks - 1, dim) f32 workspaces. vec: x, dt, a, h0 and h_out
-// start on 16-byte boundaries. Returns the cudaError_t of the launches.
+// (batch, chunks - 1, dim) f32 workspaces. keep: null, or (sequence form
+// only) f32 (batch, ceil(seq / 16), dim, NP), 16-byte aligned, NP = n
+// padded to 4, 8 or 16, which receives the state at the start of every
+// 16-step tile (padded states 0). vec: x, dt, a, h0 and h_out start on
+// 16-byte boundaries. Returns the cudaError_t of the launches.
 extern "C" int repro_ssm_scan(const void* x, int in_bf16, const float* dt, const float* a, const void* b_t,
                               const void* c_t, const float* d_skip, const float* h0, float* y, float* h_out,
-                              float* carry, float* dt_sum, long long batch, long long seq, long long dim, int n,
-                              int form, long long chunk, int chunks, int vec, void* stream) {
+                              float* carry, float* dt_sum, float* keep, long long batch, long long seq,
+                              long long dim, int n, int form, long long chunk, int chunks, int vec, void* stream) {
   if (batch < 1 || batch > 65535 || seq < 1 || dim < 1 || n < 1 || n > 16) return (int)cudaErrorInvalidValue;
   if (form == kFormToken) {
-    if (seq != 1) return (int)cudaErrorInvalidValue;
+    if (seq != 1 || keep != nullptr) return (int)cudaErrorInvalidValue;
     chunks = 0;
   } else if (form != kFormSeq || chunk < 1 || chunks < 1 || chunks > 65535 ||
-             (seq + chunk - 1) / chunk != chunks || (chunks > 1 && (carry == nullptr || dt_sum == nullptr))) {
+             (seq + chunk - 1) / chunk != chunks || (chunks > 1 && (carry == nullptr || dt_sum == nullptr)) ||
+             (keep != nullptr && chunk % kTile != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  const ScanArgs p{x, dt, a, b_t, c_t, d_skip, h0, y, h_out, carry, dt_sum, batch, seq, dim, chunk, n, chunks, vec};
+  const ScanArgs p{x, dt, a, b_t, c_t, d_skip, h0, y, h_out, carry, dt_sum, keep, batch, seq, dim, chunk, n, chunks,
+                  vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16) return launch_np<__nv_bfloat16>(p, s);
   return launch_np<float>(p, s);

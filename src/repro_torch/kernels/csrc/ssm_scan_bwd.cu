@@ -21,78 +21,91 @@
 //   dd    = sum_{b,t} dy_t x_t                           (D,)
 //   dh0   = A_0 dh_0                                     (B, D, N)
 // as _selective_scan_bwd does (repro/models/ssm.py:196-239). x, B, C and
-// dy are f32 or bf16 (one dtype), dt, a, d_skip, h0 and dh_final f32;
+// dy are f32 or bf16 (one dtype), dt, a, d_skip and dh_final f32;
 // everything is computed in f32. dx is stored in x's dtype (rounded once,
 // as that function's cast does), every other output in f32.
 //
 // Two launches, planned on the host (ssm_scan.py plan_scan_bwd):
-//   1. WALK, a block of one warp per (32 / L channels, row): L = NP / 4
-//      lanes a channel, each with 4 of its NP states in registers. It walks
-//      the forward's chunks in reverse. Each chunk starts from the state
-//      the forward kept at its start (h0, or the forward's carry slot k-1,
-//      which its output walk started chunk k from). Pass 1 replays the
-//      chunk forward and keeps the state at the start of each 16-step tile
-//      in a workspace; pass 2 takes the tiles in reverse, replays the tile
-//      from its start into shared memory (the state after every step) and
-//      runs the reverse recurrence over it. The replay is B15's step,
-//      h <- exp2(dt*a2)*h + (dt*x)*B with a2 = a*log2e, in its operation
-//      order, so the replayed states equal the forward's bit for bit (the
-//      replayed final state is an optional output, for the tests). A
-//      step's two sums over states (dh B and dlogA a, for dx and ddt) join
-//      the channel's lanes by xor-shuffles; dx and ddt are written a step
-//      at a time by the channel's first lane; da and dd accumulate in
-//      registers over the steps (a row's partial); db and dc, sums over
+//   1. WALK, a block per (kChannels = 32 channels, row) of W = NP / 4 warps,
+//      L = NP / 4 lanes a channel with 4 of its NP states each (N = 16: 4
+//      warps of 8 channels). The forward kept the state at the start of
+//      every 16-step tile (ssm_scan.cu's KEEP output walk), so the walk takes
+//      the tiles in reverse and replays each once: from its kept state, B15's
+//      step h <- A*h + (dt*x)*B with A = exp2(dt*a2), a2 = a*log2e, in B15's
+//      operation order, so the replayed final state equals the forward's
+//      h_final bit for bit (an optional output, for the tests). The replay
+//      keeps the tile's A_t (in registers, the tile unrolled, its first
+//      steps' in shared memory) and the states before each of its steps in
+//      shared memory (the state after the last in registers); the reverse
+//      recurrence then runs over the tile with no exponential. A step's two
+//      sums over states (dh B and dlogA a, for dx and ddt) join the lanes by
+//      xor-shuffles, and the channel's first lane puts dx and ddt in a
+//      shared tile that the block writes as rows. da and dd accumulate in
+//      registers over the steps (a row's partial). db and dc, sums over
 //      channels, are reduced over the warp a step at a time by a fixed
-//      butterfly over the lanes that hold the same states, which leaves
-//      each of the 2 * NP sums on its own lane, then stored as the warp's
-//      partial.
-//   2. COMBINE, a thread per output: db and dc summed over the warps, da
+//      butterfly over the lanes that hold the same states, which leaves each
+//      of the 2 * NP sums on its own lane (in a register for the tile); at
+//      the tile's end the warps' sums go to shared memory and the block adds
+//      them in warp order, one store per (row, step, sum) and block.
+//   2. COMBINE, a thread per output: db and dc summed over the blocks, da
 //      and dd over the rows, each in index order.
 // No float atomics and a fixed order everywhere: two runs give equal bits.
 //
-// Why this shape. A channel's steps form one dependent chain, so the walk's
-// parallelism is B x D x L lanes whatever the block (65,536 at the training
-// shape, B = 2, D = 8192, N = 16: ~16 warps an SM). One-warp blocks let
-// every SM take its share and need only __syncwarp. What chip_smoke.py's
-// phase 7f showed at the training shape (NVIDIA H100 80GB HBM3, 700 W, one
-// call a design): one thread a channel with all 16 states (~4 warps an SM,
-// a 31-shuffle butterfly a step) 2.6305 ms; 4 lanes a channel 2.4669 ms;
-// with whole tiles unrolled (below) 2.3627 ms. Four times the warps bought
-// 6 %, so the walk is not short of parallelism: what holds it at ~6 % of
-// its bound is not measured yet (no ncu on that machine). Under the launch
-// bound ptxas gives a lane 128 registers and spills 8-32 bytes (stores;
-// 12-64 bytes of loads, 8-32 bytes of stack) across the six walk
-// instantiations (-Xptxas -v); the bf16, N = 16 one the model runs spills
-// the most. The states of a tile live in shared memory
-// ([step][state][lane]: conflict-free), since a lane's 16 x 4 replayed
-// states would crowd the registers. The x, dt and dy of a tile are staged
-// together (16 independent loads by each of the warp's first 32 / L
-// lanes), so a tile pays one memory latency, not one a step. The replays
-// run every tile's 16 steps (padded steps have dt = x = B = 0 and leave h
-// unchanged, as in B15) and the reverse walk of a whole tile is unrolled:
-// only the carry chains one step to the next, so a step's shuffles overlap
-// the next step's loads and exponentials. The chunk-parallel reverse
-// carry, the mirror of B15's three launches, is later work.
+// Staging. x, dt and dy of a tile are whole coalesced rows of the block's
+// 32 channels, copied by 16-byte cp.async into a double buffer from offsets
+// each thread computes once, the next tile's copies in flight while this
+// tile runs; where a row is not whole or aligned (odd D, the ragged channel
+// block, the sequence's last tile) by plain loads. B and C (16 x NP values
+// the block's channels share) go through registers one tile ahead to a
+// shared double buffer as f32, as in B15; they and the tile's kept state
+// load into registers halfway through the tile before.
 //
-// Bound, at the training shape. The function needs one exponential per
-// (row, step, channel, state): A_t serves the replay and the reverse step
-// (_selective_scan_bwd forms log_decay once), 0.128 ms over the SFUs' 16
-// per SM per clock; 18 f32 operations per element (4 to replay, 14 in the
-// reverse step), 0.144 ms at the f32 rate; the bytes (x, dt, dy read, dx
-// in x's dtype and ddt written), 0.143 ms. This design evaluates A_t three
-// times an element (pass 1's replay, pass 2's replay, the reverse step):
-// keeping pass 2's A_t beside hs in shared memory is the next design.
+// Why this shape. A channel's steps form one dependent chain, so the walk's
+// parallelism is B x D x L lanes (65,536 at the training shape, B = 2, D =
+// 8192, N = 16: 2048 warps, 512 blocks). The walk is bound by its issued
+// instructions and their latency, not by the SFUs or bytes, so the design
+// evaluates the function's one exponential an element once (a one-warp
+// walk that replayed each chunk to find its tiles' states, then each tile,
+// then formed A_t again in the reverse step took 2.3705 ms, chip_smoke
+// phase 7f, NVIDIA H100 80GB HBM3, 700 W), stages B/C once a block, adds
+// the block's warps' db/dc sums before one store (134 MB of partials, not
+// 537), and writes dx and ddt as rows. The launch bound asks for 16 warps
+// an SM (128 registers a lane), so the training shape's 512 blocks take
+// one wave of 528. A_t of a tile's last steps lives in registers and of its
+// first kSharedA<T> steps in shared memory (the most that keeps 4 blocks an
+// SM within 228 KB: 56,320 bytes a block with bf16 operands, 57,344 with
+// f32). Builds of this source with other bounds, timed in turns on that
+// card at the training shape, ran slower with 12 warps an SM (170
+// registers, all of A_t in registers: 1.3 waves) or 8 (1.9 waves), and a
+// little slower with all of A_t in registers, though under the
+// 128-register bound ptxas spills (120 bytes of stores, 188 of loads a lane
+// in the bf16, N = 16 walk; chip_smoke.py's build report). A chunk-parallel
+// reverse carry is not needed to fill the card (one wave already), and its
+// extra walk for the chunks' carries would add an exponential an element.
+//
+// Bound, at the training shape. One exponential per (row, step, channel,
+// state), 0.128 ms over the SFUs' 16 per SM per clock; 18 f32 operations
+// per element (4 to replay, 14 in the reverse step), 0.144 ms at the f32
+// rate; the bytes (x, dt, dy read, dx in x's dtype and ddt written), 0.143
+// ms.
 //
 // Padded states (N -> NP = 4, 8 or 16): a = 0 and B = C = 0 there and the
-// states start at 0, so h and dh stay exactly 0 and the padded sums hold
-// exact zeros; they are never written.
+// kept states are 0, so h and dh stay exactly 0 and the padded sums hold
+// exact zeros; they are never written. Padded steps (past S in the last
+// tile) have dt = x = dy = B = C = 0: A = 1, so h and the carry pass through
+// them unchanged, and what they would store is never written.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;          // a block: one warp
-constexpr int kMinBlocks = 16;        // blocks an SM the planner counts on (<= 128 registers a lane)
-constexpr int kTile = 16;             // steps a tile
+constexpr int kTile = 16;          // steps a tile: the forward keeps the state at the start of each
+constexpr int kChannels = 32;      // channels a block
+constexpr int kStages = 2;         // x, dt, dy tiles in shared memory: the cp.async double buffer
+constexpr int kWarpsPerSM = 16;    // warps an SM the launch bound makes room for (<= 128 registers a lane)
+// A tile's first steps whose A_t waits in shared memory, not in registers:
+// the most that keeps 4 blocks of 4 warps an SM within its 228 KB.
+template <typename T>
+constexpr int kSharedA = 8 / (int)sizeof(T);
 constexpr int kCombineThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -103,8 +116,7 @@ struct BwdArgs {
   const void* bt;
   const void* ct;
   const float* dskip;
-  const float* h0;
-  const float* bounds;  // (batch, chunks - 1, dim, n): state at the end of chunk j (forward's carry)
+  const float* states;  // (batch, tiles, dim, NP): the state at the start of every tile (the forward's)
   const void* dy;
   const float* dhf;     // (batch, dim, n) or null
   void* dx;             // x's dtype
@@ -115,13 +127,37 @@ struct BwdArgs {
   float* dd;
   float* dh0;
   float* hlast;         // replayed final state (batch, dim, n), or null
-  float* ws_h;          // (batch, chunk_tiles, dim, NP): tile start states of the current chunk
-  float* ws_bc;         // (batch, seq, warps, 2 * NP): the warps' db / dc sums
+  float* ws_bc;         // (batch, seq, blocks, 2 * NP): the blocks' db / dc sums
   float* ws_a;          // (batch, dim, n): rows' da
   float* ws_d;          // (batch, dim): rows' dd
-  long long batch, seq, dim, chunk;
-  int n, chunks, chunk_tiles, warps;
+  long long batch, seq, dim;
+  int n, tiles, blocks, vec;
 };
+
+// A block's shared memory. hs: each lane's states before the tile's steps
+// 0 .. 15 (the kept state, then the replay's), then, at the tile's end, the
+// warp's db/dc sums [step][2 * NP] in its own slots; as: each lane's A_t of
+// the tile's first kSharedA<T> steps.
+template <typename T, int NP>
+struct Shared {
+  static constexpr int W = NP / 4;
+  float4 hs[W][kTile][32];
+  float4 as[W][kSharedA<T>][32];
+  T sx[kStages][kTile][kChannels];
+  float sdt[kStages][kTile][kChannels];
+  T sdy[kStages][kTile][kChannels];
+  float sb[2][kTile * NP];
+  float sc[2][kTile * NP];
+  float sddt[kTile][kChannels];
+  T sdx[kTile][kChannels];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned sm = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sm), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 __device__ __forceinline__ float ex2(float v) {
   float r;
@@ -131,18 +167,33 @@ __device__ __forceinline__ float ex2(float v) {
 
 __device__ __forceinline__ float load_f(const float* p, long long i) { return p[i]; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p, long long i) { return __bfloat162float(p[i]); }
-__device__ __forceinline__ void store_f(float* p, long long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, long long i, float v) { p[i] = __float2bfloat16_rn(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float& dst, float v) { dst = v; }
+__device__ __forceinline__ void put(__nv_bfloat16& dst, float v) { dst = __float2bfloat16_rn(v); }
 
-// B15's step (ssm_scan.cu state_step without y) on a lane's 4 states:
-// h <- exp2(dt*a2)*h + (dt*x)*B.
-__device__ __forceinline__ void replay_step(float (&h)[4], const float (&a2)[4], float dtv, float xv,
-                                            const float* bs) {
-  const float dx = dtv * xv;
-  const float4 b4 = *reinterpret_cast<const float4*>(bs);
-  const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
+// kTile rows of ROW bytes from global rows `pitch` bytes apart into a
+// shared tile of ROW-byte rows, by 16-byte cp.async over the block's
+// threads.
+template <int ROW, int THREADS>
+__device__ __forceinline__ void copy_rows(void* dst, const void* src, long long pitch, int tid) {
+  constexpr int kC = ROW / 16, kTotal = kTile * kC;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) h[r] = fmaf(ex2(dtv * a2[r]), h[r], dx * bq[r]);
+  for (int c = tid; c < kTotal; c += THREADS) {
+    cp_async16(static_cast<char*>(dst) + (c / kC) * ROW + (c % kC) * 16,
+               static_cast<const char*>(src) + (c / kC) * pitch + (c % kC) * 16);
+  }
+}
+
+// The same from shared to global memory, as 16-byte stores.
+template <int ROW, int THREADS>
+__device__ __forceinline__ void store_rows(void* dst, const void* src, long long pitch, int tid) {
+  constexpr int kC = ROW / 16, kTotal = kTile * kC;
+#pragma unroll
+  for (int c = tid; c < kTotal; c += THREADS) {
+    *reinterpret_cast<float4*>(static_cast<char*>(dst) + (c / kC) * pitch + (c % kC) * 16) =
+        *reinterpret_cast<const float4*>(static_cast<const char*>(src) + (c / kC) * ROW + (c % kC) * 16);
+  }
 }
 
 // The sum of each of a lane's 8 values (db, dc of its 4 states) over the
@@ -175,32 +226,29 @@ __device__ __forceinline__ float channel_sum(float (&v)[8], int lane) {
 }
 
 template <typename T, int NP>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) ssm_bwd_walk(const BwdArgs p) {
+__global__ void __launch_bounds__(8 * NP, kWarpsPerSM / (NP / 4)) ssm_bwd_walk(const BwdArgs p) {
   constexpr int L = NP / 4;                 // lanes a channel
-  constexpr int C = kThreads / L;           // channels a warp
-  constexpr int kPer = kTile * NP / kThreads;
-  static_assert(kTile * NP % kThreads == 0, "whole B/C values a lane");
-  __shared__ __align__(16) float hs[kTile + 1][4][kThreads];  // state before step 0 .. after step 15
-  __shared__ __align__(16) float sb[kTile][NP];
-  __shared__ __align__(16) float sc[kTile][NP];
-  __shared__ float sx[kTile][C], sdt[kTile][C], sdy[kTile][C];
+  constexpr int W = NP / 4;                 // warps a block
+  constexpr int kThreads = 32 * W;
+  constexpr int C = 32 / L;                 // channels a warp
+  constexpr int V = 2 * NP;                 // db and dc sums a step
+  constexpr int kBC = kTile * NP;           // B (or C) values of a tile
+  constexpr int kPer = kBC / kThreads;      // ... a thread stages
+  static_assert(C * W == kChannels && kBC % kThreads == 0, "a block is kChannels channels");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Shared<T, NP>& sm = *reinterpret_cast<Shared<T, NP>*>(smem_raw);
 
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int w = tid / 32, lane = tid % 32;
   const int ch = lane / L, q = lane % L;    // the lane's channel in the warp, and its 4 states 4q ..
-  const long long d0 = (long long)blockIdx.x * C;
-  const long long d = d0 + ch;
+  const int cb = w * C + ch;                // ... its channel in the block
+  const long long d0 = (long long)blockIdx.x * kChannels;
+  const long long d = d0 + cb;
   const long long b = blockIdx.y;
   const long long seq = p.seq, dim = p.dim;
   const int n = p.n;
   const bool live = d < dim;
-  const bool stager = lane < C && d0 + lane < dim;  // loads channel d0 + lane's x, dt, dy
-  const T* xp = static_cast<const T*>(p.x) + b * seq * dim + d0 + lane;
-  const float* dtp = p.dt + b * seq * dim + d0 + lane;
-  const T* dyp = static_cast<const T*>(p.dy) + b * seq * dim + d0 + lane;
-  T* dxp = static_cast<T*>(p.dx) + b * seq * dim + d;
-  float* ddtp = p.ddt + b * seq * dim + d;
-  float* wsh = p.ws_h + (b * p.chunk_tiles * dim + d) * NP + 4 * q;  // + tile * dim * NP
-  const long long wsh_tile = dim * NP;
+  const bool vec = p.vec && dim % 8 == 0 && d0 + kChannels <= dim;  // uniform across the block
 
   float a2[4], am[4], carry[4], da[4];
 #pragma unroll
@@ -215,122 +263,194 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ssm_bwd_walk(const BwdAr
   const float dsk = live ? p.dskip[d] : 0.f;
   float dd = 0.f;
 
-  // The tile's B (and C) as f32 and the warp's channels' x, dt (and dy),
-  // zero past the tile's steps, past N and past the channels.
-  auto stage = [&](long long tt, int rem, bool bwd) {
-    __syncwarp();
+  // The row's channel d0 at step 0, and this lane's kept state of tile 0.
+  const T* xg = static_cast<const T*>(p.x) + b * seq * dim + d0;
+  const float* dtg = p.dt + b * seq * dim + d0;
+  const T* dyg = static_cast<const T*>(p.dy) + b * seq * dim + d0;
+  T* dxg = static_cast<T*>(p.dx) + b * seq * dim + d0;
+  float* ddtg = p.ddt + b * seq * dim + d0;
+  const float* kst = p.states + (b * p.tiles * dim + d) * NP + 4 * q;
+
+  // x, dt and dy of tile i into ring slot `slot`: whole rows by cp.async
+  // where the block's rows are whole and aligned, else plain loads, zero
+  // past the sequence and the channels. One commit group a tile.
+  auto issue = [&](int i, int slot) {
+    const long long tt = (long long)i * kTile;
+    const int rem = (int)min((long long)kTile, seq - tt);
+    if (vec && rem == kTile) {
+      copy_rows<kChannels * sizeof(T), kThreads>(sm.sx[slot], xg + tt * dim, dim * (long long)sizeof(T), tid);
+      copy_rows<kChannels * 4, kThreads>(sm.sdt[slot], dtg + tt * dim, dim * 4LL, tid);
+      copy_rows<kChannels * sizeof(T), kThreads>(sm.sdy[slot], dyg + tt * dim, dim * (long long)sizeof(T), tid);
+    } else {
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int e = lane + j * kThreads;
-      const int st = e / NP, m = e % NP;
-      const bool on = st < rem && m < n;
-      const long long i = (b * seq + tt + st) * n + m;
-      sb[st][m] = on ? load_f(static_cast<const T*>(p.bt), i) : 0.f;
-      if (bwd) sc[st][m] = on ? load_f(static_cast<const T*>(p.ct), i) : 0.f;
-    }
-    if (lane < C) {
-#pragma unroll
-      for (int st = 0; st < kTile; ++st) {
-        const bool on = stager && st < rem;
-        const long long o = (tt + st) * dim;
-        sx[st][lane] = on ? load_f(xp, o) : 0.f;
-        sdt[st][lane] = on ? dtp[o] : 0.f;
-        if (bwd) sdy[st][lane] = on ? load_f(dyp, o) : 0.f;
+      for (int e = tid; e < kTile * kChannels; e += kThreads) {
+        const int st = e / kChannels, c = e % kChannels;
+        const bool on = st < rem && d0 + c < dim;
+        const long long o = (tt + st) * dim + c;
+        sm.sx[slot][st][c] = on ? xg[o] : T{};
+        sm.sdt[slot][st][c] = on ? dtg[o] : 0.f;
+        sm.sdy[slot][st][c] = on ? dyg[o] : T{};
       }
     }
-    __syncwarp();
+    cp_async_commit();
+  };
+  // B and C of tile i (value e = tid + j * kThreads is (step e / NP, state
+  // e % NP)), zero past N and the sequence, through registers.
+  auto load_bc = [&](int i, float (&bv)[kPer], float (&cv)[kPer]) {
+    const long long tt = (long long)i * kTile;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int e = tid + j * kThreads;
+      const bool in = e % NP < n && tt + e / NP < seq;
+      const long long o = (b * seq + tt + e / NP) * n + e % NP;
+      bv[j] = in ? load_f(static_cast<const T*>(p.bt), o) : 0.f;
+      cv[j] = in ? load_f(static_cast<const T*>(p.ct), o) : 0.f;
+    }
+  };
+  auto stage_bc = [&](int buf, const float (&bv)[kPer], const float (&cv)[kPer]) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      sm.sb[buf][tid + j * kThreads] = bv[j];
+      sm.sc[buf][tid + j * kThreads] = cv[j];
+    }
+  };
+  auto load_state = [&](int i) {
+    return live ? *reinterpret_cast<const float4*>(kst + (long long)i * dim * NP) : make_float4(0.f, 0.f, 0.f, 0.f);
   };
 
-  for (int k = p.chunks - 1; k >= 0; --k) {
-    const long long t0 = (long long)k * p.chunk;
-    const long long t1 = min(seq, t0 + p.chunk);
-    const int tiles = (int)((t1 - t0 + kTile - 1) / kTile);
-    const float* start = k == 0 ? p.h0 + (b * dim + d) * n
-                                : p.bounds + ((b * (p.chunks - 1) + k - 1) * dim + d) * n;
-    float h[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) h[r] = (live && 4 * q + r < n) ? start[4 * q + r] : 0.f;
+  const int last = p.tiles - 1;
+  float bv[kPer], cv[kPer];
+  issue(last, 0);
+  load_bc(last, bv, cv);
+  stage_bc(0, bv, cv);
+  float4 hn = load_state(last);
+  int slot = 0, buf = 0;
+  for (int i = last; i >= 0; --i) {
+    const long long tt = (long long)i * kTile;
+    const int rem = (int)min((long long)kTile, seq - tt);
+    cp_async_wait_all();  // this thread's copies of tile i have landed
+    __syncthreads();      // everyone's have; the last tile's sums, rows and slots are free
+    if (i > 0) issue(i - 1, slot ^ 1);  // tile i-1's x, dt, dy, in flight while tile i runs
+    const T* xs = &sm.sx[slot][0][cb];
+    const float* dts = &sm.sdt[slot][0][cb];
+    const T* dys = &sm.sdy[slot][0][cb];
+    const float* bs = &sm.sb[buf][4 * q];
+    const float* cs = &sm.sc[buf][4 * q];
+    float4* hs = &sm.hs[w][0][lane];        // the state before step s at hs[s * 32]
+    float4* as = &sm.as[w][0][lane];        // A_t of step s < kSharedA<T> at as[s * 32]
 
-    // Pass 1: replay the chunk, keeping each tile's start state.
-    for (int i = 0; i < tiles; ++i) {
-      const long long tt = t0 + (long long)i * kTile;
-      const int rem = (int)min((long long)kTile, t1 - tt);
-      if (live) *reinterpret_cast<float4*>(wsh + i * wsh_tile) = make_float4(h[0], h[1], h[2], h[3]);
-      stage(tt, rem, false);
+    // The replay: A_t into registers, the states before steps 0 .. 15 into
+    // shared memory (the state after step 15 stays in registers).
+    float A[kTile][4], h[4] = {hn.x, hn.y, hn.z, hn.w};
+    hs[0] = hn;
 #pragma unroll
-      for (int s = 0; s < kTile; ++s) replay_step(h, a2, sdt[s][ch], sx[s][ch], &sb[s][4 * q]);
+    for (int s = 0; s < kTile; ++s) {
+      const float dtv = dts[s * kChannels], xv = to_f(xs[s * kChannels]);
+      const float dx = dtv * xv;
+      const float4 b4 = *reinterpret_cast<const float4*>(bs + s * NP);
+      const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        A[s][r] = ex2(dtv * a2[r]);
+        h[r] = fmaf(A[s][r], h[r], dx * bq[r]);
+      }
+      if (s < kTile - 1) hs[(s + 1) * 32] = make_float4(h[0], h[1], h[2], h[3]);
+      if (s < kSharedA<T>) as[s * 32] = make_float4(A[s][0], A[s][1], A[s][2], A[s][3]);
     }
-    if (k == p.chunks - 1 && p.hlast != nullptr && live) {
+    if (i == last && p.hlast != nullptr && live) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (4 * q + r < n) p.hlast[(b * dim + d) * n + 4 * q + r] = h[r];
       }
     }
 
-    // Pass 2: the tiles in reverse; replay each into shared memory, then
-    // run the reverse recurrence over its steps.
-    for (int i = tiles - 1; i >= 0; --i) {
-      const long long tt = t0 + (long long)i * kTile;
-      const int rem = (int)min((long long)kTile, t1 - tt);
-      if (live) {
-        const float4 v = *reinterpret_cast<const float4*>(wsh + i * wsh_tile);
-        h[0] = v.x, h[1] = v.y, h[2] = v.z, h[3] = v.w;
+    // The reverse recurrence over the tile's steps, with the states after
+    // (hcur) and before (hprev) each step: only the carry chains one step
+    // to the next. Tile i-1's B, C and kept state load halfway through.
+    float sums[kTile];
+    float hcur[4] = {h[0], h[1], h[2], h[3]};
+#pragma unroll
+    for (int s = kTile - 1; s >= 0; --s) {
+      if (s == kTile / 2 && i > 0) {
+        load_bc(i - 1, bv, cv);
+        hn = load_state(i - 1);
       }
-      stage(tt, rem, true);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) hs[0][r][lane] = h[r];
-#pragma unroll
-      for (int s = 0; s < kTile; ++s) {
-        replay_step(h, a2, sdt[s][ch], sx[s][ch], &sb[s][4 * q]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) hs[s + 1][r][lane] = h[r];
+      const float4 hv = hs[s * 32];
+      const float hprev[4] = {hv.x, hv.y, hv.z, hv.w};
+      if (s < kSharedA<T>) {
+        const float4 av = as[s * 32];
+        A[s][0] = av.x, A[s][1] = av.y, A[s][2] = av.z, A[s][3] = av.w;
       }
-      auto reverse_step = [&](int s) {
-        const float xv = sx[s][ch], dtv = sdt[s][ch], dyv = sdy[s][ch];
-        const float dtx = dtv * xv;
-        const float4 b4 = *reinterpret_cast<const float4*>(&sb[s][4 * q]);
-        const float4 c4 = *reinterpret_cast<const float4*>(&sc[s][4 * q]);
-        const float bq[4] = {b4.x, b4.y, b4.z, b4.w}, cq[4] = {c4.x, c4.y, c4.z, c4.w};
-        float vals[8];
-        float gx = 0.f, ga = 0.f;  // sum_n dh B, sum_n dlogA a
+      const float xv = to_f(xs[s * kChannels]), dtv = dts[s * kChannels], dyv = to_f(dys[s * kChannels]);
+      const float dtx = dtv * xv;
+      const float4 b4 = *reinterpret_cast<const float4*>(bs + s * NP);
+      const float4 c4 = *reinterpret_cast<const float4*>(cs + s * NP);
+      const float bq[4] = {b4.x, b4.y, b4.z, b4.w}, cq[4] = {c4.x, c4.y, c4.z, c4.w};
+      float vals[8];
+      float gx = 0.f, ga = 0.f;  // sum_n dh B, sum_n dlogA a
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float dh = fmaf(dyv, cq[r], carry[r]);
-          const float e = ex2(dtv * a2[r]);
-          const float dl = dh * hs[s][r][lane] * e;
-          gx = fmaf(dh, bq[r], gx);
-          ga = fmaf(dl, am[r], ga);
-          da[r] = fmaf(dl, dtv, da[r]);
-          vals[r] = dh * dtx;
-          vals[4 + r] = hs[s + 1][r][lane] * dyv;
-          carry[r] = e * dh;
-        }
+      for (int r = 0; r < 4; ++r) {
+        const float dh = fmaf(dyv, cq[r], carry[r]);
+        const float dl = dh * hprev[r] * A[s][r];
+        gx = fmaf(dh, bq[r], gx);
+        ga = fmaf(dl, am[r], ga);
+        da[r] = fmaf(dl, dtv, da[r]);
+        vals[r] = dh * dtx;
+        vals[4 + r] = hcur[r] * dyv;
+        carry[r] = A[s][r] * dh;
+      }
 #pragma unroll
-        for (int off = 1; off < L; off <<= 1) {
-          gx += __shfl_xor_sync(0xffffffffu, gx, off);
-          ga += __shfl_xor_sync(0xffffffffu, ga, off);
-        }
-        const long long t = tt + s;
-        if (live && q == 0) {
-          ddtp[t * dim] = fmaf(gx, xv, ga);
-          store_f(dxp, t * dim, fmaf(gx, dtv, dsk * dyv));
-        }
-        dd = fmaf(dyv, xv, dd);
-        const float sum = channel_sum<L>(vals, lane);
-        if ((lane & 3) < L) {  // one lane of each value: value lane >> 2 of states 4 * (lane % L) ..
-          const int v = lane >> 2;
-          p.ws_bc[((b * seq + t) * p.warps + blockIdx.x) * (2 * NP) + (v & 4 ? NP : 0) + 4 * q + (v & 3)] = sum;
-        }
-      };
-      // Whole tiles unrolled, so a step's sums overlap the next step's
-      // work (only carry chains the steps); a chunk's last tile in a loop.
-      if (rem == kTile) {
+      for (int off = 1; off < L; off <<= 1) {
+        gx += __shfl_xor_sync(0xffffffffu, gx, off);
+        ga += __shfl_xor_sync(0xffffffffu, ga, off);
+      }
+      if (q == 0) {
+        sm.sddt[s][cb] = fmaf(gx, xv, ga);
+        put(sm.sdx[s][cb], fmaf(gx, dtv, dsk * dyv));
+      }
+      dd = fmaf(dyv, xv, dd);
+      sums[s] = channel_sum<L>(vals, lane);
 #pragma unroll
-        for (int s = kTile - 1; s >= 0; --s) reverse_step(s);
-      } else {
-        for (int s = rem - 1; s >= 0; --s) reverse_step(s);
+      for (int r = 0; r < 4; ++r) hcur[r] = hprev[r];
+    }
+
+    // The warp's db/dc sums into its own (read) state slots; then the
+    // block adds its warps' in order and stores one value per (step, sum).
+    __syncwarp();
+    if ((lane & 3) < L) {  // value lane >> 2 of states 4 * (lane % L) ..
+      const int v = lane >> 2;
+      float* own = reinterpret_cast<float*>(&sm.hs[w][0][0]) + (v & 4 ? NP : 0) + 4 * q + (v & 3);
+#pragma unroll
+      for (int s = 0; s < kTile; ++s) own[s * V] = sums[s];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int o = tid; o < kTile * V; o += kThreads) {
+      const int s = o / V;
+      if (s < rem) {
+        float acc = 0.f;
+#pragma unroll
+        for (int u = 0; u < W; ++u) acc += reinterpret_cast<const float*>(&sm.hs[u][0][0])[o];
+        p.ws_bc[((b * seq + tt + s) * p.blocks + blockIdx.x) * V + o % V] = acc;
       }
     }
+    // dx and ddt of the tile as rows.
+    if (vec && rem == kTile) {
+      store_rows<kChannels * 4, kThreads>(ddtg + tt * dim, sm.sddt, dim * 4LL, tid);
+      store_rows<kChannels * sizeof(T), kThreads>(dxg + tt * dim, sm.sdx, dim * (long long)sizeof(T), tid);
+    } else {
+#pragma unroll
+      for (int e = tid; e < kTile * kChannels; e += kThreads) {
+        const int st = e / kChannels, c = e % kChannels;
+        if (st < rem && d0 + c < dim) {
+          ddtg[(tt + st) * dim + c] = sm.sddt[st][c];
+          dxg[(tt + st) * dim + c] = sm.sdx[st][c];
+        }
+      }
+    }
+    if (i > 0) stage_bc(buf ^ 1, bv, cv);
+    slot ^= 1;
+    buf ^= 1;
   }
 
   if (!live) return;
@@ -346,8 +466,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ssm_bwd_walk(const BwdAr
 }
 
 // Launch 2: a thread per output. db[b, t, m] and dc[b, t, m] sum the
-// warps' values NP-slot m and NP + m in warp order; da and dd sum the rows
-// in row order.
+// blocks' values NP-slot m and NP + m in block order; da and dd sum the
+// rows in row order.
 template <int NP>
 __global__ void __launch_bounds__(kCombineThreads) ssm_bwd_combine(const BwdArgs p) {
   constexpr int V = 2 * NP;
@@ -359,10 +479,10 @@ __global__ void __launch_bounds__(kCombineThreads) ssm_bwd_combine(const BwdArgs
     const int j = (int)(i % (2 * n));
     const bool is_c = j >= n;
     const int m = is_c ? j - (int)n : j;
-    const float* src = p.ws_bc + row * p.warps * V + (is_c ? NP : 0) + m;
+    const float* src = p.ws_bc + row * p.blocks * V + (is_c ? NP : 0) + m;
     float s = 0.f;
 #pragma unroll 8
-    for (int w = 0; w < p.warps; ++w) s += src[(long long)w * V];  // in order; 8 loads in flight
+    for (int k = 0; k < p.blocks; ++k) s += src[(long long)k * V];  // in order; 8 loads in flight
     (is_c ? p.dc : p.db)[row * n + m] = s;
     return;
   }
@@ -383,7 +503,12 @@ __global__ void __launch_bounds__(kCombineThreads) ssm_bwd_combine(const BwdArgs
 
 template <typename T, int NP>
 int launch(const BwdArgs& p, cudaStream_t s) {
-  ssm_bwd_walk<T, NP><<<dim3((unsigned)p.warps, (unsigned)p.batch), kThreads, 0, s>>>(p);
+  constexpr int kThreads = 8 * NP;
+  constexpr int kBytes = (int)sizeof(Shared<T, NP>);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(ssm_bwd_walk<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  ssm_bwd_walk<T, NP><<<dim3((unsigned)p.blocks, (unsigned)p.batch), kThreads, kBytes, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long outs = p.batch * p.seq * 2 * p.n + p.dim * p.n + p.dim;
@@ -402,34 +527,29 @@ int launch_np(const BwdArgs& p, cudaStream_t s) {
 
 // x, b_t, c_t, dy: contiguous (batch, seq, dim) / (batch, seq, n) / (batch,
 // seq, dim), all f32 (in_bf16 = 0) or all bf16 (in_bf16 = 1); dt f32 (batch,
-// seq, dim); a f32 (dim, n); d_skip f32 (dim,); h0 f32 (batch, dim, n);
-// bounds f32 (batch, chunks - 1, dim, n) when chunks > 1 (else ignored);
-// dh_final f32 (batch, dim, n) or null. Outputs: dx (batch, seq, dim) in
-// x's dtype; f32 ddt (batch, seq, dim), da (dim, n), db, dc (batch, seq,
-// n), dd (dim,), dh0 (batch, dim, n), h_last (batch, dim, n) or null. Workspaces f32: ws_h (batch,
-// chunk_tiles, dim, NP) 16-byte aligned, ws_bc (batch, seq, warps, 2 * NP),
-// ws_a (batch, dim, n), ws_d (batch, dim), with NP = n padded to 4, 8 or 16.
-// chunk, chunks, chunk_tiles and warps are plan_scan_bwd's: chunks =
-// ceil(seq / chunk), chunk_tiles = ceil(min(chunk, seq) / 16), warps =
-// ceil(dim / (128 / NP)). 1 <= n <= 16; batch < 65536. Returns the
-// cudaError_t of the launches.
+// seq, dim); a f32 (dim, n); d_skip f32 (dim,); states f32 (batch, tiles,
+// dim, NP), 16-byte aligned: the state at the start of every 16-step tile
+// (ssm_scan.cu's KEEP output walk; padded states 0), NP = n padded to 4, 8
+// or 16; dh_final f32 (batch, dim, n) or null. Outputs: dx (batch, seq,
+// dim) in x's dtype; f32 ddt (batch, seq, dim), da (dim, n), db, dc (batch,
+// seq, n), dd (dim,), dh0 (batch, dim, n), h_last (batch, dim, n) or null.
+// Workspaces f32: ws_bc (batch, seq, blocks, 2 * NP), ws_a (batch, dim, n),
+// ws_d (batch, dim). tiles = ceil(seq / 16), blocks = ceil(dim / 32)
+// (plan_scan_bwd's). vec: x, dt, dy, dx and ddt start on 16-byte
+// boundaries. 1 <= n <= 16; batch < 65536. Returns the cudaError_t of the
+// launches.
 extern "C" int repro_ssm_scan_bwd(const void* x, int in_bf16, const float* dt, const float* a, const void* b_t,
-                                  const void* c_t, const float* d_skip, const float* h0, const float* bounds,
-                                  const void* dy, const float* dh_final, void* dx, float* ddt, float* da,
-                                  float* db, float* dc, float* dd, float* dh0, float* h_last, float* ws_h,
-                                  float* ws_bc, float* ws_a, float* ws_d, long long batch, long long seq,
-                                  long long dim, int n, long long chunk, int chunks, int chunk_tiles, int warps,
-                                  void* stream) {
-  const int np = n <= 4 ? 4 : n <= 8 ? 8 : 16;
-  const long long per_warp = kThreads / (np / 4);
-  if (batch < 1 || batch > 65535 || seq < 1 || dim < 1 || n < 1 || n > 16 || chunk < 1 || chunks < 1 ||
-      (seq + chunk - 1) / chunk != chunks || (chunks > 1 && bounds == nullptr) ||
-      chunk_tiles != (int)(((chunk < seq ? chunk : seq) + kTile - 1) / kTile) ||
-      warps != (int)((dim + per_warp - 1) / per_warp)) {
+                                  const void* c_t, const float* d_skip, const float* states, const void* dy,
+                                  const float* dh_final, void* dx, float* ddt, float* da, float* db, float* dc,
+                                  float* dd, float* dh0, float* h_last, float* ws_bc, float* ws_a, float* ws_d,
+                                  long long batch, long long seq, long long dim, int n, int tiles, int blocks,
+                                  int vec, void* stream) {
+  if (batch < 1 || batch > 65535 || seq < 1 || dim < 1 || n < 1 || n > 16 || states == nullptr ||
+      tiles != (int)((seq + kTile - 1) / kTile) || blocks != (int)((dim + kChannels - 1) / kChannels)) {
     return (int)cudaErrorInvalidValue;
   }
-  const BwdArgs p{x, dt, a, b_t, c_t, d_skip, h0, bounds, dy, dh_final, dx, ddt, da, db, dc, dd, dh0, h_last,
-                  ws_h, ws_bc, ws_a, ws_d, batch, seq, dim, chunk, n, chunks, chunk_tiles, warps};
+  const BwdArgs p{x, dt, a, b_t, c_t, d_skip, states, dy, dh_final, dx, ddt, da, db, dc, dd, dh0, h_last,
+                  ws_bc, ws_a, ws_d, batch, seq, dim, n, tiles, blocks, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16) return launch_np<__nv_bfloat16>(p, s);
   return launch_np<float>(p, s);

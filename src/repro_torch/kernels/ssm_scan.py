@@ -21,13 +21,14 @@ not bit for bit.
 
 Backward kernel: ``csrc/ssm_scan_bwd.cu``. The JAX package gets its
 backward's speed from ``lax.associative_scan``, which PyTorch lacks; the
-kernel walks each (row, channel) in reverse over the forward's chunks,
-replaying each chunk from the state the forward kept at its start
+kernel walks each (row, channel) in reverse over 16-step tiles, replaying
+each tile once from the state the forward kept at its start
 (``ssm_scan(..., keep_bounds=True)`` returns those states) in B15's
-operation order, and sums the gradients that reduce over channels, rows
-and steps in a fixed order. :func:`plan_scan_bwd` plans it (pure integer
-arithmetic, tested on the CPU); :func:`ssm_scan_bwd_plain` is its plain
-twin, the reverse recurrence one step at a time.
+operation order, with one exponential an element, and sums the gradients
+that reduce over channels, rows and steps in a fixed order.
+:func:`plan_scan_bwd` plans it (pure integer arithmetic, tested on the
+CPU); :func:`ssm_scan_bwd_plain` is its plain twin, the reverse recurrence
+one step at a time.
 """
 from __future__ import annotations
 
@@ -40,10 +41,9 @@ import torch
 from . import build
 
 _IN_DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 10 + [build.SIZE] * 3 + [build.INT] * 2 + [build.SIZE]
+_ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 11 + [build.SIZE] * 3 + [build.INT] * 2 + [build.SIZE]
              + [build.INT] * 2 + [build.PTR])
-_BWD_ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 21 + [build.SIZE] * 3 + [build.INT] + [build.SIZE]
-                 + [build.INT] * 3 + [build.PTR])
+_BWD_ARGTYPES = [build.PTR, build.INT] + [build.PTR] * 19 + [build.SIZE] * 3 + [build.INT] * 4 + [build.PTR]
 
 # The planner's geometry; the kernel's constants in csrc/ssm_scan.cu match.
 FORM_TOKEN, FORM_SEQ = 0, 1
@@ -55,8 +55,10 @@ CARRY_THREADS = 256
 MIN_CHUNKS = 3             # fewer chunks than this gain nothing (see plan_scan)
 MAX_CHUNKS = 64            # the carry launch walks the chunks in series
 # The backward's geometry (csrc/ssm_scan_bwd.cu).
-BWD_THREADS = 32           # a block of the walk: one warp, N / 4 lanes (4 states each) a channel
-BWD_TILE = 16              # steps replayed into shared memory at a time
+BWD_CHANNELS = 32          # a block of the walk: 32 channels, N / 4 lanes (4 states each) a channel
+BWD_TILE = 16              # steps a tile: the forward keeps each tile's start state, the walk replays it once
+BWD_STAGES = 2             # x, dt, dy tiles in shared memory (the cp.async double buffer)
+BWD_WARPS_PER_SM = 16      # what the walk's __launch_bounds__ makes room for (128 registers a lane)
 BWD_COMBINE_THREADS = 256
 
 
@@ -162,6 +164,21 @@ def ssm_scan_plain(x, dt, a, b_t, c_t, d_skip, h0) -> Tuple[torch.Tensor, torch.
     return torch.stack(ys, dim=1), h
 
 
+def keep_form(plan: ScanPlan) -> ScanPlan:
+    """The plan of a forward that keeps its tile states: ``plan`` itself,
+    but a one-token step (S = 1) in the sequence form, one chunk of one
+    tile, whose output walk can store the state."""
+    if plan.form != FORM_TOKEN:
+        return plan
+    return dataclasses.replace(plan, form=FORM_SEQ, chunk=TILE, tiles=_cdiv(plan.dim, SEQ_THREADS))
+
+
+def kept_states_shape(b: int, s: int, d: int, n: int) -> Tuple[int, int, int, int]:
+    """The shape of the tile states the forward keeps for the backward:
+    (B, ceil(S / BWD_TILE), D, NP), f32, NP = N padded to 4, 8 or 16."""
+    return (b, _cdiv(s, BWD_TILE), d, 4 if n <= 4 else 8 if n <= 8 else 16)
+
+
 def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, *, keep_bounds: bool = False):
     """x: (B, S, D); dt: (B, S, D) f32; a: (D, N) f32; b_t, c_t: (B, S, N);
     d_skip: (D,) f32; h0: (B, D, N) f32. x, b_t and c_t are f32 or bf16, one
@@ -171,18 +188,19 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, *, keep_bounds: bool = False):
     per call however many CUDA launches it makes; CPU tensors take the
     plain version.
 
-    ``keep_bounds=True`` returns (y, h_final, bounds, chunk) for the
-    backward, as the JAX forward keeps ``h_bounds``: with K > 1 chunks,
-    ``bounds`` is the carry workspace (B, K-1, D, N) f32, slot j the state
-    at the end of chunk j of ``chunk`` steps, from which the output walk
-    started chunk j+1; with one chunk or the one-token form (and on the
-    CPU) ``bounds`` is None and ``chunk`` is S, the whole sequence one chunk
-    from h0."""
+    ``keep_bounds=True`` (training: a gradient is wanted) returns (y,
+    h_final, states) for the backward, as the JAX forward keeps
+    ``h_bounds``: ``states`` (:func:`kept_states_shape`, f32) holds the
+    state at the start of every BWD_TILE-step tile, stored by the output
+    walk as it passes (padded states 0); S = 1 then takes the sequence form
+    (one chunk of one tile), which can keep it. On the CPU ``states`` is
+    None: the plain backward needs none. ``ssm_scan.form_launches`` counts
+    the calls of each form: ``token``, ``seq`` and ``seq_keep``."""
     device = _check(x, dt, a, b_t, c_t, d_skip, h0)
     s = x.shape[1]
     if device.type == "cpu":
         y, h_out = ssm_scan_plain(x, dt, a, b_t, c_t, d_skip, h0)
-        return (y, h_out, None, s) if keep_bounds else (y, h_out)
+        return (y, h_out, None) if keep_bounds else (y, h_out)
     bsz, _, d = x.shape
     n = a.shape[1]
     if not (1 <= n <= 16 and 1 <= bsz <= 65535):
@@ -190,8 +208,12 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, *, keep_bounds: bool = False):
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=device)
     h_out = torch.empty((bsz, d, n), dtype=torch.float32, device=device)
     if y.numel() == 0:
-        return (y, h0.clone(), None, max(s, 1)) if keep_bounds else (y, h0.clone())
+        return (y, h0.clone(), None) if keep_bounds else (y, h0.clone())
     plan = plan_scan(bsz, s, d, n, sms=build.sm_count(device))
+    keep = None
+    if keep_bounds:
+        plan = keep_form(plan)
+        keep = torch.empty(kept_states_shape(bsz, s, d, n), dtype=torch.float32, device=device)
     carry = dt_sum = None
     if plan.chunks > 1:
         carry = torch.empty((bsz, plan.chunks - 1, d, n), dtype=torch.float32, device=device)
@@ -199,73 +221,90 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, *, keep_bounds: bool = False):
     vec = all(t.data_ptr() % 16 == 0 for t in (x, dt, a, h0, h_out))
     build.launch("ssm_scan", _entry(), device, x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(),
                  a.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), d_skip.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                 h_out.data_ptr(), build.ptr(carry), build.ptr(dt_sum), bsz, s, d, n, plan.form, plan.chunk,
-                 plan.chunks, int(vec))
+                 h_out.data_ptr(), build.ptr(carry), build.ptr(dt_sum), build.ptr(keep), bsz, s, d, n, plan.form,
+                 plan.chunk, plan.chunks, int(vec))
     ssm_scan.launches += 1
-    if keep_bounds:
-        return (y, h_out, carry, plan.chunk) if carry is not None else (y, h_out, None, s)
-    return y, h_out
+    ssm_scan.form_launches["seq_keep" if keep is not None else "token" if plan.form == FORM_TOKEN else "seq"] += 1
+    return (y, h_out, keep) if keep_bounds else (y, h_out)
 
 
 @dataclasses.dataclass(frozen=True)
 class ScanBwdPlan:
-    """The grid of one backward call. The walk: a (``warps``, batch) grid of
-    one warp each, ``lanes`` lanes per (row, channel) with 4 states each,
-    ``channels`` channels a warp, over ``chunks`` chunks of ``chunk`` steps
-    (the forward's), each in ``chunk_tiles`` tiles of BWD_TILE steps; the
-    combine: ``combine_blocks`` blocks of BWD_COMBINE_THREADS, a thread per
-    output of db, dc, da and dd."""
+    """The grid of one backward call. The walk: a (``blocks``, batch) grid
+    of ``warps`` warps each, BWD_CHANNELS channels a block, ``lanes`` lanes
+    per (row, channel) with 4 states each, over ``tiles`` tiles of BWD_TILE
+    steps in reverse; the combine: ``combine_blocks`` blocks of
+    BWD_COMBINE_THREADS, a thread per output of db, dc, da and dd."""
     batch: int
     seq: int
     dim: int
     n: int
     states: int        # N padded to 4, 8 or 16
-    chunk: int
-    chunks: int
-    chunk_tiles: int   # tiles of the longest chunk: the tile-start workspace's depth
-    warps: int         # channel blocks: the db/dc partials' depth
+    tiles: int         # ceil(S / BWD_TILE): the kept states' depth
+    blocks: int        # channel blocks: the db/dc partials' depth
 
     @property
     def lanes(self) -> int:
         return self.states // 4
 
     @property
+    def warps(self) -> int:
+        """Warps a block: BWD_CHANNELS channels of ``lanes`` lanes."""
+        return BWD_CHANNELS * self.lanes // 32
+
+    @property
     def channels(self) -> int:
-        return BWD_THREADS // self.lanes
+        """Channels a warp."""
+        return 32 // self.lanes
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """What the walk's launch bound makes room for."""
+        return BWD_WARPS_PER_SM // self.warps
 
     @property
     def walk_grid(self) -> Tuple[int, int]:
-        return (self.warps, self.batch)
+        return (self.blocks, self.batch)
 
     @property
     def combine_blocks(self) -> int:
         return _cdiv(self.batch * self.seq * 2 * self.n + self.dim * self.n + self.dim, BWD_COMBINE_THREADS)
 
-    def steps(self, k: int) -> Tuple[int, int]:
-        """[start, stop) of chunk ``k``."""
-        return k * self.chunk, min(self.seq, (k + 1) * self.chunk)
+    def steps(self, i: int) -> Tuple[int, int]:
+        """[start, stop) of tile ``i``."""
+        return i * BWD_TILE, min(self.seq, (i + 1) * BWD_TILE)
+
+    def shared_bytes(self, itemsize: int) -> int:
+        """The walk's shared memory a block (``itemsize``: x's bytes an
+        element): each warp's replayed states (16 float4 a lane) and the
+        A_t of a tile's first 8 / itemsize steps (a float4 a lane each), the
+        x, dt and dy double buffer, B and C's double buffer and the dx, ddt
+        tile, as ``Shared`` in the source lays them out."""
+        rows = BWD_TILE * BWD_CHANNELS
+        return (self.warps * (BWD_TILE + 8 // itemsize) * 32 * 16 + BWD_STAGES * rows * (2 * itemsize + 4)
+                + 2 * 2 * BWD_TILE * self.states * 4 + rows * (4 + itemsize))
 
     def workspace_shapes(self):
         """{name: shape} of the f32 workspaces the wrapper allocates."""
         b, d = self.batch, self.dim
-        return {"ws_h": (b, self.chunk_tiles, d, self.states), "ws_bc": (b, self.seq, self.warps, 2 * self.states),
-                "ws_a": (b, d, self.n), "ws_d": (b, d)}
+        return {"ws_bc": (b, self.seq, self.blocks, 2 * self.states), "ws_a": (b, d, self.n), "ws_d": (b, d)}
 
 
 @functools.lru_cache(maxsize=None)
-def plan_scan_bwd(b: int, s: int, d: int, n: int, *, chunk: int) -> ScanBwdPlan:
-    """The grid of the backward of a (B=b, S=s, D=d, N=n) scan whose forward
-    kept the states at the boundaries of chunks of ``chunk`` steps (S or
-    more: one chunk from h0). The walk takes the forward's chunks as they
-    are, so each replay starts from a state the forward computed. Pure
-    integer arithmetic: it reads no tensor and makes no CUDA call."""
-    if not (1 <= n <= 16 and 1 <= b <= 65535 and s >= 1 and d >= 1 and chunk >= 1):
+def plan_scan_bwd(b: int, s: int, d: int, n: int) -> ScanBwdPlan:
+    """The grid of the backward of a (B=b, S=s, D=d, N=n) scan. The walk
+    takes BWD_TILE-step tiles from the states the forward kept at their
+    starts (:func:`kept_states_shape`), whatever chunks the forward walked.
+    Pure integer arithmetic: it reads no tensor and makes no CUDA call."""
+    if not (1 <= n <= 16 and 1 <= b <= 65535 and s >= 1 and d >= 1):
         raise ValueError(f"plan_scan_bwd: the kernel takes N in 1..16 and 1..65535 rows, got B={b}, S={s}, D={d}, "
-                         f"N={n}, chunk={chunk}")
+                         f"N={n}")
     states = 4 if n <= 4 else 8 if n <= 8 else 16
-    chunk = min(chunk, s)
-    warps = _cdiv(d, BWD_THREADS // (states // 4))
-    return ScanBwdPlan(b, s, d, n, states, chunk, _cdiv(s, chunk), _cdiv(chunk, BWD_TILE), warps)
+    return ScanBwdPlan(b, s, d, n, states, _cdiv(s, BWD_TILE), _cdiv(d, BWD_CHANNELS))
 
 
 def ssm_scan_bwd_plain(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None):
@@ -300,25 +339,24 @@ def ssm_scan_bwd_plain(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None):
     return dx, ddt, da, db, dc, (dyf * xf).sum((0, 1)), carry
 
 
-def ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None, *, bounds=None, chunk: Optional[int] = None,
-                 with_final: bool = False):
+def ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None, *, states=None, with_final: bool = False):
     """The selective scan's gradients. The forward's operands as
     :func:`ssm_scan` takes them; dy: (B, S, D) in x's dtype; dh_final: (B,
-    D, N) f32 or None (zero); ``bounds`` and ``chunk``: what
-    ``ssm_scan(..., keep_bounds=True)`` returned (None and S for one
-    chunk). Returns (dx, ddt (B, S, D), da (D, N), db, dc (B, S, N),
-    dd_skip (D,), dh0 (B, D, N)) as ``_selective_scan_bwd``
-    (``repro/models/ssm.py:170``): dx in x's dtype (the kernel rounds it
-    once as it stores it, as that function's cast does), the rest f32, as
-    that function has them before its other casts; ``with_final=True``
-    appends the final state the kernel replayed (B, D, N), which equals the
-    forward's h_final bit for bit. CUDA tensors launch the kernel (two CUDA
-    launches, one count); CPU tensors take the plain version, which needs
-    no bounds (and replays nothing: ``with_final`` is for the card)."""
+    D, N) f32 or None (zero); ``states``: the tile states
+    ``ssm_scan(..., keep_bounds=True)`` returned (the kernel needs them).
+    Returns (dx, ddt (B, S, D), da (D, N), db, dc (B, S, N), dd_skip (D,),
+    dh0 (B, D, N)) as ``_selective_scan_bwd`` (``repro/models/ssm.py:170``):
+    dx in x's dtype (the kernel rounds it once as it stores it, as that
+    function's cast does), the rest f32, as that function has them before
+    its other casts; ``with_final=True`` appends the final state the kernel
+    replayed (B, D, N), which equals the forward's h_final bit for bit. CUDA
+    tensors launch the kernel (two CUDA launches, one count); CPU tensors
+    take the plain version, which needs no states (and replays nothing:
+    ``with_final`` is for the card)."""
     device = _check(x, dt, a, b_t, c_t, d_skip, h0)
     extra = {"dy": dy} if dh_final is None else {"dy": dy, "dh_final": dh_final}
-    if bounds is not None:
-        extra["bounds"] = bounds
+    if states is not None:
+        extra["states"] = states
     build.check_operands("ssm_scan_bwd", dtypes={"x": _IN_DTYPES, "dy": (x.dtype,)}, x=x, **extra)
     bsz, s, d = x.shape
     n = a.shape[1]
@@ -330,11 +368,11 @@ def ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None, *, bounds=No
             raise ValueError("ssm_scan_bwd: with_final is the card kernel's replayed state")
         dx, *rest = ssm_scan_bwd_plain(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final)
         return (dx.to(x.dtype), *rest)
-    plan = plan_scan_bwd(bsz, s, d, n, chunk=chunk or s)
-    want = (bsz, plan.chunks - 1, d, n)
-    if (bounds is None) != (plan.chunks == 1) or (bounds is not None and tuple(bounds.shape) != want):
-        raise ValueError(f"ssm_scan_bwd: {plan.chunks} chunks of {plan.chunk} steps want bounds "
-                         f"{want if plan.chunks > 1 else None}, got {None if bounds is None else tuple(bounds.shape)}")
+    plan = plan_scan_bwd(bsz, s, d, n)
+    want = kept_states_shape(bsz, s, d, n)
+    if states is None or tuple(states.shape) != want:
+        raise ValueError(f"ssm_scan_bwd: the kernel replays from the forward's tile states {want} "
+                         f"(ssm_scan(..., keep_bounds=True)), got {None if states is None else tuple(states.shape)}")
     f32 = dict(dtype=torch.float32, device=device)
     dx, ddt = torch.empty((bsz, s, d), dtype=x.dtype, device=device), torch.empty((bsz, s, d), **f32)
     db, dc = torch.empty((bsz, s, n), **f32), torch.empty((bsz, s, n), **f32)
@@ -342,12 +380,12 @@ def ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None, *, bounds=No
     dh0 = torch.empty((bsz, d, n), **f32)
     h_last = torch.empty((bsz, d, n), **f32) if with_final else None
     ws = {k: torch.empty(shape, **f32) for k, shape in plan.workspace_shapes().items()}
+    vec = all(t.data_ptr() % 16 == 0 for t in (x, dt, dy, dx, ddt))
     build.launch("ssm_scan_bwd", _entry_bwd(), device, x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(),
-                 a.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), d_skip.data_ptr(), h0.data_ptr(), build.ptr(bounds),
-                 dy.data_ptr(), build.ptr(dh_final), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
-                 dc.data_ptr(), dd.data_ptr(), dh0.data_ptr(), build.ptr(h_last), ws["ws_h"].data_ptr(),
-                 ws["ws_bc"].data_ptr(), ws["ws_a"].data_ptr(), ws["ws_d"].data_ptr(), bsz, s, d, n, plan.chunk,
-                 plan.chunks, plan.chunk_tiles, plan.warps)
+                 a.data_ptr(), b_t.data_ptr(), c_t.data_ptr(), d_skip.data_ptr(), states.data_ptr(), dy.data_ptr(),
+                 build.ptr(dh_final), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                 dd.data_ptr(), dh0.data_ptr(), build.ptr(h_last), ws["ws_bc"].data_ptr(), ws["ws_a"].data_ptr(),
+                 ws["ws_d"].data_ptr(), bsz, s, d, n, plan.tiles, plan.blocks, int(vec))
     ssm_scan_bwd.launches += 1
     out = (dx, ddt, da, db, dc, dd, dh0)
     return out + (h_last,) if with_final else out
@@ -364,4 +402,5 @@ def _entry_bwd():
 
 
 ssm_scan.launches = 0
+ssm_scan.form_launches = {"token": 0, "seq": 0, "seq_keep": 0}
 ssm_scan_bwd.launches = 0

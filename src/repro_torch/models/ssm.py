@@ -5,12 +5,13 @@ explicit tensor-parallel form is a later slice).
 The JAX package computes the recurrence as a chunked associative scan with a
 hand-written VJP; here it is :func:`selective_scan`, whose forward runs the
 hand-written selective scan kernel (``repro_torch.kernels.ssm_scan``) for
-CUDA tensors, keeping the states at its chunk boundaries as the JAX forward
-keeps ``h_bounds``, and whose backward runs the hand-written backward kernel
-(``ssm_scan_bwd``), which replays each chunk from its boundary and runs the
-reverse recurrence. The two packages agree to f32 rounding. One forward
-kernel serves the training-shaped forward and the one-token decode step (S
-= 1, the state from the cache).
+CUDA tensors, keeping the state at the start of every 16-step tile when a
+gradient is wanted (as the JAX forward keeps ``h_bounds``), and whose
+backward runs the hand-written backward kernel (``ssm_scan_bwd``), which
+replays each tile once from its kept state and runs the reverse recurrence.
+The two packages agree to f32 rounding. One forward kernel serves the
+training-shaped forward and the one-token decode step (S = 1, the state
+from the cache).
 """
 from __future__ import annotations
 
@@ -96,34 +97,42 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, history: Opt
 class _SelectiveScan(torch.autograd.Function):
     """The JAX package's ``custom_vjp`` around the scan
     (``repro/models/ssm.py:139-242``): the forward is kernel B15 (or its
-    plain twin) and saves its inputs and chunk-boundary states; the backward
-    is the backward kernel ``ssm_scan_bwd`` (or its plain twin), which
-    replays each chunk from its boundary. Gradients come back in the
+    plain twin); when a gradient is wanted it saves its inputs and the
+    state at the start of every 16-step tile, which B15 stores as it passes
+    (as the JAX forward keeps ``h_bounds``); the backward is the backward
+    kernel ``ssm_scan_bwd`` (or its plain twin), which replays each tile
+    once from its kept state. Without a gradient (the eval forward, the
+    decode step) B15 runs without the store. Gradients come back in the
     inputs' dtypes."""
 
     @staticmethod
-    def forward(ctx, x, dt, a, b_t, c_t, d_skip, h0, impl):
-        if impl == "kernel":
-            y, h_final, bounds, chunk = ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, keep_bounds=True)
+    def forward(ctx, x, dt, a, b_t, c_t, d_skip, h0, impl, grad):
+        keep = grad and any(ctx.needs_input_grad[:7])
+        states = None
+        if impl == "kernel" and keep:
+            y, h_final, states = ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, keep_bounds=True)
+        elif impl == "kernel":
+            y, h_final = ssm_scan(x, dt, a, b_t, c_t, d_skip, h0)
         else:
-            (y, h_final), bounds, chunk = ssm_scan_plain(x, dt, a, b_t, c_t, d_skip, h0), None, x.shape[1]
-        ctx.save_for_backward(x, dt, a, b_t, c_t, d_skip, h0, bounds)
-        ctx.impl, ctx.chunk = impl, chunk
+            y, h_final = ssm_scan_plain(x, dt, a, b_t, c_t, d_skip, h0)
+        if keep:
+            ctx.save_for_backward(x, dt, a, b_t, c_t, d_skip, h0, states)
+        ctx.impl = impl
         ctx.set_materialize_grads(False)
         return y.to(x.dtype), h_final
 
     @staticmethod
     def backward(ctx, dy, dh_final):
-        x, dt, a, b_t, c_t, d_skip, h0, bounds = ctx.saved_tensors
+        x, dt, a, b_t, c_t, d_skip, h0, states = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
         if dh_final is not None:
             dh_final = dh_final.float().contiguous()
         if ctx.impl == "kernel":
-            grads = ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final, bounds=bounds, chunk=ctx.chunk)
+            grads = ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final, states=states)
         else:
             grads = ssm_scan_bwd_plain(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final)
         like = (x, dt, a, b_t, c_t, d_skip, h0)
-        return tuple(g.to(t.dtype) for g, t in zip(grads, like)) + (None,)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, like)) + (None, None)
 
 
 def selective_scan(x, dt, a, b_t, c_t, d_skip, h0, *, impl: str = "kernel"):
@@ -135,14 +144,18 @@ def selective_scan(x, dt, a, b_t, c_t, d_skip, h0, *, impl: str = "kernel"):
     ``impl="plain"`` picks the twins on any device, an explicit choice for
     comparisons. Differentiable in every tensor argument: ``a``'s gradient
     reaches ``a_log`` through ``-exp`` and ``dt``'s reaches ``dt_proj`` and
-    ``dt_bias`` through ``softplus`` by autograd."""
+    ``dt_bias`` through ``softplus`` by autograd. B15 keeps its tile states
+    only when grad mode is on and an operand requires a gradient (inside
+    ``Function.forward`` grad mode is off, so that is decided here)."""
     if impl not in SCAN_IMPLS:
         raise ValueError(f"impl must be one of {SCAN_IMPLS}, got {impl!r}")
     dt = dt.float().contiguous()
     a = a.float().contiguous()
     d_skip = d_skip.float().contiguous()
     h0 = h0.float().contiguous()
-    return _SelectiveScan.apply(x.contiguous(), dt, a, b_t.contiguous(), c_t.contiguous(), d_skip, h0, impl)
+    ops = (x.contiguous(), dt, a, b_t.contiguous(), c_t.contiguous(), d_skip, h0)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ops)
+    return _SelectiveScan.apply(*ops, impl, grad)
 
 
 class SSMCache(NamedTuple):

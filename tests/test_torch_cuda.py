@@ -1256,7 +1256,8 @@ def test_ssm_scan_rejects_what_the_kernel_does_not_take(dev):
 
 # The selective scan's backward (ssm_scan_bwd) against its plain twin, which
 # steps the reverse recurrence in order with exp where the kernel replays
-# each chunk with exp2 of dt*a*log2(e) and sums channels by a warp butterfly
+# each 16-step tile from the forward's kept state with exp2 of dt*a*log2(e)
+# and sums channels by a warp butterfly and a block's warps in order
 # (BWD_SUMS, relative to each gradient's largest magnitude). dx comes back
 # in x's dtype: in bf16 the store's rounding (2^-8 of a value) adds to it.
 BWD_SUMS = 1e-5
@@ -1280,21 +1281,22 @@ def _bwd_case(dev, b, s, d, n, dtype, seed, dh_final=True):
 
 
 # The training shape of chip_smoke.py's SSM phase (K = 4 chunks), sequences
-# of one chunk (K = 1: the prompt shape, S = 17) and of several at narrow
-# widths, a one-token step, ragged warps (D = 65, 33) and padded states.
+# of one chunk (the prompt shape, S = 17) and of several at narrow widths, a
+# one-token step, S not a multiple of 16, D not a multiple of a block's 32
+# channels (65, 33, 37, 70) and N = 1, 3, 5, 8, 9 and 16 (padded to 4, 8, 16).
 @pytest.mark.parametrize("b,s,d,n", [(2, 2048, 8192, 16), (4, 64, 8192, 16), (1, 300, 200, 16), (3, 17, 65, 8),
-                                     (2, 1000, 96, 16), (4, 1, 37, 9), (2, 40, 33, 3), (1, 2048, 512, 16)])
+                                     (2, 1000, 96, 16), (4, 1, 37, 9), (2, 40, 33, 3), (1, 2048, 512, 16),
+                                     (2, 300, 70, 1), (1, 33, 65, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssm_scan_bwd(dev, b, s, d, n, dtype):
     """Against the twin, two runs bit-equal, one count a call, and the
     replayed final state equal to B15's h_final bit for bit."""
     args, dy, dhf = _bwd_case(dev, b, s, d, n, dtype, b * s + d, dh_final=b != 4)
-    _, h, bounds, chunk = ssm_scan.ssm_scan(*args, keep_bounds=True)
-    plan = ssm_scan.plan_scan(b, s, d, n, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
-    assert (bounds is None) == (plan.form == ssm_scan.FORM_TOKEN or plan.chunks == 1)
+    _, h, states = ssm_scan.ssm_scan(*args, keep_bounds=True)
+    assert tuple(states.shape) == ssm_scan.kept_states_shape(b, s, d, n)
     before = ssm_scan.ssm_scan_bwd.launches
-    got = ssm_scan.ssm_scan_bwd(*args, dy, dhf, bounds=bounds, chunk=chunk, with_final=True)
-    again = ssm_scan.ssm_scan_bwd(*args, dy, dhf, bounds=bounds, chunk=chunk, with_final=True)
+    got = ssm_scan.ssm_scan_bwd(*args, dy, dhf, states=states, with_final=True)
+    again = ssm_scan.ssm_scan_bwd(*args, dy, dhf, states=states, with_final=True)
     want = ssm_scan.ssm_scan_bwd_plain(*args, dy, dhf)
     torch.cuda.synchronize()
     assert ssm_scan.ssm_scan_bwd.launches == before + 2
@@ -1305,16 +1307,61 @@ def test_ssm_scan_bwd(dev, b, s, d, n, dtype):
     _close_bwd(got[:-1], want)
 
 
-def test_ssm_scan_bwd_one_chunk_at_the_training_shape(dev):
-    """K = 1 at the training shape: the whole sequence replayed from h0."""
+def test_ssm_scan_bwd_one_chunk_at_the_training_shape(dev, monkeypatch):
+    """K = 1 at the training shape: the forward walks the whole sequence as
+    one chunk from h0, keeping every tile's state, and the backward replays
+    from those states."""
+    plan = ssm_scan.plan_scan
+    monkeypatch.setattr(ssm_scan, "plan_scan", lambda b, s, *a, **kw: dataclasses.replace(
+        plan(b, s, *a, **kw), chunk=-(-s // 16) * 16, chunks=1))
     args, dy, dhf = _bwd_case(dev, 2, 2048, 8192, 16, torch.bfloat16, 11)
-    got = ssm_scan.ssm_scan_bwd(*args, dy, dhf)
-    again = ssm_scan.ssm_scan_bwd(*args, dy, dhf)
+    _, h, states = ssm_scan.ssm_scan(*args, keep_bounds=True)
+    got = ssm_scan.ssm_scan_bwd(*args, dy, dhf, states=states, with_final=True)
+    again = ssm_scan.ssm_scan_bwd(*args, dy, dhf, states=states, with_final=True)
     want = ssm_scan.ssm_scan_bwd_plain(*args, dy, dhf)
     torch.cuda.synchronize()
     for g, g2 in zip(got, again):
         assert torch.equal(g, g2)
-    _close_bwd(got, want)
+    assert torch.equal(got[-1], h)
+    _close_bwd(got[:-1], want)
+
+
+@pytest.mark.parametrize("b,s,d,n,dtype", [(2, 300, 70, 16, torch.bfloat16), (1, 17, 65, 5, torch.float32),
+                                           (3, 1, 37, 9, torch.float32), (1, 2048, 512, 16, torch.bfloat16)])
+def test_ssm_scan_keeps_tile_states(dev, b, s, d, n, dtype):
+    """The KEEP output walk's state at the start of tile i against the plain
+    recurrence after 16 i steps (LINE_SUMS), padded states exact zeros; its
+    y and h_final equal the walk without the store bit for bit (S > 1)."""
+    args = _scan_inputs(dev, b, s, d, n, dtype, 3)
+    y, h, states = ssm_scan.ssm_scan(*args, keep_bounds=True)
+    y2, h2 = ssm_scan.ssm_scan(*args)
+    x, dt, a, b_t, c_t, d_skip, h0 = args
+    hh = h0.clone()
+    for t in range(s):
+        if t % 16 == 0:
+            _close(states[:, t // 16, :, :n], hh, LINE_SUMS)
+        u = (dt[:, t] * x[:, t].float())[:, :, None] * b_t[:, t, None, :].float()
+        hh = torch.exp(dt[:, t, :, None] * a) * hh + u
+    torch.cuda.synchronize()
+    assert not states[..., n:].any()
+    if s > 1:
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_forwards_without_a_gradient_keep_no_states(dev):
+    """The eval forward and the decode step (no gradient) launch B15 without
+    the tile store; a training forward launches the store form, S = 1
+    included. Each form's launches counted."""
+    from repro_torch.models import ssm as tssm
+
+    forms = ssm_scan.ssm_scan.form_launches
+    for s, grad, want in ((64, False, "seq"), (1, False, "token"), (64, True, "seq_keep"), (1, True, "seq_keep")):
+        leaves = [t.clone().requires_grad_(True) for t in _scan_inputs(dev, 2, s, 96, 16, torch.bfloat16, s)]
+        before = dict(forms)
+        with torch.set_grad_enabled(grad):
+            tssm.selective_scan(*leaves)
+        torch.cuda.synchronize()
+        assert {k: forms[k] - before[k] for k in forms} == {k: int(k == want) for k in forms}, (s, grad)
 
 
 @pytest.mark.parametrize("n", [3, 5, 13])
@@ -1332,8 +1379,8 @@ def test_ssm_scan_bwd_padded_states_add_exact_zeros(dev, n):
     padded = (x, dt, z(a), z(b_t), z(c_t), d_skip, z(h0))
     outs = []
     for ops, dh in ((args, dhf), (padded, z(dhf))):
-        _, _, bounds, chunk = ssm_scan.ssm_scan(*ops, keep_bounds=True)
-        outs.append(ssm_scan.ssm_scan_bwd(*ops, dy, dh, bounds=bounds, chunk=chunk))
+        _, _, states = ssm_scan.ssm_scan(*ops, keep_bounds=True)
+        outs.append(ssm_scan.ssm_scan_bwd(*ops, dy, dh, states=states))
     torch.cuda.synchronize()
     for name, g, gp in zip(("dx", "ddt", "da", "db", "dc", "dd", "dh0"), *outs):
         if name in ("dx", "ddt", "dd"):
@@ -1344,17 +1391,16 @@ def test_ssm_scan_bwd_padded_states_add_exact_zeros(dev, n):
 
 def test_ssm_scan_bwd_rejects_what_the_kernel_does_not_take(dev):
     args, dy, dhf = _bwd_case(dev, 1, 300, 64, 4, torch.bfloat16, 0)
-    _, _, bounds, chunk = ssm_scan.ssm_scan(*args, keep_bounds=True)
-    assert bounds is not None
+    _, _, states = ssm_scan.ssm_scan(*args, keep_bounds=True)
+    assert states is not None
     before = ssm_scan.ssm_scan_bwd.launches
-    with pytest.raises(ValueError, match="bounds"):
-        ssm_scan.ssm_scan_bwd(*args, dy, dhf, bounds=bounds)         # bounds without their chunk length
+    with pytest.raises(ValueError, match="tile states"):
+        ssm_scan.ssm_scan_bwd(*args, dy, dhf)                        # no states: the kernel replays from them
     with pytest.raises(TypeError):
-        ssm_scan.ssm_scan_bwd(*args, dy.float(), dhf, bounds=bounds, chunk=chunk)
+        ssm_scan.ssm_scan_bwd(*args, dy.float(), dhf, states=states)
     with pytest.raises(ValueError):
-        ssm_scan.ssm_scan_bwd(*args, dy, dhf, bounds=bounds[:, :1].contiguous(), chunk=chunk)
+        ssm_scan.ssm_scan_bwd(*args, dy, dhf, states=states[:, :1].contiguous())
     assert ssm_scan.ssm_scan_bwd.launches == before
-
 
 def test_selective_scan_backward_runs_the_kernel(dev):
     """The autograd function on CUDA tensors: B15 forward, ssm_scan_bwd
@@ -1367,11 +1413,13 @@ def test_selective_scan_backward_runs_the_kernel(dev):
     for impl in ("kernel", "plain"):
         leaves = [t.clone().requires_grad_(True) for t in args]
         counts = ssm_scan.ssm_scan.launches, ssm_scan.ssm_scan_bwd.launches
+        kept = ssm_scan.ssm_scan.form_launches["seq_keep"]
         y, h = tssm.selective_scan(*leaves, impl=impl)
         ((y.float() * dy.float()).sum() + (h * dhf).sum()).backward()
         torch.cuda.synchronize()
         moved = ssm_scan.ssm_scan.launches - counts[0], ssm_scan.ssm_scan_bwd.launches - counts[1]
         assert moved == ((1, 1) if impl == "kernel" else (0, 0))
+        assert ssm_scan.ssm_scan.form_launches["seq_keep"] - kept == moved[0]    # the forward kept its states
         assert [t.grad.dtype for t in leaves] == [t.dtype for t in args]
         grads[impl] = [t.grad for t in leaves]
     for g, w in zip(grads["kernel"], grads["plain"]):

@@ -20,17 +20,21 @@ The shapes put chunk boundaries that do not divide S (S = 17, 300, 2048),
 and cover S = 1, N = 1, 3 and 16, B = 1 and 4, f32 and bf16.
 
 The backward (``plan_scan_bwd``, ``csrc/ssm_scan_bwd.cu``) the same way:
-the planner's walk writes dx and ddt of every (row, timestep, channel) once
-over the forward's chunks, within the grid limits, reading no tensor;
-``_walk_bwd`` repeats the kernel in plain torch (the chunks in reverse,
-each replayed from the forward's boundary state into its tiles' start
-states, the tiles in reverse, the warp's butterfly that leaves each of the
-2*NP channel sums of a step on its own lane, the workspace layouts and the
-combine). It fills every db/dc workspace slot once, replays the forward
-walk's final state bit for bit, keeps padded states at exact 0, and is held
-to the plain twin ``ssm_scan_bwd_plain`` and to ``jax.grad`` through the
-JAX package's custom VJP (1e-5 relative to each gradient's largest
-magnitude: the exponentials' form and the order of the sums differ).
+the forward's output walk keeps the state at the start of every 16-step
+tile (checked against the plain scan's state at every 16th step, and
+written once per (row, tile, channel) whatever the chunks); the planner's
+walk writes dx and ddt of every (row, timestep, channel) once within the
+grid limits, reading no tensor, and sizes its workspaces and shared memory;
+``_walk_bwd`` repeats the kernel in plain torch (the tiles in reverse, each
+replayed once from its kept state with A_t kept for the reverse step, one
+exponential an element, counted; the warp's butterfly that leaves each of
+the 2*NP channel sums of a step on its own lane; the block's sum of its
+warps' sums in warp order; the workspace layouts and the combine). It fills
+every db/dc workspace slot once, replays the forward walk's final state bit
+for bit, keeps padded states at exact 0, and is held to the plain twin
+``ssm_scan_bwd_plain`` and to ``jax.grad`` through the JAX package's custom
+VJP (1e-5 relative to each gradient's largest magnitude: the exponentials'
+form and the order of the sums differ).
 """
 import dataclasses
 import inspect
@@ -45,8 +49,9 @@ from _torch_parity import assert_close
 from repro.kernels.ssm_scan import ssm_scan as jax_ssm_scan
 from repro.models import ssm as jssm
 from repro_torch.kernels import ssm_scan as sc
-from repro_torch.kernels.ssm_scan import (BWD_COMBINE_THREADS, BWD_THREADS, BWD_TILE, FORM_SEQ, FORM_TOKEN, LANES,
-                                          SEQ_THREADS, TILE, TOKEN_THREADS, plan_scan, plan_scan_bwd)
+from repro_torch.kernels.ssm_scan import (BWD_CHANNELS, BWD_COMBINE_THREADS, BWD_TILE, BWD_WARPS_PER_SM, FORM_SEQ,
+                                          FORM_TOKEN, LANES, SEQ_THREADS, TILE, TOKEN_THREADS, kept_states_shape,
+                                          plan_scan, plan_scan_bwd)
 
 H100_SMS = 132
 MAX_GRID_X, MAX_GRID_YZ = 2**31 - 1, 65535
@@ -176,11 +181,15 @@ def _inputs(b, s, d, n, dtype, seed):
     return arrays, ts
 
 
-def _chunk(h, a2, xf, dtf, bf, cf, dsk, t0, t1, y=None):
+def _chunk(h, a2, xf, dtf, bf, cf, dsk, t0, t1, y=None, keep=None):
     """Steps [t0, t1) from state h in the kernel's arithmetic; writes y
-    when given. Returns (end state, the chunk's sum of dt, summed in order)."""
+    when given, and into ``keep`` {tile: state} the state at the start of
+    every TILE-step tile. Returns (end state, the chunk's sum of dt, summed
+    in order)."""
     sdt = torch.zeros_like(dtf[:, 0])
     for t in range(t0, t1):
+        if keep is not None and t % TILE == 0:
+            keep[t // TILE] = keep.get(t // TILE, []) + [h]
         h = torch.exp2(dtf[:, t, :, None] * a2) * h + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
         sdt = sdt + dtf[:, t]
         if y is not None:
@@ -188,16 +197,16 @@ def _chunk(h, a2, xf, dtf, bf, cf, dsk, t0, t1, y=None):
     return h, sdt
 
 
-def _walk(plan, x, dt, a, b_t, c_t, d_skip, h0, bounds=None):
+def _walk(plan, x, dt, a, b_t, c_t, d_skip, h0, keep=None):
     """B15's forms in plain torch (f32): the one-token step, or the carry
-    walk, the carry composition and the output walk. ``bounds``, a list,
-    receives the composed carry slots (the states the backward starts its
-    chunks 1..K-1 from)."""
+    walk, the carry composition and the output walk. ``keep``, a dict,
+    receives {tile: [states]}: what the output walk's KEEP form stores at
+    the start of each TILE-step tile (a list, to count the stores)."""
     xf, dtf, bf, cf = x.float(), dt.float(), b_t.float(), c_t.float()
     a2 = a.float() * float(LOG2E)
     y = torch.zeros(xf.shape)
     if plan.form == FORM_TOKEN:
-        h, _ = _chunk(h0.clone(), a2, xf, dtf, bf, cf, d_skip, 0, 1, y)
+        h, _ = _chunk(h0.clone(), a2, xf, dtf, bf, cf, d_skip, 0, 1, y, keep=keep)
         return y, h
     slots, sums = [], []
     for k in range(plan.chunks - 1):                     # launch 1
@@ -207,12 +216,10 @@ def _walk(plan, x, dt, a, b_t, c_t, d_skip, h0, bounds=None):
         sums.append(sdt)
     for j in range(1, plan.chunks - 1):                  # launch 2
         slots[j] = torch.exp2(a2 * sums[j][:, :, None]) * slots[j - 1] + slots[j]
-    if bounds is not None:
-        bounds.extend(slots)
     h_final = None
     for k in range(plan.chunks):                         # launch 3
         start = h0.clone() if k == 0 else slots[k - 1]
-        h_final, _ = _chunk(start, a2, xf, dtf, bf, cf, d_skip, *plan.steps(k), y=y)
+        h_final, _ = _chunk(start, a2, xf, dtf, bf, cf, d_skip, *plan.steps(k), y=y, keep=keep)
     return y, h_final
 
 
@@ -264,66 +271,108 @@ def test_padded_states_stay_zero():
 # -- the backward ---------------------------------------------------------------
 
 # The training shape of chip_smoke.py's SSM phase (B = 2 rows of 2048 tokens,
-# full-width falcon_mamba_7b) and its K = 1 case.
+# full-width falcon_mamba_7b).
 TRAIN = (2, 2048, 8192, 16)
 BWD_SHAPES = SHAPES + [(2, 300, 70, 16, 4 * TILE), (1, 33, 65, 5, TILE), (3, 40, 33, 8, None)]
 
 
-def _fwd_chunking(plan):
-    """(chunk, K) the forward kept boundaries for: one chunk of S unless
-    the sequence form walks several."""
-    if plan.form == FORM_SEQ and plan.chunks > 1:
-        return plan.chunk, plan.chunks
-    return plan.seq, 1
-
-
-def _bwd_plan(b, s, d, n, chunk=None):
-    fwd = _plan(b, s, d, n, chunk)
-    return fwd, plan_scan_bwd(b, s, d, n, chunk=_fwd_chunking(fwd)[0])
+def _kept_states(keep, b, s, d, n):
+    """The KEEP output walk's stores ({tile: [states]}) as the kernel's
+    (B, tiles, D, NP) buffer; each tile must have been stored once."""
+    out = torch.zeros(kept_states_shape(b, s, d, n))
+    assert sorted(keep) == list(range(out.shape[1]))
+    for i, hs in keep.items():
+        assert len(hs) == 1, i
+        out[:, i, :, :n] = hs[0]
+    return out
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES + [TRAIN + (None,), TRAIN[:2] + (96, 16, 2048)], ids=str)
 def test_bwd_plan_covers_every_step_once_within_the_grid(shape):
     b, s, d, n, chunk = shape
-    fwd, plan = _bwd_plan(b, s, d, n, chunk)
-    assert (plan.chunk, plan.chunks) == _fwd_chunking(fwd)
-    assert plan.states == fwd.states and plan.lanes * plan.channels == BWD_THREADS and plan.lanes == plan.states // 4
-    assert plan.warps * plan.channels >= d > (plan.warps - 1) * plan.channels
+    fwd = sc.keep_form(_plan(b, s, d, n, chunk))
+    plan = plan_scan_bwd(b, s, d, n)
+    assert fwd.form == FORM_SEQ and fwd.chunk % TILE == 0
+    assert plan.states == fwd.states and plan.lanes * plan.channels == 32 and plan.lanes == plan.states // 4
+    assert plan.warps * plan.channels == BWD_CHANNELS and plan.threads == 32 * plan.warps
+    assert plan.blocks * BWD_CHANNELS >= d > (plan.blocks - 1) * BWD_CHANNELS
     gx, gy = plan.walk_grid
     assert 0 < gx <= MAX_GRID_X and 0 < gy <= MAX_GRID_YZ and 0 < plan.combine_blocks <= MAX_GRID_X
     assert plan.combine_blocks * BWD_COMBINE_THREADS >= b * s * 2 * n + d * n + d
-    steps = [plan.steps(k) for k in range(plan.chunks)]
+    steps = [plan.steps(i) for i in range(plan.tiles)]
     assert steps[0][0] == 0 and steps[-1][1] == s and all(t0 < t1 for t0, t1 in steps)
-    assert all(steps[k][1] == steps[k + 1][0] for k in range(plan.chunks - 1))
-    assert max(-(-(t1 - t0) // BWD_TILE) for t0, t1 in steps) == plan.chunk_tiles
+    assert all(steps[i][1] == steps[i + 1][0] for i in range(plan.tiles - 1))
+    assert plan.tiles == kept_states_shape(b, s, d, n)[1] == -(-s // BWD_TILE)
     ws = plan.workspace_shapes()
-    assert ws["ws_h"] == (b, plan.chunk_tiles, d, plan.states) and ws["ws_bc"] == (b, s, plan.warps, 2 * plan.states)
+    assert ws == {"ws_bc": (b, s, plan.blocks, 2 * plan.states), "ws_a": (b, d, n), "ws_d": (b, d)}
+    # the forward's KEEP output walk stores every tile once, whatever its chunks
+    kept = [t // TILE for k in range(fwd.chunks) for t in range(*fwd.steps(k)) if t % TILE == 0]
+    assert kept == list(range(plan.tiles))
     if b * s * d > 5 * 10**6:
         return
-    # the walk's pieces: block (x, row) over its channels, every chunk's steps
-    c = plan.channels
-    pieces = [(row, range(x * c, min(d, (x + 1) * c)), range(*plan.steps(k)))
-              for x in range(gx) for row in range(gy) for k in range(plan.chunks)]
+    # the walk's pieces: block (x, row) over its channels, every tile's steps
+    pieces = [(row, range(x * BWD_CHANNELS, min(d, (x + 1) * BWD_CHANNELS)), range(*plan.steps(i)))
+              for x in range(gx) for row in range(gy) for i in range(plan.tiles)]
     assert (_cover(pieces, b, s, d) == 1).all()
 
 
 def test_bwd_plan_at_the_training_shape():
-    fwd, plan = _bwd_plan(*TRAIN)
-    assert fwd.form == FORM_SEQ and (plan.chunks, plan.chunk) == (fwd.chunks, fwd.chunk) == (4, 512)
-    assert plan.walk_grid == (1024, 2) and plan.chunk_tiles == 32   # 8 channels x 4 lanes
-    one = plan_scan_bwd(*TRAIN, chunk=TRAIN[1])         # K = 1: the whole sequence from h0
-    assert one.chunks == 1 and one.chunk_tiles == 128
+    fwd, plan = _plan(*TRAIN), plan_scan_bwd(*TRAIN)
+    assert fwd.form == FORM_SEQ and (fwd.chunks, fwd.chunk) == (4, 512)
+    assert plan.walk_grid == (256, 2) and plan.tiles == 128                # 32 channels a block
+    assert (plan.warps, plan.channels, plan.lanes) == (4, 8, 4)            # 4 warps of 8 channels x 4 lanes
+    assert plan.blocks_per_sm == BWD_WARPS_PER_SM // 4 == 4                # 528 blocks a wave: 512 take one
+    one = plan_scan_bwd(1, 2048, 8192, 16)
+    assert one.walk_grid == (256, 1) and one.tiles == 128
+
+
+def test_bwd_workspace_bytes_at_the_training_shape():
+    """The forward's kept tile states, 134,217,728 B; the db/dc partials,
+    one per block of 32 channels, 134,217,728 B (one-warp blocks wrote
+    536,870,912); the walk's shared memory within an SM at its launch
+    bound's blocks."""
+    plan = plan_scan_bwd(*TRAIN)
+
+    def nbytes(shape):
+        return 4 * int(np.prod(shape))
+
+    assert nbytes(kept_states_shape(*TRAIN)) == 134_217_728
+    assert nbytes(plan.workspace_shapes()["ws_bc"]) == 134_217_728 <= 135_000_000
+    assert nbytes(plan.workspace_shapes()["ws_bc"]) * plan.warps == 536_870_912
+    assert (plan.shared_bytes(2), plan.shared_bytes(4)) == (56_320, 57_344)   # bf16, f32 operands
+    for itemsize in (2, 4):
+        assert plan.shared_bytes(itemsize) <= 232_448                          # a block's most
+        assert plan.blocks_per_sm * (plan.shared_bytes(itemsize) + 1024) <= 233_472   # an SM's 228 KB
 
 
 def test_bwd_planner_reads_no_tensor():
     params = inspect.signature(plan_scan_bwd).parameters
-    assert list(params) == ["b", "s", "d", "n", "chunk"]
+    assert list(params) == ["b", "s", "d", "n"]
     code = plan_scan_bwd.__wrapped__.__code__
     assert "torch" not in code.co_names and "cuda" not in code.co_names
-    assert plan_scan_bwd(*TRAIN, chunk=512) is plan_scan_bwd(*TRAIN, chunk=512)
+    assert plan_scan_bwd(*TRAIN) is plan_scan_bwd(*TRAIN)
     for bad in ((1, 8, 4, 17), (0, 8, 4, 4), (1, 0, 4, 4)):
         with pytest.raises(ValueError):
-            plan_scan_bwd(*bad, chunk=16)
+            plan_scan_bwd(*bad)
+
+
+@pytest.mark.parametrize("shape", [sh for sh in SHAPES if sh[1] <= 300], ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_kept_states_match_the_plain_scan_every_16_steps(shape, dtype):
+    """The KEEP output walk's state at the start of tile i equals the plain
+    scan's state after 16 i steps (TWIN: the chunked walk's exponentials
+    and composition differ); padded states stay 0."""
+    b, s, d, n, chunk = shape
+    _, ts = _inputs(b, s, d, n, dtype, seed=b * s + d + n)
+    keep = {}
+    _walk(sc.keep_form(_plan(b, s, d, n, chunk)), *ts, keep=keep)
+    states = _kept_states(keep, b, s, d, n)
+    x, dt, a, b_t, c_t, d_skip, h0 = ts
+    for i in range(states.shape[1]):
+        t = i * TILE
+        want = h0 if t == 0 else sc.ssm_scan_plain(x[:, :t], dt[:, :t], a, b_t[:, :t], c_t[:, :t], d_skip, h0)[1]
+        assert_close(states[:, i, :, :n].numpy(), want.numpy(), TWIN, f"tile {i}")
+    assert not states[..., n:].any()
 
 
 def _channel_sum(vals, lanes):
@@ -367,25 +416,27 @@ def test_channel_sum_leaves_each_sum_on_its_lane(lanes):
     torch.testing.assert_close(r[:, writers], want[:, slots], rtol=1e-12, atol=1e-12)
 
 
-def _walk_bwd(plan, x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final, bounds):
+def _walk_bwd(plan, x, dt, a, b_t, c_t, d_skip, dy, dh_final, states):
     """csrc/ssm_scan_bwd.cu in plain torch (f32): channels padded to whole
-    warps and states to NP, a lane's 4 states in a (channel, lane, 4) view
-    as the kernel's lanes hold them. Returns (dx, ddt, da, db, dc, dd, dh0),
-    the replayed final state, how often each db/dc workspace slot was
-    written, and the padded states' values."""
+    blocks, states to NP and steps to whole tiles, a lane's 4 states in a
+    (channel, lane, 4) view as the kernel's lanes hold them. Each tile is
+    replayed once from ``states`` (the forward's kept tile states), keeping
+    A_t for the reverse step. Returns (dx, ddt, da, db, dc, dd, dh0), the
+    replayed final state, how often each db/dc workspace slot was written,
+    the exponentials evaluated, and the padded states' values."""
     b, s, d, n, np_ = plan.batch, plan.seq, plan.dim, plan.n, plan.states
-    lanes, dp = plan.lanes, plan.warps * plan.channels
+    lanes, warps, dp, sp = plan.lanes, plan.warps, plan.blocks * BWD_CHANNELS, plan.tiles * BWD_TILE
 
     def pad(t, shape):
         out = torch.zeros(shape)
         out[tuple(slice(0, k) for k in t.shape)] = t.float()
         return out
 
-    xf, dtf, dyf = (pad(t, (b, s, dp)) for t in (x, dt, dy))
-    af, bf, cf = pad(a, (dp, np_)), pad(b_t, (b, s, np_)), pad(c_t, (b, s, np_))
-    dsk, a2 = pad(d_skip, (dp,)), pad(a, (dp, np_)) * float(LOG2E)
+    xf, dtf, dyf = (pad(t, (b, sp, dp)) for t in (x, dt, dy))
+    af, bf, cf = pad(a, (dp, np_)), pad(b_t, (b, sp, np_)), pad(c_t, (b, sp, np_))
+    dsk = pad(d_skip, (dp,))
     carry = pad(dh_final, (b, dp, np_)) if dh_final is not None else torch.zeros(b, dp, np_)
-    ws_h = torch.full(plan.workspace_shapes()["ws_h"], float("nan"))
+    kept = pad(states, (b, plan.tiles, dp, np_))
     ws_bc = torch.full(plan.workspace_shapes()["ws_bc"], float("nan"))
     written = torch.zeros(ws_bc.shape, dtype=torch.int64)
     dx, ddt = torch.full((b, s, d), float("nan")), torch.full((b, s, d), float("nan"))
@@ -393,51 +444,55 @@ def _walk_bwd(plan, x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final, bounds):
     writers, slots = _slots(lanes, np_)
     a2u = a.float() * float(LOG2E)
     xu, dtu, bu = x.float(), dt.float(), b_t.float()
+    exps = [0]
 
     def step(h, t):
         """B15's step on the live channels and states (the same tensor
-        shapes as ``_chunk``'s, so torch rounds alike); padding stays 0."""
-        out = torch.zeros_like(h)
-        out[:, :d, :n] = (torch.exp2(dtu[:, t, :, None] * a2u) * h[:, :d, :n].contiguous()
-                          + (dtu[:, t] * xu[:, t])[:, :, None] * bu[:, t, None, :])
-        return out
+        shapes as ``_chunk``'s, so torch rounds alike) and its A_t; padding
+        and padded steps have A = 1 (exp2 of 0) and leave h unchanged."""
+        e = torch.ones(b, dp, np_)
+        out = h.clone()
+        exps[0] += e.numel()                                          # the kernel's ex2, one an element
+        if t < s:
+            e[:, :d, :n] = torch.exp2(dtu[:, t, :, None] * a2u)
+            out[:, :d, :n] = e[:, :d, :n] * h[:, :d, :n] + (dtu[:, t] * xu[:, t])[:, :, None] * bu[:, t, None, :]
+        return out, e
 
     h_last = None
-    for k in reversed(range(plan.chunks)):
-        t0, t1 = plan.steps(k)
-        h = pad(h0 if k == 0 else bounds[:, k - 1], (b, dp, np_))
-        tiles = -(-(t1 - t0) // BWD_TILE)
-        for i in range(tiles):                                        # pass 1
-            ws_h[:, i] = h[:, :d]
-            for t in range(t0 + i * BWD_TILE, min(t1, t0 + (i + 1) * BWD_TILE)):
-                h = step(h, t)
-        if k == plan.chunks - 1:
-            h_last = h[:, :d, :n]
-        for i in reversed(range(tiles)):                              # pass 2
-            tt = t0 + i * BWD_TILE
-            hs = [pad(ws_h[:, i], (b, dp, np_))]
-            for t in range(tt, min(t1, tt + BWD_TILE)):
-                hs.append(step(hs[-1], t))
-            for t in reversed(range(tt, min(t1, tt + BWD_TILE))):
-                j = t - tt
-                e = torch.exp2(dtf[:, t, :, None] * a2)
-                dh = dyf[:, t, :, None] * cf[:, t, None, :] + carry
-                dl = dh * hs[j] * e
-                gx, ga = (dh * bf[:, t, None, :]).sum(-1), (dl * af).sum(-1)
-                da_rows += dl * dtf[:, t, :, None]
-                db_v = (dh * (dtf[:, t] * xf[:, t])[..., None]).reshape(b, plan.warps, plan.channels, lanes, 4)
-                dc_v = (hs[j + 1] * dyf[:, t, :, None]).reshape(b, plan.warps, plan.channels, lanes, 4)
-                vals = torch.cat([db_v, dc_v], -1).reshape(b, plan.warps, 32, 8)   # lane = channel * lanes + q
-                r = _channel_sum(vals, lanes)
-                ws_bc[:, t, :, slots] = r[..., writers]
+    for i in reversed(range(plan.tiles)):
+        tt = i * BWD_TILE
+        hs, es = [kept[:, i]], []                                     # the states before each step, A_t
+        for t in range(tt, tt + BWD_TILE):                            # the replay: all 16 steps
+            h, e = step(hs[-1], t)
+            hs.append(h)
+            es.append(e)
+        if i == plan.tiles - 1:
+            h_last = hs[-1][:, :d, :n]
+        for t in reversed(range(tt, tt + BWD_TILE)):                  # the reverse walk: no exponential
+            j = t - tt
+            dh = dyf[:, t, :, None] * cf[:, t, None, :] + carry
+            dl = dh * hs[j] * es[j]
+            gx, ga = (dh * bf[:, t, None, :]).sum(-1), (dl * af).sum(-1)
+            da_rows += dl * dtf[:, t, :, None]
+            shape = (b, plan.blocks, warps, plan.channels, lanes, 4)
+            db_v = (dh * (dtf[:, t] * xf[:, t])[..., None]).reshape(shape)
+            dc_v = (hs[j + 1] * dyf[:, t, :, None]).reshape(shape)
+            vals = torch.cat([db_v, dc_v], -1).reshape(b, plan.blocks, warps, 32, 8)   # lane = channel * lanes + q
+            r = _channel_sum(vals, lanes)[..., writers]               # (b, blocks, warps, 2 * NP): a warp's sums
+            acc = torch.zeros(b, plan.blocks, len(writers))
+            for w in range(warps):                                    # the block's sum, in warp order
+                acc = acc + r[:, :, w]
+            if t < s:
+                ws_bc[:, t, :, slots] = acc
                 written[:, t, :, slots] += 1
                 ddt[:, t] = (gx * xf[:, t] + ga)[:, :d]
                 dx[:, t] = (gx * dtf[:, t] + dsk * dyf[:, t])[:, :d]
-                dd_rows += dyf[:, t] * xf[:, t]
-                carry = e * dh
+            dd_rows += dyf[:, t] * xf[:, t]
+            carry = es[j] * dh
     db, dc = ws_bc[..., :n].sum(2), ws_bc[..., np_:np_ + n].sum(2)
     grads = (dx, ddt, da_rows[:, :d, :n].sum(0), db, dc, dd_rows[:, :d].sum(0), carry[:, :d, :n])
-    return grads, h_last, written, (carry[:, :, n:], da_rows[:, :, n:], ws_bc[..., n:np_], ws_bc[..., np_ + n:])
+    padded = (carry[:, :, n:], da_rows[:, :, n:], ws_bc[..., n:np_], ws_bc[..., np_ + n:])
+    return grads, h_last, written, exps[0], padded
 
 
 def _bwd_inputs(b, s, d, n, dtype, seed, dh_random=True):
@@ -451,11 +506,10 @@ def _bwd_inputs(b, s, d, n, dtype, seed, dh_random=True):
 def _run_bwd(shape, dtype, dh_random=True):
     b, s, d, n, chunk = shape
     arrays, ts, dy, dhf = _bwd_inputs(b, s, d, n, dtype, b * s + d + n, dh_random)
-    fwd, plan = _bwd_plan(b, s, d, n, chunk)
-    slots = []
-    _, h_fwd = _walk(fwd, *ts, bounds=slots)
-    bounds = torch.stack(slots, 1) if plan.chunks > 1 else None
-    return arrays, ts, dy, dhf, plan, h_fwd, _walk_bwd(plan, *ts, dy, dhf, bounds)
+    keep = {}
+    _, h_fwd = _walk(sc.keep_form(_plan(b, s, d, n, chunk)), *ts, keep=keep)
+    plan = plan_scan_bwd(b, s, d, n)
+    return arrays, ts, dy, dhf, plan, h_fwd, _walk_bwd(plan, *ts[:6], dy, dhf, _kept_states(keep, b, s, d, n))
 
 
 NAMES = ("dx", "ddt", "da", "db", "dc", "dd_skip", "dh0")
@@ -464,9 +518,11 @@ NAMES = ("dx", "ddt", "da", "db", "dc", "dd_skip", "dh0")
 @pytest.mark.parametrize("shape", BWD_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_bwd_walk_matches_plain_twin_and_replays_the_forward(shape, dtype):
-    _, ts, dy, dhf, plan, h_fwd, (grads, h_last, written, padded) = _run_bwd(shape, dtype, shape[0] != 4)
+    _, ts, dy, dhf, plan, h_fwd, (grads, h_last, written, exps, padded) = _run_bwd(shape, dtype, shape[0] != 4)
     assert torch.equal(h_last, h_fwd)                 # the replay is the forward walk's, bit for bit
-    assert (written == 1).all() and written.shape == (plan.batch, plan.seq, plan.warps, 2 * plan.states)
+    assert (written == 1).all() and written.shape == (plan.batch, plan.seq, plan.blocks, 2 * plan.states)
+    # one exponential an element: the replay's, for every lane's 4 states of every step of every tile
+    assert exps == plan.batch * plan.tiles * BWD_TILE * plan.blocks * BWD_CHANNELS * plan.states
     for t in padded:                                  # states past N: exact zeros, never written
         assert not t.any()
     want = sc.ssm_scan_bwd_plain(*ts, dy, dhf)
@@ -477,8 +533,7 @@ def test_bwd_walk_matches_plain_twin_and_replays_the_forward(shape, dtype):
 
 @pytest.mark.parametrize("shape", [BWD_SHAPES[i] for i in (0, 2, 3, 7, 9, 12, 13)], ids=str)
 def test_bwd_walk_matches_jax_custom_vjp(shape):
-    arrays, ts, dy, dhf, plan, _, (grads, _, _, _) = _run_bwd(shape, torch.float32)
-    b, s, d, n, _ = shape
+    arrays, ts, dy, dhf, plan, _, (grads, _, _, _, _) = _run_bwd(shape, torch.float32)
 
     def loss(*args):
         y, h = jssm.selective_scan(*args, 64)
