@@ -202,9 +202,49 @@ Phases, each of which raises on failure (the script then exits non-zero):
    CPU. 9d: the linear LM (vocab 49152, d 32), 4 Adam steps and one SNR
    measurement; full-width gpt_medium (354,599,936 parameters), 2 Table-3
    SlimAdam steps.
-10. One ``{"kernels": [...]}`` line (all 16 kernels: the 15 TPU kernels'
+10. Serving the MoE family: ``paged_attention`` (B14) against its plain
+   twin at olmoe_1b_7b's geometry (16 heads of 128 over 16 KV groups, one
+   query head a group; pages of 16): a decode batch of 8 ragged rows and
+   128-token prefill chunks at pos0 0 and 384, f32 and bf16 queries over a
+   bf16 pool, each twice bit for bit, timed as in phase 4. Then
+   full-width, full-depth olmoe_1b_7b (16 layers of attention and a 64-expert
+   top-8 MoE, 6,919,096,320 parameters, 27.7 GB of f32 weights drawn on the
+   card from a seed, bf16 activations) through the paged engine: 8
+   requests of 64-512 prompt tokens and 32 greedy tokens each over 8 slots;
+   B14 launches 16 times a decode step and prefill chunk and no other
+   kernel runs; TTFT, TPOT, the decode step's and a prefill chunk's host
+   time and device profile (busy share, B14's ms), the MoE layer's device
+   time by stage (router, sort, dispatch, the weights' casts, the experts'
+   bmm, combine) at both shapes; the first prefill chunk's logits through
+   B14 against the plain twin, and how many of the engine's greedy tokens
+   the plain twin's path gives too (reported, not required); reduced f32
+   olmoe_1b_7b served on the card against the CPU, token for token.
+11. Training the MoE family: full-width olmoe_1b_7b cut to 2 of its 16
+   layers (1,045,178,368 parameters; depth is the only cut) on ZipfLM
+   batches of 2 x 2048, bf16 activations, remat, through the Trainer: the
+   first 2 losses with ``backend='jnp'``, then Adam (fused) for 4 steps
+   measuring SNR at step 4, whose first 2 losses must match (1e-4), the
+   rules ``derive_slim_rules`` gives the expert leaves beside Table 3's,
+   Table-3 SlimAdam for 4 steps; launches counted (B2/B1 per the plan's
+   groups, B5 on the candidates), the routing choices the expert capacity
+   (640) drops per layer and step (the backward's recompute must drop the
+   same), finite and falling losses, peak memory split as in 7g,
+   second-moment bytes and savings, step times in turns; one fused update
+   of each optimizer against 'jnp' from the same state and gradients
+   (1e-5) and one SNR measurement of Adam's second moments through B5
+   against 'jnp' (the expert leaves' candidates 1e-4, the derived rules
+   equal); each step's device profile (busy share, the megaplan kernels'
+   share) and the MoE layers' share (one layer's forward and forward +
+   backward timed alone).
+12. ``python -m repro_torch.examples.diy_slim``'s ``run`` on the card with
+   ``backend='fused'`` (reduced jamba: Mamba and attention mixers, dense and
+   MoE FFNs; B15 and its backward once a Mamba layer a step, B1, B2, B5):
+   the first 5 probe losses against the twin's probe with 'jnp' on the CPU
+   (1e-3), the SNR table, derived rules and savings reported.
+13. One ``{"kernels": [...]}`` line (all 16 kernels: the 15 TPU kernels'
    ports and the selective scan's backward, B1 and B2 with their flags on
-   rows of their own; B1, B2 and B5 count phase 9's launches too), the
+   rows of their own; B1, B2 and B5 count phases 9, 11 and 12's launches
+   too, B14 phase 10's, B15 and the backward phase 12's), the
    ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -2990,6 +3030,564 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
     return report, launched
 
 
+# -- the mixture-of-experts and hybrid families (phases 10-12) -------------------------
+
+# Phase 10 geometry: olmoe_1b_7b served at full width and depth, 8 slots, pages of 16.
+MOE_SC = dict(max_seq=576, page_size=16, max_slots=8, prefill_chunk=128)
+MOE_REQUESTS, MOE_NEW = 8, 32
+# Phase 11: olmoe_1b_7b at full width cut to 2 of its 16 layers, ZipfLM 2 x 2048.
+MOE_TRAIN_LAYERS, MOE_TRAIN_ROWS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 2, 2048, 4
+# Adam without warmup: at 1e-3 the first step moves the untied 2048-wide head's logits by several
+# units and the loss jumps (11.3 to 19.8 on an H100); 1e-4 is a quarter of OLMoE's peak rate.
+MOE_TRAIN_LR = 1e-4
+TOL_MOE_LOGITS = 5e-2    # full-width logits, kernel against plain attention: bf16 activations through 16 layers
+TOL_MOE_LOSS = 1e-4      # the first 2 training losses, fused backend against 'jnp' (one update apart)
+TOL_DIY_LOSS = 1e-3      # reduced f32 jamba's first DIY_HELD probe losses, card (fused) against CPU (jnp)
+DIY_HELD = 5
+
+
+def moe_stages(torch, timer, p, x, cfg) -> dict:
+    """Device time (``timer``) of each stage of one MoE layer's forward on
+    x: the f32 router and softmax, the top-k sort and renormalisation, the
+    routing cumsum and dispatch gather, the weights' casts to x's dtype,
+    the experts' three bmm with the gated SiLU, the combine; and the whole
+    layer as the decode steps run it (no aux loss)."""
+    from repro_torch.models import mlp_moe as mm
+
+    n, d = x.shape[0] * x.shape[1], x.shape[2]
+    e, k = cfg.n_experts, cfg.top_k
+    xf = x.reshape(n, d)
+    cap = mm.moe_capacity(n, cfg)
+    _, probs, gates, eidx = mm._router(xf, p["router"], k)
+    dp = mm._dispatch_group(xf, eidx, e, k, cap)
+    cast = {w: p[w].to(x.dtype) for w in ("w_up", "w_gate", "w_down")}
+    y = mm._expert_ffn_dense(cast, dp.xg, cfg, x.dtype)
+
+    stages = {
+        "router": lambda: torch.softmax(xf.float() @ p["router"].float(), dim=-1),
+        "sort": lambda: torch.sort(probs, dim=-1, descending=True, stable=True),
+        "dispatch": lambda: mm._dispatch_group(xf, eidx, e, k, cap),
+        "cast": lambda: [p[w].to(x.dtype) for w in ("w_up", "w_gate", "w_down")],
+        "bmm": lambda: mm._expert_ffn_dense(cast, dp.xg, cfg, x.dtype),
+        "combine": lambda: mm._combine(y, gates, dp),
+    }
+    out = {name: timer(fn, reps=5) for name, fn in stages.items()}
+    out["layer"] = timer(lambda: mm.moe_forward(p, x, cfg, with_aux=False), reps=5)
+    out.update(tokens=n, capacity=cap, dropped=int((~dp.keep).sum()))
+    return out
+
+
+def moe_serve_phase(torch, timer, rate: float, smi: str):
+    """Phase 10: full-width, full-depth olmoe_1b_7b through the paged
+    engine. Returns (report, launches of the counted run)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import Transformer
+    from repro_torch.models.transformer import PagedState, init_paged_pools, paged_decode_step, paged_prefill_chunk
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    report: dict = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cfg = get_config("olmoe_1b_7b")
+    page, c = MOE_SC["page_size"], MOE_SC["prefill_chunk"]
+    max_pages = -(-MOE_SC["max_seq"] // page)
+    kv, heads, hd = cfg.n_kv_heads, cfg.n_heads, cfg.hd
+
+    # -- 10a. B14 at olmoe's geometry: 16 heads of 128 over 16 KV groups ---------
+    log(f"[10a] paged_attention (B14) at olmoe_1b_7b's geometry ({heads} heads of {hd} over {kv} KV groups, pages of "
+        f"{page}, {max_pages}-page rows) against its plain twin, bound, SDPA; each case twice, bit for bit ({smi})")
+    rng = np.random.default_rng(5)
+    dec = rng.integers(65, MOE_SC["max_seq"] + 1, MOE_SC["max_slots"])
+    dec[0] = 0
+    cases = {"decode": dict(lengths=dec, alloc=dec, c=1),
+             "prefill_pos0_0": dict(lengths=[c], alloc=[c], c=c),
+             "prefill_pos0_384": dict(lengths=[384 + c], alloc=[384 + 100], c=c)}
+    held = {}
+    for case, kw in cases.items():
+        for q_dtype in (torch.float32, torch.bfloat16):
+            q, pool, table, lengths = paged_case(torch, gen, pool_dtype=torch.bfloat16, q_dtype=q_dtype, heads=heads,
+                                                 kv=kv, hd=hd, page=page, max_pages=max_pages, **kw)
+            args = (q, pool, table, lengths)
+            tag = f"olmoe {case} {str(q_dtype).split('.')[-1]} q bfloat16 pool"
+            got, again, want = pa.paged_attention(*args), pa.paged_attention(*args), pa.paged_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = check(tag, got.float(), want.float(), TOL_LINE if q_dtype == torch.float32 else TOL_BF16_OUT)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: two runs of the kernel differ")
+            if case == "decode" and got[0].any():
+                raise AssertionError("olmoe decode: the empty row's output is not exactly 0")
+            plan = pa.plan_of(*args)
+            ms = timer(lambda: pa.paged_attention(*args), reps=20)
+            plain_ms = timer(lambda: pa.paged_attention_plain(*args), reps=5)
+            lib_ms = timer(sdpa_call(torch, *args), reps=20)
+            bound, by = paged_bound(*args, rate)
+            log(f"  {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  SDPA "
+                f"{lib_ms:.4f} ms  two runs bit-equal; form {plan.form}, {plan.blocks} blocks, {plan.pieces} pieces")
+            held[tag] = dict(case=case, q=str(q_dtype), err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=by, library_ms=lib_ms, plan=dataclasses.asdict(plan))
+            del q, pool, table, lengths, args, got, again, want
+    report["paged_attention"] = held
+
+    # -- 10b. the serving main path ---------------------------------------------
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev, gen=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.params.values())
+    if n_params != 6_919_096_320 or n_params != cfg.param_count():
+        raise AssertionError(f"olmoe_1b_7b has {n_params} parameters, expected 6919096320")
+    params = model.params
+    log(f"[10b] serving: full-width full-depth olmoe_1b_7b ({n_params} parameters, "
+        f"{n_params * 4 / 1e9:.1f} GB f32 drawn on the card in {init_s:.1f} s), bf16 activations, {MOE_REQUESTS} "
+        f"requests x {MOE_NEW} greedy tokens, {MOE_SC} ({smi})")
+    eng = Engine(cfg, params, ServeConfig(**MOE_SC))
+    del model
+    prompt_lens = rng.integers(64, 513, MOE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32) for n in prompt_lens]
+    rids = [eng.submit(Request(prompt=p, max_new_tokens=MOE_NEW)) for p in prompts]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    m = eng.metrics()
+    log(f"  drained in {wall:.2f} s: {m.tokens_out} tokens, {m.decode_steps} decode steps, {m.prefill_chunks} "
+        f"prefill chunks, mean TTFT {m.ttft_mean_s * 1e3:.1f} ms, mean TPOT {m.tpot_mean_s * 1e3:.2f} ms, launches "
+        f"{ {k: v for k, v in counts.items() if v} } ({smi})")
+    bad = [c_ for c_ in done.values() if c_.finish_reason != "length" or len(c_.tokens) != MOE_NEW]
+    if len(done) != MOE_REQUESTS or bad or m.used_pages != 0:
+        raise AssertionError(f"olmoe serving: {len(done)} completions, unfinished {[c_.id for c_ in bad]}, "
+                             f"{m.used_pages} pages left")
+    want_launches = cfg.n_layers * (m.decode_steps + m.prefill_chunks)
+    if counts["paged_attention"] != want_launches or sum(counts.values()) != want_launches:
+        raise AssertionError(f"olmoe launches {counts}, expected paged_attention {want_launches} and no other kernel")
+    tokens = {i: done[r].tokens.tolist() for i, r in enumerate(rids)}
+    run = dict(wall_s=wall, init_s=init_s, metrics=m.to_dict(), launches=counts, prompt_lens=prompt_lens.tolist())
+
+    # Decode-step and prefill-chunk times outside the counted run: 8 rows
+    # mid-generation in a pool of their own; a device profile of each; the
+    # MoE layer's stages at the decode and prefill shapes.
+    tl = [int(n) + MOE_NEW // 2 for n in prompt_lens]
+    table, n_pages = page_table(torch, [n + 1 for n in tl], page, max_pages)
+    pools = init_paged_pools(cfg, n_pages, page, torch.bfloat16, dev)
+    state = PagedState(pools=pools, table=table, lengths=torch.tensor(tl, dtype=torch.int32, device=dev),
+                       active=torch.ones(len(tl), dtype=torch.bool, device=dev))
+    step_tokens = torch.randint(0, cfg.vocab_size, (len(tl), 1), device=dev)
+    chunk = torch.randint(0, cfg.vocab_size, (1, c), device=dev)
+
+    def decode():
+        paged_decode_step(cfg, params, state, step_tokens)
+
+    def prefill():
+        paged_prefill_chunk(cfg, params, pools, table[:1], 256, c, chunk)
+
+    decode()
+    decode_ms = host_ms(torch, decode, 10)
+    prefill()
+    prefill_ms = host_ms(torch, prefill, 5)
+    log(f"  decode step ({len(tl)} rows of {min(tl)}..{max(tl)} positions) {decode_ms:.3f} ms on the host = "
+        f"{len(tl) / decode_ms * 1e3:.1f} tokens/s; prefill chunk ({c} tokens at pos0 256) {prefill_ms:.3f} ms")
+    run.update(decode_step_ms=decode_ms, prefill_chunk_ms=prefill_ms,
+               decode_profile=profile_device(torch, decode, 3, decode_ms, "decode step"),
+               prefill_profile=profile_device(torch, prefill, 2, prefill_ms, "prefill chunk"))
+    for what in ("decode", "prefill"):
+        prof = run[f"{what}_profile"]
+        b14 = sum(t for key, t in prof["kernels"] if "paged_" in key)
+        run[f"{what}_b14_ms"] = b14
+        log(f"  {what}: device busy {prof['busy_ms'] / prof['wall_ms']:.1%}; B14 {b14:.4f} ms of "
+            f"{prof['busy_ms']:.3f} ms device time")
+    p0 = {k.rsplit(".", 1)[1]: v[0] for k, v in params.items() if k.startswith("blocks.slot_0.moe.")}
+    moe_cfg = cfg.moe_cfg()
+    for what, n_tok in (("decode", len(tl)), ("prefill", c)):
+        x = torch.randn((1, n_tok, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+        st = moe_stages(torch, timer, p0, x, moe_cfg)
+        busy = run[f"{what}_profile"]["busy_ms"]
+        run[f"{what}_moe_stages"] = st
+        log(f"  MoE layer at the {what} shape ({n_tok} tokens, capacity {st['capacity']}): "
+            + ", ".join(f"{k} {st[k]:.4f}" for k in ("router", "sort", "dispatch", "cast", "bmm", "combine"))
+            + f" ms; the layer {st['layer']:.4f} ms x {cfg.n_layers} layers = {st['layer'] * cfg.n_layers:.3f} ms "
+            f"({st['layer'] * cfg.n_layers / busy:.1%} of the {what}'s {busy:.3f} ms device time; L2 flushed)")
+        del x
+    del pools, state
+
+    # The kernel path against the plain path from the same state: the first
+    # prefill chunk's logits, then greedy tokens of the whole run.
+    log(f"[10c] logits of the first prefill chunk through B14 against the plain twin, tolerance "
+        f"{TOL_MOE_LOGITS:.0e} of max|logit|; greedy tokens through the plain twin against the engine's")
+    table, n_pages = page_table(torch, [int(n) + MOE_NEW for n in prompt_lens], page, max_pages)
+    pools_k = init_paged_pools(cfg, n_pages, page, torch.bfloat16, dev)
+    pools_p = {k: v.clone() for k, v in pools_k.items()}
+    first = torch.from_numpy(prompts[0][:c][None].copy()).to(dev)
+    lk, _, _ = paged_prefill_chunk(cfg, params, pools_k, table[:1], 0, c, first)
+    lp, _, _ = paged_prefill_chunk(cfg, params, pools_p, table[:1], 0, c, first, attn_impl="plain")
+    prefill_rel = check("olmoe first prefill chunk logits", lk.float(), lp.float(), TOL_MOE_LOGITS) \
+        / float(lp.float().abs().max())
+    del pools_k, lk, lp
+    plain_tokens = greedy_paged(torch, cfg, params, prompts, table, pools_p, c, MOE_NEW, "plain")
+    agree = [next((j for j, (a, b) in enumerate(zip(tokens[i], plain_tokens[i])) if a != b), MOE_NEW)
+             for i in range(MOE_REQUESTS)]
+    same = sum(int(a == b) for i in range(MOE_REQUESTS) for a, b in zip(tokens[i], plain_tokens[i]))
+    log(f"  first chunk logits rel {prefill_rel:.3e}; greedy tokens through the plain twin equal the engine's at "
+        f"{same} of {MOE_REQUESTS * MOE_NEW} positions; agreeing prefixes {agree} of {MOE_NEW} (reported, not "
+        f"required: a near tie in the router may flip an expert)")
+    report["serving"] = dict(run, prefill_logits_rel=prefill_rel, tokens=tokens, plain_tokens=plain_tokens,
+                             tokens_equal=same, agreeing_prefixes=agree)
+    del pools_p, eng, params
+    torch.cuda.empty_cache()
+
+    # A small input against a reference: reduced f32 olmoe served on the card
+    # (through B14) and on the CPU (plain twin), greedy.
+    rcfg = get_reduced("olmoe_1b_7b")
+    rparams = Transformer(rcfg, device="cpu", gen=torch.Generator().manual_seed(0)).params
+    rprompts = [rng.integers(0, rcfg.vocab_size, n, dtype=np.int32) for n in rng.integers(5, 25, 6)]
+    toks = {}
+    for device in ("cuda", "cpu"):
+        e = Engine(rcfg, rparams, ServeConfig(max_seq=64, page_size=8, max_slots=4, prefill_chunk=8), device=device)
+        rids = [e.submit(Request(prompt=p, max_new_tokens=16)) for p in rprompts]
+        d = e.run_until_drained()
+        toks[device] = [d[r].tokens.tolist() for r in rids]
+    if toks["cuda"] != toks["cpu"]:
+        raise AssertionError(f"reduced olmoe: card and CPU tokens differ: {toks}")
+    log(f"  reduced f32 olmoe_1b_7b: 6 requests x 16 tokens identical on the card and the CPU "
+        f"(first {toks['cuda'][0][:8]})")
+    report["reduced_card_vs_cpu_tokens"] = toks["cuda"]
+    return report, counts
+
+
+def greedy_paged(torch, cfg, params, prompts, table, pools, c: int, n_new: int, attn_impl: str) -> dict:
+    """Greedy tokens of every prompt through the paged steps: each prompt
+    prefilled chunk by chunk into its own table row, then all rows decoded
+    together."""
+    import numpy as np
+
+    from repro_torch.models.transformer import PagedState, paged_decode_step, paged_prefill_chunk
+
+    dev = table.device
+    first = []
+    for row, p in enumerate(prompts):
+        for lo in range(0, len(p), c):
+            buf = np.zeros((1, c), np.int32)
+            n_valid = min(c, len(p) - lo)
+            buf[0, :n_valid] = p[lo:lo + n_valid]
+            logits, _, _ = paged_prefill_chunk(cfg, params, pools, table[row:row + 1], lo, n_valid,
+                                               torch.from_numpy(buf).to(dev), attn_impl=attn_impl)
+        first.append(int(logits[0, n_valid - 1].float().argmax()))
+    out = {i: [t] for i, t in enumerate(first)}
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    active = torch.ones(len(prompts), dtype=torch.bool, device=dev)
+    tokens = torch.tensor(first, device=dev)[:, None]
+    for _ in range(n_new - 1):
+        logits, _, st = paged_decode_step(cfg, params, PagedState(pools, table, lengths, active), tokens,
+                                          attn_impl=attn_impl)
+        lengths, tokens = st.lengths, logits[:, -1].float().argmax(-1)[:, None]
+        for i, t in enumerate(tokens[:, 0].tolist()):
+            out[i].append(t)
+    return out
+
+
+def moe_train_phase(torch, timer, rate: float, smi: str):
+    """Phase 11: full-width olmoe_1b_7b cut to MOE_TRAIN_LAYERS layers
+    trained through the Trainer: Adam measuring SNR, then Table-3
+    SlimAdam; the first losses against the 'jnp' backend, one update of
+    each and one SNR measurement against 'jnp' from the same state.
+    Returns (report, launches summed over the counted runs)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import derive_rules, measure_tree_snr, rules_to_dims, second_moment_savings, table3_rules
+    from repro_torch.core.slim_adam import scale_by_slim_adam
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.kernels import megaplan, snr_stats
+    from repro_torch.kernels.ops import canon_apply, canon_nd
+    from repro_torch.models import forward, mlp_moe
+    from repro_torch.optim.adam import scale_by_adam
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.loss import lm_loss
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import make_optimizer
+
+    report: dict = {}
+    dev = torch.device("cuda")
+    cut = dataclasses.replace(get_config("olmoe_1b_7b"), n_layers=MOE_TRAIN_LAYERS)
+    data = ZipfLM(DataConfig(vocab_size=cut.vocab_size, seq_len=MOE_TRAIN_SEQ, global_batch=MOE_TRAIN_ROWS, seed=0))
+    n_tok = MOE_TRAIN_ROWS * MOE_TRAIN_SEQ
+    log(f"[11] full-width olmoe_1b_7b cut to {MOE_TRAIN_LAYERS} layers, batch {MOE_TRAIN_ROWS} x {MOE_TRAIN_SEQ}, "
+        f"bf16 activations, remat, lr {MOE_TRAIN_LR}, expert capacity {mlp_moe.moe_capacity(n_tok, cut.moe_cfg())} "
+        f"of {n_tok} tokens x top-{cut.top_k} over {cut.n_experts} experts ({smi})")
+
+    runs, trainers, total = {}, {}, {}
+    for optimizer in ("adam", "slim"):
+        tc = TrainerConfig(total_steps=MOE_TRAIN_STEPS, log_every=1, backend="fused", seed=0,
+                           measure_snr=optimizer == "adam", snr_early_every=MOE_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cut, optimizer, MOE_TRAIN_LR, data, tc)
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in tr.params.values())
+        if n_params != 1_045_178_368:
+            raise AssertionError(f"the {MOE_TRAIN_LAYERS}-layer cut has {n_params} parameters, expected 1045178368")
+        rules = {} if optimizer == "adam" else table3_rules(tr.meta)
+        dims = rules_to_dims(rules, tr.meta)
+        leaves = list(tr.params.values())
+        plan = megaplan.plan_megagroups([tuple(p.shape) for p in leaves], [p.dtype for p in leaves],
+                                        [dims[k] for k in tr.params])
+        dense = sum(g.kind == "dense" for g in plan.groups)
+        cands = sum(len(m.candidate_ks()) for m in tr.meta.values())
+        expect = {"mega_adam_update": dense * MOE_TRAIN_STEPS,
+                  "mega_slim_update_batched": (len(plan.groups) - dense) * MOE_TRAIN_STEPS,
+                  "snr_stats_centered_batched": cands if optimizer == "adam" else 0,
+                  "paged_attention": 0}
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
+        if optimizer == "adam":
+            # The first 2 losses of the same trainer's model through the plain 'jnp'
+            # backend, for the fused run to hold; then the initial weights back.
+            start = {k: p.detach().clone() for k, p in tr.params.items()}
+            tx = make_optimizer("adam", MOE_TRAIN_LR, tr.params, tr.meta, backend="jnp")
+            step, state, jnp_losses = make_train_step(tr.model, tx), tx.init(tr.params), []
+            for k in range(2):
+                state, metrics = step(state, tr.batch(k))
+                jnp_losses.append(float(metrics["loss"]))
+            tr.model.load_params(start)
+            del start, tx, step, state, metrics
+            torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        step_peaks, wall, drops = [], 0.0, []
+        for k in range(1, MOE_TRAIN_STEPS + 1):   # a step at a time, for each step's peak and drops
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with mlp_moe.count_drops() as dropped:
+                tr.run(k)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            step_peaks.append(torch.cuda.max_memory_allocated())
+            # remat: the forward and the backward's recompute route the same tokens alike
+            d = [int(x) for x in dropped]
+            if len(d) != 2 * MOE_TRAIN_LAYERS or d[:MOE_TRAIN_LAYERS] != d[MOE_TRAIN_LAYERS:][::-1]:
+                raise AssertionError(f"{optimizer} step {k}: dropped choices {d} (forward, then the recompute)")
+            drops.append(d[:MOE_TRAIN_LAYERS])
+        counts = kernels.launch_counts()
+        losses = [m["loss"] for m in tr.metrics_log]
+        peak = (max(init_peak, *step_peaks) - base) / 2**30
+        for name, want in expect.items():
+            if counts[name] != want:
+                raise AssertionError(f"olmoe {optimizer}: {name} launched {counts[name]} times, expected {want}")
+        others = {k: v for k, v in counts.items() if v and k not in expect}
+        if others:
+            raise AssertionError(f"olmoe {optimizer}: unexpected launches {others}")
+        if len(losses) != MOE_TRAIN_STEPS or not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"olmoe {optimizer}: losses {losses} not finite or not falling")
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+        inner = tr.opt_state.inner_states[1]
+        nu_bytes = sum(t.numel() * t.element_size() for t in inner.nu.values())
+        sav = second_moment_savings(tr.params, tr.meta, rules)
+        log(f"  {optimizer}: {n_params} parameters (init {init_s:.1f} s), {MOE_TRAIN_STEPS} steps in {wall:.2f} s, "
+            f"losses {[round(x, 4) for x in losses]}, routing choices dropped per layer and step {drops} of "
+            f"{n_tok * cut.top_k}, launches { {k: v for k, v in counts.items() if v} }, peak memory {peak:.2f} GiB, "
+            f"second moments {nu_bytes / 2**30:.4f} GiB ({sav['saved_fraction']:.4%} saved; {len(plan.groups)} "
+            f"megaplan groups: {[(g.kind, g.batch, g.rows, g.cols) for g in plan.groups]})")
+        mem = step_memory(torch, tr, forward, lm_loss, base)
+        mem["step_peaks_gib"] = [(p - base) / 2**30 for p in step_peaks]
+        log(f"  {optimizer} memory (GiB over the start): each step's peak "
+            f"{[round(x, 2) for x in mem['step_peaks_gib']]}; at rest {mem['rest_gib']:.2f} (parameters "
+            f"{mem['params_gib']:.2f}, optimizer state {mem['state_gib']:.2f}); one plain step by hand: forward and "
+            f"backward +{mem['grad_peak_gib']:.2f} over rest, gradients held {mem['grads_gib']:.2f}, the update "
+            f"+{mem['update_peak_gib']:.2f} over rest and gradients ({smi})")
+        runs[optimizer] = dict(losses=losses, wall_s=wall, init_s=init_s, launches=counts, peak_gib=peak, memory=mem,
+                               nu_bytes=nu_bytes, savings=sav, drops=drops,
+                               groups=[(g.kind, g.batch, g.rows, g.cols, g.axis) for g in plan.groups])
+        if optimizer == "adam":
+            err = max(abs(a - b) / abs(b) for a, b in zip(losses[:2], jnp_losses))
+            log(f"  the first 2 losses {losses[:2]} against backend='jnp' {jnp_losses}: worst relative difference "
+                f"{err:.3e}  tol {TOL_MOE_LOSS:.0e}")
+            if not err <= TOL_MOE_LOSS:
+                raise AssertionError(f"olmoe: fused and jnp losses differ by {err:.3e}")
+            runs["fused_vs_jnp_losses"] = dict(fused=losses[:2], jnp=jnp_losses, worst_rel=err)
+            if tr.snr.steps != [MOE_TRAIN_STEPS]:
+                raise AssertionError(f"SNR measured at steps {tr.snr.steps}, expected [{MOE_TRAIN_STEPS}]")
+            derived = {k: (list(v) if v else None) for k, v in tr.derive_slim_rules().items()}
+            t3 = {k: (list(v) if v else None) for k, v in table3_rules(tr.meta).items()}
+            for label, r in (("derived from Adam's SNR", derived), ("Table 3", t3)):
+                log(f"  rules {label} for the expert leaves: { {k: v for k, v in r.items() if '.moe.' in k} }")
+            runs["derived_rules"] = derived
+            tr.tc.measure_snr = False
+        trainers[optimizer] = tr
+    # step times in turns (a s s a ...), then where one step's device time goes
+    med, raw = in_turns(torch, {f"{o}_step_ms": (lambda t=t: t.run(t.step + 1)) for o, t in trainers.items()},
+                        rounds=2)
+    log(f"  step time, in turns: Adam {med['adam_step_ms']:.2f} ms, SlimAdam {med['slim_step_ms']:.2f} ms = "
+        f"{n_tok / med['slim_step_ms'] * 1e3:.0f} tokens/s ({smi})")
+    runs["timing"] = dict(med, raw=raw)
+    # One fused update of each optimizer against the plain 'jnp' backend from the same
+    # state and gradients (B2, and B1 on the groups that hold the expert leaves), and one
+    # SNR measurement of Adam's second moments (B5 on every candidate, the experts' too).
+    tr = trainers["adam"]
+    loss, _ = lm_loss(cut, tr.params, tr.batch(100), forward)
+    grads = dict(zip(tr.params, torch.autograd.grad(loss, list(tr.params.values()))))
+    del loss
+    t3_dims = rules_to_dims(table3_rules(tr.meta), tr.meta)
+    step_check = {}
+    for label, make in (("adam", lambda b: scale_by_adam(b2=0.95, backend=b)),
+                        ("slim", lambda b: scale_by_slim_adam(t3_dims, backend=b))):
+        state = trainers[label].opt_state.inner_states[1]
+        worst = {}
+        with torch.no_grad():
+            fused = make("fused").update(grads, state)
+            fused = {"u": fused[0], "m": fused[1].mu, "v": fused[1].nu}
+            plain = make("jnp").update(grads, state)
+            plain = {"u": plain[0], "m": plain[1].mu, "v": plain[1].nu}
+        for what in ("u", "m", "v"):
+            worst[what] = max(max_err(fused[what][k], plain[what][k])[1] for k in fused[what])
+        del fused, plain
+        torch.cuda.empty_cache()
+        log(f"  {label}: one fused update against 'jnp' from the same state and gradients: worst relative error "
+            f"u {worst['u']:.3e}  m {worst['m']:.3e}  v {worst['v']:.3e}  tol {TOL_STEP:.0e}")
+        if max(worst.values()) > TOL_STEP:
+            raise AssertionError(f"olmoe {label} fused vs jnp: {worst} above {TOL_STEP:.0e}")
+        step_check[label] = worst
+    del grads
+    nu = tr.opt_state.inner_states[1].nu
+    snr = {b: {n: {k: float(v) for k, v in ks.items()} for n, ks in measure_tree_snr(nu, tr.meta, backend=b).items()}
+           for b in ("fused", "jnp")}
+    rel = sorted(((abs(snr["fused"][n][k] - v) / max(abs(v), 1e-30), n, k, snr["fused"][n][k], v)
+                  for n, ks in snr["jnp"].items() for k, v in ks.items()), reverse=True)
+    expert = [r for r in rel if ".moe." in r[1]]
+    snr_err = expert[0][0]
+    rules = {b: derive_rules(snr[b], tr.meta) for b in snr}
+    # B5 shifts each line by its first entry; where that entry is far from the line's
+    # mean (the vocabulary lines through token 0, ZipfLM's most frequent), the variance
+    # it forms from f32 sums cancels (PERF.md §7): those are reported, not held.
+    log(f"  SNR of Adam's second moments, B5 against 'jnp': {len(expert)} candidates on expert leaves, worst "
+        f"relative difference {snr_err:.3e}  tol {TOL_SNR:.0e}; all {len(rel)} candidates' worst: "
+        + "; ".join(f"{n} {k} fused {a:.6e} jnp {b:.6e}" for _, n, k, a, b in rel[:3])
+        + f"; derived rules equal: {rules['fused'] == rules['jnp']}")
+    if not snr_err <= TOL_SNR or rules["fused"] != rules["jnp"]:
+        raise AssertionError(f"olmoe SNR fused vs jnp: expert candidates {snr_err:.3e}, rules equal "
+                             f"{rules['fused'] == rules['jnp']}")
+    n_cands = len(rel)
+    # B5's three sums against its plain twin (the same shift, f64 sums) on every candidate's
+    # view of the same second moments, the 103 M embedding and head lines included.
+    sums_err = 0.0
+    for name, v in nu.items():
+        for label, axes in tr.meta[name].candidate_ks().items():
+            cn = canon_nd(tuple(v.shape), tr.meta[name].dims_of(axes))
+            v3 = canon_apply(v.float(), cn).contiguous()
+            v3 = v3 if v3.ndim == 3 else v3[None]
+            got = snr_stats.snr_stats_centered_batched(v3, axis=cn.axis)
+            want = snr_stats.snr_stats_centered_batched_plain(v3, axis=cn.axis)
+            tag = f"B5 sums {name} {label} {tuple(v3.shape)} axis {cn.axis}"
+            sums_err = max(sums_err, *(max_err(a, w)[1] for a, w in zip(got, want)))
+            if v3.shape[2 if cn.axis == 1 else 1] > 10**8:
+                for s_name, a, w in zip(("s1", "s1c", "s2c"), got, want):
+                    check(f"{tag} {s_name}", a, w, TOL_LINE)
+            del v3, got, want
+    log(f"  B5's sums (s1, s1c, s2c) against the plain twin on all {n_cands} candidates: worst relative error "
+        f"{sums_err:.3e}  tol {TOL_LINE:.0e}")
+    if not sums_err <= TOL_LINE:
+        raise AssertionError(f"olmoe B5 sums against the plain twin: {sums_err:.3e} above {TOL_LINE:.0e}")
+    runs["fused_vs_jnp"] = dict(step_check, snr_expert_worst_rel=snr_err, snr_candidates=n_cands,
+                                snr_worst=[r[1:] for r in rel[:3]], b5_sums_worst_rel=sums_err)
+    for o, t in trainers.items():
+        prof = profile_device(torch, lambda t=t: t.run(t.step + 1), 1, med[f"{o}_step_ms"], f"{o} step")
+        mega = sum(v for k, v in prof["kernels"] if "mega_adam" in k or "slim_" in k)
+        log(f"  {o}: device busy {prof['busy_ms'] / med[f'{o}_step_ms']:.1%} of the step; the megaplan's kernels "
+            f"{mega:.3f} ms ({mega / prof['busy_ms']:.1%}) of {prof['busy_ms']:.3f} ms device time")
+        runs[f"{o}_profile"] = dict(prof, megaplan_ms=mega)
+    # The MoE layers' device time in a step: one layer's forward and its
+    # forward + backward alone, at the step's shape (remat runs the forward twice).
+    tr = trainers["adam"]
+    moe_cfg = cut.moe_cfg()
+    p0 = {k.rsplit(".", 1)[1]: v[0].detach().clone().requires_grad_(True) for k, v in tr.params.items()
+          if k.startswith("blocks.slot_0.moe.")}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((MOE_TRAIN_ROWS, MOE_TRAIN_SEQ, cut.d_model), generator=gen, device=dev).to(cut.dtype)
+    x.requires_grad_(True)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(cut.dtype)
+
+    def fwd():
+        with torch.no_grad():
+            mlp_moe.moe_forward(p0, x, moe_cfg)
+
+    def fwd_bwd():
+        y, aux = mlp_moe.moe_forward(p0, x, moe_cfg)
+        torch.autograd.grad((y, aux), [x] + list(p0.values()), (dy, torch.ones_like(aux)))
+
+    f_ms, fb_ms = timer(fwd, reps=5), timer(fwd_bwd, reps=5)
+    moe_ms = MOE_TRAIN_LAYERS * (f_ms + fb_ms)
+    stages = moe_stages(torch, timer, {k: v.detach() for k, v in p0.items()}, x.detach(), moe_cfg)
+    busy = runs["adam_profile"]["busy_ms"]
+    log(f"  MoE layer at the step's shape: forward {f_ms:.3f} ms, forward + backward {fb_ms:.3f} ms; a step's "
+        f"{MOE_TRAIN_LAYERS} layers under remat {moe_ms:.3f} ms = {moe_ms / busy:.1%} of Adam's {busy:.3f} ms device "
+        f"time; forward stages " + ", ".join(f"{k} {stages[k]:.4f}" for k in ("router", "sort", "dispatch", "cast",
+                                                                               "bmm", "combine")) + " ms")
+    runs["moe"] = dict(forward_ms=f_ms, forward_backward_ms=fb_ms, step_ms=moe_ms, share=moe_ms / busy,
+                       stages=stages)
+    report["train"] = runs
+    del trainers, tr, inner, p0, x, dy
+    torch.cuda.empty_cache()
+    return report, total
+
+
+def diy_phase(torch, smi: str):
+    """Phase 12: the ``repro_torch.examples.diy_slim`` twin on reduced
+    jamba (its hybrid period: Mamba and attention mixers, dense and MoE
+    FFNs) with ``backend='fused'`` on the card, its probe's first
+    DIY_HELD losses against the twin's probe run that far with 'jnp' on the
+    CPU (the trainers draw the same weights from a CPU generator on either
+    device). Returns (report, launches)."""
+    import contextlib
+    import io
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_reduced
+    from repro_torch.examples import diy_slim
+
+    cfg = get_reduced("jamba_v01_52b")
+    log(f"[12] examples/diy_slim.py's twin on reduced jamba_v01_52b "
+        f"({[(s.mixer, s.ffn) for s in cfg.pattern]}), backend='fused' on the card against 'jnp' on the CPU ({smi})")
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = diy_slim.run("fused", "cuda", log_every=1)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = diy_slim.run("jnp", "cpu", probe_steps=DIY_HELD, slim_steps=1, snr_every=DIY_HELD, log_every=1)
+    lines = text.strip().splitlines()
+    log(f"  the twin's run on the card: {wall:.1f} s; {lines[-2]}; {lines[-1]}; its SNR table begins:\n"
+        + "\n".join("    " + line for line in lines[1:6]) + "\n    ...")
+    probe = [m["loss"] for m in out["probe"].metrics_log]
+    held = [m["loss"] for m in cpu["probe"].metrics_log]
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_periods
+    steps = len(out["probe"].metrics_log) + len(out["slim"].metrics_log)
+    scans = n_mamba * steps    # reduced jamba trains without remat: one forward scan and one backward a layer a step
+    never = [k for k in ("mega_adam_update", "mega_slim_update_batched", "snr_stats_centered_batched") if counts[k] < 1]
+    if never or counts["ssm_scan"] != scans or counts["ssm_scan_bwd"] != scans:
+        raise AssertionError(f"diy_slim on the card: launches {counts}; {never} never launched, B15 and ssm_scan_bwd "
+                             f"expected {scans} each")
+    err = max(abs(a - b) / abs(b) for a, b in zip(probe[:DIY_HELD], held))
+    final = out["final"]["loss"]
+    log(f"  launches { {k: v for k, v in counts.items() if v} }; probe losses card {probe[:DIY_HELD]} cpu {held}: "
+        f"worst relative difference {err:.3e} tol {TOL_DIY_LOSS:.0e}; the probe's last {probe[-1]:.4f}, SlimAdam's "
+        f"last {final:.4f}")
+    if not err <= TOL_DIY_LOSS or not all(map(math.isfinite, probe + [final])) or not probe[-1] < probe[0]:
+        raise AssertionError(f"diy_slim: card losses {probe} against the CPU's {held}")
+    return dict(launches=counts, wall_s=wall, probe_losses=probe, cpu_losses=held, final_loss=final,
+                rules={k: list(v) if v else None for k, v in out["rules"].items()}, savings=out["savings"],
+                text=text), counts
+
+
 def main() -> int:
     import torch
 
@@ -3357,10 +3955,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["baselines"], baseline_launches = baselines_phase(torch, smi, cfg, meta, data, lr, rules, plan_for,
                                                               hold_plan, held, group_key)
+    torch.cuda.empty_cache()
+    report["moe_serve"], moe_serve_launches = moe_serve_phase(torch, timer, rate, smi)
+    report["moe_train"], moe_train_launches = moe_train_phase(torch, timer, rate, smi)
+    report["diy_slim"], diy_launches = diy_phase(torch, smi)
     del timer
     torch.cuda.empty_cache()
 
-    # -- 10. result lines -----------------------------------------------------
+    # -- 13. result lines -----------------------------------------------------
     # Times per step of the main path: B2 on Adam's one dense group, B1 summed
     # over the Table-3 plan's three slim groups, B5 over one SNR measurement.
     # Errors are the worst over every group phases 3 and 9 launched on, and
@@ -3440,6 +4042,13 @@ def main() -> int:
                       sum(sharded[r]["mega_slim_finalize_batched"] for r in grouped_runs)),
     ]
     line["kernels"] += param_entries + [ssm_entry, ssm_bwd_entry]
+    # Phases 10-12 launch B14 (olmoe serving), B1, B2, B5 (olmoe training,
+    # diy_slim), B15 and the scan's backward (diy_slim), none with a flag.
+    for e in line["kernels"]:
+        e["launches"] += sum(c.get(e["name"], 0) for c in (moe_serve_launches, moe_train_launches, diy_launches))
+    olmoe = report["moe_serve"]["paged_attention"]
+    paged_entry["max_abs_err"] = max(paged_entry["max_abs_err"], *(h["err"] for h in olmoe.values()))
+    paged_entry["olmoe_decode_ms"] = olmoe["olmoe decode bfloat16 q bfloat16 pool"]["ms"]
     if len(line["kernels"]) != len(kernels.KERNELS) + 2 or min(e["launches"] for e in line["kernels"]) < 1:
         raise AssertionError(f"kernels line: {len(line['kernels'])} entries (B1 and B2 with their flags as "
                              f"separate rows), launches {[e['launches'] for e in line['kernels']]}")
@@ -3449,7 +4058,7 @@ def main() -> int:
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
-    log(f"[10] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
+    log(f"[13] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

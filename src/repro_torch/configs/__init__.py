@@ -6,7 +6,8 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-ARCH_IDS = ("gpt_small", "gpt_medium", "smollm_135m", "falcon_mamba_7b")
+ARCH_IDS = ("gpt_small", "gpt_medium", "smollm_135m", "falcon_mamba_7b", "olmoe_1b_7b", "qwen3_moe_30b_a3b",
+            "jamba_v01_52b")
 
 
 def _module(arch: str):

@@ -1,10 +1,32 @@
-"""Dense MLP block (port of the dense part of ``repro/models/mlp_moe.py``;
-MoE is not ported yet)."""
+"""Dense MLP blocks and the top-k mixture of experts (port of
+``repro/models/mlp_moe.py``) on one device.
+
+The MoE routes like the JAX layer, bit for bit in its integer parts: an f32
+router and softmax, the top k with the lower expert index first on ties (as
+``lax.top_k``; ``torch.topk`` promises no order on ties, so the port takes
+the first k of a stable descending sort), gates renormalised, then a
+cumsum over the token-major ``(n * k,)`` choices that gives each choice its
+slot in its expert's ``capacity`` slots; a choice whose slot reaches the
+capacity is dropped. The experts run batched (``torch.bmm`` over the expert
+dim, weights cast to the activation dtype at use), and the combine gathers
+each token's k expert rows in choice order and sums them, where the JAX
+layer scatter-adds: no atomics, so a token's output, and under remat its
+recompute, is the same on every run. No step waits for the device (no
+boolean-mask indexing), so the host runs ahead of the card. Expert parallelism on a mesh is not
+ported: under a sharding context whose mesh has more than one device,
+:func:`moe_forward` raises.
+"""
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..sharding.logical import current as current_sharding
 from .common import ParamSpec
 
 
@@ -32,3 +54,184 @@ def mlp_forward(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
     else:
         h = gelu(h)
     return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_model: int
+    d_ff: int
+    gated: bool = True
+    capacity_factor: float = 1.25
+    router_z_coef: float = 1e-3
+    aux_coef: float = 1e-2
+
+
+def moe_specs(cfg: MoEConfig, *, w_init, down_init):
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    specs = {
+        "router": ParamSpec((d, e), ("embed", "experts"), "moe_router", w_init),
+        "w_up": ParamSpec((e, d, f), ("experts", "embed", "mlp"), "mlp_up", w_init,
+                          fan_in=("embed",), fan_out=("mlp",)),
+        "w_down": ParamSpec((e, f, d), ("experts", "mlp", "embed"), "mlp_down", down_init,
+                            fan_in=("mlp",), fan_out=("embed",)),
+    }
+    if cfg.gated:
+        specs["w_gate"] = ParamSpec((e, d, f), ("experts", "embed", "mlp"), "mlp_gate", w_init,
+                                    fan_in=("embed",), fan_out=("mlp",))
+    return specs
+
+
+def moe_capacity(n: int, cfg: MoEConfig) -> int:
+    """Slots per expert for ``n`` routed tokens: ``capacity_factor`` times
+    the mean demand ``n * k / E``, rounded half to even as the JAX layer
+    rounds on the host; dropless (``n`` slots) when ``n * k <= 16 * E``, so
+    decode steps and small chunks never drop a choice."""
+    e, k = cfg.n_experts, cfg.top_k
+    capacity = int(max(1, round(n * k / e * cfg.capacity_factor)))
+    if n * k <= 16 * e:
+        capacity = min(n, max(capacity, n))
+    return capacity
+
+
+def _expert_ffn_dense(p, xg: torch.Tensor, cfg: MoEConfig, dtype) -> torch.Tensor:
+    """The experts' FFN batched over the expert dim. xg: (E, C, d) -> (E, C, d)."""
+    h = torch.bmm(xg, p["w_up"].to(dtype))
+    if cfg.gated:
+        h = F.silu(torch.bmm(xg, p["w_gate"].to(dtype))) * h
+    else:
+        h = gelu(h)
+    return torch.bmm(h, p["w_down"].to(dtype))
+
+
+class _MoveRows(torch.autograd.Function):
+    """``out[i] = src[index[i]]`` where ``mask[i]``, else 0. Its gradient
+    goes back through the inverse map: ``dsrc[r]`` is the sum, over the
+    ``group`` consecutive entries of ``back`` that belong to row r, of
+    ``dout[back[g]]`` where ``back_mask[g]``. Both ways are gathers, so the
+    backward needs no atomics and no sort of duplicate indices (a gather's
+    own backward accumulates every empty slot's zero into row 0)."""
+
+    @staticmethod
+    def forward(ctx, src, index, mask, back, back_mask, group: int):
+        ctx.save_for_backward(back, back_mask)
+        ctx.group = group
+        return torch.where(mask[:, None], src[index], 0)
+
+    @staticmethod
+    def backward(ctx, dout):
+        back, back_mask = ctx.saved_tensors
+        g = torch.where(back_mask[:, None], dout[back], 0)
+        if ctx.group > 1:
+            g = g.reshape(-1, ctx.group, g.shape[-1]).sum(dim=1)
+        return g, None, None, None, None, None
+
+
+class Dispatch(NamedTuple):
+    """One group's routing as flat maps between the ``n * k`` token-major
+    choices and the ``E * capacity`` slots, with the rows it gathered. The
+    two maps are inverse bijections between the kept choices and the filled
+    slots."""
+    xg: torch.Tensor        # (E, C, d): the row each slot holds, 0 for an empty slot
+    slot: torch.Tensor      # (n * k,): each choice's slot, 0 for a dropped choice
+    keep: torch.Tensor      # (n * k,): the choice found a slot
+    choice: torch.Tensor    # (E * C,): each slot's choice, 0 for an empty slot
+    valid: torch.Tensor     # (E * C,): the slot is filled
+
+
+def _dispatch_group(xf: torch.Tensor, eidx: torch.Tensor, e: int, k: int, capacity: int) -> Dispatch:
+    """Token dispatch for one group, as the JAX function orders it. xf:
+    (n, d); eidx: (n, k). A choice's position among its expert's slots is
+    how many earlier token-major choices picked the same expert (a cumsum
+    along each expert's row of the transposed one-hot, over contiguous
+    memory); a choice whose position reaches ``capacity`` is dropped."""
+    flat_e = eidx.reshape(-1)
+    nk, dev = flat_e.shape[0], flat_e.device
+    hits = flat_e[None, :] == torch.arange(e, device=dev)[:, None]                  # (E, n * k)
+    my_pos = torch.cumsum(hits, dim=1, dtype=torch.int32).gather(0, flat_e[None, :])[0] - 1
+    keep = my_pos < capacity
+    slot = flat_e * capacity + my_pos
+    # A dropped choice writes a spare last entry, cut off after: no boolean
+    # mask, so nothing waits for the device.
+    dispatch = torch.full((e * capacity + 1,), nk, dtype=torch.int64, device=dev)
+    dispatch[torch.where(keep, slot, e * capacity)] = torch.arange(nk, device=dev)
+    valid = dispatch[:-1] != nk
+    slot, choice = torch.where(keep, slot, 0), torch.where(valid, dispatch[:-1], 0)
+    xg = _MoveRows.apply(xf, choice // k, valid, slot, keep, k).reshape(e, capacity, -1)
+    return Dispatch(xg, slot, keep, choice, valid)
+
+
+def _combine(y: torch.Tensor, gates: torch.Tensor, dp: Dispatch) -> torch.Tensor:
+    """y: (E, C, d) expert outputs; gates: (n, k) -> (n, d): each token's k
+    rows ``y[e_j, slot_j]`` in choice order, 0 for a dropped choice, times
+    the gate cast to y's dtype, summed. Every filled slot is read by exactly
+    one choice."""
+    n, k = gates.shape
+    rows = _MoveRows.apply(y.reshape(-1, y.shape[-1]), dp.slot, dp.keep, dp.choice, dp.valid, 1)
+    return (rows.reshape(n, k, -1) * gates.to(y.dtype)[..., None]).sum(dim=1)
+
+
+def _router(xf: torch.Tensor, router: torch.Tensor, k: int):
+    """(f32 logits (n, E), probs, renormalised gates (n, k), expert ids
+    (n, k)): the top k of the softmax, the lower expert index first among
+    equal probabilities, as ``lax.top_k`` orders them."""
+    logits = xf.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = top.values[:, :k], top.indices[:, :k]
+    return logits, probs, gates / gates.sum(dim=-1, keepdim=True), eidx
+
+
+_drop_log: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def count_drops() -> Iterator[List[torch.Tensor]]:
+    """Within the block, every :func:`moe_forward` call appends to the
+    yielded list the number of routing choices it dropped (a 0-d int64
+    device tensor, read by the caller when it likes). A remat recompute
+    routes again and appends again."""
+    global _drop_log
+    prev, _drop_log = _drop_log, []
+    try:
+        yield _drop_log
+    finally:
+        _drop_log = prev
+
+
+def moe_forward(p, x: torch.Tensor, cfg: MoEConfig, *,
+                with_aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x: (B, S, D) -> (out (B, S, D) in x's dtype, f32 aux loss): the
+    load-balance loss ``aux_coef * E * sum(density * density_proxy)`` with
+    density from each token's top-1 choice, plus the router z-loss.
+    ``with_aux=False`` (the decode steps, which drop it) returns None for
+    the aux loss and skips its work."""
+    ctx = current_sharding()
+    if ctx is not None and math.prod(int(s) for s in ctx.mesh.shape.values()) > 1:
+        raise NotImplementedError("expert parallelism on a mesh is not ported; moe_forward runs on one device")
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    n = b * s
+    xf = x.reshape(n, d)
+
+    logits, probs, gates, eidx = _router(xf, p["router"], k)
+
+    aux_loss = None
+    if with_aux:
+        density = F.one_hot(eidx[:, 0], e).float().mean(dim=0)
+        density_proxy = probs.mean(dim=0)
+        aux = cfg.aux_coef * e * torch.sum(density * density_proxy)
+        zloss = cfg.router_z_coef * torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+        aux_loss = aux + zloss
+
+    dp = _dispatch_group(xf, eidx, e, k, moe_capacity(n, cfg))
+    if _drop_log is not None:
+        _drop_log.append((~dp.keep).sum())
+    y = _expert_ffn_dense(p, dp.xg, cfg, x.dtype)
+    return _combine(y, gates, dp).reshape(b, s, d), aux_loss

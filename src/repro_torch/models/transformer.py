@@ -1,7 +1,10 @@
 """Decoder backbone (port of ``repro/models/transformer.py``: the training
 forward, the legacy decode step with its ``DecodeCache``, and the paged
-serving steps, for layer slots ``(attn, dense)`` (gpt_small, smollm_135m)
-and ``(mamba, None)`` (falcon_mamba_7b)).
+serving steps), for layer slots of an attention or Mamba mixer with a
+dense, MoE or no FFN: gpt_small and smollm_135m ``(attn, dense)``,
+falcon_mamba_7b ``(mamba, None)``, olmoe_1b_7b and qwen3_moe_30b_a3b
+``(attn, moe)``, and jamba_v01_52b's hybrid period of Mamba and attention
+mixers over dense and MoE FFNs.
 
 The parameter tree is JAX's, leaf for leaf: dotted names
 (``blocks.slot_0.attn.wq``), layers stacked along a leading ``layers`` axis
@@ -10,7 +13,8 @@ SlimAdam's rules, reduced-moment shapes, megaplan groups and savings all
 depend on that, so :class:`Transformer` holds one ``nn.Parameter`` per JAX
 leaf and the forward indexes layer ``l`` out of the stacked tensors.
 Activations run in ``cfg.dtype`` (bf16 at full size) with the f32
-parameters cast at use, as the JAX model does.
+parameters cast at use, as the JAX model does. The MoE layers' auxiliary
+losses are summed over the layers into the forward's second output.
 """
 from __future__ import annotations
 
@@ -42,17 +46,17 @@ from .common import (
     stack_specs,
     torch_default_init,
 )
-from .mlp_moe import mlp_forward, mlp_specs
+from .mlp_moe import MoEConfig, mlp_forward, mlp_specs, moe_forward, moe_specs
 from .ssm import SSMConfig, init_ssm_cache, ssm_decode, ssm_forward, ssm_specs
 
-# The layer slots ported so far: (mixer, ffn).
-PORTED_SLOTS = (("attn", "dense"), ("mamba", None))
+# The layer slots ported: (mixer, ffn). A slot without a mixer is not.
+PORTED_SLOTS = tuple((mixer, ffn) for mixer in ("attn", "mamba") for ffn in ("dense", "moe", None))
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSlot:
-    mixer: Optional[str]  # 'attn' | 'mamba' (ported) | None
-    ffn: Optional[str]    # 'dense' (ported) | 'moe' | None
+    mixer: Optional[str]  # 'attn' | 'mamba' | None (not ported)
+    ffn: Optional[str]    # 'dense' | 'moe' | None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +77,14 @@ class ModelConfig:
     norm: str = "rmsnorm"                # 'rmsnorm' | 'layernorm'
     gated_mlp: bool = True
     qkv_bias: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
     # SSM
     ssm_state: int = 16
     ssm_expand: int = 2
     ssm_conv: int = 4
+    ssm_chunk: int = 256                 # the JAX chunked scan's chunk; the scan kernels do not use it
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
@@ -102,6 +110,10 @@ class ModelConfig:
     def ssm_cfg(self) -> SSMConfig:
         return SSMConfig(d_model=self.d_model, d_inner=self.ssm_expand * self.d_model, d_state=self.ssm_state,
                          d_conv=self.ssm_conv)
+
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(n_experts=self.n_experts, top_k=self.top_k, d_model=self.d_model, d_ff=self.d_ff,
+                         gated=self.gated_mlp)
 
     def _inits(self):
         """(weights, residual-stream writers, embeddings) initializers of
@@ -138,6 +150,9 @@ class ModelConfig:
             specs["ffn_norm"] = self._norm_specs()
             specs["mlp"] = with_dtype(mlp_specs(self.d_model, self.d_ff, gated=self.gated_mlp, w_init=w_init,
                                                 down_init=resid_init))
+        elif slot.ffn == "moe":
+            specs["ffn_norm"] = self._norm_specs()
+            specs["moe"] = with_dtype(moe_specs(self.moe_cfg(), w_init=w_init, down_init=resid_init))
         return specs
 
     def specs(self) -> Dict[str, Any]:
@@ -208,15 +223,25 @@ def _unstack(tree, n: int):
     return out
 
 
+def _ffn(cfg: ModelConfig, slot: LayerSlot, p, x, with_aux: bool = True):
+    """The slot's FFN residual block: (x, the MoE's aux loss, or None
+    without an MoE or with ``with_aux=False``, as the decode steps ask)."""
+    if slot.ffn == "dense":
+        return x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp), None
+    if slot.ffn == "moe":
+        y, aux = moe_forward(p["moe"], _norm(cfg, p["ffn_norm"], x), cfg.moe_cfg(), with_aux=with_aux)
+        return x + y, aux
+    return x, None
+
+
 def _slot_forward(cfg: ModelConfig, slot: LayerSlot, p, x, ssm_impl: str = "kernel"):
-    """One layer slot: the mixer's residual block, then the FFN's."""
+    """One layer slot: the mixer's residual block, then the FFN's. Returns
+    (x, the MoE's f32 aux loss or None without one)."""
     if slot.mixer == "attn":
         x = x + attention_forward(p["attn"], _norm(cfg, p["mixer_norm"], x), cfg.attn_cfg())
     elif slot.mixer == "mamba":
         x = x + ssm_forward(p["ssm"], _norm(cfg, p["mixer_norm"], x), cfg.ssm_cfg(), impl=ssm_impl)
-    if slot.ffn == "dense":
-        x = x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp)
-    return x
+    return _ffn(cfg, slot, p, x)
 
 
 def _layers(cfg: ModelConfig, params: Dict[str, torch.Tensor]):
@@ -231,7 +256,8 @@ def _layers(cfg: ModelConfig, params: Dict[str, torch.Tensor]):
 def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], *,
             ssm_impl: str = "kernel"):
     """Training forward. batch: {'tokens': (B, S) int}. Returns (logits
-    (B, S, vocab) in cfg.dtype, aux loss 0) like the JAX forward.
+    (B, S, vocab) in cfg.dtype, the f32 aux loss summed over the layers)
+    like the JAX forward.
     ``ssm_impl="plain"`` runs the Mamba layers' scan through the kernel's
     plain twin, an explicit choice for comparisons."""
     tokens = batch["tokens"].long()
@@ -239,13 +265,15 @@ def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, 
     if cfg.pos == "learned":
         x = x + params["pos_embed"][: tokens.shape[1]][None].to(cfg.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, slot, p in _layers(cfg, params):
         if remat:
-            x = checkpoint(_slot_forward, cfg, slot, p, x, ssm_impl, use_reentrant=False)
+            x, a = checkpoint(_slot_forward, cfg, slot, p, x, ssm_impl, use_reentrant=False)
         else:
-            x = _slot_forward(cfg, slot, p, x, ssm_impl)
-    logits = _logits(cfg, params, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+            x, a = _slot_forward(cfg, slot, p, x, ssm_impl)
+        if a is not None:
+            aux = aux + a
+    return _logits(cfg, params, x), aux
 
 
 class Transformer(ParamModel):
@@ -310,8 +338,7 @@ def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor], cache: Decode
             for buf, new in zip(c, nc):
                 if new.data_ptr() != buf.data_ptr():
                     buf.copy_(new)
-        if slot.ffn == "dense":
-            x = x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp)
+        x, _ = _ffn(cfg, slot, p, x, with_aux=False)
     logits = _logits(cfg, params, x)
     return logits, DecodeCache(slots=cache.slots, step=cache.step + 1)
 
@@ -365,12 +392,11 @@ def _paged_stack(cfg: ModelConfig, params: Dict[str, torch.Tensor], pools: Dict[
                  attn_step):
     """x through every period and slot of the stack, periods outer as in the
     JAX scan: ``attn_step(p_attn, x_normed, layer_pool)`` for the mixer, then
-    the slot's MLP."""
+    the slot's FFN (dense or MoE)."""
     for period, i, slot, p in _layers(cfg, params):
         if slot.mixer == "attn":
             x = x + attn_step(p["attn"], _norm(cfg, p["mixer_norm"], x), pools[f"slot_{i}"][period])
-        if slot.ffn == "dense":
-            x = x + mlp_forward(p["mlp"], _norm(cfg, p["ffn_norm"], x), gated=cfg.gated_mlp)
+        x, _ = _ffn(cfg, slot, p, x, with_aux=False)
     return x
 
 

@@ -3,14 +3,16 @@
     PYTHONPATH=src python -m repro_torch.serve --arch smollm_135m --preset reduced --device cpu
     PYTHONPATH=src python -m repro_torch.serve --arch smollm_135m --preset full --requests 16
     PYTHONPATH=src python -m repro_torch.serve --arch falcon_mamba_7b --preset full --requests 4
+    PYTHONPATH=src python -m repro_torch.serve --arch olmoe_1b_7b --preset full --requests 8
 
 Serves random weights made from seed 0 (no pretrained weights ship with the
 repository) on prompts drawn from seed 1, and prints each completion and the
-engine's metrics. An attention model goes through the paged engine; an
-architecture outside the paged path (falcon_mamba_7b) through
-``Engine.generate``'s legacy loop, one batch of equal-length prompts. Runs
-on the GPU unless ``--device`` names another device; there the weights are
-drawn on the card (a full-size falcon_mamba_7b is 28 GB in f32).
+engine's metrics. An attention model (the MoE ones too) goes through the
+paged engine; an architecture outside the paged path (falcon_mamba_7b,
+jamba_v01_52b) through ``Engine.generate``'s legacy loop, one batch of
+equal-length prompts. Runs on the GPU unless ``--device`` names another
+device; there the weights are drawn on the card (a full-size
+falcon_mamba_7b is 28 GB in f32, olmoe_1b_7b 27.7 GB).
 """
 from __future__ import annotations
 

@@ -18,11 +18,13 @@ paged-attention kernel for CUDA tensors; a failing launch raises. The JAX
 engine's degradation ladder (rerunning a failed step through the dense
 reference) and its fault-injection hooks are not ported.
 
-Architectures outside the paged path (SSM mixers; int8 KV is not ported)
-serve through :meth:`Engine.generate`'s legacy loop: a batch of equal-length
-prompts, fed token by token through ``transformer.decode_step`` over dense
-per-row caches (the prefill too, as the JAX loop does), whose Mamba layers
-run the hand-written selective-scan kernel. ``ServeConfig(paged=False)``
+Architectures outside the paged path (SSM mixers, jamba's hybrid among
+them; int8 KV is not ported) serve through :meth:`Engine.generate`'s legacy
+loop: a batch of equal-length prompts, fed token by token through
+``transformer.decode_step`` over dense per-row caches (the prefill too, as
+the JAX loop does), whose Mamba layers run the hand-written selective-scan
+kernel. MoE FFN slots (olmoe_1b_7b, qwen3_moe_30b_a3b, jamba) run in both
+paths. ``ServeConfig(paged=False)``
 forces that loop on an attention model, the parity oracle of the paged
 path. The request API (``submit``) needs the paged path.
 

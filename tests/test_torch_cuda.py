@@ -22,7 +22,9 @@ backward kernel, whose replayed states equal the forward's bit for bit;
 both forms rerun bit for bit, as do the backward and
 the split walks of the line sums and of B1, B4, B7, B10 and B12. The line sums
 of g^2 on long heavy-tailed lines (B1's, B4's and B7's v', B12's partial
-sums) hold to an f64 reference at 1e-6.
+sums) hold to an f64 reference at 1e-6. The MoE layer (plain PyTorch on
+the card) runs twice bit for bit, forward and backward, and its bf16
+output holds to the f32 CPU layer at 3e-2 of max|y|.
 """
 import dataclasses
 import json
@@ -1053,6 +1055,73 @@ def test_paged_attention_rejects_unsupported_geometry(dev):
     with pytest.raises(TypeError):
         pa.paged_attention(q, pool, table.long(), lengths)
     assert pa.paged_attention.launches == before
+
+
+@pytest.mark.parametrize("kv,rep", [(16, 1), (4, 8)])
+@pytest.mark.parametrize("c", [1, 128])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_moe_geometry(dev, kv, rep, c, q_dtype):
+    """The MoE models' attention: olmoe_1b_7b's 16 heads of 128 over 16 KV
+    groups (one query head a group) and qwen3_moe_30b_a3b's 4 groups of 8
+    heads of 128 (its 32 heads), pages of 16 over a bf16 pool; two runs
+    bit-equal."""
+    q, pool, table, lengths = _paged_case(dev, c=c, kv=kv, rep=rep, hd=128, page=16, pool_dtype=torch.bfloat16,
+                                          q_dtype=q_dtype, max_pages=12)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, pool, table, lengths)
+    again = pa.paged_attention(q, pool, table, lengths)
+    want = pa.paged_attention_plain(q, pool, table, lengths)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 2
+    assert torch.equal(got, again)
+    _close(got, want, LINE_SUMS if q_dtype == torch.float32 else 2.0**-7)
+    if c == 1:
+        assert not got[2].any(), "an inactive row is exactly 0"
+
+
+# ---------------------------------------------------------------------------
+# The MoE layer on the card (plain PyTorch: bmm experts, a gather combine)
+# ---------------------------------------------------------------------------
+
+MOE_BF16 = 3e-2   # bf16 activations through three expert matmuls against the f32 CPU layer, of max|y|
+
+
+def _moe_case(seed=0, e=8, k=2, d=256, f=512, b=2, s=64, capacity_factor=1.25):
+    from repro_torch.models.mlp_moe import MoEConfig
+
+    gen = torch.Generator().manual_seed(seed)
+    p = {"router": torch.randn((d, e), generator=gen) / d**0.5,
+         "w_up": torch.randn((e, d, f), generator=gen) / d**0.5,
+         "w_gate": torch.randn((e, d, f), generator=gen) / d**0.5,
+         "w_down": torch.randn((e, f, d), generator=gen) / f**0.5}
+    x = torch.randn((b, s, d), generator=gen).to(torch.bfloat16)
+    return MoEConfig(n_experts=e, top_k=k, d_model=d, d_ff=f, capacity_factor=capacity_factor), p, x
+
+
+@pytest.mark.parametrize("s", [64, 1024])     # dropless (n*k <= 16 E), then half the capacity: drops
+def test_moe_forward_bf16_is_deterministic_and_near_f32(dev, s):
+    from repro_torch.models.mlp_moe import count_drops, moe_forward
+
+    cfg, p, x = _moe_case(s=s, capacity_factor=1.25 if s == 64 else 0.5)
+    want, want_aux = moe_forward(p, x.float(), cfg)
+    pd = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+    runs = []
+    for _ in range(2):
+        xd = x.to(dev).requires_grad_(True)
+        with count_drops() as drops:
+            y, aux = moe_forward(pd, xd, cfg)
+        (y.float().square().sum() + aux).backward()
+        runs.append((y.detach(), aux.detach(), xd.grad, [t.grad.clone() for t in pd.values()], int(drops[0])))
+        for t in pd.values():
+            t.grad = None
+    torch.cuda.synchronize()
+    (y, aux, gx, gp, dropped), again = runs
+    assert y.dtype == torch.bfloat16 and aux.dtype == torch.float32
+    assert torch.equal(y, again[0]) and torch.equal(aux, again[1]) and torch.equal(gx, again[2])
+    assert all(torch.equal(a, b) for a, b in zip(gp, again[3]))
+    assert (dropped > 0) == (s == 1024) and dropped == again[4]
+    _close(y.float().cpu(), want, MOE_BF16)
+    assert abs(float(aux) - float(want_aux)) <= 1e-3 * abs(float(want_aux))
 
 
 # ---------------------------------------------------------------------------
