@@ -241,11 +241,56 @@ Phases, each of which raises on failure (the script then exits non-zero):
    MoE FFNs; B15 and its backward once a Mamba layer a step, B1, B2, B5):
    the first 5 probe losses against the twin's probe with 'jnp' on the CPU
    (1e-3), the SNR table, derived rules and savings reported.
-13. One ``{"kernels": [...]}`` line (all 16 kernels: the 15 TPU kernels'
+13. Training the rest of the dense zoo through ``make_train_step`` (as
+   the JAX package trains these models), each on one fixed batch from a
+   seed, bf16 activations, remat, lr 1e-4. 13a: hubert_xlarge whole (48
+   layers, d 1280, 16 heads of 80, non-causal; 944,487,680 parameters) on
+   2 x 4096 frame embeddings with per-frame labels: the flash path forward
+   and backward in blocks of 1024; 3 Adam steps (B2), one SNR measurement
+   of its second moments (B5), ``derive_rules``, 3 SlimAdam steps with the
+   derived rules (B1/B2 per the plan's groups), 3 with Table 3's rules
+   (B1 on the compressed groups). 13b: vit_small whole (85,237,248
+   parameters) on 32 x 256 patches of 12 with per-patch labels (learned
+   positions, dense non-causal attention), the same sequence. 13c:
+   internvl2_26b at full width cut to 2 of 48 layers (1,917,462,528
+   parameters) on 256 frontend rows + 4096 ZipfLM tokens = 4352 positions
+   (causal flash in blocks of 544, GQA rep 6, the loss on the text
+   positions), 3 Table-3 SlimAdam steps. Launches counted per run against
+   the megaplan's groups, B1 at least once a model; finite losses,
+   falling over Adam's and the derived rules' runs (internvl: its one
+   run); after each run one update from its state on fresh gradients,
+   fused against ``make_optimizer(..., backend='jnp')`` (u, m', v' at
+   1e-5); after Adam, B5's three sums on every candidate against its
+   plain twin (1e-5); each run's host step times, peak memory, second
+   moments and savings, and one step's device profile. 13d: ``flash_attention`` forward and backward at
+   13a's and 13c's shapes beside one ``scaled_dot_product_attention``
+   call on the same tensors (a yardstick).
+14. Serving the rest of the dense zoo at full width, depth-cut (f32
+   weights of the whole models do not fit the card): B14 against its
+   plain twin at qwen15_32b's geometry (40 heads of 128 over 40 KV groups)
+   and at command_r_35b's and deepseek_67b's (64 heads of 128 over 8
+   groups), as in 10a; qwen15_32b at 4 layers (qkv biases; 3,659,637,760
+   parameters), command_r_35b at 2 (LayerNorm, a tied 256,000-row
+   embedding; 3,506,479,104) and deepseek_67b at 2 (3,061,882,880) through
+   the paged engine, 4 requests x 16 greedy tokens each (B14 once a layer a
+   step and chunk, no other kernel), TTFT, TPOT, a prefill chunk's host
+   and device time, the first chunk's logits against the plain twin
+   (5e-2). 14c: qwen15_32b's ``optimized()`` (int8 KV cache) at the same
+   cut through ``Engine.generate``'s legacy loop, then the same tokens
+   through ``decode_step``: in f32 activations the int8 cache's logits
+   against a plain f32 path over its stored rows dequantized (1e-5 of
+   max|logit|) and each stored row within half a scale step of its K/V;
+   in bf16 against a bf16 cache, max|dlogit| / max|logit| < 0.05 and
+   greedy agreement > 0.95 on the positions whose bf16 top-2 margin
+   exceeds that deviation (all positions' agreement reported); then the
+   JAX test's two bars (< 0.05, agreement > 0.95) on reduced f32
+   qwen15_32b against its forward on the card.
+15. One ``{"kernels": [...]}`` line (all 16 kernels: the 15 TPU kernels'
    ports and the selective scan's backward, B1 and B2 with their flags on
-   rows of their own; B1, B2 and B5 count phases 9, 11 and 12's launches
-   too, B14 phase 10's, B15 and the backward phase 12's), the
-   ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}`` line.
+   rows of their own; B1, B2 and B5 count phases 9, 11, 12 and 13's
+   launches too, B14 phases 10 and 14's, B15 and the backward phase 12's),
+   the ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}``
+   line.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so f32 matrix products are full f32.
@@ -3077,6 +3122,50 @@ def moe_stages(torch, timer, p, x, cfg) -> dict:
     return out
 
 
+B14_HELD: dict = {}   # every hold_b14 row of the run by tag; main reports it and takes the error's maximum once
+
+
+def hold_b14(torch, timer, rate: float, gen, rng, label: str, *, heads: int, kv: int, hd: int, sc: dict) -> None:
+    """B14 against its plain twin at one attention geometry: a decode batch
+    of ``sc['max_slots']`` ragged rows (row 0 empty) and prefill chunks of
+    ``sc['prefill_chunk']`` tokens at pos0 0 and 384 (100 valid), f32 and
+    bf16 queries over a bf16 pool, each run twice and compared bit for bit,
+    timed beside the bound and SDPA on K/V gathered dense. The rows go into
+    B14_HELD."""
+    from repro_torch.kernels import paged_attention as pa
+
+    page, c = sc["page_size"], sc["prefill_chunk"]
+    max_pages = -(-sc["max_seq"] // page)
+    dec = rng.integers(65, sc["max_seq"] + 1, sc["max_slots"])
+    dec[0] = 0
+    cases = {"decode": dict(lengths=dec, alloc=dec, c=1),
+             "prefill_pos0_0": dict(lengths=[c], alloc=[c], c=c),
+             "prefill_pos0_384": dict(lengths=[384 + c], alloc=[384 + 100], c=c)}
+    for case, kw in cases.items():
+        for q_dtype in (torch.float32, torch.bfloat16):
+            q, pool, table, lengths = paged_case(torch, gen, pool_dtype=torch.bfloat16, q_dtype=q_dtype, heads=heads,
+                                                 kv=kv, hd=hd, page=page, max_pages=max_pages, **kw)
+            args = (q, pool, table, lengths)
+            tag = f"{label} {case} {str(q_dtype).split('.')[-1]} q bfloat16 pool"
+            got, again, want = pa.paged_attention(*args), pa.paged_attention(*args), pa.paged_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = check(tag, got.float(), want.float(), TOL_LINE if q_dtype == torch.float32 else TOL_BF16_OUT)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: two runs of the kernel differ")
+            if case == "decode" and got[0].any():
+                raise AssertionError(f"{label} decode: the empty row's output is not exactly 0")
+            plan = pa.plan_of(*args)
+            ms = timer(lambda: pa.paged_attention(*args), reps=20)
+            plain_ms = timer(lambda: pa.paged_attention_plain(*args), reps=5)
+            lib_ms = timer(sdpa_call(torch, *args), reps=20)
+            bound, by = paged_bound(*args, rate)
+            log(f"  {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  SDPA "
+                f"{lib_ms:.4f} ms  two runs bit-equal; form {plan.form}, {plan.blocks} blocks, {plan.pieces} pieces")
+            B14_HELD[tag] = dict(case=case, q=str(q_dtype), err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by, library_ms=lib_ms, plan=dataclasses.asdict(plan))
+            del q, pool, table, lengths, args, got, again, want
+
+
 def moe_serve_phase(torch, timer, rate: float, smi: str):
     """Phase 10: full-width, full-depth olmoe_1b_7b through the paged
     engine. Returns (report, launches of the counted run)."""
@@ -3084,7 +3173,6 @@ def moe_serve_phase(torch, timer, rate: float, smi: str):
 
     from repro_torch import kernels
     from repro_torch.configs import get_config, get_reduced
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import Transformer
     from repro_torch.models.transformer import PagedState, init_paged_pools, paged_decode_step, paged_prefill_chunk
     from repro_torch.serve import Engine, Request, ServeConfig
@@ -3101,36 +3189,7 @@ def moe_serve_phase(torch, timer, rate: float, smi: str):
     log(f"[10a] paged_attention (B14) at olmoe_1b_7b's geometry ({heads} heads of {hd} over {kv} KV groups, pages of "
         f"{page}, {max_pages}-page rows) against its plain twin, bound, SDPA; each case twice, bit for bit ({smi})")
     rng = np.random.default_rng(5)
-    dec = rng.integers(65, MOE_SC["max_seq"] + 1, MOE_SC["max_slots"])
-    dec[0] = 0
-    cases = {"decode": dict(lengths=dec, alloc=dec, c=1),
-             "prefill_pos0_0": dict(lengths=[c], alloc=[c], c=c),
-             "prefill_pos0_384": dict(lengths=[384 + c], alloc=[384 + 100], c=c)}
-    held = {}
-    for case, kw in cases.items():
-        for q_dtype in (torch.float32, torch.bfloat16):
-            q, pool, table, lengths = paged_case(torch, gen, pool_dtype=torch.bfloat16, q_dtype=q_dtype, heads=heads,
-                                                 kv=kv, hd=hd, page=page, max_pages=max_pages, **kw)
-            args = (q, pool, table, lengths)
-            tag = f"olmoe {case} {str(q_dtype).split('.')[-1]} q bfloat16 pool"
-            got, again, want = pa.paged_attention(*args), pa.paged_attention(*args), pa.paged_attention_plain(*args)
-            torch.cuda.synchronize()
-            err = check(tag, got.float(), want.float(), TOL_LINE if q_dtype == torch.float32 else TOL_BF16_OUT)
-            if not torch.equal(got, again):
-                raise AssertionError(f"{tag}: two runs of the kernel differ")
-            if case == "decode" and got[0].any():
-                raise AssertionError("olmoe decode: the empty row's output is not exactly 0")
-            plan = pa.plan_of(*args)
-            ms = timer(lambda: pa.paged_attention(*args), reps=20)
-            plain_ms = timer(lambda: pa.paged_attention_plain(*args), reps=5)
-            lib_ms = timer(sdpa_call(torch, *args), reps=20)
-            bound, by = paged_bound(*args, rate)
-            log(f"  {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  SDPA "
-                f"{lib_ms:.4f} ms  two runs bit-equal; form {plan.form}, {plan.blocks} blocks, {plan.pieces} pieces")
-            held[tag] = dict(case=case, q=str(q_dtype), err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             bound_by=by, library_ms=lib_ms, plan=dataclasses.asdict(plan))
-            del q, pool, table, lengths, args, got, again, want
-    report["paged_attention"] = held
+    hold_b14(torch, timer, rate, gen, rng, "olmoe", heads=heads, kv=kv, hd=hd, sc=MOE_SC)
 
     # -- 10b. the serving main path ---------------------------------------------
     t0 = time.perf_counter()
@@ -3291,6 +3350,32 @@ def greedy_paged(torch, cfg, params, prompts, table, pools, c: int, n_new: int, 
     return out
 
 
+def hold_b5_sums(torch, nu: dict, meta: dict, label: str) -> tuple:
+    """B5's three sums (s1, s1c, s2c) against its plain twin (the same
+    shift, f64 sums) on every candidate's view of the second moments ``nu``,
+    held at TOL_LINE. Launches made here are comparisons, not the main
+    path's. Returns (worst relative error, candidates held)."""
+    from repro_torch.kernels import snr_stats
+    from repro_torch.kernels.ops import canon_apply, canon_nd
+
+    worst, n = 0.0, 0
+    for name, v in nu.items():
+        for axes in meta[name].candidate_ks().values():
+            cn = canon_nd(tuple(v.shape), meta[name].dims_of(axes))
+            v3 = canon_apply(v.float(), cn).contiguous()
+            v3 = v3 if v3.ndim == 3 else v3[None]
+            got = snr_stats.snr_stats_centered_batched(v3, axis=cn.axis)
+            want = snr_stats.snr_stats_centered_batched_plain(v3, axis=cn.axis)
+            worst = max(worst, *(max_err(a, w)[1] for a, w in zip(got, want)))
+            n += 1
+            del v3, got, want
+    log(f"  {label}: B5's sums (s1, s1c, s2c) against the plain twin on all {n} candidates: worst relative error "
+        f"{worst:.3e}  tol {TOL_LINE:.0e}")
+    if not worst <= TOL_LINE:
+        raise AssertionError(f"{label} B5 sums against the plain twin: {worst:.3e} above {TOL_LINE:.0e}")
+    return worst, n
+
+
 def moe_train_phase(torch, timer, rate: float, smi: str):
     """Phase 11: full-width olmoe_1b_7b cut to MOE_TRAIN_LAYERS layers
     trained through the Trainer: Adam measuring SNR, then Table-3
@@ -3302,8 +3387,7 @@ def moe_train_phase(torch, timer, rate: float, smi: str):
     from repro_torch.core import derive_rules, measure_tree_snr, rules_to_dims, second_moment_savings, table3_rules
     from repro_torch.core.slim_adam import scale_by_slim_adam
     from repro_torch.data import DataConfig, ZipfLM
-    from repro_torch.kernels import megaplan, snr_stats
-    from repro_torch.kernels.ops import canon_apply, canon_nd
+    from repro_torch.kernels import megaplan
     from repro_torch.models import forward, mlp_moe
     from repro_torch.optim.adam import scale_by_adam
     from repro_torch.train import Trainer, TrainerConfig
@@ -3473,26 +3557,8 @@ def moe_train_phase(torch, timer, rate: float, smi: str):
         raise AssertionError(f"olmoe SNR fused vs jnp: expert candidates {snr_err:.3e}, rules equal "
                              f"{rules['fused'] == rules['jnp']}")
     n_cands = len(rel)
-    # B5's three sums against its plain twin (the same shift, f64 sums) on every candidate's
-    # view of the same second moments, the 103 M embedding and head lines included.
-    sums_err = 0.0
-    for name, v in nu.items():
-        for label, axes in tr.meta[name].candidate_ks().items():
-            cn = canon_nd(tuple(v.shape), tr.meta[name].dims_of(axes))
-            v3 = canon_apply(v.float(), cn).contiguous()
-            v3 = v3 if v3.ndim == 3 else v3[None]
-            got = snr_stats.snr_stats_centered_batched(v3, axis=cn.axis)
-            want = snr_stats.snr_stats_centered_batched_plain(v3, axis=cn.axis)
-            tag = f"B5 sums {name} {label} {tuple(v3.shape)} axis {cn.axis}"
-            sums_err = max(sums_err, *(max_err(a, w)[1] for a, w in zip(got, want)))
-            if v3.shape[2 if cn.axis == 1 else 1] > 10**8:
-                for s_name, a, w in zip(("s1", "s1c", "s2c"), got, want):
-                    check(f"{tag} {s_name}", a, w, TOL_LINE)
-            del v3, got, want
-    log(f"  B5's sums (s1, s1c, s2c) against the plain twin on all {n_cands} candidates: worst relative error "
-        f"{sums_err:.3e}  tol {TOL_LINE:.0e}")
-    if not sums_err <= TOL_LINE:
-        raise AssertionError(f"olmoe B5 sums against the plain twin: {sums_err:.3e} above {TOL_LINE:.0e}")
+    # B5's three sums on every candidate, the 103 M embedding and head lines included
+    sums_err, _ = hold_b5_sums(torch, nu, tr.meta, "olmoe")
     runs["fused_vs_jnp"] = dict(step_check, snr_expert_worst_rel=snr_err, snr_candidates=n_cands,
                                 snr_worst=[r[1:] for r in rel[:3]], b5_sums_worst_rel=sums_err)
     for o, t in trainers.items():
@@ -3586,6 +3652,500 @@ def diy_phase(torch, smi: str):
     return dict(launches=counts, wall_s=wall, probe_losses=probe, cpu_losses=held, final_loss=final,
                 rules={k: list(v) if v else None for k, v in out["rules"].items()}, savings=out["savings"],
                 text=text), counts
+
+
+# Phases 13-14: the rest of the dense zoo. 13 trains the two encoders whole
+# (hubert_xlarge, vit_small) and internvl2_26b cut to ZOO_VLM_LAYERS layers
+# through make_train_step, and times the flash path; 14 serves qwen15_32b,
+# command_r_35b and deepseek_67b at full width, depth-cut, through the paged
+# engine and qwen15_32b's int8 KV cache through the legacy loop.
+ZOO_STEPS = 3
+ZOO_LR = 1e-4
+ZOO_VLM_LAYERS = 2       # internvl2_26b: Adam's state at 2 layers would not fit; SlimAdam's does
+ZOO_SERVE = (("qwen15_32b", 4, 3_659_637_760), ("command_r_35b", 2, 3_506_479_104), ("deepseek_67b", 2, 3_061_882_880))
+ZOO_SC = dict(max_seq=576, page_size=16, max_slots=8, prefill_chunk=128)
+ZOO_REQUESTS, ZOO_NEW = 4, 16
+ZOO_INT8_ROWS, ZOO_INT8_PROMPT, ZOO_INT8_NEW = 2, 64, 16
+TOL_ZOO_LOGITS = 5e-2    # full-width logits, kernel against plain attention: bf16 activations, 2-4 layers
+INT8_REL, INT8_AGREE = 0.05, 0.95   # the JAX package's int8-cache bars (tests/test_arch_smoke.py)
+TOL_INT8_DEQUANT = 1e-5  # int8 decode against its stored rows dequantized in f32: f32 summation order
+INT8_ROUND = 0.5 + 1e-3  # a stored row within half a scale step of its K/V, plus f32 rounding
+
+
+def zoo_train(torch, cfg, batch: dict, smi: str, *, n_params: int, derive: bool) -> tuple:
+    """One model trained through ``make_train_step`` on one fixed batch:
+    with ``derive``, ZOO_STEPS Adam steps (fused), one SNR measurement of
+    its second moments through B5, ``derive_rules``, ZOO_STEPS SlimAdam
+    steps with the derived rules, then ZOO_STEPS with Table 3's, each from
+    the weights the last left; without, the Table-3 run alone. Launch
+    counters are zeroed before each run and read after; the megaplan's
+    groups say what each launches. After each run one update from its state
+    on fresh gradients, fused against ``make_optimizer(..., backend='jnp')``
+    (u, m', v' at TOL_STEP); after Adam's, B5's sums on every candidate
+    against its plain twin. The losses must fall over Adam's and the
+    derived rules' runs, or over the Table-3 run alone. Returns (report,
+    launches summed over the runs)."""
+    from repro_torch import kernels
+    from repro_torch.core import derive_rules, measure_tree_snr, rules_to_dims, second_moment_savings, table3_rules
+    from repro_torch.kernels import megaplan
+    from repro_torch.models import Transformer, forward
+    from repro_torch.train.loss import lm_loss
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import make_optimizer
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev, gen=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.params.values())
+    if n != n_params or n != cfg.param_count():
+        raise AssertionError(f"{cfg.name}: {n} parameters, expected {n_params}")
+    params, meta = model.params, model.meta
+    tokens = math.prod(batch["labels"].shape)
+    report = dict(params=n, init_s=init_s, tokens=tokens)
+    total: dict = {}
+    t3 = ("slim_table3", table3_rules(meta))
+    runs = (("adam", {}), ("slim_derived", None), t3) if derive else (t3,)
+    losses_all, derived = [], None
+    for name, rules in runs:
+        if rules is None:     # SlimAdam with the rules Adam's SNR derived
+            rules = derived
+        opt = "adam" if name == "adam" else "slim_snr"
+        tx = make_optimizer(opt, ZOO_LR, params, meta, backend="fused", rules=rules)
+        dims = rules_to_dims(rules, meta)
+        plan = megaplan.plan_megagroups([tuple(p.shape) for p in params.values()], [p.dtype for p in params.values()],
+                                        [dims[k] for k in params])
+        dense = sum(g.kind == "dense" for g in plan.groups)
+        cands = sum(len(m.candidate_ks()) for m in meta.values())
+        expect = {"mega_adam_update": dense * ZOO_STEPS,
+                  "mega_slim_update_batched": (len(plan.groups) - dense) * ZOO_STEPS,
+                  "snr_stats_centered_batched": cands if name == "adam" else 0}
+        step, state = make_train_step(model, tx), tx.init(params)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        losses, host, peaks = [], [], []
+        for _ in range(ZOO_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+        inner = state.inner_states[1]
+        if name == "adam":
+            t0 = time.perf_counter()
+            snr = measure_tree_snr(inner.nu, meta, backend="fused")
+            snr = {k: {lab: float(x) for lab, x in v.items()} for k, v in snr.items()}
+            report["snr_measure_ms"] = (time.perf_counter() - t0) * 1e3
+            report["snr"] = snr
+            derived = derive_rules(snr, meta)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for k, want in expect.items():
+            if counts[k] != want:
+                raise AssertionError(f"{cfg.name} {name}: {k} launched {counts[k]} times, expected {want}")
+        others = {k: v for k, v in counts.items() if v and k not in expect}
+        if others:
+            raise AssertionError(f"{cfg.name} {name}: unexpected launches {others}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{cfg.name} {name}: losses {losses}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if name != "slim_table3" or not derive:
+            # the losses must fall over Adam's run and the derived rules' (from Adam's weights), or
+            # over the Table-3 run alone; a Table-3 run after those restarts the moments and is
+            # held by its update against 'jnp' below
+            losses_all += losses
+        nu_bytes = sum(t.numel() * t.element_size() for t in inner.nu.values())
+        sav = second_moment_savings(params, meta, rules)
+        busy = ""
+        if name == runs[0][0]:    # one step's device profile a model (hubert's takes ~17 s on the host)
+            t0 = time.perf_counter()
+            report["profile"] = prof = profile_device(torch, lambda: step(state, batch), 1,
+                                                      statistics.median(host[1:]), f"{cfg.name} {name} step")
+            prof["profile_s"] = time.perf_counter() - t0
+            busy = (f"; device busy {prof['busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+                    f"({prof['busy_ms'] / prof['wall_ms']:.1%}; the profile took {prof['profile_s']:.1f} s)")
+        log(f"  {cfg.name} {name}: steps {[round(x, 1) for x in host]} ms on the host ({tokens} tokens a step), "
+            f"losses {[round(x, 4) for x in losses]}, launches { {k: v for k, v in counts.items() if v} }, peak "
+            f"{max(peaks):.2f} GiB over the start, second moments {nu_bytes / 2**30:.4f} GiB "
+            f"({sav['saved_fraction']:.4%} saved; {len(plan.groups)} megaplan groups, {dense} dense){busy} ({smi})")
+        # one update from this run's state on fresh gradients: fused (B2, B1) against 'jnp'
+        loss, _ = lm_loss(cfg, params, batch, forward)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        del loss
+        worst = {}
+        with torch.no_grad():
+            got = {}
+            for backend in ("fused", "jnp"):
+                txb = tx if backend == "fused" else make_optimizer(opt, ZOO_LR, params, meta, backend="jnp",
+                                                                   rules=rules)
+                u, new = txb.update(grads, state, params)
+                got[backend] = {"u": u, "m": new.inner_states[1].mu, "v": new.inner_states[1].nu}
+                del u, new, txb
+            for what in ("u", "m", "v"):
+                worst[what] = max(max_err(got["fused"][what][k], got["jnp"][what][k])[1] for k in params)
+        del got, grads
+        torch.cuda.empty_cache()
+        log(f"  {cfg.name} {name}: one update from this state, fused against backend='jnp' on the same gradients: "
+            f"worst relative error u {worst['u']:.3e}  m {worst['m']:.3e}  v {worst['v']:.3e}  tol {TOL_STEP:.0e}")
+        if max(worst.values()) > TOL_STEP:
+            raise AssertionError(f"{cfg.name} {name} fused vs jnp: {worst} above {TOL_STEP:.0e}")
+        report[name] = dict(losses=losses, host_ms=host, peak_gib=max(peaks), launches=counts, nu_bytes=nu_bytes,
+                            savings=sav, groups=[(g.kind, g.batch, g.rows, g.cols, g.axis) for g in plan.groups],
+                            rules={k: list(v) if v else None for k, v in rules.items()}, fused_vs_jnp=worst)
+        if name == "adam":
+            report["b5_sums_worst_rel"], report["b5_candidates"] = hold_b5_sums(torch, inner.nu, meta, cfg.name)
+        del tx, step, state, inner
+        torch.cuda.empty_cache()
+    if not losses_all[-1] < losses_all[0]:
+        raise AssertionError(f"{cfg.name}: losses {losses_all} do not fall on a repeated batch")
+    if total.get("mega_slim_update_batched", 0) < 1:
+        raise AssertionError(f"{cfg.name}: SlimAdam never launched mega_slim_update_batched")
+    if derive:
+        report["derived_rules"] = {k: list(v) for k, v in derived.items() if v}
+        log(f"  {cfg.name}: rules derived from Adam's SNR after {ZOO_STEPS} steps: {report['derived_rules']}; "
+            f"SNR measurement {report['snr_measure_ms']:.1f} ms on the host")
+    del model, params
+    torch.cuda.empty_cache()
+    return report, total
+
+
+def flash_timings(torch, timer, smi: str) -> dict:
+    """``flash_attention``'s forward and backward at hubert_xlarge's and
+    internvl2_26b's shapes (bf16), each beside one
+    ``scaled_dot_product_attention`` call on the same tensors (a yardstick,
+    not a port: JAX computes attention in plain jnp), and the two outputs'
+    largest difference."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention as tattn
+
+    out = {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for name, (b, s, h, kv, hd, causal) in {"hubert_xlarge": (2, 4096, 16, 16, 80, False),
+                                            "internvl2_26b": (1, 4352, 48, 8, 128, True)}.items():
+        block = tattn._largest_block(s, 1024)
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
+        k, v = (torch.randn((b, s, kv, hd), generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
+                for _ in range(2))
+        dy = torch.randn((b, s, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+
+        def flash():
+            return tattn.flash_attention(q, tattn._repeat_kv(k, h // kv), tattn._repeat_kv(v, h // kv), causal, block)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                  is_causal=causal, enable_gqa=True).transpose(1, 2)
+
+        row = {"block": block}
+        for label, fn in (("flash", flash), ("sdpa", sdpa)):
+            with torch.no_grad():
+                row[f"{label}_fwd_ms"] = timer(fn, reps=3)
+            y = fn()
+            row[f"{label}_bwd_ms"] = timer(lambda: torch.autograd.grad(y, (q, k, v), dy, retain_graph=True), reps=3)
+            row[f"{label}_out"] = y.detach()
+            del y
+        diff = float((row.pop("flash_out").float() - row["sdpa_out"].float()).abs().max())
+        row["max_abs_diff"] = diff / float(row.pop("sdpa_out").float().abs().max())
+        log(f"  flash attention at {name}'s shape ({b} x {s}, {h} heads of {hd} over {kv} KV groups, "
+            f"{'causal' if causal else 'non-causal'}, blocks of {block}, bf16): forward {row['flash_fwd_ms']:.3f} ms, "
+            f"backward {row['flash_bwd_ms']:.3f} ms; SDPA {row['sdpa_fwd_ms']:.3f} / {row['sdpa_bwd_ms']:.3f} ms "
+            f"({row['flash_fwd_ms'] / row['sdpa_fwd_ms']:.1f}x / {row['flash_bwd_ms'] / row['sdpa_bwd_ms']:.1f}x); "
+            f"outputs {row['max_abs_diff']:.2e} of max apart ({smi})")
+        out[name] = row
+        del q, k, v, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train_phase(torch, timer, smi: str):
+    """Phase 13: hubert_xlarge and vit_small whole, Adam with SNR, then
+    derived and Table-3 SlimAdam; internvl2_26b cut to ZOO_VLM_LAYERS layers
+    at 256 frontend rows + 4096 tokens, Table-3 SlimAdam; each run's update
+    held against 'jnp'; flash timings. Returns (report, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, ZipfLM
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    report, total = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    cfg = get_config("hubert_xlarge")
+    log(f"[13a] hubert_xlarge whole ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, "
+        f"non-causal), 2 x 4096 frame embeddings (flash path, blocks of 1024), bf16, remat, lr {ZOO_LR}: Adam with "
+        f"SNR, derived SlimAdam, Table-3 SlimAdam ({smi})")
+    batch = {"frontend_embeds": torch.randn((2, 4096, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 4096), generator=gen, device=dev)}
+    report["hubert_xlarge"], counts = zoo_train(torch, cfg, batch, smi, n_params=944_487_680, derive=True)
+    add(counts)
+
+    cfg = get_config("vit_small")
+    log(f"[13b] vit_small whole ({cfg.n_layers} layers, d {cfg.d_model}), 32 x 256 patches of {cfg.input_proj_dim} "
+        f"(CIFAR at patch 2), learned positions, dense non-causal attention, bf16, remat: Adam with SNR, derived "
+        f"SlimAdam, Table-3 SlimAdam ({smi})")
+    batch = {"patches": torch.randn((32, 256, cfg.input_proj_dim), generator=gen, device=dev).to(torch.bfloat16),
+             "labels": torch.randint(0, cfg.vocab_size, (32, 256), generator=gen, device=dev)}
+    report["vit_small"], counts = zoo_train(torch, cfg, batch, smi, n_params=85_237_248, derive=True)
+    add(counts)
+
+    cfg = get_config("internvl2_26b", n_layers=ZOO_VLM_LAYERS)
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=4096, global_batch=1, seed=0)).batch(0)
+    log(f"[13c] internvl2_26b at full width cut to {ZOO_VLM_LAYERS} of 48 layers, 1 x ({cfg.extra_embed_len} frontend "
+        f"rows + 4096 ZipfLM tokens) = {cfg.extra_embed_len + 4096} positions (causal flash, GQA rep "
+        f"{cfg.n_heads // cfg.n_kv_heads}), the loss on the text positions, Table-3 SlimAdam ({smi})")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    batch["frontend_embeds"] = torch.randn((1, cfg.extra_embed_len, cfg.d_model), generator=gen,
+                                           device=dev).to(torch.bfloat16)
+    report["internvl2_26b"], counts = zoo_train(torch, cfg, batch, smi, n_params=1_917_462_528, derive=False)
+    add(counts)
+    del batch
+    torch.cuda.empty_cache()
+    log("[13d] flash attention against one SDPA call (a yardstick)")
+    report["flash"] = flash_timings(torch, timer, smi)
+    return report, total
+
+
+def zoo_serve_phase(torch, timer, rate: float, smi: str):
+    """Phase 14: B14 at qwen15_32b's and at command_r_35b's / deepseek_67b's
+    geometry; the three served at full width, depth-cut, through the paged
+    engine; qwen15_32b's int8 KV cache through the legacy loop against the
+    bf16 cache. Returns (report, launches of the counted runs)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    from repro_torch.models.transformer import init_paged_pools, paged_prefill_chunk
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rng = np.random.default_rng(14)
+    report: dict = {}
+    total: dict = {}
+    seen = set()
+    for arch, layers, n_params in ZOO_SERVE:
+        cfg = get_config(arch, n_layers=layers)
+        geometry = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        if geometry not in seen:
+            seen.add(geometry)
+            log(f"[14a] paged_attention (B14) at {arch}'s geometry ({cfg.n_heads} heads of {cfg.hd} over "
+                f"{cfg.n_kv_heads} KV groups) against its plain twin, bound, SDPA; each case twice, bit for bit "
+                f"({smi})")
+            hold_b14(torch, timer, rate, gen, rng, arch, heads=cfg.n_heads, kv=cfg.n_kv_heads, hd=cfg.hd, sc=ZOO_SC)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Transformer(cfg, device=dev, gen=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n = sum(p.numel() for p in model.params.values())
+        if n != n_params or n != cfg.param_count():
+            raise AssertionError(f"{arch} at {layers} layers has {n} parameters, expected {n_params}")
+        params = model.params
+        log(f"[14b] {arch} at full width cut to {layers} layers ({n} parameters, {n * 4 / 1e9:.1f} GB f32 drawn on the "
+            f"card in {init_s:.1f} s), bf16 activations, {ZOO_REQUESTS} requests x {ZOO_NEW} greedy tokens, {ZOO_SC}")
+        eng = Engine(cfg, params, ServeConfig(**ZOO_SC))
+        del model
+        prompts = [rng.integers(0, cfg.vocab_size, int(k), dtype=np.int32) for k in rng.integers(64, 513, ZOO_REQUESTS)]
+        rids = [eng.submit(Request(prompt=p, max_new_tokens=ZOO_NEW)) for p in prompts]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        m = eng.metrics()
+        bad = [c_ for c_ in done.values() if c_.finish_reason != "length" or len(c_.tokens) != ZOO_NEW]
+        if len(done) != ZOO_REQUESTS or bad or m.used_pages != 0:
+            raise AssertionError(f"{arch} serving: {len(done)} completions, unfinished {[c_.id for c_ in bad]}")
+        want = cfg.n_layers * (m.decode_steps + m.prefill_chunks)
+        if counts["paged_attention"] != want or sum(counts.values()) != want:
+            raise AssertionError(f"{arch} launches {counts}, expected paged_attention {want} and no other kernel")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        # the first prefill chunk through B14 against the plain twin; a chunk's host and device time
+        page, c = ZOO_SC["page_size"], ZOO_SC["prefill_chunk"]
+        max_pages = -(-ZOO_SC["max_seq"] // page)
+        table, n_pages = page_table(torch, [len(p) + ZOO_NEW for p in prompts], page, max_pages)
+        pools_k = init_paged_pools(cfg, n_pages, page, torch.bfloat16, dev)
+        pools_p = {k: v.clone() for k, v in pools_k.items()}
+        first = torch.from_numpy(prompts[0][:c][None].copy()).to(dev)
+        lk, _, _ = paged_prefill_chunk(cfg, params, pools_k, table[:1], 0, c, first)
+        lp, _, _ = paged_prefill_chunk(cfg, params, pools_p, table[:1], 0, c, first, attn_impl="plain")
+        rel = check(f"{arch} first prefill chunk logits", lk.float(), lp.float(), TOL_ZOO_LOGITS) \
+            / float(lp.float().abs().max())
+        prefill_ms = host_ms(torch, lambda: paged_prefill_chunk(cfg, params, pools_k, table[:1], 0, c, first), 3)
+        prof = profile_device(torch, lambda: paged_prefill_chunk(cfg, params, pools_k, table[:1], 0, c, first), 2,
+                              prefill_ms, "prefill chunk")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"  drained in {wall:.2f} s: {m.tokens_out} tokens, {m.decode_steps} decode steps, {m.prefill_chunks} "
+            f"prefill chunks, mean TTFT {m.ttft_mean_s * 1e3:.1f} ms, mean TPOT {m.tpot_mean_s * 1e3:.2f} ms; B14 "
+            f"{counts['paged_attention']} launches; a {c}-token prefill chunk {prefill_ms:.2f} ms on the host, device "
+            f"busy {prof['busy_ms'] / prefill_ms:.1%}; first chunk's logits {rel:.3e} of max from the plain twin's; "
+            f"peak {peak:.2f} GiB over the start ({smi})")
+        report[arch] = dict(layers=layers, params=n, init_s=init_s, wall_s=wall, metrics=m.to_dict(), launches=counts,
+                            tokens={i: done[r].tokens.tolist() for i, r in enumerate(rids)}, prefill_logits_rel=rel,
+                            prefill_chunk_ms=prefill_ms, prefill_profile=prof, peak_gib=peak)
+        del pools_k, pools_p, lk, lp, eng
+        torch.cuda.empty_cache()
+        if arch == "qwen15_32b":
+            report["int8_kv"] = int8_phase(torch, cfg, params, rng, smi)
+        del params
+        torch.cuda.empty_cache()
+    return report, total
+
+
+def int8_reference(torch, cfg, params, tokens, cache):
+    """The int8 cache's decode in plain f32, teacher-forced over ``tokens``:
+    at step t each layer attends over the rows [0, t] that the int8 path
+    stored in ``cache`` (its cache after the same tokens), dequantized as
+    int8 * scale in f32, through ``dense_attention``; the rest of the layer
+    as ``decode_step`` runs it. Also returns the stored rows' largest
+    distance from this path's own K/V in units of the stored row's scale
+    (rounding to nearest keeps it at 1/2). Returns (logits (B, S, V) f32,
+    that distance)."""
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import rotary_embedding
+
+    rep = cfg.n_heads // cfg.n_kv_heads
+    rows, dist = [], 0.0
+    with torch.no_grad():
+        for t in range(tokens.shape[1]):
+            x = params["embed"][tokens[:, t:t + 1].long()].to(cfg.dtype)
+            sincos = rotary_embedding(torch.tensor([t], device=tokens.device), cfg.hd, cfg.attn_cfg().rope_base)
+            for period, i, slot, p in tf._layers(cfg, params):
+                c = cache.slots[f"slot_{i}"]
+                q, k, v = tattn._project_qkv(p["attn"], tf._norm(cfg, p["mixer_norm"], x), sincos)
+                kd = c.k[period, :, :t + 1].float() * c.k_scale[period, :, :t + 1, :, None]
+                vd = c.v[period, :, :t + 1].float() * c.v_scale[period, :, :t + 1, :, None]
+                for new, deq, sc in ((k, kd, c.k_scale), (v, vd, c.v_scale)):
+                    dist = max(dist, float(((deq[:, t:] - new.float()).abs() / sc[period, :, t:t + 1, :, None]).max()))
+                o = tattn.dense_attention(q.float(), tattn._repeat_kv(kd, rep), tattn._repeat_kv(vd, rep),
+                                          causal=False)
+                x = x + torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["attn"]["wo"].to(x.dtype))
+                x, _ = tf._ffn(cfg, slot, p, x, with_aux=False)
+            rows.append(tf._logits(cfg, params, x)[:, 0].float())
+    return torch.stack(rows, dim=1), dist
+
+
+def int8_phase(torch, cfg, params, rng, smi: str) -> dict:
+    """Phase 14c: qwen15_32b's ``optimized()`` (the int8 KV cache) at the
+    served cut through ``Engine.generate``'s legacy loop, then the same
+    tokens fed through ``decode_step``: in f32 activations, the int8 cache's
+    logits against ``int8_reference`` (its stored rows dequantized in f32)
+    within TOL_INT8_DEQUANT of max|logit|, and the stored rows within half a
+    scale step of the K/V they quantize; in the path's bf16, the int8 against
+    the bf16 cache within INT8_REL of max|logit|, and their greedy agreement
+    above INT8_AGREE on the positions whose bf16 top-2 margin exceeds that
+    measured deviation (the rest, random weights over a 152,064-row
+    vocabulary with margins of a few % of max|logit|, are reported). Then
+    the JAX test itself on the card: reduced f32 qwen15_32b (weights from
+    seed 0), int8 decode against its forward, max|dlogit| / max|logit| <
+    INT8_REL and greedy agreement > INT8_AGREE."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_optimized
+    from repro_torch.models import Transformer, forward
+    from repro_torch.models.transformer import decode_step, init_decode_cache
+    from repro_torch.serve import Engine, ServeConfig
+
+    qcfg = dataclasses.replace(get_optimized("qwen15_32b"), n_layers=cfg.n_layers)
+    if qcfg != dataclasses.replace(cfg, kv_quant=True):
+        raise AssertionError("qwen15_32b's optimized() differs from its config() by more than the int8 KV cache")
+    max_seq = ZOO_INT8_PROMPT + ZOO_INT8_NEW
+    prompts = rng.integers(0, cfg.vocab_size, (ZOO_INT8_ROWS, ZOO_INT8_PROMPT), dtype=np.int32)
+    eng = Engine(qcfg, params, ServeConfig(max_seq=max_seq, max_new_tokens=ZOO_INT8_NEW))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    if out.shape != (ZOO_INT8_ROWS, max_seq) or eng.decode_steps != max_seq - 1 or counts:
+        raise AssertionError(f"int8 legacy loop: out {tuple(out.shape)}, {eng.decode_steps} steps, launches {counts}")
+    tokens = out.to(torch.device("cuda"))
+
+    def teacher_forced(c, model_params, toks, dtype):
+        cache = init_decode_cache(c, toks.shape[0], max_seq, dtype, device=toks.device)
+        rows = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(toks.shape[1]):
+            lg, cache = decode_step(c, model_params, cache, toks[:, t:t + 1])
+            rows.append(lg[:, 0].float())
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for t in cache.slots["slot_0"][:4])
+        return torch.stack(rows, dim=1), (time.perf_counter() - t0) / toks.shape[1] * 1e3, nbytes, cache
+
+    # the int8 path in f32 against its stored rows dequantized in f32
+    fcfg = dataclasses.replace(qcfg, dtype=torch.float32)
+    f_int8, _, _, f_cache = teacher_forced(fcfg, params, tokens, torch.float32)
+    f_ref, dist = int8_reference(torch, fcfg, params, tokens, f_cache)
+    tight = float((f_int8 - f_ref).abs().max()) / float(f_ref.abs().max())
+    del f_int8, f_ref, f_cache
+    log(f"[14c] qwen15_32b optimized() (int8 KV) at {cfg.n_layers} layers, f32 activations: int8 decode logits against "
+        f"the plain f32 path over the same stored rows dequantized (int8 * scale): max|dlogit| / max|logit| "
+        f"{tight:.3e}  tol {TOL_INT8_DEQUANT:.0e}; stored rows within {dist:.4f} of a scale step of the K/V they "
+        f"quantize (tol {INT8_ROUND})")
+    if not (tight <= TOL_INT8_DEQUANT and dist <= INT8_ROUND):
+        raise AssertionError(f"int8 KV cache at full width against its dequantized f32 twin: {tight:.3e}, "
+                             f"rounding {dist:.4f}")
+    a, int8_ms, int8_bytes, _ = teacher_forced(qcfg, params, tokens, torch.bfloat16)
+    b, bf16_ms, bf16_bytes, _ = teacher_forced(cfg, params, tokens, torch.bfloat16)
+    scale = float(b.abs().max())
+    rel = float((a - b).abs().max()) / scale
+    flips = a.argmax(-1) != b.argmax(-1)
+    agree = 1.0 - float(flips.float().mean())
+    top2 = b.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]) / scale
+    clear = margin > rel
+    agree_clear = 1.0 - float(flips[clear].float().mean()) if clear.any() else float("nan")
+    log(f"  through the legacy loop: {ZOO_INT8_ROWS} rows x {ZOO_INT8_PROMPT} + {ZOO_INT8_NEW} greedy in {wall:.2f} s "
+        f"({eng.decode_steps} decode steps, no kernel); the same {max_seq} tokens teacher-forced in bf16, int8 against "
+        f"bf16 cache: max|dlogit| / max|logit| {rel:.3e} (held < {INT8_REL}); greedy agreement {agree_clear:.4f} on the "
+        f"{int(clear.sum())} of {clear.numel()} positions whose bf16 top-2 margin exceeds {rel:.3e} (held > "
+        f"{INT8_AGREE}), {agree:.4f} on all; {int(flips.sum())} flips at margins {margin[flips].tolist()[:8]} of "
+        f"max|logit| (median margin {float(margin.median()):.3e}); decode step {int8_ms:.2f} / {bf16_ms:.2f} ms on "
+        f"the host; cache {int8_bytes} / {bf16_bytes} bytes ({smi})")
+    if not (rel < INT8_REL and agree_clear > INT8_AGREE):
+        raise AssertionError(f"int8 KV cache at full width: rel {rel:.3e}, agreement {agree_clear:.4f} on "
+                             f"{int(clear.sum())} positions")
+    # The JAX test's setting (tests/test_arch_smoke.py::test_int8_kv_cache_decode) on the card.
+    rcfg = get_optimized("qwen15_32b", reduced=True)
+    rparams = {k: v.to(tokens.device) for k, v in
+               Transformer(rcfg, device="cpu", gen=torch.Generator().manual_seed(0)).params.items()}
+    rtoks = torch.from_numpy(np.random.default_rng(1).integers(0, rcfg.vocab_size, (2, 12), dtype=np.int32))
+    rtoks = rtoks.to(tokens.device)
+    with torch.no_grad():
+        full, _ = forward(rcfg, rparams, {"tokens": rtoks})
+    dec, _, _, _ = teacher_forced(rcfg, rparams, rtoks, torch.float32)
+    r_rel = float((dec - full.float()).abs().max()) / float(full.abs().max())
+    r_agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    log(f"  the JAX test on the card: reduced f32 qwen15_32b, int8 decode against its forward: max|dlogit| / "
+        f"max|logit| {r_rel:.3e} < {INT8_REL}, greedy agreement {r_agree:.4f} > {INT8_AGREE}")
+    if not (r_rel < INT8_REL and r_agree > INT8_AGREE):
+        raise AssertionError(f"int8 KV cache, reduced: rel {r_rel:.3e}, agreement {r_agree:.4f}")
+    return dict(wall_s=wall, decode_steps=eng.decode_steps, dequant_rel=tight, round_dist=dist, rel=rel,
+                agree_clear=agree_clear, clear_positions=int(clear.sum()), agree=agree, flips=int(flips.sum()),
+                flip_margins=margin[flips].tolist(), median_margin=float(margin.median()), int8_step_ms=int8_ms,
+                bf16_step_ms=bf16_ms, int8_cache_bytes=int8_bytes, bf16_cache_bytes=bf16_bytes, reduced_rel=r_rel,
+                reduced_agree=r_agree, tokens=out.tolist())
 
 
 def main() -> int:
@@ -3943,26 +4503,52 @@ def main() -> int:
     report["kernels_detail"] = dict(groups=list(held.values()), snr=snr, robust=robust_held)
     del rdata, curves
     torch.cuda.empty_cache()
+    phase_s = report["phase_seconds"] = {}
+    mark = [t_start]
+
+    def stamp(name):
+        """Log and keep the wall time since the previous stamp (the first: since the start, the build in it)."""
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        log(f"  [phase {name}: {phase_s[name]:.1f} s; {now - t_start:.0f} s since the start]")
+
+    stamp("1-3")
     report["robust"] = robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dims)
+    stamp("3b-3f")
     report["serve"], paged_entry = serve_phases(torch, timer, rate, smi)
+    stamp("4-5")
     del timer
     torch.cuda.empty_cache()
     report["sharded"] = sharded = sharded_phase(torch, smi, rate)
+    stamp("6")
     timer = Timer(torch)
     report["ssm"], ssm_entry = ssm_phase(torch, timer, rate, smi)
+    stamp("7")
     report["ssm_train"], ssm_bwd_entry = ssm_train_phase(torch, timer, rate, smi)
+    stamp("7f-7h")
     report["param_api"], param_entries = param_phase(torch, timer, rate, smi, specs, t3_dims)
+    stamp("8")
     torch.cuda.empty_cache()
     report["baselines"], baseline_launches = baselines_phase(torch, smi, cfg, meta, data, lr, rules, plan_for,
                                                               hold_plan, held, group_key)
+    stamp("9")
     torch.cuda.empty_cache()
     report["moe_serve"], moe_serve_launches = moe_serve_phase(torch, timer, rate, smi)
+    stamp("10")
     report["moe_train"], moe_train_launches = moe_train_phase(torch, timer, rate, smi)
+    stamp("11")
     report["diy_slim"], diy_launches = diy_phase(torch, smi)
+    stamp("12")
+    torch.cuda.empty_cache()
+    report["zoo_train"], zoo_train_launches = zoo_train_phase(torch, timer, smi)
+    stamp("13")
+    report["zoo_serve"], zoo_serve_launches = zoo_serve_phase(torch, timer, rate, smi)
+    stamp("14")
     del timer
     torch.cuda.empty_cache()
 
-    # -- 13. result lines -----------------------------------------------------
+    # -- 15. result lines -----------------------------------------------------
     # Times per step of the main path: B2 on Adam's one dense group, B1 summed
     # over the Table-3 plan's three slim groups, B5 over one SNR measurement.
     # Errors are the worst over every group phases 3 and 9 launched on, and
@@ -4042,13 +4628,15 @@ def main() -> int:
                       sum(sharded[r]["mega_slim_finalize_batched"] for r in grouped_runs)),
     ]
     line["kernels"] += param_entries + [ssm_entry, ssm_bwd_entry]
-    # Phases 10-12 launch B14 (olmoe serving), B1, B2, B5 (olmoe training,
-    # diy_slim), B15 and the scan's backward (diy_slim), none with a flag.
+    # Phases 10-14 launch B14 (olmoe and the dense zoo's serving), B1, B2, B5
+    # (olmoe training, diy_slim, the zoo's training), B15 and the scan's
+    # backward (diy_slim), none with a flag.
     for e in line["kernels"]:
-        e["launches"] += sum(c.get(e["name"], 0) for c in (moe_serve_launches, moe_train_launches, diy_launches))
-    olmoe = report["moe_serve"]["paged_attention"]
-    paged_entry["max_abs_err"] = max(paged_entry["max_abs_err"], *(h["err"] for h in olmoe.values()))
-    paged_entry["olmoe_decode_ms"] = olmoe["olmoe decode bfloat16 q bfloat16 pool"]["ms"]
+        e["launches"] += sum(c.get(e["name"], 0) for c in (moe_serve_launches, moe_train_launches, diy_launches,
+                                                             zoo_train_launches, zoo_serve_launches))
+    report["b14_held"] = B14_HELD
+    paged_entry["max_abs_err"] = max(paged_entry["max_abs_err"], *(h["err"] for h in B14_HELD.values()))
+    paged_entry["olmoe_decode_ms"] = B14_HELD["olmoe decode bfloat16 q bfloat16 pool"]["ms"]
     if len(line["kernels"]) != len(kernels.KERNELS) + 2 or min(e["launches"] for e in line["kernels"]) < 1:
         raise AssertionError(f"kernels line: {len(line['kernels'])} entries (B1 and B2 with their flags as "
                              f"separate rows), launches {[e['launches'] for e in line['kernels']]}")
@@ -4058,7 +4646,7 @@ def main() -> int:
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
-    log(f"[13] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
+    log(f"[15] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -4,7 +4,9 @@ flags): a mesh, the sharded train loop and checkpointing.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt_small --steps 100 --mesh none
     torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train --arch gpt_small --mesh single
 
-``--mesh none`` trains one process on the reduced config; ``single`` and
+``--arch`` takes any of the 13 architectures that read tokens alone (the
+encoders and the VLM take other inputs and raise). ``--mesh none`` trains
+one process on the reduced config; ``single`` and
 ``multi`` build the production meshes, (data=16, model=16) and (pod=2,
 data=16, model=16), with one process per rank: rank, world size and local
 rank come from the launcher's environment (``RANK``, ``WORLD_SIZE``,
@@ -50,6 +52,9 @@ def main(argv=None, *, device=None):
     device = args.device or device
 
     cfg = get_reduced(args.arch) if args.reduced or args.mesh == "none" else get_config(args.arch)
+    if not cfg.embed_inputs or cfg.extra_embed_len:
+        raise ValueError(f"arch {args.arch!r} takes frame embeddings, patches or frontend embeddings; this launcher "
+                         "feeds ZipfLM tokens only (train it through train.step.make_train_step)")
     mesh = None
     if args.mesh != "none":
         from .mesh import make_production_mesh

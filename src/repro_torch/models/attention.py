@@ -1,11 +1,17 @@
 """Attention: the training forward, the legacy decode step and the paged
-serving path (port of ``repro/models/attention.py``: dense path, RoPE, GQA,
-``KVCache`` and ``attention_decode``, paged decode and chunked prefill).
+serving path (port of ``repro/models/attention.py``: the dense path, RoPE,
+GQA, qkv biases, the chunked and flash paths, ``KVCache`` with its int8 form
+and ``attention_decode``, paged decode and chunked prefill).
 
 Projections are stored 3-D, ``(embed, heads, head_dim)``, exactly as in the
 JAX model, so SlimAdam's head-stacked dims and the megaplan groups match.
-Sequences up to ``dense_threshold`` take the O(S^2) dense attention, as the
-JAX model does; the flash path above it is not ported yet and raises.
+Sequences up to ``dense_threshold`` take the O(S^2) dense attention; longer
+ones take :func:`flash_attention`, the JAX model's online softmax over KV
+blocks with a hand-written backward that recomputes each block's
+probabilities from the saved log-sum-exp. JAX computes attention in plain
+``jnp``, not in a Pallas kernel, so the port's is plain torch in the same
+order of operations (not ``F.scaled_dot_product_attention``, another
+computation).
 
 The paged path keeps each layer's KV cache in a page pool of the fused layout
 ``(n_pages, page, 2 * KV, hd)`` (K on even, V on odd head rows) and reduces
@@ -15,8 +21,9 @@ pool in place (``index_put_``), so serving holds one pool set and no copy.
 
 The legacy decode step keeps a dense ``(B, S_max, KV, hd)`` cache per layer
 (:class:`KVCache`) and attends over all of it, masked beyond the fill
-length, as the JAX function does; it writes the new position in place. The
-int8 form (``kv_quant``) is not ported yet and raises.
+length, as the JAX function does; it writes the new position in place. Its
+int8 form (``kv_quant``) stores each position's K and V rows as int8 with
+an f32 scale a row and folds the scales into the score and value terms.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..kernels.paged_attention import paged_attention, paged_attention_plain
-from .common import ParamSpec, apply_rotary, rotary_embedding
+from .common import ParamSpec, apply_rotary, rotary_embedding, zeros_init
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("kernel", "plain")
@@ -43,14 +50,13 @@ class AttnConfig:
     rope: bool = True
     rope_base: float = 10000.0
     qkv_bias: bool = False
+    kv_block: int = 1024         # the flash path's KV block (the largest divisor of S up to it)
     dense_threshold: int = 2048  # the O(S^2) path runs only up to this length
 
 
 def attention_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int, *,
                     qkv_bias: bool = False, o_init, w_init):
-    if qkv_bias:
-        raise NotImplementedError("qkv biases are not ported yet")
-    return {
+    specs = {
         "wq": ParamSpec((d_model, n_heads, head_dim), ("embed", "heads", "head_dim"), "attn_q",
                         w_init, fan_in=("embed",), fan_out=("heads", "head_dim")),
         "wk": ParamSpec((d_model, n_kv_heads, head_dim), ("embed", "kv_heads", "head_dim"), "attn_k",
@@ -60,14 +66,24 @@ def attention_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int, 
         "wo": ParamSpec((n_heads, head_dim, d_model), ("heads", "head_dim", "embed"), "attn_o",
                         o_init, fan_in=("heads", "head_dim"), fan_out=("embed",)),
     }
+    if qkv_bias:
+        specs["bq"] = ParamSpec((n_heads, head_dim), ("heads", "head_dim"), "attn_qkv_bias", zeros_init())
+        specs["bk"] = ParamSpec((n_kv_heads, head_dim), ("kv_heads", "head_dim"), "attn_qkv_bias", zeros_init())
+        specs["bv"] = ParamSpec((n_kv_heads, head_dim), ("kv_heads", "head_dim"), "attn_qkv_bias", zeros_init())
+    return specs
 
 
 def _project_qkv(p, x: torch.Tensor, rope_sincos=None):
     """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), weights cast to
-    x's dtype at use; rope rotates q and k when ``rope_sincos`` is given."""
+    x's dtype at use; the qkv biases (where the model has them) are added
+    before rope rotates q and k (when ``rope_sincos`` is given)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
     if rope_sincos is not None:
         sin, cos = rope_sincos
         q = apply_rotary(q, sin, cos)
@@ -97,18 +113,128 @@ def dense_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def _block_scores(qf, k_i, i: int, kv_block: int, q_abs, causal: bool):
+    """f32 scores (B, H, Sq, block) of the scaled queries against key block
+    ``i``, NEG_INF where a key lies after its query (causal)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, k_i.float())
+    if causal:
+        k_abs = i * kv_block + torch.arange(k_i.shape[1], device=qf.device)[None, :]
+        s = torch.where(q_abs >= k_abs, s, NEG_INF)
+    return s
+
+
+def _online_softmax(q, k, v, *, causal: bool, kv_block: int):
+    """The KV-block scan of the JAX model's chunked and flash paths: a
+    running (max, denominator, numerator) in f32 over the blocks in order.
+    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd). Returns (m, l, acc), each
+    (B, H, Sq[, hd])."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    qf = q.float() * (1.0 / math.sqrt(hd))
+    q_abs = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
+    for i, (k_i, v_i) in enumerate(zip(k.split(kv_block, dim=1), v.split(kv_block, dim=1))):
+        s = _block_scores(qf, k_i, i, kv_block, q_abs, causal)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, v_i.float())
+        m = m_new
+    return m, l, acc
+
+
+def chunked_attention(q, k, v, *, causal: bool, kv_block: int = 1024) -> torch.Tensor:
+    """Online-softmax attention, O(S * kv_block) live memory in the forward.
+    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd); Sk must divide into blocks of
+    ``min(kv_block, Sk)``. Autograd differentiates the scan as written (it
+    keeps every block's probabilities); :func:`flash_attention` does not."""
+    sk = k.shape[1]
+    kv_block = min(kv_block, sk)
+    if sk % kv_block:
+        raise ValueError(f"seq {sk} not divisible by kv_block {kv_block}")
+    _, l, acc = _online_softmax(q, k, v, causal=causal, kv_block=kv_block)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _largest_block(s: int, pref: int) -> int:
+    """Largest divisor of s that is <= pref (VLM sequences are text plus
+    patches, e.g. 4352, which power-of-two blocks do not divide)."""
+    if s <= pref:
+        return s
+    for b in range(min(pref, s), 0, -1):
+        if s % b == 0:
+            return b
+    return 1
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX model's ``flash_attention`` custom VJP. The forward keeps the
+    output and the f32 log-sum-exp (B, H, Sq) beside its inputs, not the
+    per-block probabilities; the backward walks the KV blocks again in order,
+    recomputes each block's probabilities from the log-sum-exp, accumulates
+    dq in f32 and yields dk, dv a block each."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kv_block: int):
+        m, l, acc = _online_softmax(q, k, v, causal=causal, kv_block=kv_block)
+        l = torch.clamp(l, min=1e-30)
+        out = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+        lse = m + torch.log(l)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.kv_block = causal, kv_block
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, kv_block = ctx.causal, ctx.kv_block
+        sq, hd = q.shape[1], q.shape[3]
+        sk = k.shape[1]
+        scale = 1.0 / math.sqrt(hd)
+        qf = q.float() * scale
+        do = d_out.float().transpose(1, 2)                  # (B, H, Sq, hd)
+        delta = (do * out.float().transpose(1, 2)).sum(dim=-1)
+        q_abs = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+        dk, dv = [], []
+        for i, (k_i, v_i) in enumerate(zip(k.split(kv_block, dim=1), v.split(kv_block, dim=1))):
+            s = _block_scores(qf, k_i, i, kv_block, q_abs, causal)
+            p = torch.exp(s - lse[..., None])               # recomputed, O(block)
+            dv.append(torch.einsum("bhqk,bhqd->bkhd", p, do))
+            dp = torch.einsum("bhqd,bkhd->bhqk", do, v_i.float())
+            ds = p * (dp - delta[..., None])
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, k_i.float()) * scale
+            dk.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf))
+        return (dq.to(q.dtype), torch.cat(dk, dim=1).to(k.dtype), torch.cat(dv, dim=1).to(v.dtype), None, None)
+
+
+def flash_attention(q, k, v, causal: bool = True, kv_block: int = 1024) -> torch.Tensor:
+    """Attention over KV blocks of ``kv_block`` keys with the flash backward.
+    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd), Sk a multiple of ``kv_block``.
+    Returns (B, Sq, H, hd) in q's dtype."""
+    if k.shape[1] % kv_block:
+        raise ValueError(f"seq {k.shape[1]} not divisible by kv_block {kv_block}")
+    return _FlashAttention.apply(q, k, v, causal, kv_block)
+
+
 def attention_forward(p, x: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
-    """Full-sequence forward (training)."""
+    """Full-sequence forward (training): dense attention up to
+    ``dense_threshold`` positions, the flash path above it."""
     s = x.shape[1]
-    if s > cfg.dense_threshold:
-        raise NotImplementedError(f"sequence {s} > dense_threshold {cfg.dense_threshold}: "
-                                  "the flash-attention path is not ported yet")
     rope_sincos = None
     if cfg.rope:
         rope_sincos = rotary_embedding(torch.arange(s, device=x.device), cfg.head_dim, cfg.rope_base)
     q, k, v = _project_qkv(p, x, rope_sincos)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = dense_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), causal=cfg.causal)
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    if s <= cfg.dense_threshold:
+        out = dense_attention(q, k, v, causal=cfg.causal)
+    else:
+        out = flash_attention(q, k, v, cfg.causal, _largest_block(s, cfg.kv_block))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 
@@ -119,29 +245,49 @@ def attention_forward(p, x: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
 
 class KVCache(NamedTuple):
     """Per-attention-layer decode cache. k/v: (B, S_max, KV, hd); index: 0-d
-    int32 tensor, the fill length. (The JAX cache's int8 scales belong to
-    ``kv_quant``, which is not ported.)"""
+    int32 tensor, the fill length. With ``quant=True`` k/v are int8 and
+    k_scale/v_scale (B, S_max, KV) f32 hold each row's scale, halving the
+    cache's bytes against bf16; otherwise the scales are (1,) placeholders."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
     index: torch.Tensor
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
 
 def init_kv_cache(batch: int, max_seq: int, n_kv: int, head_dim: int, dtype=torch.bfloat16, *, quant: bool = False,
                   device=None) -> KVCache:
-    if quant:
-        raise NotImplementedError("the int8 KV cache (kv_quant) is not ported yet")
-    return KVCache(k=torch.zeros((batch, max_seq, n_kv, head_dim), dtype=dtype, device=device),
-                   v=torch.zeros((batch, max_seq, n_kv, head_dim), dtype=dtype, device=device),
+    shape = (batch, max_seq, n_kv, head_dim)
+    scales = (batch, max_seq, n_kv) if quant else (1,)
+    return KVCache(k=torch.zeros(shape, dtype=torch.int8 if quant else dtype, device=device),
+                   v=torch.zeros(shape, dtype=torch.int8 if quant else dtype, device=device),
+                   k_scale=torch.zeros(scales, dtype=torch.float32, device=device),
+                   v_scale=torch.zeros(scales, dtype=torch.float32, device=device),
                    index=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _quantize_kv(x: torch.Tensor):
+    """x: (B, S, KV, hd) -> (int8 values, (B, S, KV) f32 scales): each row
+    over hd scaled by its max |x| / 127, rounded half to even."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def attention_decode(p, x: torch.Tensor, cache: KVCache, cfg: AttnConfig) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode: x (B, 1, D); the cache holds ``index`` previous
     positions. Writes the new K/V at position ``index`` into the cache's
-    tensors in place, then attends over positions ``<= index`` in f32
-    (grouped queries against the whole cache, masked beyond). Returns
-    (y (B, 1, D), the cache with ``index + 1``)."""
+    tensors in place (an int8 cache: the quantized rows and their scales),
+    then attends over positions ``<= index`` in f32 (grouped queries against
+    the whole cache, masked beyond; an int8 cache's scales multiply the
+    scores and the probabilities). Returns (y (B, 1, D), the cache with
+    ``index + 1``)."""
     b, s1, _ = x.shape
     if s1 != 1:
         raise ValueError(f"attention_decode takes one token per row, got {s1}")
@@ -150,17 +296,30 @@ def attention_decode(p, x: torch.Tensor, cache: KVCache, cfg: AttnConfig) -> Tup
     if cfg.rope:
         rope_sincos = rotary_embedding(pos[None], cfg.head_dim, cfg.rope_base)
     q, k_new, v_new = _project_qkv(p, x, rope_sincos)
-    cache.k.index_copy_(1, pos[None], k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, pos[None], v_new.to(cache.v.dtype))
+    at = pos[None]
+    if cache.quantized:
+        k_q, k_s = _quantize_kv(k_new)
+        v_q, v_s = _quantize_kv(v_new)
+        cache.k.index_copy_(1, at, k_q)
+        cache.v.index_copy_(1, at, v_q)
+        cache.k_scale.index_copy_(1, at, k_s)
+        cache.v_scale.index_copy_(1, at, v_s)
+    else:
+        cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
 
     n_rep = cfg.n_heads // cfg.n_kv_heads
     s_max = cache.k.shape[1]
     scale = 1.0 / math.sqrt(cfg.head_dim)
     qg = q.reshape(b, 1, cfg.n_kv_heads, n_rep, cfg.head_dim).float() * scale
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, cache.k.float())
+    if cache.quantized:
+        scores = scores * cache.k_scale.transpose(1, 2)[:, :, None, None, :]
     valid = torch.arange(s_max, device=x.device) <= pos
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
+    if cache.quantized:
+        probs = probs * cache.v_scale.transpose(1, 2)[:, :, None, None, :]
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache.v.float())
     out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(x.dtype)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))

@@ -87,6 +87,13 @@ def init_params(spec_tree: Any, gen: torch.Generator, device) -> Dict[str, torch
             for name, s in flatten_with_names(spec_tree)}
 
 
+def abstract_params(spec_tree: Any) -> Dict[str, torch.Tensor]:
+    """``{dotted name: tensor}`` in tree order on the ``meta`` device: each
+    leaf's shape and dtype, nothing allocated (a 67 B model's tree costs no
+    memory)."""
+    return {name: torch.empty(s.shape, dtype=s.dtype, device="meta") for name, s in flatten_with_names(spec_tree)}
+
+
 def meta_tree(spec_tree: Any) -> Dict[str, ParamMeta]:
     return {name: s.meta() for name, s in flatten_with_names(spec_tree)}
 

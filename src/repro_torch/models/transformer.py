@@ -1,10 +1,17 @@
-"""Decoder backbone (port of ``repro/models/transformer.py``: the training
-forward, the legacy decode step with its ``DecodeCache``, and the paged
-serving steps), for layer slots of an attention or Mamba mixer with a
-dense, MoE or no FFN: gpt_small and smollm_135m ``(attn, dense)``,
+"""Decoder and encoder backbone (port of ``repro/models/transformer.py``:
+the training forward, the legacy decode step with its ``DecodeCache``, and
+the paged serving steps), for layer slots of an attention or Mamba mixer
+with a dense, MoE or no FFN: the dense ``(attn, dense)`` stacks (gpt_small,
+smollm_135m, qwen15_32b with its qkv biases, command_r_35b, deepseek_67b),
 falcon_mamba_7b ``(mamba, None)``, olmoe_1b_7b and qwen3_moe_30b_a3b
 ``(attn, moe)``, and jamba_v01_52b's hybrid period of Mamba and attention
 mixers over dense and MoE FFNs.
+
+Three input kinds, as in JAX: tokens through the embedding (with learned
+positions, and with the VLM's ``frontend_embeds`` prepended:
+internvl2_26b), patches through ``input_proj`` (vit_small), or frame
+embeddings fed as they are (hubert_xlarge); the last two are non-causal
+encoders with an untied ``lm_head`` and no decode step.
 
 The parameter tree is JAX's, leaf for leaf: dotted names
 (``blocks.slot_0.attn.wq``), layers stacked along a leading ``layers`` axis
@@ -36,6 +43,7 @@ from .attention import (
 from .common import (
     ParamModel,
     ParamSpec,
+    abstract_params,
     init_params,
     layer_norm,
     meta_tree,
@@ -73,7 +81,10 @@ class ModelConfig:
     causal: bool = True
     tie_embeddings: bool = True
     pos: str = "rope"                    # 'rope' | 'learned' | 'none'
-    max_position: int = 8192
+    max_position: int = 8192             # learned-position table size
+    embed_inputs: bool = True            # False: the model takes (B, S, D) embeddings (the audio stub)
+    extra_embed_len: int = 0             # VLM: frontend embeddings prepended to the tokens
+    input_proj_dim: int = 0              # > 0: a learned projection of raw patch features
     norm: str = "rmsnorm"                # 'rmsnorm' | 'layernorm'
     gated_mlp: bool = True
     qkv_bias: bool = False
@@ -89,8 +100,9 @@ class ModelConfig:
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
     init_scheme: str = "mitchell"        # 'mitchell' | 'normal' | 'torch_default'
+    attn_kv_block: int = 1024
     attn_dense_threshold: int = 2048
-    kv_quant: bool = False               # int8 KV cache (serving): not ported yet
+    kv_quant: bool = False               # int8 KV cache (the legacy serving loop): halves the cache's bytes
 
     @property
     def hd(self) -> int:
@@ -105,7 +117,8 @@ class ModelConfig:
     def attn_cfg(self) -> AttnConfig:
         return AttnConfig(d_model=self.d_model, n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
                           head_dim=self.hd, causal=self.causal, rope=(self.pos == "rope"),
-                          qkv_bias=self.qkv_bias, dense_threshold=self.attn_dense_threshold)
+                          qkv_bias=self.qkv_bias, kv_block=self.attn_kv_block,
+                          dense_threshold=self.attn_dense_threshold)
 
     def ssm_cfg(self) -> SSMConfig:
         return SSMConfig(d_model=self.d_model, d_inner=self.ssm_expand * self.d_model, d_state=self.ssm_state,
@@ -158,17 +171,20 @@ class ModelConfig:
     def specs(self) -> Dict[str, Any]:
         w_init, _, emb_init = self._inits()
         dt = self.param_dtype
-        specs: Dict[str, Any] = {
-            "embed": ParamSpec((self.vocab_size, self.d_model), ("vocab", "embed"), "token_embedding",
-                               emb_init, fan_in=("vocab",), fan_out=("embed",), dtype=dt),
-        }
+        specs: Dict[str, Any] = {}
+        if self.embed_inputs:
+            specs["embed"] = ParamSpec((self.vocab_size, self.d_model), ("vocab", "embed"), "token_embedding",
+                                       emb_init, fan_in=("vocab",), fan_out=("embed",), dtype=dt)
         if self.pos == "learned":
             specs["pos_embed"] = ParamSpec((self.max_position, self.d_model), ("pos", "embed"),
                                            "pos_embedding", emb_init, dtype=dt)
+        if self.input_proj_dim:
+            specs["input_proj"] = ParamSpec((self.input_proj_dim, self.d_model), ("patch", "embed"), "patch_embed",
+                                            w_init, fan_in=("patch",), fan_out=("embed",), dtype=dt)
         specs["blocks"] = {f"slot_{i}": stack_specs(self.slot_specs(slot), self.n_periods)
                            for i, slot in enumerate(self.pattern)}
         specs["final_norm"] = self._norm_specs()
-        if not self.tie_embeddings:
+        if not self.tie_embeddings or not self.embed_inputs:
             specs["lm_head"] = ParamSpec((self.d_model, self.vocab_size), ("embed", "vocab"), "lm_head",
                                          w_init, fan_in=("embed",), fan_out=("vocab",), dtype=dt)
         return specs
@@ -179,6 +195,12 @@ class ModelConfig:
     def init(self, gen: torch.Generator, device) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
         spec = self.specs()
         return init_params(spec, gen, device), meta_tree(spec)
+
+    def abstract(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        """(parameters as ``meta`` tensors, meta): shapes and dtypes of a
+        model of any size, nothing allocated."""
+        spec = self.specs()
+        return abstract_params(spec), meta_tree(spec)
 
 
 def _spec_leaves(tree):
@@ -253,17 +275,37 @@ def _layers(cfg: ModelConfig, params: Dict[str, torch.Tensor]):
             yield period, i, slot, per_layer[period]
 
 
+def _embed(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The model's input (B, S_total, D) in cfg.dtype from the batch: token
+    embeddings (plus learned positions; the VLM's ``frontend_embeds``
+    prepended), ``patches @ input_proj`` plus learned positions, or
+    ``frontend_embeds`` as they are."""
+    if cfg.embed_inputs:
+        tokens = batch["tokens"].long()
+        x = params["embed"][tokens].to(cfg.dtype)
+        if cfg.pos == "learned":
+            x = x + params["pos_embed"][: tokens.shape[1]][None].to(cfg.dtype)
+        if cfg.extra_embed_len:
+            x = torch.cat([batch["frontend_embeds"].to(cfg.dtype), x], dim=1)
+        return x
+    if cfg.input_proj_dim:
+        x = torch.einsum("bsp,pd->bsd", batch["patches"].to(cfg.dtype), params["input_proj"].to(cfg.dtype))
+        if cfg.pos == "learned":
+            x = x + params["pos_embed"][: x.shape[1]][None].to(cfg.dtype)
+        return x
+    return batch["frontend_embeds"].to(cfg.dtype)
+
+
 def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], *,
             ssm_impl: str = "kernel"):
-    """Training forward. batch: {'tokens': (B, S) int}. Returns (logits
-    (B, S, vocab) in cfg.dtype, the f32 aux loss summed over the layers)
-    like the JAX forward.
+    """Training forward. batch: {'tokens': (B, S) int} (with
+    'frontend_embeds' (B, P, D) for a VLM), {'patches': (B, S, P)} or
+    {'frontend_embeds': (B, S, D)}, by the model's input kind. Returns
+    (logits (B, S_total, vocab) in cfg.dtype, the f32 aux loss summed over
+    the layers) like the JAX forward.
     ``ssm_impl="plain"`` runs the Mamba layers' scan through the kernel's
     plain twin, an explicit choice for comparisons."""
-    tokens = batch["tokens"].long()
-    x = params["embed"][tokens].to(cfg.dtype)
-    if cfg.pos == "learned":
-        x = x + params["pos_embed"][: tokens.shape[1]][None].to(cfg.dtype)
+    x = _embed(cfg, params, batch)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, slot, p in _layers(cfg, params):
@@ -320,9 +362,10 @@ def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor], cache: Decode
                 ssm_impl: str = "kernel"):
     """One new token per row. tokens: (B, 1) int. The caches hold
     ``cache.step`` positions. Returns (logits (B, 1, vocab), the cache with
-    ``step + 1``); each layer's cache tensors are written in place.
-    ``ssm_impl="plain"`` runs the scan's plain twin, for comparisons."""
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    ``step + 1``); each layer's cache tensors are written in place. A model
+    without an embedding takes (B, 1, D) embeddings as ``tokens``, as in
+    JAX. ``ssm_impl="plain"`` runs the scan's plain twin, for comparisons."""
+    x = params["embed"][tokens.long()].to(cfg.dtype) if cfg.embed_inputs else tokens
     if cfg.pos == "learned":
         x = x + params["pos_embed"][cache.step][None, None].to(cfg.dtype)
     for period, i, slot, p in _layers(cfg, params):
@@ -371,10 +414,11 @@ class PagedState(NamedTuple):
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The paged fast path covers attention-only stacks. SSM mixers carry
-    recurrent (not positional) state and int8 KV pages are not ported, so
-    those serve through the legacy decode loop."""
-    return (not cfg.kv_quant and all(s.mixer in ("attn", None) for s in cfg.pattern)
+    """The paged fast path covers token-in, token-out attention-only stacks.
+    SSM mixers carry recurrent (not positional) state and the pages hold no
+    int8 form, so those serve through the legacy decode loop; the encoders
+    (no embedding) have no decode step at all."""
+    return (cfg.embed_inputs and not cfg.kv_quant and all(s.mixer in ("attn", None) for s in cfg.pattern)
             and any(s.mixer == "attn" for s in cfg.pattern))
 
 
@@ -401,9 +445,12 @@ def _paged_stack(cfg: ModelConfig, params: Dict[str, torch.Tensor], pools: Dict[
 
 
 def _logits(cfg: ModelConfig, params, x):
+    """The final norm, then the tied embedding (a token model that ties) or
+    ``lm_head``."""
     x = _norm(cfg, _sub(params, "final_norm."), x)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
-    return x @ head.to(cfg.dtype).T
+    if cfg.tie_embeddings and cfg.embed_inputs:
+        return x @ params["embed"].to(cfg.dtype).T
+    return x @ params["lm_head"].to(cfg.dtype)
 
 
 @torch.no_grad()

@@ -4,13 +4,16 @@
     PYTHONPATH=src python -m repro_torch.serve --arch smollm_135m --preset full --requests 16
     PYTHONPATH=src python -m repro_torch.serve --arch falcon_mamba_7b --preset full --requests 4
     PYTHONPATH=src python -m repro_torch.serve --arch olmoe_1b_7b --preset full --requests 8
+    PYTHONPATH=src python -m repro_torch.serve --arch qwen15_32b --optimized --device cpu
 
 Serves random weights made from seed 0 (no pretrained weights ship with the
 repository) on prompts drawn from seed 1, and prints each completion and the
 engine's metrics. An attention model (the MoE ones too) goes through the
 paged engine; an architecture outside the paged path (falcon_mamba_7b,
-jamba_v01_52b) through ``Engine.generate``'s legacy loop, one batch of
-equal-length prompts. Runs on the GPU unless ``--device`` names another
+jamba_v01_52b, or qwen15_32b with ``--optimized``, its ``optimized()``
+variant with the int8 KV cache) through ``Engine.generate``'s legacy loop, one
+batch of equal-length prompts. The encoders (hubert_xlarge, vit_small) have
+no decode step and raise. Runs on the GPU unless ``--device`` names another
 device; there the weights are drawn on the card (a full-size
 falcon_mamba_7b is 28 GB in f32, olmoe_1b_7b 27.7 GB).
 """
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..configs import ARCH_IDS, get_config, get_reduced
+from ..configs import ARCH_IDS, get_config, get_optimized, get_reduced
 from ..models import Transformer
 from ..models.transformer import supports_paged
 from .engine import Engine, Request, ServeConfig
@@ -43,10 +46,16 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--optimized", action="store_true",
+                    help="the architecture's optimized() variant (qwen15_32b: the int8 KV cache, served through "
+                         "the legacy loop); raises where there is none")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch) if args.preset == "full" else get_reduced(args.arch)
+    if args.optimized:
+        cfg = get_optimized(args.arch, reduced=args.preset != "full")
+    else:
+        cfg = get_config(args.arch) if args.preset == "full" else get_reduced(args.arch)
     sc_kw, prompt_len = PRESETS[args.preset]
     model = Transformer(cfg, device=device, gen=torch.Generator(device=device).manual_seed(0))
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (args.requests, prompt_len), dtype=np.int32)

@@ -19,14 +19,15 @@ engine's degradation ladder (rerunning a failed step through the dense
 reference) and its fault-injection hooks are not ported.
 
 Architectures outside the paged path (SSM mixers, jamba's hybrid among
-them; int8 KV is not ported) serve through :meth:`Engine.generate`'s legacy
-loop: a batch of equal-length prompts, fed token by token through
+them, and the int8 KV cache, ``kv_quant``: qwen15_32b's ``optimized()``)
+serve through :meth:`Engine.generate`'s legacy loop: a batch of equal-length prompts, fed token by token through
 ``transformer.decode_step`` over dense per-row caches (the prefill too, as
 the JAX loop does), whose Mamba layers run the hand-written selective-scan
 kernel. MoE FFN slots (olmoe_1b_7b, qwen3_moe_30b_a3b, jamba) run in both
 paths. ``ServeConfig(paged=False)``
 forces that loop on an attention model, the parity oracle of the paged
-path. The request API (``submit``) needs the paged path.
+path. The request API (``submit``) needs the paged path; the encoders
+(hubert_xlarge, vit_small: no embedding, no decode step) take neither.
 
 Sampling: greedy is ``argmax``, as in JAX. With a temperature, token ``n``
 of a request draws from a ``torch.Generator`` seeded from ``(seed, n)``, so
@@ -553,6 +554,8 @@ class Engine:
         each sampled token. The caches hold ``max_seq`` positions; a request
         that would overrun them is truncated (counted, warned once), and a
         prompt that fills them raises."""
+        if not self.cfg.embed_inputs:
+            raise NotImplementedError(f"arch '{self.cfg.name}' is encoder-only: it has no decode step")
         b, s_prompt = prompts.shape
         budget = self.sc.max_seq - s_prompt
         if budget <= 0:

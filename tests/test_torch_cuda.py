@@ -1079,6 +1079,27 @@ def test_paged_attention_moe_geometry(dev, kv, rep, c, q_dtype):
         assert not got[2].any(), "an inactive row is exactly 0"
 
 
+@pytest.mark.parametrize("kv,rep", [(40, 1), (8, 8)])
+@pytest.mark.parametrize("c", [1, 128])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_dense_zoo_geometry(dev, kv, rep, c, q_dtype):
+    """The dense zoo's attention: qwen15_32b's 40 heads of 128 over 40 KV
+    groups, and command_r_35b's and deepseek_67b's 64 heads of 128 over 8
+    groups of 8, pages of 16 over a bf16 pool; two runs bit-equal."""
+    q, pool, table, lengths = _paged_case(dev, c=c, kv=kv, rep=rep, hd=128, page=16, pool_dtype=torch.bfloat16,
+                                          q_dtype=q_dtype, max_pages=12)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, pool, table, lengths)
+    again = pa.paged_attention(q, pool, table, lengths)
+    want = pa.paged_attention_plain(q, pool, table, lengths)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 2
+    assert torch.equal(got, again)
+    _close(got, want, LINE_SUMS if q_dtype == torch.float32 else 2.0**-7)
+    if c == 1:
+        assert not got[2].any(), "an inactive row is exactly 0"
+
+
 # ---------------------------------------------------------------------------
 # The MoE layer on the card (plain PyTorch: bmm experts, a gather combine)
 # ---------------------------------------------------------------------------
@@ -1494,3 +1515,36 @@ def test_selective_scan_backward_runs_the_kernel(dev):
     for g, w in zip(grads["kernel"], grads["plain"]):
         tol = 2.0**-7 if g.dtype == torch.bfloat16 else BWD_SUMS
         _close(g.float(), w.float(), tol)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention on the card (plain PyTorch, the JAX model's block scan)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_against_dense_at_4096(dev, causal, dtype):
+    """``flash_attention`` over 1024-key blocks at S = 4096 (GQA, 2 groups
+    of 4 heads of 64) against the dense path in f32 on the same inputs:
+    output and dq/dk/dv within 1e-5 of each one's largest magnitude in f32;
+    in bf16 (f32 inside, bf16 out) within one bf16 step (2^-7)."""
+    from repro_torch.models import attention as tattn
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = ((2, 4096, 8, 64), (2, 4096, 2, 64), (2, 4096, 2, 64))
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype) for s in shapes)
+    w = torch.randn(shapes[0], generator=gen, device=dev)
+
+    def run(fn, cast):
+        leaves = [t.to(cast).requires_grad_(True) for t in (q, k, v)]
+        out = fn(leaves[0], tattn._repeat_kv(leaves[1], 4), tattn._repeat_kv(leaves[2], 4))
+        grads = torch.autograd.grad((out.float() * w).sum(), leaves)
+        return [out.detach()] + list(grads)
+
+    got = run(lambda a, b, c: tattn.flash_attention(a, b, c, causal, 1024), dtype)
+    want = run(lambda a, b, c: tattn.dense_attention(a, b, c, causal=causal), torch.float32)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert g.dtype == dtype
+        _close(g.float(), x, LINE_SUMS if dtype == torch.float32 else 2.0**-7)

@@ -11,7 +11,8 @@ the rescaled online-softmax rule. On the geometries of the card tests
 (``tests/test_torch_cuda.py``'s ``_paged_case``) and on the main path's
 full-width smollm_135m shapes (9 query heads over 3 KV groups, hd 64, pages
 of 16, 128-page table rows: 16 ragged decode rows and the 128-token prefill
-chunks at pos0 = 0 and 1024), the result is held to the plain twin (1e-6
+chunks at pos0 = 0 and 1024), and on the dense zoo's hd-128 card geometries
+(40 KV groups of one query head; 8 groups of 8), the result is held to the plain twin (1e-6
 relative, f32: only the order of the softmax sums differs) and to the JAX
 package's Pallas kernel in interpret mode (1e-5 relative, as the other
 line-sum parity tests). The file also checks that the pieces cover every
@@ -92,6 +93,10 @@ def _phase4_case(name, seed=0):
 CARD_GEOMS = [dict(hd=hd, kv=kv, rep=rep, c=c, page=page)
               for hd, kv, rep in [(64, 3, 3), (16, 1, 3), (32, 3, 1), (128, 2, 4), (64, 1, 32)]
               for c in (1, 11, 128) for page in (4, 16, 64)]
+
+
+# qwen15_32b (40 KV groups, one query head each) and command_r_35b / deepseek_67b (8 groups of 8)
+ZOO_GEOMS = [(40, 1), (8, 8)]
 
 
 def _plan(q, pool, table, *, q_dtype=torch.float32, pool_dtype=torch.float32, sms=H100_SMS):
@@ -177,6 +182,9 @@ def _all_cases():
         yield f"card-hd{geom['hd']}-kv{geom['kv']}-rep{geom['rep']}-c{geom['c']}-p{geom['page']}", _card_case(**geom)
     for name in PHASE4:
         yield f"phase4-{name}", _phase4_case(name)
+    for kv, rep in ZOO_GEOMS:     # the dense zoo's card tests: hd 128, pages of 16, 12-page rows
+        for c in (1, 128):
+            yield f"zoo-kv{kv}-rep{rep}-c{c}", _card_case(c=c, kv=kv, rep=rep, hd=128, page=16, max_pages=12)
 
 
 CASES = dict(_all_cases())
