@@ -285,12 +285,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    exceeds that deviation (all positions' agreement reported); then the
    JAX test's two bars (< 0.05, agreement > 0.95) on reduced f32
    qwen15_32b against its forward on the card.
-15. One ``{"kernels": [...]}`` line (all 16 kernels: the 15 TPU kernels'
+15. The serving fault layer and the rest of serving. 15a:
+   ``benchmarks/serve_drill.py``'s own run through
+   ``repro_torch.serve.drill`` (reduced f32 gpt_small, 6 requests of 8
+   tokens, max_seq 48, pages of 4, 13 pool pages, 3 slots, prefill chunks
+   of 4; kernel failures at decode steps 2 and 5 and prefill chunk 1,
+   request 2 poisoned after 2 tokens, 4 pages squeezed over scheduler
+   steps [1, 5), a 10 s stall at step 1 against the last request's 5 s
+   deadline), a clean run then the injected one on the card, held to the
+   drill's four gates (drains; greedy parity, the poisoned request's
+   prefix; no leak; every injection counted within 200 scheduler steps),
+   B14 launched exactly n_layers x (decode steps + prefill chunks -
+   degraded steps) times, and the drill's admission check. 15b: the plan
+   scaled to phase 5's engine and 32 requests (``FAULT_PLAN_FULL``), gates
+   (a), (c), (d) held, every degraded step's logits against the kernel's
+   from the same pools (TOL_SERVE_LOGITS), B14's launch identity, token
+   agreement with phase 5's clean run reported. Phases 5, 10 and 14 require
+   no degraded step and no injection. 15c: jamba_v01_52b at full width,
+   one 8-layer period (13,295,235,072 parameters, 49.5 GiB of f32 weights
+   drawn on the card), 4 prompts of 16 tokens + 16 greedy through
+   ``make_serve_step``: the first step's logits through B15 against its
+   plain twin (TOL_SERVE_LOGITS), B15's one-token form 7 times a step and
+   no other form or kernel, the legacy loop's tokens on the same prompts
+   (agreement reported), a decode step's host and device time and profile,
+   peak memory; ``decode_input_specs`` of the whole 32-layer model at
+   decode_32k sized on the ``meta`` device.
+16. One ``{"kernels": [...]}`` line (all 16 kernels: the 15 TPU kernels'
    ports and the selective scan's backward, B1 and B2 with their flags on
    rows of their own; B1, B2 and B5 count phases 9, 11, 12 and 13's
-   launches too, B14 phases 10 and 14's, B15 and the backward phase 12's),
-   the ``nvidia-smi`` line, and last the ``{"ok": true, "device": ...}``
-   line.
+   launches too, B14 phases 10, 14 and 15's, B15 phases 12 and 15's, the
+   backward phase 12's), the ``nvidia-smi`` line, and last the
+   ``{"ok": true, "device": ...}`` line.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so f32 matrix products are full f32.
@@ -587,13 +612,8 @@ def serve_phases(torch, timer, rate: float, smi: str):
     model = Transformer(cfg, device=dev, gen=torch.Generator().manual_seed(0))
     eng = Engine(cfg, model.params, ServeConfig(**SERVE_SC))
     del model
-    rng = np.random.default_rng(0)
-    prompt_lens = rng.integers(64, 1537, SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in prompt_lens]
-    for i, p in enumerate(prompts):
-        sampled = i >= SERVE_GREEDY
-        eng.submit(Request(prompt=p, max_new_tokens=SERVE_NEW, temperature=0.8 if sampled else 0.0,
-                           seed=i if sampled else None))
+    prompt_lens, reqs = serve_requests(cfg)
+    rids = [eng.submit(r) for r in reqs]
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -617,11 +637,12 @@ def serve_phases(torch, timer, rate: float, smi: str):
         raise AssertionError(f"{len(done)} completions, unfinished or short: {[(c.id, c.finish_reason) for c in bad]}")
     if m.used_pages != 0 or m.preempted < 1:
         raise AssertionError(f"used pages {m.used_pages} after the drain, {m.preempted} preemptions (want >= 1)")
+    assert_clean(m, "phase 5")
     want_launches = cfg.n_layers * (m.decode_steps + m.prefill_chunks)
     if counts["paged_attention"] != want_launches or sum(counts.values()) != want_launches:
         raise AssertionError(f"launches {counts}, expected paged_attention {want_launches} and no other kernel")
     run = dict(wall_s=wall, metrics=m.to_dict(), launches=counts, peak_gib=peak, pool_gib=pool_gib,
-               prompt_lens=prompt_lens.tolist())
+               prompt_lens=prompt_lens.tolist(), tokens=[done[r].tokens.tolist() for r in rids])
 
     # Step times on the synchronised host clock, outside the counted run: 16
     # rows mid-generation (the first 16 prompts plus 32 tokens) in a pool of
@@ -3223,6 +3244,7 @@ def moe_serve_phase(torch, timer, rate: float, smi: str):
     if len(done) != MOE_REQUESTS or bad or m.used_pages != 0:
         raise AssertionError(f"olmoe serving: {len(done)} completions, unfinished {[c_.id for c_ in bad]}, "
                              f"{m.used_pages} pages left")
+    assert_clean(m, "phase 10")
     want_launches = cfg.n_layers * (m.decode_steps + m.prefill_chunks)
     if counts["paged_attention"] != want_launches or sum(counts.values()) != want_launches:
         raise AssertionError(f"olmoe launches {counts}, expected paged_attention {want_launches} and no other kernel")
@@ -3972,6 +3994,7 @@ def zoo_serve_phase(torch, timer, rate: float, smi: str):
         bad = [c_ for c_ in done.values() if c_.finish_reason != "length" or len(c_.tokens) != ZOO_NEW]
         if len(done) != ZOO_REQUESTS or bad or m.used_pages != 0:
             raise AssertionError(f"{arch} serving: {len(done)} completions, unfinished {[c_.id for c_ in bad]}")
+        assert_clean(m, f"phase 14 {arch}")
         want = cfg.n_layers * (m.decode_steps + m.prefill_chunks)
         if counts["paged_attention"] != want or sum(counts.values()) != want:
             raise AssertionError(f"{arch} launches {counts}, expected paged_attention {want} and no other kernel")
@@ -4146,6 +4169,296 @@ def int8_phase(torch, cfg, params, rng, smi: str) -> dict:
                 flip_margins=margin[flips].tolist(), median_margin=float(margin.median()), int8_step_ms=int8_ms,
                 bf16_step_ms=bf16_ms, int8_cache_bytes=int8_bytes, bf16_cache_bytes=bf16_bytes, reduced_rel=r_rel,
                 reduced_agree=r_agree, tokens=out.tolist())
+
+
+# -- the serving fault layer and the jamba period (phase 15) -------------------------
+
+# 15b: benchmarks/serve_drill.py's plan scaled to phase 5's 32 requests, whose
+# clean run takes 189 decode steps and 246 prefill chunks (the scheduler's
+# counts do not depend on the weights): kernel failures at decode steps 2, 60
+# and 150 and prefill chunks 1 and 120, request 2 poisoned after 2 tokens, 400
+# of the 799 pages squeezed over scheduler steps [1, 9), a 60 s stall at step
+# 1 against the last request's 30 s deadline.
+FAULT_PLAN_FULL = dict(kernel_fail_steps=(2, 60, 150), prefill_fail_chunks=(1, 120), poison_rids=(2,), poison_after=2,
+                       squeeze_window=(1, 9), squeeze_pages=400, stall_steps=(1,), stall_s=60.0)
+FAULT_DEADLINE_FULL_S = 30.0
+# 15c: one full-width period of jamba_v01_52b (8 of its 32 layers: 7 Mamba,
+# 1 attention, 4 MoE FFNs), served through make_serve_step.
+JAMBA_LAYERS, JAMBA_PARAMS = 8, 13_295_235_072
+JAMBA_ROWS, JAMBA_PROMPT, JAMBA_NEW = 4, 16, 16
+
+
+def assert_clean(m, label: str) -> None:
+    """A clean serving run degrades no step and applies no injection."""
+    if m.degraded_steps or m.injected_stalls or m.injected_poison:
+        raise AssertionError(f"{label}: degraded_steps {m.degraded_steps}, injected_stalls {m.injected_stalls}, "
+                             f"injected_poison {m.injected_poison} in a run without a fault plan")
+
+
+def serve_requests(cfg):
+    """Phase 5's 32 requests: prompts of 64-1536 tokens from seed 0, 64 new
+    tokens, greedy but for the last 4 (temperature 0.8, seeded)."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    prompt_lens = rng.integers(64, 1537, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in prompt_lens]
+    return prompt_lens, [Request(prompt=p, max_new_tokens=SERVE_NEW, temperature=0.8 if i >= SERVE_GREEDY else 0.0,
+                                 seed=i if i >= SERVE_GREEDY else None) for i, p in enumerate(prompts)]
+
+
+def fault_phase(torch, rate: float, smi: str, clean_tokens):
+    """Phase 15: the serving fault layer on the card (15a serve_drill's own
+    run, 15b its plan on phase 5's full-width engine against phase 5's
+    ``clean_tokens``), then 15c jamba_v01_52b's full-width period through
+    ``make_serve_step``. Returns (report, launches of the counted runs)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import decode_input_specs, get_config, get_reduced
+    from repro_torch.kernels import paged_attention as pa, ssm_scan as sc
+    from repro_torch.models import Transformer
+    from repro_torch.models.transformer import decode_step, init_decode_cache
+    from repro_torch.serve import Engine, Request, ServeConfig, ServeFaultPlan
+    from repro_torch.serve.drill import DRILL_PLAN, DRILL_SC, MAX_SCHED_STEPS, admission_check, run_drill
+    from repro_torch.train import make_serve_step
+
+    dev = torch.device("cuda")
+    report: dict = {}
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # -- 15a. serve_drill's own run -------------------------------------------
+    rcfg = get_reduced("gpt_small")
+    log(f"[15a] serve_drill's run on the card: reduced f32 gpt_small (weights from seed 0), 6 requests of 8 tokens "
+        f"(seed 1), {DRILL_SC}, {DRILL_PLAN}, the last request's deadline 5 s; clean run, then injected ({smi})")
+    rparams = Transformer(rcfg, device="cpu", gen=torch.Generator().manual_seed(0)).params
+    prompts = np.random.default_rng(1).integers(0, rcfg.vocab_size, (6, 8), dtype=np.int32)
+    kernels.reset_launch_counts()
+    res = run_drill(rcfg, rparams, [Request(prompt=p) for p in prompts], device=dev)
+    counts = kernels.launch_counts()
+    m = res.metrics
+    want = rcfg.n_layers * (m.decode_steps + m.prefill_chunks - m.degraded_steps)
+    log(f"  injected run: reasons {res.reasons}; {m.decode_steps} decode steps, {m.prefill_chunks} prefill chunks, "
+        f"degraded {m.degraded_steps}, nan {m.nan_retired}, deadline {m.deadline_expired}, stalls "
+        f"{m.injected_stalls}, preempted {m.preempted}, backoffs {m.livelock_backoffs}, {m.sched_steps} scheduler "
+        f"steps (<= {MAX_SCHED_STEPS}); B14 launched {res.kernel_launches} times = {rcfg.n_layers} layers x "
+        f"({m.decode_steps} + {m.prefill_chunks} - {m.degraded_steps}) = {want}")
+    if res.failures or res.deviations:
+        raise AssertionError(f"serve_drill's gates on the card: {res.failures + res.deviations}")
+    if res.kernel_launches != want or sum(counts.values()) != counts["paged_attention"]:
+        raise AssertionError(f"B14 launched {res.kernel_launches} times in the injected run, expected {want}; "
+                             f"launches {counts}")
+    adm = admission_check(rcfg, rparams, np.random.default_rng(1).integers(0, rcfg.vocab_size, (8, 8),
+                                                                           dtype=np.int32), device=dev)
+    if adm:
+        raise AssertionError(f"serve_drill's admission check on the card: {adm}")
+    log("  gates (a) drained, (b) greedy parity and the poisoned prefix, (c) no leak, (d) every injection counted: "
+        "all hold; admission control: Rejected verdicts counted, the accepted drained")
+    add(counts)
+    report["drill"] = dict(metrics=m.to_dict(), reasons=res.reasons, tokens=res.tokens,
+                           kernel_launches=res.kernel_launches, launches=counts)
+
+    # -- 15b. the plan scaled to phase 5's full-width engine ------------------
+    cfg = get_config("smollm_135m")
+    plan = ServeFaultPlan(**FAULT_PLAN_FULL)
+    log(f"[15b] the fault plan on phase 5's engine: full-width smollm_135m (weights from seed 0, as phase 5), its 32 "
+        f"requests, {SERVE_SC}, {plan}, the last request's deadline {FAULT_DEADLINE_FULL_S} s; each degraded step's "
+        f"logits held against the kernel's on the same state, tolerance {TOL_SERVE_LOGITS:.0e} of max|logit| ({smi})")
+    params = Transformer(cfg, device=dev, gen=torch.Generator().manual_seed(0)).params
+    _, reqs = serve_requests(cfg)
+    compared, extra = [], [0]
+
+    def observe(eng):
+        """Rerun every degraded step or chunk through the kernel from the
+        same pools, compare its logits, then restore the degraded state."""
+        guarded = eng._guarded
+
+        def checked(kind, index, run):
+            def run_checked(impl):
+                if impl != "plain":
+                    return run(impl)
+                pools = eng._device_pools()
+                before = {k: v.clone() for k, v in pools.items()}
+                out = run("plain")
+                after = {k: v.clone() for k, v in pools.items()}
+                for k, v in pools.items():
+                    v.copy_(before[k])
+                n0 = pa.paged_attention.launches
+                ref = run("kernel")
+                extra[0] += pa.paged_attention.launches - n0
+                err = check(f"degraded {kind} #{index} logits against the kernel's", out[0].float(), ref[0].float(),
+                            TOL_SERVE_LOGITS)
+                compared.append(dict(kind=kind, index=index, rel=err / float(ref[0].float().abs().max())))
+                for k, v in pools.items():
+                    v.copy_(after[k])
+                return out
+            return guarded(kind, index, run_checked)
+
+        eng._guarded = checked
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_drill(cfg, params, reqs, sc=ServeConfig(**SERVE_SC), plan=plan, deadline_s=FAULT_DEADLINE_FULL_S,
+                    device=dev, clean_tokens=clean_tokens, on_engine=observe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    m = res.metrics
+    counted = res.kernel_launches - extra[0]
+    want = cfg.n_layers * (m.decode_steps + m.prefill_chunks - m.degraded_steps)
+    judged = [i for i in range(SERVE_REQUESTS) if i not in plan.poison_rids and i != SERVE_REQUESTS - 1]
+    same = sum(int(a == b) for i in judged for a, b in zip(res.tokens[i], res.clean_tokens[i]))
+    total = sum(len(res.clean_tokens[i]) for i in judged)
+    log(f"  drained in {wall:.2f} s: {m.decode_steps} decode steps, {m.prefill_chunks} prefill chunks, degraded "
+        f"{m.degraded_steps}, nan {m.nan_retired}, deadline {m.deadline_expired}, stalls {m.injected_stalls}, "
+        f"preempted {m.preempted}, backoffs {m.livelock_backoffs}, {m.sched_steps} scheduler steps; B14 "
+        f"{counted} launches = {cfg.n_layers} x ({m.decode_steps} + {m.prefill_chunks} - {m.degraded_steps}) (and "
+        f"{extra[0]} to compare); tokens equal to phase 5's clean run at {same} of {total} positions of the "
+        f"{len(judged)} requests neither poisoned nor past the deadline, {len(res.deviations)} requests deviate "
+        f"(reported, not required: bf16 activations, random weights' near-ties) ({smi})")
+    if res.failures:
+        raise AssertionError(f"the fault plan at full width: {res.failures}")
+    if counted != want or sum(counts.values()) != counts["paged_attention"]:
+        raise AssertionError(f"B14 launched {counted} times in the injected run (less {extra[0]} to compare), "
+                             f"expected {want}; launches {counts}")
+    if len(compared) != m.degraded_steps:
+        raise AssertionError(f"{len(compared)} degraded steps compared, {m.degraded_steps} degraded")
+    launches["paged_attention"] = launches.get("paged_attention", 0) + counted
+    report["full_width"] = dict(plan=FAULT_PLAN_FULL, deadline_s=FAULT_DEADLINE_FULL_S, wall_s=wall,
+                                metrics=m.to_dict(), reasons=res.reasons, kernel_launches=counted,
+                                compare_launches=extra[0], degraded_vs_kernel=compared, tokens_equal=same,
+                                tokens_judged=total, deviations=res.deviations)
+    del params, res
+    torch.cuda.empty_cache()
+
+    # -- 15c. jamba_v01_52b, one full-width period ------------------------------
+    cut = get_config("jamba_v01_52b", n_layers=JAMBA_LAYERS)
+    n_mamba = sum(s.mixer == "mamba" for s in cut.pattern) * cut.n_periods
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cut, device=dev, gen=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.params.values())
+    p_bytes = sum(p.numel() * p.element_size() for p in model.params.values())
+    if n != JAMBA_PARAMS or n != cut.param_count():
+        raise AssertionError(f"jamba_v01_52b at {JAMBA_LAYERS} layers has {n} parameters, expected {JAMBA_PARAMS}")
+    params = model.params
+    del model
+    log(f"[15c] jamba_v01_52b at full width, one period ({JAMBA_LAYERS} of 32 layers: {n_mamba} Mamba, 1 attention, "
+        f"4 MoE FFNs; {n} parameters, {p_bytes / 2**30:.2f} GiB f32 drawn on the card in {init_s:.1f} s), bf16 "
+        f"activations, {JAMBA_ROWS} prompts x {JAMBA_PROMPT} tokens + {JAMBA_NEW} greedy through make_serve_step "
+        f"({smi})")
+    prompts = np.random.default_rng(15).integers(0, cut.vocab_size, (JAMBA_ROWS, JAMBA_PROMPT), dtype=np.int32)
+    toks = torch.from_numpy(prompts).to(dev)
+    max_seq = JAMBA_PROMPT + JAMBA_NEW
+    step = make_serve_step(cut)
+
+    # The first step through B15 against the same step through its plain
+    # twin (from a zero state), and the last prompt step (from the state the
+    # kernel carried over the 15 before it), each from one cache.
+    held = {}
+    ck = init_decode_cache(cut, JAMBA_ROWS, max_seq, torch.bfloat16, device=dev)
+    for t in range(JAMBA_PROMPT):
+        if t in (0, JAMBA_PROMPT - 1):
+            cp = type(ck)(slots={k: type(c)(*(x.clone() for x in c)) for k, c in ck.slots.items()}, step=ck.step)
+            lp, _ = decode_step(cut, params, cp, toks[:, t:t + 1], ssm_impl="plain")
+        _, lk, ck = step(params, ck, toks[:, t:t + 1])
+        if t in (0, JAMBA_PROMPT - 1):
+            held[f"step_{t}"] = check(f"jamba serve step {t}'s logits, B15 against its plain twin", lk.float(),
+                                      lp.float(), TOL_SERVE_LOGITS) / float(lp.float().abs().max())
+    first_rel = held["step_0"]
+    del ck, cp, lk, lp
+
+    cache = init_decode_cache(cut, JAMBA_ROWS, max_seq, torch.bfloat16, device=dev)
+    steps = JAMBA_PROMPT + JAMBA_NEW - 1
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    forms0 = scan_forms(sc)
+    per_step, out = [], []
+    tok = toks[:, :1]
+    t0 = time.perf_counter()
+    for t in range(steps):
+        if t < JAMBA_PROMPT:
+            tok = toks[:, t:t + 1]
+        f0 = scan_forms(sc)
+        nxt, logits, cache = step(params, cache, tok)
+        per_step.append(scan_forms(sc, since=f0))
+        if t >= JAMBA_PROMPT - 1:
+            out.append(nxt)
+            tok = nxt
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    forms = scan_forms(sc, since=forms0)
+    new = torch.cat(out, dim=1).cpu()
+    log(f"  {steps} serve steps in {serve_s:.2f} s; launches {({k: v for k, v in counts.items() if v})}, B15 forms "
+        f"{forms}; tokens {new[0].tolist()}")
+    if any(f != {"token": n_mamba, "seq": 0, "seq_keep": 0} for f in per_step):
+        raise AssertionError(f"B15 forms per step {per_step}: want {n_mamba} one-token launches a step, no other form")
+    if counts["ssm_scan"] != n_mamba * steps or sum(counts.values()) != counts["ssm_scan"]:
+        raise AssertionError(f"jamba serve launches {counts}, expected ssm_scan {n_mamba * steps} and no other kernel")
+    if tuple(new.shape) != (JAMBA_ROWS, JAMBA_NEW) or int(new.min()) < 0 or int(new.max()) >= cut.vocab_size \
+            or not bool(torch.isfinite(logits.float()).all()) or cache.step != steps:
+        raise AssertionError(f"jamba serve: tokens {tuple(new.shape)} / logits outside the contract")
+    add(counts)
+
+    # the legacy loop on the same prompts (the same greedy argmax: agreement reported)
+    kernels.reset_launch_counts()
+    eng = Engine(cut, params, ServeConfig(max_seq=max_seq, max_new_tokens=JAMBA_NEW), device=dev)
+    legacy = eng.generate(prompts)[:, JAMBA_PROMPT:]
+    leg_counts = kernels.launch_counts()
+    agree = int((legacy == new).sum())
+    if leg_counts["ssm_scan"] != n_mamba * steps or sum(leg_counts.values()) != leg_counts["ssm_scan"]:
+        raise AssertionError(f"jamba legacy loop launches {leg_counts}, expected ssm_scan {n_mamba * steps}")
+    add(leg_counts)
+    log(f"  Engine.generate's legacy loop on the same prompts: {agree} of {legacy.numel()} tokens equal to "
+        f"make_serve_step's; B15 {leg_counts['ssm_scan']} launches")
+    del eng
+
+    # a decode step's time and device profile (a cache of its own, 8 positions in)
+    tcache = init_decode_cache(cut, JAMBA_ROWS, 64, torch.bfloat16, device=dev)
+    for t in range(8):
+        step(params, tcache, toks[:, t:t + 1])
+
+    def decode():
+        nonlocal tcache
+        _, _, tcache = step(params, tcache, toks[:, :1])
+
+    decode_ms = host_ms(torch, decode, 5)
+    prof = profile_device(torch, decode, 2, decode_ms, "decode step")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    cast_ms = sum(t for key, t in prof["kernels"] if "copy" in key.lower() or "cast" in key.lower())
+    b15_ms = sum(t for key, t in prof["kernels"] if key.startswith("ssm_") or "::ssm_" in key)
+    log(f"  decode step ({JAMBA_ROWS} rows): {decode_ms:.3f} ms on the host, {prof['busy_ms']:.3f} ms of device time "
+        f"({prof['busy_ms'] / decode_ms:.1%} busy); copies and casts {cast_ms:.3f} ms, B15 {b15_ms:.4f} ms; "
+        f"parameters {p_bytes / 2**30:.2f} GiB, peak {peak:.2f} GiB over the start ({smi})")
+
+    # the whole 32-layer model's decode_32k step, sized on the meta device
+    full = get_config("jamba_v01_52b")
+    spec = decode_input_specs(full, "decode_32k")
+    cache_bytes = sum(t.numel() * t.element_size() for slot in spec["cache"].slots.values() for t in slot)
+    if any(t.device.type != "meta" for slot in spec["cache"].slots.values() for t in slot):
+        raise AssertionError("decode_input_specs allocated a cache")
+    log(f"  decode_input_specs(jamba_v01_52b, 'decode_32k'): tokens {tuple(spec['tokens'].shape)}, cache "
+        f"{cache_bytes} bytes ({cache_bytes / 2**30:.2f} GiB) on the meta device, nothing allocated; the whole "
+        f"model's {full.param_count()} parameters {full.param_count() * 4 / 2**30:.2f} GiB in f32")
+    report["jamba"] = dict(layers=JAMBA_LAYERS, params=n, param_bytes=p_bytes, init_s=init_s,
+                           first_step_logits_rel=first_rel, kernel_vs_plain_logits_rel=held, steps=steps,
+                           serve_s=serve_s, launches=counts, forms=forms, tokens=new.tolist(),
+                           legacy_tokens_equal=agree, decode_step_ms=decode_ms, profile=prof, cast_ms=cast_ms, b15_ms=b15_ms, peak_gib=peak,
+                           decode_32k_cache_bytes=cache_bytes, full_params=full.param_count())
+    del params, cache, tcache, logits
+    torch.cuda.empty_cache()
+    return report, launches
 
 
 def main() -> int:
@@ -4547,8 +4860,10 @@ def main() -> int:
     stamp("14")
     del timer
     torch.cuda.empty_cache()
+    report["faults"], fault_launches = fault_phase(torch, rate, smi, report["serve"]["serving"]["tokens"])
+    stamp("15")
 
-    # -- 15. result lines -----------------------------------------------------
+    # -- 16. result lines -----------------------------------------------------
     # Times per step of the main path: B2 on Adam's one dense group, B1 summed
     # over the Table-3 plan's three slim groups, B5 over one SNR measurement.
     # Errors are the worst over every group phases 3 and 9 launched on, and
@@ -4628,12 +4943,13 @@ def main() -> int:
                       sum(sharded[r]["mega_slim_finalize_batched"] for r in grouped_runs)),
     ]
     line["kernels"] += param_entries + [ssm_entry, ssm_bwd_entry]
-    # Phases 10-14 launch B14 (olmoe and the dense zoo's serving), B1, B2, B5
-    # (olmoe training, diy_slim, the zoo's training), B15 and the scan's
-    # backward (diy_slim), none with a flag.
+    # Phases 10-15 launch B14 (olmoe, the dense zoo's serving, the fault
+    # drills), B1, B2, B5 (olmoe training, diy_slim, the zoo's training), B15
+    # (diy_slim, the jamba period) and the scan's backward (diy_slim), none
+    # with a flag.
     for e in line["kernels"]:
         e["launches"] += sum(c.get(e["name"], 0) for c in (moe_serve_launches, moe_train_launches, diy_launches,
-                                                             zoo_train_launches, zoo_serve_launches))
+                                                             zoo_train_launches, zoo_serve_launches, fault_launches))
     report["b14_held"] = B14_HELD
     paged_entry["max_abs_err"] = max(paged_entry["max_abs_err"], *(h["err"] for h in B14_HELD.values()))
     paged_entry["olmoe_decode_ms"] = B14_HELD["olmoe decode bfloat16 q bfloat16 pool"]["ms"]
@@ -4646,7 +4962,7 @@ def main() -> int:
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
-    log(f"[15] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
+    log(f"[16] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,12 +2,13 @@
 architectures and the paper's own models. Each ``<arch>.py`` exposes
 ``config()`` (full size) and ``reduced()`` (CPU-test size, same family).
 ``input_specs(cfg, shape)`` gives the batch of one shape cell as tensors on
-the ``meta`` device: shapes and dtypes, nothing allocated."""
+the ``meta`` device: shapes and dtypes, nothing allocated;
+``decode_input_specs(cfg, shape)`` does the same for a decode cell's step."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -106,3 +107,15 @@ def input_specs(cfg, shape: str) -> Dict[str, torch.Tensor]:
         batch["frontend_embeds"] = spec((gb, seq, cfg.d_model), torch.bfloat16)
         batch["labels"] = spec((gb, seq), torch.int32)
     return batch
+
+
+def decode_input_specs(cfg, shape: str) -> Dict[str, Any]:
+    """One decode step of a decode cell on the ``meta`` device: the new
+    tokens ``(batch, 1)`` int32 and a ``seq_len``-position decode cache
+    (:func:`repro_torch.models.transformer.abstract_decode_cache`)."""
+    seq, gb, kind = SHAPES[shape]
+    assert kind == "decode"
+    from ..models.transformer import abstract_decode_cache
+
+    return {"tokens": torch.empty((gb, 1), dtype=torch.int32, device="meta"),
+            "cache": abstract_decode_cache(cfg, gb, seq)}

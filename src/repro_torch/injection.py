@@ -5,9 +5,11 @@ installed in one package never fires in the other).
 Conventions:
 
 * Hook points are dotted strings owned by the firing module. The port
-  fires ``"checkpoint.io"`` (``repro_torch.checkpoint.store``) and
-  ``"optim.kernel"`` (``repro_torch.optim.fused``); the serving points of
-  the JAX package are not ported yet.
+  fires ``"checkpoint.io"`` (``repro_torch.checkpoint.store``),
+  ``"optim.kernel"`` (``repro_torch.optim.fused``), and the serving points
+  ``"serve.kernel"``, ``"serve.logits"``, ``"serve.clock"`` and
+  ``"serve.step"`` (``repro_torch.serve.engine``; the hooks that drive them
+  are ``repro_torch.serve.faults``).
 * :func:`fire` is a no-op (returns ``None``) when nothing is installed, so
   instrumentation costs one dict lookup on the hot path.
 * A hook simulates a fault either by **raising** (IO failure, kernel

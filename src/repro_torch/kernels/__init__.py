@@ -15,6 +15,7 @@ from .fused_adam import adam_precond
 from .fused_adam import fused_adam as _fused_adam
 from .megaplan import (mega_adam_update, mega_slim_finalize_batched, mega_slim_partial_stats_batched,
                        mega_slim_update_batched)
+from .paged_attention import PAGED_ATTN_BUFS, paged_fits
 from .paged_attention import paged_attention as _paged_attention
 from .slim_update import (slim_finalize_batched, slim_partial_stats_batched, slim_precond_batched,
                           slim_update_batched)

@@ -22,6 +22,8 @@ reads group ``h // (H // KV)``.
 A CUDA operand launches the kernel, or raises for geometry the kernel does
 not take; there is no VMEM gate as in JAX and no route from a CUDA tensor to
 the plain version. CPU operands take :func:`paged_attention_plain`.
+:func:`paged_fits` answers JAX's VMEM question for a geometry, as a query
+with the JAX contract; nothing on the kernel's path consults it.
 """
 from __future__ import annotations
 
@@ -49,6 +51,14 @@ MMA_ROWS = 64          # query-row slots of a tensor-core block (4 warps x 16)
 WAVES = 6              # blocks per SM the split aims for, over full table rows
 MIN_PIECE_KEYS = 64    # a piece walks at least this many keys (2 ring stages)
 FORM_CORES, FORM_MMA = 0, 1
+
+# The JAX package's VMEM policy (``repro/kernels/tiling.py``), kept for
+# paged_fits: the per-call working-set budget and the f32 compute itemsize it
+# charges every element at, and the full-size page lines the Pallas kernel
+# keeps live (current page, the next in flight, one compute copy).
+VMEM_BUDGET = 8 << 20
+COMPUTE_ITEMSIZE = 4
+PAGED_ATTN_BUFS = 3
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -78,6 +88,20 @@ class PagedPlan:
     def launches(self) -> int:
         """CUDA launches of one call."""
         return 2 if self.combine_blocks else 1
+
+
+def paged_fits(chunk: int, n_heads: int, head_dim: int, page_size: int, kv2: int, *,
+               itemsize: int = COMPUTE_ITEMSIZE) -> bool:
+    """Whether one instance of the JAX package's Pallas kernel fits
+    :data:`VMEM_BUDGET`: ``PAGED_ATTN_BUFS`` page lines plus the q and acc
+    blocks and the two (C, H) softmax stats, all at ``itemsize`` bytes (the
+    JAX ``paged_fits``). A query only: the CUDA kernel plans its own grid
+    (:func:`plan_paged`) and raises for a geometry it cannot take; it never
+    gives way to the plain version."""
+    page_line = page_size * kv2 * head_dim
+    qacc = chunk * n_heads * head_dim
+    stats = chunk * n_heads
+    return (PAGED_ATTN_BUFS * page_line + 2 * qacc + 2 * stats) * itemsize <= VMEM_BUDGET
 
 
 @functools.lru_cache(maxsize=None)

@@ -357,6 +357,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bf
     return DecodeCache(slots=slots, step=0)
 
 
+def abstract_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16) -> DecodeCache:
+    """:func:`init_decode_cache`'s shapes and dtypes on the ``meta`` device:
+    nothing is allocated, so a full-size cell's cache can be sized."""
+    return init_decode_cache(cfg, batch, max_seq, dtype, device="meta")
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor], cache: DecodeCache, tokens: torch.Tensor, *,
                 ssm_impl: str = "kernel"):
@@ -462,8 +468,9 @@ def paged_decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor], state: 
     are written in place and lengths advance on active rows only. ``ok`` is
     the on-device logit health tap: per-row all-finite flags, so the engine
     retires a poisoned row without scanning the vocabulary on the host.
-    ``attn_impl="plain"`` runs attention through the kernel's plain twin, an
-    explicit choice for comparisons; the engine never makes it.
+    ``attn_impl="plain"`` runs attention through the kernel's plain twin:
+    an explicit choice for comparisons, and the engine's degraded step after
+    an injected ``serve.kernel`` failure (``repro_torch.serve.engine``).
     """
     x = params["embed"][tokens.long()].to(cfg.dtype)
     if cfg.pos == "learned":

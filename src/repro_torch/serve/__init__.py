@@ -15,13 +15,21 @@ crossed boundary, preempts the youngest request when the pool runs out
     for c in eng.run_until_drained().values():
         print(c.finish_reason, c.ttft_s, c.tokens)
 
+Fault handling: :class:`ServeFaultPlan` (``serve/faults.py``) injects kernel
+failures, poisoned logits, pool squeezes and clock stalls deterministically
+through :mod:`repro_torch.injection`; an injected kernel failure serves that
+one step or chunk through the plain twin (``degraded_steps``), a failure of
+the kernel itself propagates. ``Engine.metrics()`` counts every decision.
+
 CLI: ``python -m repro_torch.serve --arch smollm_135m --preset full`` (on
 the GPU; ``--device cpu`` runs the kernels' plain twins on the CPU).
 """
 from .engine import Completion, Engine, Request, ServeConfig
+from .faults import ServeFaultPlan, inject_paged_kernel_failure
 from .kvpool import KVPool, PoolExhausted
 from .metrics import LivelockError, Rejected, ServeCounters, ServeMetrics
 from .scheduler import Scheduler
 
 __all__ = ["Engine", "ServeConfig", "Request", "Completion", "KVPool", "PoolExhausted", "Scheduler",
-           "ServeMetrics", "ServeCounters", "Rejected", "LivelockError"]
+           "ServeMetrics", "ServeCounters", "Rejected", "LivelockError", "ServeFaultPlan",
+           "inject_paged_kernel_failure"]

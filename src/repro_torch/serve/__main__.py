@@ -5,6 +5,7 @@
     PYTHONPATH=src python -m repro_torch.serve --arch falcon_mamba_7b --preset full --requests 4
     PYTHONPATH=src python -m repro_torch.serve --arch olmoe_1b_7b --preset full --requests 8
     PYTHONPATH=src python -m repro_torch.serve --arch qwen15_32b --optimized --device cpu
+    PYTHONPATH=src python -m repro_torch.serve --arch jamba_v01_52b --preset full --layers 8 --requests 4
 
 Serves random weights made from seed 0 (no pretrained weights ship with the
 repository) on prompts drawn from seed 1, and prints each completion and the
@@ -15,11 +16,15 @@ variant with the int8 KV cache) through ``Engine.generate``'s legacy loop, one
 batch of equal-length prompts. The encoders (hubert_xlarge, vit_small) have
 no decode step and raise. Runs on the GPU unless ``--device`` names another
 device; there the weights are drawn on the card (a full-size
-falcon_mamba_7b is 28 GB in f32, olmoe_1b_7b 27.7 GB).
+falcon_mamba_7b is 28 GB in f32, olmoe_1b_7b 27.7 GB). ``--layers N`` cuts
+the depth to N layers, whole periods of the architecture's layer pattern,
+widths unchanged: jamba_v01_52b's 32 layers (51.6 B parameters, 192 GiB in
+f32) do not fit one card, one 8-layer period (13.3 B, 49.5 GiB) does.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -49,6 +54,8 @@ def main(argv=None):
     ap.add_argument("--optimized", action="store_true",
                     help="the architecture's optimized() variant (qwen15_32b: the int8 KV cache, served through "
                          "the legacy loop); raises where there is none")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (whole periods of the layer pattern; widths unchanged)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -56,6 +63,11 @@ def main(argv=None):
         cfg = get_optimized(args.arch, reduced=args.preset != "full")
     else:
         cfg = get_config(args.arch) if args.preset == "full" else get_reduced(args.arch)
+    if args.layers is not None:
+        if args.layers < 1 or args.layers % len(cfg.pattern):
+            raise ValueError(f"--layers {args.layers} is not a whole number of {cfg.name}'s "
+                             f"{len(cfg.pattern)}-layer pattern")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     sc_kw, prompt_len = PRESETS[args.preset]
     model = Transformer(cfg, device=device, gen=torch.Generator(device=device).manual_seed(0))
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (args.requests, prompt_len), dtype=np.int32)

@@ -14,9 +14,25 @@ backing off deterministically on no progress before raising
 :class:`~repro_torch.serve.metrics.LivelockError`.
 
 Every prefill chunk and decode step runs attention through the hand-written
-paged-attention kernel for CUDA tensors; a failing launch raises. The JAX
-engine's degradation ladder (rerunning a failed step through the dense
-reference) and its fault-injection hooks are not ported.
+paged-attention kernel for CUDA tensors.
+
+Fault handling. The engine fires the serving points of
+:mod:`repro_torch.injection` (``repro_torch.serve.faults`` installs hooks
+on them): ``serve.step`` and ``serve.clock`` at the top of every scheduler
+step (the clock's return skews the engine's virtual clock, so a stall blows
+deadlines without sleeping), ``serve.kernel`` before each decode step and
+prefill chunk, and ``serve.logits`` before sampling (a truthy return
+retires that one request with ``reason="nan"``, as a non-finite logit tap
+does, counted in ``injected_poison``). The degradation rule differs from
+the JAX engine's on purpose and follows the port's optimizer
+(``optim.fused._guarded``): only an exception raised by the
+``serve.kernel`` hook degrades, and it degrades exactly that step or chunk
+to the kernel's plain twin (``attn_impl="plain"``), counted in
+``degraded_steps`` and warned once under ``kernel_degraded``. The JAX
+engine degrades on any exception; here a failure of the kernel's own build
+or launch propagates, so no fault of the kernel hides behind the twin.
+Every decision lands in :class:`~repro_torch.serve.metrics.ServeCounters`
+(snapshot: :meth:`Engine.metrics`).
 
 Architectures outside the paged path (SSM mixers, jamba's hybrid among
 them, and the int8 KV cache, ``kv_quant``: qwen15_32b's ``optimized()``)
@@ -45,8 +61,9 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import injection, resolve_device
 from ..models import transformer
+from .faults import CLOCK_POINT, KERNEL_POINT, LOGITS_POINT, STEP_POINT
 from .kvpool import KVPool
 from .metrics import LivelockError, Rejected, ServeCounters, ServeMetrics
 from .scheduler import Scheduler
@@ -174,6 +191,9 @@ class Engine:
         self._completed_total = 0
         self._no_progress = 0       # consecutive no-progress steps
         self._admit_freeze = 0      # steps with admissions suspended
+        # Seconds added to every clock read: an injected stall advances it so
+        # deadlines can be driven without sleeping.
+        self._clock_skew = 0.0
         p = self.sc.page_size
         max_pages = -(-self.sc.max_seq // p)
         n_pages = self.sc.pool_pages if self.sc.pool_pages is not None else self.sc.max_slots * max_pages + 1
@@ -184,7 +204,7 @@ class Engine:
         self._decode = lambda pr, c, t: transformer.decode_step(model_cfg, pr, c, t)
 
     def _now(self) -> float:
-        return time.monotonic()
+        return time.monotonic() + self._clock_skew
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -245,7 +265,13 @@ class Engine:
         """One scheduler iteration: expire deadlines, admit + prefill,
         grow/preempt, one batched decode, retire. Returns per-step metrics."""
         sched = self.scheduler
+        step_idx = self.sched_steps
         self.sched_steps += 1
+        injection.fire(STEP_POINT, self, step_idx)
+        skew = injection.fire(CLOCK_POINT, step_idx)
+        if skew:
+            self._clock_skew += float(skew)
+            self.counters.injected_stalls += 1
         self._expire_deadlines()
 
         prefills = 0
@@ -292,7 +318,7 @@ class Engine:
                 mask[slot] = True
             state = transformer.PagedState(pools=self._device_pools(), table=self._tensor(sched.table),
                                            lengths=self._tensor(lengths), active=self._tensor(mask))
-            logits, ok_dev, _ = transformer.paged_decode_step(self.cfg, self.params, state, self._tensor(tokens))
+            logits, ok_dev = self._decode_call(state, self._tensor(tokens))
             self.decode_steps += 1
             last = logits[:, -1].float().cpu().numpy()
             ok = ok_dev.cpu().numpy()
@@ -300,7 +326,7 @@ class Engine:
             for slot, rid in active:
                 st = self._reqs[rid]
                 st.ctx_len += 1        # this step wrote generated[-1]'s KV
-                if not ok[slot]:
+                if self._poisoned(st) or not ok[slot]:
                     self._retire_nan(slot, st)
                     continue
                 tok = self._sample_one(st, last[slot])
@@ -359,10 +385,11 @@ class Engine:
             used_pages=pool.used_pages, page_high_water=pool.high_water, pool_capacity=pool.capacity,
             admitted=sched.admitted, retired=sched.retired, preempted=sched.preempted,
             sched_steps=self.sched_steps, decode_steps=self.decode_steps, prefill_chunks=self.prefill_chunks,
-            tokens_out=self.tokens_out, nan_retired=c.nan_retired, deadline_expired=c.deadline_expired,
-            budget_truncated=c.budget_truncated, truncated_max_new=c.truncated_max_new,
-            rejected_queue=c.rejected_queue, rejected_pool=c.rejected_pool, livelock_backoffs=c.livelock_backoffs,
-            ttft_mean_s=c.ttft_sum_s / c.ttft_n if c.ttft_n else None,
+            tokens_out=self.tokens_out, degraded_steps=c.degraded_steps, nan_retired=c.nan_retired,
+            deadline_expired=c.deadline_expired, budget_truncated=c.budget_truncated,
+            truncated_max_new=c.truncated_max_new, rejected_queue=c.rejected_queue, rejected_pool=c.rejected_pool,
+            livelock_backoffs=c.livelock_backoffs, injected_stalls=c.injected_stalls,
+            injected_poison=c.injected_poison, ttft_mean_s=c.ttft_sum_s / c.ttft_n if c.ttft_n else None,
             tpot_mean_s=c.tpot_sum_s / c.tpot_n if c.tpot_n else None)
 
     # ------------------------------------------------------------------
@@ -424,6 +451,45 @@ class Engine:
                                                        self._pool_dtype(), self.device)
         return self._pools
 
+    def _guarded(self, kind: str, index: int, run):
+        """``run(attn_impl)`` through the kernel, unless the ``serve.kernel``
+        hook raises for (kind, index): then that one step or chunk runs
+        through the plain twin, counted and warned once. An exception of the
+        kernel path itself propagates."""
+        try:
+            injection.fire(KERNEL_POINT, kind, index)
+        except Exception as e:  # noqa: BLE001 — whatever the injected hook raises degrades
+            self.counters.degraded_steps += 1
+            self.counters.warn_once(
+                "kernel_degraded",
+                f"paged {kind} dispatch failed ({type(e).__name__}: {e}); serving this "
+                f"{'step' if kind == 'decode' else 'chunk'} through the plain attention (counted in "
+                f"ServeMetrics.degraded_steps; warning not repeated)")
+            return run("plain")
+        return run("kernel")
+
+    def _decode_call(self, state: transformer.PagedState, tokens: torch.Tensor):
+        """One batched decode step: (logits, per-row health), the pools
+        written in place."""
+        logits, ok, _ = self._guarded("decode", self.decode_steps, lambda impl: transformer.paged_decode_step(
+            self.cfg, self.params, state, tokens, attn_impl=impl))
+        return logits, ok
+
+    def _prefill_call(self, row: torch.Tensor, pos0: int, n_valid: int, buf: torch.Tensor):
+        """One prefill chunk (chunks indexed globally across requests):
+        (logits, health of the row sampled)."""
+        logits, ok, _ = self._guarded("prefill", self.prefill_chunks, lambda impl: transformer.paged_prefill_chunk(
+            self.cfg, self.params, self._device_pools(), row, pos0, n_valid, buf, attn_impl=impl))
+        return logits, ok
+
+    def _poisoned(self, st: _ReqState) -> bool:
+        """Whether the ``serve.logits`` hook poisons this request's logits
+        before its next token (counted)."""
+        if injection.fire(LOGITS_POINT, st.rid, len(st.generated)):
+            self.counters.injected_poison += 1
+            return True
+        return False
+
     def _prefill_into(self, slot: int, st: _ReqState) -> None:
         """Chunk-prefill a freshly admitted request's whole known context
         (prompt + any pre-preemption tokens) and sample its next token."""
@@ -439,8 +505,7 @@ class Engine:
             n_valid = min(chunk, n_ctx - lo)
             buf = np.zeros((1, chunk), np.int32)
             buf[0, :n_valid] = ctx[lo:lo + n_valid]
-            logits, ok_dev, _ = transformer.paged_prefill_chunk(self.cfg, self.params, self._device_pools(), row,
-                                                                lo, n_valid, self._tensor(buf))
+            logits, ok_dev = self._prefill_call(row, lo, n_valid, self._tensor(buf))
             self.prefill_chunks += 1
             if self.sc.max_wall_s is not None and self._now() - st.t_submit > self.sc.max_wall_s:
                 self.counters.budget_truncated += 1
@@ -453,7 +518,7 @@ class Engine:
                 self._retire(slot, st, "budget")
                 return
         st.ctx_len = n_ctx
-        if not bool(ok_dev):
+        if self._poisoned(st) or not bool(ok_dev):
             self._retire_nan(slot, st)
             return
         tok = self._sample_one(st, logits[0, n_valid - 1].float().cpu().numpy())

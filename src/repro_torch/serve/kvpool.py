@@ -15,13 +15,18 @@ those rows report length 0, so it may hold anything.
 This module owns only the accounting: which physical pages belong to which
 request, what is free, and the high-water and churn counters the scheduler
 exports. The device pools are written by the decode and prefill steps
-through the table this class maintains.
+through the table this class maintains. :meth:`KVPool.reserve` holds pages
+out of circulation (external pool pressure: a fault drill's squeeze), which
+the scheduler meets exactly as it meets real demand.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
 NULL_PAGE = 0
+# Owner of the pages reserve() holds out of circulation: never a real
+# request id (the engine's ids count up from 0).
+RESERVED_RID = -1
 
 
 class PoolExhausted(RuntimeError):
@@ -96,3 +101,20 @@ class KVPool:
 
     def owner(self, page: int):
         return self._owner.get(page)
+
+    def reserve(self, n: int) -> List[int]:
+        """Take up to ``n`` pages out of circulation under the owner
+        ``RESERVED_RID``. Never raises: reserves what is free and returns the
+        pages for :meth:`unreserve`."""
+        n = min(n, len(self._free))
+        return self.alloc(n, RESERVED_RID) if n > 0 else []
+
+    def unreserve(self, pages: Sequence[int]) -> None:
+        """Return pages taken by :meth:`reserve` to the freelist."""
+        if pages:
+            self.release(pages, RESERVED_RID)
+
+
+def pool_shape(n_pages: int, page_size: int, n_kv_heads: int, head_dim: int) -> tuple:
+    """Shape of one (unstacked) device pool in the fused layout."""
+    return (n_pages, page_size, 2 * n_kv_heads, head_dim)

@@ -1,9 +1,10 @@
 """Serving metrics, admission results, and diagnosable failures (port of
 ``repro/serve/metrics.py``).
 
-Every fault-handling decision the engine makes (NaN retirement, deadline
-expiry, admission rejection, livelock backoff, budget truncation) lands in a
-counter here instead of a hot-loop ``warnings.warn``;
+Every fault-handling decision the engine makes (a degraded kernel step, NaN
+retirement, deadline expiry, admission rejection, livelock backoff, budget
+truncation, an injected stall or poisoning) lands in a counter here instead
+of a hot-loop ``warnings.warn``;
 :meth:`repro_torch.serve.engine.Engine.metrics` snapshots them into a frozen
 :class:`ServeMetrics`.
 
@@ -15,10 +16,6 @@ counter here instead of a hot-loop ``warnings.warn``;
 * :class:`LivelockError`: raised only after the deterministic backoff fails,
   carrying the whole scheduler and pool snapshot in its message.
 
-The JAX package's degradation and fault-injection counters
-(``degraded_steps``, ``injected_stalls``, ``injected_poison``) have no
-counterpart: the port neither degrades a failing kernel launch to the plain
-path nor injects faults.
 """
 from __future__ import annotations
 
@@ -30,10 +27,12 @@ from typing import Dict, List, Optional, Set, Tuple
 class ServeCounters:
     """Mutable fault and latency tallies owned by one Engine."""
 
-    __slots__ = ("nan_retired", "deadline_expired", "budget_truncated", "truncated_max_new", "rejected_queue",
-                 "rejected_pool", "livelock_backoffs", "ttft_sum_s", "ttft_n", "tpot_sum_s", "tpot_n", "_warned")
+    __slots__ = ("degraded_steps", "nan_retired", "deadline_expired", "budget_truncated", "truncated_max_new",
+                 "rejected_queue", "rejected_pool", "livelock_backoffs", "injected_stalls", "injected_poison",
+                 "ttft_sum_s", "ttft_n", "tpot_sum_s", "tpot_n", "_warned")
 
     def __init__(self) -> None:
+        self.degraded_steps = 0       # steps or chunks served through the plain attention after an injected failure
         self.nan_retired = 0          # slots retired on a non-finite logit tap
         self.deadline_expired = 0     # requests retired or dropped past deadline
         self.budget_truncated = 0     # wall-clock budget truncations
@@ -41,6 +40,8 @@ class ServeCounters:
         self.rejected_queue = 0       # admissions rejected: queue watermark
         self.rejected_pool = 0        # admissions rejected: pool projection
         self.livelock_backoffs = 0    # no-progress backoff rounds
+        self.injected_stalls = 0      # fault-plan clock skews applied
+        self.injected_poison = 0      # fault-plan logit poisonings applied
         self.ttft_sum_s = 0.0         # time-to-first-token aggregate
         self.ttft_n = 0
         self.tpot_sum_s = 0.0         # time-per-output-token aggregate
@@ -53,6 +54,10 @@ class ServeCounters:
         if code not in self._warned:
             self._warned.add(code)
             warnings.warn(message, stacklevel=3)
+
+    @property
+    def warned_codes(self) -> Tuple[str, ...]:
+        return tuple(sorted(self._warned))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +81,7 @@ class ServeMetrics:
     prefill_chunks: int
     tokens_out: int
     # fault / SLO counters (mirrors ServeCounters)
+    degraded_steps: int
     nan_retired: int
     deadline_expired: int
     budget_truncated: int
@@ -83,6 +89,8 @@ class ServeMetrics:
     rejected_queue: int
     rejected_pool: int
     livelock_backoffs: int
+    injected_stalls: int
+    injected_poison: int
     # latency aggregates (None until a request has retired with the stat)
     ttft_mean_s: Optional[float]
     tpot_mean_s: Optional[float]

@@ -3,6 +3,7 @@
     train_step(opt_state, batch) -> (opt_state, metrics)
     guarded_train_step(opt_state, batch, controls) -> (opt_state, metrics)
     eval_step(batch) -> metrics
+    serve_step(params, cache, tokens) -> (next_tokens, logits, cache)
 
 Gradients come from autograd through the model's forward; the optimizer
 update runs under ``no_grad`` and the parameters are updated in place. The
@@ -162,3 +163,17 @@ def make_eval_step(model: ParamModel, forward_fn=None) -> Callable:
         return metrics
 
     return eval_step
+
+
+def make_serve_step(cfg) -> Callable:
+    """One batched decode step: ``(params, cache, tokens (B, 1)) ->
+    (next_tokens (B, 1) int32, logits (B, 1, vocab), cache)``, greedy argmax
+    as in the JAX package. The cache's tensors are written in place
+    (:func:`repro_torch.models.transformer.decode_step`)."""
+
+    def serve_step(params: Dict[str, torch.Tensor], cache: transformer.DecodeCache, tokens: torch.Tensor):
+        logits, new_cache = transformer.decode_step(cfg, params, cache, tokens)
+        next_tokens = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+        return next_tokens, logits, new_cache
+
+    return serve_step

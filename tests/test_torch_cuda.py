@@ -24,7 +24,9 @@ the split walks of the line sums and of B1, B4, B7, B10 and B12. The line sums
 of g^2 on long heavy-tailed lines (B1's, B4's and B7's v', B12's partial
 sums) hold to an f64 reference at 1e-6. The MoE layer (plain PyTorch on
 the card) runs twice bit for bit, forward and backward, and its bf16
-output holds to the f32 CPU layer at 3e-2 of max|y|.
+output holds to the f32 CPU layer at 3e-2 of max|y|. The serving fault drill
+runs through the engine on the card and holds benchmarks/serve_drill.py's
+gates exactly, with B14's launches counted against the steps not degraded.
 """
 import dataclasses
 import json
@@ -1548,3 +1550,31 @@ def test_flash_attention_against_dense_at_4096(dev, causal, dtype):
     for g, x in zip(got, want):
         assert g.dtype == dtype
         _close(g.float(), x, LINE_SUMS if dtype == torch.float32 else 2.0**-7)
+
+
+# ---------------------------------------------------------------------------
+# The serving fault drill on the card (B14 through the engine)
+# ---------------------------------------------------------------------------
+
+
+def test_serve_drill_on_the_card(dev):
+    """``benchmarks/serve_drill.py``'s run at its own size (reduced f32
+    gpt_small, 6 requests of 8 tokens, its plan) through the engine on the
+    card: the four gates hold, and B14 launches exactly once a layer for
+    every decode step and prefill chunk that was not degraded (a degraded one
+    runs the plain twin and no kernel). Then the drill's admission check."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Transformer
+    from repro_torch.serve import Request
+    from repro_torch.serve.drill import admission_check, run_drill
+
+    cfg = get_reduced("gpt_small")
+    params = Transformer(cfg, device="cpu", gen=torch.Generator().manual_seed(0)).params
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (6, 8), dtype=np.int32)
+    res = run_drill(cfg, params, [Request(prompt=p) for p in prompts], device=dev)
+    assert res.ok, res.failures + res.deviations
+    m = res.metrics
+    assert m.degraded_steps == 3
+    assert res.kernel_launches == cfg.n_layers * (m.decode_steps + m.prefill_chunks - m.degraded_steps)
+    flood = np.random.default_rng(2).integers(0, cfg.vocab_size, (8, 8), dtype=np.int32)
+    assert admission_check(cfg, params, flood, device=dev) == []
