@@ -89,8 +89,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 6. The sharded slice: 4 processes share the card as the ranks of a
    (data=2, model=2) mesh (``repro_torch.launch.mesh``; gloo, since NCCL
    refuses two ranks on one device; all-reduce and all-gather on the device
-   tensors), full-width gpt_small with the
-   global batch 8 x 1024 split 2 rows per rank. 6a: B9-B13 against their
+   tensors), full-width gpt_small with the global batch 8 x 1024, 4 rows a
+   data group (6c-6e train it cut to 4 of its 12 layers: the forward's
+   collectives, staged through the host by gloo, cost a layer each; 6a,
+   6b and 6f hold the whole model). 6a: B9-B13 against their
    twins on each rank's local shards of the Table-3 plan's 7 psum leaves
    (B10 base, ``with_snr``, ``with_health``, its ``plan_slim`` form logged;
    B11 ek and owner, two runs bit-equal; B12 and B13 on the psum groups,
@@ -109,16 +111,51 @@ Phases, each of which raises on failure (the script then exits non-zero):
    zeroed before and read after: Adam measuring SNR (B9), derived rules,
    SlimAdam with them and from-update SNR, Table-3 SlimAdam (B12/B13), its
    per-leaf route (B10/B11), a guarded step with an injected NaN that must
-   leave every rank's shards bit-identical, then 2 AdaLayer steps on each
+   leave every rank's shards bit-identical (every gradient entry counted
+   non-finite), then 2 AdaLayer steps on each
    route (every leaf in the psum regime, the embedding's shard one
    9,658,368-element line through B12/B13 and B10/B11; regime counts,
-   launches and wall time logged); losses against the unsharded port on
-   the same batches (1e-4; AdaLayer's within twice the unsharded port's
-   own difference when the batch is summed as 2 micro-batches, if that is
-   larger). 6d: a checkpoint saved on the mesh,
+   launches and wall time logged); the forward runs tensor- and
+   sequence-parallel over ``model`` (every attention and MLP region
+   counted in its parallel form, none by the fallback); losses against the
+   unsharded port on the same batches within 1e-4. 6d: a checkpoint saved on the mesh,
    restored on the mesh (bit-equal shards) and unsharded (equal crc32s).
    6e: the sharded step's time, 4 ranks on one card (not a multi-GPU
-   number), and the gradient all-reduce's. A rank that fails ends the run.
+   number), and the gradient all-reduce's; one more step profiled (busy
+   share on every rank) with the forward's collectives timed; peak memory
+   on every rank. A rank that fails ends the run.
+6f-6j. The forward on the mesh, 4 new ranks of the same (data=2, model=2)
+   mesh: gpt_small whole (8 x 1024), olmoe_1b_7b cut to 1 layer and
+   falcon_mamba_7b cut to 2 (2 x 2048: a row a data group; olmoe's 320
+   slots an expert a group) at full width through the sharded Trainer, in
+   f32 and in bf16 activations: Adam for 2 steps measuring SNR at step 2,
+   then in bf16 Table-3 SlimAdam for 2 (6f). Every layer's attention,
+   MLP, MoE or Mamba mixer must take its tensor-, sequence- or
+   expert-parallel form (counted a layer a step, forward and remat
+   recompute; no fallback); launches counted (B2; B9; B12/B13 where the
+   Table-3 plan has psum leaves; on falcon B15 twice a layer a step and the
+   backward once, all on 4096 of the 8192 channels). Rank 0 holds each run
+   to the unsharded port's from the same weights (olmoe's under a
+   ``SpecMesh`` with a ``data`` axis of 2: JAX's 2 dispatch groups) (6g):
+   f32 losses within 1e-4 and the first batch's gradients within 1e-5 of
+   each leaf's largest |g|, and the split form's losses (the model ranks'
+   partial sums added in one process by ``tests/_torch_split.py``, no
+   collective) within 1e-4 of unsharded; bf16 losses within max(1e-4,
+   twice the unsharded port's own difference when the batch is summed as
+   2 micro-batches) of the split form's, which round the mesh's bf16
+   partial sums as the mesh does (their distance from unsharded is
+   reported). bf16 (6h): step
+   times, the last Table-3 step profiled (busy share on every rank against
+   the first step's time; the regions' collectives timed, synchronized),
+   one gradient bucket's all-reduce, peak memory of every rank. 6i:
+   ``gpipe`` on a (4,) ``pipe`` mesh of the same ranks, a full-width
+   gpt_small block a stage (f32), 8 microbatches of 1 x 1024:
+   outputs and the gradients of x and the stage parameters against
+   ``sequential_reference`` (1e-5), 10 handoffs each way. 6j: moment-less
+   SlimAdam (Table 3 on gpt_small's leaves) sharded against unsharded, 2
+   updates (2e-6), no kernel launched. Then B15's training form and
+   ``ssm_scan_bwd`` at a rank's channel shard (1 x 2048 x 4096, N 16, bf16)
+   against their twins, timed beside their bounds.
 7. The SSM serving path: ``ssm_scan`` (B15) against its plain twin at the
    eval shape (1 x 2048 x 8192, N 16; the planner's sequence form) and the
    decode shape (4 rows, S = 1, a random h0; the one-token form), each run
@@ -1305,6 +1342,10 @@ def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dim
 SHARD_SHAPE, SHARD_AXES = (2, 2), ("data", "model")
 SHARD_RANKS = 4
 SHARD_TIMEOUT_S = 300       # group timeout: a rank that raises ends the others' collectives
+# 6c-6e train gpt_small cut to 4 of its 12 layers (full width): on the mesh
+# the forward's collectives cost a layer each, staged through the host by
+# gloo; 6a/6b and 6f hold the whole model.
+SHARD_TRAIN_LAYERS = 4
 TOL_PSUM_ABS = 2e-6         # psum leaves against the unsharded update (tests/test_psum_kernels.py:353)
 TOL_SHARDED_LOSS = 1e-4     # losses against the unsharded port: the gradient all-reduce sums in another
                             # order than one whole-batch backward
@@ -1620,7 +1661,7 @@ def sharded_rank(rank, rdv, out, rate, ckpt_dir):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import fused as F
     from repro_torch.models import Transformer
-    from repro_torch.sharding import ShardingContext, param_specs, use_sharding
+    from repro_torch.sharding import ShardingContext, logical, param_specs, use_sharding
     from repro_torch.sharding.shardspec import regime_counts
     from repro_torch.train import FaultPlan, GuardConfig, Trainer, TrainerConfig
     from repro_torch.train.trainer import slim_rule_dims
@@ -1666,17 +1707,23 @@ def sharded_rank(rank, rdv, out, rate, ckpt_dir):
         torch.cuda.empty_cache()
 
         # -- 6c. the sharded trainer: counted runs -----------------------------
+        cfg = dataclasses.replace(cfg, n_layers=SHARD_TRAIN_LAYERS)
         data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8, seed=0))
 
         def counted(label, trainer, steps=None):
             kernels.reset_launch_counts()
+            logical.region_counts(reset=True)
             t0 = time.perf_counter()
             trainer.run(steps)
             torch.cuda.synchronize()
             c = kernels.launch_counts()
+            regions = logical.region_counts(reset=True)
             say(f"[6c] {label}: {trainer.step} steps in {time.perf_counter() - t0:.1f} s, losses "
                 f"{[round(m['loss'], 5) for m in trainer.metrics_log]}, launches "
-                f"{ {k: v for k, v in c.items() if v} }")
+                f"{ {k: v for k, v in c.items() if v} }, forward regions {regions}")
+            # 12 heads and d_ff 3072 split over 2 model ranks: JAX's conditions hold everywhere
+            if set(regions) != {"attn", "mlp"} or any(r["fallback"] or not r["parallel"] for r in regions.values()):
+                raise AssertionError(f"{label}: forward regions {regions}")
             return c
 
         tc = dict(log_every=1, backend="fused", seed=0, measure_snr=True, snr_early_every=2)
@@ -1731,9 +1778,20 @@ def sharded_rank(rank, rdv, out, rate, ckpt_dir):
         mesh.barrier()
         allreduce_ms = (time.perf_counter() - t0) * 1e3
         del flat
-        res["timing"] = dict(step_ms=step_ms, grad_allreduce_ms=allreduce_ms)
+        # one more step, profiled, with the forward's collectives timed (each
+        # synchronizes the device before and after itself)
+        mesh.timed = True
+        mesh.collective_stats(reset=True)
+        prof = profile_device(torch, lambda: t3.run(t3.step + 1), 1, step_ms, "sharded step")
+        coll = mesh.collective_stats(reset=True)
+        mesh.timed = False
+        res["timing"] = dict(step_ms=step_ms, grad_allreduce_ms=allreduce_ms, busy_share=prof["busy_ms"] / step_ms,
+                             top_kernels=prof["kernels"][:10], collectives=coll,
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         say(f"[6e] sharded Table-3 SlimAdam step (4 ranks sharing one card over gloo, not a multi-GPU number): "
-            f"{step_ms:.1f} ms per step; the gradient all-reduce alone ({n_grad:,} f32) {allreduce_ms:.1f} ms")
+            f"{step_ms:.1f} ms per step; the gradient all-reduce alone ({n_grad:,} f32) {allreduce_ms:.1f} ms; the "
+            f"forward's collectives in a timed step: "
+            + ", ".join(f"{k} {v['calls']} calls {v['seconds'] * 1e3:.1f} ms" for k, v in coll.items()))
         del t3
         torch.cuda.empty_cache()
         per_leaf = Trainer(cfg, "slim", 1e-3, data, TrainerConfig(total_steps=1, log_every=1, backend="fused", seed=0),
@@ -1748,12 +1806,13 @@ def sharded_rank(rank, rdv, out, rate, ckpt_dir):
         before = state_copy(torch, guard._state())
         res["guard_launches"] = counted("guarded SlimAdam (Table 3), NaN injected at step 1", guard, 2)
         last = guard.metrics_log[-1]
-        if last["step_skipped"] != 1.0 or last["nonfinite_count"] != 124373760:
+        n_cut = sum(p.numel() for p in guard.params.values())
+        if last["step_skipped"] != 1.0 or last["nonfinite_count"] != n_cut:
             raise AssertionError(f"guarded NaN step: skipped {last['step_skipped']}, "
-                                 f"non-finite {last['nonfinite_count']}")
+                                 f"non-finite {last['nonfinite_count']} of {n_cut}")
         same_tensors("guarded NaN step", before, state_copy(torch, guard._state()))
-        say("[6c] guarded NaN step skipped on every rank, 124,373,760 gradient entries counted non-finite, "
-            "every rank's parameters and optimizer shards bit-identical")
+        say(f"[6c] guarded NaN step skipped on every rank, every one of the {n_cut:,} gradient entries counted "
+            f"non-finite, every rank's parameters and optimizer shards bit-identical")
         res["guard"] = dict(skipped=last["step_skipped"], nonfinite=last["nonfinite_count"])
         del guard, before
         torch.cuda.empty_cache()
@@ -1785,7 +1844,7 @@ def sharded_phase(torch, smi, rate):
     from repro_torch.train import Trainer, TrainerConfig
 
     log(f"[6] sharded slice: full-width gpt_small on a (data=2, model=2) mesh, {SHARD_RANKS} ranks sharing this "
-        f"card ({smi}), batch 8 x 1024 split 2 rows per rank")
+        f"card ({smi}), batch 8 x 1024, 4 rows a data group; its trainers cut to {SHARD_TRAIN_LAYERS} layers")
     work = ROOT / "build" / "chip_smoke_sharded"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1828,7 +1887,7 @@ def sharded_phase(torch, smi, rate):
                 raise AssertionError(f"rank {r} reports other {key} than rank 0")
 
     # The unsharded port on the same batches and rules, and its restore.
-    cfg = get_config("gpt_small")
+    cfg = dataclasses.replace(get_config("gpt_small"), n_layers=SHARD_TRAIN_LAYERS)
     data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8, seed=0))
     tc = dict(log_every=1, backend="fused", seed=0, measure_snr=True, snr_early_every=2)
     rules = {k: tuple(v) if v else None for k, v in r0["rules"].items()}
@@ -1894,9 +1953,520 @@ def sharded_phase(torch, smi, rate):
     log(f"[6] sharded phase: ranks {spawn_s:.1f} s (rank 0 {r0['seconds']:.1f} s), total "
         f"{time.perf_counter() - t0:.1f} s")
     summary = {k: v for k, v in r0.items() if k != "ckpt_crc"}
+    summary["timing"].update(busy_share_by_rank=[results[r]["timing"]["busy_share"] for r in sorted(results)],
+                             peak_gib_by_rank=[results[r]["timing"]["peak_gib"] for r in sorted(results)])
+    log(f"[6e] busy share by rank {[round(x, 3) for x in summary['timing']['busy_share_by_rank']]}, peak memory by "
+        f"rank {[round(x, 2) for x in summary['timing']['peak_gib_by_rank']]} GiB ({smi})")
     summary.update(reference_losses=ref, loss_rel_err=worst, spawn_s=spawn_s,
                    kernel_err={k: max(results[r]["kernels"][k]["err"] for r in results) for k in r0["kernels"]})
     return summary
+
+
+# -- the forward on the mesh: tensor, sequence and expert parallelism, GPipe (phase 6f-6j)
+
+# Full-width cases on the (data=2, model=2) mesh: (layers kept, None for the
+# whole model; global rows; sequence; lr). Depth is the only cut: each of the
+# 4 ranks holds p, g and the whole update in f32, and the sharded update's
+# megaplan buffers on top (olmoe's 2-layer cut, 1.05 B parameters, ran out of
+# the card's 80 GB in the first step's update with 4 ranks; its 1-layer cut
+# keeps 0.62 B; falcon's 2-layer cut 0.48 B).
+TP_CASES = {"gpt_small": (None, 8, 1024, 1e-3), "olmoe_1b_7b": (1, 2, 2048, 1e-4),
+            "falcon_mamba_7b": (2, 2, 2048, 1e-3)}
+TP_REGIONS = {"gpt_small": ("attn", "mlp"), "olmoe_1b_7b": ("attn", "moe"), "falcon_mamba_7b": ("ssm",)}
+TP_STEPS = 2                # Adam steps (SNR at the last), then Table-3 SlimAdam steps, per case and dtype
+TOL_TP_GRAD = 1e-5          # f32: each leaf's first-step gradient, of its largest |g|, against the unsharded port
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 1024   # GPipe: one full-width gpt_small block a stage
+
+
+def tp_case(torch, mesh, arch: str, dtype, lead: bool) -> dict:
+    """One full-width case on the mesh in one activation dtype (6f-6h): the
+    sharded Trainer (Adam measuring SNR, then in bf16 Table-3 SlimAdam;
+    TP_STEPS each, launch and region counters zeroed before and read after
+    each run), in f32 also the first batch's gradients through
+    ``make_grad_fn``; then
+    rank 0 alone runs the unsharded port on the same batches from the same
+    weights (olmoe's with JAX's G = 2 dispatch groups) and holds the
+    sharded run to it (:func:`tp_reference`). bf16 adds each step's
+    host time, one profiled step (device busy share; the regions'
+    collectives timed) and one gradient bucket's all-reduce."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import rules_to_dims, table3_rules
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.kernels import ssm_scan as sc
+    from repro_torch.optim import fused as F
+    from repro_torch.sharding import ShardingContext, logical, param_specs, use_sharding
+    from repro_torch.sharding.shardspec import regime_counts
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.step import AVERAGE_BUCKET, make_grad_fn
+
+    say = log if lead else (lambda *a: None)
+    layers, rows, seq, lr = TP_CASES[arch]
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype, **({"n_layers": layers} if layers else {}))
+    f32 = dtype == torch.float32
+    label = f"{arch} {'f32' if f32 else 'bf16'}"
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows, seed=0))
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)   # noqa: E731
+    res: dict = {"layers": cfg.n_layers}
+    say(f"[6f] {label}: {cfg.n_layers} layers at full width, batch {rows} x {seq} ({rows // 2} row(s) a data group), "
+        f"lr {lr}, through the sharded Trainer on the (data=2, model=2) mesh")
+    sharded_grads = None
+    # f32: Adam only (its first-step gradients and losses); the optimizer's
+    # state and kernels are f32 in both runs, so Table 3 runs in bf16
+    res["optimizers"] = optimizers = ("adam",) if f32 else ("adam", "slim")
+    with use_sharding(ShardingContext(mesh)):
+        for optimizer in optimizers:
+            tc = TrainerConfig(total_steps=TP_STEPS, log_every=1, backend="fused", seed=0,
+                               measure_snr=optimizer == "adam", snr_early_every=TP_STEPS)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(cfg, optimizer, lr, data, tc, gen=gen())
+            if optimizer == "slim":
+                dims = rules_to_dims(table3_rules(tr.meta), tr.meta)
+                specs = param_specs(tr.meta, tr.params)
+                plans = F.sharded_tree_plans(list(tr.params.values()), [dims[k] for k in tr.params],
+                                             [specs[k] for k in tr.params], mesh)
+                res["table3_regimes"] = regime_counts(plans)
+            if optimizer == "adam" and f32:
+                grads, _ = make_grad_fn(tr.model, mesh=mesh)(tr.batch(0))
+                if lead:
+                    sharded_grads = {k: g.detach().cpu() for k, g in grads.items()}
+                del grads
+            kernels.reset_launch_counts()
+            logical.region_counts(reset=True)
+            sc.ssm_scan.channel_launches.clear()
+            sc.ssm_scan_bwd.channel_launches.clear()
+            step_ms, profiled = [], not f32 and optimizer == "slim"
+            for k in range(1, TP_STEPS + 1):
+                mesh.barrier()
+                if profiled and k == TP_STEPS:
+                    # the last step profiled, with the regions' collectives
+                    # timed (each synchronizes the device before and after itself)
+                    mesh.timed = True
+                    mesh.collective_stats(reset=True)
+                    prof = profile_device(torch, lambda: tr.run(k), 1, statistics.median(step_ms),
+                                          f"{label} sharded step")
+                    coll = mesh.collective_stats(reset=True)
+                    mesh.timed = False
+                    continue
+                t0 = time.perf_counter()
+                tr.run(k)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            mesh.barrier()
+            run = dict(losses=[m["loss"] for m in tr.metrics_log], launches=kernels.launch_counts(),
+                       regions=logical.region_counts(reset=True), step_ms=step_ms,
+                       scan_channels=dict(sc.ssm_scan.channel_launches),
+                       bwd_channels=dict(sc.ssm_scan_bwd.channel_launches),
+                       peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+            if profiled:
+                run.update(profile=prof, collectives=coll)
+                n_grad = sum(p.numel() for p in tr.params.values())
+                flat = torch.zeros(min(AVERAGE_BUCKET, n_grad), device="cuda")
+                mesh.barrier()
+                t0 = time.perf_counter()
+                mesh.psum(flat, tuple(mesh.shape))
+                torch.cuda.synchronize()
+                run["bucket_allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+                run["buckets"] = -(-n_grad // AVERAGE_BUCKET)
+                del flat
+            say(f"  {label} {optimizer}: losses {[round(x, 5) for x in run['losses']]}, steps "
+                f"{[round(x, 1) for x in step_ms]} ms, peak {run['peak_gib']:.2f} GiB over the start, regions "
+                f"{run['regions']}, launches { {k: v for k, v in run['launches'].items() if v} }")
+            res[optimizer] = run
+            del tr
+            torch.cuda.empty_cache()
+    res["ranks_peak_gib"] = max(res[o]["peak_gib"] for o in optimizers)
+    mesh.barrier()
+    if lead:
+        res["reference"] = tp_reference(torch, cfg, data, lr, f32, sharded_grads, res, label)
+    mesh.barrier()
+    return res
+
+
+def tp_reference(torch, cfg, data, lr, f32: bool, sharded_grads, res: dict, label: str) -> dict:
+    """Rank 0 alone: the unsharded port's runs of :func:`tp_case`'s
+    trainers on the same batches and weights (the MoE under a ``SpecMesh``
+    with a ``data`` axis of 2: JAX's G = 2 dispatch groups), the first
+    batch's gradients in f32, and the checks. Each trainer also runs in the
+    split form (``tests/_torch_split.py``: the model ranks' partial sums
+    added in one process, no collective), and in bf16 with the batch as 2
+    micro-batches. f32: the sharded losses and the split form's against the
+    unsharded port (1e-4), the first-step gradients (1e-5). bf16, where the
+    mesh reduce-scatters bf16 partial sums and so rounds otherwise than one
+    whole-width product: the sharded losses against the split form's at
+    max(1e-4, twice what the unsharded port's own move as 2 micro-batches,
+    the gradient all-reduce's other summation order); their distance from
+    the unsharded port is reported."""
+    import contextlib
+
+    from repro_torch.sharding import ShardingContext, SpecMesh, use_sharding
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.step import make_grad_fn
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_split import split_regions
+
+    ref: dict = {}
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)   # noqa: E731
+    plain = ShardingContext(SpecMesh({"data": 2})) if cfg.n_experts else None
+    mesh_shape = dict(zip(SHARD_AXES, SHARD_SHAPE))
+    split = lambda: split_regions(mesh_shape["model"], rows=mesh_shape["data"])   # noqa: E731
+    orders = {"x1": (1, contextlib.nullcontext), "split": (1, split)}
+    if not f32:
+        orders["x2"] = (2, contextlib.nullcontext)
+    for optimizer in res["optimizers"]:
+        for order, (accum, form) in orders.items():
+            with use_sharding(plain), form():
+                tc = TrainerConfig(total_steps=TP_STEPS, log_every=1, backend="fused", seed=0)
+                tr = Trainer(cfg, optimizer, lr, data, tc, grad_accum=accum, gen=gen())
+                if f32 and optimizer == "adam" and order == "x1":
+                    grads, _ = make_grad_fn(tr.model)(tr.batch(0))
+                    worst = 0.0
+                    for k, g in grads.items():
+                        want, got = g.detach().cpu().double(), sharded_grads[k].double()
+                        scale = float(want.abs().max())
+                        err = float((got - want).abs().max()) / scale if scale else float(got.abs().max())
+                        worst = max(worst, err)
+                        if err > TOL_TP_GRAD:
+                            raise AssertionError(f"{label}: {k}'s sharded gradient {err:.3e} of its largest |g| "
+                                                 f"from the unsharded port's (tol {TOL_TP_GRAD:.0e})")
+                    ref["grad_rel_err"] = worst
+                    log(f"  {label}: first-step gradients, sharded against unsharded, every leaf within "
+                        f"{worst:.3e} of its largest |g| (tol {TOL_TP_GRAD:.0e})")
+                    del grads
+                tr.run()
+                ref[f"{optimizer}_{order}"] = [m["loss"] for m in tr.metrics_log]
+                del tr
+                torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    ref["own_x2"] = 0.0 if f32 else max(rel(ref[f"{opt}_x2"], ref[f"{opt}_x1"]) for opt in res["optimizers"])
+    tol = max(TOL_SHARDED_LOSS, 2 * ref["own_x2"])
+    for optimizer in res["optimizers"]:
+        got, x1, sp = res[optimizer]["losses"], ref[f"{optimizer}_x1"], ref[f"{optimizer}_split"]
+        ref[f"{optimizer}_rel_err"] = err = rel(got, x1)
+        ref[f"{optimizer}_rel_err_split"] = err_split = rel(got, sp)
+        ref[f"{optimizer}_split_rel_err"] = split_err = rel(sp, x1)
+        if f32:
+            log(f"  {label} {optimizer} losses sharded {got} unsharded {x1} split form {sp}: sharded {err:.3e}, "
+                f"split form {split_err:.3e} from unsharded (tol {TOL_SHARDED_LOSS:.0e})")
+            bad = err > TOL_SHARDED_LOSS or split_err > TOL_SHARDED_LOSS
+        else:
+            log(f"  {label} {optimizer} losses sharded {got} split form {sp}: worst rel diff {err_split:.3e} (tol "
+                f"max({TOL_SHARDED_LOSS:.0e}, twice the unsharded port's {ref['own_x2']:.3e} as 2 micro-batches) = "
+                f"{tol:.3e}); from unsharded {x1}: sharded {err:.3e}, split form {split_err:.3e}")
+            bad = err_split > tol
+        if not all(map(math.isfinite, got)) or bad:
+            raise AssertionError(f"{label} {optimizer}: sharded losses {got} outside the bar (unsharded {x1}, split "
+                                 f"form {sp})")
+    ref["tol"] = tol
+    return ref
+
+
+def tp_check(arch: str, r: dict, label: str) -> None:
+    """A case's counts on one rank: every region of the model in its
+    parallel form (forward and remat recompute, a layer a step) and none by
+    the fallback; the optimizer kernels its plans imply; on the SSM case
+    B15 twice a layer a step and the backward once, all on d_inner / 2
+    channels."""
+    n = r["layers"] * TP_STEPS * 2
+    for optimizer in r["optimizers"]:
+        run = r[optimizer]
+        want = {k: {"parallel": n, "fallback": 0} for k in TP_REGIONS[arch]}
+        if run["regions"] != want:
+            raise AssertionError(f"{label} {optimizer}: regions {run['regions']}, expected {want}")
+        c = run["launches"]
+        if c["mega_adam_update"] < TP_STEPS:
+            raise AssertionError(f"{label} {optimizer}: mega_adam_update launched {c['mega_adam_update']} times")
+        if arch == "falcon_mamba_7b":
+            d_l = 8192 // 2
+            if run["scan_channels"] != {d_l: n} or run["bwd_channels"] != {d_l: n // 2}:
+                raise AssertionError(f"{label} {optimizer}: B15 by channels {run['scan_channels']}, the backward "
+                                     f"{run['bwd_channels']}; expected {n} and {n // 2} launches on {d_l}")
+    if r["adam"]["launches"]["snr_stats_centered_partial_batched"] < 1:
+        raise AssertionError(f"{label}: B9 never launched in the SNR measurement")
+    if "slim" not in r:
+        return
+    slim, regimes = r["slim"]["launches"], r["table3_regimes"]
+    if regimes["psum"] and (slim["mega_slim_partial_stats_batched"] < TP_STEPS
+                            or slim["mega_slim_finalize_batched"] < TP_STEPS):
+        raise AssertionError(f"{label}: {regimes['psum']} psum leaves but B12/B13 launched "
+                             f"{slim['mega_slim_partial_stats_batched']}/{slim['mega_slim_finalize_batched']} times")
+
+
+def gpipe_case(torch, mesh, lead: bool) -> dict:
+    """6i: ``gpipe`` on a (4,) ``pipe`` mesh over the same 4 ranks, each
+    stage one full-width gpt_small block (f32), PIPE_MICRO microbatches of
+    1 x PIPE_SEQ: outputs against ``sequential_reference`` (1e-5 of the
+    largest |y|) on every rank; the gradients of x and of the stage
+    parameters of sum(out * cot) (each rank's loss divided by 4, summed over
+    the ranks) against the sequential reference's on rank 0; the handoffs
+    counted, the schedule's and the reference's time."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import _slot_forward, _sub
+    from repro_torch.sharding.pipeline import gpipe, sequential_reference
+
+    pipe = make_mesh((PIPE_STAGES,), ("pipe",), device="cuda")
+    cfg = dataclasses.replace(get_config("gpt_small"), n_layers=PIPE_STAGES, dtype=torch.float32)
+    model = transformer.Transformer(cfg, device=torch.device("cuda"),
+                                    gen=torch.Generator(device="cuda").manual_seed(3))
+    stage_params = _sub(model.params, "blocks.slot_0.")
+    slot = cfg.pattern[0]
+    stage = lambda p, x: _slot_forward(cfg, slot, p, x)[0]   # noqa: E731
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), generator=g, device="cuda").requires_grad_(True)
+    cot = torch.randn(x.shape, generator=g, device="cuda")
+    leaves = [x] + list(model.params.values())
+    pipe.collective_stats(reset=True)
+    pipe.barrier()
+    t0 = time.perf_counter()
+    out = gpipe(stage, stage_params, x, mesh=pipe)
+    grads = torch.autograd.grad((out * cot).sum() / PIPE_STAGES, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    pipe.barrier()
+    gpipe_ms = (time.perf_counter() - t0) * 1e3
+    calls = {k: v["calls"] for k, v in pipe.collective_stats(reset=True).items()}
+    grads = [None if gr is None else pipe.psum(gr, ("pipe",)) for gr in grads]
+    res = dict(gpipe_ms=gpipe_ms, calls=calls)
+    handoffs = PIPE_MICRO + PIPE_STAGES - 2
+    if calls != {"ppermute": 2 * handoffs, "psum": 2}:
+        raise AssertionError(f"gpipe: collectives {calls}, expected {2 * handoffs} handoffs and 2 psums")
+    t0 = time.perf_counter()
+    want = sequential_reference(stage, stage_params, x)
+    want_grads = torch.autograd.grad((want * cot).sum(), leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    res["sequential_ms"] = (time.perf_counter() - t0) * 1e3
+    scale = float(want.abs().max())
+    res["out_rel_err"] = float((out - want).abs().max()) / scale
+    if res["out_rel_err"] > TOL_TP_GRAD:
+        raise AssertionError(f"gpipe against the sequential reference: {res['out_rel_err']:.3e}")
+    worst = 0.0
+    for name, a, b in zip(["x"] + list(model.params), grads, want_grads):
+        if (a is None) != (b is None):
+            raise AssertionError(f"gpipe gradient of {name}: one side has none")
+        if a is None:
+            continue
+        s = float(b.abs().max())
+        worst = max(worst, float((a - b).abs().max()) / s if s else float(a.abs().max()))
+    res["grad_rel_err"] = worst
+    if worst > TOL_TP_GRAD:
+        raise AssertionError(f"gpipe gradients against the sequential reference's: {worst:.3e}")
+    if lead:
+        log(f"[6i] GPipe, {PIPE_STAGES} stages of one full-width gpt_small block, {PIPE_MICRO} microbatches of 1 x "
+            f"{PIPE_SEQ} (f32): outputs {res['out_rel_err']:.3e} and gradients {worst:.3e} of their largest from "
+            f"sequential_reference's; {handoffs} handoffs each way; forward + backward {gpipe_ms:.1f} ms (4 ranks "
+            f"on one card), sequential on one rank {res['sequential_ms']:.1f} ms")
+    del model, out, grads, want, want_grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def momentless_case(torch, mesh, lead: bool) -> dict:
+    """6j: moment-less SlimAdam (Table 3 on full-width gpt_small's leaves)
+    sharded against unsharded on the same whole gradients, 2 updates: u and
+    each rank's nu shards (2e-6), no first moment, no kernel launched (the
+    plain math, as the JAX package routes it)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import rules_to_dims, table3_rules
+    from repro_torch.core.slim_adam import scale_by_slim_adam
+    from repro_torch.models import Transformer
+    from repro_torch.optim import fused as F
+    from repro_torch.sharding import ShardingContext, param_specs, use_sharding
+    from repro_torch.sharding.shardspec import regime_counts
+
+    cfg = get_config("gpt_small")
+    with use_sharding(ShardingContext(mesh)):
+        model = Transformer(cfg, device=torch.device("cuda"), gen=torch.Generator(device="cuda").manual_seed(0))
+        params, meta = model.params, model.meta
+        specs = param_specs(meta, params)
+    dims = rules_to_dims(table3_rules(meta), meta)
+    names = list(params)
+    plans = F.sharded_tree_plans(list(params.values()), [dims[k] for k in names], [specs[k] for k in names], mesh)
+    grads = [{k: shard_inputs(torch, p.shape, 300 * s + i) for i, (k, p) in enumerate(params.items())}
+             for s in range(2)]
+    sharded = scale_by_slim_adam(dims, use_first_moment=False, backend="fused", mesh=mesh, param_specs=specs)
+    plain = scale_by_slim_adam(dims, use_first_moment=False, backend="fused")
+    with torch.no_grad():
+        s_state, p_state = sharded.init(params), plain.init(params)
+        kernels.reset_launch_counts()
+        for g in grads:
+            us, s_state = sharded.update(g, s_state)
+            up, p_state = plain.update(g, p_state)
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    if s_state.mu is not None or counts:
+        raise AssertionError(f"moment-less SlimAdam: mu {type(s_state.mu)}, launches {counts}")
+    worst = {"u": 0.0, "nu": 0.0}
+    for k, pl in zip(names, plans):
+        nu_spec = pl.nu_spec if pl.nu_spec is not None else pl.red_spec
+        for what, a, b in (("u", us[k], up[k]), ("nu", s_state.nu[k], mesh.shard(p_state.nu[k], nu_spec))):
+            err = float((a.double() - b.double()).abs().max())
+            worst[what] = max(worst[what], err)
+            if err > TOL_PSUM_ABS:
+                raise AssertionError(f"moment-less {k} {what}: {err:.3e} above {TOL_PSUM_ABS:.0e}")
+    if lead:
+        log(f"[6j] moment-less SlimAdam (Table 3, full-width gpt_small's leaves) on the mesh against unsharded, 2 "
+            f"updates: u {worst['u']:.3e}, owner-slice nu {worst['nu']:.3e} (tol {TOL_PSUM_ABS:.0e}); no first "
+            f"moment; no kernel launched (plain math)")
+    del model, params, grads, us, up, s_state, p_state
+    torch.cuda.empty_cache()
+    return dict(abs_err=worst, regimes=regime_counts(plans))
+
+
+def tp_rank(rank, rdv, out, rate):
+    """One rank of the (data=2, model=2) mesh on the card: phases 6f-6j.
+    Rank 0 logs and holds the references; every rank checks its counts."""
+    import datetime
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_mesh
+
+    t_start = time.perf_counter()
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    mesh = make_mesh(SHARD_SHAPE, SHARD_AXES, device="cuda", init_method=f"file://{rdv}", rank=rank,
+                     world_size=SHARD_RANKS, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    lead = rank == 0
+    res: dict = {}
+    for arch in TP_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"{arch} {'f32' if dtype == torch.float32 else 'bf16'}"
+            t0 = time.perf_counter()
+            r = tp_case(torch, mesh, arch, dtype, lead)
+            tp_check(arch, r, label)
+            r["seconds"] = time.perf_counter() - t0
+            res[label] = r
+    res["gpipe"] = gpipe_case(torch, mesh, lead)
+    res["momentless"] = momentless_case(torch, mesh, lead)
+    res["seconds"] = time.perf_counter() - t_start
+    out.put((rank, res))
+    mesh.barrier()
+
+
+def tp_phase(torch, smi, rate):
+    """Phases 6f-6j: spawn the 4 ranks of a (data=2, model=2) mesh on this
+    card for the forward's tensor-, sequence- and expert-parallel regions,
+    GPipe and moment-less SlimAdam; then B15 and its backward at a rank's
+    channel shard. Returns (report, launches summed over rank 0's counted
+    runs)."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+
+    log(f"[6f] the forward on the mesh: gpt_small, olmoe_1b_7b (1 layer) and falcon_mamba_7b (2 layers) at full "
+        f"width, f32 and bf16, {SHARD_RANKS} ranks sharing this card ({smi}); GPipe; moment-less SlimAdam")
+    work = ROOT / "build" / "chip_smoke_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=tp_rank, args=(r, str(work / "rdv"), out, rate)) for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + 900
+    try:
+        while len(results) < SHARD_RANKS:
+            try:
+                rank, res = out.get(timeout=2.0)
+                results[rank] = res
+            except queue.Empty:
+                failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                if failed:
+                    raise RuntimeError(f"rank {failed[0]} failed with exit code {procs[failed[0]].exitcode}")
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the ranks of phase 6f did not finish")
+        for p in procs:
+            p.join(timeout=SHARD_TIMEOUT_S)
+        if any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    spawn_s = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    r0 = results[0]
+    cases = [k for k in r0 if k not in ("gpipe", "momentless", "seconds")]
+    for r in range(1, SHARD_RANKS):
+        for case in cases:
+            for optimizer in r0[case]["optimizers"]:
+                if results[r][case][optimizer]["losses"] != r0[case][optimizer]["losses"]:
+                    raise AssertionError(f"rank {r} reports other {case} {optimizer} losses than rank 0")
+    summary = {"cases": {}, "gpipe": r0["gpipe"], "momentless": r0["momentless"], "spawn_s": spawn_s}
+    for case in cases:
+        c = r0[case]
+        row = dict(reference=c["reference"], layers=c["layers"], table3_regimes=c.get("table3_regimes"),
+                   seconds=c["seconds"], peak_gib_by_rank=[results[r][case]["ranks_peak_gib"] for r in results])
+        for optimizer in c["optimizers"]:
+            row[optimizer] = {k: v for k, v in c[optimizer].items() if k != "profile"}
+            if "profile" in c[optimizer]:
+                prof = c[optimizer]["profile"]
+                row[optimizer]["busy_share_by_rank"] = [results[r][case][optimizer]["profile"]["busy_ms"]
+                                                        / results[r][case][optimizer]["profile"]["wall_ms"]
+                                                        for r in results]
+                row[optimizer]["top_kernels"] = prof["kernels"][:10]
+                coll = ", ".join(f"{k} {v['calls']} calls {v['seconds'] * 1e3:.1f} ms"
+                                 for k, v in c[optimizer]["collectives"].items())
+                log(f"[6h] {case} sharded step ({smi}): {[round(x, 1) for x in c[optimizer]['step_ms']]} ms; busy "
+                    f"share by rank {[round(x, 3) for x in row[optimizer]['busy_share_by_rank']]}; the regions' "
+                    f"collectives {coll} (timed step, synchronized); one gradient bucket's all-reduce "
+                    f"{c[optimizer]['bucket_allreduce_ms']:.1f} ms x {c[optimizer]['buckets']} buckets; peak by rank "
+                    f"{[round(x, 2) for x in row['peak_gib_by_rank']]} GiB")
+        summary["cases"][case] = row
+    launches: dict = {}
+    for case in cases:
+        for optimizer in r0[case]["optimizers"]:
+            for k, v in r0[case][optimizer]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    summary["scan_shard"] = scan_shard_timings(torch, rate, smi)
+    log(f"[6f-6j] ranks {spawn_s:.1f} s (rank 0 {r0['seconds']:.1f} s)")
+    return summary, launches
+
+
+def scan_shard_timings(torch, rate: float, smi: str) -> dict:
+    """B15's training form (keeping its tile states) and ``ssm_scan_bwd`` at
+    a tensor-parallel rank's shape on falcon_mamba_7b's case: 1 row x 2048
+    steps x 4096 channels (d_inner / 2), N 16, bf16, against their twins,
+    timed beside their bounds."""
+    from repro_torch.kernels import ssm_scan as sc
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, s, d, n = 1, 2048, 8192 // 2, 16
+    args = scan_case(torch, gen, b, s, d, n, torch.bfloat16)
+    dy = torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    y, h, states = sc.ssm_scan(*args, keep_bounds=True)
+    y_want, h_want = sc.ssm_scan_plain(*args)
+    err_f = max(check("B15 shard y", y, y_want, TOL_LINE), check("B15 shard h", h, h_want, TOL_LINE))
+    got = sc.ssm_scan_bwd(*args, dy, None, states=states)
+    want = sc.ssm_scan_bwd_plain(*args, dy, None)
+    err_b = max(check(f"bwd shard {name}", g, w, TOL_SSM_BWD_DX_BF16 if g.dtype == torch.bfloat16 else TOL_SSM_BWD)
+                for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dd_skip", "dh0"), got, want))
+    fwd_ms = timer(lambda: sc.ssm_scan(*args, keep_bounds=True), reps=10)
+    bwd_ms = timer(lambda: sc.ssm_scan_bwd(*args, dy, None, states=states), reps=10)
+    fwd_plain = timer(lambda: sc.ssm_scan_plain(*args), reps=1)
+    bwd_plain = timer(lambda: sc.ssm_scan_bwd_plain(*args, dy, None), reps=1)
+    fwd_bound, fwd_by = scan_bound(args, rate)
+    bwd_bound, bwd_by = scan_bwd_bound(args, dy, None, got, rate)
+    log(f"[6f] at a rank's channel shard (1 x {s} x {d}, N {n}, bf16; {smi}): B15's training form {fwd_ms:.4f} ms "
+        f"(plain {fwd_plain:.4f}, bound {fwd_bound:.4f} {fwd_by}); ssm_scan_bwd {bwd_ms:.4f} ms (plain "
+        f"{bwd_plain:.4f}, bound {bwd_bound:.4f} {bwd_by}); errors {err_f:.3e} / {err_b:.3e}")
+    del args, dy, y, h, states, got, want, timer
+    torch.cuda.empty_cache()
+    return dict(shape=[b, s, d, n], fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain, fwd_bound_ms=fwd_bound, fwd_err=err_f,
+                bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain, bwd_bound_ms=bwd_bound, bwd_err=err_b)
 
 
 # -- the SSM serving path (phase 7) and the parameter-writing API (phase 8) -----------
@@ -4835,6 +5405,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["sharded"] = sharded = sharded_phase(torch, smi, rate)
     stamp("6")
+    report["tp"], tp_launches = tp_phase(torch, smi, rate)
+    stamp("6f-6j")
     timer = Timer(torch)
     report["ssm"], ssm_entry = ssm_phase(torch, timer, rate, smi)
     stamp("7")
@@ -4946,10 +5518,12 @@ def main() -> int:
     # Phases 10-15 launch B14 (olmoe, the dense zoo's serving, the fault
     # drills), B1, B2, B5 (olmoe training, diy_slim, the zoo's training), B15
     # (diy_slim, the jamba period) and the scan's backward (diy_slim), none
-    # with a flag.
+    # with a flag; phase 6f-6h's counted runs on rank 0 B1, B2, B5, B9, B12,
+    # B13, and B15 and the backward on falcon's channel shards.
     for e in line["kernels"]:
         e["launches"] += sum(c.get(e["name"], 0) for c in (moe_serve_launches, moe_train_launches, diy_launches,
-                                                             zoo_train_launches, zoo_serve_launches, fault_launches))
+                                                             zoo_train_launches, zoo_serve_launches, fault_launches,
+                                                             tp_launches))
     report["b14_held"] = B14_HELD
     paged_entry["max_abs_err"] = max(paged_entry["max_abs_err"], *(h["err"] for h in B14_HELD.values()))
     paged_entry["olmoe_decode_ms"] = B14_HELD["olmoe decode bfloat16 q bfloat16 pool"]["ms"]

@@ -75,7 +75,9 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
     the numerator is g). Every backend runs it through the per-leaf plain
     math, as the JAX package's fused backend does: the kernels read and
     write a first moment, so serving this variant through them would stream
-    a discarded full-size m. It is not supported on a mesh.
+    a discarded full-size m. On a mesh its state is sharded like the
+    first-moment variant's and the update runs by leaf regime in plain
+    math: a local leaf on its shard, a psum leaf in the plain psum form.
 
     ``mesh`` + ``param_specs`` make the fused backend sharded: the state
     holds this rank's shards (a psum leaf's reduced moment as its owner
@@ -83,8 +85,6 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
     with SNR and health equal on every rank (``repro_torch.optim.fused``)."""
     resolve_backend(backend)
     mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_slim_adam")
-    if mesh is not None and not use_first_moment:
-        raise NotImplementedError("scale_by_slim_adam: use_first_moment=False is not supported on a mesh")
 
     def spec_leaves(names):
         from ..sharding.shardspec import normalize_spec_leaves
@@ -96,9 +96,11 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
         if mesh is not None and resolve_backend(backend, device) == "fused":
             names = list(params)
             mu, nu = fused.init_sharded_moments(list(params.values()), [tuple(dims[k]) for k in names],
-                                                spec_leaves(names), mesh, reduced=True)
+                                                spec_leaves(names), mesh, reduced=True,
+                                                use_first_moment=use_first_moment)
             return ScaleBySlimAdamState(count=torch.zeros((), dtype=torch.int32, device=device),
-                                        mu=dict(zip(names, mu)), nu=dict(zip(names, nu)))
+                                        mu=dict(zip(names, mu)) if use_first_moment else None,
+                                        nu=dict(zip(names, nu)))
         return ScaleBySlimAdamState(
             count=torch.zeros((), dtype=torch.int32, device=device),
             mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
@@ -115,11 +117,13 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
         d = [tuple(dims[k]) for k in names]
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
         snr = health = None
-        if use_first_moment and resolve_backend(backend, g[0].device) == "fused":
+        fused_route = resolve_backend(backend, g[0].device) == "fused"
+        if fused_route and (use_first_moment or fused._use_sharded(mesh, param_specs)):
             if mesh is not None:
                 kw.update(mesh=mesh, spec_leaves=spec_leaves(names))
-            out = fused.slim_tree_update(g, mu, nu, d, bucket_min_size=bucket_min_size, emit_snr=emit_snr,
-                                         with_health=emit_health, megakernel=megakernel, **kw)
+            out = fused.slim_tree_update(g, mu if use_first_moment else None, nu, d, bucket_min_size=bucket_min_size,
+                                         emit_snr=emit_snr, with_health=emit_health, megakernel=megakernel,
+                                         use_first_moment=use_first_moment, **kw)
             u, mu, nu = out[:3]
             snr = out[3] if emit_snr else None
             health = out[-1] if emit_health else None

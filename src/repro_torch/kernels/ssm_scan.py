@@ -195,7 +195,8 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, *, keep_bounds: bool = False):
     walk as it passes (padded states 0); S = 1 then takes the sequence form
     (one chunk of one tile), which can keep it. On the CPU ``states`` is
     None: the plain backward needs none. ``ssm_scan.form_launches`` counts
-    the calls of each form: ``token``, ``seq`` and ``seq_keep``."""
+    the calls of each form: ``token``, ``seq`` and ``seq_keep``;
+    ``ssm_scan.channel_launches`` the calls by channel count D."""
     device = _check(x, dt, a, b_t, c_t, d_skip, h0)
     s = x.shape[1]
     if device.type == "cpu":
@@ -225,6 +226,7 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, *, keep_bounds: bool = False):
                  plan.chunk, plan.chunks, int(vec))
     ssm_scan.launches += 1
     ssm_scan.form_launches["seq_keep" if keep is not None else "token" if plan.form == FORM_TOKEN else "seq"] += 1
+    ssm_scan.channel_launches[d] = ssm_scan.channel_launches.get(d, 0) + 1
     return (y, h_out, keep) if keep_bounds else (y, h_out)
 
 
@@ -387,6 +389,7 @@ def ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None, *, states=No
                  dd.data_ptr(), dh0.data_ptr(), build.ptr(h_last), ws["ws_bc"].data_ptr(), ws["ws_a"].data_ptr(),
                  ws["ws_d"].data_ptr(), bsz, s, d, n, plan.tiles, plan.blocks, int(vec))
     ssm_scan_bwd.launches += 1
+    ssm_scan_bwd.channel_launches[d] = ssm_scan_bwd.channel_launches.get(d, 0) + 1
     out = (dx, ddt, da, db, dc, dd, dh0)
     return out + (h_last,) if with_final else out
 
@@ -403,4 +406,7 @@ def _entry_bwd():
 
 ssm_scan.launches = 0
 ssm_scan.form_launches = {"token": 0, "seq": 0, "seq_keep": 0}
+# launches by channel count D (a tensor-parallel rank scans d_inner / tp)
+ssm_scan.channel_launches = {}
 ssm_scan_bwd.launches = 0
+ssm_scan_bwd.channel_launches = {}

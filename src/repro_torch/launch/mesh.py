@@ -20,6 +20,23 @@ CPU every collective is gloo's own.
 Every process group gets a timeout, so a rank that raises ends the run
 instead of leaving the others blocked in a collective.
 
+Collectives with a backward. The forward's tensor-, sequence- and
+expert-parallel regions and the GPipe schedule move activations through
+:func:`all_gather`, :func:`psum_scatter`, :func:`psum` and :func:`ppermute`
+(``lax.all_gather(..., tiled=True)``, ``lax.psum_scatter(..., tiled=True)``,
+``lax.psum``, ``lax.ppermute``), each a ``torch.autograd.Function`` whose
+backward is its transpose: all-gather and reduce-scatter each other's,
+psum its own, a permutation its inverse. Under that rule the gradients of
+``sum over ranks of each rank's loss`` come out on the ranks that own the
+weights they belong to. The reduce-scatter is an all-reduce and a cut
+(gloo on a card, where it runs here, has no reduce-scatter of device
+tensors), and the permutation an all-gather over its axis from which each
+rank takes its source's block (gloo's point-to-point calls take no device
+tensors). :meth:`Mesh.collective_stats` counts every call of these four,
+with its bytes; with ``mesh.timed = True`` each call also synchronizes the
+device before and after itself and adds its wall time (off by default: it
+serializes the host with the card).
+
 The production meshes stay functions, and the TPU's hardware constants are
 not carried over.
 """
@@ -29,6 +46,7 @@ import datetime
 import itertools
 import math
 import os
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -56,6 +74,8 @@ class Mesh:
         self.backend = backend
         self.rank = dist.get_rank()
         self.coords: Dict[str, int] = dict(zip(self.axis_names, (int(c) for c in device_mesh.get_coordinate())))
+        self.timed = False
+        self._stats: Dict[str, List[float]] = {}
         self._groups: Dict[frozenset, Tuple[Optional[dist.ProcessGroup], List[int]]] = {}
         # One group per axis subset, created in the same order on every rank
         # (new_group is collective): single axes take the device mesh's own
@@ -155,6 +175,37 @@ class Mesh:
     def barrier(self) -> None:
         dist.barrier()
 
+    def group_index(self, axes: Sequence[str]) -> int:
+        """This rank's position in ``axes``' group (row-major over the axes,
+        the first most significant), the block a tiled collective gives it."""
+        idx = 0
+        for a in axes:
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def collective_stats(self, reset: bool = False) -> Dict[str, Dict[str, float]]:
+        """``{kind: {'calls', 'bytes', 'seconds'}}`` of the differentiable
+        collectives since the last reset (``seconds`` only while
+        ``timed``), forward and backward calls alike."""
+        out = {k: dict(calls=v[0], bytes=v[1], seconds=v[2]) for k, v in self._stats.items()}
+        if reset:
+            self._stats = {}
+        return out
+
+    def _record(self, kind: str, nbytes: int, fn):
+        if self.timed and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn()
+        if self.timed and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        row = self._stats.setdefault(kind, [0, 0, 0.0])
+        row[0] += 1
+        row[1] += nbytes
+        if self.timed:
+            row[2] += time.perf_counter() - t0
+        return out
+
     def transport_note(self) -> str:
         """One line saying how this mesh's collectives move data."""
         where = f"{self.size} ranks on {self.device} over {self.backend}"
@@ -190,6 +241,111 @@ class Mesh:
                 view = view.narrow(d, start, length)
             view.copy_(part)
         return out
+
+
+def _axes(axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _gather_cat(mesh: Mesh, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    return mesh._record("all_gather", x.numel() * x.element_size() * mesh.axis_size(axes),
+                        lambda: torch.cat(mesh.all_gather(x, axes), dim=dim))
+
+
+def _sum_cut(mesh: Mesh, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    n = mesh.axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does not split over {axes} ({n})")
+    blk = x.shape[dim] // n
+    return mesh._record("psum_scatter", x.numel() * x.element_size(),
+                        lambda: mesh.psum(x, axes).narrow(dim, mesh.group_index(axes) * blk, blk).contiguous())
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather_cat(mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_cut(ctx.mesh, g.contiguous(), ctx.axes, ctx.dim), None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _sum_cut(mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_cat(ctx.mesh, g.contiguous(), ctx.axes, ctx.dim), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh._record("psum", x.numel() * x.element_size(), lambda: mesh.psum(x, axes))
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        return mesh._record("psum", g.numel() * g.element_size(), lambda: mesh.psum(g, ctx.axes)), None, None
+
+
+def _permute(mesh: Mesh, x: torch.Tensor, axis: str, source: Dict[int, int]) -> torch.Tensor:
+    """``x`` of the rank at index ``source[i]`` along ``axis`` for this rank
+    at index i, zeros where i has no source."""
+    parts = mesh._record("ppermute", x.numel() * x.element_size() * mesh.shape[axis],
+                         lambda: mesh.all_gather(x, (axis,)))
+    src = source.get(mesh.axis_index(axis))
+    return torch.zeros_like(x) if src is None else parts[src]
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        return _permute(mesh, x.contiguous(), axis, {d: s for s, d in perm})
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(ctx.mesh, g.contiguous(), ctx.axis, {s: d for s, d in ctx.perm}), None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)``: the blocks of every
+    rank of ``axis``' group (a name or a tuple of names), concatenated along
+    ``dim`` in group order. Its backward is :func:`psum_scatter`."""
+    return _AllGather.apply(x.contiguous(), mesh, _axes(axis), dim)
+
+
+def psum_scatter(x: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor:
+    """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``: the
+    sum over ``axis``' group, of which this rank keeps its block along
+    ``dim``; the sum is in ``x``'s dtype. Its backward is
+    :func:`all_gather`."""
+    return _PsumScatter.apply(x.contiguous(), mesh, _axes(axis), dim)
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """``lax.psum(x, axis)`` with a backward (itself)."""
+    return _Psum.apply(x.contiguous(), mesh, _axes(axis))
+
+
+def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute(x, axis, perm)``: the rank at index ``d`` along
+    ``axis`` receives ``x`` of the rank at ``s`` for each ``(s, d)`` in
+    ``perm``, and zeros if it is no destination. Its backward sends the
+    gradients along the inverse permutation."""
+    return _PPermute.apply(x, mesh, axis, tuple((int(s), int(d)) for s, d in perm))
+
+
+def axis_index(mesh: Mesh, axis: str) -> int:
+    """``lax.axis_index(axis)``."""
+    return mesh.axis_index(axis)
 
 
 class NamedSharding:

@@ -34,6 +34,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..kernels.paged_attention import paged_attention, paged_attention_plain
+from ..sharding import logical
 from .common import ParamSpec, apply_rotary, rotary_embedding, zeros_init
 
 NEG_INF = -1e30
@@ -223,7 +224,70 @@ def flash_attention(q, k, v, causal: bool = True, kv_block: int = 1024) -> torch
 
 def attention_forward(p, x: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
     """Full-sequence forward (training): dense attention up to
-    ``dense_threshold`` positions, the flash path above it."""
+    ``dense_threshold`` positions, the flash path above it. On a process
+    mesh with ``tp > 1`` model ranks, x is the residual stream in the
+    forward's layout: the tensor-parallel region where JAX takes its own
+    (the sequence cut over ``model``, heads divisible, no qkv biases), else
+    JAX's fallback (the region whole, this rank's part kept)."""
+    lay = logical.active_layout()
+    if lay.tp > 1:
+        ok = lay.sp and cfg.n_heads % lay.tp == 0 and not cfg.qkv_bias
+        logical.region("attn", ok)
+        if ok:
+            return _attention_explicit_tp(p, x, cfg, lay)
+        return lay.whole(lambda xf: _attention(p, xf, cfg), x)
+    return _attention(p, x, cfg)
+
+
+def _full_attention(q, k, v, cfg: AttnConfig) -> torch.Tensor:
+    s = q.shape[1]
+    if s <= cfg.dense_threshold:
+        return dense_attention(q, k, v, causal=cfg.causal)
+    return flash_attention(q, k, v, cfg.causal, _largest_block(s, cfg.kv_block))
+
+
+def _attention_shard(p, x_full: torch.Tensor, cfg: AttnConfig, i: int, n: int) -> torch.Tensor:
+    """Model rank ``i`` of ``n``'s partial sum of the out-projection (in x's
+    dtype): its ``h/n`` query heads (narrows of the whole weights), rope on
+    the whole sequence's positions, dense or flash attention by
+    ``dense_threshold``. With ``kv % n == 0`` the rank projects its own KV
+    heads; otherwise K/V are projected whole and each query head takes its
+    group ``(i * h_l + arange(h_l)) * kv // h``."""
+    dtype = x_full.dtype
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h_l = h // n
+    s = x_full.shape[1]
+    kv_sharded = kv % n == 0
+    wk, wv = p["wk"], p["wv"]
+    if kv_sharded:
+        wk, wv = wk.narrow(1, i * (kv // n), kv // n), wv.narrow(1, i * (kv // n), kv // n)
+    q = torch.einsum("bsd,dhk->bshk", x_full, p["wq"].narrow(1, i * h_l, h_l).to(dtype))
+    k = torch.einsum("bsd,dhk->bshk", x_full, wk.to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", x_full, wv.to(dtype))
+    if cfg.rope:
+        sin, cos = rotary_embedding(torch.arange(s, device=x_full.device), hd, cfg.rope_base)
+        q, k = apply_rotary(q, sin, cos), apply_rotary(k, sin, cos)
+    if kv_sharded:
+        k, v = _repeat_kv(k, h_l // k.shape[2]), _repeat_kv(v, h_l // v.shape[2])
+    else:
+        groups = (i * h_l + torch.arange(h_l, device=x_full.device)) * kv // h
+        k, v = k.index_select(2, groups), v.index_select(2, groups)
+    out = _full_attention(q, k, v, cfg)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].narrow(0, i * h_l, h_l).to(dtype)).to(dtype)
+
+
+def _attention_explicit_tp(p, x: torch.Tensor, cfg: AttnConfig, lay) -> torch.Tensor:
+    """Megatron-SP tensor parallelism (``repro/models/attention.py:263``):
+    one all-gather of the sequence over ``model`` in, this rank's partial
+    sum (:func:`_attention_shard`), reduce-scattered back along the
+    sequence."""
+    from ..launch.mesh import all_gather, psum_scatter
+
+    x_full = all_gather(x, lay.mesh, "model", 1)
+    return psum_scatter(_attention_shard(p, x_full, cfg, lay.idx, lay.tp), lay.mesh, "model", 1)
+
+
+def _attention(p, x: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
     s = x.shape[1]
     rope_sincos = None
     if cfg.rope:
@@ -231,11 +295,7 @@ def attention_forward(p, x: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
     q, k, v = _project_qkv(p, x, rope_sincos)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    if s <= cfg.dense_threshold:
-        out = dense_attention(q, k, v, causal=cfg.causal)
-    else:
-        out = flash_attention(q, k, v, cfg.causal, _largest_block(s, cfg.kv_block))
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return torch.einsum("bshk,hkd->bsd", _full_attention(q, k, v, cfg), p["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -12,21 +12,28 @@ dim, weights cast to the activation dtype at use), and the combine gathers
 each token's k expert rows in choice order and sums them, where the JAX
 layer scatter-adds: no atomics, so a token's output, and under remat its
 recompute, is the same on every run. No step waits for the device (no
-boolean-mask indexing), so the host runs ahead of the card. Expert parallelism on a mesh is not
-ported: under a sharding context whose mesh has more than one device,
-:func:`moe_forward` raises.
+boolean-mask indexing), so the host runs ahead of the card.
+
+Under a sharding context the tokens are dispatched in G groups, as the JAX
+layer does: G is the product of the mesh's batch axes (1 where the batch
+does not divide), and each group's capacity comes from its own
+``b * s / G`` tokens. Under a device-free ``SpecMesh`` the one process
+computes all G groups, so the port's forward gives the JAX package's mesh
+numbers. On a process mesh each rank holds one group's rows; with a
+``model`` axis the dense MLP runs tensor- and sequence-parallel
+(:func:`_mlp_explicit_tp`) and the MoE expert-parallel over ``model``
+(:func:`moe_forward`).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..sharding.logical import current as current_sharding
+from ..sharding import logical
 from .common import ParamSpec
 
 
@@ -47,13 +54,53 @@ def mlp_specs(d_model: int, d_ff: int, *, gated: bool, w_init, down_init):
     return specs
 
 
-def mlp_forward(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
+def _mlp(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
     h = x @ p["w_up"].to(x.dtype)
     if gated:
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * h
     else:
         h = gelu(h)
     return h @ p["w_down"].to(x.dtype)
+
+
+def mlp_forward(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
+    """The dense MLP. On a process mesh with ``tp > 1`` model ranks, x is
+    the residual stream in the forward's layout: the tensor-parallel region
+    where JAX takes its own (the sequence cut over ``model``, ``d_ff``
+    divisible), else JAX's fallback (the region whole, this rank's part
+    kept)."""
+    lay = logical.active_layout()
+    if lay.tp > 1 and x.ndim == 3:
+        ok = lay.sp and p["w_up"].shape[1] % lay.tp == 0
+        logical.region("mlp", ok)
+        if ok:
+            return _mlp_explicit_tp(p, x, gated, lay)
+        return lay.whole(lambda xf: _mlp(p, xf, gated=gated), x)
+    return _mlp(p, x, gated=gated)
+
+
+def _mlp_shard(p, x_full: torch.Tensor, gated: bool, i: int, n: int) -> torch.Tensor:
+    """Model rank ``i`` of ``n``'s partial sum (in x's dtype): its columns of
+    up/gate and rows of down, narrows of the whole weights cast to x's
+    dtype."""
+    dtype = x_full.dtype
+    f_l = p["w_up"].shape[1] // n
+    h = x_full @ p["w_up"].narrow(1, i * f_l, f_l).to(dtype)
+    if gated:
+        h = F.silu(x_full @ p["w_gate"].narrow(1, i * f_l, f_l).to(dtype)) * h
+    else:
+        h = gelu(h)
+    return (h @ p["w_down"].narrow(0, i * f_l, f_l).to(dtype)).to(dtype)
+
+
+def _mlp_explicit_tp(p, x: torch.Tensor, gated: bool, lay) -> torch.Tensor:
+    """Megatron-SP tensor parallelism (``repro/models/mlp_moe.py:60``): one
+    all-gather of the sequence over ``model`` in, this rank's partial sum
+    (:func:`_mlp_shard`), reduce-scattered back along the sequence."""
+    from ..launch.mesh import all_gather, psum_scatter
+
+    x_full = all_gather(x, lay.mesh, "model", 1)
+    return psum_scatter(_mlp_shard(p, x_full, gated, lay.idx, lay.tp), lay.mesh, "model", 1)
 
 
 # ---------------------------------------------------------------------------
@@ -194,9 +241,10 @@ _drop_log: Optional[List[torch.Tensor]] = None
 @contextlib.contextmanager
 def count_drops() -> Iterator[List[torch.Tensor]]:
     """Within the block, every :func:`moe_forward` call appends to the
-    yielded list the number of routing choices it dropped (a 0-d int64
-    device tensor, read by the caller when it likes). A remat recompute
-    routes again and appends again."""
+    yielded list the number of routing choices it dropped in each of its
+    dispatch groups (a (G,) int64 device tensor; on a process mesh, (1,):
+    this rank's group), read by the caller when it likes. A remat
+    recompute routes again and appends again."""
     global _drop_log
     prev, _drop_log = _drop_log, []
     try:
@@ -205,33 +253,112 @@ def count_drops() -> Iterator[List[torch.Tensor]]:
         _drop_log = prev
 
 
+class Routing(NamedTuple):
+    """One call's routing: f32 router logits and probabilities (n, E) over
+    the tokens in group-major order, the renormalised gates and expert ids
+    (n, k), each group's :class:`Dispatch` and the capacity."""
+    logits: torch.Tensor
+    probs: torch.Tensor
+    gates: torch.Tensor
+    eidx: torch.Tensor
+    groups: List[Dispatch]
+    capacity: int
+
+
+def moe_groups(b: int, lay) -> int:
+    """JAX's G for a batch of ``b`` rows: the product of the batch axes, or
+    1 where it does not divide ``b``. On a process mesh each rank holds one
+    group's rows."""
+    g = lay.groups
+    if lay.process or b % g:
+        return 1
+    return g
+
+
+def moe_route(p, xf: torch.Tensor, cfg: MoEConfig, groups: int) -> Routing:
+    """Route ``xf`` (n, d) and dispatch it in ``groups`` contiguous groups of
+    ``n / groups`` tokens, each with the capacity of its own tokens."""
+    e, k = cfg.n_experts, cfg.top_k
+    n_g = xf.shape[0] // groups
+    logits, probs, gates, eidx = _router(xf, p["router"], k)
+    capacity = moe_capacity(n_g, cfg)
+    dps = [_dispatch_group(xs, es, e, k, capacity) for xs, es in zip(xf.split(n_g), eidx.split(n_g))]
+    return Routing(logits, probs, gates, eidx, dps, capacity)
+
+
+def _aux_loss(routing: Routing, cfg: MoEConfig, lay, s: int) -> torch.Tensor:
+    """The load-balance loss ``aux_coef * E * sum(density * density_proxy)``
+    with density from each token's top-1 choice and both means over every
+    token of every group, plus the router z-loss. On a process mesh each
+    rank sums the tokens it owns (its rows, its part of the sequence) and
+    one all-reduce completes the sums before the product."""
+    e = cfg.n_experts
+    hits = F.one_hot(routing.eidx[:, 0], e).float()
+    lse2 = torch.square(torch.logsumexp(routing.logits, dim=-1))
+    if not lay.process:
+        density = hits.mean(dim=0)
+        proxy = routing.probs.mean(dim=0)
+        zloss = torch.mean(lse2)
+    else:
+        from ..launch.mesh import psum
+
+        start, n_own = lay.own(s)
+        own = lambda t: t.reshape(-1, s, *t.shape[1:]).narrow(1, start, n_own)   # noqa: E731
+        part = torch.cat([own(hits).sum(dim=(0, 1)), own(routing.probs).sum(dim=(0, 1)),
+                          own(lse2).sum().reshape(1)])
+        axes = logical.batch_axes(lay.mesh) + (("model",) if lay.tp > 1 else ())
+        total = psum(part, lay.mesh, axes) if axes else part
+        n_all = routing.logits.shape[0] * lay.groups
+        density, proxy, zloss = total[:e] / n_all, total[e:2 * e] / n_all, total[2 * e] / n_all
+    return cfg.aux_coef * e * torch.sum(density * proxy) + cfg.router_z_coef * zloss
+
+
 def moe_forward(p, x: torch.Tensor, cfg: MoEConfig, *,
                 with_aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, f32 aux loss): the
     load-balance loss ``aux_coef * E * sum(density * density_proxy)`` with
     density from each token's top-1 choice, plus the router z-loss.
     ``with_aux=False`` (the decode steps, which drop it) returns None for
-    the aux loss and skips its work."""
-    ctx = current_sharding()
-    if ctx is not None and math.prod(int(s) for s in ctx.mesh.shape.values()) > 1:
-        raise NotImplementedError("expert parallelism on a mesh is not ported; moe_forward runs on one device")
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    n = b * s
-    xf = x.reshape(n, d)
+    the aux loss and skips its work.
 
-    logits, probs, gates, eidx = _router(xf, p["router"], k)
-
-    aux_loss = None
-    if with_aux:
-        density = F.one_hot(eidx[:, 0], e).float().mean(dim=0)
-        density_proxy = probs.mean(dim=0)
-        aux = cfg.aux_coef * e * torch.sum(density * density_proxy)
-        zloss = cfg.router_z_coef * torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-        aux_loss = aux + zloss
-
-    dp = _dispatch_group(xf, eidx, e, k, moe_capacity(n, cfg))
+    On a process mesh x is this rank's rows, in the forward's layout. Each
+    rank gathers its group's sequence over ``model`` and routes and
+    dispatches the whole group (every rank of a model group alike); where
+    ``model`` divides E (``_expert_ffn_sharded``'s condition) it runs its
+    E/tp experts on their slots, the outputs are all-gathered over
+    ``model`` and combined, and the rank keeps its part of the sequence;
+    otherwise every rank runs all the experts (the fallback)."""
+    lay = logical.active_layout()
+    b, s_l, d = x.shape
+    e = cfg.n_experts
+    xw = lay.gather_seq(x) if lay.process else x
+    s = xw.shape[1]
+    groups = moe_groups(b, lay)
+    routing = moe_route(p, xw.reshape(b * s, d), cfg, groups)
+    aux_loss = _aux_loss(routing, cfg, lay, s) if with_aux else None
     if _drop_log is not None:
-        _drop_log.append((~dp.keep).sum())
-    y = _expert_ffn_dense(p, dp.xg, cfg, x.dtype)
-    return _combine(y, gates, dp).reshape(b, s, d), aux_loss
+        _drop_log.append(torch.stack([(~dp.keep).sum() for dp in routing.groups]))
+    dps = routing.groups
+    xg = dps[0].xg if groups == 1 else torch.cat([dp.xg for dp in dps], dim=1)   # (E, G * C, d), group-major
+    if lay.tp > 1:
+        ep = e % lay.tp == 0
+        logical.region("moe", ep)
+    else:
+        ep = False
+    if ep:
+        from ..launch.mesh import all_gather
+
+        e_l = e // lay.tp
+        lo = lay.idx * e_l
+        w = {k: v.narrow(0, lo, e_l) for k, v in p.items() if k != "router"}
+        y = all_gather(_expert_ffn_dense(w, xg.narrow(0, lo, e_l), cfg, x.dtype), lay.mesh, "model", 0)
+    else:
+        y = _expert_ffn_dense(p, xg, cfg, x.dtype)
+    if groups == 1:
+        out = _combine(y, routing.gates, dps[0])
+    else:
+        n_g = b * s // groups
+        out = torch.cat([_combine(y_g, g_g, dp) for y_g, g_g, dp in
+                         zip(y.split(routing.capacity, dim=1), routing.gates.split(n_g), dps)])
+    out = out.reshape(b, s, d)
+    return (lay.keep_own(out) if lay.process else out), aux_loss

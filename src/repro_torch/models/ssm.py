@@ -1,6 +1,7 @@
 """Mamba-1 selective-state-space block, the falcon-mamba mixer (port of
-``repro/models/ssm.py``: the forward, its backward, decode and cache; the
-explicit tensor-parallel form is a later slice).
+``repro/models/ssm.py``: the forward, its backward, decode and cache, and
+the channel-sharded tensor-parallel form on a process mesh,
+:func:`_ssm_explicit_tp`).
 
 The JAX package computes the recurrence as a chunked associative scan with a
 hand-written VJP; here it is :func:`selective_scan`, whose forward runs the
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssm_scan import ssm_scan, ssm_scan_bwd, ssm_scan_bwd_plain, ssm_scan_plain
+from ..sharding import logical
 from .common import ParamSpec, constant_init, normal_init, ones_init, uniform_init, zeros_init
 
 SCAN_IMPLS = ("kernel", "plain")
@@ -189,11 +191,77 @@ def _ssm_inner(p, x: torch.Tensor, cfg: SSMConfig, conv_hist, h0, impl: str = "k
     return out, new_hist, h_final
 
 
-def ssm_forward(p, x: torch.Tensor, cfg: SSMConfig, *, impl: str = "kernel") -> torch.Tensor:
-    """The mixer over a whole sequence, from a zero state. x: (B, S, D)."""
+def _ssm_whole(p, x: torch.Tensor, cfg: SSMConfig, impl: str) -> torch.Tensor:
     h0 = torch.zeros((x.shape[0], cfg.d_inner, cfg.d_state), dtype=torch.float32, device=x.device)
     out, _, _ = _ssm_inner(p, x, cfg, None, h0, impl)
     return out
+
+
+def ssm_forward(p, x: torch.Tensor, cfg: SSMConfig, *, impl: str = "kernel") -> torch.Tensor:
+    """The mixer over a whole sequence, from a zero state. x: (B, S, D). On
+    a process mesh with ``tp > 1`` model ranks, x is the residual stream in
+    the forward's layout: the channel-sharded region where JAX takes its
+    own (the sequence cut over ``model``, ``d_inner`` divisible), else JAX's
+    fallback (the mixer whole, this rank's part kept)."""
+    lay = logical.active_layout()
+    if lay.tp > 1:
+        ok = lay.sp and cfg.d_inner % lay.tp == 0
+        logical.region("ssm", ok)
+        if ok:
+            return _ssm_explicit_tp(p, x, cfg, lay, impl)
+        return lay.whole(lambda xf: _ssm_whole(p, xf, cfg, impl), x)
+    return _ssm_whole(p, x, cfg, impl)
+
+
+def _ssm_shard_in(p, x_full: torch.Tensor, cfg: SSMConfig, i: int, n: int):
+    """Model rank ``i`` of ``n``'s channels up to the low-rank product: (its
+    conv'd x, its z, its f32 partial of x_proj's product). in_proj's x and z
+    columns are JAX's ``[x_k | z_k]`` reorder, as two narrows of the whole
+    weight."""
+    di = cfg.d_inner
+    di_l = di // n
+    lo = i * di_l
+    dtype = x_full.dtype
+    xb = torch.einsum("bsd,de->bse", x_full, p["in_proj"].narrow(1, lo, di_l).to(dtype))
+    z = torch.einsum("bsd,de->bse", x_full, p["in_proj"].narrow(1, di + lo, di_l).to(dtype))
+    xb, _ = _causal_conv(xb, p["conv_w"].narrow(0, lo, di_l), p["conv_b"].narrow(0, lo, di_l), None)
+    xb = F.silu(xb)
+    return xb, z, torch.einsum("bsd,dr->bsr", xb.float(), p["x_proj"].narrow(0, lo, di_l).float())
+
+
+def _ssm_shard_out(p, xb, z, proj, cfg: SSMConfig, i: int, n: int, impl: str, dtype) -> torch.Tensor:
+    """Model rank ``i`` of ``n``'s channels from the completed low-rank
+    product ``proj`` (f32): dt, the selective scan on its channels, the
+    gate, and its partial sum of out_proj (in ``dtype``)."""
+    r, st = cfg.rank, cfg.d_state
+    di_l = cfg.d_inner // n
+    ch = lambda name, dim=0: p[name].narrow(dim, i * di_l, di_l)   # noqa: E731
+    dt_lr, b_t, c_t = torch.split(proj, [r, st, st], dim=-1)
+    dt = torch.einsum("bsr,rd->bsd", dt_lr.to(xb.dtype), ch("dt_proj", 1).to(xb.dtype))
+    dt = F.softplus(dt.float() + ch("dt_bias").float())
+    a = -torch.exp(ch("a_log").float())
+    h0 = torch.zeros((xb.shape[0], di_l, st), dtype=torch.float32, device=xb.device)
+    y, _ = selective_scan(xb, dt, a, b_t.to(xb.dtype), c_t.to(xb.dtype), ch("d_skip"), h0, impl=impl)
+    y = y * F.silu(z)
+    return torch.einsum("bsd,de->bse", y, ch("out_proj").to(dtype)).to(dtype)
+
+
+def _ssm_explicit_tp(p, x: torch.Tensor, cfg: SSMConfig, lay, impl: str) -> torch.Tensor:
+    """The channel-sharded mixer (``repro/models/ssm.py:288``): one
+    all-gather of the sequence over ``model`` in; this rank's
+    ``d_inner/tp`` channels of every channel-wise weight
+    (:func:`_ssm_shard_in`); x_proj's low-rank product in f32, completed by
+    an all-reduce over ``model``; the selective scan (kernel B15 forward,
+    ``ssm_scan_bwd`` backward) on the rank's channels and out_proj's partial
+    sums (:func:`_ssm_shard_out`), reduce-scattered back along the
+    sequence."""
+    from ..launch.mesh import all_gather, psum, psum_scatter
+
+    mesh = lay.mesh
+    x_full = all_gather(x, mesh, "model", 1)
+    xb, z, part = _ssm_shard_in(p, x_full, cfg, lay.idx, lay.tp)
+    out_part = _ssm_shard_out(p, xb, z, psum(part, mesh, "model"), cfg, lay.idx, lay.tp, impl, x.dtype)
+    return psum_scatter(out_part, mesh, "model", 1)
 
 
 def ssm_decode(p, x: torch.Tensor, cache: SSMCache, cfg: SSMConfig, *,

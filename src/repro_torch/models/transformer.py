@@ -22,6 +22,14 @@ leaf and the forward indexes layer ``l`` out of the stacked tensors.
 Activations run in ``cfg.dtype`` (bf16 at full size) with the f32
 parameters cast at use, as the JAX model does. The MoE layers' auxiliary
 losses are summed over the layers into the forward's second output.
+
+On a process mesh with a ``model`` axis (``repro_torch.sharding.logical``)
+the training forward runs as the JAX one does under a mesh: the embedding
+hands each rank its part of the sequence (the ``seq_sp`` layout, where the
+length divides by the model ranks), the norms run on it, the blocks'
+regions gather and reduce-scatter it, and the head runs on it too, so
+:func:`forward` returns this rank's positions' logits (see
+``repro_torch.train.loss.lm_loss``). The serving paths run on one device.
 """
 from __future__ import annotations
 
@@ -54,6 +62,7 @@ from .common import (
     stack_specs,
     torch_default_init,
 )
+from ..sharding import logical
 from .mlp_moe import MoEConfig, mlp_forward, mlp_specs, moe_forward, moe_specs
 from .ssm import SSMConfig, init_ssm_cache, ssm_decode, ssm_forward, ssm_specs
 
@@ -256,14 +265,18 @@ def _ffn(cfg: ModelConfig, slot: LayerSlot, p, x, with_aux: bool = True):
     return x, None
 
 
-def _slot_forward(cfg: ModelConfig, slot: LayerSlot, p, x, ssm_impl: str = "kernel"):
-    """One layer slot: the mixer's residual block, then the FFN's. Returns
-    (x, the MoE's f32 aux loss or None without one)."""
-    if slot.mixer == "attn":
-        x = x + attention_forward(p["attn"], _norm(cfg, p["mixer_norm"], x), cfg.attn_cfg())
-    elif slot.mixer == "mamba":
-        x = x + ssm_forward(p["ssm"], _norm(cfg, p["mixer_norm"], x), cfg.ssm_cfg(), impl=ssm_impl)
-    return _ffn(cfg, slot, p, x)
+def _slot_forward(cfg: ModelConfig, slot: LayerSlot, p, x, ssm_impl: str = "kernel",
+                  lay: logical.Layout = logical.LOCAL):
+    """One layer slot in the layout ``lay``: the mixer's residual block,
+    then the FFN's. Returns (x, the MoE's f32 aux loss or None without one).
+    A remat recompute re-enters ``lay`` and reissues the regions'
+    collectives in the same order on every rank."""
+    with logical.use_layout(lay):
+        if slot.mixer == "attn":
+            x = x + attention_forward(p["attn"], _norm(cfg, p["mixer_norm"], x), cfg.attn_cfg())
+        elif slot.mixer == "mamba":
+            x = x + ssm_forward(p["ssm"], _norm(cfg, p["mixer_norm"], x), cfg.ssm_cfg(), impl=ssm_impl)
+        return _ffn(cfg, slot, p, x)
 
 
 def _layers(cfg: ModelConfig, params: Dict[str, torch.Tensor]):
@@ -304,15 +317,21 @@ def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, 
     (logits (B, S_total, vocab) in cfg.dtype, the f32 aux loss summed over
     the layers) like the JAX forward.
     ``ssm_impl="plain"`` runs the Mamba layers' scan through the kernel's
-    plain twin, an explicit choice for comparisons."""
+    plain twin, an explicit choice for comparisons.
+
+    On a process mesh the batch is this rank's rows and the logits are
+    those of its part of the sequence where the ``model`` axis divides
+    S_total (the sequence-parallel layout), else of the whole sequence."""
     x = _embed(cfg, params, batch)
+    lay = logical.capture_layout(x.shape[1])
+    x = lay.keep_own(x)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, slot, p in _layers(cfg, params):
         if remat:
-            x, a = checkpoint(_slot_forward, cfg, slot, p, x, ssm_impl, use_reentrant=False)
+            x, a = checkpoint(_slot_forward, cfg, slot, p, x, ssm_impl, lay, use_reentrant=False)
         else:
-            x, a = _slot_forward(cfg, slot, p, x, ssm_impl)
+            x, a = _slot_forward(cfg, slot, p, x, ssm_impl, lay)
         if a is not None:
             aux = aux + a
     return _logits(cfg, params, x), aux
@@ -374,6 +393,13 @@ def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor], cache: Decode
     x = params["embed"][tokens.long()].to(cfg.dtype) if cfg.embed_inputs else tokens
     if cfg.pos == "learned":
         x = x + params["pos_embed"][cache.step][None, None].to(cfg.dtype)
+    with logical.use_layout(logical.LOCAL):
+        x = _decode_stack(cfg, params, cache, x, ssm_impl)
+    logits = _logits(cfg, params, x)
+    return logits, DecodeCache(slots=cache.slots, step=cache.step + 1)
+
+
+def _decode_stack(cfg: ModelConfig, params, cache: DecodeCache, x, ssm_impl: str):
     for period, i, slot, p in _layers(cfg, params):
         if slot.mixer in ("attn", "mamba"):
             stacked = cache.slots[f"slot_{i}"]
@@ -388,8 +414,7 @@ def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor], cache: Decode
                 if new.data_ptr() != buf.data_ptr():
                     buf.copy_(new)
         x, _ = _ffn(cfg, slot, p, x, with_aux=False)
-    logits = _logits(cfg, params, x)
-    return logits, DecodeCache(slots=cache.slots, step=cache.step + 1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -442,11 +467,12 @@ def _paged_stack(cfg: ModelConfig, params: Dict[str, torch.Tensor], pools: Dict[
                  attn_step):
     """x through every period and slot of the stack, periods outer as in the
     JAX scan: ``attn_step(p_attn, x_normed, layer_pool)`` for the mixer, then
-    the slot's FFN (dense or MoE)."""
-    for period, i, slot, p in _layers(cfg, params):
-        if slot.mixer == "attn":
-            x = x + attn_step(p["attn"], _norm(cfg, p["mixer_norm"], x), pools[f"slot_{i}"][period])
-        x, _ = _ffn(cfg, slot, p, x, with_aux=False)
+    the slot's FFN (dense or MoE), on one device."""
+    with logical.use_layout(logical.LOCAL):
+        for period, i, slot, p in _layers(cfg, params):
+            if slot.mixer == "attn":
+                x = x + attn_step(p["attn"], _norm(cfg, p["mixer_norm"], x), pools[f"slot_{i}"][period])
+            x, _ = _ffn(cfg, slot, p, x, with_aux=False)
     return x
 
 

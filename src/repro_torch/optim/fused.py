@@ -206,10 +206,15 @@ def jnp_update_snr_leaf(g, v_new, dims: Dims, *, b2) -> torch.Tensor:
     return torch.mean(torch.square(v_new) / ((1 - b2) ** 2 * var + _SNR_EPS))
 
 
-def _plain_leaf(g, m, v, dims: Dims, *, emit_snr: bool, with_health: bool, b1, b2, eps, count):
-    """(u, m', v', snr or None, health row or None) by the plain math."""
+def _plain_leaf(g, m, v, dims: Dims, *, emit_snr: bool, with_health: bool, b1, b2, eps, count,
+                use_first_moment: bool = True):
+    """(u, m', v', snr or None, health row or None) by the plain math
+    (m' None without the first moment)."""
     kw = dict(b1=b1, b2=b2, eps=eps, count=count)
-    u, m_new, v_new = jnp_slim_leaf(g, m, v, dims, **kw) if dims else jnp_adam_leaf(g, m, v, **kw)
+    if not use_first_moment:
+        u, m_new, v_new = jnp_slim_leaf(g, None, v, dims, use_first_moment=False, **kw)
+    else:
+        u, m_new, v_new = jnp_slim_leaf(g, m, v, dims, **kw) if dims else jnp_adam_leaf(g, m, v, **kw)
     snr = jnp_update_snr_leaf(g, v_new, dims, b2=b2) if emit_snr and dims else None
     return u, m_new, v_new, snr, leaf_health(g) if with_health else None
 
@@ -466,7 +471,8 @@ def _complete(part, v32, pl, mesh, b2):
     return None, mesh.psum(part, pl.psum_axes) / pl.red_total
 
 
-def _psum_slim_leaf(g, m, v_red, dims: Dims, *, pl, mesh, emit_snr: bool, with_health: bool, b1, b2, eps, count):
+def _psum_slim_leaf(g, m, v_red, dims: Dims, *, pl, mesh, emit_snr: bool, with_health: bool, b1, b2, eps, count,
+                    use_first_moment: bool = True):
     """One SlimAdam leaf whose reduced dims are split across
     ``pl.psum_axes``: pass 1 (B10, ``slim_partial_stats_batched``) writes m'
     and the shard's partial line sums of g^2; an all-reduce over the owning
@@ -476,8 +482,10 @@ def _psum_slim_leaf(g, m, v_red, dims: Dims, *, pl, mesh, emit_snr: bool, with_h
     rank while each stores only its owner slice. ``emit_snr`` appends the
     completed from-update SNR; ``with_health`` the shard's local (2,) row,
     which the caller completes across ranks. Moments are computed in f32 and
-    cast back to their stored dtypes. Returns (u, m', v', snr, health)."""
-    m_dtype, v_dtype = m.dtype, v_red.dtype
+    cast back to their stored dtypes. Returns (u, m', v', snr, health).
+    Without the first moment (``m`` None) the numerator is g and only the
+    plain form runs, as in the JAX package: the kernels stream an m."""
+    m_dtype, v_dtype = (m.dtype if m is not None else None), v_red.dtype
     v32 = v_red.float()
     red_shape, n_loc = _red_local(g.shape, dims)
 
@@ -517,15 +525,17 @@ def _psum_slim_leaf(g, m, v_red, dims: Dims, *, pl, mesh, emit_snr: bool, with_h
         else:
             v_new = v_out = b2 * v32 + (1 - b2) * ek
         bc1, bc2 = bias_corrections(b1, b2, count)
-        m_new = b1 * m.float() + (1 - b1) * g32
-        u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        m_new = b1 * m.float() + (1 - b1) * g32 if use_first_moment else None
+        num = m_new / bc1 if use_first_moment else g32
+        u = num / (torch.sqrt(v_new / bc2) + eps)
         snr = None
         if emit_snr:
             _, s1c, s2c, first = snr_stats_centered_partial_ref(g32 * g32, tuple(red))
             snr = _psum_snr(s1c, s2c, first, v_new, pl, mesh, n_loc=n_loc, b2=b2)
-        return u, m_new.to(m_dtype), v_out.to(v_dtype), snr, leaf_health(g32) if with_health else None
+        return (u, m_new.to(m_dtype) if use_first_moment else None, v_out.to(v_dtype), snr,
+                leaf_health(g32) if with_health else None)
 
-    if psum_kernel_eligible(pl):
+    if psum_kernel_eligible(pl, use_first_moment):
         return _guarded(f"psum:{tuple(g.shape)}", kernel_branch, jnp_branch)
     return jnp_branch()
 
@@ -640,26 +650,33 @@ def _sharded_adam_tree(g_leaves, mu_leaves, nu_leaves, spec_leaves, mesh, *, wit
 
 
 def _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves, mesh, *, emit_snr: bool,
-                       with_health: bool, megakernel: bool, bucket_min_size: int, **kw):
+                       with_health: bool, megakernel: bool, bucket_min_size: int, use_first_moment: bool = True,
+                       **kw):
     """SlimAdam on a mesh, three regimes per leaf: 'local' leaves run the
     unsharded routes on their shards; kernel-eligible 'psum' leaves run the
     grouped partial-stats / finalize pair (per leaf with
     ``megakernel=False``) around their all-reduces; the rest run the plain
     math on their shard. SNR scalars of leaves whose lines are sharded over
-    kept axes average across those ranks."""
+    kept axes average across those ranks. Without the first moment
+    (``mu_leaves`` None) every leaf runs the plain math, local leaves per
+    leaf on their shard and psum leaves in the plain psum form, as the JAX
+    package routes it (``repro/optim/fused.py:925-1020``)."""
     plans = sharded_tree_plans(g_leaves, dims_leaves, spec_leaves, mesh)
     n = len(g_leaves)
     gs = [mesh.shard(g, pl.spec) for g, pl in zip(g_leaves, plans)]
-    ms, vs = list(mu_leaves), list(nu_leaves)
+    ms, vs = (list(mu_leaves) if use_first_moment else [None] * n), list(nu_leaves)
     dims_leaves = [tuple(d) for d in dims_leaves]
     leaf_kw = dict(emit_snr=emit_snr, with_health=with_health, **kw)
     out: List[Any] = [None] * n
-    if megakernel:
+    if megakernel and use_first_moment:
         elig = [i for i, pl in enumerate(plans) if pl.regime == "psum" and psum_kernel_eligible(pl)]
         if elig:
             for i, res in _psum_mega_leaves(elig, plans, gs, ms, vs, dims_leaves, mesh=mesh, **leaf_kw).items():
                 out[i] = res
     local_idx = [i for i, pl in enumerate(plans) if pl.regime == "local"]
+    if not use_first_moment:
+        local_idx = []
+        leaf_kw["use_first_moment"] = False
     if local_idx:
         res = _tree([gs[i] for i in local_idx], [ms[i] for i in local_idx], [vs[i] for i in local_idx],
                     [dims_leaves[i] for i in local_idx], megakernel=megakernel, bucket_min_size=bucket_min_size,
@@ -671,7 +688,7 @@ def _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves,
             continue
         if pl.regime == "psum":
             out[i] = _psum_slim_leaf(gs[i], ms[i], vs[i], dims_leaves[i], pl=pl, mesh=mesh, **leaf_kw)
-        else:   # 'jnp': reduced dims whole on the shard, plain math
+        else:   # 'jnp' (and 'local' without the first moment): plain math on the shard
             out[i] = _plain_leaf(gs[i], ms[i], vs[i], dims_leaves[i], **leaf_kw)
     for i, pl in enumerate(plans):
         if emit_snr and pl.regime != "psum" and out[i][3] is not None and pl.kept_axes:
@@ -687,24 +704,26 @@ def _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves,
     return res
 
 
-def init_sharded_moments(params, dims_leaves, spec_leaves, mesh, *, reduced: bool):
+def init_sharded_moments(params, dims_leaves, spec_leaves, mesh, *, reduced: bool, use_first_moment: bool = True):
     """This rank's zero moments of a sharded tree update: ``(mu, nu)``
     shards shaped by each leaf's plan — mu by the parameter's spec, nu by
     the plan's storage spec (the owner slice of a psum leaf, the masked
-    spec otherwise); ``reduced=False`` (Adam) keeps nu full-shape like mu."""
+    spec otherwise); ``reduced=False`` (Adam) keeps nu full-shape like mu;
+    without the first moment mu is None."""
     from ..sharding.shardspec import local_shape
 
     plans = sharded_tree_plans(params, dims_leaves, spec_leaves, mesh)
     mu, nu = [], []
     for p, d, pl in zip(params, dims_leaves, plans):
-        mu.append(torch.zeros(pl.local_shape, dtype=torch.float32, device=p.device))
+        if use_first_moment:
+            mu.append(torch.zeros(pl.local_shape, dtype=torch.float32, device=p.device))
         if not reduced:
             nu.append(torch.zeros(pl.local_shape, dtype=torch.float32, device=p.device))
             continue
         spec = pl.nu_spec if pl.nu_spec is not None else pl.red_spec
         nu.append(torch.zeros(local_shape(_red_local(tuple(p.shape), d)[0], spec, mesh), dtype=torch.float32,
                               device=p.device))
-    return mu, nu
+    return (mu if use_first_moment else None), nu
 
 
 # ---------------------------------------------------------------------------
@@ -748,7 +767,8 @@ def slim_tree_update(g_leaves: Sequence[torch.Tensor], mu_leaves: Sequence[torch
                      nu_leaves: Sequence[torch.Tensor], dims_leaves: Sequence[Dims], *,
                      b1: float, b2: float, eps: float, count: torch.Tensor,
                      bucket_min_size: int = DEFAULT_BUCKET_MIN, mesh=None, spec_leaves=None,
-                     emit_snr: bool = False, with_health: bool = False, megakernel: bool = True):
+                     emit_snr: bool = False, with_health: bool = False, megakernel: bool = True,
+                     use_first_moment: bool = True):
     """SlimAdam over a leaf list with per-leaf reduction dims: K = () leaves
     take the dense route, K != () leaves the slim kernel their canonical
     plan names (one launch per megaplan group by default; per leaf with
@@ -760,11 +780,16 @@ def slim_tree_update(g_leaves: Sequence[torch.Tensor], mu_leaves: Sequence[torch
     regime plans (see the module docstring): g whole, the moments and the
     returned moments this rank's shards (the reduced moment of a psum leaf
     its owner slice), the updates whole, SNR and health equal on every
-    rank."""
+    rank. ``use_first_moment=False`` (``mu_leaves`` None) is served on the
+    mesh only, by the plain math; unsharded callers run it per leaf."""
     if _use_sharded(mesh, spec_leaves) and len(g_leaves):
         return _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves, mesh,
                                   emit_snr=emit_snr, with_health=with_health, megakernel=megakernel,
-                                  bucket_min_size=bucket_min_size, b1=b1, b2=b2, eps=eps, count=count)
+                                  bucket_min_size=bucket_min_size, use_first_moment=use_first_moment,
+                                  b1=b1, b2=b2, eps=eps, count=count)
+    if not use_first_moment:
+        raise ValueError("slim_tree_update: use_first_moment=False runs on a mesh only; unsharded, run the "
+                         "plain per-leaf math")
     u, m, v, s, h = _tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, megakernel=megakernel,
                           bucket_min_size=bucket_min_size, emit_snr=emit_snr, with_health=with_health,
                           b1=b1, b2=b2, eps=eps, count=count)

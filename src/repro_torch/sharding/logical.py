@@ -10,19 +10,38 @@ Divisibility guard: a logical axis whose dim does not divide the mapped
 mesh-axis size falls back to replication for that dim, so one rule table
 serves every architecture.
 
-The port's forward runs whole on each rank over its slice of the batch, so
-the activation rules (``act_*``, ``seq_sp``) resolve but nothing applies
-them: :func:`constrain` is a no-op. Tensor parallelism of the forward is a
-later slice.
+On a process mesh (``repro_torch.launch.mesh.Mesh``) with a ``model``
+axis the forward runs as the JAX package's does under a mesh, with the
+layout made explicit instead of constrained: each rank holds the rows of
+its batch-axis block (``pod``, ``data``) and, between blocks, its
+contiguous ``1/tp`` of the sequence (the ``seq_sp`` layout); the tensor-,
+sequence- and expert-parallel regions of ``repro_torch.models`` gather the
+sequence over ``model`` on entry, compute with this rank's slice of each
+(whole) weight, and reduce-scatter on exit. A :class:`Layout` says which
+layout a forward runs in; :func:`region` counts each region taken in its
+parallel form against the whole-region fallback (JAX's GSPMD path), by
+layer kind. :func:`constrain` stays a no-op: the JAX model's constraints
+became that layout (``repro/models/transformer.py:240, :261``: the
+residual stream in ``seq_sp``, which
+:func:`repro_torch.models.transformer.forward` cuts after the embedding),
+the gather before the head (``:270-275``: the port computes the head and
+the loss on each rank's own positions instead, see
+``repro_torch.train.loss.lm_loss``), and the regions' own in/out specs
+(``mlp_moe.py``, ``attention.py``, ``ssm.py``). Under a device-free
+``SpecMesh`` the forward runs unsharded; only the MoE's dispatch groups
+(:attr:`Layout.groups`) follow the mesh's batch axes.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
-from .shardspec import PartitionSpec as P
+import torch
+
+from .shardspec import PartitionSpec as P, even_spec, spec_entries
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -119,8 +138,193 @@ def use_sharding(ctx: Optional[ShardingContext]):
 
 def constrain(x: Any, *logical_axes: Optional[str]) -> Any:
     """The JAX package's activation sharding constraint. A no-op in the
-    port: each rank's forward runs whole on its slice of the batch."""
+    port, whose layout is explicit (see the module docstring)."""
     return x
+
+
+def is_process_mesh(mesh: Any) -> bool:
+    """A mesh of ranks with collectives (``launch.mesh.Mesh``), not the
+    device-free ``SpecMesh``."""
+    return hasattr(mesh, "device_mesh")
+
+
+def batch_axes(mesh: Any) -> Tuple[str, ...]:
+    """The mesh axes the batch splits over (the ``batch`` rule)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How a forward's activations lie on the mesh. ``ctx``: the sharding
+    context it was captured from (None: one device). On a process mesh with
+    a ``model`` axis of ``tp > 1`` ranks, ``sp`` says whether the residual
+    stream is cut along the sequence (``seq_sp``: the length divides by
+    ``tp``) or every rank of a model group holds it whole. Either way each
+    rank *owns* a contiguous part of the positions (:meth:`own`): the loss
+    and the MoE's load-balance statistics read only those, so a value the
+    model group computes alike reaches the loss once."""
+
+    ctx: Optional[ShardingContext] = None
+    sp: bool = False
+
+    @property
+    def mesh(self):
+        return self.ctx.mesh if self.ctx is not None else None
+
+    @property
+    def process(self) -> bool:
+        return self.ctx is not None and is_process_mesh(self.ctx.mesh)
+
+    @property
+    def tp(self) -> int:
+        if not self.process or "model" not in self.mesh.axis_names:
+            return 1
+        return int(self.mesh.shape["model"])
+
+    @property
+    def idx(self) -> int:
+        return self.mesh.axis_index("model") if self.tp > 1 else 0
+
+    @property
+    def groups(self) -> int:
+        """The MoE's dispatch groups, JAX's G: the product of the batch axes
+        (the caller falls back to 1 when the global batch does not divide)."""
+        if self.ctx is None:
+            return 1
+        return math.prod(int(self.mesh.shape[a]) for a in batch_axes(self.mesh))
+
+    def own(self, s: int) -> Tuple[int, int]:
+        """(start, length) of the positions of a length-``s`` sequence this
+        rank owns: its model index's part of ``tensor_split``."""
+        if self.tp == 1:
+            return 0, s
+        q, r = divmod(s, self.tp)
+        i = self.idx
+        return i * q + min(i, r), q + (1 if i < r else 0)
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole sequence of a residual-stream tensor (B, S_l, ...)."""
+        if not self.sp:
+            return x
+        from ..launch.mesh import all_gather
+
+        return all_gather(x, self.mesh, "model", 1)
+
+    def keep_own(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's part, in the layout, of a whole-sequence result."""
+        if not self.sp:
+            return y
+        start, n = self.own(y.shape[1])
+        return y.narrow(1, start, n)
+
+    def whole(self, fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        """JAX's fallback for a region: gather the sequence, compute the
+        region whole, keep this rank's part."""
+        return self.keep_own(fn(self.gather_seq(x)))
+
+
+_layout = threading.local()
+
+
+def capture_layout(seq_len: Optional[int] = None) -> Layout:
+    """The layout of a forward over ``seq_len`` positions under the active
+    context: ``sp`` where a process mesh's ``model`` axis divides it (with
+    ``seq_len`` None: the layout a region called directly takes, ``sp`` on
+    any such mesh)."""
+    ctx = current()
+    lay = Layout(ctx, False)
+    if lay.tp > 1:
+        lay = Layout(ctx, seq_len is None or seq_len % lay.tp == 0)
+    return lay
+
+
+def active_layout() -> Layout:
+    """The layout set by :func:`use_layout`, else the one captured from the
+    active context."""
+    lay = getattr(_layout, "lay", None)
+    return lay if lay is not None else capture_layout()
+
+
+@contextlib.contextmanager
+def use_layout(lay: Optional[Layout]):
+    """Run the block in ``lay`` (a remat recompute re-enters the layout its
+    forward captured, whatever context is active when it runs)."""
+    prev = getattr(_layout, "lay", None)
+    _layout.lay = lay
+    try:
+        yield lay
+    finally:
+        _layout.lay = prev
+
+
+LOCAL = Layout(None, False)
+
+
+_regions: Dict[str, Dict[str, int]] = {}
+
+
+def region(kind: str, parallel: bool) -> None:
+    """Count one forward of a ``kind`` region ('mlp', 'attn', 'ssm', 'moe')
+    on a process mesh with ``tp > 1``: in its parallel form, or by the
+    whole-region fallback."""
+    row = _regions.setdefault(kind, {"parallel": 0, "fallback": 0})
+    row["parallel" if parallel else "fallback"] += 1
+
+
+def region_counts(reset: bool = False) -> Dict[str, Dict[str, int]]:
+    """``{kind: {'parallel': n, 'fallback': n}}`` since the last reset."""
+    out = {k: dict(v) for k, v in _regions.items()}
+    if reset:
+        _regions.clear()
+    return out
+
+
+def _cut(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of a whole tensor under ``spec`` (entries that do
+    not divide replicate), by differentiable narrows."""
+    spec = even_spec(tuple(x.shape), spec, mesh)
+    for d, axes in enumerate(spec_entries(spec, x.ndim)):
+        if axes:
+            n = math.prod(int(mesh.shape[a]) for a in axes)
+            blk = x.shape[d] // n
+            x = x.narrow(d, mesh.group_index(axes) * blk, blk)
+    return x
+
+
+def _cut_tree(tree, specs, mesh):
+    """:func:`_cut` over a (nested) dict of tensors; ``specs`` a dict of the
+    same keys or one PartitionSpec for the whole subtree."""
+    if isinstance(tree, dict):
+        return {k: _cut_tree(v, specs[k] if isinstance(specs, dict) else specs, mesh) for k, v in tree.items()}
+    return _cut(tree, specs, mesh) if isinstance(tree, torch.Tensor) else tree
+
+
+def shard_map(f: Callable, mesh, in_specs, out_specs) -> Callable:
+    """``jax.shard_map`` over whole inputs: the returned function cuts each
+    whole input (a tensor, or a nested dict of them with a PartitionSpec per
+    leaf or one for a whole subtree) to this rank's block by its spec,
+    differentiably, and runs ``f`` on the blocks. ``out_specs`` documents
+    the layout of ``f``'s local outputs, which are returned as they are
+    (every rank computes its own block; nothing is gathered)."""
+    del out_specs
+
+    def run(*args):
+        if len(args) != len(in_specs):
+            raise ValueError(f"shard_map: {len(args)} inputs, {len(in_specs)} in_specs")
+        return f(*(_cut_tree(a, s, mesh) for a, s in zip(args, in_specs)))
+
+    return run
+
+
+def shardings_for_tree(meta: Mapping[str, Any], params: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{name: NamedSharding}`` of a parameter dict under the active
+    context (raises without one)."""
+    from ..launch.mesh import NamedSharding
+
+    ctx = current()
+    if ctx is None:
+        raise RuntimeError("shardings_for_tree requires an active ShardingContext")
+    return {k: NamedSharding(ctx.mesh, ctx.spec_for(meta[k].axes, tuple(p.shape))) for k, p in params.items()}
 
 
 def param_specs(meta: Mapping[str, Any], params: Mapping[str, Any]) -> Dict[str, P]:

@@ -10,14 +10,28 @@ update runs under ``no_grad`` and the parameters are updated in place. The
 plain step's metrics stay device tensors: nothing in it waits for the
 device. The guarded step reads one flag (the step's health) to the host.
 
-On a mesh (``mesh=``, a ``repro_torch.launch.mesh.Mesh``) each rank runs the
-forward and backward on its slice of the global batch and one all-reduce
-averages the gradients and the metrics, so every rank holds the same
-gradients; a sharded optimizer (built with the same mesh) then updates its
-shards and returns whole updates, and every rank applies the same step.
-The numbers are the JAX package's sharded step's; only the forward's
-layout differs (the JAX package splits the batch over 'data' and the
-weights over 'model' inside one program).
+On a mesh (``mesh=``, a ``repro_torch.launch.mesh.Mesh``) the global batch's
+rows split over the batch axes (``pod``, ``data``), as the JAX package's
+``batch`` rule splits them: the ranks of one model group share rows, and
+under a sharding context on the same mesh the forward runs tensor-,
+sequence- and expert-parallel over ``model`` (``repro_torch.sharding.
+logical``), each rank owning a contiguous part of the sequence. Parameters
+stay whole on every rank; a parallel region computes with this rank's
+slice of a weight (a narrow), so a rank's gradient holds what its own
+computations contributed.
+
+The gradient convention. Each rank's loss is its share of the global
+token mean over the positions it owns (``repro_torch.train.loss.lm_loss``),
+so the global loss is the mean of the ranks' losses. Every collective's
+backward is its transpose (all-gather and reduce-scatter each other's,
+psum its own), so the backward of each rank's loss delivers to every rank
+the gradient of the *sum* of the ranks' losses with respect to what it
+computed; a value a model group computes alike reaches the loss only
+through each rank's own positions, so it is counted once. One all-reduce
+over every axis, divided by the number of ranks, then gives each rank the
+gradient of the global loss, and the metrics' mean; the sharded optimizer
+(built with the same mesh) updates its shards and returns whole updates,
+and every rank applies the same step.
 """
 from __future__ import annotations
 
@@ -28,7 +42,12 @@ import torch
 from ..models import transformer
 from ..models.common import ParamModel
 from ..optim.base import GradientTransformation, apply_updates, global_norm
+from ..sharding.logical import batch_axes
 from .loss import lm_loss
+
+# The gradient all-reduce's bucket (f32 elements): bounds the extra device
+# memory of averaging a model's gradients to two buckets.
+AVERAGE_BUCKET = 1 << 26
 
 
 def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn=None, grad_accum: int = 1,
@@ -57,63 +76,13 @@ def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn
     returned state never carries ``health``; a from-update SNR snapshot
     rides on it for the trainer to consume (dropped on a bad step).
 
-    ``mesh``: data parallelism over every rank of the mesh (see the module
-    docstring); the batch's leading dim must split evenly across them. The
-    guarded step's skip decision then comes from health completed across
-    ranks, so it is the same on every rank."""
-    fwd = forward_fn or transformer.forward
+    ``mesh``: the rows split over the mesh's batch axes and the gradients
+    averaged over every rank (see the module docstring); the batch's leading
+    dim must split evenly over the batch axes. The guarded step's skip
+    decision then comes from health completed across ranks, so it is the
+    same on every rank."""
     params = model.params
-    names = list(params)
-    leaves = list(params.values())
-    ranks = mesh.size if mesh is not None else 1
-
-    def local_rows(batch):
-        """This rank's slice of the global batch."""
-        if ranks == 1:
-            return batch
-        n = next(iter(batch.values())).shape[0]
-        if n % ranks:
-            raise ValueError(f"batch of {n} rows does not split across {ranks} ranks")
-        k = n // ranks
-        return {key: v.narrow(0, mesh.rank * k, k) for key, v in batch.items()}
-
-    def average(grads, metrics):
-        """One all-reduce over every mesh axis: the mean of the ranks'
-        gradients and metrics."""
-        if ranks == 1:
-            return grads, metrics
-        keys = list(metrics)
-        flat = torch.cat([g.float().reshape(-1) for g in grads] + [metrics[k].float().reshape(1) for k in keys])
-        flat = mesh.psum(flat, tuple(mesh.shape)) / ranks
-        pieces = flat.split([g.numel() for g in grads] + [1] * len(keys))
-        grads = [x.reshape(g.shape).to(g.dtype) for x, g in zip(pieces, grads)]
-        return grads, {k: x.reshape(()) for k, x in zip(keys, pieces[len(grads):])}
-
-    def grads_of(batch):
-        loss, metrics = lm_loss(model.cfg, params, batch, fwd)
-        grads = torch.autograd.grad(loss, leaves)
-        return grads, {k: v.detach() for k, v in metrics.items()}
-
-    def compute_grads(batch):
-        grads, metrics = accumulate(local_rows(batch))
-        grads, metrics = average(grads, metrics)
-        return dict(zip(names, grads)), metrics
-
-    def accumulate(batch):
-        if grad_accum == 1:
-            return grads_of(batch)
-        n = next(iter(batch.values())).shape[0]
-        if n % grad_accum:
-            raise ValueError(f"batch of {n} rows does not split into {grad_accum} microbatches")
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-        per_micro = []
-        for micro in zip(*(v.chunk(grad_accum) for v in batch.values())):
-            grads, metrics = grads_of(dict(zip(batch, micro)))
-            with torch.no_grad():
-                acc = [a + g.float() / grad_accum for a, g in zip(acc, grads)]
-            per_micro.append(metrics)
-        metrics = {k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]}
-        return acc, metrics
+    compute_grads = make_grad_fn(model, forward_fn=forward_fn, grad_accum=grad_accum, mesh=mesh)
 
     def train_step(opt_state, batch: Dict[str, torch.Tensor]):
         grads, metrics = compute_grads(batch)
@@ -151,6 +120,81 @@ def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn
         return opt_state, metrics
 
     return guarded_train_step if guard else train_step
+
+
+def make_grad_fn(model: ParamModel, *, forward_fn=None, grad_accum: int = 1, mesh=None) -> Callable:
+    """``grad_fn(batch) -> (grads {name: tensor}, metrics)``: the gradients
+    and metrics a train step hands its optimizer (see
+    :func:`make_train_step` for ``grad_accum`` and ``mesh``): on a mesh,
+    this rank's rows through the forward and the backward, then averaged
+    over every rank, so each rank returns the global batch's gradients."""
+    fwd = forward_fn or transformer.forward
+    params = model.params
+    names = list(params)
+    leaves = list(params.values())
+    ranks = mesh.size if mesh is not None else 1
+
+    def local_rows(batch):
+        """This rank's rows of the global batch: its block over the batch
+        axes."""
+        if ranks == 1:
+            return batch
+        axes = batch_axes(mesh)
+        parts = mesh.axis_size(axes)
+        if parts == 1:
+            return batch
+        n = next(iter(batch.values())).shape[0]
+        if n % parts:
+            raise ValueError(f"batch of {n} rows does not split over the batch axes {axes} ({parts})")
+        k = n // parts
+        return {key: v.narrow(0, mesh.group_index(axes) * k, k) for key, v in batch.items()}
+
+    def average(grads, metrics):
+        """All-reduces over every mesh axis, in buckets of at most
+        ``AVERAGE_BUCKET`` f32 elements: the mean of the ranks' gradients
+        and metrics."""
+        if ranks == 1:
+            return grads, metrics
+        keys = list(metrics)
+        flat = [g.reshape(-1) for g in grads] + [metrics[k].float().reshape(1) for k in keys]
+        out, bucket, size = [], [], 0
+        for i, t in enumerate(flat):
+            bucket.append(t)
+            size += t.numel()
+            if size >= AVERAGE_BUCKET or i == len(flat) - 1:
+                summed = mesh.psum(torch.cat([b.float() for b in bucket]), tuple(mesh.shape)) / ranks
+                out.extend(summed.split([b.numel() for b in bucket]))
+                bucket, size = [], 0
+        grads = [x.reshape(g.shape).to(g.dtype) for x, g in zip(out, grads)]
+        return grads, {k: x.reshape(()) for k, x in zip(keys, out[len(grads):])}
+
+    def grads_of(batch):
+        loss, metrics = lm_loss(model.cfg, params, batch, fwd)
+        grads = torch.autograd.grad(loss, leaves)
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def accumulate(batch):
+        if grad_accum == 1:
+            return grads_of(batch)
+        n = next(iter(batch.values())).shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch of {n} rows does not split into {grad_accum} microbatches")
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        per_micro = []
+        for micro in zip(*(v.chunk(grad_accum) for v in batch.values())):
+            grads, metrics = grads_of(dict(zip(batch, micro)))
+            with torch.no_grad():
+                acc = [a + g.float() / grad_accum for a, g in zip(acc, grads)]
+            per_micro.append(metrics)
+        metrics = {k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]}
+        return acc, metrics
+
+    def grad_fn(batch):
+        grads, metrics = accumulate(local_rows(batch))
+        grads, metrics = average(grads, metrics)
+        return dict(zip(names, grads)), metrics
+
+    return grad_fn
 
 
 def make_eval_step(model: ParamModel, forward_fn=None) -> Callable:

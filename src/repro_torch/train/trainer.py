@@ -40,6 +40,7 @@ from ..models.transformer import Transformer
 from ..optim.adam import ScaleByAdamState, adamw, sgdm
 from ..optim.base import resolve_backend
 from ..sharding import current as current_sharding, opt_state_specs, param_specs, shardings_from_specs
+from ..sharding.logical import is_process_mesh
 from .guard import ROLLBACK, Guard, GuardConfig, find_slim_snr, find_state_field, strip_slim_snr
 from .step import make_eval_step, make_train_step
 
@@ -145,14 +146,19 @@ class Trainer:
     and none is named. ``grad_accum`` splits each batch into that many
     microbatches; ``faults`` (a :class:`repro_torch.train.faults.FaultPlan`)
     injects gradient and loss faults into the guarded step. A trainer whose
-    ``ckpt_dir`` holds a checkpoint resumes from it."""
+    ``ckpt_dir`` holds a checkpoint resumes from it. The weights are drawn
+    from ``gen`` (default: a CPU generator seeded with ``tc.seed``; a
+    seeded CUDA generator draws a large model on the card)."""
 
     def __init__(self, model_cfg, optimizer_name: str, lr, data: ZipfLM,
                  tc: Optional[TrainerConfig] = None, *, optimizer_kw: Optional[dict] = None,
-                 rules: Optional[dict] = None, grad_accum: int = 1, faults=None, device=None):
+                 rules: Optional[dict] = None, grad_accum: int = 1, faults=None, device=None,
+                 gen: Optional[torch.Generator] = None):
         self.device = resolve_device(device)
         ctx = current_sharding()
-        self.mesh = ctx.mesh if ctx is not None else None
+        # a device-free SpecMesh context shapes the forward (the MoE's
+        # dispatch groups) but shards nothing: the trainer runs unsharded
+        self.mesh = ctx.mesh if ctx is not None and is_process_mesh(ctx.mesh) else None
         if self.mesh is not None and self.mesh.device.type != self.device.type:
             raise ValueError(f"the mesh runs on {self.mesh.device}, the trainer on {self.device}")
         self.model_cfg = model_cfg
@@ -161,7 +167,8 @@ class Trainer:
         self.guard = Guard(tc.guard) if tc.guard is not None else None
         self.faults = faults
         self.ckpt_failures = 0
-        self.model = Transformer(model_cfg, device=self.device, gen=torch.Generator().manual_seed(tc.seed))
+        gen = gen if gen is not None else torch.Generator().manual_seed(tc.seed)
+        self.model = Transformer(model_cfg, device=self.device, gen=gen)
         self.params, self.meta = self.model.params, self.model.meta
         okw = dict(optimizer_kw or {})
         okw.setdefault("backend", tc.backend)

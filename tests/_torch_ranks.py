@@ -1,12 +1,14 @@
-"""Run a function on every rank of a (data=2, model=2) gloo mesh of CPU
-processes, for the port's sharded parity tests. Imports no JAX, so the rank
-processes start quickly; the rank functions the tests run live here too.
+"""Run a function on every rank of a gloo mesh of CPU processes, a
+(data=2, model=2) mesh unless the caller names another, for the port's
+sharded parity tests. Imports no JAX, so the rank processes start quickly;
+the rank functions the tests run live here too.
 
-``run_ranks(fn, tmp_path, *args)`` starts 4 spawned processes that
-rendezvous through a file under ``tmp_path``, each calling ``fn(mesh,
-*args)``; it returns the 4 results in rank order, and raises with the
-failing rank's traceback if any rank raises, or when the deadline passes
-(the process groups' own timeout ends ranks blocked in a collective).
+``run_ranks(fn, tmp_path, *args, shape=..., axes=...)`` starts one spawned
+process a rank that rendezvous through a file under ``tmp_path``, each
+calling ``fn(mesh, *args)``; it returns the results in rank order, and
+raises with the failing rank's traceback if any rank raises, or when the
+deadline passes (the process groups' own timeout ends ranks blocked in a
+collective).
 """
 from __future__ import annotations
 
@@ -21,16 +23,15 @@ import torch.multiprocessing as mp
 
 MESH_SHAPE = (2, 2)
 MESH_AXES = ("data", "model")
-WORLD = 4
 
 
-def _worker(rank, fn, rdv, args, out, timeout_s):
+def _worker(rank, fn, rdv, args, out, timeout_s, shape, axes):
     try:
         torch.set_num_threads(1)
         from repro_torch.launch.mesh import make_mesh
 
-        mesh = make_mesh(MESH_SHAPE, MESH_AXES, device="cpu", init_method=f"file://{rdv}", rank=rank,
-                         world_size=WORLD, timeout=datetime.timedelta(seconds=timeout_s))
+        mesh = make_mesh(shape, axes, device="cpu", init_method=f"file://{rdv}", rank=rank,
+                         world_size=int(np.prod(shape)), timeout=datetime.timedelta(seconds=timeout_s))
         out.put((rank, "ok", fn(mesh, *args)))
         import torch.distributed as dist
 
@@ -39,22 +40,24 @@ def _worker(rank, fn, rdv, args, out, timeout_s):
         out.put((rank, "error", traceback.format_exc()))
 
 
-def run_ranks(fn, tmp_path, *args, timeout_s: float = 120.0):
+def run_ranks(fn, tmp_path, *args, timeout_s: float = 120.0, shape=MESH_SHAPE, axes=MESH_AXES):
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     rdv = tmp_path / f"rdv-{time.monotonic_ns()}"
-    procs = [ctx.Process(target=_worker, args=(r, fn, str(rdv), args, out, timeout_s), daemon=True)
-             for r in range(WORLD)]
+    world = int(np.prod(shape))
+    procs = [ctx.Process(target=_worker, args=(r, fn, str(rdv), args, out, timeout_s, tuple(shape), tuple(axes)),
+                         daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
     results, deadline = {}, time.monotonic() + timeout_s
     try:
-        while len(results) < WORLD:
+        while len(results) < world:
             try:
                 rank, status, value = out.get(timeout=1.0)
             except queue.Empty:
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"ranks {sorted(set(range(WORLD)) - set(results))} did not finish in "
+                    raise TimeoutError(f"ranks {sorted(set(range(world)) - set(results))} did not finish in "
                                        f"{timeout_s} s")
                 dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0) and r not in results]
                 if dead:
@@ -68,7 +71,7 @@ def run_ranks(fn, tmp_path, *args, timeout_s: float = 120.0):
             p.join(timeout=10)
             if p.is_alive():
                 p.kill()
-    return [results[r] for r in range(WORLD)]
+    return [results[r] for r in range(world)]
 
 
 # ---------------------------------------------------------------------------
@@ -220,3 +223,160 @@ def adalayer_updates(mesh, arrays, grads, lr):
                 updates.append({k: _np(x) for k, x in upd.items()})
         out[route] = {"updates": updates, "state": _state_np(state)}
     return out
+
+
+# -- tensor, sequence and expert parallelism of the forward ------------------
+
+def _layer_fn(kind, cfg_kw):
+    """``fn(params, x) -> (y, aux or None)`` of one layer of the port."""
+    from repro_torch.models import attention, mlp_moe, ssm
+
+    if kind == "mlp":
+        return lambda p, x: (mlp_moe.mlp_forward(p, x, gated=cfg_kw["gated"]), None)
+    if kind == "attn":
+        cfg = attention.AttnConfig(**cfg_kw)
+        return lambda p, x: (attention.attention_forward(p, x, cfg), None)
+    if kind == "ssm":
+        cfg = ssm.SSMConfig(**cfg_kw)
+        return lambda p, x: (ssm.ssm_forward(p, x, cfg), None)
+    cfg = mlp_moe.MoEConfig(**cfg_kw)
+    return lambda p, x: mlp_moe.moe_forward(p, x, cfg)
+
+
+def layer_grads(fn, params, x, w, scale_aux):
+    """(y, aux, d(sum(y * w) + aux * scale_aux) by x and by each
+    parameter); ``x`` and ``params`` whole, ``w`` cut as y is."""
+    y, aux = fn(params, x)
+    loss = (y.float() * w).sum()
+    if aux is not None:
+        loss = loss + aux * scale_aux
+    grads = torch.autograd.grad(loss, [x] + list(params.values()))
+    return y, aux, grads
+
+
+def tp_layers(mesh, cases):
+    """Each case (``{name: dict(kind, cfg, params, x, w)}``) through the
+    port's layer on the mesh: x (B, S, D) cut to this rank's rows and part
+    of the sequence (the sequence-parallel layout), the parameters whole.
+    Returns this rank's y block, the aux loss, the gradients of x and of
+    every parameter summed over the ranks (the sum of the ranks' losses,
+    each ``sum(y_r * w_r) + aux / ranks``), and the region counts. A case's
+    ``dtype`` (default f32) is x's."""
+    from repro_torch.sharding import P, ShardingContext, logical, shard_map, use_sharding
+
+    out = {"coords": dict(mesh.coords)}
+    xspec = P("data", "model", None)
+    cut = shard_map(lambda t: t, mesh, (xspec,), xspec)
+    for name, case in cases.items():
+        params = {k: torch.from_numpy(v).requires_grad_(True) for k, v in case["params"].items()}
+        x = torch.from_numpy(case["x"]).to(case.get("dtype", torch.float32)).requires_grad_(True)
+        fn = _layer_fn(case["kind"], case["cfg"])
+        with use_sharding(ShardingContext(mesh)):
+            logical.region_counts(reset=True)
+            y, aux, grads = layer_grads(lambda p, xx: shard_map(lambda xl, pl: fn(pl, xl), mesh, (xspec, P()),
+                                                                xspec)(xx, p),
+                                        params, x, cut(torch.from_numpy(case["w"])), 1.0 / mesh.size)
+            regions = logical.region_counts(reset=True)
+        whole = [_np(mesh.psum(g, tuple(mesh.shape))) for g in grads]
+        out[name] = {"y": _np(y), "aux": None if aux is None else float(aux), "gx": whole[0],
+                     "gp": dict(zip(params, whole[1:])), "regions": regions}
+    return out
+
+
+def tp_trainer(mesh, runs, data_kw, lr, steps):
+    """Reduced models through the sharded trainer (Adam, ``backend='fused'``)
+    from given initial parameters: ``runs`` is ``{arch: arrays}``. Returns
+    each run's losses and region counts."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.sharding import ShardingContext, logical, use_sharding
+    from repro_torch.train import Trainer, TrainerConfig
+
+    out = {"coords": dict(mesh.coords)}
+    for arch, arrays in runs.items():
+        cfg = get_reduced(arch)
+        with use_sharding(ShardingContext(mesh)):
+            logical.region_counts(reset=True)
+            tr = Trainer(cfg, "adam", lr, ZipfLM(DataConfig(vocab_size=cfg.vocab_size, **data_kw)),
+                         TrainerConfig(total_steps=steps, log_every=1, seed=0, backend="fused"), device="cpu")
+            tr.model.load_params(params_from_numpy(arrays, "cpu"))
+            tr.run()
+            out[arch] = {"loss": [m["loss"] for m in tr.metrics_log], "regions": logical.region_counts(reset=True)}
+    return out
+
+
+def vlm_grads(mesh, batches):
+    """Reduced internvl2_26b (frontend rows prepended to the tokens; the
+    loss on the text positions) with remat, through ``make_grad_fn`` on the
+    mesh and unsharded in the same process, from the same weights, for each
+    batch (``{name: numpy batch}``; sequences the model axis divides and
+    does not): the loss and the gradients of both, and the region counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Transformer
+    from repro_torch.sharding import ShardingContext, logical, use_sharding
+    from repro_torch.train.step import make_grad_fn
+
+    cfg = dataclasses.replace(get_reduced("internvl2_26b"), remat=True)
+    model = Transformer(cfg, device="cpu", gen=torch.Generator().manual_seed(7))
+    out = {}
+    for name, arrays in batches.items():
+        batch = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        with use_sharding(ShardingContext(mesh)):
+            logical.region_counts(reset=True)
+            g, m = make_grad_fn(model, mesh=mesh)(batch)
+            regions = logical.region_counts(reset=True)
+        g1, m1 = make_grad_fn(model)(batch)
+        out[name] = {"loss": (float(m["loss"]), float(m1["loss"])), "regions": regions,
+                     "grads": {k: (_np(g[k]), _np(g1[k])) for k in g}}
+    return out
+
+
+def momentless_updates(mesh, inputs, specs, dims, steps):
+    """Moment-less SlimAdam (``use_first_moment=False``) on the mesh:
+    ``steps`` updates of the given whole gradients, by the fused backend's
+    sharded route. Returns each leaf's last u (whole) and this rank's nu
+    shards, and whether the state holds a first moment."""
+    from repro_torch.core.slim_adam import scale_by_slim_adam
+    from repro_torch.sharding import P
+
+    specs = {k: P(*v) for k, v in specs.items()}
+    grads = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    params = {k: torch.zeros_like(v) for k, v in grads.items()}
+    tx = scale_by_slim_adam(dims, use_first_moment=False, backend="fused", mesh=mesh, param_specs=specs,
+                            emit_snr=True, emit_health=True)
+    state = tx.init(params)
+    for _ in range(steps):
+        u, state = tx.update(grads, state)
+    return {"coords": dict(mesh.coords), "mu": state.mu, "u": {k: _np(x) for k, x in u.items()},
+            "nu": {k: _np(x) for k, x in state.nu.items()},
+            "snr": {k: None if x is None else float(x) for k, x in state.snr.items()},
+            "sumsq": float(state.health.grad_sumsq)}
+
+
+def pipe_stage(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def gpipe_run(mesh, cases):
+    """``gpipe`` of :func:`pipe_stage` over the ``pipe`` axis for each case
+    (``{name: (params with a 'cot' cotangent, x)}``): the outputs on this
+    rank, the gradients of x and of the stage parameters of ``sum(out *
+    cot) / P`` (each rank's loss; their sum is ``sum(out * cot)``) summed
+    over the ranks, and the collectives' calls."""
+    from repro_torch.sharding.pipeline import gpipe
+
+    res = {}
+    for name, (params, x) in cases.items():
+        mesh.collective_stats(reset=True)
+        p = {k: torch.from_numpy(v).requires_grad_(True) for k, v in params.items() if k != "cot"}
+        xt = torch.from_numpy(x).requires_grad_(True)
+        out = gpipe(pipe_stage, p, xt, mesh=mesh)
+        loss = (out * torch.from_numpy(params["cot"])).sum() / mesh.shape["pipe"]
+        grads = torch.autograd.grad(loss, [xt] + list(p.values()))
+        calls = {k: v["calls"] for k, v in mesh.collective_stats(reset=True).items()}
+        whole = [_np(mesh.psum(g, tuple(mesh.shape))) for g in grads]
+        res[name] = {"out": _np(out), "gx": whole[0], "gp": dict(zip(p, whole[1:])), "calls": calls}
+    return res

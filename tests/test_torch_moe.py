@@ -14,7 +14,8 @@ weights, in f32:
 * the gradients of x and of the four leaves against ``jax.grad``;
 * ``E = 1, k = 1`` equals the dense MLP on the same weights;
 * the capacity rule (Python's half-to-even ``round``, the dropless rule);
-* under a sharding context over more than one device the layer raises.
+* under a device-free ``SpecMesh`` context the layer dispatches in JAX's G
+  groups, with JAX's tables, output and aux loss.
 """
 import jax
 import jax.numpy as jnp
@@ -25,7 +26,7 @@ import torch
 from _torch_parity import assert_close
 from repro.models import mlp_moe as jmoe
 from repro_torch.models import mlp_moe as tmoe
-from repro_torch.sharding import ShardingContext, SpecMesh, use_sharding
+from repro_torch.sharding import ShardingContext, SpecMesh, logical, use_sharding
 
 TOL = 1e-5
 D, F = 16, 24
@@ -151,12 +152,71 @@ def test_capacity_rule_matches_jax(n, e, k, cf):
     assert want == {4096: 640, 40: 2}.get(n, want)       # olmoe's training batch of 2 x 2048; half to even
 
 
-def test_moe_raises_under_a_mesh_of_more_than_one_device():
-    _, tcfg, p, x = _case("dropless")
+def _jax_grouped(jcfg, p, x, g):
+    """The JAX layer's body with G groups (``repro/models/mlp_moe.py:229-
+    282`` as it runs under a mesh whose batch axes multiply to G): the
+    tables of every group, and the output and aux loss."""
+    b, s, _ = x.shape
+    n_g = b * s // g
+    e, k = jcfg.n_experts, jcfg.top_k
+    xf = jnp.asarray(x).reshape(g, n_g, D)
+    logits = jnp.einsum("gnd,de->gne", xf, jnp.asarray(p["router"]))
+    probs = jax.nn.softmax(logits, axis=-1)
+    gates, eidx = jax.lax.top_k(probs, k)
+    gates = gates / jnp.sum(gates, axis=-1, keepdims=True)
+    density = jnp.mean(jax.nn.one_hot(eidx[..., 0], e), axis=(0, 1))
+    aux = jcfg.aux_coef * e * jnp.sum(density * jnp.mean(probs, axis=(0, 1)))
+    aux = aux + jcfg.router_z_coef * jnp.mean(jnp.square(jax.nn.logsumexp(logits, axis=-1)))
+    cap = int(max(1, round(n_g * k / e * jcfg.capacity_factor)))
+    if n_g * k <= 16 * e:
+        cap = min(n_g, max(cap, n_g))
+    xg, token_of, gate_of, valid = jax.vmap(
+        lambda a, b_, c: jmoe._dispatch_group(a, b_, c, e, k, cap, jnp.float32))(xf, gates, eidx)
+    y = jax.vmap(lambda xg_g: jmoe._expert_ffn_dense({k_: jnp.asarray(v) for k_, v in p.items()}, xg_g, jcfg,
+                                                     jnp.float32))(xg)
+    y = jnp.where(valid, y * gate_of[..., None], 0)
+    out = jax.vmap(lambda y_g, t_g: jnp.zeros((n_g, D)).at[t_g.reshape(-1)].add(y_g.reshape(-1, D)))(y, token_of)
+    return dict(out=out.reshape(b, s, D), aux=aux, eidx=eidx, token_of=token_of, valid=valid, gate_of=gate_of,
+                cap=cap)
+
+
+@pytest.mark.parametrize("name", ["dropless", "drops"])
+def test_moe_groups_under_a_spec_mesh_as_jax(name):
+    """Under ``SpecMesh({'data': 2, 'model': 2})`` the layer dispatches in
+    G = 2 groups of b*s/2 tokens, each with its own capacity, as the JAX
+    layer does under a (2, 2) mesh: the dispatch tables equal JAX's
+    exactly, the output and aux loss within 1e-5, and the drops are counted
+    per group; a batch that G does not divide, and a mesh of one device,
+    dispatch in one group."""
+    jcfg, tcfg, p, x = _case(name)
+    want = _jax_grouped(jcfg, p, x, 2)
     tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    lay = logical.Layout(ShardingContext(SpecMesh({"data": 2, "model": 2})), False)
+    assert tmoe.moe_groups(x.shape[0], lay) == 2 and tmoe.moe_groups(3, lay) == 1
+    routing = tmoe.moe_route(tp, torch.from_numpy(x).reshape(-1, D), tcfg, 2)
+    assert routing.capacity == want["cap"]
+    e, k = tcfg.n_experts, tcfg.top_k
+    np.testing.assert_array_equal(routing.eidx.reshape(2, -1, k).numpy(), np.asarray(want["eidx"]))
+    for gi, dp in enumerate(routing.groups):
+        shape = (e, want["cap"])
+        np.testing.assert_array_equal((dp.choice // k).reshape(shape).numpy(), np.asarray(want["token_of"][gi]))
+        np.testing.assert_array_equal(dp.valid.reshape(shape + (1,)).numpy(), np.asarray(want["valid"][gi]))
     with use_sharding(ShardingContext(SpecMesh({"data": 2, "model": 2}))):
-        with pytest.raises(NotImplementedError, match="expert parallelism"):
-            tmoe.moe_forward(tp, torch.from_numpy(x), tcfg)
+        with tmoe.count_drops() as drops:
+            y, aux = tmoe.moe_forward(tp, torch.from_numpy(x), tcfg)
+    assert_close(y, want["out"], TOL, "y")
+    np.testing.assert_allclose(float(aux), float(want["aux"]), rtol=TOL)
+    per_group = [int(v) for v in drops[0]]
+    assert per_group == [int(n_k) - int(np.asarray(want["valid"][gi]).sum())
+                         for gi, n_k in enumerate([x.shape[0] * x.shape[1] // 2 * k] * 2)]
+    # each group's 32 tokens are few enough to route dropless (n_g * k <= 16 E),
+    # where the 'drops' case drops as one group of 64
+    assert per_group == [0, 0]
+    with tmoe.count_drops() as drops:
+        one = tmoe.moe_forward(tp, torch.from_numpy(x), tcfg)[0]
+    assert (int(drops[0].sum()) > 0) == (name == "drops")
+    # one group where G does not divide the batch, or on a mesh of one device
     with use_sharding(ShardingContext(SpecMesh({"data": 1, "model": 1}))):
-        y, _ = tmoe.moe_forward(tp, torch.from_numpy(x), tcfg)
-    torch.testing.assert_close(y, tmoe.moe_forward(tp, torch.from_numpy(x), tcfg)[0], rtol=0, atol=0)
+        torch.testing.assert_close(tmoe.moe_forward(tp, torch.from_numpy(x), tcfg)[0], one, rtol=0, atol=0)
+    with use_sharding(ShardingContext(SpecMesh({"data": 3, "model": 1}))):
+        torch.testing.assert_close(tmoe.moe_forward(tp, torch.from_numpy(x), tcfg)[0], one, rtol=0, atol=0)
