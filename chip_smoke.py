@@ -124,7 +124,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    number), and the gradient all-reduce's; one more step profiled (busy
    share on every rank) with the forward's collectives timed; peak memory
    on every rank. A rank that fails ends the run.
-6f-6j. The forward on the mesh, 4 new ranks of the same (data=2, model=2)
+6f-6k. The forward on the mesh, 4 new ranks of the same (data=2, model=2)
    mesh: gpt_small whole (8 x 1024), olmoe_1b_7b cut to 1 layer and
    falcon_mamba_7b cut to 2 (2 x 2048: a row a data group; olmoe's 320
    slots an expert a group) at full width through the sharded Trainer, in
@@ -153,7 +153,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    outputs and the gradients of x and the stage parameters against
    ``sequential_reference`` (1e-5), 10 handoffs each way. 6j: moment-less
    SlimAdam (Table 3 on gpt_small's leaves) sharded against unsharded, 2
-   updates (2e-6), no kernel launched. Then B15's training form and
+   updates (2e-6), no kernel launched. 6k: parameter-shard storage on the
+   same ranks, through ``repro_torch.launch.train`` (``build``: each leaf
+   drawn whole from a CUDA generator seeded 0, as 6f's Trainer draws it,
+   and kept as this rank's shard; the step built with ``grad_shardings``;
+   ``train``, the launcher's loop): gpt_small whole (8 x 1024) and
+   falcon_mamba_7b cut to 2 layers (2 x 2048), f32 Adam for 2 steps, held
+   to 6f's whole-parameter run on the same rank (losses 1e-5, first-step
+   gradient shards TOL_TP_GRAD of each leaf's largest |g|); olmoe_1b_7b
+   cut to 2 layers (1,045,178,368 parameters, 2 x 2048, lr 1e-4, JAX's G =
+   2 groups), f32 Adam, then bf16 Adam with one SNR measurement of its
+   moment shards (B9), then bf16 Table-3 SlimAdam, 2 steps each. Every
+   rank's bytes of p, g, m and v must equal the count reckoned from
+   ``shardspec.local_shape`` (``launch.train.reckon_bytes``); each run's
+   peak over the rank's start, regions (parallel form, a layer a step
+   forward and recompute) and launches (B2; B9; B12/B13 where Table 3 has
+   psum leaves) on every rank; the bf16 Table-3 step's host time and
+   device-busy share (rank 0 and every rank; gloo on one card, not a
+   multi-GPU number). After the ranks exit, olmoe's references on the
+   whole card: f32 against the unsharded port (losses 1e-5, every rank's
+   gradient shards TOL_TP_GRAD), bf16 against the split form at 6g's bar,
+   and the routing choices and drops of each step and layer that differ
+   from the split form's and the unsharded port's, counted. Then B15's
+   training form and
    ``ssm_scan_bwd`` at a rank's channel shard (1 x 2048 x 4096, N 16, bf16)
    against their twins, timed beside their bounds.
 7. The SSM serving path: ``ssm_scan`` (B15) against its plain twin at the
@@ -1962,14 +1984,16 @@ def sharded_phase(torch, smi, rate):
     return summary
 
 
-# -- the forward on the mesh: tensor, sequence and expert parallelism, GPipe (phase 6f-6j)
+# -- the forward on the mesh: tensor, sequence and expert parallelism, GPipe (phase 6f-6j; 6k below)
 
 # Full-width cases on the (data=2, model=2) mesh: (layers kept, None for the
-# whole model; global rows; sequence; lr). Depth is the only cut: each of the
-# 4 ranks holds p, g and the whole update in f32, and the sharded update's
-# megaplan buffers on top (olmoe's 2-layer cut, 1.05 B parameters, ran out of
-# the card's 80 GB in the first step's update with 4 ranks; its 1-layer cut
-# keeps 0.62 B; falcon's 2-layer cut 0.48 B).
+# whole model; global rows; sequence; lr). Depth is the only cut: 6f runs the
+# whole-parameter path (Trainer), where each of the 4 ranks holds p, g and the
+# whole update in f32, and the sharded update's megaplan buffers on top
+# (olmoe's 2-layer cut, 1.05 B parameters, ran out of the card's 80 GB in the
+# first step's update with 4 such ranks; its 1-layer cut keeps 0.62 B;
+# falcon's 2-layer cut 0.48 B). 6k trains olmoe's 2-layer cut with each rank
+# holding only its shards (SHARD_CASES).
 TP_CASES = {"gpt_small": (None, 8, 1024, 1e-3), "olmoe_1b_7b": (1, 2, 2048, 1e-4),
             "falcon_mamba_7b": (2, 2, 2048, 1e-3)}
 TP_REGIONS = {"gpt_small": ("attn", "mlp"), "olmoe_1b_7b": ("attn", "moe"), "falcon_mamba_7b": ("ssm",)}
@@ -1978,17 +2002,19 @@ TOL_TP_GRAD = 1e-5          # f32: each leaf's first-step gradient, of its large
 PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 1024   # GPipe: one full-width gpt_small block a stage
 
 
-def tp_case(torch, mesh, arch: str, dtype, lead: bool) -> dict:
+def tp_case(torch, mesh, arch: str, dtype, lead: bool, keep: dict) -> dict:
     """One full-width case on the mesh in one activation dtype (6f-6h): the
     sharded Trainer (Adam measuring SNR, then in bf16 Table-3 SlimAdam;
     TP_STEPS each, launch and region counters zeroed before and read after
-    each run), in f32 also the first batch's gradients through
-    ``make_grad_fn``; then
-    rank 0 alone runs the unsharded port on the same batches from the same
+    each run), in f32 also the first step's averaged gradients, as its
+    optimizer receives them; then rank 0 alone runs the unsharded port on the same batches from the same
     weights (olmoe's with JAX's G = 2 dispatch groups) and holds the
     sharded run to it (:func:`tp_reference`). bf16 adds each step's
     host time, one profiled step (device busy share; the regions'
-    collectives timed) and one gradient bucket's all-reduce."""
+    collectives timed) and one gradient bucket's all-reduce. In f32
+    ``keep[arch]`` gets what 6k holds its parameter-shard run to: the
+    losses, this rank's cut of the first-step gradients by the parameter
+    specs (on the host) and each leaf's largest |g|."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core import rules_to_dims, table3_rules
@@ -1998,7 +2024,8 @@ def tp_case(torch, mesh, arch: str, dtype, lead: bool) -> dict:
     from repro_torch.sharding import ShardingContext, logical, param_specs, use_sharding
     from repro_torch.sharding.shardspec import regime_counts
     from repro_torch.train import Trainer, TrainerConfig
-    from repro_torch.train.step import AVERAGE_BUCKET, make_grad_fn
+    from repro_torch.optim.base import GradientTransformation
+    from repro_torch.train.step import AVERAGE_BUCKET, make_train_step
 
     say = log if lead else (lambda *a: None)
     layers, rows, seq, lr = TP_CASES[arch]
@@ -2010,7 +2037,7 @@ def tp_case(torch, mesh, arch: str, dtype, lead: bool) -> dict:
     res: dict = {"layers": cfg.n_layers}
     say(f"[6f] {label}: {cfg.n_layers} layers at full width, batch {rows} x {seq} ({rows // 2} row(s) a data group), "
         f"lr {lr}, through the sharded Trainer on the (data=2, model=2) mesh")
-    sharded_grads = None
+    first: dict = {}   # rank 0: the first step's whole averaged gradients, on the host
     # f32: Adam only (its first-step gradients and losses); the optimizer's
     # state and kernels are f32 in both runs, so Table 3 runs in bf16
     res["optimizers"] = optimizers = ("adam",) if f32 else ("adam", "slim")
@@ -2029,10 +2056,19 @@ def tp_case(torch, mesh, arch: str, dtype, lead: bool) -> dict:
                                              [specs[k] for k in tr.params], mesh)
                 res["table3_regimes"] = regime_counts(plans)
             if optimizer == "adam" and f32:
-                grads, _ = make_grad_fn(tr.model, mesh=mesh)(tr.batch(0))
-                if lead:
-                    sharded_grads = {k: g.detach().cpu() for k, g in grads.items()}
-                del grads
+                # the first step's averaged gradients, as the optimizer receives them
+                specs, tx = param_specs(tr.meta, tr.params), tr.tx
+
+                def update(grads, opt_state, params=None):
+                    if arch not in keep:
+                        keep[arch] = dict(layers=cfg.n_layers,
+                                          grad_cut={k: mesh.shard(g, specs[k]).cpu() for k, g in grads.items()},
+                                          grad_max={k: float(g.abs().max()) for k, g in grads.items()})
+                        if lead:
+                            first.update({k: g.detach().cpu() for k, g in grads.items()})
+                    return tx.update(grads, opt_state, params)
+
+                tr._train_step = make_train_step(tr.model, GradientTransformation(tx.init, update), mesh=mesh)
             kernels.reset_launch_counts()
             logical.region_counts(reset=True)
             sc.ssm_scan.channel_launches.clear()
@@ -2075,12 +2111,14 @@ def tp_case(torch, mesh, arch: str, dtype, lead: bool) -> dict:
                 f"{[round(x, 1) for x in step_ms]} ms, peak {run['peak_gib']:.2f} GiB over the start, regions "
                 f"{run['regions']}, launches { {k: v for k, v in run['launches'].items() if v} }")
             res[optimizer] = run
+            if f32 and optimizer == "adam":
+                keep[arch]["losses"] = run["losses"]
             del tr
             torch.cuda.empty_cache()
     res["ranks_peak_gib"] = max(res[o]["peak_gib"] for o in optimizers)
     mesh.barrier()
     if lead:
-        res["reference"] = tp_reference(torch, cfg, data, lr, f32, sharded_grads, res, label)
+        res["reference"] = tp_reference(torch, cfg, data, lr, f32, first, res, label)
     mesh.barrier()
     return res
 
@@ -2319,8 +2357,398 @@ def momentless_case(torch, mesh, lead: bool) -> dict:
     return dict(abs_err=worst, regimes=regime_counts(plans))
 
 
+# -- parameter-shard storage (phase 6k) ------------------------------------------
+
+# Full-width cases of 6k on the same (data=2, model=2) ranks, each rank
+# holding only its shards of p, g, m, v and the update: (layers kept, None for
+# the whole model; global rows; sequence; lr; the dtypes and optimizers run).
+# gpt_small and falcon's cut repeat 6f's f32 Adam run from the same weights;
+# olmoe's 2-layer cut is the one that did not fit four whole-parameter ranks.
+SHARD_CASES = {
+    "gpt_small": (None, 8, 1024, 1e-3, (("float32", "adam"),)),
+    "falcon_mamba_7b": (2, 2, 2048, 1e-3, (("float32", "adam"),)),
+    "olmoe_1b_7b": (2, 2, 2048, 1e-4, (("float32", "adam"), ("bfloat16", "adam"), ("bfloat16", "slim"))),
+}
+SHARD_STEPS = 2             # steps a run: Adam (SNR measured after the last in bf16), Table-3 SlimAdam
+TOL_SHARD_LOSS = 1e-5       # f32 losses against the whole-parameter path: only the order of sums differs
+
+
+def record_routes(torch, log_to: list):
+    """Wrap ``mlp_moe.moe_route`` so every call appends its (expert ids
+    (n, k), kept choices (n * k,)) to ``log_to`` as numpy arrays; returns
+    the function that unwraps it."""
+    from repro_torch.models import mlp_moe
+
+    orig = mlp_moe.moe_route
+
+    def route(p, xf, cfg, groups):
+        r = orig(p, xf, cfg, groups)
+        log_to.append((r.eidx.cpu().numpy(), torch.cat([dp.keep for dp in r.groups]).cpu().numpy()))
+        return r
+
+    mlp_moe.moe_route = route
+    return lambda: setattr(mlp_moe, "moe_route", orig)
+
+
+def forward_routes(calls: list, layers: int) -> list:
+    """The forward's routing of each step from a step's calls (each layer's
+    forward, then under remat its recompute in reverse): per step, per
+    layer, (expert ids, kept)."""
+    per = 2 * layers
+    return [calls[s * per: s * per + layers] for s in range(len(calls) // per)]
+
+
+def shard_run(torch, mesh, arch: str, dtype_name: str, optimizer: str, lead: bool, keep: dict, work) -> dict:
+    """One 6k run on this rank: ``repro_torch.launch.train.build`` (weights
+    drawn leaf by leaf from a CUDA generator seeded 0, as 6f's Trainer draws
+    them, each kept as this rank's shard), the persistent bytes held
+    against ``reckon_bytes`` (p, m, v; g's against p's), in f32 the first
+    batch's gradient shards, SHARD_STEPS steps through ``launch.train``
+    (launch and region counters zeroed before), in bf16 Adam one SNR
+    measurement of its moment shards (B9), in bf16 Table 3 its last step
+    profiled; olmoe's bf16 routing recorded. f32 gpt_small and falcon are
+    held here to 6f's run (``keep``); olmoe's gradient shards go to
+    ``work`` for the reference after the ranks exit."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import measure_tree_snr, rules_to_dims, table3_rules
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import fused as F
+    from repro_torch.sharding import ShardingContext, logical, use_sharding
+    from repro_torch.sharding.shardspec import regime_counts, spec_entries
+    from repro_torch.optim.base import GradientTransformation
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import find_adam_nu
+
+    say = log if lead else (lambda *a: None)
+    layers, rows, seq, lr, _ = SHARD_CASES[arch]
+    dtype = getattr(torch, dtype_name)
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype, **({"n_layers": layers} if layers else {}))
+    ref = keep.get(arch) if dtype == torch.float32 else None
+    ref = ref if ref is not None and ref["layers"] == cfg.n_layers else None
+    label = f"{arch} {'f32' if dtype == torch.float32 else 'bf16'} {optimizer}"
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows, seed=0))
+    quiet = lambda *a: None   # noqa: E731
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res: dict = {"layers": cfg.n_layers, "coords": dict(mesh.coords)}
+    routes: list = []
+    unwrap = record_routes(torch, routes) if arch == "olmoe_1b_7b" and dtype == torch.bfloat16 else None
+    try:
+        with use_sharding(ShardingContext(mesh)):
+            run = launch.build(cfg, optimizer, lr, mesh, gen=torch.Generator(device="cuda").manual_seed(0))
+            held, reckoned = run.persistent_bytes(), launch.reckon_bytes(cfg, optimizer, lr, mesh)
+            if held != reckoned:
+                raise AssertionError(f"{label}: rank {mesh.rank} holds {held} bytes, reckoned {reckoned}")
+            res.update(bytes=held, n_params=sum(math.prod(s.shape) for s in cfg.abstract()[0].values()))
+            if optimizer == "slim":
+                dims = rules_to_dims(table3_rules(run.model.meta), run.model.meta)
+                names = list(run.p_sh)
+                res["regimes"] = regime_counts(F.sharded_tree_plans(
+                    [run.model.params[k] for k in names], [dims[k] for k in names],
+                    [run.p_sh[k].spec for k in names], mesh, param_shards=True))
+            first: dict = {}
+            if dtype == torch.float32:
+                # the first step's gradient shards, as the optimizer receives them
+                def update(grads, opt_state, params=None):
+                    if not first:
+                        first.update({k: g.detach().cpu() for k, g in grads.items()})
+                    return run.tx.update(grads, opt_state, params)
+
+                run = run._replace(step=make_train_step(run.model, GradientTransformation(run.tx.init, update),
+                                                        mesh=mesh, grad_shardings=run.p_sh))
+            routes.clear()
+            kernels.reset_launch_counts()
+            logical.region_counts(reset=True)
+            profiled = dtype == torch.bfloat16 and optimizer == "slim"
+            state, losses, step_ms = run.opt_state, [], []
+            for k in range(SHARD_STEPS):
+                mesh.barrier()
+                step = lambda: launch.train(run._replace(opt_state=state), data, k + 1, start=k, log=quiet)  # noqa
+                if profiled and k == SHARD_STEPS - 1:
+                    mesh.collective_stats(reset=True)
+                    box = []
+                    res["profile"] = profile_device(torch, lambda: box.append(step()), 1, statistics.median(step_ms),
+                                                    f"{label} shard-storage step")
+                    (row,), state = box[0]
+                    res["collectives"] = {k2: v["calls"] for k2, v in mesh.collective_stats(reset=True).items()}
+                else:
+                    t0 = time.perf_counter()
+                    (row,), state = step()
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(row["loss"])
+            if first:
+                res["grad_bytes"] = sum(g.numel() * g.element_size() for g in first.values())
+                if res["grad_bytes"] != held["params"]:
+                    raise AssertionError(f"{label}: gradient shards {res['grad_bytes']} B, parameters "
+                                         f"{held['params']} B")
+                if ref is not None:
+                    res["grad_rel_err"] = hold_grads(first, ref, label)
+                else:
+                    blocks = {k: [(d, mesh.group_index(axes) * g.shape[d], g.shape[d]) for d, axes in
+                                  enumerate(spec_entries(run.p_sh[k].spec, g.ndim)) if axes]
+                              for k, g in first.items()}
+                    torch.save({"grads": first, "blocks": blocks}, work / f"grads_{arch}_{mesh.rank}.pt")
+                first.clear()
+            if dtype == torch.bfloat16 and optimizer == "adam":
+                nu_specs = {k: s.spec for k, s in find_adam_nu(run.o_sh).items()}
+                snr = measure_tree_snr(find_adam_nu(state), run.model.meta, backend="fused", mesh=mesh,
+                                       param_specs=nu_specs)
+                res["snr_leaves"] = len(snr)
+            mesh.barrier()
+            res.update(losses=losses, step_ms=step_ms, launches=kernels.launch_counts(),
+                       regions=logical.region_counts(reset=True),
+                       peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+            del run, state
+    finally:
+        if unwrap is not None:
+            unwrap()
+    if routes:
+        res["routes"] = forward_routes(routes, cfg.n_layers)
+    if not all(map(math.isfinite, res["losses"])):
+        raise AssertionError(f"{label}: losses {res['losses']}")
+    if ref is not None:
+        want = ref["losses"]
+        res["loss_rel_err"] = err = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], want))
+        if err > TOL_SHARD_LOSS:
+            raise AssertionError(f"{label}: losses {res['losses']} against 6f's whole-parameter {want}: {err:.3e}")
+    whole = 4 * res["n_params"]
+    if ref is not None:
+        say(f"  [6k] {label}: losses {res['losses']} against 6f's whole-parameter {ref['losses']}: "
+            f"{res['loss_rel_err']:.3e} (tol {TOL_SHARD_LOSS:.0e}); first-step gradient shards within "
+            f"{res['grad_rel_err']:.3e} of each leaf's largest |g| (tol {TOL_TP_GRAD:.0e})")
+    say(f"  [6k] {label}: losses {[round(x, 6) for x in res['losses']]}, steps {[round(x, 1) for x in step_ms]} ms; "
+        f"rank 0 holds p {held['params'] / 2**30:.3f} GiB, opt {held['opt'] / 2**30:.3f} GiB (= reckoned), peak "
+        f"{res['peak_gib']:.2f} GiB over its start (whole-parameter ranks held p, g and u whole: "
+        f"{3 * whole / 2**30:.3f} GiB); regions {res['regions']}; launches "
+        f"{ {k: v for k, v in res['launches'].items() if v} }")
+    torch.cuda.empty_cache()
+    return res
+
+
+def hold_grads(grads, ref: dict, label: str) -> float:
+    """Each gradient shard against this rank's cut of the whole-parameter
+    path's averaged gradient, of the leaf's largest |g| (TOL_TP_GRAD)."""
+    worst = 0.0
+    for k, g in grads.items():
+        want = ref["grad_cut"][k].double()
+        scale = ref["grad_max"][k]
+        err = float((g.detach().cpu().double() - want).abs().max()) / scale if scale else float(g.abs().max())
+        worst = max(worst, err)
+        if err > TOL_TP_GRAD:
+            raise AssertionError(f"{label}: {k}'s gradient shard {err:.3e} of its largest |g| from the whole-parameter "
+                                 f"path's (tol {TOL_TP_GRAD:.0e})")
+    return worst
+
+
+def shard_cases(torch, mesh, lead: bool, keep: dict, work) -> dict:
+    """Phase 6k on this rank: every SHARD_CASES run in turn."""
+    out = {}
+    for arch, (*_, runs) in SHARD_CASES.items():
+        for dtype_name, optimizer in runs:
+            t0 = time.perf_counter()
+            r = shard_run(torch, mesh, arch, dtype_name, optimizer, lead, keep, work)
+            r["seconds"] = time.perf_counter() - t0
+            out[f"{arch} {dtype_name} {optimizer}"] = r
+    return out
+
+
+def group_routes(routes: list, groups: int, g: int) -> list:
+    """Group ``g``'s part of routes over ``groups`` groups (group-major)."""
+    return [[(e.reshape(groups, -1, e.shape[-1])[g], k.reshape(groups, -1)[g]) for e, k in step] for step in routes]
+
+
+def route_flips(a: list, b: list) -> list:
+    """Per step and layer: (expert choices that differ, kept choices that
+    differ, drops in ``a``, drops in ``b``) between two routings of the same
+    tokens."""
+    return [[(int((ea != eb).sum()), int((ka != kb).sum()), int((~ka).sum()), int((~kb).sum()))
+             for (ea, ka), (eb, kb) in zip(sa, sb)] for sa, sb in zip(a, b)]
+
+
+def shard_reference(torch, results: dict, work, smi: str) -> dict:
+    """After the ranks exit, on the whole card: olmoe_1b_7b's 2-layer cut
+    through the unsharded port (JAX's G = 2 groups under a ``SpecMesh``)
+    from the same weights and batches. f32: the ranks' losses (1e-5) and
+    every rank's gradient shards against the cut of the unsharded first-step
+    gradients (TOL_TP_GRAD of each leaf's largest |g|). bf16, Adam and Table
+    3: the losses against the split form's (``tests/_torch_split.py``) at
+    6g's bar, max(1e-4, twice the unsharded port's own gap as 2
+    micro-batches); the routing choices and drops that differ from the
+    split form's and the unsharded port's at each step and layer."""
+    import contextlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.sharding import ShardingContext, SpecMesh, use_sharding
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.step import make_grad_fn
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_split import split_regions
+
+    arch = "olmoe_1b_7b"
+    layers, rows, seq, lr, runs = SHARD_CASES[arch]
+    r0 = results[0]["shards"]
+    out: dict = {}
+    groups = ShardingContext(SpecMesh({"data": SHARD_SHAPE[0]}))
+    split = lambda: split_regions(SHARD_SHAPE[1], rows=SHARD_SHAPE[0])   # noqa: E731
+    for dtype_name, optimizer in runs:
+        dtype = getattr(torch, dtype_name)
+        cfg = dataclasses.replace(get_config(arch), dtype=dtype, n_layers=layers)
+        data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows, seed=0))
+        key = f"{arch} {dtype_name} {optimizer}"
+        orders = {"x1": (1, contextlib.nullcontext)}
+        if dtype == torch.bfloat16:
+            orders.update(x2=(2, contextlib.nullcontext), split=(1, split))
+        ref: dict = {}
+        for order, (accum, form) in orders.items():
+            calls: list = []
+            unwrap = record_routes(torch, calls) if order != "x2" and dtype == torch.bfloat16 else None
+            try:
+                with use_sharding(groups), form():
+                    tc = TrainerConfig(total_steps=SHARD_STEPS, log_every=1, backend="fused", seed=0)
+                    tr = Trainer(cfg, optimizer, lr, data, tc, grad_accum=accum,
+                                 gen=torch.Generator(device="cuda").manual_seed(0))
+                    if dtype == torch.float32:
+                        grads, _ = make_grad_fn(tr.model)(tr.batch(0))
+                        ref["grad_rel_err"] = hold_saved_grads(torch, grads, work, arch, key)
+                        del grads
+                    calls.clear()
+                    tr.run()
+                    ref[order] = [m["loss"] for m in tr.metrics_log]
+                    del tr
+                    torch.cuda.empty_cache()
+            finally:
+                if unwrap is not None:
+                    unwrap()
+            if calls:
+                ref[f"{order}_routes"] = forward_routes(calls, layers)
+        got = r0[key]["losses"]
+        rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))   # noqa: E731
+        if dtype == torch.float32:
+            ref["loss_rel_err"] = err = rel(got, ref["x1"])
+            log(f"  [6k] {key}: losses shard storage {got}, unsharded {ref['x1']}: {err:.3e} (tol "
+                f"{TOL_SHARD_LOSS:.0e}); gradient shards of every rank within {ref['grad_rel_err']:.3e} of each "
+                f"leaf's largest |g| (tol {TOL_TP_GRAD:.0e})")
+            if err > TOL_SHARD_LOSS:
+                raise AssertionError(f"{key}: losses {got} against the unsharded port's {ref['x1']}")
+        else:
+            ref["own_x2"] = rel(ref["x2"], ref["x1"])
+            out.setdefault("own_x2", []).append(ref["own_x2"])
+        out[key] = ref
+    tol = max(TOL_SHARDED_LOSS, 2 * max(out.get("own_x2", [0.0])))
+    for dtype_name, optimizer in runs:
+        key = f"{arch} {dtype_name} {optimizer}"
+        ref = out[key]
+        if dtype_name != "bfloat16":
+            continue
+        got = r0[key]["losses"]
+        ref["rel_err_split"] = err = max(abs(x - y) / abs(y) for x, y in zip(got, ref["split"]))
+        ref["rel_err_x1"] = max(abs(x - y) / abs(y) for x, y in zip(got, ref["x1"]))
+        n_g = SHARD_SHAPE[0]
+        whole = {order: ref.pop(f"{order}_routes") for order in ("split", "x1")}
+        cut = {order: [group_routes(whole[order], n_g, g) for g in range(n_g)] for order in whole}
+        flips = {}
+        for r, res in results.items():
+            routes, g = res["shards"][key].pop("routes"), res["shards"][key]["coords"]["data"]
+            flips[r] = {order: route_flips(routes, cut[order][g]) for order in ("split", "x1")}
+        split_x1 = [route_flips(cut["split"][g], cut["x1"][g]) for g in range(n_g)]
+        ref.update(flips=flips, flips_split_x1=split_x1)
+        log(f"  [6k] {key}: losses shard storage {got}, split form {ref['split']}, unsharded {ref['x1']}: {err:.3e} "
+            f"from the split form (tol max({TOL_SHARDED_LOSS:.0e}, twice {max(out['own_x2']):.3e}) = {tol:.3e}), "
+            f"{ref['rel_err_x1']:.3e} from unsharded")
+        for r in (0, 2):
+            log(f"    routing of rank {r}'s data group by step and layer, (expert choices that differ, kept choices "
+                f"that differ, drops here, drops there): against the split form {flips[r]['split']}; against "
+                f"unsharded {flips[r]['x1']}; the split form against unsharded (group "
+                f"{results[r]['shards'][key]['coords']['data']}) "
+                f"{split_x1[results[r]['shards'][key]['coords']['data']]}")
+        if not err <= tol:
+            raise AssertionError(f"{key}: losses {got} outside max(1e-4, twice the 2-micro-batch gap) = {tol:.3e} of "
+                                 f"the split form's {ref['split']}")
+    out["tol"] = tol
+    return out
+
+
+def shard_summary(torch, results: dict, work, smi: str) -> dict:
+    """6k's report: every rank's losses equal; each case's bytes a rank
+    (held = reckoned), peak over its start and time, printed for every
+    rank; rank 0's bf16 Table-3 step and busy share; launches and regions
+    (every region its parallel form, a layer a step forward and remat
+    recompute; B2 each Adam step, B9 in the SNR measurement, B12/B13 each
+    Table-3 step); then olmoe's references (:func:`shard_reference`)."""
+    r0 = results[0]["shards"]
+    out = {"cases": {}}
+    for key, run in r0.items():
+        for r in range(1, SHARD_RANKS):
+            if results[r]["shards"][key]["losses"] != run["losses"]:
+                raise AssertionError(f"6k {key}: rank {r} reports other losses than rank 0")
+        n = run["layers"] * SHARD_STEPS * 2
+        arch, optimizer = key.split()[0], key.split()[2]
+        want = {k: {"parallel": n, "fallback": 0} for k in TP_REGIONS[arch]}
+        if run["regions"] != want:
+            raise AssertionError(f"6k {key}: regions {run['regions']}, expected {want}")
+        c = run["launches"]
+        need = {"mega_adam_update": SHARD_STEPS}
+        if optimizer == "slim" and run["regimes"]["psum"]:
+            need.update(mega_slim_partial_stats_batched=SHARD_STEPS, mega_slim_finalize_batched=SHARD_STEPS)
+        if "snr_leaves" in run:
+            need["snr_stats_centered_partial_batched"] = 1
+        short = {k: c.get(k, 0) for k, v in need.items() if c.get(k, 0) < v}
+        if short:
+            raise AssertionError(f"6k {key}: launches {short} below {need}")
+        whole = 4 * run["n_params"]
+        for r in sorted(results):
+            x = results[r]["shards"][key]
+            log(f"  [6k] {key} rank {r} {x['coords']}: p {x['bytes']['params']:,} B, g "
+                f"{x.get('grad_bytes', x['bytes']['params']):,} B, m and v {x['bytes']['opt']:,} B (held = reckoned); "
+                f"peak {x['peak_gib']:.3f} GiB over its start; whole-parameter ranks held p, g, u whole "
+                f"({3 * whole:,} B) beside the same m, v shards; steps {[round(t, 1) for t in x['step_ms']]} ms, "
+                f"{x['seconds']:.1f} s")
+        row = {k: v for k, v in run.items() if k not in ("profile",)}
+        row["peak_gib_by_rank"] = [results[r]["shards"][key]["peak_gib"] for r in sorted(results)]
+        if "profile" in run:
+            row["busy_share_by_rank"] = [results[r]["shards"][key]["profile"]["busy_ms"]
+                                         / results[r]["shards"][key]["profile"]["wall_ms"] for r in sorted(results)]
+            row["top_kernels"] = run["profile"]["kernels"][:10]
+            log(f"  [6k] {key} step ({smi}; 4 ranks on one card over gloo, not a multi-GPU number): "
+                f"{[round(t, 1) for t in run['step_ms']]} ms on the host clock, busy share by rank "
+                f"{[round(x, 3) for x in row['busy_share_by_rank']]} against the first step's time; collectives "
+                f"{run['collectives']}")
+        out["cases"][key] = row
+    out["reference"] = shard_reference(torch, results, work, smi)
+    for key, ref in out["reference"].items():
+        if isinstance(ref, dict) and "flips" in ref:
+            out["cases"][key]["flips"] = ref.pop("flips")
+    return out
+
+
+def hold_saved_grads(torch, grads, work, arch: str, key: str) -> float:
+    """Every rank's saved gradient shards against the cut of the unsharded
+    gradients by the rank's blocks, of each leaf's largest |g|."""
+    worst = 0.0
+    for r in range(SHARD_RANKS):
+        saved = torch.load(work / f"grads_{arch}_{r}.pt")
+        for k, g in grads.items():
+            want = g.detach()
+            for d, start, length in saved["blocks"][k]:
+                want = want.narrow(d, start, length)
+            scale = float(g.abs().max())
+            err = float((saved["grads"][k].cuda().double() - want.double()).abs().max()) / scale
+            worst = max(worst, err)
+            if err > TOL_TP_GRAD:
+                raise AssertionError(f"{key}: rank {r}'s {k} gradient shard {err:.3e} of its largest |g| from the "
+                                     f"unsharded port's (tol {TOL_TP_GRAD:.0e})")
+        del saved
+    return worst
+
+
 def tp_rank(rank, rdv, out, rate):
-    """One rank of the (data=2, model=2) mesh on the card: phases 6f-6j.
+    """One rank of the (data=2, model=2) mesh on the card: phases 6f-6k.
     Rank 0 logs and holds the references; every rank checks its counts."""
     import datetime
 
@@ -2337,27 +2765,32 @@ def tp_rank(rank, rdv, out, rate):
                      world_size=SHARD_RANKS, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
     lead = rank == 0
     res: dict = {}
+    keep: dict = {}
     for arch in TP_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             label = f"{arch} {'f32' if dtype == torch.float32 else 'bf16'}"
             t0 = time.perf_counter()
-            r = tp_case(torch, mesh, arch, dtype, lead)
+            r = tp_case(torch, mesh, arch, dtype, lead, keep)
             tp_check(arch, r, label)
             r["seconds"] = time.perf_counter() - t0
             res[label] = r
     res["gpipe"] = gpipe_case(torch, mesh, lead)
     res["momentless"] = momentless_case(torch, mesh, lead)
+    t0 = time.perf_counter()
+    res["shards"] = shard_cases(torch, mesh, lead, keep, Path(rdv).parent)
+    res["shards_seconds"] = time.perf_counter() - t0
     res["seconds"] = time.perf_counter() - t_start
     out.put((rank, res))
     mesh.barrier()
 
 
 def tp_phase(torch, smi, rate):
-    """Phases 6f-6j: spawn the 4 ranks of a (data=2, model=2) mesh on this
+    """Phases 6f-6k: spawn the 4 ranks of a (data=2, model=2) mesh on this
     card for the forward's tensor-, sequence- and expert-parallel regions,
-    GPipe and moment-less SlimAdam; then B15 and its backward at a rank's
-    channel shard. Returns (report, launches summed over rank 0's counted
-    runs)."""
+    GPipe, moment-less SlimAdam and parameter-shard storage; after they
+    exit, olmoe's 6k references on the whole card; then B15 and its
+    backward at a rank's channel shard. Returns (report, launches summed
+    over rank 0's counted runs)."""
     import multiprocessing as mp
     import queue
     import shutil
@@ -2396,15 +2829,20 @@ def tp_phase(torch, smi, rate):
             if p.is_alive():
                 p.kill()
     spawn_s = time.perf_counter() - t0
-    shutil.rmtree(work, ignore_errors=True)
     r0 = results[0]
-    cases = [k for k in r0 if k not in ("gpipe", "momentless", "seconds")]
+    t0 = time.perf_counter()
+    shards = shard_summary(torch, results, work, smi)
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[6k] parameter-shard storage: {r0['shards_seconds']:.1f} s on the ranks, the references after them "
+        f"{time.perf_counter() - t0:.1f} s")
+    cases = [k for k in r0 if k not in ("gpipe", "momentless", "seconds", "shards", "shards_seconds")]
     for r in range(1, SHARD_RANKS):
         for case in cases:
             for optimizer in r0[case]["optimizers"]:
                 if results[r][case][optimizer]["losses"] != r0[case][optimizer]["losses"]:
                     raise AssertionError(f"rank {r} reports other {case} {optimizer} losses than rank 0")
-    summary = {"cases": {}, "gpipe": r0["gpipe"], "momentless": r0["momentless"], "spawn_s": spawn_s}
+    summary = {"cases": {}, "gpipe": r0["gpipe"], "momentless": r0["momentless"], "spawn_s": spawn_s,
+               "shards": shards}
     for case in cases:
         c = r0[case]
         row = dict(reference=c["reference"], layers=c["layers"], table3_regimes=c.get("table3_regimes"),
@@ -2430,8 +2868,11 @@ def tp_phase(torch, smi, rate):
         for optimizer in r0[case]["optimizers"]:
             for k, v in r0[case][optimizer]["launches"].items():
                 launches[k] = launches.get(k, 0) + v
+    for run in r0["shards"].values():
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     summary["scan_shard"] = scan_shard_timings(torch, rate, smi)
-    log(f"[6f-6j] ranks {spawn_s:.1f} s (rank 0 {r0['seconds']:.1f} s)")
+    log(f"[6f-6k] ranks {spawn_s:.1f} s (rank 0 {r0['seconds']:.1f} s)")
     return summary, launches
 
 
@@ -5406,7 +5847,7 @@ def main() -> int:
     report["sharded"] = sharded = sharded_phase(torch, smi, rate)
     stamp("6")
     report["tp"], tp_launches = tp_phase(torch, smi, rate)
-    stamp("6f-6j")
+    stamp("6f-6k")
     timer = Timer(torch)
     report["ssm"], ssm_entry = ssm_phase(torch, timer, rate, smi)
     stamp("7")

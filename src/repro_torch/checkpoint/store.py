@@ -28,7 +28,8 @@ the other.
 
 A sharded run checkpoints whole arrays, in the same format: the trainer
 gathers its shards and rank 0 writes (``repro_torch.train.Trainer
-.checkpoint``). ``restore(..., shardings=...)`` cuts each rank's shard of
+.checkpoint``; parameter-shard storage gathers its parameters too,
+:func:`gather_to_host`). ``restore(..., shardings=...)`` cuts each rank's shard of
 every sharded leaf out of the whole array it reads, so a checkpoint of
 either package, from a sharded run or not, restores onto any mesh.
 """
@@ -106,6 +107,24 @@ def _host(leaf: Any, *, copy: bool = False) -> np.ndarray:
         t = leaf.detach()
         return (t.to("cpu", copy=True) if copy else t.cpu()).numpy()
     return np.array(leaf, copy=True) if copy else np.asarray(leaf)
+
+
+def gather_to_host(tree: Any, shardings: Any, *, keep: bool = True) -> Any:
+    """The tree as whole host arrays, as a checkpoint holds it: each leaf
+    that ``shardings`` (a like-named tree of ``repro_torch.launch.mesh
+    .NamedSharding``s, e.g. ``{"params": ..., "opt": ...}``) names is this
+    rank's shard, gathered whole and copied to the host at once, leaf by
+    leaf, so one whole leaf is live on the device at a time. A collective:
+    every rank calls it; ranks with ``keep=False`` drop each leaf and get
+    None."""
+    by_name = dict(named_leaves(shardings))
+
+    def leaf(name, x):
+        whole = by_name[name].gather(x) if name in by_name else x
+        return _host(whole, copy=True) if keep else None
+
+    out = _walk(tree, "", leaf)
+    return out if keep else None
 
 
 def _crc(arr: np.ndarray) -> int:

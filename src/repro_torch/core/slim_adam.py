@@ -15,12 +15,11 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..optim import fused
-from ..optim.adam import _sharding
+from ..optim.adam import _sharding, fused_route, shard_clip
 from ..optim.base import (
     GradientTransformation,
     add_decayed_weights,
     chain,
-    clip_by_global_norm,
     matrices_only,
     resolve_backend,
     scale_by_learning_rate,
@@ -54,7 +53,7 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
                        use_first_moment: bool = True,
                        backend: str = "jnp", bucket_min_size: int = fused.DEFAULT_BUCKET_MIN,
                        mesh=None, param_specs=None, emit_snr: bool = False, emit_health: bool = False,
-                       megakernel: bool = True) -> GradientTransformation:
+                       megakernel: bool = True, param_shards: bool = False) -> GradientTransformation:
     """Adam preconditioner with mean-shared second moments along per-leaf
     dims (``dims``: ``{name: positional dims}``, from
     ``repro_torch.core.rules.rules_as_tree``). ``backend`` 'fused' routes
@@ -82,9 +81,11 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
     ``mesh`` + ``param_specs`` make the fused backend sharded: the state
     holds this rank's shards (a psum leaf's reduced moment as its owner
     slice), the update takes the whole gradients and returns whole updates,
-    with SNR and health equal on every rank (``repro_torch.optim.fused``)."""
+    with SNR and health equal on every rank (``repro_torch.optim.fused``);
+    with ``param_shards`` the parameters, gradients and updates are this
+    rank's shards too (parameter-shard storage; the fused backend only)."""
     resolve_backend(backend)
-    mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_slim_adam")
+    mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_slim_adam", param_shards)
 
     def spec_leaves(names):
         from ..sharding.shardspec import normalize_spec_leaves
@@ -93,11 +94,11 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
 
     def init_fn(params):
         device = next(iter(params.values())).device
-        if mesh is not None and resolve_backend(backend, device) == "fused":
+        if mesh is not None and fused_route(backend, device, param_shards, "scale_by_slim_adam"):
             names = list(params)
             mu, nu = fused.init_sharded_moments(list(params.values()), [tuple(dims[k]) for k in names],
                                                 spec_leaves(names), mesh, reduced=True,
-                                                use_first_moment=use_first_moment)
+                                                use_first_moment=use_first_moment, param_shards=param_shards)
             return ScaleBySlimAdamState(count=torch.zeros((), dtype=torch.int32, device=device),
                                         mu=dict(zip(names, mu)) if use_first_moment else None,
                                         nu=dict(zip(names, nu)))
@@ -117,10 +118,10 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
         d = [tuple(dims[k]) for k in names]
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
         snr = health = None
-        fused_route = resolve_backend(backend, g[0].device) == "fused"
-        if fused_route and (use_first_moment or fused._use_sharded(mesh, param_specs)):
+        on_fused = fused_route(backend, g[0].device, param_shards, "scale_by_slim_adam")
+        if on_fused and (use_first_moment or fused._use_sharded(mesh, param_specs)):
             if mesh is not None:
-                kw.update(mesh=mesh, spec_leaves=spec_leaves(names))
+                kw.update(mesh=mesh, spec_leaves=spec_leaves(names), param_shards=param_shards)
             out = fused.slim_tree_update(g, mu if use_first_moment else None, nu, d, bucket_min_size=bucket_min_size,
                                          emit_snr=emit_snr, with_health=emit_health, megakernel=megakernel,
                                          use_first_moment=use_first_moment, **kw)
@@ -144,15 +145,17 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
 def slim_adam(learning_rate, dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
               eps: float = 1e-8, weight_decay: float = 0.1, grad_clip: Optional[float] = 1.0,
               backend: str = "jnp", mesh=None, param_specs=None, emit_snr: bool = False,
-              emit_health: bool = False, megakernel: bool = True) -> GradientTransformation:
+              emit_health: bool = False, megakernel: bool = True, param_shards: bool = False
+              ) -> GradientTransformation:
     """AdamW recipe with SlimAdam's compressed preconditioner — the same
     hyperparameters as Adam, as the paper requires (``learning_rate`` a
     constant or a schedule of the step count; ``mesh``/``param_specs``
-    thread to :func:`scale_by_slim_adam`)."""
-    parts = [clip_by_global_norm(grad_clip)] if grad_clip is not None else []
+    thread to :func:`scale_by_slim_adam`, ``param_shards`` there and to the
+    clip)."""
+    parts = shard_clip(grad_clip, mesh, param_specs, param_shards)
     parts.append(scale_by_slim_adam(dims, b1=b1, b2=b2, eps=eps, backend=backend, mesh=mesh,
                                     param_specs=param_specs, emit_snr=emit_snr, emit_health=emit_health,
-                                    megakernel=megakernel))
+                                    megakernel=megakernel, param_shards=param_shards))
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
     parts.append(scale_by_learning_rate(learning_rate))

@@ -235,7 +235,7 @@ def attention_forward(p, x: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
         logical.region("attn", ok)
         if ok:
             return _attention_explicit_tp(p, x, cfg, lay)
-        return lay.whole(lambda xf: _attention(p, xf, cfg), x)
+        return lay.whole(lambda xf: _attention(logical.gathered(p), xf, cfg), x)
     return _attention(p, x, cfg)
 
 
@@ -248,20 +248,21 @@ def _full_attention(q, k, v, cfg: AttnConfig) -> torch.Tensor:
 
 def _attention_shard(p, x_full: torch.Tensor, cfg: AttnConfig, i: int, n: int) -> torch.Tensor:
     """Model rank ``i`` of ``n``'s partial sum of the out-projection (in x's
-    dtype): its ``h/n`` query heads (narrows of the whole weights), rope on
-    the whole sequence's positions, dense or flash attention by
-    ``dense_threshold``. With ``kv % n == 0`` the rank projects its own KV
-    heads; otherwise K/V are projected whole and each query head takes its
-    group ``(i * h_l + arange(h_l)) * kv // h``."""
+    dtype): its ``h/n`` query heads (:func:`repro_torch.sharding.logical
+    .weight`: narrows of whole weights, or stored shards gathered over
+    ``data``), rope on the whole sequence's positions, dense or flash
+    attention by ``dense_threshold``. With ``kv % n == 0`` the rank projects
+    its own KV heads; otherwise K/V are projected whole (their stored spec
+    then drops ``model``) and each query head takes its group
+    ``(i * h_l + arange(h_l)) * kv // h``."""
     dtype = x_full.dtype
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h_l = h // n
     s = x_full.shape[1]
     kv_sharded = kv % n == 0
-    wk, wv = p["wk"], p["wv"]
-    if kv_sharded:
-        wk, wv = wk.narrow(1, i * (kv // n), kv // n), wv.narrow(1, i * (kv // n), kv // n)
-    q = torch.einsum("bsd,dhk->bshk", x_full, p["wq"].narrow(1, i * h_l, h_l).to(dtype))
+    kv_cut = {1: (i * (kv // n), kv // n)} if kv_sharded else {}
+    wk, wv = logical.weight(p, "wk", kv_cut), logical.weight(p, "wv", kv_cut)
+    q = torch.einsum("bsd,dhk->bshk", x_full, logical.weight(p, "wq", {1: (i * h_l, h_l)}).to(dtype))
     k = torch.einsum("bsd,dhk->bshk", x_full, wk.to(dtype))
     v = torch.einsum("bsd,dhk->bshk", x_full, wv.to(dtype))
     if cfg.rope:
@@ -273,7 +274,7 @@ def _attention_shard(p, x_full: torch.Tensor, cfg: AttnConfig, i: int, n: int) -
         groups = (i * h_l + torch.arange(h_l, device=x_full.device)) * kv // h
         k, v = k.index_select(2, groups), v.index_select(2, groups)
     out = _full_attention(q, k, v, cfg)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].narrow(0, i * h_l, h_l).to(dtype)).to(dtype)
+    return torch.einsum("bshk,hkd->bsd", out, logical.weight(p, "wo", {0: (i * h_l, h_l)}).to(dtype)).to(dtype)
 
 
 def _attention_explicit_tp(p, x: torch.Tensor, cfg: AttnConfig, lay) -> torch.Tensor:

@@ -55,12 +55,12 @@ def mlp_specs(d_model: int, d_ff: int, *, gated: bool, w_init, down_init):
 
 
 def _mlp(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
-    h = x @ p["w_up"].to(x.dtype)
+    h = x @ logical.weight(p, "w_up").to(x.dtype)
     if gated:
-        h = F.silu(x @ p["w_gate"].to(x.dtype)) * h
+        h = F.silu(x @ logical.weight(p, "w_gate").to(x.dtype)) * h
     else:
         h = gelu(h)
-    return h @ p["w_down"].to(x.dtype)
+    return h @ logical.weight(p, "w_down").to(x.dtype)
 
 
 def mlp_forward(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
@@ -71,7 +71,7 @@ def mlp_forward(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
     kept)."""
     lay = logical.active_layout()
     if lay.tp > 1 and x.ndim == 3:
-        ok = lay.sp and p["w_up"].shape[1] % lay.tp == 0
+        ok = lay.sp and logical.whole_shape(p, "w_up")[1] % lay.tp == 0
         logical.region("mlp", ok)
         if ok:
             return _mlp_explicit_tp(p, x, gated, lay)
@@ -81,16 +81,18 @@ def mlp_forward(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
 
 def _mlp_shard(p, x_full: torch.Tensor, gated: bool, i: int, n: int) -> torch.Tensor:
     """Model rank ``i`` of ``n``'s partial sum (in x's dtype): its columns of
-    up/gate and rows of down, narrows of the whole weights cast to x's
-    dtype."""
+    up/gate and rows of down (:func:`repro_torch.sharding.logical.weight`:
+    narrows of whole weights, or stored shards gathered over ``data``), cast
+    to x's dtype."""
     dtype = x_full.dtype
-    f_l = p["w_up"].shape[1] // n
-    h = x_full @ p["w_up"].narrow(1, i * f_l, f_l).to(dtype)
+    f_l = logical.whole_shape(p, "w_up")[1] // n
+    cols, rows = {1: (i * f_l, f_l)}, {0: (i * f_l, f_l)}
+    h = x_full @ logical.weight(p, "w_up", cols).to(dtype)
     if gated:
-        h = F.silu(x_full @ p["w_gate"].narrow(1, i * f_l, f_l).to(dtype)) * h
+        h = F.silu(x_full @ logical.weight(p, "w_gate", cols).to(dtype)) * h
     else:
         h = gelu(h)
-    return (h @ p["w_down"].narrow(0, i * f_l, f_l).to(dtype)).to(dtype)
+    return (h @ logical.weight(p, "w_down", rows).to(dtype)).to(dtype)
 
 
 def _mlp_explicit_tp(p, x: torch.Tensor, gated: bool, lay) -> torch.Tensor:
@@ -280,7 +282,7 @@ def moe_route(p, xf: torch.Tensor, cfg: MoEConfig, groups: int) -> Routing:
     ``n / groups`` tokens, each with the capacity of its own tokens."""
     e, k = cfg.n_experts, cfg.top_k
     n_g = xf.shape[0] // groups
-    logits, probs, gates, eidx = _router(xf, p["router"], k)
+    logits, probs, gates, eidx = _router(xf, logical.weight(p, "router"), k)
     capacity = moe_capacity(n_g, cfg)
     dps = [_dispatch_group(xs, es, e, k, capacity) for xs, es in zip(xf.split(n_g), eidx.split(n_g))]
     return Routing(logits, probs, gates, eidx, dps, capacity)
@@ -350,10 +352,10 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig, *,
 
         e_l = e // lay.tp
         lo = lay.idx * e_l
-        w = {k: v.narrow(0, lo, e_l) for k, v in p.items() if k != "router"}
+        w = {k: logical.weight(p, k, {0: (lo, e_l)}) for k in p if k != "router"}
         y = all_gather(_expert_ffn_dense(w, xg.narrow(0, lo, e_l), cfg, x.dtype), lay.mesh, "model", 0)
     else:
-        y = _expert_ffn_dense(p, xg, cfg, x.dtype)
+        y = _expert_ffn_dense({k: logical.weight(p, k) for k in p if k != "router"}, xg, cfg, x.dtype)
     if groups == 1:
         out = _combine(y, routing.gates, dps[0])
     else:

@@ -209,24 +209,31 @@ def ssm_forward(p, x: torch.Tensor, cfg: SSMConfig, *, impl: str = "kernel") -> 
         logical.region("ssm", ok)
         if ok:
             return _ssm_explicit_tp(p, x, cfg, lay, impl)
-        return lay.whole(lambda xf: _ssm_whole(p, xf, cfg, impl), x)
+        return lay.whole(lambda xf: _ssm_whole(logical.gathered(p), xf, cfg, impl), x)
     return _ssm_whole(p, x, cfg, impl)
 
 
 def _ssm_shard_in(p, x_full: torch.Tensor, cfg: SSMConfig, i: int, n: int):
     """Model rank ``i`` of ``n``'s channels up to the low-rank product: (its
     conv'd x, its z, its f32 partial of x_proj's product). in_proj's x and z
-    columns are JAX's ``[x_k | z_k]`` reorder, as two narrows of the whole
-    weight."""
+    columns are JAX's ``[x_k | z_k]`` reorder, two column ranges of the
+    whole weight (:func:`repro_torch.sharding.logical.weight`). A stored
+    shard of in_proj over ``model`` is a contiguous block of its ``2 *
+    d_inner`` columns (model rank 0 of 2 holds the x half), so the weight
+    is gathered whole over its axes and cut: the exchange GSPMD makes for
+    JAX's reorder, as an all-gather whose backward reduce-scatters the
+    gradient back to the stored block."""
     di = cfg.d_inner
     di_l = di // n
     lo = i * di_l
     dtype = x_full.dtype
-    xb = torch.einsum("bsd,de->bse", x_full, p["in_proj"].narrow(1, lo, di_l).to(dtype))
-    z = torch.einsum("bsd,de->bse", x_full, p["in_proj"].narrow(1, di + lo, di_l).to(dtype))
-    xb, _ = _causal_conv(xb, p["conv_w"].narrow(0, lo, di_l), p["conv_b"].narrow(0, lo, di_l), None)
+    ch = {0: (lo, di_l)}
+    w_in = logical.weight(p, "in_proj", {1: ((lo, di_l), (di + lo, di_l))}).to(dtype)
+    xb = torch.einsum("bsd,de->bse", x_full, w_in.narrow(1, 0, di_l))
+    z = torch.einsum("bsd,de->bse", x_full, w_in.narrow(1, di_l, di_l))
+    xb, _ = _causal_conv(xb, logical.weight(p, "conv_w", ch), logical.weight(p, "conv_b", ch), None)
     xb = F.silu(xb)
-    return xb, z, torch.einsum("bsd,dr->bsr", xb.float(), p["x_proj"].narrow(0, lo, di_l).float())
+    return xb, z, torch.einsum("bsd,dr->bsr", xb.float(), logical.weight(p, "x_proj", ch).float())
 
 
 def _ssm_shard_out(p, xb, z, proj, cfg: SSMConfig, i: int, n: int, impl: str, dtype) -> torch.Tensor:
@@ -235,7 +242,7 @@ def _ssm_shard_out(p, xb, z, proj, cfg: SSMConfig, i: int, n: int, impl: str, dt
     gate, and its partial sum of out_proj (in ``dtype``)."""
     r, st = cfg.rank, cfg.d_state
     di_l = cfg.d_inner // n
-    ch = lambda name, dim=0: p[name].narrow(dim, i * di_l, di_l)   # noqa: E731
+    ch = lambda name, dim=0: logical.weight(p, name, {dim: (i * di_l, di_l)})   # noqa: E731
     dt_lr, b_t, c_t = torch.split(proj, [r, st, st], dim=-1)
     dt = torch.einsum("bsr,rd->bsd", dt_lr.to(xb.dtype), ch("dt_proj", 1).to(xb.dtype))
     dt = F.softplus(dt.float() + ch("dt_bias").float())

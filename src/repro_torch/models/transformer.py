@@ -63,6 +63,7 @@ from .common import (
     torch_default_init,
 )
 from ..sharding import logical
+from ..sharding.shardspec import P, spec_entries
 from .mlp_moe import MoEConfig, mlp_forward, mlp_specs, moe_forward, moe_specs
 from .ssm import SSMConfig, init_ssm_cache, ssm_decode, ssm_forward, ssm_specs
 
@@ -223,16 +224,15 @@ def _spec_leaves(tree):
 
 
 def _norm(cfg: ModelConfig, p, x):
+    scale = logical.weight(p, "scale")
     if cfg.norm == "rmsnorm":
-        return rms_norm(x, p["scale"])
-    return layer_norm(x, p["scale"], None)
+        return rms_norm(x, scale)
+    return layer_norm(x, scale, None)
 
 
-def _sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, Any]:
-    """The nested view ``{'attn': {'wq': ...}, ...}`` of the leaves under
-    ``prefix``, so the block code reads like the JAX model."""
+def _nest(flat: Dict[str, Any], prefix: str) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
-    for name, t in params.items():
+    for name, t in flat.items():
         if name.startswith(prefix):
             node = out
             *path, leaf = name[len(prefix):].split(".")
@@ -242,15 +242,34 @@ def _sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, Any]:
     return out
 
 
+def _sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, Any]:
+    """The nested view ``{'attn': {'wq': ...}, ...}`` of the leaves under
+    ``prefix``, so the block code reads like the JAX model (stored shards
+    stay :class:`repro_torch.sharding.logical.Weights`)."""
+    out = _nest(params, prefix)
+    if isinstance(params, logical.Weights):
+        return logical.Weights.nest(out, _nest(params.specs, prefix), params.mesh)
+    return out
+
+
 def _unstack(tree, n: int):
     """Per-layer views of the stacked leaves, one ``unbind`` per leaf (its
     backward stacks the layer gradients once, where indexing layer by layer
-    would build a full-size gradient per layer)."""
+    would build a full-size gradient per layer). A stored shard's layer is
+    its shard of that layer (the ``layers`` axis is never split)."""
     out = [{} for _ in range(n)]
     for k, v in tree.items():
         parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
         for l in range(n):
             out[l][k] = parts[l]
+    if isinstance(tree, logical.Weights):
+        specs = {}
+        for k, spec in tree.specs.items():
+            entries = spec_entries(spec, tree[k].ndim)
+            if entries[0]:
+                raise ValueError(f"{k}: the stacked layers axis is split ({spec}); shards keep whole layers")
+            specs[k] = P(*(e[0] if len(e) == 1 else (e or None) for e in entries[1:]))
+        out = [logical.Weights(o, specs, tree.mesh) for o in out]
     return out
 
 
@@ -295,16 +314,17 @@ def _embed(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, t
     ``frontend_embeds`` as they are."""
     if cfg.embed_inputs:
         tokens = batch["tokens"].long()
-        x = params["embed"][tokens].to(cfg.dtype)
+        x = logical.weight(params, "embed")[tokens].to(cfg.dtype)
         if cfg.pos == "learned":
-            x = x + params["pos_embed"][: tokens.shape[1]][None].to(cfg.dtype)
+            x = x + logical.weight(params, "pos_embed")[: tokens.shape[1]][None].to(cfg.dtype)
         if cfg.extra_embed_len:
             x = torch.cat([batch["frontend_embeds"].to(cfg.dtype), x], dim=1)
         return x
     if cfg.input_proj_dim:
-        x = torch.einsum("bsp,pd->bsd", batch["patches"].to(cfg.dtype), params["input_proj"].to(cfg.dtype))
+        x = torch.einsum("bsp,pd->bsd", batch["patches"].to(cfg.dtype),
+                         logical.weight(params, "input_proj").to(cfg.dtype))
         if cfg.pos == "learned":
-            x = x + params["pos_embed"][: x.shape[1]][None].to(cfg.dtype)
+            x = x + logical.weight(params, "pos_embed")[: x.shape[1]][None].to(cfg.dtype)
         return x
     return batch["frontend_embeds"].to(cfg.dtype)
 
@@ -325,7 +345,9 @@ def forward(cfg: ModelConfig, params: Dict[str, torch.Tensor], batch: Dict[str, 
     x = _embed(cfg, params, batch)
     lay = logical.capture_layout(x.shape[1])
     x = lay.keep_own(x)
-    remat = cfg.remat and torch.is_grad_enabled()
+    # stored shards always rematerialize: a layer's gathered weights are
+    # then never saved for the backward, so one layer's are live at a time
+    remat = (cfg.remat or isinstance(params, logical.Weights)) and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, slot, p in _layers(cfg, params):
         if remat:
@@ -481,8 +503,8 @@ def _logits(cfg: ModelConfig, params, x):
     ``lm_head``."""
     x = _norm(cfg, _sub(params, "final_norm."), x)
     if cfg.tie_embeddings and cfg.embed_inputs:
-        return x @ params["embed"].to(cfg.dtype).T
-    return x @ params["lm_head"].to(cfg.dtype)
+        return x @ logical.weight(params, "embed").to(cfg.dtype).T
+    return x @ logical.weight(params, "lm_head").to(cfg.dtype)
 
 
 @torch.no_grad()

@@ -31,9 +31,15 @@ class ScaleByAdamState(NamedTuple):
     health: Any = None
 
 
-def _sharding(backend: str, mesh, param_specs, what: str):
+def _sharding(backend: str, mesh, param_specs, what: str, param_shards: bool = False):
     """(mesh, param_specs) for the fused backend's sharded path, else
-    (None, None): the plain per-leaf math needs no mesh."""
+    (None, None): the plain per-leaf math needs no mesh. Parameter shards
+    (``param_shards``) run on the fused backend's sharded path only."""
+    if param_shards:
+        if backend == "jnp" or mesh is None or param_specs is None:
+            raise ValueError(f"{what}: parameter shards need backend 'fused' (or 'auto' on the GPU), a mesh and "
+                             f"the parameter specs")
+        return mesh, param_specs
     if backend == "jnp" or (mesh is None and param_specs is None):
         return None, None
     from ..sharding.shardspec import sharded_pair
@@ -41,10 +47,28 @@ def _sharding(backend: str, mesh, param_specs, what: str):
     return sharded_pair(mesh, param_specs, what)
 
 
+def fused_route(backend: str, device, param_shards: bool, what: str) -> bool:
+    """Whether ``backend`` runs the fused route for tensors on ``device``;
+    parameter shards raise on any other route."""
+    route = resolve_backend(backend, device) == "fused"
+    if param_shards and not route:
+        raise ValueError(f"{what}: parameter shards run on the fused backend; {backend!r} resolves to 'jnp' on "
+                         f"{device}")
+    return route
+
+
+def shard_clip(grad_clip: Optional[float], mesh, param_specs, param_shards: bool) -> list:
+    """The chain's gradient clip: its norm completed across the mesh where
+    the gradients are this rank's shards."""
+    if grad_clip is None:
+        return []
+    return [clip_by_global_norm(grad_clip, **(dict(mesh=mesh, specs=param_specs) if param_shards else {}))]
+
+
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
                   backend: str = "jnp", bucket_min_size: int = fused.DEFAULT_BUCKET_MIN,
                   mesh=None, param_specs=None, emit_health: bool = False,
-                  megakernel: bool = True) -> GradientTransformation:
+                  megakernel: bool = True, param_shards: bool = False) -> GradientTransformation:
     """Adam preconditioner. ``backend`` (see ``repro_torch.optim.base
     .BACKENDS``): 'fused' runs the whole tree through one
     ``mega_adam_update`` launch (``megakernel=False``: the per-leaf
@@ -60,20 +84,22 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
     ``mesh`` + ``param_specs`` (a ``repro_torch.launch.mesh.Mesh`` and a
     ``{name: PartitionSpec}`` dict) make the fused backend sharded: the
     state holds this rank's shards of mu and nu, the update takes the whole
-    gradients and returns whole updates (``repro_torch.optim.fused``)."""
+    gradients and returns whole updates (``repro_torch.optim.fused``); with
+    ``param_shards`` the parameters, gradients and updates are this rank's
+    shards too (parameter-shard storage; the fused backend only)."""
     resolve_backend(backend)
-    mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_adam")
+    mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_adam", param_shards)
 
     def init_fn(params):
         device = next(iter(params.values())).device
         count = torch.zeros((), dtype=torch.int32, device=device)
-        if mesh is not None and resolve_backend(backend, device) == "fused":
+        if mesh is not None and fused_route(backend, device, param_shards, "scale_by_adam"):
             from ..sharding.shardspec import normalize_spec_leaves
 
             names = list(params)
             mu, nu = fused.init_sharded_moments(list(params.values()), [()] * len(names),
                                                 normalize_spec_leaves(param_specs, names, "scale_by_adam"), mesh,
-                                                reduced=False)
+                                                reduced=False, param_shards=param_shards)
             return ScaleByAdamState(count=count, mu=dict(zip(names, mu)), nu=dict(zip(names, nu)))
         zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
         return ScaleByAdamState(count=count, mu=zeros, nu={k: torch.zeros_like(z) for k, z in zeros.items()})
@@ -86,11 +112,12 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
         nu = [state.nu[k] for k in names]
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
         health = None
-        if resolve_backend(backend, g[0].device) == "fused":
+        if fused_route(backend, g[0].device, param_shards, "scale_by_adam"):
             if mesh is not None:
                 from ..sharding.shardspec import normalize_spec_leaves
 
-                kw.update(mesh=mesh, spec_leaves=normalize_spec_leaves(param_specs, names, "scale_by_adam"))
+                kw.update(mesh=mesh, spec_leaves=normalize_spec_leaves(param_specs, names, "scale_by_adam"),
+                          param_shards=param_shards)
             out = fused.adam_tree_update(g, mu, nu, bucket_min_size=bucket_min_size, with_health=emit_health,
                                          megakernel=megakernel, **kw)
             u, mu, nu = out[:3]
@@ -107,13 +134,14 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
 def adamw(learning_rate, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, grad_clip: Optional[float] = 1.0,
           backend: str = "jnp", mesh=None, param_specs=None, emit_health: bool = False,
-          megakernel: bool = True) -> GradientTransformation:
+          megakernel: bool = True, param_shards: bool = False) -> GradientTransformation:
     """The paper's recipe: clip(1.0) -> Adam -> decoupled wd -> -lr
     (``learning_rate`` a constant or a schedule of the step count;
-    ``mesh``/``param_specs`` thread to :func:`scale_by_adam`)."""
-    parts = [clip_by_global_norm(grad_clip)] if grad_clip is not None else []
+    ``mesh``/``param_specs``/``param_shards`` thread to
+    :func:`scale_by_adam`, and with ``param_shards`` to the clip)."""
+    parts = shard_clip(grad_clip, mesh, param_specs, param_shards)
     parts.append(scale_by_adam(b1=b1, b2=b2, eps=eps, backend=backend, mesh=mesh, param_specs=param_specs,
-                               emit_health=emit_health, megakernel=megakernel))
+                               emit_health=emit_health, megakernel=megakernel, param_shards=param_shards))
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
     parts.append(scale_by_learning_rate(learning_rate))

@@ -113,17 +113,35 @@ def scale_by_learning_rate(lr, *, flip_sign: bool = True) -> GradientTransformat
     return scale(m * lr)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in f32, on the device."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
+def global_norm(tree: Tree, *, mesh=None, specs: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in f32, on the device.
+
+    With ``mesh`` + ``specs`` (``{name: PartitionSpec}``) the leaves are this
+    rank's shards, each laid out by its spec: each leaf's sum of squares is
+    divided by the number of ranks that hold a copy of its shard (the sizes
+    of the axes its spec does not use), and one all-reduce over every axis
+    completes the sum, so every rank gets the global norm."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
+    from ..sharding.shardspec import spec_entries
+
+    parts = []
+    for k, x in tree.items():
+        used = {a for e in spec_entries(specs[k], x.ndim) for a in e}
+        copies = mesh.size // mesh.axis_size(tuple(used))
+        parts.append(torch.sum(torch.square(x.float())) / copies)
+    return torch.sqrt(mesh.psum(torch.stack(parts).sum(), tuple(mesh.shape)))
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, *, mesh=None, specs: Optional[Dict[str, Any]] = None
+                        ) -> GradientTransformation:
     """Rescale only when the norm exceeds ``max_norm``; never amplify. The
-    decision stays on the device (no host sync)."""
+    decision stays on the device (no host sync). ``mesh`` + ``specs``: the
+    updates are this rank's shards and the norm is completed across the
+    mesh (:func:`global_norm`)."""
 
     def clip(updates, params):
-        g_norm = global_norm(updates)
+        g_norm = global_norm(updates, mesh=mesh, specs=specs)
         factor = torch.where(g_norm <= max_norm, torch.ones_like(g_norm), max_norm / (g_norm + 1e-16))
         return {k: u * factor.to(u.dtype) for k, u in updates.items()}
 

@@ -31,16 +31,22 @@ every degraded leaf is counted (:func:`kernel_degraded_leaves`).
 
 Sharded (``mesh`` + ``spec_leaves``, a ``repro_torch.launch.mesh.Mesh``
 that shards something): every rank runs the same dispatch on its local
-shards, as the JAX package's ``shard_map`` body does. The gradients come
-in whole (each rank holds the averaged gradient), the moments as this
-rank's shards; each leaf's plan (``repro_torch.sharding.shardspec``) cuts g
-to the shard, local-regime leaves run the unsharded routes above on their
+shards, as the JAX package's ``shard_map`` body does. The moments are this
+rank's shards. The gradients come in whole (each rank holds the averaged
+gradient; the whole-parameter trainer) and each leaf's plan
+(``repro_torch.sharding.shardspec``) cuts g to the shard; or, with
+``param_shards=True`` (parameter-shard storage, ``repro_torch.launch
+.train``), g comes in as this rank's shards, as JAX's ``shard_map`` with
+in/out specs equal to the parameter specs takes it: the plan is made from
+the global shape its spec implies, and the updates go back as shards.
+Local-regime leaves run the unsharded routes above on their
 shards, psum-regime leaves run the partial-stats / finalize kernel pair
 around an all-reduce over the ranks owning the reduced dims (the reduced
 moment stored as each rank's owner slice where the plan places one), and
-interleaved-K leaves run the plain math on their shard. The updates are
-gathered back whole, so every rank applies the same step; health rows and
-SNR scalars are completed across ranks, so they are equal on every rank.
+interleaved-K leaves run the plain math on their shard. Whole gradients'
+updates are gathered back whole, so every rank applies the same step;
+health rows and SNR scalars are completed across ranks, so they are equal
+on every rank.
 The injection hook must raise identically on every rank (it sees the same
 labels everywhere): a degraded group runs other collectives than a kernel
 group, so a hook that fired on one rank only would desynchronise them.
@@ -61,7 +67,8 @@ from ..kernels.ref import rebase_centered_stats, snr_stats_centered_partial_ref
 from ..kernels.slim_update import (slim_finalize_batched, slim_partial_stats_batched, slim_precond,
                                    slim_precond_batched, slim_precond_major)
 from ..kernels.snr_stats import snr_update_stats_finalize
-from ..sharding.shardspec import dim_shards, mesh_is_trivial, plan_sharded_tree, psum_kernel_eligible, spec_dtype
+from ..sharding.shardspec import (dim_shards, global_shape, mesh_is_trivial, plan_sharded_tree,
+                                  psum_kernel_eligible, spec_dtype)
 
 # 0/0 guard for exactly-constant lines in the from-update SNR (the same
 # limit as repro_torch.core.snr._VAR_EPS).
@@ -411,12 +418,17 @@ def _use_sharded(mesh, spec_leaves) -> bool:
     return mesh is not None and spec_leaves is not None and not mesh_is_trivial(mesh)
 
 
-def sharded_tree_plans(g_leaves, dims_leaves, spec_leaves, mesh):
+def sharded_tree_plans(g_leaves, dims_leaves, spec_leaves, mesh, *, param_shards: bool = False):
     """Per-leaf :class:`repro_torch.sharding.shardspec.ShardLeafPlan`s of a
-    tree update (global leaf shapes), for the dispatchers below and for
-    callers that count regimes (``shardspec.regime_counts``)."""
-    return plan_sharded_tree([tuple(g.shape) for g in g_leaves], [spec_dtype(g) for g in g_leaves],
-                             [tuple(d) for d in dims_leaves], list(spec_leaves), mesh)
+    tree update, for the dispatchers below and for callers that count
+    regimes (``shardspec.regime_counts``). ``g_leaves`` have their global
+    shapes, or with ``param_shards`` are this rank's shards: the plans are
+    then made from the global shapes their specs imply."""
+    shapes = [tuple(g.shape) for g in g_leaves]
+    if param_shards:
+        shapes = [global_shape(sh, s, mesh) for sh, s in zip(shapes, spec_leaves)]
+    return plan_sharded_tree(shapes, [spec_dtype(g) for g in g_leaves], [tuple(d) for d in dims_leaves],
+                             list(spec_leaves), mesh)
 
 
 def _owner_scatter(v_slice, owner, mesh):
@@ -625,33 +637,46 @@ def _psum_mega_leaves(idx, plans, gs, ms, vs, dims_leaves, *, mesh, **kw) -> Dic
     return out
 
 
-def _psum_health(rows, g_leaves, specs, mesh) -> StepHealth:
+def _psum_health(rows, shapes, specs, mesh) -> StepHealth:
     """Complete per-shard health rows across the mesh: divide each leaf's
-    row by the number of ranks that hold a replica of its shard, then one
-    (n, 2) all-reduce over every axis gives the exact global totals."""
+    row by the number of ranks that hold a replica of its shard (from its
+    global shape), then one (n, 2) all-reduce over every axis gives the
+    exact global totals."""
     total = mesh.size
-    repl = torch.tensor([total / math.prod(dim_shards(tuple(g.shape), s, mesh)) for g, s in zip(g_leaves, specs)],
+    repl = torch.tensor([total / math.prod(dim_shards(sh, s, mesh)) for sh, s in zip(shapes, specs)],
                         dtype=torch.float32)
     h = torch.stack(list(rows))
     h = mesh.psum(h / repl.to(h.device)[:, None], tuple(mesh.shape))
     return StepHealth(nonfinite=h[:, 0], grad_sumsq=h[:, 1].double().sum().float())
 
 
-def _sharded_adam_tree(g_leaves, mu_leaves, nu_leaves, spec_leaves, mesh, *, with_health: bool, **kw):
+def _shard_inputs(g_leaves, plans, mesh, param_shards: bool):
+    """(this rank's g shards, the global shapes) of a sharded tree update."""
+    shapes = [global_shape(pl.local_shape, pl.spec, mesh) for pl in plans]
+    if param_shards:
+        return list(g_leaves), shapes
+    return [mesh.shard(g, pl.spec) for g, pl in zip(g_leaves, plans)], shapes
+
+
+def _sharded_adam_tree(g_leaves, mu_leaves, nu_leaves, spec_leaves, mesh, *, with_health: bool,
+                       param_shards: bool = False, **kw):
     """Dense Adam on a mesh: elementwise math never crosses ranks, so each
     rank runs the unsharded route on its shards; the updates are gathered
-    whole and the health rows completed across ranks."""
-    specs = [pl.spec for pl in sharded_tree_plans(g_leaves, [()] * len(g_leaves), spec_leaves, mesh)]
-    local = [mesh.shard(g, s) for g, s in zip(g_leaves, specs)]
+    whole (shards with ``param_shards``) and the health rows completed
+    across ranks."""
+    plans = sharded_tree_plans(g_leaves, [()] * len(g_leaves), spec_leaves, mesh, param_shards=param_shards)
+    specs = [pl.spec for pl in plans]
+    local, shapes = _shard_inputs(g_leaves, plans, mesh, param_shards)
     u, m, v, _, h = _tree(local, mu_leaves, nu_leaves, [()] * len(local), emit_snr=False, with_health=with_health,
                           **kw)
-    u = [mesh.gather(x, s) for x, s in zip(u, specs)]
-    return (u, m, v) + ((_psum_health(h, g_leaves, specs, mesh),) if with_health else ())
+    if not param_shards:
+        u = [mesh.gather(x, s) for x, s in zip(u, specs)]
+    return (u, m, v) + ((_psum_health(h, shapes, specs, mesh),) if with_health else ())
 
 
 def _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves, mesh, *, emit_snr: bool,
                        with_health: bool, megakernel: bool, bucket_min_size: int, use_first_moment: bool = True,
-                       **kw):
+                       param_shards: bool = False, **kw):
     """SlimAdam on a mesh, three regimes per leaf: 'local' leaves run the
     unsharded routes on their shards; kernel-eligible 'psum' leaves run the
     grouped partial-stats / finalize pair (per leaf with
@@ -660,10 +685,11 @@ def _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves,
     kept axes average across those ranks. Without the first moment
     (``mu_leaves`` None) every leaf runs the plain math, local leaves per
     leaf on their shard and psum leaves in the plain psum form, as the JAX
-    package routes it (``repro/optim/fused.py:925-1020``)."""
-    plans = sharded_tree_plans(g_leaves, dims_leaves, spec_leaves, mesh)
+    package routes it (``repro/optim/fused.py:925-1020``). The updates go
+    back whole, or as shards with ``param_shards``."""
+    plans = sharded_tree_plans(g_leaves, dims_leaves, spec_leaves, mesh, param_shards=param_shards)
     n = len(g_leaves)
-    gs = [mesh.shard(g, pl.spec) for g, pl in zip(g_leaves, plans)]
+    gs, shapes = _shard_inputs(g_leaves, plans, mesh, param_shards)
     ms, vs = (list(mu_leaves) if use_first_moment else [None] * n), list(nu_leaves)
     dims_leaves = [tuple(d) for d in dims_leaves]
     leaf_kw = dict(emit_snr=emit_snr, with_health=with_health, **kw)
@@ -695,24 +721,26 @@ def _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves,
             # each rank holds an equal share of the kept lines: the global
             # ratio mean is the mean of the per-rank means
             out[i] = out[i][:3] + (mesh.pmean(out[i][3], pl.kept_axes), out[i][4])
-    u = [mesh.gather(o[0], pl.spec) for o, pl in zip(out, plans)]
+    u = [o[0] if param_shards else mesh.gather(o[0], pl.spec) for o, pl in zip(out, plans)]
     res = (u, [o[1] for o in out], [o[2] for o in out])
     if emit_snr:
         res = res + ([o[3] for o in out],)
     if with_health:
-        res = res + (_psum_health([o[4] for o in out], g_leaves, [pl.spec for pl in plans], mesh),)
+        res = res + (_psum_health([o[4] for o in out], shapes, [pl.spec for pl in plans], mesh),)
     return res
 
 
-def init_sharded_moments(params, dims_leaves, spec_leaves, mesh, *, reduced: bool, use_first_moment: bool = True):
+def init_sharded_moments(params, dims_leaves, spec_leaves, mesh, *, reduced: bool, use_first_moment: bool = True,
+                         param_shards: bool = False):
     """This rank's zero moments of a sharded tree update: ``(mu, nu)``
     shards shaped by each leaf's plan — mu by the parameter's spec, nu by
     the plan's storage spec (the owner slice of a psum leaf, the masked
     spec otherwise); ``reduced=False`` (Adam) keeps nu full-shape like mu;
-    without the first moment mu is None."""
+    without the first moment mu is None. ``params`` are whole, or this
+    rank's shards with ``param_shards``."""
     from ..sharding.shardspec import local_shape
 
-    plans = sharded_tree_plans(params, dims_leaves, spec_leaves, mesh)
+    plans = sharded_tree_plans(params, dims_leaves, spec_leaves, mesh, param_shards=param_shards)
     mu, nu = [], []
     for p, d, pl in zip(params, dims_leaves, plans):
         if use_first_moment:
@@ -721,7 +749,8 @@ def init_sharded_moments(params, dims_leaves, spec_leaves, mesh, *, reduced: boo
             nu.append(torch.zeros(pl.local_shape, dtype=torch.float32, device=p.device))
             continue
         spec = pl.nu_spec if pl.nu_spec is not None else pl.red_spec
-        nu.append(torch.zeros(local_shape(_red_local(tuple(p.shape), d)[0], spec, mesh), dtype=torch.float32,
+        shape = global_shape(pl.local_shape, pl.spec, mesh)
+        nu.append(torch.zeros(local_shape(_red_local(shape, d)[0], spec, mesh), dtype=torch.float32,
                               device=p.device))
     return (mu if use_first_moment else None), nu
 
@@ -729,6 +758,11 @@ def init_sharded_moments(params, dims_leaves, spec_leaves, mesh, *, reduced: boo
 # ---------------------------------------------------------------------------
 # Tree-level entry points
 # ---------------------------------------------------------------------------
+
+
+def _check_unsharded(param_shards: bool) -> None:
+    if param_shards:
+        raise ValueError("param_shards=True needs a mesh that shards something and the parameter specs")
 
 
 def _tree(gs, ms, vs, dims_leaves, *, megakernel: bool, bucket_min_size: int, **kw):
@@ -743,7 +777,7 @@ def _tree(gs, ms, vs, dims_leaves, *, megakernel: bool, bucket_min_size: int, **
 def adam_tree_update(g_leaves: Sequence[torch.Tensor], mu_leaves: Sequence[torch.Tensor],
                      nu_leaves: Sequence[torch.Tensor], *, b1: float, b2: float, eps: float, count: torch.Tensor,
                      bucket_min_size: int = DEFAULT_BUCKET_MIN, mesh=None, spec_leaves=None,
-                     with_health: bool = False, megakernel: bool = True):
+                     with_health: bool = False, megakernel: bool = True, param_shards: bool = False):
     """Dense Adam over a leaf list: by default one ``mega_adam_update``
     launch for every kernel-eligible leaf, plain math for the rest;
     ``megakernel=False`` runs the per-leaf route (small leaves bucketed).
@@ -752,11 +786,13 @@ def adam_tree_update(g_leaves: Sequence[torch.Tensor], mu_leaves: Sequence[torch
 
     With ``mesh`` + ``spec_leaves`` (one PartitionSpec per leaf) the update
     runs sharded (see the module docstring): g whole, the moments and the
-    returned moments this rank's shards, the updates whole."""
+    returned moments this rank's shards, the updates whole; with
+    ``param_shards`` g and the updates this rank's shards."""
     if _use_sharded(mesh, spec_leaves) and len(g_leaves):
         return _sharded_adam_tree(g_leaves, mu_leaves, nu_leaves, spec_leaves, mesh, megakernel=megakernel,
                                   bucket_min_size=bucket_min_size, with_health=with_health, b1=b1, b2=b2, eps=eps,
-                                  count=count)
+                                  count=count, param_shards=param_shards)
+    _check_unsharded(param_shards)
     u, m, v, _, h = _tree(g_leaves, mu_leaves, nu_leaves, [()] * len(g_leaves), megakernel=megakernel,
                           bucket_min_size=bucket_min_size, emit_snr=False, with_health=with_health,
                           b1=b1, b2=b2, eps=eps, count=count)
@@ -768,7 +804,7 @@ def slim_tree_update(g_leaves: Sequence[torch.Tensor], mu_leaves: Sequence[torch
                      b1: float, b2: float, eps: float, count: torch.Tensor,
                      bucket_min_size: int = DEFAULT_BUCKET_MIN, mesh=None, spec_leaves=None,
                      emit_snr: bool = False, with_health: bool = False, megakernel: bool = True,
-                     use_first_moment: bool = True):
+                     use_first_moment: bool = True, param_shards: bool = False):
     """SlimAdam over a leaf list with per-leaf reduction dims: K = () leaves
     take the dense route, K != () leaves the slim kernel their canonical
     plan names (one launch per megaplan group by default; per leaf with
@@ -780,13 +816,15 @@ def slim_tree_update(g_leaves: Sequence[torch.Tensor], mu_leaves: Sequence[torch
     regime plans (see the module docstring): g whole, the moments and the
     returned moments this rank's shards (the reduced moment of a psum leaf
     its owner slice), the updates whole, SNR and health equal on every
-    rank. ``use_first_moment=False`` (``mu_leaves`` None) is served on the
-    mesh only, by the plain math; unsharded callers run it per leaf."""
+    rank; with ``param_shards`` g and the updates this rank's shards.
+    ``use_first_moment=False`` (``mu_leaves`` None) is served on the mesh
+    only, by the plain math; unsharded callers run it per leaf."""
     if _use_sharded(mesh, spec_leaves) and len(g_leaves):
         return _sharded_slim_tree(g_leaves, mu_leaves, nu_leaves, dims_leaves, spec_leaves, mesh,
                                   emit_snr=emit_snr, with_health=with_health, megakernel=megakernel,
                                   bucket_min_size=bucket_min_size, use_first_moment=use_first_moment,
-                                  b1=b1, b2=b2, eps=eps, count=count)
+                                  param_shards=param_shards, b1=b1, b2=b2, eps=eps, count=count)
+    _check_unsharded(param_shards)
     if not use_first_moment:
         raise ValueError("slim_tree_update: use_first_moment=False runs on a mesh only; unsharded, run the "
                          "plain per-leaf math")

@@ -30,6 +30,17 @@ the loss on each rank's own positions instead, see
 (``mlp_moe.py``, ``attention.py``, ``ssm.py``). Under a device-free
 ``SpecMesh`` the forward runs unsharded; only the MoE's dispatch groups
 (:attr:`Layout.groups`) follow the mesh's batch axes.
+
+Parameter storage. The regions read every weight through :func:`weight`:
+from a whole weight (a plain dict) it narrows to the region's slice; from
+:class:`Weights`, each rank's stored shards under the parameter specs (as
+``repro/launch/train.py`` stores them: ``embed`` over ``data``, the wide
+dims over ``model``), it keeps a dim whose slice is the stored block and
+all-gathers the others, the FSDP gather over ``data`` that JAX's
+``shard_map`` entries make (``repro/models/ssm.py:349-350``). Leaves used
+outside a region (the embedding, the head, norms, the router) are
+gathered whole at their point of use, so one layer's gathered weights are
+live at a time (the forward rematerializes each layer over stored shards).
 """
 from __future__ import annotations
 
@@ -325,6 +336,83 @@ def shardings_for_tree(meta: Mapping[str, Any], params: Mapping[str, Any]) -> Di
     if ctx is None:
         raise RuntimeError("shardings_for_tree requires an active ShardingContext")
     return {k: NamedSharding(ctx.mesh, ctx.spec_for(meta[k].axes, tuple(p.shape))) for k, p in params.items()}
+
+
+class Weights(dict):
+    """Parameters stored as this rank's shards (parameter-shard storage,
+    JAX's ``launch/train.py`` layout): a dict of shard tensors, or of nested
+    :class:`Weights`, with ``specs`` (the PartitionSpec each tensor is a
+    shard under, by key) and the ``mesh``. The model code reads a leaf
+    through :func:`weight`, which gathers what the stored shard lacks; a
+    plain dict of whole tensors reads through the same calls unchanged."""
+
+    def __init__(self, tensors: Mapping[str, Any], specs: Mapping[str, Any], mesh):
+        super().__init__(tensors)
+        self.specs = dict(specs)
+        self.mesh = mesh
+
+    @staticmethod
+    def nest(tensors: Mapping[str, Any], specs: Mapping[str, Any], mesh) -> "Weights":
+        """A nested dict of tensors and its like-shaped dict of specs as
+        nested :class:`Weights`."""
+        return Weights({k: Weights.nest(v, specs[k], mesh) if isinstance(v, dict) else v
+                        for k, v in tensors.items()},
+                       {k: v for k, v in specs.items() if not isinstance(v, dict)}, mesh)
+
+
+Cut = Union[Tuple[int, int], Sequence[Tuple[int, int]]]
+
+
+def whole_shape(p: Mapping[str, Any], name: str) -> Tuple[int, ...]:
+    """The whole (global) shape of ``p[name]``, stored whole or as a shard."""
+    w = p[name]
+    if isinstance(p, Weights):
+        from .shardspec import global_shape
+
+        return global_shape(tuple(w.shape), p.specs[name], p.mesh)
+    return tuple(w.shape)
+
+
+def weight(p: Mapping[str, Any], name: str, cuts: Optional[Mapping[int, Cut]] = None) -> torch.Tensor:
+    """The weight a region computes with: ``p[name]`` cut by ``cuts``, which
+    maps a dim of the whole weight to ``(start, length)``, or to several
+    such ranges taken in order and concatenated (the SSM's ``[x_k | z_k]``
+    columns of ``in_proj``). Dims not named stay whole.
+
+    From a plain dict (the weight whole): its narrows. From
+    :class:`Weights` (this rank's stored shard): a split dim whose cut is
+    exactly the stored block stays as stored; every other split dim is
+    all-gathered over its mesh axes (``launch.mesh.all_gather``, whose
+    backward reduce-scatters the gradient onto the shard), then cut. So a
+    rank's gradient of its shard sums every rank's contribution over the
+    axes the region gathered; the step completes it over the axes the spec
+    does not use (``train.step``)."""
+    w = p[name]
+    cuts = dict(cuts or {})
+    if isinstance(p, Weights):
+        from ..launch.mesh import all_gather
+
+        mesh = p.mesh
+        for d, axes in enumerate(spec_entries(p.specs[name], w.ndim)):
+            if not axes:
+                continue
+            blk = w.shape[d]
+            if cuts.get(d) == (mesh.group_index(axes) * blk, blk):
+                del cuts[d]
+                continue
+            w = all_gather(w, mesh, axes, d)
+    for d, cut in sorted(cuts.items()):
+        if isinstance(cut[0], int):
+            w = w.narrow(d, *cut)
+        else:
+            w = torch.cat([w.narrow(d, *c) for c in cut], dim=d)
+    return w
+
+
+def gathered(p: Mapping[str, Any]) -> Dict[str, Any]:
+    """Every leaf of ``p`` (nested dicts included) whole, through
+    :func:`weight`: a region's whole-region fallback on stored shards."""
+    return {k: gathered(v) if isinstance(v, dict) else weight(p, k) for k, v in p.items()}
 
 
 def param_specs(meta: Mapping[str, Any], params: Mapping[str, Any]) -> Dict[str, P]:

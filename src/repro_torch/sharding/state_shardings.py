@@ -14,6 +14,10 @@ parameter specs:
 
 ``abstract_state`` is a state with global shapes: build it with the
 unsharded optimizer on ``device="meta"`` tensors, which allocate nothing.
+:func:`shardings_from_specs` turns these specs, and the parameters' own
+(``logical.param_specs``, under parameter-shard storage), into the
+NamedShardings that checkpoints gather and cut by and that the step takes
+as ``grad_shardings`` (``repro_torch.launch.train``).
 """
 from __future__ import annotations
 

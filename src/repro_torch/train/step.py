@@ -15,10 +15,17 @@ rows split over the batch axes (``pod``, ``data``), as the JAX package's
 ``batch`` rule splits them: the ranks of one model group share rows, and
 under a sharding context on the same mesh the forward runs tensor-,
 sequence- and expert-parallel over ``model`` (``repro_torch.sharding.
-logical``), each rank owning a contiguous part of the sequence. Parameters
-stay whole on every rank; a parallel region computes with this rank's
-slice of a weight (a narrow), so a rank's gradient holds what its own
-computations contributed.
+logical``), each rank owning a contiguous part of the sequence. Two ways
+to store the parameters:
+
+* whole on every rank (the whole-parameter path, ``Trainer``'s): a parallel
+  region computes with this rank's slice of a weight (a narrow), so a
+  rank's gradient holds what its own computations contributed;
+* as this rank's shards (``grad_shardings=``, the parameters' NamedShardings:
+  parameter-shard storage, as ``repro/launch/train.py`` stores them): the
+  forward reads them as ``logical.Weights``, and a region gathers what its
+  slice lacks over the axes it does not own (``logical.weight``), whose
+  backward reduce-scatters the gradient onto the shard.
 
 The gradient convention. Each rank's loss is its share of the global
 token mean over the positions it owns (``repro_torch.train.loss.lm_loss``),
@@ -27,11 +34,17 @@ backward is its transpose (all-gather and reduce-scatter each other's,
 psum its own), so the backward of each rank's loss delivers to every rank
 the gradient of the *sum* of the ranks' losses with respect to what it
 computed; a value a model group computes alike reaches the loss only
-through each rank's own positions, so it is counted once. One all-reduce
-over every axis, divided by the number of ranks, then gives each rank the
-gradient of the global loss, and the metrics' mean; the sharded optimizer
-(built with the same mesh) updates its shards and returns whole updates,
-and every rank applies the same step.
+through each rank's own positions, so it is counted once. Whole
+parameters: one all-reduce over every axis, divided by the number of
+ranks, gives each rank the gradient of the global loss, and the metrics'
+mean; the sharded optimizer (built with the same mesh) updates its shards
+and returns whole updates, and every rank applies the same step. Shards:
+each gradient shard already sums the contributions of the ranks its
+gathers spanned; an all-reduce over the axes its spec does not use
+completes it, and one division by the number of ranks keeps the
+convention. The whole averaged gradient is never formed; the optimizer
+(built with ``param_shards=True``) returns this rank's update shards, and
+the gradient norm is completed across the mesh.
 """
 from __future__ import annotations
 
@@ -42,7 +55,8 @@ import torch
 from ..models import transformer
 from ..models.common import ParamModel
 from ..optim.base import GradientTransformation, apply_updates, global_norm
-from ..sharding.logical import batch_axes
+from ..sharding.logical import Weights, batch_axes
+from ..sharding.shardspec import spec_entries
 from .loss import lm_loss
 
 # The gradient all-reduce's bucket (f32 elements): bounds the extra device
@@ -51,7 +65,7 @@ AVERAGE_BUCKET = 1 << 26
 
 
 def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn=None, grad_accum: int = 1,
-                    guard: bool = False, mesh=None) -> Callable:
+                    guard: bool = False, mesh=None, grad_shardings=None) -> Callable:
     """One optimizer step over ``model``'s parameters. ``forward_fn(cfg,
     params, batch) -> (logits, aux)`` defaults to the decoder's
     (``repro_torch.models.linear_lm.forward`` and
@@ -80,16 +94,28 @@ def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn
     averaged over every rank (see the module docstring); the batch's leading
     dim must split evenly over the batch axes. The guarded step's skip
     decision then comes from health completed across ranks, so it is the
-    same on every rank."""
+    same on every rank.
+
+    ``grad_shardings`` (``{name: NamedSharding}``, JAX's argument of the
+    same name): ``model.params`` are this rank's shards under those specs,
+    each gradient arrives as this rank's shard of its spec, ``tx`` must be
+    built with ``param_shards=True``, and the updates are written into the
+    shards in place (see the module docstring); ``mesh`` defaults to the
+    shardings' mesh. ``grad_norm`` is completed across the mesh."""
     params = model.params
-    compute_grads = make_grad_fn(model, forward_fn=forward_fn, grad_accum=grad_accum, mesh=mesh)
+    if grad_shardings is not None and mesh is None:
+        mesh = next(iter(grad_shardings.values())).mesh
+    compute_grads = make_grad_fn(model, forward_fn=forward_fn, grad_accum=grad_accum, mesh=mesh,
+                                 grad_shardings=grad_shardings)
+    specs = {k: s.spec for k, s in grad_shardings.items()} if grad_shardings is not None else None
+    norm = lambda grads: global_norm(grads, **(dict(mesh=mesh, specs=specs) if specs else {}))   # noqa: E731
 
     def train_step(opt_state, batch: Dict[str, torch.Tensor]):
         grads, metrics = compute_grads(batch)
         with torch.no_grad():
             updates, opt_state = tx.update(grads, opt_state, params)
             apply_updates(params, updates)
-            metrics["grad_norm"] = global_norm(grads)
+            metrics["grad_norm"] = norm(grads)
         return opt_state, metrics
 
     def guarded_train_step(opt_state, batch: Dict[str, torch.Tensor], controls: Dict[str, float]):
@@ -101,7 +127,7 @@ def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn
             if g_scale != 1.0:
                 grads = {k: g * g_scale for k, g in grads.items()}
             updates, new_state = tx.update(grads, opt_state, params)
-            gn = global_norm(grads)
+            gn = norm(grads)
             health = find_step_health(new_state)
             if health is not None:
                 bad_t, nonfinite, health_gn = health.bad, health.nonfinite.double().sum(), health.grad_norm
@@ -122,17 +148,25 @@ def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn
     return guarded_train_step if guard else train_step
 
 
-def make_grad_fn(model: ParamModel, *, forward_fn=None, grad_accum: int = 1, mesh=None) -> Callable:
+def make_grad_fn(model: ParamModel, *, forward_fn=None, grad_accum: int = 1, mesh=None,
+                 grad_shardings=None) -> Callable:
     """``grad_fn(batch) -> (grads {name: tensor}, metrics)``: the gradients
     and metrics a train step hands its optimizer (see
-    :func:`make_train_step` for ``grad_accum`` and ``mesh``): on a mesh,
-    this rank's rows through the forward and the backward, then averaged
-    over every rank, so each rank returns the global batch's gradients."""
+    :func:`make_train_step` for ``grad_accum``, ``mesh`` and
+    ``grad_shardings``): on a mesh, this rank's rows through the forward
+    and the backward, then averaged over every rank, so each rank returns
+    the global batch's gradients, whole, or with ``grad_shardings`` its
+    shards of them."""
     fwd = forward_fn or transformer.forward
     params = model.params
     names = list(params)
     leaves = list(params.values())
+    if grad_shardings is not None and mesh is None:
+        mesh = next(iter(grad_shardings.values())).mesh
     ranks = mesh.size if mesh is not None else 1
+    stored = None
+    if grad_shardings is not None:
+        stored = Weights(params, {k: grad_shardings[k].spec for k in names}, mesh)
 
     def local_rows(batch):
         """This rank's rows of the global batch: its block over the batch
@@ -149,27 +183,50 @@ def make_grad_fn(model: ParamModel, *, forward_fn=None, grad_accum: int = 1, mes
         k = n // parts
         return {key: v.narrow(0, mesh.group_index(axes) * k, k) for key, v in batch.items()}
 
-    def average(grads, metrics):
-        """All-reduces over every mesh axis, in buckets of at most
-        ``AVERAGE_BUCKET`` f32 elements: the mean of the ranks' gradients
-        and metrics."""
-        if ranks == 1:
-            return grads, metrics
-        keys = list(metrics)
-        flat = [g.reshape(-1) for g in grads] + [metrics[k].float().reshape(1) for k in keys]
+    def summed(flat, axes):
+        """Each tensor of ``flat`` summed over ``axes`` and divided by the
+        number of ranks, flat, in f32 all-reduces of at most
+        ``AVERAGE_BUCKET`` elements (none without axes)."""
+        if not axes:
+            return [t.float() / ranks for t in flat]
         out, bucket, size = [], [], 0
         for i, t in enumerate(flat):
             bucket.append(t)
             size += t.numel()
             if size >= AVERAGE_BUCKET or i == len(flat) - 1:
-                summed = mesh.psum(torch.cat([b.float() for b in bucket]), tuple(mesh.shape)) / ranks
-                out.extend(summed.split([b.numel() for b in bucket]))
+                total = mesh.psum(torch.cat([b.float() for b in bucket]), axes) / ranks
+                out.extend(total.split([b.numel() for b in bucket]))
                 bucket, size = [], 0
+        return out
+
+    def average(grads, metrics):
+        """The mean of the ranks' gradients and metrics. Whole gradients:
+        all-reduces over every mesh axis. Shards: each leaf's all-reduce
+        over the axes its spec does not use (none for a leaf split over
+        every axis), leaves grouped by those axes; the metrics in one small
+        all-reduce over every axis."""
+        if ranks == 1:
+            return grads, metrics
+        keys = list(metrics)
+        every = tuple(mesh.shape)
+        scalars = [metrics[k].float().reshape(1) for k in keys]
+        if stored is None:
+            out = summed([g.reshape(-1) for g in grads] + scalars, every)
+        else:
+            groups: Dict[tuple, list] = {}
+            for i, (k, g) in enumerate(zip(names, grads)):
+                used = {a for e in spec_entries(stored.specs[k], g.ndim) for a in e}
+                groups.setdefault(tuple(a for a in every if a not in used), []).append(i)
+            out = [None] * len(grads)
+            for axes, idx in groups.items():
+                for i, x in zip(idx, summed([grads[i].reshape(-1) for i in idx], axes)):
+                    out[i] = x
+            out += summed(scalars, every)
         grads = [x.reshape(g.shape).to(g.dtype) for x, g in zip(out, grads)]
         return grads, {k: x.reshape(()) for k, x in zip(keys, out[len(grads):])}
 
     def grads_of(batch):
-        loss, metrics = lm_loss(model.cfg, params, batch, fwd)
+        loss, metrics = lm_loss(model.cfg, stored if stored is not None else params, batch, fwd)
         grads = torch.autograd.grad(loss, leaves)
         return grads, {k: v.detach() for k, v in metrics.items()}
 

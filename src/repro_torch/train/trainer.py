@@ -73,7 +73,7 @@ def slim_rule_dims(name: str, params, meta, rules: Optional[Dict[str, Any]] = No
 def make_optimizer(name: str, lr, params, meta, *, weight_decay: float = 0.1, b1: float = 0.9,
                    b2: float = 0.95, grad_clip: float = 1.0, rules: Optional[Dict[str, Any]] = None,
                    backend: str = "jnp", emit_snr: bool = False, emit_health: bool = False,
-                   megakernel: bool = True, mesh=None, param_specs=None):
+                   megakernel: bool = True, mesh=None, param_specs=None, param_shards: bool = False):
     """Build any of the paper's optimizers (``OPTIMIZERS``). ``lr`` is a
     constant or a schedule (``repro_torch.optim.schedules``); ``rules`` are
     the derived rules 'slim_snr' needs. ``backend`` ('jnp' | 'fused' |
@@ -82,7 +82,15 @@ def make_optimizer(name: str, lr, params, meta, *, weight_decay: float = 0.1, b1
     Adam/SlimAdam family; the other baselines ignore them. ``emit_snr``
     (slim family) builds the measure-step variant that publishes
     from-update SNR on its state; ``emit_health`` (Adam/slim family)
-    publishes the in-pass StepHealth the guarded step reads."""
+    publishes the in-pass StepHealth the guarded step reads.
+    ``param_shards`` (parameter-shard storage, ``repro_torch.launch.train``):
+    the parameters, gradients and updates are this rank's shards; the
+    Adam/SlimAdam family on the fused backend serves it, the others
+    raise."""
+    if param_shards and name not in ("adam",) + _SLIM_FAMILY:
+        raise ValueError(f"parameter shards are served by the Adam/slim family {('adam',) + _SLIM_FAMILY}, "
+                         f"not {name!r}")
+    shard_kw = dict(param_shards=True) if param_shards else {}
     if emit_snr and name not in _SLIM_FAMILY:
         raise ValueError(f"emit_snr is only supported by the slim family {_SLIM_FAMILY}, not {name!r}")
     if emit_health and name not in ("adam",) + _SLIM_FAMILY:
@@ -90,12 +98,12 @@ def make_optimizer(name: str, lr, params, meta, *, weight_decay: float = 0.1, b1
                          f"not {name!r}")
     if name == "adam":
         return adamw(lr, b1=b1, b2=b2, weight_decay=weight_decay, grad_clip=grad_clip, backend=backend,
-                     mesh=mesh, param_specs=param_specs, emit_health=emit_health, megakernel=megakernel)
+                     mesh=mesh, param_specs=param_specs, emit_health=emit_health, megakernel=megakernel, **shard_kw)
     if name in _SLIM_FAMILY:
         return slim_adam(lr, slim_rule_dims(name, params, meta, rules), b1=b1, b2=b2,
                          weight_decay=weight_decay, grad_clip=grad_clip, backend=backend, mesh=mesh,
                          param_specs=param_specs, emit_snr=emit_snr, emit_health=emit_health,
-                         megakernel=megakernel)
+                         megakernel=megakernel, **shard_kw)
     if name == "adafactor":
         return adafactor(lr, weight_decay=weight_decay, grad_clip=grad_clip)
     if name == "adafactor_v2":

@@ -380,3 +380,109 @@ def gpipe_run(mesh, cases):
         whole = [_np(mesh.psum(g, tuple(mesh.shape))) for g in grads]
         res[name] = {"out": _np(out), "gx": whole[0], "gp": dict(zip(p, whole[1:])), "calls": calls}
     return res
+
+
+# -- parameter-shard storage ------------------------------------------------
+
+def _copy_state(tree):
+    from repro_torch.checkpoint.store import named_leaves
+
+    return {name: leaf.detach().clone() for name, leaf in named_leaves(tree)}
+
+
+def param_shard_runs(mesh, arrays, data_kw, lr, steps, first_batch):
+    """Reduced models stored as this rank's parameter shards
+    (``repro_torch.launch.train``) from given weights (``{arch: arrays}``):
+    for Adam and Table-3 SlimAdam, the shape of every parameter and state
+    leaf, ``steps`` losses through the launcher's loop, and the persistent
+    bytes beside the reckoned count; for Adam the first batch's gradient
+    shards beside the cut of the whole-parameter port's averaged gradients
+    (``Trainer`` on the same mesh); a guarded step whose gradients are NaN
+    (skipped, state bit-identical), then a good one."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import ShardingContext, logical, use_sharding
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.step import make_grad_fn
+
+    out = {"coords": dict(mesh.coords)}
+    batch = {k: torch.from_numpy(v) for k, v in first_batch.items()}
+    for arch, arr in arrays.items():
+        cfg = get_reduced(arch)
+        whole = params_from_numpy(arr, "cpu")
+        data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, **data_kw))
+        res = {}
+        with use_sharding(ShardingContext(mesh)):
+            for opt in ("adam", "slim"):
+                run = launch.build(cfg, opt, lr, mesh, whole=whole)
+                res[f"{opt}_shapes"] = {name: tuple(t.shape) for name, t in _copy_state(run.state()).items()}
+                res[f"{opt}_bytes"] = (run.persistent_bytes(), launch.reckon_bytes(cfg, opt, lr, mesh))
+                if opt == "adam":
+                    logical.region_counts(reset=True)
+                    grads, _ = make_grad_fn(run.model, grad_shardings=run.p_sh)(batch)
+                    res["regions"] = logical.region_counts(reset=True)
+                    tr = Trainer(cfg, "adam", lr, data, TrainerConfig(backend="fused"), device="cpu")
+                    tr.model.load_params(whole)
+                    ref, _ = make_grad_fn(tr.model, mesh=mesh)(batch)
+                    res["grads"] = {k: (_np(g), _np(run.p_sh[k].shard(ref[k]))) for k, g in grads.items()}
+                rows, _ = launch.train(run, data, steps, log=lambda *a: None)
+                res[opt] = [r["loss"] for r in rows]
+            run = launch.build(cfg, "adam", lr, mesh, guard=True, whole=whole)
+            before = _copy_state(run.state())
+            state, bad = run.step(run.opt_state, batch, {"lr_scale": 1.0, "grad_scale": float("nan")})
+            after = _copy_state(run.state(state))
+            state, good = run.step(state, batch, {"lr_scale": 1.0, "grad_scale": 1.0})
+            res["guard"] = {"skipped": (float(bad["step_skipped"]), float(good["step_skipped"])),
+                            "nonfinite": float(bad["nonfinite_count"]),
+                            "same": before.keys() == after.keys()
+                            and all(torch.equal(before[k], after[k]) for k in before),
+                            "moved": not torch.equal(before["params.final_norm.scale"],
+                                                     run.model.params["final_norm.scale"])}
+        out[arch] = res
+    return out
+
+
+def param_shard_checkpoints(mesh, arrays, data_kw, lr, jax_ckpt, own_ckpt):
+    """Reduced gpt_small's Adam stored as parameter shards, from given
+    weights: 2 steps through the launcher's loop, checkpointed (gathered
+    whole, rank 0 writes ``own_ckpt``), then 2 more; a fresh build resumed
+    from that checkpoint for steps 3-4; a fresh build restored from
+    ``jax_ckpt``'s step 2 (the JAX package's Trainer wrote it) and trained to
+    step 4. Returns the losses, the whole parameters at step 2 (gathered),
+    and the largest difference of each restored shard from the cut of its
+    stored array."""
+    import numpy as np
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import ShardingContext, use_sharding
+
+    cfg = get_reduced("gpt_small")
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, **data_kw))
+    quiet = lambda *a: None   # noqa: E731
+    out = {"coords": dict(mesh.coords)}
+    with use_sharding(ShardingContext(mesh)):
+        run = launch.build(cfg, "adam", lr, mesh, whole=params_from_numpy(arrays, "cpu"))
+        first, state = launch.train(run, data, 2, ckpt=own_ckpt, ckpt_every=2, log=quiet)
+        out["step2_params"] = store.gather_to_host(run.model.params, run.p_sh)
+        rest, _ = launch.train(run._replace(opt_state=state), data, 4, start=2, log=quiet)
+        out["losses"] = [r["loss"] for r in first + rest]
+        resumed = launch.build(cfg, "adam", lr, mesh, whole=params_from_numpy(arrays, "cpu"))
+        state, extra = launch.restore(resumed, own_ckpt)
+        rows, _ = launch.train(resumed._replace(opt_state=state), data, 4, start=int(extra["step"]), log=quiet)
+        out["resumed"] = [r["loss"] for r in rows]
+        foreign = launch.build(cfg, "adam", lr, mesh, gen=torch.Generator().manual_seed(9))
+        state, extra = launch.restore(foreign, jax_ckpt, step=2)
+        stored = np.load(f"{jax_ckpt}/step_00000002/arrays.npz")
+        cuts = dict(store.named_leaves(foreign.shardings()))
+        out["foreign_err"] = max(float(np.abs(_np(leaf) - _np(cuts[name].shard(torch.from_numpy(stored[name])))
+                                              if name in cuts else _np(leaf) - stored[name]).max())
+                                 for name, leaf in store.named_leaves(foreign.state(state)))
+        rows, _ = launch.train(foreign._replace(opt_state=state), data, 4, start=int(extra["step"]), log=quiet)
+        out["foreign"] = [r["loss"] for r in rows]
+    return out
