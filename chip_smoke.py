@@ -90,7 +90,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (data=2, model=2) mesh (``repro_torch.launch.mesh``; gloo, since NCCL
    refuses two ranks on one device; all-reduce and all-gather on the device
    tensors), full-width gpt_small with the global batch 8 x 1024, 4 rows a
-   data group (6c-6e train it cut to 4 of its 12 layers: the forward's
+   data group (6c-6e train it cut to 2 of its 12 layers: the forward's
    collectives, staged through the host by gloo, cost a layer each; 6a,
    6b and 6f hold the whole model). 6a: B9-B13 against their
    twins on each rank's local shards of the Table-3 plan's 7 psum leaves
@@ -125,8 +125,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    share on every rank) with the forward's collectives timed; peak memory
    on every rank. A rank that fails ends the run.
 6f-6k. The forward on the mesh, 4 new ranks of the same (data=2, model=2)
-   mesh: gpt_small whole (8 x 1024), olmoe_1b_7b cut to 1 layer and
-   falcon_mamba_7b cut to 2 (2 x 2048: a row a data group; olmoe's 320
+   mesh: gpt_small cut to 2 layers (8 x 1024), olmoe_1b_7b cut to 1 layer and
+   falcon_mamba_7b cut to 1 (2 x 2048: a row a data group; olmoe's 320
    slots an expert a group) at full width through the sharded Trainer, in
    f32 and in bf16 activations: Adam for 2 steps measuring SNR at step 2,
    then in bf16 Table-3 SlimAdam for 2 (6f). Every layer's attention,
@@ -134,8 +134,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    expert-parallel form (counted a layer a step, forward and remat
    recompute; no fallback); launches counted (B2; B9; B12/B13 where the
    Table-3 plan has psum leaves; on falcon B15 twice a layer a step and the
-   backward once, all on 4096 of the 8192 channels). Rank 0 holds each run
-   to the unsharded port's from the same weights (olmoe's under a
+   backward once, all on 4096 of the 8192 channels). Each run is held to
+   the unsharded port's from the same weights (those runs dealt out to two
+   ranks at once, rank 0 gathering and checking) (olmoe's under a
    ``SpecMesh`` with a ``data`` axis of 2: JAX's 2 dispatch groups) (6g):
    f32 losses within 1e-4 and the first batch's gradients within 1e-5 of
    each leaf's largest |g|, and the split form's losses (the model ranks'
@@ -157,8 +158,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    same ranks, through ``repro_torch.launch.train`` (``build``: each leaf
    drawn whole from a CUDA generator seeded 0, as 6f's Trainer draws it,
    and kept as this rank's shard; the step built with ``grad_shardings``;
-   ``train``, the launcher's loop): gpt_small whole (8 x 1024) and
-   falcon_mamba_7b cut to 2 layers (2 x 2048), f32 Adam for 2 steps, held
+   ``train``, the launcher's loop): gpt_small cut to 2 layers (8 x 1024) and
+   falcon_mamba_7b cut to 1 layer (2 x 2048), f32 Adam for 2 steps, held
    to 6f's whole-parameter run on the same rank (losses 1e-5, first-step
    gradient shards TOL_TP_GRAD of each leaf's largest |g|); olmoe_1b_7b
    cut to 2 layers (1,045,178,368 parameters, 2 x 2048, lr 1e-4, JAX's G =
@@ -174,7 +175,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    whole card: f32 against the unsharded port (losses 1e-5, every rank's
    gradient shards TOL_TP_GRAD), bf16 against the split form at 6g's bar,
    and the routing choices and drops of each step and layer that differ
-   from the split form's and the unsharded port's, counted. Then B15's
+   from the split form's and the unsharded port's, counted. 6k (a): the
+   dry run (``repro_torch.launch.dryrun``, in a process of its own over a
+   fake 4-rank group, on ``meta``, beside the ranks) of each of those runs:
+   its bytes a rank, the last step's collectives (calls and bytes by kind)
+   and kernel launches must equal rank 0's; its predicted peak is printed
+   beside the measured one. 6k (b): Adafactor, SM3, Lion, SGD-M and
+   SlimAdam on ``backend="jnp"`` under shard storage on full-width
+   gpt_small cut to 2 layers (4 x 512, f32, 2 steps each: batch and
+   sequence halved too, since each run trains twice, and the regions'
+   gloo collectives of activations grow with the tokens), bytes against
+   the reckoned count, losses within 1e-5 of the whole-parameter Trainer on
+   the same ranks; (c) the Adafactor run checkpoints through the launcher
+   and a fresh build restored from it continues bit-equal. Then B15's
    training form and
    ``ssm_scan_bwd`` at a rank's channel shard (1 x 2048 x 4096, N 16, bf16)
    against their twins, timed beside their bounds.
@@ -302,8 +315,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (1e-3), the SNR table, derived rules and savings reported.
 13. Training the rest of the dense zoo through ``make_train_step`` (as
    the JAX package trains these models), each on one fixed batch from a
-   seed, bf16 activations, remat, lr 1e-4. 13a: hubert_xlarge whole (48
-   layers, d 1280, 16 heads of 80, non-causal; 944,487,680 parameters) on
+   seed, bf16 activations, remat, lr 1e-4. 13a: hubert_xlarge at full
+   width cut to 12 of its 48 layers (d 1280, 16 heads of 80, non-causal;
+   236,606,720 parameters; 944,487,680 whole) on
    2 x 4096 frame embeddings with per-frame labels: the flash path forward
    and backward in blocks of 1024; 3 Adam steps (B2), one SNR measurement
    of its second moments (B5), ``derive_rules``, 3 SlimAdam steps with the
@@ -422,6 +436,14 @@ SERVE_REQUESTS, SERVE_GREEDY, SERVE_NEW = 32, 28, 64
 
 def log(*a):
     print(*a, flush=True)
+
+
+def card_gen(seed: int = 0):
+    """A CUDA generator seeded ``seed``, for a Trainer to draw its weights on
+    the card: drawn on the host, gpt_small's take about a second."""
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(seed)
 
 
 def mem_rate(name: str) -> float:
@@ -1085,7 +1107,7 @@ def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dim
     def trainer(optimizer, *, faults=None, okw=None, **tc_kw):
         tc = TrainerConfig(**{**dict(total_steps=n_steps, log_every=1, backend="fused", seed=0, guard=guard),
                               **tc_kw})
-        tr = Trainer(cfg, optimizer, lr, data, tc, grad_accum=2, faults=faults, optimizer_kw=okw)
+        tr = Trainer(cfg, optimizer, lr, data, tc, grad_accum=2, faults=faults, optimizer_kw=okw, gen=card_gen())
         if [(k, tuple(p.shape)) for k, p in tr.params.items()] != [(k, s.shape) for k, s in specs.items()]:
             raise AssertionError(f"{optimizer}: trainer parameters differ from the specs")
         return tr
@@ -1364,10 +1386,10 @@ def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dim
 SHARD_SHAPE, SHARD_AXES = (2, 2), ("data", "model")
 SHARD_RANKS = 4
 SHARD_TIMEOUT_S = 300       # group timeout: a rank that raises ends the others' collectives
-# 6c-6e train gpt_small cut to 4 of its 12 layers (full width): on the mesh
+# 6c-6e train gpt_small cut to 2 of its 12 layers (full width): on the mesh
 # the forward's collectives cost a layer each, staged through the host by
-# gloo; 6a/6b and 6f hold the whole model.
-SHARD_TRAIN_LAYERS = 4
+# gloo; 6a/6b hold the whole model.
+SHARD_TRAIN_LAYERS = 2
 TOL_PSUM_ABS = 2e-6         # psum leaves against the unsharded update (tests/test_psum_kernels.py:353)
 TOL_SHARDED_LOSS = 1e-4     # losses against the unsharded port: the gradient all-reduce sums in another
                             # order than one whole-batch backward
@@ -1991,14 +2013,17 @@ def sharded_phase(torch, smi, rate):
 # whole-parameter path (Trainer), where each of the 4 ranks holds p, g and the
 # whole update in f32, and the sharded update's megaplan buffers on top
 # (olmoe's 2-layer cut, 1.05 B parameters, ran out of the card's 80 GB in the
-# first step's update with 4 such ranks; its 1-layer cut keeps 0.62 B;
-# falcon's 2-layer cut 0.48 B). 6k trains olmoe's 2-layer cut with each rank
-# holding only its shards (SHARD_CASES).
-TP_CASES = {"gpt_small": (None, 8, 1024, 1e-3), "olmoe_1b_7b": (1, 2, 2048, 1e-4),
-            "falcon_mamba_7b": (2, 2, 2048, 1e-3)}
+# first step's update with 4 such ranks; its 1-layer cut keeps 0.62 B).
+# gpt_small is cut to 2 of its 12 layers and falcon to 1 of its 64 to keep
+# the whole run inside its time: every region still runs in its parallel
+# form a layer a step. 6k trains olmoe's 2-layer cut with each rank holding
+# only its shards (SHARD_CASES).
+TP_CASES = {"gpt_small": (2, 8, 1024, 1e-3), "olmoe_1b_7b": (1, 2, 2048, 1e-4),
+            "falcon_mamba_7b": (1, 2, 2048, 1e-3)}
 TP_REGIONS = {"gpt_small": ("attn", "mlp"), "olmoe_1b_7b": ("attn", "moe"), "falcon_mamba_7b": ("ssm",)}
 TP_STEPS = 2                # Adam steps (SNR at the last), then Table-3 SlimAdam steps, per case and dtype
 TOL_TP_GRAD = 1e-5          # f32: each leaf's first-step gradient, of its largest |g|, against the unsharded port
+TP_REF_WORKERS = 2          # ranks that run the unsharded references at once (four f32 falcon Trainers overfill 80 GB)
 PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 1024   # GPipe: one full-width gpt_small block a stage
 
 
@@ -2117,15 +2142,17 @@ def tp_case(torch, mesh, arch: str, dtype, lead: bool, keep: dict) -> dict:
             torch.cuda.empty_cache()
     res["ranks_peak_gib"] = max(res[o]["peak_gib"] for o in optimizers)
     mesh.barrier()
+    ref = tp_reference(torch, mesh, cfg, data, lr, f32, first, res, label)
     if lead:
-        res["reference"] = tp_reference(torch, cfg, data, lr, f32, first, res, label)
-    mesh.barrier()
+        res["reference"] = ref
     return res
 
 
-def tp_reference(torch, cfg, data, lr, f32: bool, sharded_grads, res: dict, label: str) -> dict:
-    """Rank 0 alone: the unsharded port's runs of :func:`tp_case`'s
-    trainers on the same batches and weights (the MoE under a ``SpecMesh``
+def tp_reference(torch, mesh, cfg, data, lr, f32: bool, sharded_grads, res: dict, label: str):
+    """On every rank, after :func:`tp_case`'s runs: the unsharded port's
+    runs of its trainers, dealt out to the first TP_REF_WORKERS ranks (each
+    run alone on its rank; the first, which checks the gradients, on rank
+    0), on the same batches and weights (the MoE under a ``SpecMesh``
     with a ``data`` axis of 2: JAX's G = 2 dispatch groups), the first
     batch's gradients in f32, and the checks. Each trainer also runs in the
     split form (``tests/_torch_split.py``: the model ranks' partial sums
@@ -2136,8 +2163,11 @@ def tp_reference(torch, cfg, data, lr, f32: bool, sharded_grads, res: dict, labe
     whole-width product: the sharded losses against the split form's at
     max(1e-4, twice what the unsharded port's own move as 2 micro-batches,
     the gradient all-reduce's other summation order); their distance from
-    the unsharded port is reported."""
+    the unsharded port is reported. Rank 0 gathers the losses, checks and
+    returns them; every other rank returns None."""
     import contextlib
+
+    import torch.distributed as dist
 
     from repro_torch.sharding import ShardingContext, SpecMesh, use_sharding
     from repro_torch.train import Trainer, TrainerConfig
@@ -2154,30 +2184,36 @@ def tp_reference(torch, cfg, data, lr, f32: bool, sharded_grads, res: dict, labe
     orders = {"x1": (1, contextlib.nullcontext), "split": (1, split)}
     if not f32:
         orders["x2"] = (2, contextlib.nullcontext)
-    for optimizer in res["optimizers"]:
-        for order, (accum, form) in orders.items():
-            with use_sharding(plain), form():
-                tc = TrainerConfig(total_steps=TP_STEPS, log_every=1, backend="fused", seed=0)
-                tr = Trainer(cfg, optimizer, lr, data, tc, grad_accum=accum, gen=gen())
-                if f32 and optimizer == "adam" and order == "x1":
-                    grads, _ = make_grad_fn(tr.model)(tr.batch(0))
-                    worst = 0.0
-                    for k, g in grads.items():
-                        want, got = g.detach().cpu().double(), sharded_grads[k].double()
-                        scale = float(want.abs().max())
-                        err = float((got - want).abs().max()) / scale if scale else float(got.abs().max())
-                        worst = max(worst, err)
-                        if err > TOL_TP_GRAD:
-                            raise AssertionError(f"{label}: {k}'s sharded gradient {err:.3e} of its largest |g| "
-                                                 f"from the unsharded port's (tol {TOL_TP_GRAD:.0e})")
-                    ref["grad_rel_err"] = worst
-                    log(f"  {label}: first-step gradients, sharded against unsharded, every leaf within "
-                        f"{worst:.3e} of its largest |g| (tol {TOL_TP_GRAD:.0e})")
-                    del grads
-                tr.run()
-                ref[f"{optimizer}_{order}"] = [m["loss"] for m in tr.metrics_log]
-                del tr
-                torch.cuda.empty_cache()
+    runs = [(optimizer, order) for optimizer in res["optimizers"] for order in orders]
+    for optimizer, order in runs[mesh.rank::TP_REF_WORKERS] if mesh.rank < TP_REF_WORKERS else ():
+        accum, form = orders[order]
+        with use_sharding(plain), form():
+            tc = TrainerConfig(total_steps=TP_STEPS, log_every=1, backend="fused", seed=0)
+            tr = Trainer(cfg, optimizer, lr, data, tc, grad_accum=accum, gen=gen())
+            if f32 and optimizer == "adam" and order == "x1":
+                grads, _ = make_grad_fn(tr.model)(tr.batch(0))
+                worst = 0.0
+                for k, g in grads.items():
+                    want, got = g.detach().cpu().double(), sharded_grads[k].double()
+                    scale = float(want.abs().max())
+                    err = float((got - want).abs().max()) / scale if scale else float(got.abs().max())
+                    worst = max(worst, err)
+                    if err > TOL_TP_GRAD:
+                        raise AssertionError(f"{label}: {k}'s sharded gradient {err:.3e} of its largest |g| "
+                                             f"from the unsharded port's (tol {TOL_TP_GRAD:.0e})")
+                ref["grad_rel_err"] = worst
+                log(f"  {label}: first-step gradients, sharded against unsharded, every leaf within "
+                    f"{worst:.3e} of its largest |g| (tol {TOL_TP_GRAD:.0e})")
+                del grads
+            tr.run()
+            ref[f"{optimizer}_{order}"] = [m["loss"] for m in tr.metrics_log]
+            del tr
+            torch.cuda.empty_cache()
+    parts = [None] * mesh.size
+    dist.all_gather_object(parts, ref)
+    if mesh.rank:
+        return None
+    ref = {k: v for part in parts for k, v in part.items()}
 
     def rel(a, b):
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
@@ -2365,12 +2401,19 @@ def momentless_case(torch, mesh, lead: bool) -> dict:
 # gpt_small and falcon's cut repeat 6f's f32 Adam run from the same weights;
 # olmoe's 2-layer cut is the one that did not fit four whole-parameter ranks.
 SHARD_CASES = {
-    "gpt_small": (None, 8, 1024, 1e-3, (("float32", "adam"),)),
-    "falcon_mamba_7b": (2, 2, 2048, 1e-3, (("float32", "adam"),)),
+    "gpt_small": (2, 8, 1024, 1e-3, (("float32", "adam"),)),
+    "falcon_mamba_7b": (1, 2, 2048, 1e-3, (("float32", "adam"),)),
     "olmoe_1b_7b": (2, 2, 2048, 1e-4, (("float32", "adam"), ("bfloat16", "adam"), ("bfloat16", "slim"))),
 }
 SHARD_STEPS = 2             # steps a run: Adam (SNR measured after the last in bf16), Table-3 SlimAdam
 TOL_SHARD_LOSS = 1e-5       # f32 losses against the whole-parameter path: only the order of sums differs
+# 6k's other optimizers under shard storage, f32, full-width gpt_small cut to
+# (layers, global rows, sequence, lr): (optimizer, backend) each, against the
+# whole-parameter Trainer on the same ranks; the first also checkpoints
+# through the launcher at SHARD_OPT_STEPS and resumes (bit-equal losses).
+SHARD_OPT_CUT = (2, 4, 512, 1e-3)
+SHARD_OPT_CASES = (("adafactor", "fused"), ("sm3", "fused"), ("lion", "fused"), ("sgdm", "fused"), ("slim", "jnp"))
+SHARD_OPT_STEPS = 2
 
 
 def record_routes(torch, log_to: list):
@@ -2467,18 +2510,29 @@ def shard_run(torch, mesh, arch: str, dtype_name: str, optimizer: str, lead: boo
             for k in range(SHARD_STEPS):
                 mesh.barrier()
                 step = lambda: launch.train(run._replace(opt_state=state), data, k + 1, start=k, log=quiet)  # noqa
-                if profiled and k == SHARD_STEPS - 1:
+                last = k == SHARD_STEPS - 1
+                if last:
+                    # the last step's collectives and launches, what the dry run (6k a) predicts
                     mesh.collective_stats(reset=True)
+                    before = kernels.launch_counts()
+                if profiled and last:
                     box = []
                     res["profile"] = profile_device(torch, lambda: box.append(step()), 1, statistics.median(step_ms),
                                                     f"{label} shard-storage step")
                     (row,), state = box[0]
-                    res["collectives"] = {k2: v["calls"] for k2, v in mesh.collective_stats(reset=True).items()}
                 else:
                     t0 = time.perf_counter()
                     (row,), state = step()
                     torch.cuda.synchronize()
                     step_ms.append((time.perf_counter() - t0) * 1e3)
+                if last:
+                    stats = mesh.collective_stats(reset=True)
+                    res["step_collectives"] = {k2: {"calls": int(v["calls"]), "bytes": int(v["bytes"])}
+                                               for k2, v in stats.items()}
+                    res["step_launches"] = {n: c - before[n] for n, c in kernels.launch_counts().items()
+                                            if c != before[n]}
+                    if profiled:
+                        res["collectives"] = {k2: v["calls"] for k2, v in stats.items()}
                 losses.append(row["loss"])
             if first:
                 res["grad_bytes"] = sum(g.numel() * g.element_size() for g in first.values())
@@ -2553,6 +2607,162 @@ def shard_cases(torch, mesh, lead: bool, keep: dict, work) -> dict:
             r = shard_run(torch, mesh, arch, dtype_name, optimizer, lead, keep, work)
             r["seconds"] = time.perf_counter() - t0
             out[f"{arch} {dtype_name} {optimizer}"] = r
+    return out
+
+
+def shard_optimizers(torch, mesh, lead: bool, work) -> dict:
+    """6k (b) and (c) on this rank: SHARD_OPT_CASES, each through
+    ``launch.build`` (weights from a CUDA generator seeded 0, kept as this
+    rank's shards; the optimizer with ``param_shards=True`` on the backend
+    named) and ``launch.train`` for SHARD_OPT_STEPS steps, its bytes held
+    against ``reckon_bytes``, its f32 losses against the whole-parameter
+    ``Trainer`` on the same ranks from the same weights (TOL_SHARD_LOSS).
+    The first case also checkpoints through the launcher at its last step
+    (the shards gathered whole, rank 0 writes), runs on, and a fresh build
+    restored from that checkpoint takes the same steps: losses bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import ShardingContext, use_sharding
+    from repro_torch.train import Trainer, TrainerConfig
+
+    say = log if lead else (lambda *a: None)
+    layers, rows, seq, lr = SHARD_OPT_CUT
+    cfg = dataclasses.replace(get_config("gpt_small"), dtype=torch.float32, n_layers=layers)
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows, seed=0))
+    quiet = lambda *a: None   # noqa: E731
+    seeded = lambda s=0: torch.Generator(device="cuda").manual_seed(s)   # noqa: E731
+    ckpt = str(work / "shard_ckpt")
+    n = SHARD_OPT_STEPS
+    out = {}
+    with use_sharding(ShardingContext(mesh)):
+        for i, (optimizer, backend) in enumerate(SHARD_OPT_CASES):
+            t0 = time.perf_counter()
+            label = f"{optimizer} ({backend})"
+            run = launch.build(cfg, optimizer, lr, mesh, backend=backend, gen=seeded())
+            held = run.persistent_bytes()
+            if held != launch.reckon_bytes(cfg, optimizer, lr, mesh, backend=backend):
+                raise AssertionError(f"6k {label}: rank {mesh.rank} holds {held} bytes, not the reckoned count")
+            rows_, state = launch.train(run, data, n, ckpt=ckpt if i == 0 else None, ckpt_every=n if i == 0 else 0,
+                                        log=quiet)
+            res = {"losses": [r["loss"] for r in rows_], "bytes": held}
+            if i == 0:
+                on, _ = launch.train(run._replace(opt_state=state), data, 2 * n, start=n, log=quiet)
+                fresh = launch.build(cfg, optimizer, lr, mesh, backend=backend, gen=seeded(7))
+                restored, extra = launch.restore(fresh, ckpt)
+                again, _ = launch.train(fresh._replace(opt_state=restored), data, 2 * n, start=int(extra["step"]),
+                                        log=quiet)
+                res.update(continued=[r["loss"] for r in on], resumed=[r["loss"] for r in again])
+                if res["resumed"] != res["continued"]:
+                    raise AssertionError(f"6k {label}: resumed from the shard checkpoint {res['resumed']}, the run "
+                                         f"went on {res['continued']}")
+                say(f"  [6k] {label}: checkpointed through the launcher at step {n} (shards gathered whole, rank 0 "
+                    f"wrote), restored into a fresh build: steps {n + 1}-{2 * n} {res['resumed']} bit-equal to the "
+                    f"run's own")
+                del fresh, restored
+            del run, state
+            torch.cuda.empty_cache()
+            tr = Trainer(cfg, optimizer, lr, data, TrainerConfig(backend=backend, total_steps=n, log_every=1, seed=0),
+                         gen=seeded())
+            tr.run()
+            res["whole"] = [m["loss"] for m in tr.metrics_log]
+            del tr
+            torch.cuda.empty_cache()
+            res["rel_err"] = err = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], res["whole"]))
+            res["seconds"] = time.perf_counter() - t0
+            say(f"  [6k] {label}, gpt_small cut to {layers} layers, {rows} x {seq}, f32: shard storage "
+                f"{res['losses']}, whole-parameter {res['whole']}: {err:.3e} (tol {TOL_SHARD_LOSS:.0e}); rank 0 holds p "
+                f"{held['params']:,} B, state {held['opt']:,} B (= reckoned); {res['seconds']:.1f} s")
+            if not err <= TOL_SHARD_LOSS:
+                raise AssertionError(f"6k {label}: shard storage {res['losses']} against the whole-parameter path "
+                                     f"{res['whole']}: {err:.3e}")
+            out[label] = res
+    return out
+
+
+def wrapper_forms(torch, gen) -> dict:
+    """Phase 2: the thin 2-D wrappers over the batched kernels
+    (``megaplan.mega_slim_update``, ``snr_stats.snr_stats_centered``,
+    ``_partial`` and ``_major``) against their batched forms on one shape of
+    the main path (gpt_small's (768, 3072) MLP matrix), bit for bit: each
+    is one call of the same kernel."""
+    from repro_torch.kernels import megaplan, snr_stats
+
+    dev = torch.device("cuda")
+    r, c = 768, 3072
+    g = 1e-3 * torch.randn((r, c), generator=gen, device=dev)
+    m = 1e-4 * torch.randn((r, c), generator=gen, device=dev)
+    out = {}
+    for axis in (1, 0):
+        line = (r, 1) if axis == 1 else (1, c)
+        v = 1e-6 * torch.rand(line, generator=gen, device=dev)
+        bc1, bc2 = torch.full(line, 0.271, device=dev), torch.full(line, 0.142625, device=dev)
+        kw = dict(axis=axis, with_snr=True, with_health=True)
+        got = megaplan.mega_slim_update(g, m, v, bc1, bc2, **kw)
+        want = [o[0] for o in megaplan.mega_slim_update_batched(g[None], m[None], v[None], bc1[None], bc2[None], **kw)]
+        same_tensors(f"mega_slim_update axis {axis}", dict(enumerate(got)), dict(enumerate(want)))
+        out[f"mega_slim_update axis {axis}"] = len(got)
+    v = g.abs()
+    for name, batched, axis in (("snr_stats_centered", snr_stats.snr_stats_centered_batched, 1),
+                                ("snr_stats_centered_partial", snr_stats.snr_stats_centered_partial_batched, 1),
+                                ("snr_stats_centered_major", snr_stats.snr_stats_centered_batched, 0)):
+        got = getattr(snr_stats, name)(v)
+        want = [o[0] for o in batched(v[None], axis=axis)]
+        same_tensors(name, dict(enumerate(got)), dict(enumerate(want)))
+        out[name] = len(got)
+    log(f"[2] the 2-D wrappers on ({r}, {c}) against their batched kernels: bit-equal ({', '.join(out)})")
+    return out
+
+
+def dryrun_6k(path: Path) -> int:
+    """6k (a), in a process of its own (one default process group a
+    process): ``repro_torch.launch.dryrun`` on a (data=2, model=2) mesh over
+    the fake group, on ``meta``, for every SHARD_CASES run (the same config,
+    rows, sequence, optimizer and fused backend, grad_accum 1); the records
+    go to ``path`` as JSON. Needs no GPU and touches none."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    mesh = dryrun.make_meta_mesh(SHARD_SHAPE, SHARD_AXES)
+    recs = {}
+    for arch, (layers, rows, seq, _, runs) in SHARD_CASES.items():
+        for dtype_name, optimizer in runs:
+            cfg = dataclasses.replace(get_config(arch), dtype=getattr(torch, dtype_name),
+                                      **({"n_layers": layers} if layers else {}))
+            recs[f"{arch} {dtype_name} {optimizer}"] = dryrun.run_cell(
+                arch, "train_4k", "2x2", optimizer=optimizer, backend="fused", grad_accum=1, out_dir=None, mesh=mesh,
+                cfg=cfg, seq=seq, global_batch=rows)
+    path.write_text(json.dumps(recs, default=str))
+    return 0
+
+
+def hold_dryrun(results: dict, recs: dict, smi: str) -> dict:
+    """6k (a): each run's dry run against rank 0's measured run: the bytes a
+    rank, the last step's collectives (calls and bytes by kind) and kernel
+    launches equal; the predicted peak printed beside the measured one (not
+    held: the dry run counts one step's live tensors, the run's peak spans
+    its whole run)."""
+    out = {}
+    r0 = results[0]["shards"]
+    for key, rec in recs.items():
+        run = r0[key]
+        got = {"bytes": rec["persistent_bytes"], "collectives": rec["collectives"], "launches": rec["launches"]}
+        want = {"bytes": run["bytes"], "collectives": run["step_collectives"], "launches": run["step_launches"]}
+        for what in got:
+            if got[what] != want[what]:
+                raise AssertionError(f"6k (a) {key}: the dry run's {what} {got[what]}, the card's {want[what]}")
+        measured = run["peak_gib"] * 2**30
+        ratio = rec["peak_bytes"] / measured
+        log(f"  [6k a] {key}: dry run on meta (the fake group, no GPU; {rec['step_s']} s) = the card's step: bytes a "
+            f"rank {rec['persistent_bytes']}, collectives {rec['collectives']}, launches {rec['launches']}; peak "
+            f"predicted {rec['peak_bytes'] / 2**30:.3f} GiB, measured {measured / 2**30:.3f} GiB (the run's peak "
+            f"over the rank's start; {smi}): ratio {ratio:.3f}")
+        out[key] = dict(peak_predicted=rec["peak_bytes"], peak_measured=measured, ratio=ratio, step_s=rec["step_s"],
+                        dot_flops=rec["dot_flops_per_dev"], roofline=rec["roofline"])
     return out
 
 
@@ -2778,6 +2988,7 @@ def tp_rank(rank, rdv, out, rate):
     res["momentless"] = momentless_case(torch, mesh, lead)
     t0 = time.perf_counter()
     res["shards"] = shard_cases(torch, mesh, lead, keep, Path(rdv).parent)
+    res["shard_optimizers"] = shard_optimizers(torch, mesh, lead, Path(rdv).parent)
     res["shards_seconds"] = time.perf_counter() - t0
     res["seconds"] = time.perf_counter() - t_start
     out.put((rank, res))
@@ -2795,8 +3006,9 @@ def tp_phase(torch, smi, rate):
     import queue
     import shutil
 
-    log(f"[6f] the forward on the mesh: gpt_small, olmoe_1b_7b (1 layer) and falcon_mamba_7b (2 layers) at full "
-        f"width, f32 and bf16, {SHARD_RANKS} ranks sharing this card ({smi}); GPipe; moment-less SlimAdam")
+    cut = ", ".join(f"{arch} ({TP_CASES[arch][0] or 'all'} layers)" for arch in TP_CASES)
+    log(f"[6f] the forward on the mesh: {cut} at full width, f32 and bf16, {SHARD_RANKS} ranks sharing this card "
+        f"({smi}); GPipe; moment-less SlimAdam")
     work = ROOT / "build" / "chip_smoke_tp"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -2804,6 +3016,10 @@ def tp_phase(torch, smi, rate):
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     t0 = time.perf_counter()
+    # 6k (a): the dry run of 6k's runs, on meta in a process of its own, beside the ranks
+    dry_json = work / "dryrun_6k.json"
+    dry = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-6k", str(dry_json)],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     procs = [ctx.Process(target=tp_rank, args=(r, str(work / "rdv"), out, rate)) for r in range(SHARD_RANKS)]
     for p in procs:
         p.start()
@@ -2824,18 +3040,30 @@ def tp_phase(torch, smi, rate):
             p.join(timeout=SHARD_TIMEOUT_S)
         if any(p.exitcode != 0 for p in procs):
             raise RuntimeError(f"rank exit codes {[p.exitcode for p in procs]}")
+        dry_out, _ = dry.communicate(timeout=300)
+        if dry.returncode != 0:
+            raise RuntimeError(f"the 6k dry run failed:\n{dry_out[-3000:]}")
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
+        if dry.poll() is None:
+            dry.kill()
     spawn_s = time.perf_counter() - t0
     r0 = results[0]
     t0 = time.perf_counter()
     shards = shard_summary(torch, results, work, smi)
+    shards["dryrun"] = hold_dryrun(results, json.loads(dry_json.read_text()), smi)
+    for r in range(1, SHARD_RANKS):
+        losses = lambda res: {k: (v["losses"], v.get("resumed")) for k, v in res["shard_optimizers"].items()}  # noqa
+        if losses(results[r]) != losses(r0):
+            raise AssertionError(f"6k: rank {r} reports other losses for the other optimizers than rank 0")
+    shards["optimizers"] = r0["shard_optimizers"]
     shutil.rmtree(work, ignore_errors=True)
     log(f"[6k] parameter-shard storage: {r0['shards_seconds']:.1f} s on the ranks, the references after them "
         f"{time.perf_counter() - t0:.1f} s")
-    cases = [k for k in r0 if k not in ("gpipe", "momentless", "seconds", "shards", "shards_seconds")]
+    cases = [k for k in r0 if k not in ("gpipe", "momentless", "seconds", "shards", "shard_optimizers",
+                                        "shards_seconds")]
     for r in range(1, SHARD_RANKS):
         for case in cases:
             for optimizer in r0[case]["optimizers"]:
@@ -3329,6 +3557,8 @@ def ssm_train_phase(torch, timer, rate: float, smi: str):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        # drawn on the host: drawn on the card, the draw's temporaries left the two live
+        # trainers' memory too fragmented for the dense group's 4.13 GiB gather in the timing
         tr = Trainer(cut, optimizer, 1e-3, data, tc)
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in tr.params.values())
@@ -3940,7 +4170,7 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         tr = Trainer(cfg, name, lr, data, TrainerConfig(total_steps=3, log_every=1, backend="fused", seed=0),
-                     rules=derived if name == "slim_snr" else None)
+                     rules=derived if name == "slim_snr" else None, gen=card_gen())
         t0 = time.perf_counter()
         _, counts = counted(name, tr.run, expect)
         wall = time.perf_counter() - t0
@@ -4085,7 +4315,8 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    tr = Trainer(mcfg, "slim", lr, data, TrainerConfig(total_steps=2, log_every=1, backend="fused", seed=0))
+    tr = Trainer(mcfg, "slim", lr, data, TrainerConfig(total_steps=2, log_every=1, backend="fused", seed=0),
+                 gen=card_gen())
     mdims = slim_rule_dims("slim", tr.params, tr.meta)
     mplan = megaplan.plan_megagroups([p.shape for p in tr.params.values()], [torch.float32] * len(mdims),
                                      list(mdims.values()))
@@ -4445,7 +4676,7 @@ def moe_train_phase(torch, timer, rate: float, smi: str):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        tr = Trainer(cut, optimizer, MOE_TRAIN_LR, data, tc)
+        tr = Trainer(cut, optimizer, MOE_TRAIN_LR, data, tc)   # on the host, as 7g's
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in tr.params.values())
         if n_params != 1_045_178_368:
@@ -4687,14 +4918,15 @@ def diy_phase(torch, smi: str):
                 text=text), counts
 
 
-# Phases 13-14: the rest of the dense zoo. 13 trains the two encoders whole
-# (hubert_xlarge, vit_small) and internvl2_26b cut to ZOO_VLM_LAYERS layers
+# Phases 13-14: the rest of the dense zoo. 13 trains the two encoders
+# (hubert_xlarge cut to ZOO_HUBERT_LAYERS, vit_small whole) and internvl2_26b cut to ZOO_VLM_LAYERS layers
 # through make_train_step, and times the flash path; 14 serves qwen15_32b,
 # command_r_35b and deepseek_67b at full width, depth-cut, through the paged
 # engine and qwen15_32b's int8 KV cache through the legacy loop.
 ZOO_STEPS = 3
 ZOO_LR = 1e-4
 ZOO_VLM_LAYERS = 2       # internvl2_26b: Adam's state at 2 layers would not fit; SlimAdam's does
+ZOO_HUBERT_LAYERS = 12   # hubert_xlarge at full width, 12 of its 48 layers: the whole run's time (236,606,720 params)
 ZOO_SERVE = (("qwen15_32b", 4, 3_659_637_760), ("command_r_35b", 2, 3_506_479_104), ("deepseek_67b", 2, 3_061_882_880))
 ZOO_SC = dict(max_seq=576, page_size=16, max_slots=8, prefill_chunk=128)
 ZOO_REQUESTS, ZOO_NEW = 4, 16
@@ -4899,7 +5131,7 @@ def flash_timings(torch, timer, smi: str) -> dict:
 
 
 def zoo_train_phase(torch, timer, smi: str):
-    """Phase 13: hubert_xlarge and vit_small whole, Adam with SNR, then
+    """Phase 13: hubert_xlarge cut to ZOO_HUBERT_LAYERS layers and vit_small whole, Adam with SNR, then
     derived and Table-3 SlimAdam; internvl2_26b cut to ZOO_VLM_LAYERS layers
     at 256 frontend rows + 4096 tokens, Table-3 SlimAdam; each run's update
     held against 'jnp'; flash timings. Returns (report, launches)."""
@@ -4914,13 +5146,13 @@ def zoo_train_phase(torch, timer, smi: str):
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
 
-    cfg = get_config("hubert_xlarge")
-    log(f"[13a] hubert_xlarge whole ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, "
-        f"non-causal), 2 x 4096 frame embeddings (flash path, blocks of 1024), bf16, remat, lr {ZOO_LR}: Adam with "
+    cfg = get_config("hubert_xlarge", n_layers=ZOO_HUBERT_LAYERS)
+    log(f"[13a] hubert_xlarge at full width cut to {cfg.n_layers} of 48 layers (d {cfg.d_model}, {cfg.n_heads} "
+        f"heads of {cfg.hd}, non-causal), 2 x 4096 frame embeddings (flash path, blocks of 1024), bf16, remat, lr {ZOO_LR}: Adam with "
         f"SNR, derived SlimAdam, Table-3 SlimAdam ({smi})")
     batch = {"frontend_embeds": torch.randn((2, 4096, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16),
              "labels": torch.randint(0, cfg.vocab_size, (2, 4096), generator=gen, device=dev)}
-    report["hubert_xlarge"], counts = zoo_train(torch, cfg, batch, smi, n_params=944_487_680, derive=True)
+    report["hubert_xlarge"], counts = zoo_train(torch, cfg, batch, smi, n_params=236_606_720, derive=True)
     add(counts)
 
     cfg = get_config("vit_small")
@@ -5473,6 +5705,8 @@ def fault_phase(torch, rate: float, smi: str, clean_tokens):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dryrun-6k"]:
+        return dryrun_6k(Path(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -5606,6 +5840,7 @@ def main() -> int:
     log("[2] megaplan kernels on the groups of the main path's plans, each against its plain twin")
     hold_plan("Adam", adam_plan)
     hold_plan("SlimAdam Table-3", t3_plan)
+    report["wrapper_forms"] = wrapper_forms(torch, gen)
 
     log("[2] snr_stats_centered_batched (B5) on the 21 gpt_small candidates, plain twin, bound, torch.var_mean")
     snr = {"err": 0.0, "candidates": [], "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
@@ -5977,7 +6212,8 @@ def main() -> int:
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
-    log(f"[16] done in {report['seconds']:.0f} s; report in build/chip_smoke_report.json")
+    log(f"[16] done in {report['seconds']:.0f} s, the kernels' build {report['build']['seconds']:.1f} s of it; "
+        f"report in build/chip_smoke_report.json")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

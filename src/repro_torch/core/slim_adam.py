@@ -18,6 +18,7 @@ from ..optim import fused
 from ..optim.adam import _sharding, fused_route, shard_clip
 from ..optim.base import (
     GradientTransformation,
+    ShardCuts,
     add_decayed_weights,
     chain,
     matrices_only,
@@ -83,7 +84,10 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
     slice), the update takes the whole gradients and returns whole updates,
     with SNR and health equal on every rank (``repro_torch.optim.fused``);
     with ``param_shards`` the parameters, gradients and updates are this
-    rank's shards too (parameter-shard storage; the fused backend only)."""
+    rank's shards too (parameter-shard storage), on either route: 'jnp'
+    completes each leaf's mean of g^2 across the mesh axes that cut its K
+    and keeps the reduced moment under the masked spec
+    (``fused.jnp_slim_leaf`` with its ``cuts``)."""
     resolve_backend(backend)
     mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_slim_adam", param_shards)
 
@@ -94,7 +98,7 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
 
     def init_fn(params):
         device = next(iter(params.values())).device
-        if mesh is not None and fused_route(backend, device, param_shards, "scale_by_slim_adam"):
+        if mesh is not None and fused_route(backend, device):
             names = list(params)
             mu, nu = fused.init_sharded_moments(list(params.values()), [tuple(dims[k]) for k in names],
                                                 spec_leaves(names), mesh, reduced=True,
@@ -118,7 +122,7 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
         d = [tuple(dims[k]) for k in names]
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
         snr = health = None
-        on_fused = fused_route(backend, g[0].device, param_shards, "scale_by_slim_adam")
+        on_fused = fused_route(backend, g[0].device)
         if on_fused and (use_first_moment or fused._use_sharded(mesh, param_specs)):
             if mesh is not None:
                 kw.update(mesh=mesh, spec_leaves=spec_leaves(names), param_shards=param_shards)
@@ -129,12 +133,15 @@ def scale_by_slim_adam(dims: Dict[str, Dims], b1: float = 0.9, b2: float = 0.95,
             snr = out[3] if emit_snr else None
             health = out[-1] if emit_health else None
         else:
-            u, mu, nu = zip(*[fused.jnp_slim_leaf(*leaf, use_first_moment=use_first_moment, **kw)
-                              for leaf in zip(g, mu, nu, d)])
+            # the plain math, on parameter shards each leaf's E_K[g^2] completed across the mesh
+            cuts = ShardCuts(mesh, dict(zip(names, spec_leaves(names)))) if param_shards else ShardCuts()
+            u, mu, nu = zip(*[fused.jnp_slim_leaf(*leaf, use_first_moment=use_first_moment, cuts=cuts, key=k, **kw)
+                              for k, *leaf in zip(names, g, mu, nu, d)])
             if emit_snr:
-                snr = [fused.jnp_update_snr_leaf(x, v, k, b2=b2) if k else None for x, v, k in zip(g, nu, d)]
+                snr = [fused.jnp_update_snr_leaf(x, v, kd, b2=b2, cuts=cuts, key=k) if kd else None
+                       for k, x, v, kd in zip(names, g, nu, d)]
             if emit_health:
-                health = fused._health_from_rows([fused.leaf_health(x) for x in g])
+                health = fused.tree_health(g, cuts, names)
         return dict(zip(names, u)), ScaleBySlimAdamState(count, dict(zip(names, mu)) if use_first_moment else None,
                                                           dict(zip(names, nu)),
                                                           dict(zip(names, snr)) if emit_snr else None, health)

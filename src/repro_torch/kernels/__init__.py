@@ -29,11 +29,23 @@ KERNELS = (mega_adam_update, mega_slim_update_batched, adam_precond, slim_precon
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel wrapper's launch counter."""
+    """Zero every kernel wrapper's counters: its launches and its dry-run
+    calls on ``meta``."""
     for fn in KERNELS:
         fn.launches = 0
+        fn.meta_calls = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by wrapper name."""
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def meta_call_counts() -> Dict[str, int]:
+    """Calls on ``meta`` tensors since the last reset, by wrapper name: the
+    launches a dry run predicts, each counted where the card would launch
+    (:func:`build.on_meta`)."""
+    return {fn.__name__: fn.meta_calls for fn in KERNELS}
+
+
+reset_launch_counts()

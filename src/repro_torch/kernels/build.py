@@ -113,13 +113,14 @@ INT = ctypes.c_int
 def check_operands(kernel: str, *, dtypes: Optional[Mapping[str, Tuple[torch.dtype, ...]]] = None,
                    **tensors) -> torch.device:
     """What every wrapper requires of its operands: contiguous, one device
-    (CPU or CUDA), and a dtype among ``dtypes[name]`` (torch.float32 for an
-    operand ``dtypes`` does not name). Returns that device."""
+    (CPU, CUDA, or ``meta`` for a dry run, see :func:`on_meta`), and a
+    dtype among ``dtypes[name]`` (torch.float32 for an operand ``dtypes``
+    does not name). Returns that device."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{kernel}: operands on several devices {sorted(map(str, devices))}")
     device = devices.pop()
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{kernel}: unsupported device {device}")
     for name, t in tensors.items():
         allowed = (dtypes or {}).get(name, (torch.float32,))
@@ -128,6 +129,21 @@ def check_operands(kernel: str, *, dtypes: Optional[Mapping[str, Tuple[torch.dty
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
     return device
+
+
+def on_meta(wrapper, outs):
+    """A wrapper's call on ``meta`` tensors (a dry run: shapes and dtypes,
+    no data): count the call in ``wrapper.meta_calls`` (one a call, as the
+    CUDA branch counts its launch; ``launches`` counts only real launches)
+    and return ``outs``, ``meta`` tensors of the kernel's outputs. Neither
+    the kernel nor its plain version runs."""
+    wrapper.meta_calls += 1
+    return outs
+
+
+def meta_empty(shape, dtype=torch.float32) -> torch.Tensor:
+    """An output of a dry-run call: a ``meta`` tensor, nothing allocated."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 @functools.lru_cache(maxsize=None)

@@ -98,6 +98,9 @@ def adam_precond(g, m, v, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e
     bc1, bc2 = bias_corrections(b1, b2, torch.as_tensor(count, device=device))
     if device.type == "cpu":
         return adam_precond_plain(g, m, v, bc1, bc2, b1=b1, b2=b2, eps=eps, with_health=with_health)
+    if device.type == "meta":
+        outs = tuple(build.meta_empty(g.shape) for _ in range(3)) + ((build.meta_empty((2,)),) if with_health else ())
+        return build.on_meta(adam_precond, outs) if g.numel() else outs
     outs = tuple(torch.empty(g.shape, dtype=torch.float32, device=device) for _ in range(3))
     n = g.numel()
     if n == 0:
@@ -137,6 +140,9 @@ def fused_adam(p, g, m, v, *, lr: float, b1: float = 0.9, b2: float = 0.95, eps:
     bc1, bc2 = host_bias_corrections(b1, b2, count)
     if device.type == "cpu":
         return fused_adam_plain(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd, bc1=bc1, bc2=bc2)
+    if device.type == "meta":
+        outs = (build.meta_empty(p.shape, p.dtype), build.meta_empty(p.shape), build.meta_empty(p.shape))
+        return build.on_meta(fused_adam, outs) if p.numel() else outs
     p_out = torch.empty_like(p)
     m_out = torch.empty(p.shape, dtype=torch.float32, device=device)
     v_out = torch.empty_like(m_out)

@@ -173,6 +173,19 @@ def plan_megagroups(shapes: Sequence[Tuple[int, ...]], dtypes: Sequence[torch.dt
                         tuple(tuple(int(d) for d in ds) for ds in dims_leaves))
 
 
+def segment_table(group: MegaGroup) -> torch.Tensor:
+    """The per-row segment table of one group (``repro/kernels/megaplan.py
+    :243``): ``(extent, 4)`` int64 rows ``[leaf_index, position_within_leaf,
+    line_extent, bc_slot]``, one a kept line of the super-tensor (a
+    lane-folded row of the dense group), in the order the segments tile
+    the concat axis. Metadata: the kernels consume only its reductions
+    (the offsets of ``scatter_group``, the bias corrections a line of
+    :func:`segment_lines`)."""
+    line = group.cols if group.kind == "dense" else group.red
+    rows = [(seg.index, p, line, slot) for slot, seg in enumerate(group.segments) for p in range(seg.length)]
+    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 4)
+
+
 # ---------------------------------------------------------------------------
 # Gather / scatter
 # ---------------------------------------------------------------------------
@@ -375,6 +388,10 @@ def mega_adam_update(g, m, v, bc1, bc2, *, b1=0.9, b2=0.999, eps=1e-8, with_heal
     device = build.check_operands("mega_adam_update", g=g, m=m, v=v, bc1=bc1, bc2=bc2)
     if device.type == "cpu":
         return mega_adam_update_plain(g, m, v, bc1, bc2, b1=b1, b2=b2, eps=eps, with_health=with_health)
+    if device.type == "meta":
+        outs = tuple(build.meta_empty(g.shape) for _ in range(3)) + \
+            (tuple(build.meta_empty(bc1.shape) for _ in range(2)) if with_health else ())
+        return build.on_meta(mega_adam_update, outs) if g.numel() else outs
     outs = tuple(torch.empty_like(g) for _ in range(3))
     health = tuple(torch.empty_like(bc1) for _ in range(2)) if with_health else (None, None)
     if g.numel() == 0:
@@ -440,6 +457,10 @@ def mega_slim_update_batched(g, m, v_line, bc1, bc2, *, axis: int, b1=0.9, b2=0.
     if device.type == "cpu":
         return mega_slim_update_batched_plain(g, m, v_line, bc1, bc2, axis=axis, b1=b1, b2=b2, eps=eps,
                                               with_snr=with_snr, with_health=with_health)
+    if device.type == "meta":
+        n_lines = 3 + 2 * with_snr + 2 * with_health
+        return build.on_meta(mega_slim_update_batched, (build.meta_empty(g.shape), build.meta_empty(g.shape))
+                             + tuple(build.meta_empty(line) for _ in range(n_lines - 2)))
     walk, work = slim_walk("mega_slim_update_batched", g, m, axis, with_snr=with_snr, with_health=with_health)
     b, r, c = g.shape
     u, m_out = torch.empty_like(g), torch.empty_like(g)
@@ -456,6 +477,14 @@ def mega_slim_update_batched(g, m, v_line, bc1, bc2, *, axis: int, b1=0.9, b2=0.
 
 
 mega_slim_update_batched.launches = 0
+
+
+def mega_slim_update(g, m, v_line, bc1, bc2, *, axis: int, **kw):
+    """2-D (batch-free) form of :func:`mega_slim_update_batched`: g, m (R,
+    C), the lines (R, 1) for ``axis=1`` or (1, C) for ``axis=0``; one call
+    of the batched kernel (``repro/kernels/megaplan.py:460``)."""
+    outs = mega_slim_update_batched(g[None], m[None], v_line[None], bc1[None], bc2[None], axis=axis, **kw)
+    return tuple(o[0] for o in outs)
 
 
 # ---------------------------------------------------------------------------
@@ -493,6 +522,10 @@ def mega_slim_partial_stats_batched(g, m, *, axis: int, b1=0.9, with_snr: bool =
     if device.type == "cpu":
         return mega_slim_partial_stats_batched_plain(g, m, axis=axis, b1=b1, with_snr=with_snr,
                                                      with_health=with_health)
+    if device.type == "meta":
+        line = slim_line_shape(g, axis)
+        return build.on_meta(mega_slim_partial_stats_batched, (build.meta_empty(g.shape),) + tuple(
+            build.meta_empty(line) for _ in range(1 + 3 * with_snr + 2 * with_health)))
     walk, work = slim_walk("mega_slim_partial_stats_batched", g, m, axis, with_snr=with_snr,
                            with_health=with_health)
     line = slim_line_shape(g, axis)
@@ -527,6 +560,9 @@ def mega_slim_finalize_batched(m_new, v_line, bc1, bc2, *, axis: int, ek=None, b
     build.check_operands("mega_slim_finalize_batched", m_new=m_new, bc1=bc1, bc2=bc2)
     if device.type == "cpu":
         return slim_finalize_batched_plain(m_new, v_line, bc1, bc2, b2=b2, eps=eps, ek=ek)
+    if device.type == "meta":
+        u = build.meta_empty(m_new.shape)
+        return build.on_meta(mega_slim_finalize_batched, u if ek is None else (u, build.meta_empty(v_line.shape)))
     plan = finalize_plan(m_new, axis, (v_line, ek, bc1, bc2))
     out = launch_finalize_flat(plan, m_new, v_line, ek, None, b1=0.0, b2=b2, eps=eps, bc_lines=(bc1, bc2),
                                kernel="mega_slim_finalize_batched")

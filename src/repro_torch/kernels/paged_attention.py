@@ -188,6 +188,8 @@ def paged_attention(q: torch.Tensor, pool: torch.Tensor, table: torch.Tensor,
     device = build.check_operands("paged_attention", dtypes=_DTYPES, q=q, pool=pool, table=table, lengths=lengths)
     if device.type == "cpu":
         return paged_attention_plain(q, pool, table, lengths)
+    if device.type == "meta":
+        return build.on_meta(paged_attention, build.meta_empty(q.shape, q.dtype))
     if hd not in HEAD_DIMS:
         raise ValueError(f"paged_attention: head_dim {hd} not supported by the kernel (one of {HEAD_DIMS})")
     if h // kv > MAX_REP:

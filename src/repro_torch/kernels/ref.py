@@ -47,6 +47,16 @@ def snr_stats_ref(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.sum(v32, dim=1), torch.sum(torch.square(v32), dim=1)
 
 
+def snr_from_stats(s1: torch.Tensor, s2: torch.Tensor, n: int, eps: float = 1e-30) -> torch.Tensor:
+    """The SNR from raw line sums (``repro/kernels/ref.py:57``): the mean
+    over lines of mean^2 / var, with mean = s1 / n and var = s2 / n -
+    mean^2 (uncentered, so it cancels where the mean is large against the
+    spread; :func:`snr_from_centered_stats` finalizes the shifted sums)."""
+    mean = s1 / n
+    var = s2 / n - torch.square(mean)
+    return torch.mean(torch.square(mean) / (torch.clamp(var, min=0.0) + eps))
+
+
 def snr_from_centered_stats(s1: torch.Tensor, s1c: torch.Tensor, s2c: torch.Tensor,
                             n: int, eps: float = 1e-30) -> torch.Tensor:
     """Finalize centered line stats into each line's mean^2 / var: variance

@@ -103,6 +103,10 @@ def slim_precond_batched(g, m, v_line, *, axis: int, b1: float = 0.9, b2: float 
     if device.type == "cpu":
         return slim_precond_batched_plain(g, m, v_line, bc1, bc2, axis=axis, b1=b1, b2=b2, eps=eps,
                                           with_snr=with_snr, with_health=with_health)
+    if device.type == "meta":
+        return build.on_meta(slim_precond_batched, (build.meta_empty(g.shape), build.meta_empty(g.shape))
+                             + tuple(build.meta_empty(line) for _ in range(1 + 2 * with_snr))
+                             + ((build.meta_empty((2,)),) if with_health else ()))
     walk, work = slim_walk("slim_precond_batched", g, m, axis, with_snr=with_snr, with_health=with_health)
     b, r, c = g.shape
     u = torch.empty(g.shape, dtype=torch.float32, device=device)
@@ -175,6 +179,9 @@ def slim_update_batched(p, g, m, v_line, *, axis: int, lr: float, b1: float = 0.
     if device.type == "cpu":
         return slim_update_batched_plain(p, g, m, v_line, axis=axis, lr=lr, b1=b1, b2=b2, eps=eps, wd=wd,
                                          bc1=bc1, bc2=bc2)
+    if device.type == "meta":
+        return build.on_meta(slim_update_batched, (build.meta_empty(p.shape, p.dtype), build.meta_empty(p.shape),
+                                                   build.meta_empty(line)))
     walk, work = slim_walk("slim_update_batched", g, m, axis, with_snr=False, with_health=False, p=p)
     b, r, c = p.shape
     p_out = torch.empty_like(p)
@@ -243,6 +250,11 @@ def slim_partial_stats_batched(g, m, *, axis: int, b1: float = 0.9, with_snr: bo
     device = build.check_operands("slim_partial_stats_batched", dtypes={"g": G_DTYPES}, g=g, m=m)
     if device.type == "cpu":
         return slim_partial_stats_batched_plain(g, m, axis=axis, b1=b1, with_snr=with_snr, with_health=with_health)
+    if device.type == "meta":
+        line = slim_line_shape(g, axis)
+        return build.on_meta(slim_partial_stats_batched, (build.meta_empty(g.shape),)
+                             + tuple(build.meta_empty(line) for _ in range(1 + 3 * with_snr))
+                             + ((build.meta_empty((2,)),) if with_health else ()))
     walk, work = slim_walk("slim_partial_stats_batched", g, m, axis, with_snr=with_snr, with_health=with_health)
     line = slim_line_shape(g, axis)
     m_out = torch.empty(g.shape, dtype=torch.float32, device=device)
@@ -400,6 +412,9 @@ def slim_finalize_batched(m_new, v_line, *, axis: int, ek=None, b1: float = 0.9,
         bc1, bc2 = (bias_corrections(b1, b2, count) if isinstance(count, torch.Tensor)
                     else host_bias_corrections(b1, b2, count))
         return slim_finalize_batched_plain(m_new, v_line, bc1, bc2, b2=b2, eps=eps, ek=ek)
+    if device.type == "meta":
+        u = build.meta_empty(m_new.shape)
+        return build.on_meta(slim_finalize_batched, u if ek is None else (u, build.meta_empty(v_line.shape)))
     plan = finalize_plan(m_new, axis, (v_line, ek))
     out = launch_finalize_flat(plan, m_new, v_line, ek, count, b1=b1, b2=b2, eps=eps)
     slim_finalize_batched.launches += 1

@@ -187,6 +187,12 @@ def _entry(name: str, argtypes: tuple):
     return build.entry(name, argtypes)
 
 
+def _meta_lines(v: torch.Tensor, axis: int, n: int) -> Tuple[torch.Tensor, ...]:
+    """A dry run's ``n`` line outputs of a (B, R, C) view, each (B, kept)."""
+    b, r, c = v.shape
+    return tuple(build.meta_empty((b, r if axis == 1 else c)) for _ in range(n))
+
+
 def _check_view(kernel: str, v: torch.Tensor, axis: int) -> torch.device:
     if v.ndim != 3 or axis not in (0, 1):
         raise ValueError(f"{kernel}: want a (B, R, C) tensor and axis 0|1, got shape {tuple(v.shape)}, "
@@ -198,8 +204,11 @@ def snr_stats_centered_batched(v: torch.Tensor, *, axis: int) -> Tuple[torch.Ten
     """v: (B, R, C) f32 -> (line_sum, shifted_line_sum, shifted_line_sumsq),
     each (B, kept), kept = R for ``axis=1`` and C for ``axis=0``. CUDA
     tensors launch the kernel; CPU tensors take the plain version."""
-    if _check_view("snr_stats_centered_batched", v, axis).type == "cpu":
+    device = _check_view("snr_stats_centered_batched", v, axis)
+    if device.type == "cpu":
         return snr_stats_centered_batched_plain(v, axis=axis)
+    if device.type == "meta":
+        return build.on_meta(snr_stats_centered_batched, _meta_lines(v, axis, 3))
     outs = _launch_stats("snr_stats_centered_batched", v, axis, 3)
     snr_stats_centered_batched.launches += 1
     return outs
@@ -216,8 +225,11 @@ def snr_stats_centered_partial_batched(v: torch.Tensor, *, axis: int) -> Tuple[t
     (``repro_torch.kernels.ref.rebase_centered_stats``) before summing them
     across ranks. CUDA tensors launch the kernel; CPU tensors take the
     plain version."""
-    if _check_view("snr_stats_centered_partial_batched", v, axis).type == "cpu":
+    device = _check_view("snr_stats_centered_partial_batched", v, axis)
+    if device.type == "cpu":
         return snr_stats_centered_partial_batched_plain(v, axis=axis)
+    if device.type == "meta":
+        return build.on_meta(snr_stats_centered_partial_batched, _meta_lines(v, axis, 4))
     outs = _launch_stats("snr_stats_centered_partial_batched", v, axis, 4)
     snr_stats_centered_partial_batched.launches += 1
     return outs
@@ -238,8 +250,11 @@ def snr_stats_batched(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, torc
     for ``axis=1`` and C for ``axis=0``. CUDA tensors launch the split walk's
     PLAIN form on :func:`plan_split`'s grid; CPU tensors take the plain
     version."""
-    if _check_view("snr_stats_batched", v, axis).type == "cpu":
+    device = _check_view("snr_stats_batched", v, axis)
+    if device.type == "cpu":
         return snr_stats_batched_plain(v, axis=axis)
+    if device.type == "meta":
+        return build.on_meta(snr_stats_batched, _meta_lines(v, axis, 2))
     b, r, c = v.shape
     plan, (s1, s2), part = _plan_outputs("snr_stats_batched", v, axis, 2, 2)
     build.launch("snr_stats_batched", _entry("repro_snr_stats", _PLAIN_ARGTYPES), v.device, v.data_ptr(),
@@ -256,3 +271,25 @@ def snr_stats(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """v: (R, C) -> (row_sum (R,), row_sumsq (R,))."""
     s1, s2 = snr_stats_batched(v[None], axis=1)
     return s1[0], s2[0]
+
+
+def snr_stats_centered(v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """v: (R, C) -> (row_sum, shifted_row_sum, shifted_row_sumsq), each
+    (R,): one call of :func:`snr_stats_centered_batched`
+    (``repro/kernels/snr_stats.py:184``)."""
+    return tuple(o[0] for o in snr_stats_centered_batched(v[None], axis=1))
+
+
+def snr_stats_centered_partial(v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """v: (R, C) -> (row_sum, shifted_row_sum, shifted_row_sumsq,
+    row_first), each (R,): the partial-sums form for rows split across
+    ranks, one call of :func:`snr_stats_centered_partial_batched`
+    (``repro/kernels/snr_stats.py:192``)."""
+    return tuple(o[0] for o in snr_stats_centered_partial_batched(v[None], axis=1))
+
+
+def snr_stats_centered_major(v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """v: (R, C) -> (col_sum, shifted_col_sum, shifted_col_sumsq), each
+    (C,): the reduction along axis 0, one call of
+    :func:`snr_stats_centered_batched` (``repro/kernels/snr_stats.py:200``)."""
+    return tuple(o[0] for o in snr_stats_centered_batched(v[None], axis=0))

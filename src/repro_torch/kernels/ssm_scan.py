@@ -204,6 +204,11 @@ def ssm_scan(x, dt, a, b_t, c_t, d_skip, h0, *, keep_bounds: bool = False):
         return (y, h_out, None) if keep_bounds else (y, h_out)
     bsz, _, d = x.shape
     n = a.shape[1]
+    if device.type == "meta":
+        outs = (build.meta_empty((bsz, s, d)), build.meta_empty((bsz, d, n)))
+        if keep_bounds:
+            outs = outs + (build.meta_empty(kept_states_shape(bsz, s, d, n)),)
+        return build.on_meta(ssm_scan, outs)
     if not (1 <= n <= 16 and 1 <= bsz <= 65535):
         raise ValueError(f"ssm_scan: the kernel takes N in 1..16 and 1..65535 rows, got N={n}, B={bsz}")
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=device)
@@ -370,6 +375,11 @@ def ssm_scan_bwd(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final=None, *, states=No
             raise ValueError("ssm_scan_bwd: with_final is the card kernel's replayed state")
         dx, *rest = ssm_scan_bwd_plain(x, dt, a, b_t, c_t, d_skip, h0, dy, dh_final)
         return (dx.to(x.dtype), *rest)
+    if device.type == "meta":
+        outs = (build.meta_empty((bsz, s, d), x.dtype), build.meta_empty((bsz, s, d)), build.meta_empty((d, n)),
+                build.meta_empty((bsz, s, n)), build.meta_empty((bsz, s, n)), build.meta_empty((d,)),
+                build.meta_empty((bsz, d, n)))
+        return build.on_meta(ssm_scan_bwd, outs + ((build.meta_empty((bsz, d, n)),) if with_final else ()))
     plan = plan_scan_bwd(bsz, s, d, n)
     want = kept_states_shape(bsz, s, d, n)
     if states is None or tuple(states.shape) != want:

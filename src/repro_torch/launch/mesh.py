@@ -15,7 +15,10 @@ runs a ``(2, 2)`` mesh on one H100), NCCL refuses two ranks on one device,
 so the ranks use gloo, whose all_reduce and all_gather take the CUDA
 tensors themselves (PyTorch 2.11); the tensors and every kernel stay on
 the GPU. :meth:`transport_note` says which transport a mesh uses. On the
-CPU every collective is gloo's own.
+CPU every collective is gloo's own. A dry run (``repro_torch.launch.dryrun``)
+builds a production-sized mesh in one process over PyTorch's ``fake``
+backend (:func:`fake_world`), with ``meta`` tensors: its collectives move
+no data, and :meth:`Mesh.collective_stats` counts them as on the card.
 
 Every process group gets a timeout, so a rank that raises ends the run
 instead of leaving the others blocked in a collective.
@@ -37,8 +40,9 @@ with its bytes; with ``mesh.timed = True`` each call also synchronizes the
 device before and after itself and adds its wall time (off by default: it
 serializes the host with the card).
 
-The production meshes stay functions, and the TPU's hardware constants are
-not carried over.
+The production meshes stay functions. The TPU's hardware constants are
+not carried over: the card's below are one NVIDIA H100's, for the dry
+run's roofline and fit.
 """
 from __future__ import annotations
 
@@ -56,6 +60,17 @@ from .. import resolve_device
 from ..sharding.shardspec import PartitionSpec, even_spec, global_shape, spec_entries
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=3)
+
+# One NVIDIA H100 SXM, as ``nvidia-smi --query-gpu=name,power.limit`` names
+# the card the port runs on: "NVIDIA H100 80GB HBM3, 700.00 W". The rates
+# are NVIDIA's data sheet at that power limit (dense, without sparsity); a
+# card set below it runs slower. The memory is what
+# ``torch.cuda.get_device_properties(0).total_memory`` reports on it.
+CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, bf16 on the tensor cores
+HBM_BW = 3.35e12                # B/s
+HBM_PER_GPU = 85_017_493_504    # B (79.18 GiB)
+LINK_BW = 450e9                 # B/s each way over NVLink 4 (900 GB/s both ways)
 
 
 class Mesh:
@@ -155,6 +170,17 @@ class Mesh:
         group, _ = self._group(axes)
         y = x.contiguous().clone()
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    def pmax(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """Elementwise max of ``x`` over the ranks of ``axes``
+        (``lax.pmax``), as a new tensor. No backward: the optimizer
+        statistics that take it are not differentiated."""
+        if not axes:
+            return x
+        group, _ = self._group(axes)
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
         return y
 
     def pmean(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -408,8 +434,23 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None, backend
                                     world_size=world_size, timeout=timeout)
     from torch.distributed.device_mesh import init_device_mesh
 
-    dm = init_device_mesh(device.type, tuple(int(s) for s in shape), mesh_dim_names=tuple(axes))
+    # a dry run's mesh holds meta tensors; its device mesh is a CPU one
+    kind = "cpu" if device.type == "meta" else device.type
+    dm = init_device_mesh(kind, tuple(int(s) for s in shape), mesh_dim_names=tuple(axes))
     return Mesh(dm, device, backend, timeout)
+
+
+def fake_world(world_size: int) -> None:
+    """Initialise this process's default group as rank 0 of a
+    ``world_size``-rank world on PyTorch's ``fake`` backend, whose
+    collectives return at once and move no data: with ``device="meta"``,
+    :func:`make_mesh` then builds a production-sized mesh in one process
+    for a dry run (``repro_torch.launch.dryrun``), which runs the step on
+    tensors that hold no data. One process holds one default group, so
+    each dry run takes a process of its own."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
 
 
 def make_production_mesh(*, multi_pod: bool = False, **kw) -> Mesh:

@@ -25,8 +25,12 @@ state as its shards of ``opt_state_specs(owner_mesh=mesh)``, and the step
 is built with ``grad_shardings`` (:class:`Sharded`, :func:`train`): its own
 loop, as JAX's, with ``store.AsyncCheckpointer`` (the shards gathered whole,
 rank 0 writes the JAX package's format) and the guard; a resume cuts each
-rank's shards from the checkpoint. The Adam/SlimAdam family on the fused
-backend serves it.
+rank's shards from the checkpoint. Every optimizer of ``OPTIMIZERS``
+serves it: the Adam/SlimAdam family on the route ``--backend`` names (the
+fused kernels on each rank's shards, or the plain math with each mean of
+g^2 completed across the mesh), the other baselines in plain math with
+their reductions completed across the mesh; the context takes the
+config's ``sharding_overrides`` as its rules.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from ..sharding import ShardingContext, opt_state_specs, param_specs, shardings_
 from ..sharding.shardspec import local_shape
 from ..train.guard import ROLLBACK, Guard, GuardConfig
 from ..train.step import make_train_step
+from ..optim.base import resolve_backend
 from ..train.trainer import _SLIM_FAMILY, OPTIMIZERS, Trainer, TrainerConfig, make_optimizer
 
 
@@ -66,8 +71,14 @@ def shard_params(whole: Mapping[str, torch.Tensor], shardings: Mapping[str, Any]
 def init_shards(cfg, shardings: Mapping[str, Any], gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
     """The weights ``cfg.init(gen, device)`` draws, kept as this rank's
     shards: each leaf drawn whole in tree order (the same values), cut and
-    freed, so one whole leaf is live at a time."""
+    freed, so one whole leaf is live at a time. On ``meta`` (a dry run)
+    only the shards' shapes, nothing drawn."""
     out = {}
+    if torch.device(device).type == "meta":
+        for name, s in flatten_with_names(cfg.specs()):
+            shape = local_shape(tuple(s.shape), shardings[name].spec, shardings[name].mesh)
+            out[name] = torch.empty(shape, dtype=s.dtype, device="meta", requires_grad=True)
+        return out
     for name, s in flatten_with_names(cfg.specs()):
         whole = s.init(gen, s.shape, s.dtype).to(device)
         out[name] = shardings[name].shard(whole).detach().clone().requires_grad_(True)
@@ -104,16 +115,26 @@ class Sharded(NamedTuple):
         return {"params": nbytes(self.model.params), "opt": nbytes(self.opt_state)}
 
 
+def owner_mesh(mesh, backend: str):
+    """The mesh when ``backend`` resolves to the fused route on its device
+    (the psum leaves' reduced moments stored as owner slices), else None
+    (the masked specs of the 'jnp' route): ``repro/launch/train.py:78``."""
+    return mesh if resolve_backend(backend, getattr(mesh, "device", None)) == "fused" else None
+
+
 def _layout(cfg, optimizer: str, lr, mesh, rules, backend: str, emit_health: bool):
     """(global parameters on ``meta``, meta, their specs, the unsharded
     optimizer's state on ``meta``, its specs): the shapes and layouts of
-    ``repro/launch/train.py:62-82``, nothing allocated."""
+    ``repro/launch/train.py:62-82``, nothing allocated; the specs under the
+    active sharding context (a config's ``sharding_overrides`` among its
+    rules)."""
     abstract, meta = cfg.abstract()
     p_specs = param_specs(meta, abstract)
     # the state's specs from the unsharded optimizer's state on meta tensors
     state = make_optimizer(optimizer, lr, abstract, meta, rules=rules, backend=backend,
                            emit_health=emit_health).init(abstract)
-    return abstract, meta, p_specs, state, opt_state_specs(state, abstract, p_specs, owner_mesh=mesh)
+    return abstract, meta, p_specs, state, opt_state_specs(state, abstract, p_specs,
+                                                           owner_mesh=owner_mesh(mesh, backend))
 
 
 def build(cfg, optimizer: str, lr, mesh, *, backend: str = "fused", guard: bool = False, grad_accum: int = 1,
@@ -124,10 +145,12 @@ def build(cfg, optimizer: str, lr, mesh, *, backend: str = "fused", guard: bool 
     the steps: the parameters' specs from the global shapes (on ``meta``,
     nothing allocated), the weights drawn from ``gen`` (default: a CPU
     generator seeded 0) or cut from ``whole`` and kept as shards, the
-    optimizer with ``param_shards=True`` and its state, and the step."""
-    if optimizer not in ("adam",) + _SLIM_FAMILY:
-        raise ValueError(f"parameter-shard storage serves the Adam/slim family, not {optimizer!r}")
-    emit_health = guard
+    optimizer (any of ``OPTIMIZERS``; ``backend`` names the Adam/SlimAdam
+    family's route) with ``param_shards=True`` and its state, and the
+    step. ``emit_health`` rides a guarded step on the Adam/SlimAdam family;
+    the other optimizers' guarded steps read the gradient norm, as in
+    ``Trainer``."""
+    emit_health = guard and optimizer in ("adam",) + _SLIM_FAMILY
     abstract, meta, p_specs, _, o_specs = _layout(cfg, optimizer, lr, mesh, rules, backend, emit_health)
     p_sh = shardings_from_specs(p_specs, mesh)
     if whole is not None:
@@ -147,7 +170,8 @@ def reckon_bytes(cfg, optimizer: str, lr, mesh, *, backend: str = "fused", guard
     shards, reckoned from the global shapes and their specs alone
     (``shardspec.local_shape``): what :meth:`Sharded.persistent_bytes` of
     :func:`build` with the same arguments holds."""
-    abstract, _, p_specs, state, o_specs = _layout(cfg, optimizer, lr, mesh, rules, backend, guard)
+    emit_health = guard and optimizer in ("adam",) + _SLIM_FAMILY
+    abstract, _, p_specs, state, o_specs = _layout(cfg, optimizer, lr, mesh, rules, backend, emit_health)
 
     def count(tree, specs):
         by_name = dict(store.named_leaves(shardings_from_specs(specs, mesh)))
@@ -278,7 +302,7 @@ def main(argv=None, *, device=None):
     mesh = make_production_mesh(multi_pod=(args.mesh == "multi"), device=resolve_device(device))
     lead = mesh.rank == 0
     log = print if lead else (lambda *a: None)
-    with use_sharding(ShardingContext(mesh)):
+    with use_sharding(ShardingContext(mesh, rules=dict(cfg.sharding_overrides) or None)):
         run = build(cfg, args.optimizer, args.lr, mesh, backend=args.backend, guard=args.guard,
                     grad_accum=args.grad_accum)
         start = 0

@@ -308,7 +308,7 @@ def _aux_loss(routing: Routing, cfg: MoEConfig, lay, s: int) -> torch.Tensor:
         own = lambda t: t.reshape(-1, s, *t.shape[1:]).narrow(1, start, n_own)   # noqa: E731
         part = torch.cat([own(hits).sum(dim=(0, 1)), own(routing.probs).sum(dim=(0, 1)),
                           own(lse2).sum().reshape(1)])
-        axes = logical.batch_axes(lay.mesh) + (("model",) if lay.tp > 1 else ())
+        axes = logical.batch_axes(lay.mesh, lay.ctx.rules) + (("model",) if lay.tp > 1 else ())
         total = psum(part, lay.mesh, axes) if axes else part
         n_all = routing.logits.shape[0] * lay.groups
         density, proxy, zloss = total[:e] / n_all, total[e:2 * e] / n_all, total[2 * e] / n_all

@@ -113,6 +113,10 @@ class ModelConfig:
     attn_kv_block: int = 1024
     attn_dense_threshold: int = 2048
     kv_quant: bool = False               # int8 KV cache (the legacy serving loop): halves the cache's bytes
+    # per-arch logical -> mesh rule overrides as (name, axes) pairs, the
+    # ShardingContext's ``rules``; e.g. small models repurpose the 'model'
+    # axis as extra data parallelism
+    sharding_overrides: Tuple[Tuple[str, Any], ...] = ()
 
     @property
     def hd(self) -> int:

@@ -12,6 +12,7 @@ import torch
 from . import fused
 from .base import (
     GradientTransformation,
+    ShardCuts,
     add_decayed_weights,
     chain,
     clip_by_global_norm,
@@ -32,13 +33,12 @@ class ScaleByAdamState(NamedTuple):
 
 
 def _sharding(backend: str, mesh, param_specs, what: str, param_shards: bool = False):
-    """(mesh, param_specs) for the fused backend's sharded path, else
-    (None, None): the plain per-leaf math needs no mesh. Parameter shards
-    (``param_shards``) run on the fused backend's sharded path only."""
+    """(mesh, param_specs) for the fused backend's sharded path and for
+    parameter shards on any route, else (None, None): the plain per-leaf
+    math on whole leaves needs no mesh."""
     if param_shards:
-        if backend == "jnp" or mesh is None or param_specs is None:
-            raise ValueError(f"{what}: parameter shards need backend 'fused' (or 'auto' on the GPU), a mesh and "
-                             f"the parameter specs")
+        if mesh is None or param_specs is None:
+            raise ValueError(f"{what}: parameter shards need a mesh and the parameter specs")
         return mesh, param_specs
     if backend == "jnp" or (mesh is None and param_specs is None):
         return None, None
@@ -47,14 +47,11 @@ def _sharding(backend: str, mesh, param_specs, what: str, param_shards: bool = F
     return sharded_pair(mesh, param_specs, what)
 
 
-def fused_route(backend: str, device, param_shards: bool, what: str) -> bool:
-    """Whether ``backend`` runs the fused route for tensors on ``device``;
-    parameter shards raise on any other route."""
-    route = resolve_backend(backend, device) == "fused"
-    if param_shards and not route:
-        raise ValueError(f"{what}: parameter shards run on the fused backend; {backend!r} resolves to 'jnp' on "
-                         f"{device}")
-    return route
+def fused_route(backend: str, device) -> bool:
+    """Whether ``backend`` runs the fused route for tensors on ``device``
+    ('auto' picks it for CUDA tensors, as ``resolve_backend`` does); the
+    backend named is the one that runs."""
+    return resolve_backend(backend, device) == "fused"
 
 
 def shard_clip(grad_clip: Optional[float], mesh, param_specs, param_shards: bool) -> list:
@@ -62,6 +59,8 @@ def shard_clip(grad_clip: Optional[float], mesh, param_specs, param_shards: bool
     the gradients are this rank's shards."""
     if grad_clip is None:
         return []
+    if param_shards and (mesh is None or param_specs is None):
+        raise ValueError("parameter shards need a mesh and the parameter specs")
     return [clip_by_global_norm(grad_clip, **(dict(mesh=mesh, specs=param_specs) if param_shards else {}))]
 
 
@@ -86,19 +85,23 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
     state holds this rank's shards of mu and nu, the update takes the whole
     gradients and returns whole updates (``repro_torch.optim.fused``); with
     ``param_shards`` the parameters, gradients and updates are this rank's
-    shards too (parameter-shard storage; the fused backend only)."""
+    shards too (parameter-shard storage), on either route: 'jnp' runs the
+    plain math on each shard, elementwise, with the health completed
+    across the mesh."""
     resolve_backend(backend)
     mesh, param_specs = _sharding(backend, mesh, param_specs, "scale_by_adam", param_shards)
+
+    def spec_leaves(names):
+        from ..sharding.shardspec import normalize_spec_leaves
+
+        return normalize_spec_leaves(param_specs, names, "scale_by_adam")
 
     def init_fn(params):
         device = next(iter(params.values())).device
         count = torch.zeros((), dtype=torch.int32, device=device)
-        if mesh is not None and fused_route(backend, device, param_shards, "scale_by_adam"):
-            from ..sharding.shardspec import normalize_spec_leaves
-
+        if mesh is not None and fused_route(backend, device):
             names = list(params)
-            mu, nu = fused.init_sharded_moments(list(params.values()), [()] * len(names),
-                                                normalize_spec_leaves(param_specs, names, "scale_by_adam"), mesh,
+            mu, nu = fused.init_sharded_moments(list(params.values()), [()] * len(names), spec_leaves(names), mesh,
                                                 reduced=False, param_shards=param_shards)
             return ScaleByAdamState(count=count, mu=dict(zip(names, mu)), nu=dict(zip(names, nu)))
         zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in params.items()}
@@ -112,20 +115,19 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
         nu = [state.nu[k] for k in names]
         kw = dict(b1=b1, b2=b2, eps=eps, count=count)
         health = None
-        if fused_route(backend, g[0].device, param_shards, "scale_by_adam"):
+        if fused_route(backend, g[0].device):
             if mesh is not None:
-                from ..sharding.shardspec import normalize_spec_leaves
-
-                kw.update(mesh=mesh, spec_leaves=normalize_spec_leaves(param_specs, names, "scale_by_adam"),
-                          param_shards=param_shards)
+                kw.update(mesh=mesh, spec_leaves=spec_leaves(names), param_shards=param_shards)
             out = fused.adam_tree_update(g, mu, nu, bucket_min_size=bucket_min_size, with_health=emit_health,
                                          megakernel=megakernel, **kw)
             u, mu, nu = out[:3]
             health = out[3] if emit_health else None
         else:
+            # elementwise: on parameter shards every op is the shard's own
             u, mu, nu = zip(*[fused.jnp_adam_leaf(*leaf, **kw) for leaf in zip(g, mu, nu)])
             if emit_health:
-                health = fused._health_from_rows([fused.leaf_health(x) for x in g])
+                cuts = ShardCuts(mesh, dict(zip(names, spec_leaves(names)))) if param_shards else ShardCuts()
+                health = fused.tree_health(g, cuts, names)
         return dict(zip(names, u)), ScaleByAdamState(count, dict(zip(names, mu)), dict(zip(names, nu)), health)
 
     return GradientTransformation(init_fn, update_fn)
@@ -149,9 +151,12 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
 
 def sgdm(learning_rate, momentum: float = 0.9, nesterov: bool = False, weight_decay: float = 0.0,
-         grad_clip: Optional[float] = 1.0) -> GradientTransformation:
-    """SGD with momentum: clip -> (coupled wd) -> momentum buffer -> -lr."""
-    parts = [clip_by_global_norm(grad_clip)] if grad_clip is not None else []
+         grad_clip: Optional[float] = 1.0, mesh=None, param_specs=None,
+         param_shards: bool = False) -> GradientTransformation:
+    """SGD with momentum: clip -> (coupled wd) -> momentum buffer -> -lr.
+    Elementwise after the clip, so on parameter shards (``param_shards``)
+    only the clip's norm crosses ranks."""
+    parts = shard_clip(grad_clip, mesh, param_specs, param_shards)
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay, mask=matrices_only))
     parts.append(trace(momentum, nesterov=nesterov))

@@ -167,6 +167,73 @@ def matrices_only(params: Tree) -> Dict[str, bool]:
     return {k: p.ndim >= 2 for k, p in params.items()}
 
 
+class ShardCuts:
+    """Where each leaf of a parameter-shaped dict is cut across a mesh
+    (parameter-shard storage: the leaves are this rank's shards under
+    ``specs``), so that a reduction over some of a leaf's dims can be
+    completed across the mesh axes that cut them, with the global extent
+    as the divisor. With ``mesh`` None every leaf is whole, and every
+    completion is the identity."""
+
+    def __init__(self, mesh=None, specs: Optional[Dict[str, Any]] = None):
+        self.mesh = mesh if specs is not None else None
+        self.specs = specs
+
+    def entries(self, k: str, ndim: int) -> Tuple[Tuple[str, ...], ...]:
+        """The mesh axes cutting each dim of leaf ``k``."""
+        if self.mesh is None:
+            return ((),) * ndim
+        from ..sharding.shardspec import spec_entries
+
+        return spec_entries(self.specs[k], ndim)
+
+    def axes(self, k: str, ndim: int, dims) -> Tuple[str, ...]:
+        """The mesh axes cutting any of ``dims`` of leaf ``k``."""
+        ent = self.entries(k, ndim)
+        return tuple(a for d in sorted({d % ndim for d in dims}) for a in ent[d])
+
+    def shape(self, k: str, x: torch.Tensor) -> Tuple[int, ...]:
+        """The global shape of leaf ``k``, of which ``x`` is this rank's shard."""
+        if self.mesh is None:
+            return tuple(x.shape)
+        from ..sharding.shardspec import global_shape
+
+        return global_shape(tuple(x.shape), self.specs[k], self.mesh)
+
+    def sum(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """``x`` summed over the ranks of ``axes``."""
+        return self.mesh.psum(x, axes) if axes else x
+
+    def mean(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """The mean of ``x`` over the ranks of ``axes``: of a local mean over
+        a leaf's dims, the mean over the whole leaf (its shards are equal in
+        size). The identity, bit for bit, where no axis cuts."""
+        return self.mesh.psum(x, axes) / self.mesh.axis_size(axes) if axes else x
+
+    def max(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """The elementwise max of ``x`` over the ranks of ``axes``."""
+        return self.mesh.pmax(x, axes) if axes else x
+
+    def block(self, x: torch.Tensor, k: str, ndim: int, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of a tensor that holds dim ``dim``
+        of leaf ``k`` whole (a replicated per-axis statistic)."""
+        axes = self.entries(k, ndim)[dim]
+        if not axes:
+            return x
+        blk = x.shape[dim] // self.mesh.axis_size(axes)
+        return x.narrow(dim, self.mesh.group_index(axes) * blk, blk)
+
+    def whole(self, x: torch.Tensor, k: str, ndim: int, dim: int) -> torch.Tensor:
+        """The inverse of :meth:`block`: every rank's block along ``dim``,
+        gathered."""
+        axes = self.entries(k, ndim)[dim]
+        if not axes:
+            return x
+        from ..sharding.shardspec import PartitionSpec
+
+        return self.mesh.gather(x.contiguous(), PartitionSpec(*[axes if i == dim else None for i in range(ndim)]))
+
+
 class TraceState(NamedTuple):
     trace: Any            # {name: momentum buffer}, shaped and typed like the parameters
 

@@ -69,6 +69,7 @@ from ..kernels.slim_update import (slim_finalize_batched, slim_partial_stats_bat
 from ..kernels.snr_stats import snr_update_stats_finalize
 from ..sharding.shardspec import (dim_shards, global_shape, mesh_is_trivial, plan_sharded_tree,
                                   psum_kernel_eligible, spec_dtype)
+from .base import ShardCuts
 
 # 0/0 guard for exactly-constant lines in the from-update SNR (the same
 # limit as repro_torch.core.snr._VAR_EPS).
@@ -186,13 +187,20 @@ def jnp_adam_leaf(g, m, v, *, b1, b2, eps, count):
     return (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
 
 
-def jnp_slim_leaf(g, m, v, dims: Dims, *, b1, b2, eps, count, use_first_moment: bool = True):
+def jnp_slim_leaf(g, m, v, dims: Dims, *, b1, b2, eps, count, use_first_moment: bool = True,
+                  cuts: ShardCuts = ShardCuts(), key: Optional[str] = None):
     """Reference SlimAdam leaf update: the second moment is the mean of g^2
     over ``dims``, stored with size-1 reduced dims. Without the first moment
-    (``m`` None) the numerator is g itself and m' is None."""
+    (``m`` None) the numerator is g itself and m' is None.
+
+    ``cuts`` with ``key``: ``g`` is this rank's shard of leaf ``key``
+    (parameter-shard storage, JAX's pjit path with ``owner_mesh=None``), and
+    the mean over ``dims`` is completed across the mesh axes that cut them;
+    ``v`` is this rank's shard of the reduced moment under the masked spec,
+    so every other op is the shard's own. Whole leaves by default."""
     g32 = g.float()
     g2 = torch.square(g32)
-    ek = torch.mean(g2, dim=dims, keepdim=True) if dims else g2
+    ek = cuts.mean(torch.mean(g2, dim=dims, keepdim=True), cuts.axes(key, g.ndim, dims)) if dims else g2
     v_new = b2 * v + (1 - b2) * ek
     bc1, bc2 = bias_corrections(b1, b2, count)
     if use_first_moment:
@@ -203,14 +211,33 @@ def jnp_slim_leaf(g, m, v, dims: Dims, *, b1, b2, eps, count, use_first_moment: 
     return num / (torch.sqrt(v_new / bc2) + eps), m_new, v_new
 
 
-def jnp_update_snr_leaf(g, v_new, dims: Dims, *, b2) -> torch.Tensor:
+def jnp_update_snr_leaf(g, v_new, dims: Dims, *, b2, cuts: ShardCuts = ShardCuts(),
+                        key: Optional[str] = None) -> torch.Tensor:
     """Reference from-update SNR for one compressed leaf (0-d): SNR_K of the
     step's dense reconstruction ``b2 * V_red + (1 - b2) * g^2``, whose line
     mean is exactly ``v_new`` — the oracle for the ``with_snr`` kernel
-    outputs (:func:`repro_torch.kernels.snr_stats.snr_update_stats_finalize`)."""
+    outputs (:func:`repro_torch.kernels.snr_stats.snr_update_stats_finalize`).
+    ``cuts``/``key`` as :func:`jnp_slim_leaf`: the line means and variances
+    completed across the axes that cut ``dims``, the mean over lines across
+    the axes that cut the others."""
+    nd = g.ndim
+    across_k = cuts.axes(key, nd, dims)
+    across_lines = cuts.axes(key, nd, [d for d in range(nd) if d not in {x % nd for x in dims}])
     g2 = torch.square(g.float())
-    var = torch.var(g2, dim=dims, keepdim=True, correction=0)
-    return torch.mean(torch.square(v_new) / ((1 - b2) ** 2 * var + _SNR_EPS))
+    ek = cuts.mean(torch.mean(g2, dim=dims, keepdim=True), across_k)
+    var = cuts.mean(torch.mean(torch.square(g2 - ek), dim=dims, keepdim=True), across_k)
+    return cuts.mean(torch.mean(torch.square(v_new) / ((1 - b2) ** 2 * var + _SNR_EPS)), across_lines)
+
+
+def tree_health(g_leaves, cuts: ShardCuts = ShardCuts(), names: Optional[Sequence[str]] = None) -> StepHealth:
+    """The :class:`StepHealth` of a tree by the plain math (each leaf's row
+    from :func:`leaf_health`); where ``cuts`` holds the leaves ``names`` as
+    this rank's shards, completed across the mesh."""
+    rows = [leaf_health(x) for x in g_leaves]
+    if cuts.mesh is None:
+        return _health_from_rows(rows)
+    specs = [cuts.specs[k] for k in names]
+    return _psum_health(rows, [cuts.shape(k, x) for k, x in zip(names, g_leaves)], specs, cuts.mesh)
 
 
 def _plain_leaf(g, m, v, dims: Dims, *, emit_snr: bool, with_health: bool, b1, b2, eps, count,

@@ -159,9 +159,17 @@ def is_process_mesh(mesh: Any) -> bool:
     return hasattr(mesh, "device_mesh")
 
 
-def batch_axes(mesh: Any) -> Tuple[str, ...]:
-    """The mesh axes the batch splits over (the ``batch`` rule)."""
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+def batch_axes(mesh: Any, rules: Optional[Mapping[str, MeshAxes]] = None) -> Tuple[str, ...]:
+    """The mesh axes the batch splits over: the ``batch`` rule of ``rules``,
+    by default the active context's where it is on ``mesh`` (a config's
+    ``sharding_overrides`` may add ``model``), else the production table's
+    (``pod``, ``data``)."""
+    if rules is None:
+        ctx = current()
+        rules = ctx.rules if ctx is not None and ctx.mesh is mesh else default_rules(mesh)
+    rule = rules.get("batch")
+    axes = (rule,) if isinstance(rule, str) else tuple(rule or ())
+    return tuple(a for a in axes if a in mesh.axis_names)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,7 +196,10 @@ class Layout:
 
     @property
     def tp(self) -> int:
-        if not self.process or "model" not in self.mesh.axis_names:
+        """The tensor-parallel degree: the ``model`` axis, unless the rules
+        spend it on the batch (pure data parallelism)."""
+        if not self.process or "model" not in self.mesh.axis_names \
+                or "model" in batch_axes(self.mesh, self.ctx.rules):
             return 1
         return int(self.mesh.shape["model"])
 
@@ -202,7 +213,7 @@ class Layout:
         (the caller falls back to 1 when the global batch does not divide)."""
         if self.ctx is None:
             return 1
-        return math.prod(int(self.mesh.shape[a]) for a in batch_axes(self.mesh))
+        return math.prod(int(self.mesh.shape[a]) for a in batch_axes(self.mesh, self.ctx.rules))
 
     def own(self, s: int) -> Tuple[int, int]:
         """(start, length) of the positions of a length-``s`` sequence this

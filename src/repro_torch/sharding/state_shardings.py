@@ -10,6 +10,11 @@ parameter specs:
     dims replicated — or, with ``owner_mesh`` (the sharded fused backend),
     the owner-slice storage spec of a psum leaf
     (``repro_torch.sharding.shardspec.owner_placement``);
+  * the baselines' full-shape buffers (SGD-M's trace, Lion's and SM3's
+    momentum, Adafactor v2's update EMA, ``multi_steps``' accumulators)
+    take the parameter spec, Adafactor's row and column statistics the
+    entries of the dims they keep, SM3's per-axis accumulators are
+    replicated;
   * counts, schedules and the snr / health snapshots are replicated.
 
 ``abstract_state`` is a state with global shapes: build it with the
@@ -52,46 +57,95 @@ def _masked_like_params(spec_tree, state_leaves, params, owner_mesh) -> Dict[str
     return out
 
 
+def _masked_like_params_partial(spec_tree, state_leaves, params) -> Dict[str, P]:
+    """Adafactor's row and column statistics: fewer dims than the
+    parameter, so keep the spec entries of the dims that survive (row
+    stats drop the last dim, column stats the second-to-last), matched by
+    shape in JAX's order (``repro/sharding/state_shardings.py:171-189``)."""
+    out = {}
+    for k, spec in spec_tree.items():
+        p, s = params[k], state_leaves[k]
+        entries = list(spec) + [None] * (p.ndim - len(spec))
+        shape, pshape = tuple(s.shape), tuple(p.shape)
+        if s.ndim == p.ndim:
+            out[k] = P(*entries)
+        elif s.ndim == 0:
+            out[k] = P()
+        elif shape == pshape[:-1]:
+            out[k] = P(*entries[:-1])
+        elif shape == pshape[:-2] + pshape[-1:]:
+            out[k] = P(*(entries[:-2] + entries[-1:]))
+        else:
+            out[k] = P()
+    return out
+
+
 def _replicated(tree: Any) -> Any:
     if tree is None:
         return None
     if isinstance(tree, Mapping):
-        return {k: None if v is None else P() for k, v in tree.items()}
+        return {k: _replicated(v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(_replicated(getattr(tree, f)) for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_replicated(v) for v in tree)
     return P()
 
 
 def opt_state_specs(abstract_state: Any, params_abstract: Mapping[str, Any], param_spec_tree: Mapping[str, P],
                     *, owner_mesh: Any = None) -> Any:
-    """PartitionSpec tree matching ``abstract_state``.
+    """PartitionSpec tree matching ``abstract_state``: JAX's walk
+    (``repro/sharding/state_shardings.py:138-162``) over every optimizer
+    state type.
 
     ``owner_mesh``: the mesh, when the optimizer runs the sharded fused
     backend — SlimAdam's psum-regime reduced moments then take their
-    owner-slice storage specs, the layout the sharded update keeps. Raises
-    ``ValueError`` when a state dict does not mirror the parameters."""
+    owner-slice storage specs, the layout the sharded update keeps; leave
+    it None for the 'jnp' backend, whose reduced moments keep the masked
+    specs. Raises ``ValueError`` when a state dict does not mirror the
+    parameters."""
     # the state types import the optimizer, which imports this package
+    from ..core.baselines import AdafactorState, LionState, SM3State
     from ..core.slim_adam import ScaleBySlimAdamState
     from ..optim.adam import ScaleByAdamState
-    from ..optim.base import ChainState, EmptyState, ScaleByScheduleState
+    from ..optim.base import ChainState, EmptyState, MultiStepsState, ScaleByScheduleState, TraceState
 
     _check_mirrors(param_spec_tree, params_abstract, "param_spec_tree")
+    like = lambda: dict(param_spec_tree)   # noqa: E731
 
     def walk(node: Any) -> Any:
         if isinstance(node, ChainState):
             return ChainState(tuple(walk(s) for s in node.inner_states))
         if isinstance(node, ScaleBySlimAdamState):
-            _check_mirrors(node.mu, params_abstract, "ScaleBySlimAdamState.mu")
+            if node.mu is not None:
+                _check_mirrors(node.mu, params_abstract, "ScaleBySlimAdamState.mu")
             _check_mirrors(node.nu, params_abstract, "ScaleBySlimAdamState.nu")
             return ScaleBySlimAdamState(
-                count=P(), mu=dict(param_spec_tree),
+                count=P(), mu=like() if node.mu is not None else None,
                 nu=_masked_like_params(param_spec_tree, node.nu, params_abstract, owner_mesh),
                 snr=_replicated(node.snr), health=_replicated(node.health))
         if isinstance(node, ScaleByAdamState):
             _check_mirrors(node.mu, params_abstract, "ScaleByAdamState.mu")
             _check_mirrors(node.nu, params_abstract, "ScaleByAdamState.nu")
-            return ScaleByAdamState(count=P(), mu=dict(param_spec_tree), nu=dict(param_spec_tree),
-                                    health=_replicated(node.health))
+            return ScaleByAdamState(count=P(), mu=like(), nu=like(), health=_replicated(node.health))
+        if isinstance(node, TraceState):
+            _check_mirrors(node.trace, params_abstract, "TraceState.trace")
+            return TraceState(trace=like())
+        if isinstance(node, MultiStepsState):
+            _check_mirrors(node.acc_grads, params_abstract, "MultiStepsState.acc_grads")
+            return MultiStepsState(mini_step=P(), inner_state=walk(node.inner_state), acc_grads=like())
+        if isinstance(node, AdafactorState):
+            _check_mirrors(node.vr, params_abstract, "AdafactorState.vr")
+            _check_mirrors(node.vc, params_abstract, "AdafactorState.vc")
+            return AdafactorState(count=P(),
+                                  vr=_masked_like_params_partial(param_spec_tree, node.vr, params_abstract),
+                                  vc=_masked_like_params_partial(param_spec_tree, node.vc, params_abstract),
+                                  mu=like() if node.mu is not None else None)
+        if isinstance(node, SM3State):
+            return SM3State(accs=_replicated(node.accs), mom=like())
+        if isinstance(node, LionState):
+            _check_mirrors(node.mu, params_abstract, "LionState.mu")
+            return LionState(mu=like())
         if isinstance(node, ScaleByScheduleState):
             return ScaleByScheduleState(count=P())
         if isinstance(node, EmptyState):

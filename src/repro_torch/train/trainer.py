@@ -79,18 +79,18 @@ def make_optimizer(name: str, lr, params, meta, *, weight_decay: float = 0.1, b1
     the derived rules 'slim_snr' needs. ``backend`` ('jnp' | 'fused' |
     'auto'), ``megakernel=False`` (the fused backend's per-leaf route) and
     ``mesh``/``param_specs`` (the sharded fused backend) apply to the
-    Adam/SlimAdam family; the other baselines ignore them. ``emit_snr``
+    Adam/SlimAdam family; the other baselines read ``mesh``/``param_specs``
+    only with ``param_shards``. ``emit_snr``
     (slim family) builds the measure-step variant that publishes
     from-update SNR on its state; ``emit_health`` (Adam/slim family)
     publishes the in-pass StepHealth the guarded step reads.
-    ``param_shards`` (parameter-shard storage, ``repro_torch.launch.train``):
-    the parameters, gradients and updates are this rank's shards; the
-    Adam/SlimAdam family on the fused backend serves it, the others
-    raise."""
-    if param_shards and name not in ("adam",) + _SLIM_FAMILY:
-        raise ValueError(f"parameter shards are served by the Adam/slim family {('adam',) + _SLIM_FAMILY}, "
-                         f"not {name!r}")
+    ``param_shards`` (parameter-shard storage, ``repro_torch.launch.train``;
+    needs ``mesh`` and ``param_specs``): the parameters, gradients and
+    updates are this rank's shards, for every optimizer; the Adam/SlimAdam
+    family runs it on either backend, the other baselines complete their
+    reductions across the mesh (``repro_torch.core.baselines``)."""
     shard_kw = dict(param_shards=True) if param_shards else {}
+    base_kw = dict(mesh=mesh, param_specs=param_specs, param_shards=True) if param_shards else {}
     if emit_snr and name not in _SLIM_FAMILY:
         raise ValueError(f"emit_snr is only supported by the slim family {_SLIM_FAMILY}, not {name!r}")
     if emit_health and name not in ("adam",) + _SLIM_FAMILY:
@@ -105,15 +105,15 @@ def make_optimizer(name: str, lr, params, meta, *, weight_decay: float = 0.1, b1
                          param_specs=param_specs, emit_snr=emit_snr, emit_health=emit_health,
                          megakernel=megakernel, **shard_kw)
     if name == "adafactor":
-        return adafactor(lr, weight_decay=weight_decay, grad_clip=grad_clip)
+        return adafactor(lr, weight_decay=weight_decay, grad_clip=grad_clip, **base_kw)
     if name == "adafactor_v2":
-        return adafactor(lr, momentum=0.9, weight_decay=weight_decay, grad_clip=grad_clip)
+        return adafactor(lr, momentum=0.9, weight_decay=weight_decay, grad_clip=grad_clip, **base_kw)
     if name == "sm3":
-        return sm3(lr, beta=0.95, weight_decay=weight_decay, grad_clip=grad_clip)
+        return sm3(lr, beta=0.95, weight_decay=weight_decay, grad_clip=grad_clip, **base_kw)
     if name == "lion":
-        return lion(lr, weight_decay=weight_decay, grad_clip=grad_clip)
+        return lion(lr, weight_decay=weight_decay, grad_clip=grad_clip, **base_kw)
     if name == "sgdm":
-        return sgdm(lr, weight_decay=weight_decay, grad_clip=grad_clip)
+        return sgdm(lr, weight_decay=weight_decay, grad_clip=grad_clip, **base_kw)
     raise ValueError(f"unknown optimizer {name!r}; choose from {OPTIMIZERS}")
 
 

@@ -486,3 +486,49 @@ def param_shard_checkpoints(mesh, arrays, data_kw, lr, jax_ckpt, own_ckpt):
         rows, _ = launch.train(foreign._replace(opt_state=state), data, 4, start=int(extra["step"]), log=quiet)
         out["foreign"] = [r["loss"] for r in rows]
     return out
+
+
+def param_shard_optimizers(mesh, arrays, data_kw, lr, steps, cases, names):
+    """Each ``(arch, optimizer, backend)`` of ``cases`` stored as this
+    rank's parameter shards from given weights (``{arch: arrays}``): the
+    shape of every parameter and state leaf, ``steps`` losses through the
+    launcher's loop, the persistent bytes beside the reckoned count, and the
+    losses of the whole-parameter ``Trainer`` on the same mesh with the same
+    optimizer and backend; then one step of reduced gpt_small under each
+    optimizer of ``names`` on the fused backend (``slim_snr`` with rules
+    that compress nothing)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import ShardingContext, use_sharding
+    from repro_torch.train import Trainer, TrainerConfig
+
+    out = {"coords": dict(mesh.coords)}
+    for arch, opt, backend in cases:
+        cfg = get_reduced(arch)
+        whole = params_from_numpy(arrays[arch], "cpu")
+        data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, **data_kw))
+        with use_sharding(ShardingContext(mesh, rules=dict(cfg.sharding_overrides) or None)):
+            run = launch.build(cfg, opt, lr, mesh, backend=backend, whole=whole)
+            shapes = {name: tuple(t.shape) for name, t in _copy_state(run.state()).items()}
+            held = (run.persistent_bytes(), launch.reckon_bytes(cfg, opt, lr, mesh, backend=backend))
+            rows, _ = launch.train(run, data, steps, log=lambda *a: None)
+            tr = Trainer(cfg, opt, lr, data, TrainerConfig(backend=backend, total_steps=steps, log_every=1),
+                         device="cpu")
+            tr.model.load_params(whole)
+            tr.opt_state = tr.tx.init(tr.params)
+            tr.run()
+        out[(arch, opt, backend)] = {"shapes": shapes, "bytes": held, "losses": [r["loss"] for r in rows],
+                                     "trainer": [m["loss"] for m in tr.metrics_log]}
+    cfg = get_reduced("gpt_small")
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, **data_kw))
+    whole = params_from_numpy(arrays["gpt_small"], "cpu")
+    with use_sharding(ShardingContext(mesh)):
+        _, meta = cfg.abstract()
+        for name in names:
+            rules = {k: () for k in meta} if name == "slim_snr" else None
+            run = launch.build(cfg, name, lr, mesh, rules=rules, whole=whole)
+            rows, _ = launch.train(run, data, 1, log=lambda *a: None)
+            out[name] = rows[0]["loss"]
+    return out

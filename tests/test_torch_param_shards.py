@@ -19,7 +19,12 @@ same numpy weights. Reduced gpt_small, olmoe_1b_7b and falcon_mamba_7b:
   largest |g| (f32; only the order of the sums differs);
 * the per-rank persistent bytes equal the count reckoned from
   ``shardspec.local_shape``;
-* a guarded step with NaN gradients is skipped on every rank alike.
+* a guarded step with NaN gradients is skipped on every rank alike;
+* the rest of the launcher's optimizers (Adafactor on all three models,
+  SM3, Lion, SGD-M, and Adam and SlimAdam on the 'jnp' route, on
+  gpt_small): every leaf's shard shape equals JAX's, 3 losses at rtol 1e-4
+  of JAX's recipe and within 1e-5 of the port's whole-parameter ``Trainer``
+  on the same mesh; all 12 names of ``OPTIMIZERS`` build and step.
 
 Checkpoints across layouts: a shard-storage checkpoint restores into the
 port's whole-parameter ``Trainer`` and through JAX's ``store.restore``; a
@@ -44,6 +49,15 @@ from _torch_parity import assert_close, flat_numpy, jax_params
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("gpt_small", "olmoe_1b_7b", "falcon_mamba_7b")
 OPTIMIZERS = ("adam", "slim")
+# the rest of the launcher's optimizers and the 'jnp' route: (arch,
+# optimizer, backend); Adafactor's factored statistics on all three models
+CASES = (("gpt_small", "adafactor", "fused"), ("olmoe_1b_7b", "adafactor", "fused"),
+         ("falcon_mamba_7b", "adafactor", "fused"), ("gpt_small", "sm3", "fused"), ("gpt_small", "lion", "fused"),
+         ("gpt_small", "sgdm", "fused"), ("gpt_small", "adam", "jnp"), ("gpt_small", "slim", "jnp"))
+CASE_IDS = ["-".join(c) for c in CASES]
+ALL_OPTIMIZERS = ("adam", "slim", "slim_snr", "adalayer", "adalayer_ln_tl", "adam_mini_v1", "adam_mini_v2",
+                  "adafactor", "adafactor_v2", "sm3", "lion", "sgdm")
+TOL_TRAINER = 1e-5
 DATA = dict(seq_len=32, global_batch=4, seed=5)
 LR = 1e-3
 STEPS = 3
@@ -93,6 +107,32 @@ for arch in spec["archs"]:
                 p, s, metrics = step(p, s, {k2: jnp.asarray(v) for k2, v in data.batch(k).items()})
                 losses.append(float(metrics["loss"]))
             out[(arch, opt)] = dict(shapes=shapes, losses=losses)
+for arch, opt, backend in spec["cases"]:
+    # the rest of the launcher's recipe: every optimizer, either backend
+    # (repro/launch/train.py:62-92; owner slices on the fused route only)
+    cfg = get_reduced(arch)
+    ctx = ShardingContext(mesh, rules=dict(cfg.sharding_overrides) or None)
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, **spec["data"]))
+    with use_sharding(ctx):
+        params, meta = cfg.init(jax.random.PRNGKey(0))
+        p_specs = param_specs(meta, params)
+        p_sh = named(p_specs)
+        tx = make_optimizer(opt, spec["lr"], params, meta, backend=backend, mesh=mesh, param_specs=p_specs)
+        opt_state = tx.init(params)
+        o_sh = named(opt_state_specs(jax.eval_shape(lambda: opt_state), params, p_specs,
+                                     owner_mesh=mesh if backend == "fused" else None))
+        tree, shards = {"params": params, "opt": opt_state}, dict(flatten_with_names({"params": p_sh, "opt": o_sh})[0])
+        shapes = {name: tuple(shards[name].shard_shape(leaf.shape)) for name, leaf in flatten_with_names(tree)[0]}
+        b_sh = NamedSharding(mesh, ctx.spec_for(("batch", None), (data.cfg.global_batch, data.cfg.seq_len)))
+        step = jax.jit(make_train_step(cfg, tx, grad_shardings=p_sh),
+                       in_shardings=(p_sh, o_sh, {"tokens": b_sh, "labels": b_sh}),
+                       out_shardings=(p_sh, o_sh, None), donate_argnums=(0, 1))
+        p, s = jax.device_put(params, p_sh), jax.device_put(opt_state, o_sh)
+        losses = []
+        for k in range(spec["steps"]):
+            p, s, metrics = step(p, s, {k2: jnp.asarray(v) for k2, v in data.batch(k).items()})
+            losses.append(float(metrics["loss"]))
+        out[(arch, opt, backend)] = dict(shapes=shapes, losses=losses)
 pickle.dump(out, open(os.path.join(work, "jax_out.pkl"), "wb"))
 print("ok")
 """
@@ -119,7 +159,7 @@ def runs(tmp_path_factory):
 
     work = tmp_path_factory.mktemp("shards")
     (work / "spec.pkl").write_bytes(pickle.dumps(dict(archs=ARCHS, optimizers=OPTIMIZERS, lr=LR, data=DATA,
-                                                      steps=STEPS)))
+                                                      steps=STEPS, cases=CASES)))
     script = work / "oracle.py"
     script.write_text(ORACLE)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
@@ -130,6 +170,8 @@ def runs(tmp_path_factory):
         arrays = {arch: jax_params(seed=0, arch=arch)[3] for arch in ARCHS}
         first = ZipfLM(DataConfig(vocab_size=211, **DATA)).batch(0)
         port = ranks.run_ranks(ranks.param_shard_runs, work, arrays, DATA, LR, STEPS, first, timeout_s=240.0)
+        cases = ranks.run_ranks(ranks.param_shard_optimizers, work, arrays, DATA, LR, STEPS, CASES, ALL_OPTIMIZERS,
+                                timeout_s=240.0)
         ckpt = ranks.run_ranks(ranks.param_shard_checkpoints, work, arrays["gpt_small"], DATA, LR,
                                str(work / "jax_ckpt"), str(work / "own_ckpt"))
         _, err = jax_proc.communicate(timeout=600)
@@ -137,8 +179,8 @@ def runs(tmp_path_factory):
         if jax_proc.poll() is None:
             jax_proc.kill()
     assert jax_proc.returncode == 0, err[-3000:]
-    return dict(port=port, ckpt=ckpt, jax=pickle.loads((work / "jax_out.pkl").read_bytes()), jax_losses=jax_losses,
-                own_ckpt=work / "own_ckpt", arrays=arrays)
+    return dict(port=port, cases=cases, ckpt=ckpt, jax=pickle.loads((work / "jax_out.pkl").read_bytes()),
+                jax_losses=jax_losses, own_ckpt=work / "own_ckpt", arrays=arrays)
 
 
 @pytest.mark.parametrize("opt", OPTIMIZERS)
@@ -246,17 +288,64 @@ def test_shard_checkpoint_restores_whole(runs, into):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("backend", ["jnp", "auto"])
-def test_parameter_shards_run_on_the_fused_backend_only(backend):
-    """No fallback: shard storage with a backend that resolves to the plain
-    per-leaf math here raises, at build time or at init."""
-    import torch
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_every_optimizer_is_stored_as_jax_shards(runs, case):
+    """Adafactor, SM3, Lion, SGD-M and the 'jnp' route of Adam and
+    SlimAdam: each rank's shape of every parameter and state leaf is JAX's
+    ``shard_shape`` under the launcher's recipe (Adafactor's row and column
+    statistics by ``_masked_like_params_partial``, SM3's accumulators
+    replicated, the 'jnp' route's reduced moments by the masked spec)."""
+    want = runs["jax"][case]["shapes"]
+    for r in runs["cases"]:
+        assert r[case]["shapes"] == want
 
-    from repro_torch.optim.adam import scale_by_adam
-    from repro_torch.sharding import P, SpecMesh
 
-    params = {"w": torch.zeros(4, 8)}
-    kw = dict(backend=backend, mesh=SpecMesh({"data": 2, "model": 2}), param_specs={"w": P("data", "model")},
-              param_shards=True)
-    with pytest.raises(ValueError, match="fused"):
-        scale_by_adam(**kw).init(params)
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_every_optimizer_matches_jax_launch_recipe(runs, case):
+    """3 steps of each case from the same weights and batches against JAX's
+    recipe, rtol 1e-4; every rank the same losses."""
+    want = runs["jax"][case]["losses"]
+    for r in runs["cases"]:
+        np.testing.assert_allclose(r[case]["losses"], want, rtol=1e-4)
+        assert r[case]["losses"] == runs["cases"][0][case]["losses"]
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_every_optimizer_matches_the_whole_parameter_trainer(runs, case):
+    """Within the port: shard storage against the whole-parameter
+    ``Trainer`` on the same mesh, the same optimizer and backend, f32,
+    within 1e-5 (only the order of the sums differs); bytes a rank equal the
+    reckoned count."""
+    for r in runs["cases"]:
+        np.testing.assert_allclose(r[case]["losses"], r[case]["trainer"], rtol=0, atol=TOL_TRAINER)
+        held, reckoned = r[case]["bytes"]
+        assert held == reckoned
+
+
+@pytest.mark.parametrize("name", ALL_OPTIMIZERS)
+def test_every_optimizer_name_steps_on_parameter_shards(runs, name):
+    """All 12 names of ``OPTIMIZERS`` build and step under parameter-shard
+    storage on the (2, 2) gloo mesh, each rank the same finite loss; on a
+    device-free mesh of the same shape each reckons its bytes on both
+    backends, and 'slim_snr' without derived rules raises, as JAX's
+    launcher does (its ``slim_rule_dims``)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import ShardingContext, SpecMesh, use_sharding
+    from repro_torch.train.trainer import OPTIMIZERS as REGISTRY
+
+    assert set(ALL_OPTIMIZERS) == set(REGISTRY)
+    losses = [r[name] for r in runs["cases"]]
+    assert np.isfinite(losses[0]) and losses == [losses[0]] * len(losses)
+    cfg = get_reduced("gpt_small")
+    mesh = SpecMesh({"data": 2, "model": 2})
+    with use_sharding(ShardingContext(mesh)):
+        _, meta = cfg.abstract()
+        for backend in ("fused", "jnp"):
+            rules = None
+            if name == "slim_snr":
+                with pytest.raises(ValueError, match="derived rules"):
+                    launch.reckon_bytes(cfg, name, LR, mesh, backend=backend)
+                rules = {k: () for k in meta}
+            got = launch.reckon_bytes(cfg, name, LR, mesh, backend=backend, rules=rules)
+            assert got["params"] > 0 and got["opt"] > 0, (name, backend)
