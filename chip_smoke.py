@@ -383,6 +383,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (agreement reported), a decode step's host and device time and profile,
    peak memory; ``decode_input_specs`` of the whole 32-layer model at
    decode_32k sized on the ``meta`` device.
+Contracts: every pass of ``python -m repro_torch.analysis`` on this machine,
+   the card passes included (the ptxas resource rows held to
+   ``kernelcheck.RESOURCES``, the guarded step's launch-stable check), with
+   its table; each compiled kernel's registers, spills, shared memory and
+   blocks an SM by ``__global__`` function; the dry run's kernel calls on
+   ``meta`` (``count_kernel_calls``) against the launches the card makes for
+   full-width gpt_small's Adam and Table-3 SlimAdam updates; each of the 16
+   wrappers run twice on the same full-width inputs, bit for bit; and
+   compute-sanitizer's racecheck over a small case of every wrapper where
+   the machine has a working tool (where not, a line says so, and nothing
+   counts as passed). Its seconds are printed (budget 60 s).
 16. One ``{"kernels": [...]}`` line (all 16 kernels: the 15 TPU kernels'
    ports and the selective scan's backward, B1 and B2 with their flags on
    rows of their own; B1, B2 and B5 count phases 9, 11, 12 and 13's
@@ -522,18 +533,31 @@ def profile_device(torch, fn, n: int, wall_ms: float, label: str) -> dict:
     return dict(busy_ms=busy, wall_ms=wall_ms, kernels=rows[:40])
 
 
-def device_kernels(torch, fn) -> list:
+def device_kernels(torch, fn, traces: int = 20) -> list:
     """The names of the device kernels that one call of ``fn`` (after a
-    warm-up call) runs, from a torch.profiler trace."""
+    warm-up call) runs, from a torch.profiler trace. Each trace starts with
+    a short spin kernel: a trace that kept it saw the device from before
+    the call's first kernel and is the answer (the spin left out); a trace
+    that lost it is taken again, up to ``traces`` times, as
+    ``tests/test_torch_cuda.py`` ``_trace`` does. The profiler's own
+    ``ProfilerStep*`` range, which a trace can list as a device event, is no
+    kernel and is left out too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
+        if any("spin_kernel" in n for n in names):
+            return [n for n in names if "spin_kernel" not in n]
+    raise AssertionError(f"none of {traces} torch.profiler traces kept its first device kernel")
 
 
 def host_ms(torch, fn, n: int = 3) -> float:
@@ -1395,6 +1419,59 @@ TOL_SHARDED_LOSS = 1e-4     # losses against the unsharded port: the gradient al
                             # order than one whole-batch backward
 
 
+def run_rank(body, rank, rdv, out, *args):
+    """A rank's process: ``body(rank, rdv, out, *args)``. A failure goes to
+    the parent through ``out`` with its traceback, then ends the process
+    with a non-zero code, so the parent can name the rank that failed first
+    and not only the ranks whose collectives its exit broke."""
+    try:
+        body(rank, rdv, out, *args)
+    except BaseException:
+        import traceback
+
+        out.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def collect_ranks(procs, out, what, deadline_s=900):
+    """{rank: result} from ``run_rank``'s processes. On a rank's failure,
+    waits a few seconds for the others' reports and raises with the
+    traceback of the rank whose failure reached the queue first."""
+    import queue
+
+    results, errors = {}, []
+    deadline = time.monotonic() + deadline_s
+    while len(results) < len(procs):
+        try:
+            rank, res = out.get(timeout=2.0)
+        except queue.Empty:
+            rank, res = None, None
+        if res is not None and "error" in res:
+            errors.append((rank, res["error"]))
+        elif res is not None:
+            results[rank] = res
+        exited = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+        if errors or exited:
+            grace = time.monotonic() + 10
+            while time.monotonic() < grace and any(p.exitcode is None for p in procs):
+                try:
+                    rank, res = out.get(timeout=0.5)
+                    if "error" in res:
+                        errors.append((rank, res["error"]))
+                except queue.Empty:
+                    pass
+            codes = [p.exitcode for p in procs]
+            if not errors:
+                raise RuntimeError(f"{what}: rank exit codes {codes}, no rank reported a failure")
+            first, text = errors[0]
+            later = "; ".join(f"rank {r}: {t.strip().splitlines()[-1]}" for r, t in errors[1:])
+            raise RuntimeError(f"{what}: rank {first} failed first (rank exit codes {codes}"
+                               + (f"; then {later}" if later else "") + f"):\n{text}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what}: the ranks did not finish in {deadline_s} s")
+    return results
+
+
 def shard_inputs(torch, shape, seed, scale=1e-3):
     """A tensor every rank draws alike (seeded on the card)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1880,7 +1957,6 @@ def sharded_phase(torch, smi, rate):
     batches and the unsharded restore of the mesh's checkpoint. A rank that
     fails ends the run with a non-zero code."""
     import multiprocessing as mp
-    import queue
     import shutil
 
     from repro_torch.configs import get_config
@@ -1897,23 +1973,12 @@ def sharded_phase(torch, smi, rate):
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=sharded_rank, args=(r, str(work / "rdv"), out, rate, ckpt_dir))
+    procs = [ctx.Process(target=run_rank, args=(sharded_rank, r, str(work / "rdv"), out, rate, ckpt_dir))
              for r in range(SHARD_RANKS)]
     for p in procs:
         p.start()
-    results = {}
-    deadline = time.monotonic() + 900
     try:
-        while len(results) < SHARD_RANKS:
-            try:
-                rank, res = out.get(timeout=2.0)
-                results[rank] = res
-            except queue.Empty:
-                failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
-                if failed:
-                    raise RuntimeError(f"rank {failed[0]} failed with exit code {procs[failed[0]].exitcode}")
-                if time.monotonic() > deadline:
-                    raise TimeoutError("the sharded ranks did not finish")
+        results = collect_ranks(procs, out, "the sharded ranks")
         for p in procs:
             p.join(timeout=SHARD_TIMEOUT_S)
         if any(p.exitcode != 0 for p in procs):
@@ -3003,7 +3068,6 @@ def tp_phase(torch, smi, rate):
     backward at a rank's channel shard. Returns (report, launches summed
     over rank 0's counted runs)."""
     import multiprocessing as mp
-    import queue
     import shutil
 
     cut = ", ".join(f"{arch} ({TP_CASES[arch][0] or 'all'} layers)" for arch in TP_CASES)
@@ -3020,22 +3084,12 @@ def tp_phase(torch, smi, rate):
     dry_json = work / "dryrun_6k.json"
     dry = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-6k", str(dry_json)],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    procs = [ctx.Process(target=tp_rank, args=(r, str(work / "rdv"), out, rate)) for r in range(SHARD_RANKS)]
+    procs = [ctx.Process(target=run_rank, args=(tp_rank, r, str(work / "rdv"), out, rate))
+             for r in range(SHARD_RANKS)]
     for p in procs:
         p.start()
-    results = {}
-    deadline = time.monotonic() + 900
     try:
-        while len(results) < SHARD_RANKS:
-            try:
-                rank, res = out.get(timeout=2.0)
-                results[rank] = res
-            except queue.Empty:
-                failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
-                if failed:
-                    raise RuntimeError(f"rank {failed[0]} failed with exit code {procs[failed[0]].exitcode}")
-                if time.monotonic() > deadline:
-                    raise TimeoutError("the ranks of phase 6f did not finish")
+        results = collect_ranks(procs, out, "the ranks of phase 6f")
         for p in procs:
             p.join(timeout=SHARD_TIMEOUT_S)
         if any(p.exitcode != 0 for p in procs):
@@ -5704,9 +5758,241 @@ def fault_phase(torch, rate: float, smi: str, clean_tokens):
     return report, launches
 
 
+# -- the static contracts on the card (phase "contracts") -----------------------------
+# Every pass of repro_torch.analysis (the card passes included), the ptxas
+# resource rows, the dry run's kernel calls against the card's launches, the
+# 16 wrappers rerun bit for bit, compute-sanitizer's racecheck where the
+# machine has a working one, and the guarded step's launch-stable check.
+
+CONTRACTS_BUDGET_S = 60
+RACECHECK_TIMEOUT_S = 30
+RACECHECK_DONE = "racecheck cases done"
+
+
+def contract_cases(torch, gen, full: bool) -> dict:
+    """{wrapper name: (fn, args, kwargs)} for each of the 16 kernel
+    wrappers: at the main path's full-width shapes (``full``), or at small
+    shapes that still reach every CUDA kernel of the wrapper's walk."""
+    from repro_torch.kernels import fused_adam as fa, megaplan as mp, paged_attention as pa, slim_update as su
+    from repro_torch.kernels import snr_stats as sn, ssm_scan as ss
+
+    dev = torch.device("cuda")
+
+    def r(*shape, scale=1e-3):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    def pos(*shape):
+        return 1e-6 * torch.rand(shape, generator=gen, device=dev) + 1e-8
+
+    if full:   # gpt_small's embedding line and blocks, opt_speed's 4096 x 8192, a rank's 9.66 M shard line
+        g3, line, col = r(1, 4096, 8192), pos(1, 4096, 1), pos(1, 1, 8192)
+        split, split_line = r(1, 1, 9_658_368), pos(1, 1, 1)
+        major, major_line = r(12, 768, 2304), pos(12, 1, 2304)
+        dense = r(245_760, 512)
+        dense_line = torch.ones((245_760, 1), device=dev)
+        leaf2 = r(50304, 768)
+        paged = paged_case(torch, gen, lengths=[1000, 37, 2048, 513], alloc=[1000, 37, 2048, 513], c=1,
+                           pool_dtype=torch.bfloat16, q_dtype=torch.bfloat16)
+        scan = scan_case(torch, gen, 1, 2048, 8192, 16, torch.bfloat16)
+    else:
+        g3, line, col = r(1, 64, 96), pos(1, 64, 1), pos(1, 1, 96)
+        split, split_line = r(1, 1, 40_000), pos(1, 1, 1)
+        major, major_line = r(2, 300, 40), pos(2, 1, 40)
+        dense = r(64, 512)
+        dense_line = torch.ones((64, 1), device=dev)
+        leaf2 = r(100, 64)
+        paged = paged_case(torch, gen, lengths=[100, 7], alloc=[100, 7], c=1, pool_dtype=torch.float32)
+        scan = scan_case(torch, gen, 1, 40, 256, 16, torch.float32)
+    y, h, keep = ss.ssm_scan(*scan, keep_bounds=True)
+    dy = torch.randn_like(y).to(scan[0].dtype)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8)
+    return {
+        "mega_adam_update": (mp.mega_adam_update, (dense, dense.clone(), pos(*dense.shape), dense_line,
+                                                    dense_line.clone()), dict(with_health=True, **kw)),
+        "mega_slim_update_batched": (mp.mega_slim_update_batched, (split, split.clone(), split_line, split_line.clone(),
+                                                                   split_line.clone()),
+                                     dict(axis=1, with_snr=True, with_health=True, **kw)),
+        "adam_precond": (fa.adam_precond, (leaf2, leaf2.clone(), pos(*leaf2.shape)),
+                         dict(count=3, with_health=True, **kw)),
+        "slim_precond_batched": (su.slim_precond_batched, (major, major.clone(), major_line),
+                                 dict(axis=0, count=3, with_snr=True, with_health=True, **kw)),
+        "snr_stats_centered_batched": (sn.snr_stats_centered_batched, (split.abs(),), dict(axis=1)),
+        "paged_attention": (pa.paged_attention, paged, {}),
+        "snr_stats_centered_partial_batched": (sn.snr_stats_centered_partial_batched, (major.abs(),), dict(axis=0)),
+        "slim_partial_stats_batched": (su.slim_partial_stats_batched, (split, split.clone()),
+                                       dict(axis=1, with_snr=True, with_health=True)),
+        "slim_finalize_batched": (su.slim_finalize_batched, (g3, line), dict(axis=1, ek=line.clone(), count=3)),
+        "mega_slim_partial_stats_batched": (mp.mega_slim_partial_stats_batched, (major, major.clone()),
+                                            dict(axis=0, with_snr=True, with_health=True)),
+        "mega_slim_finalize_batched": (mp.mega_slim_finalize_batched, (g3, col, col.clone(), col.clone()),
+                                       dict(axis=0, ek=col.clone())),
+        "fused_adam": (fa.fused_adam, (g3[0], g3[0].clone(), g3[0].clone(), pos(*g3[0].shape)),
+                       dict(lr=1e-3, count=3, wd=0.1)),
+        "slim_update_batched": (su.slim_update_batched, (g3, g3.clone(), g3.clone(), col), dict(axis=0, lr=1e-3, count=3)),
+        "snr_stats_batched": (sn.snr_stats_batched, (g3,), dict(axis=1)),
+        "ssm_scan": (ss.ssm_scan, scan, dict(keep_bounds=True)),
+        "ssm_scan_bwd": (ss.ssm_scan_bwd, scan + (dy,), dict(states=keep)),
+    }
+
+
+def _outputs(out):
+    return [t for t in (out if isinstance(out, (tuple, list)) else (out,)) if t is not None]
+
+
+def racecheck_cases() -> int:
+    """``python3 chip_smoke.py --racecheck-cases``: the small case of every
+    wrapper once, synchronised, then the done line (the process
+    compute-sanitizer instruments)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, (fn, args, kw) in contract_cases(torch, gen, full=False).items():
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+    log(RACECHECK_DONE)
+    return 0
+
+
+def racecheck() -> dict:
+    """compute-sanitizer's racecheck over the small case of every wrapper,
+    in a subprocess with its own time limit. Where the machine has no tool,
+    or one that cannot instrument the card, it says so, and nothing counts
+    as passed; a hazard, or cases that fail under a working tool, raise."""
+    import shutil
+
+    tool = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
+    if not Path(tool).exists():
+        return {"status": "absent", "detail": "compute-sanitizer is not installed on this machine"}
+    run = subprocess.run([tool, "--tool", "racecheck", "--racecheck-report", "hazard", sys.executable,
+                          str(ROOT / "chip_smoke.py"), "--racecheck-cases"],
+                         capture_output=True, text=True, timeout=RACECHECK_TIMEOUT_S)
+    text = run.stdout + run.stderr
+    tool_errors = [l.strip("= ").strip() for l in text.splitlines() if l.startswith("=========") and "Error:" in l]
+    if RACECHECK_DONE not in text:
+        if tool_errors:
+            return {"status": "unavailable", "detail": f"{tool} cannot instrument this card: {tool_errors[0]}"}
+        raise AssertionError(f"racecheck: the cases did not run to their end (rc {run.returncode}):\n{text[-2000:]}")
+    summary = [l.strip("= ").strip() for l in text.splitlines() if "RACECHECK SUMMARY" in l]
+    if not summary or "0 hazards" not in summary[-1]:
+        raise AssertionError(f"racecheck reported hazards: {summary}\n{text[-2000:]}")
+    return {"status": "passed", "detail": summary[-1]}
+
+
+def contracts_phase(torch, smi: str) -> dict:
+    """Phase "contracts". Returns its report."""
+    from repro_torch import kernels
+    from repro_torch.analysis import PASS_NAMES, call_tools, kernelcheck
+    from repro_torch.analysis.__main__ import DIFF_OUT, _run_pass, table
+    from repro_torch.configs import get_config
+    from repro_torch.core import table3_rules
+    from repro_torch.kernels import build
+    from repro_torch.train.trainer import make_optimizer
+
+    t0 = time.perf_counter()
+    report: dict = {}
+    dev = torch.device("cuda")
+
+    # (a) every pass of repro_torch.analysis, on this machine
+    log("[contracts] (a) python -m repro_torch.analysis: every pass, the card passes (resources, launch-stable) "
+        "on this card")
+    results = [_run_pass(n, False, DIFF_OUT) for n in PASS_NAMES]
+    log(table(results))
+    report["passes"] = {r.name: dict(checks=r.checks, findings=[str(f) for f in r.findings], seconds=r.seconds)
+                        for r in results}
+    bad = [str(f) for r in results for f in r.findings]
+    if bad:
+        raise AssertionError(f"contracts: {len(bad)} finding(s): {bad[:10]}")
+
+    # (b) the resource row of every CUDA symbol
+    rows = kernelcheck.resources(build.resource_report())
+    log(f"[contracts] (b) ptxas resources of {len(rows)} compiled kernels, by __global__ function ({smi}): "
+        f"instantiations, registers a thread (most), spill stores / loads B (most), static + dynamic shared B "
+        f"(most), blocks an SM (least)")
+    by_kernel: dict = {}
+    for r in rows:
+        by_kernel.setdefault(r.kernel, []).append(r)
+    summary = {}
+    for name, rs in sorted(by_kernel.items()):
+        summary[name] = dict(instantiations=len(rs), registers=max(r.registers for r in rs),
+                             spill_stores=max(r.spill_stores for r in rs), spill_loads=max(r.spill_loads for r in rs),
+                             static_smem=max(r.static_smem for r in rs), dynamic_smem=max(r.dynamic_smem for r in rs),
+                             blocks_per_sm=min(r.blocks_per_sm for r in rs), threads=max(r.threads for r in rs))
+        s = summary[name]
+        log(f"    {name:26s} x{s['instantiations']:<3d} {s['registers']:3d} regs  spill {s['spill_stores']:3d}/"
+            f"{s['spill_loads']:3d} B  smem {s['static_smem']:6d} + {s['dynamic_smem']:6d} B  "
+            f"{s['blocks_per_sm']:2d} blocks/SM  {s['threads']} threads")
+    report["resources"] = dict(by_kernel=summary, rows=[r._asdict() for r in rows])
+
+    # (c) the dry run's kernel calls against the card's launches: full-width
+    # gpt_small's Adam and Table-3 SlimAdam updates (phase 3's), the step's
+    # every kernel launch (its forward and backward launch none)
+    cfg = get_config("gpt_small")
+    meta_params, meta = cfg.abstract()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = {k: 0.02 * torch.randn(p.shape, generator=gen, device=dev) for k, p in meta_params.items()}
+    grads = {k: 1e-3 * torch.randn(p.shape, generator=gen, device=dev) for k, p in params.items()}
+    counts = {}
+    for name, kw in (("adam", {}), ("slim", dict(rules=table3_rules(meta)))):
+        tx_meta = make_optimizer(name, 3e-4, meta_params, meta, backend="fused", **kw)
+        predicted = call_tools.kernel_call_counts(lambda g, s: tx_meta.update(g, s, meta_params),
+                                                  call_tools.to_meta(grads), tx_meta.init(meta_params))
+        tx = make_optimizer(name, 3e-4, params, meta, backend="fused", **kw)
+        state = tx.init(params)
+        before = kernels.launch_counts()
+        with torch.no_grad():
+            tx.update(grads, state, params)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        log(f"[contracts] (c) gpt_small {name} update: dry run {predicted}, card {launched}")
+        if predicted != launched or not launched:
+            raise AssertionError(f"contracts (c): the dry run predicts {predicted}, the card launched {launched}")
+        counts[name] = dict(meta=predicted, card=launched)
+    report["dry_run_calls"] = counts
+    del params, grads, state, tx
+    torch.cuda.empty_cache()
+
+    # (d) every wrapper twice on the same inputs: bit-equal outputs
+    cases = contract_cases(torch, torch.Generator(device=dev).manual_seed(5), full=True)
+    reruns = {}
+    for name, (fn, args, kw) in cases.items():
+        first = [t.clone() for t in _outputs(fn(*args, **kw))]
+        second = _outputs(fn(*args, **kw))
+        torch.cuda.synchronize()
+        same = len(first) == len(second) and all(torch.equal(a, b) for a, b in zip(first, second))
+        reruns[name] = dict(outputs=len(first), equal=same)
+        if not same:
+            raise AssertionError(f"contracts (d): {name} gave other bits on a rerun of the same inputs")
+    if sorted(reruns) != sorted(fn.__name__ for fn in kernels.KERNELS):
+        raise AssertionError(f"contracts (d): reran {sorted(reruns)}, not the 16 wrappers")
+    log(f"[contracts] (d) the 16 wrappers rerun on the same full-width inputs: bit-equal "
+        f"({sum(r['outputs'] for r in reruns.values())} outputs)")
+    report["reruns"] = reruns
+    del cases
+    torch.cuda.empty_cache()
+
+    # (e) compute-sanitizer's racecheck, one small case per wrapper
+    race = racecheck()
+    report["racecheck"] = race
+    if race["status"] == "passed":
+        log(f"[contracts] (e) racecheck: {race['detail']}")
+    else:
+        log(f"[contracts] (e) racecheck NOT RUN, not counted as passed: {race['detail']}")
+
+    # (f) tracecheck's launch-stable check ran on this card in (a)
+    ls = report["passes"]["launch-stable"]
+    log(f"[contracts] (f) launch-stable on the card: {ls['checks']} check(s), {len(ls['findings'])} findings")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[contracts] phase done in {report['seconds']:.1f} s (budget {CONTRACTS_BUDGET_S} s)")
+    return report
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dryrun-6k"]:
         return dryrun_6k(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--racecheck-cases"]:
+        return racecheck_cases()
     import torch
 
     if not torch.cuda.is_available():
@@ -6110,6 +6396,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["faults"], fault_launches = fault_phase(torch, rate, smi, report["serve"]["serving"]["tokens"])
     stamp("15")
+    report["contracts"] = contracts_phase(torch, smi)
+    stamp("contracts")
 
     # -- 16. result lines -----------------------------------------------------
     # Times per step of the main path: B2 on Adam's one dense group, B1 summed

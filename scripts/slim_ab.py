@@ -88,10 +88,14 @@ def _b13_argtypes(build):
     return [build.PTR] * 7 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 3 + [build.PTR]
 
 
-def _parent_argtypes(kernel: str, planned: bool):
+def _parent_argtypes(kernel: str, planned: bool, combined: bool):
     """The earlier entry point's signature: this tree's where it takes the
-    plan's arguments, else this tree's without them."""
+    plan's arguments, else this tree's without them; B10's and B12's
+    without the combine's grid after them where it does not take that
+    (``combined``)."""
     types, at = _argtypes()[kernel]
+    if kernel in ("B10", "B12") and not combined:
+        types = types[:at + 6] + types[at + 7:]
     return types if planned else types[:at] + types[at + 6:]
 
 
@@ -245,11 +249,12 @@ def main() -> int:
     old = ctypes.CDLL(str(lib_path))
     source = (old_dir / "mega_slim.cu").read_text()
     finalize_source = (old_dir / "slim_finalize.cu").read_text()
-    fns, planned = {}, {}
+    fns, planned, combined = {}, {}, {}
     for kernel, entry in ENTRIES.items():
         sig = re.search(rf'extern "C" int {entry}\((.*?)\)\s*{{', source, re.S).group(1)
         planned[kernel] = "int form" in sig
-        argtypes = _parent_argtypes(kernel, planned[kernel])
+        combined[kernel] = "combine_blocks" in sig
+        argtypes = _parent_argtypes(kernel, planned[kernel], combined[kernel])
         if sig.count(",") + 1 != len(argtypes):
             raise SystemExit(f"slim_ab: the earlier {entry} has another signature; compare with git instead")
         fns[kernel] = getattr(old, entry)
@@ -273,8 +278,11 @@ def main() -> int:
         """The plan's arguments where the earlier entry point takes them."""
         if not planned[kernel]:
             return (), None
-        return megaplan.slim_walk(kernel, g, m, axis, p=p, **{k: flags.get(k, False)
-                                                              for k in ("with_snr", "with_health")})
+        args, work = megaplan.slim_walk(kernel, g, m, axis, p=p, **{k: flags.get(k, False)
+                                                                   for k in ("with_snr", "with_health")})
+        if combined.get(kernel):
+            args += (megaplan.last_plans[kernel].combine_blocks,)
+        return args, work
 
     def b1_parent(g, m, v, bc1, bc2, axis, with_snr=False, with_health=False):
         b, r, c = g.shape

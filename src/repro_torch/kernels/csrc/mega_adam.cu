@@ -119,34 +119,27 @@ __global__ void mega_adam_health_kernel(AdamArgs a, float* nf_out, float* ss_out
 // m_out, v_out hold rows*cols values (16-byte aligned, cols % 4 == 0, as the
 // megaplan's 512-lane dense group always is), bc1/bc2 hold rows. nf/ss are
 // the with_health row outputs (rows values each), or both null for the base
-// form. omb1 = 1-b1 and omb2 = 1-b2 come rounded from the caller (computed in
-// double, as Python does before JAX rounds the constant). Returns the
-// cudaError_t of the launch.
+// form. blocks and threads: the grid, as megaplan.adam_grid sizes it (the
+// base form strides its blocks over the float4 vectors, the health form
+// over the rows, a block a row at a time; 32 to 256 threads). omb1 =
+// 1-b1 and omb2 = 1-b2 come rounded from the caller (computed in double, as
+// Python does before JAX rounds the constant). Returns the cudaError_t of
+// the launch.
 extern "C" int repro_mega_adam_update(const float* g, const float* m, const float* v, const float* bc1,
                                       const float* bc2, float* u, float* m_out, float* v_out, float* nf,
-                                      float* ss, long long rows, long long cols, float b1, float omb1, float b2,
-                                      float omb2, float eps, void* stream) {
+                                      float* ss, long long rows, long long cols, long long blocks, int threads,
+                                      float b1, float omb1, float b2, float omb2, float eps, void* stream) {
   AdamArgs a{g, m, v, bc1, bc2, u, m_out, v_out, rows * cols, cols, b1, omb1, b2, omb2, eps};
-  const long long max_blocks = 132 * 16;
   if (cols % 4 != 0 || !repro_torch::aligned16(g) || !repro_torch::aligned16(m) || !repro_torch::aligned16(v) ||
       !repro_torch::aligned16(u) || !repro_torch::aligned16(m_out) || !repro_torch::aligned16(v_out) ||
-      (nf == nullptr) != (ss == nullptr)) {
+      (nf == nullptr) != (ss == nullptr) || blocks < 1 || threads < 32 || threads > 256 || threads % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nf != nullptr) {
-    long long threads = ((cols / 4 + 31) / 32) * 32;
-    if (threads > 256) threads = 256;
-    if (threads < 32) threads = 32;
-    long long blocks = rows < max_blocks ? rows : max_blocks;
-    if (blocks < 1) blocks = 1;
     mega_adam_health_kernel<<<(unsigned)blocks, (unsigned)threads, 0, s>>>(a, nf, ss);
-    return (int)cudaGetLastError();
+  } else {
+    mega_adam_kernel<<<(unsigned)blocks, (unsigned)threads, 0, s>>>(a);
   }
-  const int threads = 256;
-  long long blocks = (a.n / 4 + threads - 1) / threads;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;
-  mega_adam_kernel<<<(unsigned)blocks, threads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

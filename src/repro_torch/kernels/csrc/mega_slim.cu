@@ -444,6 +444,7 @@ struct Walk {
   bool vec;
   long long seg, nseg, blocks;
   double* part;
+  long long combine_blocks = 0;  // B10's and B12's second launch (SlimPlan.combine_blocks)
 };
 
 // One piece's f64 shares of a line's sums: g^2 (as the ROWS form sums it,
@@ -993,14 +994,12 @@ void launch_partial_pieces(const SlimArgs& a, const Walk& w, cudaStream_t s) {
   if (w.form == kFormSplit) {
     const long long lines = a.batch * a.rows;
     slim_split_sum<G, VEC, SNR, HEALTH, true><<<grid, kThreads, 0, s>>>(a, w);
-    slim_partial_combine<G, SNR, HEALTH, false><<<(unsigned)((lines + kWarps - 1) / kWarps), kThreads, 0, s>>>(
-        a, w, lines);
+    slim_partial_combine<G, SNR, HEALTH, false><<<(unsigned)w.combine_blocks, kThreads, 0, s>>>(a, w, lines);
   } else {
     const long long lines = a.batch * a.cols;
     const long long ctiles = (a.cols + tile_of(VEC) - 1) / tile_of(VEC);
     slim_major_sum<G, VEC, SNR, HEALTH, true><<<grid, kThreads, 0, s>>>(a, w, ctiles);
-    slim_partial_combine<G, SNR, HEALTH, true><<<(unsigned)((lines + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-        a, w, lines);
+    slim_partial_combine<G, SNR, HEALTH, true><<<(unsigned)w.combine_blocks, kThreads, 0, s>>>(a, w, lines);
   }
 }
 
@@ -1043,6 +1042,14 @@ bool walk_ok(const Walk& w, int axis) {
   if (w.form == kFormRows) return w.nseg == 1;
   return w.form == (axis == 1 ? kFormSplit : kFormMajor) && w.nseg > 1 && w.seg > 0 && w.blocks > 0 &&
          w.part != nullptr;
+}
+
+// The combine's grid, sized by the caller: a warp a SPLIT line, a thread a
+// MAJOR column, so it must reach every one of the view's lines.
+bool combine_ok(const Walk& w, int axis, long long batch, long long rows, long long cols) {
+  if (w.form == kFormRows) return true;
+  const long long lines = batch * (axis == 1 ? rows : cols);
+  return w.combine_blocks > 0 && w.combine_blocks * (w.form == kFormSplit ? kWarps : kThreads) >= lines;
 }
 
 // B7, the parameter-writing per-leaf form, on the plan's form: no flags,
@@ -1122,14 +1129,16 @@ extern "C" int repro_slim_precond(const void* g, int g_bf16, const float* m, con
 // for axis 0. part is the un-normalised line sum of g^2. form, vec, seg,
 // nseg, blocks and work: plan_slim's plan and its workspace, as for
 // repro_mega_slim_update (SPLIT and MAJOR are pass 1 with the m' write and
-// the combine). Grid limits as above.
+// the combine, on combine_blocks blocks: the plan's too). Grid limits as
+// above.
 extern "C" int repro_mega_slim_partial_stats(const float* g, const float* m, float* m_out, float* part, float* s1c,
                                              float* s2c, float* first, float* nf, float* ss, long long batch,
                                              long long rows, long long cols, int axis, int form, int vec,
-                                             long long seg, long long nseg, long long blocks, double* work, float b1,
-                                             float omb1, void* stream) {
-  const Walk w{form, vec != 0, seg, nseg, blocks, work};
-  if (!flags_paired(s1c, s2c) || !flags_paired(s1c, first) || !flags_paired(nf, ss) || !walk_ok(w, axis)) {
+                                             long long seg, long long nseg, long long blocks, double* work,
+                                             long long combine_blocks, float b1, float omb1, void* stream) {
+  const Walk w{form, vec != 0, seg, nseg, blocks, work, combine_blocks};
+  if (!flags_paired(s1c, s2c) || !flags_paired(s1c, first) || !flags_paired(nf, ss) || !walk_ok(w, axis) ||
+      !combine_ok(w, axis, batch, rows, cols)) {
     return (int)cudaErrorInvalidValue;
   }
   SlimArgs a{g, m, nullptr, nullptr, nullptr, nullptr, m_out, nullptr, s1c, s2c, nf, ss, part, first, batch, rows,
@@ -1147,10 +1156,11 @@ extern "C" int repro_slim_partial_stats(const void* g, int g_bf16, const float* 
                                         float* s1c, float* s2c, float* first, float* nf_lines, float* ss_lines,
                                         float* health, long long batch, long long rows, long long cols, int axis,
                                         int form, int vec, long long seg, long long nseg, long long blocks,
-                                        double* work, float b1, float omb1, void* stream) {
-  const Walk w{form, vec != 0, seg, nseg, blocks, work};
+                                        double* work, long long combine_blocks, float b1, float omb1,
+                                        void* stream) {
+  const Walk w{form, vec != 0, seg, nseg, blocks, work, combine_blocks};
   if (!flags_paired(s1c, s2c) || !flags_paired(s1c, first) || !flags_paired(nf_lines, ss_lines) ||
-      !flags_paired(nf_lines, health) || !walk_ok(w, axis)) {
+      !flags_paired(nf_lines, health) || !walk_ok(w, axis) || !combine_ok(w, axis, batch, rows, cols)) {
     return (int)cudaErrorInvalidValue;
   }
   SlimArgs a{g, m, nullptr, nullptr, nullptr, nullptr, m_out, nullptr, s1c, s2c, nf_lines, ss_lines, part, first,

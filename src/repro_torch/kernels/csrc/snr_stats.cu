@@ -297,10 +297,13 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int KIND>
 int launch_walk(const float* v, const Outs& o, double* part, long long batch, long long rows, long long cols,
-                int form, int group, long long seg, long long nseg, long long blocks, cudaStream_t s) {
+                int form, int group, long long seg, long long nseg, long long blocks, long long combine_blocks,
+                cudaStream_t s) {
   constexpr long long kTile = 32 * (sizeof(T) / sizeof(float));
   const long long lines = form == kFormMajor ? batch * cols : batch * rows;
   const long long np = lines * nseg;
+  // the combine, a warp a line, must reach every line
+  if (blocks < 1 || (nseg > 1 && combine_blocks * kWarps < lines)) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)blocks;
   if (form == kFormWarp) {
     snr_warp_lines<T, KIND><<<grid, kThreads, 0, s>>>(v, o, lines, cols, group);
@@ -312,15 +315,19 @@ int launch_walk(const float* v, const Outs& o, double* part, long long batch, lo
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nseg == 1) return (int)err;
-  snr_combine<KIND><<<(unsigned)((lines + kWarps - 1) / kWarps), kThreads, 0, s>>>(part, lines, nseg, o);
+  snr_combine<KIND><<<(unsigned)combine_blocks, kThreads, 0, s>>>(part, lines, nseg, o);
   return (int)cudaGetLastError();
 }
 
 template <int KIND>
 int launch_split(bool vec, const float* v, const Outs& o, double* part, long long batch, long long rows,
-                 long long cols, int form, int group, long long seg, long long nseg, long long blocks, cudaStream_t s) {
-  if (vec) return launch_walk<float4, KIND>(v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, s);
-  return launch_walk<float, KIND>(v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, s);
+                 long long cols, int form, int group, long long seg, long long nseg, long long blocks,
+                 long long combine_blocks, cudaStream_t s) {
+  if (vec) {
+    return launch_walk<float4, KIND>(v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, combine_blocks,
+                                     s);
+  }
+  return launch_walk<float, KIND>(v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, combine_blocks, s);
 }
 
 }  // namespace
@@ -328,19 +335,21 @@ int launch_split(bool vec, const float* v, const Outs& o, double* part, long lon
 // B5 (first == null) and B9 (first: the v0 output). v: contiguous f32
 // (batch, rows, cols); s1, s1c, s2c and first: contiguous f32 (batch, kept),
 // kept = rows for the WARP and SPLIT forms (axis 1) and cols for MAJOR
-// (axis 0). form, vec, group, seg, nseg and blocks are plan_split's plan for
-// this view; part holds 3 * lines * nseg doubles when nseg > 1 (else null).
-// Returns the cudaError_t of the launches.
+// (axis 0). form, vec, group, seg, nseg, blocks and combine_blocks are
+// plan_split's plan for this view; part holds 3 * lines * nseg doubles when
+// nseg > 1 (else null). Returns the cudaError_t of the launches.
 extern "C" int repro_snr_stats_centered(const float* v, float* s1, float* s1c, float* s2c, float* first,
                                         double* part, long long batch, long long rows, long long cols, int form,
                                         int vec, int group, long long seg, long long nseg, long long blocks,
-                                        void* stream) {
+                                        long long combine_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Outs o{{s1, s1c, s2c}, first};
   if (first != nullptr) {
-    return launch_split<kFirst>(vec != 0, v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, s);
+    return launch_split<kFirst>(vec != 0, v, o, part, batch, rows, cols, form, group, seg, nseg, blocks,
+                                combine_blocks, s);
   }
-  return launch_split<kCentered>(vec != 0, v, o, part, batch, rows, cols, form, group, seg, nseg, blocks, s);
+  return launch_split<kCentered>(vec != 0, v, o, part, batch, rows, cols, form, group, seg, nseg, blocks,
+                                 combine_blocks, s);
 }
 
 // The plain line sums (B8): v and the plan as above; s1 and s2 (sum v*v):
@@ -348,8 +357,8 @@ extern "C" int repro_snr_stats_centered(const float* v, float* s1, float* s1c, f
 // nseg > 1 (else null). Returns the cudaError_t of the launches.
 extern "C" int repro_snr_stats(const float* v, float* s1, float* s2, double* part, long long batch, long long rows,
                                long long cols, int form, int vec, int group, long long seg, long long nseg,
-                               long long blocks, void* stream) {
+                               long long blocks, long long combine_blocks, void* stream) {
   const Outs o{{s1, s2, nullptr}, nullptr};
   return launch_split<kPlain>(vec != 0, v, o, part, batch, rows, cols, form, group, seg, nseg, blocks,
-                              static_cast<cudaStream_t>(stream));
+                              combine_blocks, static_cast<cudaStream_t>(stream));
 }

@@ -36,6 +36,13 @@ _FUSED_ARGTYPES = [build.PTR, build.INT, build.PTR, build.INT] + [build.PTR] * 5
     + [build.F32] * 9 + [build.PTR]
 
 
+def elementwise_blocks(n: int) -> int:
+    """The grid of B3 and B6 for ``n`` elements: 256-thread blocks, one
+    four-element vector a thread, at most 16 blocks an SM of 132; the
+    blocks then stride over the rest."""
+    return max(1, min(-(-n // (4 * _THREADS)), _MAX_BLOCKS))
+
+
 def bias_corrections(b1: float, b2: float, count: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(1 - b1^t, 1 - b2^t) as 0-d f32 tensors on the count's device, in f32
     as the JAX package computes them (``repro/kernels/fused_adam.py:29``)."""
@@ -105,7 +112,7 @@ def adam_precond(g, m, v, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e
     n = g.numel()
     if n == 0:
         return outs + ((torch.zeros(2, device=device),) if with_health else ())
-    blocks = max(1, min(-(-n // (4 * _THREADS)), _MAX_BLOCKS))
+    blocks = elementwise_blocks(n)
     health = torch.empty(2, dtype=torch.float32, device=device) if with_health else None
     partial = torch.empty(2 * blocks, dtype=torch.float64, device=device) if with_health else None
     fn = build.entry("repro_adam_precond", _ARGTYPES)
@@ -149,7 +156,7 @@ def fused_adam(p, g, m, v, *, lr: float, b1: float = 0.9, b2: float = 0.95, eps:
     n = p.numel()
     if n == 0:
         return p_out, m_out, v_out
-    blocks = max(1, min(-(-n // (4 * _THREADS)), _MAX_BLOCKS))
+    blocks = elementwise_blocks(n)
     fn = build.entry("repro_fused_adam", _FUSED_ARGTYPES)
     build.launch("fused_adam", fn, device, p.data_ptr(), int(p.dtype == torch.bfloat16), g.data_ptr(),
                  int(g.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(), p_out.data_ptr(), m_out.data_ptr(),

@@ -245,7 +245,7 @@ def segment_lines(group: MegaGroup, values: Sequence[torch.Tensor]) -> torch.Ten
 # Kernels and their plain twins
 # ---------------------------------------------------------------------------
 
-_ADAM_ARGTYPES = [build.PTR] * 10 + [build.SIZE] * 2 + [build.F32] * 5 + [build.PTR]
+_ADAM_ARGTYPES = [build.PTR] * 10 + [build.SIZE] * 3 + [build.INT] + [build.F32] * 5 + [build.PTR]
 # The plan's arguments (form, vec, seg, nseg, blocks, the workspace) follow
 # the view's (batch, rows, cols, axis).
 PLAN_ARGTYPES = [build.INT] * 2 + [build.SIZE] * 3 + [build.PTR]
@@ -260,6 +260,7 @@ _MAX_GRID_X = 2**31 - 1
 SLIM_SEG_MIN = 4096
 SLIM_SEG_MAX = 16384
 STRIP = 32
+SLIM_THREADS = 256   # a block of the SPLIT and MAJOR walks (kThreads in csrc/mega_slim.cu)
 FORM_ROWS, FORM_SPLIT, FORM_MAJOR = 0, 1, 2
 
 
@@ -288,6 +289,14 @@ class SlimPlan:
     @property
     def lines(self) -> int:
         return self.batch * (self.rows if self.axis == 1 else self.cols)
+
+    @property
+    def combine_blocks(self) -> int:
+        """The grid of B10's and B12's combine: a warp a SPLIT line, a
+        thread a MAJOR column, SLIM_THREADS threads a block (none for ROWS)."""
+        if self.form == FORM_ROWS:
+            return 0
+        return _cdiv(self.lines, WARPS if self.form == FORM_SPLIT else SLIM_THREADS)
 
     def describe(self) -> str:
         """The form, its pieces a line and its blocks, as the logs print them."""
@@ -365,6 +374,21 @@ def line_health(g: torch.Tensor, red: int):
     return nf, ss
 
 
+ADAM_MAX_BLOCKS = 132 * 16
+
+
+def adam_grid(rows: int, cols: int, with_health: bool) -> Tuple[int, int]:
+    """(blocks, threads) of B2 on a (rows, cols) super-tensor, which
+    :func:`mega_adam_update` launches (``csrc/mega_adam.cu``) and the race
+    pass walks: the base form strides 256-thread blocks over its float4
+    vectors; the health form gives each block whole rows (a thread a float4
+    of the row, 32 to 256 threads), striding over the rows."""
+    if with_health:
+        threads = min(max(-(-(cols // 4) // 32) * 32, 32), 256)
+        return max(1, min(rows, ADAM_MAX_BLOCKS)), threads
+    return max(1, min(-(-(rows * cols // 4) // 256), ADAM_MAX_BLOCKS)), 256
+
+
 def mega_adam_update_plain(g, m, v, bc1, bc2, *, b1, b2, eps, with_health: bool = False):
     """Plain PyTorch version of :func:`mega_adam_update`, in the kernel's
     operation order."""
@@ -400,7 +424,8 @@ def mega_adam_update(g, m, v, bc1, bc2, *, b1=0.9, b2=0.999, eps=1e-8, with_heal
         raise ValueError("mega_adam_update: g, m and v must start on a 16-byte boundary (float4 loads)")
     fn = build.entry("repro_mega_adam_update", _ADAM_ARGTYPES)
     build.launch("mega_adam_update", fn, device, *(t.data_ptr() for t in (g, m, v, bc1, bc2, *outs)),
-                 *map(build.ptr, health), g.shape[0], g.shape[1], b1, 1.0 - b1, b2, 1.0 - b2, eps)
+                 *map(build.ptr, health), g.shape[0], g.shape[1], *adam_grid(g.shape[0], g.shape[1], with_health),
+                 b1, 1.0 - b1, b2, 1.0 - b2, eps)
     mega_adam_update.launches += 1
     return outs + (health if with_health else ())
 
@@ -491,7 +516,9 @@ def mega_slim_update(g, m, v_line, bc1, bc2, *, axis: int, **kw):
 # The grouped psum pair (B12, B13)
 # ---------------------------------------------------------------------------
 
-_PARTIAL_ARGTYPES = [build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYPES + [build.F32] * 2 + [build.PTR]
+# B10 and B12 take their combine's grid after the plan's arguments.
+_PARTIAL_ARGTYPES = ([build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYPES + [build.SIZE] + [build.F32] * 2
+                     + [build.PTR])
 
 
 def mega_slim_partial_stats_batched_plain(g, m, *, axis, b1, with_snr: bool = False, with_health: bool = False):
@@ -536,7 +563,8 @@ def mega_slim_partial_stats_batched(g, m, *, axis: int, b1=0.9, with_snr: bool =
     b, r, c = g.shape
     fn = build.entry("repro_mega_slim_partial_stats", _PARTIAL_ARGTYPES)
     build.launch("mega_slim_partial_stats_batched", fn, device, g.data_ptr(), m.data_ptr(), m_out.data_ptr(),
-                 part.data_ptr(), *map(build.ptr, snr + health), b, r, c, axis, *walk, b1, 1.0 - b1)
+                 part.data_ptr(), *map(build.ptr, snr + health), b, r, c, axis, *walk,
+                 last_plans["mega_slim_partial_stats_batched"].combine_blocks, b1, 1.0 - b1)
     mega_slim_partial_stats_batched.launches += 1
     return (m_out, part) + (snr if with_snr else ()) + (health if with_health else ())
 

@@ -10,11 +10,12 @@ and reduction-dims subset onto that form by a pure reshape whenever memory
 order allows (trailing K -> minor, leading K -> major, kept/K/kept ->
 batched major); only a genuinely interleaved K transposes.
 
-:func:`leaf_plan` differs from the JAX one in one respect: the TPU's VMEM
-fit gate (``repro/kernels/tiling.py`` ``strip_fits``) has no counterpart,
-because the CUDA kernels never hold a whole line on chip. Every non-empty-K
-float leaf goes to the slim kernel; routes may differ from the reference,
-results may not.
+:func:`leaf_plan` consults the port's fit gate, ``tiling.strip_fits``, where
+the JAX one consults the TPU's VMEM gate (``repro/kernels/tiling.py``). The
+CUDA kernels hold no reduction line on chip, so the port's gate admits
+every line: a leaf whose line outruns VMEM, which JAX sends to plain jnp,
+goes to the slim kernel here. Routes may differ from the reference there,
+results may not (``tests/test_torch_analysis.py`` lists those leaves).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from .ref import snr_from_centered_stats
 from .snr_stats import snr_stats_centered_batched, snr_stats_centered_partial_batched
+from .tiling import strip_fits
 
 
 class CanonND(NamedTuple):
@@ -116,15 +118,18 @@ class LeafPlan(NamedTuple):
 
 def leaf_plan(shape: Tuple[int, ...], dtype: torch.dtype, dims: Tuple[int, ...], *,
               allow_transpose: bool = True) -> LeafPlan:
-    """Plan one leaf's kernel dispatch. ``allow_transpose=False`` routes a
-    genuinely interleaved K (a plan that would transpose) to the plain path,
-    as the sharded planner asks (``repro_torch.sharding.shardspec``)."""
+    """Plan one leaf's kernel dispatch: plan, fit gate, route, as the JAX
+    ``leaf_plan``. ``allow_transpose=False`` routes a genuinely interleaved
+    K (a plan that would transpose) to the plain path, as the sharded
+    planner asks (``repro_torch.sharding.shardspec``)."""
     if not (len(shape) >= 1 and math.prod(shape) > 0 and dtype.is_floating_point):
         return LeafPlan("jnp", None)
     dims = tuple(dims)
     if not dims:
         return LeafPlan("dense", None)
     cn = canon_nd(tuple(shape), dims)
+    if not strip_fits(cn.cols if cn.axis == 1 else cn.rows):
+        return LeafPlan("jnp", None)
     if not cn.reshape_only and not allow_transpose:
         return LeafPlan("jnp", None)
     return LeafPlan("slim", cn)

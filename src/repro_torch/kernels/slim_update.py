@@ -62,7 +62,7 @@ import torch
 
 from . import build
 from .fused_adam import G_DTYPES, P_DTYPES, bias_corrections, health_terms, host_bias_corrections, param_step
-from .megaplan import PLAN_ARGTYPES, mega_slim_update_batched_plain, slim_line_shape, slim_walk
+from .megaplan import PLAN_ARGTYPES, last_plans, mega_slim_update_batched_plain, slim_line_shape, slim_walk
 from .snr_stats import centered_line_stats
 
 _ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 12 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYPES
@@ -217,7 +217,7 @@ def slim_update_major(p, g, m, v_col, **kw):
 # ---------------------------------------------------------------------------
 
 _PARTIAL_ARGTYPES = ([build.PTR, build.INT] + [build.PTR] * 9 + [build.SIZE] * 3 + [build.INT] + PLAN_ARGTYPES
-                     + [build.F32] * 2 + [build.PTR])
+                     + [build.SIZE] + [build.F32] * 2 + [build.PTR])
 
 
 def slim_partial_stats_batched_plain(g, m, *, axis, b1, with_snr: bool = False, with_health: bool = False):
@@ -266,7 +266,7 @@ def slim_partial_stats_batched(g, m, *, axis: int, b1: float = 0.9, with_snr: bo
     fn = build.entry("repro_slim_partial_stats", _PARTIAL_ARGTYPES)
     build.launch("slim_partial_stats_batched", fn, device, g.data_ptr(), int(g.dtype == torch.bfloat16),
                  m.data_ptr(), m_out.data_ptr(), part.data_ptr(), *map(build.ptr, (*snr, *lines, health)),
-                 b, r, c, axis, *walk, b1, 1.0 - b1)
+                 b, r, c, axis, *walk, last_plans["slim_partial_stats_batched"].combine_blocks, b1, 1.0 - b1)
     slim_partial_stats_batched.launches += 1
     return (m_out, part) + (snr if with_snr else ()) + ((health,) if with_health else ())
 

@@ -27,8 +27,8 @@ import torch
 
 from . import build
 
-_ARGTYPES = (build.PTR,) * 6 + (build.SIZE,) * 3 + (build.INT,) * 3 + (build.SIZE,) * 3 + (build.PTR,)
-_PLAIN_ARGTYPES = (build.PTR,) * 4 + (build.SIZE,) * 3 + (build.INT,) * 3 + (build.SIZE,) * 3 + (build.PTR,)
+_ARGTYPES = (build.PTR,) * 6 + (build.SIZE,) * 3 + (build.INT,) * 3 + (build.SIZE,) * 4 + (build.PTR,)
+_PLAIN_ARGTYPES = (build.PTR,) * 4 + (build.SIZE,) * 3 + (build.INT,) * 3 + (build.SIZE,) * 4 + (build.PTR,)
 _MAX_GRID_X = 2**31 - 1
 
 # The split walk's geometry; the kernel's constants in csrc/snr_stats.cu match.
@@ -178,7 +178,7 @@ def _launch_stats(kernel: str, v: torch.Tensor, axis: int, n_outs: int) -> Tuple
     plan, outs, part = _plan_outputs(kernel, v, axis, n_outs, 3)
     build.launch(kernel, _entry("repro_snr_stats_centered", _ARGTYPES), v.device, v.data_ptr(),
                  *(o.data_ptr() for o in outs[:3]), build.ptr(outs[3] if n_outs == 4 else None), build.ptr(part),
-                 b, r, c, plan.form, int(plan.vec), plan.group, plan.seg, plan.nseg, plan.blocks)
+                 b, r, c, plan.form, int(plan.vec), plan.group, plan.seg, plan.nseg, plan.blocks, plan.combine_blocks)
     return outs
 
 
@@ -259,7 +259,7 @@ def snr_stats_batched(v: torch.Tensor, *, axis: int) -> Tuple[torch.Tensor, torc
     plan, (s1, s2), part = _plan_outputs("snr_stats_batched", v, axis, 2, 2)
     build.launch("snr_stats_batched", _entry("repro_snr_stats", _PLAIN_ARGTYPES), v.device, v.data_ptr(),
                  s1.data_ptr(), s2.data_ptr(), build.ptr(part), b, r, c, plan.form, int(plan.vec), plan.group,
-                 plan.seg, plan.nseg, plan.blocks)
+                 plan.seg, plan.nseg, plan.blocks, plan.combine_blocks)
     snr_stats_batched.launches += 1
     return s1, s2
 

@@ -219,7 +219,7 @@ def train(run: Sharded, data: ZipfLM, steps: int, *, start: int = 0, ckpt: Optio
     for s in range(start, steps):
         batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(s).items()}
         if guard is not None:
-            controls = {"lr_scale": guard.lr_scale, "grad_scale": 1.0}
+            controls = guard.controls()
             opt_state, metrics = run.step(opt_state, batch, controls)
             action = guard.observe(float(metrics["loss"]), skipped=bool(metrics["step_skipped"] > 0),
                                    nonfinite=float(metrics["nonfinite_count"]))

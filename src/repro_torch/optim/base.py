@@ -259,9 +259,13 @@ def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
 @torch.no_grad()
 def apply_updates(params: Tree, updates: Tree) -> Tree:
     """p <- p + u in place (the port updates parameters in place to save
-    the copy JAX's functional update makes); returns ``params``."""
+    the copy JAX's functional update makes); returns ``params``. The sum is
+    taken in f32 and rounded once to the parameter's dtype, as JAX's
+    ``apply_updates`` (``repro/optim/base.py:222``) rounds it: an in-place
+    add computes in the promoted dtype and casts to the parameter once, so
+    a bf16 parameter with an f32 update is not rounded twice."""
     for k, p in params.items():
-        p.add_(updates[k].to(p.dtype))
+        p.add_(updates[k])
     return params
 
 

@@ -220,8 +220,10 @@ def owner_placement(red_shape: Sequence[int], red_spec: P, psum_axes: Sequence[s
 
 def plan_sharded_leaf(shape: Sequence[int], dtype: Any, dims: Dims, spec: Optional[P],
                       mesh: Any) -> ShardLeafPlan:
-    """Classify one leaf's sharding regime and derive its specs (the JAX
-    signature's ``n_bufs`` feeds the VMEM gate, which the port has not)."""
+    """Classify one leaf's sharding regime and derive its specs. The JAX
+    signature's ``n_bufs`` sizes its VMEM gate; the port's gate
+    (``kernels.tiling.strip_fits``, consulted by ``leaf_plan``) charges
+    nothing for it."""
     from ..kernels.ops import leaf_plan
 
     shape = tuple(int(s) for s in shape)

@@ -116,6 +116,12 @@ class Guard:
         self.lr_scale = min(self.lr_scale * self.cfg.lr_recover, 1.0)
         return OK
 
+    def controls(self, grad_scale: float = 1.0) -> Dict[str, float]:
+        """The guarded step's controls from this guard's state: the same
+        keys and Python floats whatever the state (tracecheck's aval-stable
+        contract), as the JAX trainer hands its step f32 scalars."""
+        return {"lr_scale": float(self.lr_scale), "grad_scale": float(grad_scale)}
+
     def note_rollback(self):
         """Trainer callback after a checkpoint restore: the loss window no
         longer describes the restored trajectory, so clear it (lr_scale is

@@ -64,6 +64,19 @@ from .loss import lm_loss
 AVERAGE_BUCKET = 1 << 26
 
 
+def scale_by_control(tree: Dict[str, torch.Tensor], value) -> Dict[str, torch.Tensor]:
+    """``tree`` times a guard control, as the JAX step applies one
+    (``repro/train/step.py:104-108``): the control rounded to f32, then to
+    each tensor's dtype, and one multiply in that dtype (a bf16 update is
+    scaled by bf16(0.05), not by 0.05). A control of exactly 1 changes no
+    bit, so it multiplies nothing."""
+    c32 = torch.tensor(float(value), dtype=torch.float32)
+    if float(c32) == 1.0:
+        return tree
+    by_dtype: Dict[torch.dtype, torch.Tensor] = {}
+    return {k: t * by_dtype.setdefault(t.dtype, c32.to(t.dtype)) for k, t in tree.items()}
+
+
 def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn=None, grad_accum: int = 1,
                     guard: bool = False, mesh=None, grad_shardings=None) -> Callable:
     """One optimizer step over ``model``'s parameters. ``forward_fn(cfg,
@@ -78,8 +91,10 @@ def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn
 
     ``guard=True`` returns the fault-tolerant variant
     ``train_step(opt_state, batch, controls)``, ``controls`` being
-    ``{'lr_scale': float, 'grad_scale': float}``: the gradients are
-    multiplied by ``grad_scale`` and the updates by ``lr_scale``. The step
+    ``{'lr_scale': float, 'grad_scale': float}`` (``Guard.controls``): the
+    gradients are multiplied by ``grad_scale`` and the updates by
+    ``lr_scale``, each rounded as the JAX step rounds it
+    (:func:`scale_by_control`). The step
     reads the in-pass :class:`repro_torch.optim.fused.StepHealth` the
     optimizer published (build ``tx`` with ``emit_health=True``; without it
     the finiteness of the gradient norm decides). A bad step applies no
@@ -123,9 +138,7 @@ def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn
 
         grads, metrics = compute_grads(batch)
         with torch.no_grad():
-            g_scale = float(controls["grad_scale"])
-            if g_scale != 1.0:
-                grads = {k: g * g_scale for k, g in grads.items()}
+            grads = scale_by_control(grads, controls["grad_scale"])
             updates, new_state = tx.update(grads, opt_state, params)
             gn = norm(grads)
             health = find_step_health(new_state)
@@ -136,10 +149,7 @@ def make_train_step(model: ParamModel, tx: GradientTransformation, *, forward_fn
                 nonfinite, health_gn = bad_t.double(), gn
             bad = bool(bad_t)
             if not bad:
-                lr_scale = float(controls["lr_scale"])
-                if lr_scale != 1.0:
-                    updates = {k: u * lr_scale for k, u in updates.items()}
-                apply_updates(params, updates)
+                apply_updates(params, scale_by_control(updates, controls["lr_scale"]))
                 opt_state = strip_step_health(new_state)
             metrics.update(grad_norm=gn, nonfinite_count=nonfinite, health_grad_norm=health_gn,
                            step_skipped=torch.tensor(float(bad)))

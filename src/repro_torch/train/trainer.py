@@ -341,8 +341,7 @@ class Trainer:
                 step_fn = self._train_step_snr
             if self.guard is not None:
                 g_scale = self.faults.grad_scale(self.step) if self.faults is not None else 1.0
-                self.opt_state, metrics = step_fn(self.opt_state, batch,
-                                                  {"lr_scale": self.guard.lr_scale, "grad_scale": g_scale})
+                self.opt_state, metrics = step_fn(self.opt_state, batch, self.guard.controls(g_scale))
                 self.step += 1
                 loss = float(metrics["loss"])
                 if self.faults is not None:
