@@ -124,7 +124,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    number), and the gradient all-reduce's; one more step profiled (busy
    share on every rank) with the forward's collectives timed; peak memory
    on every rank. A rank that fails ends the run.
-6f-6k. The forward on the mesh, 4 new ranks of the same (data=2, model=2)
+6f-6l. The forward on the mesh, 4 new ranks of the same (data=2, model=2)
    mesh: gpt_small cut to 2 layers (8 x 1024), olmoe_1b_7b cut to 1 layer and
    falcon_mamba_7b cut to 1 (2 x 2048: a row a data group; olmoe's 320
    slots an expert a group) at full width through the sharded Trainer, in
@@ -191,6 +191,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    training form and
    ``ssm_scan_bwd`` at a rank's channel shard (1 x 2048 x 4096, N 16, bf16)
    against their twins, timed beside their bounds.
+6l. The decode step on the same ranks in JAX's decode layout
+   (``train.step.make_serve_step`` under ``repro/launch/dryrun.py:204-217``:
+   each rank's stored parameter shards, ``launch.train.stored_weights``, read
+   tensor-parallel over ``model``; its rows; its block of the cache, the KV
+   positions and the SSM ``d_inner`` over ``model``): (a) olmoe_1b_7b and
+   (b) falcon_mamba_7b each cut to 2 layers at full width, 4 rows (2 a data
+   rank), a 64-position cache (32 a model rank), 12 prompt tokens then 36
+   greedy steps, so the writes cross the block boundary; each rank first
+   serves the same weights unsharded (drawn on the card from a CUDA
+   generator seeded 0). f32: every step's logits within 1e-5 of max|logit|,
+   identical tokens, the cache blocks and SSM states within 1e-5 of the
+   unsharded cache's cut, every region (the vocabulary-parallel embedding
+   and head, attention, the MoE, the Mamba mixer) in its parallel form, B15's
+   one-token form 2 x 48 times, all on every rank. bf16 (parameters too): fed
+   the unsharded run's tokens, the greedy agreement and logit gap reported.
+   (c) one step of (a) at decode_32k's 32,768-position cache (16,384 a model
+   rank): 3 steps on the host clock, synchronised; one profiled (busy share
+   by rank); collectives and peak by rank. (d) after the ranks, B15's
+   one-token form at a rank's channels (2 x 1 x 4096, N 16, f32) against its
+   twin, twice bit for bit, timed beside its bound. (e) the dry run of each
+   of those steps (the 6k subprocess, on ``meta``): bytes a rank (parameter
+   shards and cache block), collectives and launches equal every rank's
+   measured step; its peak beside each rank's.
 7. The SSM serving path: ``ssm_scan`` (B15) against its plain twin at the
    eval shape (1 x 2048 x 8192, N 16; the planner's sequence form) and the
    decode shape (4 rows, S = 1, a random h0; the one-token form), each run
@@ -2745,6 +2768,274 @@ def shard_optimizers(torch, mesh, lead: bool, work) -> dict:
     return out
 
 
+# 6l: the decode step on the mesh in JAX's decode layout (make_serve_step
+# under repro/launch/dryrun.py:204-217): full-width cuts (layers), rows
+# (DECODE_ROWS // 2 a data rank) and a cache of DECODE_SEQ positions (half a
+# model rank), DECODE_PROMPT prompt tokens then greedy steps, DECODE_STEPS in
+# all, so the write crosses the model ranks' block boundary; (c) one step of
+# olmoe's cut timed at decode_32k's cache length.
+DECODE_CASES = {"olmoe_1b_7b": 2, "falcon_mamba_7b": 2}
+DECODE_ROWS, DECODE_SEQ, DECODE_PROMPT, DECODE_STEPS = 4, 64, 12, 48
+DECODE_LONG, DECODE_TIMED = 32768, 3
+TOL_DECODE = 1e-5   # f32 logits and cache blocks against the unsharded port, of the largest magnitude
+DECODE_PEAK_BAND = (0.96, 1.10)   # (e): the dry run's peak over each rank's measured one (6k's band)
+
+
+def decode_cfg(torch, arch: str, dtype):
+    """6l's config: the full-width ``arch`` cut to DECODE_CASES' layers, its
+    activations and (the bf16 run: halving the gathers) parameters in
+    ``dtype``."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=DECODE_CASES[arch], dtype=dtype, param_dtype=dtype)
+
+
+def serve_steps(torch, step, params, cache, tokens, steps: int):
+    """``steps`` calls of a serve step: the columns of ``tokens`` fed first,
+    then its own greedy tokens. Returns (logits (steps, B, V), next tokens
+    (steps, B), the cache)."""
+    logits, nexts, tok = [], [], None
+    for t in range(steps):
+        if t < tokens.shape[1]:
+            tok = tokens[:, t:t + 1]
+        tok, lg, cache = step(params, cache, tok)
+        logits.append(lg[:, 0])
+        nexts.append(tok[:, 0])
+    return torch.stack(logits), torch.stack(nexts), cache
+
+
+def step_held(torch, mesh, fn, held: dict) -> dict:
+    """One decode step ``fn()`` measured as the dry run counts it: its
+    collectives (calls and bytes by kind), its kernel launches, and its peak
+    (the rank's ``held`` bytes, parameter shards and cache block, plus the
+    most the step allocates above what was allocated before it)."""
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    mesh.collective_stats(reset=True)
+    before = kernels.launch_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    stats = mesh.collective_stats(reset=True)
+    return {"out": out, "bytes": held, "peak": sum(held.values()) + torch.cuda.max_memory_allocated() - base,
+            "collectives": {k: {"calls": int(v["calls"]), "bytes": int(v["bytes"])} for k, v in stats.items()},
+            "launches": {n: c - before[n] for n, c in kernels.launch_counts().items() if c != before[n]}}
+
+
+def decode_case(torch, mesh, arch: str, dtype, lead: bool, keep: dict) -> dict:
+    """6l (a)/(b) on this rank: ``arch``'s cut drawn whole on the card (a
+    CUDA generator seeded 0), served unsharded (no context: one device),
+    then as this rank's stored shards (``launch.train.stored_weights``) with
+    its rows of the tokens and its block of the cache
+    (``init_decode_cache`` under the context). f32: greedy, every step's
+    logits (TOL_DECODE of max|logit|), tokens (equal) and the last cache
+    blocks (TOL_DECODE) held against the unsharded run's cut; every region
+    in its parallel form; B15's one-token form ``layers`` times a step.
+    bf16: fed the unsharded run's tokens; greedy agreement and the logit gap
+    reported, not held. The last step is measured for the dry run (e).
+    ``keep['olmoe']``: (a)'s f32 shards for (c)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ssm_scan as sc
+    from repro_torch.launch.train import stored_weights
+    from repro_torch.models import transformer
+    from repro_torch.sharding import ShardingContext, logical, use_sharding
+    from repro_torch.train.step import make_serve_step
+
+    say = log if lead else (lambda *a: None)
+    f32 = dtype == torch.float32
+    label = f"{arch} {'f32' if f32 else 'bf16'}"
+    cfg = decode_cfg(torch, arch, dtype)
+    step = make_serve_step(cfg)
+    d = mesh.coords["data"]
+    rows = slice(d * DECODE_ROWS // 2, (d + 1) * DECODE_ROWS // 2)
+    whole, _ = cfg.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (DECODE_ROWS, DECODE_PROMPT), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(5)).cuda()
+    cache = transformer.init_decode_cache(cfg, DECODE_ROWS, DECODE_SEQ, dtype, device="cuda")
+    ref_logits, ref_next, cache = serve_steps(torch, step, whole, cache, prompt, DECODE_STEPS)
+    fed = prompt if f32 else torch.cat([prompt, ref_next[DECODE_PROMPT - 1:-1].T], dim=1)
+    ctx = ShardingContext(mesh)
+    with use_sharding(ctx):
+        specs = transformer.decode_cache_specs(ctx, cache)
+        ref_cut = {k: [mesh.shard(t, sp) for t, sp in zip(c, specs.slots[k])] for k, c in cache.slots.items()}
+        del cache
+        params = stored_weights(cfg, mesh, whole=whole)
+        del whole
+        torch.cuda.empty_cache()
+        local = transformer.init_decode_cache(cfg, DECODE_ROWS, DECODE_SEQ, dtype, device="cuda")
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)   # noqa: E731
+        held = {"params": nbytes(params.values()), "opt": 0,
+                "cache": nbytes(t for c in local.slots.values() for t in c)}
+        kernels.reset_launch_counts()
+        logical.region_counts(reset=True)
+        forms = dict(sc.ssm_scan.form_launches)
+        mesh.barrier()
+        t0 = time.perf_counter()
+        logits, nexts, local = serve_steps(torch, step, params, local, fed[rows], DECODE_STEPS - 1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        last = step_held(torch, mesh, lambda: step(params, local, nexts[-1:].T if f32 else
+                                                  fed[rows, DECODE_STEPS - 1:]), held)
+        nxt, lg, local = last.pop("out")
+        logits, nexts = torch.cat([logits, lg[None, :, 0]]), torch.cat([nexts, nxt[None, :, 0]])
+        regions = logical.region_counts(reset=True)
+        launches = kernels.launch_counts()
+        token = sc.ssm_scan.form_launches["token"] - forms["token"]
+    want = ref_logits[:, rows]
+    gap = float((logits.double() - want.double()).abs().max() / want.double().abs().max())
+    agree = float((nexts == ref_next[:, rows]).float().mean())
+    res = dict(layers=cfg.n_layers, n_params=cfg.param_count(), logit_gap=gap, agreement=agree, regions=regions,
+               launches=launches, token_launches=token, step=last, seconds=seconds,
+               ms_per_step=seconds * 1e3 / (DECODE_STEPS - 1))
+    if f32:
+        if gap > TOL_DECODE or not torch.equal(nexts, ref_next[:, rows]):
+            raise AssertionError(f"6l {label} rank {mesh.rank}: logits {gap:.3e} of max|logit| from the unsharded "
+                                 f"port's (tol {TOL_DECODE:.0e}), tokens agree {agree:.3f}")
+        res["cache_err"] = 0.0
+        for k, c in local.slots.items():
+            for name, t, w in zip(c._fields, c, ref_cut[k]):
+                if name == "index":
+                    if not torch.equal(t, w):
+                        raise AssertionError(f"6l {label} rank {mesh.rank}: cache {k} fill {t.tolist()}, the "
+                                             f"unsharded run's {w.tolist()}")
+                    continue
+                err = float((t.double() - w.double()).abs().max() / max(float(w.double().abs().max()), 1e-30))
+                res["cache_err"] = max(res["cache_err"], err)
+                if err > TOL_DECODE:
+                    raise AssertionError(f"6l {label} rank {mesh.rank}: cache {k}.{name} block {err:.3e} from the "
+                                         f"unsharded cache's cut")
+        kinds = {"olmoe_1b_7b": ("embed", "attn", "moe", "head"), "falcon_mamba_7b": ("embed", "ssm", "head")}[arch]
+        per_step = {"attn": cfg.n_layers, "moe": cfg.n_layers, "ssm": cfg.n_layers, "embed": 1, "head": 1}
+        want_regions = {f"decode_{k}": {"parallel": per_step[k] * DECODE_STEPS, "fallback": 0} for k in kinds}
+        if regions != want_regions:
+            raise AssertionError(f"6l {label} rank {mesh.rank}: regions {regions}, expected {want_regions}")
+        mamba = cfg.n_layers if arch == "falcon_mamba_7b" else 0
+        if token != mamba * DECODE_STEPS or launches.get("ssm_scan", 0) != mamba * DECODE_STEPS:
+            raise AssertionError(f"6l {label} rank {mesh.rank}: B15's one-token form {token} times, launches "
+                                 f"{launches.get('ssm_scan', 0)}, expected {mamba * DECODE_STEPS}")
+        if arch == "olmoe_1b_7b":
+            keep["olmoe"] = (cfg, params)
+    say(f"  [6l] {label}, {cfg.n_layers} layers at full width, {DECODE_ROWS} rows ({DECODE_ROWS // 2} a data rank), "
+        f"{DECODE_SEQ}-position cache ({DECODE_SEQ // 2} a model rank), {DECODE_PROMPT} prompt tokens + "
+        f"{DECODE_STEPS - DECODE_PROMPT} {'greedy' if f32 else 'fed'} steps: logits {gap:.3e} of max|logit| from "
+        f"the unsharded port, tokens agree {agree:.3f}"
+        + (f", cache blocks {res['cache_err']:.3e}" if f32 else "") + f"; regions {regions}; B15 one-token "
+        f"{token}; {res['ms_per_step']:.1f} ms a step (host clock, 4 ranks on one card over gloo); last step "
+        f"collectives {last['collectives']}")
+    if not f32:
+        del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def decode_long(torch, mesh, lead: bool, keep: dict, smi: str) -> dict:
+    """6l (c) on this rank: (a)'s f32 shards, decode_32k's cache length
+    (DECODE_LONG positions, half a model rank; DECODE_ROWS rows, half a data
+    rank), the cache filled to DECODE_LONG - 8: DECODE_TIMED steps timed on
+    the host clock, synchronised, one after another; one more profiled
+    (busy share); one measured for the dry run (collectives, peak)."""
+    from repro_torch.models import transformer
+    from repro_torch.sharding import ShardingContext, use_sharding
+    from repro_torch.train.step import make_serve_step
+
+    say = log if lead else (lambda *a: None)
+    cfg, params = keep.pop("olmoe")
+    step = make_serve_step(cfg)
+    fill = DECODE_LONG - 8
+    with use_sharding(ShardingContext(mesh)):
+        cache = transformer.init_decode_cache(cfg, DECODE_ROWS, DECODE_LONG, torch.float32, device="cuda")
+        for c in cache.slots.values():
+            c.index.fill_(fill)
+        cache = cache._replace(step=fill)
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)   # noqa: E731
+        held = {"params": nbytes(params.values()), "opt": 0,
+                "cache": nbytes(t for c in cache.slots.values() for t in c)}
+        tok = torch.zeros((DECODE_ROWS // 2, 1), dtype=torch.int32, device="cuda")
+        ms = []
+        for _ in range(DECODE_TIMED):
+            mesh.barrier()
+            t0 = time.perf_counter()
+            tok, _, cache = step(params, cache, tok)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        mesh.barrier()
+        box = []
+        prof = profile_device(torch, lambda: box.append(step(params, cache, tok)), 1, statistics.median(ms),
+                              "6l (c) decode step")
+        tok, _, cache = box[0]
+        mesh.barrier()
+        last = step_held(torch, mesh, lambda: step(params, cache, tok), held)
+        last.pop("out")
+    del params, cache
+    torch.cuda.empty_cache()
+    say(f"  [6l c] olmoe_1b_7b cut to {cfg.n_layers} layers, f32, a {DECODE_LONG}-position cache "
+        f"({DECODE_LONG // 2} a model rank), {DECODE_ROWS // 2} rows a data rank ({smi}; 4 ranks on one card over "
+        f"gloo, not a multi-GPU number): steps {[round(x, 1) for x in ms]} ms; busy share rank 0 "
+        f"{prof['busy_ms'] / prof['wall_ms']:.3f}; collectives {last['collectives']}; peak "
+        f"{last['peak'] / 2**30:.3f} GiB")
+    return dict(step_ms=ms, busy_share=prof["busy_ms"] / prof["wall_ms"], top_kernels=prof["kernels"][:10],
+                step=last)
+
+
+def decode_cases(torch, mesh, lead: bool, smi: str) -> dict:
+    """Phase 6l on this rank: (a) and (b) in f32 and bf16, then (c)."""
+    keep: dict = {}
+    out = {}
+    for arch in DECODE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            t0 = time.perf_counter()
+            r = decode_case(torch, mesh, arch, dtype, lead, keep)
+            r["seconds_all"] = time.perf_counter() - t0
+            out[f"{arch} {'f32' if dtype == torch.float32 else 'bf16'}"] = r
+            if arch == "olmoe_1b_7b" and dtype == torch.float32:
+                out["long"] = decode_long(torch, mesh, lead, keep, smi)
+    return out
+
+
+def decode_summary(results: dict, recs: dict, smi: str) -> dict:
+    """6l's report: every rank's greedy tokens and regions as checked on the
+    rank; (e) each measured step against its dry run on every rank (bytes,
+    collectives and launches equal; the peak within ``DECODE_PEAK_BAND`` of
+    the rank's measured one); (c)'s busy
+    share and peak by rank."""
+    out = {"cases": {}, "dryrun": {}}
+    r0 = results[0]["decode"]
+    for key, run in r0.items():
+        rec = recs[f"decode {key}"]
+        ratios = []
+        for r in results:
+            step = results[r]["decode"][key]["step"]
+            got = {"bytes": rec["persistent_bytes"], "collectives": rec["collectives"], "launches": rec["launches"]}
+            want = {"bytes": step["bytes"], "collectives": step["collectives"], "launches": step["launches"]}
+            for what in got:
+                if got[what] != want[what]:
+                    raise AssertionError(f"6l (e) {key} rank {r}: the dry run's {what} {got[what]}, the card's "
+                                         f"{want[what]}")
+            ratios.append(rec["peak_bytes"] / step["peak"])
+            if not DECODE_PEAK_BAND[0] <= ratios[-1] <= DECODE_PEAK_BAND[1]:
+                raise AssertionError(f"6l (e) {key} rank {r}: the dry run's peak {rec['peak_bytes']} is "
+                                     f"{ratios[-1]:.4f}x the card's {step['peak']}, outside {DECODE_PEAK_BAND}")
+        log(f"  [6l e] {key}: dry run on meta = every rank's step: bytes {rec['persistent_bytes']}, collectives "
+            f"{rec['collectives']}, launches {rec['launches']}; peak predicted {rec['peak_bytes'] / 2**30:.3f} GiB, "
+            f"ratio to each rank's measured {[round(x, 3) for x in ratios]}")
+        out["dryrun"][key] = dict(peak_predicted=rec["peak_bytes"], peak_by_rank=[results[r]["decode"][key]["step"]
+                                                                                 ["peak"] for r in results],
+                                  ratios=ratios, step_s=rec["step_s"])
+        row = {k: v for k, v in run.items() if k != "step"}
+        if key == "long":
+            row["busy_share_by_rank"] = [results[r]["decode"]["long"]["busy_share"] for r in results]
+            row["peak_gib_by_rank"] = [results[r]["decode"]["long"]["step"]["peak"] / 2**30 for r in results]
+            log(f"[6l c] {smi}: busy share by rank {[round(x, 3) for x in row['busy_share_by_rank']]}, peak by rank "
+                f"{[round(x, 3) for x in row['peak_gib_by_rank']]} GiB")
+        else:
+            row["agreement_by_rank"] = [results[r]["decode"][key]["agreement"] for r in results]
+            row["logit_gap_by_rank"] = [results[r]["decode"][key]["logit_gap"] for r in results]
+        out["cases"][key] = row
+    return out
+
+
 def wrapper_forms(torch, gen) -> dict:
     """Phase 2: the thin 2-D wrappers over the batched kernels
     (``megaplan.mega_slim_update``, ``snr_stats.snr_stats_centered``,
@@ -2780,11 +3071,13 @@ def wrapper_forms(torch, gen) -> dict:
 
 
 def dryrun_6k(path: Path) -> int:
-    """6k (a), in a process of its own (one default process group a
-    process): ``repro_torch.launch.dryrun`` on a (data=2, model=2) mesh over
-    the fake group, on ``meta``, for every SHARD_CASES run (the same config,
-    rows, sequence, optimizer and fused backend, grad_accum 1); the records
-    go to ``path`` as JSON. Needs no GPU and touches none."""
+    """6k (a) and 6l (e), in a process of its own (one default process
+    group a process): ``repro_torch.launch.dryrun`` on a (data=2, model=2)
+    mesh over the fake group, on ``meta``, for every SHARD_CASES run (the
+    same config, rows, sequence, optimizer and fused backend, grad_accum 1)
+    and every decode step of 6l (its config, rows, cache length and cache
+    dtype); the records go to ``path`` as JSON. Needs no GPU and touches
+    none."""
     import torch
 
     torch.set_num_threads(1)
@@ -2801,6 +3094,16 @@ def dryrun_6k(path: Path) -> int:
             recs[f"{arch} {dtype_name} {optimizer}"] = dryrun.run_cell(
                 arch, "train_4k", "2x2", optimizer=optimizer, backend="fused", grad_accum=1, out_dir=None, mesh=mesh,
                 cfg=cfg, seq=seq, global_batch=rows)
+    # 6l (e): each decode step of 6l on the same mesh
+    for arch in DECODE_CASES:
+        for dtype_name in ("float32", "bfloat16"):
+            cfg = decode_cfg(torch, arch, getattr(torch, dtype_name))
+            recs[f"decode {arch} {'f32' if dtype_name == 'float32' else 'bf16'}"] = dryrun.run_cell(
+                arch, "decode_32k", "2x2", out_dir=None, mesh=mesh, cfg=cfg, seq=DECODE_SEQ, global_batch=DECODE_ROWS,
+                cache_dtype=cfg.dtype)
+    recs["decode long"] = dryrun.run_cell("olmoe_1b_7b", "decode_32k", "2x2", out_dir=None, mesh=mesh,
+                                          cfg=decode_cfg(torch, "olmoe_1b_7b", torch.float32), seq=DECODE_LONG,
+                                          global_batch=DECODE_ROWS, cache_dtype=torch.float32)
     path.write_text(json.dumps(recs, default=str))
     return 0
 
@@ -3022,8 +3325,8 @@ def hold_saved_grads(torch, grads, work, arch: str, key: str) -> float:
     return worst
 
 
-def tp_rank(rank, rdv, out, rate):
-    """One rank of the (data=2, model=2) mesh on the card: phases 6f-6k.
+def tp_rank(rank, rdv, out, rate, smi):
+    """One rank of the (data=2, model=2) mesh on the card: phases 6f-6l.
     Rank 0 logs and holds the references; every rank checks its counts."""
     import datetime
 
@@ -3055,18 +3358,22 @@ def tp_rank(rank, rdv, out, rate):
     res["shards"] = shard_cases(torch, mesh, lead, keep, Path(rdv).parent)
     res["shard_optimizers"] = shard_optimizers(torch, mesh, lead, Path(rdv).parent)
     res["shards_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["decode"] = decode_cases(torch, mesh, lead, smi)
+    res["decode_seconds"] = time.perf_counter() - t0
     res["seconds"] = time.perf_counter() - t_start
     out.put((rank, res))
     mesh.barrier()
 
 
 def tp_phase(torch, smi, rate):
-    """Phases 6f-6k: spawn the 4 ranks of a (data=2, model=2) mesh on this
+    """Phases 6f-6l: spawn the 4 ranks of a (data=2, model=2) mesh on this
     card for the forward's tensor-, sequence- and expert-parallel regions,
-    GPipe, moment-less SlimAdam and parameter-shard storage; after they
-    exit, olmoe's 6k references on the whole card; then B15 and its
-    backward at a rank's channel shard. Returns (report, launches summed
-    over rank 0's counted runs)."""
+    GPipe, moment-less SlimAdam, parameter-shard storage and the decode
+    step; after they exit, olmoe's 6k references on the whole card, the
+    dry run held to 6k's and 6l's steps; then B15 and its backward at a
+    rank's channel shard and B15's one-token form at a decode rank's.
+    Returns (report, launches summed over rank 0's counted runs)."""
     import multiprocessing as mp
     import shutil
 
@@ -3084,7 +3391,7 @@ def tp_phase(torch, smi, rate):
     dry_json = work / "dryrun_6k.json"
     dry = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-6k", str(dry_json)],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    procs = [ctx.Process(target=run_rank, args=(tp_rank, r, str(work / "rdv"), out, rate))
+    procs = [ctx.Process(target=run_rank, args=(tp_rank, r, str(work / "rdv"), out, rate, smi))
              for r in range(SHARD_RANKS)]
     for p in procs:
         p.start()
@@ -3107,7 +3414,10 @@ def tp_phase(torch, smi, rate):
     r0 = results[0]
     t0 = time.perf_counter()
     shards = shard_summary(torch, results, work, smi)
-    shards["dryrun"] = hold_dryrun(results, json.loads(dry_json.read_text()), smi)
+    recs = json.loads(dry_json.read_text())
+    shards["dryrun"] = hold_dryrun(results, {k: v for k, v in recs.items() if not k.startswith("decode ")}, smi)
+    decode = decode_summary(results, recs, smi)
+    log(f"[6l] decode on the mesh: {r0['decode_seconds']:.1f} s on the ranks")
     for r in range(1, SHARD_RANKS):
         losses = lambda res: {k: (v["losses"], v.get("resumed")) for k, v in res["shard_optimizers"].items()}  # noqa
         if losses(results[r]) != losses(r0):
@@ -3117,14 +3427,14 @@ def tp_phase(torch, smi, rate):
     log(f"[6k] parameter-shard storage: {r0['shards_seconds']:.1f} s on the ranks, the references after them "
         f"{time.perf_counter() - t0:.1f} s")
     cases = [k for k in r0 if k not in ("gpipe", "momentless", "seconds", "shards", "shard_optimizers",
-                                        "shards_seconds")]
+                                        "shards_seconds", "decode", "decode_seconds")]
     for r in range(1, SHARD_RANKS):
         for case in cases:
             for optimizer in r0[case]["optimizers"]:
                 if results[r][case][optimizer]["losses"] != r0[case][optimizer]["losses"]:
                     raise AssertionError(f"rank {r} reports other {case} {optimizer} losses than rank 0")
     summary = {"cases": {}, "gpipe": r0["gpipe"], "momentless": r0["momentless"], "spawn_s": spawn_s,
-               "shards": shards}
+               "shards": shards, "decode": decode}
     for case in cases:
         c = r0[case]
         row = dict(reference=c["reference"], layers=c["layers"], table3_regimes=c.get("table3_regimes"),
@@ -3150,11 +3460,12 @@ def tp_phase(torch, smi, rate):
         for optimizer in r0[case]["optimizers"]:
             for k, v in r0[case][optimizer]["launches"].items():
                 launches[k] = launches.get(k, 0) + v
-    for run in r0["shards"].values():
+    for run in list(r0["shards"].values()) + [v for k, v in r0["decode"].items() if k != "long"]:
         for k, v in run["launches"].items():
             launches[k] = launches.get(k, 0) + v
     summary["scan_shard"] = scan_shard_timings(torch, rate, smi)
-    log(f"[6f-6k] ranks {spawn_s:.1f} s (rank 0 {r0['seconds']:.1f} s)")
+    summary["scan_token_shard"] = scan_token_shard(torch, rate, smi)
+    log(f"[6f-6l] ranks {spawn_s:.1f} s (rank 0 {r0['seconds']:.1f} s)")
     return summary, launches
 
 
@@ -3190,6 +3501,34 @@ def scan_shard_timings(torch, rate: float, smi: str) -> dict:
     torch.cuda.empty_cache()
     return dict(shape=[b, s, d, n], fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain, fwd_bound_ms=fwd_bound, fwd_err=err_f,
                 bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain, bwd_bound_ms=bwd_bound, bwd_err=err_b)
+
+
+def scan_token_shard(torch, rate: float, smi: str) -> dict:
+    """6l (d): B15's one-token form at a decode rank's channels on
+    falcon_mamba_7b (2 rows, S = 1, 4096 of 8192 channels, N 16, f32, a
+    random h0) against its plain twin, twice bit for bit, timed beside its
+    bound."""
+    from repro_torch.kernels import ssm_scan as sc
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, s, d, n = DECODE_ROWS // 2, 1, 8192 // 2, 16
+    plan = sc.plan_scan(b, s, d, n, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    args = scan_case(torch, gen, b, s, d, n, torch.float32)
+    y, h = sc.ssm_scan(*args)
+    y2, h2 = sc.ssm_scan(*args)
+    same_tensors("B15 one-token shard", {"y": y, "h": h}, {"y": y2, "h": h2})
+    y_want, h_want = sc.ssm_scan_plain(*args)
+    err = max(check("B15 one-token shard y", y, y_want, TOL_LINE), check("B15 one-token shard h", h, h_want, TOL_LINE))
+    ms = timer(lambda: sc.ssm_scan(*args), reps=20)
+    plain = timer(lambda: sc.ssm_scan_plain(*args), reps=5)
+    bound, by = scan_bound(args, rate)
+    log(f"[6l d] B15 at a decode rank's channels ({b} x {s} x {d}, N {n}, f32; {smi}): {scan_form(plan)}, "
+        f"{ms:.4f} ms (plain {plain:.4f}, bound {bound:.4f} {by}); error {err:.3e}")
+    del args, y, h, y2, h2, y_want, h_want, timer
+    torch.cuda.empty_cache()
+    return dict(shape=[b, s, d, n], form=scan_form(plan), ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                err=err)
 
 
 # -- the SSM serving path (phase 7) and the parameter-writing API (phase 8) -----------
@@ -6368,7 +6707,7 @@ def main() -> int:
     report["sharded"] = sharded = sharded_phase(torch, smi, rate)
     stamp("6")
     report["tp"], tp_launches = tp_phase(torch, smi, rate)
-    stamp("6f-6k")
+    stamp("6f-6l")
     timer = Timer(torch)
     report["ssm"], ssm_entry = ssm_phase(torch, timer, rate, smi)
     stamp("7")

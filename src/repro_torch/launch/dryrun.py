@@ -16,15 +16,19 @@ the cell's step once on ``meta`` tensors, which hold no data:
   step, built with ``grad_shardings``; ``grad_accum`` from
   :func:`pick_grad_accum` unless given;
 * prefill: the forward over this rank's rows, argmax of the logits;
-* decode: ``train.step.make_serve_step`` over this rank's rows of the
-  decode cache. The port serves a row on one rank: the cache's rows split
-  over the batch axes, its sequence and ``d_inner`` stay whole on the rank,
-  and the weights are gathered whole from the stored shards.
+* decode: ``train.step.make_serve_step`` in JAX's decode layout
+  (``repro/launch/dryrun.py:204-217``): this rank's block of the decode
+  cache under :func:`decode_cache_specs` (rows over the batch axes, the KV
+  caches' positions and the SSM states' ``d_inner`` over ``model``), the
+  stored shards read where they lie (``sharding.logical.dot``: activations
+  move over ``data`` and ``model``, no weight is gathered). ``--seq`` and
+  ``--batch`` size the cache and the rows.
 
 The record (JSON, under ``build/dryrun/`` by default, never under
 ``benchmarks/``): the cell's status (skips by ``cell_supported``),
 ``n_params``, ``grad_accum``, the config's ``sharding_overrides``,
-optimizer and backend; the rank's persistent bytes (``reckon_bytes``), the
+optimizer and backend; the rank's persistent bytes (``reckon_bytes``; a
+decode cell's parameter shards and its block of the cache), the
 peak of one step a rank by category (``torch.distributed._tools
 .mem_tracker.MemTracker`` over the step, on top of the persistent bytes)
 and whether it fits the card's memory; matmul FLOPs a rank
@@ -54,7 +58,8 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from ..configs import ARCH_IDS, SHAPES, cell_supported, decode_input_specs, get_config, get_reduced, input_specs
+from ..configs import ARCH_IDS, SHAPES, cell_supported, get_config, get_reduced, input_specs
+from ..models.transformer import decode_cache_specs  # noqa: F401 — JAX's name, ``repro.launch.dryrun``'s
 from ..sharding.shardspec import PartitionSpec as P
 from . import mesh as mesh_mod
 
@@ -75,30 +80,6 @@ PRODUCTION = {"single": ((16, 16), ("data", "model")), "multi": ((2, 16, 16), ("
 def batch_specs(ctx, batch_abstract: Dict[str, Any]) -> Dict[str, P]:
     """Each batch leaf's spec: its leading dim over the ``batch`` rule."""
     return {k: ctx.spec_for(["batch"] + [None] * (v.ndim - 1), tuple(v.shape)) for k, v in batch_abstract.items()}
-
-
-def decode_cache_specs(ctx, cache_abstract) -> Any:
-    """KV caches: batch over the data-parallel axes, sequence over 'model'
-    (JAX's SP layout); SSM states: d_inner over 'model'. A
-    :class:`repro_torch.models.transformer.DecodeCache` of specs."""
-    from ..models.attention import KVCache
-    from ..models.transformer import DecodeCache
-
-    def kv(c):
-        scale = (ctx.spec_for(("layers", "batch", "seq_kv", None), tuple(c.k_scale.shape))
-                 if c.k_scale.ndim == 4 else P())
-        return KVCache(k=ctx.spec_for(("layers", "batch", "seq_kv", None, None), tuple(c.k.shape)),
-                       v=ctx.spec_for(("layers", "batch", "seq_kv", None, None), tuple(c.v.shape)),
-                       k_scale=scale, v_scale=scale, index=P())
-
-    def ssm(c):
-        from ..models.ssm import SSMCache
-
-        return SSMCache(conv=ctx.spec_for(("layers", "batch", None, "d_inner"), tuple(c.conv.shape)),
-                        h=ctx.spec_for(("layers", "batch", "d_inner", None), tuple(c.h.shape)))
-
-    slots = {key: kv(c) if isinstance(c, KVCache) else ssm(c) for key, c in cache_abstract.slots.items()}
-    return DecodeCache(slots=slots, step=P())
 
 
 def pick_grad_accum(cfg, shape_name: str, mesh, *, budget: int = DEFAULT_BUDGET,
@@ -172,17 +153,18 @@ def cell_config(arch: str, shape: str, *, variant: str = "default", reduced: boo
 
 def build_cell(arch: str, shape: str, mesh, *, optimizer: str = "slim", grad_accum: Optional[int] = None,
                variant: str = "default", backend: str = "jnp", cfg=None, seq: Optional[int] = None,
-               global_batch: Optional[int] = None):
+               global_batch: Optional[int] = None, cache_dtype=torch.bfloat16):
     """(step, its arguments, the sharding context, info, cfg): the cell's
     step on ``mesh`` (a ``launch.mesh.Mesh`` on ``meta``) and its abstract
     inputs, as ``repro/launch/dryrun.py:134-222`` builds them. ``cfg``
     replaces :func:`cell_config`'s; ``seq``/``global_batch`` replace the
-    shape's. ``info`` holds ``persistent`` (the rank's bytes of parameter
-    and optimizer-state shards, checked against ``reckon_bytes``)."""
+    shape's; ``cache_dtype`` is a decode cell's KV cache's (JAX's
+    ``decode_input_specs``: bf16). ``info`` holds ``persistent`` (the rank's
+    bytes of parameter and optimizer-state shards, checked against
+    ``reckon_bytes``)."""
     from ..launch import train as launch
     from ..models import transformer
     from ..sharding import ShardingContext, use_sharding
-    from ..sharding.logical import Weights, gathered
     from ..train.step import make_serve_step
 
     seq_, gb_, kind = SHAPES[shape]
@@ -211,12 +193,8 @@ def build_cell(arch: str, shape: str, mesh, *, optimizer: str = "slim", grad_acc
             info.update(optimizer="slim_adam(table3)" if name == "slim" else "adamw", opt_backend=backend,
                         grad_accum=accum, persistent=held)
             return run.step, (run.opt_state, batch), ctx, info, cfg
-        p_sh = launch.shardings_from_specs(launch.param_specs(meta, abstract), mesh)
-        params = launch.init_shards(cfg, p_sh, None, "meta")
-        for t in params.values():
-            t.requires_grad_(False)
-        stored = Weights(params, {k: s.spec for k, s in p_sh.items()}, mesh)
-        info["persistent"] = {"params": sum(t.numel() * t.element_size() for t in params.values()), "opt": 0}
+        stored = launch.stored_weights(cfg, mesh)
+        info["persistent"] = {"params": sum(t.numel() * t.element_size() for t in stored.values()), "opt": 0}
         if kind == "prefill":
             if seq != seq_ or gb != gb_:
                 raise ValueError("a prefill cell takes its shape's sequence and batch")
@@ -229,20 +207,20 @@ def build_cell(arch: str, shape: str, mesh, *, optimizer: str = "slim", grad_acc
                 return torch.argmax(logits, dim=-1).to(torch.int32)
 
             return prefill, (batch,), ctx, info, cfg
-        # decode: the port serves a row on one rank, so its cache keeps the
-        # sequence and d_inner whole (JAX's SP layout cuts them over 'model')
-        spec = decode_input_specs(cfg, shape)
-        row_ctx = ShardingContext(mesh, rules={**ctx.rules, "seq_kv": None, "d_inner": None})
-        cache, c_specs = spec["cache"], decode_cache_specs(row_ctx, spec["cache"])
-        cache = cache._replace(slots={k: type(c)(*(mesh.shard(t, s) for t, s in zip(c, c_specs.slots[k])))
-                                      for k, c in cache.slots.items()})
-        tokens = mesh.shard(spec["tokens"], row_ctx.spec_for(("batch", None), tuple(spec["tokens"].shape)))
+        # decode: JAX's layout, this rank's block of the cache (init_decode_cache
+        # under the context cuts it by decode_cache_specs)
+        cache = transformer.abstract_decode_cache(cfg, gb, seq, cache_dtype)
+        tokens = mesh.shard(torch.empty((gb, 1), dtype=torch.int32, device="meta"),
+                            ctx.spec_for(("batch", None), (gb, 1)))
+        info["persistent"]["cache"] = sum(t.numel() * t.element_size() for c in cache.slots.values() for t in c)
+        info["decode_layout"] = ("rows over the batch axes; KV positions (seq_kv) and SSM d_inner over model; "
+                                 "the stored shards read where they lie, activations moved, no weight gathered")
+        # counted in the step's peak from its start ('Other'), however the step touches them
+        info["held"] = list(stored.values()) + _tensors(cache)
         serve = make_serve_step(cfg)
-        info["decode_layout"] = ("rows over the batch axes; sequence and d_inner whole on the rank; weights "
-                                 "gathered whole from the stored shards")
 
         def decode(cache, tokens):
-            return serve(gathered(stored), cache, tokens)
+            return serve(stored, cache, tokens)
 
         return decode, (cache, tokens), ctx, info, cfg
 
@@ -303,10 +281,13 @@ def _tensors(tree):
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
-def measure(fn, args, mesh) -> Dict[str, Any]:
+def measure(fn, args, mesh, held=()) -> Dict[str, Any]:
     """Run ``fn(*args)`` once on ``meta`` under the counters: matmul FLOPs,
-    bytes moved, the peak of the memory the step allocates by category,
-    the collectives by kind and the kernel wrappers' calls on ``meta``, the
+    bytes moved, the peak of the memory the step allocates by category
+    (with the tensors of ``held``, a decode cell's parameter shards and
+    cache, counted from the start as 'Other': a view of a tensor made
+    before the step would otherwise count it once it is touched), the
+    collectives by kind and the kernel wrappers' calls on ``meta``, the
     launches the card would make (each reset first)."""
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
@@ -320,6 +301,8 @@ def measure(fn, args, mesh) -> Dict[str, Any]:
     flops = FlopCounterMode(display=False)
     traffic = _Traffic()
     mem = MemTracker()
+    if held:
+        mem.track_external(*held)
     t0 = time.perf_counter()
     with mem, flops, traffic.mode:
         fn(*args)
@@ -368,13 +351,15 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, optimizer: str = "slim", 
                                           variant=variant, backend=backend, cfg=cfg, **cell_kw)
     from ..sharding import use_sharding
 
+    held = info.pop("held", ())
     with use_sharding(ctx):
-        counted = measure(fn, args, mesh)
+        counted = measure(fn, args, mesh, held)
     record.update(info)
     n_chips = mesh.size
     persistent = info.pop("persistent")
     record.pop("persistent", None)
-    peak = persistent["params"] + persistent["opt"] + counted["step_peak"]
+    # a decode cell's step peak counts its held parameter shards and cache from the start
+    peak = counted["step_peak"] if held else persistent["params"] + persistent["opt"] + counted["step_peak"]
     record.update(status="ok", n_chips=n_chips, mesh_shape=dict(mesh.shape), card=mesh_mod.CARD,
                   build_s=round(time.perf_counter() - t0 - counted["step_s"], 2), step_s=round(counted["step_s"], 2),
                   persistent_bytes=persistent, peak_bytes=peak, peak_categories=counted["step_categories"],

@@ -47,6 +47,7 @@ from ..configs import ARCH_IDS, get_config, get_reduced
 from ..core.labels import flatten_with_names
 from ..data import DataConfig, ZipfLM
 from ..sharding import ShardingContext, opt_state_specs, param_specs, shardings_from_specs, use_sharding
+from ..sharding.logical import Weights
 from ..sharding.shardspec import local_shape
 from ..train.guard import ROLLBACK, Guard, GuardConfig
 from ..train.step import make_train_step
@@ -84,6 +85,24 @@ def init_shards(cfg, shardings: Mapping[str, Any], gen: torch.Generator, device)
         out[name] = shardings[name].shard(whole).detach().clone().requires_grad_(True)
         del whole
     return out
+
+
+def stored_weights(cfg, mesh, *, whole: Optional[Mapping[str, torch.Tensor]] = None,
+                   gen: Optional[torch.Generator] = None) -> Weights:
+    """This rank's shards of ``cfg``'s parameters under their specs in the
+    active context, as :func:`build` stores them, without gradients: the
+    ``Weights`` a decode step serves from (``train.step.make_serve_step``).
+    Cut from ``whole``, or drawn from ``gen`` (default: a CPU generator
+    seeded 0) leaf by leaf (:func:`init_shards`); on a ``meta`` mesh only
+    their shapes."""
+    abstract, meta = cfg.abstract()
+    p_sh = shardings_from_specs(param_specs(meta, abstract), mesh)
+    if whole is not None:
+        params = {k: p_sh[k].shard(whole[k].detach().to(mesh.device)).clone() for k in abstract}
+    else:
+        params = init_shards(cfg, p_sh, gen if gen is not None else torch.Generator().manual_seed(0), mesh.device)
+        params = {k: t.detach() for k, t in params.items()}
+    return Weights(params, {k: sh.spec for k, sh in p_sh.items()}, mesh)
 
 
 class Sharded(NamedTuple):

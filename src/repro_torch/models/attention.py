@@ -74,17 +74,24 @@ def attention_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int, 
     return specs
 
 
-def _project_qkv(p, x: torch.Tensor, rope_sincos=None):
+def _project_qkv(p, x: torch.Tensor, rope_sincos=None, q_heads=None, kv_heads=None):
     """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), weights cast to
     x's dtype at use; the qkv biases (where the model has them) are added
-    before rope rotates q and k (when ``rope_sincos`` is given)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    before rope rotates q and k (when ``rope_sincos`` is given). The
+    products go through :func:`repro_torch.sharding.logical.dot`;
+    ``q_heads``/``kv_heads`` (start, count) project only those query or KV
+    heads."""
+    qc = {1: q_heads} if q_heads else None
+    kc = {1: kv_heads} if kv_heads else None
+    q = logical.dot("bsd,dhk->bshk", x, p, "wq", qc)
+    k = logical.dot("bsd,dhk->bshk", x, p, "wk", kc)
+    v = logical.dot("bsd,dhk->bshk", x, p, "wv", kc)
     if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        qb = {0: q_heads} if q_heads else None
+        kb = {0: kv_heads} if kv_heads else None
+        q = q + logical.weight(p, "bq", qb).to(x.dtype)
+        k = k + logical.weight(p, "bk", kb).to(x.dtype)
+        v = v + logical.weight(p, "bv", kb).to(x.dtype)
     if rope_sincos is not None:
         sin, cos = rope_sincos
         q = apply_rotary(q, sin, cos)
@@ -348,42 +355,154 @@ def attention_decode(p, x: torch.Tensor, cache: KVCache, cfg: AttnConfig) -> Tup
     then attends over positions ``<= index`` in f32 (grouped queries against
     the whole cache, masked beyond; an int8 cache's scales multiply the
     scores and the probabilities). Returns (y (B, 1, D), the cache with
-    ``index + 1``)."""
+    ``index + 1``). In the decode layout with ``tp > 1`` model ranks the
+    cache is this rank's block of positions: :func:`_attention_decode_tp`."""
     b, s1, _ = x.shape
     if s1 != 1:
         raise ValueError(f"attention_decode takes one token per row, got {s1}")
+    lay = logical.active_layout()
+    if lay.decode and lay.tp > 1:
+        return _attention_decode_tp(p, x, cache, cfg, lay)
     pos = cache.index.long()
     rope_sincos = None
     if cfg.rope:
         rope_sincos = rotary_embedding(pos[None], cfg.head_dim, cfg.rope_base)
     q, k_new, v_new = _project_qkv(p, x, rope_sincos)
-    at = pos[None]
+    _write_kv(cache, k_new, v_new, pos, 0, None)
+    out = _attend_cache(q, cache, pos, 0, None).to(x.dtype)
+    y = logical.dot("bshk,hkd->bsd", out, p, "wo")
+    return y, cache._replace(index=cache.index + 1)
+
+
+def _write_kv(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, pos: torch.Tensor, start: int,
+              owner) -> None:
+    """Write the new K/V rows (an int8 cache: the quantized rows and their
+    scales) at global position ``pos`` of a cache whose positions start at
+    ``start``, in place. ``owner``: None (the cache holds ``pos``), or a
+    bool tensor saying whether this rank's block holds it (the write then
+    leaves a block that does not hold it unchanged)."""
+    at = (pos - start).clamp(0, cache.k.shape[1] - 1)[None]
+
+    def put(buf, new):
+        buf.index_copy_(1, at, new if owner is None else torch.where(owner, new, buf.index_select(1, at)))
+
     if cache.quantized:
         k_q, k_s = _quantize_kv(k_new)
         v_q, v_s = _quantize_kv(v_new)
-        cache.k.index_copy_(1, at, k_q)
-        cache.v.index_copy_(1, at, v_q)
-        cache.k_scale.index_copy_(1, at, k_s)
-        cache.v_scale.index_copy_(1, at, v_s)
+        for buf, new in ((cache.k, k_q), (cache.v, v_q), (cache.k_scale, k_s), (cache.v_scale, v_s)):
+            put(buf, new)
     else:
-        cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
-        cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
+        put(cache.k, k_new.to(cache.k.dtype))
+        put(cache.v, v_new.to(cache.v.dtype))
 
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    s_max = cache.k.shape[1]
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    qg = q.reshape(b, 1, cfg.n_kv_heads, n_rep, cfg.head_dim).float() * scale
+
+def _attend_cache(q: torch.Tensor, cache: KVCache, pos: torch.Tensor, start: int, mesh) -> torch.Tensor:
+    """One query a row, q (B, 1, H, hd), against the cache's positions
+    ``start ..`` up to ``pos`` (masked beyond) in f32: grouped queries; an
+    int8 cache's scales multiply the scores and the probabilities. ``mesh``:
+    None (the cache whole), or the mesh whose ``model`` ranks hold the
+    cache's blocks in order: each block's (unnormalised output, max, sum)
+    are all-gathered and combined (:func:`_lse_combine`). Returns the f32
+    output (B, 1, H, hd)."""
+    b, _, h, hd = q.shape
+    kv = cache.k.shape[2]
+    qg = q.reshape(b, 1, kv, h // kv, hd).float() * (1.0 / math.sqrt(hd))
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, cache.k.float())
     if cache.quantized:
         scores = scores * cache.k_scale.transpose(1, 2)[:, :, None, None, :]
-    valid = torch.arange(s_max, device=x.device) <= pos
+    valid = start + torch.arange(cache.k.shape[1], device=q.device) <= pos
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    if cache.quantized:
-        probs = probs * cache.v_scale.transpose(1, 2)[:, :, None, None, :]
-    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache.v.float())
-    out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    if mesh is None:
+        probs = torch.softmax(scores, dim=-1)
+        if cache.quantized:
+            probs = probs * cache.v_scale.transpose(1, 2)[:, :, None, None, :]
+        out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cache.v.float())
+    else:
+        from ..launch.mesh import all_gather
+
+        m = scores.amax(dim=-1, keepdim=True)
+        e = torch.where(valid, torch.exp(scores - m), 0.0)
+        den = e.sum(dim=-1, keepdim=True)
+        if cache.quantized:
+            e = e * cache.v_scale.transpose(1, 2)[:, :, None, None, :]
+        acc = torch.einsum("bgrqk,bkgd->bgrqd", e, cache.v.float())
+        out = _lse_combine(all_gather(torch.cat([acc, m, den], dim=-1)[None], mesh, "model", 0), hd)
+        out = out.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, 1, h, hd)
+
+
+def _heads_of_ranks(parts: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """(tp, B, 1, heads, hd) gathered over ``model`` -> (B, 1, tp * n, hd):
+    heads ``lo .. lo + n`` of every rank's part, in rank (= global head)
+    order."""
+    t, b = parts.shape[:2]
+    return parts[..., lo:lo + n, :].permute(1, 2, 0, 3, 4).reshape(b, 1, t * n, parts.shape[-1])
+
+
+def _lse_combine(parts: torch.Tensor, hd: int) -> torch.Tensor:
+    """The model ranks' blocks of one attention, (tp, ..., hd + 2): each
+    block's unnormalised f32 output, running max and sum. Combined by
+    log-sum-exp in rank order, so every rank gets the same bits. A block
+    whose positions all lie beyond the query (max NEG_INF, sum 0) adds
+    nothing."""
+    m = parts[..., hd:hd + 1].amax(dim=0)
+    acc = den = None
+    for part in parts:
+        w = torch.exp(part[..., hd:hd + 1] - m)
+        a, d = part[..., :hd] * w, part[..., hd + 1:] * w
+        acc, den = (a, d) if acc is None else (acc + a, den + d)
+    return acc / den
+
+
+def _attention_decode_tp(p, x: torch.Tensor, cache: KVCache, cfg: AttnConfig, lay) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode in the decode layout on ``tp`` model ranks, the
+    cache this rank's block of ``lay.seq_kv`` positions (``seq_kv`` over
+    ``model``; whole on every rank where ``tp`` does not divide them). With
+    the heads divisible (the parallel form): q, k and v for this rank's
+    heads (``wk``/``wv`` cut on KV heads where ``kv % tp == 0``, else
+    whole, as :func:`_attention_shard`), from the stored shards as they lie
+    (:func:`repro_torch.sharding.logical.dot`: no weight is gathered), then
+    one all-gather over ``model`` gives every rank every head. Otherwise
+    (the fallback, counted) every rank projects every head. The owner of position
+    ``index`` writes its K/V rows (an int8 cache: the quantized rows and
+    scales) into its block; each rank attends its block for every head in
+    f32, masked by global position; on a split cache one all-gather of the
+    blocks' (output, max, sum) and a log-sum-exp combine in rank order
+    (:func:`_lse_combine`) complete it. ``wo`` is row-parallel on the
+    rank's heads, completed by a ``psum``."""
+    from ..launch.mesh import all_gather, psum
+
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n, i, mesh = lay.tp, lay.idx, lay.mesh
+    par = h % n == 0
+    lay.count("attn", par)
+    h_l = h // n if par else h
+    kv_split = par and kv % n == 0
+    kv_l = kv // n if kv_split else kv
+    pos = cache.index.long()
+    rope_sincos = rotary_embedding(pos[None], hd, cfg.rope_base) if cfg.rope else None
+    q, k_new, v_new = _project_qkv(p, x, rope_sincos, (i * h_l, h_l) if par else None,
+                                   (i * kv_l, kv_l) if kv_split else None)
+    if par:
+        parts = all_gather((torch.cat([q, k_new, v_new], dim=2) if kv_split else q)[None], mesh, "model", 0)
+        q = _heads_of_ranks(parts, 0, h_l)
+        if kv_split:
+            k_new, v_new = _heads_of_ranks(parts, h_l, kv_l), _heads_of_ranks(parts, h_l + kv_l, kv_l)
+
+    total = lay.seq_kv or cache.k.shape[1]
+    start, blk = lay.block("seq_kv", total)
+    if cache.k.shape[1] != blk:
+        raise ValueError(f"attention_decode: the rank's cache holds {cache.k.shape[1]} positions, its block of "
+                         f"{total} is {blk}")
+    split = blk != total
+    _write_kv(cache, k_new, v_new, pos, start, ((pos >= start) & (pos < start + blk)) if split else None)
+    out = _attend_cache(q, cache, pos, start, mesh if split else None).to(x.dtype)
+    if par:
+        y = psum(logical.dot("bshk,hkd->bsd", out.narrow(2, i * h_l, h_l), p, "wo", {0: (i * h_l, h_l)}), mesh,
+                 "model")
+    else:
+        y = logical.dot("bshk,hkd->bsd", out, p, "wo")
     return y, cache._replace(index=cache.index + 1)
 
 

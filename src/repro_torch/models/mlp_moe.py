@@ -21,7 +21,8 @@ does not divide), and each group's capacity comes from its own
 computes all G groups, so the port's forward gives the JAX package's mesh
 numbers. On a process mesh each rank holds one group's rows; with a
 ``model`` axis the dense MLP runs tensor- and sequence-parallel
-(:func:`_mlp_explicit_tp`) and the MoE expert-parallel over ``model``
+(:func:`_mlp_explicit_tp`; a decode step's whole token: all-reduce tensor
+parallelism) and the MoE expert-parallel over ``model``
 (:func:`moe_forward`).
 """
 from __future__ import annotations
@@ -68,8 +69,20 @@ def mlp_forward(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
     the residual stream in the forward's layout: the tensor-parallel region
     where JAX takes its own (the sequence cut over ``model``, ``d_ff``
     divisible), else JAX's fallback (the region whole, this rank's part
-    kept)."""
+    kept). In the decode layout (x whole on the model group): this rank's
+    partial sum (:func:`_mlp_shard`) completed by a ``psum`` over ``model``
+    where ``d_ff`` divides, else the MLP whole."""
     lay = logical.active_layout()
+    if lay.tp > 1 and x.ndim == 3 and lay.decode:
+        # the decode layout's all-reduce form: the whole token, this rank's
+        # columns and rows, the partial sums completed by a psum
+        ok = logical.whole_shape(p, "w_up")[1] % lay.tp == 0
+        lay.count("mlp", ok)
+        if ok:
+            from ..launch.mesh import psum
+
+            return psum(_mlp_shard(p, x, gated, lay.idx, lay.tp), lay.mesh, "model")
+        return _mlp_shard(p, x, gated, 0, 1)
     if lay.tp > 1 and x.ndim == 3:
         ok = lay.sp and logical.whole_shape(p, "w_up")[1] % lay.tp == 0
         logical.region("mlp", ok)
@@ -81,18 +94,18 @@ def mlp_forward(p, x: torch.Tensor, *, gated: bool) -> torch.Tensor:
 
 def _mlp_shard(p, x_full: torch.Tensor, gated: bool, i: int, n: int) -> torch.Tensor:
     """Model rank ``i`` of ``n``'s partial sum (in x's dtype): its columns of
-    up/gate and rows of down (:func:`repro_torch.sharding.logical.weight`:
-    narrows of whole weights, or stored shards gathered over ``data``), cast
-    to x's dtype."""
-    dtype = x_full.dtype
+    up/gate and rows of down (:func:`repro_torch.sharding.logical.dot`:
+    narrows of whole weights, stored shards gathered over ``data``, or in
+    the decode layout stored shards read where they lie), cast to x's
+    dtype. ``n = 1``: the whole MLP."""
     f_l = logical.whole_shape(p, "w_up")[1] // n
     cols, rows = {1: (i * f_l, f_l)}, {0: (i * f_l, f_l)}
-    h = x_full @ logical.weight(p, "w_up", cols).to(dtype)
+    h = logical.dot("bsd,df->bsf", x_full, p, "w_up", cols)
     if gated:
-        h = F.silu(x_full @ logical.weight(p, "w_gate", cols).to(dtype)) * h
+        h = F.silu(logical.dot("bsd,df->bsf", x_full, p, "w_gate", cols)) * h
     else:
         h = gelu(h)
-    return (h @ logical.weight(p, "w_down", rows).to(dtype)).to(dtype)
+    return logical.dot("bsf,fd->bsd", h, p, "w_down", rows).to(x_full.dtype)
 
 
 def _mlp_explicit_tp(p, x: torch.Tensor, gated: bool, lay) -> torch.Tensor:
@@ -149,14 +162,18 @@ def moe_capacity(n: int, cfg: MoEConfig) -> int:
     return capacity
 
 
-def _expert_ffn_dense(p, xg: torch.Tensor, cfg: MoEConfig, dtype) -> torch.Tensor:
-    """The experts' FFN batched over the expert dim. xg: (E, C, d) -> (E, C, d)."""
-    h = torch.bmm(xg, p["w_up"].to(dtype))
+def _expert_ffn_dense(p, xg: torch.Tensor, cfg: MoEConfig, dtype, experts=None) -> torch.Tensor:
+    """The experts' FFN batched over the expert dim, on the experts
+    ``experts`` ((start, count); None: all), the weights read through
+    :func:`repro_torch.sharding.logical.dot` (the slots are its rows). xg:
+    (E_l, C, d) -> (E_l, C, d)."""
+    cut = {0: experts} if experts else None
+    h = logical.dot("ecd,edf->ecf", xg, p, "w_up", cut, rows=1, dtype=dtype)
     if cfg.gated:
-        h = F.silu(torch.bmm(xg, p["w_gate"].to(dtype))) * h
+        h = F.silu(logical.dot("ecd,edf->ecf", xg, p, "w_gate", cut, rows=1, dtype=dtype)) * h
     else:
         h = gelu(h)
-    return torch.bmm(h, p["w_down"].to(dtype))
+    return logical.dot("ecf,efd->ecd", h, p, "w_down", cut, rows=1, dtype=dtype)
 
 
 class _MoveRows(torch.autograd.Function):
@@ -228,9 +245,15 @@ def _combine(y: torch.Tensor, gates: torch.Tensor, dp: Dispatch) -> torch.Tensor
 
 def _router(xf: torch.Tensor, router: torch.Tensor, k: int):
     """(f32 logits (n, E), probs, renormalised gates (n, k), expert ids
-    (n, k)): the top k of the softmax, the lower expert index first among
-    equal probabilities, as ``lax.top_k`` orders them."""
-    logits = xf.float() @ router.float()
+    (n, k)) of the tokens ``xf`` (n, d) under ``router`` (d, E):
+    :func:`_route` of their f32 logits."""
+    return _route(xf.float() @ router.float(), k)
+
+
+def _route(logits: torch.Tensor, k: int):
+    """:func:`_router` from f32 logits: the top k of the softmax, the lower
+    expert index first among equal probabilities, as ``lax.top_k`` orders
+    them."""
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = top.values[:, :k], top.indices[:, :k]
@@ -282,7 +305,7 @@ def moe_route(p, xf: torch.Tensor, cfg: MoEConfig, groups: int) -> Routing:
     ``n / groups`` tokens, each with the capacity of its own tokens."""
     e, k = cfg.n_experts, cfg.top_k
     n_g = xf.shape[0] // groups
-    logits, probs, gates, eidx = _router(xf, logical.weight(p, "router"), k)
+    logits, probs, gates, eidx = _route(logical.dot("nd,de->ne", xf.float(), p, "router", dtype=torch.float32), k)
     capacity = moe_capacity(n_g, cfg)
     dps = [_dispatch_group(xs, es, e, k, capacity) for xs, es in zip(xf.split(n_g), eidx.split(n_g))]
     return Routing(logits, probs, gates, eidx, dps, capacity)
@@ -329,7 +352,9 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig, *,
     ``model`` divides E (``_expert_ffn_sharded``'s condition) it runs its
     E/tp experts on their slots, the outputs are all-gathered over
     ``model`` and combined, and the rank keeps its part of the sequence;
-    otherwise every rank runs all the experts (the fallback)."""
+    otherwise every rank runs all the experts (the fallback). In the decode
+    layout the token is whole on the model group, so the gather and the
+    keep are no-ops and the same expert-parallel form runs."""
     lay = logical.active_layout()
     b, s_l, d = x.shape
     e = cfg.n_experts
@@ -344,7 +369,7 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig, *,
     xg = dps[0].xg if groups == 1 else torch.cat([dp.xg for dp in dps], dim=1)   # (E, G * C, d), group-major
     if lay.tp > 1:
         ep = e % lay.tp == 0
-        logical.region("moe", ep)
+        lay.count("moe", ep)
     else:
         ep = False
     if ep:
@@ -352,10 +377,9 @@ def moe_forward(p, x: torch.Tensor, cfg: MoEConfig, *,
 
         e_l = e // lay.tp
         lo = lay.idx * e_l
-        w = {k: logical.weight(p, k, {0: (lo, e_l)}) for k in p if k != "router"}
-        y = all_gather(_expert_ffn_dense(w, xg.narrow(0, lo, e_l), cfg, x.dtype), lay.mesh, "model", 0)
+        y = all_gather(_expert_ffn_dense(p, xg.narrow(0, lo, e_l), cfg, x.dtype, (lo, e_l)), lay.mesh, "model", 0)
     else:
-        y = _expert_ffn_dense({k: logical.weight(p, k) for k in p if k != "router"}, xg, cfg, x.dtype)
+        y = _expert_ffn_dense(p, xg, cfg, x.dtype)
     if groups == 1:
         out = _combine(y, routing.gates, dps[0])
     else:

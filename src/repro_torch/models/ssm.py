@@ -172,22 +172,24 @@ def init_ssm_cache(batch: int, cfg: SSMConfig, dtype=torch.float32, device=None)
 
 def _ssm_inner(p, x: torch.Tensor, cfg: SSMConfig, conv_hist, h0, impl: str = "kernel"):
     """Shared forward core. x: (B, S, D). Returns (out, new conv history,
-    final state)."""
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
+    final state). Weights are read through
+    :func:`repro_torch.sharding.logical.weight` (whole)."""
+    w = lambda name: logical.weight(p, name)   # noqa: E731
+    xz = torch.einsum("bsd,de->bse", x, w("in_proj").to(x.dtype))
     xb, z = xz.chunk(2, dim=-1)
-    xb, new_hist = _causal_conv(xb, p["conv_w"], p["conv_b"], conv_hist)
+    xb, new_hist = _causal_conv(xb, w("conv_w"), w("conv_b"), conv_hist)
     xb = F.silu(xb)
 
-    proj = torch.einsum("bsd,dr->bsr", xb, p["x_proj"].to(xb.dtype))
+    proj = torch.einsum("bsd,dr->bsr", xb, w("x_proj").to(xb.dtype))
     r = cfg.rank
     dt_lr, b_t, c_t = torch.split(proj, [r, cfg.d_state, cfg.d_state], dim=-1)
-    dt = torch.einsum("bsr,rd->bsd", dt_lr, p["dt_proj"].to(xb.dtype))
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())
+    dt = torch.einsum("bsr,rd->bsd", dt_lr, w("dt_proj").to(xb.dtype))
+    dt = F.softplus(dt.float() + w("dt_bias").float())
+    a = -torch.exp(w("a_log").float())
 
-    y, h_final = selective_scan(xb, dt, a, b_t, c_t, p["d_skip"], h0, impl=impl)
+    y, h_final = selective_scan(xb, dt, a, b_t, c_t, w("d_skip"), h0, impl=impl)
     y = y * F.silu(z)
-    out = torch.einsum("bsd,de->bse", y, p["out_proj"].to(x.dtype))
+    out = torch.einsum("bsd,de->bse", y, w("out_proj").to(x.dtype))
     return out, new_hist, h_final
 
 
@@ -213,33 +215,42 @@ def ssm_forward(p, x: torch.Tensor, cfg: SSMConfig, *, impl: str = "kernel") -> 
     return _ssm_whole(p, x, cfg, impl)
 
 
-def _ssm_shard_in(p, x_full: torch.Tensor, cfg: SSMConfig, i: int, n: int):
+def _ssm_shard_in(p, x_full: torch.Tensor, cfg: SSMConfig, i: int, n: int, hist=None, xz=None):
     """Model rank ``i`` of ``n``'s channels up to the low-rank product: (its
-    conv'd x, its z, its f32 partial of x_proj's product). in_proj's x and z
-    columns are JAX's ``[x_k | z_k]`` reorder, two column ranges of the
-    whole weight (:func:`repro_torch.sharding.logical.weight`). A stored
-    shard of in_proj over ``model`` is a contiguous block of its ``2 *
-    d_inner`` columns (model rank 0 of 2 holds the x half), so the weight
-    is gathered whole over its axes and cut: the exchange GSPMD makes for
-    JAX's reorder, as an all-gather whose backward reduce-scatters the
-    gradient back to the stored block."""
+    conv'd x, its z, its f32 partial of x_proj's product, its new conv
+    history (B, K-1, d_inner/n) from ``hist``, the rank's history or None
+    for a zero start). in_proj's x and z columns are JAX's ``[x_k | z_k]``
+    reorder, two column ranges of the whole weight
+    (:func:`repro_torch.sharding.logical.weight`). A stored shard of in_proj
+    over ``model`` is a contiguous block of its ``2 * d_inner`` columns
+    (model rank 0 of 2 holds the x half), so the weight is gathered whole
+    over its axes and cut: the exchange GSPMD makes for JAX's reorder, as an
+    all-gather whose backward reduce-scatters the gradient back to the
+    stored block. ``xz``: ``x_full @ in_proj`` over all ``2 * d_inner``
+    columns where the caller has it instead (the decode step gathers each
+    rank's product with its stored block)."""
     di = cfg.d_inner
     di_l = di // n
     lo = i * di_l
     dtype = x_full.dtype
     ch = {0: (lo, di_l)}
-    w_in = logical.weight(p, "in_proj", {1: ((lo, di_l), (di + lo, di_l))}).to(dtype)
-    xb = torch.einsum("bsd,de->bse", x_full, w_in.narrow(1, 0, di_l))
-    z = torch.einsum("bsd,de->bse", x_full, w_in.narrow(1, di_l, di_l))
-    xb, _ = _causal_conv(xb, logical.weight(p, "conv_w", ch), logical.weight(p, "conv_b", ch), None)
+    if xz is None:
+        w_in = logical.weight(p, "in_proj", {1: ((lo, di_l), (di + lo, di_l))}).to(dtype)
+        xb = torch.einsum("bsd,de->bse", x_full, w_in.narrow(1, 0, di_l))
+        z = torch.einsum("bsd,de->bse", x_full, w_in.narrow(1, di_l, di_l))
+    else:
+        xb, z = xz.narrow(-1, lo, di_l), xz.narrow(-1, di + lo, di_l)
+    xb, new_hist = _causal_conv(xb, logical.weight(p, "conv_w", ch), logical.weight(p, "conv_b", ch), hist)
     xb = F.silu(xb)
-    return xb, z, torch.einsum("bsd,dr->bsr", xb.float(), logical.weight(p, "x_proj", ch).float())
+    return xb, z, torch.einsum("bsd,dr->bsr", xb.float(), logical.weight(p, "x_proj", ch).float()), new_hist
 
 
-def _ssm_shard_out(p, xb, z, proj, cfg: SSMConfig, i: int, n: int, impl: str, dtype) -> torch.Tensor:
+def _ssm_shard_out(p, xb, z, proj, cfg: SSMConfig, i: int, n: int, impl: str, dtype, h0=None):
     """Model rank ``i`` of ``n``'s channels from the completed low-rank
-    product ``proj`` (f32): dt, the selective scan on its channels, the
-    gate, and its partial sum of out_proj (in ``dtype``)."""
+    product ``proj`` (f32): dt, the selective scan on its channels from
+    ``h0`` (the rank's state (B, d_inner/n, N) f32, None for zeros), the
+    gate, and its partial sum of out_proj (in ``dtype``). Returns (the
+    partial sum, the final state)."""
     r, st = cfg.rank, cfg.d_state
     di_l = cfg.d_inner // n
     ch = lambda name, dim=0: logical.weight(p, name, {dim: (i * di_l, di_l)})   # noqa: E731
@@ -247,10 +258,11 @@ def _ssm_shard_out(p, xb, z, proj, cfg: SSMConfig, i: int, n: int, impl: str, dt
     dt = torch.einsum("bsr,rd->bsd", dt_lr.to(xb.dtype), ch("dt_proj", 1).to(xb.dtype))
     dt = F.softplus(dt.float() + ch("dt_bias").float())
     a = -torch.exp(ch("a_log").float())
-    h0 = torch.zeros((xb.shape[0], di_l, st), dtype=torch.float32, device=xb.device)
-    y, _ = selective_scan(xb, dt, a, b_t.to(xb.dtype), c_t.to(xb.dtype), ch("d_skip"), h0, impl=impl)
+    if h0 is None:
+        h0 = torch.zeros((xb.shape[0], di_l, st), dtype=torch.float32, device=xb.device)
+    y, h_final = selective_scan(xb, dt, a, b_t.to(xb.dtype), c_t.to(xb.dtype), ch("d_skip"), h0, impl=impl)
     y = y * F.silu(z)
-    return torch.einsum("bsd,de->bse", y, ch("out_proj").to(dtype)).to(dtype)
+    return logical.dot("bsd,de->bse", y, p, "out_proj", {0: (i * di_l, di_l)}, dtype=dtype).to(dtype), h_final
 
 
 def _ssm_explicit_tp(p, x: torch.Tensor, cfg: SSMConfig, lay, impl: str) -> torch.Tensor:
@@ -266,14 +278,48 @@ def _ssm_explicit_tp(p, x: torch.Tensor, cfg: SSMConfig, lay, impl: str) -> torc
 
     mesh = lay.mesh
     x_full = all_gather(x, mesh, "model", 1)
-    xb, z, part = _ssm_shard_in(p, x_full, cfg, lay.idx, lay.tp)
-    out_part = _ssm_shard_out(p, xb, z, psum(part, mesh, "model"), cfg, lay.idx, lay.tp, impl, x.dtype)
+    xb, z, part, _ = _ssm_shard_in(p, x_full, cfg, lay.idx, lay.tp)
+    out_part, _ = _ssm_shard_out(p, xb, z, psum(part, mesh, "model"), cfg, lay.idx, lay.tp, impl, x.dtype)
     return psum_scatter(out_part, mesh, "model", 1)
 
 
 def ssm_decode(p, x: torch.Tensor, cache: SSMCache, cfg: SSMConfig, *,
                impl: str = "kernel") -> Tuple[torch.Tensor, SSMCache]:
     """x: (B, 1, D): one O(1) state-space decode step. Returns (out, the new
-    cache); the given cache is not written."""
+    cache); the given cache is not written. In the decode layout with
+    ``tp > 1`` model ranks the cache is this rank's channels where ``tp``
+    divides ``d_inner``: :func:`_ssm_decode_tp`."""
+    lay = logical.active_layout()
+    if lay.decode and lay.tp > 1:
+        return _ssm_decode_tp(p, x, cache, cfg, lay, impl)
     out, new_hist, h_final = _ssm_inner(p, x, cfg, cache.conv, cache.h, impl)
     return out, SSMCache(conv=new_hist, h=h_final)
+
+
+def _ssm_decode_tp(p, x: torch.Tensor, cache: SSMCache, cfg: SSMConfig, lay, impl: str):
+    """One decode step in the decode layout on ``tp`` model ranks. With
+    ``d_inner`` over ``model`` (the parallel form): this rank's stored block
+    of in_proj's ``2 * d_inner`` columns times the whole token
+    (:func:`repro_torch.sharding.logical.dot`: no weight is gathered),
+    all-gathered over ``model``, gives the x and z columns of its channels;
+    the conv from its history (B, K-1, d_inner/tp); x_proj's f32 partial
+    completed by a ``psum``; kernel B15's one-token form on its channels
+    from its state (B, d_inner/tp, N); out_proj's partial sum completed by a
+    ``psum``. Otherwise (the fallback, counted) the mixer
+    runs whole from whole weights on the whole cache every rank holds."""
+    from ..launch.mesh import all_gather, psum
+
+    di, n, i, mesh = cfg.d_inner, lay.tp, lay.idx, lay.mesh
+    lo, di_l = lay.block("d_inner", di)
+    par = di_l < di
+    lay.count("ssm", par)
+    if not par:
+        out, new_hist, h_final = _ssm_inner(p, x, cfg, cache.conv, cache.h, impl)
+        return out, SSMCache(conv=new_hist, h=h_final)
+    if cache.h.shape[1] != di_l:
+        raise ValueError(f"ssm_decode: the rank's state holds {cache.h.shape[1]} channels, its block is {di_l}")
+    blk = 2 * di // n
+    xz = all_gather(logical.dot("bsd,de->bse", x, p, "in_proj", {1: (i * blk, blk)}), mesh, "model", 2)
+    xb, z, proj, new_hist = _ssm_shard_in(p, x, cfg, i, n, cache.conv, xz)
+    out, h_final = _ssm_shard_out(p, xb, z, psum(proj, mesh, "model"), cfg, i, n, impl, x.dtype, cache.h)
+    return psum(out, mesh, "model"), SSMCache(conv=new_hist, h=h_final)

@@ -29,7 +29,9 @@ hands each rank its part of the sequence (the ``seq_sp`` layout, where the
 length divides by the model ranks), the norms run on it, the blocks'
 regions gather and reduce-scatter it, and the head runs on it too, so
 :func:`forward` returns this rank's positions' logits (see
-``repro_torch.train.loss.lm_loss``). The serving paths run on one device.
+``repro_torch.train.loss.lm_loss``). The legacy decode step runs on such a
+mesh in JAX's decode layout (:func:`decode_step`, :func:`decode_cache_specs`);
+the paged serving steps run on one device.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ from .common import (
     torch_default_init,
 )
 from ..sharding import logical
-from ..sharding.shardspec import P, spec_entries
+from ..sharding.shardspec import P, local_shape, spec_entries
 from .mlp_moe import MoEConfig, mlp_forward, mlp_specs, moe_forward, moe_specs
 from .ssm import SSMConfig, init_ssm_cache, ssm_decode, ssm_forward, ssm_specs
 
@@ -380,26 +382,64 @@ class DecodeCache(NamedTuple):
     """The legacy loop's per-request caches. ``slots``: per mixer slot, a
     :class:`KVCache` or :class:`SSMCache` whose tensors are stacked over the
     periods (leading dim ``n_periods``) and updated in place by
-    :func:`decode_step`; ``step``: tokens consumed so far."""
+    :func:`decode_step`; ``step``: tokens consumed so far; ``max_seq``: the
+    KV caches' global positions (a rank of a mesh may hold a block of them;
+    None: as many as the tensors hold)."""
 
     slots: Dict[str, Any]
     step: int
+    max_seq: Optional[int] = None
+
+
+def decode_cache_specs(ctx, cache_abstract) -> Any:
+    """JAX's decode layout of a (global) :class:`DecodeCache` under the
+    sharding context ``ctx`` (``repro/launch/dryrun.py:63-86``): KV caches'
+    rows over the batch axes and positions over ``model`` (``seq_kv``), SSM
+    states' ``d_inner`` over ``model``; a dim that does not divide stays
+    whole. A :class:`DecodeCache` of PartitionSpecs."""
+    from .attention import KVCache
+    from .ssm import SSMCache
+
+    def kv(c):
+        scale = (ctx.spec_for(("layers", "batch", "seq_kv", None), tuple(c.k_scale.shape))
+                 if c.k_scale.ndim == 4 else P())
+        return KVCache(k=ctx.spec_for(("layers", "batch", "seq_kv", None, None), tuple(c.k.shape)),
+                       v=ctx.spec_for(("layers", "batch", "seq_kv", None, None), tuple(c.v.shape)),
+                       k_scale=scale, v_scale=scale, index=P())
+
+    def ssm(c):
+        return SSMCache(conv=ctx.spec_for(("layers", "batch", None, "d_inner"), tuple(c.conv.shape)),
+                        h=ctx.spec_for(("layers", "batch", "d_inner", None), tuple(c.h.shape)))
+
+    slots = {key: kv(c) if isinstance(c, KVCache) else ssm(c) for key, c in cache_abstract.slots.items()}
+    return DecodeCache(slots=slots, step=P(), max_seq=cache_abstract.max_seq)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None) -> DecodeCache:
     """Zeroed caches for ``batch`` rows of up to ``max_seq`` positions: KV
     caches in ``dtype`` for attention slots; for Mamba slots the conv
-    history in ``dtype`` and the state in f32, as the JAX cache keeps them."""
+    history in ``dtype`` and the state in f32, as the JAX cache keeps them.
+    Under a sharding context over a process mesh, this rank's blocks of
+    those global caches under :func:`decode_cache_specs` (``batch`` the
+    global rows)."""
     slots: Dict[str, Any] = {}
     for i, slot in enumerate(cfg.pattern):
         if slot.mixer == "attn":
-            c = init_kv_cache(batch, max_seq, cfg.n_kv_heads, cfg.hd, dtype, quant=cfg.kv_quant, device=device)
+            c = init_kv_cache(batch, max_seq, cfg.n_kv_heads, cfg.hd, dtype, quant=cfg.kv_quant, device="meta")
         elif slot.mixer == "mamba":
-            c = init_ssm_cache(batch, cfg.ssm_cfg(), dtype, device=device)
+            c = init_ssm_cache(batch, cfg.ssm_cfg(), dtype, device="meta")
         else:
             continue
-        slots[f"slot_{i}"] = type(c)(*(t[None].repeat((cfg.n_periods,) + (1,) * t.ndim) for t in c))
-    return DecodeCache(slots=slots, step=0)
+        slots[f"slot_{i}"] = type(c)(*(t[None].expand((cfg.n_periods,) + tuple(t.shape)) for t in c))
+    cache = DecodeCache(slots=slots, step=0, max_seq=max_seq)
+    ctx = logical.current()
+    specs = decode_cache_specs(ctx, cache) if ctx is not None and logical.is_process_mesh(ctx.mesh) else None
+
+    def zeros(key, j, t):
+        shape = tuple(t.shape) if specs is None else local_shape(tuple(t.shape), specs.slots[key][j], ctx.mesh)
+        return torch.zeros(shape, dtype=t.dtype, device=device)
+
+    return cache._replace(slots={k: type(c)(*(zeros(k, j, t) for j, t in enumerate(c))) for k, c in slots.items()})
 
 
 def abstract_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16) -> DecodeCache:
@@ -415,14 +455,32 @@ def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor], cache: Decode
     ``cache.step`` positions. Returns (logits (B, 1, vocab), the cache with
     ``step + 1``); each layer's cache tensors are written in place. A model
     without an embedding takes (B, 1, D) embeddings as ``tokens``, as in
-    JAX. ``ssm_impl="plain"`` runs the scan's plain twin, for comparisons."""
-    x = params["embed"][tokens.long()].to(cfg.dtype) if cfg.embed_inputs else tokens
-    if cfg.pos == "learned":
-        x = x + params["pos_embed"][cache.step][None, None].to(cfg.dtype)
-    with logical.use_layout(logical.LOCAL):
+    JAX. ``ssm_impl="plain"`` runs the scan's plain twin, for comparisons.
+
+    Under a sharding context over a process mesh the step runs in the
+    decode layout (:func:`repro_torch.sharding.logical.decode_layout`):
+    ``tokens`` and the caches are this rank's (:func:`init_decode_cache`),
+    ``params`` whole or this rank's stored shards
+    (:class:`repro_torch.sharding.logical.Weights`), read tensor-parallel
+    over ``model``; where ``model`` divides the vocabulary the embedding is
+    looked up in this rank's rows (a masked lookup completed by a ``psum``)
+    and the head computes this rank's columns of the logits, all-gathered
+    whole. The logits are this rank's rows', whole, alike on every rank of
+    its model group."""
+    with logical.use_layout(logical.decode_layout(cache.max_seq or 0)) as lay:
+        start, n = lay.block("vocab", cfg.vocab_size)
+        split = n < cfg.vocab_size
+        if cfg.embed_inputs:
+            if lay.tp > 1:
+                lay.count("embed", split)
+            x = logical.lookup(params, "embed", tokens.long(), (start, n) if split else None, cfg.dtype)
+        else:
+            x = tokens
+        if cfg.pos == "learned":
+            step = torch.full((1, 1), cache.step, dtype=torch.long, device=x.device)
+            x = x + logical.lookup(params, "pos_embed", step.expand(x.shape[0], 1), None, cfg.dtype)
         x = _decode_stack(cfg, params, cache, x, ssm_impl)
-    logits = _logits(cfg, params, x)
-    return logits, DecodeCache(slots=cache.slots, step=cache.step + 1)
+        return _logits(cfg, params, x), cache._replace(step=cache.step + 1)
 
 
 def _decode_stack(cfg: ModelConfig, params, cache: DecodeCache, x, ssm_impl: str):
@@ -437,7 +495,7 @@ def _decode_stack(cfg: ModelConfig, params, cache: DecodeCache, x, ssm_impl: str
                 y, nc = ssm_decode(p["ssm"], h, c, cfg.ssm_cfg(), impl=ssm_impl)
             x = x + y
             for buf, new in zip(c, nc):
-                if new.data_ptr() != buf.data_ptr():
+                if new is not buf:
                     buf.copy_(new)
         x, _ = _ffn(cfg, slot, p, x, with_aux=False)
     return x
@@ -504,11 +562,25 @@ def _paged_stack(cfg: ModelConfig, params: Dict[str, torch.Tensor], pools: Dict[
 
 def _logits(cfg: ModelConfig, params, x):
     """The final norm, then the tied embedding (a token model that ties) or
-    ``lm_head``."""
+    ``lm_head``, read through :func:`repro_torch.sharding.logical.dot`. In
+    the decode layout where ``model`` divides the vocabulary: this rank's
+    columns of the logits, all-gathered over ``model`` in rank order to
+    whole logits."""
+    lay = logical.active_layout()
+    start, n = lay.block("vocab", cfg.vocab_size) if lay.decode else (0, cfg.vocab_size)
+    split = n < cfg.vocab_size
+    if lay.decode and lay.tp > 1:
+        lay.count("head", split)
     x = _norm(cfg, _sub(params, "final_norm."), x)
     if cfg.tie_embeddings and cfg.embed_inputs:
-        return x @ logical.weight(params, "embed").to(cfg.dtype).T
-    return x @ logical.weight(params, "lm_head").to(cfg.dtype)
+        logits = logical.dot("bsd,vd->bsv", x, params, "embed", {0: (start, n)} if split else None, dtype=cfg.dtype)
+    else:
+        logits = logical.dot("bsd,dv->bsv", x, params, "lm_head", {1: (start, n)} if split else None, dtype=cfg.dtype)
+    if not split:
+        return logits
+    from ..launch.mesh import all_gather
+
+    return all_gather(logits, lay.mesh, "model", logits.ndim - 1)
 
 
 @torch.no_grad()

@@ -31,6 +31,19 @@ the loss on each rank's own positions instead, see
 ``SpecMesh`` the forward runs unsharded; only the MoE's dispatch groups
 (:attr:`Layout.groups`) follow the mesh's batch axes.
 
+A one-token decode step runs in the decode layout (:func:`decode_layout`,
+JAX's ``make_serve_step`` under ``repro/launch/dryrun.py:204-217``): a
+length-1 sequence does not split, so the residual stream is whole on every
+rank of a model group, and each region takes its all-reduce form: the
+rank's heads, columns, channels or experts, a partial sum completed by a
+``psum`` over ``model``, no gather or reduce-scatter of the sequence. The
+decode caches lie as ``decode_cache_specs`` cuts them: rows over the batch
+axes, each model rank a contiguous block of the KV cache's positions
+(``seq_kv``) and of the SSM state's channels (``d_inner``), a dim ``tp``
+does not divide whole on every rank (:meth:`Layout.block`). Stored shards
+are read there through :func:`dot` and :func:`lookup`, which gather no
+weight: the activations move instead.
+
 Parameter storage. The regions read every weight through :func:`weight`:
 from a whole weight (a plain dict) it narrows to the region's slice; from
 :class:`Weights`, each rank's stored shards under the parameter specs (as
@@ -185,6 +198,8 @@ class Layout:
 
     ctx: Optional[ShardingContext] = None
     sp: bool = False
+    decode: bool = False
+    seq_kv: int = 0   # decode: the caches' global positions (0: as many as a rank holds)
 
     @property
     def mesh(self):
@@ -244,6 +259,22 @@ class Layout:
         region whole, keep this rank's part."""
         return self.keep_own(fn(self.gather_seq(x)))
 
+    def block(self, name: str, size: int) -> Tuple[int, int]:
+        """(start, length) of this rank's part of a length-``size`` dim
+        named by the logical axis ``name`` (``seq_kv``, ``d_inner``,
+        ``vocab``): its model index's contiguous ``size/tp`` where
+        ``spec_for`` cuts the dim over ``model``, else the whole dim, as
+        JAX's ``spec_for`` falls back."""
+        if self.tp > 1 and spec_entries(self.ctx.spec_for((name,), (size,)), 1)[0] == ("model",):
+            n = size // self.tp
+            return self.idx * n, n
+        return 0, size
+
+    def count(self, kind: str, parallel: bool) -> None:
+        """:func:`region` of ``kind``, a decode form counted as
+        ``decode_<kind>`` beside the training forms."""
+        region(f"decode_{kind}" if self.decode else kind, parallel)
+
 
 _layout = threading.local()
 
@@ -282,11 +313,26 @@ def use_layout(lay: Optional[Layout]):
 LOCAL = Layout(None, False)
 
 
+def decode_layout(seq_kv: int) -> Layout:
+    """The layout of a one-token decode step over caches of ``seq_kv``
+    global positions (0: as many as each rank holds, the caches whole): on a
+    process mesh under the active context, the
+    decode layout (the residual stream whole on every rank of a model
+    group; with ``tp > 1`` each region's all-reduce form); otherwise
+    :data:`LOCAL`, one device as before."""
+    ctx = current()
+    if ctx is None or not is_process_mesh(ctx.mesh):
+        return LOCAL
+    return Layout(ctx, False, True, int(seq_kv))
+
+
 _regions: Dict[str, Dict[str, int]] = {}
 
 
 def region(kind: str, parallel: bool) -> None:
-    """Count one forward of a ``kind`` region ('mlp', 'attn', 'ssm', 'moe')
+    """Count one forward of a ``kind`` region ('mlp', 'attn', 'ssm', 'moe';
+    a decode step's 'decode_mlp', 'decode_attn', 'decode_ssm',
+    'decode_moe', 'decode_embed', 'decode_head', see :meth:`Layout.count`)
     on a process mesh with ``tp > 1``: in its parallel form, or by the
     whole-region fallback."""
     row = _regions.setdefault(kind, {"parallel": 0, "fallback": 0})
@@ -418,6 +464,116 @@ def weight(p: Mapping[str, Any], name: str, cuts: Optional[Mapping[int, Cut]] = 
         else:
             w = torch.cat([w.narrow(d, *c) for c in cut], dim=d)
     return w
+
+
+def dot(eq: str, x: torch.Tensor, p: Mapping[str, Any], name: str, cuts: Optional[Mapping[int, Cut]] = None, *,
+        rows: int = 0, dtype=None) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` with ``w`` :func:`weight`'s ``p[name]`` cut
+    by ``cuts`` (one ``(start, length)`` a dim) and cast to ``dtype`` (x's by
+    default).
+
+    In the decode layout on stored shards (:class:`Weights`) the weight is
+    never gathered: its stored shard stays where it is and the activations
+    move. A dim the cuts keep as stored is the region's own slice; any other
+    dim split over mesh axes is handled by where its letter goes. Over axes
+    whose ranks hold other rows of ``x`` (the batch axes; dim ``rows`` of
+    x), x's rows are first all-gathered over them. A contracted dim (the
+    ``embed`` dim over ``data``): x's block of it times the shard, the
+    partial sums kept in f32 and completed by a reduce-scatter of the rows
+    over those axes (by a ``psum`` over axes whose ranks hold the same
+    rows), then rounded to ``dtype`` once. An output dim:
+    the shard's block of the output, all-gathered along it (and this rank's
+    rows kept). Bytes moved are the activations', never the weight's."""
+    dtype = x.dtype if dtype is None else dtype
+    lay = active_layout()
+    if not (lay.decode and isinstance(p, Weights)):
+        return torch.einsum(eq, x, weight(p, name, cuts).to(dtype))
+    from ..launch.mesh import all_gather, psum, psum_scatter
+
+    mesh = p.mesh
+    ins, out = eq.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    w = p[name]
+    cuts = dict(cuts or {})
+    moves = []   # (letter, axes, start, length) of each split dim the cuts do not keep as stored
+    for d, axes in enumerate(spec_entries(p.specs[name], w.ndim)):
+        if not axes:
+            continue
+        blk = w.shape[d]
+        start = mesh.group_index(axes) * blk
+        if cuts.get(d) == (start, blk):
+            del cuts[d]
+        elif d in cuts:
+            w = all_gather(w, mesh, axes, d)
+        else:
+            moves.append((ws[d], axes, start, blk))
+    for d, (start, length) in cuts.items():
+        w = w.narrow(d, start, length)
+    row_axes = set(batch_axes(mesh, lay.ctx.rules))
+    by_rows = [m[1] for m in moves if set(m[1]) <= row_axes]
+    if len(by_rows) > 1:
+        raise ValueError(f"dot {name}: more than one dim split over the rows' axes ({by_rows})")
+    xg = all_gather(x, mesh, by_rows[0], rows) if by_rows else x
+    for letter, _, start, blk in moves:
+        if letter not in out:
+            xg = xg.narrow(xs.index(letter), start, blk)
+    # partial sums over a contracted split dim stay f32 until they are
+    # complete, so the product rounds to ``dtype`` once, as unsharded
+    part = torch.float32 if any(m[0] not in out for m in moves) else dtype
+    y = torch.einsum(eq, xg.to(dtype).to(part), w.to(dtype).to(part))
+    o_rows = out.index(xs[rows])
+    for letter, axes, _, _ in moves:
+        if letter not in out:
+            y = psum_scatter(y, mesh, axes, o_rows) if by_rows and axes == by_rows[0] else psum(y, mesh, axes)
+    y = y.to(dtype)
+    for letter, axes, _, _ in moves:
+        if letter in out:
+            y = all_gather(y, mesh, axes, out.index(letter))
+            if by_rows and axes == by_rows[0]:
+                n = x.shape[rows]
+                y = y.narrow(o_rows, mesh.group_index(axes) * n, n)
+    return y
+
+
+def lookup(p: Mapping[str, Any], name: str, ids: torch.Tensor, block: Optional[Tuple[int, int]] = None,
+           dtype=None) -> torch.Tensor:
+    """Rows ``ids`` (B, ...) of the table ``p[name]``, in ``dtype`` (the
+    table's by default). ``block``: (start, length) of the rows to read
+    (the vocabulary a model rank holds): ids outside it look up zeros, and a
+    ``psum`` over ``model`` completes every row exactly (one non-zero term).
+    In the decode layout on stored shards (:class:`Weights`) the table is
+    never gathered: rows outside ``block``'s stored shard are, and a column
+    dim split over the batch axes (``embed`` over ``data``) stays split:
+    the ids are all-gathered over those axes, each rank looks up its block
+    of every row, the blocks are all-gathered back and this rank's rows
+    kept. Elsewhere the table is read through :func:`weight`."""
+    from ..launch.mesh import all_gather, psum
+
+    lay = active_layout()
+    cut = {0: block} if block else None
+    cols: Tuple[str, ...] = ()
+    if lay.decode and isinstance(p, Weights):
+        tbl = p[name]
+        cols = spec_entries(p.specs[name], tbl.ndim)[1]
+        tbl = weight(Weights({name: tbl}, {name: P(spec_entries(p.specs[name], tbl.ndim)[0] or None, None)},
+                             p.mesh), name, cut)
+    else:
+        tbl = weight(p, name, cut)
+    by_rows = bool(cols) and set(cols) <= set(batch_axes(lay.mesh, lay.ctx.rules))
+    g = all_gather(ids, lay.mesh, cols, 0) if by_rows else ids
+    dtype = tbl.dtype if dtype is None else dtype
+    if block is None:
+        out = tbl[g].to(dtype)
+    else:
+        local = g - block[0]
+        hit = (local >= 0) & (local < block[1])
+        out = psum(torch.where(hit[..., None], tbl[local.clamp(0, block[1] - 1)].to(dtype), 0), lay.mesh, "model")
+    if cols:
+        out = all_gather(out, lay.mesh, cols, out.ndim - 1)
+        if by_rows:
+            n = ids.shape[0]
+            out = out.narrow(0, lay.mesh.group_index(cols) * n, n)
+    return out
 
 
 def gathered(p: Mapping[str, Any]) -> Dict[str, Any]:

@@ -280,7 +280,12 @@ def make_serve_step(cfg) -> Callable:
     """One batched decode step: ``(params, cache, tokens (B, 1)) ->
     (next_tokens (B, 1) int32, logits (B, 1, vocab), cache)``, greedy argmax
     as in the JAX package. The cache's tensors are written in place
-    (:func:`repro_torch.models.transformer.decode_step`)."""
+    (:func:`repro_torch.models.transformer.decode_step`). Under a sharding
+    context over a process mesh it runs in JAX's decode layout: ``params``
+    this rank's stored shards (``launch.train.stored_weights``) or whole,
+    ``cache`` and ``tokens`` this rank's (``init_decode_cache`` under the
+    context); the next tokens and the logits are its rows', whole and alike
+    on every rank of its model group."""
 
     def serve_step(params: Dict[str, torch.Tensor], cache: transformer.DecodeCache, tokens: torch.Tensor):
         logits, new_cache = transformer.decode_step(cfg, params, cache, tokens)

@@ -532,3 +532,103 @@ def param_shard_optimizers(mesh, arrays, data_kw, lr, steps, cases, names):
             rows, _ = launch.train(run, data, 1, log=lambda *a: None)
             out[name] = rows[0]["loss"]
     return out
+
+
+# -- decode on the mesh -------------------------------------------------------
+
+def decode_config(case):
+    """The port's config of a decode case: the reduced ``arch`` (its
+    ``optimized()`` fields with ``optimized``), with ``fields`` replaced
+    (a dtype by its torch name)."""
+    import dataclasses
+
+    from repro_torch.configs import get_optimized, get_reduced
+
+    cfg = get_optimized(case["arch"], reduced=True) if case.get("optimized") else get_reduced(case["arch"])
+    fields = {k: getattr(torch, v) if k == "dtype" else v for k, v in case.get("fields", {}).items()}
+    return dataclasses.replace(cfg, **fields)
+
+
+def _cache_np(cache):
+    """{slot: [each cache tensor but the fill index, as numpy]}."""
+    return {k: [_np(t) for f, t in zip(c._fields, c) if f != "index"] for k, c in cache.slots.items()}
+
+
+def serve_tokens(cfg, params, cache, tokens, steps):
+    """``make_serve_step`` for ``steps`` steps: the columns of ``tokens``
+    (B, T) fed first, then the step's own greedy tokens. Returns (each
+    step's logits (B, V) and next tokens (B,), the cache)."""
+    from repro_torch.train.step import make_serve_step
+
+    step = make_serve_step(cfg)
+    logits, nexts = [], []
+    tok = None
+    for t in range(steps):
+        if t < tokens.shape[1]:
+            tok = tokens[:, t:t + 1]
+        tok, lg, cache = step(params, cache, tok)
+        logits.append(_np(lg[:, 0]))
+        nexts.append(tok[:, 0].numpy().copy())
+    return np.stack(logits), np.stack(nexts), cache
+
+
+def decode_mesh(mesh, cases):
+    """Each case (``{name: dict(arch, fields, optimized, arrays, tokens,
+    steps, max_seq)}``) served on the mesh in the decode layout: this
+    rank's stored parameter shards (``launch.train.stored_weights`` cut from
+    the whole arrays), its rows of the tokens, its block of a
+    ``max_seq``-position cache (``init_decode_cache`` under the context),
+    ``steps`` steps through ``make_serve_step``. Returns each step's logits
+    and next tokens for the rank's rows, its cache blocks, the region counts
+    and the last step's collectives."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.train import stored_weights
+    from repro_torch.models import transformer
+    from repro_torch.sharding import ShardingContext, logical, use_sharding
+
+    out = {"coords": dict(mesh.coords)}
+    d, n_data = mesh.coords["data"], mesh.shape["data"]
+    for name, case in cases.items():
+        cfg = decode_config(case)
+        rows = case["tokens"].shape[0] // n_data
+        tokens = torch.from_numpy(case["tokens"][d * rows:(d + 1) * rows])
+        with use_sharding(ShardingContext(mesh, rules=dict(cfg.sharding_overrides) or None)):
+            params = stored_weights(cfg, mesh, whole=params_from_numpy(case["arrays"], "cpu"))
+            cache = transformer.init_decode_cache(cfg, case["tokens"].shape[0], case["max_seq"], cfg.dtype)
+            logical.region_counts(reset=True)
+            logits, nexts, cache = serve_tokens(cfg, params, cache, tokens, case["steps"])
+            regions = logical.region_counts(reset=True)
+        out[name] = {"logits": logits, "next": nexts, "cache": _cache_np(cache), "regions": regions,
+                     "step": cache.step}
+    return out
+
+
+def decode_cell_step(mesh, arch, seq, batch):
+    """One decode step of the dry run's reduced ``decode_32k`` cell
+    (``launch.dryrun.cell_config``: bf16 parameters drawn by
+    ``stored_weights``, a bf16 cache of ``seq`` positions for ``batch``
+    global rows) on this rank of the mesh: its persistent bytes (parameter
+    shards and cache block), the step's collectives by kind and its kernel
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import stored_weights
+    from repro_torch.models import transformer
+    from repro_torch.sharding import P, ShardingContext, use_sharding
+    from repro_torch.train.step import make_serve_step
+
+    cfg = dryrun.cell_config(arch, "decode_32k", reduced=True, seq=seq)
+    with use_sharding(ShardingContext(mesh, rules=dict(cfg.sharding_overrides) or None)):
+        params = stored_weights(cfg, mesh)
+        cache = transformer.init_decode_cache(cfg, batch, seq)
+        tokens = mesh.shard(torch.zeros((batch, 1), dtype=torch.int32), P("data", None))
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)   # noqa: E731
+        held = {"params": nbytes(params.values()), "opt": 0,
+                "cache": nbytes(t for c in cache.slots.values() for t in c)}
+        kernels.reset_launch_counts()
+        mesh.collective_stats(reset=True)
+        make_serve_step(cfg)(params, cache, tokens)
+        stats = mesh.collective_stats(reset=True)
+    return {"coords": dict(mesh.coords), "bytes": held,
+            "collectives": {k: {"calls": int(v["calls"]), "bytes": int(v["bytes"])} for k, v in stats.items()},
+            "launches": {k: v for k, v in kernels.launch_counts().items() if v}}

@@ -40,8 +40,8 @@ def ssm(p, x, cfg, n: int, impl: str):
     from repro_torch.models.ssm import _ssm_shard_in, _ssm_shard_out
 
     ins = [_ssm_shard_in(p, x, cfg, i, n) for i in range(n)]
-    proj = _sum(part for _, _, part in ins)
-    return _sum(_ssm_shard_out(p, xb, z, proj, cfg, i, n, impl, x.dtype) for i, (xb, z, _) in enumerate(ins))
+    proj = _sum(part for _, _, part, _ in ins)
+    return _sum(_ssm_shard_out(p, xb, z, proj, cfg, i, n, impl, x.dtype)[0] for i, (xb, z, _, _) in enumerate(ins))
 
 
 @contextlib.contextmanager

@@ -29,6 +29,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -132,8 +133,51 @@ for arch, seq, gb in spec["dot_cells"]:
         compiled = jitted.lower(params_abs, opt_abs, batch).compile()
         dots[arch] = hlo_analysis.analyze(compiled.as_text()).dot_flops
 out["dots"] = dots
+
+# the decode caches' specs of every decode cell (repro/launch/dryrun.py:63-86)
+from repro.configs import decode_input_specs
+cache_specs = {}
+for mesh_kind, mesh in meshes.items():
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            if SHAPES[shape][2] != "decode" or not cell_supported(arch, shape)[0]:
+                continue
+            cfg = cell_cfg(arch, shape)
+            ctx = ShardingContext(mesh, rules=dict(cfg.sharding_overrides) or None)
+            with use_sharding(ctx):
+                specs = dryrun.decode_cache_specs(ctx, decode_input_specs(cfg, shape)["cache"])
+            cache_specs[(arch, shape, mesh_kind)] = {k: [tuple(e) for e in c] for k, c in specs.slots.items()}
+out["cache_specs"] = cache_specs
 pickle.dump(out, open(os.path.join(work, "jax_out.pkl"), "wb"))
 print("ok")
+"""
+
+
+# every decode cell's cache on the production mesh of argv[1], as rank 0
+# holds it (init_decode_cache under the context) and as its global shape
+PORT_CACHES = r"""
+import json, sys
+from repro_torch.configs import ARCH_IDS, SHAPES, cell_supported
+from repro_torch.launch import dryrun
+from repro_torch.models import transformer
+from repro_torch.sharding import ShardingContext, use_sharding
+
+mesh = dryrun.make_meta_mesh(*dryrun.PRODUCTION[sys.argv[1]])
+out = {}
+for arch in ARCH_IDS:
+    for shape, (seq, gb, kind) in SHAPES.items():
+        if kind != "decode" or not cell_supported(arch, shape)[0]:
+            continue
+        cfg = dryrun.cell_config(arch, shape)
+        whole = transformer.abstract_decode_cache(cfg, gb, seq)
+        ctx = ShardingContext(mesh, rules=dict(cfg.sharding_overrides) or None)
+        with use_sharding(ctx):
+            local = transformer.abstract_decode_cache(cfg, gb, seq)
+        specs = dryrun.decode_cache_specs(ctx, whole)
+        out[f"{arch} {shape}"] = {k: [[list(t.shape) for t in whole.slots[k]], [list(t.shape) for t in c],
+                                      [[e if e is None or isinstance(e, str) else list(e) for e in sp]
+                                       for sp in specs.slots[k]]] for k, c in local.slots.items()}
+print(json.dumps(out))
 """
 
 
@@ -340,3 +384,83 @@ def test_sweep_writes_records_and_summary(tmp_path):
     assert rows["hubert_xlarge"]["status"] == "skipped" and "encoder-only" in rows["hubert_xlarge"]["reason"]
     rec = json.loads((tmp_path / "falcon_mamba_7b__long_500k__single.json").read_text())
     assert rec["n_chips"] == 256 and rec["launches"] == {"ssm_scan": 64} and rec["cuda_initialized"] is False
+
+
+def _norm_spec(spec, ndim):
+    """A spec's entries as tuples of axis names, padded to ndim."""
+    out = [() if e is None else (e,) if isinstance(e, str) else tuple(e) for e in spec]
+    return out + [()] * (ndim - len(out))
+
+
+@pytest.mark.parametrize("mesh_kind", ["single", "multi"])
+def test_decode_cells_hold_the_rank_block_of_jax_cache_layout(jax_side, mesh_kind):
+    """Every decode cell that ``cell_supported`` admits (decode_32k, and
+    long_500k for the SSM models), on the production mesh: the cache specs
+    of ``decode_cache_specs`` equal JAX's (rows over the batch axes, the KV
+    positions and the SSM ``d_inner`` over ``model``), and the cache rank 0
+    holds (``init_decode_cache`` under the context) is the global cache cut
+    by them."""
+    proc = subprocess.run([sys.executable, "-c", PORT_CACHES, mesh_kind], capture_output=True, text=True,
+                          env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout)
+    shape = {"single": {"data": 16, "model": 16}, "multi": {"pod": 2, "data": 16, "model": 16}}[mesh_kind]
+    want = {k: v for k, v in jax_side["jax"]["cache_specs"].items() if k[2] == mesh_kind}
+    assert sorted(got) == sorted(f"{a} {s}" for a, s, _ in want) and len(got) >= 10
+    split = set()
+    for (arch, shp, _), jslots in want.items():
+        cell = got[f"{arch} {shp}"]
+        assert set(cell) == set(jslots)
+        for slot, (whole, local, specs) in cell.items():
+            for g, l, sp, jsp in zip(whole, local, specs, jslots[slot]):
+                entries = _norm_spec(sp, len(g))
+                assert entries == _norm_spec(jsp, len(g)), (arch, shp, slot, sp, jsp)
+                cut = [n // int(np.prod([shape[a] for a in e])) for n, e in zip(g, entries)]
+                assert l == cut, (arch, shp, slot, g, l, entries)
+                split.update(a for e in entries[2:] for a in e)
+    assert split == {"model"}   # the positions or d_inner of some cell over model, nothing else
+
+
+def test_decode_cell_gathers_no_whole_weights(tmp_path):
+    """olmoe_1b_7b's decode_32k on the single-pod mesh: the step's own
+    memory stays below one model rank's share of the whole bf16 weights (no
+    weight is gathered: the activations move), and the cache rank 0 holds
+    is its 1/16 of the rows and of the positions."""
+    rec = _port_cell(tmp_path, "--arch", "olmoe_1b_7b", "--shape", "decode_32k", "--mesh", "single")
+    from repro_torch.launch.dryrun import cell_config
+
+    cfg = cell_config("olmoe_1b_7b", "decode_32k")
+    whole = 2 * cfg.param_count()
+    assert rec["peak_categories"]["Activation"] < whole / 16, rec["peak_categories"]
+    assert rec["persistent_bytes"]["params"] < whole / 128
+    seq, gb = 32768, rec["global_batch"]
+    kv = cfg.n_layers * gb * seq * cfg.n_kv_heads * cfg.hd * 2 * 2
+    # k and v in bf16; each layer's fill index and the two (1,) f32 scale placeholders whole
+    assert rec["persistent_bytes"]["cache"] == kv // 256 + cfg.n_layers * 12
+    assert rec["regions"]["decode_attn"] == {"parallel": cfg.n_layers, "fallback": 0}
+    assert rec["regions"]["decode_moe"] == {"parallel": cfg.n_layers, "fallback": 0}
+    assert rec["fits"] and "gathered whole" not in rec["decode_layout"]
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "falcon_mamba_7b"])
+def test_reduced_decode_cell_equals_the_mesh_step(tmp_path, arch):
+    """A reduced decode cell on a (2, 2) mesh (``--mesh-shape 2,2 --reduced
+    --seq 32 --batch 4``): its bytes a rank (parameter shards and cache
+    block) and its collectives (calls and bytes by kind) equal those of the
+    same step on 4 gloo CPU ranks; its predicted launches are B15 once a
+    Mamba layer (the CPU runs the scan's plain twin and launches nothing)."""
+    import _torch_ranks as ranks
+
+    from repro_torch.configs import get_reduced
+
+    rec = _port_cell(tmp_path, "--arch", arch, "--reduced", "--shape", "decode_32k", "--seq", "32", "--batch", "4",
+                     "--mesh-shape", "2,2")
+    steps = ranks.run_ranks(ranks.decode_cell_step, tmp_path, arch, 32, 4)
+    cfg = get_reduced(arch)
+    for r in steps:
+        assert r["bytes"] == rec["persistent_bytes"], (r["coords"], r["bytes"], rec["persistent_bytes"])
+        assert r["collectives"] == rec["collectives"], (r["coords"], r["collectives"], rec["collectives"])
+        assert r["launches"] == {}
+    mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_periods
+    assert rec["launches"] == ({"ssm_scan": mamba} if mamba else {})
+    assert rec["collectives"]["psum"]["calls"] > 0   # the regions' partial sums over model
