@@ -45,7 +45,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    CPU, and step timings, among them one SNR measurement of Adam's moments
    (``measure_tree_snr``, backend 'fused') in turns with a plain step, and
    its device profile (busy share, kernels by name).
-3b. Guarded training at full width, batch 8 x 1024 as ``grad_accum=2``:
+3b. Guarded training at full width cut to 4 of gpt_small's 12 layers (every
+   leaf, plan group and launch count of the whole model), batch 8 x 1024 as
+   ``grad_accum=2``:
    Adam measuring SNR and SlimAdam (Table 3) with from-update SNR, each 8
    steps under ``FaultPlan(nan_grad_steps=(3,), spike_steps=(6,))`` with
    checkpoints every 2 steps. The NaN step must leave parameters, moments
@@ -77,13 +79,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bit-equal. Timed as in phase 2, beside the bound and
    ``scaled_dot_product_attention`` on K/V gathered dense (gather untimed).
 5. The serving main path through ``repro_torch.serve.Engine`` on the card:
-   full-width smollm_135m (30 layers, random weights from seed 0), 32
-   requests of 64 new tokens (28 greedy, 4 sampled) over 16 slots and a pool
-   small enough to preempt. Every request must finish by length with no
-   page left used, and ``paged_attention`` must launch 30 times per decode
-   step and prefill chunk. Then decode-step and prefill-chunk times and a
-   device profile of decode steps and prefill chunks, with B14's share;
-   the logits of a prefill chunk and of 4 decode steps through the kernel
+   full-width smollm_135m cut to SERVE_LAYERS of its 30 layers (random
+   weights from seed 0), 32 requests of 64 new tokens (28 greedy, 4
+   sampled) over 16 slots and a pool small enough to preempt. Every request
+   must finish by length with no page left used, and ``paged_attention``
+   must launch once a layer per decode step and prefill chunk. Then
+   decode-step and prefill-chunk times and a device profile of decode
+   steps and prefill chunks, with B14's share; the logits of a prefill chunk and of 4 decode steps through the kernel
    against the plain twin from the same state; and reduced f32 smollm_135m
    and gpt_small served on the card against the CPU, token for token.
 6. The sharded slice: 4 processes share the card as the ranks of a
@@ -124,12 +126,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    number), and the gradient all-reduce's; one more step profiled (busy
    share on every rank) with the forward's collectives timed; peak memory
    on every rank. A rank that fails ends the run.
-6f-6l. The forward on the mesh, 4 new ranks of the same (data=2, model=2)
-   mesh: gpt_small cut to 2 layers (8 x 1024), olmoe_1b_7b cut to 1 layer and
-   falcon_mamba_7b cut to 1 (2 x 2048: a row a data group; olmoe's 320
-   slots an expert a group) at full width through the sharded Trainer, in
-   f32 and in bf16 activations: Adam for 2 steps measuring SNR at step 2,
-   then in bf16 Table-3 SlimAdam for 2 (6f). Every layer's attention,
+6f-6l. The forward on the mesh, phase 6's 4 rank processes and group
+   going on (``mesh_rank``): gpt_small cut to 2 layers (8 x 1024),
+   olmoe_1b_7b cut to 1 layer and falcon_mamba_7b cut to 1 (2 x 2048: a row a data group; olmoe's 320
+   slots an expert a group) at full width through the sharded Trainer: in
+   f32 activations Adam for 2 steps measuring SNR at step 2, in bf16
+   Table-3 SlimAdam for 2 (6f; olmoe's bf16 run is 6k's, TP_DTYPES).
+   Every layer's attention,
    MLP, MoE or Mamba mixer must take its tensor-, sequence- or
    expert-parallel form (counted a layer a step, forward and remat
    recompute; no fallback); launches counted (B2; B9; B12/B13 where the
@@ -162,9 +165,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    falcon_mamba_7b cut to 1 layer (2 x 2048), f32 Adam for 2 steps, held
    to 6f's whole-parameter run on the same rank (losses 1e-5, first-step
    gradient shards TOL_TP_GRAD of each leaf's largest |g|); olmoe_1b_7b
-   cut to 2 layers (1,045,178,368 parameters, 2 x 2048, lr 1e-4, JAX's G =
-   2 groups), f32 Adam, then bf16 Adam with one SNR measurement of its
-   moment shards (B9), then bf16 Table-3 SlimAdam, 2 steps each. Every
+   cut to 1 layer (2 x 2048, lr 1e-4, JAX's G = 2 groups; its f32 run also
+   held to 6f's), f32 Adam with one SNR measurement of its moment shards
+   (B9) after its steps, then bf16 Table-3 SlimAdam, 2 steps each. Every
    rank's bytes of p, g, m and v must equal the count reckoned from
    ``shardspec.local_shape`` (``launch.train.reckon_bytes``); each run's
    peak over the rank's start, regions (parallel form, a layer a step
@@ -177,7 +180,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and the routing choices and drops of each step and layer that differ
    from the split form's and the unsharded port's, counted. 6k (a): the
    dry run (``repro_torch.launch.dryrun``, in a process of its own over a
-   fake 4-rank group, on ``meta``, beside the ranks) of each of those runs:
+   fake 4-rank group, on ``meta``, started after the build) of each of those runs:
    its bytes a rank, the last step's collectives (calls and bytes by kind)
    and kernel launches must equal rank 0's; its predicted peak is printed
    beside the measured one. 6k (b): Adafactor, SM3, Lion, SGD-M and
@@ -214,6 +217,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of those steps (the 6k subprocess, on ``meta``): bytes a rank (parameter
    shards and cache block), collectives and launches equal every rank's
    measured step; its peak beside each rank's.
+6m. The launcher on a mesh, end to end: ``python -m
+   repro_torch.launch.train`` (``launch.train.main(argv)``, unchanged) run
+   by fresh rank processes sharing the card over gloo, each started as
+   torchrun starts a rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+   ``MASTER_ADDR``/``MASTER_PORT``, ``OMP_NUM_THREADS=1``), with ``launch.mesh.
+   make_production_mesh`` replaced by a mesh of the production mesh's axes
+   at small sizes (LAUNCH_MESHES): 8 ranks of (pod=2, data=2, model=2) run
+   ``--arch gpt_small --mesh multi --steps 4 --ckpt DIR --log-every 1`` at
+   full width and depth (124,373,760 parameters; the launcher's ``--seq
+   128 --batch 8``, ``--optimizer slim``, ``--backend auto``: the fused
+   route), a checkpoint every step; then 4 fresh ranks of (data=2,
+   model=2) run ``--mesh single`` from the step-2 checkpoint to step 4.
+   Checks, each ending the run: only rank 0 prints; every rank's bytes of
+   p, g, m and v equal ``reckon_bytes`` for its mesh; the dry run of each
+   mesh's step on ``meta`` (``--dryrun-6m``, a process each, started after
+   the build) equals every rank's first and last step in bytes, collectives and
+   launches, its peak within 6l (e)'s band of each rank's second step's (the
+   first also allocates one-time buffers); every kernel of the plan
+   (B2 on the dense leaves; B12 and B13 on Table 3's psum groups: under it
+   every compressed leaf of gpt_small is a psum leaf on these meshes, so B1
+   has no leaf) launches on every rank; the losses against the unsharded
+   port on the whole card (the same weights from a CPU generator seeded 0)
+   and steps 3-4 after the resume against the uninterrupted multi job,
+   within 6g's bf16 bar. Reported: host ms a step, busy share and
+   collectives by rank (gloo on one card, not a multi-GPU number).
 7. The SSM serving path: ``ssm_scan`` (B15) against its plain twin at the
    eval shape (1 x 2048 x 8192, N 16; the planner's sequence form) and the
    decode shape (4 rows, S = 1, a random h0; the one-token form), each run
@@ -242,7 +270,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and the twin; no library call computes it. Its geometry (grid, warps a
    block, shared bytes, workspace bytes) and B15's training form with and
    without the tile store, in turns.
-7g. Full-width falcon_mamba_7b cut to 8 layers (1,108,840,448 parameters;
+7g. Full-width falcon_mamba_7b cut to 4 layers (687,591,424 parameters;
    depth is the only cut) on ZipfLM batches of 2 x 2048, bf16 activations,
    remat, through the Trainer (``backend="fused"``): Adam for 4 steps
    measuring SNR at step 4 (B5 on the 15 candidates), the rules
@@ -283,7 +311,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    9,658,368-element embedding shard line (SPLIT) and on ResNet-18's (1,
    4608, 1536) axis-0 group (MAJOR). 9b: the 12 optimizers of
    ``repro_torch.train.trainer.OPTIMIZERS`` through the Trainer on
-   full-width gpt_small (batch 8 x 1024, bf16 activations, 3 steps each,
+   full-width gpt_small cut to 4 of its 12 layers (batch 8 x 1024, bf16
+   activations, 3 steps each,
    launch counters zeroed before and read after each run: B1 and B2 per
    the plan's groups each step for the SlimAdam family, B2 for Adam, no
    kernel for Adafactor, SM3, Lion and SGD-M), finite losses, optimizer
@@ -314,8 +343,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    B14 against the plain twin, and how many of the engine's greedy tokens
    the plain twin's path gives too (reported, not required); reduced f32
    olmoe_1b_7b served on the card against the CPU, token for token.
-11. Training the MoE family: full-width olmoe_1b_7b cut to 2 of its 16
-   layers (1,045,178,368 parameters; depth is the only cut) on ZipfLM
+11. Training the MoE family: full-width olmoe_1b_7b cut to 1 of its 16
+   layers (625,612,800 parameters; depth is the only cut) on ZipfLM
    batches of 2 x 2048, bf16 activations, remat, through the Trainer: the
    first 2 losses with ``backend='jnp'``, then Adam (fused) for 4 steps
    measuring SNR at step 4, whose first 2 losses must match (1e-4), the
@@ -339,8 +368,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 13. Training the rest of the dense zoo through ``make_train_step`` (as
    the JAX package trains these models), each on one fixed batch from a
    seed, bf16 activations, remat, lr 1e-4. 13a: hubert_xlarge at full
-   width cut to 12 of its 48 layers (d 1280, 16 heads of 80, non-causal;
-   236,606,720 parameters; 944,487,680 whole) on
+   width cut to 6 of its 48 layers (d 1280, 16 heads of 80, non-causal;
+   118,626,560 parameters; 944,487,680 whole) on
    2 x 4096 frame embeddings with per-frame labels: the flash path forward
    and backward in blocks of 1024; 3 Adam steps (B2), one SNR measurement
    of its second moments (B5), ``derive_rules``, 3 SlimAdam steps with the
@@ -455,17 +484,21 @@ TOL_ELEMENTWISE = 1e-6   # same operation order in kernel and plain version
 TOL_LINE = 1e-5          # depends on a line sum; summation order differs
 TOL_STEP = 1e-5          # a whole fused update against the plain 'jnp' backend
 TOL_SMALL_RUN = 1e-3     # reduced-model loss curve, card against CPU, 5 steps
-TOL_SERVE_LOGITS = 5e-2  # full-width logits, kernel against plain attention: bf16 activations through 30 layers
+TOL_SERVE_LOGITS = 5e-2  # full-width logits, kernel against plain attention: bf16 activations through the layers
 TOL_BF16_OUT = 2.0**-7   # a bf16 attention output: kernel and twin may round one bf16 step apart
 TOL_SNR = 1e-4           # from-update SNR against the plain math on the same g and v' (f64 against f32 sums)
 TOL_RESUME = 1e-4        # losses after a resume: the embedding backward sums with atomics on the card
 TOL_CARD_FORWARD = 1e-4  # a reduced f32 ResNet's logits, card against CPU: convolutions sum in another order
 
 # Serving run geometry (phase 5). 800 pool pages force preemption of the 32
-# requests; the scheduler's counts do not depend on the weights, since no
-# request stops at an eos token.
+# requests; the scheduler's counts do not depend on the weights or the depth,
+# since no request stops at an eos token. smollm_135m is cut to SERVE_LAYERS
+# of its 30 layers: its steps are bound by the host's work a layer (at 30
+# layers a decode step keeps the device busy under a tenth of its time), and
+# phases 5 and 15b step the engine ~430 times each.
 SERVE_SC = dict(max_seq=2048, page_size=16, max_slots=16, prefill_chunk=128, pool_pages=800)
 SERVE_REQUESTS, SERVE_GREEDY, SERVE_NEW = 32, 28, 64
+SERVE_LAYERS = 10
 
 
 def log(*a):
@@ -734,9 +767,9 @@ def serve_phases(torch, timer, rate: float, smi: str):
     torch.cuda.empty_cache()
 
     # -- 5. the serving main path -------------------------------------------
-    cfg = get_config("smollm_135m")
-    log(f"[5] serving main path: full-width smollm_135m ({cfg.param_count()} parameters, random weights from "
-        f"seed 0), {SERVE_REQUESTS} requests x {SERVE_NEW} new tokens, {SERVE_SC}")
+    cfg = get_config("smollm_135m", n_layers=SERVE_LAYERS)
+    log(f"[5] serving main path: full-width smollm_135m cut to {cfg.n_layers} of 30 layers ({cfg.param_count()} "
+        f"parameters, random weights from seed 0), {SERVE_REQUESTS} requests x {SERVE_NEW} new tokens, {SERVE_SC}")
     model = Transformer(cfg, device=dev, gen=torch.Generator().manual_seed(0))
     eng = Engine(cfg, model.params, ServeConfig(**SERVE_SC))
     del model
@@ -1129,9 +1162,18 @@ def robust_kernels(torch, timer, rate, gen, specs, meta, adam_plan, t3_plan, t3_
     return out
 
 
+# Phases 3b-3f train full-width gpt_small cut to 4 of its 12 layers: the
+# guard, checkpoints, routes and drill act leaf by leaf, and gpt_small's
+# layers stack on one leaf each, so the cut keeps every leaf, group and
+# launch count and halves the time of each step and checkpoint.
+ROBUST_LAYERS = 4
+
+
 def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dims):
-    """Phases 3b-3f through the port's entry points at full width. Returns
-    the report; each counted run's launches are in it."""
+    """Phases 3b-3f through the port's entry points at full width, ``cfg``
+    cut to ROBUST_LAYERS layers (``specs``, ``meta``, ``t3_plan`` and
+    ``t3_dims`` are the cut's). Returns the report; each counted run's
+    launches are in it."""
     import shutil
 
     from repro_torch import kernels
@@ -1183,7 +1225,8 @@ def robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dim
             + [t.clone() for t in inner.nu.values()] + [inner.count.clone()]
 
     # -- 3b. guarded runs with faults, checkpoints, from-update SNR -----------
-    log(f"[3b] guarded training, full-width gpt_small, batch 8 x 1024 as grad_accum=2, {plan}, "
+    log(f"[3b] guarded training, full-width gpt_small cut to {cfg.n_layers} layers, batch 8 x 1024 as "
+        f"grad_accum=2, {plan}, "
         f"GuardConfig(max_bad_steps=2, min_history=4), checkpoints every 2 steps")
     ft = {}
     for optimizer in ("adam", "slim"):
@@ -1493,6 +1536,60 @@ def collect_ranks(procs, out, what, deadline_s=900):
         if time.monotonic() > deadline:
             raise TimeoutError(f"{what}: the ranks did not finish in {deadline_s} s")
     return results
+
+
+def start_ranks(work: Path, body, *args) -> dict:
+    """Spawn the SHARD_RANKS processes of the (data=2, model=2) mesh on this
+    card, rank r running ``run_rank(body, r, rdv, out, *args)`` with its
+    file rendezvous in ``work`` (made empty here). Returns what
+    ``collect_ranks`` takes (``procs``, ``out``), the ``work`` directory and
+    ``mark``, the time the ranks were started (each phase's collection moves
+    it on)."""
+    import multiprocessing as mp
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=run_rank, args=(body, r, str(work / "rdv"), out, *args)) for r in range(SHARD_RANKS)]
+    mark = time.perf_counter()
+    for p in procs:
+        p.start()
+    return dict(procs=procs, out=out, work=work, mark=mark)
+
+
+def end_ranks(ranks: dict) -> None:
+    """Wait for ``start_ranks``' processes to exit; raise unless each exited
+    with 0. Any still alive after that is killed."""
+    procs = ranks["procs"]
+    try:
+        for p in procs:
+            p.join(timeout=SHARD_TIMEOUT_S)
+        if any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        kill_ranks(ranks)
+
+
+def kill_ranks(ranks: dict) -> None:
+    """Kill whichever of ``start_ranks``' processes is still alive."""
+    for p in ranks["procs"]:
+        if p.is_alive():
+            p.kill()
+
+
+def mesh_rank(rank, rdv, out, rate, ckpt_dir, smi):
+    """One rank of the (data=2, model=2) mesh for phase 6 and then phases
+    6f-6l, in one process and one process group: a fresh rank pays seconds
+    of one-time set-up (its start, CUDA, its group, its first collectives),
+    which the two phases then share. Each phase's results go to ``out`` in
+    turn; 6f-6l's files go beside the rendezvous, as when it runs alone."""
+    sharded_rank(rank, rdv, out, rate, ckpt_dir)
+    import torch
+
+    torch.cuda.empty_cache()
+    tp_rank(rank, rdv, out, rate, smi)
 
 
 def shard_inputs(torch, shape, seed, scale=1e-3):
@@ -1974,12 +2071,13 @@ def sharded_rank(rank, rdv, out, rate, ckpt_dir):
     mesh.barrier()
 
 
-def sharded_phase(torch, smi, rate):
-    """Phase 6: spawn the 4 ranks of a (data=2, model=2) mesh on this one
-    card and check what they report; then the unsharded port on the same
-    batches and the unsharded restore of the mesh's checkpoint. A rank that
-    fails ends the run with a non-zero code."""
-    import multiprocessing as mp
+def sharded_phase(torch, smi, rate, ranks=None):
+    """Phase 6: the 4 ranks of a (data=2, model=2) mesh on this one card
+    (``ranks``, started by ``start_ranks`` with ``mesh_rank``, which go on
+    to phases 6f-6l; else spawned here for phase 6 alone) and what they
+    report; then the unsharded port on the same batches and the unsharded
+    restore of the mesh's checkpoint. A rank that fails ends the run with a
+    non-zero code."""
     import shutil
 
     from repro_torch.configs import get_config
@@ -1988,29 +2086,23 @@ def sharded_phase(torch, smi, rate):
 
     log(f"[6] sharded slice: full-width gpt_small on a (data=2, model=2) mesh, {SHARD_RANKS} ranks sharing this "
         f"card ({smi}), batch 8 x 1024, 4 rows a data group; its trainers cut to {SHARD_TRAIN_LAYERS} layers")
-    work = ROOT / "build" / "chip_smoke_sharded"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
+    alone = ranks is None
+    if alone:
+        torch.cuda.empty_cache()
+        work = ROOT / "build" / "chip_smoke_sharded"
+        ranks = start_ranks(work, sharded_rank, rate, str(work / "ckpt"))
+    work = ranks["work"]
     ckpt_dir = str(work / "ckpt")
-    torch.cuda.empty_cache()
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    t0 = time.perf_counter()
-    procs = [ctx.Process(target=run_rank, args=(sharded_rank, r, str(work / "rdv"), out, rate, ckpt_dir))
-             for r in range(SHARD_RANKS)]
-    for p in procs:
-        p.start()
+    t0 = ranks["mark"]
     try:
-        results = collect_ranks(procs, out, "the sharded ranks")
-        for p in procs:
-            p.join(timeout=SHARD_TIMEOUT_S)
-        if any(p.exitcode != 0 for p in procs):
-            raise RuntimeError(f"rank exit codes {[p.exitcode for p in procs]}")
+        results = collect_ranks(ranks["procs"], ranks["out"], "the sharded ranks")
+        if alone:
+            end_ranks(ranks)
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
+        if alone:
+            kill_ranks(ranks)
     spawn_s = time.perf_counter() - t0
+    ranks["mark"] = time.perf_counter()
     r0 = results[0]
     for r in range(1, SHARD_RANKS):
         for key in ("adam_losses", "slim_snr_losses", "rules", "slim_losses", "adalayer_grouped_losses",
@@ -2067,7 +2159,8 @@ def sharded_phase(torch, smi, rate):
     log("[6d] the mesh's checkpoint restored unsharded: every leaf's crc32 equals the gathered state's")
     del back
     torch.cuda.empty_cache()
-    shutil.rmtree(work, ignore_errors=True)
+    # the ranks' group keeps its rendezvous file here while they go on (6f-6l removes it)
+    shutil.rmtree(work / "ckpt" if not alone else work, ignore_errors=True)
 
     def need(counts, names, label):
         for n in names:
@@ -2104,12 +2197,18 @@ def sharded_phase(torch, smi, rate):
 # first step's update with 4 such ranks; its 1-layer cut keeps 0.62 B).
 # gpt_small is cut to 2 of its 12 layers and falcon to 1 of its 64 to keep
 # the whole run inside its time: every region still runs in its parallel
-# form a layer a step. 6k trains olmoe's 2-layer cut with each rank holding
-# only its shards (SHARD_CASES).
+# form a layer a step. 6k trains the same cuts with each rank holding only
+# its shards (SHARD_CASES).
 TP_CASES = {"gpt_small": (2, 8, 1024, 1e-3), "olmoe_1b_7b": (1, 2, 2048, 1e-4),
             "falcon_mamba_7b": (1, 2, 2048, 1e-3)}
+# The activation dtypes 6f runs each case in. olmoe's bf16 Table-3 run on
+# this mesh is 6k's: the same cut, batches, regions and optimizer, held to
+# the same split form and unsharded references, with the parameters kept as
+# shards.
+TP_DTYPES = {"gpt_small": ("float32", "bfloat16"), "olmoe_1b_7b": ("float32",),
+             "falcon_mamba_7b": ("float32", "bfloat16")}
 TP_REGIONS = {"gpt_small": ("attn", "mlp"), "olmoe_1b_7b": ("attn", "moe"), "falcon_mamba_7b": ("ssm",)}
-TP_STEPS = 2                # Adam steps (SNR at the last), then Table-3 SlimAdam steps, per case and dtype
+TP_STEPS = 2                # steps a run: f32 Adam (SNR at the last), bf16 Table-3 SlimAdam
 TOL_TP_GRAD = 1e-5          # f32: each leaf's first-step gradient, of its largest |g|, against the unsharded port
 TP_REF_WORKERS = 2          # ranks that run the unsharded references at once (four f32 falcon Trainers overfill 80 GB)
 PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 1024   # GPipe: one full-width gpt_small block a stage
@@ -2117,7 +2216,7 @@ PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 1024   # GPipe: one full-width gpt_sma
 
 def tp_case(torch, mesh, arch: str, dtype, lead: bool, keep: dict) -> dict:
     """One full-width case on the mesh in one activation dtype (6f-6h): the
-    sharded Trainer (Adam measuring SNR, then in bf16 Table-3 SlimAdam;
+    sharded Trainer (in f32 Adam measuring SNR, in bf16 Table-3 SlimAdam;
     TP_STEPS each, launch and region counters zeroed before and read after
     each run), in f32 also the first step's averaged gradients, as its
     optimizer receives them; then rank 0 alone runs the unsharded port on the same batches from the same
@@ -2151,9 +2250,10 @@ def tp_case(torch, mesh, arch: str, dtype, lead: bool, keep: dict) -> dict:
     say(f"[6f] {label}: {cfg.n_layers} layers at full width, batch {rows} x {seq} ({rows // 2} row(s) a data group), "
         f"lr {lr}, through the sharded Trainer on the (data=2, model=2) mesh")
     first: dict = {}   # rank 0: the first step's whole averaged gradients, on the host
-    # f32: Adam only (its first-step gradients and losses); the optimizer's
-    # state and kernels are f32 in both runs, so Table 3 runs in bf16
-    res["optimizers"] = optimizers = ("adam",) if f32 else ("adam", "slim")
+    # f32: Adam (its first-step gradients and losses, B9); bf16: Table 3
+    # (B2 on its dense group, B1 or B12/B13 on the rest), the optimizer's
+    # state and kernels being f32 in both
+    res["optimizers"] = optimizers = ("adam",) if f32 else ("slim",)
     with use_sharding(ShardingContext(mesh)):
         for optimizer in optimizers:
             tc = TrainerConfig(total_steps=TP_STEPS, log_every=1, backend="fused", seed=0,
@@ -2349,7 +2449,7 @@ def tp_check(arch: str, r: dict, label: str) -> None:
             if run["scan_channels"] != {d_l: n} or run["bwd_channels"] != {d_l: n // 2}:
                 raise AssertionError(f"{label} {optimizer}: B15 by channels {run['scan_channels']}, the backward "
                                      f"{run['bwd_channels']}; expected {n} and {n // 2} launches on {d_l}")
-    if r["adam"]["launches"]["snr_stats_centered_partial_batched"] < 1:
+    if "adam" in r["optimizers"] and r["adam"]["launches"]["snr_stats_centered_partial_batched"] < 1:
         raise AssertionError(f"{label}: B9 never launched in the SNR measurement")
     if "slim" not in r:
         return
@@ -2486,12 +2586,13 @@ def momentless_case(torch, mesh, lead: bool) -> dict:
 # Full-width cases of 6k on the same (data=2, model=2) ranks, each rank
 # holding only its shards of p, g, m, v and the update: (layers kept, None for
 # the whole model; global rows; sequence; lr; the dtypes and optimizers run).
-# gpt_small and falcon's cut repeat 6f's f32 Adam run from the same weights;
-# olmoe's 2-layer cut is the one that did not fit four whole-parameter ranks.
+# Each repeats 6f's f32 Adam run from the same weights: olmoe at 6f's 1-layer
+# cut, not the 2-layer cut that does not fit four whole-parameter ranks, to
+# keep the whole run inside its time with 6m.
 SHARD_CASES = {
     "gpt_small": (2, 8, 1024, 1e-3, (("float32", "adam"),)),
     "falcon_mamba_7b": (1, 2, 2048, 1e-3, (("float32", "adam"),)),
-    "olmoe_1b_7b": (2, 2, 2048, 1e-4, (("float32", "adam"), ("bfloat16", "adam"), ("bfloat16", "slim"))),
+    "olmoe_1b_7b": (1, 2, 2048, 1e-4, (("float32", "adam"), ("bfloat16", "slim"))),
 }
 SHARD_STEPS = 2             # steps a run: Adam (SNR measured after the last in bf16), Table-3 SlimAdam
 TOL_SHARD_LOSS = 1e-5       # f32 losses against the whole-parameter path: only the order of sums differs
@@ -2535,10 +2636,10 @@ def shard_run(torch, mesh, arch: str, dtype_name: str, optimizer: str, lead: boo
     them, each kept as this rank's shard), the persistent bytes held
     against ``reckon_bytes`` (p, m, v; g's against p's), in f32 the first
     batch's gradient shards, SHARD_STEPS steps through ``launch.train``
-    (launch and region counters zeroed before), in bf16 Adam one SNR
-    measurement of its moment shards (B9), in bf16 Table 3 its last step
-    profiled; olmoe's bf16 routing recorded. f32 gpt_small and falcon are
-    held here to 6f's run (``keep``); olmoe's gradient shards go to
+    (launch and region counters zeroed before), after olmoe's Adam steps
+    one SNR measurement of its moment shards (B9), in bf16 Table 3 its last step
+    profiled; olmoe's bf16 routing recorded. f32 runs are held here to 6f's
+    run of the same cut (``keep``); olmoe's gradient shards also go to
     ``work`` for the reference after the ranks exit."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -2629,13 +2730,13 @@ def shard_run(torch, mesh, arch: str, dtype_name: str, optimizer: str, lead: boo
                                          f"{held['params']} B")
                 if ref is not None:
                     res["grad_rel_err"] = hold_grads(first, ref, label)
-                else:
+                if arch == "olmoe_1b_7b":
                     blocks = {k: [(d, mesh.group_index(axes) * g.shape[d], g.shape[d]) for d, axes in
                                   enumerate(spec_entries(run.p_sh[k].spec, g.ndim)) if axes]
                               for k, g in first.items()}
                     torch.save({"grads": first, "blocks": blocks}, work / f"grads_{arch}_{mesh.rank}.pt")
                 first.clear()
-            if dtype == torch.bfloat16 and optimizer == "adam":
+            if arch == "olmoe_1b_7b" and optimizer == "adam":
                 nu_specs = {k: s.spec for k, s in find_adam_nu(run.o_sh).items()}
                 snr = measure_tree_snr(find_adam_nu(state), run.model.meta, backend="fused", mesh=mesh,
                                        param_specs=nu_specs)
@@ -3108,6 +3209,41 @@ def dryrun_6k(path: Path) -> int:
     return 0
 
 
+def start_dryruns() -> dict:
+    """The dry runs on ``meta`` that 6k (a), 6l (e) and 6m hold the card's
+    steps to, each in a process of its own (``--dryrun-6k``, and
+    ``--dryrun-6m`` for each LAUNCH_MESHES mesh; no GPU). Started after the
+    build, they run beside the single-process phases, not beside the rank
+    processes of 6f and 6m that need the host's cores. Returns {name:
+    (process, JSON path, log path)}; a process still running when this
+    script exits is killed."""
+    import atexit
+    import shutil
+
+    work = ROOT / "build" / "chip_smoke_dry"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    argv = {"6k": ["--dryrun-6k"], **{kind: ["--dryrun-6m"] for kind in LAUNCH_MESHES}}
+    jobs = {}
+    for name, flag in argv.items():
+        path, log_path = work / f"{name}.json", work / f"{name}.log"
+        with open(log_path, "w") as out:
+            proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), *flag, str(path)]
+                                    + ([name] if name in LAUNCH_MESHES else []),
+                                    stdout=out, stderr=subprocess.STDOUT)
+        jobs[name] = (proc, path, log_path)
+    atexit.register(lambda: [proc.kill() for proc, *_ in jobs.values() if proc.poll() is None])
+    return jobs
+
+
+def dryrun_records(jobs: dict, name: str) -> dict:
+    """The records of ``start_dryruns``' job ``name``, once it has ended."""
+    proc, path, log_path = jobs[name]
+    if proc.wait(timeout=300) != 0:
+        raise RuntimeError(f"the {name} dry run failed:\n{log_path.read_text()[-3000:]}")
+    return json.loads(path.read_text())
+
+
 def hold_dryrun(results: dict, recs: dict, smi: str) -> dict:
     """6k (a): each run's dry run against rank 0's measured run: the bytes a
     rank, the last step's collectives (calls and bytes by kind) and kernel
@@ -3148,12 +3284,12 @@ def route_flips(a: list, b: list) -> list:
 
 
 def shard_reference(torch, results: dict, work, smi: str) -> dict:
-    """After the ranks exit, on the whole card: olmoe_1b_7b's 2-layer cut
+    """After the ranks exit, on the whole card: olmoe_1b_7b's 6k cut
     through the unsharded port (JAX's G = 2 groups under a ``SpecMesh``)
     from the same weights and batches. f32: the ranks' losses (1e-5) and
     every rank's gradient shards against the cut of the unsharded first-step
-    gradients (TOL_TP_GRAD of each leaf's largest |g|). bf16, Adam and Table
-    3: the losses against the split form's (``tests/_torch_split.py``) at
+    gradients (TOL_TP_GRAD of each leaf's largest |g|). bf16 Table 3: the
+    losses against the split form's (``tests/_torch_split.py``) at
     6g's bar, max(1e-4, twice the unsharded port's own gap as 2
     micro-batches); the routing choices and drops that differ from the
     split form's and the unsharded port's at each step and layer."""
@@ -3345,7 +3481,7 @@ def tp_rank(rank, rdv, out, rate, smi):
     res: dict = {}
     keep: dict = {}
     for arch in TP_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, name) for name in TP_DTYPES[arch]):
             label = f"{arch} {'f32' if dtype == torch.float32 else 'bf16'}"
             t0 = time.perf_counter()
             r = tp_case(torch, mesh, arch, dtype, lead, keep)
@@ -3366,55 +3502,36 @@ def tp_rank(rank, rdv, out, rate, smi):
     mesh.barrier()
 
 
-def tp_phase(torch, smi, rate):
-    """Phases 6f-6l: spawn the 4 ranks of a (data=2, model=2) mesh on this
-    card for the forward's tensor-, sequence- and expert-parallel regions,
-    GPipe, moment-less SlimAdam, parameter-shard storage and the decode
-    step; after they exit, olmoe's 6k references on the whole card, the
-    dry run held to 6k's and 6l's steps; then B15 and its backward at a
-    rank's channel shard and B15's one-token form at a decode rank's.
-    Returns (report, launches summed over rank 0's counted runs)."""
-    import multiprocessing as mp
+def tp_phase(torch, smi, rate, dry: dict, ranks=None):
+    """Phases 6f-6l: the 4 ranks of a (data=2, model=2) mesh on this card
+    (``ranks``, phase 6's, which ``mesh_rank`` takes on to these phases;
+    else spawned here for 6f-6l alone) for the forward's tensor-, sequence-
+    and expert-parallel regions, GPipe, moment-less SlimAdam,
+    parameter-shard storage and the decode step; after they exit, olmoe's
+    6k references on the whole card, the dry run held to 6k's and 6l's
+    steps; then B15 and its backward at a rank's channel shard and B15's
+    one-token form at a decode rank's. Returns (report, launches summed over
+    rank 0's counted runs)."""
     import shutil
 
-    cut = ", ".join(f"{arch} ({TP_CASES[arch][0] or 'all'} layers)" for arch in TP_CASES)
-    log(f"[6f] the forward on the mesh: {cut} at full width, f32 and bf16, {SHARD_RANKS} ranks sharing this card "
+    cut = ", ".join(f"{arch} ({TP_CASES[arch][0] or 'all'} layers; {', '.join(TP_DTYPES[arch])})"
+                    for arch in TP_CASES)
+    log(f"[6f] the forward on the mesh: {cut} at full width, {SHARD_RANKS} ranks sharing this card "
         f"({smi}); GPipe; moment-less SlimAdam")
-    work = ROOT / "build" / "chip_smoke_tp"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    torch.cuda.empty_cache()
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    t0 = time.perf_counter()
-    # 6k (a): the dry run of 6k's runs, on meta in a process of its own, beside the ranks
-    dry_json = work / "dryrun_6k.json"
-    dry = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-6k", str(dry_json)],
-                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    procs = [ctx.Process(target=run_rank, args=(tp_rank, r, str(work / "rdv"), out, rate, smi))
-             for r in range(SHARD_RANKS)]
-    for p in procs:
-        p.start()
+    if ranks is None:
+        torch.cuda.empty_cache()
+        ranks = start_ranks(ROOT / "build" / "chip_smoke_tp", tp_rank, rate, smi)
+    work, t0 = ranks["work"], ranks["mark"]
     try:
-        results = collect_ranks(procs, out, "the ranks of phase 6f")
-        for p in procs:
-            p.join(timeout=SHARD_TIMEOUT_S)
-        if any(p.exitcode != 0 for p in procs):
-            raise RuntimeError(f"rank exit codes {[p.exitcode for p in procs]}")
-        dry_out, _ = dry.communicate(timeout=300)
-        if dry.returncode != 0:
-            raise RuntimeError(f"the 6k dry run failed:\n{dry_out[-3000:]}")
+        results = collect_ranks(ranks["procs"], ranks["out"], "the ranks of phase 6f")
+        end_ranks(ranks)
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-        if dry.poll() is None:
-            dry.kill()
+        kill_ranks(ranks)
     spawn_s = time.perf_counter() - t0
     r0 = results[0]
     t0 = time.perf_counter()
     shards = shard_summary(torch, results, work, smi)
-    recs = json.loads(dry_json.read_text())
+    recs = dryrun_records(dry, "6k")
     shards["dryrun"] = hold_dryrun(results, {k: v for k, v in recs.items() if not k.startswith("decode ")}, smi)
     decode = decode_summary(results, recs, smi)
     log(f"[6l] decode on the mesh: {r0['decode_seconds']:.1f} s on the ranks")
@@ -3467,6 +3584,365 @@ def tp_phase(torch, smi, rate):
     summary["scan_token_shard"] = scan_token_shard(torch, rate, smi)
     log(f"[6f-6l] ranks {spawn_s:.1f} s (rank 0 {r0['seconds']:.1f} s)")
     return summary, launches
+
+
+# -- 6m. the launcher on a mesh ------------------------------------------------------
+
+# The harness's meshes with the production meshes' axes: ``main``'s
+# ``make_production_mesh`` builds (data=16, model=16) or (pod=2, data=16,
+# model=16), 256 or 512 ranks; in 6m's rank processes it builds these, the
+# ranks sharing this card over gloo.
+LAUNCH_MESHES = {"multi": ((2, 2, 2), ("pod", "data", "model")), "single": ((2, 2), ("data", "model"))}
+LAUNCH_STEPS, LAUNCH_RESUME = 4, 2   # the multi job's steps; the single job resumes from this step's checkpoint
+LAUNCH_SEQ, LAUNCH_BATCH, LAUNCH_LR = 128, 8, 3e-4   # the launcher's defaults, what 6m's argv leaves to them
+LAUNCH_TIMEOUT_S = 300
+LAUNCH_PEAK_BAND = DECODE_PEAK_BAND   # the dry run's peak over each rank's measured one (6l e)
+
+
+def launch_argv(mesh_kind: str, ckpt) -> list:
+    """The command line of 6m's jobs: ``python -m repro_torch.launch.train``'s
+    flags, every other one left at its default (``--seq 128 --batch 8
+    --optimizer slim --backend auto --lr 3e-4``, the full config)."""
+    return ["--arch", "gpt_small", "--mesh", mesh_kind, "--steps", str(LAUNCH_STEPS), "--ckpt", str(ckpt),
+            "--log-every", "1"]
+
+
+def launch_rank(rank, world, port, out, mesh_kind, ckpt):
+    """One rank of a 6m job, as torchrun starts it: ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` and ``OMP_NUM_THREADS=1``
+    in the environment,
+    then ``repro_torch.launch.train.main(argv)`` unchanged, with
+    ``launch.mesh.make_production_mesh`` replaced by LAUNCH_MESHES' mesh of
+    the same axes. What ``main`` prints is kept (the parent checks that only
+    rank 0 logs); from ``train``'s call: each step's metrics and host ms
+    (synchronised), the mesh, this rank's bytes of p, g (the optimizer's
+    first gradient shards), m and v against ``reckon_bytes``; the job's
+    first step's collectives and launches (the dry run counts a step from
+    the state the job starts with), its last step's, that step profiled;
+    each step's peak over what it started with (the held shards counted
+    once) and what it left allocated; the kernel launches of the whole job
+    (counts zeroed before ``main``); the seconds to the loop, in the steps
+    and in the checkpoints between them."""
+    import contextlib
+    import io
+
+    t_start = time.perf_counter()
+    # torchrun's environment for a rank, OMP_NUM_THREADS=1 included (its default with several ranks a host)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import kernels
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import mesh as launch_mesh, train as launch
+    from repro_torch.optim.base import GradientTransformation
+
+    launch_mesh.make_production_mesh = lambda *, multi_pod=False, **kw: launch_mesh.make_mesh(
+        *LAUNCH_MESHES["multi" if multi_pod else "single"], **kw)
+    argv = launch_argv(mesh_kind, ckpt)
+    backend = argv[argv.index("--backend") + 1] if "--backend" in argv else "auto"
+    seen: dict = {"step_ms": [], "peaks": [], "kept": []}
+    real_make_step, real_train = launch.make_train_step, launch.train
+
+    def make_train_step(model, tx, **kw):
+        def update(grads, opt_state, params=None):
+            seen.setdefault("grad_bytes", sum(g.numel() * g.element_size() for g in grads.values()))
+            return tx.update(grads, opt_state, params)
+
+        return real_make_step(model, GradientTransformation(tx.init, update), **kw)
+
+    def train(run, data, steps, *, start=0, **kw):
+        mesh = run.mesh
+        seen.update(run=run, start=start, held=run.persistent_bytes(), transport=mesh.transport_note(),
+                    reckoned=launch.reckon_bytes(run.model.cfg, "slim", LAUNCH_LR, mesh, backend=backend),
+                    to_loop_s=time.perf_counter() - t_start)
+        step, at = run.step, [start]
+
+        def counted(fn):
+            """fn()'s collectives (calls and bytes by kind) and launches."""
+            mesh.collective_stats(reset=True)
+            before = kernels.launch_counts()
+            out = fn()
+            stats = mesh.collective_stats(reset=True)
+            return out, {"collectives": {k: {"calls": int(v["calls"]), "bytes": int(v["bytes"])}
+                                         for k, v in stats.items()},
+                         "launches": {n: c - before[n] for n, c in kernels.launch_counts().items() if c != before[n]}}
+
+        def measured(opt_state, batch):
+            at[0] += 1
+            torch.cuda.synchronize()
+            held = run.persistent_bytes()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if at[0] == steps:
+                # the last step: its collectives and launches, profiled
+                box = []
+                with contextlib.redirect_stdout(io.StringIO()):
+                    prof, seen["last"] = counted(lambda: profile_device(
+                        torch, lambda: box.append(step(opt_state, batch)), 1,
+                        statistics.median(seen["step_ms"]), "step"))
+                seen["last"].update(busy_ms=prof["busy_ms"], top_kernels=prof["kernels"][:8])
+                new = box[0]
+            else:
+                t0 = time.perf_counter()
+                new, counts = counted(lambda: step(opt_state, batch))
+                torch.cuda.synchronize()
+                seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                if at[0] == start + 1:
+                    # the job's first step, as the dry run counts one from this state
+                    seen["first"] = dict(counts, bytes=held)
+            # the step's peak over what it started with, the held shards counted once; and what it
+            # left allocated beyond them (the first step's one-time buffers: cuBLAS's workspace, ...)
+            seen["peaks"].append(sum(held.values()) + torch.cuda.max_memory_allocated() - base)
+            seen["kept"].append(torch.cuda.memory_allocated() - base)
+            return new
+
+        t0 = time.perf_counter()
+        rows, opt_state = real_train(run._replace(step=measured), data, steps, start=start, **kw)
+        seen.update(rows=rows, train_s=time.perf_counter() - t0)
+        return rows, opt_state
+
+    launch.make_train_step, launch.train = make_train_step, train
+    printed = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(printed):
+        launch.main(argv)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    run = seen["run"]
+    state = dict(store.named_leaves(run.state()))
+    moment = lambda part: sum(t.numel() * t.element_size() for k, t in state.items()   # noqa: E731
+                              if k.startswith("opt.") and f".{part}." in f".{k}.")
+    res = {"rank": rank, "coords": dict(run.mesh.coords), "mesh": dict(run.mesh.shape), "start": seen["start"],
+           "rows": seen["rows"], "printed": printed.getvalue(), "transport": seen["transport"],
+           "seconds": {"to_loop": seen["to_loop_s"], "loop": seen["train_s"],
+                       "main": time.perf_counter() - t_start},
+           "bytes": {"params": seen["held"]["params"], "grads": seen.get("grad_bytes"), "mu": moment("mu"),
+                     "nu": moment("nu"), "opt": seen["held"]["opt"]},
+           "reckoned": seen["reckoned"], "step_ms": seen["step_ms"], "first": seen["first"], "last": seen["last"],
+           "peaks": seen["peaks"], "kept": seen["kept"], "launches": launches}
+    import torch.distributed as dist
+
+    dist.barrier()
+    out.put((rank, res))
+    dist.destroy_process_group()
+
+
+def launch_job(mesh_kind: str, ckpt) -> dict:
+    """One 6m job: a fresh process a rank of LAUNCH_MESHES[mesh_kind], all
+    sharing this card, collected as ``collect_ranks`` collects 6f's."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    world = math.prod(LAUNCH_MESHES[mesh_kind][0])
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=run_rank, args=(launch_rank, r, world, port, out, mesh_kind, str(ckpt)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        results = collect_ranks(procs, out, f"the ranks of 6m's {mesh_kind} job", deadline_s=LAUNCH_TIMEOUT_S)
+        for p in procs:
+            p.join(timeout=60)
+        if any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"6m {mesh_kind}: rank exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    return results
+
+
+def dryrun_6m(path: Path, mesh_kind: str) -> int:
+    """6m's dry run, in a process of its own (one fake group a process):
+    ``repro_torch.launch.dryrun`` of the launcher's step (full gpt_small,
+    Table-3 SlimAdam on the fused route, 8 x 128, grad_accum 1) as rank 0
+    of ``mesh_kind``'s LAUNCH_MESHES mesh on ``meta``; the record goes to
+    ``path`` as JSON. Needs no GPU and touches none."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    shape, axes = LAUNCH_MESHES[mesh_kind]
+    rec = dryrun.run_cell("gpt_small", "train_4k", "x".join(map(str, shape)), optimizer="slim", backend="fused",
+                          grad_accum=1, out_dir=None, mesh=dryrun.make_meta_mesh(shape, axes),
+                          cfg=get_config("gpt_small"), seq=LAUNCH_SEQ, global_batch=LAUNCH_BATCH)
+    path.write_text(json.dumps(rec, default=str))
+    return 0
+
+
+def launch_check(mesh_kind: str, results: dict, rec: dict, start: int, smi: str) -> dict:
+    """6m's checks of one job, logged first and then each a failure that
+    ends the run: every rank ran ``main`` on LAUNCH_MESHES' mesh from step
+    ``start``, only rank 0 printed (a line a step), every rank the same
+    losses; every rank's bytes of p, g, m and v equal ``reckon_bytes`` (g
+    the parameters'); the dry run on ``meta`` equals every rank's first and
+    last step in collectives and launches and its bytes, its peak within
+    LAUNCH_PEAK_BAND of the second step's (each step's peak over what it
+    started with; the first also allocates one-time buffers); every kernel
+    the dry run predicts
+    launched on every rank, B12 and B13 among them (the plan's psum
+    groups)."""
+    shape, axes = LAUNCH_MESHES[mesh_kind]
+    want_mesh = dict(zip(axes, shape))
+    ranks = [res for _, res in sorted(results.items())]
+    r0 = ranks[0]
+    losses = [row["loss"] for row in r0["rows"]]
+    fails = [] if all(map(math.isfinite, losses)) else [f"losses {losses}"]
+    want = {"collectives": rec["collectives"], "launches": rec["launches"]}
+    # the job's second step: its first allocates one-time buffers beside the step's tensors
+    # (cuBLAS's workspace and the like), which no dry run counts; reported beside it
+    ratios = [rec["peak_bytes"] / res["peaks"][1] for res in ranks]
+    first_ratios = [rec["peak_bytes"] / res["peaks"][0] for res in ranks]
+    for r, res in enumerate(ranks):
+        if res["mesh"] != want_mesh or res["start"] != start:
+            fails.append(f"rank {r}: mesh {res['mesh']} from step {res['start']}")
+        if [row["loss"] for row in res["rows"]] != losses:
+            fails.append(f"rank {r}: losses {[row['loss'] for row in res['rows']]}, rank 0's {losses}")
+        if r and res["printed"]:
+            fails.append(f"rank {r} printed {res['printed'].splitlines()[:3]}")
+        b, reckoned = res["bytes"], res["reckoned"]
+        if (b["params"], b["grads"], b["opt"]) != (reckoned["params"], reckoned["params"], reckoned["opt"]):
+            fails.append(f"rank {r}: bytes {b}, reckoned {reckoned}")
+        if res["first"]["bytes"] != rec["persistent_bytes"]:
+            fails.append(f"rank {r}: the dry run's bytes {rec['persistent_bytes']}, the card's "
+                         f"{res['first']['bytes']}")
+        for which in ("first", "last"):
+            for what, value in want.items():
+                if res[which][what] != value:
+                    fails.append(f"rank {r}: the dry run's {what} {value}, the card's {which} step's "
+                                 f"{res[which][what]}")
+        if not LAUNCH_PEAK_BAND[0] <= ratios[r] <= LAUNCH_PEAK_BAND[1]:
+            fails.append(f"rank {r}: the dry run's peak {rec['peak_bytes']} is {ratios[r]:.4f}x the card's second "
+                         f"step's {res['peaks'][1]}, outside {LAUNCH_PEAK_BAND}")
+        missing = sorted(k for k in set(rec["launches"]) | {"mega_slim_partial_stats_batched",
+                                                            "mega_slim_finalize_batched"} if not res["launches"].get(k))
+        if missing:
+            fails.append(f"rank {r}: no launch of {missing} (launches {res['launches']})")
+    steps = [f"step {s}:" for s in range(start + 1, LAUNCH_STEPS + 1)]
+    if [ln.split(" loss")[0] for ln in r0["printed"].splitlines() if " loss " in ln] != steps:
+        fails.append(f"rank 0 printed {r0['printed'].splitlines()}")
+    for ln in r0["printed"].splitlines():
+        log(f"  [6m {mesh_kind}] rank 0: {ln}")
+    busy = [res["last"]["busy_ms"] / statistics.median(res["step_ms"]) for res in ranks]
+    coll = r0["last"]["collectives"]
+    seconds = {k: [round(res["seconds"][k], 1) for res in ranks] for k in r0["seconds"]}
+    log(f"[6m] {mesh_kind} {want_mesh}: {r0['transport']} ({smi}; gloo on one card, not a multi-GPU number): steps "
+        f"{[round(x, 1) for x in r0['step_ms']]} ms on rank 0's host clock (synchronised; the job's first step "
+        f"first, the last step profiled and not among them), median by rank "
+        f"{[round(statistics.median(res['step_ms']), 1) for res in ranks]} ms; busy share by rank "
+        f"{[round(x, 4) for x in busy]}; a step's collectives "
+        + ", ".join(f"{k} {v['calls']} calls {v['bytes']:,} B" for k, v in coll.items())
+        + f"; seconds by rank {seconds} (to the loop: start, mesh, build, resume; the loop: steps and checkpoints)"
+        f"; bytes a rank p {r0['bytes']['params']:,} g {r0['bytes']['grads']:,} m {r0['bytes']['mu']:,} v "
+        f"{r0['bytes']['nu']:,} (reckoned {r0['reckoned']}); dry run: bytes {rec['persistent_bytes']}, launches "
+        f"{rec['launches']}, peak {rec['peak_bytes'] / 2**30:.4f} GiB, ratio to each rank's second step "
+        f"{[round(x, 4) for x in ratios]} (to its first {[round(x, 4) for x in first_ratios]}); rank 0's peaks by "
+        f"step {r0['peaks']} B, left allocated by each step {r0['kept']} B; launches of the job on rank 0 "
+        f"{r0['launches']}")
+    if fails:
+        raise AssertionError(f"6m {mesh_kind}: " + "; ".join(fails[:6]))
+    return dict(losses=losses, step_ms_by_rank=[res["step_ms"] for res in ranks], busy_share_by_rank=busy,
+                collectives=coll, bytes=r0["bytes"], peak_ratios=ratios, first_step_peak_ratios=first_ratios,
+                peak_bytes_by_rank=[res["peaks"] for res in ranks], kept_bytes_rank0=r0["kept"], launches=r0["launches"],
+                seconds_by_rank=seconds, top_kernels=r0["last"]["top_kernels"])
+
+
+def launch_phase(torch, smi: str, dry: dict):
+    """6m: ``python -m repro_torch.launch.train --mesh multi`` then
+    ``--mesh single``, each rank a fresh process sharing this card. 8 ranks
+    of (pod=2, data=2, model=2) run ``main`` on full-width, full-depth
+    gpt_small for LAUNCH_STEPS steps with a checkpoint every step; 4 fresh
+    ranks of (data=2, model=2) resume from its step-LAUNCH_RESUME checkpoint
+    (the other steps' taken out of a copy of the directory) to step
+    LAUNCH_STEPS: a checkpoint written on one mesh restored onto another.
+    The dry run of each mesh's step on ``meta`` comes from ``dry``
+    (:func:`start_dryruns`). After
+    the ranks, the unsharded port on the whole card from the same weights
+    (``Trainer``, a CPU generator seeded 0, as ``build`` draws them), once as
+    one batch and once as 2 micro-batches. The losses of both jobs within
+    max(1e-4, twice that 2-micro-batch gap) (6g's bf16 bar, relative) of the
+    unsharded run's, steps 3-4 after the resume within the same bar of the
+    uninterrupted multi job's. Returns (report, launches summed over rank
+    0's jobs)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.train import Trainer, TrainerConfig
+
+    work = ROOT / "build" / "chip_smoke_launch"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    log(f"[6m] python -m repro_torch.launch.train {' '.join(launch_argv('multi', 'DIR'))}: 8 fresh ranks of "
+        f"{dict(zip(*LAUNCH_MESHES['multi'][::-1]))} sharing this card ({smi})")
+    t0 = time.perf_counter()
+    multi = launch_job("multi", work / "multi")
+    job_s = {"multi": time.perf_counter() - t0}
+    # the single job starts from the multi job's step-LAUNCH_RESUME checkpoint alone
+    src = work / "multi" / f"step_{LAUNCH_RESUME:08d}"
+    shutil.copytree(src, work / "single" / src.name)
+    (work / "single" / "LATEST").write_text(src.name)
+    log(f"[6m] --mesh single: 4 fresh ranks resume the multi job's step-{LAUNCH_RESUME} checkpoint")
+    t0 = time.perf_counter()
+    single = launch_job("single", work / "single")
+    job_s["single"] = time.perf_counter() - t0
+    log(f"[6m] the jobs' wall time, spawn to exit: {', '.join(f'{k} {v:.1f} s' for k, v in job_s.items())}")
+    recs = {kind: dryrun_records(dry, kind) for kind in LAUNCH_MESHES}
+    ranks_s = time.perf_counter() - t_start
+    report = {"multi": launch_check("multi", multi, recs["multi"], 0, smi),
+              "single": launch_check("single", single, recs["single"], LAUNCH_RESUME, smi)}
+    # the unsharded port on the whole card, the same weights and batches
+    t0 = time.perf_counter()
+    cfg = get_config("gpt_small")
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=LAUNCH_SEQ, global_batch=LAUNCH_BATCH))
+    ref = {}
+    for accum in (1, 2):
+        tr = Trainer(cfg, "slim", LAUNCH_LR, data, TrainerConfig(total_steps=LAUNCH_STEPS, log_every=1,
+                                                                 backend="fused"), grad_accum=accum)
+        tr.run()
+        ref[accum] = [m["loss"] for m in tr.metrics_log]
+        del tr
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    gap = rel(ref[2], ref[1])
+    tol = max(TOL_SHARDED_LOSS, 2 * gap)
+    got, resumed = report["multi"]["losses"], report["single"]["losses"]
+    errs = {"multi": rel(got, ref[1]), "single": rel(resumed, ref[1][LAUNCH_RESUME:]),
+            "resume": rel(resumed, got[LAUNCH_RESUME:])}
+    log(f"[6m] losses: multi {got}, single from step {LAUNCH_RESUME} {resumed}; unsharded port on the whole card "
+        f"{ref[1]}, as 2 micro-batches {ref[2]} (gap {gap:.3e}); rel diff multi {errs['multi']:.3e}, single "
+        f"{errs['single']:.3e}, resumed against the uninterrupted multi job {errs['resume']:.3e} (tol max("
+        f"{TOL_SHARDED_LOSS:.0e}, 2 x gap) = {tol:.3e})")
+    bad = {k: v for k, v in errs.items() if v > tol}
+    if bad:
+        raise AssertionError(f"6m: losses outside the bar {tol:.3e}: {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+    report.update(reference=ref, gap=gap, tol=tol, errs=errs, ranks_s=ranks_s, job_s=job_s,
+                  reference_s=time.perf_counter() - t0, dryrun={k: dict(peak_bytes=v["peak_bytes"],
+                                                                        step_s=v["step_s"]) for k, v in recs.items()})
+    log(f"[6m] the launcher on a mesh: ranks {ranks_s:.1f} s (a rank's main: multi "
+        f"{max(report['multi']['seconds_by_rank']['main']):.1f} s, single "
+        f"{max(report['single']['seconds_by_rank']['main']):.1f} s), the unsharded references "
+        f"{report['reference_s']:.1f} s")
+    launches: dict = {}
+    for kind in ("multi", "single"):
+        for k, v in report[kind]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return report, launches
 
 
 def scan_shard_timings(torch, rate: float, smi: str) -> dict:
@@ -3797,7 +4273,7 @@ def ssm_phase(torch, timer, rate: float, smi: str):
     return report, entry
 
 
-SSM_TRAIN_ROWS, SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS, SSM_GRAD_LAYERS = 2, 8, 4, 2
+SSM_TRAIN_ROWS, SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS, SSM_GRAD_LAYERS = 2, 4, 4, 2
 TOL_SSM_BWD = 1e-5        # ssm_scan_bwd against its twin: exp2 replay, warp-butterfly and in-order sums differ
 TOL_SSM_BWD_DX_BF16 = TOL_SSM_BWD + 2.0**-8  # dx stored in bf16 (x's dtype): plus the rounding of that store
 TOL_SSM_GRADS_F32 = 1e-3  # 2-layer full-width gradients, kernel against plain scan, f32 activations
@@ -3955,8 +4431,8 @@ def ssm_train_phase(torch, timer, rate: float, smi: str):
         tr = Trainer(cut, optimizer, 1e-3, data, tc)
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in tr.params.values())
-        if n_params != 1_108_840_448:
-            raise AssertionError(f"the {SSM_TRAIN_LAYERS}-layer cut has {n_params} parameters, expected 1108840448")
+        if n_params != 687_591_424:
+            raise AssertionError(f"the {SSM_TRAIN_LAYERS}-layer cut has {n_params} parameters, expected 687591424")
         rules = {} if optimizer == "adam" else table3_rules(tr.meta)
         dims = rules_to_dims(rules, tr.meta)
         leaves = list(tr.params.values())
@@ -4456,6 +4932,10 @@ def long_lines(torch, smi) -> dict:
     return out
 
 
+# Phase 9b trains full-width gpt_small cut to 4 of its 12 layers (as 3b-3f).
+BASELINE_LAYERS = 4
+
+
 def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_plan, held, group_key):
     """Phase 9: B1 held on the baseline rule sets' plans, the 12 optimizers
     through the Trainer on full-width gpt_small, ResNet-18, the linear LM and
@@ -4545,13 +5025,24 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
     report["long_line"] = long_lines(torch, smi)
 
     # -- 9b. the 12 optimizers through the Trainer -------------------------------------
-    log("[9b] the 12 optimizers on full-width gpt_small, batch 8 x 1024, bf16 activations, backend='fused', "
-        "3 steps each")
-    n_params = cfg.param_count()
+    # gpt_small's layers stack on one leaf each: the cut keeps every leaf and
+    # plan group kind, and the rule sets, named by leaf and axis, are the same
+    bcfg = dataclasses.replace(cfg, n_layers=BASELINE_LAYERS)
+    bspecs = dict(flatten_with_names(bcfg.specs()))
+    bmeta = {k: s.meta() for k, s in bspecs.items()}
+
+    def cut_plan(rule_set):
+        dims = rules_to_dims(rule_set, bmeta)
+        return megaplan.plan_megagroups([s.shape for s in bspecs.values()], [torch.float32] * len(bspecs),
+                                        [dims[k] for k in bspecs])
+
+    log(f"[9b] the 12 optimizers on full-width gpt_small cut to {bcfg.n_layers} layers, batch 8 x 1024, bf16 "
+        f"activations, backend='fused', 3 steps each")
+    n_params = bcfg.param_count()
     trainers, runs = {}, {}
     for name in OPTIMIZERS:
         if name in _SLIM_FAMILY:
-            plan = plan_for(rules[name])
+            plan = cut_plan(rules[name])
             dense = sum(g.kind == "dense" for g in plan.groups)
             expect = {"mega_adam_update": 3 * dense, "mega_slim_update_batched": 3 * (len(plan.groups) - dense),
                       "snr_stats_centered_batched": 0}
@@ -4562,7 +5053,7 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        tr = Trainer(cfg, name, lr, data, TrainerConfig(total_steps=3, log_every=1, backend="fused", seed=0),
+        tr = Trainer(bcfg, name, lr, data, TrainerConfig(total_steps=3, log_every=1, backend="fused", seed=0),
                      rules=derived if name == "slim_snr" else None, gen=card_gen())
         t0 = time.perf_counter()
         _, counts = counted(name, tr.run, expect)
@@ -4584,7 +5075,7 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
         if name in _SLIM_FAMILY:
             dims = slim_rule_dims(name, tr.params, tr.meta, derived if name == "slim_snr" else None)
             run["fused_vs_jnp"] = fused_vs_jnp(name, lambda b, dims=dims: scale_by_slim_adam(dims, backend=b),
-                                               grads_of(cfg, tr.params, tr.batch(100), forward),
+                                               grads_of(bcfg, tr.params, tr.batch(100), forward),
                                                tr.opt_state.inner_states[1])
         runs[name] = run
         trainers[name] = tr
@@ -4736,8 +5227,8 @@ def baselines_phase(torch, smi, cfg, meta, data, lr, derived, plan_for, hold_pla
 # Phase 10 geometry: olmoe_1b_7b served at full width and depth, 8 slots, pages of 16.
 MOE_SC = dict(max_seq=576, page_size=16, max_slots=8, prefill_chunk=128)
 MOE_REQUESTS, MOE_NEW = 8, 32
-# Phase 11: olmoe_1b_7b at full width cut to 2 of its 16 layers, ZipfLM 2 x 2048.
-MOE_TRAIN_LAYERS, MOE_TRAIN_ROWS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 2, 2048, 4
+# Phase 11: olmoe_1b_7b at full width cut to 1 of its 16 layers, ZipfLM 2 x 2048.
+MOE_TRAIN_LAYERS, MOE_TRAIN_ROWS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 1, 2, 2048, 4
 # Adam without warmup: at 1e-3 the first step moves the untied 2048-wide head's logits by several
 # units and the loss jumps (11.3 to 19.8 on an H100); 1e-4 is a quarter of OLMoE's peak rate.
 MOE_TRAIN_LR = 1e-4
@@ -5072,8 +5563,8 @@ def moe_train_phase(torch, timer, rate: float, smi: str):
         tr = Trainer(cut, optimizer, MOE_TRAIN_LR, data, tc)   # on the host, as 7g's
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in tr.params.values())
-        if n_params != 1_045_178_368:
-            raise AssertionError(f"the {MOE_TRAIN_LAYERS}-layer cut has {n_params} parameters, expected 1045178368")
+        if n_params != 625_612_800:
+            raise AssertionError(f"the {MOE_TRAIN_LAYERS}-layer cut has {n_params} parameters, expected 625612800")
         rules = {} if optimizer == "adam" else table3_rules(tr.meta)
         dims = rules_to_dims(rules, tr.meta)
         leaves = list(tr.params.values())
@@ -5319,7 +5810,7 @@ def diy_phase(torch, smi: str):
 ZOO_STEPS = 3
 ZOO_LR = 1e-4
 ZOO_VLM_LAYERS = 2       # internvl2_26b: Adam's state at 2 layers would not fit; SlimAdam's does
-ZOO_HUBERT_LAYERS = 12   # hubert_xlarge at full width, 12 of its 48 layers: the whole run's time (236,606,720 params)
+ZOO_HUBERT_LAYERS = 6    # hubert_xlarge at full width, 6 of its 48 layers: the whole run's time (118,626,560 params)
 ZOO_SERVE = (("qwen15_32b", 4, 3_659_637_760), ("command_r_35b", 2, 3_506_479_104), ("deepseek_67b", 2, 3_061_882_880))
 ZOO_SC = dict(max_seq=576, page_size=16, max_slots=8, prefill_chunk=128)
 ZOO_REQUESTS, ZOO_NEW = 4, 16
@@ -5545,7 +6036,7 @@ def zoo_train_phase(torch, timer, smi: str):
         f"SNR, derived SlimAdam, Table-3 SlimAdam ({smi})")
     batch = {"frontend_embeds": torch.randn((2, 4096, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16),
              "labels": torch.randint(0, cfg.vocab_size, (2, 4096), generator=gen, device=dev)}
-    report["hubert_xlarge"], counts = zoo_train(torch, cfg, batch, smi, n_params=236_606_720, derive=True)
+    report["hubert_xlarge"], counts = zoo_train(torch, cfg, batch, smi, n_params=118_626_560, derive=True)
     add(counts)
 
     cfg = get_config("vit_small")
@@ -5901,9 +6392,10 @@ def fault_phase(torch, rate: float, smi: str, clean_tokens):
                            kernel_launches=res.kernel_launches, launches=counts)
 
     # -- 15b. the plan scaled to phase 5's full-width engine ------------------
-    cfg = get_config("smollm_135m")
+    cfg = get_config("smollm_135m", n_layers=SERVE_LAYERS)
     plan = ServeFaultPlan(**FAULT_PLAN_FULL)
-    log(f"[15b] the fault plan on phase 5's engine: full-width smollm_135m (weights from seed 0, as phase 5), its 32 "
+    log(f"[15b] the fault plan on phase 5's engine: full-width smollm_135m cut to {cfg.n_layers} layers (weights "
+        f"from seed 0, as phase 5), its 32 "
         f"requests, {SERVE_SC}, {plan}, the last request's deadline {FAULT_DEADLINE_FULL_S} s; each degraded step's "
         f"logits held against the kernel's on the same state, tolerance {TOL_SERVE_LOGITS:.0e} of max|logit| ({smi})")
     params = Transformer(cfg, device=dev, gen=torch.Generator().manual_seed(0)).params
@@ -6330,6 +6822,8 @@ def contracts_phase(torch, smi: str) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--dryrun-6k"]:
         return dryrun_6k(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--dryrun-6m"]:
+        return dryrun_6m(Path(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--racecheck-cases"]:
         return racecheck_cases()
     import torch
@@ -6375,6 +6869,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("---"):
             log("    " + line.strip())
     report["build"] = build.build_log
+    dry = start_dryruns()
 
     timer = Timer(torch)
     dev = torch.device("cuda")
@@ -6698,16 +7193,30 @@ def main() -> int:
         log(f"  [phase {name}: {phase_s[name]:.1f} s; {now - t_start:.0f} s since the start]")
 
     stamp("1-3")
-    report["robust"] = robust_phases(torch, timer, smi, cfg, specs, meta, data, lr, t3_plan, t3_dims)
+    rcfg = dataclasses.replace(cfg, n_layers=ROBUST_LAYERS)
+    rspecs = dict(flatten_with_names(rcfg.specs()))
+    rmeta = {k: s.meta() for k, s in rspecs.items()}
+    rdims = rules_to_dims(table3_rules(rmeta), rmeta)
+    rplan = megaplan.plan_megagroups([s.shape for s in rspecs.values()], [torch.float32] * len(rspecs),
+                                     [rdims[k] for k in rspecs])
+    report["robust"] = robust_phases(torch, timer, smi, rcfg, rspecs, rmeta, data, lr, rplan, rdims)
     stamp("3b-3f")
     report["serve"], paged_entry = serve_phases(torch, timer, rate, smi)
     stamp("4-5")
     del timer
     torch.cuda.empty_cache()
-    report["sharded"] = sharded = sharded_phase(torch, smi, rate)
-    stamp("6")
-    report["tp"], tp_launches = tp_phase(torch, smi, rate)
+    # phases 6 and 6f-6l share their 4 rank processes (mesh_rank)
+    mesh_work = ROOT / "build" / "chip_smoke_mesh"
+    ranks = start_ranks(mesh_work, mesh_rank, rate, str(mesh_work / "ckpt"), smi)
+    try:
+        report["sharded"] = sharded = sharded_phase(torch, smi, rate, ranks)
+        stamp("6")
+        report["tp"], tp_launches = tp_phase(torch, smi, rate, dry, ranks)
+    finally:
+        kill_ranks(ranks)
     stamp("6f-6l")
+    report["launch"], launch_launches = launch_phase(torch, smi, dry)
+    stamp("6m")
     timer = Timer(torch)
     report["ssm"], ssm_entry = ssm_phase(torch, timer, rate, smi)
     stamp("7")
@@ -6822,11 +7331,12 @@ def main() -> int:
     # drills), B1, B2, B5 (olmoe training, diy_slim, the zoo's training), B15
     # (diy_slim, the jamba period) and the scan's backward (diy_slim), none
     # with a flag; phase 6f-6h's counted runs on rank 0 B1, B2, B5, B9, B12,
-    # B13, and B15 and the backward on falcon's channel shards.
+    # B13, and B15 and the backward on falcon's channel shards; 6m's two jobs
+    # on rank 0 B2, B12 and B13.
     for e in line["kernels"]:
         e["launches"] += sum(c.get(e["name"], 0) for c in (moe_serve_launches, moe_train_launches, diy_launches,
                                                              zoo_train_launches, zoo_serve_launches, fault_launches,
-                                                             tp_launches))
+                                                             tp_launches, launch_launches))
     report["b14_held"] = B14_HELD
     paged_entry["max_abs_err"] = max(paged_entry["max_abs_err"], *(h["err"] for h in B14_HELD.values()))
     paged_entry["olmoe_decode_ms"] = B14_HELD["olmoe decode bfloat16 q bfloat16 pool"]["ms"]

@@ -109,18 +109,20 @@ def _host(leaf: Any, *, copy: bool = False) -> np.ndarray:
     return np.array(leaf, copy=True) if copy else np.asarray(leaf)
 
 
-def gather_to_host(tree: Any, shardings: Any, *, keep: bool = True) -> Any:
+def gather_to_host(tree: Any, shardings: Any, *, dst: Optional[int] = None) -> Any:
     """The tree as whole host arrays, as a checkpoint holds it: each leaf
     that ``shardings`` (a like-named tree of ``repro_torch.launch.mesh
     .NamedSharding``s, e.g. ``{"params": ..., "opt": ...}``) names is this
     rank's shard, gathered whole and copied to the host at once, leaf by
     leaf, so one whole leaf is live on the device at a time. A collective:
-    every rank calls it; ranks with ``keep=False`` drop each leaf and get
+    every rank calls it. With ``dst`` only that rank receives the leaves
+    (each gathered to it alone) and gets the tree; every other rank gets
     None."""
     by_name = dict(named_leaves(shardings))
+    keep = dst is None or torch.distributed.get_rank() == dst
 
     def leaf(name, x):
-        whole = by_name[name].gather(x) if name in by_name else x
+        whole = by_name[name].gather(x, dst=dst) if name in by_name else x
         return _host(whole, copy=True) if keep else None
 
     out = _walk(tree, "", leaf)

@@ -30,7 +30,8 @@ The record (JSON, under ``build/dryrun/`` by default, never under
 optimizer and backend; the rank's persistent bytes (``reckon_bytes``; a
 decode cell's parameter shards and its block of the cache), the
 peak of one step a rank by category (``torch.distributed._tools
-.mem_tracker.MemTracker`` over the step, on top of the persistent bytes)
+.mem_tracker.MemTracker`` over the step, the persistent bytes tracked
+from its start)
 and whether it fits the card's memory; matmul FLOPs a rank
 (``torch.utils.flop_counter.FlopCounterMode``, the counterpart of JAX's
 ``hlo_dot_flops_per_dev``); the bytes every operation reads and writes;
@@ -192,6 +193,9 @@ def build_cell(arch: str, shape: str, mesh, *, optimizer: str = "slim", grad_acc
                 raise AssertionError(f"{arch} {shape}: the rank holds {held} bytes, reckoned {reckoned}")
             info.update(optimizer="slim_adam(table3)" if name == "slim" else "adamw", opt_backend=backend,
                         grad_accum=accum, persistent=held)
+            # counted in the step's peak from its start ('Other'): the step reads the parameter and
+            # optimizer-state shards through views, which would otherwise count each again
+            info["held"] = list(run.model.params.values()) + _tensors(run.opt_state)
             return run.step, (run.opt_state, batch), ctx, info, cfg
         stored = launch.stored_weights(cfg, mesh)
         info["persistent"] = {"params": sum(t.numel() * t.element_size() for t in stored.values()), "opt": 0}
@@ -284,8 +288,9 @@ def _tensors(tree):
 def measure(fn, args, mesh, held=()) -> Dict[str, Any]:
     """Run ``fn(*args)`` once on ``meta`` under the counters: matmul FLOPs,
     bytes moved, the peak of the memory the step allocates by category
-    (with the tensors of ``held``, a decode cell's parameter shards and
-    cache, counted from the start as 'Other': a view of a tensor made
+    (with the tensors of ``held``, the parameter and optimizer-state
+    shards or a decode cell's stored shards and cache, counted from the
+    start as 'Other': a view of a tensor made
     before the step would otherwise count it once it is touched), the
     collectives by kind and the kernel wrappers' calls on ``meta``, the
     launches the card would make (each reset first)."""
@@ -358,8 +363,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, optimizer: str = "slim", 
     n_chips = mesh.size
     persistent = info.pop("persistent")
     record.pop("persistent", None)
-    # a decode cell's step peak counts its held parameter shards and cache from the start
-    peak = counted["step_peak"] if held else persistent["params"] + persistent["opt"] + counted["step_peak"]
+    # the step's peak counts the held shards (and a decode cell's cache) from the start
+    peak = counted["step_peak"]
     record.update(status="ok", n_chips=n_chips, mesh_shape=dict(mesh.shape), card=mesh_mod.CARD,
                   build_s=round(time.perf_counter() - t0 - counted["step_s"], 2), step_s=round(counted["step_s"], 2),
                   persistent_bytes=persistent, peak_bytes=peak, peak_categories=counted["step_categories"],

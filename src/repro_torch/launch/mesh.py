@@ -251,17 +251,30 @@ class Mesh:
             out = out.narrow(d, start, length)
         return out.contiguous() if out is not full else full
 
-    def gather(self, local: torch.Tensor, spec: Optional[PartitionSpec]) -> torch.Tensor:
-        """The global tensor from every rank's shard under an even ``spec``
-        (one all_gather over the axes the spec uses; none for a replicated
-        leaf)."""
+    def gather(self, local: torch.Tensor, spec: Optional[PartitionSpec], *,
+               dst: Optional[int] = None) -> Optional[torch.Tensor]:
+        """The global tensor from every rank's shard under an even ``spec``:
+        on every rank (one all_gather over the axes the spec uses; none for
+        a replicated leaf), or with ``dst`` on that rank alone and None
+        elsewhere (one gather to it from the ranks of its group over those
+        axes; the other groups hold replicas and send nothing)."""
         axes = tuple(a for e in spec_entries(spec, local.ndim) for a in e)
         if not axes:
-            return local
+            return local if dst is None or self.rank == dst else None
         shape = global_shape(tuple(local.shape), spec, self)
-        _, members = self._group(axes)
+        group, members = self._group(axes)
+        if dst is None:
+            parts = self.all_gather(local, axes)
+        elif dst not in members:
+            return None
+        else:
+            src = local.contiguous()
+            parts = [torch.empty_like(src) for _ in members] if self.rank == dst else None
+            dist.gather(src, parts, dst=dst, group=group)
+            if self.rank != dst:
+                return None
         out = torch.empty(shape, dtype=local.dtype, device=local.device)
-        for r, part in zip(members, self.all_gather(local, axes)):
+        for r, part in zip(members, parts):
             view = out
             for d, start, length in self._block(shape, spec, self.coords_of(r)):
                 view = view.narrow(d, start, length)
@@ -389,8 +402,8 @@ class NamedSharding:
     def shard(self, full: torch.Tensor) -> torch.Tensor:
         return self.mesh.shard(full, self.spec)
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
-        return self.mesh.gather(local, self.spec)
+    def gather(self, local: torch.Tensor, *, dst: Optional[int] = None) -> Optional[torch.Tensor]:
+        return self.mesh.gather(local, self.spec, dst=dst)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None, backend: Optional[str] = None,

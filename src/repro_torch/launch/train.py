@@ -212,10 +212,10 @@ def restore(run: Sharded, ckpt: str, step: Optional[int] = None) -> tuple:
 
 
 def save(run: Sharded, opt_state, acp: store.AsyncCheckpointer, ckpt: str, step: int) -> None:
-    """Gather the state whole, leaf by leaf (a collective: every rank calls
-    it), and have rank 0 hand it to ``acp``: the same files as an unsharded
-    run's."""
-    host = store.gather_to_host(run.state(opt_state), run.shardings(), keep=run.mesh.rank == 0)
+    """Gather the state whole to rank 0, leaf by leaf (a collective: every
+    rank calls it), and have rank 0 hand it to ``acp``: the same files as an
+    unsharded run's."""
+    host = store.gather_to_host(run.state(opt_state), run.shardings(), dst=0)
     if host is not None:
         acp.save(ckpt, step, host, extra={"step": step})
 
@@ -244,8 +244,12 @@ def train(run: Sharded, data: ZipfLM, steps: int, *, start: int = 0, ckpt: Optio
                                    nonfinite=float(metrics["nonfinite_count"]))
             if action == ROLLBACK:
                 guard.note_rollback()
-                if ckpt and store.latest_step(ckpt) is not None:
+                if ckpt:
+                    # rank 0 writes the checkpoints in the background: its writes land before any rank
+                    # looks, so every rank restores the same step
                     acp.wait()
+                    run.mesh.barrier()
+                if ckpt and store.latest_step(ckpt) is not None:
                     opt_state, extra = restore(run._replace(opt_state=opt_state), ckpt)
                     log(f"step {s + 1}: guard rolled back to checkpoint step {int(extra.get('step', 0))}")
         else:

@@ -8,12 +8,16 @@ process a rank that rendezvous through a file under ``tmp_path``, each
 calling ``fn(mesh, *args)``; it returns the results in rank order, and
 raises with the failing rank's traceback if any rank raises, or when the
 deadline passes (the process groups' own timeout ends ranks blocked in a
-collective).
+collective). With ``fresh=True`` no mesh is built: each rank gets the
+environment torchrun gives it (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) and calls ``fn(None, *args)``.
 """
 from __future__ import annotations
 
 import datetime
+import os
 import queue
+import socket
 import time
 import traceback
 
@@ -25,27 +29,43 @@ MESH_SHAPE = (2, 2)
 MESH_AXES = ("data", "model")
 
 
-def _worker(rank, fn, rdv, args, out, timeout_s, shape, axes):
+def _worker(rank, fn, rdv, args, out, timeout_s, shape, axes, port):
     try:
         torch.set_num_threads(1)
-        from repro_torch.launch.mesh import make_mesh
-
-        mesh = make_mesh(shape, axes, device="cpu", init_method=f"file://{rdv}", rank=rank,
-                         world_size=int(np.prod(shape)), timeout=datetime.timedelta(seconds=timeout_s))
-        out.put((rank, "ok", fn(mesh, *args)))
         import torch.distributed as dist
 
-        dist.destroy_process_group()
+        from repro_torch.launch.mesh import make_mesh
+
+        world = int(np.prod(shape))
+        if port is None:
+            mesh = make_mesh(shape, axes, device="cpu", init_method=f"file://{rdv}", rank=rank, world_size=world,
+                             timeout=datetime.timedelta(seconds=timeout_s))
+        else:
+            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                              MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            mesh = None
+        out.put((rank, "ok", fn(mesh, *args)))
+        if dist.is_initialized():
+            dist.destroy_process_group()
     except Exception:   # noqa: BLE001 — a rank reports every failure to the parent
         out.put((rank, "error", traceback.format_exc()))
 
 
-def run_ranks(fn, tmp_path, *args, timeout_s: float = 120.0, shape=MESH_SHAPE, axes=MESH_AXES):
+def free_port() -> int:
+    """A TCP port on the loopback address that no socket holds now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(fn, tmp_path, *args, timeout_s: float = 120.0, shape=MESH_SHAPE, axes=MESH_AXES, fresh=False):
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     rdv = tmp_path / f"rdv-{time.monotonic_ns()}"
     world = int(np.prod(shape))
-    procs = [ctx.Process(target=_worker, args=(r, fn, str(rdv), args, out, timeout_s, tuple(shape), tuple(axes)),
+    port = free_port() if fresh else None
+    procs = [ctx.Process(target=_worker, args=(r, fn, str(rdv), args, out, timeout_s, tuple(shape), tuple(axes),
+                                               port),
                          daemon=True)
              for r in range(world)]
     for p in procs:
@@ -632,3 +652,202 @@ def decode_cell_step(mesh, arch, seq, batch):
     return {"coords": dict(mesh.coords), "bytes": held,
             "collectives": {k: {"calls": int(v["calls"]), "bytes": int(v["bytes"])} for k, v in stats.items()},
             "launches": {k: v for k, v in kernels.launch_counts().items() if v}}
+
+
+def train_cell_peak(mesh, arch, seq, batch):
+    """One step of the dry run's reduced ``train_4k`` cell
+    (``launch.dryrun.cell_config``; ``launch.train.build``: Table-3
+    SlimAdam on the fused route, grad_accum 1) on this
+    rank: its persistent bytes and the peak of the live tensors over the
+    step (``MemTracker`` with the parameter and optimizer-state shards
+    tracked from the start, each storage once however the step views it)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.launch import dryrun, train as launch
+    from repro_torch.sharding import ShardingContext, use_sharding
+
+    cfg = dryrun.cell_config(arch, "train_4k", reduced=True, seq=seq)
+    data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
+    with use_sharding(ShardingContext(mesh, rules=dict(cfg.sharding_overrides) or None)):
+        run = launch.build(cfg, "slim", 3e-4, mesh, backend="fused", grad_accum=1)
+        batch_ = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
+        mem = MemTracker()
+        mem.track_external(*run.model.params.values(),
+                           *(t for t in tree_leaves(run.opt_state) if isinstance(t, torch.Tensor)))
+        with mem:
+            run.step(run.opt_state, batch_)
+    peak = mem.get_tracker_snapshot("peak")[torch.device("cpu")]["Total"]
+    return {"coords": dict(mesh.coords), "bytes": run.persistent_bytes(), "peak": int(peak)}
+
+
+# -- the launcher on a mesh ----------------------------------------------------
+
+# The harness's small meshes with the production meshes' axes: what
+# ``launch.mesh.make_production_mesh`` builds in the launcher's rank
+# processes here, in place of (16, 16) and (2, 16, 16).
+LAUNCH_MESHES = {False: ((2, 2), ("data", "model")), True: ((2, 2, 2), ("pod", "data", "model"))}
+
+
+def launcher_main(mesh, argvs, plan=None, lazy_disk: bool = False):
+    """``repro_torch.launch.train.main(argv)`` on this rank for each of
+    ``argvs``, as a torchrun rank runs it, with the production mesh
+    replaced by :data:`LAUNCH_MESHES`' of the same axes. ``mesh`` is the
+    harness's own (None for a fresh rank, whose group ``main`` starts from
+    ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``). Every argv
+    names ``--optimizer``, ``--backend`` and ``--lr``. Captured from
+    ``train``'s call: each step's metrics, the mesh ``main`` built, this
+    rank's shard shapes and final shards, its bytes beside ``reckon_bytes``
+    under the same context, the steps its rollbacks restored, and what
+    ``main`` printed.
+
+    A ``--guard`` run takes the faults of ``plan`` (a ``FaultPlan``, 0-based
+    steps) as the Trainer takes them: a NaN or Inf step's gradients scaled
+    through the guard's controls (the state copied before and after the
+    first such step), a spike step's loss multiplied where the guard
+    observes it; its guard's counters are kept. ``lazy_disk``: in a
+    ``--guard`` run rank 0's background checkpoint writes land only once
+    rank 0 waits for them (``AsyncCheckpointer.wait``), the slowest disk the
+    launcher must be right on."""
+    import contextlib
+    import io
+    import threading
+
+    from repro_torch import injection
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import mesh as launch_mesh, train as launch
+    from repro_torch.train.faults import FaultPlan
+
+    launch_mesh.make_production_mesh = lambda *, multi_pod=False, **kw: launch_mesh.make_mesh(
+        *LAUNCH_MESHES[multi_pod], **kw)
+    plan = plan or FaultPlan()
+    real = {"Guard": launch.Guard, "train": launch.train, "restore": launch.restore}
+    seen = {}
+
+    class Guard(real["Guard"]):
+        def controls(self, grad_scale=1.0):
+            seen["guard"] = self
+            return super().controls(grad_scale * plan.grad_scale(seen["at"]))
+
+        def observe(self, loss, **kw):
+            return super().observe(plan.corrupt_loss(seen["at"] - 1, loss), **kw)
+
+    def restore(run, ckpt, step=None):
+        opt_state, extra = real["restore"](run, ckpt, step)
+        seen["restored"].append(int(extra["step"]))
+        return opt_state, extra
+
+    def train(run, data, steps, *, start=0, **kw):
+        argv = seen["argv"]
+        flag = lambda name: argv[argv.index(name) + 1]   # noqa: E731
+        seen.update(at=start, start=start, run=run, reckoned=launch.reckon_bytes(
+            run.model.cfg, flag("--optimizer"), float(flag("--lr")), run.mesh, backend=flag("--backend"),
+            guard="--guard" in argv))
+        step = run.step
+
+        def counted(opt_state, batch, *controls):
+            poisoned = controls and "before" not in seen and seen["at"] in plan.nan_grad_steps + plan.inf_grad_steps
+            if poisoned:
+                seen["before"] = _copy_state(run.state(opt_state))
+            new_state, metrics = step(opt_state, batch, *controls)
+            if poisoned:
+                seen["after"] = _copy_state(run.state(new_state))
+            seen["at"] += 1
+            return new_state, metrics
+
+        rows, opt_state = real["train"](run._replace(step=counted), data, steps, start=start, **kw)
+        seen.update(rows=rows, opt_state=opt_state)
+        return rows, opt_state
+
+    lead = (mesh.rank if mesh is not None else int(os.environ["RANK"])) == 0
+    real["wait"] = store.AsyncCheckpointer.wait
+
+    def wait(acp):
+        seen["landed"].set()
+        return real["wait"](acp)
+
+    def hold(step):
+        if "--guard" in seen["argv"] and lead:
+            seen["landed"].wait(timeout=120)
+
+    launch.Guard, launch.train, launch.restore = Guard, train, restore
+    store.AsyncCheckpointer.wait = wait
+    out = {"coords": None if mesh is None else dict(mesh.coords)}
+    try:
+        with injection.installed(store.IO_FAULT_POINT, hold) if lazy_disk else contextlib.nullcontext():
+            for argv in argvs:
+                seen.clear()
+                seen.update(argv=argv, restored=[], landed=threading.Event())
+                printed = io.StringIO()
+                with contextlib.redirect_stdout(printed):
+                    launch.main(argv)
+                run = seen["run"]
+                state = _copy_state(run.state(seen["opt_state"]))
+                res = {"mesh": dict(run.mesh.shape), "coords": dict(run.mesh.coords), "start": seen["start"],
+                       "rows": seen["rows"], "printed": printed.getvalue(), "restored": seen["restored"],
+                       "shapes": {k: tuple(t.shape) for k, t in state.items()},
+                       "state": {k: _np(t) for k, t in state.items()},
+                       "bytes": (run.persistent_bytes(), seen["reckoned"])}
+                if "guard" in seen:
+                    res["counters"] = dict(seen["guard"].counters)
+                if "before" in seen:
+                    before, after = seen["before"], seen["after"]
+                    res["same"] = before.keys() == after.keys() and all(torch.equal(before[k], after[k])
+                                                                        for k in before)
+                out[" ".join(argv)] = res
+    finally:
+        launch.Guard, launch.train, launch.restore = real["Guard"], real["train"], real["restore"]
+        store.AsyncCheckpointer.wait = real["wait"]
+    return out
+
+
+def launcher_recipe(mesh, arrays, data_kw, lr, steps):
+    """JAX's launcher recipe by hand on this rank of ``mesh``:
+    ``launch.train.build(whole=...)`` from given weights (``{arch:
+    arrays}``) and ``train`` for ``steps`` steps, Adam and Table-3 SlimAdam
+    on the fused route. Returns each run's shard shapes and losses."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import DataConfig, ZipfLM
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import ShardingContext, use_sharding
+
+    out = {"coords": dict(mesh.coords)}
+    for arch, arr in arrays.items():
+        cfg = get_reduced(arch)
+        data = ZipfLM(DataConfig(vocab_size=cfg.vocab_size, **data_kw))
+        with use_sharding(ShardingContext(mesh, rules=dict(cfg.sharding_overrides) or None)):
+            for opt in ("adam", "slim"):
+                run = launch.build(cfg, opt, lr, mesh, whole=params_from_numpy(arr, "cpu"))
+                shapes = {name: tuple(t.shape) for name, t in _copy_state(run.state()).items()}
+                rows, _ = launch.train(run, data, steps, log=lambda *a: None)
+                out[(arch, opt)] = {"shapes": shapes, "losses": [r["loss"] for r in rows]}
+    return out
+
+
+def gathered_state(mesh, dsts):
+    """Reduced gpt_small's launcher state (Table-3 SlimAdam on the fused
+    route: owner slices) on this rank of the mesh, gathered whole to every
+    rank and to each rank of ``dsts`` alone (``store.gather_to_host``):
+    what this rank got each way."""
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import ShardingContext, use_sharding
+
+    cfg = get_reduced("gpt_small")
+    with use_sharding(ShardingContext(mesh)):
+        run = launch.build(cfg, "slim", 1e-3, mesh, backend="fused")
+        out = {"all": store.gather_to_host(run.state(), run.shardings())}
+        for dst in dsts:
+            out[dst] = store.gather_to_host(run.state(), run.shardings(), dst=dst)
+    return {k: None if v is None else {name: np.asarray(x) for name, x in store.named_leaves(v)}
+            for k, v in out.items()}
+
+
+def launcher_job(mesh, argvs, plan, lazy_disk, arrays, data_kw, lr, steps, dsts):
+    """:func:`launcher_main`, :func:`launcher_recipe` and
+    :func:`gathered_state` on the same ranks."""
+    return {"main": launcher_main(mesh, argvs, plan, lazy_disk),
+            "recipe": launcher_recipe(mesh, arrays, data_kw, lr, steps), "gathered": gathered_state(mesh, dsts)}

@@ -464,3 +464,18 @@ def test_reduced_decode_cell_equals_the_mesh_step(tmp_path, arch):
     mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_periods
     assert rec["launches"] == ({"ssm_scan": mamba} if mamba else {})
     assert rec["collectives"]["psum"]["calls"] > 0   # the regions' partial sums over model
+
+
+def test_train_cell_counts_the_held_shards_once(tmp_path):
+    """A reduced train cell on a (2, 2) mesh: the dry run's peak within 5 %
+    of the same step's on 4 gloo CPU ranks, where the rank's parameter and
+    optimizer-state storages are counted once however the step views them
+    (the dry run counted them again at each view: 1.28x)."""
+    import _torch_ranks as ranks
+
+    rec = _port_cell(tmp_path, "--arch", "gpt_small", "--reduced", "--shape", "train_4k", "--seq", "32", "--batch",
+                     "8", "--mesh-shape", "2,2", "--grad-accum", "1", "--backend", "fused")
+    steps = ranks.run_ranks(ranks.train_cell_peak, tmp_path, "gpt_small", 32, 8)
+    for r in steps:
+        assert r["bytes"] == rec["persistent_bytes"], (r["coords"], r["bytes"], rec["persistent_bytes"])
+        assert 0.95 <= rec["peak_bytes"] / r["peak"] <= 1.05, (r["coords"], rec["peak_bytes"], r["peak"])
